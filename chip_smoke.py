@@ -11,11 +11,27 @@ Phases, each printing its own line:
      (512^2 pixels, SIREN depth 8, width 128) in both precision modes, with
      the tolerances below, and the time of each (CUDA events); as a control,
      the other mode's kernel must fail each mode's tolerances;
-  4. the main path through the port's entry points: compress.main
-     (fit -> k-means finetune -> plain container -> decode) at full width,
-     then decompress.decode_run on its run dir. Every kernel of the path
-     must have launched during this phase; the decoded PSNR must be finite
-     and >= 20 dB, the container exactly the size its shapes imply.
+  4. the dense path through the port's entry points: compress.main
+     (masking=none: fit -> k-means finetune -> plain container -> decode) at
+     full width, then decompress.decode_run on its run dir. Every kernel of
+     the path must have launched during this phase; the decoded PSNR must be
+     finite and >= 20 dB, the container exactly the size its shapes imply;
+  5. the default path, compress.main with the composed defaults (RigL,
+     density 0.5, a mask update every 20 steps: 10 in 200 steps) at the
+     same size, then decode_run: every kernel launched, each layer's weight
+     count in mask.npz equal to its count at init (RigL without
+     redistribution conserves it) while the masks moved, every pruned weight
+     exactly 0 in model.npz and in the decoded params, decoded PSNR >= 20 dB,
+     the expected container size, decoded MS-SSIM in (0, 1];
+  6. short runs of the other masking presets (SNFS, Pruning = GMP,
+     Small_Dense at width 57): finite decoded PSNR, every kernel launched,
+     the expected container size, and GMP's density below 1 after its first
+     update;
+  7. two codebook finetunes from phase 5's fit params and masks must agree
+     bit for bit (centroids, labels, quant PSNR).
+
+Each of phases 4-6 sets the launch counts to 0 just before its run and
+reads them just after.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
@@ -26,6 +42,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -49,6 +66,15 @@ SMOKE_OVERRIDES = [
     "masking=none", "train.num_steps=200", "train.log_steps=100",
     "quant.num_steps=20", "entropy_coding=plain", "output_dir=outputs/chip_smoke",
 ]
+DEFAULT_OVERRIDES = [
+    "train.num_steps=200", "train.log_steps=100", "quant.num_steps=20",
+    "entropy_coding=plain", "output_dir=outputs/chip_smoke_default",
+]
+PRESET_OVERRIDES = [
+    "train.num_steps=60", "train.log_steps=10", "quant.num_steps=10", "entropy_coding=plain",
+]
+PRESETS = ("SNFS", "Pruning", "Small_Dense")
+SMALL_DENSE_WIDTH = 57  # int(128 * sqrt(0.2))
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -228,6 +254,12 @@ def _expected_container_bytes(cfg) -> int:
     return total
 
 
+def _check_launches(launches: dict, what: str) -> None:
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} did not launch on the {what}")
+
+
 def phase_main_path() -> dict:
     import numpy as np
     import torch
@@ -239,6 +271,7 @@ def phase_main_path() -> dict:
     if int(cfg.mlp.depth) != DEPTH or int(cfg.mlp.hidden_size) != WIDTH:
         raise AssertionError("the smoke run must use the full-width SIREN")
     run_dir = cfg.output_dir
+    shutil.rmtree(run_dir, ignore_errors=True)  # metrics.jsonl appends
     sm.reset_launch_counts()
     t0 = time.perf_counter()
     psnr, nbytes = compress.main(cfg, run_dir=run_dir)
@@ -262,9 +295,7 @@ def phase_main_path() -> dict:
         f"bytes {nbytes} (expected {expected}); launches {launches}",
         flush=True,
     )
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} did not launch on the main path")
+    _check_launches(launches, "main path")
     if not (math.isfinite(psnr) and psnr >= 20.0):
         raise AssertionError(f"decoded PSNR {psnr} is not finite or below 20 dB")
     if nbytes != expected:
@@ -276,7 +307,174 @@ def phase_main_path() -> dict:
     redecoded = 10.0 * np.log10(1.0 / np.mean((img.astype(np.float64) - target) ** 2))
     if abs(redecoded - psnr) > 1e-3:
         raise AssertionError(f"decode_run gives {redecoded} dB, compress reported {psnr}")
-    return launches
+    return launches, summary
+
+
+def phase_default_path(dense_summary: dict) -> str:
+    """Phase 5; returns its run dir."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.coding import decompress_state_dict
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.sparsity import create_mask_state
+
+    cfg = compress.compose(DEFAULT_OVERRIDES)
+    masking = compress.masking_config(cfg)
+    if masking is None or masking.name != "RigL":
+        raise AssertionError(f"the composed default masking is {masking}, not RigL")
+    if int(cfg.mlp.depth) != DEPTH or int(cfg.mlp.hidden_size) != WIDTH:
+        raise AssertionError("the smoke run must use the full-width SIREN")
+    num_steps = int(cfg.train.num_steps)
+    updates = sum(1 for s in range(num_steps)
+                  if (s + 1) % masking.interval == 0 and s <= masking.end_when)
+    # the initial masks as the fit draws them: init weights, then masks, from
+    # one CPU generator seeded with cfg.seed
+    gen = torch.Generator().manual_seed(int(cfg.seed))
+    mdef, mcfg = build_model_from_config(cfg)
+    init = create_mask_state(gen, mdef.init(gen, mcfg, "cpu"), masking)
+    init_counts = {i: int(m.sum()) for i, m in enumerate(init.masks) if m is not None}
+    init_density = float(init.baseline_nonzero / init.total_params)
+
+    run_dir = cfg.output_dir
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sm.reset_launch_counts()
+    psnr, nbytes = compress.main(cfg, run_dir=run_dir)
+    img, stats = decompress.decode_run(run_dir, device=cfg.get("device", "cuda"))
+    launches = dict(sm.LAUNCHES)
+
+    summary = json.loads(open(f"{run_dir}/summary.json").read())
+    train = [x for x in map(json.loads, open(f"{run_dir}/metrics.jsonl")) if x["prefix"] == "Train"]
+    masks = np.load(f"{run_dir}/mask.npz")
+    model = np.load(f"{run_dir}/model.npz")
+    decoded = decompress_state_dict(f"{run_dir}/model_quantized", "plain")
+    final_counts = {int(k.split(".")[1]): int(masks[k].sum()) for k in masks.files}
+    moved = sum(int((masks[f"layers.{i}.mask"] != init.masks[i].numpy()).sum())
+                for i in init_counts)
+    expected = _expected_container_bytes(cfg)
+    ms_step = summary["fit_wall_s"] / num_steps * 1e3
+    dense_ms_step = dense_summary["fit_wall_s"] / int(
+        compress.compose(SMOKE_OVERRIDES).train.num_steps) * 1e3
+    print(
+        f"[5 default path] RigL, {updates} mask updates; fit {summary['fit_wall_s']:.3f} s = "
+        f"{ms_step:.3f} ms/step (phase 4, masking=none: {dense_ms_step:.3f} ms/step), quant "
+        f"{summary['quant_wall_s']:.3f} s; decode_run render {stats['render_s'] * 1e3:.2f} ms",
+        flush=True,
+    )
+    print(
+        f"[5 default path] density at init {init_density:.6f}, "
+        f"logged {[x['Density'] for x in train]}; layer counts init {init_counts}, final "
+        f"{final_counts}; {moved} mask entries moved; fit PSNR {summary['PSNR']:.3f} dB, "
+        f"quant PSNR {summary['Quant PSNR']:.3f} dB, decoded PSNR {psnr:.3f} dB, "
+        f"MS-SSIM {summary['Decoded MS-SSIM']:.6f}, bytes {nbytes} (expected {expected}); "
+        f"launches {launches}",
+        flush=True,
+    )
+    _check_launches(launches, "default path")
+    if updates != 10:
+        raise AssertionError(f"{updates} mask updates, expected 10")
+    if any(abs(x["Density"] - init_density) > 1e-6 for x in train):
+        raise AssertionError("the logged density is not the initial masks' density")
+    if final_counts != init_counts:
+        raise AssertionError(f"RigL changed a layer's weight count: {init_counts} -> "
+                             f"{final_counts}")
+    if moved == 0:
+        raise AssertionError("no mask entry changed over the updates")
+    for i in init_counts:
+        pruned = masks[f"layers.{i}.mask"] == 0
+        if np.any(model[f"layers.{i}.w"][pruned] != 0.0):
+            raise AssertionError(f"layer {i}: a pruned weight is not 0 in model.npz")
+        if np.any(decoded[f"layers.{i}.weight"][pruned] != 0.0):
+            raise AssertionError(f"layer {i}: a pruned weight decodes to nonzero")
+    if not (math.isfinite(psnr) and psnr >= 20.0):
+        raise AssertionError(f"decoded PSNR {psnr} is not finite or below 20 dB")
+    if nbytes != expected:
+        raise AssertionError(f"container is {nbytes} B, shapes imply {expected} B")
+    if not 0.0 < summary["Decoded MS-SSIM"] <= 1.0:
+        raise AssertionError(f"decoded MS-SSIM {summary['Decoded MS-SSIM']} outside (0, 1]")
+    img = np.asarray(img)
+    target = compress._load_image(cfg.img)
+    redecoded = 10.0 * np.log10(1.0 / np.mean((img.astype(np.float64) - target) ** 2))
+    if abs(redecoded - psnr) > 1e-3:
+        raise AssertionError(f"decode_run gives {redecoded} dB, compress reported {psnr}")
+    return run_dir
+
+
+def phase_presets() -> None:
+    """Phase 6: SNFS, Pruning (GMP) and Small_Dense, 60 fit + 10 quant steps."""
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    for preset in PRESETS:
+        cfg = compress.compose(PRESET_OVERRIDES + [
+            f"masking={preset}", f"output_dir=outputs/chip_smoke_{preset.lower()}"])
+        _, mcfg = build_model_from_config(cfg)
+        shutil.rmtree(cfg.output_dir, ignore_errors=True)
+        sm.reset_launch_counts()
+        psnr, nbytes = compress.main(cfg, run_dir=cfg.output_dir)
+        launches = dict(sm.LAUNCHES)
+        summary = json.loads(open(f"{cfg.output_dir}/summary.json").read())
+        train = [x for x in map(json.loads, open(f"{cfg.output_dir}/metrics.jsonl"))
+                 if x["prefix"] == "Train"]
+        density = [round(x["Density"], 6) for x in train if "Density" in x]
+        expected = _expected_container_bytes(cfg)
+        print(
+            f"[6 {preset}] width {mcfg.layer_dims[1][1]}; fit {summary['fit_wall_s']:.3f} s "
+            f"({summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step); "
+            f"density at the log steps "
+            f"{density}; decoded PSNR {psnr:.3f} dB, MS-SSIM "
+            f"{summary['Decoded MS-SSIM']:.6f}, bytes {nbytes} (expected {expected}); "
+            f"launches {launches}",
+            flush=True,
+        )
+        _check_launches(launches, f"masking={preset} path")
+        if not math.isfinite(psnr):
+            raise AssertionError(f"masking={preset}: decoded PSNR {psnr} is not finite")
+        if nbytes != expected:
+            raise AssertionError(f"masking={preset}: container {nbytes} B, expected {expected}")
+        if preset == "Small_Dense" and mcfg.layer_dims[1][1] != SMALL_DENSE_WIDTH:
+            raise AssertionError(f"Small_Dense built width {mcfg.layer_dims[1][1]}, "
+                                 f"expected {SMALL_DENSE_WIDTH}")
+        if preset == "Pruning" and not density[0] < 1.0:
+            raise AssertionError(f"GMP density after its first update is {density[0]}")
+
+
+def phase_repeat(run_dir: str) -> None:
+    """Phase 7: two codebook finetunes from phase 5's fit params and masks."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.training.quant_phase import quant_finetune
+
+    cfg = compress.compose(DEFAULT_OVERRIDES)
+    mdef, mcfg = build_model_from_config(cfg)
+    model, mask = np.load(f"{run_dir}/model.npz"), np.load(f"{run_dir}/mask.npz")
+    dev = torch.device(cfg.get("device", "cuda"))
+    params = tuple({k: torch.from_numpy(model[f"layers.{i}.{k}"]).to(dev) for k in ("w", "b")}
+                   for i in range(len(mcfg.layer_dims)))
+    masks = tuple(torch.from_numpy(mask[f"layers.{i}.mask"]).to(dev)
+                  if f"layers.{i}.mask" in mask.files else None
+                  for i in range(len(mcfg.layer_dims)))
+    img = compress._load_image(cfg.img)
+    grid = get_grid(*img.shape[:2], dev)
+    runs = [quant_finetune(params, img, mdef, mcfg, grid, compress._quant_config(cfg.quant),
+                           compress._optim_config(cfg), precision="fp32", masks=masks)
+            for _ in range(2)]
+    psnrs = [r.metrics["quant_psnr"] for r in runs]
+    same = all(
+        a is None and b is None
+        or torch.equal(a.centroids, b.centroids) and torch.equal(a.labels, b.labels)
+        for a, b in zip(runs[0].codebooks, runs[1].codebooks))
+    print(f"[7 repeat] quant PSNR {psnrs[0]!r} / {psnrs[1]!r} dB; codebooks and labels "
+          f"{'identical' if same else 'DIFFER'}", flush=True)
+    if not same or psnrs[0] != psnrs[1]:
+        raise AssertionError("the codebook finetune does not repeat bit for bit")
 
 
 def main() -> int:
@@ -292,7 +490,10 @@ def main() -> int:
     card = phase_card()
     phase_build()
     records = phase_kernels()
-    launches = phase_main_path()
+    launches, dense_summary = phase_main_path()
+    default_dir = phase_default_path(dense_summary)
+    phase_presets()
+    phase_repeat(default_dir)
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sum_partials": 179}
     kernels = [

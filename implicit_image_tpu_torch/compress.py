@@ -1,24 +1,26 @@
 """Orchestrator / CLI (counterpart of implicit_image_tpu/compress.py, the
-dense SIREN slice): load image -> fit -> k-means codebook finetune ->
-container -> decode the written container and render -> report
-(decoded PSNR, container bytes).
+SIREN slice): load image -> fit (dense, or sparse under the masking group)
+-> k-means codebook finetune -> container -> decode the written container
+and render -> report (decoded PSNR, container bytes, decoded MS-SSIM).
 
-    python -m implicit_image_tpu_torch.compress masking=none \
-        train.num_steps=2000 entropy_coding=plain
+    python -m implicit_image_tpu_torch.compress            # the JAX default: RigL
+    python -m implicit_image_tpu_torch.compress masking=SNFS train.num_steps=2000
 
 It composes its config with the JAX package's framework-free composer and
 YAML tree (implicit_image_tpu.config), so it takes the same overrides, plus
 one key the YAML tree does not hold: `device` (default "cuda"; the tests
 pass device=cpu). Run dirs hold the same files as the JAX package's
-(config.json, metrics.jsonl, summary.json, model.npz, model_quantized/),
-and either package's decoder reads them. summary.json also records the
+(config.json, metrics.jsonl, summary.json, model.npz, mask.npz for a
+sparse fit, model_quantized/), and either package's decoder reads them. summary.json also records the
 stage walls (fit_wall_s, quant_wall_s, encode_wall_s, decode_wall_s) and,
 on CUDA, the kernels' build-or-load seconds (kernel_build_s), which no
 stage wall includes.
 
-Not ported yet, and raising when set: sparse masking (RigL ...), optimizers
-other than Adam, quantizers other than k-means, stream backends other than
-`plain`, and the train/quant/entropy_coding options listed in _UNPORTED.
+Masking: RigL (the default), SNFS, Pruning (GMP), Small_Dense and none.
+Not ported yet, and raising when set: masking=Feathermap, models other than
+SIREN, optimizers other than Adam, quantizers other than k-means, stream
+backends other than `plain`, and the train/quant/entropy_coding options
+listed in _UNPORTED.
 Ignored: TPU-runtime keys with no meaning here (train.segment_steps,
 train.use_pallas, launcher.n_jobs) and the logging keys other than
 logging.use (no W&B sink).
@@ -50,7 +52,9 @@ from implicit_image_tpu_torch.data import (
     synthetic_image,
 )
 from implicit_image_tpu_torch.models import build_model_from_config
+from implicit_image_tpu_torch.ops.ssim import ms_ssim
 from implicit_image_tpu_torch.quant import QuantConfig
+from implicit_image_tpu_torch.sparsity import MaskingConfig
 from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
 from implicit_image_tpu_torch.training.quant_phase import quant_finetune
 from implicit_image_tpu_torch.utils import MetricsLogger, catch_error_decorator
@@ -72,14 +76,28 @@ _UNPORTED = (
 
 _AUTO_CHUNK_PIXELS = 1 << 20
 
+# the masking-group keys MaskingConfig takes (others, e.g. apply_when, are ignored)
+_MASKING_FIELDS = {
+    "density",
+    "sparse_init",
+    "dense_gradients",
+    "prune_mode",
+    "growth_mode",
+    "redistribution_mode",
+    "decay_schedule",
+    "prune_rate",
+    "final_density",
+    "start_when",
+    "end_when",
+    "interval",
+    "dense",
+    "print_FLOPs",
+    "name",
+    "mask_path",
+}
+
 
 def _check_ported(cfg) -> None:
-    masking = cfg.get("masking")
-    if masking and not masking.get("dense", False):
-        raise NotImplementedError(
-            f"masking={masking.get('name')} is not ported yet (ROADMAP.md, M4); "
-            "use masking=none"
-        )
     for section, key, off in _UNPORTED:
         val = (cfg.get(section) or {}).get(key, off)
         if val not in (off, None, False):
@@ -137,6 +155,20 @@ def _optim_config(cfg) -> OptimConfig:
     return OptimConfig(**kwargs)
 
 
+def masking_config(cfg) -> Optional[MaskingConfig]:
+    """The sparse masking config of a composed run config, None for a dense
+    run; end_when and interval scale with train.multiplier."""
+    raw = cfg.get("masking")
+    if not raw or raw.get("dense", False):
+        return None
+    mult = int(cfg.train.get("multiplier", 1))
+    fields = {k: v for k, v in raw.items() if k in _MASKING_FIELDS}
+    for key in ("end_when", "interval"):
+        if key in fields:
+            fields[key] = int(fields[key] * mult)
+    return MaskingConfig(**fields)
+
+
 def _quant_config(q) -> QuantConfig:
     return QuantConfig(
         name=q.name,
@@ -191,9 +223,11 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         log_steps=int(cfg.train.log_steps),
         pixel_chunks=_resolve_pixel_chunks(cfg.train.get("pixel_chunks", "auto"), h, w),
         loss=str(cfg.train.get("loss", "mse")),
+        ssim_weight=float(cfg.train.get("ssim_weight", 0.84)),
         matmul_precision=cfg.train.get("matmul_precision") or None,
     )
     optim_cfg = _optim_config(cfg)
+    masking = masking_config(cfg)
 
     init_params = None
     init_path = cfg.train.get("init_path") or None
@@ -204,9 +238,10 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
                                      expect_mcfg=mcfg, device=device)
         log.info("fit: warm-starting from meta-init %s", init_path)
 
-    log.info("fit: %s on %s (%dx%d), %d steps, device %s",
-             cfg.mlp.name, cfg.img.name, h, w, num_steps, device)
-    res = fit(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg,
+    log.info("fit: %s on %s (%dx%d), %d steps, masking=%s, device %s",
+             cfg.mlp.name, cfg.img.name, h, w, num_steps,
+             (cfg.get("masking") or {}).get("name", "none"), device)
+    res = fit(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking,
               init_params=init_params, device=device)
     test_psnr = float("nan")
     for i in range(num_steps):
@@ -214,6 +249,9 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
             entry = {"loss": float(res.metrics["test_loss"][i]),
                      "PSNR": float(res.metrics["psnr"][i]),
                      "PSNR_8bit": float(res.metrics["psnr_8bit"][i])}
+            if masking is not None:
+                entry["Prune Rate"] = float(res.metrics["prune_rate"][i])
+                entry["Density"] = float(res.metrics["density"][i])
             logger.log(i + 1, entry)
             test_psnr = entry["PSNR"]
     logger.summary({"PSNR": test_psnr, "fit_wall_s": res.wall_seconds})
@@ -225,7 +263,8 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
     if quant_raw and quant_raw.get("name", "none") != "none":
         qres = quant_finetune(params, img, mdef, mcfg, grid, _quant_config(quant_raw),
                               optim_cfg, precision=train_cfg.precision,
-                              pixel_chunks=train_cfg.pixel_chunks)
+                              pixel_chunks=train_cfg.pixel_chunks,
+                              masks=res.mask_state.masks if res.mask_state else None)
         qpsnr = qres.metrics["quant_psnr"]
         logger.log(num_steps, {"Quant PSNR": qpsnr,
                                "Quant PSNR_8bit": qres.metrics["quant_psnr_8bit"]},
@@ -239,6 +278,11 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         np.savez(Path(run_dir) / "model.npz", **flat)
         np.savez(Path(run_dir) / "model_half.npz",
                  **{k: v.astype(np.float16) for k, v in flat.items()})
+        if res.mask_state is not None:
+            # feeds masking.mask_path (lottery-ticket / resume) of a later run
+            np.savez(Path(run_dir) / "mask.npz",
+                     **{f"layers.{i}.mask": m.cpu().numpy()
+                        for i, m in enumerate(res.mask_state.masks) if m is not None})
 
     ec = cfg.get("entropy_coding")
     if ec and ec.get("stream_name", "none") != "none":
@@ -261,10 +305,19 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         mse8 = float(np.mean((np.trunc(dec64 * 255.0)
                               - np.trunc(np.asarray(img, np.float64) * 255.0)) ** 2))
         decoded_psnr8 = float(10.0 * np.log10(255.0**2 / max(mse8, 1e-12)))
-        logger.log(num_steps, {"Decoded PSNR": decoded_psnr,
-                               "Decoded PSNR_8bit": decoded_psnr8}, prefix="Decoded")
+        entry = {"Decoded PSNR": decoded_psnr, "Decoded PSNR_8bit": decoded_psnr8}
+        # as many MS-SSIM scales as the lattice holds, at most 5
+        lv = min(5, int(np.log2(max(min(h, w) // 11, 1))) + 1)
+        if min(h, w) >= 11:
+            with torch.no_grad():
+                entry["Decoded MS-SSIM"] = float(ms_ssim(
+                    torch.from_numpy(np.asarray(dec_img, np.float32)).to(device),
+                    torch.from_numpy(np.asarray(img, np.float32)).to(device), levels=lv))
+        logger.log(num_steps, entry, prefix="Decoded")
         logger.summary({"Compressed Bytes": compressed_bytes, "Decoded PSNR": decoded_psnr,
-                        "encode_wall_s": encode_s, "decode_wall_s": decode_s})
+                        "encode_wall_s": encode_s, "decode_wall_s": decode_s,
+                        **({"Decoded MS-SSIM": entry["Decoded MS-SSIM"]}
+                           if "Decoded MS-SSIM" in entry else {})})
         test_psnr = decoded_psnr
     return test_psnr, compressed_bytes
 

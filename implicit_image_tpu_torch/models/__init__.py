@@ -56,14 +56,16 @@ def build_model(model_name: str, **cfg_kwargs) -> Tuple[ModelDef, Any]:
 def build_model_from_config(cfg) -> Tuple[ModelDef, Any]:
     """(mdef, mcfg) from a composed run config — the one mapping from
     cfg.mlp + cfg.masking to an architecture, shared by the encoder and the
-    decoder. Small-Dense width scaling and Feathermap are masking methods
-    not ported yet and raise."""
+    decoder. Small-Dense scales the hidden width by sqrt(masking.density);
+    Feathermap, a model family, is not ported yet and raises."""
     mlp = dict(cfg["mlp"])
     name = mlp.pop("name")
     masking = cfg.get("masking") or {}
-    if masking.get("name") in ("Small_Dense", "Feathermap"):
+    if masking.get("name") == "Feathermap":
         raise NotImplementedError(
-            f"masking={masking.get('name')} is not ported yet (ROADMAP.md); "
-            "use masking=none"
+            "masking=Feathermap is not ported yet (ROADMAP.md, M11); use another masking"
         )
-    return build_model(name, **mlp)
+    small = 1.0
+    if masking.get("name") == "Small_Dense":
+        small = float(masking.get("density", 1.0))
+    return build_model(name, small_dense_density=small, **mlp)

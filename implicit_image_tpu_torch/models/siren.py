@@ -40,11 +40,17 @@ class SirenConfig:
     first_omega_0: float = 50.0
     hidden_omega_0: float = 30.0
     outermost_linear: bool = True
+    small_dense_density: float = 1.0
     fast_sine: bool = True
 
     @property
+    def effective_hidden(self) -> int:
+        # Small-Dense width compensation: hidden_size * sqrt(density)
+        return int(self.hidden_size * math.sqrt(self.small_dense_density))
+
+    @property
     def layer_dims(self) -> Sequence[Tuple[int, int]]:
-        h = self.hidden_size
+        h = self.effective_hidden
         return [(self.input_size, h)] + [(h, h)] * (self.depth - 2) + [(h, self.output_size)]
 
     @property

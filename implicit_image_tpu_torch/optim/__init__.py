@@ -2,13 +2,19 @@
 only; Shampoo and EKFAC are not ported yet (ROADMAP.md)."""
 from __future__ import annotations
 
-from implicit_image_tpu_torch.optim.adam import AdamState, adam_init, adam_update
+from implicit_image_tpu_torch.optim.adam import (
+    AdamState,
+    adam_init,
+    adam_momentum,
+    adam_update,
+)
 from implicit_image_tpu_torch.optim.schedules import cosine_lr, step_lr
 
 __all__ = [
     "AdamState",
     "adam_init",
     "adam_update",
+    "adam_momentum",
     "step_lr",
     "cosine_lr",
     "opt_init",

@@ -6,7 +6,8 @@ implicit_image_tpu/optim/adam.py):
     p   <- p - lr * (mu/(1-b1^t)) / (sqrt(nu/(1-b2^t)) + eps)
 
 The state is a plain tuple of per-layer dicts, as in the JAX package, so
-later ports (RigL's momentum growth) can read the raw moments. Unlike the
+SNFS's momentum growth and redistribution read the raw moments through
+`adam_momentum`. Unlike the
 JAX version, the update is IN PLACE: params, mu and nu are overwritten,
 which saves one copy of each per step. Leaves stored under a key outside
 TRAINABLE_KEYS are left untouched.
@@ -18,7 +19,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["AdamState", "TRAINABLE_KEYS", "adam_init", "adam_update"]
+__all__ = ["AdamState", "TRAINABLE_KEYS", "adam_init", "adam_update", "adam_momentum"]
 
 TRAINABLE_KEYS = ("w", "b", "centroids")
 
@@ -59,3 +60,10 @@ def adam_update(grads, state: AdamState, params, lr: float,
             p.sub_(lr * m_hat / denom)
     state.count = count
     return params, state
+
+
+def adam_momentum(state: AdamState, layer: int, key: str = "w") -> torch.Tensor:
+    """mu / (sqrt(nu) + 1e-8) of one tensor: the momentum statistic of
+    SNFS's growth and redistribution (the reference's
+    get_momentum_for_weight)."""
+    return state.mu[layer][key] / (torch.sqrt(state.nu[layer][key]) + 1e-8)

@@ -3,17 +3,21 @@
     python -m implicit_image_tpu_torch.profile_fit [--out outputs/profile_fit.json] \
         [overrides ...]
 
-Two parts, both on CUDA, with `masking=none` and the given config overrides:
+Two parts, both on CUDA, with the composed default config (the JAX
+default, masking=RigL) and the given overrides:
 
   1. the whole protocol through `compress.main`: the stage walls of
-     summary.json, decoded PSNR and container bytes;
+     summary.json, decoded PSNR, MS-SSIM and container bytes;
   2. STEPS (30) fit steps of the same configuration under torch.profiler. From
      the device rows of the trace (kernels, copies, sets; no host row, so no
      time is counted twice) it reports each kernel's time and count, the
      device time per step (the run's one eval forward included), the
      profiled span, and the device's idle share over that span:
      1 - (union of the device rows' intervals) / span. The same steps run
-     once more without the profiler for their ms per step.
+     once more without the profiler for their ms per step, and once with
+     masking=none beside them; for a sparse config, the ms of one mask
+     topology update (sparsity.update_connections) is timed on its own,
+     host clock around MASK_UPDATES updates ending in a synchronize.
 
 Prints one line per part and writes the record, with the card's name and
 power limit, as JSON to --out; the chrome trace goes beside it
@@ -32,10 +36,13 @@ import torch
 from implicit_image_tpu_torch import compress
 from implicit_image_tpu_torch.data import get_grid
 from implicit_image_tpu_torch.models import build_model_from_config
-from implicit_image_tpu_torch.training.fit import TrainConfig, fit
+from implicit_image_tpu_torch.optim import adam_momentum
+from implicit_image_tpu_torch.sparsity import build_decay, total_density, update_connections
+from implicit_image_tpu_torch.training.fit import TrainConfig, fit, make_grad_fn
 
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 STEPS = 30
+MASK_UPDATES = 20
 
 
 def card() -> str:
@@ -46,13 +53,13 @@ def card() -> str:
 
 
 def protocol(overrides, run_dir: Path) -> dict:
-    cfg = compress.compose(["masking=none", *overrides])
+    cfg = compress.compose(list(overrides))
     t0 = time.perf_counter()
     psnr, nbytes = compress.main(cfg, run_dir=str(run_dir))
     wall = time.perf_counter() - t0
     summary = json.loads((run_dir / "summary.json").read_text())
     keys = ("kernel_build_s", "fit_wall_s", "quant_wall_s", "encode_wall_s", "decode_wall_s",
-            "PSNR", "Quant PSNR")
+            "PSNR", "Quant PSNR", "Decoded MS-SSIM")
     return {"main_wall_s": wall, "decoded_psnr": psnr, "bytes": nbytes,
             **{k: summary.get(k) for k in keys}}
 
@@ -92,10 +99,33 @@ def trace_breakdown(trace_path: Path, steps: int) -> dict:
     }
 
 
+def mask_update_ms(res, mdef, mcfg, coords, target_flat, train_cfg, masking, reps: int) -> float:
+    """ms per mask topology update, on the final state of a sparse fit."""
+    params = res.params
+    for layer in params:
+        for v in layer.values():
+            v.requires_grad_(True)
+    _, grads = make_grad_fn(mdef, mcfg, coords, target_flat, train_cfg.precision)(params)
+    momentum = "momentum" in (masking.growth_mode, masking.redistribution_mode)
+    momenta = [adam_momentum(res.opt_state, i) if momentum and m is not None else None
+               for i, m in enumerate(res.mask_state.masks)]
+    state = res.mask_state
+    rate = build_decay(masking)(0, 1.0 - total_density(state))
+    gen = torch.Generator().manual_seed(0)
+    update_connections(params, grads, momenta, state, rate, gen, masking)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        params, state = update_connections(params, grads, momenta, state, rate, gen, masking)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def profile_steps(overrides, steps: int, trace_path: Path) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = compress.compose(["masking=none", *overrides])
+    cfg = compress.compose(list(overrides))
+    masking = compress.masking_config(cfg)
     dev = torch.device("cuda")
     img = compress._load_image(cfg.img)
     h, w = img.shape[:2]
@@ -108,25 +138,35 @@ def profile_steps(overrides, steps: int, trace_path: Path) -> dict:
     )
     optim_cfg = compress._optim_config(cfg)
 
-    def run():
+    def run(mask_cfg):
         return fit(torch.Generator().manual_seed(int(cfg.seed)), mdef, mcfg, grid, img,
-                   train_cfg, optim_cfg, device=dev)
+                   train_cfg, optim_cfg, mask_cfg, device=dev)
 
-    run()  # warm-up: kernel build and load, allocator
-    unprofiled = run()
+    run(masking)  # warm-up: kernel build and load, allocator
+    run(None)
+    unprofiled = run(masking)
+    dense = run(None)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        run(masking)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(str(trace_path))
-    return {
+    record = {
         "steps": steps,
+        "masking": masking.name if masking is not None else "none",
         "ms_per_step": unprofiled.wall_seconds / steps * 1e3,
+        "ms_per_step_dense": dense.wall_seconds / steps * 1e3,
         "profiled_wall_ms": wall * 1e3,
         **trace_breakdown(trace_path, steps),
     }
+    if masking is not None:
+        coords = grid.reshape(h * w, -1)
+        target_flat = torch.as_tensor(img, dtype=torch.float32, device=dev).reshape(h * w, -1)
+        record["ms_per_mask_update"] = mask_update_ms(
+            unprofiled, mdef, mcfg, coords, target_flat, train_cfg, masking, MASK_UPDATES)
+    return record
 
 
 def main(argv=None) -> dict:
@@ -141,13 +181,15 @@ def main(argv=None) -> dict:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
 
-    record = {"card": card(), "overrides": ["masking=none", *args.overrides]}
+    record = {"card": card(), "overrides": list(args.overrides)}
     print(record["card"], flush=True)
     record["protocol"] = protocol(args.overrides, out.parent / f"{out.stem}_protocol")
     print("protocol: " + json.dumps(record["protocol"]), flush=True)
     prof = profile_steps(args.overrides, STEPS, out.with_name(f"{out.stem}.trace.json"))
     record["profile"] = prof
-    print(f"profile, {STEPS} fit steps: ms/step {prof['ms_per_step']:.3f} unprofiled, "
+    print(f"profile, {STEPS} fit steps, masking={prof['masking']}: ms/step "
+          f"{prof['ms_per_step']:.3f} unprofiled ({prof['ms_per_step_dense']:.3f} with "
+          f"masking=none; ms per mask update {prof.get('ms_per_mask_update', float('nan')):.3f}), "
           f"{prof['profiled_wall_ms'] / STEPS:.3f} profiled; device "
           f"{prof['device_ms_per_step']:.3f} ms/step; idle share {prof['idle_share']:.4f} "
           f"of a {prof['span_ms']:.1f} ms span", flush=True)

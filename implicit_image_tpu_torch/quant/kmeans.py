@@ -5,9 +5,14 @@ Same algorithm and the same operation order as the JAX functions: cluster
 the nonzero weights into 2^bits - 1 centroids with Lloyd's iterations from
 a linspace init, prepend a 0 centroid, sort by |c| (stable, like
 jnp.argsort), assign every weight. The JAX one-hot matmuls / segment sums
-become `index_add_`. Sums therefore run in another order: in float64 the
-two packages agree to rounding; in float32 a weight lying almost exactly
-between two centroids may take the other label.
+become `segment_sum`, a masked column sum: a plain reduction, so the same
+inputs give the same bits on every run, on the card too (`index_add_` adds
+with atomics on CUDA and does not). Sums run in another order than XLA's:
+in float64 the two packages agree to rounding; in float32 a weight lying
+almost exactly between two centroids may take the other label.
+
+`gather_centroids` is `centroids[labels]` whose gradient is that segment
+sum (the default backward of the gather accumulates with atomics on CUDA).
 
 `ecvq_refine` is the entropy-constrained re-assignment (quant.ecvq_lambda).
 Delta mode (the `offset` argument of the JAX functions) is not ported.
@@ -20,7 +25,14 @@ import torch
 
 from implicit_image_tpu_torch.data import unit_linspace
 
-__all__ = ["LayerCodebook", "kmeans_fit", "quantize_weight", "ecvq_refine"]
+__all__ = [
+    "LayerCodebook",
+    "segment_sum",
+    "gather_centroids",
+    "kmeans_fit",
+    "quantize_weight",
+    "ecvq_refine",
+]
 
 
 class LayerCodebook(NamedTuple):
@@ -28,9 +40,30 @@ class LayerCodebook(NamedTuple):
     labels: torch.Tensor  # weight-shaped int32
 
 
-def _scatter_sum(index: torch.Tensor, values: torch.Tensor, k: int) -> torch.Tensor:
-    out = torch.zeros(k, dtype=values.dtype, device=values.device)
-    return out.index_add_(0, index, values)
+def segment_sum(index: torch.Tensor, values: torch.Tensor, k: int) -> torch.Tensor:
+    """out[j] = sum of values[i] over index[i] == j, for j < k (1-D inputs):
+    the JAX functions' `one_hot(index, k).T @ values`, as a column sum."""
+    hit = index[:, None] == torch.arange(k, device=index.device)
+    return torch.where(hit, values[:, None], values.new_zeros(())).sum(0)
+
+
+class _GatherCentroids(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, centroids, labels):
+        ctx.save_for_backward(labels)
+        ctx.k = centroids.shape[0]
+        return centroids[labels]
+
+    @staticmethod
+    def backward(ctx, g):
+        (labels,) = ctx.saved_tensors
+        return segment_sum(labels.reshape(-1), g.reshape(-1), ctx.k), None
+
+
+def gather_centroids(centroids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """centroids[labels] (labels int64, any shape); each centroid's gradient
+    is the segment sum of the output's gradient over its cluster."""
+    return _GatherCentroids.apply(centroids, labels)
 
 
 def kmeans_fit(values: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
@@ -41,8 +74,8 @@ def kmeans_fit(values: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
     for _ in range(iters):
         d = (values[:, None] - centers[None, :]) ** 2
         assign = torch.argmin(d, dim=1)
-        counts = _scatter_sum(assign, valid, k)
-        sums = _scatter_sum(assign, values * valid, k)
+        counts = segment_sum(assign, valid, k)
+        sums = segment_sum(assign, values * valid, k)
         centers = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), centers)
     return centers
 
@@ -88,13 +121,13 @@ def ecvq_refine(weight: torch.Tensor, book: LayerCodebook, lam: float,
     scale = lam * err0 / n_valid
     ones = torch.ones_like(flat)
     for _ in range(iters):
-        p = _scatter_sum(labels, ones, k) / n
+        p = segment_sum(labels, ones, k) / n
         rate = -torch.log2(torch.clamp(p, min=1e-12))
         d2 = (flat[:, None] - centroids[None, :]) ** 2
         new = torch.argmin(d2 + scale * rate[None, :], dim=1)
         labels = torch.where(valid > 0, new, torch.zeros_like(new))
-        counts_nz = _scatter_sum(labels, valid, k)
-        sums = _scatter_sum(labels, flat * valid, k)
+        counts_nz = segment_sum(labels, valid, k)
+        sums = segment_sum(labels, flat * valid, k)
         centroids = torch.where(counts_nz > 0, sums / torch.clamp(counts_nz, min=1.0),
                                 centroids)
         centroids = torch.cat([centroids.new_zeros(1), centroids[1:]])

@@ -1,14 +1,17 @@
 """K-means codebook finetune (counterpart of
-implicit_image_tpu/training/quant_phase.py, KMeans mode, no masks, no
-delta offsets).
+implicit_image_tpu/training/quant_phase.py, KMeans mode, no delta offsets).
 
 The quantized layers are clustered once (quantize_weight, then ecvq_refine
 when quant.ecvq_lambda > 0); their labels are frozen and the finetune
 trains the per-layer centroids — gradients flow through the
 `centroids[labels]` gather, so each centroid's gradient is the sum over its
-cluster — together with the unquantized layers and all biases. The
-0-centroid's gradient is zeroed every step so it stays exactly 0. A fresh
-Adam runs under StepLR(1000, 0.5) from quant.lr (or the fit's lr).
+cluster (quant.kmeans.gather_centroids, the same bits on every run) —
+together with the unquantized layers and all biases. The 0-centroid's
+gradient is zeroed every step so it stays exactly 0. A fresh Adam runs
+under StepLR(1000, 0.5) from quant.lr (or the fit's lr).
+
+With the sparse fit's `masks`, the reconstructed weights are masked before
+every forward, as in JAX, so pruned weights stay exactly 0.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from implicit_image_tpu_torch.quant import (
     quantize_weight,
     quantized_layer_indices,
 )
+from implicit_image_tpu_torch.quant.kmeans import gather_centroids
+from implicit_image_tpu_torch.sparsity import apply_masks
 from implicit_image_tpu_torch.training.fit import OptimConfig, make_grad_fn, synchronize
 
 __all__ = ["QuantResult", "quant_finetune"]
@@ -40,15 +45,18 @@ class QuantResult(NamedTuple):
     wall_seconds: float
 
 
-def _reconstruct(state, labels):
-    """Params with w = centroids[labels] for the quantized layers."""
+def _reconstruct(state, labels, masks=None):
+    """Params with w = centroids[labels] for the quantized layers, then
+    masked when masks are given."""
     out = []
     for layer, lab in zip(state, labels):
         if lab is None:
             out.append(layer)
             continue
         rest = {k: v for k, v in layer.items() if k != "centroids"}
-        out.append(rest | {"w": layer["centroids"][lab]})
+        out.append(rest | {"w": gather_centroids(layer["centroids"], lab)})
+    if masks is not None and any(m is not None for m in masks):
+        return apply_masks(tuple(out), masks)
     return tuple(out)
 
 
@@ -62,10 +70,12 @@ def quant_finetune(
     optim_cfg: OptimConfig,
     precision: str = "fp32",
     pixel_chunks: int = 1,
+    masks=None,
 ) -> QuantResult:
     """Cluster, finetune the codebooks for quant_cfg.num_steps, freeze.
     Runs on the device of `params`. quant.row_stride > 1 finetunes against
-    every s-th image row."""
+    every s-th image row. `masks`: the sparse fit's per-layer masks (None
+    entries for unmasked layers), or None."""
     device = params[0]["w"].device
     stride = int(quant_cfg.row_stride)
     grid = grid.to(device)[::stride]
@@ -99,7 +109,7 @@ def quant_finetune(
     opt_state = opt_init(state, optim_cfg)
 
     grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision, pixel_chunks,
-                           transform=lambda st: _reconstruct(st, labels))
+                           transform=lambda st: _reconstruct(st, labels, masks))
     losses = []
     for step in range(quant_cfg.num_steps):
         loss, grads = grad_fn(state)
@@ -113,7 +123,7 @@ def quant_finetune(
 
     with torch.no_grad():
         params_q = tuple({k: v.detach() for k, v in layer.items()}
-                         for layer in _reconstruct(state, labels))
+                         for layer in _reconstruct(state, labels, masks))
         pred = mdef.apply_flat(params_q, coords, mcfg, precision)
         qloss = mse(pred, target_flat)
         qpsnr8 = psnr_8bit(pred, target_flat)

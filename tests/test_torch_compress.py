@@ -1,7 +1,7 @@
 """Port parity: the slice end to end. Both packages' compress.main run from
-one numpy meta-init on the same synthetic image; their containers are the
-same size, their decoded PSNRs agree, and each decoder reads the other's
-run dir."""
+one numpy meta-init on the same synthetic image, dense and under RigL from
+one saved mask; their containers are the same size, their decoded PSNRs
+(and MS-SSIMs) agree, and each decoder reads the other's run dir."""
 import json
 
 import jax
@@ -88,9 +88,73 @@ def test_meta_init_loads_same_weights(runs):
         load_meta_init(init, expect_mcfg=c8)
 
 
-@pytest.mark.parametrize("override", ["masking=RigL", "optim=shampoo", "quant=qat",
+@pytest.mark.parametrize("override", ["masking=Feathermap", "optim=shampoo", "quant=qat",
                                       "entropy_coding=zstd", "mlp=fourier"])
 def test_unported_options_raise(tmp_path, override):
     cfg = compose(OVERRIDES + ["device=cpu", "train.num_steps=1", override])
     with pytest.raises((NotImplementedError, KeyError)):
         tcompress.main(cfg, run_dir=str(tmp_path))
+
+
+@pytest.fixture(scope="module")
+def sparse_runs(tmp_path_factory):
+    """RigL from one saved mask (lottery-ticket) and one meta-init, updates
+    every 10 steps up to step 30, in both packages."""
+    root = tmp_path_factory.mktemp("sparse")
+    mdef, mcfg = jbuild("siren", depth=4, hidden_size=16)
+    init = root / "init.npz"
+    save_meta_init(init, mdef.init(jax.random.PRNGKey(8), mcfg), "siren", mcfg)
+    rng = np.random.default_rng(8)
+    np.savez(root / "mask.npz", **{
+        f"layers.{i}.mask": (rng.uniform(size=dims) < 0.5).astype(np.float32)
+        for i, dims in enumerate(mcfg.layer_dims)})
+    ov = [o for o in OVERRIDES if o != "masking=none"] + [
+        "masking=RigL", "masking.sparse_init=lottery-ticket",
+        f"masking.mask_path={root / 'mask.npz'}", "masking.interval=10",
+        "masking.end_when=30", f"train.init_path={init}"]
+    jres = jcompress.main(compose(ov), run_dir=str(root / "jax"))
+    tres = tcompress.main(compose(ov + ["device=cpu"]), run_dir=str(root / "torch"))
+    return root, ov, jres, tres
+
+
+def test_rigl_slice_matches_jax(sparse_runs):
+    root, _, (jpsnr, jbytes), (tpsnr, tbytes) = sparse_runs
+    assert tbytes == jbytes
+    assert abs(tpsnr - jpsnr) <= 0.1, (tpsnr, jpsnr)
+    tsum = json.loads((root / "torch" / "summary.json").read_text())
+    jsum = json.loads((root / "jax" / "summary.json").read_text())
+    assert abs(tsum["Decoded MS-SSIM"] - jsum["Decoded MS-SSIM"]) <= 1e-3
+    tmask, jmask = np.load(root / "torch" / "mask.npz"), np.load(root / "jax" / "mask.npz")
+    assert sorted(tmask.files) == sorted(jmask.files)
+    for name in tmask.files:
+        assert tmask[name].sum() == jmask[name].sum()
+    lines = [json.loads(x) for x in (root / "torch" / "metrics.jsonl").read_text().splitlines()]
+    train = [x for x in lines if x["prefix"] == "Train"]
+    assert [x["step"] for x in train] == [20, 40]
+    assert all("Density" in x and "Prune Rate" in x for x in train)
+
+
+def test_rigl_run_dirs_decode_across_packages(sparse_runs):
+    root, ov, (jpsnr, _), (tpsnr, _) = sparse_runs
+    target = tcompress._load_image(compose(ov).img)
+    for run, want in (("jax", jpsnr), ("torch", tpsnr)):
+        ours, _ = tdecompress.decode_run(root / run, out_path=root / f"{run}_t.png", device="cpu")
+        theirs, _ = jdecompress.decode_run(root / run, out_path=root / f"{run}_j.png")
+        np.testing.assert_allclose(np.asarray(theirs), ours, atol=1e-4)
+        psnr = 10 * np.log10(1.0 / np.mean((ours.astype(np.float64) - target) ** 2))
+        assert psnr == pytest.approx(want, abs=1e-3)
+    # pruned weights are exactly 0 in the port's saved fit params
+    model, mask = np.load(root / "torch" / "model.npz"), np.load(root / "torch" / "mask.npz")
+    for name in mask.files:
+        i = name.split(".")[1]
+        assert np.all(model[f"layers.{i}.w"][mask[name] == 0] == 0.0)
+
+
+@pytest.mark.parametrize("masking", ["SNFS", "Pruning", "Small_Dense"])
+def test_other_masking_presets_run(tmp_path, masking):
+    cfg = compose([o for o in OVERRIDES if o != "masking=none"]
+                  + [f"masking={masking}", "train.num_steps=20", "train.log_steps=10",
+                     "quant.num_steps=2", "device=cpu"])
+    psnr, nbytes = tcompress.main(cfg, run_dir=str(tmp_path))
+    assert np.isfinite(psnr) and nbytes > 0
+    assert (tmp_path / "mask.npz").exists() == (masking != "Small_Dense")

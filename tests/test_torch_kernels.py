@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels of implicit_image_tpu_torch against their
-plain-torch versions, on the card.
+plain-torch versions, on the card, and the paths around them that only the
+card can check: the codebook finetune repeats bit for bit, MS-SSIM agrees
+with the CPU, and a RigL fit on the card keeps each layer's weight count.
 
 Every test here is marked `cuda` and skips (inside the test) without a CUDA
 device: a CUDA kernel has no interpret mode. The file imports torch and the
@@ -146,3 +148,80 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         sm.sine_mlp_fwd(params, torch.zeros((8, 2)), c, "fp32")  # x on the CPU
     with pytest.raises(ValueError):
         sm.sine_mlp_fwd(params, torch.zeros((8, 2), device=cuda_device), c, "tf32")
+
+
+def _small_fit_params(dev, depth=8, hidden=128, side=64, steps=20):
+    from implicit_image_tpu_torch.data import get_grid, synthetic_image
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    img = synthetic_image(side, side, seed=1)
+    res = fit(torch.Generator().manual_seed(0), m, c, get_grid(side, side, dev), img,
+              TrainConfig(num_steps=steps, log_steps=steps), OptimConfig(), device=dev)
+    return m, c, img, res
+
+
+@pytest.mark.cuda
+def test_quant_finetune_repeats_bit_for_bit(cuda_device):
+    """Two codebook finetunes from the same params (d8 w128, 64^2 pixels):
+    identical centroids, labels and quant PSNR."""
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.quant import QuantConfig
+    from implicit_image_tpu_torch.training.fit import OptimConfig
+    from implicit_image_tpu_torch.training.quant_phase import quant_finetune
+
+    m, c, img, res = _small_fit_params(cuda_device)
+    runs = [quant_finetune(res.params, img, m, c, get_grid(64, 64, cuda_device),
+                           QuantConfig(num_steps=20, ecvq_lambda=1.0), OptimConfig())
+            for _ in range(2)]
+    assert runs[0].metrics["quant_psnr"] == runs[1].metrics["quant_psnr"]
+    for a, b in zip(*(r.codebooks for r in runs)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.centroids, b.centroids)
+            assert torch.equal(a.labels, b.labels)
+
+
+@pytest.mark.cuda
+def test_ms_ssim_on_card_matches_cpu(cuda_device):
+    from implicit_image_tpu_torch.ops.ssim import ms_ssim
+
+    gen = torch.Generator().manual_seed(6)
+    target = torch.rand((256, 256, 3), generator=gen)
+    pred = (target + 0.02 * torch.randn((256, 256, 3), generator=gen)).clamp(0, 1)
+    cpu = float(ms_ssim(pred, target, levels=5))
+    card = float(ms_ssim(pred.to(cuda_device), target.to(cuda_device), levels=5))
+    assert abs(card - cpu) <= 1e-5
+    assert 0.0 < card <= 1.0
+
+
+@pytest.mark.cuda
+def test_rigl_fit_on_card_keeps_layer_counts(cuda_device, tmp_path):
+    """40 RigL steps on the card from a saved mask, updating every 10 steps:
+    each layer ends with its initial weight count, the topology moved, and
+    every pruned weight is exactly 0."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.data import get_grid, synthetic_image
+    from implicit_image_tpu_torch.sparsity import MaskingConfig
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("siren", depth=8, hidden_size=128)
+    rng = np.random.default_rng(0)
+    init = [(rng.uniform(size=dims) < 0.5).astype(np.float32) for dims in c.layer_dims]
+    np.savez(tmp_path / "mask.npz", **{f"layers.{i}.mask": mk for i, mk in enumerate(init)})
+    masking = MaskingConfig(sparse_init="lottery-ticket", mask_path=str(tmp_path / "mask.npz"),
+                            interval=10, end_when=40)
+    before = dict(sm.LAUNCHES)
+    res = fit(torch.Generator().manual_seed(0), m, c, get_grid(64, 64, cuda_device),
+              synthetic_image(64, 64, seed=2), TrainConfig(num_steps=40, log_steps=20),
+              OptimConfig(), masking, device=cuda_device)
+    assert sm.LAUNCHES["sine_mlp_bwd"] - before["sine_mlp_bwd"] == 40
+    moved = False
+    for mk, start, layer in zip(res.mask_state.masks, init, res.params):
+        final = mk.cpu().numpy()
+        assert final.sum() == start.sum()
+        moved |= bool((final != start).any())
+        assert torch.all(layer["w"][mk == 0] == 0.0)
+    assert moved
+    assert np.isfinite(res.metrics["psnr"][-1])

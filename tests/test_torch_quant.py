@@ -12,7 +12,12 @@ from implicit_image_tpu.quant.kmeans import quantize_weight as j_quantize
 from implicit_image_tpu_torch.data import get_grid, synthetic_image
 from implicit_image_tpu_torch.models import build_model
 from implicit_image_tpu_torch.quant import QuantConfig, convert, dequantize, quantized_layer_indices
-from implicit_image_tpu_torch.quant.kmeans import ecvq_refine, quantize_weight
+from implicit_image_tpu_torch.quant.kmeans import (
+    ecvq_refine,
+    gather_centroids,
+    quantize_weight,
+    segment_sum,
+)
 from implicit_image_tpu_torch.training.fit import OptimConfig
 from implicit_image_tpu_torch.training.quant_phase import quant_finetune
 
@@ -95,3 +100,47 @@ def test_codebook_finetune_keeps_zero_centroid_and_improves():
 def test_quant_config_rejects_qat():
     with pytest.raises(NotImplementedError):
         QuantConfig(name="QAT")
+
+
+@pytest.mark.parametrize("n,k", [(4096, 255), (1000, 16), (37, 64)])
+def test_segment_sum_matches_jax_one_hot_float64(n, k):
+    """The deterministic segment sum equals the JAX functions' one-hot
+    product in float64, to the bound of the k-means test above."""
+    rng = np.random.default_rng(n + k)
+    idx = rng.integers(0, k, n)
+    vals = rng.normal(size=n)
+    with jax.enable_x64(True):
+        ref = np.asarray(jax.nn.one_hot(jnp.asarray(idx), k, dtype=jnp.float64).T
+                         @ jnp.asarray(vals))
+    ours = segment_sum(torch.from_numpy(idx), torch.from_numpy(vals), k).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-12)
+
+
+def test_gather_centroids_gradient_is_the_cluster_sum():
+    rng = np.random.default_rng(3)
+    centroids = torch.from_numpy(rng.normal(size=16)).requires_grad_(True)
+    labels = torch.from_numpy(rng.integers(0, 16, (8, 12)))
+    upstream = torch.from_numpy(rng.normal(size=(8, 12)))
+    (g_ours,) = torch.autograd.grad((gather_centroids(centroids, labels) * upstream).sum(),
+                                    centroids)
+    (g_ref,) = torch.autograd.grad((centroids[labels] * upstream).sum(), centroids)
+    torch.testing.assert_close(g_ours, g_ref, rtol=0, atol=1e-12)
+
+
+def test_masked_finetune_keeps_pruned_weights_zero():
+    """With the fit's masks, every pruned weight stays exactly 0 in the
+    finetuned params, and its label is the 0 centroid's."""
+    m, c = build_model("siren", depth=4, hidden_size=16)
+    params = m.init(torch.Generator().manual_seed(1), c)
+    gen = torch.Generator().manual_seed(2)
+    masks = tuple((torch.rand(layer["w"].shape, generator=gen) < 0.5).float()
+                  for layer in params)
+    params = tuple({**layer, "w": layer["w"] * mk} for layer, mk in zip(params, masks))
+    img = synthetic_image(12, 12, seed=4)
+    res = quant_finetune(params, img, m, c, get_grid(12, 12),
+                         QuantConfig(bits=4, num_steps=10, ecvq_lambda=1.0, lr=1e-3),
+                         OptimConfig(), masks=masks)
+    for layer, mk, book in zip(res.params, masks, res.codebooks):
+        assert torch.all(layer["w"][mk == 0] == 0.0)
+        if book is not None:
+            assert torch.all(book.labels[mk == 0] == 0)
