@@ -9,8 +9,10 @@ Phases, each printing its own line:
   2. build the CUDA kernels from implicit_image_tpu_torch/csrc/ (seconds);
   3. each kernel against its plain-torch version at the main path's shapes
      (512^2 pixels, SIREN depth 8, width 128) in both precision modes, with
-     the tolerances below, and the time of each (CUDA events); as a control,
-     the other mode's kernel must fail each mode's tolerances;
+     the tolerances below, and the time of each (CUDA events) beside its
+     FLOPs and bound; as controls, the other mode's kernel must fail each
+     mode's tolerances, and so must the plain chain run with 1-pass TF32
+     products (torch.backends.cuda.matmul.allow_tf32) the fp32 ones;
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -60,6 +62,12 @@ import time
 FWD_TOL = {"fp32": 1e-4, "bf16": 1.5e-3}  # max abs error of the raw chain output
 BWD_TOL = {"fp32": 1e-4, "bf16": 2e-2}  # max abs error / max |plain|, per gradient
 SUM_TOL = 1e-6  # sum_partials vs partials.sum(0), relative
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
+# kernel is max(bytes / memory rate, operations / peak rate of their type).
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOP_PER_S = 495e12  # tensor cores; the fp32 mode takes 3 passes
+FP32_FLOP_PER_S = 67e12   # FMA outside the tensor cores
 
 N_SIDE, DEPTH, WIDTH = 512, 8, 128
 SMOKE_OVERRIDES = [
@@ -114,6 +122,39 @@ def phase_build() -> float:
     return seconds
 
 
+def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks: int,
+            n_part: int) -> dict:
+    """FLOPs, bytes and least times of each kernel at these shapes, counted
+    from csrc/sine_mlp.cu: the hidden products (tensor cores, 3 TF32 passes
+    in the fp32 mode) apart from the first layer (K = in), the last
+    (N = out) and dx (FMA). Bytes: each input read once, each output
+    written once."""
+    hidden_mm = 2 * n * hidden * hidden * (depth - 2)  # one product over all hidden layers
+    weights = 4 * (in_size * hidden + (depth - 2) * hidden * hidden + hidden * out_size
+                   + (depth - 1) * hidden + out_size)
+    kernels = {
+        # forward: first layer, hidden a.W, last layer
+        "sine_mlp_fwd": (hidden_mm, 2 * n * hidden * (in_size + out_size),
+                         4 * n * (in_size + out_size) + weights),
+        # backward: a.W recomputed, dW = a^T gz, ga = gz W^T; first layer twice
+        # (forward, and z_0 again), dWl, ga of the last layer, dW0, dx
+        "sine_mlp_bwd": (3 * hidden_mm, 2 * n * hidden * (4 * in_size + 2 * out_size),
+                         4 * n * (2 * in_size + out_size) + weights + 4 * blocks * n_part),
+        "sum_partials": (0, blocks * n_part, 4 * (blocks + 1) * n_part),
+    }
+    out = {}
+    for name, (tc, fma, nbytes) in kernels.items():
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (3 * tc / TF32_FLOP_PER_S + fma / FP32_FLOP_PER_S) * 1e3
+        out[name] = {
+            "flop": tc + fma, "bytes": nbytes,
+            "bound_ms": max(mem_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+            "ffma_bound_ms": max(mem_ms, (tc + fma) / FP32_FLOP_PER_S * 1e3),
+        }
+    return out
+
+
 def _max_rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
@@ -136,7 +177,8 @@ def phase_kernels() -> dict:
 
     Each mode also reads a control: the other mode's kernel held to this
     mode's plain chain. The control must fail this mode's limits, so a
-    kernel that got the precision wrong cannot pass them."""
+    kernel that got the precision wrong cannot pass them. The fp32 mode
+    reads a second one: the plain chain with 1-pass TF32 products."""
     import torch
 
     from implicit_image_tpu_torch.data import get_grid
@@ -223,11 +265,42 @@ def phase_kernels() -> dict:
         if not sum_rel <= SUM_TOL:
             raise AssertionError(f"sum_partials disagrees: {sum_rel}")
         if prec == "fp32":
+            # the second control: 1-pass TF32 products in the plain chain
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = (sm.siren_chain_reference(params, x, mcfg, prec),
+                        *sm.siren_chain_backward_reference(params, x, g, mcfg, prec))
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tf32_fwd, tf32_rel, _ = _errors(tf32, plain)
+            tf32_worst = max(tf32_rel, key=tf32_rel.get)
+            print(
+                f"[3 kernels {prec}] control, the plain chain with 1-pass TF32 products: "
+                f"fwd max_abs_err {tf32_fwd:.3e}; bwd max rel err {tf32_rel[tf32_worst]:.3e} "
+                f"at {tf32_worst}",
+                flush=True,
+            )
+            if not (tf32_fwd > FWD_TOL[prec] or tf32_rel[tf32_worst] > BWD_TOL[prec]):
+                raise AssertionError("fp32: the limits pass 1-pass TF32 products as well")
+            bounds = _bounds(x.shape[0], params[0]["w"].shape[0], params[-1]["w"].shape[1],
+                             DEPTH, WIDTH, blocks, n_part)
             records = {
-                "sine_mlp_fwd": (fwd_err, fwd_ms, fwd_plain_ms),
-                "sine_mlp_bwd": (bwd_abs, bwd_ms, bwd_plain_ms),
-                "sum_partials": (sum_err, sum_ms, sum_plain_ms),
+                "sine_mlp_fwd": (fwd_err, fwd_ms, fwd_plain_ms, None),
+                "sine_mlp_bwd": (bwd_abs, bwd_ms, bwd_plain_ms, None),
+                # partials.sum(0) is one PyTorch call for the same function
+                "sum_partials": (sum_err, sum_ms, sum_plain_ms, sum_plain_ms),
             }
+            for name, (_, ms, _, _) in records.items():
+                b = bounds[name]
+                print(
+                    f"[3 kernels {prec}] {name}: {b['flop'] / 1e9:.3f} GFLOP, "
+                    f"{b['bytes'] / 1e6:.3f} MB; bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']}; FFMA-only bound {b['ffma_bound_ms']:.4f} ms); "
+                    f"kernel {ms:.4f} ms = {b['bound_ms'] / ms:.1%} of bound",
+                    flush=True,
+                )
+            records = {name: (*rec, bounds[name]) for name, rec in records.items()}
     return records
 
 
@@ -506,8 +579,11 @@ def main() -> int:
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "library_ms": library_ms,
         }
-        for name, (err, ms, plain_ms) in records.items()
+        for name, (err, ms, plain_ms, library_ms, bound) in records.items()
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -216,7 +216,7 @@ def params_from_state_dict(state_dict: Dict[str, np.ndarray], device="cpu"
 
 
 def decode_and_render(dir_name: Union[str, Path], stream_name: str, mdef, mcfg,
-                      height: int, width: int, device="cpu", precision: str = "fp32"):
+                      height: int, width: int, device="cuda", precision: str = "fp32"):
     """Full decoder: container -> params -> rendered (H, W, 3) numpy image.
     Returns (image, stats) with host decode, upload and render seconds."""
     t0 = time.perf_counter()

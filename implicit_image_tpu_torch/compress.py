@@ -6,8 +6,9 @@ and render -> report (decoded PSNR, container bytes, decoded MS-SSIM).
     python -m implicit_image_tpu_torch.compress            # the JAX default: RigL
     python -m implicit_image_tpu_torch.compress masking=SNFS train.num_steps=2000
 
-It composes its config with the JAX package's framework-free composer and
-YAML tree (implicit_image_tpu.config), so it takes the same overrides, plus
+It composes its config with the port's copy of the JAX package's composer
+and YAML tree (implicit_image_tpu_torch.config), so it takes the same
+overrides, plus
 one key the YAML tree does not hold: `device` (default "cuda"; the tests
 pass device=cpu). Run dirs hold the same files as the JAX package's
 (config.json, metrics.jsonl, summary.json, model.npz, mask.npz for a
@@ -38,12 +39,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from implicit_image_tpu.config import DotDict, compose
 from implicit_image_tpu_torch.coding import (
     compress_state_dict,
     decode_and_render,
     linear_state_dict,
 )
+from implicit_image_tpu_torch.config import DotDict, compose
 from implicit_image_tpu_torch.data import (
     get_grid,
     load_img,

@@ -1,4 +1,5 @@
-// Fused SIREN chain, forward and rematerializing backward, for Hopper (sm_90a).
+// Fused SIREN chain, forward and rematerializing backward, on the tensor
+// cores of Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 //   sine_mlp_fwd  <- _fwd_kernel / _fwd_call   (ops/sine_mlp.py:81-122)
@@ -8,31 +9,66 @@
 //
 // The chain, for one tile of T pixel rows:
 //   z_0 = x W_0 + b_0,           a_0 = sin(w0 * z_0)
-//   z_l = a_{l-1} W_l + b_l,     a_l = sin(wh * z_l)     l = 1 .. D-2
-//   out = a_{D-2} W_{D-1} + b_{D-1}
+//   z_l = a_{l-1} W_l + b_l,     a_l = sin(wh * z_l)     l = 1 .. L = D-2
+//   out = a_L W_{D-1} + b_{D-1}
 // with the polynomial sine of fast_math.cuh.
 //
-// What bounds it on the card: at 512^2 pixels, width 128, depth 8 the hidden
-// products are 2*N*H*H*(D-2) = 52 GFLOP per forward, against ~12 MB of
-// coordinates and outputs, so the kernels are bound by arithmetic, not by
-// device memory. Activations stay in shared memory across all layers; each
-// hidden W (H x H fp32, 64 KB) is staged into shared memory in turn, and
-// every thread accumulates a 4 x 8 register tile with FFMA. This first
-// version uses no tensor cores (wgmma), no TMA and no warp specialisation.
+// Bound on an H100 SXM at 512^2 pixels, width 128, depth 8: the hidden
+// products are 2*N*H*H*L = 51.5 GFLOP per forward and 3x that per backward
+// (recompute a.W, then dW = a^T gz and ga = gz W^T), against a few MB of
+// coordinates, cotangents and outputs: arithmetic, not memory. In the fp32
+// mode every hidden product is 3xTF32 (below), three tensor-core passes at
+// 495 TFLOP/s: 0.31 ms forward, 0.94 ms backward at the least.
 //
-// Precision modes (template BF16):
-//   fp32: full-fp32 FFMA, the main path's mode.
-//   bf16: matmul operands rounded to bf16 (__float2bfloat16_rn), fp32
-//         accumulation; pre-activations, biases and the cotangent sums stay
-//         fp32 — what the Pallas kernel computes.
+// Design (what the first, FFMA version lost time on, and what this does):
+// 1. Tensor cores. Each hidden product is mma.sync.m16n8k8 (TF32 in, fp32
+//    accumulation) over a 128 x 128 output, 8 warps of 32 x 64 each. The
+//    fp32 mode splits every operand at fragment load into hi = tf32(x) and
+//    lo = tf32(x - hi) (round to nearest by integer operations on the bits:
+//    cvt issues at a quarter of their rate) and accumulates lo*hi + hi*lo +
+//    hi*hi, each pass over all of a warp's tiles before the next: the fp32
+//    chain to ~1e-6 relative. A 1-pass TF32 product is never used. The bf16
+//    mode rounds the operands to bf16, which TF32 holds exactly, and takes
+//    one pass: one bf16 product with fp32 accumulation, as Pallas. wgmma
+//    would reach ~1.6x mma.sync's TF32 rate, but reads B from shared memory
+//    as stored and only K-major, so 3xTF32 would need B's hi and lo parts
+//    staged, twice the shared memory. Here one shared copy of W serves a.W
+//    and gz.W^T, and one copy of a serves a.W and a^T.gz, in an
+//    XOR-swizzled layout (sw()) that keeps all four fragment patterns free
+//    of bank conflicts.
+// 2. Occupancy. One block of 256 threads per SM, persistent over row tiles;
+//    each warp keeps 2 x 8 independent mma tiles in flight.
+// 3. Weight copies. Each hidden W (64 KB) streams into a ring of two shared
+//    buffers with cp.async (16-byte chunks, placed at their swizzled
+//    positions, which a bulk copy of whole rows cannot do), completing on
+//    an mbarrier: layer l+2's W arrives while l+1 computes. The backward
+//    reuses the second buffer for gz, so there W_{l-1} arrives while dW_l
+//    is computed. Nothing stages W synchronously.
+// 4. dW and z traffic. Row tiles of T = 128 halve the per-tile
+//    read-modify-write of the dW partials against 64-row tiles; the partial
+//    is the initial value of the mma accumulators, loaded before the sines
+//    of the step are computed, and stored once. z of the last sine layer
+//    never leaves registers (its derivative is taken at once), z_0 is
+//    recomputed from x (K = in), each stashed z is read once (its sine and
+//    derivative together, after a cp.async copy into the then idle
+//    activation buffer that overlaps the previous layer's gz W^T): the
+//    stash holds L-1, not D-1, layers. At 132 blocks the dW partials take
+//    132 x 394 KB = 52 MB and the stash 132 x 5 x 64 KB = 42 MB; the two do
+//    not fit the 50 MB L2 together at this grid (a smaller grid would idle
+//    SMs), and L2 eviction hints did not change the time on an H100.
+//
+// Measured on an H100 (PERF.md): forward ~1.1 ms, backward ~4.8-5.1 ms at
+// the shapes above; tools/kernel_breakdown.py says where the time goes.
+// 5. Serial tails. Bias sums are warp reductions (shuffles over the 32
+//    rows a warp holds, then 4 warps in fixed order). The first layer
+//    (K = in), the last (N = out) and dx are below the tensor-core shapes
+//    and stay on FMA, spread over all threads: dot products split across
+//    the lanes of a warp and reduced by shuffles.
 //
 // Backward: blocks run in parallel with no carry between them, so a fixed
-// grid of one block per SM loops over its share of tiles. Each tile
-// recomputes the forward, stashing the fp32 pre-activations z in the block's
-// own slice of a device-memory scratch, then backpropagates. Each block adds
-// its dW/db into its own slice of a partial-gradient buffer, and
-// sum_partials adds the slices in a fixed order: no atomics, so a run
-// repeats bit for bit.
+// grid of one block per SM loops over its share of tiles, adding into its
+// own slice of a partial-gradient buffer; sum_partials adds the slices in a
+// fixed order. No atomics: a run repeats bit for bit.
 //
 // Every launcher returns the cudaError_t of its launch (0 on success).
 
@@ -40,16 +76,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fast_math.cuh"
 
 namespace {
 
-constexpr int H = 128;         // hidden width the kernels are built for
-constexpr int AS = H + 4;      // activation row stride in shared memory (bank skew)
-constexpr int T = 64;          // pixel rows per tile
-constexpr int THREADS = 256;   // a 16 x 16 grid of threads
-constexpr int RPT = T / 16;    // rows per thread in a T x H tile
-constexpr int MAX_IO = 8;      // largest input / output width
+constexpr int H = 128;          // hidden width the kernels are built for
+constexpr int T = 128;          // pixel rows per tile
+constexpr int BUF = T * H;      // floats in one shared matrix buffer
+constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
+constexpr int MAX_IO = 8;       // largest input / output width
+static_assert(T == H, "one buffer size serves activations and weights");
 
 struct Chain {
   const float* w0;   // (in, H)
@@ -67,114 +105,307 @@ __device__ __forceinline__ float rnd(float v) {
   return v;
 }
 
-// Column j (0..7) of thread tx: two runs of four, so a warp's float4 reads of
-// one row of W cover 256 contiguous bytes.
-__device__ __forceinline__ int col_of(int tx, int j) {
-  return (j < 4) ? 4 * tx + j : 64 + 4 * tx + (j - 4);
+// ------------------------------------------------------------------ PTX
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Row i (0..RPT-1) of thread ty: interleaved, so the two rows a warp reads at
-// once sit AS floats apart, in different banks.
-__device__ __forceinline__ int row_of(int ty, int i) { return ty + 16 * i; }
+// Rounding by integer operations on the bits: cvt (F2F) issues at a
+// quarter of the integer rate on sm_90, and every operand value is rounded.
+// TF32 nearest, ties away from zero, as cvt.rna.tf32.f32:
+__device__ __forceinline__ uint32_t tf32(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
+// bf16 nearest, ties to even, as __float2bfloat16_rn (finite values):
+__device__ __forceinline__ uint32_t bf16(uint32_t bits) {
+  return (bits + 0x7fffu + ((bits >> 16) & 1u)) & 0xffff0000u;
+}
 
-// Copy an H x H fp32 matrix from device memory into shared memory, rounding
-// it to the mode's operand type.
-template <bool BF16>
-__device__ __forceinline__ void stage_w(float* __restrict__ ws,
-                                        const float* __restrict__ wg, int tid) {
-  for (int e = 4 * tid; e < H * H; e += 4 * THREADS) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(wg + e));
-    v.x = rnd<BF16>(v.x);
-    v.y = rnd<BF16>(v.y);
-    v.z = rnd<BF16>(v.z);
-    v.w = rnd<BF16>(v.w);
-    *reinterpret_cast<float4*>(ws + e) = v;
+// The operand as the product takes it. fp32 mode: hi = tf32(x) and lo =
+// tf32(x - hi), both rounded. (Passing x - hi whole lets the tensor core
+// drop its low bits: a one-sided error on every product that passed the
+// one-shot checks but cost the dense protocol 1.2 dB on an H100, PERF.md.)
+// bf16 mode: bf16(x), where x is not a bf16 value already (ROUND).
+template <bool BF16, bool ROUND = true>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (BF16) {
+    hi = ROUND ? bf16(__float_as_uint(x)) : __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = tf32(__float_as_uint(x));
+    lo = tf32(__float_as_uint(x - __uint_as_float(hi)));
   }
 }
 
-// Copy the transpose of an H x H fp32 matrix from device memory into shared
-// memory, ws[k][j] = wg[j][k], rounded to the mode's operand type. A warp's
-// lanes take 32 consecutive rows j, so its shared-memory stores hit 32
-// different banks. Four loads stay in flight per thread: on an H100 the fp32
-// backward then matches one that stages a host-transposed copy of W, while
-// the bf16 backward spills registers and runs ~11% slower (see PERF.md).
-template <bool BF16>
-__device__ __forceinline__ void stage_w_t(float* __restrict__ ws,
-                                          const float* __restrict__ wg, int tid) {
+// Element (r, c) of a T x H matrix in shared memory. Rows are not padded;
+// 8-float pieces of a row are permuted by an XOR of column bits 3-4 with
+// h(r & 7) = 2 b1 + (b0 ^ b2), which takes 4 distinct values on rows
+// {0-3}, {4-7}, {0,2,4,6} and {1,3,5,7}: so a warp's fragment loads (rows
+// from the lane's group g and column pairs from its index t, or rows
+// from t and columns from g, see load_frag) hit 32 different banks.
+__device__ __forceinline__ int swz(int r) { return ((r & 2) << 3) | (((r ^ (r >> 2)) & 1) << 3); }
+__device__ __forceinline__ int sw(int r, int c) { return r * H + (c ^ swz(r)); }
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// The two weight buffers and their mbarriers. Every thread runs the same
+// issue / wait sequence, so the phase and pending bits stay uniform.
+struct Ring {
+  float* base;  // buffer b at base + b * BUF
+  uint64_t* bar;
+  uint32_t phase = 0, pending = 0;
+
+  __device__ __forceinline__ float* buf(int b) const { return base + b * BUF; }
+
+  // Copy W (H x H fp32, device memory) into buffer b in the sw() layout:
+  // every thread copies 16 of its 16-byte chunks with cp.async, then the
+  // mbarrier counts the thread's arrival when they have landed. Call
+  // after a barrier, so the block is done with the buffer.
+  __device__ __forceinline__ void issue(int b, const float* __restrict__ w) {
+    float* dst = buf(b);
 #pragma unroll 4
-  for (int e = tid; e < H * H / 4; e += THREADS) {
-    const int j = e % H, k = 4 * (e / H);
-    const float4 v = __ldg(reinterpret_cast<const float4*>(wg + j * H + k));
-    ws[(k + 0) * H + j] = rnd<BF16>(v.x);
-    ws[(k + 1) * H + j] = rnd<BF16>(v.y);
-    ws[(k + 2) * H + j] = rnd<BF16>(v.z);
-    ws[(k + 3) * H + j] = rnd<BF16>(v.w);
+    for (int e = threadIdx.x; e < H * H / 4; e += THREADS) {
+      const int r = e / (H / 4), c = 4 * (e % (H / 4));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   ::"r"(smem_addr(dst + sw(r, c))), "l"(w + r * H + c) : "memory");
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 ::"r"(smem_addr(bar + b)) : "memory");
+    pending |= 1u << b;
   }
+
+  // Wait for buffer b's copy, if one is in flight.
+  __device__ __forceinline__ void wait(int b) {
+    if (pending & (1u << b)) {
+      mbar_wait(bar + b, (phase >> b) & 1u);
+      phase ^= 1u << b;
+      pending &= ~(1u << b);
+    }
+  }
+};
+
+// Copy a stashed z tile (T x H, already in the sw() layout) into shared
+// memory with cp.async; the mbarrier counts each thread's arrival when its
+// copies (and any earlier ones) have landed.
+__device__ __forceinline__ void copy_tile(float* __restrict__ dst, const float* __restrict__ src,
+                                          uint64_t* bar) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < T * H / 4; e += THREADS)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 ::"r"(smem_addr(dst + 4 * e)), "l"(src + 4 * e) : "memory");
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(smem_addr(bar)) : "memory");
 }
 
-// acc = A (T x H, stride AS) @ B (H x H, stride H), this thread's 4 x 8 tile.
-__device__ __forceinline__ void mma_tile(const float* __restrict__ a_s,
-                                         const float* __restrict__ b_s,
-                                         float acc[RPT][8], int tx, int ty) {
+// ------------------------------------------------------- the layer block
+//
+// A warp's share of a 128 x 128 product: rows m0..m0+31, columns
+// n0..n0+63, as 2 x 8 m16n8 tiles. acc[mi][ni][q] is the element at
+//   row m0 + 16 mi + g + 8 (q >> 1),  column n0 + 8 ni + 2 t + (q & 1)
+// with g = lane / 4 and t = lane % 4 (the mma's accumulator layout).
+
+struct Warp {
+  int m0, n0, lane, g, t;
+  __device__ __forceinline__ explicit Warp(int tid)
+      : m0(32 * ((tid >> 5) >> 1)), n0(64 * ((tid >> 5) & 1)), lane(tid & 31),
+        g((tid & 31) >> 2), t(tid & 3) {}
+  __device__ __forceinline__ int row(int mi, int q) const { return m0 + 16 * mi + g + 8 * (q >> 1); }
+  __device__ __forceinline__ int col(int ni) const { return n0 + 8 * ni + 2 * t; }
+};
+
+using Acc = float[2][8][4];
+
+__device__ __forceinline__ void zero(Acc acc) {
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < H; k += 4) {
-    float4 a[RPT];
+    for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&a_s[row_of(ty, i) * AS + k]);
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+}
+
+// The raw operand values of one k-step of 8: a[mi][q] and b[ni][q] in the
+// mma's fragment order. Within the step, logical k = t + 4 q sits at
+// physical k0 + 2 t + q (any permutation of k shared by A and B leaves the
+// product unchanged), so a fragment whose row comes from g loads its two
+// k values with one 8-byte access.
+struct Frag {
+  float a[2][4];
+  float b[8][2];
+};
+
+// Per-lane pointers that turn every fragment load of a product into a
+// pointer plus a compile-time offset. sw() flips column bits 3-4 by a
+// function of the row's low 3 bits, which is fixed per lane in both
+// patterns, so 4 (or 2 x 4) pointers cover the four values of bits 3-4.
+//   Rows(M, r0): element pair (r0 + g + rr, k0 + 2t), r0, rr, k0 multiples
+//     of 8: p[(k0 >> 3) & 3] + rr * H + (k0 & ~24).
+//   Cols(M, c0): element (k0 + 2t + q, c0 + cc + g), c0 a multiple of 32,
+//     cc and k0 of 8: p[q][(cc >> 3) & 3] + k0 * H + (cc & ~24).
+struct Rows {
+  const float* p[4];
+  __device__ __forceinline__ Rows(const float* m, int r0, const Warp& w) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[(k + kk) * H + 4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&b_s[(k + kk) * H + 64 + 4 * tx]);
+    for (int j = 0; j < 4; ++j) p[j] = m + (r0 + w.g) * H + 2 * w.t + ((8 * j) ^ swz(w.g));
+  }
+  __device__ __forceinline__ float2 at(int rr, int k0) const {
+    return *reinterpret_cast<const float2*>(p[(k0 >> 3) & 3] + rr * H + (k0 & ~24));
+  }
+};
+struct Cols {
+  const float* p[2][4];
+  __device__ __forceinline__ Cols(const float* m, int c0, const Warp& w) {
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-        acc[i][0] += av * b0.x;
-        acc[i][1] += av * b0.y;
-        acc[i][2] += av * b0.z;
-        acc[i][3] += av * b0.w;
-        acc[i][4] += av * b1.x;
-        acc[i][5] += av * b1.y;
-        acc[i][6] += av * b1.z;
-        acc[i][7] += av * b1.w;
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p[q][j] = m + (2 * w.t + q) * H + c0 + w.g + ((8 * j) ^ swz(2 * w.t + q));
+  }
+  __device__ __forceinline__ float at(int q, int cc, int k0) const {
+    return p[q][(cc >> 3) & 3][k0 * H + (cc & ~24)];
+  }
+};
+
+// A(m, k) = A_T ? A[k][m] : A[m][k],  B(k, n) = B_T ? B[n][k] : B[k][n];
+// PA / PB are Rows or Cols to match.
+template <bool A_T, bool B_T, class PA, class PB>
+__device__ __forceinline__ void load_frag(Frag& f, const PA& pa, const PB& pb, int k0) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    if constexpr (A_T) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f.a[mi][q] = pa.at(q >> 1, 16 * mi + 8 * (q & 1), k0);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = pa.at(16 * mi + 8 * h, k0);
+        f.a[mi][h] = v.x;
+        f.a[mi][h + 2] = v.y;
       }
     }
   }
-}
-
-// z = acc + b; optionally store z (T x H, stride H, device memory);
-// a = rnd(sin(omega z)) into shared memory.
-template <bool BF16>
-__device__ __forceinline__ void sine_epilogue(const float acc[RPT][8],
-                                              const float* __restrict__ bias,
-                                              float omega, float* __restrict__ a_s,
-                                              float* __restrict__ z_g, int tx, int ty) {
-  float b[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) b[j] = __ldg(&bias[col_of(tx, j)]);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = row_of(ty, i);
-    float z[8], a[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      z[j] = acc[i][j] + b[j];
-      a[j] = rnd<BF16>(iit::fast_sin(omega * z[j]));
+  for (int ni = 0; ni < 8; ++ni) {
+    if constexpr (B_T) {
+      const float2 v = pb.at(8 * ni, k0);
+      f.b[ni][0] = v.x;
+      f.b[ni][1] = v.y;
+    } else {
+      f.b[ni][0] = pb.at(0, 8 * ni, k0);
+      f.b[ni][1] = pb.at(1, 8 * ni, k0);
     }
-    if (z_g != nullptr) {
-      *reinterpret_cast<float4*>(&z_g[r * H + 4 * tx]) = make_float4(z[0], z[1], z[2], z[3]);
-      *reinterpret_cast<float4*>(&z_g[r * H + 64 + 4 * tx]) = make_float4(z[4], z[5], z[6], z[7]);
-    }
-    *reinterpret_cast<float4*>(&a_s[r * AS + 4 * tx]) = make_float4(a[0], a[1], a[2], a[3]);
-    *reinterpret_cast<float4*>(&a_s[r * AS + 64 + 4 * tx]) = make_float4(a[4], a[5], a[6], a[7]);
   }
 }
 
-// Stage the tile's inputs (T x MAX_IO, zero beyond n rows and in_size cols).
+// One k-step on all 16 tiles. Each pass runs over every tile before the
+// next pass starts, so no product waits on the one just issued to the same
+// accumulator. In bf16 mode the activations and gz are stored rounded
+// already; only W (B_IS_W) is rounded here.
+template <bool BF16, bool B_IS_W>
+__device__ __forceinline__ void mma_step(Acc acc, const Frag& f) {
+  uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split<BF16, false>(f.a[mi][q], ah[mi][q], al[mi][q]);
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) split<BF16, B_IS_W>(f.b[ni][q], bh[ni][q], bl[ni][q]);
+  if (!BF16) {  // small terms first
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+  }
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+}
+
+// acc += A B over K = 128, A and B in shared memory (sw() layout). a.W is
+// <false, false>, a^T.gz is <true, false>, gz.W^T is <false, true>. The
+// next k-step's operands load while this one's products issue.
+template <bool BF16, bool A_T, bool B_T>
+__device__ __forceinline__ void warp_mma(Acc acc, const float* __restrict__ A,
+                                         const float* __restrict__ B, const Warp& w) {
+  using PA = std::conditional_t<A_T, Cols, Rows>;
+  using PB = std::conditional_t<B_T, Rows, Cols>;
+  const PA pa(A, w.m0, w);
+  const PB pb(B, w.n0, w);
+  Frag f[2];
+  load_frag<A_T, B_T>(f[0], pa, pb, 0);
+#pragma unroll
+  for (int k0 = 0; k0 < H; k0 += 16) {
+    load_frag<A_T, B_T>(f[1], pa, pb, k0 + 8);
+    mma_step<BF16, !A_T>(acc, f[0]);
+    if (k0 + 16 < H) load_frag<A_T, B_T>(f[0], pa, pb, k0 + 16);
+    mma_step<BF16, !A_T>(acc, f[1]);
+  }
+}
+
+// What a sine layer's epilogue keeps besides a = rnd(sin(omega z)) in a_s.
+enum Keep { kNothing, kStashZ, kDerivative };
+
+// z = acc + bias. a_s gets rnd(sin(omega z)); kStashZ also stores z at
+// z_g (T x H, in the sw() layout: an image of a shared tile), kDerivative
+// leaves omega cos(omega z) in acc.
+template <bool BF16, Keep KEEP>
+__device__ __forceinline__ void sine_epilogue(Acc acc, const float* __restrict__ bias, float omega,
+                                              float* __restrict__ a_s, float* __restrict__ z_g,
+                                              const Warp& w) {
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int c = w.col(ni);
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = w.row(mi, 2 * h);
+        const float z0 = acc[mi][ni][2 * h] + b.x, z1 = acc[mi][ni][2 * h + 1] + b.y;
+        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw(r, c)]) = make_float2(z0, z1);
+        if (KEEP == kDerivative) {
+          acc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z0);
+          acc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z1);
+        }
+        *reinterpret_cast<float2*>(&a_s[sw(r, c)]) =
+            make_float2(rnd<BF16>(iit::fast_sin(omega * z0)), rnd<BF16>(iit::fast_sin(omega * z1)));
+      }
+  }
+}
+
+// Stage T rows of a (n, width) input into dst (T x MAX_IO), zero beyond n
+// rows and width columns.
 template <bool BF16>
 __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const float* __restrict__ src,
                                            int row0, int n, int width, int tid) {
@@ -185,241 +416,377 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const float*
   }
 }
 
-// The sine layers of the chain for one tile. On return a_s holds a_{D-2};
-// with z_g != nullptr every z_l is stored at z_g + l*T*H. Ends synchronised.
+// First layer, K = in_size: acc = x_s W_0 (FMA) at the warp's positions.
 template <bool BF16>
-__device__ void forward_tile(const Chain& c, float* __restrict__ w_s, float* __restrict__ a_s,
-                             const float* __restrict__ x_s, float* __restrict__ z_g,
-                             int tx, int ty, int tid) {
-  float acc[RPT][8];
-  float w[8];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void first_layer(Acc acc, const Chain& c, const float* __restrict__ x_s,
+                                            const Warp& w) {
+  zero(acc);
   for (int k = 0; k < c.in_size; ++k) {
+    float xv[2][2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) w[j] = rnd<BF16>(__ldg(&c.w0[k * H + col_of(tx, j)]));
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float xv = x_s[row_of(ty, i) * MAX_IO + k];
+      for (int h = 0; h < 2; ++h) xv[mi][h] = x_s[w.row(mi, 2 * h) * MAX_IO + k];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += xv * w[j];
+    for (int ni = 0; ni < 8; ++ni) {
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * H + w.col(ni)));
+      const float w0 = rnd<BF16>(wv.x), w1 = rnd<BF16>(wv.y);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[mi][ni][2 * h] += xv[mi][h] * w0;
+          acc[mi][ni][2 * h + 1] += xv[mi][h] * w1;
+        }
     }
   }
-  sine_epilogue<BF16>(acc, c.bs, c.omega0, a_s, z_g, tx, ty);
-  for (int l = 1; l <= c.depth - 2; ++l) {
-    stage_w<BF16>(w_s, c.wm + (size_t)(l - 1) * H * H, tid);
-    __syncthreads();
-    mma_tile(a_s, w_s, acc, tx, ty);
-    __syncthreads();
-    sine_epilogue<BF16>(acc, c.bs + l * H, c.omega_h, a_s,
-                        z_g != nullptr ? z_g + (size_t)l * T * H : nullptr, tx, ty);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// dst[r][o] = sum_k src_s[r][k] * rnd(w(k, o)) (+ bias[o]) for the tile's
+// rows below n, w(k, o) = w[k * sk + o * so] and o < no <= MAX_IO. Warp w
+// takes rows 16 w .. 16 w + 15; lane i sums columns i + 32 j and the warp
+// adds the lanes (a fixed order).
+template <bool BF16>
+__device__ __forceinline__ void rows_times_narrow(const float* __restrict__ src_s,
+                                                  const float* __restrict__ wg, int sk, int so,
+                                                  int no, const float* __restrict__ bias,
+                                                  float* __restrict__ dst, int row0, int n,
+                                                  int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  float wv[4][MAX_IO];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o)
+      wv[j][o] = o < no ? rnd<BF16>(__ldg(&wg[(lane + 32 * j) * sk + o * so])) : 0.f;
+  const float b = (bias != nullptr && lane < no) ? __ldg(&bias[lane]) : 0.f;
+  for (int i = 0; i < T / 8; ++i) {
+    const int r = warp * (T / 8) + i;
+    float sv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sv[j] = src_s[sw(r, lane + 32 * j)];
+    float mine = 0.f;
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o) {
+      if (o < no) {
+        float p = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p += sv[j] * wv[j][o];
+        p = warp_sum(p);
+        if (lane == o) mine = p;
+      }
+    }
+    if (lane < no && row0 + r < n) dst[(size_t)(row0 + r) * no + lane] = mine + b;
+  }
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < count; ++i) mbar_init(bar + i, THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
 
+// ------------------------------------------------------------- forward
+
+// Shared memory: two weight buffers, the activation tile, the input tile
+// and the two mbarriers.
+constexpr size_t kFwdSmem = sizeof(float) * (3 * BUF + T * MAX_IO) + 2 * sizeof(uint64_t);
+
 template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* a_s = w_s + H * H;
-  float* x_s = a_s + T * AS;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * T;
+  float* w_s0 = reinterpret_cast<float*>(smem4);
+  float* a_s = w_s0 + 2 * BUF;
+  float* x_s = a_s + BUF;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(x_s + T * MAX_IO);
+  const int tid = threadIdx.x;
+  const Warp w(tid);
+  const int L = c.depth - 2;
+  const int n_tiles = (c.n + T - 1) / T;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // the block's hidden-layer uses in order; use s reads buffer s % 2
+  const int total = my_tiles * L;
 
-  stage_rows<BF16>(x_s, x, row0, c.n, c.in_size, tid);
-  __syncthreads();
-  forward_tile<BF16>(c, w_s, a_s, x_s, nullptr, tx, ty, tid);
-  for (int e = tid; e < T * c.out_size; e += THREADS) {
-    const int r = e / c.out_size, o = e % c.out_size;
-    float s = 0.f;
-    for (int k = 0; k < H; ++k) s += a_s[r * AS + k] * rnd<BF16>(__ldg(&c.wl[k * c.out_size + o]));
-    const int row = row0 + r;
-    if (row < c.n) out[(size_t)row * c.out_size + o] = s + __ldg(&c.bl[o]);
-  }
-}
+  init_barriers(bar, 2);
+  Ring ring{w_s0, bar};
+  for (int s = 0; s < 2 && s < total; ++s) ring.issue(s, c.wm + (size_t)(s % L) * H * H);
 
-// dW (H x H, device memory) += A^T G over the tile's T rows; this thread owns
-// an 8 x 8 block of dW.
-__device__ __forceinline__ void dw_tile(const float* __restrict__ a_s, const float* __restrict__ g_s,
-                                        float* __restrict__ dw, int tx, int ty) {
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-#pragma unroll 2
-  for (int r = 0; r < T; ++r) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&a_s[r * AS + 4 * ty]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&a_s[r * AS + 64 + 4 * ty]);
-    const float4 g0 = *reinterpret_cast<const float4*>(&g_s[r * AS + 4 * tx]);
-    const float4 g1 = *reinterpret_cast<const float4*>(&g_s[r * AS + 64 + 4 * tx]);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-    for (int p = 0; p < 8; ++p)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[p][q] += av[p] * gv[q];
-  }
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int k = col_of(ty, p);
-    float4* d0 = reinterpret_cast<float4*>(&dw[k * H + 4 * tx]);
-    float4* d1 = reinterpret_cast<float4*>(&dw[k * H + 64 + 4 * tx]);
-    float4 v0 = *d0, v1 = *d1;
-    v0.x += acc[p][0]; v0.y += acc[p][1]; v0.z += acc[p][2]; v0.w += acc[p][3];
-    v1.x += acc[p][4]; v1.y += acc[p][5]; v1.z += acc[p][6]; v1.w += acc[p][7];
-    *d0 = v0;
-    *d1 = v1;
-  }
-}
-
-// g_s = ga * omega * cos(omega z) for this thread's tile (z from device memory).
-__device__ __forceinline__ void sine_grad(const float ga[RPT][8], const float* __restrict__ z_g,
-                                          float omega, float* __restrict__ g_s, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = row_of(ty, i);
-    const float4 z0 = *reinterpret_cast<const float4*>(&z_g[r * H + 4 * tx]);
-    const float4 z1 = *reinterpret_cast<const float4*>(&z_g[r * H + 64 + 4 * tx]);
-    const float z[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-    float gz[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) gz[j] = ga[i][j] * (omega * iit::fast_cos(omega * z[j]));
-    *reinterpret_cast<float4*>(&g_s[r * AS + 4 * tx]) = make_float4(gz[0], gz[1], gz[2], gz[3]);
-    *reinterpret_cast<float4*>(&g_s[r * AS + 64 + 4 * tx]) = make_float4(gz[4], gz[5], gz[6], gz[7]);
-  }
-}
-
-// a_s = rnd(sin(omega z)) for this thread's tile (z from device memory).
-template <bool BF16>
-__device__ __forceinline__ void resine(const float* __restrict__ z_g, float omega,
-                                       float* __restrict__ a_s, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = row_of(ty, i);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 64 + 4 * tx;
-      const float4 z = *reinterpret_cast<const float4*>(&z_g[r * H + c0]);
-      *reinterpret_cast<float4*>(&a_s[r * AS + c0]) =
-          make_float4(rnd<BF16>(iit::fast_sin(omega * z.x)), rnd<BF16>(iit::fast_sin(omega * z.y)),
-                      rnd<BF16>(iit::fast_sin(omega * z.z)), rnd<BF16>(iit::fast_sin(omega * z.w)));
-    }
-  }
-}
-
-// db += column sums of g_s (fp32), then, in bf16 mode, round g_s in place.
-// Ends synchronised.
-template <bool BF16>
-__device__ __forceinline__ void bias_grad_and_round(float* __restrict__ g_s, float* __restrict__ db,
-                                                    int tx, int ty, int tid) {
-  __syncthreads();
-  if (tid < H) {
-    float s = 0.f;
-    for (int r = 0; r < T; ++r) s += g_s[r * AS + tid];
-    db[tid] += s;
-  }
-  if (BF16) {
+  int s = 0;
+  Acc acc;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * T;
+    stage_rows<BF16>(x_s, x, row0, c.n, c.in_size, tid);
     __syncthreads();
+    first_layer<BF16>(acc, c, x_s, w);
+    sine_epilogue<BF16, kNothing>(acc, c.bs, c.omega0, a_s, nullptr, w);
+    __syncthreads();
+    for (int l = 1; l <= L; ++l, ++s) {
+      const int b = s & 1;
+      ring.wait(b);
+      zero(acc);
+      warp_mma<BF16, false, false>(acc, a_s, ring.buf(b), w);
+      __syncthreads();
+      if (s + 2 < total) ring.issue(b, c.wm + (size_t)((s + 2) % L) * H * H);
+      sine_epilogue<BF16, kNothing>(acc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
+      __syncthreads();
+    }
+    rows_times_narrow<BF16>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, out, row0, c.n,
+                            tid);
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------ backward
+
+// acc = the H x H partial dw at the warp's positions, or acc -> dw.
+template <bool LOAD>
+__device__ __forceinline__ void move_partial(Acc acc, float* __restrict__ dw, const Warp& w) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float* p = &g_s[row_of(ty, i) * AS + col_of(tx, j)];
-        *p = rnd<BF16>(*p);
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* p = reinterpret_cast<float2*>(&dw[w.row(mi, 2 * h) * H + w.col(ni)]);
+        if (LOAD) {
+          const float2 v = *p;
+          acc[mi][ni][2 * h] = v.x;
+          acc[mi][ni][2 * h + 1] = v.y;
+        } else {
+          *p = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        }
+      }
+}
+
+// a_s = rnd(sin(omega z)) and dc = omega cos(omega z), with z in a_s
+// itself (copied there from the stash), or (FROM_DC) z = dc + bias where
+// dc holds x W_0. Each thread reads and writes only its own positions.
+template <bool BF16, bool FROM_DC>
+__device__ __forceinline__ void resine(Acc dc, const float* __restrict__ bias, float omega,
+                                       float* __restrict__ a_s, const Warp& w) {
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int c = w.col(ni);
+    const float2 b = FROM_DC ? __ldg(reinterpret_cast<const float2*>(bias + c)) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = w.row(mi, 2 * h);
+        const float2 z = FROM_DC ? make_float2(dc[mi][ni][2 * h] + b.x, dc[mi][ni][2 * h + 1] + b.y)
+                                 : *reinterpret_cast<const float2*>(&a_s[sw(r, c)]);
+        dc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z.x);
+        dc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z.y);
+        *reinterpret_cast<float2*>(&a_s[sw(r, c)]) =
+            make_float2(rnd<BF16>(iit::fast_sin(omega * z.x)), rnd<BF16>(iit::fast_sin(omega * z.y)));
       }
   }
-  __syncthreads();
 }
 
+// gz = ga * dc, in place in ga. Then red[row group][col] = the sum of gz
+// over the warp's 32 rows (fp32; four fixed-order terms, then shuffles
+// across the lanes that share a column), and g_s = rnd(gz).
 template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void store_gz(Acc ga, const Acc dc, float* __restrict__ g_s,
+                                         float* __restrict__ red, const Warp& w) {
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    float s[2];
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) ga[mi][ni][2 * h + cc] *= dc[mi][ni][2 * h + cc];
+      float v = (ga[0][ni][cc] + ga[0][ni][2 + cc]) + (ga[1][ni][cc] + ga[1][ni][2 + cc]);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      s[cc] = v;
+    }
+    if (w.g == 0)
+      *reinterpret_cast<float2*>(&red[(w.m0 / 32) * H + w.col(ni)]) = make_float2(s[0], s[1]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(&g_s[sw(w.row(mi, 2 * h), w.col(ni))]) =
+            make_float2(rnd<BF16>(ga[mi][ni][2 * h]), rnd<BF16>(ga[mi][ni][2 * h + 1]));
+  }
+}
+
+// db += the four row groups' sums in red, in order. Call after a barrier.
+__device__ __forceinline__ void add_bias_grad(const float* __restrict__ red, float* __restrict__ db,
+                                              int tid) {
+  if (tid < H) db[tid] += ((red[tid] + red[H + tid]) + red[2 * H + tid]) + red[3 * H + tid];
+}
+
+// Shared memory: weight buffer 0, weight buffer 1 (gz in the backward
+// pass), the activation tile, the input and cotangent tiles, the bias
+// partial sums and three mbarriers (the ring's two, the z copy's).
+constexpr size_t kBwdSmem =
+    sizeof(float) * (3 * BUF + 2 * T * MAX_IO + 4 * H) + 3 * sizeof(uint64_t);
+
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
 sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restrict__ g,
                     float* __restrict__ dx, float* __restrict__ z_all,
                     float* __restrict__ partials, int n_part) {
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* a_s = w_s + H * H;
-  float* g_s = a_s + T * AS;
-  float* x_s = g_s + T * AS;
+  float* w_s0 = reinterpret_cast<float*>(smem4);
+  float* g_s = w_s0 + BUF;  // also weight buffer 1 in the forward pass
+  float* a_s = g_s + BUF;
+  float* x_s = a_s + BUF;
   float* go_s = x_s + T * MAX_IO;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int depth = c.depth, in_size = c.in_size, out_size = c.out_size;
+  float* red = go_s + T * MAX_IO;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + 4 * H);
+  const int tid = threadIdx.x;
+  const Warp w(tid);
+  const int depth = c.depth, in_size = c.in_size, out_size = c.out_size, L = depth - 2;
 
-  // this block's slices: partial gradients and the z stash
+  // this block's slices: partial gradients and the z stash (z_1 .. z_{L-1};
+  // z_0 = x W_0 + b_0 is recomputed from the staged x)
   float* part = partials + (size_t)blockIdx.x * n_part;
   float* dw0 = part;
   float* dwm = dw0 + in_size * H;
-  float* dwl = dwm + (size_t)(depth - 2) * H * H;
+  float* dwl = dwm + (size_t)L * H * H;
   float* dbs = dwl + H * out_size;
   float* dbl = dbs + (depth - 1) * H;
-  float* z_g = z_all + (size_t)blockIdx.x * (depth - 1) * T * H;
+  float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * T * H;
   for (int e = tid; e < n_part; e += THREADS) part[e] = 0.f;
 
+  // Weight buffer uses per tile: forward layer l in buffer (l-1) % 2, every
+  // backward layer in buffer 0. Buffer 0 ends a tile holding W_1, the next
+  // tile's first.
+  init_barriers(bar, 3);
+  Ring ring{w_s0, bar};
+  uint64_t* z_bar = bar + 2;  // z copies into a_s, one phase per copy
+  uint32_t z_phase = 0;
+  const auto wm = [wm0 = c.wm](int l) { return wm0 + (size_t)(l - 1) * H * H; };
+  if (L >= 1) ring.issue(0, wm(1));
+
+  Acc acc, dc;
   const int n_tiles = (c.n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
-    __syncthreads();
+    if (L >= 2) ring.issue(1, wm(2));
     stage_rows<BF16>(x_s, x, row0, c.n, in_size, tid);
     stage_rows<false>(go_s, g, row0, c.n, out_size, tid);
     __syncthreads();
-    forward_tile<BF16>(c, w_s, a_s, x_s, z_g, tx, ty, tid);
 
-    // last layer: dWl += a^T rnd(g), dbl += sum g, ga = rnd(g) Wl^T
-    for (int e = tid; e < H * out_size; e += THREADS) {
-      const int k = e / out_size, o = e % out_size;
-      float s = 0.f;
-      for (int r = 0; r < T; ++r) s += a_s[r * AS + k] * rnd<BF16>(go_s[r * MAX_IO + o]);
-      dwl[e] += s;
-    }
-    if (tid < out_size) {
-      float s = 0.f;
-      for (int r = 0; r < T; ++r) s += go_s[r * MAX_IO + tid];
-      dbl[tid] += s;
-    }
-    float ga[RPT][8];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = row_of(ty, i), k = col_of(tx, j);
-        float s = 0.f;
-        for (int o = 0; o < out_size; ++o)
-          s += rnd<BF16>(go_s[r * MAX_IO + o]) * rnd<BF16>(__ldg(&c.wl[k * out_size + o]));
-        ga[i][j] = s;
-      }
-    __syncthreads();  // a_s (a_{D-2}) has been read
-
-    // hidden layers, last to first
-    for (int l = depth - 2; l >= 1; --l) {
-      sine_grad(ga, z_g + (size_t)l * T * H, c.omega_h, g_s, tx, ty);
-      resine<BF16>(z_g + (size_t)(l - 1) * T * H, l - 1 == 0 ? c.omega0 : c.omega_h, a_s, tx, ty);
-      stage_w_t<BF16>(w_s, c.wm + (size_t)(l - 1) * H * H, tid);
-      bias_grad_and_round<BF16>(g_s, dbs + l * H, tx, ty, tid);
-      dw_tile(a_s, g_s, dwm + (size_t)(l - 1) * H * H, tx, ty);
-      mma_tile(g_s, w_s, ga, tx, ty);  // ga = rnd(gz) W^T
+    // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
+    first_layer<BF16>(dc, c, x_s, w);
+    if (L == 0)
+      sine_epilogue<BF16, kDerivative>(dc, c.bs, c.omega0, a_s, nullptr, w);
+    else
+      sine_epilogue<BF16, kNothing>(dc, c.bs, c.omega0, a_s, nullptr, w);
+    __syncthreads();
+    for (int l = 1; l <= L; ++l) {
+      const int b = (l - 1) & 1;
+      ring.wait(b);
+      zero(dc);
+      warp_mma<BF16, false, false>(dc, a_s, ring.buf(b), w);
+      __syncthreads();
+      if (l + 2 <= L)
+        ring.issue(b, wm(l + 2));
+      else if (b == 0 && L % 2 == 0 && l == L - 1)
+        ring.issue(0, wm(L));  // W_L for the backward pass, which reads buffer 0
+      if (l < L)
+        sine_epilogue<BF16, kStashZ>(dc, c.bs + l * H, c.omega_h, a_s,
+                                     z_g + (size_t)(l - 1) * T * H, w);
+      else
+        sine_epilogue<BF16, kDerivative>(dc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
       __syncthreads();
     }
 
-    // first layer: dW0 += x^T rnd(gz), db0 += sum gz, dx = rnd(gz) W0^T
-    sine_grad(ga, z_g, c.omega0, g_s, tx, ty);
-    bias_grad_and_round<BF16>(g_s, dbs, tx, ty, tid);
+    // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
+    for (int e = tid; e < H * out_size; e += THREADS) {
+      const int k = e % H, o = e / H;
+      float s = 0.f;
+      for (int r = 0; r < T; ++r) s += a_s[sw(r, k)] * rnd<BF16>(go_s[r * MAX_IO + o]);
+      dwl[k * out_size + o] += s;
+    }
+    if ((tid >> 5) < out_size) {
+      const int o = tid >> 5;
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < T / 32; ++j) s += go_s[(w.lane + 32 * j) * MAX_IO + o];
+      s = warp_sum(s);
+      if (w.lane == 0) dbl[o] += s;
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int col = w.col(ni) + cc;
+        float wv[MAX_IO];
+#pragma unroll
+        for (int o = 0; o < MAX_IO; ++o)
+          wv[o] = o < out_size ? rnd<BF16>(__ldg(&c.wl[col * out_size + o])) : 0.f;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = w.row(mi, 2 * h);
+            float s = 0.f;
+#pragma unroll
+            for (int o = 0; o < MAX_IO; ++o)
+              if (o < out_size) s += rnd<BF16>(go_s[r * MAX_IO + o]) * wv[o];
+            acc[mi][ni][2 * h + cc] = s;
+          }
+      }
+    store_gz<BF16>(acc, dc, g_s, red, w);
+    __syncthreads();  // a_L read, gz_L and its bias sums written
+    if (L >= 2) copy_tile(a_s, z_g + (size_t)(L - 2) * T * H, z_bar);  // z_{L-1}
+
+    // hidden layers, last to first
+    for (int l = L; l >= 1; --l) {
+      float* dw = dwm + (size_t)(l - 1) * H * H;
+      move_partial<true>(acc, dw, w);
+      if (l == 1) {
+        first_layer<BF16>(dc, c, x_s, w);
+        resine<BF16, true>(dc, c.bs, c.omega0, a_s, w);
+      } else {
+        mbar_wait(z_bar, z_phase);  // z_{l-1} is in a_s
+        z_phase ^= 1u;
+        resine<BF16, false>(dc, nullptr, c.omega_h, a_s, w);
+      }
+      __syncthreads();
+      add_bias_grad(red, dbs + l * H, tid);
+      warp_mma<BF16, true, false>(acc, a_s, g_s, w);  // dW_l += a_{l-1}^T gz_l
+      move_partial<false>(acc, dw, w);
+      if (l >= 3) {  // z_{l-2} streams into a_s while ga is computed
+        __syncthreads();
+        copy_tile(a_s, z_g + (size_t)(l - 3) * T * H, z_bar);
+      }
+      ring.wait(0);
+      zero(acc);
+      warp_mma<BF16, false, true>(acc, g_s, w_s0, w);  // ga = gz_l W_l^T
+      __syncthreads();
+      if (l >= 2) ring.issue(0, wm(l - 1));
+      store_gz<BF16>(acc, dc, g_s, red, w);  // gz_{l-1}
+    }
+    __syncthreads();
+
+    // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
+    add_bias_grad(red, dbs, tid);
     for (int e = tid; e < in_size * H; e += THREADS) {
       const int k = e / H, col = e % H;
       float s = 0.f;
-      for (int r = 0; r < T; ++r) s += x_s[r * MAX_IO + k] * g_s[r * AS + col];
+      for (int r = 0; r < T; ++r) s += x_s[r * MAX_IO + k] * g_s[sw(r, col)];
       dw0[e] += s;
     }
-    for (int e = tid; e < T * in_size; e += THREADS) {
-      const int r = e / in_size, k = e % in_size;
-      float s = 0.f;
-      for (int col = 0; col < H; ++col) s += g_s[r * AS + col] * rnd<BF16>(__ldg(&c.w0[k * H + col]));
-      const int row = row0 + r;
-      if (row < c.n) dx[(size_t)row * in_size + k] = s;
-    }
+    rows_times_narrow<BF16>(g_s, c.w0, 1, H, in_size, nullptr, dx, row0, c.n, tid);
+    __syncthreads();
   }
 }
 
@@ -432,9 +799,6 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials, float* _
   out[p] = s;
 }
 
-constexpr size_t kFwdSmem = sizeof(float) * (H * H + T * AS + T * MAX_IO);
-constexpr size_t kBwdSmem = sizeof(float) * (H * H + 2 * T * AS + 2 * T * MAX_IO);
-
 Chain make_chain(const float* w0, const float* wm, const float* wl, const float* bs,
                  const float* bl, int n, int in_size, int out_size, int depth,
                  float omega0, float omega_h) {
@@ -445,6 +809,11 @@ Chain make_chain(const float* w0, const float* wm, const float* wl, const float*
   return c;
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace
 
 extern "C" {
@@ -453,31 +822,32 @@ int sine_mlp_hidden() { return H; }
 int sine_mlp_tile_rows() { return T; }
 int sine_mlp_max_io() { return MAX_IO; }
 
+// One persistent block per SM (at most one per tile).
 int sine_mlp_fwd(const float* x, const float* w0, const float* wm, const float* wl,
                  const float* bs, const float* bl, float* out, int n, int in_size,
                  int out_size, int depth, float omega0, float omega_h, int bf16,
                  void* stream) {
   if (n <= 0) return 0;
   const Chain c = make_chain(w0, wm, wl, bs, bl, n, in_size, out_size, depth, omega0, omega_h);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   const int tiles = (n + T - 1) / T;
+  const int grid = tiles < sms ? tiles : sms;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (bf16) {
-    err = cudaFuncSetAttribute(sine_mlp_fwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
-    if (err != cudaSuccess) return (int)err;
-    sine_mlp_fwd_kernel<true><<<tiles, THREADS, kFwdSmem, s>>>(c, x, out);
+    if ((err = allow_smem(sine_mlp_fwd_kernel<true>, kFwdSmem)) != cudaSuccess) return (int)err;
+    sine_mlp_fwd_kernel<true><<<grid, THREADS, kFwdSmem, s>>>(c, x, out);
   } else {
-    err = cudaFuncSetAttribute(sine_mlp_fwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
-    if (err != cudaSuccess) return (int)err;
-    sine_mlp_fwd_kernel<false><<<tiles, THREADS, kFwdSmem, s>>>(c, x, out);
+    if ((err = allow_smem(sine_mlp_fwd_kernel<false>, kFwdSmem)) != cudaSuccess) return (int)err;
+    sine_mlp_fwd_kernel<false><<<grid, THREADS, kFwdSmem, s>>>(c, x, out);
   }
   return (int)cudaGetLastError();
 }
 
-// partials: (grid, n_part) floats, n_part a multiple of 4 (the dW slices
-// take float4 accesses); z_scratch: (grid, depth-1, T, H) floats.
+// partials: (grid, n_part) floats, n_part a multiple of 4 (16-byte aligned
+// slices); z_scratch: (grid, max(depth-3, 1), T, H) floats.
 int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* wm,
                  const float* wl, const float* bs, float* dx, float* z_scratch,
                  float* partials, int grid, int n_part, int n, int in_size, int out_size,
@@ -489,15 +859,11 @@ int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* w
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
-    err = cudaFuncSetAttribute(sine_mlp_bwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBwdSmem);
-    if (err != cudaSuccess) return (int)err;
+    if ((err = allow_smem(sine_mlp_bwd_kernel<true>, kBwdSmem)) != cudaSuccess) return (int)err;
     sine_mlp_bwd_kernel<true><<<grid, THREADS, kBwdSmem, s>>>(c, x, g, dx, z_scratch, partials,
                                                                n_part);
   } else {
-    err = cudaFuncSetAttribute(sine_mlp_bwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBwdSmem);
-    if (err != cudaSuccess) return (int)err;
+    if ((err = allow_smem(sine_mlp_bwd_kernel<false>, kBwdSmem)) != cudaSuccess) return (int)err;
     sine_mlp_bwd_kernel<false><<<grid, THREADS, kBwdSmem, s>>>(c, x, g, dx, z_scratch, partials,
                                                                 n_part);
   }

@@ -10,8 +10,9 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
     partial slice and `sum_partials` adds the slices in a fixed order.
 
 What bounds them on the card, and the design: see the note at the top of
-csrc/sine_mlp.cu (arithmetic-bound FFMA chain, one H x H weight staged in
-shared memory at a time).
+csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
+the tensor cores, mma.sync over 128-row tiles, each hidden W streamed by
+cp.async copies into a double-buffered ring in shared memory).
 
 Side by side in this module:
 
@@ -25,10 +26,13 @@ Side by side in this module:
     /2 + 0.5 output map around the Function;
   * `LAUNCHES` — a count per kernel, incremented where the kernel launches.
 
-Precision modes: "fp32" (full-fp32 FFMA, the main path) and "bf16" (matmul
-operands rounded to bf16, fp32 accumulation — what the Pallas kernel
-computes). `precision_from_config` maps `train.matmul_precision`; NVIDIA's
-TF32 is never used.
+Precision modes: "fp32" (the main path: each hidden product is 3xTF32 on
+the tensor cores, every operand split into hi = tf32(x) and lo = tf32(x -
+hi), hi*hi + hi*lo + lo*hi accumulated in fp32, which holds the fp32 chain
+to ~1e-6 relative; the first and last layers are fp32 FMA) and "bf16"
+(matmul operands rounded to bf16, fp32 accumulation — what the Pallas
+kernel computes). `precision_from_config` maps `train.matmul_precision`. A
+1-pass TF32 product is never used.
 """
 from __future__ import annotations
 
@@ -56,7 +60,8 @@ __all__ = [
 PRECISIONS = ("fp32", "bf16")
 
 # train.matmul_precision -> kernel mode. "tensorfloat32" meant 3 bf16 passes
-# (~fp32) on the TPU, not NVIDIA TF32; null was JAX's 1-pass bf16 default.
+# (~fp32) on the TPU; here it is the fp32 mode, 3 TF32 passes, never one.
+# null was JAX's 1-pass bf16 default.
 _PRECISION_OF = {
     "tensorfloat32": "fp32",
     "float32": "fp32",
@@ -256,7 +261,7 @@ def partial_layout(n: int, depth: int, in_size: int, out_size: int, device):
         (depth - 1) * hidden,             # dbs
         out_size,                         # dbl
     )
-    # each block's slice starts 16-byte aligned: the kernel adds into dW with float4
+    # each block's slice starts 16-byte aligned: the kernel moves dW partials as float2
     n_part = -(-sum(sizes) // 4) * 4
     return max(1, min(n_tiles, sms)), n_part, sizes
 
@@ -276,7 +281,9 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     tile = lib.sine_mlp_tile_rows()
     grid, n_part, sizes = partial_layout(n, depth, in_size, out_size, dev)
     dx = torch.empty_like(x)
-    z_scratch = torch.empty((grid, depth - 1, tile, hidden), dtype=torch.float32, device=dev)
+    # the z stash: one (tile, hidden) slice per block for z_1 .. z_{depth-3}
+    z_scratch = torch.empty((grid, max(depth - 3, 1), tile, hidden), dtype=torch.float32,
+                            device=dev)
     partials = torch.empty((grid, n_part), dtype=torch.float32, device=dev)
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs), ("dx", dx),
                     ("z_scratch", z_scratch), ("partials", partials)):

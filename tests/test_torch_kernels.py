@@ -30,7 +30,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,fwd_tol,bwd_tol",
                          [("fp32", 1e-4, 1e-4), ("bf16", 1.5e-3, 2e-2)])
-@pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (4, 32, 200), (2, 64, 64)])
+@pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (4, 32, 200), (2, 64, 64),
+                                            (3, 57, 300), (7, 128, 40000)])
 def test_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hidden, n):
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)

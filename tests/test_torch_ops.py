@@ -5,6 +5,7 @@ its counterpart in implicit_image_tpu_torch.
 """
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,18 +25,24 @@ torch.set_num_threads(1)
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, and chip_smoke, import neither jax nor
+    triton nor anything of the JAX package implicit_image_tpu."""
     code = (
-        "import sys\n"
-        "import implicit_image_tpu_torch, implicit_image_tpu_torch.compress, "
-        "implicit_image_tpu_torch.decompress, implicit_image_tpu_torch.convert, "
-        "implicit_image_tpu_torch.training.metainit\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'triton')\n"
+        "import importlib, pkgutil, sys\n"
+        "import implicit_image_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) > 30, names\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "def banned(m):\n"
+        "    return any(m == r or m.startswith(r + '.') "
+        "for r in ('jax', 'triton', 'implicit_image_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if banned(m))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
+                         timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 

@@ -162,3 +162,112 @@ def test_depth_two_chain():
     tp = _leaves(p)
     out, _ = _torch_grads(m, c, tp, coords, target, "fp32")
     np.testing.assert_allclose(out, np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
+
+
+# ------------------------------------------- split-precision product design
+# The CUDA kernels run the hidden layers' products on the tensor cores. In
+# the fp32 mode each product is 3xTF32: every operand x is split into
+# hi = tf32(x) and lo = tf32(x - hi) and the product is hi·hi + hi·lo + lo·hi
+# with fp32 accumulation. These tests emulate the splits on the CPU (the
+# rounded parts multiplied in float64) on the d8/w128 chain and hold each
+# scheme to the fp32 mode's limits on the card (1e-4 forward max abs, 1e-4
+# backward max rel): 3xTF32 must pass with a margin of 10, 1-pass TF32 and
+# 3xbf16 (what `tensorfloat32` meant on the TPU) must not. "3xtf32" is the
+# kernels' own split (hi and lo both rounded to nearest).
+
+_FP32_FWD_TOL, _FP32_BWD_TOL = 1e-4, 1e-4
+
+
+def _round_mantissa(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """Round float32 to `bits` explicit mantissa bits, nearest even
+    (10 for TF32, 7 for bf16)."""
+    drop = 23 - bits
+    i = t.float().contiguous().view(torch.int32)
+    i = i + ((1 << (drop - 1)) - 1) + ((i >> drop) & 1)
+    return (i & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def _product(scheme: str):
+    if scheme == "fp32":
+        return lambda a, b: a @ b
+    bits, passes = {"3xtf32": (10, 3), "tf32": (10, 1), "3xbf16": (7, 3)}[scheme]
+
+    def mm(a, b):
+        ah, bh = _round_mantissa(a, bits), _round_mantissa(b, bits)
+        out = ah.double() @ bh.double()
+        if passes == 3:
+            al, bl = _round_mantissa(a - ah, bits), _round_mantissa(b - bh, bits)
+            out = out + ah.double() @ bl.double() + al.double() @ bh.double()
+        return out.float()
+
+    return mm
+
+
+def _emulated_chain(params, x, g, om, mm):
+    """Forward and backward of the chain with every product (a·W, aᵀ·gz,
+    gz·Wᵀ) taken by `mm`. The kernels keep the first layer (K = in) and the
+    last (N = out) on fp32 FMA, so for them this bounds the error from
+    above."""
+    from implicit_image_tpu_torch.ops.fast_math import fast_cos, fast_sin
+
+    n = len(params)
+    zs, a = [], x
+    for i in range(n - 1):
+        z = mm(a, params[i]["w"]) + params[i]["b"]
+        zs.append(z)
+        a = fast_sin(om[i] * z)
+    out = mm(a, params[-1]["w"]) + params[-1]["b"]
+    grads = [None] * n
+    grads[-1] = {"w": mm(a.t(), g), "b": g.sum(0)}
+    ga = mm(g, params[-1]["w"].t())
+    for i in range(n - 2, -1, -1):
+        gz = ga * (om[i] * fast_cos(om[i] * zs[i]))
+        a_prev = x if i == 0 else fast_sin(om[i - 1] * zs[i - 1])
+        grads[i] = {"w": mm(a_prev.t(), gz), "b": gz.sum(0)}
+        ga = mm(gz, params[i]["w"].t())
+    return out, ga, grads
+
+
+@pytest.fixture(scope="module")
+def split_errors():
+    """(forward max abs, backward max rel) of each scheme against the fp32
+    chain: d8/w128 SIREN init, 4,099 pixels."""
+    _, _, _, c, np_params, _, _ = _setup(depth=8, hidden=128, hw=(2, 2), seed=3)
+    params = params_from_jax(np_params, "cpu")
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (4099, 2)).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal((4099, 3)) / 4099).astype(np.float32))
+    om = [float(c.first_omega_0)] + [float(c.hidden_omega_0)] * (len(params) - 1)
+    ref = _emulated_chain(params, x, g, om, _product("fp32"))
+
+    def errors(scheme):
+        out, dx, grads = _emulated_chain(params, x, g, om, _product(scheme))
+        pairs = [(dx, ref[1])] + [(grads[i][k], ref[2][i][k])
+                                  for i in range(len(params)) for k in KEYS]
+        rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+        return float((out - ref[0]).abs().max()), rel
+
+    return errors
+
+
+def test_round_mantissa_is_nearest_even():
+    # 1 + 2^-11 is halfway between two TF32 values: ties go to the even one
+    x = torch.tensor([1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, 1.0 + 2.0**-12, -1.0 - 2.0**-9])
+    np.testing.assert_array_equal(
+        _round_mantissa(x, 10).numpy(),
+        np.array([1.0, 1.0 + 2.0**-9, 1.0, -1.0 - 2.0**-9], np.float32))
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(_round_mantissa(y, 7).numpy(),
+                                  y.to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("scheme,passes", [
+    ("3xtf32", True), ("tf32", False), ("3xbf16", False)])
+def test_split_precision_against_fp32_limits(split_errors, scheme, passes):
+    fwd, bwd = split_errors(scheme)
+    if passes:
+        assert fwd * 10 <= _FP32_FWD_TOL and bwd * 10 <= _FP32_BWD_TOL, (fwd, bwd)
+    elif scheme == "tf32":
+        assert fwd > _FP32_FWD_TOL and bwd > _FP32_BWD_TOL, (fwd, bwd)
+    else:
+        assert bwd > _FP32_BWD_TOL, (fwd, bwd)
