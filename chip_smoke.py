@@ -30,10 +30,24 @@ Phases, each printing its own line:
      the expected container size, and GMP's density below 1 after its first
      update;
   7. two codebook finetunes from phase 5's fit params and masks must agree
-     bit for bit (centroids, labels, quant PSNR).
+     bit for bit (centroids, labels, quant PSNR);
+  8. the bench flagship recipe through the entry points at full width:
+     compress.main with CoordX s5/w96, RigL at density 0.85,
+     train.init_path=auto, quant.delta, quant.row_stride=4 and
+     entropy_coding=auto (300 fit + 20 finetune steps, cut from 1200 + 100),
+     then decompress.decode_run. The auto-init must pick
+     coordx_s5w96_512_tf32.npz, the manifest must carry `delta` with that
+     file's sha256, every stream backend must round-trip this run's raw
+     payload bit-exactly with the native codecs loaded, the container must
+     be the size compress.main returned, and the decoded PSNR finite and
+     >= 20 dB. CoordX's products are torch.matmul in fp32 (no Pallas kernel
+     lies on this path in the JAX package), so the SIREN kernels must
+     launch 0 times in this phase.
 
-Each of phases 4-6 sets the launch counts to 0 just before its run and
-reads them just after.
+Each of phases 4-6 and 8 sets the launch counts to 0 just before its run
+and reads them just after. Phase 3 times sum_partials and its plain
+version partials.sum(0) in turns within one call (5 rounds of 20 launches
+each) and reports the medians.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
@@ -45,9 +59,11 @@ from __future__ import annotations
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Tolerances of phase 3, kernel vs plain torch on the same card and inputs.
 # fp32: only the summation order and FMA contraction differ (~1e-6 relative
@@ -83,6 +99,14 @@ PRESET_OVERRIDES = [
 ]
 PRESETS = ("SNFS", "Pruning", "Small_Dense")
 SMALL_DENSE_WIDTH = 57  # int(128 * sqrt(0.2))
+# the JAX bench's flagship (bench.py), cut from 1200 + 100 steps
+FLAGSHIP_OVERRIDES = [
+    "mlp=coordx", "mlp.hidden_size=96", "mlp.split_depth=5", "masking.density=0.85",
+    "train.num_steps=300", "train.log_steps=100", "train.init_path=auto", "quant.delta=true",
+    "quant.row_stride=4", "quant.num_steps=20", "entropy_coding=auto",
+    "output_dir=outputs/chip_smoke_flagship",
+]
+FLAGSHIP_ARTIFACT = "coordx_s5w96_512_tf32.npz"
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -98,6 +122,16 @@ def _time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _interleaved_ms(fns, rounds: int = 5, reps: int = 20) -> list:
+    """Median ms per launch of each function, timed in turns: `rounds`
+    rounds, each timing `reps` launches of every function in order."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(_time_ms(fn, reps))
+    return [statistics.median(t) for t in times]
 
 
 def phase_card() -> str:
@@ -235,8 +269,8 @@ def phase_kernels() -> dict:
         bwd_ms = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec))
         bwd_plain_ms = _time_ms(
             lambda: sm.siren_chain_backward_reference(params, x, g, mcfg, prec))
-        sum_ms = _time_ms(lambda: sm.sum_partials(partials), reps=50)
-        sum_plain_ms = _time_ms(lambda: partials.sum(0), reps=50)
+        sum_ms, sum_plain_ms = _interleaved_ms(
+            [lambda: sm.sum_partials(partials), lambda: partials.sum(0)])
         print(
             f"[3 kernels {prec}] fwd max_abs_err {fwd_err:.3e} (tol {FWD_TOL[prec]:g}); "
             f"bwd max rel err {rel[worst]:.3e} at {worst} (tol {BWD_TOL[prec]:g}), "
@@ -253,7 +287,8 @@ def phase_kernels() -> dict:
             f"[3 kernels {prec}] ms per forward: kernel {fwd_ms:.3f}, plain "
             f"{fwd_plain_ms:.3f}; ms per forward+backward: kernel {step_ms:.3f}, "
             f"plain {step_plain_ms:.3f}; backward alone: kernel {bwd_ms:.3f}, plain "
-            f"{bwd_plain_ms:.3f}; sum_partials: kernel {sum_ms:.4f}, plain {sum_plain_ms:.4f}",
+            f"{bwd_plain_ms:.3f}; sum_partials: kernel {sum_ms:.4f}, plain partials.sum(0) "
+            f"{sum_plain_ms:.4f} (medians of 5 x 20 launches each, in turns)",
             flush=True,
         )
         if not fwd_err <= FWD_TOL[prec]:
@@ -550,6 +585,92 @@ def phase_repeat(run_dir: str) -> None:
         raise AssertionError("the codebook finetune does not repeat bit for bit")
 
 
+def phase_flagship() -> None:
+    """Phase 8: the flagship recipe through compress.main and decode_run."""
+    import hashlib
+
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.coding import huffman, parsers, range_coder, rans
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.training.metainit import default_meta_dir
+
+    cfg = compress.compose(FLAGSHIP_OVERRIDES)
+    if (cfg.mlp.name, int(cfg.mlp.hidden_size), int(cfg.mlp.split_depth)) != ("coordx", 96, 5):
+        raise AssertionError("the flagship run must use CoordX s5/w96")
+    run_dir = cfg.output_dir
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    psnr, nbytes = compress.main(cfg, run_dir=run_dir)
+    t1 = time.perf_counter()
+    img, stats = decompress.decode_run(run_dir, device="cuda")
+    t2 = time.perf_counter()
+    launches = dict(sm.LAUNCHES)
+
+    summary = json.loads(open(f"{run_dir}/summary.json").read())
+    container = f"{run_dir}/model_quantized"
+    manifest = json.loads(open(f"{container}/meta_data.json").read())
+    delta = manifest["__meta__"].get("delta", {})
+    artifact = default_meta_dir() / FLAGSHIP_ARTIFACT
+    blob = open(f"{container}/compressed_weights.data", "rb").read()
+    expected_raw = sum(int(np.prod(v["shape"], dtype=np.int64)) * np.dtype(v["dtype"]).itemsize
+                       for k, v in manifest.items() if k != "__meta__")
+    raw = parsers.decode_stream("auto", blob, expected_size=expected_raw)
+    libs = [m.load_native() for m in (huffman, range_coder, rans)]  # raises if not built
+    sizes, round_trip = {}, {}
+    for name in parsers.backend_names:
+        enc = parsers.encode_stream(name, raw)
+        sizes[name] = len(enc)
+        round_trip[name] = parsers.decode_stream(name, enc, expected_size=len(raw)) == raw
+    chosen = parsers._AUTO_ORDER[blob[0]]
+    print(
+        f"[8 flagship] compress.main {t1 - t0:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
+        f"{summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step, quant "
+        f"{summary['quant_wall_s']:.3f} s, encode {summary['encode_wall_s']:.3f} s, "
+        f"decode+render {summary['decode_wall_s']:.3f} s; codec build "
+        f"{summary['codec_build_s']:.3f} s apart); decode_run {t2 - t1:.3f} s "
+        f"(render {stats['render_s'] * 1e3:.2f} ms); launches {launches}",
+        flush=True,
+    )
+    print(
+        f"[8 flagship] init {Path(delta.get('artifact', '?')).name}, sha256 "
+        f"{delta.get('sha256', '?')[:12]}, {len(delta.get('layers', []))} delta layers, "
+        f"{len(delta.get('xor', []))} XOR tensors; raw payload {len(raw)} B; auto chose "
+        f"{chosen}; backend sizes {sizes}; round trips {round_trip}; native libraries "
+        f"{[Path(lib._name).name for lib in libs]}",
+        flush=True,
+    )
+    print(
+        f"[8 flagship] fit PSNR {summary['PSNR']:.3f} dB, quant PSNR "
+        f"{summary['Quant PSNR']:.3f} dB (rows 0, 4, 8, ...), decoded PSNR {psnr:.3f} dB, "
+        f"MS-SSIM {summary['Decoded MS-SSIM']:.6f}, bytes {nbytes}",
+        flush=True,
+    )
+    if Path(delta.get("artifact", "")).name != FLAGSHIP_ARTIFACT:
+        raise AssertionError(f"init_path=auto picked {delta.get('artifact')}, not "
+                             f"{FLAGSHIP_ARTIFACT}")
+    if delta.get("sha256") != hashlib.sha256(artifact.read_bytes()).hexdigest():
+        raise AssertionError("the manifest's delta sha256 is not the artifact's")
+    if not all(round_trip.values()):
+        raise AssertionError(f"a stream backend does not round-trip: {round_trip}")
+    if sizes["auto"] != nbytes or len(blob) != nbytes or summary["Compressed Bytes"] != nbytes:
+        raise AssertionError(f"container {len(blob)} B, auto {sizes['auto']} B, "
+                             f"compress.main returned {nbytes} B")
+    if any(launches.values()):
+        raise AssertionError(f"a SIREN kernel launched on the CoordX path: {launches}")
+    if not (math.isfinite(psnr) and psnr >= 20.0):
+        raise AssertionError(f"decoded PSNR {psnr} is not finite or below 20 dB")
+    img = np.asarray(img)
+    if img.shape != (N_SIDE, N_SIDE, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"decoded image has shape {img.shape} or non-finite values")
+    target = compress._load_image(cfg.img)
+    redecoded = 10.0 * np.log10(1.0 / np.mean((img.astype(np.float64) - target) ** 2))
+    if abs(redecoded - psnr) > 1e-3:
+        raise AssertionError(f"decode_run gives {redecoded} dB, compress reported {psnr}")
+
+
 def main() -> int:
     import torch
 
@@ -567,6 +688,7 @@ def main() -> int:
     default_dir = phase_default_path(dense_summary)
     phase_presets()
     phase_repeat(default_dir)
+    phase_flagship()
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sum_partials": 179}
     kernels = [

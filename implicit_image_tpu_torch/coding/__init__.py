@@ -2,48 +2,57 @@
 implicit_image_tpu/coding/__init__.py).
 
 The container is the contract between the two packages: the same state dict
-gives the same `compressed_weights.data` and `meta_data.json` bytes in
-both, and each package reads the other's. The byte layout is the JAX
-package's default, format 3: the plane-k bytes (k-th byte of every
-element) of every tensor before any plane-(k+1) bytes.
+and stream give the same `compressed_weights.data` and `meta_data.json`
+bytes in both, and each package reads the other's. Byte layouts:
 
-Only format 3 and the `plain` stream (raw bytes) are ported; formats 1, 2
-and 4 (progressive), delta containers and the entropy backends (zstd, lzma,
-huffman, range, rans, auto) raise NotImplementedError. `decode_and_render` renders the decoded
-params through the fused SIREN chain (the CUDA kernel on the card) in fp32.
+  * format 3 (the default): the plane-k bytes (k-th byte of every element)
+    of every tensor before any plane-(k+1) bytes;
+  * format 2 (`plane_group=False`): each tensor's bytes split into planes;
+  * format 1 (`shuffle=False`): the tensors' bytes as they lie, no
+    `__meta__` entry (readable by the original torch code).
+
+The payload goes through one stream backend (coding/parsers.py: plain,
+zstd, lzma, huffman, range, rans, auto).
+
+Delta containers (quant.delta) record a shared artifact, the meta-init
+.npz the fit started from, by path and sha256: the quantized layers hold
+residual codebooks, decoded as w = (offset + centroids[labels]) *
+(labels != 0), and the unquantized tensors named under `xor` hold the
+bit-pattern XOR against the artifact (`apply_xor_residual`, lossless).
+
+Not ported, and raising NotImplementedError: format 4 (progressive), the
+inter-frame `prev` deltas of sequences, and per-channel QAT containers.
+`decode_and_render` renders the decoded params through the model registry
+(the fused SIREN chain, the CUDA kernel on the card, for SIREN) in fp32.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import time
 from collections import OrderedDict
 from pathlib import Path
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from implicit_image_tpu_torch.coding.parsers import backend_names, decode_stream, encode_stream
 from implicit_image_tpu_torch.data import get_grid
 from implicit_image_tpu_torch.training.fit import synchronize
 
 __all__ = [
     "linear_state_dict",
+    "state_ref_map",
+    "apply_xor_residual",
+    "delta_meta_entry",
     "compress_state_dict",
     "decompress_state_dict",
     "read_raw_container",
     "params_from_state_dict",
     "decode_and_render",
+    "backend_names",
 ]
-
-_PORTED_STREAMS = ("plain",)
-
-
-def _check_stream(name: str) -> None:
-    if name not in _PORTED_STREAMS:
-        raise NotImplementedError(
-            f"stream backend {name!r} is not ported yet (ROADMAP.md); "
-            "use entropy_coding=plain"
-        )
 
 
 def _to_numpy(v) -> np.ndarray:
@@ -83,6 +92,57 @@ def linear_state_dict(params, codebooks=None, half: Union[bool, str] = True
             else:
                 state[f"layers.{i}.{key}"] = arr.astype(fdtype)
     return state
+
+
+def state_ref_map(params) -> Dict[str, np.ndarray]:
+    """A params tuple (tensors or arrays) -> {state name: fp32 array}, the
+    naming of linear_state_dict without quantization: the encoder's
+    reference map for the XOR residuals of a delta container."""
+    out: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(params):
+        for key, val in layer.items():
+            name = {"w": "weight", "b": "bias"}.get(key, key)
+            out[f"layers.{i}.{name}"] = np.asarray(_to_numpy(val), np.float32)
+    return out
+
+
+def _xor_arrays(arr: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Bitwise XOR of two same-shape float arrays in arr's dtype (its own
+    inverse)."""
+    u = {2: np.uint16, 4: np.uint32, 8: np.uint64}[arr.dtype.itemsize]
+    a = np.ascontiguousarray(arr)
+    r = np.ascontiguousarray(ref.astype(arr.dtype))
+    return (a.view(u) ^ r.view(u)).view(arr.dtype)
+
+
+def apply_xor_residual(state, ref_map) -> Tuple["OrderedDict[str, np.ndarray]", list]:
+    """Lossless delta transform of the unquantized tensors: each float
+    tensor with a same-shape reference is stored as its bit-pattern XOR
+    against it. Near-identical floats share their high bits, so the XOR is
+    mostly zero bytes. Quantized layers (labeled_weight, centroids) have no
+    reference entry and stay as they are. Returns (state, XORed names)."""
+    out: "OrderedDict[str, np.ndarray]" = OrderedDict()
+    xored = []
+    for name, arr in state.items():
+        ref = ref_map.get(name)
+        if ref is not None and arr.dtype.kind == "f" and tuple(np.shape(ref)) == tuple(arr.shape):
+            out[name] = _xor_arrays(arr, np.asarray(ref))
+            xored.append(name)
+        else:
+            out[name] = arr
+    return out, xored
+
+
+def delta_meta_entry(delta: Dict[str, Any], stream_name: str) -> Dict[str, Any]:
+    """The manifest's __meta__.delta entry for a `delta` argument
+    {"artifact", "sha256", "layers"[, "xor"]}."""
+    if "prev" in delta:
+        raise NotImplementedError("inter-frame (prev) delta containers are not ported yet")
+    entry = {"sha256": str(delta["sha256"]), "layers": [int(i) for i in delta["layers"]]}
+    if delta.get("xor"):
+        entry["xor"] = [str(n) for n in delta["xor"]]
+    entry["artifact"] = str(delta["artifact"])
+    return entry
 
 
 def _tensor_planes(arr: np.ndarray) -> list:
@@ -139,10 +199,15 @@ def compress_state_dict(
     state_dict: Dict[str, np.ndarray],
     dir_name: Union[str, Path],
     stream_name: str = "plain",
+    shuffle: bool = True,
+    plane_group: bool = True,
+    delta: Optional[Dict[str, Any]] = None,
+    level: int = 22,
 ) -> int:
-    """Write a format-3 container (compressed_weights.data + meta_data.json);
-    return the payload bytes."""
-    _check_stream(stream_name)
+    """Write compressed_weights.data + meta_data.json; return the payload
+    bytes. Format 3 by default, 2 with plane_group=False, 1 with
+    shuffle=False. `delta` records the shared artifact of a delta container
+    (delta_meta_entry)."""
     dir_name = Path(dir_name)
     dir_name.mkdir(exist_ok=True, parents=True)
     binary_file = dir_name / "compressed_weights.data"
@@ -153,43 +218,128 @@ def compress_state_dict(
         arr = np.ascontiguousarray(arr)
         arrays.append(arr)
         meta[str(order)] = {"shape": list(arr.shape), "dtype": str(arr.dtype), "name": name}
-    meta["__meta__"] = {"format": 3, "shuffle": True, "plane_group": True}
-    binary_file.write_bytes(_plane_group_payload(arrays))
+    if shuffle and plane_group:
+        raw = _plane_group_payload(arrays)
+        meta["__meta__"] = {"format": 3, "shuffle": True, "plane_group": True}
+    elif shuffle:
+        raw = b"".join(b"".join(_tensor_planes(a)) for a in arrays)
+        meta["__meta__"] = {"format": 2, "shuffle": True}
+    else:
+        # format 1 writes no __meta__, so the original torch reader takes it
+        raw = b"".join(a.tobytes() for a in arrays)
+    if delta is not None:
+        meta.setdefault("__meta__", {"format": 1, "shuffle": False})
+        meta["__meta__"]["delta"] = delta_meta_entry(delta, stream_name)
+    binary_file.write_bytes(encode_stream(stream_name, raw, level=level))
     (dir_name / "meta_data.json").write_text(json.dumps(meta, indent=2, sort_keys=True))
     return binary_file.stat().st_size
 
 
 def read_raw_container(dir_name: Union[str, Path], stream_name: str = "plain"
                        ) -> "OrderedDict[str, np.ndarray]":
-    """Read a container back to the STORED per-tensor arrays."""
-    _check_stream(stream_name)
+    """Read a container back to the STORED per-tensor arrays (labels,
+    centroids, fp16/fp32 tensors, XOR residuals as stored)."""
     dir_name = Path(dir_name)
     meta = json.loads((dir_name / "meta_data.json").read_text())
-    fmt = meta.pop("__meta__", {"format": 1})
-    if int(fmt.get("format", 1)) != 3 or "delta" in fmt:
+    fmt = meta.pop("__meta__", {"format": 1, "shuffle": False})
+    if int(fmt.get("format", 1)) == 4:
         raise NotImplementedError(
-            f"container format {fmt} is not ported yet; the port reads format 3"
-        )
+            "progressive (format 4) containers are not ported yet (ROADMAP.md)")
+    shuffle = bool(fmt.get("shuffle", False))
+    plane_group = bool(fmt.get("plane_group", False))
     meta = {int(k): v for k, v in meta.items()}
     infos = [(meta[o]["name"], meta[o]["dtype"], meta[o]["shape"]) for o in sorted(meta)]
+    # the manifest pins the raw payload size: truncation or corruption raises
     expected = sum(
         (int(np.prod(shape, dtype=np.int64)) if shape else 1) * np.dtype(dt).itemsize
         for _, dt, shape in infos
     )
-    blob = (dir_name / "compressed_weights.data").read_bytes()
-    if len(blob) != expected:
-        raise ValueError(
-            f"corrupt plain stream: {len(blob)} bytes, container manifest expects {expected}"
+    try:
+        dec = decode_stream(stream_name, (dir_name / "compressed_weights.data").read_bytes(),
+                            expected_size=expected)
+    except (ValueError, NotImplementedError, RuntimeError, OSError):
+        raise  # corruption found by the backend, or a codec that cannot load
+    except Exception as e:  # zlib.error, ZstdError, LZMAError, ...
+        raise ValueError(f"corrupt container {dir_name} (backend {stream_name}): {e!r}") from e
+    if plane_group:
+        grouped = _plane_ungroup(dec, infos)
+        return OrderedDict((name, grouped[name]) for name, _, _ in infos)
+    raw: "OrderedDict[str, np.ndarray]" = OrderedDict()
+    offset = 0
+    for name, dt, shape in infos:
+        dtype = np.dtype(dt)
+        size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        nbytes = size * dtype.itemsize
+        if shuffle:
+            arr = _unshuffle_tensor_bytes(dec[offset : offset + nbytes], dtype, size)
+        else:
+            arr = np.frombuffer(dec, dtype=dtype, count=size, offset=offset)
+        raw[name] = arr.reshape(shape)
+        offset += nbytes
+    return raw
+
+
+def _resolve_delta_offsets(dir_name: Path, info: Dict[str, Any],
+                           override: Optional[Union[str, Path]] = None
+                           ) -> Dict[str, np.ndarray]:
+    """Find and hash-check the shared delta artifact; returns its tensors
+    under state names ({"layers.{i}.weight": fp32 array, ...}).
+
+    Search order: `override`, the path recorded at encode time, that path
+    under the repo root, the artifact's file name next to the container and
+    next to the run dir, and the repo's assets/meta/. A sha256 that differs
+    from the manifest's raises."""
+    repo = Path(__file__).resolve().parents[2]
+    rec = Path(info["artifact"])
+    candidates = [Path(override)] if override is not None else []
+    candidates += [rec, repo / rec, dir_name / rec.name, dir_name.parent / rec.name,
+                   repo / "assets" / "meta" / rec.name]
+    path = next((c for c in candidates if c.is_file()), None)
+    if path is None:
+        raise FileNotFoundError(
+            f"delta artifact {info['artifact']!r} not found (searched "
+            f"{[str(c) for c in candidates]}); pass delta_artifact=<path> "
+            "or place the file in assets/meta/"
         )
-    grouped = _plane_ungroup(blob, infos)
-    return OrderedDict((name, grouped[name]) for name, _, _ in infos)
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()
+    if digest != info["sha256"]:
+        raise ValueError(
+            f"delta artifact {path} sha256 mismatch: stream was encoded "
+            f"against {info['sha256'][:12]}…, file is {digest[:12]}…"
+        )
+    npz = np.load(path)
+    out: Dict[str, np.ndarray] = {}
+    for k in npz.files:
+        if not k.startswith("params."):
+            continue
+        _, idx, key = k.split(".", 2)
+        name = {"w": "weight", "b": "bias"}.get(key, key)
+        out[f"layers.{int(idx)}.{name}"] = np.asarray(npz[k], np.float32)
+    return out
 
 
-def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain"
+def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain",
+                          delta_artifact: Optional[Union[str, Path]] = None
                           ) -> Dict[str, np.ndarray]:
-    """Read the container; re-materialize weight = centroids[labels].
-    Returns float32 arrays keyed by `layers.{i}.weight` etc."""
+    """Read the container; re-materialize weight = centroids[labels], and
+    for a delta container w = (offset + centroids[labels]) * (labels != 0)
+    and the XOR residuals undone (`delta_artifact` overrides where the
+    artifact is looked for). Returns float32 arrays keyed by
+    `layers.{i}.weight` etc."""
+    dir_name = Path(dir_name)
     raw = read_raw_container(dir_name, stream_name)
+    fmt = json.loads((dir_name / "meta_data.json").read_text()).get("__meta__", {})
+    refs: Dict[str, np.ndarray] = {}
+    delta_layers: set = set()
+    if "delta" in fmt:
+        if "prev" in fmt["delta"]:
+            raise NotImplementedError(
+                "inter-frame (prev) delta containers are not ported yet (ROADMAP.md)")
+        refs = _resolve_delta_offsets(dir_name, fmt["delta"], delta_artifact)
+        delta_layers = {int(i) for i in fmt["delta"]["layers"]}
+        for name in fmt["delta"].get("xor", []):
+            raw[name] = _xor_arrays(raw[name], refs[name])
+
     out: Dict[str, np.ndarray] = {}
     for name, arr in raw.items():
         if "centroids" in name:
@@ -197,8 +347,11 @@ def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain"
         if "qscale" in name:
             raise NotImplementedError("per-channel QAT containers are not ported yet")
         if "labeled_weight" in name:
-            centroids = raw[name.replace("labeled_weight", "centroids")]
-            out[name.replace("labeled_weight", "weight")] = centroids[arr].astype(np.float32)
+            weight = raw[name.replace("labeled_weight", "centroids")][arr]
+            layer_i = int(name.split(".", 2)[1])
+            if layer_i in delta_layers:
+                weight = (weight.astype(np.float32) + refs[f"layers.{layer_i}.weight"]) * (arr != 0)
+            out[name.replace("labeled_weight", "weight")] = weight.astype(np.float32)
         else:
             out[name] = np.asarray(arr, dtype=np.float32)
     return out
@@ -216,11 +369,13 @@ def params_from_state_dict(state_dict: Dict[str, np.ndarray], device="cpu"
 
 
 def decode_and_render(dir_name: Union[str, Path], stream_name: str, mdef, mcfg,
-                      height: int, width: int, device="cuda", precision: str = "fp32"):
-    """Full decoder: container -> params -> rendered (H, W, 3) numpy image.
-    Returns (image, stats) with host decode, upload and render seconds."""
+                      height: int, width: int, device="cuda", precision: str = "fp32",
+                      delta_artifact: Optional[Union[str, Path]] = None):
+    """Full decoder: container -> params -> rendered (H, W, 3) numpy image,
+    through `mdef.apply` (the model registry's grid forward). Returns
+    (image, stats) with host decode, upload and render seconds."""
     t0 = time.perf_counter()
-    state = decompress_state_dict(dir_name, stream_name)
+    state = decompress_state_dict(dir_name, stream_name, delta_artifact)
     t1 = time.perf_counter()
     params = params_from_state_dict(state, device)
     synchronize(device)

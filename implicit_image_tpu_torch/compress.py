@@ -1,10 +1,15 @@
-"""Orchestrator / CLI (counterpart of implicit_image_tpu/compress.py, the
-SIREN slice): load image -> fit (dense, or sparse under the masking group)
--> k-means codebook finetune -> container -> decode the written container
-and render -> report (decoded PSNR, container bytes, decoded MS-SSIM).
+"""Orchestrator / CLI (counterpart of implicit_image_tpu/compress.py): load
+image -> fit (dense, or sparse under the masking group; cold, or warm from a
+meta-init) -> k-means codebook finetune (absolute, or delta against the
+meta-init) -> container -> decode the written container and render ->
+report (decoded PSNR, container bytes, decoded MS-SSIM).
 
     python -m implicit_image_tpu_torch.compress            # the JAX default: RigL
     python -m implicit_image_tpu_torch.compress masking=SNFS train.num_steps=2000
+    # the JAX bench's flagship recipe
+    python -m implicit_image_tpu_torch.compress mlp=coordx mlp.hidden_size=96 \
+        mlp.split_depth=5 masking.density=0.85 train.num_steps=1200 \
+        train.init_path=auto quant.delta=true quant.row_stride=4 entropy_coding=auto
 
 It composes its config with the port's copy of the JAX package's composer
 and YAML tree (implicit_image_tpu_torch.config), so it takes the same
@@ -13,15 +18,26 @@ one key the YAML tree does not hold: `device` (default "cuda"; the tests
 pass device=cpu). Run dirs hold the same files as the JAX package's
 (config.json, metrics.jsonl, summary.json, model.npz, mask.npz for a
 sparse fit, model_quantized/), and either package's decoder reads them. summary.json also records the
-stage walls (fit_wall_s, quant_wall_s, encode_wall_s, decode_wall_s) and,
-on CUDA, the kernels' build-or-load seconds (kernel_build_s), which no
-stage wall includes.
+stage walls (fit_wall_s, quant_wall_s, encode_wall_s, decode_wall_s), on
+CUDA the kernels' build-or-load seconds (kernel_build_s), and for a stream
+that runs the native codecs their build-or-load seconds (codec_build_s);
+no stage wall includes either.
 
-Masking: RigL (the default), SNFS, Pruning (GMP), Small_Dense and none.
-Not ported yet, and raising when set: masking=Feathermap, models other than
-SIREN, optimizers other than Adam, quantizers other than k-means, stream
-backends other than `plain`, and the train/quant/entropy_coding options
-listed in _UNPORTED.
+Models: SIREN and CoordX. Masking: RigL (the default), SNFS, Pruning (GMP),
+Small_Dense and none. Streams: every backend (plain, zstd, lzma, huffman,
+range, rans, auto). `train.init_path`: a meta-init .npz, or `auto` (warm
+from the matching artifact of assets/meta inside the measured budget, else
+cold; training/metainit.py). `quant.delta`: residual codebooks against the
+meta-init, with the unquantized tensors stored as XOR residuals
+(`entropy_coding.xor`, default on).
+The run sets torch.backends.cuda.matmul.allow_tf32 and
+torch.backends.cudnn.allow_tf32 to False: `tensorfloat32` means fp32 here,
+never NVIDIA's 1-pass TF32.
+Not ported yet, and raising when set: masking=Feathermap, the model
+families fourier, wavelet_siren and hashgrid, optimizers other than Adam,
+quantizers other than k-means, mlp=coordx at train.matmul_precision
+bfloat16 or null, and the train/quant/entropy_coding options listed in
+_UNPORTED.
 Ignored: TPU-runtime keys with no meaning here (train.segment_steps,
 train.use_pallas, launcher.n_jobs) and the logging keys other than
 logging.use (no W&B sink).
@@ -29,6 +45,7 @@ logging.use (no W&B sink).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import logging
 import sys
@@ -40,10 +57,13 @@ import numpy as np
 import torch
 
 from implicit_image_tpu_torch.coding import (
+    apply_xor_residual,
     compress_state_dict,
     decode_and_render,
     linear_state_dict,
+    state_ref_map,
 )
+from implicit_image_tpu_torch.coding.parsers import load_native_codecs
 from implicit_image_tpu_torch.config import DotDict, compose
 from implicit_image_tpu_torch.data import (
     get_grid,
@@ -70,7 +90,6 @@ _UNPORTED = (
     ("train", "checkpoint", False),
     ("train", "resume", None),
     ("train", "watch", False),
-    ("quant", "delta", False),
     ("quant", "bit_alloc", "none"),
     ("entropy_coding", "progressive", False),
 )
@@ -105,8 +124,6 @@ def _check_ported(cfg) -> None:
             raise NotImplementedError(f"{section}.{key}={val!r} is not ported yet")
     if cfg.get("profile", False):
         raise NotImplementedError("profile=True is not ported yet")
-    if cfg.train.get("init_path") == "auto":
-        raise NotImplementedError("train.init_path=auto is not ported yet")
 
 
 def _load_image(img_cfg) -> np.ndarray:
@@ -185,6 +202,32 @@ def _quant_config(q) -> QuantConfig:
     )
 
 
+def _warm_start(cfg, mdef, mcfg, num_steps: int, device):
+    """(init params or None, init path or None) from train.init_path: a
+    meta-init .npz, or "auto" (resolve_auto_init: warm from the matching
+    artifact inside the measured budget, else cold)."""
+    from implicit_image_tpu_torch.training import metainit
+
+    init_path = cfg.train.get("init_path") or None
+    if init_path == "auto":
+        params, path, why = metainit.resolve_auto_init(
+            mdef.name, mcfg, num_steps,
+            matmul_precision=cfg.train.get("matmul_precision") or None, device=device)
+        log.info("fit: init_path=auto -> %s (%s)", "warm" if params is not None else "cold", why)
+        return params, path
+    if not init_path:
+        return None, None
+    if num_steps > metainit.WARM_BUDGET_MAX_STEPS:
+        log.warning(
+            "fit: explicit warm start at %d steps is past the measured warm-win "
+            "regime (<= %d); beyond it is unmeasured — use train.init_path=auto "
+            "for budget-aware arbitration", num_steps, metainit.WARM_BUDGET_MAX_STEPS)
+    params = metainit.load_meta_init(init_path, expect_model=mdef.name, expect_mcfg=mcfg,
+                                     device=device)
+    log.info("fit: warm-starting from meta-init %s", init_path)
+    return params, init_path
+
+
 def main(cfg: DotDict, run_dir: Optional[str] = None) -> Tuple[float, int]:
     """Run the compress pipeline; returns (decoded PSNR, compressed bytes)
     — the quant PSNR (or the fit PSNR) when no container is written."""
@@ -192,6 +235,9 @@ def main(cfg: DotDict, run_dir: Optional[str] = None) -> Tuple[float, int]:
     device = torch.device(cfg.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but no CUDA device is available")
+    # fp32 products: `tensorfloat32` meant 3 passes on the TPU, never 1-pass TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     run_dir = run_dir or cfg.get("output_dir", "outputs/run")
     Path(run_dir).mkdir(parents=True, exist_ok=True)
     logger = MetricsLogger(run_dir, use=cfg.get("logging", {}).get("use", True))
@@ -210,6 +256,9 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         t0 = time.perf_counter()
         load_library()
         logger.summary({"kernel_build_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    if load_native_codecs((cfg.get("entropy_coding") or {}).get("stream_name", "none")):
+        logger.summary({"codec_build_s": time.perf_counter() - t0})
     (Path(run_dir) / "config.json").write_text(json.dumps(cfg, indent=2, default=str))
 
     img = _load_image(cfg.img)
@@ -230,14 +279,7 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
     optim_cfg = _optim_config(cfg)
     masking = masking_config(cfg)
 
-    init_params = None
-    init_path = cfg.train.get("init_path") or None
-    if init_path:
-        from implicit_image_tpu_torch.training.metainit import load_meta_init
-
-        init_params = load_meta_init(init_path, expect_model=mdef.name,
-                                     expect_mcfg=mcfg, device=device)
-        log.info("fit: warm-starting from meta-init %s", init_path)
+    init_params, init_path = _warm_start(cfg, mdef, mcfg, num_steps, device)
 
     log.info("fit: %s on %s (%dx%d), %d steps, masking=%s, device %s",
              cfg.mlp.name, cfg.img.name, h, w, num_steps,
@@ -260,12 +302,27 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
     compressed_bytes = 0
 
     qres = None
+    delta_info = None
     quant_raw = cfg.get("quant")
     if quant_raw and quant_raw.get("name", "none") != "none":
-        qres = quant_finetune(params, img, mdef, mcfg, grid, _quant_config(quant_raw),
+        quant_cfg = _quant_config(quant_raw)
+        if bool(quant_raw.get("delta", False)):
+            # residual codebooks against the meta-init, which becomes shared
+            # encoder/decoder state: the container records it by path and sha256
+            if not init_path:
+                raise ValueError(
+                    "quant.delta codes residuals against the meta-init "
+                    "artifact; set train.init_path"
+                )
+            delta_info = {"artifact": str(init_path),
+                          "sha256": hashlib.sha256(Path(init_path).read_bytes()).hexdigest()}
+        qres = quant_finetune(params, img, mdef, mcfg, grid, quant_cfg,
                               optim_cfg, precision=train_cfg.precision,
                               pixel_chunks=train_cfg.pixel_chunks,
-                              masks=res.mask_state.masks if res.mask_state else None)
+                              masks=res.mask_state.masks if res.mask_state else None,
+                              offset_params=init_params if delta_info is not None else None)
+        if delta_info is not None:
+            delta_info["layers"] = [i for i, cb in enumerate(qres.codebooks) if cb is not None]
         qpsnr = qres.metrics["quant_psnr"]
         logger.log(num_steps, {"Quant PSNR": qpsnr,
                                "Quant PSNR_8bit": qres.metrics["quant_psnr_8bit"]},
@@ -291,10 +348,15 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         state = linear_state_dict(qres.params if qres else params,
                                   qres.codebooks if qres else None,
                                   half=_half_policy(ec))
+        if delta_info is not None and bool(ec.get("xor", True)):
+            # lossless XOR residual of the unquantized tensors against the
+            # meta-init (entropy_coding.xor=false opts out)
+            state, delta_info["xor"] = apply_xor_residual(state, state_ref_map(init_params))
         container = Path(run_dir) / "model_quantized"
-        compressed_bytes = compress_state_dict(state, container, ec.stream_name)
+        compressed_bytes = compress_state_dict(state, container, ec.stream_name,
+                                               delta=delta_info, level=int(ec.get("level", 22)))
         encode_s = time.perf_counter() - t0
-        log.info("Compressed bytes %d", compressed_bytes)
+        log.info("Compressed bytes %d (%s)", compressed_bytes, ec.stream_name)
 
         t0 = time.perf_counter()
         dec_img, _ = decode_and_render(container, ec.stream_name, mdef, mcfg, h, w,

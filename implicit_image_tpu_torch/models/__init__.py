@@ -1,6 +1,6 @@
 """Model registry (counterpart of implicit_image_tpu/models/__init__.py).
 
-Only SIREN is ported; the other families of the JAX registry raise
+SIREN and CoordX are ported; the other families of the JAX registry raise
 NotImplementedError until their port lands (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
@@ -11,7 +11,7 @@ from typing import Any, Callable, Tuple
 
 __all__ = ["ModelDef", "registry", "build_model", "build_model_from_config"]
 
-_NOT_PORTED = ("fourier", "wavelet_siren", "coordx", "hashgrid")
+_NOT_PORTED = ("fourier", "wavelet_siren", "hashgrid")
 
 
 @dataclass(frozen=True)
@@ -21,6 +21,10 @@ class ModelDef:
     init: Callable  # (generator, cfg, device) -> params
     apply: Callable  # (params, grid (H,W,in), cfg, precision) -> (H,W,out)
     apply_flat: Callable  # (params, coords (N,in), cfg, precision) -> (N,out)
+    # True when `apply` exploits a tensor-product grid and is cheaper than
+    # apply_flat on the same pixels (CoordX): the fit and the finetune then
+    # evaluate through `apply` on the grid
+    separable: bool = False
 
 
 def _siren_def() -> ModelDef:
@@ -34,7 +38,19 @@ def _siren_def() -> ModelDef:
     return ModelDef("siren", SirenConfig, init_siren, siren_apply, siren_apply_flat)
 
 
-registry = {"siren": _siren_def}
+def _coordx_def() -> ModelDef:
+    from implicit_image_tpu_torch.models.coordx import (
+        CoordXConfig,
+        coordx_apply,
+        coordx_apply_flat,
+        init_coordx,
+    )
+
+    return ModelDef("coordx", CoordXConfig, init_coordx, coordx_apply, coordx_apply_flat,
+                    separable=True)
+
+
+registry = {"siren": _siren_def, "coordx": _coordx_def}
 
 
 def build_model(model_name: str, **cfg_kwargs) -> Tuple[ModelDef, Any]:
@@ -43,7 +59,7 @@ def build_model(model_name: str, **cfg_kwargs) -> Tuple[ModelDef, Any]:
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} is not ported to implicit_image_tpu_torch "
-            "yet (ROADMAP.md, Queue 1); only 'siren' is"
+            f"yet (ROADMAP.md, Queue 1); {sorted(registry)} are"
         )
     if model_name not in registry:
         raise KeyError(f"Model {model_name!r} not in registry {sorted(registry)}")

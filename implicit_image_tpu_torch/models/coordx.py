@@ -1,0 +1,189 @@
+"""CoordX — split coordinate-MLP (counterpart of
+implicit_image_tpu/models/coordx.py; Liang et al., ICLR 2022,
+arXiv:2201.12425).
+
+The early layers are factorized over the coordinate axes: each 1-D branch
+embeds one coordinate with SIREN-style sine layers, O(H + W) work; the
+branch features are fused elementwise (product, scaled by √2 to restore
+SIREN's activation statistics, or sum); only the late layers run per pixel.
+
+Params keep the JAX package's layout, one flat tuple of {"w": (fan_in,
+fan_out), "b": (fan_out,)} dicts: x-branch × split_depth, y-branch ×
+split_depth, then the fused layers. Init bounds per layer are SIREN's
+(each branch's first layer U(±1/fan_in), the others U(±√(6/fan_in)/ω),
+biases U(±1/√fan_in)), drawn from an explicit torch.Generator.
+
+`coordx_apply` needs a tensor-product (H, W, 2) grid, what data.get_grid
+makes; `coordx_apply_flat` takes any (N, 2) coordinates. A branch's first
+layer has fan_in 1 and is a broadcast multiply, not a product.
+
+The products are plain `torch.matmul` in fp32 (the JAX package runs CoordX
+in XLA, outside any Pallas kernel). On the card they must be true fp32:
+with `torch.backends.cuda.matmul.allow_tf32` set, a CUDA forward raises
+rather than run 1-pass TF32. Only the "fp32" precision is ported.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import torch
+
+from implicit_image_tpu_torch.ops.fast_math import fast_sin
+
+__all__ = ["CoordXConfig", "init_coordx", "coordx_apply", "coordx_apply_flat"]
+
+Params = Tuple[dict, ...]
+
+
+@dataclass(frozen=True)
+class CoordXConfig:
+    """Static architecture config (conf/mlp/coordx.yaml). depth counts
+    split_depth branch layers + (depth - split_depth - 1) fused hidden
+    layers + 1 output layer."""
+
+    input_size: int = 2
+    output_size: int = 3
+    depth: int = 8
+    hidden_size: int = 128
+    split_depth: int = 3
+    first_omega_0: float = 50.0
+    hidden_omega_0: float = 30.0
+    outermost_linear: bool = True
+    small_dense_density: float = 1.0
+    fast_sine: bool = True
+    fusion: str = "product"  # "product" | "sum"
+
+    def __post_init__(self):
+        if self.input_size != 2:
+            raise ValueError("CoordX factorizes 2-D (row, col) grids")
+        if not 1 <= self.split_depth <= self.depth - 2:
+            raise ValueError("need at least one fused hidden layer and the output layer")
+        if self.fusion not in ("product", "sum"):
+            raise ValueError(f"mlp.fusion must be 'product' or 'sum', got {self.fusion!r}")
+
+    @property
+    def effective_hidden(self) -> int:
+        # Small-Dense width compensation: hidden_size * sqrt(density)
+        return int(self.hidden_size * math.sqrt(self.small_dense_density))
+
+    @property
+    def n_fused_hidden(self) -> int:
+        return self.depth - self.split_depth - 1
+
+    @property
+    def branch_dims(self) -> Sequence[Tuple[int, int]]:
+        h = self.effective_hidden
+        return [(1, h)] + [(h, h)] * (self.split_depth - 1)
+
+    @property
+    def fused_dims(self) -> Sequence[Tuple[int, int]]:
+        h = self.effective_hidden
+        return [(h, h)] * self.n_fused_hidden + [(h, self.output_size)]
+
+    @property
+    def layer_dims(self) -> Sequence[Tuple[int, int]]:
+        """Dims of each params entry: x-branch, y-branch, fused."""
+        return list(self.branch_dims) * 2 + list(self.fused_dims)
+
+    def weight_bound(self, flat_layer: int) -> float:
+        fan_in, _ = self.layer_dims[flat_layer]
+        if flat_layer in (0, self.split_depth):  # first layer of each branch
+            return 1.0 / fan_in
+        return math.sqrt(6.0 / fan_in) / self.hidden_omega_0
+
+
+def init_coordx(generator: torch.Generator, cfg: CoordXConfig, device="cpu") -> Params:
+    """CoordX initialization; numbers are drawn on the CPU from `generator`
+    (each layer's weights, then its biases), then moved to `device`."""
+    params = []
+    for i, (fan_in, fan_out) in enumerate(cfg.layer_dims):
+        wb = cfg.weight_bound(i)
+        bb = 1.0 / math.sqrt(fan_in)
+        w = (torch.rand((fan_in, fan_out), generator=generator) * 2.0 - 1.0) * wb
+        b = (torch.rand((fan_out,), generator=generator) * 2.0 - 1.0) * bb
+        params.append({"w": w.to(device), "b": b.to(device)})
+    return tuple(params)
+
+
+def _check(x: torch.Tensor, cfg: CoordXConfig, precision: str) -> None:
+    if precision != "fp32":
+        raise NotImplementedError(
+            f"mlp=coordx runs in fp32 only; precision {precision!r} "
+            "(train.matmul_precision=bfloat16 or null) is not ported yet"
+        )
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "mlp=coordx on CUDA needs fp32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+
+
+def _sin(cfg: CoordXConfig):
+    return fast_sin if cfg.fast_sine else torch.sin
+
+
+def _run_branch(params_slice, x: torch.Tensor, cfg: CoordXConfig) -> torch.Tensor:
+    """x: (N, 1), one coordinate in [-1, 1] -> (N, C) sine features."""
+    sin = _sin(cfg)
+    for i, layer in enumerate(params_slice):
+        w, b = layer["w"], layer["b"]
+        omega = cfg.first_omega_0 if i == 0 else cfg.hidden_omega_0
+        if w.shape[0] == 1:
+            z = x * w[0] + b  # fan_in 1: a broadcast multiply
+        else:
+            z = x @ w + b
+        x = sin(omega * z)
+    return x
+
+
+def _run_fused(params_slice, z: torch.Tensor, cfg: CoordXConfig) -> torch.Tensor:
+    """z: (N, C) fused features -> (N, out) in [0, 1]."""
+    sin = _sin(cfg)
+    last = len(params_slice) - 1
+    for i, layer in enumerate(params_slice):
+        z = z @ layer["w"] + layer["b"]
+        if not (i == last and cfg.outermost_linear):
+            z = sin(cfg.hidden_omega_0 * z)
+    return z / 2.0 + 0.5
+
+
+def _fuse(fy: torch.Tensor, fx: torch.Tensor, cfg: CoordXConfig) -> torch.Tensor:
+    if cfg.fusion == "product":
+        # E[sin²]·E[sin²] ≈ 1/4 against the 1/2 SIREN's init expects
+        return (fy * fx) * math.sqrt(2.0)
+    return (fy + fx) * (1.0 / math.sqrt(2.0))
+
+
+def _split(params: Params, cfg: CoordXConfig):
+    s = cfg.split_depth
+    return params[:s], params[s : 2 * s], params[2 * s :]
+
+
+def coordx_apply(params: Params, grid: torch.Tensor, cfg: CoordXConfig,
+                 precision: str = "fp32") -> torch.Tensor:
+    """Factorized forward over a tensor-product (H, W, 2) grid ->
+    (H, W, out): the row coordinate is read from grid[:, 0, 0], the column
+    coordinate from grid[0, :, 1]; only the fused layers run per pixel."""
+    _check(grid, cfg, precision)
+    h, w, _ = grid.shape
+    px, py, pf = _split(params, cfg)
+    ys = (grid[:, 0, 0:1] - 0.5) * 2.0  # (H, 1) row coordinate
+    xs = (grid[0, :, 1:2] - 0.5) * 2.0  # (W, 1) column coordinate
+    fy = _run_branch(py, ys, cfg)  # (H, C)
+    fx = _run_branch(px, xs, cfg)  # (W, C)
+    z = _fuse(fy[:, None, :], fx[None, :, :], cfg).reshape(h * w, -1)
+    return _run_fused(pf, z, cfg).reshape(h, w, -1)
+
+
+def coordx_apply_flat(params: Params, coords: torch.Tensor, cfg: CoordXConfig,
+                      precision: str = "fp32") -> torch.Tensor:
+    """Forward over any (N, 2) coordinates in [0, 1] -> (N, out); the
+    branches run per point."""
+    _check(coords, cfg, precision)
+    px, py, pf = _split(params, cfg)
+    ys = (coords[:, 0:1] - 0.5) * 2.0
+    xs = (coords[:, 1:2] - 0.5) * 2.0
+    z = _fuse(_run_branch(py, ys, cfg), _run_branch(px, xs, cfg), cfg)
+    return _run_fused(pf, z, cfg)

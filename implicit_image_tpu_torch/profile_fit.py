@@ -2,12 +2,18 @@
 
     python -m implicit_image_tpu_torch.profile_fit [--out outputs/profile_fit.json] \
         [overrides ...]
+    # the JAX bench's flagship recipe
+    python -m implicit_image_tpu_torch.profile_fit --out outputs/flagship.json \
+        mlp=coordx mlp.hidden_size=96 mlp.split_depth=5 masking.density=0.85 \
+        train.num_steps=1200 train.init_path=auto quant.delta=true quant.row_stride=4 \
+        entropy_coding=auto
 
 Two parts, both on CUDA, with the composed default config (the JAX
 default, masking=RigL) and the given overrides:
 
   1. the whole protocol through `compress.main`: the stage walls of
-     summary.json, decoded PSNR, MS-SSIM and container bytes;
+     summary.json, decoded PSNR, MS-SSIM, container bytes and, for
+     `entropy_coding=auto`, the backend it chose;
   2. STEPS (30) fit steps of the same configuration under torch.profiler. From
      the device rows of the trace (kernels, copies, sets; no host row, so no
      time is counted twice) it reports each kernel's time and count, the
@@ -15,7 +21,8 @@ default, masking=RigL) and the given overrides:
      profiled span, and the device's idle share over that span:
      1 - (union of the device rows' intervals) / span. The same steps run
      once more without the profiler for their ms per step, and once with
-     masking=none beside them; for a sparse config, the ms of one mask
+     masking=none beside them (a separable model, CoordX, runs its grid
+     forward as the fit does); for a sparse config, the ms of one mask
      topology update (sparsity.update_connections) is timed on its own,
      host clock around MASK_UPDATES updates ending in a synchronize.
 
@@ -34,6 +41,7 @@ from pathlib import Path
 import torch
 
 from implicit_image_tpu_torch import compress
+from implicit_image_tpu_torch.coding.parsers import _AUTO_ORDER
 from implicit_image_tpu_torch.data import get_grid
 from implicit_image_tpu_torch.models import build_model_from_config
 from implicit_image_tpu_torch.optim import adam_momentum
@@ -58,10 +66,15 @@ def protocol(overrides, run_dir: Path) -> dict:
     psnr, nbytes = compress.main(cfg, run_dir=str(run_dir))
     wall = time.perf_counter() - t0
     summary = json.loads((run_dir / "summary.json").read_text())
-    keys = ("kernel_build_s", "fit_wall_s", "quant_wall_s", "encode_wall_s", "decode_wall_s",
-            "PSNR", "Quant PSNR", "Decoded MS-SSIM")
-    return {"main_wall_s": wall, "decoded_psnr": psnr, "bytes": nbytes,
-            **{k: summary.get(k) for k in keys}}
+    keys = ("kernel_build_s", "codec_build_s", "fit_wall_s", "quant_wall_s", "encode_wall_s",
+            "decode_wall_s", "PSNR", "Quant PSNR", "Decoded MS-SSIM")
+    record = {"main_wall_s": wall, "decoded_psnr": psnr, "bytes": nbytes,
+              "stream": cfg.entropy_coding.stream_name,
+              **{k: summary.get(k) for k in keys}}
+    if record["stream"] == "auto":
+        blob = (run_dir / "model_quantized" / "compressed_weights.data").read_bytes()
+        record["auto_backend"] = _AUTO_ORDER[blob[0]]
+    return record
 
 
 def _union_us(intervals) -> float:
@@ -99,13 +112,15 @@ def trace_breakdown(trace_path: Path, steps: int) -> dict:
     }
 
 
-def mask_update_ms(res, mdef, mcfg, coords, target_flat, train_cfg, masking, reps: int) -> float:
+def mask_update_ms(res, mdef, mcfg, coords, target_flat, grid_hw, train_cfg, masking,
+                   reps: int) -> float:
     """ms per mask topology update, on the final state of a sparse fit."""
     params = res.params
     for layer in params:
         for v in layer.values():
             v.requires_grad_(True)
-    _, grads = make_grad_fn(mdef, mcfg, coords, target_flat, train_cfg.precision)(params)
+    _, grads = make_grad_fn(mdef, mcfg, coords, target_flat, train_cfg.precision,
+                            grid_hw=grid_hw)(params)
     momentum = "momentum" in (masking.growth_mode, masking.redistribution_mode)
     momenta = [adam_momentum(res.opt_state, i) if momentum and m is not None else None
                for i, m in enumerate(res.mask_state.masks)]
@@ -165,7 +180,8 @@ def profile_steps(overrides, steps: int, trace_path: Path) -> dict:
         coords = grid.reshape(h * w, -1)
         target_flat = torch.as_tensor(img, dtype=torch.float32, device=dev).reshape(h * w, -1)
         record["ms_per_mask_update"] = mask_update_ms(
-            unprofiled, mdef, mcfg, coords, target_flat, train_cfg, masking, MASK_UPDATES)
+            unprofiled, mdef, mcfg, coords, target_flat, (h, w), train_cfg, masking,
+            MASK_UPDATES)
     return record
 
 

@@ -15,11 +15,16 @@ almost exactly between two centroids may take the other label.
 sum (the default backward of the gather accumulates with atomics on CUDA).
 
 `ecvq_refine` is the entropy-constrained re-assignment (quant.ecvq_lambda).
-Delta mode (the `offset` argument of the JAX functions) is not ported.
+
+Delta mode (quant.delta, the `offset` argument): cluster the residual
+weight - offset, where the offset (the meta-init artifact's weight) is
+shared by encoder and decoder. The decode rule is
+w = (offset + centroids[labels]) * (labels != 0): label 0 stays reserved
+for pruned (zero) weights, so a nonzero weight never takes it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,39 +85,61 @@ def kmeans_fit(values: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
     return centers
 
 
-def quantize_weight(weight: torch.Tensor, bits: int, iters: int = 5
+def _reserve_label0(d: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Delta mode: a valid weight may not take label 0, a pruned one must."""
+    inf = torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
+    col0 = torch.where(valid > 0, inf, -inf)
+    return torch.cat([col0[:, None], d[:, 1:]], dim=1)
+
+
+def quantize_weight(weight: torch.Tensor, bits: int, iters: int = 5,
+                    offset: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, LayerCodebook]:
-    """Cluster a weight tensor's nonzeros into 2^bits - 1 centroids (+0);
-    returns (snapped weight, LayerCodebook)."""
+    """Cluster a weight tensor's nonzeros (their residuals against `offset`
+    in delta mode) into 2^bits - 1 centroids (+0); returns (snapped weight,
+    LayerCodebook)."""
     n_clusters = 2**bits - 1
     flat = weight.reshape(-1)
     valid = (flat != 0.0).to(flat.dtype)
+    if offset is not None:
+        points = torch.where(valid > 0, flat - offset.reshape(-1), flat.new_zeros(()))
+    else:
+        points = flat
     big = torch.tensor(float("inf"), dtype=flat.dtype, device=flat.device)
-    lo = torch.min(torch.where(valid > 0, flat, big))
-    hi = torch.max(torch.where(valid > 0, flat, -big))
+    lo = torch.min(torch.where(valid > 0, points, big))
+    hi = torch.max(torch.where(valid > 0, points, -big))
     guess = unit_linspace(n_clusters, flat.device, flat.dtype) * (hi - lo) + lo
 
-    centers = kmeans_fit(flat, valid, guess, iters=iters)
+    centers = kmeans_fit(points, valid, guess, iters=iters)
     centroids = torch.cat([torch.zeros(1, dtype=flat.dtype, device=flat.device), centers])
     order = torch.argsort(torch.abs(centroids), stable=True)
     centroids = centroids[order]
 
-    d = (flat[:, None] - centroids[None, :]) ** 2
+    d = (points[:, None] - centroids[None, :]) ** 2
+    if offset is not None:
+        d = _reserve_label0(d, valid)
     labels = torch.argmin(d, dim=1).to(torch.int32)
-    snapped = centroids[labels].reshape(weight.shape)
+    snapped = centroids[labels]
+    if offset is not None:
+        snapped = (snapped + offset.reshape(-1)) * (labels != 0)
+    snapped = snapped.reshape(weight.shape)
     return snapped, LayerCodebook(centroids=centroids, labels=labels.reshape(weight.shape))
 
 
 def ecvq_refine(weight: torch.Tensor, book: LayerCodebook, lam: float,
-                iters: int = 10) -> LayerCodebook:
+                iters: int = 10, offset: Optional[torch.Tensor] = None) -> LayerCodebook:
     """Entropy-constrained assignment: re-assign each nonzero weight to
     argmin_j (w - c_j)^2 + λ·σ²·R_j, R_j = -log2 p_j under the current label
     frequencies, σ² the layer's mean initial quantization error; then a
-    Lloyd step on the new assignment. Label 0 (the zero centroid) stays 0."""
+    Lloyd step on the new assignment. Label 0 (the zero centroid) stays 0.
+    In delta mode (`offset`) it runs on the residuals, and a nonzero weight
+    never moves onto label 0."""
     flat = weight.reshape(-1)
     labels = book.labels.reshape(-1).long()
     centroids = book.centroids
     valid = (flat != 0.0).to(flat.dtype)
+    if offset is not None:
+        flat = torch.where(valid > 0, flat - offset.reshape(-1), flat.new_zeros(()))
     n = flat.shape[0]
     n_valid = torch.clamp(torch.sum(valid), min=1.0)
     k = centroids.shape[0]
@@ -124,6 +151,8 @@ def ecvq_refine(weight: torch.Tensor, book: LayerCodebook, lam: float,
         p = segment_sum(labels, ones, k) / n
         rate = -torch.log2(torch.clamp(p, min=1e-12))
         d2 = (flat[:, None] - centroids[None, :]) ** 2
+        if offset is not None:
+            d2 = _reserve_label0(d2, valid)
         new = torch.argmin(d2 + scale * rate[None, :], dim=1)
         labels = torch.where(valid > 0, new, torch.zeros_like(new))
         counts_nz = segment_sum(labels, valid, k)

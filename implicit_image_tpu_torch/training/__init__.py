@@ -1,2 +1,2 @@
-"""Training: the dense fit loop, the k-means codebook finetune and meta-init
-loading."""
+"""Training: the fit loop (dense or sparse), the k-means codebook finetune
+(absolute or delta) and the meta-init warm start."""

@@ -1,10 +1,10 @@
 """The fit loop (counterpart of implicit_image_tpu/training/fit.py).
 
-A Python loop of train steps: full-grid forward through the fused SIREN
-chain, the loss (MSE, or the `ms-ssim` mix), backward (the CUDA backward
-kernel on the card), functional Adam with StepLR, and an eval at the log
-cadence — (step+1) % log_steps == 0 plus the final step, so short runs
-still report a PSNR. Metric arrays have one entry per step, NaN where no
+A Python loop of train steps: full-grid forward (for SIREN through the
+fused chain), the loss (MSE, or the `ms-ssim` mix), backward (for SIREN the
+CUDA backward kernel on the card), functional Adam with StepLR, and an
+eval at the log cadence — (step+1) % log_steps == 0 plus the final step,
+so short runs still report a PSNR. Metric arrays have one entry per step, NaN where no
 eval ran, like the JAX fit's.
 
 Sparse masking (RigL, SNFS, GMP) follows the JAX step order: grads; masked
@@ -16,8 +16,14 @@ the density. The update cadence is a Python test on the step, and the
 density only changes at an update, so it is recomputed there only. Nothing
 in the step reads a device value on the host.
 
+A separable model (CoordX) evaluates the loss and the eval through its
+grid forward `mdef.apply`, whose branches run O(H + W), instead of the flat
+coordinate list.
+
 `pixel_chunks` > 1 accumulates the loss and gradient over equal pixel
-chunks (mean of chunk means = the full-batch mean). The JAX package's
+chunks (mean of chunk means = the full-batch mean); for a separable model
+whose chunks are whole row blocks (k divides H), each chunk is itself a
+tensor-product grid and keeps the grid forward. The JAX package's
 TPU-runtime scaffolding (`segment_steps`, `program_cache`, `use_pallas`,
 `remat`, `estimate_step_flops`) has no counterpart here.
 """
@@ -53,6 +59,7 @@ __all__ = [
     "FitResult",
     "make_loss_fn",
     "make_grad_fn",
+    "forward_flat",
     "fit",
     "synchronize",
 ]
@@ -109,7 +116,8 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     """loss(params): MSE of the flat forward against the flat target, or
     with loss_name="ms-ssim" (needs the (H, W) grid) the mix
     (1-w)·MSE + w·(1-MS-SSIM) at as many scales (up to 5) as the grid holds
-    with an 11-pixel window."""
+    with an 11-pixel window. With grid_hw a separable model runs its grid
+    forward on coords reshaped to (H, W, in)."""
     if loss_name == "mse":
         def distortion(pred_flat):
             return mse(pred_flat, target_flat)
@@ -134,9 +142,20 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
         raise ValueError(f"train.loss must be 'mse' or 'ms-ssim', got {loss_name!r}")
 
     def loss_fn(params):
-        return distortion(mdef.apply_flat(params, coords, mcfg, precision))
+        return distortion(forward_flat(mdef, mcfg, params, coords, grid_hw, precision))
 
     return loss_fn
+
+
+def forward_flat(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str):
+    """(N, out) forward over flat coords: through `mdef.apply` on the
+    (H, W) grid for a separable model when grid_hw is given, else
+    `mdef.apply_flat`."""
+    if grid_hw is not None and mdef.separable:
+        h, w = grid_hw
+        pred = mdef.apply(params, coords.reshape(h, w, coords.shape[-1]), mcfg, precision)
+        return pred.reshape(h * w, -1)
+    return mdef.apply_flat(params, coords, mcfg, precision)
 
 
 def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
@@ -145,15 +164,20 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     """grad_fn(state) -> (loss, grads): the loss of the params
     `transform(state)` (state itself when transform is None), with grads
     for every tensor of `state`; chunk-accumulated when pixel_chunks > 1
-    (MSE only: SSIM windows straddle the chunks)."""
+    (MSE only: SSIM windows straddle the chunks; a separable model keeps its
+    grid forward when the chunks are whole row blocks)."""
     n = coords.shape[0]
     k = int(pixel_chunks)
     if k > 1 and n % k:
         raise ValueError(f"pixel_chunks={k} must divide pixel count {n}")
     if k > 1 and loss_name == "ms-ssim":
         raise ValueError("loss='ms-ssim' requires pixel_chunks=1")
+    chunk_hw = grid_hw
+    if k > 1:
+        rows_split = grid_hw is not None and mdef.separable and grid_hw[0] % k == 0
+        chunk_hw = (grid_hw[0] // k, grid_hw[1]) if rows_split else None
     chunks = [
-        make_loss_fn(mdef, mcfg, c, t, precision, grid_hw, loss_name, ssim_weight)
+        make_loss_fn(mdef, mcfg, c, t, precision, chunk_hw, loss_name, ssim_weight)
         for c, t in zip(coords.chunk(k), target_flat.chunk(k))
     ]
 
@@ -267,7 +291,7 @@ def fit(
             densities.append(density)
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
-                pred = mdef.apply_flat(params, coords, mcfg, precision)
+                pred = forward_flat(mdef, mcfg, params, coords, (h, w), precision)
                 test_loss = mse(pred, target_flat)
                 evals[step] = torch.stack(
                     [test_loss, 10.0 * torch.log10(1.0 / test_loss),

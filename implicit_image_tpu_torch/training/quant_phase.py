@@ -1,5 +1,5 @@
 """K-means codebook finetune (counterpart of
-implicit_image_tpu/training/quant_phase.py, KMeans mode, no delta offsets).
+implicit_image_tpu/training/quant_phase.py, KMeans mode).
 
 The quantized layers are clustered once (quantize_weight, then ecvq_refine
 when quant.ecvq_lambda > 0); their labels are frozen and the finetune
@@ -12,6 +12,15 @@ under StepLR(1000, 0.5) from quant.lr (or the fit's lr).
 
 With the sparse fit's `masks`, the reconstructed weights are masked before
 every forward, as in JAX, so pruned weights stay exactly 0.
+
+Delta mode (quant.delta, `offset_params`: the meta-init artifact the fit
+started from, shared with the decoder): the quantized layers cluster the
+residual w - offset, and the weight is reconstructed as
+(offset + centroids[labels]) * (labels != 0) wherever the finetune runs
+its forward.
+
+A separable model (CoordX) runs its grid forward, also on the row-strided
+target grid (every s-th row of a tensor-product grid is one too).
 """
 from __future__ import annotations
 
@@ -33,7 +42,12 @@ from implicit_image_tpu_torch.quant import (
 )
 from implicit_image_tpu_torch.quant.kmeans import gather_centroids
 from implicit_image_tpu_torch.sparsity import apply_masks
-from implicit_image_tpu_torch.training.fit import OptimConfig, make_grad_fn, synchronize
+from implicit_image_tpu_torch.training.fit import (
+    OptimConfig,
+    forward_flat,
+    make_grad_fn,
+    synchronize,
+)
 
 __all__ = ["QuantResult", "quant_finetune"]
 
@@ -45,16 +59,20 @@ class QuantResult(NamedTuple):
     wall_seconds: float
 
 
-def _reconstruct(state, labels, masks=None):
-    """Params with w = centroids[labels] for the quantized layers, then
-    masked when masks are given."""
+def _reconstruct(state, labels, offsets, masks=None):
+    """Params with w = centroids[labels] for the quantized layers (delta:
+    (offset + centroids[labels]) * (labels != 0)), then masked when masks
+    are given."""
     out = []
-    for layer, lab in zip(state, labels):
+    for layer, lab, off in zip(state, labels, offsets):
         if lab is None:
             out.append(layer)
             continue
         rest = {k: v for k, v in layer.items() if k != "centroids"}
-        out.append(rest | {"w": gather_centroids(layer["centroids"], lab)})
+        w = gather_centroids(layer["centroids"], lab)
+        if off is not None:
+            w = (w + off) * (lab != 0)
+        out.append(rest | {"w": w})
     if masks is not None and any(m is not None for m in masks):
         return apply_masks(tuple(out), masks)
     return tuple(out)
@@ -71,11 +89,14 @@ def quant_finetune(
     precision: str = "fp32",
     pixel_chunks: int = 1,
     masks=None,
+    offset_params=None,
 ) -> QuantResult:
     """Cluster, finetune the codebooks for quant_cfg.num_steps, freeze.
     Runs on the device of `params`. quant.row_stride > 1 finetunes against
-    every s-th image row. `masks`: the sparse fit's per-layer masks (None
-    entries for unmasked layers), or None."""
+    every s-th image row (the returned metrics are then those of that
+    grid). `masks`: the sparse fit's per-layer masks (None entries for
+    unmasked layers), or None. `offset_params`: a params-like tuple whose
+    weights are the delta offsets (quant.delta), or None."""
     device = params[0]["w"].device
     stride = int(quant_cfg.row_stride)
     grid = grid.to(device)[::stride]
@@ -89,6 +110,10 @@ def quant_finetune(
     synchronize(device)
     t0 = time.perf_counter()
     qset = set(quantized_layer_indices(params, quant_cfg))
+    offsets = [None] * len(params)
+    if offset_params is not None:
+        offsets = [layer["w"].to(device) if i in qset else None
+                   for i, layer in enumerate(offset_params)]
     labels, state = [], []
     with torch.no_grad():
         for i, layer in enumerate(params):
@@ -96,9 +121,11 @@ def quant_finetune(
                 labels.append(None)
                 state.append({k: v.detach().clone() for k, v in layer.items()})
                 continue
-            _, book = quantize_weight(layer["w"], quant_cfg.layer_bits(i), quant_cfg.lloyd_iters)
+            _, book = quantize_weight(layer["w"], quant_cfg.layer_bits(i), quant_cfg.lloyd_iters,
+                                      offset=offsets[i])
             if quant_cfg.ecvq_lambda > 0.0:
-                book = ecvq_refine(layer["w"], book, quant_cfg.ecvq_lambda, quant_cfg.ecvq_iters)
+                book = ecvq_refine(layer["w"], book, quant_cfg.ecvq_lambda, quant_cfg.ecvq_iters,
+                                   offset=offsets[i])
             labels.append(book.labels.long())
             state.append({k: v.detach().clone() for k, v in layer.items() if k != "w"}
                          | {"centroids": book.centroids.clone()})
@@ -109,7 +136,8 @@ def quant_finetune(
     opt_state = opt_init(state, optim_cfg)
 
     grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision, pixel_chunks,
-                           transform=lambda st: _reconstruct(st, labels, masks))
+                           transform=lambda st: _reconstruct(st, labels, offsets, masks),
+                           grid_hw=(h, w))
     losses = []
     for step in range(quant_cfg.num_steps):
         loss, grads = grad_fn(state)
@@ -123,8 +151,8 @@ def quant_finetune(
 
     with torch.no_grad():
         params_q = tuple({k: v.detach() for k, v in layer.items()}
-                         for layer in _reconstruct(state, labels, masks))
-        pred = mdef.apply_flat(params_q, coords, mcfg, precision)
+                         for layer in _reconstruct(state, labels, offsets, masks))
+        pred = forward_flat(mdef, mcfg, params_q, coords, (h, w), precision)
         qloss = mse(pred, target_flat)
         qpsnr8 = psnr_8bit(pred, target_flat)
     synchronize(device)

@@ -74,18 +74,132 @@ def test_params_from_state_dict_round_trip():
 
 @pytest.mark.parametrize("stream", ["zstd", "lzma", "auto"])
 def test_unported_streams_raise(tmp_path, stream):
-    with pytest.raises(NotImplementedError):
-        tcoding.compress_state_dict({"layers.0.bias": np.zeros(3, np.float32)},
-                                    tmp_path, stream)
+    """These streams round-trip now (the name dates from before their
+    port): the same bytes as the JAX package's, decoded by both."""
+    state = {"layers.0.bias": np.linspace(-1, 1, 37, dtype=np.float32),
+             "layers.1.labeled_weight": np.arange(64, dtype=np.uint8).reshape(8, 8)}
+    nt = tcoding.compress_state_dict(state, tmp_path / "torch", stream)
+    nj = jcoding.compress_state_dict(state, tmp_path / "jax", stream)
+    assert nt == nj
+    assert ((tmp_path / "torch" / "compressed_weights.data").read_bytes()
+            == (tmp_path / "jax" / "compressed_weights.data").read_bytes())
+    for reader in (tcoding.read_raw_container, jcoding.read_raw_container):
+        back = reader(tmp_path / "torch", stream)
+        for k, v in state.items():
+            np.testing.assert_array_equal(back[k], v)
 
 
 def test_other_container_formats_raise(tmp_path):
+    """Format 2 (the name dates from before its port) written by the JAX
+    package decodes in the port."""
     from implicit_image_tpu import coding as jc
 
-    jc.compress_state_dict({"layers.0.bias": np.zeros(3, np.float32)}, tmp_path, "plain",
-                           plane_group=False)
+    state = {"layers.0.bias": np.arange(3, dtype=np.float32)}
+    jc.compress_state_dict(state, tmp_path, "plain", plane_group=False)
+    np.testing.assert_array_equal(tcoding.decompress_state_dict(tmp_path, "plain")
+                                  ["layers.0.bias"], state["layers.0.bias"])
+
+
+def _delta_setup(tmp_path, seed=3):
+    """A meta-init artifact written by the JAX package, fit params near it,
+    residual codebooks for the hidden layers and the delta manifest entry."""
+    from implicit_image_tpu.models import build_model as jbuild
+    from implicit_image_tpu.training.metainit import save_meta_init
+
+    rng = np.random.default_rng(seed)
+    init, _ = _params_and_books(seed=seed)
+    save_meta_init(tmp_path / "meta.npz", init, "siren", jbuild("siren", depth=4, hidden_size=16)[1])
+    params = [{k: (v + rng.normal(0, 1e-3, v.shape)).astype(np.float32) for k, v in layer.items()}
+              for layer in init]
+    books = [None] + [
+        (rng.integers(0, 16, layer["w"].shape).astype(np.int32),
+         np.concatenate([[0.0], np.sort(rng.normal(0, 1e-3, 15))]).astype(np.float32))
+        for layer in init[1:-1]] + [None]
+    state = jcoding.linear_state_dict(
+        params, [JBook(centroids=b[1], labels=b[0]) if b else None for b in books], half="auto")
+    import hashlib
+
+    delta = {"artifact": str(tmp_path / "meta.npz"),
+             "sha256": hashlib.sha256((tmp_path / "meta.npz").read_bytes()).hexdigest(),
+             "layers": [i for i, b in enumerate(books) if b is not None]}
+    return init, state, delta
+
+
+@pytest.mark.parametrize("xor", [False, True])
+@pytest.mark.parametrize("layout", [dict(), dict(plane_group=False), dict(shuffle=False)])
+@pytest.mark.parametrize("stream", ["plain", "auto"])
+def test_containers_decode_across_packages(tmp_path, layout, xor, stream):
+    """Formats 3, 2 and 1, absolute or delta (with or without the XOR
+    residual): both packages write the same bytes and manifest, and each
+    decodes the other's container to identical arrays."""
+    init, state, delta = _delta_setup(tmp_path)
+    if xor:
+        ref = tcoding.state_ref_map([{k: torch.from_numpy(v) for k, v in layer.items()}
+                                     for layer in init])
+        jstate, jx = jcoding.apply_xor_residual(state, jcoding.state_ref_map(init))
+        state, tx = tcoding.apply_xor_residual(state, ref)
+        assert tx == jx and len(tx) > 0
+        for k in state:
+            np.testing.assert_array_equal(state[k], jstate[k])
+        delta = dict(delta, xor=tx)
+    deltas = {"absolute": None, "delta": delta}
+    for kind, d in deltas.items():
+        tdir, jdir = tmp_path / f"t_{kind}", tmp_path / f"j_{kind}"
+        nt = tcoding.compress_state_dict(state, tdir, stream, delta=d, **layout)
+        nj = jcoding.compress_state_dict(state, jdir, stream, delta=d, **layout)
+        assert nt == nj
+        for name in ("compressed_weights.data", "meta_data.json"):
+            assert (tdir / name).read_bytes() == (jdir / name).read_bytes()
+        if kind == "absolute" and xor:
+            continue  # XORed tensors without the manifest entry decode as stored
+        t = tcoding.decompress_state_dict(jdir, stream)
+        j = jcoding.decompress_state_dict(tdir, stream)
+        assert list(t) == list(j)
+        for k in j:
+            np.testing.assert_array_equal(t[k], j[k])
+        if kind == "delta":
+            # w = (offset + centroids[labels]) * (labels != 0)
+            raw = tcoding.read_raw_container(tdir, stream)
+            i = delta["layers"][0]
+            lab = raw[f"layers.{i}.labeled_weight"]
+            want = (raw[f"layers.{i}.centroids"][lab].astype(np.float32) + init[i]["w"]) * (lab != 0)
+            np.testing.assert_array_equal(t[f"layers.{i}.weight"], want.astype(np.float32))
+
+
+def test_delta_artifact_sha256_and_search(tmp_path):
+    """A wrong artifact raises; a missing one raises; `delta_artifact`
+    overrides where it is looked for."""
+    init, state, delta = _delta_setup(tmp_path, seed=4)
+    tcoding.compress_state_dict(state, tmp_path / "c", "plain", delta=delta)
+    moved = tmp_path / "elsewhere.npz"
+    (tmp_path / "meta.npz").rename(moved)
+    with pytest.raises(FileNotFoundError):
+        tcoding.decompress_state_dict(tmp_path / "c", "plain")
+    good = tcoding.decompress_state_dict(tmp_path / "c", "plain", delta_artifact=moved)
+    j = jcoding.decompress_state_dict(tmp_path / "c", "plain", delta_artifact=moved)
+    for k in j:
+        np.testing.assert_array_equal(good[k], j[k])
+    data = dict(np.load(moved))
+    data["params.1.w"] = data["params.1.w"] + 1.0
+    np.savez(tmp_path / "meta.npz", **data)
+    with pytest.raises(ValueError, match="sha256"):
+        tcoding.decompress_state_dict(tmp_path / "c", "plain")
+
+
+def test_unported_containers_raise(tmp_path):
+    """Format 4 (progressive) and inter-frame (`prev`) deltas still raise."""
+    state = {"layers.0.bias": np.zeros(3, np.float32)}
+    jcoding.compress_state_dict(state, tmp_path / "prev", "plain",
+                                delta={"prev": "../x", "sha256": "0" * 64, "layers": []})
     with pytest.raises(NotImplementedError):
-        tcoding.decompress_state_dict(tmp_path, "plain")
+        tcoding.decompress_state_dict(tmp_path / "prev", "plain")
+    with pytest.raises(NotImplementedError):
+        tcoding.compress_state_dict(state, tmp_path / "p2", "plain",
+                                    delta={"prev": "../x", "sha256": "0" * 64, "layers": []})
+    (tmp_path / "f4").mkdir()
+    (tmp_path / "f4" / "meta_data.json").write_text('{"__meta__": {"format": 4}}')
+    with pytest.raises(NotImplementedError):
+        tcoding.read_raw_container(tmp_path / "f4", "plain")
 
 
 def test_truncated_plain_stream_raises(tmp_path):

@@ -89,7 +89,7 @@ def test_meta_init_loads_same_weights(runs):
 
 
 @pytest.mark.parametrize("override", ["masking=Feathermap", "optim=shampoo", "quant=qat",
-                                      "entropy_coding=zstd", "mlp=fourier"])
+                                      "entropy_coding.progressive=true", "mlp=fourier"])
 def test_unported_options_raise(tmp_path, override):
     cfg = compose(OVERRIDES + ["device=cpu", "train.num_steps=1", override])
     with pytest.raises((NotImplementedError, KeyError)):

@@ -12,6 +12,7 @@ port only, so it also runs where JAX is not installed:
 import pytest
 import torch
 
+from implicit_image_tpu_torch.data import get_grid
 from implicit_image_tpu_torch.models import build_model
 from implicit_image_tpu_torch.ops import sine_mlp as sm
 
@@ -163,17 +164,23 @@ def _small_fit_params(dev, depth=8, hidden=128, side=64, steps=20):
 
 
 @pytest.mark.cuda
-def test_quant_finetune_repeats_bit_for_bit(cuda_device):
-    """Two codebook finetunes from the same params (d8 w128, 64^2 pixels):
-    identical centroids, labels and quant PSNR."""
+@pytest.mark.parametrize("delta", [False, True])
+def test_quant_finetune_repeats_bit_for_bit(cuda_device, delta):
+    """Two codebook finetunes from the same params (d8 w128, 64^2 pixels),
+    absolute or delta against an offset with row_stride 2: identical
+    centroids, labels and quant PSNR."""
     from implicit_image_tpu_torch.data import get_grid
     from implicit_image_tpu_torch.quant import QuantConfig
     from implicit_image_tpu_torch.training.fit import OptimConfig
     from implicit_image_tpu_torch.training.quant_phase import quant_finetune
 
     m, c, img, res = _small_fit_params(cuda_device)
-    runs = [quant_finetune(res.params, img, m, c, get_grid(64, 64, cuda_device),
-                           QuantConfig(num_steps=20, ecvq_lambda=1.0), OptimConfig())
+    offsets = None
+    if delta:
+        offsets = m.init(torch.Generator().manual_seed(5), c, cuda_device)
+    cfg = QuantConfig(num_steps=20, ecvq_lambda=1.0, row_stride=2 if delta else 1)
+    runs = [quant_finetune(res.params, img, m, c, get_grid(64, 64, cuda_device), cfg,
+                           OptimConfig(), offset_params=offsets)
             for _ in range(2)]
     assert runs[0].metrics["quant_psnr"] == runs[1].metrics["quant_psnr"]
     for a, b in zip(*(r.codebooks for r in runs)):
@@ -226,3 +233,33 @@ def test_rigl_fit_on_card_keeps_layer_counts(cuda_device, tmp_path):
         assert torch.all(layer["w"][mk == 0] == 0.0)
     assert moved
     assert np.isfinite(res.metrics["psnr"][-1])
+
+
+@pytest.mark.cuda
+def test_coordx_on_card_matches_cpu(cuda_device):
+    """CoordX has no kernel of its own: its fp32 torch.matmul forward and
+    gradients on the card agree with the CPU's at the flagship widths, and
+    a CUDA forward with 1-pass TF32 switched on raises."""
+    m, c = build_model("coordx", depth=8, hidden_size=96, split_depth=5)
+    params = m.init(torch.Generator().manual_seed(3), c)
+    target = torch.rand((64, 64, 3), generator=torch.Generator().manual_seed(4))
+    results = []
+    for dev in ("cpu", cuda_device):
+        p = tuple({k: v.detach().to(dev, copy=True).requires_grad_(True)
+                   for k, v in layer.items()} for layer in params)
+        out = m.apply(p, get_grid(64, 64, dev), c)
+        ((out - target.to(dev)) ** 2).mean().backward()
+        results.append((out.detach().cpu(), [{k: layer[k].grad.cpu() for k in KEYS}
+                                             for layer in p]))
+    (out_c, g_c), (out_g, g_g) = results
+    assert float((out_g - out_c).abs().max()) <= 1e-5
+    for a, b in zip(g_g, g_c):
+        for k in KEYS:
+            assert float((a[k] - b[k]).abs().max()) <= 1e-4 * float(b[k].abs().max())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError):
+            m.apply(tuple({k: v.to(cuda_device) for k, v in layer.items()} for layer in params),
+                    get_grid(8, 8, cuda_device), c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
