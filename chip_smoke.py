@@ -45,9 +45,14 @@ Phases, each printing its own line:
      launch 0 times in this phase.
 
 Each of phases 4-6 and 8 sets the launch counts to 0 just before its run
-and reads them just after. Phase 3 times sum_partials and its plain
-version partials.sum(0) in turns within one call (5 rounds of 20 launches
-each) and reports the medians.
+and reads them just after. In phase 3, sum_partials must equal its plain
+mirror sum_partials_reference (the kernel's order of additions) bit for
+bit on the main path's partial buffer, give the same bits twice, and be
+within SUM_TOL of partials.sum(0), the library call for the same function;
+the kernel and the library call are timed in turns (5 rounds of 20
+launches each), replayed from CUDA graphs (device time: the kernels line
+reports these medians) and launched from Python (host included), and
+every round is printed beside the medians and their share of the bound.
 
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
@@ -125,13 +130,42 @@ def _time_ms(fn, reps: int = 10) -> float:
 
 
 def _interleaved_ms(fns, rounds: int = 5, reps: int = 20) -> list:
-    """Median ms per launch of each function, timed in turns: `rounds`
-    rounds, each timing `reps` launches of every function in order."""
+    """ms per launch of each function in every round, timed in turns:
+    `rounds` rounds, each timing `reps` launches of every function in order."""
     times = [[] for _ in fns]
     for _ in range(rounds):
         for t, fn in zip(times, fns):
             t.append(_time_ms(fn, reps))
-    return [statistics.median(t) for t in times]
+    return times
+
+
+def _graph_interleaved_ms(fns, rounds: int = 5, reps: int = 20) -> list:
+    """As _interleaved_ms, but each function's `reps` launches are captured
+    in one CUDA graph and replayed between the events: the device's time
+    alone, with no host time between launches. (A loop of ~0.02 ms
+    launches from Python measures the host's enqueue instead.)"""
+    import torch
+
+    graphs = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graphs.append(graph)
+    times = [[] for _ in fns]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds + 1):  # the first round warms up
+        for t, graph in zip(times, graphs):
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            t.append(start.elapsed_time(end) / reps)
+    return [t[1:] for t in times]
 
 
 def phase_card() -> str:
@@ -250,14 +284,22 @@ def phase_kernels() -> dict:
         ctl_fwd, ctl_rel, _ = _errors(kernel[other], plain)
         ctl_worst = max(ctl_rel, key=ctl_rel.get)
 
-        # the partial-gradient buffer the main path's backward hands sum_partials
+        # the partial-gradient buffer the main path's backward hands sum_partials:
+        # the kernel against its mirror (same order, bit for bit), against
+        # itself, and against the library call (another order, SUM_TOL)
         blocks, n_part, _ = sm.partial_layout(
             x.shape[0], DEPTH, params[0]["w"].shape[0], params[-1]["w"].shape[1], dev)
+        bounds = _bounds(x.shape[0], params[0]["w"].shape[0], params[-1]["w"].shape[1],
+                         DEPTH, WIDTH, blocks, n_part)
         partials = torch.randn((blocks, n_part), generator=gen).to(dev)
-        sum_k = sm.sum_partials(partials)
+        sum_k, sum_again = sm.sum_partials(partials), sm.sum_partials(partials)
+        sum_m = sm.sum_partials_reference(partials)
         sum_p = partials.sum(0)
-        sum_err = float((sum_k - sum_p).abs().max())
-        sum_rel = sum_err / float(sum_p.abs().max())
+        torch.cuda.synchronize()
+        groups = sm._lib().sum_partials_groups()
+        sum_mirror_err = float((sum_k - sum_m).abs().max())
+        sum_same = torch.equal(sum_k, sum_m) and torch.equal(sum_k, sum_again)
+        sum_rel = float((sum_k - sum_p).abs().max()) / float(sum_p.abs().max())
 
         fwd_ms = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, prec))
         fwd_plain_ms = _time_ms(lambda: sm.siren_chain_reference(params, x, mcfg, prec))
@@ -269,14 +311,35 @@ def phase_kernels() -> dict:
         bwd_ms = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec))
         bwd_plain_ms = _time_ms(
             lambda: sm.siren_chain_backward_reference(params, x, g, mcfg, prec))
-        sum_ms, sum_plain_ms = _interleaved_ms(
-            [lambda: sm.sum_partials(partials), lambda: partials.sum(0)])
+        sum_plain_ms = _time_ms(lambda: sm.sum_partials_reference(partials))
+        sum_fns = [lambda: sm.sum_partials(partials), lambda: partials.sum(0)]
+        eager = _interleaved_ms(sum_fns)
+        (sum_rounds, lib_rounds) = _graph_interleaved_ms(sum_fns)
+        sum_ms, lib_ms = statistics.median(sum_rounds), statistics.median(lib_rounds)
+        sum_bound = bounds["sum_partials"]["bound_ms"]
         print(
             f"[3 kernels {prec}] fwd max_abs_err {fwd_err:.3e} (tol {FWD_TOL[prec]:g}); "
             f"bwd max rel err {rel[worst]:.3e} at {worst} (tol {BWD_TOL[prec]:g}), "
-            f"max abs err {bwd_abs:.3e}; sum_partials rel err {sum_rel:.3e}",
+            f"max abs err {bwd_abs:.3e}; sum_partials ({blocks} x {n_part}, {groups} row "
+            f"groups) vs its mirror max abs err {sum_mirror_err:.3e}, "
+            f"{'the same bits twice' if sum_same else 'BITS DIFFER'}; vs partials.sum(0) "
+            f"rel err {sum_rel:.3e} (tol {SUM_TOL:g})",
             flush=True,
         )
+        for how, (k_rounds, l_rounds) in (("from CUDA graphs (device time)",
+                                           (sum_rounds, lib_rounds)),
+                                          ("from Python (host included)", eager)):
+            k_ms, l_ms = statistics.median(k_rounds), statistics.median(l_rounds)
+            print(
+                f"[3 kernels {prec}] sum_partials in turns with partials.sum(0), 5 rounds x 20 "
+                f"launches {how}, ms: kernel {' '.join(f'{t:.4f}' for t in k_rounds)} (median "
+                f"{k_ms:.4f} = {sum_bound / k_ms:.1%} of the {sum_bound:.4f} ms bound); library "
+                f"{' '.join(f'{t:.4f}' for t in l_rounds)} (median {l_ms:.4f} = "
+                f"{sum_bound / l_ms:.1%})",
+                flush=True,
+            )
+        print(f"[3 kernels {prec}] sum_partials_reference (the mirror): {sum_plain_ms:.4f} ms",
+              flush=True)
         print(
             f"[3 kernels {prec}] control, the {other} kernel vs the {prec} plain chain: "
             f"fwd max_abs_err {ctl_fwd:.3e}; bwd max rel err {ctl_rel[ctl_worst]:.3e} "
@@ -287,8 +350,7 @@ def phase_kernels() -> dict:
             f"[3 kernels {prec}] ms per forward: kernel {fwd_ms:.3f}, plain "
             f"{fwd_plain_ms:.3f}; ms per forward+backward: kernel {step_ms:.3f}, "
             f"plain {step_plain_ms:.3f}; backward alone: kernel {bwd_ms:.3f}, plain "
-            f"{bwd_plain_ms:.3f}; sum_partials: kernel {sum_ms:.4f}, plain partials.sum(0) "
-            f"{sum_plain_ms:.4f} (medians of 5 x 20 launches each, in turns)",
+            f"{bwd_plain_ms:.3f}",
             flush=True,
         )
         if not fwd_err <= FWD_TOL[prec]:
@@ -297,8 +359,14 @@ def phase_kernels() -> dict:
             raise AssertionError(f"{prec}: backward kernel disagrees at {worst}: {rel}")
         if not (ctl_fwd > FWD_TOL[prec] and ctl_rel[ctl_worst] > BWD_TOL[prec]):
             raise AssertionError(f"{prec}: the limits pass the {other} kernel as well")
+        if groups != sm.SUM_PARTIALS_GROUPS:
+            raise AssertionError(f"the library splits rows into {groups} groups, the mirror "
+                                 f"into {sm.SUM_PARTIALS_GROUPS}")
+        if not sum_same:
+            raise AssertionError(f"sum_partials is not its mirror's bits, or does not repeat "
+                                 f"(max abs err {sum_mirror_err})")
         if not sum_rel <= SUM_TOL:
-            raise AssertionError(f"sum_partials disagrees: {sum_rel}")
+            raise AssertionError(f"sum_partials disagrees with partials.sum(0): {sum_rel}")
         if prec == "fp32":
             # the second control: 1-pass TF32 products in the plain chain
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -318,13 +386,12 @@ def phase_kernels() -> dict:
             )
             if not (tf32_fwd > FWD_TOL[prec] or tf32_rel[tf32_worst] > BWD_TOL[prec]):
                 raise AssertionError("fp32: the limits pass 1-pass TF32 products as well")
-            bounds = _bounds(x.shape[0], params[0]["w"].shape[0], params[-1]["w"].shape[1],
-                             DEPTH, WIDTH, blocks, n_part)
             records = {
                 "sine_mlp_fwd": (fwd_err, fwd_ms, fwd_plain_ms, None),
                 "sine_mlp_bwd": (bwd_abs, bwd_ms, bwd_plain_ms, None),
-                # partials.sum(0) is one PyTorch call for the same function
-                "sum_partials": (sum_err, sum_ms, sum_plain_ms, sum_plain_ms),
+                # plain: the mirror; partials.sum(0) is one PyTorch call for
+                # the same function
+                "sum_partials": (sum_mirror_err, sum_ms, sum_plain_ms, lib_ms),
             }
             for name, (_, ms, _, _) in records.items():
                 b = bounds[name]

@@ -70,6 +70,14 @@
 // own slice of a partial-gradient buffer; sum_partials adds the slices in a
 // fixed order. No atomics: a run repeats bit for bit.
 //
+// sum_partials, the column sum of that (B, P) buffer (B = 132 slices of
+// P = 99,844 floats at the shapes above), moves 53 MB and computes next to
+// nothing: 0.016 ms at 3.35 TB/s. Its order: the rows split into G =
+// min(kSumGroups, B) groups, group g holding rows [g B / G, (g + 1) B / G);
+// each group's sum starts at 0 and adds its rows in index order, and the
+// group sums are added in group order (sum_partials_reference in
+// ops/sine_mlp.py adds in the same order). The design is at the kernel.
+//
 // Every launcher returns the cudaError_t of its launch (0 on success).
 
 #include <cuda_bf16.h>
@@ -790,13 +798,69 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
   }
 }
 
-__global__ void sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                    int n_blocks, int n_part) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_part) return;
-  float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[(size_t)b * n_part + p];
-  out[p] = s;
+// ------------------------------------------------------ the partial sum
+//
+// out = the column sum of a (B, P) fp32 buffer, P % 4 == 0, in float4
+// columns. Memory-bound (header note). The design, chosen by timing
+// candidates in turns on an H100 (tools/sum_partials_ab.py, PERF.md):
+// - kSumBlocksPerSm blocks per SM, block b taking float4 columns
+//   [b C / grid, (b + 1) C / grid) of the C = P / 4: every SM the same
+//   work, to one column (189 or 190 at the main path's shapes);
+// - in a block, kSumGroups row groups (the split of the header note) of
+//   kSumLanes threads; a thread sums one float4 column over its group's
+//   rows in index order, kSumUnroll loads issued before their adds;
+// - the group sums meet in shared memory, kSumCols columns at a time, and
+//   are added in group order.
+// Loads stream past L1 (__ldcs): each value is read once. More groups
+// (rows read at once: 4, 8, 16) and more, smaller blocks read slower on
+// the card.
+constexpr int kSumGroups = 2;  // row groups
+constexpr int kSumLanes = 192;  // threads of a group, one float4 column each
+constexpr int kSumBlocksPerSm = 1;
+constexpr int kSumUnroll = 16;
+constexpr int kSumThreads = kSumGroups * kSumLanes;
+constexpr int kSumCols = 2048 / kSumGroups;  // float4 columns per pass: 32 KB of shared memory
+static_assert(kSumCols >= kSumLanes && kSumThreads <= 1024, "a pass covers a group's lanes");
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__global__ void __launch_bounds__(kSumThreads, kSumBlocksPerSm)
+sum_partials_kernel(const float4* __restrict__ part, float4* __restrict__ out, int n_rows,
+                    int n_cols) {
+  __shared__ float4 red[kSumGroups][kSumCols];
+  const int groups = n_rows < kSumGroups ? n_rows : kSumGroups;
+  const int g = threadIdx.x / kSumLanes, lane = threadIdx.x % kSumLanes;
+  const int r0 = g * n_rows / groups, r1 = (g + 1) * n_rows / groups;
+  const int c0 = (int)((long long)blockIdx.x * n_cols / gridDim.x);
+  const int c1 = (int)((long long)(blockIdx.x + 1) * n_cols / gridDim.x);
+  for (int base = c0; base < c1; base += kSumCols) {
+    const int width = c1 - base < kSumCols ? c1 - base : kSumCols;
+    if (g < groups) {
+      for (int j = lane; j < width; j += kSumLanes) {
+        const float4* p = part + base + j;
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int r = r0; r < r1; r += kSumUnroll) {
+          float4 v[kSumUnroll];
+#pragma unroll
+          for (int u = 0; u < kSumUnroll; ++u)
+            if (r + u < r1) v[u] = __ldcs(p + (size_t)(r + u) * n_cols);
+#pragma unroll
+          for (int u = 0; u < kSumUnroll; ++u)
+            if (r + u < r1) s = add4(s, v[u]);
+        }
+        red[g][j] = s;
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < width; j += kSumThreads) {
+      float4 s = red[0][j];
+      for (int q = 1; q < groups; ++q) s = add4(s, red[q][j]);
+      out[base + j] = s;
+    }
+    __syncthreads();
+  }
 }
 
 Chain make_chain(const float* w0, const float* wm, const float* wl, const float* bs,
@@ -870,11 +934,25 @@ int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* w
   return (int)cudaGetLastError();
 }
 
+// The row split's group count; ops/sine_mlp.py mirrors it.
+int sum_partials_groups() { return kSumGroups; }
+
+// out = the column sum of partials (n_blocks, n_part), n_part % 4 == 0 and
+// both pointers 16-byte aligned.
 int sum_partials(const float* partials, float* out, int n_blocks, int n_part, void* stream) {
-  if (n_part <= 0) return 0;
-  const int threads = 256;
-  sum_partials_kernel<<<(n_part + threads - 1) / threads, threads, 0,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(partials, out, n_blocks, n_part);
+  if (n_part <= 0 || n_blocks <= 0) return 0;
+  if (n_part % 4 != 0 || reinterpret_cast<uintptr_t>(partials) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int n_cols = n_part / 4;
+  const int grid = n_cols < sms * kSumBlocksPerSm ? n_cols : sms * kSumBlocksPerSm;
+  sum_partials_kernel<<<grid, kSumThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(partials), reinterpret_cast<float4*>(out), n_blocks,
+      n_cols);
   return (int)cudaGetLastError();
 }
 

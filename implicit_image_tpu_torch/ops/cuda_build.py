@@ -37,6 +37,7 @@ _SIGNATURES = {
     # x, g, w0, wm, wl, bs, dx, z_scratch, partials, grid, n_part, n, in, out,
     # depth, omega0, omega_h, bf16, stream
     "sine_mlp_bwd": ([_P] * 9 + [_I] * 6 + [_F, _F, _I, _P], _I),
+    "sum_partials_groups": ([], _I),
     # partials, out, n_blocks, n_part, stream
     "sum_partials": ([_P, _P, _I, _I, _P], _I),
 }

@@ -19,6 +19,9 @@ Side by side in this module:
   * `siren_chain_reference` / `siren_chain_backward_reference` — the
     plain-torch versions of the same math (the backward recomputes the
     forward and mirrors the kernel step for step);
+  * `sum_partials_reference` — the partial sum in the kernel's order of
+    additions (row groups, then the groups in order), equal to the kernel
+    bit for bit on the card; only the tests and chip_smoke.py call it;
   * `SineMLPFunction` — the autograd.Function. A CUDA tensor runs the
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
     back from one to the other;
@@ -54,6 +57,9 @@ __all__ = [
     "partial_layout",
     "sine_mlp_fwd",
     "sine_mlp_bwd",
+    "SUM_PARTIALS_GROUPS",
+    "sum_partials_row_groups",
+    "sum_partials_reference",
     "sum_partials",
 ]
 
@@ -71,6 +77,10 @@ _PRECISION_OF = {
 
 # launches per kernel; only the launch sites below add to these
 LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sum_partials": 0}
+
+# kSumGroups of csrc/sine_mlp.cu (the library's sum_partials_groups()): the
+# row groups of the partial-sum kernel's fixed order
+SUM_PARTIALS_GROUPS = 2
 
 
 def reset_launch_counts() -> None:
@@ -312,17 +322,57 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     return dx, tuple(grads)
 
 
+def sum_partials_row_groups(n_blocks: int, groups: int):
+    """The kernel's row split: min(groups, n_blocks) contiguous (start, stop)
+    ranges, group g holding rows [g B / G, (g + 1) B / G)."""
+    g = min(groups, n_blocks)
+    return [(i * n_blocks // g, (i + 1) * n_blocks // g) for i in range(g)]
+
+
+def sum_partials_reference(partials: torch.Tensor, groups: int = SUM_PARTIALS_GROUPS):
+    """Plain-torch mirror of the partial-sum kernel's order: per row group,
+    0 plus its rows in index order (fp32 adds of whole rows), then the group
+    sums in group order. With the kernel's `groups` it equals the kernel bit
+    for bit; `partials.sum(0)` computes the same function in another order."""
+    sums = []
+    for r0, r1 in sum_partials_row_groups(partials.shape[0], groups):
+        s = torch.zeros_like(partials[0])
+        for r in range(r0, r1):
+            s = s + partials[r]
+        sums.append(s)
+    out = sums[0]
+    for s in sums[1:]:
+        out = out + s
+    return out
+
+
 def sum_partials(partials: torch.Tensor) -> torch.Tensor:
-    """Launch the partial-sum kernel: (blocks, P) on the card -> (P,), the
-    blocks added in index order. Plain version: partials.sum(0)."""
-    lib = _lib()
+    """Launch the partial-sum kernel: (blocks, P) fp32 on the card -> (P,).
+
+    P must be a multiple of 4 and the tensor contiguous and 16-byte aligned
+    (float4 loads); anything else, a CPU tensor included, raises ValueError
+    before the library is built. The rows are split into
+    min(SUM_PARTIALS_GROUPS, blocks) contiguous groups; each group is summed
+    from 0 in row order and the group sums are added in group order, which
+    `sum_partials_reference` mirrors bit for bit. No atomics: a call repeats
+    bit for bit."""
+    if partials.dim() != 2 or partials.shape[0] < 1 or partials.shape[1] % 4:
+        raise ValueError(
+            f"sum_partials: expected (blocks >= 1, P) with P a multiple of 4, got "
+            f"{tuple(partials.shape)}")
     dev = partials.device
     _check_cuda("partials", partials, dev)
+    lib = _lib()
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return sum_partials(partials)
+    # The kernel takes ~0.02 ms on the card, about what this call costs the
+    # host, so the path stays lean: no device context switch, the raw stream
+    # handle (tools/sum_partials_ab.py times each part).
     n_blocks, n_part = partials.shape
     out = torch.empty((n_part,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.sum_partials(partials.data_ptr(), out.data_ptr(), n_blocks, n_part,
-                               torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.sum_partials(partials.data_ptr(), out.data_ptr(), n_blocks, n_part,
+                           torch._C._cuda_getCurrentRawStream(dev.index))
     _raise_on(err, "sum_partials")
     LAUNCHES["sum_partials"] += 1
     return out

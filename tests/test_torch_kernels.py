@@ -89,6 +89,38 @@ def test_kernel_backward_repeats_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(132, 99_844), (1, 8), (7, 1_000), (133, 4_096),
+                                   (1, 99_844), (2, 99_844), (264, 40_000)])
+def test_sum_partials_equals_its_mirror_bit_for_bit(cuda_device, shape):
+    """The partial-sum kernel adds in the order of sum_partials_reference
+    with the library's group count: the same bits, twice; and it computes
+    the function of partials.sum(0) to 1e-6 relative."""
+    assert sm._lib().sum_partials_groups() == sm.SUM_PARTIALS_GROUPS
+    partials = torch.randn(shape, generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    before = sm.LAUNCHES["sum_partials"]
+    first, second = sm.sum_partials(partials), sm.sum_partials(partials)
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["sum_partials"] == before + 2
+    assert torch.equal(first, sm.sum_partials_reference(partials))
+    assert torch.equal(first, second)
+    library = partials.sum(0)
+    assert float((first - library).abs().max()) <= 1e-6 * float(library.abs().max())
+
+
+@pytest.mark.cuda
+def test_sum_partials_rejects_what_float4_loads_cannot_take(cuda_device):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        sm.sum_partials(torch.zeros((8, 1_002), device=cuda_device))
+    flat = torch.zeros(8 * 1_000 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        sm.sum_partials(flat[1:].view(8, 1_000))  # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        sm.sum_partials(torch.zeros((1_000, 8), device=cuda_device).t())
+    with pytest.raises(ValueError, match="float32"):
+        sm.sum_partials(torch.zeros((8, 1_000), dtype=torch.float64, device=cuda_device))
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_unsupported_width(cuda_device):
     m, c = build_model("siren", depth=3, hidden_size=256)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
