@@ -12,7 +12,10 @@ Phases, each printing its own line:
      the tolerances below, and the time of each (CUDA events) beside its
      FLOPs and bound; as controls, the other mode's kernel must fail each
      mode's tolerances, and so must the plain chain run with 1-pass TF32
-     products (torch.backends.cuda.matmul.allow_tf32) the fp32 ones;
+     products (torch.backends.cuda.matmul.allow_tf32) the fp32 ones. The
+     same at width 182 (the finals width, run on the kernels of width 192),
+     256 and 512; bounds count the model's width (the work the function
+     needs), the padded bound the kernel width (the work the kernel does);
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -42,10 +45,24 @@ Phases, each printing its own line:
      be the size compress.main returned, and the decoded PSNR finite and
      >= 20 dB. CoordX's products are torch.matmul in fp32 (no Pallas kernel
      lies on this path in the JAX package), so the SIREN kernels must
-     launch 0 times in this phase.
+     launch 0 times in this phase;
+  9. the reference's finals operating point for its harder images
+     (scripts/finals.sh: img=big_building, SIREN d8/w182, quant.bits=9,
+     entropy_coding=zstd, train.multiplier=5, RigL 0.5; 40 x 5 fit + 20
+     finetune steps, cut from 2000 x 5 + 100) through compress.main and
+     decompress.decode_run: every kernel launched, each layer's RigL weight
+     count conserved, the zstd container re-encodes from what it decodes to
+     the same bytes, its labels are 9-bit, every quantized weight decodes to
+     one of its layer's centroids and every pruned one to 0, decoded PSNR
+     finite and >= 20 dB;
+ 10. the repo's other wide SIREN runs, 20 fit steps each through
+     compress.main (dense, no quantization or container): the d8/w256
+     member of scripts/width_depth.sh and the tracked w512 row of
+     scripts/tracked_r5.sh (lr 1e-4): every kernel launched, fit PSNR
+     finite.
 
-Each of phases 4-6 and 8 sets the launch counts to 0 just before its run
-and reads them just after. In phase 3, sum_partials must equal its plain
+Each of phases 4-6 and 8-10 sets the launch counts to 0 just before its
+run and reads them just after. In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
@@ -54,7 +71,9 @@ launches each), replayed from CUDA graphs (device time: the kernels line
 reports these medians) and launched from Python (host included), and
 every round is printed beside the medians and their share of the bound.
 
-Then one JSON line describing the kernels, and as the last line
+Then one JSON line describing the kernels (each kernel once per width of
+phase 3, with the launches of the phase that runs that width: 4, 9 and 10),
+and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
 exit code is non-zero and no result line is printed. Without a CUDA device
 the script exits non-zero before doing anything.
@@ -91,6 +110,7 @@ TF32_FLOP_PER_S = 495e12  # tensor cores; the fp32 mode takes 3 passes
 FP32_FLOP_PER_S = 67e12   # FMA outside the tensor cores
 
 N_SIDE, DEPTH, WIDTH = 512, 8, 128
+KERNEL_WIDTHS_CHECKED = (WIDTH, 182, 256, 512)  # phase 3; 182 runs on the kernels of width 192
 SMOKE_OVERRIDES = [
     "masking=none", "train.num_steps=200", "train.log_steps=100",
     "quant.num_steps=20", "entropy_coding=plain", "output_dir=outputs/chip_smoke",
@@ -112,6 +132,23 @@ FLAGSHIP_OVERRIDES = [
     "output_dir=outputs/chip_smoke_flagship",
 ]
 FLAGSHIP_ARTIFACT = "coordx_s5w96_512_tf32.npz"
+# the reference's finals for big_building and bridge (scripts/finals.sh), one
+# density, cut from 2000 x 5 + 100 steps
+FINALS_WIDTH, FINALS_BITS = 182, 9
+FINALS_OVERRIDES = [
+    "img=big_building", f"mlp.hidden_size={FINALS_WIDTH}", f"quant.bits={FINALS_BITS}",
+    "entropy_coding=zstd", "train.multiplier=5", "masking=RigL", "masking.density=0.5",
+    "train.num_steps=40", "train.log_steps=100", "quant.num_steps=20",
+    "output_dir=outputs/chip_smoke_finals",
+]
+# phase 10, cut from 2000 steps: the d8/w256 member of the width/depth study
+# (scripts/width_depth.sh) and the tracked w512 row (scripts/tracked_r5.sh)
+WIDE_OVERRIDES = {
+    256: ["mlp.hidden_size=256"],
+    512: ["mlp.hidden_size=512", "optim.lr=1e-4"],
+}
+WIDE_COMMON = ["img=synthetic", "masking=none", "quant=none", "entropy_coding=none",
+               "train.num_steps=20", "train.log_steps=10"]
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -190,13 +227,19 @@ def phase_build() -> float:
     return seconds
 
 
+def _grad_floats(in_size: int, hidden: int, out_size: int, depth: int) -> int:
+    """Floats in one gradient of a SIREN: dW0, dWm, dWl, dbs, dbl."""
+    return (in_size * hidden + (depth - 2) * hidden * hidden + hidden * out_size
+            + (depth - 1) * hidden + out_size)
+
+
 def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks: int,
             n_part: int) -> dict:
     """FLOPs, bytes and least times of each kernel at these shapes, counted
     from csrc/sine_mlp.cu: the hidden products (tensor cores, 3 TF32 passes
     in the fp32 mode) apart from the first layer (K = in), the last
     (N = out) and dx (FMA). Bytes: each input read once, each output
-    written once."""
+    written once; n_part floats of partial gradient per block."""
     hidden_mm = 2 * n * hidden * hidden * (depth - 2)  # one product over all hidden layers
     weights = 4 * (in_size * hidden + (depth - 2) * hidden * hidden + hidden * out_size
                    + (depth - 1) * hidden + out_size)
@@ -239,9 +282,10 @@ def _errors(kernel, plain):
     return float((out_k - out_p).abs().max()), rel, bwd_abs
 
 
-def phase_kernels() -> dict:
-    """Kernel vs plain at the main path's shapes in both precision modes;
-    returns per-kernel records for the fp32 mode (the main path's).
+def phase_kernels(width: int = WIDTH) -> dict:
+    """Kernel vs plain at the main path's shapes (at hidden width `width`)
+    in both precision modes; returns per-kernel records for the fp32 mode
+    (the main path's).
 
     Each mode also reads a control: the other mode's kernel held to this
     mode's plain chain. The control must fail this mode's limits, so a
@@ -254,7 +298,8 @@ def phase_kernels() -> dict:
     from implicit_image_tpu_torch.ops import sine_mlp as sm
 
     dev = torch.device("cuda")
-    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=WIDTH)
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+    kernel_width = sm.kernel_width(width)
     gen = torch.Generator().manual_seed(0)
     params = mdef.init(gen, mcfg, dev)
     x = (get_grid(N_SIDE, N_SIDE, dev).reshape(-1, 2) - 0.5) * 2.0
@@ -287,10 +332,13 @@ def phase_kernels() -> dict:
         # the partial-gradient buffer the main path's backward hands sum_partials:
         # the kernel against its mirror (same order, bit for bit), against
         # itself, and against the library call (another order, SUM_TOL)
-        blocks, n_part, _ = sm.partial_layout(
-            x.shape[0], DEPTH, params[0]["w"].shape[0], params[-1]["w"].shape[1], dev)
-        bounds = _bounds(x.shape[0], params[0]["w"].shape[0], params[-1]["w"].shape[1],
-                         DEPTH, WIDTH, blocks, n_part)
+        in_size, out_size = params[0]["w"].shape[0], params[-1]["w"].shape[1]
+        blocks, n_part, _ = sm.partial_layout(x.shape[0], DEPTH, in_size, width, out_size, dev)
+        # the bound counts the model's width (the work the function needs);
+        # the padded bound the kernel width it runs at (the work it does)
+        bounds = _bounds(x.shape[0], in_size, out_size, DEPTH, width, blocks,
+                         _grad_floats(in_size, width, out_size, DEPTH))
+        padded = _bounds(x.shape[0], in_size, out_size, DEPTH, kernel_width, blocks, n_part)
         partials = torch.randn((blocks, n_part), generator=gen).to(dev)
         sum_k, sum_again = sm.sum_partials(partials), sm.sum_partials(partials)
         sum_m = sm.sum_partials_reference(partials)
@@ -301,6 +349,7 @@ def phase_kernels() -> dict:
         sum_same = torch.equal(sum_k, sum_m) and torch.equal(sum_k, sum_again)
         sum_rel = float((sum_k - sum_p).abs().max()) / float(sum_p.abs().max())
 
+        tag = f"w{width} (kernel width {kernel_width}) {prec}"
         fwd_ms = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, prec))
         fwd_plain_ms = _time_ms(lambda: sm.siren_chain_reference(params, x, mcfg, prec))
         step_ms = _time_ms(lambda: (sm.sine_mlp_fwd(params, x, mcfg, prec),
@@ -318,7 +367,7 @@ def phase_kernels() -> dict:
         sum_ms, lib_ms = statistics.median(sum_rounds), statistics.median(lib_rounds)
         sum_bound = bounds["sum_partials"]["bound_ms"]
         print(
-            f"[3 kernels {prec}] fwd max_abs_err {fwd_err:.3e} (tol {FWD_TOL[prec]:g}); "
+            f"[3 kernels {tag}] fwd max_abs_err {fwd_err:.3e} (tol {FWD_TOL[prec]:g}); "
             f"bwd max rel err {rel[worst]:.3e} at {worst} (tol {BWD_TOL[prec]:g}), "
             f"max abs err {bwd_abs:.3e}; sum_partials ({blocks} x {n_part}, {groups} row "
             f"groups) vs its mirror max abs err {sum_mirror_err:.3e}, "
@@ -331,23 +380,23 @@ def phase_kernels() -> dict:
                                           ("from Python (host included)", eager)):
             k_ms, l_ms = statistics.median(k_rounds), statistics.median(l_rounds)
             print(
-                f"[3 kernels {prec}] sum_partials in turns with partials.sum(0), 5 rounds x 20 "
+                f"[3 kernels {tag}] sum_partials in turns with partials.sum(0), 5 rounds x 20 "
                 f"launches {how}, ms: kernel {' '.join(f'{t:.4f}' for t in k_rounds)} (median "
                 f"{k_ms:.4f} = {sum_bound / k_ms:.1%} of the {sum_bound:.4f} ms bound); library "
                 f"{' '.join(f'{t:.4f}' for t in l_rounds)} (median {l_ms:.4f} = "
                 f"{sum_bound / l_ms:.1%})",
                 flush=True,
             )
-        print(f"[3 kernels {prec}] sum_partials_reference (the mirror): {sum_plain_ms:.4f} ms",
+        print(f"[3 kernels {tag}] sum_partials_reference (the mirror): {sum_plain_ms:.4f} ms",
               flush=True)
         print(
-            f"[3 kernels {prec}] control, the {other} kernel vs the {prec} plain chain: "
+            f"[3 kernels {tag}] control, the {other} kernel vs the {prec} plain chain: "
             f"fwd max_abs_err {ctl_fwd:.3e}; bwd max rel err {ctl_rel[ctl_worst]:.3e} "
             f"at {ctl_worst}",
             flush=True,
         )
         print(
-            f"[3 kernels {prec}] ms per forward: kernel {fwd_ms:.3f}, plain "
+            f"[3 kernels {tag}] ms per forward: kernel {fwd_ms:.3f}, plain "
             f"{fwd_plain_ms:.3f}; ms per forward+backward: kernel {step_ms:.3f}, "
             f"plain {step_plain_ms:.3f}; backward alone: kernel {bwd_ms:.3f}, plain "
             f"{bwd_plain_ms:.3f}",
@@ -379,7 +428,7 @@ def phase_kernels() -> dict:
             tf32_fwd, tf32_rel, _ = _errors(tf32, plain)
             tf32_worst = max(tf32_rel, key=tf32_rel.get)
             print(
-                f"[3 kernels {prec}] control, the plain chain with 1-pass TF32 products: "
+                f"[3 kernels {tag}] control, the plain chain with 1-pass TF32 products: "
                 f"fwd max_abs_err {tf32_fwd:.3e}; bwd max rel err {tf32_rel[tf32_worst]:.3e} "
                 f"at {tf32_worst}",
                 flush=True,
@@ -394,15 +443,18 @@ def phase_kernels() -> dict:
                 "sum_partials": (sum_mirror_err, sum_ms, sum_plain_ms, lib_ms),
             }
             for name, (_, ms, _, _) in records.items():
-                b = bounds[name]
+                b, pb = bounds[name], padded[name]
                 print(
-                    f"[3 kernels {prec}] {name}: {b['flop'] / 1e9:.3f} GFLOP, "
-                    f"{b['bytes'] / 1e6:.3f} MB; bound {b['bound_ms']:.4f} ms "
+                    f"[3 kernels {tag}] {name}: {b['flop'] / 1e9:.3f} GFLOP, "
+                    f"{b['bytes'] / 1e6:.3f} MB at width {width}; bound {b['bound_ms']:.4f} ms "
                     f"({b['bound_by']}; FFMA-only bound {b['ffma_bound_ms']:.4f} ms); "
-                    f"kernel {ms:.4f} ms = {b['bound_ms'] / ms:.1%} of bound",
+                    f"kernel {ms:.4f} ms = {b['bound_ms'] / ms:.1%} of bound; at the kernel "
+                    f"width {kernel_width}: {pb['flop'] / 1e9:.3f} GFLOP, bound "
+                    f"{pb['bound_ms']:.4f} ms (FFMA-only {pb['ffma_bound_ms']:.4f})",
                     flush=True,
                 )
-            records = {name: (*rec, bounds[name]) for name, rec in records.items()}
+            records = {name: (*rec, bounds[name], padded[name]["bound_ms"])
+                       for name, rec in records.items()}
     return records
 
 
@@ -738,6 +790,131 @@ def phase_flagship() -> None:
         raise AssertionError(f"decode_run gives {redecoded} dB, compress reported {psnr}")
 
 
+def _initial_counts(cfg, masking) -> dict:
+    """Each masked layer's weight count at init, the masks drawn as the fit
+    draws them: init weights, then masks, from one CPU generator seeded with
+    cfg.seed."""
+    import torch
+
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.sparsity import create_mask_state
+
+    gen = torch.Generator().manual_seed(int(cfg.seed))
+    mdef, mcfg = build_model_from_config(cfg)
+    init = create_mask_state(gen, mdef.init(gen, mcfg, "cpu"), masking)
+    return {i: int(m.sum()) for i, m in enumerate(init.masks) if m is not None}
+
+
+def phase_finals() -> dict:
+    """Phase 9: the finals operating point through compress.main and
+    decode_run; returns its launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.coding import (compress_state_dict, decompress_state_dict,
+                                                 read_raw_container)
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    cfg = compress.compose(FINALS_OVERRIDES)
+    masking = compress.masking_config(cfg)
+    if (int(cfg.mlp.depth), int(cfg.mlp.hidden_size), int(cfg.quant.bits),
+            cfg.entropy_coding.stream_name, int(cfg.train.multiplier)) != (
+                DEPTH, FINALS_WIDTH, FINALS_BITS, "zstd", 5):
+        raise AssertionError("the finals run must be SIREN d8/w182, 9-bit, zstd, 5x steps")
+    if masking is None or masking.name != "RigL" or masking.interval != 5 * 20:
+        raise AssertionError(f"the finals masking is {masking}, not RigL at 5x its interval")
+    init_counts = _initial_counts(cfg, masking)
+    run_dir = cfg.output_dir
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    psnr, nbytes = compress.main(cfg, run_dir=run_dir)
+    t1 = time.perf_counter()
+    img, stats = decompress.decode_run(run_dir, device="cuda")
+    t2 = time.perf_counter()
+    launches = dict(sm.LAUNCHES)
+
+    summary = json.loads(open(f"{run_dir}/summary.json").read())
+    num_steps = int(cfg.train.num_steps) * int(cfg.train.multiplier)
+    masks = np.load(f"{run_dir}/mask.npz")
+    final_counts = {int(k.split(".")[1]): int(masks[k].sum()) for k in masks.files}
+    container = Path(run_dir) / "model_quantized"
+    blob = (container / "compressed_weights.data").read_bytes()
+    raw = read_raw_container(container, "zstd")
+    decoded = decompress_state_dict(container, "zstd")
+    with tempfile.TemporaryDirectory() as tmp:
+        compress_state_dict(raw, tmp, "zstd")
+        same_bytes = (Path(tmp) / "compressed_weights.data").read_bytes() == blob
+    labeled = sorted(k for k in raw if k.endswith(".labeled_weight"))
+    print(
+        f"[9 finals] compress.main {t1 - t0:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
+        f"{summary['fit_wall_s'] / num_steps * 1e3:.3f} ms/step over {num_steps} steps, quant "
+        f"{summary['quant_wall_s']:.3f} s, encode {summary['encode_wall_s']:.3f} s, "
+        f"decode+render {summary['decode_wall_s']:.3f} s); decode_run {t2 - t1:.3f} s "
+        f"(render {stats['render_s'] * 1e3:.2f} ms); launches {launches}",
+        flush=True,
+    )
+    print(
+        f"[9 finals] layer counts init {init_counts}, final {final_counts}; {len(labeled)} "
+        f"labeled layers ({', '.join(str(raw[k].dtype) for k in labeled)}, at most "
+        f"{max(int(raw[k].max()) for k in labeled) + 1} labels); container re-encodes to "
+        f"{'the same bytes' if same_bytes else 'OTHER BYTES'}; fit PSNR {summary['PSNR']:.3f} "
+        f"dB, quant PSNR {summary['Quant PSNR']:.3f} dB, decoded PSNR {psnr:.3f} dB, MS-SSIM "
+        f"{summary['Decoded MS-SSIM']:.6f}, bytes {nbytes}",
+        flush=True,
+    )
+    _check_launches(launches, "finals path")
+    if final_counts != init_counts:
+        raise AssertionError(f"RigL changed a layer's weight count: {init_counts} -> "
+                             f"{final_counts}")
+    if not same_bytes or len(blob) != nbytes:
+        raise AssertionError("the zstd container does not hold what compress.main wrote")
+    if len(labeled) != DEPTH - 2 or any(int(raw[k].max()) >= 2**FINALS_BITS for k in labeled):
+        raise AssertionError(f"expected {DEPTH - 2} layers of {FINALS_BITS}-bit labels")
+    for k in labeled:
+        i = k.split(".")[1]
+        weight = decoded[f"layers.{i}.weight"]
+        if not np.all(np.isin(weight, raw[f"layers.{i}.centroids"].astype(np.float32))):
+            raise AssertionError(f"layer {i}: a decoded weight is not a centroid")
+        if np.any(weight[masks[f"layers.{i}.mask"] == 0] != 0.0):
+            raise AssertionError(f"layer {i}: a pruned weight decodes to nonzero")
+    if not (math.isfinite(psnr) and psnr >= 20.0):
+        raise AssertionError(f"decoded PSNR {psnr} is not finite or below 20 dB")
+    img = np.asarray(img)
+    target = compress._load_image(cfg.img)
+    redecoded = 10.0 * np.log10(1.0 / np.mean((img.astype(np.float64) - target) ** 2))
+    if img.shape != (N_SIDE, N_SIDE, 3) or abs(redecoded - psnr) > 1e-3:
+        raise AssertionError(f"decode_run gives {img.shape}, {redecoded} dB; compress "
+                             f"reported {psnr}")
+    return launches
+
+
+def phase_wide(width: int) -> dict:
+    """Phase 10: a wide SIREN run of the repo's scripts, cut to 20 fit
+    steps; returns its launch counts."""
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    cfg = compress.compose(WIDE_COMMON + WIDE_OVERRIDES[width]
+                           + [f"output_dir=outputs/chip_smoke_w{width}"])
+    if (int(cfg.mlp.depth), int(cfg.mlp.hidden_size)) != (DEPTH, width):
+        raise AssertionError(f"the w{width} run must be SIREN d8/w{width}")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    sm.reset_launch_counts()
+    psnr, _ = compress.main(cfg, run_dir=cfg.output_dir)
+    launches = dict(sm.LAUNCHES)
+    summary = json.loads(open(f"{cfg.output_dir}/summary.json").read())
+    print(f"[10 w{width}] lr {cfg.optim.lr}; fit {summary['fit_wall_s']:.3f} s "
+          f"({summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step); fit PSNR "
+          f"{psnr:.3f} dB; launches {launches}", flush=True)
+    _check_launches(launches, f"w{width} path")
+    if not math.isfinite(psnr):
+        raise AssertionError(f"w{width}: fit PSNR {psnr} is not finite")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -750,29 +927,38 @@ def main() -> int:
 
     card = phase_card()
     phase_build()
-    records = phase_kernels()
+    records = {width: phase_kernels(width) for width in KERNEL_WIDTHS_CHECKED}
     launches, dense_summary = phase_main_path()
     default_dir = phase_default_path(dense_summary)
     phase_presets()
     phase_repeat(default_dir)
     phase_flagship()
+    # the launches of each width on the path that runs it
+    path_launches = {WIDTH: launches, FINALS_WIDTH: phase_finals(),
+                     **{width: phase_wide(width) for width in WIDE_OVERRIDES}}
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sum_partials": 179}
+    from implicit_image_tpu_torch.ops.sine_mlp import kernel_width
+
     kernels = [
         {
             "name": name,
+            "hidden": width,
+            "kernel_width": kernel_width(width),
             "route": "cuda",
             "source": "implicit_image_tpu_torch/csrc/sine_mlp.cu",
             "replaces": f"implicit_image_tpu/ops/sine_mlp.py:{sources[name]}",
-            "launches": launches[name],
+            "launches": path_launches[width][name],
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"],
+            "padded_bound_ms": padded_bound_ms,
             "library_ms": library_ms,
         }
-        for name, (err, ms, plain_ms, library_ms, bound) in records.items()
+        for width, by_name in records.items()
+        for name, (err, ms, plain_ms, library_ms, bound, padded_bound_ms) in by_name.items()
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

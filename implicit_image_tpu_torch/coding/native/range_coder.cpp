@@ -17,7 +17,8 @@
 // 0xFF run for carry propagation); the decoder mirrors it with a 32-bit
 // code register. implicit_image_tpu_torch/coding/range_coder.py holds
 // the bit-identical pure-Python reference. A copy of
-// implicit_image_tpu/coding/native/range_coder.cpp.
+// implicit_image_tpu/coding/native/range_coder.cpp, except that this
+// decoder rejects a body it does not read exactly to its end.
 //
 // Build: g++ -O3 -shared -fPIC range_coder.cpp -o libiirange.so
 // (coding/native_loader.py builds it into build/native/ at first use)
@@ -93,8 +94,17 @@ struct Decoder {
   uint64_t pos;
   uint32_t range = 0xFFFFFFFFu;
   uint32_t code = 0;
+  uint64_t past_end = 0;  // reads beyond the body, each taken as a 0 byte
 
-  uint8_t get() { return pos < n ? in[pos++] : 0; }
+  uint8_t get() {
+    if (pos < n) return in[pos++];
+    ++past_end;
+    return 0;
+  }
+
+  // An intact stream is read exactly to its end: the encoder's flush emits
+  // one byte for each of the decoder's reads.
+  bool read_exactly() const { return past_end == 0 && pos == n; }
 
   void init() {
     for (int i = 0; i < 5; ++i) code = (code << 8) | get();
@@ -157,7 +167,9 @@ uint64_t iirange_encode(const uint8_t* in, uint64_t n, uint8_t* out,
   return header + enc.pos;
 }
 
-// Returns raw size decoded, or 0 on error. Call with out=null to query size.
+// Returns raw size decoded, or 0 on error: a bad header, or a body that the
+// decoder did not read exactly to its end (cut short or with bytes
+// appended). Call with out=null to query size.
 uint64_t iirange_decode(const uint8_t* in, uint64_t n, uint8_t* out,
                         uint64_t out_cap) {
   if (n < 12) return 0;
@@ -181,7 +193,7 @@ uint64_t iirange_decode(const uint8_t* in, uint64_t n, uint8_t* out,
     out[i] = b;
     ctx = b;
   }
-  return raw;
+  return dec.read_exactly() ? raw : 0;
 }
 
 }  // extern "C"

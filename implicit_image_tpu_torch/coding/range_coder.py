@@ -6,7 +6,10 @@ previous byte as context, probabilities adapting online (LZMA-style 12-bit
 probs, shift-5 update). The codec is the native C++ one
 (native/range_coder.cpp, built at first use by coding/native_loader.py,
 which raises when it cannot); the pure-Python version below emits the
-bit-identical container and is reached only with `native=False`:
+bit-identical container and is reached only with `native=False`. Both
+decoders count the body bytes they read and raise ValueError unless that is
+the body's length: a stream cut short, or one with bytes appended, does not
+decode (the JAX package's decoders read zeros past the end instead):
 
   u32 magic 'IIRC' | u64 raw_size | carryless-range-coder bytes
 """
@@ -97,7 +100,7 @@ def _py_decode(blob: bytes) -> bytes:
     rng = _MASK32
     code = 0
 
-    def get():
+    def get():  # pos counts every read, those past the end (taken as 0) too
         nonlocal pos
         b = data[pos] if pos < len(data) else 0
         pos += 1
@@ -135,7 +138,15 @@ def _py_decode(blob: bytes) -> bytes:
         b = node & 0xFF
         out.append(b)
         ctx = b
+    if pos != len(data):
+        raise ValueError(_misread(len(data), pos))
     return bytes(out)
+
+
+def _misread(body: int, read: int = None) -> str:
+    said = "" if read is None else f", the decoder read {read}"
+    return (f"corrupt range-coder stream: the body is {body} bytes{said}; an intact "
+            f"stream is read exactly to its end (cut short or bytes appended?)")
 
 
 def _validate_header(blob: bytes) -> int:
@@ -183,6 +194,6 @@ def range_decode(blob: bytes, expected_size: Optional[int] = None,
     lib = load_native()
     out = ctypes.create_string_buffer(raw)
     got = lib.iirange_decode(blob, len(blob), out, raw)
-    if got != raw:
-        raise ValueError(f"corrupt range-coder stream: decoded {got} of {raw} bytes")
+    if got != raw:  # the header was checked above: the body was misread
+        raise ValueError(_misread(len(blob) - 12))
     return out.raw[:raw]

@@ -65,6 +65,11 @@
 //    and stay on FMA, spread over all threads: dot products split across
 //    the lanes of a warp and reduced by shuffles.
 //
+// Widths: the design above is the width-128 kernels' (every model of width
+// <= 128 runs on them, zero-padded). Widths 129-512 run on the wider kernels
+// of width 192, 256 and 512, which stream each W in slices of its rows
+// (section "the wider kernels" below).
+//
 // Backward: blocks run in parallel with no carry between them, so a fixed
 // grid of one block per SM loops over its share of tiles, adding into its
 // own slice of a partial-gradient buffer; sum_partials adds the slices in a
@@ -79,6 +84,12 @@
 // ops/sine_mlp.py adds in the same order). The design is at the kernel.
 //
 // Every launcher returns the cudaError_t of its launch (0 on success).
+//
+// The library is this file compiled in parts, all at once, and linked
+// (ops/cuda_build.py): with -DSINE_MLP_WIDE=W (a width of SINE_MLP_WIDE_GEOS) and
+// -DSINE_MLP_BWD=0 or 1, the forward or backward kernels of width W and
+// their C launcher; without, the width-128 kernels, sum_partials and the C
+// interface, which calls those launchers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,9 +108,41 @@ constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
 constexpr int MAX_IO = 8;       // largest input / output width
 static_assert(T == H, "one buffer size serves activations and weights");
 
+// The geometry of a kernel width: HW hidden units, TR pixel rows per tile,
+// KSL rows of W per ring slice. The warps cover a TR x HW tile in 32 x 64
+// pieces, so every thread holds 2 x 8 mma tiles at every width.
+template <int HW, int TR, int KSL>
+struct Geo {
+  static constexpr int H = HW, T = TR, KS = KSL;
+  static constexpr int CG = H / 64;              // warps across a tile's columns
+  static constexpr int WARPS = (T / 32) * CG;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BUF = T * H;              // floats in an activation tile
+  static constexpr int SLICE = KS * H;           // floats in a ring slice
+  static constexpr int NS = H / KS;              // slices per W
+  static_assert(H % 64 == 0 && T % 32 == 0 && H % KS == 0 && KS % 16 == 0,
+                "tiles of whole warps and k-steps");
+};
+using G128 = Geo<H, T, H>;  // the width-128 kernels: a ring slice is a whole W
+static_assert(G128::THREADS == THREADS && G128::BUF == BUF && G128::SLICE == BUF, "");
+// Wider kernels (below): T H = 16,384 floats as at 128, W in slices of 24-32 KB.
+// X(width, tile rows, ring slice rows) for each: the one list of the wider
+// widths (ops/sine_mlp.KERNEL_TILE_ROWS mirrors width and tile rows).
+#define SINE_MLP_WIDE_GEOS(X) X(192, 64, 32) X(256, 64, 32) X(512, 32, 16)
+template <int W>
+struct WideGeo;  // the geometry of each listed width; no other width has one
+#define SINE_MLP_GEO(W, TR, KS) \
+  template <>                   \
+  struct WideGeo<W> {           \
+    using type = Geo<W, TR, KS>; \
+  };
+SINE_MLP_WIDE_GEOS(SINE_MLP_GEO)
+#undef SINE_MLP_GEO
+
 struct Chain {
   const float* w0;   // (in, H)
   const float* wm;   // (D-2, H, H)
+  const float* wmt;  // (D-2, H, H), each W transposed (wider kernels' backward)
   const float* wl;   // (H, out)
   const float* bs;   // (D-1, H)
   const float* bl;   // (out,)
@@ -150,8 +193,11 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 // {0-3}, {4-7}, {0,2,4,6} and {1,3,5,7}: so a warp's fragment loads (rows
 // from the lane's group g and column pairs from its index t, or rows
 // from t and columns from g, see load_frag) hit 32 different banks.
+// Row strides S other than H (the wider kernels) are multiples of 32
+// floats, so every row starts on bank 0 and the pattern holds.
 __device__ __forceinline__ int swz(int r) { return ((r & 2) << 3) | (((r ^ (r >> 2)) & 1) << 3); }
-__device__ __forceinline__ int sw(int r, int c) { return r * H + (c ^ swz(r)); }
+template <int S = H>
+__device__ __forceinline__ int sw(int r, int c) { return r * S + (c ^ swz(r)); }
 
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -180,26 +226,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// The two weight buffers and their mbarriers. Every thread runs the same
-// issue / wait sequence, so the phase and pending bits stay uniform.
-struct Ring {
-  float* base;  // buffer b at base + b * BUF
+// The weight buffers and their mbarriers (two at width 128, each a whole
+// W; up to four slices of G::KS rows of W in the wider kernels). Every
+// thread runs the same issue / wait sequence, so the phase and pending bits
+// stay uniform.
+template <class G>
+struct RingT {
+  float* base;  // buffer b at base + b * G::SLICE
   uint64_t* bar;
   uint32_t phase = 0, pending = 0;
 
-  __device__ __forceinline__ float* buf(int b) const { return base + b * BUF; }
+  __device__ __forceinline__ float* buf(int b) const { return base + b * G::SLICE; }
 
-  // Copy W (H x H fp32, device memory) into buffer b in the sw() layout:
-  // every thread copies 16 of its 16-byte chunks with cp.async, then the
-  // mbarrier counts the thread's arrival when they have landed. Call
-  // after a barrier, so the block is done with the buffer.
+  // Copy G::KS rows of W (of G::H fp32 each, device memory) into buffer b
+  // in the sw() layout: every thread copies its 16-byte chunks with
+  // cp.async, then the mbarrier counts the thread's arrival when they have
+  // landed. Call after a barrier, so the block is done with the buffer.
   __device__ __forceinline__ void issue(int b, const float* __restrict__ w) {
     float* dst = buf(b);
 #pragma unroll 4
-    for (int e = threadIdx.x; e < H * H / 4; e += THREADS) {
-      const int r = e / (H / 4), c = 4 * (e % (H / 4));
+    for (int e = threadIdx.x; e < G::SLICE / 4; e += G::THREADS) {
+      const int r = e / (G::H / 4), c = 4 * (e % (G::H / 4));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                   ::"r"(smem_addr(dst + sw(r, c))), "l"(w + r * H + c) : "memory");
+                   ::"r"(smem_addr(dst + sw<G::H>(r, c))), "l"(w + r * G::H + c) : "memory");
     }
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
                  ::"r"(smem_addr(bar + b)) : "memory");
@@ -216,13 +265,16 @@ struct Ring {
   }
 };
 
+using Ring = RingT<G128>;
+
 // Copy a stashed z tile (T x H, already in the sw() layout) into shared
 // memory with cp.async; the mbarrier counts each thread's arrival when its
 // copies (and any earlier ones) have landed.
+template <class G = G128>
 __device__ __forceinline__ void copy_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           uint64_t* bar) {
 #pragma unroll 4
-  for (int e = threadIdx.x; e < T * H / 4; e += THREADS)
+  for (int e = threadIdx.x; e < G::BUF / 4; e += G::THREADS)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  ::"r"(smem_addr(dst + 4 * e)), "l"(src + 4 * e) : "memory");
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
@@ -231,15 +283,16 @@ __device__ __forceinline__ void copy_tile(float* __restrict__ dst, const float* 
 
 // ------------------------------------------------------- the layer block
 //
-// A warp's share of a 128 x 128 product: rows m0..m0+31, columns
+// A warp's share of a 128 x 128 product (a T x H one in the wider kernels,
+// with cg = H / 64 warps across its columns): rows m0..m0+31, columns
 // n0..n0+63, as 2 x 8 m16n8 tiles. acc[mi][ni][q] is the element at
 //   row m0 + 16 mi + g + 8 (q >> 1),  column n0 + 8 ni + 2 t + (q & 1)
 // with g = lane / 4 and t = lane % 4 (the mma's accumulator layout).
 
 struct Warp {
   int m0, n0, lane, g, t;
-  __device__ __forceinline__ explicit Warp(int tid)
-      : m0(32 * ((tid >> 5) >> 1)), n0(64 * ((tid >> 5) & 1)), lane(tid & 31),
+  __device__ __forceinline__ explicit Warp(int tid, int cg = 2)
+      : m0(32 * ((tid >> 5) / cg)), n0(64 * ((tid >> 5) % cg)), lane(tid & 31),
         g((tid & 31) >> 2), t(tid & 3) {}
   __device__ __forceinline__ int row(int mi, int q) const { return m0 + 16 * mi + g + 8 * (q >> 1); }
   __device__ __forceinline__ int col(int ni) const { return n0 + 8 * ni + 2 * t; }
@@ -270,20 +323,23 @@ struct Frag {
 // pointer plus a compile-time offset. sw() flips column bits 3-4 by a
 // function of the row's low 3 bits, which is fixed per lane in both
 // patterns, so 4 (or 2 x 4) pointers cover the four values of bits 3-4.
+// S is the matrix's row stride (H, or the wider kernels' width).
 //   Rows(M, r0): element pair (r0 + g + rr, k0 + 2t), r0, rr, k0 multiples
-//     of 8: p[(k0 >> 3) & 3] + rr * H + (k0 & ~24).
+//     of 8: p[(k0 >> 3) & 3] + rr * S + (k0 & ~24).
 //   Cols(M, c0): element (k0 + 2t + q, c0 + cc + g), c0 a multiple of 32,
-//     cc and k0 of 8: p[q][(cc >> 3) & 3] + k0 * H + (cc & ~24).
+//     cc and k0 of 8: p[q][(cc >> 3) & 3] + k0 * S + (cc & ~24).
+template <int S = H>
 struct Rows {
   const float* p[4];
   __device__ __forceinline__ Rows(const float* m, int r0, const Warp& w) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) p[j] = m + (r0 + w.g) * H + 2 * w.t + ((8 * j) ^ swz(w.g));
+    for (int j = 0; j < 4; ++j) p[j] = m + (r0 + w.g) * S + 2 * w.t + ((8 * j) ^ swz(w.g));
   }
   __device__ __forceinline__ float2 at(int rr, int k0) const {
-    return *reinterpret_cast<const float2*>(p[(k0 >> 3) & 3] + rr * H + (k0 & ~24));
+    return *reinterpret_cast<const float2*>(p[(k0 >> 3) & 3] + rr * S + (k0 & ~24));
   }
 };
+template <int S = H>
 struct Cols {
   const float* p[2][4];
   __device__ __forceinline__ Cols(const float* m, int c0, const Warp& w) {
@@ -291,26 +347,26 @@ struct Cols {
     for (int q = 0; q < 2; ++q)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        p[q][j] = m + (2 * w.t + q) * H + c0 + w.g + ((8 * j) ^ swz(2 * w.t + q));
+        p[q][j] = m + (2 * w.t + q) * S + c0 + w.g + ((8 * j) ^ swz(2 * w.t + q));
   }
   __device__ __forceinline__ float at(int q, int cc, int k0) const {
-    return p[q][(cc >> 3) & 3][k0 * H + (cc & ~24)];
+    return p[q][(cc >> 3) & 3][k0 * S + (cc & ~24)];
   }
 };
 
 // A(m, k) = A_T ? A[k][m] : A[m][k],  B(k, n) = B_T ? B[n][k] : B[k][n];
-// PA / PB are Rows or Cols to match.
+// PA / PB are Rows or Cols to match. A's k-step starts at ka, B's at kb.
 template <bool A_T, bool B_T, class PA, class PB>
-__device__ __forceinline__ void load_frag(Frag& f, const PA& pa, const PB& pb, int k0) {
+__device__ __forceinline__ void load_frag(Frag& f, const PA& pa, const PB& pb, int ka, int kb) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
     if constexpr (A_T) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) f.a[mi][q] = pa.at(q >> 1, 16 * mi + 8 * (q & 1), k0);
+      for (int q = 0; q < 4; ++q) f.a[mi][q] = pa.at(q >> 1, 16 * mi + 8 * (q & 1), ka);
     } else {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float2 v = pa.at(16 * mi + 8 * h, k0);
+        const float2 v = pa.at(16 * mi + 8 * h, ka);
         f.a[mi][h] = v.x;
         f.a[mi][h + 2] = v.y;
       }
@@ -319,12 +375,12 @@ __device__ __forceinline__ void load_frag(Frag& f, const PA& pa, const PB& pb, i
 #pragma unroll
   for (int ni = 0; ni < 8; ++ni) {
     if constexpr (B_T) {
-      const float2 v = pb.at(8 * ni, k0);
+      const float2 v = pb.at(8 * ni, kb);
       f.b[ni][0] = v.x;
       f.b[ni][1] = v.y;
     } else {
-      f.b[ni][0] = pb.at(0, 8 * ni, k0);
-      f.b[ni][1] = pb.at(1, 8 * ni, k0);
+      f.b[ni][0] = pb.at(0, 8 * ni, kb);
+      f.b[ni][1] = pb.at(1, 8 * ni, kb);
     }
   }
 }
@@ -366,18 +422,41 @@ __device__ __forceinline__ void mma_step(Acc acc, const Frag& f) {
 template <bool BF16, bool A_T, bool B_T>
 __device__ __forceinline__ void warp_mma(Acc acc, const float* __restrict__ A,
                                          const float* __restrict__ B, const Warp& w) {
-  using PA = std::conditional_t<A_T, Cols, Rows>;
-  using PB = std::conditional_t<B_T, Rows, Cols>;
+  using PA = std::conditional_t<A_T, Cols<>, Rows<>>;
+  using PB = std::conditional_t<B_T, Rows<>, Cols<>>;
   const PA pa(A, w.m0, w);
   const PB pb(B, w.n0, w);
   Frag f[2];
-  load_frag<A_T, B_T>(f[0], pa, pb, 0);
+  load_frag<A_T, B_T>(f[0], pa, pb, 0, 0);
 #pragma unroll
   for (int k0 = 0; k0 < H; k0 += 16) {
-    load_frag<A_T, B_T>(f[1], pa, pb, k0 + 8);
+    load_frag<A_T, B_T>(f[1], pa, pb, k0 + 8, k0 + 8);
     mma_step<BF16, !A_T>(acc, f[0]);
-    if (k0 + 16 < H) load_frag<A_T, B_T>(f[0], pa, pb, k0 + 16);
+    if (k0 + 16 < H) load_frag<A_T, B_T>(f[0], pa, pb, k0 + 16, k0 + 16);
     mma_step<BF16, !A_T>(acc, f[1]);
+  }
+}
+
+// The wider kernels' product: acc += A B over K = K_STEPS, A in a G::H-wide
+// tile (rows from a0 = the warp's m0, or A_T: columns from a0, a multiple
+// of 32) with its k-steps from ka, B a K_STEPS-row matrix (a ring slice,
+// or a tile) read from k = 0. B_IS_W: B holds weights (rounded here in
+// bf16 mode). a.W and gz.W^T (W^T's rows in the ring) are <false, true>,
+// a piece of a^T.gz <true, false>.
+template <bool BF16, bool A_T, bool B_IS_W, class G, int K_STEPS>
+__device__ __forceinline__ void warp_mma_k(Acc acc, const float* __restrict__ A, int a0, int ka,
+                                           const float* __restrict__ B, const Warp& w) {
+  using PA = std::conditional_t<A_T, Cols<G::H>, Rows<G::H>>;
+  const PA pa(A, a0, w);
+  const Cols<G::H> pb(B, w.n0, w);
+  Frag f[2];
+  load_frag<A_T, false>(f[0], pa, pb, ka, 0);
+#pragma unroll
+  for (int k0 = 0; k0 < K_STEPS; k0 += 16) {
+    load_frag<A_T, false>(f[1], pa, pb, ka + k0 + 8, k0 + 8);
+    mma_step<BF16, B_IS_W>(acc, f[0]);
+    if (k0 + 16 < K_STEPS) load_frag<A_T, false>(f[0], pa, pb, ka + k0 + 16, k0 + 16);
+    mma_step<BF16, B_IS_W>(acc, f[1]);
   }
 }
 
@@ -387,7 +466,7 @@ enum Keep { kNothing, kStashZ, kDerivative };
 // z = acc + bias. a_s gets rnd(sin(omega z)); kStashZ also stores z at
 // z_g (T x H, in the sw() layout: an image of a shared tile), kDerivative
 // leaves omega cos(omega z) in acc.
-template <bool BF16, Keep KEEP>
+template <bool BF16, Keep KEEP, int S = H>
 __device__ __forceinline__ void sine_epilogue(Acc acc, const float* __restrict__ bias, float omega,
                                               float* __restrict__ a_s, float* __restrict__ z_g,
                                               const Warp& w) {
@@ -401,12 +480,12 @@ __device__ __forceinline__ void sine_epilogue(Acc acc, const float* __restrict__
       for (int h = 0; h < 2; ++h) {
         const int r = w.row(mi, 2 * h);
         const float z0 = acc[mi][ni][2 * h] + b.x, z1 = acc[mi][ni][2 * h + 1] + b.y;
-        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw(r, c)]) = make_float2(z0, z1);
+        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw<S>(r, c)]) = make_float2(z0, z1);
         if (KEEP == kDerivative) {
           acc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z0);
           acc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z1);
         }
-        *reinterpret_cast<float2*>(&a_s[sw(r, c)]) =
+        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) =
             make_float2(rnd<BF16>(iit::fast_sin(omega * z0)), rnd<BF16>(iit::fast_sin(omega * z1)));
       }
   }
@@ -414,10 +493,10 @@ __device__ __forceinline__ void sine_epilogue(Acc acc, const float* __restrict__
 
 // Stage T rows of a (n, width) input into dst (T x MAX_IO), zero beyond n
 // rows and width columns.
-template <bool BF16>
+template <bool BF16, class G = G128>
 __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const float* __restrict__ src,
                                            int row0, int n, int width, int tid) {
-  for (int e = tid; e < T * MAX_IO; e += THREADS) {
+  for (int e = tid; e < G::T * MAX_IO; e += G::THREADS) {
     const int r = e / MAX_IO, k = e % MAX_IO;
     const int row = row0 + r;
     dst[e] = (row < n && k < width) ? rnd<BF16>(src[(size_t)row * width + k]) : 0.f;
@@ -425,7 +504,7 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const float*
 }
 
 // First layer, K = in_size: acc = x_s W_0 (FMA) at the warp's positions.
-template <bool BF16>
+template <bool BF16, int S = H>
 __device__ __forceinline__ void first_layer(Acc acc, const Chain& c, const float* __restrict__ x_s,
                                             const Warp& w) {
   zero(acc);
@@ -437,7 +516,7 @@ __device__ __forceinline__ void first_layer(Acc acc, const Chain& c, const float
       for (int h = 0; h < 2; ++h) xv[mi][h] = x_s[w.row(mi, 2 * h) * MAX_IO + k];
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni) {
-      const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * H + w.col(ni)));
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * S + w.col(ni)));
       const float w0 = rnd<BF16>(wv.x), w1 = rnd<BF16>(wv.y);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -494,9 +573,10 @@ __device__ __forceinline__ void rows_times_narrow(const float* __restrict__ src_
   }
 }
 
+template <int NT = THREADS>
 __device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < count; ++i) mbar_init(bar + i, THREADS);
+    for (int i = 0; i < count; ++i) mbar_init(bar + i, NT);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -556,7 +636,7 @@ sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ ou
 // ------------------------------------------------------------ backward
 
 // acc = the H x H partial dw at the warp's positions, or acc -> dw.
-template <bool LOAD>
+template <bool LOAD, int S = H>
 __device__ __forceinline__ void move_partial(Acc acc, float* __restrict__ dw, const Warp& w) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -564,7 +644,7 @@ __device__ __forceinline__ void move_partial(Acc acc, float* __restrict__ dw, co
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float2* p = reinterpret_cast<float2*>(&dw[w.row(mi, 2 * h) * H + w.col(ni)]);
+        float2* p = reinterpret_cast<float2*>(&dw[w.row(mi, 2 * h) * S + w.col(ni)]);
         if (LOAD) {
           const float2 v = *p;
           acc[mi][ni][2 * h] = v.x;
@@ -578,7 +658,7 @@ __device__ __forceinline__ void move_partial(Acc acc, float* __restrict__ dw, co
 // a_s = rnd(sin(omega z)) and dc = omega cos(omega z), with z in a_s
 // itself (copied there from the stash), or (FROM_DC) z = dc + bias where
 // dc holds x W_0. Each thread reads and writes only its own positions.
-template <bool BF16, bool FROM_DC>
+template <bool BF16, bool FROM_DC, int S = H>
 __device__ __forceinline__ void resine(Acc dc, const float* __restrict__ bias, float omega,
                                        float* __restrict__ a_s, const Warp& w) {
 #pragma unroll
@@ -591,10 +671,10 @@ __device__ __forceinline__ void resine(Acc dc, const float* __restrict__ bias, f
       for (int h = 0; h < 2; ++h) {
         const int r = w.row(mi, 2 * h);
         const float2 z = FROM_DC ? make_float2(dc[mi][ni][2 * h] + b.x, dc[mi][ni][2 * h + 1] + b.y)
-                                 : *reinterpret_cast<const float2*>(&a_s[sw(r, c)]);
+                                 : *reinterpret_cast<const float2*>(&a_s[sw<S>(r, c)]);
         dc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z.x);
         dc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z.y);
-        *reinterpret_cast<float2*>(&a_s[sw(r, c)]) =
+        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) =
             make_float2(rnd<BF16>(iit::fast_sin(omega * z.x)), rnd<BF16>(iit::fast_sin(omega * z.y)));
       }
   }
@@ -603,7 +683,7 @@ __device__ __forceinline__ void resine(Acc dc, const float* __restrict__ bias, f
 // gz = ga * dc, in place in ga. Then red[row group][col] = the sum of gz
 // over the warp's 32 rows (fp32; four fixed-order terms, then shuffles
 // across the lanes that share a column), and g_s = rnd(gz).
-template <bool BF16>
+template <bool BF16, int S = H>
 __device__ __forceinline__ void store_gz(Acc ga, const Acc dc, float* __restrict__ g_s,
                                          float* __restrict__ red, const Warp& w) {
 #pragma unroll
@@ -622,20 +702,89 @@ __device__ __forceinline__ void store_gz(Acc ga, const Acc dc, float* __restrict
       s[cc] = v;
     }
     if (w.g == 0)
-      *reinterpret_cast<float2*>(&red[(w.m0 / 32) * H + w.col(ni)]) = make_float2(s[0], s[1]);
+      *reinterpret_cast<float2*>(&red[(w.m0 / 32) * S + w.col(ni)]) = make_float2(s[0], s[1]);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(&g_s[sw(w.row(mi, 2 * h), w.col(ni))]) =
+        *reinterpret_cast<float2*>(&g_s[sw<S>(w.row(mi, 2 * h), w.col(ni))]) =
             make_float2(rnd<BF16>(ga[mi][ni][2 * h]), rnd<BF16>(ga[mi][ni][2 * h + 1]));
   }
 }
 
-// db += the four row groups' sums in red, in order. Call after a barrier.
+// db += the T / 32 row groups' sums in red, in order. Call after a barrier.
+template <class G = G128>
 __device__ __forceinline__ void add_bias_grad(const float* __restrict__ red, float* __restrict__ db,
                                               int tid) {
-  if (tid < H) db[tid] += ((red[tid] + red[H + tid]) + red[2 * H + tid]) + red[3 * H + tid];
+  for (int c = tid; c < G::H; c += G::THREADS) {
+    float s = red[c];
+#pragma unroll
+    for (int q = 1; q < G::T / 32; ++q) s += red[q * G::H + c];
+    db[c] += s;
+  }
+}
+
+// The last layer's share of the backward: dWl += a_L^T rnd(g) and
+// dbl += sum g over the tile, and acc = rnd(g) Wl^T at the warp's positions
+// (gz_L before the sine derivative). Reads a_s and go_s.
+template <bool BF16, class G = G128>
+__device__ __forceinline__ void last_layer_grads(Acc acc, const Chain& c,
+                                                 const float* __restrict__ a_s,
+                                                 const float* __restrict__ go_s,
+                                                 float* __restrict__ dwl, float* __restrict__ dbl,
+                                                 const Warp& w, int tid) {
+  const int out_size = c.out_size;
+  for (int e = tid; e < G::H * out_size; e += G::THREADS) {
+    const int k = e % G::H, o = e / G::H;
+    float s = 0.f;
+    for (int r = 0; r < G::T; ++r) s += a_s[sw<G::H>(r, k)] * rnd<BF16>(go_s[r * MAX_IO + o]);
+    dwl[k * out_size + o] += s;
+  }
+  for (int o = tid >> 5; o < out_size; o += G::WARPS) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < G::T / 32; ++j) s += go_s[(w.lane + 32 * j) * MAX_IO + o];
+    s = warp_sum(s);
+    if (w.lane == 0) dbl[o] += s;
+  }
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int col = w.col(ni) + cc;
+      float wv[MAX_IO];
+#pragma unroll
+      for (int o = 0; o < MAX_IO; ++o)
+        wv[o] = o < out_size ? rnd<BF16>(__ldg(&c.wl[col * out_size + o])) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = w.row(mi, 2 * h);
+          float s = 0.f;
+#pragma unroll
+          for (int o = 0; o < MAX_IO; ++o)
+            if (o < out_size) s += rnd<BF16>(go_s[r * MAX_IO + o]) * wv[o];
+          acc[mi][ni][2 * h + cc] = s;
+        }
+    }
+}
+
+// The first layer's weight and bias gradients: db0 += the bias sums of gz_0
+// in red, dW0 += x^T gz_0 over the tile. Call after a barrier.
+template <class G = G128>
+__device__ __forceinline__ void first_layer_grads(const float* __restrict__ x_s,
+                                                  const float* __restrict__ g_s,
+                                                  const float* __restrict__ red,
+                                                  float* __restrict__ dw0, float* __restrict__ db0,
+                                                  int in_size, int tid) {
+  add_bias_grad<G>(red, db0, tid);
+  for (int e = tid; e < in_size * G::H; e += G::THREADS) {
+    const int k = e / G::H, col = e % G::H;
+    float s = 0.f;
+    for (int r = 0; r < G::T; ++r) s += x_s[r * MAX_IO + k] * g_s[sw<G::H>(r, col)];
+    dw0[e] += s;
+  }
 }
 
 // Shared memory: weight buffer 0, weight buffer 1 (gz in the backward
@@ -717,41 +866,7 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
     }
 
     // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
-    for (int e = tid; e < H * out_size; e += THREADS) {
-      const int k = e % H, o = e / H;
-      float s = 0.f;
-      for (int r = 0; r < T; ++r) s += a_s[sw(r, k)] * rnd<BF16>(go_s[r * MAX_IO + o]);
-      dwl[k * out_size + o] += s;
-    }
-    if ((tid >> 5) < out_size) {
-      const int o = tid >> 5;
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < T / 32; ++j) s += go_s[(w.lane + 32 * j) * MAX_IO + o];
-      s = warp_sum(s);
-      if (w.lane == 0) dbl[o] += s;
-    }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int col = w.col(ni) + cc;
-        float wv[MAX_IO];
-#pragma unroll
-        for (int o = 0; o < MAX_IO; ++o)
-          wv[o] = o < out_size ? rnd<BF16>(__ldg(&c.wl[col * out_size + o])) : 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = w.row(mi, 2 * h);
-            float s = 0.f;
-#pragma unroll
-            for (int o = 0; o < MAX_IO; ++o)
-              if (o < out_size) s += rnd<BF16>(go_s[r * MAX_IO + o]) * wv[o];
-            acc[mi][ni][2 * h + cc] = s;
-          }
-      }
+    last_layer_grads<BF16>(acc, c, a_s, go_s, dwl, dbl, w, tid);
     store_gz<BF16>(acc, dc, g_s, red, w);
     __syncthreads();  // a_L read, gz_L and its bias sums written
     if (L >= 2) copy_tile(a_s, z_g + (size_t)(L - 2) * T * H, z_bar);  // z_{L-1}
@@ -786,14 +901,268 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
     __syncthreads();
 
     // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
-    add_bias_grad(red, dbs, tid);
-    for (int e = tid; e < in_size * H; e += THREADS) {
-      const int k = e / H, col = e % H;
-      float s = 0.f;
-      for (int r = 0; r < T; ++r) s += x_s[r * MAX_IO + k] * g_s[sw(r, col)];
-      dw0[e] += s;
-    }
+    first_layer_grads(x_s, g_s, red, dw0, dbs, in_size, tid);
     rows_times_narrow<BF16>(g_s, c.w0, 1, H, in_size, nullptr, dx, row0, c.n, tid);
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------- the wider kernels
+//
+// Widths 129-512 run on kernels of width 192, 256 or 512: the model's width
+// zero-padded to the next of them (padded units stay exactly 0, as
+// sin(0) = 0). The mma shapes need only multiples of 8 and 16, so the pad
+// is to 64, not to the TPU's 128 lanes: w182 runs as 192, 90% of its
+// products useful (at 256, 51%). One fp32 W is 144-1024 KB there, more
+// than a block's 227 KB of shared memory beside the activations, so:
+// - a tile holds G::T = 64 rows (32 at 512): T x H stays 16,384 floats (12,288 at
+//   192), the activation and gz tiles 64 KB, and each thread's accumulators
+//   the 2 x 8 mma tiles of width 128; (T / 32) x (H / 64) warps;
+// - each hidden W streams through a ring of G::KS-row slices (32 rows, 16 at
+//   512: 24-32 KB), four deep in the forward and two in the backward. A
+//   slice of W's rows is a K-slice of a.W; for ga = gz W^T the ring carries
+//   rows of W^T (the wrapper passes W^T beside W), a K-slice of the same
+//   form, so one product serves both;
+// - dW_l = a^T gz (H x H) goes in H / T pieces of T rows: each piece's
+//   partial is loaded into the accumulators, raised by a^T gz over the
+//   tile's T rows, and stored.
+// Everything else (epilogues, z stash, bias sums, first and last layers)
+// is the width-128 kernels' code at the wider geometry, with the same fixed
+// orders and no atomics.
+// What bounds them: the 3xTF32 products (2.1 / 3.8 / 15 ms per backward at
+// 512^2, d8, widths 192 / 256 / 512) and the dW partials' read-modify-write,
+// N / T tiles x (D - 2) H^2 x 8 bytes per backward (5.4 / 12.9 / 103 GB at
+// the same shapes), which grows as H^3 and at 512 outweighs the products.
+// A ring slice is read from L2 once per tile: at 512 the 32-row tile gives
+// each 32 KB slice 48 FLOP per byte.
+
+constexpr int kFwdRing = 4;  // ring slices of the wider forward
+constexpr int kBwdRing = 2;  // and backward (two activation tiles beside it)
+
+template <class G>
+constexpr size_t fwd_wide_smem() {
+  return sizeof(float) * (kFwdRing * G::SLICE + G::BUF + G::T * MAX_IO) +
+         kFwdRing * sizeof(uint64_t);
+}
+template <class G>
+constexpr size_t bwd_wide_smem() {
+  return sizeof(float) * (kBwdRing * G::SLICE + 2 * G::BUF + 2 * G::T * MAX_IO +
+                          (G::T / 32) * G::H) +
+         (kBwdRing + 1) * sizeof(uint64_t);
+}
+
+// The tile's rows r (warp by warp) of src_s (sw() layout, width G::H)
+// times a narrow weight: dst[r][o] = sum_k src_s[r][k] rnd(w(k, o))
+// (+ bias[o]), w(k, o) = w[k * sk + o * so], o < no <= MAX_IO. Lane i sums
+// columns i + 32 j in order of j, then the warp adds the lanes.
+template <bool BF16, class G>
+__device__ __forceinline__ void rows_times_narrow_wide(const float* __restrict__ src_s,
+                                                       const float* __restrict__ wg, int sk,
+                                                       int so, int no,
+                                                       const float* __restrict__ bias,
+                                                       float* __restrict__ dst, int row0, int n,
+                                                       int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const float b = (bias != nullptr && lane < no) ? __ldg(&bias[lane]) : 0.f;
+  for (int r = warp; r < G::T; r += G::WARPS) {
+    float p[MAX_IO];
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o) p[o] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < G::H / 32; ++j) {
+      const int k = lane + 32 * j;
+      const float sv = src_s[sw<G::H>(r, k)];
+#pragma unroll
+      for (int o = 0; o < MAX_IO; ++o)
+        if (o < no) p[o] += sv * rnd<BF16>(__ldg(&wg[k * sk + o * so]));
+    }
+    float mine = 0.f;
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o) {
+      if (o < no) {
+        const float q = warp_sum(p[o]);
+        if (lane == o) mine = q;
+      }
+    }
+    if (lane < no && row0 + r < n) dst[(size_t)(row0 + r) * no + lane] = mine + b;
+  }
+}
+
+// acc += A W over the ring's next G::NS slices, A a T x H tile (a, or gz
+// against W^T) and slice u its K-slice u; each slice's buffer goes to
+// slice s + NB once every warp is done with it.
+template <bool BF16, class G, int NB, class Src>
+__device__ __forceinline__ void ring_product(Acc acc, const float* __restrict__ A, RingT<G>& ring,
+                                             int& s, int total, const Src& src, const Warp& w) {
+  for (int u = 0; u < G::NS; ++u, ++s) {
+    const int b = s % NB;
+    ring.wait(b);
+    warp_mma_k<BF16, false, true, G, G::KS>(acc, A, w.m0, u * G::KS, ring.buf(b), w);
+    __syncthreads();
+    if (s + NB < total) ring.issue(b, src(s + NB));
+  }
+}
+
+// Shared memory: the ring, the activation tile, the input tile, the ring's
+// mbarriers.
+template <bool BF16, class G>
+__global__ void __launch_bounds__(G::THREADS, 1)
+sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out) {
+  constexpr int HW = G::H, NB = kFwdRing;
+  extern __shared__ float4 smem4[];
+  float* ring_s = reinterpret_cast<float*>(smem4);
+  float* a_s = ring_s + NB * G::SLICE;
+  float* x_s = a_s + G::BUF;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(x_s + G::T * MAX_IO);
+  const int tid = threadIdx.x;
+  const Warp w(tid, G::CG);
+  const int L = c.depth - 2;
+  const int n_tiles = (c.n + G::T - 1) / G::T;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // the block's ring slices in order: per tile, W_1 .. W_L, each in G::NS slices
+  const int per_tile = L * G::NS, total = my_tiles * per_tile;
+  const auto src = [wm = c.wm, per_tile](int s) {
+    const int j = s % per_tile;
+    return wm + (size_t)(j / G::NS) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
+  };
+
+  init_barriers<G::THREADS>(bar, NB);
+  RingT<G> ring{ring_s, bar};
+  for (int s = 0; s < NB && s < total; ++s) ring.issue(s, src(s));
+
+  int s = 0;
+  Acc acc;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * G::T;
+    stage_rows<BF16, G>(x_s, x, row0, c.n, c.in_size, tid);
+    __syncthreads();
+    first_layer<BF16, HW>(acc, c, x_s, w);
+    sine_epilogue<BF16, kNothing, HW>(acc, c.bs, c.omega0, a_s, nullptr, w);
+    __syncthreads();
+    for (int l = 1; l <= L; ++l) {
+      zero(acc);
+      ring_product<BF16, G, NB>(acc, a_s, ring, s, total, src, w);
+      sine_epilogue<BF16, kNothing, HW>(acc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
+      __syncthreads();
+    }
+    rows_times_narrow_wide<BF16, G>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, out, row0, c.n,
+                                    tid);
+    __syncthreads();
+  }
+}
+
+// Shared memory: the ring, the activation and gz tiles, the input and
+// cotangent tiles, the bias partial sums, the ring's mbarriers and the z
+// copy's. The order of the backward is the width-128 kernel's.
+template <bool BF16, class G>
+__global__ void __launch_bounds__(G::THREADS, 1)
+sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __restrict__ g,
+                         float* __restrict__ dx, float* __restrict__ z_all,
+                         float* __restrict__ partials, int n_part) {
+  constexpr int HW = G::H, NB = kBwdRing;
+  extern __shared__ float4 smem4[];
+  float* ring_s = reinterpret_cast<float*>(smem4);
+  float* a_s = ring_s + NB * G::SLICE;
+  float* g_s = a_s + G::BUF;
+  float* x_s = g_s + G::BUF;
+  float* go_s = x_s + G::T * MAX_IO;
+  float* red = go_s + G::T * MAX_IO;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + (G::T / 32) * HW);
+  const int tid = threadIdx.x;
+  const Warp w(tid, G::CG);
+  const int depth = c.depth, in_size = c.in_size, L = depth - 2;
+
+  // this block's slices: partial gradients and the z stash (z_1 .. z_{L-1})
+  float* part = partials + (size_t)blockIdx.x * n_part;
+  float* dw0 = part;
+  float* dwm = dw0 + in_size * HW;
+  float* dwl = dwm + (size_t)L * HW * HW;
+  float* dbs = dwl + HW * c.out_size;
+  float* dbl = dbs + (depth - 1) * HW;
+  float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * G::BUF;
+  for (int e = tid; e < n_part; e += G::THREADS) part[e] = 0.f;
+
+  // the block's ring slices in order: per tile, W_1 .. W_L (the forward
+  // pass), then W_L^T .. W_1^T (the backward pass), each in G::NS slices
+  const int n_tiles = (c.n + G::T - 1) / G::T;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int half = L * G::NS, per_tile = 2 * half, total = my_tiles * per_tile;
+  const auto src = [wm = c.wm, wmt = c.wmt, L, half, per_tile](int s) {
+    const int j = s % per_tile;
+    const int l = j < half ? 1 + j / G::NS : L - (j - half) / G::NS;
+    return (j < half ? wm : wmt) + (size_t)(l - 1) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
+  };
+
+  init_barriers<G::THREADS>(bar, NB + 1);
+  RingT<G> ring{ring_s, bar};
+  uint64_t* z_bar = bar + NB;  // z copies into a_s, one phase per copy
+  uint32_t z_phase = 0;
+  for (int s = 0; s < NB && s < total; ++s) ring.issue(s, src(s));
+
+  int s = 0;
+  Acc acc, dc;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * G::T;
+    stage_rows<BF16, G>(x_s, x, row0, c.n, in_size, tid);
+    stage_rows<false, G>(go_s, g, row0, c.n, c.out_size, tid);
+    __syncthreads();
+
+    // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
+    first_layer<BF16, HW>(dc, c, x_s, w);
+    if (L == 0)
+      sine_epilogue<BF16, kDerivative, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
+    else
+      sine_epilogue<BF16, kNothing, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
+    __syncthreads();
+    for (int l = 1; l <= L; ++l) {
+      zero(dc);
+      ring_product<BF16, G, NB>(dc, a_s, ring, s, total, src, w);
+      if (l < L)
+        sine_epilogue<BF16, kStashZ, HW>(dc, c.bs + l * HW, c.omega_h, a_s,
+                                         z_g + (size_t)(l - 1) * G::BUF, w);
+      else
+        sine_epilogue<BF16, kDerivative, HW>(dc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
+      __syncthreads();
+    }
+
+    // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
+    last_layer_grads<BF16, G>(acc, c, a_s, go_s, dwl, dbl, w, tid);
+    store_gz<BF16, HW>(acc, dc, g_s, red, w);
+    __syncthreads();  // a_L read, gz_L and its bias sums written
+    if (L >= 2) copy_tile<G>(a_s, z_g + (size_t)(L - 2) * G::BUF, z_bar);  // z_{L-1}
+
+    // hidden layers, last to first
+    for (int l = L; l >= 1; --l) {
+      if (l == 1) {
+        first_layer<BF16, HW>(dc, c, x_s, w);
+        resine<BF16, true, HW>(dc, c.bs, c.omega0, a_s, w);
+      } else {
+        mbar_wait(z_bar, z_phase);  // z_{l-1} is in a_s
+        z_phase ^= 1u;
+        resine<BF16, false, HW>(dc, nullptr, c.omega_h, a_s, w);
+      }
+      __syncthreads();
+      add_bias_grad<G>(red, dbs + l * HW, tid);
+      float* dw = dwm + (size_t)(l - 1) * HW * HW;
+      for (int p = 0; p < HW / G::T; ++p) {  // dW_l rows [p T, (p + 1) T) += a^T gz_l
+        float* piece = dw + (size_t)p * G::BUF;
+        move_partial<true, HW>(acc, piece, w);
+        warp_mma_k<BF16, true, false, G, G::T>(acc, a_s, p * G::T + w.m0, 0, g_s, w);
+        move_partial<false, HW>(acc, piece, w);
+      }
+      if (l >= 3) {  // z_{l-2} streams into a_s while ga is computed
+        __syncthreads();
+        copy_tile<G>(a_s, z_g + (size_t)(l - 3) * G::BUF, z_bar);
+      }
+      zero(acc);
+      ring_product<BF16, G, NB>(acc, g_s, ring, s, total, src, w);  // ga = gz_l W_l^T
+      store_gz<BF16, HW>(acc, dc, g_s, red, w);                     // gz_{l-1}
+    }
+    __syncthreads();
+
+    // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
+    first_layer_grads<G>(x_s, g_s, red, dw0, dbs, in_size, tid);
+    rows_times_narrow_wide<BF16, G>(g_s, c.w0, 1, HW, in_size, nullptr, dx, row0, c.n, tid);
     __syncthreads();
   }
 }
@@ -863,11 +1232,11 @@ sum_partials_kernel(const float4* __restrict__ part, float4* __restrict__ out, i
   }
 }
 
-Chain make_chain(const float* w0, const float* wm, const float* wl, const float* bs,
-                 const float* bl, int n, int in_size, int out_size, int depth,
+Chain make_chain(const float* w0, const float* wm, const float* wmt, const float* wl,
+                 const float* bs, const float* bl, int n, int in_size, int out_size, int depth,
                  float omega0, float omega_h) {
   Chain c;
-  c.w0 = w0; c.wm = wm; c.wl = wl; c.bs = bs; c.bl = bl;
+  c.w0 = w0; c.wm = wm; c.wmt = wmt; c.wl = wl; c.bs = bs; c.bl = bl;
   c.n = n; c.in_size = in_size; c.out_size = out_size; c.depth = depth;
   c.omega0 = omega0; c.omega_h = omega_h;
   return c;
@@ -878,60 +1247,155 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Raise the kernel's shared-memory limit, launch it, and return the launch's
+// error.
+template <typename... P, typename... A>
+cudaError_t launch(void (*kernel)(P...), int grid, int threads, size_t smem, cudaStream_t s,
+                   A... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
 }  // namespace
+
+// The wider kernels' launchers, one part of the build each (C linkage: the
+// Chain type is local to each part).
+#define SINE_MLP_FWD_WIDE_ARGS                                                               \
+  const float *x, const float *w0, const float *wm, const float *wl, const float *bs,         \
+      const float *bl, float *out, int n, int in_size, int out_size, int depth, float omega0, \
+      float omega_h, int bf16, int grid, void *stream
+#define SINE_MLP_BWD_WIDE_ARGS                                                                \
+  const float *x, const float *g, const float *w0, const float *wm, const float *wmt,          \
+      const float *wl, const float *bs, float *dx, float *z, float *partials, int grid,        \
+      int n_part, int n, int in_size, int out_size, int depth, float omega0, float omega_h,    \
+      int bf16, void *stream
 
 extern "C" {
 
-int sine_mlp_hidden() { return H; }
-int sine_mlp_tile_rows() { return T; }
+#ifdef SINE_MLP_WIDE
+
+#define SINE_MLP_CAT2(a, b) a##b
+#define SINE_MLP_CAT(a, b) SINE_MLP_CAT2(a, b)
+using GW = WideGeo<SINE_MLP_WIDE>::type;  // SINE_MLP_WIDE is one of SINE_MLP_WIDE_GEOS
+
+#if SINE_MLP_BWD
+int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
+  const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth, omega0,
+                             omega_h);
+  constexpr size_t smem = bwd_wide_smem<GW>();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch(sine_mlp_bwd_wide_kernel<true, GW>, grid, GW::THREADS, smem, s, c,
+                             x, g, dx, z, partials, n_part)
+                    : launch(sine_mlp_bwd_wide_kernel<false, GW>, grid, GW::THREADS, smem, s, c,
+                             x, g, dx, z, partials, n_part));
+}
+#else
+int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
+  const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
+                             omega_h);
+  constexpr size_t smem = fwd_wide_smem<GW>();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch(sine_mlp_fwd_wide_kernel<true, GW>, grid, GW::THREADS, smem, s, c,
+                             x, out)
+                    : launch(sine_mlp_fwd_wide_kernel<false, GW>, grid, GW::THREADS, smem, s, c,
+                             x, out));
+}
+#endif
+
+#else  // the width-128 kernels, sum_partials and the C interface
+
+#define SINE_MLP_DECLARE(W, TR, KS)              \
+  int sine_mlp_fwd_w##W(SINE_MLP_FWD_WIDE_ARGS); \
+  int sine_mlp_bwd_w##W(SINE_MLP_BWD_WIDE_ARGS);
+SINE_MLP_WIDE_GEOS(SINE_MLP_DECLARE)
+#undef SINE_MLP_DECLARE
+
+// The kernel width a model of hidden width h runs on (h zero-padded up to
+// it): 128 or a width of SINE_MLP_WIDE_GEOS; 0 above the widest.
+int sine_mlp_kernel_width(int h) {
+#define SINE_MLP_WIDTH(W, TR, KS) W,
+  constexpr int widths[] = {H, SINE_MLP_WIDE_GEOS(SINE_MLP_WIDTH)};
+#undef SINE_MLP_WIDTH
+  for (int k : widths)
+    if (h <= k) return h >= 1 ? k : 0;
+  return 0;
+}
+// Pixel rows per tile of the kernel of width `hidden` (0 if there is none).
+int sine_mlp_tile_rows(int hidden) {
+  switch (hidden) {
+    case H: return T;
+#define SINE_MLP_ROWS(W, TR, KS) \
+  case W: return TR;
+    SINE_MLP_WIDE_GEOS(SINE_MLP_ROWS)
+#undef SINE_MLP_ROWS
+    default: return 0;
+  }
+}
 int sine_mlp_max_io() { return MAX_IO; }
 
-// One persistent block per SM (at most one per tile).
+// One persistent block per SM (at most one per tile). hidden: the kernel
+// width the weights are padded to.
 int sine_mlp_fwd(const float* x, const float* w0, const float* wm, const float* wl,
                  const float* bs, const float* bl, float* out, int n, int in_size,
-                 int out_size, int depth, float omega0, float omega_h, int bf16,
+                 int out_size, int depth, int hidden, float omega0, float omega_h, int bf16,
                  void* stream) {
   if (n <= 0) return 0;
-  const Chain c = make_chain(w0, wm, wl, bs, bl, n, in_size, out_size, depth, omega0, omega_h);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + T - 1) / T;
+  const int rows = sine_mlp_tile_rows(hidden);
+  if (rows == 0) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (const int err = sm_count(&sms)) return err;
+  const int tiles = (n + rows - 1) / rows;
   const int grid = tiles < sms ? tiles : sms;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if ((err = allow_smem(sine_mlp_fwd_kernel<true>, kFwdSmem)) != cudaSuccess) return (int)err;
-    sine_mlp_fwd_kernel<true><<<grid, THREADS, kFwdSmem, s>>>(c, x, out);
-  } else {
-    if ((err = allow_smem(sine_mlp_fwd_kernel<false>, kFwdSmem)) != cudaSuccess) return (int)err;
-    sine_mlp_fwd_kernel<false><<<grid, THREADS, kFwdSmem, s>>>(c, x, out);
+  switch (hidden) {
+#define SINE_MLP_FWD_CASE(W, TR, KS)                                                            \
+  case W:                                                                                      \
+    return sine_mlp_fwd_w##W(x, w0, wm, wl, bs, bl, out, n, in_size, out_size, depth, omega0, \
+                             omega_h, bf16, grid, stream);
+    SINE_MLP_WIDE_GEOS(SINE_MLP_FWD_CASE)
+#undef SINE_MLP_FWD_CASE
   }
-  return (int)cudaGetLastError();
+  const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
+                             omega_h);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch(sine_mlp_fwd_kernel<true>, grid, THREADS, kFwdSmem, s, c, x, out)
+                    : launch(sine_mlp_fwd_kernel<false>, grid, THREADS, kFwdSmem, s, c, x, out));
 }
 
 // partials: (grid, n_part) floats, n_part a multiple of 4 (16-byte aligned
-// slices); z_scratch: (grid, max(depth-3, 1), T, H) floats.
+// slices); z_scratch: (grid, max(depth-3, 1), T, hidden) floats, T =
+// sine_mlp_tile_rows(hidden); wmt: each hidden W transposed, read by the
+// wider kernels only (may be null at width 128).
 int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* wm,
-                 const float* wl, const float* bs, float* dx, float* z_scratch,
+                 const float* wmt, const float* wl, const float* bs, float* dx, float* z_scratch,
                  float* partials, int grid, int n_part, int n, int in_size, int out_size,
-                 int depth, float omega0, float omega_h, int bf16, void* stream) {
+                 int depth, int hidden, float omega0, float omega_h, int bf16, void* stream) {
   if (n <= 0 || grid <= 0) return 0;
-  if (n_part % 4 != 0) return (int)cudaErrorInvalidValue;
-  const Chain c = make_chain(w0, wm, wl, bs, nullptr, n, in_size, out_size, depth,
+  if (n_part % 4 != 0 || sine_mlp_tile_rows(hidden) == 0 || (hidden != H && wmt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (hidden) {
+#define SINE_MLP_BWD_CASE(W, TR, KS)                                                           \
+  case W:                                                                                     \
+    return sine_mlp_bwd_w##W(x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, grid, n_part, \
+                             n, in_size, out_size, depth, omega0, omega_h, bf16, stream);
+    SINE_MLP_WIDE_GEOS(SINE_MLP_BWD_CASE)
+#undef SINE_MLP_BWD_CASE
+  }
+  const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth,
                              omega0, omega_h);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16) {
-    if ((err = allow_smem(sine_mlp_bwd_kernel<true>, kBwdSmem)) != cudaSuccess) return (int)err;
-    sine_mlp_bwd_kernel<true><<<grid, THREADS, kBwdSmem, s>>>(c, x, g, dx, z_scratch, partials,
-                                                               n_part);
-  } else {
-    if ((err = allow_smem(sine_mlp_bwd_kernel<false>, kBwdSmem)) != cudaSuccess) return (int)err;
-    sine_mlp_bwd_kernel<false><<<grid, THREADS, kBwdSmem, s>>>(c, x, g, dx, z_scratch, partials,
-                                                                n_part);
-  }
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? launch(sine_mlp_bwd_kernel<true>, grid, THREADS, kBwdSmem, s, c, x, g, dx,
+                             z_scratch, partials, n_part)
+                    : launch(sine_mlp_bwd_kernel<false>, grid, THREADS, kBwdSmem, s, c, x, g,
+                             dx, z_scratch, partials, n_part));
 }
 
 // The row split's group count; ops/sine_mlp.py mirrors it.
@@ -944,10 +1408,8 @@ int sum_partials(const float* partials, float* out, int n_blocks, int n_part, vo
   if (n_part % 4 != 0 || reinterpret_cast<uintptr_t>(partials) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  if (const int err = sm_count(&sms)) return err;
   const int n_cols = n_part / 4;
   const int grid = n_cols < sms * kSumBlocksPerSm ? n_cols : sms * kSumBlocksPerSm;
   sum_partials_kernel<<<grid, kSumThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
@@ -955,5 +1417,7 @@ int sum_partials(const float* partials, float* out, int n_blocks, int n_part, vo
       n_cols);
   return (int)cudaGetLastError();
 }
+
+#endif  // SINE_MLP_WIDE
 
 }  // extern "C"

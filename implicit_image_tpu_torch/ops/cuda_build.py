@@ -3,11 +3,14 @@ plain C interface, loaded with ctypes).
 
 The library is built at first use, never at import, from the sources under
 `implicit_image_tpu_torch/csrc/` only, into `build/kernels/` at the root of
-the checkout. Its file name carries a hash of the sources, so an edited
-source triggers a rebuild and a stale library is never loaded.
+the checkout. Its file name carries a hash of the sources and of the build
+commands, so an edited source triggers a rebuild and a stale library is
+never loaded. sine_mlp.cu is compiled in parts, one nvcc each, all started
+together (the wider kernels' parts take the longest), then linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libiit_<hash>.so csrc/sine_mlp.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         [-DSINE_MLP_WIDE=W -DSINE_MLP_BWD=0|1] -c -o <part>.o csrc/sine_mlp.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libiit_<hash>.so *.o
 """
 from __future__ import annotations
 
@@ -16,27 +19,36 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "load_library", "ptxas_report"]
+from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS
+
+__all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("sine_mlp.cu", "fast_math.cuh")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# the parts of sine_mlp.cu: the width-128 kernels, sum_partials and the C
+# interface; then each wider width's forward and backward
+_PARTS = {"base": []} | {
+    f"{'bwd' if bwd else 'fwd'}{w}": [f"-DSINE_MLP_WIDE={w}", f"-DSINE_MLP_BWD={bwd}"]
+    for w in KERNEL_WIDTHS[1:] for bwd in (0, 1)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sine_mlp_hidden": ([], _I),
-    "sine_mlp_tile_rows": ([], _I),
+    "sine_mlp_kernel_width": ([_I], _I),
+    "sine_mlp_tile_rows": ([_I], _I),
     "sine_mlp_max_io": ([], _I),
-    # x, w0, wm, wl, bs, bl, out, n, in, out, depth, omega0, omega_h, bf16, stream
-    "sine_mlp_fwd": ([_P] * 7 + [_I] * 4 + [_F, _F, _I, _P], _I),
-    # x, g, w0, wm, wl, bs, dx, z_scratch, partials, grid, n_part, n, in, out,
-    # depth, omega0, omega_h, bf16, stream
-    "sine_mlp_bwd": ([_P] * 9 + [_I] * 6 + [_F, _F, _I, _P], _I),
+    # x, w0, wm, wl, bs, bl, out, n, in, out, depth, hidden, omega0, omega_h,
+    # bf16, stream
+    "sine_mlp_fwd": ([_P] * 7 + [_I] * 5 + [_F, _F, _I, _P], _I),
+    # x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, grid, n_part, n, in,
+    # out, depth, hidden, omega0, omega_h, bf16, stream
+    "sine_mlp_bwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _I, _P], _I),
     "sum_partials_groups": ([], _I),
     # partials, out, n_blocks, n_part, stream
     "sum_partials": ([_P, _P, _I, _I, _P], _I),
@@ -67,24 +79,39 @@ def _source_hash() -> str:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(_ARCH.encode())
+    h.update(repr(sorted(_PARTS.items())).encode())
     return h.hexdigest()[:16]
 
 
-def _build(out: Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), _ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(tmp), str(CSRC / "sine_mlp.cu"),
-    ]
+def _run(cmd) -> subprocess.CompletedProcess:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    _state["ptxas"] = proc.stderr
+    return proc
+
+
+def build(src_dir: Path, out: Path) -> str:
+    """Compile src_dir/sine_mlp.cu (with its headers) in its parts, all at
+    once, and link them into the shared library `out`; returns ptxas's
+    report. The tools build their copies of the source with it too."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = {name: tmp.with_name(f"{tmp.name}.{name}.o") for name in _PARTS}
+    cmds = [[_nvcc(), _ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             *flags, "-c", "-o", str(objs[name]), str(src_dir / "sine_mlp.cu")]
+            for name, flags in _PARTS.items()]
+    try:
+        with ThreadPoolExecutor(len(cmds)) as ex:
+            report = "".join(p.stderr for p in ex.map(_run, cmds))
+        _run([_nvcc(), _ARCH, "-shared", "-o", str(tmp), *map(str, objs.values())])
+    finally:
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
+    return report
 
 
 def load_library() -> ctypes.CDLL:
@@ -93,7 +120,7 @@ def load_library() -> ctypes.CDLL:
         return _state["lib"]
     path = BUILD_DIR / f"libiit_{_source_hash()}.so"
     if not path.is_file():
-        _build(path)
+        _state["ptxas"] = build(CSRC, path)
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -12,7 +12,11 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 What bounds them on the card, and the design: see the note at the top of
 csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
 the tensor cores, mma.sync over 128-row tiles, each hidden W streamed by
-cp.async copies into a double-buffered ring in shared memory).
+cp.async copies into a double-buffered ring in shared memory). Widths up to
+512 run: a model's hidden width is zero-padded to the next kernel width of
+`KERNEL_WIDTHS` (padded units stay exactly 0); the kernels above 128 stream
+each W in slices of rows and tile 64 or 32 pixel rows (csrc/sine_mlp.cu,
+"the wider kernels"). A CUDA tensor of a width above 512 raises.
 
 Side by side in this module:
 
@@ -54,6 +58,9 @@ __all__ = [
     "siren_chain_backward_reference",
     "SineMLPFunction",
     "siren_apply_flat_fused",
+    "KERNEL_TILE_ROWS",
+    "KERNEL_WIDTHS",
+    "kernel_width",
     "partial_layout",
     "sine_mlp_fwd",
     "sine_mlp_bwd",
@@ -77,6 +84,13 @@ _PRECISION_OF = {
 
 # launches per kernel; only the launch sites below add to these
 LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sum_partials": 0}
+
+# the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile
+# (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
+# sine_mlp_kernel_width() and sine_mlp_tile_rows()): a SIREN of hidden width h
+# runs on the first width that is >= h, zero-padded to it
+KERNEL_TILE_ROWS = {128: 128, 192: 64, 256: 64, 512: 32}
+KERNEL_WIDTHS = tuple(KERNEL_TILE_ROWS)
 
 # kSumGroups of csrc/sine_mlp.cu (the library's sum_partials_groups()): the
 # row groups of the partial-sum kernel's fixed order
@@ -213,18 +227,27 @@ def _pack(params, hidden: int):
     return w0, wm.contiguous(), wl, bs.contiguous(), bl
 
 
+def kernel_width(h: int) -> int:
+    """The kernel width a SIREN of hidden width h runs on; raises
+    NotImplementedError above the widest kernel."""
+    hidden = next((k for k in KERNEL_WIDTHS if 1 <= h <= k), None)
+    if hidden is None:
+        spans = ", ".join(f"{lo}-{hi} at {hi}" for lo, hi in
+                          zip((1,) + tuple(k + 1 for k in KERNEL_WIDTHS), KERNEL_WIDTHS))
+        raise NotImplementedError(
+            f"the CUDA SIREN kernels take hidden widths {spans}; got width {h}")
+    return hidden
+
+
 def _kernel_dims(params, x: torch.Tensor):
     lib = _lib()
-    hidden = lib.sine_mlp_hidden()
     max_io = lib.sine_mlp_max_io()
     depth = len(params)
     in_size, h = params[0]["w"].shape
     out_size = params[-1]["w"].shape[1]
-    if depth < 2 or h > hidden:
-        raise NotImplementedError(
-            f"the CUDA SIREN kernels take depth >= 2 and width <= {hidden}; "
-            f"got depth {depth}, width {h}"
-        )
+    if depth < 2:
+        raise NotImplementedError(f"the CUDA SIREN kernels take depth >= 2; got depth {depth}")
+    hidden = kernel_width(h)
     if in_size > max_io or out_size > max_io or x.shape[1] != in_size:
         raise ValueError(f"input/output widths must be <= {max_io} and match x")
     return lib, hidden, depth, in_size, out_size
@@ -249,20 +272,21 @@ def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
         err = lib.sine_mlp_fwd(
             x.data_ptr(), w0.data_ptr(), wm.data_ptr(), wl.data_ptr(),
             bs.data_ptr(), bl.data_ptr(), out.data_ptr(), n, in_size, out_size,
-            depth, om[0], om[1], int(bf16), stream,
+            depth, hidden, om[0], om[1], int(bf16), stream,
         )
     _raise_on(err, "sine_mlp_fwd")
     LAUNCHES["sine_mlp_fwd"] += 1
     return out
 
 
-def partial_layout(n: int, depth: int, in_size: int, out_size: int, device):
-    """The backward kernel's partial-gradient buffer for n pixel rows:
-    returns (grid, n_part, sizes) — one slice of n_part floats per block,
-    holding dw0, dwm, dwl, dbs, dbl (`sizes` floats each) in that order."""
-    lib = _lib()
-    hidden = lib.sine_mlp_hidden()
-    n_tiles = -(-n // lib.sine_mlp_tile_rows())
+def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, device):
+    """The backward kernel's partial-gradient buffer for n pixel rows of a
+    SIREN of hidden width `width`: returns (grid, n_part, sizes) — one slice
+    of n_part floats per block (one block per SM, at most one per tile),
+    holding dw0, dwm, dwl, dbs, dbl (`sizes` floats each, at the kernel
+    width) in that order."""
+    hidden = kernel_width(width)
+    n_tiles = -(-n // KERNEL_TILE_ROWS[hidden])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     sizes = (
         in_size * hidden,                 # dw0
@@ -285,27 +309,31 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     dev = x.device
     h = params[0]["w"].shape[1]
     w0, wm, wl, bs, _ = _pack(params, hidden)
+    # the wider kernels' gz W^T reads W^T's rows from the ring
+    wmt = wm.transpose(1, 2).contiguous() if hidden != KERNEL_WIDTHS[0] else None
     x = x.float().contiguous()
     g = g.float().contiguous()
     n = x.shape[0]
-    tile = lib.sine_mlp_tile_rows()
-    grid, n_part, sizes = partial_layout(n, depth, in_size, out_size, dev)
+    tile = KERNEL_TILE_ROWS[hidden]
+    grid, n_part, sizes = partial_layout(n, depth, in_size, h, out_size, dev)
     dx = torch.empty_like(x)
     # the z stash: one (tile, hidden) slice per block for z_1 .. z_{depth-3}
     z_scratch = torch.empty((grid, max(depth - 3, 1), tile, hidden), dtype=torch.float32,
                             device=dev)
     partials = torch.empty((grid, n_part), dtype=torch.float32, device=dev)
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs), ("dx", dx),
-                    ("z_scratch", z_scratch), ("partials", partials)):
+                    ("z_scratch", z_scratch), ("partials", partials)) + (
+                        (("wmt", wmt),) if wmt is not None else ()):
         _check_cuda(name, t, dev)
     _check_cuda("g", g, dev, (n, out_size))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sine_mlp_bwd(
-            x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), wl.data_ptr(),
+            x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(),
+            None if wmt is None else wmt.data_ptr(), wl.data_ptr(),
             bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(), partials.data_ptr(),
             grid, n_part, n,
-            in_size, out_size, depth, om[0], om[1], int(bf16), stream,
+            in_size, out_size, depth, hidden, om[0], om[1], int(bf16), stream,
         )
     _raise_on(err, "sine_mlp_bwd")
     LAUNCHES["sine_mlp_bwd"] += 1

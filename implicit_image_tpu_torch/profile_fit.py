@@ -7,6 +7,11 @@
         mlp=coordx mlp.hidden_size=96 mlp.split_depth=5 masking.density=0.85 \
         train.num_steps=1200 train.init_path=auto quant.delta=true quant.row_stride=4 \
         entropy_coding=auto
+    # the reference's finals operating point for its harder images
+    # (scripts/finals.sh, one density): SIREN w182, 9-bit k-means, zstd, 5x steps
+    python -m implicit_image_tpu_torch.profile_fit --out outputs/finals.json \
+        img=big_building mlp.hidden_size=182 quant.bits=9 entropy_coding=zstd \
+        train.multiplier=5 masking=RigL masking.density=0.5
 
 Two parts, both on CUDA, with the composed default config (the JAX
 default, masking=RigL) and the given overrides:

@@ -3,7 +3,8 @@
     python -m implicit_image_tpu_torch.tools.kernel_breakdown [--out FILE]
 
 Builds copies of csrc/sine_mlp.cu with one part knocked out each (their
-results are wrong by design), all at once with one nvcc per copy, and
+results are wrong by design), all at once (each in the parts of
+ops/cuda_build.build), and
 times sine_mlp_fwd and sine_mlp_bwd of each in the fp32 mode at the main
 path's shapes (512^2 pixels, d8, w128; CUDA events over 10 launches after
 a warm-up). The differences to "full" say what each part costs:
@@ -45,7 +46,7 @@ def _rep(src: str, old: str, new: str) -> str:
 
 
 def variants(src: str) -> dict:
-    stash_st = ("        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw(r, c)]) = "
+    stash_st = ("        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw<S>(r, c)]) = "
                 "make_float2(z0, z1);")
     copy_z = "    asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\"\n" \
              "                 ::\"r\"(smem_addr(dst + 4 * e)), \"l\"(src + 4 * e) : \"memory\");"
@@ -65,11 +66,12 @@ def variants(src: str) -> dict:
     }
 
 
-def _nvcc(src: Path, out: Path, shared: bool) -> None:
-    cmd = [cb._nvcc(), cb._ARCH, "-std=c++17", "-O3", "-o", str(out), str(src)]
-    if shared:
-        cmd[4:4] = ["-shared", "-Xcompiler", "-fPIC"]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+def _build(src: Path, out: Path) -> None:
+    if src.suffix == ".cu":  # tools/mma_rate.cu: a program
+        cmd = [cb._nvcc(), cb._ARCH, "-std=c++17", "-O3", "-o", str(out), str(src)]
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    else:  # a copy of csrc/: the library, built in its parts
+        cb.build(src, out)
 
 
 def _load(path: Path) -> ctypes.CDLL:
@@ -108,10 +110,10 @@ def main(argv=None) -> dict:
         (tmp / name).mkdir()
         (tmp / name / "sine_mlp.cu").write_text(text)
         (tmp / name / "fast_math.cuh").write_text((cb.CSRC / "fast_math.cuh").read_text())
-    jobs = [(tmp / n / "sine_mlp.cu", tmp / n / "lib.so", True) for n in srcs]
-    jobs.append((TOOLS / "mma_rate.cu", tmp / "mma_rate", False))
+    jobs = [(tmp / n, tmp / n / "lib.so") for n in srcs]
+    jobs.append((TOOLS / "mma_rate.cu", tmp / "mma_rate"))
     with ThreadPoolExecutor(len(jobs)) as ex:
-        list(ex.map(lambda j: _nvcc(*j), jobs))
+        list(ex.map(lambda j: _build(*j), jobs))
 
     dev = torch.device("cuda")
     mdef, mcfg = build_model("siren", depth=8, hidden_size=128)

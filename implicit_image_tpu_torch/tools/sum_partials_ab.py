@@ -3,10 +3,10 @@ with partials.sum(0) on the card.
 
     python -m implicit_image_tpu_torch.tools.sum_partials_ab [--out FILE]
 
-Builds, with one nvcc each and all at once, copies of csrc/sine_mlp.cu with
-the partial-sum constants changed (COPIES: row groups, lanes per group,
-blocks per SM, loads in flight; the shipped design is the first) and
-tools/sum_partials_variants.cu (the replaced scalar kernel, a cluster
+Builds, all at once (each in the parts of ops/cuda_build.build), copies of
+csrc/sine_mlp.cu with the partial-sum constants changed (COPIES: row
+groups, lanes per group, blocks per SM, loads in flight; the shipped design
+is the first) and tools/sum_partials_variants.cu (the replaced scalar kernel, a cluster
 design, and a flat read of the same bytes: what reading them costs). On
 the main path's partial buffer (132 x 99,844 fp32 at 512^2, d8, w128;
 random, from a seed), each sum must equal sum_partials_reference with its
@@ -74,6 +74,9 @@ def _copy(src: str, values) -> str:
 
 
 def _nvcc(src: Path, out: Path) -> None:
+    if src.name == "sine_mlp.cu":  # a copy of csrc/: the library, built in its parts
+        cb.build(src.parent, out)
+        return
     cmd = [cb._nvcc(), cb._ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-o", str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -209,3 +209,26 @@ def test_truncated_plain_stream_raises(tmp_path):
     data.write_bytes(data.read_bytes()[:-1])
     with pytest.raises(ValueError):
         tcoding.decompress_state_dict(tmp_path, "plain")
+
+
+@pytest.mark.parametrize("edit", [None, "cut", "append"])
+def test_jax_range_container_decodes_in_the_port(tmp_path, edit):
+    """A container the JAX package writes with the `range` stream decodes in
+    the port to the weights it holds; cut by one byte or with one byte
+    appended, it raises ValueError."""
+    params, books = _params_and_books(seed=3)
+    state = jcoding.linear_state_dict(
+        params, [JBook(centroids=b[1], labels=b[0]) if b else None for b in books], half="auto")
+    jcoding.compress_state_dict(state, tmp_path, "range")
+    want = jcoding.decompress_state_dict(tmp_path, "range")
+    data = tmp_path / "compressed_weights.data"
+    if edit is None:
+        got = tcoding.decompress_state_dict(tmp_path, "range")
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+        return
+    blob = data.read_bytes()
+    data.write_bytes(blob[:-1] if edit == "cut" else blob + b"\x01")
+    with pytest.raises(ValueError):
+        tcoding.decompress_state_dict(tmp_path, "range")

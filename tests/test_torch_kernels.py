@@ -32,7 +32,8 @@ def cuda_device():
 @pytest.mark.parametrize("precision,fwd_tol,bwd_tol",
                          [("fp32", 1e-4, 1e-4), ("bf16", 1.5e-3, 2e-2)])
 @pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (4, 32, 200), (2, 64, 64),
-                                            (3, 57, 300), (7, 128, 40000)])
+                                            (3, 57, 300), (7, 128, 40000), (8, 182, 40000),
+                                            (4, 256, 40000), (3, 512, 20000)])
 def test_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hidden, n):
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
@@ -61,7 +62,20 @@ def test_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hi
 def test_limits_reject_the_other_modes_kernel(cuda_device, precision, other, fwd_tol, bwd_tol):
     """Control for the limits above: the kernel of the other precision mode,
     held to this mode's plain chain, fails them."""
-    m, c = build_model("siren", depth=8, hidden_size=128)
+    _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, 8, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,other,fwd_tol,bwd_tol",
+                         [("fp32", "bf16", 1e-4, 1e-4), ("bf16", "fp32", 1.5e-3, 2e-2)])
+def test_limits_reject_the_other_modes_kernel_at_w256(cuda_device, precision, other, fwd_tol,
+                                                      bwd_tol):
+    """The same control on the wider kernels (d4/w256)."""
+    _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, 4, 256)
+
+
+def _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, depth, hidden):
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
     gen = torch.Generator().manual_seed(1)
     x = (torch.rand((4099, 2), generator=gen) * 2 - 1).to(cuda_device)
@@ -76,7 +90,16 @@ def test_limits_reject_the_other_modes_kernel(cuda_device, precision, other, fwd
 
 @pytest.mark.cuda
 def test_kernel_backward_repeats_bit_for_bit(cuda_device):
-    m, c = build_model("siren", depth=5, hidden_size=128)
+    _check_backward_repeats(cuda_device, 128)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_backward_repeats_bit_for_bit(cuda_device):
+    _check_backward_repeats(cuda_device, 256)
+
+
+def _check_backward_repeats(cuda_device, hidden):
+    m, c = build_model("siren", depth=5, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
     x = (torch.rand((20000, 2), generator=torch.Generator().manual_seed(2)) * 2 - 1).to(
         cuda_device)
@@ -122,10 +145,36 @@ def test_sum_partials_rejects_what_float4_loads_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_width(cuda_device):
-    m, c = build_model("siren", depth=3, hidden_size=256)
+    m, c = build_model("siren", depth=3, hidden_size=576)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="257-512 at 512"):
         sm.sine_mlp_fwd(params, torch.zeros((8, 2), device=cuda_device), c, "fp32")
+    with pytest.raises(NotImplementedError):
+        sm.sine_mlp_bwd(params, torch.zeros((8, 2), device=cuda_device),
+                        torch.zeros((8, 3), device=cuda_device), c, "fp32")
+
+
+@pytest.mark.cuda
+def test_kernel_widths_and_partial_layout(cuda_device):
+    """The library's kernel widths and tile rows are KERNEL_TILE_ROWS (each
+    width runs on the first kernel width at or above it, as kernel_width()
+    says); the partial buffer has one block per SM, at most one per tile of
+    the width's rows, and 16-byte-aligned slices."""
+    lib = sm._lib()
+    for h in range(1, 600):
+        want = next((k for k in sm.KERNEL_WIDTHS if h <= k), 0)
+        assert lib.sine_mlp_kernel_width(h) == want, h
+        if want:
+            assert sm.kernel_width(h) == want, h
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert sm.KERNEL_TILE_ROWS == {128: 128, 192: 64, 256: 64, 512: 32}
+    for hidden, rows in sm.KERNEL_TILE_ROWS.items():
+        assert lib.sine_mlp_tile_rows(hidden) == rows
+        for n in (1, rows * 7 + 1, 512 * 512):
+            grid, n_part, sizes = sm.partial_layout(n, 8, 2, hidden, 3, cuda_device)
+            assert grid == min(-(-n // rows), sms)
+            assert n_part % 4 == 0 and n_part >= sum(sizes)
+            assert sizes[1] == 6 * hidden * hidden
 
 
 @pytest.mark.cuda

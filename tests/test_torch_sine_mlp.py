@@ -66,8 +66,8 @@ def test_siren_init_bounds_and_shapes():
         assert float(layer["b"].abs().max()) <= 1.0 / np.sqrt(c.layer_dims[i][0])
 
 
-def test_fp32_forward_and_grads_match_jax():
-    jm, jc, m, c, p, coords, target = _setup()
+def _check_fp32_against_jax(**setup):
+    jm, jc, m, c, p, coords, target = _setup(**setup)
     tp = _leaves(p)
     out, grads = _torch_grads(m, c, tp, coords, target, "fp32")
     np.testing.assert_allclose(out, np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
@@ -78,6 +78,18 @@ def test_fp32_forward_and_grads_match_jax():
             assert np.abs(a[k] - ref).max() <= 1e-4 * np.abs(ref).max(), k
 
 
+def test_fp32_forward_and_grads_match_jax():
+    _check_fp32_against_jax()
+
+
+@pytest.mark.parametrize("depth,hidden", [(3, 182), (4, 256)])
+def test_fp32_wide_forward_and_grads_match_jax(depth, hidden):
+    """Widths above 128 (the reference's finals width 182, and 256; the card
+    pads them to its kernel widths 192 and 256): the plain chain against
+    JAX XLA fp32 on 256 pixels, at the same limits."""
+    _check_fp32_against_jax(depth=depth, hidden=hidden, hw=(16, 16))
+
+
 def test_siren_apply_grid_matches_flat():
     _, _, m, c, p, coords, _ = _setup()
     tp = params_from_jax(p, "cpu")
@@ -86,11 +98,8 @@ def test_siren_apply_grid_matches_flat():
                                   m.apply_flat(tp, grid.reshape(-1, 2), c).numpy())
 
 
-def test_bf16_chain_matches_pallas_interpret():
-    """The bf16 mode computes what the Pallas kernel computes: forward within
-    the 8e-3 bound of tests/test_pallas.py, gradients under its error rule
-    (error vs exact fp32 at most max(2.5x the XLA-bf16 path's, 0.02))."""
-    jm, jc, m, c, p, coords, target = _setup()
+def _check_bf16_against_pallas(**setup):
+    jm, jc, m, c, p, coords, target = _setup(**setup)
     with pltpu.force_tpu_interpret_mode():
         pallas_out = np.asarray(siren_apply_flat_pallas(p, coords, jc))
     tp = _leaves(p)
@@ -106,6 +115,19 @@ def test_bf16_chain_matches_pallas_interpret():
             err_port = float(np.abs(a[k] - np.asarray(f[k])).max()) / scale
             err_xla = float(np.abs(np.asarray(b[k]) - np.asarray(f[k])).max()) / scale
             assert err_port < max(2.5 * err_xla, 0.02), (k, err_port, err_xla)
+
+
+def test_bf16_chain_matches_pallas_interpret():
+    """The bf16 mode computes what the Pallas kernel computes: forward within
+    the 8e-3 bound of tests/test_pallas.py, gradients under its error rule
+    (error vs exact fp32 at most max(2.5x the XLA-bf16 path's, 0.02))."""
+    _check_bf16_against_pallas()
+
+
+def test_bf16_wide_chain_matches_pallas_interpret():
+    """The same at the finals width 182 (depth 3, 256 pixels): the Pallas
+    kernel pads it to 256 lanes, the card to 192, zero units either way."""
+    _check_bf16_against_pallas(depth=3, hidden=182, hw=(16, 16))
 
 
 def test_bf16_coordinate_gradient_nonzero_and_close():
@@ -162,6 +184,20 @@ def test_depth_two_chain():
     tp = _leaves(p)
     out, _ = _torch_grads(m, c, tp, coords, target, "fp32")
     np.testing.assert_allclose(out, np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
+
+
+@pytest.mark.parametrize("h,want", [(1, 128), (57, 128), (128, 128), (129, 192),
+                                    (182, 192), (192, 192), (193, 256), (256, 256),
+                                    (257, 512), (512, 512)])
+def test_kernel_width_pads_to_the_next_kernel_width(h, want):
+    assert sm.kernel_width(h) == want
+    assert sm.KERNEL_TILE_ROWS[want] * want <= 128 * 128  # one activation tile, 64 KB
+
+
+@pytest.mark.parametrize("h", [0, 513, 576])
+def test_kernel_width_outside_the_kernels_raises(h):
+    with pytest.raises(NotImplementedError, match="129-192 at 192.*257-512 at 512"):
+        sm.kernel_width(h)
 
 
 # ------------------------------------------- split-precision product design
@@ -228,15 +264,14 @@ def _emulated_chain(params, x, g, om, mm):
     return out, ga, grads
 
 
-@pytest.fixture(scope="module")
-def split_errors():
+def _split_errors(hidden=128, n=4099):
     """(forward max abs, backward max rel) of each scheme against the fp32
-    chain: d8/w128 SIREN init, 4,099 pixels."""
-    _, _, _, c, np_params, _, _ = _setup(depth=8, hidden=128, hw=(2, 2), seed=3)
+    chain: a d8 SIREN init of width `hidden`, n pixels."""
+    _, _, _, c, np_params, _, _ = _setup(depth=8, hidden=hidden, hw=(2, 2), seed=3)
     params = params_from_jax(np_params, "cpu")
     rng = np.random.default_rng(11)
-    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (4099, 2)).astype(np.float32))
-    g = torch.from_numpy((rng.standard_normal((4099, 3)) / 4099).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal((n, 3)) / n).astype(np.float32))
     om = [float(c.first_omega_0)] + [float(c.hidden_omega_0)] * (len(params) - 1)
     ref = _emulated_chain(params, x, g, om, _product("fp32"))
 
@@ -248,6 +283,12 @@ def split_errors():
         return float((out - ref[0]).abs().max()), rel
 
     return errors
+
+
+@pytest.fixture(scope="module")
+def split_errors():
+    """The d8/w128 chain on 4,099 pixels."""
+    return _split_errors()
 
 
 def test_round_mantissa_is_nearest_even():
@@ -271,3 +312,17 @@ def test_split_precision_against_fp32_limits(split_errors, scheme, passes):
         assert fwd > _FP32_FWD_TOL and bwd > _FP32_BWD_TOL, (fwd, bwd)
     else:
         assert bwd > _FP32_BWD_TOL, (fwd, bwd)
+
+
+@pytest.mark.parametrize("scheme,passes", [("3xtf32", True), ("tf32", False)])
+@pytest.mark.parametrize("hidden,n", [(256, 1000), (512, 400)])
+def test_split_precision_at_wide_widths(hidden, n, scheme, passes):
+    """The error of a product grows with its depth K: at d8 with K = 256 and
+    512 (the wider kernels' widths) 3xTF32 still passes the fp32 mode's
+    limits, with the margin of 10 of width 128, and 1-pass TF32 still fails
+    both."""
+    fwd, bwd = _split_errors(hidden, n)(scheme)
+    if passes:
+        assert fwd * 10 <= _FP32_FWD_TOL and bwd * 10 <= _FP32_BWD_TOL, (fwd, bwd)
+    else:
+        assert fwd > _FP32_FWD_TOL and bwd > _FP32_BWD_TOL, (fwd, bwd)

@@ -3,8 +3,9 @@
 For every backend and a seeded payload both packages write identical bytes
 (the `auto` tag byte included) and each decodes the other's stream; the
 port's native codecs equal its pure-Python versions; corrupt streams raise
-ValueError; a codec that cannot be built raises instead of dropping to
-Python.
+ValueError, and so does a `range` stream cut short or with bytes appended
+(the port's decoders read the body exactly to its end); a codec that cannot
+be built raises instead of dropping to Python.
 """
 from pathlib import Path
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 
 from implicit_image_tpu.coding import parsers as jparsers
+from implicit_image_tpu.coding import range_coder as jrange
 from implicit_image_tpu_torch.coding import huffman, native_loader, range_coder, rans
 from implicit_image_tpu_torch.coding import parsers as tparsers
 
@@ -96,6 +98,32 @@ def test_corrupt_native_streams_raise(codec):
         dec(b"XXXX" + blob[4:])  # bad magic
     with pytest.raises(ValueError):
         dec(blob[:10])  # truncated header
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("edit", ["cut 1 byte", "append 1 byte"])
+def test_misread_range_body_raises(native, edit):
+    """A range stream one byte short, or one byte long, raises ValueError in
+    the native and the Python decoder (both read zeros past the end before
+    the repair and returned wrong bytes without error)."""
+    blob = jrange.range_encode(_payload(7, n=300))
+    bad = blob[:-1] if edit == "cut 1 byte" else blob + b"\x00"
+    with pytest.raises(ValueError, match="read exactly to its end"):
+        range_coder.range_decode(bad, native=native)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_intact_range_streams_read_to_their_end(native):
+    """Streams the JAX package writes (sizes 1 to 3,000 bytes; random,
+    skewed and constant data) still decode in both of the port's decoders:
+    each body is read exactly to its end."""
+    rng = np.random.default_rng(8)
+    for n in (1, 2, 5, 17, 256, 999, 3000):
+        for raw in (rng.integers(0, 256, n, dtype=np.uint8).tobytes(),
+                    np.clip(rng.normal(128, 3, n), 0, 255).astype(np.uint8).tobytes(),
+                    bytes([n % 256]) * n):
+            assert range_coder.range_decode(jrange.range_encode(raw), len(raw),
+                                            native=native) == raw
 
 
 def test_unknown_backend_and_tag_raise():
