@@ -59,9 +59,27 @@ Phases, each printing its own line:
      compress.main (dense, no quantization or container): the d8/w256
      member of scripts/width_depth.sh and the tracked w512 row of
      scripts/tracked_r5.sh (lr 1e-4): every kernel launched, fit PSNR
-     finite.
+     finite;
+ 11. the reference's other model families at full width (d8/w128, 512²,
+     img=synthetic; scripts/run_studies_r5.sh), each through compress.main
+     and, where it writes a container, decompress.decode_run: (a)
+     wavelet-SIREN dense, k-means, zstd (200 + 20 steps, cut from
+     2000 + 100); (b) the same under RigL at density 0.25 (200 + 20, 10
+     mask updates); (c) Feathermap at density 0.2 over SIREN, 5x steps,
+     zstd (40 x 5 + 20, cut from 2000 x 5 + 100); (d) Fourier features,
+     the d8/w128 member of the width x depth grid, no quantization or
+     container (200, cut from 2000). First K1/K2 against the plain chain
+     at the wavelet's DWT lattice (258² = 66,564 rows, no whole number of
+     tiles). K1, K2 and sum_partials launch in (a)-(c), K2 exactly twice
+     per fit and finetune step in (a) and (b) (once per sub-SIREN) and once
+     in (c); no kernel launches in (d). Decoded PSNR ((d): fit PSNR)
+     finite and >= 20 dB ((c): 12 dB, FAMILY_PSNR_FLOOR); (a) and (b)
+     re-encode their zstd container from what it decodes to the same
+     bytes; (c)'s container holds V1, V2 and the scalers and no codebook;
+     (b)'s RigL weight counts are conserved over all 16 layers of both
+     sub-SIRENs. Each run prints its ms per fit step.
 
-Each of phases 4-6 and 8-10 sets the launch counts to 0 just before its
+Each of phases 4-6 and 8-11 sets the launch counts to 0 just before its
 run and reads them just after. In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
@@ -149,6 +167,26 @@ WIDE_OVERRIDES = {
 }
 WIDE_COMMON = ["img=synthetic", "masking=none", "quant=none", "entropy_coding=none",
                "train.num_steps=20", "train.log_steps=10"]
+# phase 11: the reference's other model families (scripts/run_studies_r5.sh),
+# each cut from its script's steps
+FAMILY_COMMON = ["img=synthetic", "train.log_steps=100", "quant.num_steps=20"]
+FAMILY_RUNS = {
+    "a wavelet dense": ["mlp=wavelet_siren", "masking=none", "quant=kmeans",
+                        "entropy_coding=zstd", "train.num_steps=200"],
+    "b wavelet RigL": ["mlp=wavelet_siren", "masking=RigL", "masking.density=0.25",
+                       "quant=kmeans", "entropy_coding=zstd", "train.num_steps=200"],
+    "c Feathermap": ["masking=Feathermap", "masking.density=0.2", "train.multiplier=5",
+                     "entropy_coding=zstd", "train.num_steps=40"],
+    "d Fourier": ["mlp=fourier", "masking=none", "quant=none", "entropy_coding=none",
+                  "train.num_steps=200"],
+}
+# PSNR floors (dB). 200 steps leave Feathermap far from converged: the JAX
+# package's own CPU run of (c)'s configuration and steps, its lattice cut to
+# 128² (the synthetic image samples the same function at any size), decodes
+# 15.08 dB, so (c) is held to 12 dB; the others to 20 dB (the JAX package
+# reads 34.55, 32.63 and 29.52 dB at 128² for a, b and d).
+FAMILY_PSNR_FLOOR = {"c Feathermap": 12.0}
+FEATHER_NAMES = {"layers.0.weight", "layers.1.weight", "layers.2.bias"}  # V1, V2, scalers
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -915,6 +953,127 @@ def phase_wide(width: int) -> dict:
     return launches
 
 
+def _wavelet_lattice_kernels() -> None:
+    """K1/K2 against the plain chain (fp32) at the wavelet-SIREN's LF
+    shapes: 258² = 66,564 rows, d8/w128, out 3."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    mdef, mcfg = build_model("wavelet_siren", depth=DEPTH, hidden_size=WIDTH,
+                             height=N_SIDE, width=N_SIDE)
+    gen = torch.Generator().manual_seed(0)
+    params = mdef.init(gen, mcfg, dev)[: mcfg.n_lf_layers]
+    lf = mcfg.lf_config
+    x = (get_grid(*mcfg.lf_shape, dev).reshape(-1, 2) - 0.5) * 2.0
+    g = (torch.randn((x.shape[0], 3), generator=gen) / x.shape[0]).to(dev)
+    kernel = (sm.sine_mlp_fwd(params, x, lf, "fp32"), *sm.sine_mlp_bwd(params, x, g, lf, "fp32"))
+    plain = (sm.siren_chain_reference(params, x, lf, "fp32"),
+             *sm.siren_chain_backward_reference(params, x, g, lf, "fp32"))
+    torch.cuda.synchronize()
+    fwd_err, rel, _ = _errors(kernel, plain)
+    worst = max(rel, key=rel.get)
+    print(f"[11 families] K1/K2 at the DWT lattice {mcfg.lf_shape} ({x.shape[0]} rows): fwd "
+          f"max_abs_err {fwd_err:.3e} (tol {FWD_TOL['fp32']:g}); bwd max rel err "
+          f"{rel[worst]:.3e} at {worst} (tol {BWD_TOL['fp32']:g})", flush=True)
+    if not (fwd_err <= FWD_TOL["fp32"] and rel[worst] <= BWD_TOL["fp32"]):
+        raise AssertionError(f"the kernels disagree at the wavelet lattice: {fwd_err}, {rel}")
+
+
+def phase_families() -> None:
+    """Phase 11: wavelet-SIREN dense and under RigL, Feathermap over SIREN
+    and Fourier features through compress.main and decode_run."""
+    import tempfile
+
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.coding import compress_state_dict, read_raw_container
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    _wavelet_lattice_kernels()
+    for run, overrides in FAMILY_RUNS.items():
+        tag = f"[11 {run}]"
+        cfg = compress.compose(FAMILY_COMMON + overrides + [
+            f"output_dir=outputs/chip_smoke_{run.split()[0]}"])
+        if (int(cfg.mlp.depth), int(cfg.mlp.hidden_size), int(cfg.img.height)) != (
+                DEPTH, WIDTH, N_SIDE):
+            raise AssertionError(f"{tag} must run d{DEPTH}/w{WIDTH} at {N_SIDE}²")
+        masking = compress.masking_config(cfg)
+        init_counts = _initial_counts(cfg, masking) if masking is not None else None
+        fit_steps = int(cfg.train.num_steps) * int(cfg.train.get("multiplier", 1))
+        quant_steps = int(cfg.quant.num_steps) if cfg.quant.name != "none" else 0
+        stream = cfg.entropy_coding.stream_name
+        run_dir = cfg.output_dir
+        shutil.rmtree(run_dir, ignore_errors=True)
+        sm.reset_launch_counts()
+        t0 = time.perf_counter()
+        psnr, nbytes = compress.main(cfg, run_dir=run_dir)
+        t1 = time.perf_counter()
+        img = decompress.decode_run(run_dir, device="cuda")[0] if stream != "none" else None
+        launches = dict(sm.LAUNCHES)
+
+        summary = json.loads(open(f"{run_dir}/summary.json").read())
+        print(f"{tag} {cfg.mlp.name}, masking={(cfg.get('masking') or {}).get('name')}; "
+              f"compress.main {t1 - t0:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
+              f"{summary['fit_wall_s'] / fit_steps * 1e3:.3f} ms/step over {fit_steps} steps, "
+              f"quant {summary.get('quant_wall_s', 0.0):.3f} s over {quant_steps} steps); "
+              f"launches {launches}", flush=True)
+        if run.startswith("d"):
+            if any(launches.values()):
+                raise AssertionError(f"{tag} a SIREN kernel launched on the Fourier path")
+        else:
+            _check_launches(launches, f"{run} path")
+            per_step = 2 if cfg.mlp.name == "wavelet_siren" else 1
+            if launches["sine_mlp_bwd"] != per_step * (fit_steps + quant_steps) or (
+                    launches["sum_partials"] != launches["sine_mlp_bwd"]):
+                raise AssertionError(f"{tag} K2 launched {launches['sine_mlp_bwd']} times, "
+                                     f"not {per_step} per step of {fit_steps + quant_steps}")
+        if stream != "none":
+            container = Path(run_dir) / "model_quantized"
+            blob = (container / "compressed_weights.data").read_bytes()
+            raw = read_raw_container(container, stream)
+            with tempfile.TemporaryDirectory() as tmp:
+                compress_state_dict(raw, tmp, stream)
+                same_bytes = (Path(tmp) / "compressed_weights.data").read_bytes() == blob
+            names = set(raw)
+            print(f"{tag} container {nbytes} B, {len(names)} tensors, "
+                  f"{sum(k.endswith('.labeled_weight') for k in names)} with a codebook; "
+                  f"re-encodes to {'the same bytes' if same_bytes else 'OTHER BYTES'}; fit "
+                  f"PSNR {summary['PSNR']:.3f} dB, quant PSNR {summary['Quant PSNR']:.3f} dB, "
+                  f"decoded PSNR {psnr:.3f} dB, MS-SSIM {summary['Decoded MS-SSIM']:.6f}",
+                  flush=True)
+            if not same_bytes or len(blob) != nbytes:
+                raise AssertionError(f"{tag} the container does not hold what compress.main "
+                                     "wrote")
+            if run.startswith("c") and names != FEATHER_NAMES:
+                raise AssertionError(f"{tag} the container holds {sorted(names)}, not V1, V2 "
+                                     "and the scalers alone")
+            img = np.asarray(img)
+            target = compress._load_image(cfg.img)
+            redecoded = 10.0 * np.log10(1.0 / np.mean((img.astype(np.float64) - target) ** 2))
+            if img.shape != (N_SIDE, N_SIDE, 3) or abs(redecoded - psnr) > 1e-3:
+                raise AssertionError(f"{tag} decode_run gives {img.shape}, {redecoded} dB; "
+                                     f"compress reported {psnr}")
+        else:
+            print(f"{tag} fit PSNR {psnr:.3f} dB", flush=True)
+        if init_counts is not None:
+            masks = np.load(f"{run_dir}/mask.npz")
+            final_counts = {int(k.split(".")[1]): int(masks[k].sum()) for k in masks.files}
+            print(f"{tag} RigL layer counts init {init_counts}, final {final_counts}",
+                  flush=True)
+            if final_counts != init_counts or len(init_counts) != 2 * DEPTH:
+                raise AssertionError(f"{tag} RigL changed a layer's weight count, or masks "
+                                     f"do not cover both sub-SIRENs: {init_counts} -> "
+                                     f"{final_counts}")
+        floor = FAMILY_PSNR_FLOOR.get(run, 20.0)
+        if not (math.isfinite(psnr) and psnr >= floor):
+            raise AssertionError(f"{tag} PSNR {psnr} is not finite or below {floor} dB")
+
+
 def main() -> int:
     import torch
 
@@ -936,6 +1095,7 @@ def main() -> int:
     # the launches of each width on the path that runs it
     path_launches = {WIDTH: launches, FINALS_WIDTH: phase_finals(),
                      **{width: phase_wide(width) for width in WIDE_OVERRIDES}}
+    phase_families()
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sum_partials": 179}
     from implicit_image_tpu_torch.ops.sine_mlp import kernel_width

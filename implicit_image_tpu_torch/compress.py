@@ -6,6 +6,11 @@ report (decoded PSNR, container bytes, decoded MS-SSIM).
 
     python -m implicit_image_tpu_torch.compress            # the JAX default: RigL
     python -m implicit_image_tpu_torch.compress masking=SNFS train.num_steps=2000
+    # the reference's studies (scripts/run_studies_r5.sh)
+    python -m implicit_image_tpu_torch.compress img=synthetic mlp=wavelet_siren \
+        masking=none quant=kmeans entropy_coding=zstd
+    python -m implicit_image_tpu_torch.compress img=synthetic masking=Feathermap \
+        masking.density=0.2 train.multiplier=5 entropy_coding=zstd
     # the JAX bench's flagship recipe
     python -m implicit_image_tpu_torch.compress mlp=coordx mlp.hidden_size=96 \
         mlp.split_depth=5 masking.density=0.85 train.num_steps=1200 \
@@ -23,9 +28,11 @@ CUDA the kernels' build-or-load seconds (kernel_build_s), and for a stream
 that runs the native codecs their build-or-load seconds (codec_build_s);
 no stage wall includes either.
 
-Models: SIREN and CoordX. Masking: RigL (the default), SNFS, Pruning (GMP),
-Small_Dense and none. Streams: every backend (plain, zstd, lzma, huffman,
-range, rans, auto). `train.init_path`: a meta-init .npz, or `auto` (warm
+Models: SIREN, CoordX, Fourier features (mlp=fourier) and wavelet-SIREN
+(mlp=wavelet_siren). Masking: RigL (the default), SNFS, Pruning (GMP),
+Small_Dense, Feathermap (the model's tensors hashed into V1 @ V2 at
+masking.density; a dense fit) and none. Streams: every backend (plain,
+zstd, lzma, huffman, range, rans, auto). `train.init_path`: a meta-init .npz, or `auto` (warm
 from the matching artifact of assets/meta inside the measured budget, else
 cold; training/metainit.py). `quant.delta`: residual codebooks against the
 meta-init, with the unquantized tensors stored as XOR residuals
@@ -33,11 +40,10 @@ meta-init, with the unquantized tensors stored as XOR residuals
 The run sets torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 to False: `tensorfloat32` means fp32 here,
 never NVIDIA's 1-pass TF32.
-Not ported yet, and raising when set: masking=Feathermap, the model
-families fourier, wavelet_siren and hashgrid, optimizers other than Adam,
-quantizers other than k-means, mlp=coordx at train.matmul_precision
-bfloat16 or null, and the train/quant/entropy_coding options listed in
-_UNPORTED.
+Not ported yet, and raising when set: mlp=hashgrid, optimizers other than
+Adam, quantizers other than k-means, mlp=coordx or mlp=fourier at
+train.matmul_precision bfloat16 or null, and the train/quant/entropy_coding
+options listed in _UNPORTED.
 Ignored: TPU-runtime keys with no meaning here (train.segment_steps,
 train.use_pallas, launcher.n_jobs) and the logging keys other than
 logging.use (no W&B sink).

@@ -7,10 +7,12 @@ at the fitted size):
 Reads `config.json` (written by either package's compress) to rebuild the
 model and the stream backend, decodes `model_quantized/` (a delta container
 needs its meta-init artifact: `--delta-artifact` overrides where it is
-looked for), renders through the model registry on the GPU (SIREN through
-the fused kernel chain, CoordX through its grid forward with fp32 products)
-and writes the image next to the container. Batched decode,
-resolution-free rendering and packed .iic files are not ported.
+looked for), renders through the model registry on the GPU (SIREN and
+wavelet-SIREN through the fused kernel chain, Feathermap after its V1 @ V2,
+CoordX and Fourier features through fp32 products) and writes the image
+next to the container. A wavelet-SIREN decodes at its training size only.
+Batched decode, resolution-free rendering and packed .iic files are not
+ported.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Model registry (counterpart of implicit_image_tpu/models/__init__.py).
 
-SIREN and CoordX are ported; the other families of the JAX registry raise
-NotImplementedError until their port lands (ROADMAP.md, Queue 1).
+SIREN, Fourier features, wavelet-SIREN and CoordX are ported, and the
+Feathermap wrap (masking=Feathermap) over any of them; hashgrid raises
+NotImplementedError until its port lands (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Callable, Tuple
 
 __all__ = ["ModelDef", "registry", "build_model", "build_model_from_config"]
 
-_NOT_PORTED = ("fourier", "wavelet_siren", "hashgrid")
+_NOT_PORTED = ("hashgrid",)
 
 
 @dataclass(frozen=True)
@@ -25,6 +26,10 @@ class ModelDef:
     # apply_flat on the same pixels (CoordX): the fit and the finetune then
     # evaluate through `apply` on the grid
     separable: bool = False
+    # True when the model renders only its configured full grid
+    # (wavelet_siren, whose sub-SIRENs run on their own DWT lattices): the
+    # fit then takes no pixel chunks
+    full_grid: bool = False
 
 
 def _siren_def() -> ModelDef:
@@ -50,7 +55,35 @@ def _coordx_def() -> ModelDef:
                     separable=True)
 
 
-registry = {"siren": _siren_def, "coordx": _coordx_def}
+def _fourier_def() -> ModelDef:
+    from implicit_image_tpu_torch.models.fourier import (
+        FourierConfig,
+        fourier_apply,
+        fourier_apply_flat,
+        init_fourier,
+    )
+
+    return ModelDef("fourier", FourierConfig, init_fourier, fourier_apply, fourier_apply_flat)
+
+
+def _wavelet_siren_def() -> ModelDef:
+    from implicit_image_tpu_torch.models.wavelet_siren import (
+        WaveletSirenConfig,
+        init_wavelet_siren,
+        wavelet_siren_apply,
+        wavelet_siren_apply_flat,
+    )
+
+    return ModelDef("wavelet_siren", WaveletSirenConfig, init_wavelet_siren,
+                    wavelet_siren_apply, wavelet_siren_apply_flat, full_grid=True)
+
+
+registry = {
+    "siren": _siren_def,
+    "fourier": _fourier_def,
+    "wavelet_siren": _wavelet_siren_def,
+    "coordx": _coordx_def,
+}
 
 
 def build_model(model_name: str, **cfg_kwargs) -> Tuple[ModelDef, Any]:
@@ -73,15 +106,17 @@ def build_model_from_config(cfg) -> Tuple[ModelDef, Any]:
     """(mdef, mcfg) from a composed run config — the one mapping from
     cfg.mlp + cfg.masking to an architecture, shared by the encoder and the
     decoder. Small-Dense scales the hidden width by sqrt(masking.density);
-    Feathermap, a model family, is not ported yet and raises."""
+    Feathermap wraps the model, hashing its tensors at masking.density."""
     mlp = dict(cfg["mlp"])
     name = mlp.pop("name")
     masking = cfg.get("masking") or {}
-    if masking.get("name") == "Feathermap":
-        raise NotImplementedError(
-            "masking=Feathermap is not ported yet (ROADMAP.md, M11); use another masking"
-        )
     small = 1.0
     if masking.get("name") == "Small_Dense":
         small = float(masking.get("density", 1.0))
-    return build_model(name, small_dense_density=small, **mlp)
+    mdef, mcfg = build_model(name, small_dense_density=small, **mlp)
+    if masking.get("name") == "Feathermap":
+        # local import: feathermap imports this module
+        from implicit_image_tpu_torch.feathermap import build_feather_model
+
+        mdef = build_feather_model(mdef, mcfg, compress=float(masking.get("density", 1.0)))
+    return mdef, mcfg

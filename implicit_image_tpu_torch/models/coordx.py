@@ -30,6 +30,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from implicit_image_tpu_torch.ops import check_fp32
 from implicit_image_tpu_torch.ops.fast_math import fast_sin
 
 __all__ = ["CoordXConfig", "init_coordx", "coordx_apply", "coordx_apply_flat"]
@@ -107,19 +108,6 @@ def init_coordx(generator: torch.Generator, cfg: CoordXConfig, device="cpu") -> 
     return tuple(params)
 
 
-def _check(x: torch.Tensor, cfg: CoordXConfig, precision: str) -> None:
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"mlp=coordx runs in fp32 only; precision {precision!r} "
-            "(train.matmul_precision=bfloat16 or null) is not ported yet"
-        )
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "mlp=coordx on CUDA needs fp32 products: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False"
-        )
-
-
 def _sin(cfg: CoordXConfig):
     return fast_sin if cfg.fast_sine else torch.sin
 
@@ -166,7 +154,7 @@ def coordx_apply(params: Params, grid: torch.Tensor, cfg: CoordXConfig,
     """Factorized forward over a tensor-product (H, W, 2) grid ->
     (H, W, out): the row coordinate is read from grid[:, 0, 0], the column
     coordinate from grid[0, :, 1]; only the fused layers run per pixel."""
-    _check(grid, cfg, precision)
+    check_fp32(grid, "mlp=coordx", precision)
     h, w, _ = grid.shape
     px, py, pf = _split(params, cfg)
     ys = (grid[:, 0, 0:1] - 0.5) * 2.0  # (H, 1) row coordinate
@@ -181,7 +169,7 @@ def coordx_apply_flat(params: Params, coords: torch.Tensor, cfg: CoordXConfig,
                       precision: str = "fp32") -> torch.Tensor:
     """Forward over any (N, 2) coordinates in [0, 1] -> (N, out); the
     branches run per point."""
-    _check(coords, cfg, precision)
+    check_fp32(coords, "mlp=coordx", precision)
     px, py, pf = _split(params, cfg)
     ys = (coords[:, 0:1] - 0.5) * 2.0
     xs = (coords[:, 1:2] - 0.5) * 2.0

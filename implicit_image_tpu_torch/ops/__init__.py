@@ -1,1 +1,26 @@
-"""Device ops: metrics, polynomial sine, the fused SIREN chain and its kernels."""
+"""Device ops: metrics, polynomial sine, the fused SIREN chain and its
+kernels, the db3 DWT; and the fp32 check of the products outside the
+kernels."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["check_fp32"]
+
+
+def check_fp32(x: torch.Tensor, what: str, precision: str = "fp32") -> None:
+    """For a model whose products are plain torch.matmul (the JAX package
+    runs them in XLA, outside any Pallas kernel): only the "fp32" precision
+    is ported, and on the card the products must be true fp32, so a CUDA
+    tensor raises while torch.backends.cuda.matmul.allow_tf32 is set rather
+    than run 1-pass TF32."""
+    if precision != "fp32":
+        raise NotImplementedError(
+            f"{what} runs in fp32 only; precision {precision!r} "
+            "(train.matmul_precision=bfloat16 or null) is not ported yet"
+        )
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{what} on CUDA needs fp32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )

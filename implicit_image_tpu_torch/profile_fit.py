@@ -12,6 +12,12 @@
     python -m implicit_image_tpu_torch.profile_fit --out outputs/finals.json \
         img=big_building mlp.hidden_size=182 quant.bits=9 entropy_coding=zstd \
         train.multiplier=5 masking=RigL masking.density=0.5
+    # the reference's other families (scripts/run_studies_r5.sh)
+    python -m implicit_image_tpu_torch.profile_fit --out outputs/wavelet.json \
+        img=synthetic mlp=wavelet_siren masking=none quant=kmeans entropy_coding=zstd
+    python -m implicit_image_tpu_torch.profile_fit --out outputs/feathermap.json \
+        img=synthetic masking=Feathermap masking.density=0.2 train.multiplier=5 \
+        entropy_coding=zstd
 
 Two parts, both on CUDA, with the composed default config (the JAX
 default, masking=RigL) and the given overrides:
@@ -51,7 +57,7 @@ from implicit_image_tpu_torch.data import get_grid
 from implicit_image_tpu_torch.models import build_model_from_config
 from implicit_image_tpu_torch.optim import adam_momentum
 from implicit_image_tpu_torch.sparsity import build_decay, total_density, update_connections
-from implicit_image_tpu_torch.training.fit import TrainConfig, fit, make_grad_fn
+from implicit_image_tpu_torch.training.fit import TrainConfig, fit, make_grad_fn, set_trainable_
 
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 STEPS = 30
@@ -121,9 +127,7 @@ def mask_update_ms(res, mdef, mcfg, coords, target_flat, grid_hw, train_cfg, mas
                    reps: int) -> float:
     """ms per mask topology update, on the final state of a sparse fit."""
     params = res.params
-    for layer in params:
-        for v in layer.values():
-            v.requires_grad_(True)
+    set_trainable_(params, True)
     _, grads = make_grad_fn(mdef, mcfg, coords, target_flat, train_cfg.precision,
                             grid_hw=grid_hw)(params)
     momentum = "momentum" in (masking.growth_mode, masking.redistribution_mode)

@@ -23,9 +23,15 @@ coordinate list.
 `pixel_chunks` > 1 accumulates the loss and gradient over equal pixel
 chunks (mean of chunk means = the full-batch mean); for a separable model
 whose chunks are whole row blocks (k divides H), each chunk is itself a
-tensor-product grid and keeps the grid forward. The JAX package's
-TPU-runtime scaffolding (`segment_steps`, `program_cache`, `use_pallas`,
-`remat`, `estimate_step_flops`) has no counterpart here.
+tensor-product grid and keeps the grid forward. A full-grid model
+(wavelet_siren: its sub-SIRENs run on their own DWT lattices) takes no
+chunks and raises before the first step.
+
+Only the tensors an optimizer step trains (optim.adam.TRAINABLE_KEYS: w,
+b, centroids) take gradients; frozen leaves (Fourier's encoding B,
+Feathermap's frozen_* extras) take none. The JAX package's TPU-runtime
+scaffolding (`segment_steps`, `program_cache`, `use_pallas`, `remat`,
+`estimate_step_flops`) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from implicit_image_tpu_torch.models import ModelDef
 from implicit_image_tpu_torch.ops.metrics import mse, psnr_8bit
 from implicit_image_tpu_torch.ops.sine_mlp import precision_from_config
 from implicit_image_tpu_torch.optim import adam_momentum, cosine_lr, opt_init, opt_update, step_lr
+from implicit_image_tpu_torch.optim.adam import TRAINABLE_KEYS
 from implicit_image_tpu_torch.sparsity import (
     MaskingConfig,
     MaskState,
@@ -62,6 +69,7 @@ __all__ = [
     "forward_flat",
     "fit",
     "synchronize",
+    "set_trainable_",
 ]
 
 
@@ -109,6 +117,15 @@ def synchronize(device) -> None:
     """Wait for the device (a no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def set_trainable_(params, on: bool) -> None:
+    """requires_grad on (or off) for every trainable leaf (a key of
+    TRAINABLE_KEYS); frozen leaves never take a gradient."""
+    for layer in params:
+        for key, v in layer.items():
+            if key in TRAINABLE_KEYS:
+                v.requires_grad_(on)
 
 
 def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
@@ -163,11 +180,16 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
                  loss_name: str = "mse", ssim_weight: float = 0.84):
     """grad_fn(state) -> (loss, grads): the loss of the params
     `transform(state)` (state itself when transform is None), with grads
-    for every tensor of `state`; chunk-accumulated when pixel_chunks > 1
-    (MSE only: SSIM windows straddle the chunks; a separable model keeps its
-    grid forward when the chunks are whole row blocks)."""
+    for every trainable tensor of `state` (keys of TRAINABLE_KEYS; the
+    grads hold no entry for a frozen leaf); chunk-accumulated when
+    pixel_chunks > 1 (MSE only: SSIM windows straddle the chunks; a
+    separable model keeps its grid forward when the chunks are whole row
+    blocks; a full-grid model takes no chunks)."""
     n = coords.shape[0]
     k = int(pixel_chunks)
+    if k > 1 and mdef.full_grid:
+        raise ValueError(
+            f"model {mdef.name!r} renders its full grid only; pixel_chunks={k} needs 1")
     if k > 1 and n % k:
         raise ValueError(f"pixel_chunks={k} must divide pixel count {n}")
     if k > 1 and loss_name == "ms-ssim":
@@ -182,7 +204,8 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     ]
 
     def grad_fn(params):
-        leaves = [v for layer in params for v in layer.values()]
+        keys = [[key for key in layer if key in TRAINABLE_KEYS] for layer in params]
+        leaves = [layer[key] for layer, ks in zip(params, keys) for key in ks]
         loss_sum, grad_sum = None, None
         model_params = transform(params) if transform is not None else params
         for loss_fn in chunks:
@@ -197,7 +220,7 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
             loss_sum = loss_sum * (1.0 / k)
             grad_sum = [g * (1.0 / k) for g in grad_sum]
         it = iter(grad_sum)
-        return loss_sum, tuple({key: next(it) for key in layer} for layer in params)
+        return loss_sum, tuple({key: next(it) for key in ks} for ks in keys)
 
     return grad_fn
 
@@ -243,9 +266,7 @@ def fit(
                        for layer in init_params)
     else:
         params = mdef.init(generator, mcfg, device)
-    for layer in params:
-        for v in layer.values():
-            v.requires_grad_(True)
+    set_trainable_(params, True)
     opt_state = opt_init(params, optim_cfg)
     grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision,
                            train_cfg.pixel_chunks, grid_hw=(h, w),
@@ -309,8 +330,6 @@ def fit(
     for step, vals in evals.items():
         tl, p, p8 = vals.cpu().numpy()
         metrics["test_loss"][step], metrics["psnr"][step], metrics["psnr_8bit"][step] = tl, p, p8
-    for layer in params:
-        for v in layer.values():
-            v.requires_grad_(False)
+    set_trainable_(params, False)
     return FitResult(params=params, opt_state=opt_state, metrics=metrics,
                      wall_seconds=wall, mask_state=mask_state)

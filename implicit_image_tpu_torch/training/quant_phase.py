@@ -46,6 +46,7 @@ from implicit_image_tpu_torch.training.fit import (
     OptimConfig,
     forward_flat,
     make_grad_fn,
+    set_trainable_,
     synchronize,
 )
 
@@ -97,7 +98,7 @@ def quant_finetune(
     grid). `masks`: the sparse fit's per-layer masks (None entries for
     unmasked layers), or None. `offset_params`: a params-like tuple whose
     weights are the delta offsets (quant.delta), or None."""
-    device = params[0]["w"].device
+    device = next(layer["w"] for layer in params if "w" in layer).device
     stride = int(quant_cfg.row_stride)
     grid = grid.to(device)[::stride]
     target = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)[::stride]
@@ -130,9 +131,7 @@ def quant_finetune(
             state.append({k: v.detach().clone() for k, v in layer.items() if k != "w"}
                          | {"centroids": book.centroids.clone()})
     state = tuple(state)
-    for layer in state:
-        for v in layer.values():
-            v.requires_grad_(True)
+    set_trainable_(state, True)
     opt_state = opt_init(state, optim_cfg)
 
     grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision, pixel_chunks,
@@ -168,9 +167,7 @@ def quant_finetune(
         "quant_psnr": float(10.0 * torch.log10(1.0 / qloss)),
         "quant_psnr_8bit": float(qpsnr8),
     }
-    for layer in state:
-        for v in layer.values():
-            v.requires_grad_(False)
+    set_trainable_(state, False)
     return QuantResult(params=params_q, codebooks=codebooks, metrics=metrics,
                        wall_seconds=wall)
 

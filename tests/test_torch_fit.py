@@ -118,10 +118,10 @@ def test_fit_evals_final_step_and_chunks_agree():
 
 
 def test_fit_rejects_sparse_masking():
-    """What still raises: Feathermap (a model family, not ported), struct-*
+    """What still raises: hashgrid (a model family, not ported), struct-*
     inits (they need 4-D kernels, an MLP has none) and unknown modes."""
     with pytest.raises(NotImplementedError):
-        build_model_from_config({"mlp": {"name": "siren", "depth": 3, "hidden_size": 8},
+        build_model_from_config({"mlp": {"name": "hashgrid"},
                                  "masking": {"name": "Feathermap", "dense": True}})
     m, c = build_model("siren", depth=3, hidden_size=8)
     with pytest.raises(ValueError):

@@ -344,3 +344,98 @@ def test_coordx_on_card_matches_cpu(cuda_device):
                     get_grid(8, 8, cuda_device), c)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _card_vs_cpu(m, c, params, grid_hw, cuda_device, seed=4):
+    """(launches on the card, CPU (out, grads), card (out, grads)) of one
+    forward + backward through m.apply on both devices."""
+    target = torch.rand(grid_hw + (3,), generator=torch.Generator().manual_seed(seed))
+    results, launched = [], None
+    for dev in (torch.device("cpu"), cuda_device):
+        p = tuple({k: v.detach().to(dev, copy=True).requires_grad_(k in KEYS)
+                   for k, v in layer.items()} for layer in params)
+        before = dict(sm.LAUNCHES)
+        out = m.apply(p, get_grid(*grid_hw, dev), c)
+        ((out - target.to(dev)) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            launched = {k: sm.LAUNCHES[k] - before[k] for k in before}
+        results.append((out.detach().cpu(), [layer[k].grad.cpu() for layer in p
+                                             for k in KEYS if k in layer]))
+    return launched, results[0], results[1]
+
+
+def _assert_close(cpu, card, fwd_tol, rel_tol):
+    (out_c, g_c), (out_g, g_g) = cpu, card
+    assert float((out_g - out_c).abs().max()) <= fwd_tol
+    for a, b in zip(g_g, g_c):
+        assert float((a - b).abs().max()) <= rel_tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_wavelet_siren_on_card_launches_twice_and_matches_cpu(cuda_device):
+    """Both sub-SIRENs of a wavelet-SIREN run on the kernels: one forward and
+    backward launch K1, K2 and sum_partials twice each, on a 34 x 34 DWT
+    lattice (1,156 rows, no whole number of tiles), and agree with the CPU;
+    with 1-pass TF32 products switched on the inverse DWT raises."""
+    m, c = build_model("wavelet_siren", depth=4, hidden_size=32, height=64, width=64)
+    params = m.init(torch.Generator().manual_seed(3), c)
+    launched, cpu, card = _card_vs_cpu(m, c, params, (64, 64), cuda_device)
+    assert launched == {"sine_mlp_fwd": 2, "sine_mlp_bwd": 2, "sum_partials": 2}
+    _assert_close(cpu, card, 1e-4, 1e-4)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError):
+            m.apply(tuple({k: v.to(cuda_device) for k, v in layer.items()} for layer in params),
+                    get_grid(64, 64, cuda_device), c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_wavelet_siren_fit_repeats_bit_for_bit(cuda_device):
+    """Two 20-step wavelet-SIREN fits on the card from one init end on the
+    same bits: the DWT products and the kernels add in a fixed order."""
+    from implicit_image_tpu_torch.data import synthetic_image
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("wavelet_siren", depth=4, hidden_size=64, height=128, width=96)
+    init = m.init(torch.Generator().manual_seed(0), c)
+    img = synthetic_image(128, 96, seed=0)
+    runs = [fit(None, m, c, get_grid(128, 96, cuda_device), img,
+                TrainConfig(num_steps=20, log_steps=10), OptimConfig(lr=1e-3),
+                init_params=init, device=cuda_device).params for _ in range(2)]
+    for a, b in zip(*runs):
+        for k in KEYS:
+            assert torch.equal(a[k], b[k])
+
+
+@pytest.mark.cuda
+def test_feathermap_siren_on_card_launches_kernels_and_matches_cpu(cuda_device):
+    """Feathermap over SIREN: the materialized weights go through K1/K2 once
+    each, and the gradients into V1, V2 and the scalers agree with the CPU."""
+    from implicit_image_tpu_torch.models import build_model_from_config
+
+    m, c = build_model_from_config({"mlp": {"name": "siren", "depth": 4, "hidden_size": 32},
+                                    "masking": {"name": "Feathermap", "density": 0.2}})
+    params = m.init(torch.Generator().manual_seed(3), c)
+    launched, cpu, card = _card_vs_cpu(m, c, params, (32, 32), cuda_device)
+    assert launched == {"sine_mlp_fwd": 1, "sine_mlp_bwd": 1, "sum_partials": 1}
+    assert len(card[1]) == 3
+    _assert_close(cpu, card, 1e-4, 1e-4)
+
+
+@pytest.mark.cuda
+def test_fourier_on_card_runs_no_kernel_and_matches_cpu(cuda_device):
+    m, c = build_model("fourier", depth=8, hidden_size=128)
+    params = m.init(torch.Generator().manual_seed(3), c)
+    launched, cpu, card = _card_vs_cpu(m, c, params, (64, 64), cuda_device)
+    assert launched == {k: 0 for k in sm.LAUNCHES}
+    _assert_close(cpu, card, 1e-5, 1e-4)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError):
+            m.apply(tuple({k: v.to(cuda_device) for k, v in layer.items()} for layer in params),
+                    get_grid(8, 8, cuda_device), c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

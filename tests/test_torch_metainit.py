@@ -73,3 +73,24 @@ def test_empty_and_missing_store_match_jax(tmp_path):
     j, t = _both("coordx", FLAGSHIP, 1200, "tensorfloat32", meta_dir=tmp_path / "none")
     _same(j, t)
     assert t[2].startswith("no artifact store")
+
+
+@pytest.mark.parametrize("name,mlp,masking", [
+    ("wavelet_siren", {"name": "wavelet_siren"}, {}),
+    ("fourier", {"name": "fourier"}, {}),
+    ("feather_siren", {"name": "siren"}, {"name": "Feathermap", "dense": True, "density": 0.2}),
+])
+def test_other_families_cold_start_as_jax(name, mlp, masking):
+    """train.init_path=auto for the reference's other families: assets/meta
+    holds no artifact of theirs, so both packages cold-start, for the same
+    reasons."""
+    from implicit_image_tpu.models import build_model_from_config as jbuild_cfg
+    from implicit_image_tpu_torch.models import build_model_from_config as tbuild_cfg
+
+    cfg = {"mlp": mlp, "masking": masking}
+    (jm, jc), (tm, tc) = jbuild_cfg(cfg), tbuild_cfg(cfg)
+    assert jm.name == tm.name == name
+    j = jmeta.resolve_auto_init(jm.name, jc, 2000, matmul_precision="tensorfloat32")
+    t = tmeta.resolve_auto_init(tm.name, tc, 2000, matmul_precision="tensorfloat32")
+    _same(j, t)
+    assert t[0] is None and "no matching artifact" in t[2]
