@@ -15,7 +15,12 @@ Phases, each printing its own line:
      products (torch.backends.cuda.matmul.allow_tf32) the fp32 ones. The
      same at width 182 (the finals width, run on the kernels of width 192),
      256 and 512; bounds count the model's width (the work the function
-     needs), the padded bound the kernel width (the work the kernel does);
+     needs), the padded bound the kernel width (the work the kernel does).
+     At the wider widths the backward is sine_mlp_bwd_wide + sine_mlp_dw
+     (its time is the whole backward's, as at 128), and sine_mlp_dw is also
+     held alone against its plain version on this chain's own dW operands
+     (DW_TOL), twice for bits, and timed from CUDA graphs in turns with
+     one fp32 torch.bmm computing the same dW (the library yardstick);
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -79,8 +84,10 @@ Phases, each printing its own line:
      (b)'s RigL weight counts are conserved over all 16 layers of both
      sub-SIRENs. Each run prints its ms per fit step.
 
-Each of phases 4-6 and 8-11 sets the launch counts to 0 just before its
-run and reads them just after. In phase 3, sum_partials must equal its plain
+Each of phases 4-11 sets the launch counts to 0 just before its run and
+reads them just after: every kernel of the path must have launched, and
+sine_mlp_dw (the wider backward's dW) in phases 9 and 10 only; nothing in
+phase 8 and in 11 (d). In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
@@ -120,6 +127,10 @@ from pathlib import Path
 FWD_TOL = {"fp32": 1e-4, "bf16": 1.5e-3}  # max abs error of the raw chain output
 BWD_TOL = {"fp32": 1e-4, "bf16": 2e-2}  # max abs error / max |plain|, per gradient
 SUM_TOL = 1e-6  # sum_partials vs partials.sum(0), relative
+# sine_mlp_dw vs its plain version: max abs error / max |plain|, the fp32
+# mode's gradient limit (each split's dW sums ~2,000 rows that cancel: on an
+# H100 at w182 the 3xTF32 kernel reads 1.5e-5 against the fp32 plain product)
+DW_TOL = BWD_TOL["fp32"]
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
 # kernel is max(bytes / memory rate, operations / peak rate of their type).
@@ -290,6 +301,9 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
         "sine_mlp_bwd": (3 * hidden_mm, 2 * n * hidden * (4 * in_size + 2 * out_size),
                          4 * n * (2 * in_size + out_size) + weights + 4 * blocks * n_part),
         "sum_partials": (0, blocks * n_part, 4 * (blocks + 1) * n_part),
+        # the wider backward's dW: read A and G (L, n, hidden) once, write
+        # each split's (L, hidden, hidden)
+        "sine_mlp_dw": (hidden_mm, 0, 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
     }
     out = {}
     for name, (tc, fma, nbytes) in kernels.items():
@@ -318,6 +332,41 @@ def _errors(kernel, plain):
     rel = {name: _max_rel(a, b) for name, a, b in pairs}
     bwd_abs = max(float((a - b).abs().max()) for _, a, b in pairs)
     return float((out_k - out_p).abs().max()), rel, bwd_abs
+
+
+def _dw_kernel(params, x, g, mcfg, prec: str, hidden: int, blocks: int, n_part: int,
+               offset: int, timed: bool) -> dict:
+    """sine_mlp_dw on this chain's own dW operands (the plain backward's,
+    zero-padded to the kernel width `hidden`), into a partial buffer of the
+    main path's layout, twice, against its plain version. If timed: the
+    kernel and one fp32 torch.bmm for the same dW from CUDA graphs in turns,
+    and the plain version (CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    h = params[0]["w"].shape[1]
+    a, gz = (F.pad(t, (0, hidden - h)).contiguous()
+             for t in sm.siren_chain_dw_operands(params, x, g, mcfg, prec))
+    layers = a.shape[0]
+    region = slice(offset, offset + layers * hidden * hidden)
+    runs = []
+    for _ in range(2):
+        partials = torch.zeros((blocks, n_part), device=x.device)
+        sm.sine_mlp_dw(a, gz, partials, offset, prec)
+        runs.append(partials[:, region].reshape(blocks, layers, hidden, hidden))
+    plain = sm.sine_mlp_dw_reference(a, gz, blocks, prec)
+    torch.cuda.synchronize()
+    rec = {"err": float((runs[0] - plain).abs().max()), "scale": float(plain.abs().max()),
+           "same": torch.equal(runs[0], runs[1]), "layers": layers}
+    if timed:
+        partials = torch.empty((blocks, n_part), device=x.device)
+        rec["rounds"], rec["lib_rounds"] = _graph_interleaved_ms(
+            [lambda: sm.sine_mlp_dw(a, gz, partials, offset, prec),
+             lambda: torch.bmm(a.transpose(1, 2), gz)])
+        rec["plain_ms"] = _time_ms(lambda: sm.sine_mlp_dw_reference(a, gz, blocks, prec), 3)
+    return rec
 
 
 def phase_kernels(width: int = WIDTH) -> dict:
@@ -371,7 +420,8 @@ def phase_kernels(width: int = WIDTH) -> dict:
         # the kernel against its mirror (same order, bit for bit), against
         # itself, and against the library call (another order, SUM_TOL)
         in_size, out_size = params[0]["w"].shape[0], params[-1]["w"].shape[1]
-        blocks, n_part, _ = sm.partial_layout(x.shape[0], DEPTH, in_size, width, out_size, dev)
+        blocks, n_part, sizes = sm.partial_layout(x.shape[0], DEPTH, in_size, width, out_size,
+                                                  dev)
         # the bound counts the model's width (the work the function needs);
         # the padded bound the kernel width it runs at (the work it does)
         bounds = _bounds(x.shape[0], in_size, out_size, DEPTH, width, blocks,
@@ -454,6 +504,33 @@ def phase_kernels(width: int = WIDTH) -> dict:
                                  f"(max abs err {sum_mirror_err})")
         if not sum_rel <= SUM_TOL:
             raise AssertionError(f"sum_partials disagrees with partials.sum(0): {sum_rel}")
+        if kernel_width > sm.KERNEL_WIDTHS[0]:
+            dw = _dw_kernel(params, x, g, mcfg, prec, kernel_width, blocks, n_part, sizes[0],
+                            timed=prec == "fp32")
+            print(
+                f"[3 kernels {tag}] sine_mlp_dw ({dw['layers']} layers, {blocks} row splits) vs "
+                f"its plain version: max abs err {dw['err']:.3e} = "
+                f"{dw['err'] / dw['scale']:.3e} of max |plain| (tol {DW_TOL:g}), "
+                f"{'the same bits twice' if dw['same'] else 'BITS DIFFER'}",
+                flush=True,
+            )
+            if not dw["err"] <= DW_TOL * dw["scale"]:
+                raise AssertionError(f"{prec}: sine_mlp_dw disagrees with its plain version")
+            if not dw["same"]:
+                raise AssertionError(f"{prec}: sine_mlp_dw does not repeat bit for bit")
+            if prec == "fp32":
+                dw_ms, dw_lib_ms = statistics.median(dw["rounds"]), statistics.median(
+                    dw["lib_rounds"])
+                dw_bound = bounds["sine_mlp_dw"]["bound_ms"]
+                print(
+                    f"[3 kernels {tag}] sine_mlp_dw in turns with torch.bmm (fp32, no TF32), 5 "
+                    f"rounds x 20 launches from CUDA graphs, ms: kernel "
+                    f"{' '.join(f'{t:.4f}' for t in dw['rounds'])} (median {dw_ms:.4f} = "
+                    f"{dw_bound / dw_ms:.1%} of the {dw_bound:.4f} ms bound); torch.bmm "
+                    f"{' '.join(f'{t:.4f}' for t in dw['lib_rounds'])} (median {dw_lib_ms:.4f});"
+                    f" plain version {dw['plain_ms']:.3f}",
+                    flush=True,
+                )
         if prec == "fp32":
             # the second control: 1-pass TF32 products in the plain chain
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -480,6 +557,9 @@ def phase_kernels(width: int = WIDTH) -> dict:
                 # the same function
                 "sum_partials": (sum_mirror_err, sum_ms, sum_plain_ms, lib_ms),
             }
+            if kernel_width > sm.KERNEL_WIDTHS[0]:
+                # plain: sine_mlp_dw_reference; torch.bmm is one PyTorch call for dW
+                records["sine_mlp_dw"] = (dw["err"], dw_ms, dw["plain_ms"], dw_lib_ms)
             for name, (_, ms, _, _) in records.items():
                 b, pb = bounds[name], padded[name]
                 print(
@@ -519,9 +599,15 @@ def _expected_container_bytes(cfg) -> int:
     return total
 
 
-def _check_launches(launches: dict, what: str) -> None:
+def _check_launches(launches: dict, what: str, wide: bool = False) -> None:
+    """Every kernel launched on the path; sine_mlp_dw (the wider backward's
+    dW) exactly when the path runs a SIREN wider than 128 (`wide`)."""
     for name, count in launches.items():
-        if count <= 0:
+        if name == "sine_mlp_dw" and not wide:
+            if count != 0:
+                raise AssertionError(f"sine_mlp_dw launched {count} times on the {what}, which "
+                                     "runs no width above 128")
+        elif count <= 0:
             raise AssertionError(f"kernel {name} did not launch on the {what}")
 
 
@@ -715,6 +801,7 @@ def phase_repeat(run_dir: str) -> None:
     from implicit_image_tpu_torch import compress
     from implicit_image_tpu_torch.data import get_grid
     from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
     from implicit_image_tpu_torch.training.quant_phase import quant_finetune
 
     cfg = compress.compose(DEFAULT_OVERRIDES)
@@ -728,16 +815,19 @@ def phase_repeat(run_dir: str) -> None:
                   for i in range(len(mcfg.layer_dims)))
     img = compress._load_image(cfg.img)
     grid = get_grid(*img.shape[:2], dev)
+    sm.reset_launch_counts()
     runs = [quant_finetune(params, img, mdef, mcfg, grid, compress._quant_config(cfg.quant),
                            compress._optim_config(cfg), precision="fp32", masks=masks)
             for _ in range(2)]
+    launches = dict(sm.LAUNCHES)
     psnrs = [r.metrics["quant_psnr"] for r in runs]
     same = all(
         a is None and b is None
         or torch.equal(a.centroids, b.centroids) and torch.equal(a.labels, b.labels)
         for a, b in zip(runs[0].codebooks, runs[1].codebooks))
     print(f"[7 repeat] quant PSNR {psnrs[0]!r} / {psnrs[1]!r} dB; codebooks and labels "
-          f"{'identical' if same else 'DIFFER'}", flush=True)
+          f"{'identical' if same else 'DIFFER'}; launches {launches}", flush=True)
+    _check_launches(launches, "codebook finetune")
     if not same or psnrs[0] != psnrs[1]:
         raise AssertionError("the codebook finetune does not repeat bit for bit")
 
@@ -903,7 +993,7 @@ def phase_finals() -> dict:
         f"{summary['Decoded MS-SSIM']:.6f}, bytes {nbytes}",
         flush=True,
     )
-    _check_launches(launches, "finals path")
+    _check_launches(launches, "finals path", wide=True)
     if final_counts != init_counts:
         raise AssertionError(f"RigL changed a layer's weight count: {init_counts} -> "
                              f"{final_counts}")
@@ -947,7 +1037,7 @@ def phase_wide(width: int) -> dict:
     print(f"[10 w{width}] lr {cfg.optim.lr}; fit {summary['fit_wall_s']:.3f} s "
           f"({summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step); fit PSNR "
           f"{psnr:.3f} dB; launches {launches}", flush=True)
-    _check_launches(launches, f"w{width} path")
+    _check_launches(launches, f"w{width} path", wide=True)
     if not math.isfinite(psnr):
         raise AssertionError(f"w{width}: fit PSNR {psnr} is not finite")
     return launches
@@ -1097,7 +1187,7 @@ def main() -> int:
                      **{width: phase_wide(width) for width in WIDE_OVERRIDES}}
     phase_families()
 
-    sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sum_partials": 179}
+    sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sine_mlp_dw": 128, "sum_partials": 179}
     from implicit_image_tpu_torch.ops.sine_mlp import kernel_width
 
     kernels = [

@@ -3,7 +3,9 @@
 //
 // Replaces the two Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 //   sine_mlp_fwd  <- _fwd_kernel / _fwd_call   (ops/sine_mlp.py:81-122)
-//   sine_mlp_bwd  <- _bwd_kernel / _bwd_call   (ops/sine_mlp.py:128-242)
+//   sine_mlp_bwd  <- _bwd_kernel / _bwd_call   (ops/sine_mlp.py:128-242);
+//                    at widths above 128 sine_mlp_bwd_wide, with the hidden
+//                    layers' dW in sine_mlp_dw
 //   sum_partials  <- the TPU's sequential accumulation of dW/db across grid
 //                    steps, which has no counterpart between parallel blocks
 //
@@ -67,8 +69,9 @@
 //
 // Widths: the design above is the width-128 kernels' (every model of width
 // <= 128 runs on them, zero-padded). Widths 129-512 run on the wider kernels
-// of width 192, 256 and 512, which stream each W in slices of its rows
-// (section "the wider kernels" below).
+// of width 192, 256 and 512, which stream each W in slices of its rows and
+// leave the hidden layers' dW to sine_mlp_dw (sections "the wider kernels"
+// and "sine_mlp_dw" below).
 //
 // Backward: blocks run in parallel with no carry between them, so a fixed
 // grid of one block per SM loops over its share of tiles, adding into its
@@ -87,9 +90,9 @@
 //
 // The library is this file compiled in parts, all at once, and linked
 // (ops/cuda_build.py): with -DSINE_MLP_WIDE=W (a width of SINE_MLP_WIDE_GEOS) and
-// -DSINE_MLP_BWD=0 or 1, the forward or backward kernels of width W and
-// their C launcher; without, the width-128 kernels, sum_partials and the C
-// interface, which calls those launchers.
+// -DSINE_MLP_PART=0, 1 or 2, the forward, backward or sine_mlp_dw kernels of
+// width W and their C launcher; without, the width-128 kernels,
+// sum_partials and the C interface, which calls those launchers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,11 +112,12 @@ constexpr int MAX_IO = 8;       // largest input / output width
 static_assert(T == H, "one buffer size serves activations and weights");
 
 // The geometry of a kernel width: HW hidden units, TR pixel rows per tile,
-// KSL rows of W per ring slice. The warps cover a TR x HW tile in 32 x 64
-// pieces, so every thread holds 2 x 8 mma tiles at every width.
-template <int HW, int TR, int KSL>
+// KSL rows of W per ring slice, NBR slices in the ring. The warps cover a
+// TR x HW tile in 32 x 64 pieces, so every thread holds 2 x 8 mma tiles at
+// every width.
+template <int HW, int TR, int KSL, int NBR = 2>
 struct Geo {
-  static constexpr int H = HW, T = TR, KS = KSL;
+  static constexpr int H = HW, T = TR, KS = KSL, NB = NBR;
   static constexpr int CG = H / 64;              // warps across a tile's columns
   static constexpr int WARPS = (T / 32) * CG;
   static constexpr int THREADS = 32 * WARPS;
@@ -125,16 +129,19 @@ struct Geo {
 };
 using G128 = Geo<H, T, H>;  // the width-128 kernels: a ring slice is a whole W
 static_assert(G128::THREADS == THREADS && G128::BUF == BUF && G128::SLICE == BUF, "");
-// Wider kernels (below): T H = 16,384 floats as at 128, W in slices of 24-32 KB.
-// X(width, tile rows, ring slice rows) for each: the one list of the wider
-// widths (ops/sine_mlp.KERNEL_TILE_ROWS mirrors width and tile rows).
-#define SINE_MLP_WIDE_GEOS(X) X(192, 64, 32) X(256, 64, 32) X(512, 32, 16)
+// Wider kernels (below). X(width, backward tile rows, ring slice rows and
+// ring slices, forward tile rows, ring slice rows and ring slices) for
+// each: the one list of the wider widths (ops/sine_mlp.KERNEL_TILE_ROWS
+// mirrors width and backward tile rows).
+#define SINE_MLP_WIDE_GEOS(X) \
+  X(192, 64, 64, 2, 128, 64, 2) X(256, 64, 32, 2, 96, 32, 3) X(512, 32, 16, 2, 32, 16, 4)
 template <int W>
 struct WideGeo;  // the geometry of each listed width; no other width has one
-#define SINE_MLP_GEO(W, TR, KS) \
-  template <>                   \
-  struct WideGeo<W> {           \
-    using type = Geo<W, TR, KS>; \
+#define SINE_MLP_GEO(W, TR, KS, NB, FTR, FKS, FNB) \
+  template <>                                      \
+  struct WideGeo<W> {                              \
+    using bwd = Geo<W, TR, KS, NB>;                \
+    using fwd = Geo<W, FTR, FKS, FNB>;             \
   };
 SINE_MLP_WIDE_GEOS(SINE_MLP_GEO)
 #undef SINE_MLP_GEO
@@ -227,9 +234,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // The weight buffers and their mbarriers (two at width 128, each a whole
-// W; up to four slices of G::KS rows of W in the wider kernels). Every
-// thread runs the same issue / wait sequence, so the phase and pending bits
-// stay uniform.
+// W; G::NB slices of G::KS rows of W in the wider kernels; sine_mlp_dw's
+// chunks of its two operands). Every thread runs the same issue / wait
+// sequence, so the phase and pending bits stay uniform.
 template <class G>
 struct RingT {
   float* base;  // buffer b at base + b * G::SLICE
@@ -250,6 +257,12 @@ struct RingT {
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                    ::"r"(smem_addr(dst + sw<G::H>(r, c))), "l"(w + r * G::H + c) : "memory");
     }
+    arrive(b);
+  }
+
+  // Buffer b's mbarrier counts the thread's arrival when its copies so far
+  // have landed.
+  __device__ __forceinline__ void arrive(int b) {
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
                  ::"r"(smem_addr(bar + b)) : "memory");
     pending |= 1u << b;
@@ -385,21 +398,13 @@ __device__ __forceinline__ void load_frag(Frag& f, const PA& pa, const PB& pb, i
   }
 }
 
-// One k-step on all 16 tiles. Each pass runs over every tile before the
-// next pass starts, so no product waits on the one just issued to the same
-// accumulator. In bf16 mode the activations and gz are stored rounded
-// already; only W (B_IS_W) is rounded here.
-template <bool BF16, bool B_IS_W>
-__device__ __forceinline__ void mma_step(Acc acc, const Frag& f) {
-  uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) split<BF16, false>(f.a[mi][q], ah[mi][q], al[mi][q]);
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) split<BF16, B_IS_W>(f.b[ni][q], bh[ni][q], bl[ni][q]);
+// The products of one k-step on all 16 tiles, from split operands. Each
+// pass runs over every tile before the next pass starts, so no product
+// waits on the one just issued to the same accumulator.
+template <bool BF16>
+__device__ __forceinline__ void mma_passes(Acc acc, const uint32_t ah[2][4],
+                                           const uint32_t al[2][4], const uint32_t bh[8][2],
+                                           const uint32_t bl[8][2]) {
   if (!BF16) {  // small terms first
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
@@ -414,6 +419,22 @@ __device__ __forceinline__ void mma_step(Acc acc, const Frag& f) {
   for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+}
+
+// One k-step on all 16 tiles. In bf16 mode the activations and gz are
+// stored rounded already; only W (B_IS_W) is rounded here.
+template <bool BF16, bool B_IS_W>
+__device__ __forceinline__ void mma_step(Acc acc, const Frag& f) {
+  uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split<BF16, false>(f.a[mi][q], ah[mi][q], al[mi][q]);
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) split<BF16, B_IS_W>(f.b[ni][q], bh[ni][q], bl[ni][q]);
+  mma_passes<BF16>(acc, ah, al, bh, bl);
 }
 
 // acc += A B over K = 128, A and B in shared memory (sw() layout). a.W is
@@ -437,26 +458,38 @@ __device__ __forceinline__ void warp_mma(Acc acc, const float* __restrict__ A,
   }
 }
 
-// The wider kernels' product: acc += A B over K = K_STEPS, A in a G::H-wide
-// tile (rows from a0 = the warp's m0, or A_T: columns from a0, a multiple
-// of 32) with its k-steps from ka, B a K_STEPS-row matrix (a ring slice,
-// or a tile) read from k = 0. B_IS_W: B holds weights (rounded here in
-// bf16 mode). a.W and gz.W^T (W^T's rows in the ring) are <false, true>,
-// a piece of a^T.gz <true, false>.
-template <bool BF16, bool A_T, bool B_IS_W, class G, int K_STEPS>
+// The wider kernels' product: acc += A B over K = K_STEPS, A of row stride
+// SA (rows from a0 = the warp's m0, or A_T: columns from a0, a multiple of
+// 32) with its k-steps from ka, B a K_STEPS-row matrix of row stride SB (a
+// ring slice, or a chunk) read from k = 0. B_IS_W: B holds weights (rounded
+// here in bf16 mode). a.W and gz.W^T (W^T's rows in the ring) are <false,
+// true>, sine_mlp_dw's a^T.gz <true, false>. PREFETCH loads the next
+// k-step's operands while this one's products issue (24 more registers);
+// without, the other warps of the SM hide the loads. Either way each
+// accumulator takes its k-steps in the same order.
+template <bool BF16, bool A_T, bool B_IS_W, int SA, int SB, int K_STEPS, bool PREFETCH = true>
 __device__ __forceinline__ void warp_mma_k(Acc acc, const float* __restrict__ A, int a0, int ka,
                                            const float* __restrict__ B, const Warp& w) {
-  using PA = std::conditional_t<A_T, Cols<G::H>, Rows<G::H>>;
+  using PA = std::conditional_t<A_T, Cols<SA>, Rows<SA>>;
   const PA pa(A, a0, w);
-  const Cols<G::H> pb(B, w.n0, w);
-  Frag f[2];
-  load_frag<A_T, false>(f[0], pa, pb, ka, 0);
+  const Cols<SB> pb(B, w.n0, w);
+  if constexpr (PREFETCH) {
+    Frag f[2];
+    load_frag<A_T, false>(f[0], pa, pb, ka, 0);
 #pragma unroll
-  for (int k0 = 0; k0 < K_STEPS; k0 += 16) {
-    load_frag<A_T, false>(f[1], pa, pb, ka + k0 + 8, k0 + 8);
-    mma_step<BF16, B_IS_W>(acc, f[0]);
-    if (k0 + 16 < K_STEPS) load_frag<A_T, false>(f[0], pa, pb, ka + k0 + 16, k0 + 16);
-    mma_step<BF16, B_IS_W>(acc, f[1]);
+    for (int k0 = 0; k0 < K_STEPS; k0 += 16) {
+      load_frag<A_T, false>(f[1], pa, pb, ka + k0 + 8, k0 + 8);
+      mma_step<BF16, B_IS_W>(acc, f[0]);
+      if (k0 + 16 < K_STEPS) load_frag<A_T, false>(f[0], pa, pb, ka + k0 + 16, k0 + 16);
+      mma_step<BF16, B_IS_W>(acc, f[1]);
+    }
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < K_STEPS; k0 += 8) {
+      Frag f;
+      load_frag<A_T, false>(f, pa, pb, ka + k0, k0);
+      mma_step<BF16, B_IS_W>(acc, f);
+    }
   }
 }
 
@@ -914,42 +947,57 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
 // sin(0) = 0). The mma shapes need only multiples of 8 and 16, so the pad
 // is to 64, not to the TPU's 128 lanes: w182 runs as 192, 90% of its
 // products useful (at 256, 51%). One fp32 W is 144-1024 KB there, more
-// than a block's 227 KB of shared memory beside the activations, so:
-// - a tile holds G::T = 64 rows (32 at 512): T x H stays 16,384 floats (12,288 at
-//   192), the activation and gz tiles 64 KB, and each thread's accumulators
-//   the 2 x 8 mma tiles of width 128; (T / 32) x (H / 64) warps;
-// - each hidden W streams through a ring of G::KS-row slices (32 rows, 16 at
-//   512: 24-32 KB), four deep in the forward and two in the backward. A
-//   slice of W's rows is a K-slice of a.W; for ga = gz W^T the ring carries
-//   rows of W^T (the wrapper passes W^T beside W), a K-slice of the same
-//   form, so one product serves both;
-// - dW_l = a^T gz (H x H) goes in H / T pieces of T rows: each piece's
-//   partial is loaded into the accumulators, raised by a^T gz over the
-//   tile's T rows, and stored.
-// Everything else (epilogues, z stash, bias sums, first and last layers)
-// is the width-128 kernels' code at the wider geometry, with the same fixed
-// orders and no atomics.
-// What bounds them: the 3xTF32 products (2.1 / 3.8 / 15 ms per backward at
-// 512^2, d8, widths 192 / 256 / 512) and the dW partials' read-modify-write,
-// N / T tiles x (D - 2) H^2 x 8 bytes per backward (5.4 / 12.9 / 103 GB at
-// the same shapes), which grows as H^3 and at 512 outweighs the products.
-// A ring slice is read from L2 once per tile: at 512 the 32-row tile gives
-// each 32 KB slice 48 FLOP per byte.
-
-constexpr int kFwdRing = 4;  // ring slices of the wider forward
-constexpr int kBwdRing = 2;  // and backward (two activation tiles beside it)
+// than a block's 227 KB of shared memory beside the activations, so each
+// hidden W streams through a ring of G::KS-row slices. A slice of W's rows
+// is a K-slice of a.W; for ga = gz W^T the ring carries rows of W^T (the
+// wrapper passes W^T beside W), a K-slice of the same form, so one product
+// serves both. A warp holds a 32 x 64 piece of a tile, as at 128, and
+// everything but the products (epilogues, z stash, bias sums, first and
+// last layers) is the width-128 kernels' code at the wider geometry, with
+// the same fixed orders and no atomics.
+//
+// What bounds them at 512^2, d8: the 3xTF32 products (per backward 2.1 /
+// 3.8 / 15 ms at widths 192 / 256 / 512 at 495 TFLOP/s; mma.sync reaches
+// ~300 on an H100), the traffic of dW, and how many rows each slice of W
+// read from L2 serves.
+// - Forward (sine_mlp_fwd_wide_kernel, geometry WideGeo<W>::fwd): 128-row
+//   tiles at 192 (12 warps; W in 64-row slices, 2 deep: a barrier every 8
+//   k-steps), 96 at 256 (12 warps; 32-row slices, 3 deep: 64-row ones
+//   would need 16 bytes more than 227 KB), 32 at 512 (8 warps; 16-row
+//   slices, 4 deep). The first design's 64-row tiles and 6-8 warps read
+//   each slice for half (two thirds) the rows. 12 warps leave a thread 168
+//   registers, so their products do not prefetch operands; the other warps
+//   hide the loads. 64 rows at 512 would take 16 warps of 128 registers,
+//   too few for a warp's 64 accumulators beside the 3xTF32 operands. Each
+//   accumulator takes its k-steps in the first design's order: the forward
+//   keeps its bits.
+// - Backward (sine_mlp_bwd_wide_kernel, WideGeo<W>::bwd): 64-row tiles (32
+//   at 512), a 2-deep ring of 32-row slices (16 at 512; 64 at 192, where
+//   they fit), the width-128 kernel's order. Two
+//   accumulator sets (a product's and the sine derivative's) fill a
+//   thread's 255 registers, so 8 warps (a 64 x 256 tile) is the most a
+//   block can hold. dW_l =
+//   a_{l-1}^T gz_l (H x H, l = 1 .. L) is not summed here: the first design
+//   added each tile's a^T gz into the block's partial in H / T pieces, a
+//   synchronous read-modify-write of N / T x L x H^2 x 8 bytes per backward
+//   (7.25 / 12.9 / 103 GB at widths 192 / 256 / 512, partials of 117 MB
+//   and more: HBM, not L2). The kernel instead stores the product's two
+//   operands once, A_l = rnd(a_{l-1}) and G_l = rnd(gz_l), row-major
+//   (L, N, H), with 16-byte stores (2 x 1.2 GB at 192), and
+//   sine_mlp_dw_kernel (below) sums A_l^T G_l over rows. The block's partial
+//   slice holds everything else as before.
 
 template <class G>
 constexpr size_t fwd_wide_smem() {
-  return sizeof(float) * (kFwdRing * G::SLICE + G::BUF + G::T * MAX_IO) +
-         kFwdRing * sizeof(uint64_t);
+  return sizeof(float) * (G::NB * G::SLICE + G::BUF + G::T * MAX_IO) + G::NB * sizeof(uint64_t);
 }
 template <class G>
 constexpr size_t bwd_wide_smem() {
-  return sizeof(float) * (kBwdRing * G::SLICE + 2 * G::BUF + 2 * G::T * MAX_IO +
+  return sizeof(float) * (G::NB * G::SLICE + 2 * G::BUF + 2 * G::T * MAX_IO +
                           (G::T / 32) * G::H) +
-         (kBwdRing + 1) * sizeof(uint64_t);
+         (G::NB + 1) * sizeof(uint64_t);
 }
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 // The tile's rows r (warp by warp) of src_s (sw() layout, width G::H)
 // times a narrow weight: dst[r][o] = sum_k src_s[r][k] rnd(w(k, o))
@@ -990,14 +1038,16 @@ __device__ __forceinline__ void rows_times_narrow_wide(const float* __restrict__
 
 // acc += A W over the ring's next G::NS slices, A a T x H tile (a, or gz
 // against W^T) and slice u its K-slice u; each slice's buffer goes to
-// slice s + NB once every warp is done with it.
+// slice s + NB once every warp is done with it. Blocks of more than 8 warps
+// do not prefetch the products' operands (register room).
 template <bool BF16, class G, int NB, class Src>
 __device__ __forceinline__ void ring_product(Acc acc, const float* __restrict__ A, RingT<G>& ring,
                                              int& s, int total, const Src& src, const Warp& w) {
   for (int u = 0; u < G::NS; ++u, ++s) {
     const int b = s % NB;
     ring.wait(b);
-    warp_mma_k<BF16, false, true, G, G::KS>(acc, A, w.m0, u * G::KS, ring.buf(b), w);
+    warp_mma_k<BF16, false, true, G::H, G::H, G::KS, (G::WARPS <= 8)>(acc, A, w.m0, u * G::KS,
+                                                                      ring.buf(b), w);
     __syncthreads();
     if (s + NB < total) ring.issue(b, src(s + NB));
   }
@@ -1008,7 +1058,7 @@ __device__ __forceinline__ void ring_product(Acc acc, const float* __restrict__ 
 template <bool BF16, class G>
 __global__ void __launch_bounds__(G::THREADS, 1)
 sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out) {
-  constexpr int HW = G::H, NB = kFwdRing;
+  constexpr int HW = G::H, NB = G::NB;
   extern __shared__ float4 smem4[];
   float* ring_s = reinterpret_cast<float*>(smem4);
   float* a_s = ring_s + NB * G::SLICE;
@@ -1051,15 +1101,37 @@ sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict
   }
 }
 
+// dW_l's operands for sine_mlp_dw: the tile's rows below n of a_s and g_s
+// (sw() layout) into rows row0.. of da and dg (row-major, width G::H), 16
+// bytes a thread, neighbouring threads on neighbouring addresses; streaming
+// stores (this kernel does not read them again). Call after a barrier.
+template <class G>
+__device__ __forceinline__ void store_dw_operands(const float* __restrict__ a_s,
+                                                  const float* __restrict__ g_s,
+                                                  float* __restrict__ da, float* __restrict__ dg,
+                                                  int row0, int n, int tid) {
+  constexpr int Q = G::H / 4;  // 16-byte pieces per row
+  const int rows = n - row0 < G::T ? n - row0 : G::T;
+  for (int e = tid; e < rows * Q; e += G::THREADS) {
+    const int r = e / Q, c = 4 * (e % Q);
+    const size_t o = (size_t)(row0 + r) * G::H + c;
+    const int i = sw<G::H>(r, c);
+    __stcs(reinterpret_cast<float4*>(da + o), *reinterpret_cast<const float4*>(a_s + i));
+    __stcs(reinterpret_cast<float4*>(dg + o), *reinterpret_cast<const float4*>(g_s + i));
+  }
+}
+
 // Shared memory: the ring, the activation and gz tiles, the input and
 // cotangent tiles, the bias partial sums, the ring's mbarriers and the z
-// copy's. The order of the backward is the width-128 kernel's.
+// copy's. The order of the backward is the width-128 kernel's; dW_m is
+// sine_mlp_dw's (dw_a, dw_g: (L, n, G::H) each).
 template <bool BF16, class G>
 __global__ void __launch_bounds__(G::THREADS, 1)
 sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __restrict__ g,
                          float* __restrict__ dx, float* __restrict__ z_all,
-                         float* __restrict__ partials, int n_part) {
-  constexpr int HW = G::H, NB = kBwdRing;
+                         float* __restrict__ partials, int n_part, float* __restrict__ dw_a,
+                         float* __restrict__ dw_g) {
+  constexpr int HW = G::H, NB = G::NB;
   extern __shared__ float4 smem4[];
   float* ring_s = reinterpret_cast<float*>(smem4);
   float* a_s = ring_s + NB * G::SLICE;
@@ -1072,15 +1144,16 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
   const Warp w(tid, G::CG);
   const int depth = c.depth, in_size = c.in_size, L = depth - 2;
 
-  // this block's slices: partial gradients and the z stash (z_1 .. z_{L-1})
+  // this block's slices: partial gradients and the z stash (z_1 .. z_{L-1});
+  // the slice is zeroed but for dW_m, which sine_mlp_dw writes whole
   float* part = partials + (size_t)blockIdx.x * n_part;
   float* dw0 = part;
-  float* dwm = dw0 + in_size * HW;
-  float* dwl = dwm + (size_t)L * HW * HW;
+  float* dwl = dw0 + in_size * HW + (size_t)L * HW * HW;
   float* dbs = dwl + HW * c.out_size;
   float* dbl = dbs + (depth - 1) * HW;
   float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * G::BUF;
-  for (int e = tid; e < n_part; e += G::THREADS) part[e] = 0.f;
+  for (int e = tid; e < in_size * HW; e += G::THREADS) dw0[e] = 0.f;
+  for (float* p = dwl + tid; p < part + n_part; p += G::THREADS) *p = 0.f;
 
   // the block's ring slices in order: per tile, W_1 .. W_L (the forward
   // pass), then W_L^T .. W_1^T (the backward pass), each in G::NS slices
@@ -1143,13 +1216,8 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
       }
       __syncthreads();
       add_bias_grad<G>(red, dbs + l * HW, tid);
-      float* dw = dwm + (size_t)(l - 1) * HW * HW;
-      for (int p = 0; p < HW / G::T; ++p) {  // dW_l rows [p T, (p + 1) T) += a^T gz_l
-        float* piece = dw + (size_t)p * G::BUF;
-        move_partial<true, HW>(acc, piece, w);
-        warp_mma_k<BF16, true, false, G, G::T>(acc, a_s, p * G::T + w.m0, 0, g_s, w);
-        move_partial<false, HW>(acc, piece, w);
-      }
+      const size_t layer = (size_t)(l - 1) * c.n * HW;  // dW_l's operands: a_{l-1}, gz_l
+      store_dw_operands<G>(a_s, g_s, dw_a + layer, dw_g + layer, row0, c.n, tid);
       if (l >= 3) {  // z_{l-2} streams into a_s while ga is computed
         __syncthreads();
         copy_tile<G>(a_s, z_g + (size_t)(l - 3) * G::BUF, z_bar);
@@ -1165,6 +1233,144 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
     rows_times_narrow_wide<BF16, G>(g_s, c.w0, 1, HW, in_size, nullptr, dx, row0, c.n, tid);
     __syncthreads();
   }
+}
+
+// ----------------------------------------------------------- sine_mlp_dw
+//
+// dW_l = A_l^T G_l over the n rows of the wider backward's operands (A_l =
+// rnd(a_{l-1}), G_l = rnd(gz_l), (L, n, W) each), l = 1 .. L. The rows
+// split into S contiguous ranges, split s holding [s n / S, (s + 1) n / S)
+// (ops/sine_mlp.dw_row_splits), and split s writes its sums into row s of
+// the partial buffer at the dW_m offset, where sum_partials adds the S rows
+// in its fixed order. A block takes one split, one layer and one TM x TN
+// tile of dW (DwGeo: a 96 x 192 half at 192, a 128 x 256 half or eighth at
+// 256 and 512), sums over its rows in registers, KC rows at a time through
+// an NST-deep cp.async ring (rows past the split read as 0), and stores its
+// tile once: no read-modify-write and no atomics, so a run repeats bit for
+// bit. At 256 and 512 a warp holds MT = 2 pieces of 32 x 64, TM / 2 rows
+// apart, that share their G fragments: a third fewer shared-memory loads
+// and operand splits per product than one piece (faster than one piece on
+// an H100). At 192 the tile's 9 warps leave a thread 168 registers (a
+// quarter of the SM's register file for each 3 warps), too few for two
+// pieces (they spilled and ran slower), so a warp holds one. The blocks of one split and layer are adjacent
+// in the grid and run together, so the rows of A and G come from HBM about
+// once (the repeats from L2).
+// Bound at 512^2, d8: at 192 the 2.4 GB read (0.72 ms) against 0.70 ms of
+// 3xTF32 products at 495 TFLOP/s; at 256 and 512 the products (1.2 and
+// 4.9 ms at that rate). Products as in the chain kernels: 3xTF32 in the
+// fp32 mode, one pass on the bf16 values in the bf16 mode.
+template <int W>
+struct DwGeo {
+  static constexpr int MT = W == 192 ? 1 : 2;  // 32 x 64 pieces a warp, TM / MT rows apart
+  static constexpr int TM = W == 192 ? 96 : 128, TN = W == 192 ? 192 : 256;  // the dW tile
+  static constexpr int KC = W == 192 ? 64 : 32, NST = W == 192 ? 3 : 4;  // chunk rows, ring
+  static constexpr int CG = TN / 64;
+  static constexpr int WARPS = (TM / (32 * MT)) * CG;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int TILES = (W / TM) * (W / TN);
+  static constexpr int SLICE = KC * (TM + TN);  // floats in a chunk: A's, then G's
+  static_assert(W % TM == 0 && W % TN == 0 && TM % (32 * MT) == 0 && TN % 64 == 0,
+                "whole warps");
+};
+template <int W>
+constexpr size_t dw_smem() {
+  return sizeof(float) * DwGeo<W>::NST * DwGeo<W>::SLICE + DwGeo<W>::NST * sizeof(uint64_t);
+}
+
+// acc0 += A^T B and acc1 += A'^T B over K_STEPS rows: A's columns from the
+// warp's m0 (A' from m0 + MOFF), B's from its n0; A and B of row strides SA
+// and SB in the sw() layout. The G fragments of a k-step are loaded and
+// split once for both; each accumulator takes the k-steps in order, with
+// mma_step's passes.
+template <bool BF16, int SA, int SB, int K_STEPS, int MOFF>
+__device__ __forceinline__ void warp_mma_at2(Acc acc0, Acc acc1, const float* __restrict__ A,
+                                             const float* __restrict__ B, const Warp& w) {
+  const Cols<SA> pa(A, w.m0, w);
+  const Cols<SB> pb(B, w.n0, w);
+#pragma unroll 2
+  for (int k0 = 0; k0 < K_STEPS; k0 += 8) {
+    uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) split<BF16, false>(pb.at(q, 8 * ni, k0), bh[ni][q], bl[ni][q]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split<BF16, false>(pa.at(q >> 1, 16 * mi + 8 * (q & 1), k0), ah[mi][q], al[mi][q]);
+    mma_passes<BF16>(acc0, ah, al, bh, bl);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split<BF16, false>(pa.at(q >> 1, MOFF + 16 * mi + 8 * (q & 1), k0), ah[mi][q],
+                           al[mi][q]);
+    mma_passes<BF16>(acc1, ah, al, bh, bl);
+  }
+}
+
+template <bool BF16, int W>
+__global__ void __launch_bounds__(DwGeo<W>::THREADS, 1)
+sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
+                   float* __restrict__ partials, int n, int layers, int n_part, int offset) {
+  using D = DwGeo<W>;
+  extern __shared__ float4 smem4[];
+  float* ring_s = reinterpret_cast<float*>(smem4);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring_s + D::NST * D::SLICE);
+  const int tid = threadIdx.x;
+  const Warp w(tid, D::CG);
+  // the block's tile, layer and split; the tiles of a split and layer adjacent
+  const int tile = blockIdx.x % D::TILES, l = blockIdx.x / D::TILES % layers;
+  const int s = blockIdx.x / (D::TILES * layers), splits = gridDim.x / (D::TILES * layers);
+  const int m0 = tile / (W / D::TN) * D::TM, n0 = tile % (W / D::TN) * D::TN;
+  const int r0 = (int)((long long)s * n / splits), r1 = (int)((long long)(s + 1) * n / splits);
+  const float* a_l = a + (size_t)l * n * W + m0;
+  const float* g_l = gz + (size_t)l * n * W + n0;
+  const int chunks = (r1 - r0 + D::KC - 1) / D::KC;
+
+  init_barriers<D::THREADS>(bar, D::NST);
+  RingT<D> ring{ring_s, bar};
+  // chunk k (rows r0 + k KC ..) into buffer b: A's TM columns, then G's TN,
+  // each in the sw() layout of its width; rows from r1 on are zero-filled
+  const auto issue = [&](int b, int k) {
+    constexpr int QA = D::TM / 4, Q = (D::TM + D::TN) / 4;  // 16-byte pieces per row
+    float* dst = ring.buf(b);
+    const int row0 = r0 + k * D::KC;
+#pragma unroll 4
+    for (int e = tid; e < D::KC * Q; e += D::THREADS) {
+      const int r = e / Q, q = e % Q, row = row0 + r;
+      const bool in_a = q < QA, valid = row < r1;
+      const int col = 4 * (in_a ? q : q - QA);
+      const float* p = (in_a ? a_l : g_l) + (size_t)(valid ? row : r0) * W + col;
+      float* d = in_a ? dst + sw<D::TM>(r, col) : dst + D::KC * D::TM + sw<D::TN>(r, col);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   ::"r"(smem_addr(d)), "l"(p), "r"(valid ? 16 : 0) : "memory");
+    }
+    ring.arrive(b);
+  };
+  for (int k = 0; k < D::NST && k < chunks; ++k) issue(k, k);
+
+  Acc acc[D::MT];
+#pragma unroll
+  for (int j = 0; j < D::MT; ++j) zero(acc[j]);
+  for (int k = 0; k < chunks; ++k) {
+    const int b = k % D::NST;
+    ring.wait(b);
+    const float* buf = ring.buf(b);
+    if constexpr (D::MT == 1)
+      warp_mma_k<BF16, true, false, D::TM, D::TN, D::KC>(acc[0], buf, w.m0, 0,
+                                                         buf + D::KC * D::TM, w);
+    else
+      warp_mma_at2<BF16, D::TM, D::TN, D::KC, D::TM / 2>(acc[0], acc[1], buf,
+                                                         buf + D::KC * D::TM, w);
+    __syncthreads();
+    if (k + D::NST < chunks) issue(b, k + D::NST);
+  }
+  float* out = partials + (size_t)s * n_part + offset + (size_t)l * W * W + (size_t)m0 * W + n0;
+#pragma unroll
+  for (int j = 0; j < D::MT; ++j)
+    move_partial<false, W>(acc[j], out + (size_t)j * (D::TM / D::MT) * W, w);
 }
 
 // ------------------------------------------------------ the partial sum
@@ -1272,12 +1478,15 @@ int sm_count(int* sms) {
 #define SINE_MLP_FWD_WIDE_ARGS                                                               \
   const float *x, const float *w0, const float *wm, const float *wl, const float *bs,         \
       const float *bl, float *out, int n, int in_size, int out_size, int depth, float omega0, \
-      float omega_h, int bf16, int grid, void *stream
+      float omega_h, int bf16, int sms, void *stream
 #define SINE_MLP_BWD_WIDE_ARGS                                                                \
   const float *x, const float *g, const float *w0, const float *wm, const float *wmt,          \
-      const float *wl, const float *bs, float *dx, float *z, float *partials, int grid,        \
-      int n_part, int n, int in_size, int out_size, int depth, float omega0, float omega_h,    \
-      int bf16, void *stream
+      const float *wl, const float *bs, float *dx, float *z, float *partials, float *dw_a,      \
+      float *dw_g, int grid, int n_part, int n, int in_size, int out_size, int depth,          \
+      float omega0, float omega_h, int bf16, void *stream
+#define SINE_MLP_DW_WIDE_ARGS                                                                 \
+  const float *a, const float *g, float *partials, int n, int layers, int splits, int n_part, \
+      int offset, int bf16, void *stream
 
 extern "C" {
 
@@ -1285,55 +1494,78 @@ extern "C" {
 
 #define SINE_MLP_CAT2(a, b) a##b
 #define SINE_MLP_CAT(a, b) SINE_MLP_CAT2(a, b)
-using GW = WideGeo<SINE_MLP_WIDE>::type;  // SINE_MLP_WIDE is one of SINE_MLP_WIDE_GEOS
+// SINE_MLP_WIDE is one of SINE_MLP_WIDE_GEOS; SINE_MLP_PART 0, 1, 2: the
+// forward, the backward, sine_mlp_dw
+using GW = WideGeo<SINE_MLP_WIDE>;
 
-#if SINE_MLP_BWD
+#if SINE_MLP_PART == 2
+int SINE_MLP_CAT(sine_mlp_dw_w, SINE_MLP_WIDE)(SINE_MLP_DW_WIDE_ARGS) {
+  using D = DwGeo<SINE_MLP_WIDE>;
+  const int grid = splits * layers * D::TILES;
+  constexpr size_t smem = dw_smem<SINE_MLP_WIDE>();
+  static_assert(smem <= kMaxSmem, "sine_mlp_dw's shared memory");
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch(sine_mlp_dw_kernel<true, SINE_MLP_WIDE>, grid, D::THREADS, smem, s,
+                             a, g, partials, n, layers, n_part, offset)
+                    : launch(sine_mlp_dw_kernel<false, SINE_MLP_WIDE>, grid, D::THREADS, smem, s,
+                             a, g, partials, n, layers, n_part, offset));
+}
+#elif SINE_MLP_PART == 1
 int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
+  using G = GW::bwd;
   const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth, omega0,
                              omega_h);
-  constexpr size_t smem = bwd_wide_smem<GW>();
+  constexpr size_t smem = bwd_wide_smem<G>();
+  static_assert(smem <= kMaxSmem, "the backward's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch(sine_mlp_bwd_wide_kernel<true, GW>, grid, GW::THREADS, smem, s, c,
-                             x, g, dx, z, partials, n_part)
-                    : launch(sine_mlp_bwd_wide_kernel<false, GW>, grid, GW::THREADS, smem, s, c,
-                             x, g, dx, z, partials, n_part));
+  return (int)(bf16 ? launch(sine_mlp_bwd_wide_kernel<true, G>, grid, G::THREADS, smem, s, c, x,
+                             g, dx, z, partials, n_part, dw_a, dw_g)
+                    : launch(sine_mlp_bwd_wide_kernel<false, G>, grid, G::THREADS, smem, s, c, x,
+                             g, dx, z, partials, n_part, dw_a, dw_g));
 }
 #else
+// One persistent block per SM, at most one per tile of the forward's rows.
 int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
+  using G = GW::fwd;
   const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
                              omega_h);
-  constexpr size_t smem = fwd_wide_smem<GW>();
+  const int tiles = (n + G::T - 1) / G::T;
+  const int grid = tiles < sms ? tiles : sms;
+  constexpr size_t smem = fwd_wide_smem<G>();
+  static_assert(smem <= kMaxSmem, "the forward's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch(sine_mlp_fwd_wide_kernel<true, GW>, grid, GW::THREADS, smem, s, c,
-                             x, out)
-                    : launch(sine_mlp_fwd_wide_kernel<false, GW>, grid, GW::THREADS, smem, s, c,
-                             x, out));
+  return (int)(bf16 ? launch(sine_mlp_fwd_wide_kernel<true, G>, grid, G::THREADS, smem, s, c, x,
+                             out)
+                    : launch(sine_mlp_fwd_wide_kernel<false, G>, grid, G::THREADS, smem, s, c, x,
+                             out));
 }
 #endif
 
 #else  // the width-128 kernels, sum_partials and the C interface
 
-#define SINE_MLP_DECLARE(W, TR, KS)              \
-  int sine_mlp_fwd_w##W(SINE_MLP_FWD_WIDE_ARGS); \
-  int sine_mlp_bwd_w##W(SINE_MLP_BWD_WIDE_ARGS);
+#define SINE_MLP_DECLARE(W, TR, KS, NB, FTR, FKS, FNB) \
+  int sine_mlp_fwd_w##W(SINE_MLP_FWD_WIDE_ARGS);   \
+  int sine_mlp_bwd_w##W(SINE_MLP_BWD_WIDE_ARGS);   \
+  int sine_mlp_dw_w##W(SINE_MLP_DW_WIDE_ARGS);
 SINE_MLP_WIDE_GEOS(SINE_MLP_DECLARE)
 #undef SINE_MLP_DECLARE
 
 // The kernel width a model of hidden width h runs on (h zero-padded up to
 // it): 128 or a width of SINE_MLP_WIDE_GEOS; 0 above the widest.
 int sine_mlp_kernel_width(int h) {
-#define SINE_MLP_WIDTH(W, TR, KS) W,
+#define SINE_MLP_WIDTH(W, TR, KS, NB, FTR, FKS, FNB) W,
   constexpr int widths[] = {H, SINE_MLP_WIDE_GEOS(SINE_MLP_WIDTH)};
 #undef SINE_MLP_WIDTH
   for (int k : widths)
     if (h <= k) return h >= 1 ? k : 0;
   return 0;
 }
-// Pixel rows per tile of the kernel of width `hidden` (0 if there is none).
+// Pixel rows per tile of the backward kernel of width `hidden` (0 if there
+// is none): the partial buffer has at most one slice per tile.
 int sine_mlp_tile_rows(int hidden) {
   switch (hidden) {
     case H: return T;
-#define SINE_MLP_ROWS(W, TR, KS) \
+#define SINE_MLP_ROWS(W, TR, KS, NB, FTR, FKS, FNB) \
   case W: return TR;
     SINE_MLP_WIDE_GEOS(SINE_MLP_ROWS)
 #undef SINE_MLP_ROWS
@@ -1353,16 +1585,16 @@ int sine_mlp_fwd(const float* x, const float* w0, const float* wm, const float* 
   if (rows == 0) return (int)cudaErrorInvalidValue;
   int sms = 0;
   if (const int err = sm_count(&sms)) return err;
-  const int tiles = (n + rows - 1) / rows;
-  const int grid = tiles < sms ? tiles : sms;
   switch (hidden) {
-#define SINE_MLP_FWD_CASE(W, TR, KS)                                                            \
+#define SINE_MLP_FWD_CASE(W, TR, KS, NB, FTR, FKS, FNB)                                              \
   case W:                                                                                      \
     return sine_mlp_fwd_w##W(x, w0, wm, wl, bs, bl, out, n, in_size, out_size, depth, omega0, \
-                             omega_h, bf16, grid, stream);
+                             omega_h, bf16, sms, stream);
     SINE_MLP_WIDE_GEOS(SINE_MLP_FWD_CASE)
 #undef SINE_MLP_FWD_CASE
   }
+  const int tiles = (n + rows - 1) / rows;
+  const int grid = tiles < sms ? tiles : sms;
   const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
                              omega_h);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -1370,25 +1602,16 @@ int sine_mlp_fwd(const float* x, const float* w0, const float* wm, const float* 
                     : launch(sine_mlp_fwd_kernel<false>, grid, THREADS, kFwdSmem, s, c, x, out));
 }
 
-// partials: (grid, n_part) floats, n_part a multiple of 4 (16-byte aligned
-// slices); z_scratch: (grid, max(depth-3, 1), T, hidden) floats, T =
-// sine_mlp_tile_rows(hidden); wmt: each hidden W transposed, read by the
-// wider kernels only (may be null at width 128).
+// The width-128 backward. partials: (grid, n_part) floats, n_part a multiple
+// of 4 (16-byte aligned slices); z_scratch: (grid, max(depth-3, 1), T,
+// hidden) floats, T = sine_mlp_tile_rows(hidden); wmt is not read. A wider
+// width is sine_mlp_bwd_wide's and returns cudaErrorInvalidValue here.
 int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* wm,
                  const float* wmt, const float* wl, const float* bs, float* dx, float* z_scratch,
                  float* partials, int grid, int n_part, int n, int in_size, int out_size,
                  int depth, int hidden, float omega0, float omega_h, int bf16, void* stream) {
   if (n <= 0 || grid <= 0) return 0;
-  if (n_part % 4 != 0 || sine_mlp_tile_rows(hidden) == 0 || (hidden != H && wmt == nullptr))
-    return (int)cudaErrorInvalidValue;
-  switch (hidden) {
-#define SINE_MLP_BWD_CASE(W, TR, KS)                                                           \
-  case W:                                                                                     \
-    return sine_mlp_bwd_w##W(x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, grid, n_part, \
-                             n, in_size, out_size, depth, omega0, omega_h, bf16, stream);
-    SINE_MLP_WIDE_GEOS(SINE_MLP_BWD_CASE)
-#undef SINE_MLP_BWD_CASE
-  }
+  if (n_part % 4 != 0 || hidden != H) return (int)cudaErrorInvalidValue;
   const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth,
                              omega0, omega_h);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -1396,6 +1619,55 @@ int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* w
                              z_scratch, partials, n_part)
                     : launch(sine_mlp_bwd_kernel<false>, grid, THREADS, kBwdSmem, s, c, x, g,
                              dx, z_scratch, partials, n_part));
+}
+
+// The wider backward (hidden a width of SINE_MLP_WIDE_GEOS), as sine_mlp_bwd
+// but for dW_m: it writes dW_m's operands into dw_a and dw_g ((depth - 2, n,
+// hidden) floats each, 16-byte aligned) for sine_mlp_dw and leaves the dW_m
+// region of partials alone. wmt: each hidden W transposed.
+int sine_mlp_bwd_wide(const float* x, const float* g, const float* w0, const float* wm,
+                      const float* wmt, const float* wl, const float* bs, float* dx,
+                      float* z_scratch, float* partials, float* dw_a, float* dw_g, int grid,
+                      int n_part, int n, int in_size, int out_size, int depth, int hidden,
+                      float omega0, float omega_h, int bf16, void* stream) {
+  if (n <= 0 || grid <= 0) return 0;
+  if (n_part % 4 != 0 || wmt == nullptr || reinterpret_cast<uintptr_t>(dw_a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dw_g) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (hidden) {
+#define SINE_MLP_BWD_CASE(W, TR, KS, NB, FTR, FKS, FNB)                                             \
+  case W:                                                                                     \
+    return sine_mlp_bwd_w##W(x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, dw_a, dw_g,  \
+                             grid, n_part, n, in_size, out_size, depth, omega0, omega_h, bf16, \
+                             stream);
+    SINE_MLP_WIDE_GEOS(SINE_MLP_BWD_CASE)
+#undef SINE_MLP_BWD_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dW_l = a_l^T g_l for l < layers, a and g (layers, n, hidden) floats
+// (sine_mlp_bwd_wide's dw_a, dw_g), the n rows split into `splits`
+// contiguous ranges: split s sums rows [s n / splits, (s + 1) n / splits)
+// into partials[s][offset + l hidden^2 ..] (row-major hidden x hidden).
+// partials: (>= splits, n_part) floats, n_part % 4 == 0, offset + layers
+// hidden^2 <= n_part, offset even; a, g and partials 16-byte aligned.
+int sine_mlp_dw(const float* a, const float* g, float* partials, int n, int layers, int splits,
+                int n_part, int offset, int hidden, int bf16, void* stream) {
+  if (n <= 0 || layers <= 0 || splits <= 0) return 0;
+  if (n_part % 4 != 0 || offset % 2 != 0 || offset < 0 ||
+      (long long)offset + (long long)layers * hidden * hidden > n_part ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(partials) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (hidden) {
+#define SINE_MLP_DW_CASE(W, TR, KS, NB, FTR, FKS, FNB) \
+  case W:                                         \
+    return sine_mlp_dw_w##W(a, g, partials, n, layers, splits, n_part, offset, bf16, stream);
+    SINE_MLP_WIDE_GEOS(SINE_MLP_DW_CASE)
+#undef SINE_MLP_DW_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The row split's group count; ops/sine_mlp.py mirrors it.

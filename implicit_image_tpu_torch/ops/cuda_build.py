@@ -9,7 +9,7 @@ never loaded. sine_mlp.cu is compiled in parts, one nvcc each, all started
 together (the wider kernels' parts take the longest), then linked:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
-         [-DSINE_MLP_WIDE=W -DSINE_MLP_BWD=0|1] -c -o <part>.o csrc/sine_mlp.cu
+         [-DSINE_MLP_WIDE=W -DSINE_MLP_PART=0|1|2] -c -o <part>.o csrc/sine_mlp.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libiit_<hash>.so *.o
 """
 from __future__ import annotations
@@ -31,10 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("sine_mlp.cu", "fast_math.cuh")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # the parts of sine_mlp.cu: the width-128 kernels, sum_partials and the C
-# interface; then each wider width's forward and backward
+# interface; then each wider width's forward, backward and sine_mlp_dw
 _PARTS = {"base": []} | {
-    f"{'bwd' if bwd else 'fwd'}{w}": [f"-DSINE_MLP_WIDE={w}", f"-DSINE_MLP_BWD={bwd}"]
-    for w in KERNEL_WIDTHS[1:] for bwd in (0, 1)}
+    f"{part}{w}": [f"-DSINE_MLP_WIDE={w}", f"-DSINE_MLP_PART={i}"]
+    for w in KERNEL_WIDTHS[1:] for i, part in enumerate(("fwd", "bwd", "dw"))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +49,10 @@ _SIGNATURES = {
     # x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, grid, n_part, n, in,
     # out, depth, hidden, omega0, omega_h, bf16, stream
     "sine_mlp_bwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _I, _P], _I),
+    # ... as sine_mlp_bwd with dw_a, dw_g after partials
+    "sine_mlp_bwd_wide": ([_P] * 12 + [_I] * 7 + [_F, _F, _I, _P], _I),
+    # a, g, partials, n, layers, splits, n_part, offset, hidden, bf16, stream
+    "sine_mlp_dw": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "sum_partials_groups": ([], _I),
     # partials, out, n_blocks, n_part, stream
     "sum_partials": ([_P, _P, _I, _I, _P], _I),

@@ -8,6 +8,11 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
     rematerializing backward. The TPU accumulated dW/db across sequential
     grid steps; on the card each block of a fixed grid writes its own
     partial slice and `sum_partials` adds the slices in a fixed order.
+    Above width 128 the backward is two kernels: `sine_mlp_bwd_wide`
+    computes everything but the hidden layers' dW and stores dW's operands
+    (rnd(a_{l-1}) and rnd(gz_l), row-major), and `sine_mlp_dw` sums their
+    product over the rows split into one contiguous range per partial
+    slice (`dw_row_splits`), each range into its slice.
 
 What bounds them on the card, and the design: see the note at the top of
 csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
@@ -15,8 +20,9 @@ the tensor cores, mma.sync over 128-row tiles, each hidden W streamed by
 cp.async copies into a double-buffered ring in shared memory). Widths up to
 512 run: a model's hidden width is zero-padded to the next kernel width of
 `KERNEL_WIDTHS` (padded units stay exactly 0); the kernels above 128 stream
-each W in slices of rows and tile 64 or 32 pixel rows (csrc/sine_mlp.cu,
-"the wider kernels"). A CUDA tensor of a width above 512 raises.
+each W in slices of rows, tile 32 to 128 pixel rows, and leave dW to
+`sine_mlp_dw` (csrc/sine_mlp.cu, "the wider kernels", "sine_mlp_dw"). A
+CUDA tensor of a width above 512 raises.
 
 Side by side in this module:
 
@@ -26,6 +32,9 @@ Side by side in this module:
   * `sum_partials_reference` — the partial sum in the kernel's order of
     additions (row groups, then the groups in order), equal to the kernel
     bit for bit on the card; only the tests and chip_smoke.py call it;
+  * `siren_chain_dw_operands` / `sine_mlp_dw_reference` — the operands the
+    wider backward stores and the split dW that `sine_mlp_dw` computes
+    from them, plain torch (the tests and chip_smoke.py);
   * `SineMLPFunction` — the autograd.Function. A CUDA tensor runs the
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
     back from one to the other;
@@ -64,6 +73,10 @@ __all__ = [
     "partial_layout",
     "sine_mlp_fwd",
     "sine_mlp_bwd",
+    "dw_row_splits",
+    "siren_chain_dw_operands",
+    "sine_mlp_dw_reference",
+    "sine_mlp_dw",
     "SUM_PARTIALS_GROUPS",
     "sum_partials_row_groups",
     "sum_partials_reference",
@@ -83,10 +96,10 @@ _PRECISION_OF = {
 }
 
 # launches per kernel; only the launch sites below add to these
-LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sum_partials": 0}
+LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sine_mlp_dw": 0, "sum_partials": 0}
 
-# the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile
-# (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
+# the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
+# the backward (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
 # sine_mlp_kernel_width() and sine_mlp_tile_rows()): a SIREN of hidden width h
 # runs on the first width that is >= h, zero-padded to it
 KERNEL_TILE_ROWS = {128: 128, 192: 64, 256: 64, 512: 32}
@@ -147,13 +160,12 @@ def siren_chain_reference(params, x: torch.Tensor, cfg, precision: str = "fp32")
     raise ValueError("empty params")
 
 
-def siren_chain_backward_reference(
-    params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str = "fp32"
-):
-    """Cotangents of `siren_chain_reference` for output cotangent g (N, out):
-    returns (dx, grads) with grads a tuple of {"w", "b"} dicts. Recomputes
-    the forward keeping only the pre-activations z, then walks the layers
-    back exactly as the kernel does (derivative of sin via fast_cos)."""
+def _chain_backward(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, layer):
+    """The plain backward's walk: recomputes the forward keeping only the
+    pre-activations z, then goes back over the layers exactly as the kernel
+    does (derivative of sin via fast_cos), calling layer(i, a_prev, gzb, gz)
+    for each layer i, last first (a_prev its rounded input, gzb its rounded
+    and gz its unrounded output cotangent). Returns dx."""
     bf16 = _check_precision(precision)
     n_layers = len(params)
     om = _omegas(cfg, n_layers)
@@ -166,16 +178,66 @@ def siren_chain_backward_reference(
         a = _rnd(fast_sin(om[i] * z), bf16)
     g = g.float()
     gb = _rnd(g, bf16)
-    grads = [None] * n_layers
-    grads[-1] = {"w": a.t() @ gb, "b": g.sum(0)}
+    layer(n_layers - 1, a, gb, g)
     ga = gb @ _rnd(params[-1]["w"], bf16).t()
     for i in range(n_layers - 2, -1, -1):
         gz = ga * (om[i] * fast_cos(om[i] * zs[i]))
         gzb = _rnd(gz, bf16)
-        a_prev = xr if i == 0 else _rnd(fast_sin(om[i - 1] * zs[i - 1]), bf16)
-        grads[i] = {"w": a_prev.t() @ gzb, "b": gz.sum(0)}
+        layer(i, xr if i == 0 else _rnd(fast_sin(om[i - 1] * zs[i - 1]), bf16), gzb, gz)
         ga = gzb @ _rnd(params[i]["w"], bf16).t()
-    return ga, tuple(grads)
+    return ga
+
+
+def siren_chain_backward_reference(
+    params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str = "fp32"
+):
+    """Cotangents of `siren_chain_reference` for output cotangent g (N, out):
+    returns (dx, grads) with grads a tuple of {"w", "b"} dicts. Recomputes
+    the forward keeping only the pre-activations z, then walks the layers
+    back exactly as the kernel does (derivative of sin via fast_cos)."""
+    grads = [None] * len(params)
+
+    def layer(i, a_prev, gzb, gz):
+        grads[i] = {"w": a_prev.t() @ gzb, "b": gz.sum(0)}
+
+    dx = _chain_backward(params, x, g, cfg, precision, layer)
+    return dx, tuple(grads)
+
+
+def siren_chain_dw_operands(params, x: torch.Tensor, g: torch.Tensor, cfg,
+                            precision: str = "fp32"):
+    """The operands of the hidden layers' dW that the wider backward stores
+    for `sine_mlp_dw`: (A, G), each (depth - 2, N, h), A[l - 1] = rnd(a_{l-1})
+    and G[l - 1] = rnd(gz_l) for hidden layer l = 1 .. depth - 2, so that
+    dW_l = A[l - 1]^T G[l - 1]."""
+    hidden = range(1, len(params) - 1)
+    ops = {}
+
+    def layer(i, a_prev, gzb, gz):
+        if i in hidden:
+            ops[i] = (a_prev, gzb)
+
+    _chain_backward(params, x, g, cfg, precision, layer)
+    return (torch.stack([ops[i][0] for i in hidden]), torch.stack([ops[i][1] for i in hidden]))
+
+
+def dw_row_splits(n: int, splits: int):
+    """`sine_mlp_dw`'s row split: `splits` contiguous (start, stop) ranges
+    in order, split s holding rows [s n / S, (s + 1) n / S)."""
+    return [(s * n // splits, (s + 1) * n // splits) for s in range(splits)]
+
+
+def sine_mlp_dw_reference(a: torch.Tensor, g: torch.Tensor, splits: int,
+                          precision: str = "fp32") -> torch.Tensor:
+    """Plain version of `sine_mlp_dw`: a and g (L, N, H) -> (splits, L, H, H),
+    row s holding sum over split s's rows of a^T g per layer (fp32 products;
+    bf16 mode rounds the operands to bf16 first, a no-op on what the wider
+    backward stores). `sum_partials_reference` of it is dW; the kernel adds
+    each split's rows in its own order."""
+    bf16 = _check_precision(precision)
+    a, g = _rnd(a.float(), bf16), _rnd(g.float(), bf16)
+    return torch.stack([a[:, r0:r1].transpose(1, 2) @ g[:, r0:r1]
+                        for r0, r1 in dw_row_splits(a.shape[1], splits)])
 
 
 # ------------------------------------------------------------ CUDA wrappers
@@ -301,16 +363,19 @@ def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, 
 
 
 def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
-    """Launch the backward kernel and the partial-sum kernel: returns
-    (dx, grads) in the layout of `siren_chain_backward_reference`."""
+    """Launch the backward kernel(s) and the partial-sum kernel: returns
+    (dx, grads) in the layout of `siren_chain_backward_reference`. Above
+    width 128: `sine_mlp_bwd_wide`, then `sine_mlp_dw` for the hidden
+    layers' dW into the same partial buffer."""
     bf16 = _check_precision(precision)
     lib, hidden, depth, in_size, out_size = _kernel_dims(params, x)
     om = _omegas(cfg, depth)
     dev = x.device
     h = params[0]["w"].shape[1]
     w0, wm, wl, bs, _ = _pack(params, hidden)
+    wide = hidden != KERNEL_WIDTHS[0]
     # the wider kernels' gz W^T reads W^T's rows from the ring
-    wmt = wm.transpose(1, 2).contiguous() if hidden != KERNEL_WIDTHS[0] else None
+    wmt = wm.transpose(1, 2).contiguous() if wide else None
     x = x.float().contiguous()
     g = g.float().contiguous()
     n = x.shape[0]
@@ -321,22 +386,34 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     z_scratch = torch.empty((grid, max(depth - 3, 1), tile, hidden), dtype=torch.float32,
                             device=dev)
     partials = torch.empty((grid, n_part), dtype=torch.float32, device=dev)
+    # the wider backward's dW operands, rnd(a_{l-1}) and rnd(gz_l) per hidden layer
+    dw_ops = [torch.empty((max(depth - 2, 1), n, hidden), dtype=torch.float32, device=dev)
+              for _ in range(2)] if wide else []
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs), ("dx", dx),
                     ("z_scratch", z_scratch), ("partials", partials)) + (
-                        (("wmt", wmt),) if wmt is not None else ()):
+                        (("wmt", wmt), ("dw_a", dw_ops[0]), ("dw_g", dw_ops[1])) if wide else ()):
         _check_cuda(name, t, dev)
     _check_cuda("g", g, dev, (n, out_size))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sine_mlp_bwd(
-            x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(),
-            None if wmt is None else wmt.data_ptr(), wl.data_ptr(),
-            bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(), partials.data_ptr(),
-            grid, n_part, n,
-            in_size, out_size, depth, hidden, om[0], om[1], int(bf16), stream,
-        )
+        if wide:
+            err = lib.sine_mlp_bwd_wide(
+                x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), wmt.data_ptr(),
+                wl.data_ptr(), bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(),
+                partials.data_ptr(), dw_ops[0].data_ptr(), dw_ops[1].data_ptr(), grid, n_part,
+                n, in_size, out_size, depth, hidden, om[0], om[1], int(bf16), stream,
+            )
+        else:
+            err = lib.sine_mlp_bwd(
+                x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), None, wl.data_ptr(),
+                bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(), partials.data_ptr(),
+                grid, n_part, n,
+                in_size, out_size, depth, hidden, om[0], om[1], int(bf16), stream,
+            )
     _raise_on(err, "sine_mlp_bwd")
     LAUNCHES["sine_mlp_bwd"] += 1
+    if wide and depth > 2:
+        sine_mlp_dw(*dw_ops, partials, sizes[0], precision)
     flat = sum_partials(partials)
 
     dw0, dwm, dwl, dbs, dbl = torch.split(flat[: sum(sizes)], sizes)
@@ -348,6 +425,39 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     grads += [{"w": dwm[i - 1], "b": dbs[i]} for i in range(1, depth - 1)]
     grads.append({"w": dwl, "b": dbl})
     return dx, tuple(grads)
+
+
+def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
+                precision: str) -> None:
+    """Launch sine_mlp_dw: a and g (L, N, H) fp32 on the card (H a kernel
+    width above 128) -> for each of the S = partials.shape[0] row splits of
+    `dw_row_splits(N, S)`, partials[s, offset + l H^2 ..] = the row-major
+    H x H sum of a[l]^T g[l] over the split's rows. a, g and partials must be
+    contiguous and 16-byte aligned, offset even and the L H^2 floats within
+    each row; anything else, a CPU tensor included, raises ValueError before
+    the library is built. No atomics: a call repeats bit for bit."""
+    bf16 = _check_precision(precision)
+    if a.dim() != 3 or tuple(a.shape) != tuple(g.shape) or a.shape[2] not in KERNEL_WIDTHS[1:]:
+        raise ValueError(
+            f"sine_mlp_dw: expected a and g of one shape (L, N, H), H in {KERNEL_WIDTHS[1:]}; "
+            f"got {tuple(a.shape)} and {tuple(g.shape)}")
+    layers, n, hidden = a.shape
+    dev = a.device
+    if partials.dim() != 2 or partials.shape[1] % 4:
+        raise ValueError(f"sine_mlp_dw: expected partials (S, P), P a multiple of 4; got "
+                         f"{tuple(partials.shape)}")
+    if offset % 2 or offset < 0 or offset + layers * hidden * hidden > partials.shape[1]:
+        raise ValueError(f"sine_mlp_dw: {layers} dW of {hidden}^2 floats at offset {offset} do "
+                         f"not fit a row of {partials.shape[1]} (or the offset is odd)")
+    for name, t in (("a", a), ("g", g), ("partials", partials)):
+        _check_cuda(name, t, dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.sine_mlp_dw(a.data_ptr(), g.data_ptr(), partials.data_ptr(), n, layers,
+                              partials.shape[0], partials.shape[1], offset, hidden, int(bf16),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "sine_mlp_dw")
+    LAUNCHES["sine_mlp_dw"] += 1
 
 
 def sum_partials_row_groups(n_blocks: int, groups: int):
@@ -415,8 +525,9 @@ def _unflatten(flat: Sequence[torch.Tensor]):
 
 class SineMLPFunction(torch.autograd.Function):
     """out = chain(x; W, b). Forward: kernel K1 on a CUDA tensor, the plain
-    chain on a CPU tensor. Backward: kernel K2 + sum_partials, or the plain
-    backward. Returns cotangents for x and every W and b."""
+    chain on a CPU tensor. Backward: kernel K2 (above width 128 with
+    sine_mlp_dw) + sum_partials, or the plain backward. Returns cotangents
+    for x and every W and b."""
 
     @staticmethod
     def forward(ctx, x, cfg, precision, *flat):

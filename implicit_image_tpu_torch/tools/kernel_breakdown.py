@@ -1,28 +1,47 @@
 """Where the time of the SIREN kernels goes, on the card.
 
     python -m implicit_image_tpu_torch.tools.kernel_breakdown [--out FILE]
+        [--widths 128 182 512]
 
 Builds copies of csrc/sine_mlp.cu with one part knocked out each (their
-results are wrong by design), all at once (each in the parts of
-ops/cuda_build.build), and
-times sine_mlp_fwd and sine_mlp_bwd of each in the fp32 mode at the main
-path's shapes (512^2 pixels, d8, w128; CUDA events over 10 launches after
-a warm-up). The differences to "full" say what each part costs:
+results are wrong by design), a few at a time (each in the parts of
+ops/cuda_build.build), and times sine_mlp_fwd and sine_mlp_bwd of each in
+the fp32 mode at the main path's shapes (512^2 pixels, d8) at every width
+of --widths (CUDA events over 10 launches after a warm-up), and at the
+wider widths, where the source has it, sine_mlp_dw alone on operands of
+the main path's shape. The differences to "full" say what each part costs:
 
-  no_sine     the sine polynomial of the forward epilogues (z passes through)
-  no_mma      the hidden layers' products (fragment loads, splits, mma)
-  no_stash    the backward's z stash (stores, and the copies back)
-  no_partial  the backward's read-modify-write of the dW partials
-  no_both     no_stash and no_partial together
+  no_sine       the sine polynomial of the forward epilogues (z passes through)
+  no_mma        the hidden layers' products (fragment loads, splits, mma), at
+                width 128 (warp_mma) and in the wider kernels (warp_mma_k: the
+                ring's products and the dW products; warp_mma_at2: sine_mlp_dw's
+                at 256 and 512)
+  no_stash      the backward's z stash (stores, and the copies back)
+  no_partial    the backward's dW traffic: the read-modify-write of the dW
+                partials (width 128, and the wider backward's dW pieces where
+                the source has them), or the wider backward's stores of the dW
+                operands for sine_mlp_dw (where it has those)
+  no_both       no_stash and no_partial together
+  no_ring_wait  the wider kernels' ring wait and barrier: each product reads
+                whatever its slice holds (each thread drains its copies at its
+                last slice, so none is in flight when the block ends)
+  no_dw         sine_mlp_dw launches nothing (where the source has it): the
+                backward's time without the dW kernel
 
-It then builds and runs tools/mma_rate.cu, the rate of mma.sync alone.
-Prints one line per variant and writes the record, with the card's name
-and power limit, as JSON to --out.
+The variants match the source of this commit and of the commit before the
+wider backward moved dW into sine_mlp_dw, so the tool also measures an older
+checkout: copy this file into it and run it there. It then builds and runs
+tools/mma_rate.cu, the rate of mma.sync alone. Prints one line per variant
+and width, and writes the record, with the card's name and power limit, as
+JSON to --out. For "full" it also records the sha256 of the fp32 forward's
+output and of the backward's results, so that two trees' runs show whether
+their bits agree.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import tempfile
@@ -37,6 +56,7 @@ from implicit_image_tpu_torch.ops import cuda_build as cb
 from implicit_image_tpu_torch.ops import sine_mlp as sm
 
 TOOLS = Path(__file__).resolve().parent
+BUILDS_AT_ONCE = 3  # variant libraries built together (each runs its parts at once)
 
 
 def _rep(src: str, old: str, new: str) -> str:
@@ -45,25 +65,55 @@ def _rep(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
+def _never(line: str) -> str:
+    """The statement `line` behind a condition that never holds."""
+    indent = line[: len(line) - len(line.lstrip())]
+    return f"{indent}if (acc[0][0][0] == 12345.f) {line.strip()}"
+
+
+def _no_partial(src: str) -> str:
+    ld, st = "      move_partial<true>(acc, dw, w);", "      move_partial<false>(acc, dw, w);"
+    src = _rep(_rep(src, ld, "      zero(acc);"), st, _never(st))
+    # the wider backward: its dW pieces (before sine_mlp_dw), or the operand
+    # stores that feed sine_mlp_dw
+    wide_ld = "        move_partial<true, HW>(acc, piece, w);"
+    wide_st = "        move_partial<false, HW>(acc, piece, w);"
+    if wide_ld in src:
+        return _rep(_rep(src, wide_ld, "        zero(acc);"), wide_st, _never(wide_st))
+    return _rep(src, "      store_dw_operands<G>(", "      if (l == 12345) store_dw_operands<G>(")
+
+
 def variants(src: str) -> dict:
     stash_st = ("        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw<S>(r, c)]) = "
                 "make_float2(z0, z1);")
     copy_z = "    asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\"\n" \
              "                 ::\"r\"(smem_addr(dst + 4 * e)), \"l\"(src + 4 * e) : \"memory\");"
-    part_ld, part_st = ("      move_partial<true>(acc, dw, w);",
-                        "      move_partial<false>(acc, dw, w);")
     no_stash = _rep(_rep(src, stash_st, ""), copy_z, "    ;")
-    return {
+    no_mma = _rep(src, "  const PA pa(A, w.m0, w);", "  return;\n  const PA pa(A, w.m0, w);")
+    no_mma = _rep(no_mma, "  const PA pa(A, a0, w);", "  return;\n  const PA pa(A, a0, w);")
+    if "warp_mma_at2" in src:  # sine_mlp_dw's two-piece product
+        no_mma = _rep(no_mma, "  const Cols<SA> pa(A, w.m0, w);",
+                      "  return;\n  const Cols<SA> pa(A, w.m0, w);")
+    ring_wait = "    ring.wait(b);\n    warp_mma_k<"
+    ring_sync = "    __syncthreads();\n    if (s + NB < total) ring.issue(b, src(s + NB));"
+    no_ring_wait = _rep(_rep(src, ring_wait, "    warp_mma_k<"), ring_sync,
+                        "    if (s + NB < total) ring.issue(b, src(s + NB));\n"
+                        "    if (s + 1 == total)\n"
+                        "      asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");")
+    out = {
         "full": src,
         "no_sine": _rep(_rep(src, "iit::fast_sin(omega * z0)", "z0"),
                         "iit::fast_sin(omega * z1)", "z1"),
-        "no_mma": _rep(src, "  const PA pa(A, w.m0, w);", "  return;\n  const PA pa(A, w.m0, w);"),
+        "no_mma": no_mma,
         "no_stash": no_stash,
-        "no_partial": _rep(_rep(src, part_ld, "      zero(acc);"), part_st,
-                           "      if (acc[0][0][0] == 12345.f) " + part_st.strip()),
-        "no_both": _rep(_rep(no_stash, part_ld, "      zero(acc);"), part_st,
-                        "      if (acc[0][0][0] == 12345.f) " + part_st.strip()),
+        "no_partial": _no_partial(src),
+        "no_both": _no_partial(no_stash),
+        "no_ring_wait": no_ring_wait,
     }
+    if "sine_mlp_dw_kernel" in src:
+        out["no_dw"] = _rep(src, "  if (n <= 0 || layers <= 0 || splits <= 0) return 0;",
+                            "  return 0;")
+    return out
 
 
 def _build(src: Path, out: Path) -> None:
@@ -94,9 +144,17 @@ def _time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _sha256(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="outputs/kernel_breakdown.json")
+    ap.add_argument("--widths", type=int, nargs="+", default=[128, 182, 512])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_breakdown: needs a CUDA device")
@@ -112,24 +170,43 @@ def main(argv=None) -> dict:
         (tmp / name / "fast_math.cuh").write_text((cb.CSRC / "fast_math.cuh").read_text())
     jobs = [(tmp / n, tmp / n / "lib.so") for n in srcs]
     jobs.append((TOOLS / "mma_rate.cu", tmp / "mma_rate"))
-    with ThreadPoolExecutor(len(jobs)) as ex:
+    with ThreadPoolExecutor(BUILDS_AT_ONCE) as ex:
         list(ex.map(lambda j: _build(*j), jobs))
 
     dev = torch.device("cuda")
-    mdef, mcfg = build_model("siren", depth=8, hidden_size=128)
-    gen = torch.Generator().manual_seed(0)
-    params = mdef.init(gen, mcfg, dev)
     x = (get_grid(512, 512, dev).reshape(-1, 2) - 0.5) * 2.0
-    g = (torch.randn((x.shape[0], 3), generator=gen) / x.shape[0]).to(dev)
-    record = {"card": card, "variants": {}}
+    record = {"card": card, "widths": {}}
     saved = cb._state["lib"]
     try:
-        for name in srcs:
-            cb._state["lib"] = _load(tmp / name / "lib.so")
-            fwd = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, "fp32"))
-            bwd = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, "fp32"))
-            record["variants"][name] = {"fwd_ms": fwd, "bwd_ms": bwd}
-            print(f"[breakdown] {name:10s} fwd {fwd:.4f} ms, bwd {bwd:.4f} ms", flush=True)
+        for width in args.widths:
+            mdef, mcfg = build_model("siren", depth=8, hidden_size=width)
+            gen = torch.Generator().manual_seed(0)
+            params = mdef.init(gen, mcfg, dev)
+            g = (torch.randn((x.shape[0], 3), generator=gen) / x.shape[0]).to(dev)
+            rows = record["widths"][width] = {}
+            hidden = sm.kernel_width(width)
+            dw_args = None
+            if hidden != sm.KERNEL_WIDTHS[0] and hasattr(sm, "sine_mlp_dw"):
+                blocks, n_part, sizes = sm.partial_layout(x.shape[0], 8, 2, width, 3, dev)
+                ops = torch.randn((2, 6, x.shape[0], hidden), device=dev)
+                dw_args = (*ops, torch.empty((blocks, n_part), device=dev), sizes[0], "fp32")
+            for name in srcs:
+                cb._state["lib"] = _load(tmp / name / "lib.so")
+                fwd = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, "fp32"))
+                bwd = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, "fp32"))
+                rows[name] = {"fwd_ms": fwd, "bwd_ms": bwd}
+                line = f"[breakdown w{width}] {name:12s} fwd {fwd:.4f} ms, bwd {bwd:.4f} ms"
+                if name == "full":
+                    dx, grads = sm.sine_mlp_bwd(params, x, g, mcfg, "fp32")
+                    rows[name]["fwd_sha256"] = _sha256(sm.sine_mlp_fwd(params, x, mcfg, "fp32"))
+                    rows[name]["bwd_sha256"] = _sha256(dx, *(t for gr in grads
+                                                              for t in gr.values()))
+                    line += (f", sha256 fwd {rows[name]['fwd_sha256']} bwd "
+                             f"{rows[name]['bwd_sha256']}")
+                if dw_args is not None:
+                    rows[name]["dw_ms"] = _time_ms(lambda: sm.sine_mlp_dw(*dw_args))
+                    line += f", sine_mlp_dw alone {rows[name]['dw_ms']:.4f} ms"
+                print(line, flush=True)
     finally:
         cb._state["lib"] = saved
     rate = subprocess.run([str(tmp / "mma_rate")], capture_output=True, text=True, check=True,

@@ -47,6 +47,8 @@ def test_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hi
     assert sm.LAUNCHES["sine_mlp_fwd"] == before["sine_mlp_fwd"] + 1
     assert sm.LAUNCHES["sine_mlp_bwd"] == before["sine_mlp_bwd"] + 1
     assert sm.LAUNCHES["sum_partials"] == before["sum_partials"] + 1
+    # above width 128 the hidden layers' dW is sine_mlp_dw's
+    assert sm.LAUNCHES["sine_mlp_dw"] == before["sine_mlp_dw"] + (hidden > 128 and depth > 2)
     ref = sm.siren_chain_reference(params, x, c, precision)
     assert float((out - ref).abs().max()) <= fwd_tol
     dx_r, grads_r = sm.siren_chain_backward_reference(params, x, g, c, precision)
@@ -74,6 +76,17 @@ def test_limits_reject_the_other_modes_kernel_at_w256(cuda_device, precision, ot
     _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, 4, 256)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,other,fwd_tol,bwd_tol",
+                         [("fp32", "bf16", 1e-4, 1e-4), ("bf16", "fp32", 1.5e-3, 2e-2)])
+@pytest.mark.parametrize("depth,hidden", [(8, 182), (3, 512)])
+def test_limits_reject_the_other_modes_kernel_at_w182_and_w512(cuda_device, precision, other,
+                                                               fwd_tol, bwd_tol, depth, hidden):
+    """The same control at the finals width (kernel 192) and at 512, where
+    the backward is sine_mlp_bwd_wide + sine_mlp_dw."""
+    _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, depth, hidden)
+
+
 def _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, depth, hidden):
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
@@ -95,7 +108,10 @@ def test_kernel_backward_repeats_bit_for_bit(cuda_device):
 
 @pytest.mark.cuda
 def test_wide_kernel_backward_repeats_bit_for_bit(cuda_device):
-    _check_backward_repeats(cuda_device, 256)
+    """sine_mlp_bwd_wide + sine_mlp_dw + sum_partials, at 182 (kernel 192),
+    256 and 512."""
+    for hidden in (182, 256, 512):
+        _check_backward_repeats(cuda_device, hidden)
 
 
 def _check_backward_repeats(cuda_device, hidden):
@@ -128,6 +144,65 @@ def test_sum_partials_equals_its_mirror_bit_for_bit(cuda_device, shape):
     assert torch.equal(first, second)
     library = partials.sum(0)
     assert float((first - library).abs().max()) <= 1e-6 * float(library.abs().max())
+
+
+def _dw_operands(cuda_device, layers, n, hidden, precision, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.rand((layers, n, hidden), generator=gen) * 2 - 1
+    g = torch.randn((layers, n, hidden), generator=gen) / n
+    if precision == "bf16":  # what the wider backward stores in the bf16 mode
+        a, g = a.to(torch.bfloat16).float(), g.to(torch.bfloat16).float()
+    return a.to(cuda_device), g.to(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("layers,n,hidden,splits", [
+    (6, 20_000, 192, 132), (2, 4_099, 256, 7), (3, 5_000, 512, 13), (1, 100, 192, 132)])
+def test_sine_mlp_dw_matches_its_plain_version(cuda_device, precision, layers, n, hidden,
+                                               splits):
+    """Each split's dW against sine_mlp_dw_reference (fp32 sums: 1e-5 of the
+    split's largest value); the same bits twice; the rest of the partial
+    buffer untouched."""
+    a, g = _dw_operands(cuda_device, layers, n, hidden, precision)
+    offset, n_part = 2 * hidden, 2 * hidden + layers * hidden * hidden + 4 * hidden
+    region = slice(offset, offset + layers * hidden * hidden)
+    runs = []
+    for _ in range(2):
+        partials = torch.full((splits, n_part), 7.0, device=cuda_device)
+        before = sm.LAUNCHES["sine_mlp_dw"]
+        sm.sine_mlp_dw(a, g, partials, offset, precision)
+        torch.cuda.synchronize()
+        assert sm.LAUNCHES["sine_mlp_dw"] == before + 1
+        runs.append(partials)
+    assert torch.equal(runs[0], runs[1])
+    assert bool((runs[0][:, :offset] == 7.0).all())
+    assert bool((runs[0][:, region.stop:] == 7.0).all())
+    got = runs[0][:, region].view(splits, layers, hidden, hidden)
+    ref = sm.sine_mlp_dw_reference(a, g, splits, precision)
+    for s in range(splits):
+        assert float((got[s] - ref[s]).abs().max()) <= 1e-5 * float(ref[s].abs().max()) + 1e-30, s
+
+
+@pytest.mark.cuda
+def test_sine_mlp_dw_rejects_misshaped_or_misaligned_buffers(cuda_device):
+    a, g = _dw_operands(cuda_device, 2, 100, 192, "fp32")
+    partials = torch.zeros((4, 2 * 192 * 192 + 512), device=cuda_device)
+    before = sm.LAUNCHES["sine_mlp_dw"]
+    flat = torch.zeros(2 * 100 * 192 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        sm.sine_mlp_dw(flat[1:].view(2, 100, 192), g, partials, 0, "fp32")
+    with pytest.raises(ValueError, match="aligned"):
+        sm.sine_mlp_dw(a, g.transpose(0, 1).contiguous().transpose(0, 1), partials, 0, "fp32")
+    with pytest.raises(ValueError, match="float32"):
+        sm.sine_mlp_dw(a.double(), g.double(), partials, 0, "fp32")
+    with pytest.raises(ValueError, match="one shape"):
+        sm.sine_mlp_dw(a, g[:, :99], partials, 0, "fp32")
+    with pytest.raises(ValueError, match="do not fit"):
+        sm.sine_mlp_dw(a, g, partials, 1024, "fp32")
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        sm.sine_mlp_dw(a, g.cpu(), partials, 0, "fp32")
+    assert sm.LAUNCHES["sine_mlp_dw"] == before
 
 
 @pytest.mark.cuda
@@ -195,7 +270,8 @@ def test_autograd_function_on_card_matches_cpu(cuda_device, precision):
         out = m.apply_flat(params, coords.to(dev), c, precision)
         ((out - target.to(dev)) ** 2).mean().backward()
         launched = {k: sm.LAUNCHES[k] - before[k] for k in before}
-        assert launched == ({"sine_mlp_fwd": 1, "sine_mlp_bwd": 1, "sum_partials": 1}
+        assert launched == ({"sine_mlp_fwd": 1, "sine_mlp_bwd": 1, "sine_mlp_dw": 0,
+                             "sum_partials": 1}
                             if dev.type == "cuda" else {k: 0 for k in before})
         results.append((out.detach().cpu(),
                         [layer[k].grad.cpu() for layer in params for k in KEYS]))
@@ -381,7 +457,8 @@ def test_wavelet_siren_on_card_launches_twice_and_matches_cpu(cuda_device):
     m, c = build_model("wavelet_siren", depth=4, hidden_size=32, height=64, width=64)
     params = m.init(torch.Generator().manual_seed(3), c)
     launched, cpu, card = _card_vs_cpu(m, c, params, (64, 64), cuda_device)
-    assert launched == {"sine_mlp_fwd": 2, "sine_mlp_bwd": 2, "sum_partials": 2}
+    assert launched == {"sine_mlp_fwd": 2, "sine_mlp_bwd": 2, "sine_mlp_dw": 0,
+                        "sum_partials": 2}
     _assert_close(cpu, card, 1e-4, 1e-4)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -420,7 +497,7 @@ def test_feathermap_siren_on_card_launches_kernels_and_matches_cpu(cuda_device):
                                     "masking": {"name": "Feathermap", "density": 0.2}})
     params = m.init(torch.Generator().manual_seed(3), c)
     launched, cpu, card = _card_vs_cpu(m, c, params, (32, 32), cuda_device)
-    assert launched == {"sine_mlp_fwd": 1, "sine_mlp_bwd": 1, "sum_partials": 1}
+    assert launched == {"sine_mlp_fwd": 1, "sine_mlp_bwd": 1, "sine_mlp_dw": 0, "sum_partials": 1}
     assert len(card[1]) == 3
     _assert_close(cpu, card, 1e-4, 1e-4)
 
