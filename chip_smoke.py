@@ -83,11 +83,37 @@ Phases, each printing its own line:
      bytes; (c)'s container holds V1, V2 and the scalers and no codebook;
      (b)'s RigL weight counts are conserved over all 16 layers of both
      sub-SIRENs. Each run prints its ms per fit step.
+ 12. the fit's options and the last model family, each through
+     compress.main (and decode_run where it writes a container) at 512²,
+     printing its seconds, PSNR, bytes and launches per mode, its PSNR
+     finite and above its floor (P12_FLOOR, from the JAX package's CPU
+     runs of the same configurations at 128², tests/phase12_floors.py):
+     (a) the precision schedule (train.matmul_precision_early=bfloat16) on
+     the RigL default, 200 + 20 steps: K1/K2/sum_partials launch in the bf16
+     mode exactly for the planned steps [0, 150) and the eval among them,
+     in fp32 for the rest, the finetune and the renders; ms per step of a
+     bf16 and an fp32 segment of an 80-step fit beside phase 5's; and a
+     20-step d8/w182 fit switching at 0.5, sine_mlp_dw 10 + 10;
+     (b) train.mixed_precision, 200 + 20 steps, every launch in the fp32
+     mode, after K1/K2 under fp32+mixed against the plain chain at w128 and
+     w182 within phase 3's bf16 limits; (c) train.stop_at_psnr=30 with a
+     400-step budget and a check every 25 steps: stops early at a boundary,
+     one bf16 forward per check; (d) a 100-step RigL fit (a mask update
+     every 20) against the same fit stopped at 50 with a checkpoint and
+     resumed: model.npz and mask.npz of the same sha256; (e) the tracked
+     d8/w512 SIREN at lr 3e-4 with optim.grad_clip=1.0, 20 steps: finite,
+     the clip's scale printed; (f) mlp.fast_sine=false, 200 + 20 steps:
+     no kernel launch, ms per step beside phase 4's; (g) CoordX s5/w96 at
+     train.matmul_precision=bfloat16, cold, 300 + 20 steps: no kernel
+     launch; (h) hashgrid at its default config (quant.skip_layers=[],
+     lr 1e-2, epsilon 1e-15, k-means, zstd), 300 + 20 steps, its device rows
+     over 30 profiled steps (profile_fit), and two 50-step fits of the same
+     sha256.
 
-Each of phases 4-11 sets the launch counts to 0 just before its run and
+Each of phases 4-12 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
-sine_mlp_dw (the wider backward's dW) in phases 9 and 10 only; nothing in
-phase 8 and in 11 (d). In phase 3, sum_partials must equal its plain
+sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
+of 12 only; nothing in phase 8, in 11 (d) and in 12 (f)-(h). In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
@@ -198,6 +224,49 @@ FAMILY_RUNS = {
 # reads 34.55, 32.63 and 29.52 dB at 128² for a, b and d).
 FAMILY_PSNR_FLOOR = {"c Feathermap": 12.0}
 FEATHER_NAMES = {"layers.0.weight", "layers.1.weight", "layers.2.bias"}  # V1, V2, scalers
+
+
+# phase 12: the fit options and the last model family, at full width (512²,
+# SIREN d8/w128 unless named), each cut from its recipe's steps
+P12 = "outputs/chip_smoke_p12"
+SCHEDULE_OVERRIDES = DEFAULT_OVERRIDES[:-1] + [
+    "train.matmul_precision_early=bfloat16", f"output_dir={P12}_schedule"]
+SCHEDULE_WIDE_OVERRIDES = WIDE_COMMON + [
+    f"mlp.hidden_size={FINALS_WIDTH}", "train.matmul_precision_early=bfloat16",
+    "train.matmul_precision_switch=0.5", f"output_dir={P12}_schedule_w182"]
+MIXED_OVERRIDES = DEFAULT_OVERRIDES[:-1] + ["train.mixed_precision=true",
+                                            f"output_dir={P12}_mixed"]
+STOP_TARGET = 30.0  # dB; the 400-step budget reaches it early
+STOP_OVERRIDES = DEFAULT_OVERRIDES[:-1] + [
+    "train.num_steps=400", "train.segment_steps=25", f"train.stop_at_psnr={STOP_TARGET}",
+    f"output_dir={P12}_stop"]
+RESUME_COMMON = ["masking=RigL", "quant=none", "entropy_coding=none", "train.log_steps=50"]
+CLIP_OVERRIDES = WIDE_COMMON + ["mlp.hidden_size=512", "optim.lr=3e-4", "optim.grad_clip=1.0",
+                                f"output_dir={P12}_clip"]
+EXACT_SINE_OVERRIDES = SMOKE_OVERRIDES[:-1] + ["mlp.fast_sine=false",
+                                               f"output_dir={P12}_exact_sine"]
+COORDX_BF16_OVERRIDES = [o for o in FLAGSHIP_OVERRIDES
+                         if not o.startswith(("train.init_path", "quant.delta", "output_dir"))] + [
+    "train.matmul_precision=bfloat16", f"output_dir={P12}_coordx_bf16"]
+HASHGRID_OVERRIDES = ["mlp=hashgrid", "quant.skip_layers=[]", "optim.lr=1e-2",
+                      "optim.epsilon=1e-15", "train.num_steps=300", "train.log_steps=100",
+                      "quant.num_steps=20", "entropy_coding=zstd", f"output_dir={P12}_hashgrid"]
+# PSNR floors (dB; decoded, or the fit's where the run writes no container),
+# set from the JAX package's own CPU run of each configuration at 128²
+# (tests/phase12_floors.py; JAX on the CPU runs every product in fp32), its
+# reading beside each: 20 dB where it reads 30 or more, as in phase 11; the
+# 20-step fits, far from converged, at 12 dB. The resume and repeat runs of
+# 12d and 12h are held to their bits, and to finite PSNRs.
+P12_FLOOR = {
+    "12a schedule": 20.0,       # JAX 36.985 dB
+    "12a w182": 12.0,           # JAX 21.944 dB (fit)
+    "12b mixed": 20.0,          # JAX 36.438 dB
+    "12c stop": 20.0,           # JAX 30.145 dB (stopped at step 50 at 128²)
+    "12e clip": 12.0,           # JAX 22.543 dB (fit)
+    "12f exact sine": 20.0,     # JAX 41.302 dB
+    "12g coordx bf16": 20.0,    # JAX 39.263 dB
+    "12h hashgrid": 20.0,       # JAX 35.023 dB
+}
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -1164,6 +1233,280 @@ def phase_families() -> None:
             raise AssertionError(f"{tag} PSNR {psnr} is not finite or below {floor} dB")
 
 
+def _p12_run(tag: str, overrides, decode: bool = True) -> dict:
+    """One phase-12 run through compress.main (and decompress.decode_run when
+    it writes a container), the launch counts set to 0 just before it."""
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    cfg = compress.compose(list(overrides))
+    if cfg.mlp.name != "coordx" and int(cfg.img.height) != N_SIDE:
+        raise AssertionError(f"{tag} must run at {N_SIDE}²")
+    run_dir = cfg.output_dir
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    psnr, nbytes = compress.main(cfg, run_dir=run_dir)
+    seconds = time.perf_counter() - t0
+    stream = (cfg.get("entropy_coding") or {}).get("stream_name", "none")
+    if decode and stream != "none":
+        img = np.asarray(decompress.decode_run(run_dir, device="cuda")[0])
+        target = compress._load_image(cfg.img)
+        redecoded = 10.0 * np.log10(1.0 / np.mean((img.astype(np.float64) - target) ** 2))
+        if img.shape != target.shape or abs(redecoded - psnr) > 1e-3:
+            raise AssertionError(f"{tag} decode_run gives {img.shape}, {redecoded} dB; "
+                                 f"compress reported {psnr}")
+    launches = dict(sm.LAUNCHES)
+    by_mode = {k: dict(v) for k, v in sm.LAUNCHES_BY_MODE.items()}
+    summary = json.loads(open(f"{run_dir}/summary.json").read())
+    steps = int(summary.get("stopped_at") or int(cfg.train.num_steps) * int(
+        cfg.train.get("multiplier", 1)))
+    ms_step = summary["fit_wall_s"] / steps * 1e3
+    print(f"{tag} compress.main {seconds:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
+          f"{ms_step:.3f} ms/step over {steps} steps, quant "
+          f"{summary.get('quant_wall_s', 0.0):.3f} s); fit PSNR {summary['PSNR']:.3f} dB, "
+          f"{'decoded' if stream != 'none' else 'fit'} PSNR {psnr:.3f} dB, bytes {nbytes}; "
+          f"launches by mode {by_mode}", flush=True)
+    floor = P12_FLOOR.get(tag.strip("[]"), -math.inf)
+    if not (math.isfinite(psnr) and psnr >= floor):
+        raise AssertionError(f"{tag} PSNR {psnr} is not finite or below {floor} dB")
+    return {"cfg": cfg, "psnr": psnr, "bytes": nbytes, "summary": summary, "ms_step": ms_step,
+            "launches": launches, "by_mode": by_mode, "run_dir": run_dir}
+
+
+def _expected_modes(n: int, switch: int, log_steps: int, tail_fwd: int, tail_bwd: int) -> dict:
+    """Launches per mode of a scheduled SIREN fit of n steps (evals at the
+    log cadence and the last step) and what runs after it in fp32 (tail_fwd
+    forwards, tail_bwd backwards: the finetune, its eval, the renders)."""
+    evals = [s for s in range(n) if (s + 1) % log_steps == 0 or s == n - 1]
+    early_evals = sum(s < switch for s in evals)
+    bwd = {"bf16": switch, "fp32": n - switch + tail_bwd}
+    return {"sine_mlp_fwd": {"bf16": switch + early_evals,
+                             "fp32": n - switch + len(evals) - early_evals + tail_fwd},
+            "sine_mlp_bwd": bwd, "sum_partials": dict(bwd)}
+
+
+def _segment_ms(overrides, n: int, seg: int, **train) -> dict:
+    """ms per step of each boundary-to-boundary segment of a fit of n steps
+    (fit() with the run's config; a watch callback synchronizes and stamps
+    each boundary): {segment end: ms per step}."""
+    import torch
+
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.training.fit import TrainConfig, fit
+
+    cfg = compress.compose(list(overrides))
+    mdef, mcfg = build_model_from_config(cfg)
+    img = compress._load_image(cfg.img)
+    stamps = []
+
+    def watch(params, opt_state, step):
+        torch.cuda.synchronize()
+        stamps.append((step, time.perf_counter()))
+
+    torch.cuda.synchronize()
+    stamps.append((0, time.perf_counter()))
+    fit(torch.Generator().manual_seed(int(cfg.seed)), mdef, mcfg, get_grid(N_SIDE, N_SIDE, "cuda"),
+        img, TrainConfig(num_steps=n, log_steps=n, segment_steps=seg, **train),
+        compress._optim_config(cfg), compress.masking_config(cfg), device="cuda", watch=watch)
+    return {b: (tb - ta) / (b - a) * 1e3 for (a, ta), (b, tb) in zip(stamps, stamps[1:])}
+
+
+def phase_schedule(default_ms_step: float) -> None:
+    """12a: the precision schedule on the RigL default (200 + 20 steps), and
+    a d8/w182 fit switching at 0.5 (the wide kernels and sine_mlp_dw)."""
+    from implicit_image_tpu_torch.training.fit import TrainConfig, plan_precision_schedule
+
+    r = _p12_run("[12a schedule]", SCHEDULE_OVERRIDES)
+    n, quant = int(r["cfg"].train.num_steps), int(r["cfg"].quant.num_steps)
+    early, switch = plan_precision_schedule(
+        TrainConfig(num_steps=n, matmul_precision_early="bfloat16"), n)
+    # after the fit, in fp32: the finetune's steps, its eval, compress's
+    # render of the container and decode_run's
+    expect = _expected_modes(n, switch, int(r["cfg"].train.log_steps), quant + 3, quant)
+    got = {k: r["by_mode"][k] for k in expect}
+    print(f"[12a schedule] plan: {early} for steps [0, {switch}), fp32 after; launches by "
+          f"mode {got}, planned {expect}", flush=True)
+    if (early, switch) != ("bf16", 150) or got != expect:
+        raise AssertionError(f"[12a schedule] the launches do not follow the plan: {got} != "
+                             f"{expect}")
+    ms = _segment_ms(SCHEDULE_OVERRIDES, 80, 20, matmul_precision_early="bfloat16",
+                     matmul_precision_switch=0.5)
+    print(f"[12a schedule] ms/step by segment (80 steps, switch at 40): "
+          f"{ {k: round(v, 3) for k, v in ms.items()} }; bf16 steps 20-39 {ms[40]:.3f}, fp32 "
+          f"steps 60-79 {ms[80]:.3f} ms/step (phase 5, all fp32: {default_ms_step:.3f})",
+          flush=True)
+
+    w = _p12_run("[12a w182]", SCHEDULE_WIDE_OVERRIDES)
+    expect = _expected_modes(20, 10, 10, 0, 0)
+    expect["sine_mlp_dw"] = {"bf16": 10, "fp32": 10}
+    got = {k: w["by_mode"][k] for k in expect}
+    print(f"[12a w182] launches by mode {got}, planned {expect}", flush=True)
+    if got != expect:
+        raise AssertionError(f"[12a w182] the launches do not follow the plan: {got}")
+
+
+def _mixed_kernels(width: int) -> None:
+    """The kernels under fp32+mixed against the plain chain at 512², d8."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    prec = "fp32" + sm.MIXED
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+    gen = torch.Generator().manual_seed(3)
+    params = mdef.init(gen, mcfg, "cuda")
+    x = (get_grid(N_SIDE, N_SIDE, "cuda").reshape(-1, 2) - 0.5) * 2.0
+    g = (torch.randn((x.shape[0], 3), generator=gen) / x.shape[0]).cuda()
+    kernel = (sm.sine_mlp_fwd(params, x, mcfg, prec), *sm.sine_mlp_bwd(params, x, g, mcfg, prec))
+    plain = (sm.siren_chain_reference(params, x, mcfg, prec),
+             *sm.siren_chain_backward_reference(params, x, g, mcfg, prec))
+    torch.cuda.synchronize()
+    fwd_err, rel, _ = _errors(kernel, plain)
+    worst = max(rel, key=rel.get)
+    print(f"[12b mixed] kernels vs plain at w{width} ({prec}): fwd max_abs_err {fwd_err:.3e} "
+          f"(tol {FWD_TOL['bf16']:g}); bwd max rel err {rel[worst]:.3e} at {worst} (tol "
+          f"{BWD_TOL['bf16']:g})", flush=True)
+    if not (fwd_err <= FWD_TOL["bf16"] and rel[worst] <= BWD_TOL["bf16"]):
+        raise AssertionError(f"[12b mixed] the kernels disagree with the plain chain at "
+                             f"w{width}: {fwd_err}, {rel}")
+
+
+def phase_mixed() -> None:
+    """12b: train.mixed_precision on the RigL default (200 + 20 steps)."""
+    for width in (WIDTH, FINALS_WIDTH):
+        _mixed_kernels(width)
+    r = _p12_run("[12b mixed]", MIXED_OVERRIDES)
+    _check_launches(r["launches"], "mixed-precision path")
+    if any(v["bf16"] for v in r["by_mode"].values()):
+        raise AssertionError("[12b mixed] a kernel launched in the bf16 mode")
+
+
+def phase_stop() -> None:
+    """12c: train.stop_at_psnr with a 400-step budget, a check every 25."""
+    r = _p12_run("[12c stop]", STOP_OVERRIDES)
+    stop = r["summary"].get("stopped_at")
+    stop = None if stop is None else int(stop)
+    checks = (stop or 400) // 25
+    print(f"[12c stop] stopped at step {stop} of 400 at {r['summary']['PSNR']:.3f} dB (target "
+          f"{STOP_TARGET}; {checks} checks, one bf16 forward each)", flush=True)
+    if stop is None or stop % 25 or stop >= 400 or r["summary"]["PSNR"] < STOP_TARGET:
+        raise AssertionError(f"[12c stop] no early stop at a boundary: {stop}")
+    if r["by_mode"]["sine_mlp_fwd"]["bf16"] != checks:
+        raise AssertionError(f"[12c stop] {r['by_mode']['sine_mlp_fwd']['bf16']} bf16 "
+                             f"forwards, not one per check ({checks})")
+
+
+def _sha256(path) -> str:
+    import hashlib
+
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def phase_resume() -> None:
+    """12d: a 100-step RigL fit (a mask update every 20 steps) interrupted at
+    step 50 and resumed, against the uninterrupted run: the same bits."""
+    full = _p12_run("[12d full]", RESUME_COMMON + ["train.num_steps=100",
+                                                   f"output_dir={P12}_resume_full"])
+    half = _p12_run("[12d first 50]", RESUME_COMMON + [
+        "train.num_steps=50", "train.checkpoint=true", "train.segment_steps=25",
+        f"output_dir={P12}_resume_half"])
+    rest = _p12_run("[12d resumed]", RESUME_COMMON + [
+        "train.num_steps=100", f"train.resume={half['run_dir']}/checkpoint.npz",
+        f"output_dir={P12}_resume_rest"])
+    shas = {name: (_sha256(f"{r['run_dir']}/model.npz"), _sha256(f"{r['run_dir']}/mask.npz"))
+            for name, r in (("full", full), ("resumed", rest))}
+    print(f"[12d resume] sha256 of model.npz / mask.npz: uninterrupted "
+          f"{shas['full'][0][:16]} / {shas['full'][1][:16]}, resumed at 50 "
+          f"{shas['resumed'][0][:16]} / {shas['resumed'][1][:16]}", flush=True)
+    if shas["full"] != shas["resumed"]:
+        raise AssertionError("[12d resume] the resumed fit's params differ from the "
+                             "uninterrupted fit's")
+
+
+def phase_clip() -> None:
+    """12e: the tracked d8/w512 SIREN at lr 3e-4 with optim.grad_clip=1.0."""
+    r = _p12_run("[12e clip]", CLIP_OVERRIDES)
+    s = r["summary"]
+    print(f"[12e clip] clip scale: min {s['clip_scale_min']:.6g}, last step "
+          f"{s['clip_scale_last']:.6g}", flush=True)
+    _check_launches(r["launches"], "clipped w512 path", wide=True)
+
+
+def phase_exact_sine(dense_ms_step: float) -> None:
+    """12f: mlp.fast_sine=false, the torch.sin chain (200 + 20 steps)."""
+    r = _p12_run("[12f exact sine]", EXACT_SINE_OVERRIDES)
+    print(f"[12f exact sine] {r['ms_step']:.3f} ms/step through torch.sin (phase 4, the "
+          f"kernels: {dense_ms_step:.3f} ms/step); launches {r['launches']}", flush=True)
+    if any(r["launches"].values()):
+        raise AssertionError("[12f exact sine] a SIREN kernel launched on the torch.sin path")
+
+
+def phase_coordx_bf16() -> None:
+    """12g: CoordX at train.matmul_precision=bfloat16, cold, phase 8's shape."""
+    r = _p12_run("[12g coordx bf16]", COORDX_BF16_OVERRIDES)
+    if any(r["launches"].values()):
+        raise AssertionError("[12g coordx bf16] a SIREN kernel launched on the CoordX path")
+
+
+def phase_hashgrid() -> None:
+    """12h: hashgrid at its default config (300 + 20 steps, k-means, zstd),
+    its device rows over 30 profiled steps, and two 50-step fits' bits."""
+    from implicit_image_tpu_torch import profile_fit
+
+    r = _p12_run("[12h hashgrid]", HASHGRID_OVERRIDES)
+    if any(r["launches"].values()):
+        raise AssertionError("[12h hashgrid] a SIREN kernel launched on the hashgrid path")
+    trace = Path(f"{P12}_hashgrid.trace.json")
+    prof = profile_fit.profile_steps(HASHGRID_OVERRIDES, profile_fit.STEPS, trace)
+    print(f"[12h hashgrid] {profile_fit.STEPS} profiled steps: {prof['ms_per_step']:.3f} "
+          f"ms/step unprofiled ({prof['ms_per_step_dense']:.3f} with masking=none), device "
+          f"{prof['device_ms_per_step']:.3f} ms/step, idle share {prof['idle_share']:.4f}; "
+          f"top rows " + "; ".join(f"{row['ms_per_step']:.4f} ms/step {row['count']}x "
+                                   f"{row['name'][:60]}" for row in prof["rows"][:6]),
+          flush=True)
+    short = [o for o in HASHGRID_OVERRIDES if not o.startswith(("train.num_steps", "output_dir"))]
+    shas = []
+    for i in (1, 2):
+        r = _p12_run(f"[12h repeat {i}]", short + [
+            "train.num_steps=50", "quant=none", "entropy_coding=none",
+            f"output_dir={P12}_hashgrid_{i}"])
+        shas.append(_sha256(f"{r['run_dir']}/model.npz"))
+    print(f"[12h hashgrid] two 50-step fits: model.npz sha256 {shas[0][:16]} / {shas[1][:16]}",
+          flush=True)
+    if shas[0] != shas[1]:
+        raise AssertionError("[12h hashgrid] two fits of one config gave different params")
+
+
+def compress_dir(overrides) -> str:
+    return next(o.split("=", 1)[1] for o in overrides if o.startswith("output_dir="))
+
+
+def phase_fit_options(dense_run: str, default_run: str) -> None:
+    """Phase 12: the fit options and hashgrid, each through compress.main;
+    phases 4 and 5's run dirs give their ms per step beside these."""
+    def ms_step(run_dir: str) -> float:
+        summary = json.loads(open(f"{run_dir}/summary.json").read())
+        steps = json.loads(open(f"{run_dir}/config.json").read())["train"]["num_steps"]
+        return summary["fit_wall_s"] / int(steps) * 1e3
+
+    dense_ms_step = ms_step(dense_run)
+    phase_schedule(ms_step(default_run))
+    phase_mixed()
+    phase_stop()
+    phase_resume()
+    phase_clip()
+    phase_exact_sine(dense_ms_step)
+    phase_coordx_bf16()
+    phase_hashgrid()
+
+
 def main() -> int:
     import torch
 
@@ -1186,6 +1529,7 @@ def main() -> int:
     path_launches = {WIDTH: launches, FINALS_WIDTH: phase_finals(),
                      **{width: phase_wide(width) for width in WIDE_OVERRIDES}}
     phase_families()
+    phase_fit_options(compress_dir(SMOKE_OVERRIDES), default_dir)
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sine_mlp_dw": 128, "sum_partials": 179}
     from implicit_image_tpu_torch.ops.sine_mlp import kernel_width

@@ -15,6 +15,17 @@ report (decoded PSNR, container bytes, decoded MS-SSIM).
     python -m implicit_image_tpu_torch.compress mlp=coordx mlp.hidden_size=96 \
         mlp.split_depth=5 masking.density=0.85 train.num_steps=1200 \
         train.init_path=auto quant.delta=true quant.row_stride=4 entropy_coding=auto
+    # the fit's options: the precision schedule, mixed precision, early
+    # stop, checkpoint / resume / watch, gradient clipping, the exact sine
+    python -m implicit_image_tpu_torch.compress train.matmul_precision_early=bfloat16
+    python -m implicit_image_tpu_torch.compress train.mixed_precision=true
+    python -m implicit_image_tpu_torch.compress train.stop_at_psnr=40 train.segment_steps=100
+    python -m implicit_image_tpu_torch.compress train.checkpoint=true train.watch=true
+    python -m implicit_image_tpu_torch.compress train.resume=outputs/run/checkpoint.npz
+    python -m implicit_image_tpu_torch.compress mlp.hidden_size=512 optim.grad_clip=1.0
+    python -m implicit_image_tpu_torch.compress mlp.fast_sine=false
+    python -m implicit_image_tpu_torch.compress mlp=hashgrid quant.skip_layers=[] \
+        optim.lr=1e-2 optim.epsilon=1e-15
 
 It composes its config with the port's copy of the JAX package's composer
 and YAML tree (implicit_image_tpu_torch.config), so it takes the same
@@ -28,8 +39,8 @@ CUDA the kernels' build-or-load seconds (kernel_build_s), and for a stream
 that runs the native codecs their build-or-load seconds (codec_build_s);
 no stage wall includes either.
 
-Models: SIREN, CoordX, Fourier features (mlp=fourier) and wavelet-SIREN
-(mlp=wavelet_siren). Masking: RigL (the default), SNFS, Pruning (GMP),
+Models: SIREN, CoordX, Fourier features (mlp=fourier), wavelet-SIREN
+(mlp=wavelet_siren) and hashgrid. Masking: RigL (the default), SNFS, Pruning (GMP),
 Small_Dense, Feathermap (the model's tensors hashed into V1 @ V2 at
 masking.density; a dense fit) and none. Streams: every backend (plain,
 zstd, lzma, huffman, range, rans, auto). `train.init_path`: a meta-init .npz, or `auto` (warm
@@ -40,13 +51,24 @@ meta-init, with the unquantized tensors stored as XOR residuals
 The run sets torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 to False: `tensorfloat32` means fp32 here,
 never NVIDIA's 1-pass TF32.
-Not ported yet, and raising when set: mlp=hashgrid, optimizers other than
-Adam, quantizers other than k-means, mlp=coordx or mlp=fourier at
-train.matmul_precision bfloat16 or null, and the train/quant/entropy_coding
-options listed in _UNPORTED.
-Ignored: TPU-runtime keys with no meaning here (train.segment_steps,
-train.use_pallas, launcher.n_jobs) and the logging keys other than
-logging.use (no W&B sink).
+The fit (training/fit.py): `train.matmul_precision_early` /
+`_switch` (the precision schedule; a switch that leaves no step at
+matmul_precision raises), `train.mixed_precision`, `train.stop_at_psnr`,
+`train.checkpoint` (<run>/checkpoint.npz), `train.resume`, `train.watch`
+(<run>/histograms.jsonl); the last four act at the JAX package's segment
+boundaries, every `train.segment_steps` steps (null: its auto formula,
+copied here), which the port reads as that cadence only. `optim.grad_clip`
+clips to a global norm; Adam ignores the Shampoo/EKFAC keys (momentum,
+weight_decay, epsilon, update_freq, graft_norm, precond_*), as in the JAX
+package, and the run logs so once.
+Not ported yet, and raising when set: optim=shampoo and
+optim.preconditioner, quantizers other than k-means, mlp=fourier and
+masking=Feathermap at train.matmul_precision bfloat16 or null or under
+train.mixed_precision, profile=True, multirun (-m), and the quant /
+entropy_coding options listed in _UNPORTED.
+Ignored: TPU-runtime keys with no meaning here (train.use_pallas,
+launcher.n_jobs) and the logging keys other than logging.use (no W&B
+sink).
 """
 from __future__ import annotations
 
@@ -90,15 +112,13 @@ log = logging.getLogger("implicit_image_tpu_torch")
 
 # (config section, key, value that means "off") for options not ported yet
 _UNPORTED = (
-    ("train", "mixed_precision", False),
-    ("train", "matmul_precision_early", None),
-    ("train", "stop_at_psnr", None),
-    ("train", "checkpoint", False),
-    ("train", "resume", None),
-    ("train", "watch", False),
     ("quant", "bit_alloc", "none"),
     ("entropy_coding", "progressive", False),
 )
+
+# the OptimConfig keys that Adam does not read, in either package
+_ADAM_IGNORES = ("momentum", "weight_decay", "epsilon", "update_freq", "graft_norm",
+                 "precond_eps", "precond_interval")
 
 _AUTO_CHUNK_PIXELS = 1 << 20
 
@@ -170,13 +190,47 @@ def _optim_config(cfg) -> OptimConfig:
         raise NotImplementedError(
             f"optim={cfg.optim.get('name')} is not ported yet (ROADMAP.md); use optim=adam"
         )
+    if cfg.optim.get("preconditioner"):
+        raise NotImplementedError(
+            f"optim.preconditioner={cfg.optim.preconditioner!r} is not ported yet (ROADMAP.md)")
     fields = {f.name for f in dataclasses.fields(OptimConfig)}
     unknown = set(cfg.optim) - fields
     if unknown:
-        raise NotImplementedError(f"optim keys {sorted(unknown)} are not ported yet")
-    # PyYAML parses bare "3e-4" as a string
-    kwargs = {k: (float(v) if k == "lr" else v) for k, v in cfg.optim.items()}
+        raise KeyError(f"optim keys {sorted(unknown)} are not OptimConfig fields")
+    ignored = sorted(k for k in cfg.optim if k in _ADAM_IGNORES)
+    if ignored:
+        log.info("optim: Adam ignores %s (Shampoo's and EKFAC's keys), as the JAX package's "
+                 "Adam does; its eps is 1e-8", ignored)
+    # PyYAML parses bare "3e-4" as a string: coerce what looks numeric, as
+    # the JAX package does
+    kwargs = {}
+    for k, v in cfg.optim.items():
+        if k != "name" and isinstance(v, str):
+            try:
+                v = float(v)
+            except ValueError:
+                pass
+        kwargs[k] = v
     return OptimConfig(**kwargs)
+
+
+def auto_segment_steps(cfg) -> int:
+    """train.segment_steps, or the JAX package's `_auto_segment_steps`
+    (compress.py) when it is null: 2000 scaled down with the hidden width
+    squared and the pixel count (hashgrid: with pixels x levels). The port
+    reads it as the cadence of the boundary work only (training/fit.py)."""
+    explicit = cfg.train.get("segment_steps")
+    if explicit is not None:
+        return int(explicit)
+    pixels = int(cfg.img.get("height", 512)) * int(cfg.img.get("width", 512))
+    if cfg.mlp.get("name") == "hashgrid":
+        levels = int(cfg.mlp.get("n_levels", 12))
+        scale = min(1.0, (512.0 * 512.0 * 12.0) / max(pixels * max(levels, 1), 1))
+        return max(25, min(2000, int(2000 * scale)))
+    width = int(cfg.mlp.get("hidden_size", 128))
+    scale = min(1.0, (128.0 / max(width, 1)) ** 2)
+    scale *= min(1.0, (512.0 * 512.0) / max(pixels, 1))
+    return max(25, int(2000 * scale))
 
 
 def masking_config(cfg) -> Optional[MaskingConfig]:
@@ -281,29 +335,76 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         loss=str(cfg.train.get("loss", "mse")),
         ssim_weight=float(cfg.train.get("ssim_weight", 0.84)),
         matmul_precision=cfg.train.get("matmul_precision") or None,
+        matmul_precision_early=cfg.train.get("matmul_precision_early") or None,
+        matmul_precision_switch=float(cfg.train.get("matmul_precision_switch", 0.75)),
+        mixed_precision=bool(cfg.train.get("mixed_precision", False)),
+        segment_steps=auto_segment_steps(cfg),
     )
     optim_cfg = _optim_config(cfg)
     masking = masking_config(cfg)
 
     init_params, init_path = _warm_start(cfg, mdef, mcfg, num_steps, device)
+    if train_cfg.matmul_precision_early and init_path:
+        log.warning("fit: train.matmul_precision_early with a warm start: the JAX package "
+                    "measured the early noise walking a meta-init out of its basin (-0.2 to "
+                    "-1.3 dB, config.yaml); the schedule pays on cold fits only")
+
+    fit_kwargs = {}
+    if cfg.train.get("checkpoint", False):
+        fit_kwargs["checkpoint_path"] = Path(run_dir) / "checkpoint.npz"
+    resume_from = cfg.train.get("resume") or None
+    if resume_from:
+        fit_kwargs["resume_from"] = resume_from
+    if cfg.train.get("watch", False):
+        def watch(params_w, opt_state_w, step_w):
+            # per-layer weights and Adam's first moment, as the JAX package's watch
+            tensors = {f"layers.{i}.{k}": v.detach().cpu().numpy()
+                       for i, layer in enumerate(params_w) for k, v in layer.items()}
+            tensors.update({f"layers.{i}.{k}.grad_ema": v.detach().cpu().numpy()
+                            for i, layer in enumerate(opt_state_w.mu) for k, v in layer.items()})
+            logger.histogram(step_w, tensors)
+
+        fit_kwargs["watch"] = watch
+    stop_at = cfg.train.get("stop_at_psnr")
+    if stop_at is not None:
+        if resume_from:
+            raise ValueError("train.stop_at_psnr cannot combine with train.resume "
+                             "(step-index bookkeeping would misalign the metric log)")
+        fit_kwargs["stop_psnr"] = float(stop_at)
 
     log.info("fit: %s on %s (%dx%d), %d steps, masking=%s, device %s",
              cfg.mlp.name, cfg.img.name, h, w, num_steps,
              (cfg.get("masking") or {}).get("name", "none"), device)
     res = fit(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking,
-              init_params=init_params, device=device)
+              init_params=init_params, device=device, **fit_kwargs)
     test_psnr = float("nan")
-    for i in range(num_steps):
+    # [first_step, end_step): the executed window (a resume starts late, an
+    # early stop ends early)
+    end_step = res.stopped_at if res.stopped_at is not None else num_steps
+    first_step = end_step - len(res.metrics["psnr"])
+    for i in range(first_step, end_step):
         if (i + 1) % train_cfg.log_steps == 0 or i == num_steps - 1:
-            entry = {"loss": float(res.metrics["test_loss"][i]),
-                     "PSNR": float(res.metrics["psnr"][i]),
-                     "PSNR_8bit": float(res.metrics["psnr_8bit"][i])}
+            j = i - first_step
+            entry = {"loss": float(res.metrics["test_loss"][j]),
+                     "PSNR": float(res.metrics["psnr"][j]),
+                     "PSNR_8bit": float(res.metrics["psnr_8bit"][j])}
             if masking is not None:
-                entry["Prune Rate"] = float(res.metrics["prune_rate"][i])
-                entry["Density"] = float(res.metrics["density"][i])
+                entry["Prune Rate"] = float(res.metrics["prune_rate"][j])
+                entry["Density"] = float(res.metrics["density"][j])
             logger.log(i + 1, entry)
             test_psnr = entry["PSNR"]
-    logger.summary({"PSNR": test_psnr, "fit_wall_s": res.wall_seconds})
+    if res.stopped_at is not None:
+        # the check that stopped the fit is the freshest PSNR
+        test_psnr = float(res.stop_psnr_db)
+        log.info("fit: stop_at_psnr reached %.2f dB at step %d (budget %d)",
+                 test_psnr, res.stopped_at, num_steps)
+        logger.log(res.stopped_at, {"PSNR": test_psnr})
+    logger.summary({"PSNR": test_psnr, "fit_wall_s": res.wall_seconds,
+                    **({"stopped_at": res.stopped_at} if res.stopped_at is not None else {})})
+    if "clip_scale" in res.metrics and len(res.metrics["clip_scale"]):
+        # optim.grad_clip: the scale the clip applied (1 = not binding)
+        logger.summary({"clip_scale_min": float(res.metrics["clip_scale"].min()),
+                        "clip_scale_last": float(res.metrics["clip_scale"][-1])})
     params = res.params
     compressed_bytes = 0
 

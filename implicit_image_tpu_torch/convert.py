@@ -3,7 +3,8 @@
 Both packages keep params as a tuple of per-layer dicts,
 `{"w": (fan_in, fan_out), "b": (fan_out,)}` (implicit_image_tpu/models/
 siren.py). These helpers move such a tuple between numpy arrays (what the
-JAX package hands out via `np.asarray`) and torch tensors on a device.
+JAX package hands out via `np.asarray`) and torch tensors on a device, and
+read a JAX training checkpoint into the port's state.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "checkpoint_from_jax"]
 
 
 def params_from_jax(
@@ -34,3 +35,14 @@ def params_to_numpy(params: Sequence[dict]) -> Tuple[dict, ...]:
         {k: v.detach().cpu().numpy() for k, v in layer.items()}
         for layer in params
     )
+
+
+def checkpoint_from_jax(path, device="cpu"):
+    """A JAX package's `checkpoint.npz` -> the port's training state: {"step",
+    "params", "opt_state", and for a sparse fit "mask_state"}, tensors on
+    `device` (training/checkpoint.py reads both packages' files: they share
+    their key names). The JAX PRNG key does not carry over; a fit resumed
+    from it draws from the generator it is given."""
+    from implicit_image_tpu_torch.training.checkpoint import load_checkpoint
+
+    return load_checkpoint(path, device)

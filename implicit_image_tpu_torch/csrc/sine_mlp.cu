@@ -163,6 +163,18 @@ __device__ __forceinline__ float rnd(float v) {
   return v;
 }
 
+// An activation as the chain keeps it: rounded to bf16 in the bf16 mode and
+// under mixed precision (MX, the JAX package's compute_dtype=bfloat16),
+// which casts every activation to bf16, and so the cotangent of each in the
+// backward (store_gz), in either mode; the wrappers round x, W, b on the way
+// in and dW, db on the way out. MX is a template flag, not a runtime one:
+// the kernels without it keep their registers (a runtime flag made the fp32
+// backward spill and run 13-26% slower on an H100) and their bits.
+template <bool BF16, bool MX>
+__device__ __forceinline__ float rnd_act(float v) {
+  return rnd<BF16 || MX>(v);
+}
+
 // ------------------------------------------------------------------ PTX
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -496,10 +508,10 @@ __device__ __forceinline__ void warp_mma_k(Acc acc, const float* __restrict__ A,
 // What a sine layer's epilogue keeps besides a = rnd(sin(omega z)) in a_s.
 enum Keep { kNothing, kStashZ, kDerivative };
 
-// z = acc + bias. a_s gets rnd(sin(omega z)); kStashZ also stores z at
-// z_g (T x H, in the sw() layout: an image of a shared tile), kDerivative
-// leaves omega cos(omega z) in acc.
-template <bool BF16, Keep KEEP, int S = H>
+// z = acc + bias. a_s gets rnd(sin(omega z)) (rounded also under MX);
+// kStashZ also stores z at z_g (T x H, in the sw() layout: an image of a
+// shared tile), kDerivative leaves omega cos(omega z) in acc.
+template <bool BF16, bool MX, Keep KEEP, int S = H>
 __device__ __forceinline__ void sine_epilogue(Acc acc, const float* __restrict__ bias, float omega,
                                               float* __restrict__ a_s, float* __restrict__ z_g,
                                               const Warp& w) {
@@ -518,8 +530,8 @@ __device__ __forceinline__ void sine_epilogue(Acc acc, const float* __restrict__
           acc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z0);
           acc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z1);
         }
-        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) =
-            make_float2(rnd<BF16>(iit::fast_sin(omega * z0)), rnd<BF16>(iit::fast_sin(omega * z1)));
+        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) = make_float2(
+            rnd_act<BF16, MX>(iit::fast_sin(omega * z0)), rnd_act<BF16, MX>(iit::fast_sin(omega * z1)));
       }
   }
 }
@@ -621,7 +633,7 @@ __device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
 // and the two mbarriers.
 constexpr size_t kFwdSmem = sizeof(float) * (3 * BUF + T * MAX_IO) + 2 * sizeof(uint64_t);
 
-template <bool BF16>
+template <bool BF16, bool MX>
 __global__ void __launch_bounds__(THREADS, 1)
 sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
@@ -648,7 +660,7 @@ sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ ou
     stage_rows<BF16>(x_s, x, row0, c.n, c.in_size, tid);
     __syncthreads();
     first_layer<BF16>(acc, c, x_s, w);
-    sine_epilogue<BF16, kNothing>(acc, c.bs, c.omega0, a_s, nullptr, w);
+    sine_epilogue<BF16, MX, kNothing>(acc, c.bs, c.omega0, a_s, nullptr, w);
     __syncthreads();
     for (int l = 1; l <= L; ++l, ++s) {
       const int b = s & 1;
@@ -657,7 +669,7 @@ sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ ou
       warp_mma<BF16, false, false>(acc, a_s, ring.buf(b), w);
       __syncthreads();
       if (s + 2 < total) ring.issue(b, c.wm + (size_t)((s + 2) % L) * H * H);
-      sine_epilogue<BF16, kNothing>(acc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
+      sine_epilogue<BF16, MX, kNothing>(acc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
       __syncthreads();
     }
     rows_times_narrow<BF16>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, out, row0, c.n,
@@ -691,7 +703,7 @@ __device__ __forceinline__ void move_partial(Acc acc, float* __restrict__ dw, co
 // a_s = rnd(sin(omega z)) and dc = omega cos(omega z), with z in a_s
 // itself (copied there from the stash), or (FROM_DC) z = dc + bias where
 // dc holds x W_0. Each thread reads and writes only its own positions.
-template <bool BF16, bool FROM_DC, int S = H>
+template <bool BF16, bool MX, bool FROM_DC, int S = H>
 __device__ __forceinline__ void resine(Acc dc, const float* __restrict__ bias, float omega,
                                        float* __restrict__ a_s, const Warp& w) {
 #pragma unroll
@@ -707,16 +719,17 @@ __device__ __forceinline__ void resine(Acc dc, const float* __restrict__ bias, f
                                  : *reinterpret_cast<const float2*>(&a_s[sw<S>(r, c)]);
         dc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z.x);
         dc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z.y);
-        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) =
-            make_float2(rnd<BF16>(iit::fast_sin(omega * z.x)), rnd<BF16>(iit::fast_sin(omega * z.y)));
+        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) = make_float2(
+            rnd_act<BF16, MX>(iit::fast_sin(omega * z.x)), rnd_act<BF16, MX>(iit::fast_sin(omega * z.y)));
       }
   }
 }
 
-// gz = ga * dc, in place in ga. Then red[row group][col] = the sum of gz
-// over the warp's 32 rows (fp32; four fixed-order terms, then shuffles
-// across the lanes that share a column), and g_s = rnd(gz).
-template <bool BF16, int S = H>
+// gz = ga * dc (ga rounded to bf16 first under MX), in place in ga. Then
+// red[row group][col] = the sum of gz over the warp's 32 rows (fp32; four
+// fixed-order terms, then shuffles across the lanes that share a column),
+// and g_s = rnd(gz).
+template <bool BF16, bool MX, int S = H>
 __device__ __forceinline__ void store_gz(Acc ga, const Acc dc, float* __restrict__ g_s,
                                          float* __restrict__ red, const Warp& w) {
 #pragma unroll
@@ -727,7 +740,8 @@ __device__ __forceinline__ void store_gz(Acc ga, const Acc dc, float* __restrict
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) ga[mi][ni][2 * h + cc] *= dc[mi][ni][2 * h + cc];
+        for (int h = 0; h < 2; ++h)
+          ga[mi][ni][2 * h + cc] = rnd<MX>(ga[mi][ni][2 * h + cc]) * dc[mi][ni][2 * h + cc];
       float v = (ga[0][ni][cc] + ga[0][ni][2 + cc]) + (ga[1][ni][cc] + ga[1][ni][2 + cc]);
       v += __shfl_xor_sync(0xffffffffu, v, 4);
       v += __shfl_xor_sync(0xffffffffu, v, 8);
@@ -826,7 +840,7 @@ __device__ __forceinline__ void first_layer_grads(const float* __restrict__ x_s,
 constexpr size_t kBwdSmem =
     sizeof(float) * (3 * BUF + 2 * T * MAX_IO + 4 * H) + 3 * sizeof(uint64_t);
 
-template <bool BF16>
+template <bool BF16, bool MX>
 __global__ void __launch_bounds__(THREADS, 1)
 sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restrict__ g,
                     float* __restrict__ dx, float* __restrict__ z_all,
@@ -876,9 +890,9 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
     // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
     first_layer<BF16>(dc, c, x_s, w);
     if (L == 0)
-      sine_epilogue<BF16, kDerivative>(dc, c.bs, c.omega0, a_s, nullptr, w);
+      sine_epilogue<BF16, MX, kDerivative>(dc, c.bs, c.omega0, a_s, nullptr, w);
     else
-      sine_epilogue<BF16, kNothing>(dc, c.bs, c.omega0, a_s, nullptr, w);
+      sine_epilogue<BF16, MX, kNothing>(dc, c.bs, c.omega0, a_s, nullptr, w);
     __syncthreads();
     for (int l = 1; l <= L; ++l) {
       const int b = (l - 1) & 1;
@@ -891,16 +905,16 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
       else if (b == 0 && L % 2 == 0 && l == L - 1)
         ring.issue(0, wm(L));  // W_L for the backward pass, which reads buffer 0
       if (l < L)
-        sine_epilogue<BF16, kStashZ>(dc, c.bs + l * H, c.omega_h, a_s,
+        sine_epilogue<BF16, MX, kStashZ>(dc, c.bs + l * H, c.omega_h, a_s,
                                      z_g + (size_t)(l - 1) * T * H, w);
       else
-        sine_epilogue<BF16, kDerivative>(dc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
+        sine_epilogue<BF16, MX, kDerivative>(dc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
       __syncthreads();
     }
 
     // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
     last_layer_grads<BF16>(acc, c, a_s, go_s, dwl, dbl, w, tid);
-    store_gz<BF16>(acc, dc, g_s, red, w);
+    store_gz<BF16, MX>(acc, dc, g_s, red, w);
     __syncthreads();  // a_L read, gz_L and its bias sums written
     if (L >= 2) copy_tile(a_s, z_g + (size_t)(L - 2) * T * H, z_bar);  // z_{L-1}
 
@@ -910,11 +924,11 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
       move_partial<true>(acc, dw, w);
       if (l == 1) {
         first_layer<BF16>(dc, c, x_s, w);
-        resine<BF16, true>(dc, c.bs, c.omega0, a_s, w);
+        resine<BF16, MX, true>(dc, c.bs, c.omega0, a_s, w);
       } else {
         mbar_wait(z_bar, z_phase);  // z_{l-1} is in a_s
         z_phase ^= 1u;
-        resine<BF16, false>(dc, nullptr, c.omega_h, a_s, w);
+        resine<BF16, MX, false>(dc, nullptr, c.omega_h, a_s, w);
       }
       __syncthreads();
       add_bias_grad(red, dbs + l * H, tid);
@@ -929,7 +943,7 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
       warp_mma<BF16, false, true>(acc, g_s, w_s0, w);  // ga = gz_l W_l^T
       __syncthreads();
       if (l >= 2) ring.issue(0, wm(l - 1));
-      store_gz<BF16>(acc, dc, g_s, red, w);  // gz_{l-1}
+      store_gz<BF16, MX>(acc, dc, g_s, red, w);  // gz_{l-1}
     }
     __syncthreads();
 
@@ -1055,7 +1069,7 @@ __device__ __forceinline__ void ring_product(Acc acc, const float* __restrict__ 
 
 // Shared memory: the ring, the activation tile, the input tile, the ring's
 // mbarriers.
-template <bool BF16, class G>
+template <bool BF16, bool MX, class G>
 __global__ void __launch_bounds__(G::THREADS, 1)
 sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out) {
   constexpr int HW = G::H, NB = G::NB;
@@ -1087,12 +1101,12 @@ sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict
     stage_rows<BF16, G>(x_s, x, row0, c.n, c.in_size, tid);
     __syncthreads();
     first_layer<BF16, HW>(acc, c, x_s, w);
-    sine_epilogue<BF16, kNothing, HW>(acc, c.bs, c.omega0, a_s, nullptr, w);
+    sine_epilogue<BF16, MX, kNothing, HW>(acc, c.bs, c.omega0, a_s, nullptr, w);
     __syncthreads();
     for (int l = 1; l <= L; ++l) {
       zero(acc);
       ring_product<BF16, G, NB>(acc, a_s, ring, s, total, src, w);
-      sine_epilogue<BF16, kNothing, HW>(acc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
+      sine_epilogue<BF16, MX, kNothing, HW>(acc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
       __syncthreads();
     }
     rows_times_narrow_wide<BF16, G>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, out, row0, c.n,
@@ -1125,7 +1139,7 @@ __device__ __forceinline__ void store_dw_operands(const float* __restrict__ a_s,
 // cotangent tiles, the bias partial sums, the ring's mbarriers and the z
 // copy's. The order of the backward is the width-128 kernel's; dW_m is
 // sine_mlp_dw's (dw_a, dw_g: (L, n, G::H) each).
-template <bool BF16, class G>
+template <bool BF16, bool MX, class G>
 __global__ void __launch_bounds__(G::THREADS, 1)
 sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __restrict__ g,
                          float* __restrict__ dx, float* __restrict__ z_all,
@@ -1183,24 +1197,24 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
     // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
     first_layer<BF16, HW>(dc, c, x_s, w);
     if (L == 0)
-      sine_epilogue<BF16, kDerivative, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
+      sine_epilogue<BF16, MX, kDerivative, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
     else
-      sine_epilogue<BF16, kNothing, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
+      sine_epilogue<BF16, MX, kNothing, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
     __syncthreads();
     for (int l = 1; l <= L; ++l) {
       zero(dc);
       ring_product<BF16, G, NB>(dc, a_s, ring, s, total, src, w);
       if (l < L)
-        sine_epilogue<BF16, kStashZ, HW>(dc, c.bs + l * HW, c.omega_h, a_s,
+        sine_epilogue<BF16, MX, kStashZ, HW>(dc, c.bs + l * HW, c.omega_h, a_s,
                                          z_g + (size_t)(l - 1) * G::BUF, w);
       else
-        sine_epilogue<BF16, kDerivative, HW>(dc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
+        sine_epilogue<BF16, MX, kDerivative, HW>(dc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
       __syncthreads();
     }
 
     // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
     last_layer_grads<BF16, G>(acc, c, a_s, go_s, dwl, dbl, w, tid);
-    store_gz<BF16, HW>(acc, dc, g_s, red, w);
+    store_gz<BF16, MX, HW>(acc, dc, g_s, red, w);
     __syncthreads();  // a_L read, gz_L and its bias sums written
     if (L >= 2) copy_tile<G>(a_s, z_g + (size_t)(L - 2) * G::BUF, z_bar);  // z_{L-1}
 
@@ -1208,11 +1222,11 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
     for (int l = L; l >= 1; --l) {
       if (l == 1) {
         first_layer<BF16, HW>(dc, c, x_s, w);
-        resine<BF16, true, HW>(dc, c.bs, c.omega0, a_s, w);
+        resine<BF16, MX, true, HW>(dc, c.bs, c.omega0, a_s, w);
       } else {
         mbar_wait(z_bar, z_phase);  // z_{l-1} is in a_s
         z_phase ^= 1u;
-        resine<BF16, false, HW>(dc, nullptr, c.omega_h, a_s, w);
+        resine<BF16, MX, false, HW>(dc, nullptr, c.omega_h, a_s, w);
       }
       __syncthreads();
       add_bias_grad<G>(red, dbs + l * HW, tid);
@@ -1224,7 +1238,7 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
       }
       zero(acc);
       ring_product<BF16, G, NB>(acc, g_s, ring, s, total, src, w);  // ga = gz_l W_l^T
-      store_gz<BF16, HW>(acc, dc, g_s, red, w);                     // gz_{l-1}
+      store_gz<BF16, MX, HW>(acc, dc, g_s, red, w);                     // gz_{l-1}
     }
     __syncthreads();
 
@@ -1448,6 +1462,20 @@ Chain make_chain(const float* w0, const float* wm, const float* wmt, const float
   return c;
 }
 
+// f(bf16, mixed) with the launchers' `bf16` argument as two compile-time
+// flags: bit 0 the bf16 mode, bit 1 mixed precision (MX).
+template <typename F>
+cudaError_t by_mode(int mode, F f) {
+  using T = std::true_type;
+  using N = std::false_type;
+  switch (mode & 3) {
+    case 0: return f(N{}, N{});
+    case 1: return f(T{}, N{});
+    case 2: return f(N{}, T{});
+    default: return f(T{}, T{});
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1518,10 +1546,10 @@ int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
   constexpr size_t smem = bwd_wide_smem<G>();
   static_assert(smem <= kMaxSmem, "the backward's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch(sine_mlp_bwd_wide_kernel<true, G>, grid, G::THREADS, smem, s, c, x,
-                             g, dx, z, partials, n_part, dw_a, dw_g)
-                    : launch(sine_mlp_bwd_wide_kernel<false, G>, grid, G::THREADS, smem, s, c, x,
-                             g, dx, z, partials, n_part, dw_a, dw_g));
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    return launch(sine_mlp_bwd_wide_kernel<decltype(bf)::value, decltype(mx)::value, G>, grid,
+                  G::THREADS, smem, s, c, x, g, dx, z, partials, n_part, dw_a, dw_g);
+  });
 }
 #else
 // One persistent block per SM, at most one per tile of the forward's rows.
@@ -1534,10 +1562,10 @@ int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
   constexpr size_t smem = fwd_wide_smem<G>();
   static_assert(smem <= kMaxSmem, "the forward's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch(sine_mlp_fwd_wide_kernel<true, G>, grid, G::THREADS, smem, s, c, x,
-                             out)
-                    : launch(sine_mlp_fwd_wide_kernel<false, G>, grid, G::THREADS, smem, s, c, x,
-                             out));
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    return launch(sine_mlp_fwd_wide_kernel<decltype(bf)::value, decltype(mx)::value, G>, grid,
+                  G::THREADS, smem, s, c, x, out);
+  });
 }
 #endif
 
@@ -1598,8 +1626,10 @@ int sine_mlp_fwd(const float* x, const float* w0, const float* wm, const float* 
   const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
                              omega_h);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch(sine_mlp_fwd_kernel<true>, grid, THREADS, kFwdSmem, s, c, x, out)
-                    : launch(sine_mlp_fwd_kernel<false>, grid, THREADS, kFwdSmem, s, c, x, out));
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    return launch(sine_mlp_fwd_kernel<decltype(bf)::value, decltype(mx)::value>, grid, THREADS,
+                  kFwdSmem, s, c, x, out);
+  });
 }
 
 // The width-128 backward. partials: (grid, n_part) floats, n_part a multiple
@@ -1615,10 +1645,10 @@ int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* w
   const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth,
                              omega0, omega_h);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch(sine_mlp_bwd_kernel<true>, grid, THREADS, kBwdSmem, s, c, x, g, dx,
-                             z_scratch, partials, n_part)
-                    : launch(sine_mlp_bwd_kernel<false>, grid, THREADS, kBwdSmem, s, c, x, g,
-                             dx, z_scratch, partials, n_part));
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    return launch(sine_mlp_bwd_kernel<decltype(bf)::value, decltype(mx)::value>, grid, THREADS,
+                  kBwdSmem, s, c, x, g, dx, z_scratch, partials, n_part);
+  });
 }
 
 // The wider backward (hidden a width of SINE_MLP_WIDE_GEOS), as sine_mlp_bwd

@@ -1,8 +1,10 @@
 """Model registry (counterpart of implicit_image_tpu/models/__init__.py).
 
-SIREN, Fourier features, wavelet-SIREN and CoordX are ported, and the
-Feathermap wrap (masking=Feathermap) over any of them; hashgrid raises
-NotImplementedError until its port lands (ROADMAP.md, Queue 1).
+Every family of the JAX registry is ported: SIREN, Fourier features,
+wavelet-SIREN, CoordX and hashgrid, and the Feathermap wrap
+(masking=Feathermap) over any of them. Still raising inside a model:
+Fourier and Feathermap at precisions other than "fp32"
+(train.matmul_precision bfloat16 or null, train.mixed_precision).
 """
 from __future__ import annotations
 
@@ -11,8 +13,6 @@ from dataclasses import dataclass
 from typing import Any, Callable, Tuple
 
 __all__ = ["ModelDef", "registry", "build_model", "build_model_from_config"]
-
-_NOT_PORTED = ("hashgrid",)
 
 
 @dataclass(frozen=True)
@@ -78,22 +78,30 @@ def _wavelet_siren_def() -> ModelDef:
                     wavelet_siren_apply, wavelet_siren_apply_flat, full_grid=True)
 
 
+def _hashgrid_def() -> ModelDef:
+    from implicit_image_tpu_torch.models.hashgrid import (
+        HashGridConfig,
+        hashgrid_apply,
+        hashgrid_apply_flat,
+        init_hashgrid,
+    )
+
+    return ModelDef("hashgrid", HashGridConfig, init_hashgrid, hashgrid_apply,
+                    hashgrid_apply_flat, separable=True)
+
+
 registry = {
     "siren": _siren_def,
     "fourier": _fourier_def,
     "wavelet_siren": _wavelet_siren_def,
     "coordx": _coordx_def,
+    "hashgrid": _hashgrid_def,
 }
 
 
 def build_model(model_name: str, **cfg_kwargs) -> Tuple[ModelDef, Any]:
     """Look up a model and build its config from (possibly overfull) kwargs;
     keys the config does not have (e.g. 'name') are dropped."""
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported to implicit_image_tpu_torch "
-            f"yet (ROADMAP.md, Queue 1); {sorted(registry)} are"
-        )
     if model_name not in registry:
         raise KeyError(f"Model {model_name!r} not in registry {sorted(registry)}")
     mdef = registry[model_name]()

@@ -17,10 +17,15 @@ biases U(±1/√fan_in)), drawn from an explicit torch.Generator.
 makes; `coordx_apply_flat` takes any (N, 2) coordinates. A branch's first
 layer has fan_in 1 and is a broadcast multiply, not a product.
 
-The products are plain `torch.matmul` in fp32 (the JAX package runs CoordX
-in XLA, outside any Pallas kernel). On the card they must be true fp32:
-with `torch.backends.cuda.matmul.allow_tf32` set, a CUDA forward raises
-rather than run 1-pass TF32. Only the "fp32" precision is ported.
+The products are plain `torch.matmul` (the JAX package runs CoordX in XLA,
+outside any Pallas kernel): fp32, or under "bf16" (train.matmul_precision
+bfloat16 or null) one bf16 pass, operands rounded and fp32 accumulation,
+in the forward and the backward (ops/precision.py). On the card they must
+never be 1-pass TF32: with `torch.backends.cuda.matmul.allow_tf32` set, a
+CUDA forward raises. "+mixed" (train.mixed_precision) casts the inputs,
+weights, biases and activations to bf16 where the JAX package's
+coordx.py does (a branch's fan_in-1 layer and the fusion then compute in
+bf16: each of their ops rounds).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch
 
 from implicit_image_tpu_torch.ops import check_fp32
 from implicit_image_tpu_torch.ops.fast_math import fast_sin
+from implicit_image_tpu_torch.ops.precision import matmul, maybe_cast, modes
 
 __all__ = ["CoordXConfig", "init_coordx", "coordx_apply", "coordx_apply_flat"]
 
@@ -112,36 +118,50 @@ def _sin(cfg: CoordXConfig):
     return fast_sin if cfg.fast_sine else torch.sin
 
 
-def _run_branch(params_slice, x: torch.Tensor, cfg: CoordXConfig) -> torch.Tensor:
+def _run_branch(params_slice, x: torch.Tensor, cfg: CoordXConfig, bf16: bool = False,
+                mixed: bool = False) -> torch.Tensor:
     """x: (N, 1), one coordinate in [-1, 1] -> (N, C) sine features."""
     sin = _sin(cfg)
+    x = maybe_cast(x, mixed)
     for i, layer in enumerate(params_slice):
-        w, b = layer["w"], layer["b"]
+        w, b = maybe_cast(layer["w"], mixed), maybe_cast(layer["b"], mixed)
         omega = cfg.first_omega_0 if i == 0 else cfg.hidden_omega_0
         if w.shape[0] == 1:
-            z = x * w[0] + b  # fan_in 1: a broadcast multiply
+            # fan_in 1: a broadcast multiply (in bf16 under mixed precision)
+            z = maybe_cast(maybe_cast(x * w[0], mixed) + b, mixed)
+            pre = maybe_cast(_scalar(omega, mixed) * z, mixed)
         else:
-            z = x @ w + b
-        x = sin(omega * z)
+            pre = omega * (matmul(x, w, bf16) + b)
+        x = maybe_cast(sin(pre), mixed)
     return x
 
 
-def _run_fused(params_slice, z: torch.Tensor, cfg: CoordXConfig) -> torch.Tensor:
+def _run_fused(params_slice, z: torch.Tensor, cfg: CoordXConfig, bf16: bool = False,
+               mixed: bool = False) -> torch.Tensor:
     """z: (N, C) fused features -> (N, out) in [0, 1]."""
     sin = _sin(cfg)
     last = len(params_slice) - 1
     for i, layer in enumerate(params_slice):
-        z = z @ layer["w"] + layer["b"]
+        z = matmul(z, maybe_cast(layer["w"], mixed), bf16) + maybe_cast(layer["b"], mixed)
         if not (i == last and cfg.outermost_linear):
             z = sin(cfg.hidden_omega_0 * z)
+        if i != last:
+            z = maybe_cast(z, mixed)
     return z / 2.0 + 0.5
 
 
-def _fuse(fy: torch.Tensor, fx: torch.Tensor, cfg: CoordXConfig) -> torch.Tensor:
+def _fuse(fy: torch.Tensor, fx: torch.Tensor, cfg: CoordXConfig,
+          mixed: bool = False) -> torch.Tensor:
+    # under mixed precision the features are bf16, and so is the scale (a
+    # Python float takes the array's type in JAX)
     if cfg.fusion == "product":
         # E[sin²]·E[sin²] ≈ 1/4 against the 1/2 SIREN's init expects
-        return (fy * fx) * math.sqrt(2.0)
-    return (fy + fx) * (1.0 / math.sqrt(2.0))
+        return maybe_cast(maybe_cast(fy * fx, mixed) * _scalar(math.sqrt(2.0), mixed), mixed)
+    return maybe_cast(maybe_cast(fy + fx, mixed) * _scalar(1.0 / math.sqrt(2.0), mixed), mixed)
+
+
+def _scalar(v: float, mixed: bool) -> float:
+    return float(torch.tensor(v).to(torch.bfloat16)) if mixed else v
 
 
 def _split(params: Params, cfg: CoordXConfig):
@@ -154,24 +174,27 @@ def coordx_apply(params: Params, grid: torch.Tensor, cfg: CoordXConfig,
     """Factorized forward over a tensor-product (H, W, 2) grid ->
     (H, W, out): the row coordinate is read from grid[:, 0, 0], the column
     coordinate from grid[0, :, 1]; only the fused layers run per pixel."""
-    check_fp32(grid, "mlp=coordx", precision)
+    check_fp32(grid, "mlp=coordx")
+    bf16, mixed = modes(precision)
     h, w, _ = grid.shape
     px, py, pf = _split(params, cfg)
     ys = (grid[:, 0, 0:1] - 0.5) * 2.0  # (H, 1) row coordinate
     xs = (grid[0, :, 1:2] - 0.5) * 2.0  # (W, 1) column coordinate
-    fy = _run_branch(py, ys, cfg)  # (H, C)
-    fx = _run_branch(px, xs, cfg)  # (W, C)
-    z = _fuse(fy[:, None, :], fx[None, :, :], cfg).reshape(h * w, -1)
-    return _run_fused(pf, z, cfg).reshape(h, w, -1)
+    fy = _run_branch(py, ys, cfg, bf16, mixed)  # (H, C)
+    fx = _run_branch(px, xs, cfg, bf16, mixed)  # (W, C)
+    z = _fuse(fy[:, None, :], fx[None, :, :], cfg, mixed).reshape(h * w, -1)
+    return _run_fused(pf, z, cfg, bf16, mixed).reshape(h, w, -1)
 
 
 def coordx_apply_flat(params: Params, coords: torch.Tensor, cfg: CoordXConfig,
                       precision: str = "fp32") -> torch.Tensor:
     """Forward over any (N, 2) coordinates in [0, 1] -> (N, out); the
     branches run per point."""
-    check_fp32(coords, "mlp=coordx", precision)
+    check_fp32(coords, "mlp=coordx")
+    bf16, mixed = modes(precision)
     px, py, pf = _split(params, cfg)
     ys = (coords[:, 0:1] - 0.5) * 2.0
     xs = (coords[:, 1:2] - 0.5) * 2.0
-    z = _fuse(_run_branch(py, ys, cfg), _run_branch(px, xs, cfg), cfg)
-    return _run_fused(pf, z, cfg)
+    z = _fuse(_run_branch(py, ys, cfg, bf16, mixed), _run_branch(px, xs, cfg, bf16, mixed),
+              cfg, mixed)
+    return _run_fused(pf, z, cfg, bf16, mixed)

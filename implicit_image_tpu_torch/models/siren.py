@@ -12,7 +12,10 @@ draws for the same seed — tests copy weights instead).
 
 The forward with the polynomial sine (the default) runs through the fused
 chain of ops/sine_mlp.py: the CUDA kernels for a CUDA tensor, the plain
-chain for a CPU tensor.
+chain for a CPU tensor. `mlp.fast_sine=false` asks for the exact sine
+(JAX's `jnp.sin` path, XLA there): a plain torch chain with `torch.sin`
+and autograd, on either device, in every precision mode (ops/precision.py);
+the kernels carry the polynomial only, so such a run launches none.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from implicit_image_tpu_torch.ops.precision import matmul, maybe_cast, modes
 from implicit_image_tpu_torch.ops.sine_mlp import siren_apply_flat_fused
 
 __all__ = ["SirenConfig", "init_siren", "siren_apply", "siren_apply_flat"]
@@ -82,13 +86,28 @@ def siren_apply_flat(
 ) -> torch.Tensor:
     """Forward over flat coordinates (N, input_size) in [0, 1] ->
     (N, output_size): input mapped to [-1, 1], output mapped back by
-    x/2 + 0.5. `precision` is the kernel mode ("fp32" | "bf16")."""
+    x/2 + 0.5. `precision` is the kernel mode ("fp32" | "bf16", either
+    with "+mixed")."""
     if not cfg.fast_sine:
-        raise NotImplementedError(
-            "mlp.fast_sine=False is not ported: the chain and its kernels carry "
-            "the polynomial sine only"
-        )
+        return _siren_apply_flat_exact(params, coords, cfg, precision)
     return siren_apply_flat_fused(params, coords, cfg, precision)
+
+
+def _siren_apply_flat_exact(params: Params, coords: torch.Tensor, cfg: SirenConfig,
+                            precision: str) -> torch.Tensor:
+    """The chain with torch.sin (mlp.fast_sine=false), as the JAX package's
+    siren_apply_flat computes it: under "+mixed" x, W, b and each
+    activation cast to bf16; "bf16" products in one bf16 pass."""
+    bf16, mixed = modes(precision)
+    x = maybe_cast((coords - 0.5) * 2.0, mixed)
+    last = len(params) - 1
+    for i, layer in enumerate(params):
+        x = matmul(x, maybe_cast(layer["w"], mixed), bf16) + maybe_cast(layer["b"], mixed)
+        if not (i == last and cfg.outermost_linear):
+            x = torch.sin(cfg.omegas[i] * x)
+        if i != last:
+            x = maybe_cast(x, mixed)
+    return x / 2.0 + 0.5
 
 
 def siren_apply(

@@ -40,7 +40,8 @@ Side by side in this module:
     back from one to the other;
   * `siren_apply_flat_fused` — the [0,1] -> [-1,1] input map and the
     /2 + 0.5 output map around the Function;
-  * `LAUNCHES` — a count per kernel, incremented where the kernel launches.
+  * `LAUNCHES` — a count per kernel, incremented where the kernel launches;
+    `LAUNCHES_BY_MODE` the same counts split by the launch's mode.
 
 Precision modes: "fp32" (the main path: each hidden product is 3xTF32 on
 the tensor cores, every operand split into hi = tf32(x) and lo = tf32(x -
@@ -49,6 +50,18 @@ to ~1e-6 relative; the first and last layers are fp32 FMA) and "bf16"
 (matmul operands rounded to bf16, fp32 accumulation — what the Pallas
 kernel computes). `precision_from_config` maps `train.matmul_precision`. A
 1-pass TF32 product is never used.
+
+Mixed precision (`train.mixed_precision`, the JAX package's
+compute_dtype=bfloat16) is the suffix "+mixed" on either mode ("fp32+mixed",
+"bf16+mixed"). It is not the bf16 mode: JAX's siren_apply_flat casts x, W
+and b to bf16 and every activation back to bf16, and under autodiff each
+cast rounds the cotangent that passes back through it. So on top of the
+mode: x, W and b are rounded on the way in; each activation a = rnd(sin(ω
+z)); in the backward the activation's cotangent ga is rounded before the
+sine derivative (gz = rnd(ga) ω cos(ω z)), where the bf16 mode rounds gz
+after it as a product operand; and dW, db come out rounded. The kernels
+take it as a flag of the existing modes (bit 1 of their `bf16` argument):
+they round the activations and ga; the wrappers round the rest.
 """
 from __future__ import annotations
 
@@ -60,7 +73,10 @@ from implicit_image_tpu_torch.ops.fast_math import fast_cos, fast_sin
 
 __all__ = [
     "PRECISIONS",
+    "MIXED",
+    "precision_modes",
     "LAUNCHES",
+    "LAUNCHES_BY_MODE",
     "reset_launch_counts",
     "precision_from_config",
     "siren_chain_reference",
@@ -83,7 +99,8 @@ __all__ = [
     "sum_partials",
 ]
 
-PRECISIONS = ("fp32", "bf16")
+PRECISIONS = ("fp32", "bf16")  # the kernels' product modes
+MIXED = "+mixed"  # the suffix of a mode under train.mixed_precision
 
 # train.matmul_precision -> kernel mode. "tensorfloat32" meant 3 bf16 passes
 # (~fp32) on the TPU; here it is the fp32 mode, 3 TF32 passes, never one.
@@ -95,8 +112,12 @@ _PRECISION_OF = {
     None: "bf16",
 }
 
-# launches per kernel; only the launch sites below add to these
+# launches per kernel; only the launch sites below add to these, to both:
+# LAUNCHES by kernel, LAUNCHES_BY_MODE by kernel and product mode (a
+# "+mixed" launch counts under its mode; sum_partials under the mode of the
+# backward it sums)
 LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sine_mlp_dw": 0, "sum_partials": 0}
+LAUNCHES_BY_MODE = {k: {m: 0 for m in PRECISIONS} for k in LAUNCHES}
 
 # the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
 # the backward (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
@@ -113,28 +134,54 @@ SUM_PARTIALS_GROUPS = 2
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        for m in PRECISIONS:
+            LAUNCHES_BY_MODE[k][m] = 0
 
 
-def precision_from_config(matmul_precision: Optional[str]) -> str:
-    """Map `train.matmul_precision` to a kernel mode ("fp32" | "bf16")."""
+def _count(kernel: str, bf16: bool) -> None:
+    LAUNCHES[kernel] += 1
+    LAUNCHES_BY_MODE[kernel][PRECISIONS[int(bf16)]] += 1
+
+
+def precision_from_config(matmul_precision: Optional[str], mixed: bool = False) -> str:
+    """Map `train.matmul_precision` to a kernel mode ("fp32" | "bf16"), with
+    the "+mixed" suffix under `train.mixed_precision`."""
     try:
-        return _PRECISION_OF[matmul_precision]
+        mode = _PRECISION_OF[matmul_precision]
     except KeyError:
         raise ValueError(
             f"train.matmul_precision={matmul_precision!r}; expected one of "
             f"{sorted(k for k in _PRECISION_OF if k)} or null"
         ) from None
+    return mode + MIXED if mixed else mode
+
+
+def precision_modes(precision: str):
+    """(bf16, mixed) flags of a precision string: "fp32" | "bf16", each with
+    or without the "+mixed" suffix; anything else raises ValueError."""
+    mode, mixed = precision, False
+    if isinstance(precision, str) and precision.endswith(MIXED):
+        mode, mixed = precision[: -len(MIXED)], True
+    if mode not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, each with or without "
+                         f"{MIXED!r}; got {precision!r}")
+    return mode == "bf16", mixed
 
 
 def _check_precision(precision: str) -> bool:
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    return precision == "bf16"
+    return precision_modes(precision)[0]
 
 
 def _rnd(t: torch.Tensor, bf16: bool) -> torch.Tensor:
     """Round to bf16 (nearest even) and back: the kernel's operand type."""
     return t.to(torch.bfloat16).float() if bf16 else t
+
+
+def _rnd_params(params, mixed: bool):
+    """Under mixed precision, W and b as the chain takes them (bf16 values)."""
+    if not mixed:
+        return params
+    return tuple({k: _rnd(v.float(), True) for k, v in layer.items()} for layer in params)
 
 
 def _omegas(cfg, n_layers: int) -> Sequence[float]:
@@ -148,15 +195,16 @@ def _omegas(cfg, n_layers: int) -> Sequence[float]:
 
 def siren_chain_reference(params, x: torch.Tensor, cfg, precision: str = "fp32"):
     """The chain on mapped coordinates x (N, in) -> (N, out), plain torch."""
-    bf16 = _check_precision(precision)
+    bf16, mixed = precision_modes(precision)
+    params = _rnd_params(params, mixed)
     om = _omegas(cfg, len(params))
-    a = _rnd(x.float(), bf16)
+    a = _rnd(x.float(), bf16 or mixed)
     last = len(params) - 1
     for i, layer in enumerate(params):
         z = a @ _rnd(layer["w"], bf16) + layer["b"]
         if i == last:
             return z
-        a = _rnd(fast_sin(om[i] * z), bf16)
+        a = _rnd(fast_sin(om[i] * z), bf16 or mixed)
     raise ValueError("empty params")
 
 
@@ -165,25 +213,28 @@ def _chain_backward(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: st
     pre-activations z, then goes back over the layers exactly as the kernel
     does (derivative of sin via fast_cos), calling layer(i, a_prev, gzb, gz)
     for each layer i, last first (a_prev its rounded input, gzb its rounded
-    and gz its unrounded output cotangent). Returns dx."""
-    bf16 = _check_precision(precision)
+    and gz its unrounded output cotangent). Returns dx. Under "+mixed" the
+    params come in rounded already (the callers round them) and each
+    activation's cotangent is rounded before the sine derivative."""
+    bf16, mixed = precision_modes(precision)
+    act = bf16 or mixed
     n_layers = len(params)
     om = _omegas(cfg, n_layers)
-    xr = _rnd(x.float(), bf16)
+    xr = _rnd(x.float(), act)
     zs = []
     a = xr
     for i in range(n_layers - 1):
         z = a @ _rnd(params[i]["w"], bf16) + params[i]["b"]
         zs.append(z)
-        a = _rnd(fast_sin(om[i] * z), bf16)
+        a = _rnd(fast_sin(om[i] * z), act)
     g = g.float()
     gb = _rnd(g, bf16)
     layer(n_layers - 1, a, gb, g)
     ga = gb @ _rnd(params[-1]["w"], bf16).t()
     for i in range(n_layers - 2, -1, -1):
-        gz = ga * (om[i] * fast_cos(om[i] * zs[i]))
+        gz = _rnd(ga, mixed) * (om[i] * fast_cos(om[i] * zs[i]))
         gzb = _rnd(gz, bf16)
-        layer(i, xr if i == 0 else _rnd(fast_sin(om[i - 1] * zs[i - 1]), bf16), gzb, gz)
+        layer(i, xr if i == 0 else _rnd(fast_sin(om[i - 1] * zs[i - 1]), act), gzb, gz)
         ga = gzb @ _rnd(params[i]["w"], bf16).t()
     return ga
 
@@ -194,13 +245,15 @@ def siren_chain_backward_reference(
     """Cotangents of `siren_chain_reference` for output cotangent g (N, out):
     returns (dx, grads) with grads a tuple of {"w", "b"} dicts. Recomputes
     the forward keeping only the pre-activations z, then walks the layers
-    back exactly as the kernel does (derivative of sin via fast_cos)."""
+    back exactly as the kernel does (derivative of sin via fast_cos). Under
+    "+mixed", dW and db come out rounded to bf16 (dx does not)."""
+    mixed = precision_modes(precision)[1]
     grads = [None] * len(params)
 
     def layer(i, a_prev, gzb, gz):
-        grads[i] = {"w": a_prev.t() @ gzb, "b": gz.sum(0)}
+        grads[i] = {"w": _rnd(a_prev.t() @ gzb, mixed), "b": _rnd(gz.sum(0), mixed)}
 
-    dx = _chain_backward(params, x, g, cfg, precision, layer)
+    dx = _chain_backward(_rnd_params(params, mixed), x, g, cfg, precision, layer)
     return dx, tuple(grads)
 
 
@@ -217,7 +270,7 @@ def siren_chain_dw_operands(params, x: torch.Tensor, g: torch.Tensor, cfg,
         if i in hidden:
             ops[i] = (a_prev, gzb)
 
-    _chain_backward(params, x, g, cfg, precision, layer)
+    _chain_backward(_rnd_params(params, precision_modes(precision)[1]), x, g, cfg, precision, layer)
     return (torch.stack([ops[i][0] for i in hidden]), torch.stack([ops[i][1] for i in hidden]))
 
 
@@ -258,6 +311,12 @@ def _check_cuda(name: str, t: torch.Tensor, device, shape=None) -> None:
         raise ValueError(f"{name}: expected a contiguous 16-byte-aligned tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _mode_flags(bf16: bool, mixed: bool) -> int:
+    """The kernels' `bf16` argument: bit 0 the bf16 mode, bit 1 mixed
+    precision (round the activations and their cotangents)."""
+    return int(bf16) | int(mixed) << 1
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -318,12 +377,12 @@ def _kernel_dims(params, x: torch.Tensor):
 def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
     """Launch the forward kernel: mapped coords x (N, in) on the card ->
     chain output (N, out)."""
-    bf16 = _check_precision(precision)
+    bf16, mixed = precision_modes(precision)
     lib, hidden, depth, in_size, out_size = _kernel_dims(params, x)
     om = _omegas(cfg, depth)
     dev = x.device
-    w0, wm, wl, bs, bl = _pack(params, hidden)
-    x = x.float().contiguous()
+    w0, wm, wl, bs, bl = _pack(_rnd_params(params, mixed), hidden)
+    x = _rnd(x.float(), mixed).contiguous()
     n = x.shape[0]
     out = torch.empty((n, out_size), dtype=torch.float32, device=dev)
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs),
@@ -334,10 +393,10 @@ def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
         err = lib.sine_mlp_fwd(
             x.data_ptr(), w0.data_ptr(), wm.data_ptr(), wl.data_ptr(),
             bs.data_ptr(), bl.data_ptr(), out.data_ptr(), n, in_size, out_size,
-            depth, hidden, om[0], om[1], int(bf16), stream,
+            depth, hidden, om[0], om[1], _mode_flags(bf16, mixed), stream,
         )
     _raise_on(err, "sine_mlp_fwd")
-    LAUNCHES["sine_mlp_fwd"] += 1
+    _count("sine_mlp_fwd", bf16)
     return out
 
 
@@ -366,20 +425,22 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     """Launch the backward kernel(s) and the partial-sum kernel: returns
     (dx, grads) in the layout of `siren_chain_backward_reference`. Above
     width 128: `sine_mlp_bwd_wide`, then `sine_mlp_dw` for the hidden
-    layers' dW into the same partial buffer."""
-    bf16 = _check_precision(precision)
+    layers' dW into the same partial buffer. Under "+mixed" dW and db come
+    out rounded to bf16, as `siren_chain_backward_reference`'s."""
+    bf16, mixed = precision_modes(precision)
     lib, hidden, depth, in_size, out_size = _kernel_dims(params, x)
     om = _omegas(cfg, depth)
     dev = x.device
     h = params[0]["w"].shape[1]
-    w0, wm, wl, bs, _ = _pack(params, hidden)
+    w0, wm, wl, bs, _ = _pack(_rnd_params(params, mixed), hidden)
     wide = hidden != KERNEL_WIDTHS[0]
     # the wider kernels' gz W^T reads W^T's rows from the ring
     wmt = wm.transpose(1, 2).contiguous() if wide else None
-    x = x.float().contiguous()
+    x = _rnd(x.float(), mixed).contiguous()
     g = g.float().contiguous()
     n = x.shape[0]
     tile = KERNEL_TILE_ROWS[hidden]
+    flags = _mode_flags(bf16, mixed)
     grid, n_part, sizes = partial_layout(n, depth, in_size, h, out_size, dev)
     dx = torch.empty_like(x)
     # the z stash: one (tile, hidden) slice per block for z_1 .. z_{depth-3}
@@ -401,20 +462,22 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
                 x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), wmt.data_ptr(),
                 wl.data_ptr(), bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(),
                 partials.data_ptr(), dw_ops[0].data_ptr(), dw_ops[1].data_ptr(), grid, n_part,
-                n, in_size, out_size, depth, hidden, om[0], om[1], int(bf16), stream,
+                n, in_size, out_size, depth, hidden, om[0], om[1], flags, stream,
             )
         else:
             err = lib.sine_mlp_bwd(
                 x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), None, wl.data_ptr(),
                 bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(), partials.data_ptr(),
                 grid, n_part, n,
-                in_size, out_size, depth, hidden, om[0], om[1], int(bf16), stream,
+                in_size, out_size, depth, hidden, om[0], om[1], flags, stream,
             )
     _raise_on(err, "sine_mlp_bwd")
-    LAUNCHES["sine_mlp_bwd"] += 1
+    _count("sine_mlp_bwd", bf16)
     if wide and depth > 2:
         sine_mlp_dw(*dw_ops, partials, sizes[0], precision)
-    flat = sum_partials(partials)
+    flat = sum_partials(partials, precision)
+    if mixed:
+        flat = _rnd(flat, True)
 
     dw0, dwm, dwl, dbs, dbl = torch.split(flat[: sum(sizes)], sizes)
     dw0 = dw0.view(in_size, hidden)[:, :h]
@@ -435,7 +498,8 @@ def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset
     H x H sum of a[l]^T g[l] over the split's rows. a, g and partials must be
     contiguous and 16-byte aligned, offset even and the L H^2 floats within
     each row; anything else, a CPU tensor included, raises ValueError before
-    the library is built. No atomics: a call repeats bit for bit."""
+    the library is built. No atomics: a call repeats bit for bit. "+mixed"
+    computes what its mode does (the operands come rounded already)."""
     bf16 = _check_precision(precision)
     if a.dim() != 3 or tuple(a.shape) != tuple(g.shape) or a.shape[2] not in KERNEL_WIDTHS[1:]:
         raise ValueError(
@@ -457,7 +521,7 @@ def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset
                               partials.shape[0], partials.shape[1], offset, hidden, int(bf16),
                               torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "sine_mlp_dw")
-    LAUNCHES["sine_mlp_dw"] += 1
+    _count("sine_mlp_dw", bf16)
 
 
 def sum_partials_row_groups(n_blocks: int, groups: int):
@@ -484,8 +548,10 @@ def sum_partials_reference(partials: torch.Tensor, groups: int = SUM_PARTIALS_GR
     return out
 
 
-def sum_partials(partials: torch.Tensor) -> torch.Tensor:
+def sum_partials(partials: torch.Tensor, precision: str = "fp32") -> torch.Tensor:
     """Launch the partial-sum kernel: (blocks, P) fp32 on the card -> (P,).
+    `precision`, the mode of the backward that wrote the partials, only
+    says where `LAUNCHES_BY_MODE` counts the launch: the sum is fp32.
 
     P must be a multiple of 4 and the tensor contiguous and 16-byte aligned
     (float4 loads); anything else, a CPU tensor included, raises ValueError
@@ -498,12 +564,13 @@ def sum_partials(partials: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"sum_partials: expected (blocks >= 1, P) with P a multiple of 4, got "
             f"{tuple(partials.shape)}")
+    bf16 = _check_precision(precision)
     dev = partials.device
     _check_cuda("partials", partials, dev)
     lib = _lib()
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return sum_partials(partials)
+            return sum_partials(partials, precision)
     # The kernel takes ~0.02 ms on the card, about what this call costs the
     # host, so the path stays lean: no device context switch, the raw stream
     # handle (tools/sum_partials_ab.py times each part).
@@ -512,7 +579,7 @@ def sum_partials(partials: torch.Tensor) -> torch.Tensor:
     err = lib.sum_partials(partials.data_ptr(), out.data_ptr(), n_blocks, n_part,
                            torch._C._cuda_getCurrentRawStream(dev.index))
     _raise_on(err, "sum_partials")
-    LAUNCHES["sum_partials"] += 1
+    _count("sum_partials", bf16)
     return out
 
 

@@ -1,8 +1,14 @@
-"""Optimizers (counterpart of implicit_image_tpu/optim/__init__.py): Adam
-only; Shampoo and EKFAC are not ported yet (ROADMAP.md)."""
+"""Optimizers (counterpart of implicit_image_tpu/optim/__init__.py): Adam,
+with opt-in global-norm gradient clipping (optim.grad_clip). Shampoo and
+the EKFAC preconditioner are not ported yet (ROADMAP.md) and raise."""
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from implicit_image_tpu_torch.optim.adam import (
+    TRAINABLE_KEYS,
     AdamState,
     adam_init,
     adam_momentum,
@@ -17,6 +23,7 @@ __all__ = [
     "adam_momentum",
     "step_lr",
     "cosine_lr",
+    "clip_by_global_norm",
     "opt_init",
     "opt_update",
 ]
@@ -27,6 +34,25 @@ def _check(optim_cfg) -> None:
         raise NotImplementedError(
             f"optim={optim_cfg.name} is not ported yet (ROADMAP.md); use optim=adam"
         )
+    if getattr(optim_cfg, "preconditioner", None):
+        raise NotImplementedError(
+            f"optim.preconditioner={optim_cfg.preconditioner!r} is not ported yet (ROADMAP.md)"
+        )
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale the gradients so that their global L2 norm is at most max_norm:
+    returns (grads * scale, scale), scale = min(1, max_norm / max(norm,
+    1e-12)) a 0-d tensor. The squared norms are summed in a fixed order
+    (layer by layer, keys sorted, as jax.tree_util orders the JAX package's
+    leaves), with no atomics; nothing is read on the host."""
+    leaves = [layer[k] for layer in grads for k in sorted(layer)]
+    total = None
+    for g in leaves:
+        sq = torch.sum(g * g)
+        total = sq if total is None else total + sq
+    scale = torch.clamp(max_norm / torch.clamp(torch.sqrt(total), min=1e-12), max=1.0)
+    return tuple({k: v * scale for k, v in layer.items()} for layer in grads), scale
 
 
 def opt_init(params, optim_cfg):
@@ -34,7 +60,17 @@ def opt_init(params, optim_cfg):
     return adam_init(params)
 
 
-def opt_update(grads, opt_state, params, lr: float, optim_cfg):
-    """One optimizer step (in place); returns (params, state)."""
+def opt_update(grads, opt_state, params, lr: float, optim_cfg, stats: Optional[dict] = None):
+    """One optimizer step (in place); returns (params, state). With
+    optim.grad_clip > 0 the gradients are clipped to that global norm first,
+    where the JAX package clips (after the fit's gradient masking), and
+    `stats`, when given, receives the clip's scale under "clip_scale"."""
     _check(optim_cfg)
+    clip = float(getattr(optim_cfg, "grad_clip", 0.0) or 0.0)
+    if clip > 0:
+        trainable = tuple({k: v for k, v in layer.items() if k in TRAINABLE_KEYS}
+                          for layer in grads)
+        grads, scale = clip_by_global_norm(trainable, clip)
+        if stats is not None:
+            stats["clip_scale"] = scale
     return adam_update(grads, opt_state, params, lr)

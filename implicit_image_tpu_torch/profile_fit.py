@@ -32,8 +32,9 @@ default, masking=RigL) and the given overrides:
      profiled span, and the device's idle share over that span:
      1 - (union of the device rows' intervals) / span. The same steps run
      once more without the profiler for their ms per step, and once with
-     masking=none beside them (a separable model, CoordX, runs its grid
-     forward as the fit does); for a sparse config, the ms of one mask
+     masking=none beside them (a separable model, CoordX or hashgrid,
+     runs its grid forward as the fit does; the fit's precision keys,
+     the schedule and mixed precision included, apply to these steps); for a sparse config, the ms of one mask
      topology update (sparsity.update_connections) is timed on its own,
      host clock around MASK_UPDATES updates ending in a synchronize.
 
@@ -159,6 +160,9 @@ def profile_steps(overrides, steps: int, trace_path: Path) -> dict:
         num_steps=steps, log_steps=steps,
         pixel_chunks=compress._resolve_pixel_chunks(cfg.train.get("pixel_chunks", "auto"), h, w),
         matmul_precision=cfg.train.get("matmul_precision") or None,
+        matmul_precision_early=cfg.train.get("matmul_precision_early") or None,
+        matmul_precision_switch=float(cfg.train.get("matmul_precision_switch", 0.75)),
+        mixed_precision=bool(cfg.train.get("mixed_precision", False)),
     )
     optim_cfg = compress._optim_config(cfg)
 

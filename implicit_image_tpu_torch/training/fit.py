@@ -30,14 +30,33 @@ chunks and raises before the first step.
 Only the tensors an optimizer step trains (optim.adam.TRAINABLE_KEYS: w,
 b, centroids) take gradients; frozen leaves (Fourier's encoding B,
 Feathermap's frozen_* extras) take none. The JAX package's TPU-runtime
-scaffolding (`segment_steps`, `program_cache`, `use_pallas`, `remat`,
-`estimate_step_flops`) has no counterpart here.
+scaffolding (`program_cache`, `use_pallas`, `remat`, `estimate_step_flops`,
+the split of a fit into device executions) has no counterpart here.
+
+The precision schedule (train.matmul_precision_early, _switch): steps
+before the switch step round(n · switch) — an exact step, as in the JAX
+package's `plan_precision_schedule` — run their forward, backward and
+in-loop eval in the early mode, the rest in train.matmul_precision's, on
+the same kernels. A switch that leaves no step at matmul_precision raises
+(the JAX package silently drops the precise tail there).
+
+Boundaries: the JAX package runs a fit as device executions of
+`segment_steps` steps (split at the switch step) and does its host-side
+work between them. The port keeps that cadence (`segment_boundaries`, from
+the first executed step) for exactly that work: the checkpoint
+(`checkpoint_path`), the `watch(params, opt_state, step)` callback and the
+early-stop check (`stop_psnr`: an eval PSNR at the precision JAX's
+`eval_psnr` uses — its forward runs under no `default_matmul_precision`,
+so one bf16 pass, "bf16", with the fit's mixed precision — that stops the
+fit once it reaches the target). `resume_from` continues from a
+checkpoint of either package (training/checkpoint.py); the metric arrays
+then cover the executed steps [start, end) only.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,11 +78,14 @@ from implicit_image_tpu_torch.sparsity import (
     total_density,
     update_connections,
 )
+from implicit_image_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
 __all__ = [
     "TrainConfig",
     "OptimConfig",
     "FitResult",
+    "plan_precision_schedule",
+    "segment_boundaries",
     "make_loss_fn",
     "make_grad_fn",
     "forward_flat",
@@ -85,24 +107,44 @@ class TrainConfig:
     # train.matmul_precision; mapped to the kernel mode by
     # ops.sine_mlp.precision_from_config (tensorfloat32/float32 -> fp32)
     matmul_precision: Optional[str] = "tensorfloat32"
+    # the precision schedule: steps before round(num_steps * switch) run at
+    # matmul_precision_early (None: no schedule)
+    matmul_precision_early: Optional[str] = None
+    matmul_precision_switch: float = 0.75
+    # train.mixed_precision: the JAX package's compute_dtype=bfloat16
+    mixed_precision: bool = False
+    # the cadence of the boundary work (checkpoint, watch, stop check)
+    segment_steps: int = 2000
 
     @property
     def precision(self) -> str:
-        return precision_from_config(self.matmul_precision)
+        return precision_from_config(self.matmul_precision, self.mixed_precision)
 
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """The Adam fields of the JAX OptimConfig (conf/optim/adam.yaml);
-    StepLR(lr_step_size, lr_gamma), or warmup + cosine with
-    lr_schedule="cosine"."""
+    """The JAX OptimConfig's fields (conf/optim/*.yaml). Adam reads lr, the
+    schedule (StepLR(lr_step_size, lr_gamma), or warmup + cosine with
+    lr_schedule="cosine") and grad_clip (global-norm clipping, 0 = off);
+    momentum, weight_decay, epsilon, update_freq, graft_norm, precond_eps
+    and precond_interval are Shampoo's and EKFAC's, which Adam ignores in
+    both packages (its eps is 1e-8). A preconditioner raises (not ported)."""
 
     name: str = "adam"
     lr: float = 3e-4
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    epsilon: float = 1e-4
+    update_freq: int = 1
+    preconditioner: Optional[str] = None
+    precond_eps: float = 0.1
+    precond_interval: int = 10
+    graft_norm: bool = True
     lr_step_size: int = 2000
     lr_gamma: float = 0.5
     lr_schedule: str = "step"
     lr_warmup: int = 0
+    grad_clip: float = 0.0
 
 
 class FitResult(NamedTuple):
@@ -111,6 +153,46 @@ class FitResult(NamedTuple):
     metrics: Dict[str, np.ndarray]
     wall_seconds: float
     mask_state: Optional[MaskState] = None  # None for a dense fit
+    # early stop (stop_psnr): the step the fit stopped at (a boundary) and
+    # the check's PSNR there; None when the budget ran out
+    stopped_at: Optional[int] = None
+    stop_psnr_db: Optional[float] = None
+
+
+def plan_precision_schedule(train_cfg: TrainConfig, n: int):
+    """(early precision or None, switch step) of a fit of n steps: steps
+    [0, switch) run at the early precision, the rest at train_cfg.precision.
+    The switch is round(n · matmul_precision_switch), clamped to [0, n], as
+    the JAX package's plan_precision_schedule computes it; 0 means no
+    schedule. Raises ValueError when it would leave no step at
+    matmul_precision (switch >= 1, or n · switch rounding to n)."""
+    early = train_cfg.matmul_precision_early
+    if not early:
+        return None, 0
+    frac = float(train_cfg.matmul_precision_switch)
+    switch = max(0, min(n, int(round(n * frac))))
+    if switch == 0:
+        return None, 0
+    if switch >= n:
+        raise ValueError(
+            f"train.matmul_precision_switch={frac} puts the switch at step {switch} of {n}: "
+            f"no step would run at train.matmul_precision={train_cfg.matmul_precision!r}; "
+            "use a switch below 1 (or drop train.matmul_precision_early)")
+    return precision_from_config(early, train_cfg.mixed_precision), switch
+
+
+def segment_boundaries(n: int, seg: int, switch: int = 0, start: int = 0):
+    """The JAX package's segment boundaries of a fit of n steps from `start`:
+    segments of at most `seg` steps, none straddling the switch step (when
+    switch > 0). Returns the step after each segment, ending with n."""
+    out = []
+    s = start
+    seg = max(1, int(seg))
+    while s < n:
+        limit = switch if 0 < switch and s < switch else n
+        s += min(seg, limit - s)
+        out.append(s)
+    return out
 
 
 def synchronize(device) -> None:
@@ -249,53 +331,103 @@ def fit(
     masking_cfg: Optional[MaskingConfig] = None,
     init_params=None,
     device=None,
+    checkpoint_path=None,
+    resume_from=None,
+    watch: Optional[Callable] = None,
+    stop_psnr: Optional[float] = None,
 ) -> FitResult:
     """Run one fit on `device` (default: the grid's); returns the final
     params, per-step metric arrays and, for a sparse masking config, the
     final MaskState. `generator` (CPU) draws the init weights, then the
-    initial masks and any random growth."""
+    initial masks and any random growth; a resumed fit takes the
+    generator's state from a port checkpoint. `checkpoint_path`, `watch`
+    and `stop_psnr` act at the boundaries (module note); `resume_from`
+    continues from a checkpoint."""
     device = torch.device(device) if device is not None else grid.device
+    n = train_cfg.num_steps
     precision = train_cfg.precision
+    early, switch = plan_precision_schedule(train_cfg, n)
     h, w, c = grid.shape
     coords = grid.to(device).reshape(h * w, c)
     target = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)
     target_flat = target.reshape(h * w, -1)
+    sparse = masking_cfg is not None and not masking_cfg.dense
 
-    if init_params is not None:
+    start = 0
+    mask_state = None
+    if resume_from is not None:
+        ck = load_checkpoint(resume_from, device)
+        start = ck["step"]
+        if start >= n:
+            raise ValueError(f"checkpoint is at step {start} >= num_steps {n}; nothing to resume")
+        if "opt_state" not in ck:
+            raise ValueError(f"{resume_from} holds no Adam state to resume from")
+        params = tuple({k: v.clone() for k, v in layer.items()} for layer in ck["params"])
+        opt_state = ck["opt_state"]
+        if sparse:
+            if "mask_state" not in ck:
+                raise ValueError(f"{resume_from} holds no mask state to resume a sparse fit from")
+            mask_state = ck["mask_state"]
+            if bool(torch.isnan(mask_state.final_sparsity)):
+                mask_state = mask_state._replace(final_sparsity=torch.tensor(
+                    1.0 - masking_cfg.final_density, dtype=torch.float32, device=device))
+        if "generator_state" in ck:
+            generator.set_state(ck["generator_state"])
+    elif init_params is not None:
         params = tuple({k: v.detach().to(device).clone() for k, v in layer.items()}
                        for layer in init_params)
     else:
         params = mdef.init(generator, mcfg, device)
     set_trainable_(params, True)
-    opt_state = opt_init(params, optim_cfg)
-    grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision,
-                           train_cfg.pixel_chunks, grid_hw=(h, w),
-                           loss_name=train_cfg.loss, ssim_weight=train_cfg.ssim_weight)
-    schedule = _schedule(optim_cfg, train_cfg.num_steps)
+    if resume_from is None:
+        opt_state = opt_init(params, optim_cfg)
+    grad_fns = {}
 
-    sparse = masking_cfg is not None and not masking_cfg.dense
-    mask_state = None
+    def grad_fn(prec):
+        if prec not in grad_fns:
+            grad_fns[prec] = make_grad_fn(
+                mdef, mcfg, coords, target_flat, prec, train_cfg.pixel_chunks, grid_hw=(h, w),
+                loss_name=train_cfg.loss, ssim_weight=train_cfg.ssim_weight)
+        return grad_fns[prec]
+
+    schedule = _schedule(optim_cfg, n)
+
     if sparse:
-        lottery = load_lottery_masks(masking_cfg.mask_path) if masking_cfg.mask_path else None
-        mask_state = create_mask_state(generator, params, masking_cfg, lottery_masks=lottery)
-        apply_masks_(params, mask_state.masks)
+        if mask_state is None:
+            lottery = (load_lottery_masks(masking_cfg.mask_path) if masking_cfg.mask_path
+                       else None)
+            mask_state = create_mask_state(generator, params, masking_cfg, lottery_masks=lottery)
+            apply_masks_(params, mask_state.masks)
         decay_fn = build_decay(masking_cfg)
         needs_momentum = "momentum" in (masking_cfg.growth_mode,
                                         masking_cfg.redistribution_mode)
         density = total_density(mask_state)
         sparsity = 1.0 - density
 
-    n = train_cfg.num_steps
-    losses, densities, rates = [], [], []
+    boundaries = set()
+    if checkpoint_path is not None or watch is not None or stop_psnr is not None:
+        boundaries = set(segment_boundaries(n, train_cfg.segment_steps, switch, start))
+    # the stop check's precision: JAX's eval_psnr runs under no
+    # default_matmul_precision (one bf16 pass), with the fit's compute dtype
+    stop_prec = precision_from_config(None, train_cfg.mixed_precision)
+    stopped_at = stop_db = None
+    clip_stats = {} if float(optim_cfg.grad_clip or 0.0) > 0 else None
+
+    losses, densities, rates, clip_scales = [], [], [], []
     evals = {}
     synchronize(device)
     t0 = time.perf_counter()
-    for step in range(n):
-        loss, grads = grad_fn(params)
+    end = n
+    for step in range(start, n):
+        prec = early if early is not None and step < switch else precision
+        loss, grads = grad_fn(prec)(params)
         if sparse and not masking_cfg.dense_gradients:
             mask_grads(grads, mask_state.masks)
-        params, opt_state = opt_update(grads, opt_state, params, schedule(step), optim_cfg)
+        params, opt_state = opt_update(grads, opt_state, params, schedule(step), optim_cfg,
+                                       stats=clip_stats)
         losses.append(loss)
+        if clip_stats is not None:
+            clip_scales.append(clip_stats["clip_scale"])
         if sparse:
             apply_masks_(params, mask_state.masks)
             if not masking_cfg.dense_gradients:
@@ -312,24 +444,42 @@ def fit(
             densities.append(density)
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
-                pred = forward_flat(mdef, mcfg, params, coords, (h, w), precision)
+                pred = forward_flat(mdef, mcfg, params, coords, (h, w), prec)
                 test_loss = mse(pred, target_flat)
                 evals[step] = torch.stack(
                     [test_loss, 10.0 * torch.log10(1.0 / test_loss),
                      psnr_8bit(pred, target_flat)]
                 )
+        if step + 1 in boundaries:
+            if checkpoint_path is not None:
+                save_checkpoint(checkpoint_path, params, opt_state,
+                                mask_state if sparse else None, generator, step + 1)
+            if watch is not None:
+                watch(params, opt_state, step + 1)
+            if stop_psnr is not None:
+                with torch.no_grad():
+                    pred = forward_flat(mdef, mcfg, params, coords, (h, w), stop_prec)
+                    val = float(10.0 * torch.log10(1.0 / mse(pred, target_flat)))
+                if val >= stop_psnr:
+                    stopped_at, stop_db, end = step + 1, val, step + 1
+                    break
     synchronize(device)
     wall = time.perf_counter() - t0
 
-    metrics = {k: np.full(n, np.nan, np.float32)
+    executed = end - start
+    metrics = {k: np.full(executed, np.nan, np.float32)
                for k in ("test_loss", "psnr", "psnr_8bit")}
     metrics["loss"] = (torch.stack(losses).cpu().numpy() if losses
                        else np.zeros(0, np.float32))
-    metrics["density"] = _host_array(densities) if sparse else np.ones(n, np.float32)
-    metrics["prune_rate"] = _host_array(rates) if sparse else np.zeros(n, np.float32)
+    metrics["density"] = _host_array(densities) if sparse else np.ones(executed, np.float32)
+    metrics["prune_rate"] = _host_array(rates) if sparse else np.zeros(executed, np.float32)
+    if clip_stats is not None:
+        metrics["clip_scale"] = _host_array(clip_scales)
     for step, vals in evals.items():
         tl, p, p8 = vals.cpu().numpy()
-        metrics["test_loss"][step], metrics["psnr"][step], metrics["psnr_8bit"][step] = tl, p, p8
+        i = step - start
+        metrics["test_loss"][i], metrics["psnr"][i], metrics["psnr_8bit"][i] = tl, p, p8
     set_trainable_(params, False)
     return FitResult(params=params, opt_state=opt_state, metrics=metrics,
-                     wall_seconds=wall, mask_state=mask_state)
+                     wall_seconds=wall, mask_state=mask_state, stopped_at=stopped_at,
+                     stop_psnr_db=stop_db)

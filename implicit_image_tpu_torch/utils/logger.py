@@ -1,7 +1,8 @@
 """Run-local metrics sink (counterpart of implicit_image_tpu/utils/logger.py):
 `<run_dir>/metrics.jsonl` (one JSON object per logged step) and
 `<run_dir>/summary.json`, in the same format as the JAX package's, plus a
-log line per step. The optional W&B sink is not ported."""
+log line per step, and train.watch's `<run_dir>/histograms.jsonl`. The
+optional W&B sink is not ported."""
 from __future__ import annotations
 
 import functools
@@ -40,6 +41,23 @@ class MetricsLogger:
         if self._fh is not None:
             self._fh.write(json.dumps({"step": step, "prefix": prefix, **clean}) + "\n")
             self._fh.flush()
+
+    def histogram(self, step: int, tensors: dict, bins: int = 64, prefix: str = "watch"):
+        """train.watch's sink: one `histograms.jsonl` row per call, the JAX
+        package's format: per tensor its `bins`-bin histogram counts and
+        the range (numpy.histogram)."""
+        if not self.use:
+            return
+        import numpy as np
+
+        out = {}
+        for name, arr in tensors.items():
+            counts, edges = np.histogram(np.asarray(arr).ravel(), bins=bins)
+            out[name] = {"counts": counts.tolist(), "min": float(edges[0]),
+                         "max": float(edges[-1])}
+        if self.run_dir is not None:
+            with open(self.run_dir / "histograms.jsonl", "a") as fh:
+                fh.write(json.dumps({"step": step, "prefix": prefix, "histograms": out}) + "\n")
 
     def summary(self, metrics: dict):
         if not self.use or self.run_dir is None:

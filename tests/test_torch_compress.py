@@ -88,9 +88,9 @@ def test_meta_init_loads_same_weights(runs):
         load_meta_init(init, expect_mcfg=c8)
 
 
-@pytest.mark.parametrize("override", ["mlp=hashgrid", "optim=shampoo", "quant=qat",
+@pytest.mark.parametrize("override", ["quant.bit_alloc=auto", "optim=shampoo", "quant=qat",
                                       "entropy_coding.progressive=true",
-                                      "train.stop_at_psnr=30"])
+                                      "profile=true"])
 def test_unported_options_raise(tmp_path, override):
     cfg = compose(OVERRIDES + ["device=cpu", "train.num_steps=1", override])
     with pytest.raises((NotImplementedError, KeyError)):

@@ -111,8 +111,11 @@ def test_registry_and_precision():
                                             "split_depth": 2}, "masking": {"name": "none"}})
     assert m.name == "coordx" and c.split_depth == 2
     tp = m.init(torch.Generator().manual_seed(0), c)
-    with pytest.raises(NotImplementedError):
-        m.apply(tp, get_grid(4, 4), c, "bf16")
+    # one bf16 pass per product since the precision slice (tests/test_torch_precision.py)
+    fp32, bf16 = (m.apply(tp, get_grid(4, 4), c, prec) for prec in ("fp32", "bf16"))
+    assert torch.isfinite(bf16).all() and not torch.equal(fp32, bf16)
+    with pytest.raises(ValueError):
+        m.apply(tp, get_grid(4, 4), c, "tf32")
     with pytest.raises(ValueError):
         build_model("coordx", depth=4, split_depth=3)
 

@@ -20,7 +20,7 @@ from implicit_image_tpu.training.fit import TrainConfig as JTrain
 from implicit_image_tpu.training.fit import make_fit_fn
 from implicit_image_tpu_torch.convert import params_from_jax, params_to_numpy
 from implicit_image_tpu_torch.data import get_grid
-from implicit_image_tpu_torch.models import build_model, build_model_from_config
+from implicit_image_tpu_torch.models import build_model
 from implicit_image_tpu_torch.optim import (
     adam_init,
     adam_momentum,
@@ -118,12 +118,14 @@ def test_fit_evals_final_step_and_chunks_agree():
 
 
 def test_fit_rejects_sparse_masking():
-    """What still raises: hashgrid (a model family, not ported), struct-*
-    inits (they need 4-D kernels, an MLP has none) and unknown modes."""
-    with pytest.raises(NotImplementedError):
-        build_model_from_config({"mlp": {"name": "hashgrid"},
-                                 "masking": {"name": "Feathermap", "dense": True}})
+    """What still raises: struct-* inits (they need 4-D kernels, an MLP has
+    none), unknown modes, and a precision schedule that leaves no step at
+    train.matmul_precision (hashgrid, which raised here, is ported)."""
     m, c = build_model("siren", depth=3, hidden_size=8)
+    with pytest.raises(ValueError, match="matmul_precision_switch"):
+        fit(torch.Generator(), m, c, get_grid(4, 4), np.zeros((4, 4, 3), np.float32),
+            TrainConfig(num_steps=4, log_steps=1, matmul_precision_early="bfloat16",
+                        matmul_precision_switch=1.0), OptimConfig())
     with pytest.raises(ValueError):
         fit(torch.Generator(), m, c, get_grid(4, 4), np.zeros((4, 4, 3), np.float32),
             TrainConfig(num_steps=1, log_steps=1), OptimConfig(),

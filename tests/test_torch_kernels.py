@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels of implicit_image_tpu_torch against their
 plain-torch versions, on the card, and the paths around them that only the
 card can check: the codebook finetune repeats bit for bit, MS-SSIM agrees
-with the CPU, and a RigL fit on the card keeps each layer's weight count.
+with the CPU, and a RigL fit on the card keeps each layer's weight count;
+since the fit-options slice, the precision schedule's launches per mode,
+the kernels under mixed precision, a bit-exact resume and a hashgrid fit
+that repeats bit for bit.
 
 Every test here is marked `cuda` and skips (inside the test) without a CUDA
 device: a CUDA kernel has no interpret mode. The file imports torch and the
@@ -516,3 +519,135 @@ def test_fourier_on_card_runs_no_kernel_and_matches_cpu(cuda_device):
                     get_grid(8, 8, cuda_device), c)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_schedule_launch_modes_on_card(cuda_device):
+    """K1/K2/sum_partials launch in the bf16 mode for the steps before the
+    switch (0.75 of 20) and their evals, in fp32 after."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("siren", depth=4, hidden_size=32)
+    img = np.random.default_rng(0).uniform(size=(32, 32, 3)).astype(np.float32)
+    sm.reset_launch_counts()
+    fit(torch.Generator().manual_seed(0), m, c, get_grid(32, 32, cuda_device), img,
+        TrainConfig(num_steps=20, log_steps=5, matmul_precision_early="bfloat16"),
+        OptimConfig(), device=cuda_device)
+    assert sm.LAUNCHES_BY_MODE["sine_mlp_fwd"] == {"bf16": 15 + 3, "fp32": 5 + 1}
+    assert sm.LAUNCHES_BY_MODE["sine_mlp_bwd"] == {"bf16": 15, "fp32": 5}
+    assert sm.LAUNCHES_BY_MODE["sum_partials"] == {"bf16": 15, "fp32": 5}
+    assert sm.LAUNCHES["sine_mlp_fwd"] == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("depth,hidden,n", [(5, 32, 4099), (8, 128, 40000), (8, 182, 20000),
+                                            (3, 512, 5000)])
+def test_mixed_kernels_match_the_plain_chain(cuda_device, mode, depth, hidden, n):
+    """The kernels under "+mixed" against the plain chain, within the bf16
+    mode's limits (1.5e-3 forward, 2e-2 of the largest gradient)."""
+    prec = mode + sm.MIXED
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((n, 3), generator=gen).to(cuda_device)
+    sm.reset_launch_counts()
+    out = sm.sine_mlp_fwd(params, x, c, prec)
+    _, grads = sm.sine_mlp_bwd(params, x, g, c, prec)
+    assert sm.LAUNCHES_BY_MODE["sine_mlp_fwd"][mode] == 1
+    assert float((out - sm.siren_chain_reference(params, x, c, prec)).abs().max()) <= 1.5e-3
+    _, ref = sm.siren_chain_backward_reference(params, x, g, c, prec)
+    for a, b in zip(grads, ref):
+        for k in KEYS:
+            assert float((a[k] - b[k]).abs().max()) <= 2e-2 * float(b[k].abs().max())
+            # dW and db come out as bf16 values
+            assert torch.equal(a[k], a[k].to(torch.bfloat16).float())
+    # mixed is not the plain mode: the activations round
+    plain = sm.sine_mlp_fwd(params, x, c, mode)
+    assert not torch.equal(out, plain) or mode == "bf16"
+
+
+@pytest.mark.cuda
+def test_resume_on_card_is_bit_exact(cuda_device, tmp_path):
+    """A RigL fit resumed from its step-6 checkpoint ends with the bits of
+    the uninterrupted 12-step fit (K2 adds in a fixed order)."""
+    import shutil
+
+    import numpy as np
+
+    from implicit_image_tpu_torch.sparsity import MaskingConfig
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("siren", depth=5, hidden_size=64)
+    img = np.random.default_rng(2).uniform(size=(48, 48, 3)).astype(np.float32)
+    ck = tmp_path / "ck.npz"
+
+    def watch(params, opt_state, step):
+        if step == 6:
+            shutil.copy(ck, tmp_path / "at6.npz")
+
+    def run(**kw):
+        return fit(torch.Generator().manual_seed(0), m, c, get_grid(48, 48, cuda_device), img,
+                   TrainConfig(num_steps=12, log_steps=6, segment_steps=6), OptimConfig(lr=1e-3),
+                   MaskingConfig(density=0.5, interval=4, end_when=10), device=cuda_device, **kw)
+
+    full = run(checkpoint_path=ck, watch=watch)
+    rest = run(resume_from=tmp_path / "at6.npz")
+    for a, b in zip(full.params, rest.params):
+        for k in a:
+            assert torch.equal(a[k], b[k])
+    for a, b in zip(full.mask_state.masks, rest.mask_state.masks):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_hashgrid_fit_on_card_repeats_and_matches_cpu(cuda_device):
+    """Two hashgrid fits on the card give the same bits (the hashed levels'
+    transpose-gather backward has no atomics), launch no SIREN kernel, and
+    end near the CPU's fit."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("hashgrid", n_levels=6, log2_table_size=10, base_resolution=8,
+                       finest_resolution=128)
+    img = np.random.default_rng(3).uniform(size=(64, 64, 3)).astype(np.float32)
+
+    def run(dev):
+        return fit(torch.Generator().manual_seed(0), m, c, get_grid(64, 64, dev), img,
+                   TrainConfig(num_steps=20, log_steps=20), OptimConfig(lr=1e-2), device=dev)
+
+    sm.reset_launch_counts()
+    a, b = run(cuda_device), run(cuda_device)
+    assert not any(sm.LAUNCHES.values())
+    for la, lb in zip(a.params, b.params):
+        for k in la:
+            assert torch.equal(la[k], lb[k])
+    cpu = run(torch.device("cpu"))
+    assert abs(float(a.metrics["psnr"][-1]) - float(cpu.metrics["psnr"][-1])) <= 0.05
+
+
+@pytest.mark.cuda
+def test_exact_sine_and_coordx_bf16_on_card_match_cpu(cuda_device):
+    """mlp.fast_sine=false (the torch.sin chain) launches no kernel, and it
+    and CoordX at "bf16" and "+mixed" agree with the CPU (fp32 1e-5; the
+    bf16 modes at the kernels' bf16 forward limit, 1.5e-3: an operand that
+    lies at a bf16 rounding boundary may round the other way)."""
+    for name, kw, prec, tol in (("siren", dict(depth=4, hidden_size=32, fast_sine=False),
+                                 "fp32", 1e-5),
+                                ("coordx", dict(depth=5, hidden_size=16, split_depth=2),
+                                 "bf16", 1.5e-3),
+                                ("coordx", dict(depth=5, hidden_size=16, split_depth=2),
+                                 "fp32" + sm.MIXED, 1.5e-3)):
+        m, c = build_model(name, **kw)
+        params = m.init(torch.Generator().manual_seed(0), c)
+        grid = get_grid(24, 20)
+        sm.reset_launch_counts()
+        card = m.apply(tuple({k: v.to(cuda_device) for k, v in layer.items()} for layer in params),
+                       grid.to(cuda_device), c, prec).cpu()
+        assert not any(sm.LAUNCHES.values())
+        cpu = m.apply(params, grid, c, prec)
+        assert float((card - cpu).abs().max()) <= tol, (name, prec)
