@@ -20,7 +20,15 @@ Phases, each printing its own line:
      (its time is the whole backward's, as at 128), and sine_mlp_dw is also
      held alone against its plain version on this chain's own dW operands
      (DW_TOL), twice for bits, and timed from CUDA graphs in turns with
-     one fp32 torch.bmm computing the same dW (the library yardstick);
+     one fp32 torch.bmm computing the same dW (the library yardstick).
+     K1 over a member axis (sine_mlp_fwd_batched, the vmapped render of
+     decode_runs) at widths 128 and 182: 8 SIRENs on one 512² grid in one
+     launch, in both modes, each member the bits of its single launch and
+     within FWD_TOL of the plain version (the other mode's batched kernel
+     outside it), timed in turns with one single launch; its bound is 8
+     forwards' work. Phase 2 prints ptxas's registers and spills of every
+     kernel and fails if a batched forward spills more than its single
+     launch;
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -109,11 +117,35 @@ Phases, each printing its own line:
      lr 1e-2, epsilon 1e-15, k-means, zstd), 300 + 20 steps, its device rows
      over 30 profiled steps (profile_fit), and two 50-step fits of the same
      sha256.
+ 13. the compress and decode CLIs' run tools: (a) quant.bit_alloc=auto on
+     phase 5's configuration and on phase 9's (the finals point): the
+     allocation, adopted or not, both arms' decoded dB and bytes, the quant
+     wall against the run without it; the uniform arm is that run's
+     container bit for bit, and the probes launch K1 in the bf16 mode (JAX's
+     default pass) and K2 never in it; (b) entropy_coding.progressive=true
+     (with its base finetune) on phase 5's configuration under the `auto`
+     stream: its bytes against the flat `auto` container of phase 5's state,
+     the full decode phase 5's bit for bit, the base
+     prefix's dB before (the same container without the finetune) and after
+     (better), and a second finetune giving the stored books' sha256; (c)
+     from phase 5's run dir, decode_run at --scale 4 (2048², one K1 launch),
+     in --tile-rows 256 bands and a window of it: bands and window equal the
+     full render's slices bit for bit; Mpix/s of each and of the launch
+     alone; (d) the run packed into an .iic file decodes to the run dir's
+     image bit for bit; (e) a -m sweep of 8 seeds at w128 and 2 at w182
+     (20 steps each, launcher.n_jobs=2) through compress.cli, and the w182
+     sweep again at n_jobs=1: each member's stream the same sha256; then
+     decode_runs over each width's runs alone (one batched K1 launch each,
+     the counts the kernels line prints) and over the 10: one batched K1
+     launch per group and no single one, each image its single decode's
+     bits; (f) profile=True on a 20-step
+     fit: the trace in <run>/profile/ holds K1, K2 and sum_partials rows.
 
-Each of phases 4-12 sets the launch counts to 0 just before its run and
+Each of phases 4-13 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
-of 12 only; nothing in phase 8, in 11 (d) and in 12 (f)-(h). In phase 3, sum_partials must equal its plain
+of 12 only; sine_mlp_fwd_batched in 13 (e) only; nothing in phase 8, in
+11 (d) and in 12 (f)-(h). In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
@@ -123,7 +155,8 @@ reports these medians) and launched from Python (host included), and
 every round is printed beside the medians and their share of the bound.
 
 Then one JSON line describing the kernels (each kernel once per width of
-phase 3, with the launches of the phase that runs that width: 4, 9 and 10),
+phase 3, with the launches of the phase that runs that width: 4, 9 and 10;
+the batched K1 at 128 and 182 with 13 (e)'s),
 and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
 exit code is non-zero and no result line is printed. Without a CUDA device
@@ -269,6 +302,32 @@ P12_FLOOR = {
 }
 
 
+# phase 3's K1 over a member axis (the vmapped render of decode_runs): M
+# members of one shape, each 512² rows, at these widths, both modes
+BATCH_MEMBERS, BATCH_WIDTHS = 8, (WIDTH, FINALS_WIDTH)
+
+# phase 13: the run tools of the two CLIs, at full width (512², SIREN
+# d8/w128 unless named); (a) and (b) on phase 5's configuration, so the
+# uniform arm, the rejected allocation and the flat container are phase 5's
+P13 = "outputs/chip_smoke_p13"
+ALLOC_OVERRIDES = DEFAULT_OVERRIDES[:-1] + ["quant.bit_alloc=auto", f"output_dir={P13}_alloc"]
+ALLOC_FINALS_OVERRIDES = FINALS_OVERRIDES[:-1] + ["quant.bit_alloc=auto",
+                                                  f"output_dir={P13}_alloc_finals"]
+# the stream of the repo's progressive A/B (benchmarks/progressive_delta_ab.py):
+# a plain stream stores each nibble plane in a whole byte
+PROGRESSIVE_STREAM = "auto"
+PROGRESSIVE_OVERRIDES = [o for o in DEFAULT_OVERRIDES[:-1] if not o.startswith("entropy")] + [
+    f"entropy_coding={PROGRESSIVE_STREAM}", "entropy_coding.progressive=true",
+    f"output_dir={P13}_progressive"]
+SCALE, TILE_ROWS, ROI = 4, 256, (300, 1800, 77, 2001)  # 13c on the 2048² lattice
+SWEEP_SEEDS = 8  # 13e: a -m sweep of 8 seeds at w128 and 2 at the finals width
+SWEEP_COMMON = ["masking=none", "train.num_steps=20", "train.log_steps=10",
+                "quant.num_steps=5", "entropy_coding=plain"]
+PROFILE_OVERRIDES = SMOKE_OVERRIDES[:-1] + ["train.num_steps=20", "quant=none",
+                                            "entropy_coding=none", "profile=True",
+                                            f"output_dir={P13}_profile"]
+
+
 def _time_ms(fn, reps: int = 10) -> float:
     import torch
 
@@ -334,14 +393,33 @@ def phase_card() -> str:
 
 def phase_build() -> float:
     from implicit_image_tpu_torch.ops import cuda_build
+    from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS, MAX_ROWS
 
     t0 = time.perf_counter()
-    cuda_build.load_library()
+    lib = cuda_build.load_library()
     seconds = time.perf_counter() - t0
     print(f"[2 build] {seconds:.2f} s -> {cuda_build.BUILD_DIR}", flush=True)
-    for line in cuda_build.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[2 build] {line.strip()}", flush=True)
+    # the wrappers' row guard is the kernels' own limit
+    if lib.sine_mlp_max_rows() != MAX_ROWS:
+        raise AssertionError(f"sine_mlp.MAX_ROWS {MAX_ROWS} is not the library's "
+                             f"{lib.sine_mlp_max_rows()}")
+    table = cuda_build.ptxas_table(cuda_build.ptxas_report())
+    for name, row in table.items():
+        if name.startswith("void"):  # the kernels (entry functions)
+            print(f"[2 build] {row.get('registers')} registers, {row.get('spill_stores')} B "
+                  f"spill stores, {row.get('spill_loads')} B spill loads: {name[:160]}",
+                  flush=True)
+    # K1 over a member axis is a template instantiation (last argument MB)
+    # of each forward: it must spill no more than the single launch's
+    batched = {n: r for n, r in table.items() if "sine_mlp_fwd" in n and "(bool)1>(" in n}
+    for name, row in batched.items():
+        single = table.get(name.replace("(bool)1>(", "(bool)0>("))
+        if single is None or row.get("spill_stores", 0) > single.get("spill_stores", 0):
+            raise AssertionError(f"the batched forward spills more than its single launch: "
+                                 f"{name} {row} vs {single}")
+    if table and len(batched) != 2 * len(KERNEL_WIDTHS):
+        raise AssertionError(f"{len(batched)} batched forward instantiations, expected two "
+                             f"modes at each of {KERNEL_WIDTHS}")
     return seconds
 
 
@@ -352,7 +430,7 @@ def _grad_floats(in_size: int, hidden: int, out_size: int, depth: int) -> int:
 
 
 def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks: int,
-            n_part: int) -> dict:
+            n_part: int, members: int = BATCH_MEMBERS) -> dict:
     """FLOPs, bytes and least times of each kernel at these shapes, counted
     from csrc/sine_mlp.cu: the hidden products (tensor cores, 3 TF32 passes
     in the fp32 mode) apart from the first layer (K = in), the last
@@ -373,6 +451,11 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
         # the wider backward's dW: read A and G (L, n, hidden) once, write
         # each split's (L, hidden, hidden)
         "sine_mlp_dw": (hidden_mm, 0, 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
+        # K1 over `members` members of one shape: the forward's work each; x
+        # (shared) read once, each member's weights and output once
+        "sine_mlp_fwd_batched": (members * hidden_mm, members * 2 * n * hidden * (in_size
+                                                                             + out_size),
+                                 4 * n * in_size + members * (4 * n * out_size + weights)),
     }
     out = {}
     for name, (tc, fma, nbytes) in kernels.items():
@@ -645,6 +728,67 @@ def phase_kernels(width: int = WIDTH) -> dict:
     return records
 
 
+def phase_batched_kernel(width: int) -> tuple:
+    """Phase 3, K1 over a member axis: BATCH_MEMBERS SIRENs of hidden width
+    `width` on one 512² grid in one launch, in both modes: each member the
+    bits of its single launch, within FWD_TOL of the plain version (and the
+    other mode's batched kernel outside it); timed in turns with one single
+    launch. Returns the kernels line's record of the fp32 mode."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+    gen = torch.Generator().manual_seed(10)
+    members = [mdef.init(gen, mcfg, dev) for _ in range(BATCH_MEMBERS)]
+    x = (get_grid(N_SIDE, N_SIDE, dev).reshape(-1, 2) - 0.5) * 2.0
+    outs = {p: sm.sine_mlp_fwd_batched(members, x, mcfg, p) for p in sm.PRECISIONS}
+    torch.cuda.synchronize()
+    tag = f"[3 kernels w{width} batched x{BATCH_MEMBERS}]"
+    record = None
+    for prec in sm.PRECISIONS:
+        other = next(p for p in sm.PRECISIONS if p != prec)
+        singles = torch.stack([sm.sine_mlp_fwd(p, x, mcfg, prec) for p in members])
+        plain = sm.siren_chain_reference_batched(members, x, mcfg, prec)
+        torch.cuda.synchronize()
+        same = torch.equal(outs[prec], singles)
+        err = float((outs[prec] - plain).abs().max())
+        ctl = float((outs[other] - plain).abs().max())
+        print(f"{tag} {prec}: {'the bits of' if same else 'BITS DIFFER FROM'} "
+              f"{BATCH_MEMBERS} single launches; vs plain max_abs_err {err:.3e} (tol "
+              f"{FWD_TOL[prec]:g}); control, the {other} batched kernel: {ctl:.3e}", flush=True)
+        if not same:
+            raise AssertionError(f"{tag} {prec}: not the bits of the single launches")
+        if not err <= FWD_TOL[prec] < ctl:
+            raise AssertionError(f"{tag} {prec}: max abs err {err}, control {ctl}")
+        if prec == "fp32":
+            single_r, batched_r = _interleaved_ms(
+                [lambda: sm.sine_mlp_fwd(members[0], x, mcfg, prec),
+                 lambda: sm.sine_mlp_fwd_batched(members, x, mcfg, prec)], rounds=3, reps=5)
+            plain_ms = _time_ms(lambda: sm.siren_chain_reference_batched(members, x, mcfg,
+                                                                         prec), 1)
+            single_ms, ms = statistics.median(single_r), statistics.median(batched_r)
+            in_size, out_size = params_io = (members[0][0]["w"].shape[0],
+                                             members[0][-1]["w"].shape[1])
+            blocks, n_part, _ = sm.partial_layout(x.shape[0], DEPTH, in_size, width, out_size,
+                                                  dev)
+            bound = _bounds(x.shape[0], *params_io, DEPTH, width, blocks,
+                            _grad_floats(in_size, width, out_size, DEPTH))["sine_mlp_fwd_batched"]
+            padded = _bounds(x.shape[0], *params_io, DEPTH, sm.kernel_width(width), blocks,
+                             n_part)["sine_mlp_fwd_batched"]["bound_ms"]
+            print(f"{tag} ms in turns (3 rounds x 5 launches, CUDA events): batched "
+                  f"{' '.join(f'{t:.3f}' for t in batched_r)} (median {ms:.3f} = "
+                  f"{ms / BATCH_MEMBERS:.4f} per member); one single launch "
+                  f"{' '.join(f'{t:.3f}' for t in single_r)} (median {single_ms:.4f}); plain "
+                  f"{plain_ms:.3f}; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) = "
+                  f"{bound['bound_ms'] / ms:.1%}", flush=True)
+            record = (err, ms, plain_ms, None, bound, padded)
+    return record
+
+
 def _expected_container_bytes(cfg) -> int:
     """Plain container size from the shapes (half=auto): unquantized
     weights and all biases fp32, quantized layers uint8 labels + fp16
@@ -668,14 +812,18 @@ def _expected_container_bytes(cfg) -> int:
     return total
 
 
-def _check_launches(launches: dict, what: str, wide: bool = False) -> None:
+def _check_launches(launches: dict, what: str, wide: bool = False,
+                    batched: bool = False) -> None:
     """Every kernel launched on the path; sine_mlp_dw (the wider backward's
-    dW) exactly when the path runs a SIREN wider than 128 (`wide`)."""
+    dW) exactly when the path runs a SIREN wider than 128 (`wide`), and
+    sine_mlp_fwd_batched (K1 over a member axis) exactly when it decodes
+    runs together (`batched`)."""
     for name, count in launches.items():
-        if name == "sine_mlp_dw" and not wide:
+        if (name == "sine_mlp_dw" and not wide) or (name == "sine_mlp_fwd_batched"
+                                                   and not batched):
             if count != 0:
-                raise AssertionError(f"sine_mlp_dw launched {count} times on the {what}, which "
-                                     "runs no width above 128")
+                raise AssertionError(f"{name} launched {count} times on the {what}, which "
+                                     "does not run it")
         elif count <= 0:
             raise AssertionError(f"kernel {name} did not launch on the {what}")
 
@@ -1484,6 +1632,284 @@ def phase_hashgrid() -> None:
         raise AssertionError("[12h hashgrid] two fits of one config gave different params")
 
 
+def _decoded_db(img, target) -> float:
+    import numpy as np
+
+    err = np.mean((np.asarray(img, np.float64) - np.asarray(target, np.float64)) ** 2)
+    return float(10.0 * np.log10(1.0 / err))
+
+
+def phase_bit_alloc(tag: str, overrides, flat_run: str) -> None:
+    """13a: quant.bit_alloc=auto through compress.main: the allocation, adopted
+    or not, each arm's decoded dB and bytes, the quant wall it adds over the
+    same run without it (`flat_run`, which it equals up to the search: its
+    uniform arm must be that run's container, bit for bit), and the probe
+    renders in JAX's default bf16 pass."""
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.coding import decode_and_render
+    from implicit_image_tpu_torch.models import build_model_from_config
+
+    r = _p12_run(tag, overrides)
+    s, cfg = r["summary"], r["cfg"]
+    base = json.loads(open(f"{flat_run}/summary.json").read())
+    mdef, mcfg = build_model_from_config(cfg)
+    target = compress._load_image(cfg.img)
+    stream = cfg.entropy_coding.stream_name
+    arms = {}
+    for arm in ("auto", "uniform"):
+        d = Path(r["run_dir"]) / f"bit_alloc_{arm}"
+        if d.is_dir():
+            img, _ = decode_and_render(d, stream, mdef, mcfg, *target.shape[:2])
+            arms[arm] = (_decoded_db(img, target), (d / "compressed_weights.data").stat().st_size)
+    same = _sha256(f"{r['run_dir']}/model_quantized/compressed_weights.data")
+    flat = _sha256(f"{flat_run}/model_quantized/compressed_weights.data")
+    uniform_is_flat = ("uniform" not in arms or _sha256(
+        f"{r['run_dir']}/bit_alloc_uniform/compressed_weights.data") == flat)
+    adopted = same != flat
+    verdict = ("adopted" if adopted else "rejected: the uniform books dominate" if arms
+               else "the search chose the uniform books")
+    print(f"{tag} allocation {s['Bit Allocation']} ({verdict}); arms "
+          + "; ".join(f"{a} {db:.3f} dB @ {nb} B" for a, (db, nb) in arms.items())
+          + f"; search {s['bit_alloc_search_s']:.3f} s, quant wall {s['quant_wall_s']:.3f} s "
+          f"against {base['quant_wall_s']:.3f} s without bit_alloc; K1 launches by mode "
+          f"{r['by_mode']['sine_mlp_fwd']}", flush=True)
+    if not uniform_is_flat or (not adopted and r["bytes"] != base["Compressed Bytes"]):
+        raise AssertionError(f"{tag}: the uniform arm is not the run without bit_alloc")
+    if r["by_mode"]["sine_mlp_fwd"]["bf16"] <= 0 or r["by_mode"]["sine_mlp_bwd"]["bf16"]:
+        raise AssertionError(f"{tag}: the probes must render K1 in the bf16 mode, and only "
+                             f"they: {r['by_mode']}")
+
+
+def phase_progressive(default_run: str) -> None:
+    """13b: the progressive container with its base finetune on phase 5's
+    configuration under the `auto` stream: its bytes against the flat
+    container of phase 5's state under the same stream, the full decode
+    phase 5's flat decode bit for bit, the base prefix's dB before (the same
+    container written without the finetune) and after, and a second
+    finetune of the same base section gives the stored books' sha256."""
+    import hashlib
+
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.coding import (compress_state_dict, progressive,
+                                                 read_raw_container)
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.quant.base_layer import finetune_base_codebooks
+
+    r = _p12_run("[13b progressive]", PROGRESSIVE_OVERRIDES)
+    _check_launches(r["launches"], "progressive path")
+    cfg, run_dir = r["cfg"], r["run_dir"]
+    container = Path(run_dir) / "model_quantized"
+    flat_img, _ = decompress.decode_run(default_run, out_path=f"{P13}_flat.png")
+    full_img, _ = decompress.decode_run(run_dir)
+    base_img, _ = decompress.decode_run(run_dir, base=True)
+    target = compress._load_image(cfg.img)
+    # the same container without the finetune: re-split what it stores (the
+    # rank labels against the sorted books split to the same hi planes)
+    stored = read_raw_container(container, PROGRESSIVE_STREAM)
+    base_entries, _ = progressive._split_entries(stored)
+    before_dir = Path(f"{P13}_progressive_no_finetune")
+    shutil.rmtree(before_dir, ignore_errors=True)
+    before_dir.mkdir(parents=True)
+    shutil.copy(Path(run_dir) / "config.json", before_dir / "config.json")
+    progressive.compress_progressive(stored, before_dir / "model_quantized", PROGRESSIVE_STREAM)
+    before_img, _ = decompress.decode_run(before_dir, base=True)
+    flat_bytes = compress_state_dict(
+        read_raw_container(Path(default_run) / "model_quantized", "plain"),
+        Path(f"{P13}_flat_{PROGRESSIVE_STREAM}"), PROGRESSIVE_STREAM)
+    mdef, mcfg = build_model_from_config(cfg)
+    grid = get_grid(*target.shape[:2], "cuda")
+    t0 = time.perf_counter()
+    again = finetune_base_codebooks(mdef, mcfg, grid, target, base_entries)
+    ft_s = time.perf_counter() - t0
+    stored_base = progressive.read_progressive(container, PROGRESSIVE_STREAM, base_only=True)
+
+    def books_sha(books):
+        h = hashlib.sha256()
+        for name in sorted(books):
+            h.update(np.ascontiguousarray(books[name]).tobytes())
+        return h.hexdigest()
+
+    run_sha = books_sha({n: stored_base[n.replace("base_centroids", "centroids")]
+                         for n in again})
+    print(f"[13b progressive] {r['bytes']} B ({r['bytes'] / flat_bytes - 1:+.2%} on the flat "
+          f"{PROGRESSIVE_STREAM} container's {flat_bytes}), base prefix "
+          f"{r['summary']['base_bytes']:.0f} B; full "
+          f"decode {'the bits of' if np.array_equal(full_img, flat_img) else 'DIFFERS FROM'} "
+          f"the flat decode, {_decoded_db(full_img, target):.3f} dB; base prefix "
+          f"{_decoded_db(before_img, target):.3f} dB before the finetune, "
+          f"{_decoded_db(base_img, target):.3f} dB after; base finetune "
+          f"{r['summary']['base_finetune_wall_s']:.3f} s in the run, {ft_s:.3f} s again; "
+          f"books sha256 {run_sha[:16]} / {books_sha(again)[:16]}", flush=True)
+    if not np.array_equal(full_img, flat_img):
+        raise AssertionError("[13b progressive] the full decode is not the flat decode")
+    if books_sha(again) != run_sha:
+        raise AssertionError("[13b progressive] two base finetunes differ")
+    if not _decoded_db(base_img, target) > _decoded_db(before_img, target):
+        raise AssertionError("[13b progressive] the base finetune did not improve the prefix")
+
+
+def phase_geometry(default_run: str) -> None:
+    """13c, 13d: from phase 5's run dir, a --scale 4 render (2048²: one K1
+    launch of 4.2 M rows), the same lattice in --tile-rows 256 bands and a
+    window of it, equal to the full render's slices bit for bit; Mpix/s of
+    each and of the launch alone; then the run packed into an .iic file,
+    whose decode is the run dir's."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch import decompress
+    from implicit_image_tpu_torch.coding import (container_file, decompress_state_dict,
+                                                 params_from_state_dict)
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    out = {}
+    for name, geo in (("scale", {}), ("bands", {"tile_rows": TILE_ROWS}),
+                      ("window", {"roi": ROI, "tile_rows": TILE_ROWS})):
+        decompress.decode_run(default_run, out_path=f"{P13}_{name}.png", scale=SCALE, **geo)
+        sm.reset_launch_counts()
+        img, stats = decompress.decode_run(default_run, out_path=f"{P13}_{name}.png",
+                                           scale=SCALE, **geo)
+        out[name] = (np.asarray(img), stats, sm.LAUNCHES["sine_mlp_fwd"])
+    full = out["scale"][0]
+    r0, r1, c0, c1 = ROI
+    side = full.shape[0]
+    cfg = json.loads(open(f"{default_run}/config.json").read())
+    mdef, mcfg = build_model_from_config(cfg)
+    params = params_from_state_dict(decompress_state_dict(
+        Path(default_run) / "model_quantized", "plain"), "cuda")
+    x = (get_grid(side, side, "cuda").reshape(-1, 2) - 0.5) * 2.0
+    launch_ms = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, "fp32"), 5)
+    del x
+    print(f"[13c geometry] --scale {SCALE}: {full.shape[0]}x{full.shape[1]} in "
+          + "; ".join(f"{n} {o[1]['render_s'] * 1e3:.2f} ms = {o[1]['mpix_per_s']:.1f} Mpix/s "
+                      f"({o[2]} K1 launches)" for n, o in out.items())
+          + f"; one K1 launch of {side * side} rows {launch_ms:.3f} ms = "
+          f"{side * side / launch_ms / 1e3:.1f} Mpix/s (the render without the host copy)",
+          flush=True)
+    if full.shape != (N_SIDE * SCALE, N_SIDE * SCALE, 3) or not np.isfinite(full).all():
+        raise AssertionError(f"[13c geometry] the render is {full.shape} or not finite")
+    if not np.array_equal(out["bands"][0], full):
+        raise AssertionError("[13c geometry] the bands are not the full render")
+    if not np.array_equal(out["window"][0], full[r0:r1, c0:c1]):
+        raise AssertionError("[13c geometry] the window is not the full render's slice")
+    if (out["scale"][2], out["bands"][2]) != (1, -(-side // TILE_ROWS)):
+        raise AssertionError(f"[13c geometry] launches {out['scale'][2]}, {out['bands'][2]}")
+
+    iic = container_file.pack_run(default_run, f"{P13}_default.iic")
+    from_file, _ = decompress.decode_run(iic)
+    from_dir, _ = decompress.decode_run(default_run, out_path=f"{P13}_dir.png")
+    print(f"[13d iic] {iic} {iic.stat().st_size} B: its decode "
+          f"{'is' if np.array_equal(from_file, from_dir) else 'IS NOT'} the run dir's, bit for "
+          "bit", flush=True)
+    if not np.array_equal(from_file, from_dir):
+        raise AssertionError("[13d iic] the packed run decodes differently")
+
+
+def phase_batched_decode() -> dict:
+    """13e: a -m sweep of SWEEP_SEEDS seeds at w128 and 2 at the finals width
+    through compress.cli at launcher.n_jobs=2, and the finals-width sweep
+    again at n_jobs=1: each member's stream is the same bytes at either. Then
+    decode_runs over each width's runs, its launches counted alone, and over
+    all of them: one K1 launch per group over its member axis, each image its
+    single decode's bits. Returns the batched launches measured per width."""
+    import hashlib
+
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    def sweep(width: int, seeds: int, n_jobs: int) -> list:
+        root = f"{P13}_sweep_w{width}_j{n_jobs}"
+        shutil.rmtree(root, ignore_errors=True)
+        t0 = time.perf_counter()
+        compress.cli(["-m", *SWEEP_COMMON, f"launcher.n_jobs={n_jobs}",
+                      f"mlp.hidden_size={width}", "seed=" + ",".join(map(str, range(seeds))),
+                      f"output_dir={root}"])
+        run_dirs = sorted(str(d) for d in Path(root).iterdir() if d.is_dir())
+        print(f"[13e sweep] w{width}: {len(run_dirs)} runs in {time.perf_counter() - t0:.2f} "
+              f"s (launcher.n_jobs={n_jobs})", flush=True)
+        return run_dirs
+
+    def stream_sha(run_dir: str) -> str:
+        data = Path(run_dir, "model_quantized", "compressed_weights.data").read_bytes()
+        return hashlib.sha256(data).hexdigest()
+
+    dirs = {WIDTH: sweep(WIDTH, SWEEP_SEEDS, 2), FINALS_WIDTH: sweep(FINALS_WIDTH, 2, 2)}
+    serial = sweep(FINALS_WIDTH, 2, 1)
+    threaded_sha = [stream_sha(d) for d in dirs[FINALS_WIDTH]]
+    serial_sha = [stream_sha(d) for d in serial]
+    print(f"[13e n_jobs] w{FINALS_WIDTH} streams at n_jobs=2 {[h[:16] for h in threaded_sha]}, "
+          f"at n_jobs=1 {[h[:16] for h in serial_sha]}", flush=True)
+    if len(serial_sha) != 2 or threaded_sha != serial_sha:
+        raise AssertionError("[13e n_jobs] the members' streams depend on launcher.n_jobs")
+
+    runs = dirs[WIDTH] + dirs[FINALS_WIDTH]
+    decompress.decode_runs(runs)  # the first call sets up
+    per_width = {}
+    for width in (WIDTH, FINALS_WIDTH):
+        sm.reset_launch_counts()
+        decompress.decode_runs(dirs[width])
+        per_width[width] = dict(sm.LAUNCHES)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    images = decompress.decode_runs(runs)
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    singles = [np.asarray(decompress.decode_run(d, out_path=f"{d}/single.png")[0]) for d in runs]
+    same = [np.array_equal(a, b) for a, b in zip(images, singles)]
+    psnrs = [json.loads(open(f"{d}/summary.json").read())["Decoded PSNR"] for d in runs]
+    print(f"[13e decode_runs] launches per width alone {per_width}; {len(runs)} runs in 2 "
+          f"groups, {seconds:.3f} s; launches {launches}; each image its single decode's "
+          f"bits: {same}; decoded PSNRs {[round(p, 3) for p in psnrs]}", flush=True)
+
+    def one_batched(counts: dict, n: int) -> bool:
+        return counts == {k: n if k == "sine_mlp_fwd_batched" else 0 for k in counts}
+
+    if not all(one_batched(c, 1) for c in per_width.values()) or not one_batched(launches, 2):
+        raise AssertionError(f"[13e decode_runs] expected one batched K1 launch per group "
+                             f"and no other launch: {per_width}, {launches}")
+    if not all(same) or not all(math.isfinite(p) for p in psnrs) or len(runs) != SWEEP_SEEDS + 2:
+        raise AssertionError("[13e decode_runs] an image is not its single decode's, or a run "
+                             "failed")
+    return {width: counts["sine_mlp_fwd_batched"] for width, counts in per_width.items()}
+
+
+def phase_profile() -> None:
+    """13f: profile=True on a 20-step dense fit: the trace in <run>/profile/
+    holds K1's and K2's device rows."""
+    from implicit_image_tpu_torch import profile_fit
+
+    r = _p12_run("[13f profile]", PROFILE_OVERRIDES)
+    trace_file = Path(r["run_dir"]) / "profile" / "trace.json"
+    rows = profile_fit.trace_breakdown(trace_file, 20)["rows"]
+    kernels = {name: [row for row in rows if name in row["name"]]
+               for name in ("sine_mlp_fwd_kernel", "sine_mlp_bwd_kernel", "sum_partials")}
+    print(f"[13f profile] {trace_file} {trace_file.stat().st_size} B; "
+          + "; ".join(f"{k}: {sum(x['count'] for x in v)} rows, "
+                      f"{sum(x['ms'] for x in v):.3f} ms" for k, v in kernels.items()), flush=True)
+    if not all(kernels.values()):
+        raise AssertionError(f"[13f profile] the trace lacks K1/K2 rows: {kernels}")
+
+
+def phase_run_tools(default_run: str) -> dict:
+    """Phase 13: the compress and decode CLIs' run tools; returns 13e's
+    batched launches per width."""
+    phase_bit_alloc("[13a bit_alloc]", ALLOC_OVERRIDES, default_run)
+    phase_bit_alloc("[13a bit_alloc finals]", ALLOC_FINALS_OVERRIDES,
+                    compress_dir(FINALS_OVERRIDES))
+    phase_progressive(default_run)
+    phase_geometry(default_run)
+    batched = phase_batched_decode()
+    phase_profile()
+    return batched
+
+
 def compress_dir(overrides) -> str:
     return next(o.split("=", 1)[1] for o in overrides if o.startswith("output_dir="))
 
@@ -1520,6 +1946,8 @@ def main() -> int:
     card = phase_card()
     phase_build()
     records = {width: phase_kernels(width) for width in KERNEL_WIDTHS_CHECKED}
+    for width in BATCH_WIDTHS:
+        records[width]["sine_mlp_fwd_batched"] = phase_batched_kernel(width)
     launches, dense_summary = phase_main_path()
     default_dir = phase_default_path(dense_summary)
     phase_presets()
@@ -1530,8 +1958,12 @@ def main() -> int:
                      **{width: phase_wide(width) for width in WIDE_OVERRIDES}}
     phase_families()
     phase_fit_options(compress_dir(SMOKE_OVERRIDES), default_dir)
+    # K1 over a member axis launches on the batched decode of phase 13 (e)
+    for width, count in phase_run_tools(default_dir).items():
+        path_launches[width]["sine_mlp_fwd_batched"] = count
 
-    sources = {"sine_mlp_fwd": 81, "sine_mlp_bwd": 128, "sine_mlp_dw": 128, "sum_partials": 179}
+    sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
+               "sine_mlp_dw": 128, "sum_partials": 179}
     from implicit_image_tpu_torch.ops.sine_mlp import kernel_width
 
     kernels = [

@@ -6,8 +6,10 @@ loop, for SIREN and CoordX:
 
     fit, dense or sparse, cold or warm from a meta-init (training/fit.py,
     training/metainit.py, sparsity/) -> k-means codebook finetune, absolute
-    or delta (training/quant_phase.py) -> container and stream backend
-    (coding/) -> decode + render
+    or delta, at one width or per layer (training/quant_phase.py,
+    quant/allocate.py) -> container, flat or progressive, and stream
+    backend (coding/, quant/base_layer.py) -> decode + render, at any
+    lattice, window or band, one run or many (decompress.py)
 
 Every SIREN forward and backward on a CUDA tensor runs through the
 hand-written Hopper kernels in `csrc/` (ops/sine_mlp.py); on a CPU tensor

@@ -20,10 +20,16 @@ residual codebooks, decoded as w = (offset + centroids[labels]) *
 (labels != 0), and the unquantized tensors named under `xor` hold the
 bit-pattern XOR against the artifact (`apply_xor_residual`, lossless).
 
-Not ported, and raising NotImplementedError: format 4 (progressive), the
-inter-frame `prev` deltas of sequences, and per-channel QAT containers.
+Format 4, the progressive container (coding/progressive.py): a base
+prefix that decodes on its own (`base_only=True`) and a refinement after
+it; read_raw_container hands either back under the flat names.
+
+Not ported, and raising NotImplementedError: the inter-frame `prev` deltas
+of sequences and per-channel QAT containers.
 `decode_and_render` renders the decoded params through the model registry
-(the fused SIREN chain, the CUDA kernel on the card, for SIREN) in fp32.
+(the fused SIREN chain, the CUDA kernel on the card, for SIREN) in fp32;
+`render_region` renders any H x W lattice, a window of it, or row bands of
+it one launch after another.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 
 from implicit_image_tpu_torch.coding.parsers import backend_names, decode_stream, encode_stream
-from implicit_image_tpu_torch.data import get_grid
+from implicit_image_tpu_torch.data import get_grid, get_grid_window
 from implicit_image_tpu_torch.training.fit import synchronize
 
 __all__ = [
@@ -51,6 +57,7 @@ __all__ = [
     "read_raw_container",
     "params_from_state_dict",
     "decode_and_render",
+    "render_region",
     "backend_names",
 ]
 
@@ -235,16 +242,19 @@ def compress_state_dict(
     return binary_file.stat().st_size
 
 
-def read_raw_container(dir_name: Union[str, Path], stream_name: str = "plain"
-                       ) -> "OrderedDict[str, np.ndarray]":
+def read_raw_container(dir_name: Union[str, Path], stream_name: str = "plain",
+                       base_only: bool = False) -> "OrderedDict[str, np.ndarray]":
     """Read a container back to the STORED per-tensor arrays (labels,
-    centroids, fp16/fp32 tensors, XOR residuals as stored)."""
+    centroids, fp16/fp32 tensors, XOR residuals as stored). A progressive
+    (format-4) container comes back under the flat names, its base prefix
+    alone with `base_only` (ignored by the other formats)."""
     dir_name = Path(dir_name)
     meta = json.loads((dir_name / "meta_data.json").read_text())
     fmt = meta.pop("__meta__", {"format": 1, "shuffle": False})
     if int(fmt.get("format", 1)) == 4:
-        raise NotImplementedError(
-            "progressive (format 4) containers are not ported yet (ROADMAP.md)")
+        from implicit_image_tpu_torch.coding.progressive import read_progressive
+
+        return read_progressive(dir_name, stream_name, base_only=base_only)
     shuffle = bool(fmt.get("shuffle", False))
     plane_group = bool(fmt.get("plane_group", False))
     meta = {int(k): v for k, v in meta.items()}
@@ -319,15 +329,15 @@ def _resolve_delta_offsets(dir_name: Path, info: Dict[str, Any],
 
 
 def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain",
-                          delta_artifact: Optional[Union[str, Path]] = None
-                          ) -> Dict[str, np.ndarray]:
+                          delta_artifact: Optional[Union[str, Path]] = None,
+                          base_only: bool = False) -> Dict[str, np.ndarray]:
     """Read the container; re-materialize weight = centroids[labels], and
     for a delta container w = (offset + centroids[labels]) * (labels != 0)
     and the XOR residuals undone (`delta_artifact` overrides where the
-    artifact is looked for). Returns float32 arrays keyed by
-    `layers.{i}.weight` etc."""
+    artifact is looked for). `base_only`: a progressive container's base
+    prefix alone. Returns float32 arrays keyed by `layers.{i}.weight` etc."""
     dir_name = Path(dir_name)
-    raw = read_raw_container(dir_name, stream_name)
+    raw = read_raw_container(dir_name, stream_name, base_only=base_only)
     fmt = json.loads((dir_name / "meta_data.json").read_text()).get("__meta__", {})
     refs: Dict[str, np.ndarray] = {}
     delta_layers: set = set()
@@ -370,12 +380,13 @@ def params_from_state_dict(state_dict: Dict[str, np.ndarray], device="cpu"
 
 def decode_and_render(dir_name: Union[str, Path], stream_name: str, mdef, mcfg,
                       height: int, width: int, device="cuda", precision: str = "fp32",
-                      delta_artifact: Optional[Union[str, Path]] = None):
+                      delta_artifact: Optional[Union[str, Path]] = None,
+                      base_only: bool = False):
     """Full decoder: container -> params -> rendered (H, W, 3) numpy image,
     through `mdef.apply` (the model registry's grid forward). Returns
     (image, stats) with host decode, upload and render seconds."""
     t0 = time.perf_counter()
-    state = decompress_state_dict(dir_name, stream_name, delta_artifact)
+    state = decompress_state_dict(dir_name, stream_name, delta_artifact, base_only=base_only)
     t1 = time.perf_counter()
     params = params_from_state_dict(state, device)
     synchronize(device)
@@ -385,3 +396,35 @@ def decode_and_render(dir_name: Union[str, Path], stream_name: str, mdef, mcfg,
         img = img.cpu().numpy()
     t3 = time.perf_counter()
     return img, {"decode_s": t1 - t0, "upload_s": t2 - t1, "render_s": t3 - t2}
+
+
+def render_region(mdef, mcfg, params, height: int, width: int,
+                  roi: Optional[Tuple[int, int, int, int]] = None, tile_rows: int = 0,
+                  precision: str = "fp32") -> np.ndarray:
+    """Render decoded params (tensors on their device) on any H x W lattice,
+    not only the fitted one; `roi = (row0, row1, col0, col1)` renders that
+    window of it, and `tile_rows > 0` renders row bands of at most that many
+    rows, one launch after another, stitched on the host (at most two bands'
+    outputs on the device at once). On the kernels every row's result is
+    independent of its place in a launch, so a window or a band equals the
+    slice of the full render bit for bit. A full-grid model (wavelet-SIREN)
+    renders its fitted lattice only and raises on any other grid."""
+    r0, r1, c0, c1 = roi if roi is not None else (0, height, 0, width)
+    if not (0 <= r0 < r1 <= height and 0 <= c0 < c1 <= width):
+        raise ValueError(f"roi {roi} out of bounds for {height}x{width}")
+    device = next(v for layer in params for v in layer.values()).device
+
+    def render(y0, y1):
+        with torch.no_grad():
+            return mdef.apply(params, get_grid_window(height, width, y0, y1, c0, c1, device),
+                              mcfg, precision)
+
+    if tile_rows <= 0 or tile_rows >= r1 - r0:
+        return render(r0, r1).cpu().numpy()
+    bands, pending = [], []
+    for y in range(r0, r1, tile_rows):
+        if len(pending) == 2:
+            bands.append(pending.pop(0).cpu().numpy())
+        pending.append(render(y, min(y + tile_rows, r1)))
+    bands.extend(b.cpu().numpy() for b in pending)
+    return np.concatenate(bands, axis=0)

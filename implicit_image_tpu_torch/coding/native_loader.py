@@ -21,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
@@ -33,6 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 Prototypes = Dict[str, Tuple[object, Sequence[object]]]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def _build(src: Path, out: Path) -> None:
@@ -53,7 +55,13 @@ def _build(src: Path, out: Path) -> None:
 
 def load_or_build(lib_name: str, src_name: str, protos: Prototypes) -> ctypes.CDLL:
     """Build (when the source changed) and load one codec library, binding
-    its prototypes; raises RuntimeError or OSError when it cannot."""
+    its prototypes; raises RuntimeError or OSError when it cannot. Threads
+    (the multirun launcher's) build it once."""
+    with _lock:
+        return _load_or_build(lib_name, src_name, protos)
+
+
+def _load_or_build(lib_name: str, src_name: str, protos: Prototypes) -> ctypes.CDLL:
     if lib_name in _loaded:
         return _loaded[lib_name]
     src = NATIVE_SRC / src_name

@@ -26,6 +26,12 @@ report (decoded PSNR, container bytes, decoded MS-SSIM).
     python -m implicit_image_tpu_torch.compress mlp.fast_sine=false
     python -m implicit_image_tpu_torch.compress mlp=hashgrid quant.skip_layers=[] \
         optim.lr=1e-2 optim.epsilon=1e-15
+    # the run tools: per-layer bit allocation, the progressive container,
+    # a profiler trace of the fit, a multirun sweep
+    python -m implicit_image_tpu_torch.compress quant.bit_alloc=auto entropy_coding=zstd
+    python -m implicit_image_tpu_torch.compress entropy_coding.progressive=true
+    python -m implicit_image_tpu_torch.compress profile=True
+    python -m implicit_image_tpu_torch.compress -m seed=0,1,2 launcher.n_jobs=2
 
 It composes its config with the port's copy of the JAX package's composer
 and YAML tree (implicit_image_tpu_torch.config), so it takes the same
@@ -48,6 +54,18 @@ from the matching artifact of assets/meta inside the measured budget, else
 cold; training/metainit.py). `quant.delta`: residual codebooks against the
 meta-init, with the unquantized tensors stored as XOR residuals
 (`entropy_coding.xor`, default on).
+`quant.bit_alloc=auto` (quant/allocate.py): per-layer codebook widths from
+measured render-MSE probes, finetuned too, adopted only if the allocation's
+(decoded PSNR, bytes) dominates the uniform one's; both probe containers stay
+in `bit_alloc_{auto,uniform}/` and summary.json records `Bit Allocation`.
+`entropy_coding.progressive=true` writes the format-4 container
+(coding/progressive.py) with its base codebooks finetuned against the image
+(`entropy_coding.base_finetune`, default on; quant/base_layer.py).
+`profile=True` writes a torch.profiler trace of the fit to
+<run>/profile/trace.json. `-m` / `--multirun` expands comma lists into one run
+per member under `<output_dir>/<overrides>`, `launcher.n_jobs` at once on
+worker threads sharing the card; a member's results do not depend on
+n_jobs.
 The run sets torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 to False: `tensorfloat32` means fp32 here,
 never NVIDIA's 1-pass TF32.
@@ -62,22 +80,24 @@ clips to a global norm; Adam ignores the Shampoo/EKFAC keys (momentum,
 weight_decay, epsilon, update_freq, graft_norm, precond_*), as in the JAX
 package, and the run logs so once.
 Not ported yet, and raising when set: optim=shampoo and
-optim.preconditioner, quantizers other than k-means, mlp=fourier and
+optim.preconditioner, quantizers other than k-means, and mlp=fourier and
 masking=Feathermap at train.matmul_precision bfloat16 or null or under
-train.mixed_precision, profile=True, multirun (-m), and the quant /
-entropy_coding options listed in _UNPORTED.
-Ignored: TPU-runtime keys with no meaning here (train.use_pallas,
-launcher.n_jobs) and the logging keys other than logging.use (no W&B
-sink).
+train.mixed_precision (so also mlp=fourier with quant.bit_alloc=auto or a
+base finetune, whose renders run JAX's default bf16 pass).
+Ignored: TPU-runtime keys with no meaning here (train.use_pallas) and the
+logging keys other than logging.use (no W&B sink).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import logging
+import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -92,7 +112,7 @@ from implicit_image_tpu_torch.coding import (
     state_ref_map,
 )
 from implicit_image_tpu_torch.coding.parsers import load_native_codecs
-from implicit_image_tpu_torch.config import DotDict, compose
+from implicit_image_tpu_torch.config import DotDict, compose, expand_multirun
 from implicit_image_tpu_torch.data import (
     get_grid,
     load_img,
@@ -101,20 +121,20 @@ from implicit_image_tpu_torch.data import (
     synthetic_image,
 )
 from implicit_image_tpu_torch.models import build_model_from_config
+from implicit_image_tpu_torch.ops.sine_mlp import precision_from_config
 from implicit_image_tpu_torch.ops.ssim import ms_ssim
-from implicit_image_tpu_torch.quant import QuantConfig
+from implicit_image_tpu_torch.quant import QuantConfig, quantized_layer_indices
 from implicit_image_tpu_torch.sparsity import MaskingConfig
-from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit, synchronize
 from implicit_image_tpu_torch.training.quant_phase import quant_finetune
-from implicit_image_tpu_torch.utils import MetricsLogger, catch_error_decorator
+from implicit_image_tpu_torch.utils import MetricsLogger, annotate, catch_error_decorator, trace
 
 log = logging.getLogger("implicit_image_tpu_torch")
 
-# (config section, key, value that means "off") for options not ported yet
-_UNPORTED = (
-    ("quant", "bit_alloc", "none"),
-    ("entropy_coding", "progressive", False),
-)
+# the kernels' mode of a render the JAX package runs with no precision
+# context around it (the bit allocation's probes, the base finetune): JAX's
+# default, one bf16 pass on the TPU
+_JAX_DEFAULT_PRECISION = precision_from_config(None)
 
 # the OptimConfig keys that Adam does not read, in either package
 _ADAM_IGNORES = ("momentum", "weight_decay", "epsilon", "update_freq", "graft_norm",
@@ -141,15 +161,6 @@ _MASKING_FIELDS = {
     "name",
     "mask_path",
 }
-
-
-def _check_ported(cfg) -> None:
-    for section, key, off in _UNPORTED:
-        val = (cfg.get(section) or {}).get(key, off)
-        if val not in (off, None, False):
-            raise NotImplementedError(f"{section}.{key}={val!r} is not ported yet")
-    if cfg.get("profile", False):
-        raise NotImplementedError("profile=True is not ported yet")
 
 
 def _load_image(img_cfg) -> np.ndarray:
@@ -183,6 +194,39 @@ def _resolve_pixel_chunks(raw, h: int, w: int) -> int:
 def _half_policy(ec):
     half = ec.get("half", "auto")
     return {"auto": "auto", True: True, False: False, "true": True, "false": False}[half]
+
+
+def _decoded_psnr(img, dec_img) -> float:
+    err = float(np.mean((np.asarray(dec_img, np.float64) - np.asarray(img, np.float64)) ** 2))
+    return float(10.0 * np.log10(1.0 / max(err, 1e-12)))
+
+
+def _auto_alloc_dominates(cfg, qres_auto, qres_uniform, mdef, mcfg, img, run_dir,
+                          device) -> bool:
+    """quant.bit_alloc=auto's post-finetune A/B: adopt the per-layer
+    allocation only if its (decoded PSNR, container bytes) dominates the
+    uniform codebooks' on the run's own stream; without a stream, by quant
+    PSNR. Both probe containers stay in the run dir (`bit_alloc_{auto,
+    uniform}/`); the winner is written to model_quantized/ by the coding
+    stage."""
+    ec = cfg.get("entropy_coding")
+    if not ec or ec.get("stream_name", "none") == "none":
+        return qres_auto.metrics["quant_psnr"] >= qres_uniform.metrics["quant_psnr"]
+    h, w = img.shape[:2]
+
+    def point(qr, tag):
+        state = linear_state_dict(qr.params, qr.codebooks, half=_half_policy(ec))
+        d = Path(run_dir) / f"bit_alloc_{tag}"
+        nbytes = compress_state_dict(state, d, ec.stream_name, level=int(ec.get("level", 22)))
+        dec, _ = decode_and_render(d, ec.stream_name, mdef, mcfg, h, w, device=device,
+                                   precision="fp32")
+        return _decoded_psnr(img, dec), nbytes
+
+    db_a, by_a = point(qres_auto, "auto")
+    db_u, by_u = point(qres_uniform, "uniform")
+    log.info("bit_alloc A/B: auto %.3f dB @ %d B vs uniform %.3f dB @ %d B",
+             db_a, by_a, db_u, by_u)
+    return db_a >= db_u and by_a <= by_u
 
 
 def _optim_config(cfg) -> OptimConfig:
@@ -291,7 +335,6 @@ def _warm_start(cfg, mdef, mcfg, num_steps: int, device):
 def main(cfg: DotDict, run_dir: Optional[str] = None) -> Tuple[float, int]:
     """Run the compress pipeline; returns (decoded PSNR, compressed bytes)
     — the quant PSNR (or the fit PSNR) when no container is written."""
-    _check_ported(cfg)
     device = torch.device(cfg.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but no CUDA device is available")
@@ -375,8 +418,13 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
     log.info("fit: %s on %s (%dx%d), %d steps, masking=%s, device %s",
              cfg.mlp.name, cfg.img.name, h, w, num_steps,
              (cfg.get("masking") or {}).get("name", "none"), device)
-    res = fit(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking,
-              init_params=init_params, device=device, **fit_kwargs)
+    with contextlib.ExitStack() as stack:
+        if cfg.get("profile", False):
+            # a torch.profiler trace of the fit, <run>/profile/trace.json
+            stack.enter_context(trace(str(Path(run_dir) / "profile")))
+            stack.enter_context(annotate("fit"))
+        res = fit(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking,
+                  init_params=init_params, device=device, **fit_kwargs)
     test_psnr = float("nan")
     # [first_step, end_step): the executed window (a resume starts late, an
     # early stop ends early)
@@ -423,18 +471,48 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
                 )
             delta_info = {"artifact": str(init_path),
                           "sha256": hashlib.sha256(Path(init_path).read_bytes()).hexdigest()}
-        qres = quant_finetune(params, img, mdef, mcfg, grid, quant_cfg,
-                              optim_cfg, precision=train_cfg.precision,
-                              pixel_chunks=train_cfg.pixel_chunks,
-                              masks=res.mask_state.masks if res.mask_state else None,
-                              offset_params=init_params if delta_info is not None else None)
+        quant_kwargs = dict(precision=train_cfg.precision, pixel_chunks=train_cfg.pixel_chunks,
+                            masks=res.mask_state.masks if res.mask_state else None,
+                            offset_params=init_params if delta_info is not None else None)
+        qres = quant_finetune(params, img, mdef, mcfg, grid, quant_cfg, optim_cfg,
+                              **quant_kwargs)
+        quant_wall = qres.wall_seconds
+        if str(quant_raw.get("bit_alloc", "none")) == "auto" and quant_cfg.bits_per_layer is None:
+            # per-layer widths (quant/allocate.py), finetuned too, adopted only
+            # if the allocation dominates the uniform codebooks end to end
+            from implicit_image_tpu_torch.quant.allocate import allocate_bits
+
+            t0 = time.perf_counter()
+            report = allocate_bits(mdef, mcfg, params, grid, img, quant_cfg,
+                                   precision=_JAX_DEFAULT_PRECISION)
+            synchronize(device)
+            alloc_s = time.perf_counter() - t0
+            chosen = quant_cfg
+            if not report.chosen_uniform:
+                auto_cfg = dataclasses.replace(quant_cfg, bits_per_layer=report.bits_per_layer)
+                qres_auto = quant_finetune(params, img, mdef, mcfg, grid, auto_cfg, optim_cfg,
+                                           **quant_kwargs)
+                quant_wall += qres_auto.wall_seconds
+                adopt = _auto_alloc_dominates(cfg, qres_auto, qres, mdef, mcfg, img, run_dir,
+                                              device)
+                if adopt:
+                    qres, chosen = qres_auto, auto_cfg
+                log.info("bit_alloc=auto: %s allocation %s",
+                         "adopted" if adopt else "rejected (uniform dominates)",
+                         report.bits_per_layer)
+            quant_cfg = chosen
+            qset = set(quantized_layer_indices(params, chosen))
+            effective = chosen.bits_per_layer or tuple(
+                chosen.bits if i in qset else None for i in range(len(params)))
+            logger.summary({"Bit Allocation": [-1 if b is None else b for b in effective],
+                            "bit_alloc_search_s": alloc_s})
         if delta_info is not None:
             delta_info["layers"] = [i for i, cb in enumerate(qres.codebooks) if cb is not None]
         qpsnr = qres.metrics["quant_psnr"]
         logger.log(num_steps, {"Quant PSNR": qpsnr,
                                "Quant PSNR_8bit": qres.metrics["quant_psnr_8bit"]},
                    prefix="Quant")
-        logger.summary({"Quant PSNR": qpsnr, "quant_wall_s": qres.wall_seconds})
+        logger.summary({"Quant PSNR": qpsnr, "quant_wall_s": quant_wall})
         test_psnr = qpsnr
 
     if cfg.train.get("save_weights", True):
@@ -455,23 +533,40 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         state = linear_state_dict(qres.params if qres else params,
                                   qres.codebooks if qres else None,
                                   half=_half_policy(ec))
+        refmap = None
         if delta_info is not None and bool(ec.get("xor", True)):
             # lossless XOR residual of the unquantized tensors against the
             # meta-init (entropy_coding.xor=false opts out)
-            state, delta_info["xor"] = apply_xor_residual(state, state_ref_map(init_params))
+            refmap = state_ref_map(init_params)
+            state, delta_info["xor"] = apply_xor_residual(state, refmap)
         container = Path(run_dir) / "model_quantized"
-        compressed_bytes = compress_state_dict(state, container, ec.stream_name,
-                                               delta=delta_info, level=int(ec.get("level", 22)))
-        encode_s = time.perf_counter() - t0
-        log.info("Compressed bytes %d (%s)", compressed_bytes, ec.stream_name)
+        level = int(ec.get("level", 22))
+        ft_wall = []  # the base finetune's seconds, kept out of the encode wall
+        if ec.get("progressive", False):
+            base_ft, ft_wall = _base_finetune(ec, mdef, mcfg, grid, img, delta_info, refmap,
+                                              init_params, device)
+            from implicit_image_tpu_torch.coding.progressive import base_bytes, compress_progressive
+
+            compressed_bytes = compress_progressive(state, container, ec.stream_name,
+                                                    base_finetune=base_ft, delta=delta_info,
+                                                    level=level)
+            prefix = base_bytes(container)
+            log.info("Compressed bytes %d (progressive: base prefix %d%s)", compressed_bytes,
+                     prefix, ", delta" if delta_info is not None else "")
+            logger.summary({"base_bytes": prefix, **({"base_finetune_wall_s": ft_wall[0]}
+                                                     if ft_wall else {})})
+        else:
+            compressed_bytes = compress_state_dict(state, container, ec.stream_name,
+                                                   delta=delta_info, level=level)
+            log.info("Compressed bytes %d (%s)", compressed_bytes, ec.stream_name)
+        encode_s = time.perf_counter() - t0 - sum(ft_wall)
 
         t0 = time.perf_counter()
         dec_img, _ = decode_and_render(container, ec.stream_name, mdef, mcfg, h, w,
                                        device=device, precision="fp32")
         decode_s = time.perf_counter() - t0
         dec64 = np.asarray(dec_img, np.float64)
-        dec_mse = float(np.mean((dec64 - img) ** 2))
-        decoded_psnr = float(10.0 * np.log10(1.0 / max(dec_mse, 1e-12)))
+        decoded_psnr = _decoded_psnr(img, dec64)
         mse8 = float(np.mean((np.trunc(dec64 * 255.0)
                               - np.trunc(np.asarray(img, np.float64) * 255.0)) ** 2))
         decoded_psnr8 = float(10.0 * np.log10(255.0**2 / max(mse8, 1e-12)))
@@ -492,14 +587,73 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
     return test_psnr, compressed_bytes
 
 
+def _base_finetune(ec, mdef, mcfg, grid, img, delta_info, refmap, init_params, device):
+    """(the progressive container's base_finetune callable or None, a list
+    that receives its wall seconds): entropy_coding.base_finetune, on by
+    default, trains the base codebooks against the image (quant/base_layer.py)
+    in JAX's default bf16 pass; on a delta stream the residual books against
+    the base decode's rule, on the fp tensors un-XORed (XOR is a storage
+    transform; the finetune renders real weights)."""
+    if not ec.get("base_finetune", True):
+        return None, []
+    from implicit_image_tpu_torch.coding import _xor_arrays
+    from implicit_image_tpu_torch.quant.base_layer import finetune_base_codebooks
+
+    extra = {}
+    if delta_info is not None:
+        extra = {"delta_layers": list(delta_info["layers"]),
+                 "delta_offsets": {i: init_params[i]["w"].detach().cpu().numpy()
+                                   for i in delta_info["layers"]}}
+    walls = []
+
+    def base_ft(entries):
+        if refmap is not None:
+            entries = dict(entries)
+            for name in delta_info["xor"]:
+                if name in entries:
+                    entries[name] = _xor_arrays(entries[name], refmap[name])
+        t0 = time.perf_counter()
+        books = finetune_base_codebooks(mdef, mcfg, grid, img, entries,
+                                        precision=_JAX_DEFAULT_PRECISION, **extra)
+        synchronize(device)
+        walls.append(time.perf_counter() - t0)
+        return books
+
+    return base_ft, walls
+
+
+def _run_job(overrides, multirun: bool):
+    cfg = compose(overrides)
+    subdir = ",".join(overrides).replace("/", "_") or "default"
+    run_dir = cfg.get("output_dir", "outputs/run")
+    if multirun:
+        run_dir = os.path.join(run_dir, subdir)
+    psnr, nbytes = main(cfg, run_dir=run_dir)
+    return subdir, psnr, nbytes
+
+
 @catch_error_decorator
 def cli(argv=None) -> None:
+    """`python -m implicit_image_tpu_torch.compress [overrides]`; with -m /
+    --multirun every member of the comma lists' product runs into its own
+    `<output_dir>/<overrides>`, launcher.n_jobs at once on worker threads
+    (the JAX package's launcher: they share the one card)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "-m" in argv or "--multirun" in argv:
-        raise NotImplementedError("multirun (-m) is not ported yet; run one job at a time")
-    psnr, nbytes = main(compose(argv))
-    print(f"RESULT PSNR={psnr:.4f} COMPRESSED_BYTES={nbytes}")
+    multirun = "-m" in argv or "--multirun" in argv
+    argv = [a for a in argv if a not in ("-m", "--multirun")]
+    jobs = expand_multirun(argv) if multirun else [argv]
+    n_jobs = int((compose(jobs[0]).get("launcher") or {}).get("n_jobs", 1)) if jobs else 1
+    threads = n_jobs > 1 and len(jobs) > 1
+    results = []
+    with ThreadPoolExecutor(max_workers=n_jobs) if threads else contextlib.nullcontext() as pool:
+        for subdir, psnr, nbytes in (pool.map if threads else map)(
+                lambda job: _run_job(job, multirun), jobs):
+            print(f"[{subdir}] PSNR={psnr:.3f} bytes={nbytes}")
+            results.append((psnr, nbytes))
+    if len(results) == 1:
+        psnr, nbytes = results[0]
+        print(f"RESULT PSNR={psnr:.4f} COMPRESSED_BYTES={nbytes}")
 
 
 if __name__ == "__main__":

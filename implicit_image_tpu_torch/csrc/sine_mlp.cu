@@ -86,6 +86,21 @@
 // group sums are added in group order (sum_partials_reference in
 // ops/sine_mlp.py adds in the same order). The design is at the kernel.
 //
+// Over a member axis (sine_mlp_fwd_batched): the forward of M models of one
+// shape in one launch, the counterpart of the jax.vmap over the render that
+// decode_runs compiles. The grid's y dimension indexes the member; member
+// m's packed weights sit m member-strides after member 0's, its x at m
+// x-strides (0: one x for all) and its out at m * n * out floats. Each
+// block runs the single launch's code on its member's operands, so every
+// row takes the single launch's k-step order: M single launches' bits. It is
+// a template instantiation of each forward (MB), so the single launch's
+// code is the one it was; the fp32 and bf16 modes have one, mixed precision
+// (a training mode; decoders render fp32) none.
+//
+// Rows: the kernels index rows with int (tile * T, row0 + r), so a launch
+// takes at most kMaxRows = INT_MAX - 127 rows (n + T - 1 must not wrap);
+// the launchers refuse more, and ops/sine_mlp.py raises before them.
+//
 // Every launcher returns the cudaError_t of its launch (0 on success).
 //
 // The library is this file compiled in parts, all at once, and linked
@@ -96,6 +111,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -109,6 +125,7 @@ constexpr int T = 128;          // pixel rows per tile
 constexpr int BUF = T * H;      // floats in one shared matrix buffer
 constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
 constexpr int MAX_IO = 8;       // largest input / output width
+constexpr int kMaxRows = INT_MAX - 127;  // rows a forward launch takes (see the top)
 static_assert(T == H, "one buffer size serves activations and weights");
 
 // The geometry of a kernel width: HW hidden units, TR pixel rows per tile,
@@ -156,6 +173,21 @@ struct Chain {
   int n, in_size, out_size, depth;
   float omega0, omega_h;
 };
+
+// A batched forward's block of member blockIdx.y: its weights (packed at the
+// kernel width HW, as a single launch takes them), x at x_stride floats per
+// member and out at n * out_size.
+template <int HW, class PX, class PO>
+__device__ __forceinline__ void to_member(Chain& c, PX& x, PO& out, long long x_stride) {
+  const long long m = blockIdx.y;
+  c.w0 += m * c.in_size * HW;
+  c.wm += m * (c.depth > 2 ? c.depth - 2 : 1) * (long long)HW * HW;
+  c.wl += m * HW * c.out_size;
+  c.bs += m * (c.depth - 1) * HW;
+  c.bl += m * c.out_size;
+  x += m * x_stride;
+  out += m * c.n * (long long)c.out_size;
+}
 
 template <bool BF16>
 __device__ __forceinline__ float rnd(float v) {
@@ -633,9 +665,11 @@ __device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
 // and the two mbarriers.
 constexpr size_t kFwdSmem = sizeof(float) * (3 * BUF + T * MAX_IO) + 2 * sizeof(uint64_t);
 
-template <bool BF16, bool MX>
+template <bool BF16, bool MX, bool MB>
 __global__ void __launch_bounds__(THREADS, 1)
-sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out) {
+sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out,
+                    long long x_stride) {
+  if constexpr (MB) to_member<H>(c, x, out, x_stride);
   extern __shared__ float4 smem4[];
   float* w_s0 = reinterpret_cast<float*>(smem4);
   float* a_s = w_s0 + 2 * BUF;
@@ -1069,10 +1103,12 @@ __device__ __forceinline__ void ring_product(Acc acc, const float* __restrict__ 
 
 // Shared memory: the ring, the activation tile, the input tile, the ring's
 // mbarriers.
-template <bool BF16, bool MX, class G>
+template <bool BF16, bool MX, class G, bool MB>
 __global__ void __launch_bounds__(G::THREADS, 1)
-sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out) {
+sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out,
+                         long long x_stride) {
   constexpr int HW = G::H, NB = G::NB;
+  if constexpr (MB) to_member<HW>(c, x, out, x_stride);
   extern __shared__ float4 smem4[];
   float* ring_s = reinterpret_cast<float*>(smem4);
   float* a_s = ring_s + NB * G::SLICE;
@@ -1484,7 +1520,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // Raise the kernel's shared-memory limit, launch it, and return the launch's
 // error.
 template <typename... P, typename... A>
-cudaError_t launch(void (*kernel)(P...), int grid, int threads, size_t smem, cudaStream_t s,
+cudaError_t launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem, cudaStream_t s,
                    A... args) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1506,7 +1542,7 @@ int sm_count(int* sms) {
 #define SINE_MLP_FWD_WIDE_ARGS                                                               \
   const float *x, const float *w0, const float *wm, const float *wl, const float *bs,         \
       const float *bl, float *out, int n, int in_size, int out_size, int depth, float omega0, \
-      float omega_h, int bf16, int sms, void *stream
+      float omega_h, int bf16, int sms, int members, long long x_stride, void *stream
 #define SINE_MLP_BWD_WIDE_ARGS                                                                \
   const float *x, const float *g, const float *w0, const float *wm, const float *wmt,          \
       const float *wl, const float *bs, float *dx, float *z, float *partials, float *dw_a,      \
@@ -1552,19 +1588,27 @@ int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
   });
 }
 #else
-// One persistent block per SM, at most one per tile of the forward's rows.
+// One persistent block per SM, at most one per tile of the forward's rows,
+// for each of `members` members (grid y; the batched instantiation above 1).
 int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
   using G = GW::fwd;
   const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
                              omega_h);
   const int tiles = (n + G::T - 1) / G::T;
-  const int grid = tiles < sms ? tiles : sms;
+  const dim3 grid(tiles < sms ? tiles : sms, members);
   constexpr size_t smem = fwd_wide_smem<G>();
   static_assert(smem <= kMaxSmem, "the forward's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
-    return launch(sine_mlp_fwd_wide_kernel<decltype(bf)::value, decltype(mx)::value, G>, grid,
-                  G::THREADS, smem, s, c, x, out);
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    if constexpr (MXV) {  // mixed precision has no batched instantiation
+      if (members > 1) return cudaErrorInvalidValue;
+    } else if (members > 1) {
+      return launch(sine_mlp_fwd_wide_kernel<BF, false, G, true>, grid, G::THREADS, smem, s, c,
+                    x, out, x_stride);
+    }
+    return launch(sine_mlp_fwd_wide_kernel<BF, MXV, G, false>, grid, G::THREADS, smem, s, c, x,
+                  out, x_stride);
   });
 }
 #endif
@@ -1602,35 +1646,49 @@ int sine_mlp_tile_rows(int hidden) {
 }
 int sine_mlp_max_io() { return MAX_IO; }
 
-// One persistent block per SM (at most one per tile). hidden: the kernel
-// width the weights are padded to.
-int sine_mlp_fwd(const float* x, const float* w0, const float* wm, const float* wl,
-                 const float* bs, const float* bl, float* out, int n, int in_size,
-                 int out_size, int depth, int hidden, float omega0, float omega_h, int bf16,
-                 void* stream) {
-  if (n <= 0) return 0;
+// The forward of `members` models of one shape (grid y; see the top), x at
+// x_stride floats per member (0: shared); one member launches the single
+// instantiation (sine_mlp_fwd). One persistent block per SM (at
+// most one per tile) for each member. hidden: the kernel width the weights
+// are padded to. At most kMaxRows rows and 65,535 members; more than one
+// member in a mixed-precision mode returns cudaErrorInvalidValue.
+int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const float* wl,
+                         const float* bs, const float* bl, float* out, int members,
+                         long long x_stride, int n, int in_size, int out_size, int depth,
+                         int hidden, float omega0, float omega_h, int bf16, void* stream) {
+  if (n <= 0 || members <= 0) return 0;
   const int rows = sine_mlp_tile_rows(hidden);
-  if (rows == 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0 || n > kMaxRows || members > 65535 || x_stride < 0)
+    return (int)cudaErrorInvalidValue;
   int sms = 0;
   if (const int err = sm_count(&sms)) return err;
   switch (hidden) {
-#define SINE_MLP_FWD_CASE(W, TR, KS, NB, FTR, FKS, FNB)                                              \
-  case W:                                                                                      \
+#define SINE_MLP_FWD_CASE(W, TR, KS, NB, FTR, FKS, FNB)                                        \
+  case W:                                                                                \
     return sine_mlp_fwd_w##W(x, w0, wm, wl, bs, bl, out, n, in_size, out_size, depth, omega0, \
-                             omega_h, bf16, sms, stream);
+                             omega_h, bf16, sms, members, x_stride, stream);
     SINE_MLP_WIDE_GEOS(SINE_MLP_FWD_CASE)
 #undef SINE_MLP_FWD_CASE
   }
   const int tiles = (n + rows - 1) / rows;
-  const int grid = tiles < sms ? tiles : sms;
+  const dim3 grid(tiles < sms ? tiles : sms, members);
   const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
                              omega_h);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
-    return launch(sine_mlp_fwd_kernel<decltype(bf)::value, decltype(mx)::value>, grid, THREADS,
-                  kFwdSmem, s, c, x, out);
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    if constexpr (MXV) {  // mixed precision has no batched instantiation
+      if (members > 1) return cudaErrorInvalidValue;
+    } else if (members > 1) {
+      return launch(sine_mlp_fwd_kernel<BF, false, true>, grid, THREADS, kFwdSmem, s, c, x, out,
+                    x_stride);
+    }
+    return launch(sine_mlp_fwd_kernel<BF, MXV, false>, grid, THREADS, kFwdSmem, s, c, x, out,
+                  x_stride);
   });
 }
+
+int sine_mlp_max_rows() { return kMaxRows; }
 
 // The width-128 backward. partials: (grid, n_part) floats, n_part a multiple
 // of 4 (16-byte aligned slices); z_scratch: (grid, max(depth-3, 1), T,

@@ -18,6 +18,7 @@ import torch
 __all__ = [
     "load_img",
     "get_grid",
+    "get_grid_window",
     "unit_linspace",
     "synthetic_image",
     "stable_seed",
@@ -191,6 +192,21 @@ def get_grid(height: int, width: int, device="cpu") -> torch.Tensor:
     gh = ch[:, None].expand(height, width)
     gw = cw[None, :].expand(height, width)
     return torch.stack([gh, gw], dim=-1)
+
+
+def get_grid_window(height: int, width: int, row0: int, row1: int, col0: int, col1: int,
+                    device="cpu") -> torch.Tensor:
+    """The grid of the window [row0, row1) x [col0, col1) of the H x W lattice:
+    bit-identical to `get_grid(height, width)[row0:row1, col0:col1]` without
+    building the full grid, and still a tensor product (separable models keep
+    their grid path on windows)."""
+    if not (0 <= row0 < row1 <= height and 0 <= col0 < col1 <= width):
+        raise ValueError(f"window [{row0},{row1})x[{col0},{col1}) out of bounds for "
+                         f"{height}x{width}")
+    ch = unit_linspace(height, device)[row0:row1]
+    cw = unit_linspace(width, device)[col0:col1]
+    hh, ww = row1 - row0, col1 - col0
+    return torch.stack([ch[:, None].expand(hh, ww), cw[None, :].expand(hh, ww)], dim=-1)
 
 
 def synthetic_image(

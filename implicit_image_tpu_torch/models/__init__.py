@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 __all__ = ["ModelDef", "registry", "build_model", "build_model_from_config"]
 
@@ -30,6 +30,10 @@ class ModelDef:
     # (wavelet_siren, whose sub-SIRENs run on their own DWT lattices): the
     # fit then takes no pixel chunks
     full_grid: bool = False
+    # (members, grid, cfg, precision) -> (M, H, W, out): M params tuples of one
+    # shape rendered together (SIREN: one K1 launch over a member axis);
+    # None where the family renders member by member (decompress.decode_runs)
+    apply_batched: Optional[Callable] = None
 
 
 def _siren_def() -> ModelDef:
@@ -37,10 +41,12 @@ def _siren_def() -> ModelDef:
         SirenConfig,
         init_siren,
         siren_apply,
+        siren_apply_batched,
         siren_apply_flat,
     )
 
-    return ModelDef("siren", SirenConfig, init_siren, siren_apply, siren_apply_flat)
+    return ModelDef("siren", SirenConfig, init_siren, siren_apply, siren_apply_flat,
+                    apply_batched=siren_apply_batched)
 
 
 def _coordx_def() -> ModelDef:

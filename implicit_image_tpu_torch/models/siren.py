@@ -7,8 +7,8 @@ copy across unchanged (convert.py). Init bounds are the reference's:
   * first layer weights  ~ U(±1/fan_in)
   * hidden layer weights ~ U(±sqrt(6/fan_in)/ω₀)
   * biases ~ U(±1/sqrt(fan_in))
-drawn from an explicit torch.Generator (so they differ from jax.random's
-draws for the same seed — tests copy weights instead).
+drawn from an explicit torch.Generator (so they differ from what
+jax.random draws for the same seed — tests copy weights instead).
 
 The forward with the polynomial sine (the default) runs through the fused
 chain of ops/sine_mlp.py: the CUDA kernels for a CUDA tensor, the plain
@@ -26,9 +26,13 @@ from typing import Sequence, Tuple
 import torch
 
 from implicit_image_tpu_torch.ops.precision import matmul, maybe_cast, modes
-from implicit_image_tpu_torch.ops.sine_mlp import siren_apply_flat_fused
+from implicit_image_tpu_torch.ops.sine_mlp import (
+    siren_apply_flat_batched,
+    siren_apply_flat_fused,
+)
 
-__all__ = ["SirenConfig", "init_siren", "siren_apply", "siren_apply_flat"]
+__all__ = ["SirenConfig", "init_siren", "siren_apply", "siren_apply_flat",
+           "siren_apply_batched"]
 
 Params = Tuple[dict, ...]
 
@@ -116,3 +120,19 @@ def siren_apply(
     """Forward over an (H, W, input_size) grid -> (H, W, output_size)."""
     h, w, c = grid.shape
     return siren_apply_flat(params, grid.reshape(h * w, c), cfg, precision).reshape(h, w, -1)
+
+
+def siren_apply_batched(members: Sequence[Params], grid: torch.Tensor, cfg: SirenConfig,
+                        precision: str = "fp32") -> torch.Tensor:
+    """Forward of M params tuples of one shape over one (H, W, input_size)
+    grid -> (M, H, W, output_size), no gradient: with the polynomial sine one
+    K1 launch over the member axis on the card (the plain chain per member on
+    the CPU), each member the bits of its own `siren_apply`; with the exact
+    sine, member by member."""
+    h, w, c = grid.shape
+    coords = grid.reshape(h * w, c)
+    if cfg.fast_sine:
+        out = siren_apply_flat_batched(members, coords, cfg, precision)
+    else:
+        out = torch.stack([_siren_apply_flat_exact(p, coords, cfg, precision) for p in members])
+    return out.reshape(len(members), h, w, -1)

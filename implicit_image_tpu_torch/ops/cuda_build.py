@@ -17,14 +17,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS
 
-__all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "ptxas_report"]
+__all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "ptxas_report", "ptxas_table"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -43,9 +45,11 @@ _SIGNATURES = {
     "sine_mlp_kernel_width": ([_I], _I),
     "sine_mlp_tile_rows": ([_I], _I),
     "sine_mlp_max_io": ([], _I),
-    # x, w0, wm, wl, bs, bl, out, n, in, out, depth, hidden, omega0, omega_h,
-    # bf16, stream
-    "sine_mlp_fwd": ([_P] * 7 + [_I] * 5 + [_F, _F, _I, _P], _I),
+    # x, w0, wm, wl, bs, bl, out, members, x_stride, n, in, out, depth,
+    # hidden, omega0, omega_h, bf16, stream (one member: the single launch)
+    "sine_mlp_fwd_batched": ([_P] * 7 + [_I, ctypes.c_longlong] + [_I] * 5
+                             + [_F, _F, _I, _P], _I),
+    "sine_mlp_max_rows": ([], _I),
     # x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, grid, n_part, n, in,
     # out, depth, hidden, omega0, omega_h, bf16, stream
     "sine_mlp_bwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _I, _P], _I),
@@ -59,6 +63,7 @@ _SIGNATURES = {
 }
 
 _state = {"lib": None, "ptxas": ""}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -119,9 +124,15 @@ def build(src_dir: Path, out: Path) -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (when the sources changed) and load the kernel library."""
+    """Build (when the sources changed) and load the kernel library; threads
+    (the multirun launcher's) build it once."""
     if _state["lib"] is not None:
         return _state["lib"]
+    with _lock:
+        return _state["lib"] or _load()
+
+
+def _load() -> ctypes.CDLL:
     path = BUILD_DIR / f"libiit_{_source_hash()}.so"
     if not path.is_file():
         _state["ptxas"] = build(CSRC, path)
@@ -138,3 +149,30 @@ def ptxas_report() -> str:
     """ptxas's register / shared-memory / spill report of the last build in
     this process ("" when the library was already built)."""
     return _state["ptxas"]
+
+
+def ptxas_table(report: str) -> dict:
+    """A ptxas -v report -> {function: {"registers", "spill_stores",
+    "spill_loads"}}, each function under its demangled name (cu++filt from
+    the toolkit; the mangled name where it is absent)."""
+    table, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            table.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            table[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name]["registers"] = int(m[1])
+    names = list(table)
+    filt = Path(_nvcc()).with_name("cu++filt")
+    if names and filt.is_file():
+        out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        if len(out) == len(names):
+            return {d: table[n] for n, d in zip(names, out)}
+    return table

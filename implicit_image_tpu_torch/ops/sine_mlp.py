@@ -4,6 +4,10 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 
   * `sine_mlp_fwd` (csrc/sine_mlp.cu) <- `_fwd_kernel` / `_fwd_call`: the
     whole chain for a tile of pixel rows, activations kept on chip.
+    `sine_mlp_fwd_batched` launches it once over a member axis (M models of
+    one shape, grid y): the counterpart of the jax.vmap over the render that
+    the JAX package's decode_runs compiles; each member's rows come out with
+    the bits of a single launch.
   * `sine_mlp_bwd` + `sum_partials`   <- `_bwd_kernel` / `_bwd_call`: the
     rematerializing backward. The TPU accumulated dW/db across sequential
     grid steps; on the card each block of a fixed grid writes its own
@@ -29,6 +33,7 @@ Side by side in this module:
   * `siren_chain_reference` / `siren_chain_backward_reference` — the
     plain-torch versions of the same math (the backward recomputes the
     forward and mirrors the kernel step for step);
+    `siren_chain_reference_batched` the batched forward's, member by member;
   * `sum_partials_reference` — the partial sum in the kernel's order of
     additions (row groups, then the groups in order), equal to the kernel
     bit for bit on the card; only the tests and chip_smoke.py call it;
@@ -65,6 +70,7 @@ they round the activations and ga; the wrappers round the rest.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -81,13 +87,17 @@ __all__ = [
     "precision_from_config",
     "siren_chain_reference",
     "siren_chain_backward_reference",
+    "siren_chain_reference_batched",
     "SineMLPFunction",
     "siren_apply_flat_fused",
+    "siren_apply_flat_batched",
     "KERNEL_TILE_ROWS",
     "KERNEL_WIDTHS",
     "kernel_width",
     "partial_layout",
+    "MAX_ROWS",
     "sine_mlp_fwd",
+    "sine_mlp_fwd_batched",
     "sine_mlp_bwd",
     "dw_row_splits",
     "siren_chain_dw_operands",
@@ -116,7 +126,8 @@ _PRECISION_OF = {
 # LAUNCHES by kernel, LAUNCHES_BY_MODE by kernel and product mode (a
 # "+mixed" launch counts under its mode; sum_partials under the mode of the
 # backward it sums)
-LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sine_mlp_dw": 0, "sum_partials": 0}
+LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_fwd_batched": 0, "sine_mlp_bwd": 0,
+            "sine_mlp_dw": 0, "sum_partials": 0}
 LAUNCHES_BY_MODE = {k: {m: 0 for m in PRECISIONS} for k in LAUNCHES}
 
 # the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
@@ -125,6 +136,12 @@ LAUNCHES_BY_MODE = {k: {m: 0 for m in PRECISIONS} for k in LAUNCHES}
 # runs on the first width that is >= h, zero-padded to it
 KERNEL_TILE_ROWS = {128: 128, 192: 64, 256: 64, 512: 32}
 KERNEL_WIDTHS = tuple(KERNEL_TILE_ROWS)
+
+# kMaxRows of csrc/sine_mlp.cu (the library's sine_mlp_max_rows(), which the
+# card tests and chip_smoke.py hold equal to it): the most
+# pixel rows one forward launch takes; its row indices are int, and n + 127
+# must not wrap
+MAX_ROWS = 2**31 - 128
 
 # kSumGroups of csrc/sine_mlp.cu (the library's sum_partials_groups()): the
 # row groups of the partial-sum kernel's fixed order
@@ -138,9 +155,13 @@ def reset_launch_counts() -> None:
             LAUNCHES_BY_MODE[k][m] = 0
 
 
+_count_lock = threading.Lock()  # multirun members launch from worker threads
+
+
 def _count(kernel: str, bf16: bool) -> None:
-    LAUNCHES[kernel] += 1
-    LAUNCHES_BY_MODE[kernel][PRECISIONS[int(bf16)]] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1
+        LAUNCHES_BY_MODE[kernel][PRECISIONS[int(bf16)]] += 1
 
 
 def precision_from_config(matmul_precision: Optional[str], mixed: bool = False) -> str:
@@ -237,6 +258,15 @@ def _chain_backward(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: st
         layer(i, xr if i == 0 else _rnd(fast_sin(om[i - 1] * zs[i - 1]), act), gzb, gz)
         ga = gzb @ _rnd(params[i]["w"], bf16).t()
     return ga
+
+
+def siren_chain_reference_batched(members, x: torch.Tensor, cfg, precision: str = "fp32"):
+    """The plain version of `sine_mlp_fwd_batched`: `siren_chain_reference`
+    of each member's params (a sequence of params tuples) on x, (N, in)
+    shared or (M, N, in) one per member, stacked -> (M, N, out)."""
+    xs = [x] * len(members) if x.dim() == 2 else list(x)
+    return torch.stack([siren_chain_reference(p, xm, cfg, precision)
+                        for p, xm in zip(members, xs)])
 
 
 def siren_chain_backward_reference(
@@ -374,30 +404,84 @@ def _kernel_dims(params, x: torch.Tensor):
     return lib, hidden, depth, in_size, out_size
 
 
-def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
-    """Launch the forward kernel: mapped coords x (N, in) on the card ->
-    chain output (N, out)."""
-    bf16, mixed = precision_modes(precision)
-    lib, hidden, depth, in_size, out_size = _kernel_dims(params, x)
+def _check_rows(n: int, what: str) -> None:
+    if n > MAX_ROWS:
+        raise ValueError(
+            f"{what}: {n} pixel rows in one launch; the kernel takes at most {MAX_ROWS} "
+            "(int row indices). Render in bands: decompress --tile-rows / "
+            "render_region(tile_rows=...)")
+
+
+def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
+                kernel: str) -> torch.Tensor:
+    """Pack, check and launch the forward once over `members` (params tuples
+    of one shape) on x, (N, in) shared or (M, N, in) one per member ->
+    (M, N, out); counted under `kernel`."""
+    n = x.shape[-2]
+    _check_rows(n, kernel)
+    lib, hidden, depth, in_size, out_size = _kernel_dims(members[0], x.reshape(-1, x.shape[-1]))
     om = _omegas(cfg, depth)
     dev = x.device
-    w0, wm, wl, bs, bl = _pack(_rnd_params(params, mixed), hidden)
+    packed = [_pack(_rnd_params(p, mixed), hidden) for p in members]
+    if len(packed) == 1:
+        w0, wm, wl, bs, bl = packed[0]
+    else:
+        w0, wm, wl, bs, bl = (torch.stack(t).contiguous() for t in zip(*packed))
     x = _rnd(x.float(), mixed).contiguous()
-    n = x.shape[0]
-    out = torch.empty((n, out_size), dtype=torch.float32, device=dev)
+    x_stride = n * in_size if x.dim() == 3 else 0
+    out = torch.empty((len(members), n, out_size), dtype=torch.float32, device=dev)
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs),
                     ("bl", bl), ("out", out)):
         _check_cuda(name, t, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sine_mlp_fwd(
+        err = lib.sine_mlp_fwd_batched(
             x.data_ptr(), w0.data_ptr(), wm.data_ptr(), wl.data_ptr(),
-            bs.data_ptr(), bl.data_ptr(), out.data_ptr(), n, in_size, out_size,
-            depth, hidden, om[0], om[1], _mode_flags(bf16, mixed), stream,
+            bs.data_ptr(), bl.data_ptr(), out.data_ptr(), len(members), x_stride, n, in_size,
+            out_size, depth, hidden, om[0], om[1], _mode_flags(bf16, mixed), stream,
         )
-    _raise_on(err, "sine_mlp_fwd")
-    _count("sine_mlp_fwd", bf16)
+    _raise_on(err, kernel)
+    _count(kernel, bf16)
     return out
+
+
+def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
+    """Launch the forward kernel: mapped coords x (N, in) on the card ->
+    chain output (N, out). N above MAX_ROWS raises ValueError."""
+    bf16, mixed = precision_modes(precision)
+    return _fwd_launch([params], x, cfg, bf16, mixed, "sine_mlp_fwd")[0]
+
+
+def _check_one_shape(members) -> None:
+    """A batched launch's members share their layer shapes; a mismatch, or
+    no member, raises ValueError."""
+    if not members:
+        raise ValueError("sine_mlp_fwd_batched: no members")
+    shapes = [tuple((tuple(layer["w"].shape), tuple(layer["b"].shape)) for layer in p)
+              for p in members]
+    for i, sh in enumerate(shapes[1:], 1):
+        if sh != shapes[0]:
+            raise ValueError(f"sine_mlp_fwd_batched: member {i} has layer shapes {sh}, "
+                             f"member 0 {shapes[0]}; a batched launch takes one shape")
+
+
+def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
+    """Launch the forward kernel once over a member axis: M params tuples of
+    one shape (`members`) on mapped coords x on the card, (N, in) shared by
+    every member or (M, N, in) one per member -> (M, N, out), member m's rows
+    the bits of `sine_mlp_fwd(members[m], x[m], ...)`. Members of different
+    layer shapes, a "+mixed" mode (a training mode: no batched kernel), or N
+    above MAX_ROWS raise ValueError."""
+    bf16, mixed = precision_modes(precision)
+    if mixed:  # a training mode: no batched instantiation
+        raise ValueError(f"sine_mlp_fwd_batched: no batched kernel for {precision!r}")
+    _check_one_shape(members)
+    if x.dim() == 3 and x.shape[0] != len(members):
+        raise ValueError(f"sine_mlp_fwd_batched: x holds {x.shape[0]} members' coordinates, "
+                         f"there are {len(members)} members")
+    if x.dim() not in (2, 3) or len(members) > 65535:
+        raise ValueError("sine_mlp_fwd_batched: x must be (N, in) or (M, N, in), M <= 65535")
+    return _fwd_launch(members, x, cfg, bf16, False, "sine_mlp_fwd_batched")
 
 
 def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, device):
@@ -629,4 +713,21 @@ def siren_apply_flat_fused(
     x = (coords - 0.5) * 2.0
     flat = [t for layer in params for t in (layer["w"], layer["b"])]
     out = SineMLPFunction.apply(x, cfg, precision, *flat)
+    return out / 2.0 + 0.5
+
+
+def siren_apply_flat_batched(members, coords: torch.Tensor, cfg,
+                             precision: str = "fp32") -> torch.Tensor:
+    """Forward of M SIRENs of one shape (a sequence of params tuples) over
+    flat coords (N, in) in [0, 1] -> (M, N, out), no gradient: one
+    `sine_mlp_fwd_batched` launch on CUDA, `siren_chain_reference_batched` on
+    the CPU. A "+mixed" mode raises ValueError on either device."""
+    if precision_modes(precision)[1]:
+        raise ValueError(f"siren_apply_flat_batched: no batched kernel for {precision!r}")
+    x = (coords - 0.5) * 2.0
+    with torch.no_grad():
+        if x.is_cuda:
+            out = sine_mlp_fwd_batched(members, x, cfg, precision)
+        else:
+            out = siren_chain_reference_batched(members, x, cfg, precision)
     return out / 2.0 + 0.5

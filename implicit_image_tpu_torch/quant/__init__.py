@@ -1,6 +1,8 @@
 """Quantization (counterpart of implicit_image_tpu/quant/__init__.py):
-k-means codebooks only. QAT / uniform fake-quant and the per-layer bit
-allocation are not ported yet (ROADMAP.md)."""
+k-means codebooks, at one width or per layer (`bits_per_layer`, which the
+bit allocation of quant/allocate.py fills), and the progressive container's
+base-codebook finetune (quant/base_layer.py). QAT / uniform fake-quant are
+not ported yet (ROADMAP.md)."""
 from __future__ import annotations
 
 from dataclasses import dataclass

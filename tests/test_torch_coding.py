@@ -187,7 +187,8 @@ def test_delta_artifact_sha256_and_search(tmp_path):
 
 
 def test_unported_containers_raise(tmp_path):
-    """Format 4 (progressive) and inter-frame (`prev`) deltas still raise."""
+    """Inter-frame (`prev`) deltas still raise; format 4 (progressive) is
+    ported: a JAX-written one reads to the JAX package's arrays."""
     state = {"layers.0.bias": np.zeros(3, np.float32)}
     jcoding.compress_state_dict(state, tmp_path / "prev", "plain",
                                 delta={"prev": "../x", "sha256": "0" * 64, "layers": []})
@@ -196,10 +197,11 @@ def test_unported_containers_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         tcoding.compress_state_dict(state, tmp_path / "p2", "plain",
                                     delta={"prev": "../x", "sha256": "0" * 64, "layers": []})
-    (tmp_path / "f4").mkdir()
-    (tmp_path / "f4" / "meta_data.json").write_text('{"__meta__": {"format": 4}}')
-    with pytest.raises(NotImplementedError):
-        tcoding.read_raw_container(tmp_path / "f4", "plain")
+    from implicit_image_tpu.coding.progressive import compress_progressive
+
+    compress_progressive(state, tmp_path / "f4", "plain")
+    np.testing.assert_array_equal(tcoding.read_raw_container(tmp_path / "f4", "plain")
+                                  ["layers.0.bias"], state["layers.0.bias"])
 
 
 def test_truncated_plain_stream_raises(tmp_path):

@@ -92,7 +92,13 @@ def test_meta_init_loads_same_weights(runs):
                                       "entropy_coding.progressive=true",
                                       "profile=true"])
 def test_unported_options_raise(tmp_path, override):
+    """optim=shampoo and quant=qat still raise; bit allocation, the
+    progressive container and profile=True are ported and run."""
     cfg = compose(OVERRIDES + ["device=cpu", "train.num_steps=1", override])
+    if override in ("quant.bit_alloc=auto", "entropy_coding.progressive=true", "profile=true"):
+        psnr, nbytes = tcompress.main(cfg, run_dir=str(tmp_path))
+        assert np.isfinite(psnr) and nbytes > 0
+        return
     with pytest.raises((NotImplementedError, KeyError)):
         tcompress.main(cfg, run_dir=str(tmp_path))
 

@@ -651,3 +651,72 @@ def test_exact_sine_and_coordx_bf16_on_card_match_cpu(cuda_device):
         assert not any(sm.LAUNCHES.values())
         cpu = m.apply(params, grid, c, prec)
         assert float((card - cpu).abs().max()) <= tol, (name, prec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (2, 64, 300), (8, 182, 3001),
+                                            (4, 256, 2000), (3, 512, 1000)])
+def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,
+                                                        n):
+    """K1 over a member axis: one launch, each member the bits of its own
+    single launch, with one shared x and with one x per member; within the
+    forward's limits of the plain version."""
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    gen = torch.Generator().manual_seed(3)
+    members = [m.init(gen, c, cuda_device) for _ in range(3)]
+    x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    xs = (torch.rand((3, n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    before = dict(sm.LAUNCHES)
+    shared = sm.sine_mlp_fwd_batched(members, x, c, precision)
+    per = sm.sine_mlp_fwd_batched(members, xs, c, precision)
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["sine_mlp_fwd_batched"] == before["sine_mlp_fwd_batched"] + 2
+    assert sm.LAUNCHES["sine_mlp_fwd"] == before["sine_mlp_fwd"]
+    for i, p in enumerate(members):
+        assert torch.equal(shared[i], sm.sine_mlp_fwd(p, x, c, precision))
+        assert torch.equal(per[i], sm.sine_mlp_fwd(p, xs[i].clone(), c, precision))
+    ref = sm.siren_chain_reference_batched(members, x, c, precision)
+    assert float((shared - ref).abs().max()) <= (1e-4 if precision == "fp32" else 1.5e-3)
+
+
+@pytest.mark.cuda
+def test_max_rows_is_the_library_limit(cuda_device):
+    """The wrappers' row guard is the kernels' own limit (kMaxRows)."""
+    assert sm._lib().sine_mlp_max_rows() == sm.MAX_ROWS
+
+
+@pytest.mark.cuda
+def test_region_renders_are_the_full_render_slice_on_card(cuda_device):
+    """Windows and row bands launch K1 on their own rows only, and equal the
+    full render's slice bit for bit."""
+    from implicit_image_tpu_torch.coding import render_region
+
+    m, c = build_model("siren", depth=8, hidden_size=128)
+    params = m.init(torch.Generator().manual_seed(4), c, cuda_device)
+    full = render_region(m, c, params, 300, 260)
+    assert (full == render_region(m, c, params, 300, 260, tile_rows=37)).all()
+    roi = (17, 290, 3, 251)
+    win = render_region(m, c, params, 300, 260, roi=roi, tile_rows=64)
+    assert (win == full[17:290, 3:251]).all()
+
+
+@pytest.mark.cuda
+def test_base_finetune_repeats_bit_for_bit_on_card(cuda_device):
+    import numpy as np
+
+    from implicit_image_tpu_torch.coding import linear_state_dict
+    from implicit_image_tpu_torch.coding.progressive import _split_entries
+    from implicit_image_tpu_torch.quant import QuantConfig, convert
+    from implicit_image_tpu_torch.quant.base_layer import finetune_base_codebooks
+
+    m, c = build_model("siren", depth=5, hidden_size=64)
+    params = m.init(torch.Generator().manual_seed(5), c, cuda_device)
+    snapped, books = convert(params, QuantConfig(bits=8))
+    base, _ = _split_entries(linear_state_dict(snapped, books, half="auto"))
+    img = np.random.default_rng(0).random((64, 64, 3)).astype(np.float32)
+    grid = get_grid(64, 64, cuda_device)
+    runs = [finetune_base_codebooks(m, c, grid, img, base, steps=10) for _ in range(2)]
+    assert runs[0].keys() == runs[1].keys() and len(runs[0]) == 3
+    for k in runs[0]:
+        assert np.array_equal(runs[0][k], runs[1][k])
