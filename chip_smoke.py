@@ -26,9 +26,18 @@ Phases, each printing its own line:
      launch, in both modes, each member the bits of its single launch and
      within FWD_TOL of the plain version (the other mode's batched kernel
      outside it), timed in turns with one single launch; its bound is 8
-     forwards' work. Phase 2 prints ptxas's registers and spills of every
-     kernel and fails if a batched forward spills more than its single
-     launch;
+     forwards' work. K2 over a member axis (sine_mlp_bwd_batched, the
+     vmapped backward of the batched fit and the ladder) the same way: 8
+     SIRENs, one cotangent each, both modes, each member's dx, dW and db the
+     bits of its single launch and within BWD_TOL of the plain version (the
+     other mode's outside it), timed in turns with one single launch (bound:
+     8 backwards' work); its member-axis partial sum alone (the bits of the
+     mirror, SUM_TOL of partials.sum(1), timed from CUDA graphs in turns with
+     it) and at 182 its member-axis sine_mlp_dw alone (the bits of 8 single
+     launches, DW_TOL of the plain version, in turns with one torch.bmm).
+     Phase 2 prints ptxas's registers and spills of every kernel and fails
+     if a batched instantiation (forward, backward, sine_mlp_dw, partial
+     sum) spills more than its single launch;
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -140,12 +149,33 @@ Phases, each printing its own line:
      launch per group and no single one, each image its single decode's
      bits; (f) profile=True on a 20-step
      fit: the trace in <run>/profile/ holds K1, K2 and sum_partials rows.
+ 14. the batched fit, the pipeline and the density ladder (full width,
+     512² d8/w128): (a) the RigL ladder of scripts/sparsify.sh through
+     `python -m implicit_image_tpu_torch.parallel.ladder` (its cli, in
+     process; densities 0.05-0.75, zstd, cut to 200 fit + 20 finetune steps
+     from 2,000 x 5 + 100): per fit step one batched K1 and one batched K2
+     launch and no single K2 (the single K2 launches are exactly the
+     members' finetune steps), each member's RigL weight counts (mask.npz)
+     conserved and its density within LADDER_DENSITY_TOL of its target,
+     bytes rising with density, decoded PSNR finite and above its floor
+     (LADDER_FLOOR, from tests/ladder_floors.py), the member at 0.25 the
+     bits of a single fit with its generator, and the five run dirs decoded
+     by decode_runs in one batched K1 launch, each image its decode_run's
+     bits; the ladder's fit wall (its summary.json), ms per step per member
+     against phase 5's single fit; (b) the GMP ladder (final densities 0.1-0.5, the
+     same cut, masking.end_when cut to 150 with the steps): each member's
+     end density within GMP_DENSITY_TOL of its own target; (c)
+     batched_compress on 4 seeded 512² images (100 + 10 steps): member 0's
+     container the sha256 of a B = 1 run; (d) a 2-member RigL ladder at
+     w182 for 20 steps: the batched wide backward and the batched
+     sine_mlp_dw on the path.
 
-Each of phases 4-13 sets the launch counts to 0 just before its run and
+Each of phases 4-14 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
-of 12 only; sine_mlp_fwd_batched in 13 (e) only; nothing in phase 8, in
-11 (d) and in 12 (f)-(h). In phase 3, sum_partials must equal its plain
+of 12 only; sine_mlp_fwd_batched in 13 (e) and 14 only; the member-axis
+K2 (sine_mlp_bwd_batched, sum_partials_batched, and sine_mlp_dw_batched at
+w182) in 14 only; nothing in phase 8, in 11 (d) and in 12 (f)-(h). In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
@@ -156,7 +186,8 @@ every round is printed beside the medians and their share of the bound.
 
 Then one JSON line describing the kernels (each kernel once per width of
 phase 3, with the launches of the phase that runs that width: 4, 9 and 10;
-the batched K1 at 128 and 182 with 13 (e)'s),
+the batched K1 at 128 and 182 with 13 (e)'s; the batched K2, its partial
+sum and at 182 its sine_mlp_dw with 14 (a)'s and 14 (d)'s),
 and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
 exit code is non-zero and no result line is printed. Without a CUDA device
@@ -164,6 +195,7 @@ the script exits non-zero before doing anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -328,6 +360,41 @@ PROFILE_OVERRIDES = SMOKE_OVERRIDES[:-1] + ["train.num_steps=20", "quant=none",
                                             f"output_dir={P13}_profile"]
 
 
+# phase 14: the batched fit, the pipeline and the density ladder at full width
+# (512², SIREN d8/w128 unless named). (a) and (b) are the ladders of
+# scripts/sparsify.sh:13-19 (train.multiplier=5, 2,000 x 5 fit + 100
+# finetune steps), cut to 200 fit + 20 finetune steps at multiplier 1; GMP's
+# schedule end (masking.end_when 1,500 steps) is cut with the steps to 150
+P14 = "outputs/chip_smoke_p14"
+LADDER_CUT = ["train.num_steps=200", "train.multiplier=1", "train.log_steps=100",
+              "quant.num_steps=20"]
+LADDER_RUNS = {
+    "14a RigL": ["img=synthetic", "entropy_coding=zstd", "masking=RigL",
+                 "masking.density=0.05,0.1,0.25,0.5,0.75"],
+    "14b GMP": ["img=synthetic", "entropy_coding=zstd", "masking=Pruning", "masking.density=1.0",
+                "masking.final_density=0.1,0.25,0.5", "masking.end_when=150"],
+}
+# decoded PSNR floors (dB) per member: 20 dB where the JAX package's own CPU
+# ladder of the same cut at 128² (PYTHONPATH=. python tests/ladder_floors.py;
+# every product fp32 there) reads 30 or more, as in phases 11 and 12, and
+# 12 dB below that; its reading beside each
+LADDER_FLOOR = {
+    "14a RigL": {0.05: 12.0,   # JAX 26.138 dB
+                 0.1: 20.0,    # JAX 31.383 dB
+                 0.25: 20.0,   # JAX 34.830 dB
+                 0.5: 20.0,    # JAX 36.592 dB
+                 0.75: 20.0},  # JAX 39.610 dB
+    "14b GMP": {0.1: 20.0,    # JAX 32.717 dB
+                0.25: 20.0,   # JAX 39.607 dB
+                0.5: 20.0},   # JAX 41.877 dB
+}
+LADDER_DENSITY_TOL = 0.005  # |final density - target|: ERK's rounding is 0.0034 at d8/w128
+GMP_DENSITY_TOL = 0.01
+BATCH_IMAGES, BATCH_STEPS = 4, 100  # 14c: batched_compress, 100 fit + 10 finetune steps
+WIDE_LADDER = ["img=synthetic", f"mlp.hidden_size={FINALS_WIDTH}", "entropy_coding=zstd",
+               "masking=RigL", "masking.density=0.25,0.5", "train.num_steps=20",
+               "train.log_steps=10", "quant.num_steps=5"]
+
 def _time_ms(fn, reps: int = 10) -> float:
     import torch
 
@@ -409,17 +476,24 @@ def phase_build() -> float:
             print(f"[2 build] {row.get('registers')} registers, {row.get('spill_stores')} B "
                   f"spill stores, {row.get('spill_loads')} B spill loads: {name[:160]}",
                   flush=True)
-    # K1 over a member axis is a template instantiation (last argument MB)
-    # of each forward: it must spill no more than the single launch's
-    batched = {n: r for n, r in table.items() if "sine_mlp_fwd" in n and "(bool)1>(" in n}
-    for name, row in batched.items():
-        single = table.get(name.replace("(bool)1>(", "(bool)0>("))
-        if single is None or row.get("spill_stores", 0) > single.get("spill_stores", 0):
-            raise AssertionError(f"the batched forward spills more than its single launch: "
-                                 f"{name} {row} vs {single}")
-    if table and len(batched) != 2 * len(KERNEL_WIDTHS):
-        raise AssertionError(f"{len(batched)} batched forward instantiations, expected two "
-                             f"modes at each of {KERNEL_WIDTHS}")
+    # K1 and K2 over a member axis are template instantiations (last argument
+    # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
+    # spill no more than its single launch
+    kinds = {"sine_mlp_fwd": 2 * len(KERNEL_WIDTHS), "sine_mlp_bwd": 2 * len(KERNEL_WIDTHS),
+             "sine_mlp_dw": 2 * (len(KERNEL_WIDTHS) - 1), "sum_partials": 1}
+    for kind, expected in kinds.items():
+        batched = {n: r for n, r in table.items()
+                   if f"{kind}_" in n and n.startswith("void") and "(bool)1>(" in n}
+        for name, row in batched.items():
+            single = table.get(name.replace("(bool)1>(", "(bool)0>("))
+            if single is None or row.get("spill_stores", 0) > single.get("spill_stores", 0):
+                raise AssertionError(f"a batched kernel spills more than its single launch: "
+                                     f"{name} {row} vs {single}")
+        print(f"[2 build] {len(batched)} batched {kind} instantiations, none spilling more than "
+              "its single launch", flush=True)
+        if table and len(batched) != expected:
+            raise AssertionError(f"{len(batched)} batched {kind} instantiations, expected "
+                                 f"{expected} (two modes at each of its widths)")
     return seconds
 
 
@@ -456,6 +530,16 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
         "sine_mlp_fwd_batched": (members * hidden_mm, members * 2 * n * hidden * (in_size
                                                                              + out_size),
                                  4 * n * in_size + members * (4 * n * out_size + weights)),
+        # K2 over `members` members: the backward's work each; x (shared) read
+        # once, each member's g, weights and dx once, its partial slices written
+        "sine_mlp_bwd_batched": (members * 3 * hidden_mm,
+                                 members * 2 * n * hidden * (4 * in_size + 2 * out_size),
+                                 4 * n * in_size + members * (4 * n * (in_size + out_size)
+                                                              + weights + 4 * blocks * n_part)),
+        "sum_partials_batched": (0, members * blocks * n_part,
+                                 4 * members * (blocks + 1) * n_part),
+        "sine_mlp_dw_batched": (members * hidden_mm, 0, members * 4 * (depth - 2) * hidden
+                                * (2 * n + blocks * hidden)),
     }
     out = {}
     for name, (tc, fma, nbytes) in kernels.items():
@@ -789,6 +873,164 @@ def phase_batched_kernel(width: int) -> tuple:
     return record
 
 
+def _bwd_pairs(dx, grads):
+    return [("dx", dx)] + [(f"{i}.{k}", layer[k]) for i, layer in enumerate(grads)
+                           for k in ("w", "b")]
+
+
+def phase_batched_backward(width: int) -> dict:
+    """Phase 3, K2 over a member axis: BATCH_MEMBERS SIRENs of hidden width
+    `width` on one 512² grid, one cotangent each, in both modes: each
+    member's dx, dW and db the bits of its single launch and within BWD_TOL
+    of the plain version (the other mode's batched kernels outside it); the
+    batched backward timed in turns with one single launch, its bound 8
+    backwards' work. The member-axis partial sum (and above width 128 the
+    member-axis sine_mlp_dw) alone, on this backward's shapes: the bits of
+    its plain mirror, timed from CUDA graphs in turns with one PyTorch call
+    for the same function. Returns the kernels line's records (fp32 mode)."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+    kw = sm.kernel_width(width)
+    gen = torch.Generator().manual_seed(11)
+    members = [mdef.init(gen, mcfg, dev) for _ in range(BATCH_MEMBERS)]
+    x = (get_grid(N_SIDE, N_SIDE, dev).reshape(-1, 2) - 0.5) * 2.0
+    n = x.shape[0]
+    g = (torch.randn((BATCH_MEMBERS, n, 3), generator=gen) / n).to(dev)
+    outs = {p: sm.sine_mlp_bwd_batched(members, x, g, mcfg, p) for p in sm.PRECISIONS}
+    torch.cuda.synchronize()
+    tag = f"[3 kernels w{width} batched backward x{BATCH_MEMBERS}]"
+    blocks, n_part, sizes = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
+    records = {}
+    for prec in sm.PRECISIONS:
+        other = next(p for p in sm.PRECISIONS if p != prec)
+        same = True
+        for m, params in enumerate(members):
+            single = _bwd_pairs(*sm.sine_mlp_bwd(params, x, g[m], mcfg, prec))
+            same &= all(torch.equal(t[m], s) for (_, t), (_, s) in
+                        zip(_bwd_pairs(*outs[prec]), single))
+        plain = _bwd_pairs(*sm.siren_chain_backward_reference_batched(members, x, g, mcfg, prec))
+        torch.cuda.synchronize()
+
+        def rel(result):
+            return max(((name, _max_rel(t, p)) for (name, t), (_, p) in
+                        zip(_bwd_pairs(*result), plain)), key=lambda e: e[1])
+
+        (worst, err), (ctl_at, ctl) = rel(outs[prec]), rel(outs[other])
+        abs_err = max(float((t - p).abs().max()) for (_, t), (_, p) in
+                      zip(_bwd_pairs(*outs[prec]), plain))
+        print(f"{tag} {prec}: {'the bits of' if same else 'BITS DIFFER FROM'} "
+              f"{BATCH_MEMBERS} single launches; vs plain max rel err {err:.3e} at {worst} "
+              f"(tol {BWD_TOL[prec]:g}), max abs err {abs_err:.3e}; control, the {other} "
+              f"batched kernels: {ctl:.3e} at {ctl_at}", flush=True)
+        if not same:
+            raise AssertionError(f"{tag} {prec}: not the bits of the single launches")
+        if not err <= BWD_TOL[prec] < ctl:
+            raise AssertionError(f"{tag} {prec}: max rel err {err}, control {ctl}")
+        if prec != "fp32":
+            continue
+        single_r, batched_r = _interleaved_ms(
+            [lambda: sm.sine_mlp_bwd(members[0], x, g[0], mcfg, prec),
+             lambda: sm.sine_mlp_bwd_batched(members, x, g, mcfg, prec)], rounds=3, reps=5)
+        plain_ms = _time_ms(lambda: sm.siren_chain_backward_reference_batched(
+            members, x, g, mcfg, prec), 1)
+        single_ms, ms = statistics.median(single_r), statistics.median(batched_r)
+        bounds = _bounds(n, 2, 3, DEPTH, width, blocks, _grad_floats(2, width, 3, DEPTH))
+        padded = _bounds(n, 2, 3, DEPTH, kw, blocks, n_part)
+        bound = bounds["sine_mlp_bwd_batched"]
+        print(f"{tag} ms in turns (3 rounds x 5 launches, CUDA events): batched "
+              f"{' '.join(f'{t:.3f}' for t in batched_r)} (median {ms:.3f} = "
+              f"{ms / BATCH_MEMBERS:.4f} per member); one single launch "
+              f"{' '.join(f'{t:.3f}' for t in single_r)} (median {single_ms:.4f}); plain "
+              f"{plain_ms:.3f}; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+              f"{bound['flop'] / 1e9:.1f} GFLOP, {bound['bytes'] / 1e6:.1f} MB) = "
+              f"{bound['bound_ms'] / ms:.1%}", flush=True)
+        records["sine_mlp_bwd_batched"] = (abs_err, ms, plain_ms, None, bound,
+                                           padded["sine_mlp_bwd_batched"]["bound_ms"])
+
+        # the member-axis partial sum alone, on buffers of this backward's shape
+        partials = torch.randn((BATCH_MEMBERS, blocks, n_part), device=dev,
+                               generator=torch.Generator(dev).manual_seed(12))
+        sums = sm.sum_partials_batched(partials)
+        mirror = torch.stack([sm.sum_partials_reference(t) for t in partials])
+        lib = partials.sum(1)
+        torch.cuda.synchronize()
+        sum_same = torch.equal(sums, mirror) and torch.equal(sums, sm.sum_partials_batched(
+            partials))
+        sum_err = float((sums - mirror).abs().max())
+        sum_rel = float((sums - lib).abs().max()) / float(lib.abs().max())
+        k_r, l_r = _graph_interleaved_ms([lambda: sm.sum_partials_batched(partials),
+                                          lambda: partials.sum(1)])
+        k_ms, l_ms = statistics.median(k_r), statistics.median(l_r)
+        m_ms = _time_ms(lambda: [sm.sum_partials_reference(t) for t in partials], 1)
+        sb = bounds["sum_partials_batched"]
+        print(f"{tag} sum_partials_batched ({BATCH_MEMBERS} x {blocks} x {n_part}): "
+              f"{'the bits of its mirror, twice' if sum_same else 'BITS DIFFER'} (max abs err "
+              f"{sum_err:.3e}); vs "
+              f"partials.sum(1) rel err {sum_rel:.3e} (tol {SUM_TOL:g}); in turns from CUDA "
+              f"graphs, ms: kernel {' '.join(f'{t:.4f}' for t in k_r)} (median {k_ms:.4f} = "
+              f"{sb['bound_ms'] / k_ms:.1%} of the {sb['bound_ms']:.4f} ms bound); "
+              f"partials.sum(1) {' '.join(f'{t:.4f}' for t in l_r)} (median {l_ms:.4f}); "
+              f"mirror {m_ms:.3f}", flush=True)
+        if not sum_same or not sum_rel <= SUM_TOL:
+            raise AssertionError(f"{tag} sum_partials_batched: same {sum_same}, rel {sum_rel}")
+        records["sum_partials_batched"] = (sum_err, k_ms, m_ms, l_ms, sb,
+                                           padded["sum_partials_batched"]["bound_ms"])
+        del partials
+
+        if kw > sm.KERNEL_WIDTHS[0]:
+            # the member-axis sine_mlp_dw alone, on each member's own dW operands
+            layers = DEPTH - 2
+            a, gz = (torch.zeros((BATCH_MEMBERS, layers, n, kw), device=dev) for _ in range(2))
+            for m, params in enumerate(members):  # zero-padded to the kernel width
+                a[m, ..., :width], gz[m, ..., :width] = sm.siren_chain_dw_operands(
+                    params, x, g[m], mcfg, prec)
+            region = slice(sizes[0], sizes[0] + layers * kw * kw)
+            part = torch.zeros((BATCH_MEMBERS, blocks, n_part), device=dev)
+            sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec)
+            got = part[:, :, region].reshape(BATCH_MEMBERS, blocks, layers, kw, kw)
+            plain_dw = torch.stack([sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
+                                    for m in range(BATCH_MEMBERS)])
+            singles = []
+            for m in range(BATCH_MEMBERS):
+                one = torch.zeros((blocks, n_part), device=dev)
+                sm.sine_mlp_dw(a[m], gz[m], one, sizes[0], prec)
+                singles.append(one[:, region].reshape(blocks, layers, kw, kw))
+            torch.cuda.synchronize()
+            dw_same = torch.equal(got, torch.stack(singles))
+            dw_err = float((got - plain_dw).abs().max())
+            scale = float(plain_dw.abs().max())
+            del singles, got
+            flat_a, flat_g = a.reshape(-1, n, kw), gz.reshape(-1, n, kw)
+            k_r, l_r = _graph_interleaved_ms(
+                [lambda: sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec),
+                 lambda: torch.bmm(flat_a.transpose(1, 2), flat_g)], rounds=3, reps=5)
+            k_ms, l_ms = statistics.median(k_r), statistics.median(l_r)
+            p_ms = _time_ms(lambda: [sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
+                                     for m in range(BATCH_MEMBERS)], 1)
+            db = bounds["sine_mlp_dw_batched"]
+            print(f"{tag} sine_mlp_dw_batched ({layers} layers, {blocks} row splits): "
+                  f"{'the bits of' if dw_same else 'BITS DIFFER FROM'} {BATCH_MEMBERS} single "
+                  f"launches; vs plain max abs err {dw_err:.3e} = {dw_err / scale:.3e} of max "
+                  f"|plain| (tol {DW_TOL:g}); in turns from CUDA graphs, ms: kernel "
+                  f"{' '.join(f'{t:.4f}' for t in k_r)} (median {k_ms:.4f} = "
+                  f"{db['bound_ms'] / k_ms:.1%} of the {db['bound_ms']:.4f} ms bound); one "
+                  f"torch.bmm {' '.join(f'{t:.4f}' for t in l_r)} (median {l_ms:.4f}); plain "
+                  f"{p_ms:.3f}", flush=True)
+            if not dw_same or not dw_err <= DW_TOL * scale:
+                raise AssertionError(f"{tag} sine_mlp_dw_batched: same {dw_same}, err {dw_err}")
+            records["sine_mlp_dw_batched"] = (dw_err, k_ms, p_ms, l_ms, db,
+                                              padded["sine_mlp_dw_batched"]["bound_ms"])
+            del a, gz, part, flat_a, flat_g
+    torch.cuda.empty_cache()
+    return records
+
+
 def _expected_container_bytes(cfg) -> int:
     """Plain container size from the shapes (half=auto): unquantized
     weights and all biases fp32, quantized layers uint8 labels + fp16
@@ -815,12 +1057,15 @@ def _expected_container_bytes(cfg) -> int:
 def _check_launches(launches: dict, what: str, wide: bool = False,
                     batched: bool = False) -> None:
     """Every kernel launched on the path; sine_mlp_dw (the wider backward's
-    dW) exactly when the path runs a SIREN wider than 128 (`wide`), and
+    dW) exactly when the path runs a SIREN wider than 128 (`wide`),
     sine_mlp_fwd_batched (K1 over a member axis) exactly when it decodes
-    runs together (`batched`)."""
+    runs together (`batched`), and never K2 over a member axis (the fits of
+    phase 14 only; _check_ladder_launches)."""
     for name, count in launches.items():
-        if (name == "sine_mlp_dw" and not wide) or (name == "sine_mlp_fwd_batched"
-                                                   and not batched):
+        if ((name == "sine_mlp_dw" and not wide) or (name == "sine_mlp_fwd_batched"
+                                                    and not batched)
+                or name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched",
+                            "sum_partials_batched")):
             if count != 0:
                 raise AssertionError(f"{name} launched {count} times on the {what}, which "
                                      "does not run it")
@@ -1897,6 +2142,235 @@ def phase_profile() -> None:
         raise AssertionError(f"[13f profile] the trace lacks K1/K2 rows: {kernels}")
 
 
+def _ladder_cli(name: str, extra) -> tuple:
+    """One ladder through its CLI (ladder.cli in this process, launches
+    counted from 0): (composed cfg, densities, run dirs, summaries, launches,
+    seconds)."""
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import ladder
+
+    out = f"{P14}_{name.split()[0]}"
+    argv = extra + [f"output_dir={out}", "exp_name=smoke"]
+    cfg, densities, _ = ladder.parse_ladder_cli(argv)
+    shutil.rmtree(out, ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    ladder.cli(argv)
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    mname = cfg.masking.name
+    dirs = [Path(out) / cfg.img.name / f"ladder_{mname}_smoke" / f"d{d}" for d in densities]
+    summaries = [json.loads((d / "summary.json").read_text()) for d in dirs]
+    return cfg, densities, dirs, summaries, launches, seconds
+
+
+def _check_ladder_launches(tag: str, launches: dict, members: int, steps: int, evals: int,
+                           quant_steps: int, wide: bool) -> None:
+    """The fit over the member axis: one batched K1 per step and eval, one
+    batched K2 (and partial sum, and above 128 sine_mlp_dw) per step; the
+    single K2 launches are the members' finetune steps exactly, so none is
+    the fit's."""
+    want = {"sine_mlp_fwd_batched": steps + evals, "sine_mlp_bwd_batched": steps,
+            "sum_partials_batched": steps, "sine_mlp_dw_batched": steps if wide else 0,
+            "sine_mlp_bwd": members * quant_steps, "sum_partials": members * quant_steps,
+            "sine_mlp_dw": members * quant_steps if wide else 0}
+    got = {k: launches[k] for k in want}
+    if got != want or launches["sine_mlp_fwd"] <= 0:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+
+
+def _ladder_members(name: str, tag: str, dirs, summaries, densities, axis: str,
+                    tol: float) -> list:
+    """Each member: finite decoded PSNR above its floor (LADDER_FLOOR[name]),
+    bytes rising with density, final density (mask.npz) within tol of its
+    target; returns the final masks."""
+    import numpy as np
+
+    masks = []
+    for d, run, summ in zip(densities, dirs, summaries):
+        floor = LADDER_FLOOR[name][d]
+        mk = np.load(run / "mask.npz")
+        masks.append({int(k.split(".")[1]): mk[k] for k in mk.files})
+        density = sum(float(v.sum()) for v in masks[-1].values()) / sum(
+            v.size for v in masks[-1].values())
+        cfg_d = json.loads((run / "config.json").read_text())
+        print(f"{tag} d={d}: fit {summ['PSNR']:.3f} dB, quant {summ['Quant PSNR']:.3f} dB, "
+              f"decoded {summ['Decoded PSNR']:.3f} dB @ {summ['Compressed Bytes']} B; final "
+              f"density {density:.4f}", flush=True)
+        if cfg_d["masking"][axis] != d:
+            raise AssertionError(f"{tag} {run}/config.json has {axis} {cfg_d['masking'][axis]}")
+        if not (math.isfinite(summ["Decoded PSNR"]) and summ["Decoded PSNR"] >= floor):
+            raise AssertionError(f"{tag} d={d}: decoded PSNR {summ['Decoded PSNR']} (floor "
+                                 f"{floor})")
+        if abs(density - d) > tol:
+            raise AssertionError(f"{tag} d={d}: final density {density}")
+    nbytes = [summ["Compressed Bytes"] for summ in summaries]
+    if nbytes != sorted(nbytes) or len(set(nbytes)) != len(nbytes):
+        raise AssertionError(f"{tag} bytes do not rise with density: {nbytes}")
+    return masks
+
+
+def phase_ladder_rigl(default_run: str) -> dict:
+    """14a: the RigL ladder of scripts/sparsify.sh through
+    `python -m implicit_image_tpu_torch.parallel.ladder` (its cli, in this
+    process), cut as LADDER_CUT says. Batched K1/K2 only in the fit; each
+    member's RigL weight count conserved and its density at its target;
+    bytes rising with density; decoded PSNR finite and above its floor; the
+    member at 0.25 the bits of a single fit (weights, masks) with its
+    generator; the five run dirs decoded by decode_runs in one batched K1
+    launch, each image its decode_run's bits. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch import decompress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import ladder, member_generators
+    from implicit_image_tpu_torch.training.fit import fit, init_fit_state
+
+    tag = "[14a RigL ladder]"
+    print(f"{tag} cut: train.num_steps 2000 x train.multiplier 5 -> 200 x 1, quant.num_steps "
+          f"100 -> 20 ({' '.join(LADDER_CUT)})", flush=True)
+    cfg, densities, dirs, summaries, launches, seconds = _ladder_cli(
+        "14a RigL", LADDER_RUNS["14a RigL"] + LADDER_CUT)
+    steps, q = int(cfg.train.num_steps), int(cfg.quant.num_steps)
+    evals = len([s for s in range(steps) if (s + 1) % int(cfg.train.log_steps) == 0
+                 or s == steps - 1])
+    print(f"{tag} {len(densities)} members in {seconds:.2f} s; launches {launches}", flush=True)
+    _check_ladder_launches(tag, launches, len(densities), steps, evals, q, wide=False)
+    masks = _ladder_members("14a RigL", tag, dirs, summaries, densities, "density",
+                            LADDER_DENSITY_TOL)
+
+    args = ladder.build_ladder_args(cfg)
+    gens = member_generators(torch.Generator().manual_seed(int(cfg.seed)), len(densities))
+    for i, d in enumerate(densities):  # the init counts, drawn as the member's fit draws them
+        cfg_d = dataclasses.replace(args["masking"], density=d)
+        init = init_fit_state(gens[i], args["mdef"], args["mcfg"], args["optim_cfg"], cfg_d,
+                              None, "cpu")[2]
+        counts = {j: int(m.sum()) for j, m in enumerate(init.masks) if m is not None}
+        final = {j: int(m.sum()) for j, m in masks[i].items()}
+        if counts != final:
+            raise AssertionError(f"{tag} d={d}: RigL weight counts {final}, at init {counts}")
+    print(f"{tag} every member's per-layer weight count conserved", flush=True)
+
+    i = densities.index(0.25)
+    gens = member_generators(torch.Generator().manual_seed(int(cfg.seed)), len(densities))
+    single = fit(gens[i], args["mdef"], args["mcfg"], args["grid"], args["img"],
+                 args["train_cfg"], args["optim_cfg"],
+                 dataclasses.replace(args["masking"], density=0.25), device="cuda")
+    model = np.load(dirs[i] / "model.npz")
+    same = all(np.array_equal(model[f"layers.{j}.{k}"], v.cpu().numpy())
+               for j, layer in enumerate(single.params) for k, v in layer.items())
+    same &= all(np.array_equal(masks[i][j], m.cpu().numpy())
+                for j, m in enumerate(single.mask_state.masks) if m is not None)
+    default = json.loads(open(f"{default_run}/summary.json").read())
+    default_steps = json.loads(open(f"{default_run}/config.json").read())["train"]["num_steps"]
+    ms_single = single.wall_seconds / steps * 1e3
+    ms_ladder = summaries[0]["fit_wall_s"] / steps * 1e3
+    print(f"{tag} member d=0.25 {'has' if same else 'DOES NOT HAVE'} the bits of a single fit "
+          f"with its generator (weights and masks). The ladder's fit over the member axis "
+          f"{summaries[0]['fit_wall_s']:.3f} s = {ms_ladder:.3f} ms/step = "
+          f"{ms_ladder / len(densities):.3f} ms per step per member; that single fit "
+          f"{ms_single:.3f} ms/step, phase 5's {default['fit_wall_s'] / int(default_steps) * 1e3:.3f}"
+          " ms/step", flush=True)
+    if not same:
+        raise AssertionError(f"{tag} member 0.25 differs from its single fit")
+
+    sm.reset_launch_counts()
+    images = decompress.decode_runs(dirs, device="cuda")
+    decode_launches = dict(sm.LAUNCHES)
+    alone = [np.asarray(decompress.decode_run(d, out_path=d / "single.png", device="cuda")[0])
+             for d in dirs]
+    decoded_same = all(np.array_equal(a, b) for a, b in zip(images, alone))
+    print(f"{tag} decode_runs over the {len(dirs)} run dirs: launches {decode_launches}; each "
+          f"image {'is' if decoded_same else 'IS NOT'} its decode_run's, bit for bit",
+          flush=True)
+    if decode_launches != {k: int(k == "sine_mlp_fwd_batched") for k in decode_launches}:
+        raise AssertionError(f"{tag} decode_runs launched {decode_launches}")
+    if not decoded_same:
+        raise AssertionError(f"{tag} a decode_runs image differs from its decode_run")
+    return launches
+
+
+def phase_ladder_gmp() -> None:
+    """14b: the GMP ladder (masking=Pruning over final densities) through the
+    CLI with 14a's cut: each member's end density near its own target."""
+    tag = "[14b GMP ladder]"
+    cfg, densities, dirs, summaries, launches, seconds = _ladder_cli(
+        "14b GMP", LADDER_RUNS["14b GMP"] + LADDER_CUT)
+    steps, q = int(cfg.train.num_steps), int(cfg.quant.num_steps)
+    print(f"{tag} cut as 14a, masking.end_when 1500 -> 150; {len(densities)} members in "
+          f"{seconds:.2f} s; launches {launches}", flush=True)
+    _check_ladder_launches(tag, launches, len(densities), steps, 2, q, wide=False)
+    _ladder_members("14b GMP", tag, dirs, summaries, densities, "final_density",
+                    GMP_DENSITY_TOL)
+
+
+def phase_batched_compress() -> None:
+    """14c: batched_compress on BATCH_IMAGES seeded 512² synthetic images
+    (RigL 0.5, k-means 8-bit, zstd): member 0's container the bytes of a
+    B = 1 run with its generator."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch.compress import _quant_config, compose, masking_config
+    from implicit_image_tpu_torch.data import get_grid, synthetic_image
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import batched_compress
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig
+
+    tag = "[14c batched_compress]"
+    cfg = compose(["quant.num_steps=10"])
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=WIDTH)
+    imgs = np.stack([synthetic_image(N_SIDE, N_SIDE, seed=s) for s in range(BATCH_IMAGES)])
+    grid = get_grid(N_SIDE, N_SIDE, "cuda")
+    kw = dict(masking_cfg=masking_config(cfg), quant_cfg=_quant_config(cfg.quant),
+              stream_name="zstd", coding_kwargs={"level": 22})
+    tc = TrainConfig(num_steps=BATCH_STEPS, log_steps=50)
+    shutil.rmtree(P14 + "_batched", ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    many = batched_compress(torch.Generator().manual_seed(0), mdef, mcfg, grid, imgs, tc,
+                            OptimConfig(), stream_root=f"{P14}_batched/b{BATCH_IMAGES}", **kw)
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    one = batched_compress(torch.Generator().manual_seed(0), mdef, mcfg, grid, imgs[:1], tc,
+                           OptimConfig(), stream_root=f"{P14}_batched/b1", **kw)
+    shas = [_sha256(Path(r.stream_dir) / "compressed_weights.data") for r in many + one]
+    print(f"{tag} {BATCH_IMAGES} images, {BATCH_STEPS} + 10 steps in {seconds:.2f} s; launches "
+          f"{launches}; decoded " + ", ".join(f"{r.decoded_psnr:.3f} dB @ {r.compressed_bytes} B"
+                                             for r in many)
+          + f"; member 0 sha256 {shas[0][:16]}, the B = 1 run's {shas[-1][:16]}", flush=True)
+    if shas[0] != shas[-1]:
+        raise AssertionError(f"{tag} member 0 differs from its B = 1 run")
+    if launches["sine_mlp_bwd_batched"] != BATCH_STEPS or not all(
+            math.isfinite(r.decoded_psnr) and r.decoded_psnr >= 20.0 for r in many):
+        raise AssertionError(f"{tag} launches {launches} or a decoded PSNR below 20 dB")
+
+
+def phase_wide_ladder() -> dict:
+    """14d: a 2-member RigL ladder at w182 (kernel width 192), 20 steps: the
+    batched wide backward and the batched sine_mlp_dw on the path."""
+    tag = "[14d wide ladder]"
+    cfg, densities, dirs, summaries, launches, seconds = _ladder_cli("14d wide", WIDE_LADDER)
+    print(f"{tag} w{FINALS_WIDTH}, {len(densities)} members in {seconds:.2f} s; launches "
+          f"{launches}; decoded " + ", ".join(f"{s['Decoded PSNR']:.3f} dB" for s in summaries),
+          flush=True)
+    _check_ladder_launches(tag, launches, len(densities), 20, 2, 5, wide=True)
+    if not all(math.isfinite(s["Decoded PSNR"]) for s in summaries):
+        raise AssertionError(f"{tag} a decoded PSNR is not finite")
+    return launches
+
+
+def phase_parallel(default_run: str) -> dict:
+    """Phase 14; returns the launches of the w128 (14a) and w182 (14d)
+    ladders by width."""
+    rigl = phase_ladder_rigl(default_run)
+    phase_ladder_gmp()
+    phase_batched_compress()
+    return {WIDTH: rigl, FINALS_WIDTH: phase_wide_ladder()}
+
+
 def phase_run_tools(default_run: str) -> dict:
     """Phase 13: the compress and decode CLIs' run tools; returns 13e's
     batched launches per width."""
@@ -1948,6 +2422,7 @@ def main() -> int:
     records = {width: phase_kernels(width) for width in KERNEL_WIDTHS_CHECKED}
     for width in BATCH_WIDTHS:
         records[width]["sine_mlp_fwd_batched"] = phase_batched_kernel(width)
+        records[width].update(phase_batched_backward(width))
     launches, dense_summary = phase_main_path()
     default_dir = phase_default_path(dense_summary)
     phase_presets()
@@ -1961,9 +2436,14 @@ def main() -> int:
     # K1 over a member axis launches on the batched decode of phase 13 (e)
     for width, count in phase_run_tools(default_dir).items():
         path_launches[width]["sine_mlp_fwd_batched"] = count
+    # K2 over a member axis launches on the ladders of phase 14 (a, d)
+    for width, counts in phase_parallel(default_dir).items():
+        for name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched", "sum_partials_batched"):
+            path_launches[width][name] = counts[name]
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
-               "sine_mlp_dw": 128, "sum_partials": 179}
+               "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,
+               "sum_partials": 179, "sum_partials_batched": 179}
     from implicit_image_tpu_torch.ops.sine_mlp import kernel_width
 
     kernels = [

@@ -96,6 +96,14 @@
 // a template instantiation of each forward (MB), so the single launch's
 // code is the one it was; the fp32 and bf16 modes have one, mixed precision
 // (a training mode; decoders render fp32) none.
+// The backward over a member axis (sine_mlp_bwd_batched, the jax.vmap of
+// K2 in the batched fit and the density ladder) is the same: an MB
+// instantiation of sine_mlp_bwd_kernel, sine_mlp_bwd_wide_kernel,
+// sine_mlp_dw_kernel and sum_partials_kernel, grid y = member. Member m's g
+// and dx sit m * n * out and m * n * in floats on, its z stash and partial
+// slices m * gridDim.x slices on, its dW operands m (D-2, n, W) blocks on;
+// sum_partials adds each member's slices in the single launch's order. Each
+// member gets its single launch's bits; fp32 and bf16 only, as the forward.
 //
 // Rows: the kernels index rows with int (tile * T, row0 + r), so a launch
 // takes at most kMaxRows = INT_MAX - 127 rows (n + T - 1 must not wrap);
@@ -187,6 +195,59 @@ __device__ __forceinline__ void to_member(Chain& c, PX& x, PO& out, long long x_
   c.bl += m * c.out_size;
   x += m * x_stride;
   out += m * c.n * (long long)c.out_size;
+}
+
+// A batched backward's member (MB), in shared memory: its chain (weights
+// packed at the kernel width HW, and W^T where the wider kernels read it), x
+// at x_stride floats per member, g and dx at n * out_size and n * in_size,
+// and the wider kernels' dW operands at (D-2, n, HW) floats per member. The
+// kernels read these pointers where they use them: held in registers for
+// the whole kernel, as the batched forward holds its own, they made ptxas
+// spill the batched backward (up to 364 B a thread at width 512) where the
+// single launch reads them from its parameters.
+struct MemberBwd {
+  Chain c;
+  const float* x;
+  const float* g;
+  float* dx;
+  float* dw_a;
+  float* dw_g;
+};
+
+// Thread 0 fills mb for member blockIdx.y; every thread moves its z stash and
+// partial slices to its member's gridDim.x slices (TR x HW rows per stashed
+// layer). Call before anything reads mb or these, then __syncthreads.
+template <int HW, int TR, class PZ, class PP>
+__device__ __forceinline__ void member_bwd(MemberBwd& mb, const Chain& c, const float* x,
+                                           const float* g, float* dx, float* dw_a,
+                                           float* dw_g, PZ& z_all, PP& partials, int n_part,
+                                           long long x_stride) {
+  const long long m = blockIdx.y;
+  const int L = c.depth - 2;
+  if (threadIdx.x == 0) {
+    const long long wm = m * (L > 0 ? L : 1) * (long long)HW * HW;
+    const long long ops = m * (L > 0 ? L : 1) * (long long)c.n * HW;
+    mb.c = c;
+    mb.c.w0 += m * c.in_size * HW;
+    mb.c.wm += wm;
+    if (c.wmt != nullptr) mb.c.wmt += wm;
+    mb.c.wl += m * HW * c.out_size;
+    mb.c.bs += m * (c.depth - 1) * HW;
+    mb.x = x + m * x_stride;
+    mb.g = g + m * c.n * (long long)c.out_size;
+    mb.dx = dx + m * c.n * (long long)c.in_size;
+    mb.dw_a = dw_a != nullptr ? dw_a + ops : nullptr;
+    mb.dw_g = dw_g != nullptr ? dw_g + ops : nullptr;
+  }
+  z_all += m * gridDim.x * (L > 1 ? L - 1 : 1) * (long long)TR * HW;
+  partials += m * gridDim.x * (long long)n_part;
+}
+
+// The chain a backward block reads: its parameter, or (MB) its member's.
+template <bool MB>
+__device__ __forceinline__ const Chain& chain_of(const MemberBwd& mb, const Chain& c) {
+  if constexpr (MB) return mb.c;
+  else return c;
 }
 
 template <bool BF16>
@@ -874,11 +935,20 @@ __device__ __forceinline__ void first_layer_grads(const float* __restrict__ x_s,
 constexpr size_t kBwdSmem =
     sizeof(float) * (3 * BUF + 2 * T * MAX_IO + 4 * H) + 3 * sizeof(uint64_t);
 
-template <bool BF16, bool MX>
+template <bool BF16, bool MX, bool MB>
 __global__ void __launch_bounds__(THREADS, 1)
-sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restrict__ g,
+sine_mlp_bwd_kernel(Chain c_arg, const float* __restrict__ x, const float* __restrict__ g,
                     float* __restrict__ dx, float* __restrict__ z_all,
-                    float* __restrict__ partials, int n_part) {
+                    float* __restrict__ partials, int n_part, long long x_stride) {
+  __shared__ MemberBwd mb;
+  if constexpr (MB) {
+    member_bwd<H, T>(mb, c_arg, x, g, dx, nullptr, nullptr, z_all, partials, n_part, x_stride);
+    __syncthreads();
+  }
+  const Chain& c = chain_of<MB>(mb, c_arg);
+  const auto X = [&] { if constexpr (MB) return mb.x; else return x; };
+  const auto G_ = [&] { if constexpr (MB) return mb.g; else return g; };
+  const auto DX = [&] { if constexpr (MB) return mb.dx; else return dx; };
   extern __shared__ float4 smem4[];
   float* w_s0 = reinterpret_cast<float*>(smem4);
   float* g_s = w_s0 + BUF;  // also weight buffer 1 in the forward pass
@@ -909,7 +979,7 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
   Ring ring{w_s0, bar};
   uint64_t* z_bar = bar + 2;  // z copies into a_s, one phase per copy
   uint32_t z_phase = 0;
-  const auto wm = [wm0 = c.wm](int l) { return wm0 + (size_t)(l - 1) * H * H; };
+  const auto wm = [&c](int l) { return c.wm + (size_t)(l - 1) * H * H; };
   if (L >= 1) ring.issue(0, wm(1));
 
   Acc acc, dc;
@@ -917,8 +987,8 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
     if (L >= 2) ring.issue(1, wm(2));
-    stage_rows<BF16>(x_s, x, row0, c.n, in_size, tid);
-    stage_rows<false>(go_s, g, row0, c.n, out_size, tid);
+    stage_rows<BF16>(x_s, X(), row0, c.n, in_size, tid);
+    stage_rows<false>(go_s, G_(), row0, c.n, out_size, tid);
     __syncthreads();
 
     // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
@@ -983,7 +1053,7 @@ sine_mlp_bwd_kernel(Chain c, const float* __restrict__ x, const float* __restric
 
     // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
     first_layer_grads(x_s, g_s, red, dw0, dbs, in_size, tid);
-    rows_times_narrow<BF16>(g_s, c.w0, 1, H, in_size, nullptr, dx, row0, c.n, tid);
+    rows_times_narrow<BF16>(g_s, c.w0, 1, H, in_size, nullptr, DX(), row0, c.n, tid);
     __syncthreads();
   }
 }
@@ -1175,13 +1245,24 @@ __device__ __forceinline__ void store_dw_operands(const float* __restrict__ a_s,
 // cotangent tiles, the bias partial sums, the ring's mbarriers and the z
 // copy's. The order of the backward is the width-128 kernel's; dW_m is
 // sine_mlp_dw's (dw_a, dw_g: (L, n, G::H) each).
-template <bool BF16, bool MX, class G>
+template <bool BF16, bool MX, class G, bool MB>
 __global__ void __launch_bounds__(G::THREADS, 1)
-sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __restrict__ g,
+sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* __restrict__ g,
                          float* __restrict__ dx, float* __restrict__ z_all,
                          float* __restrict__ partials, int n_part, float* __restrict__ dw_a,
-                         float* __restrict__ dw_g) {
+                         float* __restrict__ dw_g, long long x_stride) {
   constexpr int HW = G::H, NB = G::NB;
+  __shared__ MemberBwd mb;
+  if constexpr (MB) {
+    member_bwd<HW, G::T>(mb, c_arg, x, g, dx, dw_a, dw_g, z_all, partials, n_part, x_stride);
+    __syncthreads();
+  }
+  const Chain& c = chain_of<MB>(mb, c_arg);
+  const auto X = [&] { if constexpr (MB) return mb.x; else return x; };
+  const auto G_ = [&] { if constexpr (MB) return mb.g; else return g; };
+  const auto DX = [&] { if constexpr (MB) return mb.dx; else return dx; };
+  const auto DA = [&] { if constexpr (MB) return mb.dw_a; else return dw_a; };
+  const auto DG = [&] { if constexpr (MB) return mb.dw_g; else return dw_g; };
   extern __shared__ float4 smem4[];
   float* ring_s = reinterpret_cast<float*>(smem4);
   float* a_s = ring_s + NB * G::SLICE;
@@ -1210,10 +1291,10 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
   const int n_tiles = (c.n + G::T - 1) / G::T;
   const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   const int half = L * G::NS, per_tile = 2 * half, total = my_tiles * per_tile;
-  const auto src = [wm = c.wm, wmt = c.wmt, L, half, per_tile](int s) {
+  const auto src = [&c, L, half, per_tile](int s) {
     const int j = s % per_tile;
     const int l = j < half ? 1 + j / G::NS : L - (j - half) / G::NS;
-    return (j < half ? wm : wmt) + (size_t)(l - 1) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
+    return (j < half ? c.wm : c.wmt) + (size_t)(l - 1) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
   };
 
   init_barriers<G::THREADS>(bar, NB + 1);
@@ -1226,8 +1307,8 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
   Acc acc, dc;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * G::T;
-    stage_rows<BF16, G>(x_s, x, row0, c.n, in_size, tid);
-    stage_rows<false, G>(go_s, g, row0, c.n, c.out_size, tid);
+    stage_rows<BF16, G>(x_s, X(), row0, c.n, in_size, tid);
+    stage_rows<false, G>(go_s, G_(), row0, c.n, c.out_size, tid);
     __syncthreads();
 
     // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
@@ -1267,7 +1348,7 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
       __syncthreads();
       add_bias_grad<G>(red, dbs + l * HW, tid);
       const size_t layer = (size_t)(l - 1) * c.n * HW;  // dW_l's operands: a_{l-1}, gz_l
-      store_dw_operands<G>(a_s, g_s, dw_a + layer, dw_g + layer, row0, c.n, tid);
+      store_dw_operands<G>(a_s, g_s, DA() + layer, DG() + layer, row0, c.n, tid);
       if (l >= 3) {  // z_{l-2} streams into a_s while ga is computed
         __syncthreads();
         copy_tile<G>(a_s, z_g + (size_t)(l - 3) * G::BUF, z_bar);
@@ -1280,7 +1361,7 @@ sine_mlp_bwd_wide_kernel(Chain c, const float* __restrict__ x, const float* __re
 
     // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
     first_layer_grads<G>(x_s, g_s, red, dw0, dbs, in_size, tid);
-    rows_times_narrow_wide<BF16, G>(g_s, c.w0, 1, HW, in_size, nullptr, dx, row0, c.n, tid);
+    rows_times_narrow_wide<BF16, G>(g_s, c.w0, 1, HW, in_size, nullptr, DX(), row0, c.n, tid);
     __syncthreads();
   }
 }
@@ -1360,11 +1441,17 @@ __device__ __forceinline__ void warp_mma_at2(Acc acc0, Acc acc1, const float* __
   }
 }
 
-template <bool BF16, int W>
+template <bool BF16, int W, bool MB>
 __global__ void __launch_bounds__(DwGeo<W>::THREADS, 1)
 sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
                    float* __restrict__ partials, int n, int layers, int n_part, int offset) {
   using D = DwGeo<W>;
+  if constexpr (MB) {  // member blockIdx.y: its operands and its splits' partial rows
+    const long long m = blockIdx.y, ops = m * layers * (long long)n * W;
+    a += ops;
+    gz += ops;
+    partials += m * (gridDim.x / (D::TILES * layers)) * (long long)n_part;
+  }
   extern __shared__ float4 smem4[];
   float* ring_s = reinterpret_cast<float*>(smem4);
   uint64_t* bar = reinterpret_cast<uint64_t*>(ring_s + D::NST * D::SLICE);
@@ -1451,9 +1538,14 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+template <bool MB>
 __global__ void __launch_bounds__(kSumThreads, kSumBlocksPerSm)
 sum_partials_kernel(const float4* __restrict__ part, float4* __restrict__ out, int n_rows,
                     int n_cols) {
+  if constexpr (MB) {  // member blockIdx.y: its (n_rows, n_cols) block and its output row
+    part += blockIdx.y * (long long)n_rows * n_cols;
+    out += blockIdx.y * (long long)n_cols;
+  }
   __shared__ float4 red[kSumGroups][kSumCols];
   const int groups = n_rows < kSumGroups ? n_rows : kSumGroups;
   const int g = threadIdx.x / kSumLanes, lane = threadIdx.x % kSumLanes;
@@ -1547,10 +1639,10 @@ int sm_count(int* sms) {
   const float *x, const float *g, const float *w0, const float *wm, const float *wmt,          \
       const float *wl, const float *bs, float *dx, float *z, float *partials, float *dw_a,      \
       float *dw_g, int grid, int n_part, int n, int in_size, int out_size, int depth,          \
-      float omega0, float omega_h, int bf16, void *stream
+      float omega0, float omega_h, int bf16, int members, long long x_stride, void *stream
 #define SINE_MLP_DW_WIDE_ARGS                                                                 \
   const float *a, const float *g, float *partials, int n, int layers, int splits, int n_part, \
-      int offset, int bf16, void *stream
+      int offset, int bf16, int members, void *stream
 
 extern "C" {
 
@@ -1569,10 +1661,14 @@ int SINE_MLP_CAT(sine_mlp_dw_w, SINE_MLP_WIDE)(SINE_MLP_DW_WIDE_ARGS) {
   constexpr size_t smem = dw_smem<SINE_MLP_WIDE>();
   static_assert(smem <= kMaxSmem, "sine_mlp_dw's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch(sine_mlp_dw_kernel<true, SINE_MLP_WIDE>, grid, D::THREADS, smem, s,
-                             a, g, partials, n, layers, n_part, offset)
-                    : launch(sine_mlp_dw_kernel<false, SINE_MLP_WIDE>, grid, D::THREADS, smem, s,
-                             a, g, partials, n, layers, n_part, offset));
+  const dim3 blocks(grid, members);
+  // one member: the single instantiation; more: the batched one (MB)
+  const auto kernel = bf16 ? (members > 1 ? sine_mlp_dw_kernel<true, SINE_MLP_WIDE, true>
+                                          : sine_mlp_dw_kernel<true, SINE_MLP_WIDE, false>)
+                           : (members > 1 ? sine_mlp_dw_kernel<false, SINE_MLP_WIDE, true>
+                                          : sine_mlp_dw_kernel<false, SINE_MLP_WIDE, false>);
+  return (int)launch(kernel, blocks, D::THREADS, smem, s, a, g, partials, n, layers, n_part,
+                     offset);
 }
 #elif SINE_MLP_PART == 1
 int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
@@ -1582,9 +1678,17 @@ int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
   constexpr size_t smem = bwd_wide_smem<G>();
   static_assert(smem <= kMaxSmem, "the backward's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 blocks(grid, members);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
-    return launch(sine_mlp_bwd_wide_kernel<decltype(bf)::value, decltype(mx)::value, G>, grid,
-                  G::THREADS, smem, s, c, x, g, dx, z, partials, n_part, dw_a, dw_g);
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    if constexpr (MXV) {  // mixed precision has no batched instantiation
+      if (members > 1) return cudaErrorInvalidValue;
+    } else if (members > 1) {
+      return launch(sine_mlp_bwd_wide_kernel<BF, false, G, true>, blocks, G::THREADS, smem, s,
+                    c, x, g, dx, z, partials, n_part, dw_a, dw_g, x_stride);
+    }
+    return launch(sine_mlp_bwd_wide_kernel<BF, MXV, G, false>, blocks, G::THREADS, smem, s, c,
+                  x, g, dx, z, partials, n_part, dw_a, dw_g, x_stride);
   });
 }
 #else
@@ -1690,60 +1794,72 @@ int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const
 
 int sine_mlp_max_rows() { return kMaxRows; }
 
-// The width-128 backward. partials: (grid, n_part) floats, n_part a multiple
-// of 4 (16-byte aligned slices); z_scratch: (grid, max(depth-3, 1), T,
-// hidden) floats, T = sine_mlp_tile_rows(hidden); wmt is not read. A wider
-// width is sine_mlp_bwd_wide's and returns cudaErrorInvalidValue here.
-int sine_mlp_bwd(const float* x, const float* g, const float* w0, const float* wm,
-                 const float* wmt, const float* wl, const float* bs, float* dx, float* z_scratch,
-                 float* partials, int grid, int n_part, int n, int in_size, int out_size,
-                 int depth, int hidden, float omega0, float omega_h, int bf16, void* stream) {
-  if (n <= 0 || grid <= 0) return 0;
-  if (n_part % 4 != 0 || hidden != H) return (int)cudaErrorInvalidValue;
-  const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth,
-                             omega0, omega_h);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)by_mode(bf16, [&](auto bf, auto mx) {
-    return launch(sine_mlp_bwd_kernel<decltype(bf)::value, decltype(mx)::value>, grid, THREADS,
-                  kBwdSmem, s, c, x, g, dx, z_scratch, partials, n_part);
-  });
-}
-
-// The wider backward (hidden a width of SINE_MLP_WIDE_GEOS), as sine_mlp_bwd
-// but for dW_m: it writes dW_m's operands into dw_a and dw_g ((depth - 2, n,
-// hidden) floats each, 16-byte aligned) for sine_mlp_dw and leaves the dW_m
-// region of partials alone. wmt: each hidden W transposed.
-int sine_mlp_bwd_wide(const float* x, const float* g, const float* w0, const float* wm,
-                      const float* wmt, const float* wl, const float* bs, float* dx,
-                      float* z_scratch, float* partials, float* dw_a, float* dw_g, int grid,
-                      int n_part, int n, int in_size, int out_size, int depth, int hidden,
-                      float omega0, float omega_h, int bf16, void* stream) {
-  if (n <= 0 || grid <= 0) return 0;
-  if (n_part % 4 != 0 || wmt == nullptr || reinterpret_cast<uintptr_t>(dw_a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(dw_g) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  switch (hidden) {
+// The backward of `members` models of one shape (grid y; the batched
+// instantiation above 1 member, as the forward), x at x_stride floats per
+// member (0: shared). Per member: g (n, out) and dx (n, in) floats, one
+// after another; partials (grid, n_part) floats, n_part a multiple of 4
+// (16-byte aligned slices); z_scratch (grid, max(depth-3, 1), T, hidden)
+// floats, T = sine_mlp_tile_rows(hidden). Width 128 reads neither wmt nor
+// dw_a and dw_g; a wider width (SINE_MLP_WIDE_GEOS) reads wmt (each hidden W
+// transposed) and, instead of summing dW_m, writes its operands into dw_a
+// and dw_g ((depth - 2, n, hidden) floats each per member, 16-byte aligned)
+// for sine_mlp_dw, leaving the dW_m region of partials alone. At most 65,535
+// members; more than one in a mixed-precision mode returns
+// cudaErrorInvalidValue.
+int sine_mlp_bwd_batched(const float* x, const float* g, const float* w0, const float* wm,
+                         const float* wmt, const float* wl, const float* bs, float* dx,
+                         float* z_scratch, float* partials, float* dw_a, float* dw_g,
+                         int members, long long x_stride, int grid, int n_part, int n,
+                         int in_size, int out_size, int depth, int hidden, float omega0,
+                         float omega_h, int bf16, void* stream) {
+  if (n <= 0 || grid <= 0 || members <= 0) return 0;
+  if (n_part % 4 != 0 || members > 65535 || x_stride < 0) return (int)cudaErrorInvalidValue;
+  if (hidden != H) {
+    if (wmt == nullptr || reinterpret_cast<uintptr_t>(dw_a) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(dw_g) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    switch (hidden) {
 #define SINE_MLP_BWD_CASE(W, TR, KS, NB, FTR, FKS, FNB)                                             \
   case W:                                                                                     \
     return sine_mlp_bwd_w##W(x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, dw_a, dw_g,  \
                              grid, n_part, n, in_size, out_size, depth, omega0, omega_h, bf16, \
-                             stream);
-    SINE_MLP_WIDE_GEOS(SINE_MLP_BWD_CASE)
+                             members, x_stride, stream);
+      SINE_MLP_WIDE_GEOS(SINE_MLP_BWD_CASE)
 #undef SINE_MLP_BWD_CASE
-    default: return (int)cudaErrorInvalidValue;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  const Chain c = make_chain(w0, wm, nullptr, wl, bs, nullptr, n, in_size, out_size, depth,
+                             omega0, omega_h);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 blocks(grid, members);
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    if constexpr (MXV) {  // mixed precision has no batched instantiation
+      if (members > 1) return cudaErrorInvalidValue;
+    } else if (members > 1) {
+      return launch(sine_mlp_bwd_kernel<BF, false, true>, blocks, THREADS, kBwdSmem, s, c, x, g,
+                    dx, z_scratch, partials, n_part, x_stride);
+    }
+    return launch(sine_mlp_bwd_kernel<BF, MXV, false>, blocks, THREADS, kBwdSmem, s, c, x, g,
+                  dx, z_scratch, partials, n_part, x_stride);
+  });
 }
 
 // dW_l = a_l^T g_l for l < layers, a and g (layers, n, hidden) floats
-// (sine_mlp_bwd_wide's dw_a, dw_g), the n rows split into `splits`
+// (the wider backward's dw_a, dw_g), the n rows split into `splits`
 // contiguous ranges: split s sums rows [s n / splits, (s + 1) n / splits)
 // into partials[s][offset + l hidden^2 ..] (row-major hidden x hidden).
 // partials: (>= splits, n_part) floats, n_part % 4 == 0, offset + layers
-// hidden^2 <= n_part, offset even; a, g and partials 16-byte aligned.
-int sine_mlp_dw(const float* a, const float* g, float* partials, int n, int layers, int splits,
-                int n_part, int offset, int hidden, int bf16, void* stream) {
+// hidden^2 <= n_part, offset even; a, g and partials 16-byte aligned. Over
+// `members` members (grid y): member m's a and g m (layers, n, hidden)
+// blocks on, its partials m (splits, n_part) rows on.
+int sine_mlp_dw_batched(const float* a, const float* g, float* partials, int members, int n,
+                        int layers, int splits, int n_part, int offset, int hidden, int bf16,
+                        void* stream) {
+  if (members <= 0) return 0;
   if (n <= 0 || layers <= 0 || splits <= 0) return 0;
-  if (n_part % 4 != 0 || offset % 2 != 0 || offset < 0 ||
+  if (n_part % 4 != 0 || offset % 2 != 0 || offset < 0 || members > 65535 ||
       (long long)offset + (long long)layers * hidden * hidden > n_part ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(partials) % 16 != 0)
@@ -1751,7 +1867,8 @@ int sine_mlp_dw(const float* a, const float* g, float* partials, int n, int laye
   switch (hidden) {
 #define SINE_MLP_DW_CASE(W, TR, KS, NB, FTR, FKS, FNB) \
   case W:                                         \
-    return sine_mlp_dw_w##W(a, g, partials, n, layers, splits, n_part, offset, bf16, stream);
+    return sine_mlp_dw_w##W(a, g, partials, n, layers, splits, n_part, offset, bf16, members, \
+                            stream);
     SINE_MLP_WIDE_GEOS(SINE_MLP_DW_CASE)
 #undef SINE_MLP_DW_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -1772,7 +1889,27 @@ int sum_partials(const float* partials, float* out, int n_blocks, int n_part, vo
   if (const int err = sm_count(&sms)) return err;
   const int n_cols = n_part / 4;
   const int grid = n_cols < sms * kSumBlocksPerSm ? n_cols : sms * kSumBlocksPerSm;
-  sum_partials_kernel<<<grid, kSumThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  sum_partials_kernel<false><<<grid, kSumThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(partials), reinterpret_cast<float4*>(out), n_blocks,
+      n_cols);
+  return (int)cudaGetLastError();
+}
+
+// The column sums of `members` (n_blocks, n_part) buffers one after another
+// into `members` rows of out (n_part floats each) in one launch (grid y =
+// member), each member's in sum_partials' order: its bits.
+int sum_partials_batched(const float* partials, float* out, int members, int n_blocks,
+                         int n_part, void* stream) {
+  if (members == 1) return sum_partials(partials, out, n_blocks, n_part, stream);
+  if (n_part <= 0 || n_blocks <= 0 || members <= 0) return 0;
+  if (n_part % 4 != 0 || members > 65535 || reinterpret_cast<uintptr_t>(partials) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (const int err = sm_count(&sms)) return err;
+  const int n_cols = n_part / 4;
+  const dim3 grid(n_cols < sms * kSumBlocksPerSm ? n_cols : sms * kSumBlocksPerSm, members);
+  sum_partials_kernel<true><<<grid, kSumThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(partials), reinterpret_cast<float4*>(out), n_blocks,
       n_cols);
   return (int)cudaGetLastError();

@@ -50,16 +50,19 @@ _SIGNATURES = {
     "sine_mlp_fwd_batched": ([_P] * 7 + [_I, ctypes.c_longlong] + [_I] * 5
                              + [_F, _F, _I, _P], _I),
     "sine_mlp_max_rows": ([], _I),
-    # x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, grid, n_part, n, in,
-    # out, depth, hidden, omega0, omega_h, bf16, stream
-    "sine_mlp_bwd": ([_P] * 10 + [_I] * 7 + [_F, _F, _I, _P], _I),
-    # ... as sine_mlp_bwd with dw_a, dw_g after partials
-    "sine_mlp_bwd_wide": ([_P] * 12 + [_I] * 7 + [_F, _F, _I, _P], _I),
-    # a, g, partials, n, layers, splits, n_part, offset, hidden, bf16, stream
-    "sine_mlp_dw": ([_P] * 3 + [_I] * 7 + [_P], _I),
+    # x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, dw_a, dw_g, members,
+    # x_stride, grid, n_part, n, in, out, depth, hidden, omega0, omega_h,
+    # bf16, stream (one member: the single launch)
+    "sine_mlp_bwd_batched": ([_P] * 12 + [_I, ctypes.c_longlong] + [_I] * 7
+                             + [_F, _F, _I, _P], _I),
+    # a, g, partials, members, n, layers, splits, n_part, offset, hidden, bf16,
+    # stream
+    "sine_mlp_dw_batched": ([_P] * 3 + [_I] * 8 + [_P], _I),
     "sum_partials_groups": ([], _I),
     # partials, out, n_blocks, n_part, stream
     "sum_partials": ([_P, _P, _I, _I, _P], _I),
+    # partials, out, members, n_blocks, n_part, stream
+    "sum_partials_batched": ([_P, _P, _I, _I, _I, _P], _I),
 }
 
 _state = {"lib": None, "ptxas": ""}

@@ -17,6 +17,11 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
     (rnd(a_{l-1}) and rnd(gz_l), row-major), and `sine_mlp_dw` sums their
     product over the rows split into one contiguous range per partial
     slice (`dw_row_splits`), each range into its slice.
+    `sine_mlp_bwd_batched` launches each of them once over a member axis
+    (grid y; `sine_mlp_dw_batched`, `sum_partials_batched`): the
+    counterpart of the jax.vmap of K2 in the JAX package's batched fit and
+    density ladder; each member's gradients come out with the bits of a
+    single launch.
 
 What bounds them on the card, and the design: see the note at the top of
 csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
@@ -33,7 +38,9 @@ Side by side in this module:
   * `siren_chain_reference` / `siren_chain_backward_reference` — the
     plain-torch versions of the same math (the backward recomputes the
     forward and mirrors the kernel step for step);
-    `siren_chain_reference_batched` the batched forward's, member by member;
+    `siren_chain_reference_batched` and
+    `siren_chain_backward_reference_batched` the batched kernels', member by
+    member;
   * `sum_partials_reference` — the partial sum in the kernel's order of
     additions (row groups, then the groups in order), equal to the kernel
     bit for bit on the card; only the tests and chip_smoke.py call it;
@@ -43,8 +50,10 @@ Side by side in this module:
   * `SineMLPFunction` — the autograd.Function. A CUDA tensor runs the
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
     back from one to the other;
-  * `siren_apply_flat_fused` — the [0,1] -> [-1,1] input map and the
-    /2 + 0.5 output map around the Function;
+  * `SineMLPBatchedFunction` — the same over a member axis (the batched
+    fit's); no "+mixed" mode;
+  * `siren_apply_flat_fused`, `siren_apply_flat_batched_fused` — the [0,1]
+    -> [-1,1] input map and the /2 + 0.5 output map around the Functions;
   * `LAUNCHES` — a count per kernel, incremented where the kernel launches;
     `LAUNCHES_BY_MODE` the same counts split by the launch's mode.
 
@@ -88,9 +97,13 @@ __all__ = [
     "siren_chain_reference",
     "siren_chain_backward_reference",
     "siren_chain_reference_batched",
+    "siren_chain_backward_reference_batched",
+    "stack_members",
     "SineMLPFunction",
+    "SineMLPBatchedFunction",
     "siren_apply_flat_fused",
     "siren_apply_flat_batched",
+    "siren_apply_flat_batched_fused",
     "KERNEL_TILE_ROWS",
     "KERNEL_WIDTHS",
     "kernel_width",
@@ -99,6 +112,7 @@ __all__ = [
     "sine_mlp_fwd",
     "sine_mlp_fwd_batched",
     "sine_mlp_bwd",
+    "sine_mlp_bwd_batched",
     "dw_row_splits",
     "siren_chain_dw_operands",
     "sine_mlp_dw_reference",
@@ -127,7 +141,8 @@ _PRECISION_OF = {
 # "+mixed" launch counts under its mode; sum_partials under the mode of the
 # backward it sums)
 LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_fwd_batched": 0, "sine_mlp_bwd": 0,
-            "sine_mlp_dw": 0, "sum_partials": 0}
+            "sine_mlp_bwd_batched": 0, "sine_mlp_dw": 0, "sine_mlp_dw_batched": 0,
+            "sum_partials": 0, "sum_partials_batched": 0}
 LAUNCHES_BY_MODE = {k: {m: 0 for m in PRECISIONS} for k in LAUNCHES}
 
 # the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
@@ -285,6 +300,26 @@ def siren_chain_backward_reference(
 
     dx = _chain_backward(_rnd_params(params, mixed), x, g, cfg, precision, layer)
     return dx, tuple(grads)
+
+
+def stack_members(trees):
+    """Per-member params-like tuples of one shape (params, gradients) -> one
+    tuple whose leaves carry a leading member axis."""
+    return tuple({k: torch.stack([t[i][k] for t in trees]) for k in trees[0][i]}
+                 for i in range(len(trees[0])))
+
+
+def siren_chain_backward_reference_batched(members, x: torch.Tensor, g: torch.Tensor, cfg,
+                                           precision: str = "fp32"):
+    """The plain version of `sine_mlp_bwd_batched`: for M params tuples of one
+    shape, x (N, in) shared or (M, N, in) one per member and g (M, N, out),
+    `siren_chain_backward_reference` of each member, stacked -> (dx (M, N,
+    in), grads whose leaves carry a leading member axis). Only the tests and
+    chip_smoke.py call it; the batched Function runs the same per member."""
+    xs = [x] * len(members) if x.dim() == 2 else list(x)
+    out = [siren_chain_backward_reference(p, xm, gm, cfg, precision)
+           for p, xm, gm in zip(members, xs, g)]
+    return torch.stack([dx for dx, _ in out]), stack_members([gr for _, gr in out])
 
 
 def siren_chain_dw_operands(params, x: torch.Tensor, g: torch.Tensor, cfg,
@@ -452,16 +487,16 @@ def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
     return _fwd_launch([params], x, cfg, bf16, mixed, "sine_mlp_fwd")[0]
 
 
-def _check_one_shape(members) -> None:
+def _check_one_shape(members, what: str = "sine_mlp_fwd_batched") -> None:
     """A batched launch's members share their layer shapes; a mismatch, or
     no member, raises ValueError."""
     if not members:
-        raise ValueError("sine_mlp_fwd_batched: no members")
+        raise ValueError(f"{what}: no members")
     shapes = [tuple((tuple(layer["w"].shape), tuple(layer["b"].shape)) for layer in p)
               for p in members]
     for i, sh in enumerate(shapes[1:], 1):
         if sh != shapes[0]:
-            raise ValueError(f"sine_mlp_fwd_batched: member {i} has layer shapes {sh}, "
+            raise ValueError(f"{what}: member {i} has layer shapes {sh}, "
                              f"member 0 {shapes[0]}; a batched launch takes one shape")
 
 
@@ -505,73 +540,171 @@ def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, 
     return max(1, min(n_tiles, sms)), n_part, sizes
 
 
+def _check_fits(nbytes: int, dev, what: str) -> None:
+    """Raise ValueError, before anything is allocated, when a launch's
+    buffers (`nbytes`) exceed the device's free memory."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    if nbytes > free:
+        raise ValueError(f"{what} needs {nbytes / 2**30:.2f} GiB of buffers and {dev} has "
+                         f"{free / 2**30:.2f} GiB free: fit fewer members at once")
+
+
+def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
+                batched: bool):
+    """Pack, check and launch the backward (and, above width 128,
+    sine_mlp_dw), then the partial sum, once over `members` (params tuples of
+    one shape): x (N, in) shared or (M, N, in), g (M, N, out) when `batched`,
+    else one member with x (N, in) and g (N, out). Returns (dx, grads), every
+    leaf with a leading member axis when `batched`; the launches count under
+    the batched keys when `batched`."""
+    bf16, mixed = precision_modes(precision)
+    lib, hidden, depth, in_size, out_size = _kernel_dims(members[0], x.reshape(-1, x.shape[-1]))
+    om = _omegas(cfg, depth)
+    dev = x.device
+    m = len(members)
+    h = members[0][0]["w"].shape[1]
+    packed = [_pack(_rnd_params(p, mixed), hidden) for p in members]
+    if batched:
+        w0, wm, wl, bs, _ = (torch.stack(t).contiguous() for t in zip(*packed))
+    else:
+        w0, wm, wl, bs, _ = packed[0]
+    wide = hidden != KERNEL_WIDTHS[0]
+    # the wider kernels' gz W^T reads W^T's rows from the ring
+    wmt = wm.transpose(-1, -2).contiguous() if wide else None
+    x = _rnd(x.float(), mixed).contiguous()
+    g = g.float().contiguous()
+    n = x.shape[-2]
+    x_stride = n * in_size if x.dim() == 3 else 0
+    tile = KERNEL_TILE_ROWS[hidden]
+    flags = _mode_flags(bf16, mixed)
+    grid, n_part, sizes = partial_layout(n, depth, in_size, h, out_size, dev)
+    stash, layers = max(depth - 3, 1), max(depth - 2, 1)
+    lead = (m,) if batched else ()
+    if batched:
+        # dx, the z stash, the partials, their sums and the wider kernels' dW
+        # operands, per member (module note on sine_mlp_bwd_batched)
+        _check_fits(4 * m * (n * in_size + grid * stash * tile * hidden + (grid + 1) * n_part
+                             + (2 * layers * n * hidden if wide else 0)), dev,
+                    f"sine_mlp_bwd_batched over {m} members")
+    dx = torch.empty(lead + (n, in_size), dtype=torch.float32, device=dev)
+    # the z stash: one (tile, hidden) slice per block for z_1 .. z_{depth-3}
+    z_scratch = torch.empty(lead + (grid, stash, tile, hidden), dtype=torch.float32,
+                            device=dev)
+    partials = torch.empty(lead + (grid, n_part), dtype=torch.float32, device=dev)
+    # the wider backward's dW operands, rnd(a_{l-1}) and rnd(gz_l) per hidden layer
+    dw_ops = [torch.empty(lead + (layers, n, hidden), dtype=torch.float32, device=dev)
+              for _ in range(2)] if wide else []
+    for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs), ("dx", dx),
+                    ("z_scratch", z_scratch), ("partials", partials)) + (
+                        (("wmt", wmt), ("dw_a", dw_ops[0]), ("dw_g", dw_ops[1])) if wide else ()):
+        _check_cuda(name, t, dev)
+    _check_cuda("g", g, dev, lead + (n, out_size))
+    kernel = "sine_mlp_bwd_batched" if batched else "sine_mlp_bwd"
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sine_mlp_bwd_batched(
+            x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(),
+            wmt.data_ptr() if wide else None, wl.data_ptr(), bs.data_ptr(), dx.data_ptr(),
+            z_scratch.data_ptr(), partials.data_ptr(),
+            dw_ops[0].data_ptr() if wide else None, dw_ops[1].data_ptr() if wide else None,
+            m, x_stride, grid, n_part, n, in_size, out_size, depth, hidden, om[0], om[1],
+            flags, stream,
+        )
+    _raise_on(err, kernel)
+    _count(kernel, bf16)
+    if wide and depth > 2:
+        (sine_mlp_dw_batched if batched else sine_mlp_dw)(*dw_ops, partials, sizes[0],
+                                                          precision)
+    flat = (sum_partials_batched if batched else sum_partials)(partials, precision)
+    if mixed:
+        flat = _rnd(flat, True)
+
+    dw0, dwm, dwl, dbs, dbl = torch.split(flat[..., : sum(sizes)], sizes, dim=-1)
+    dw0 = dw0.reshape(lead + (in_size, hidden))[..., :h]
+    dwm = dwm.reshape(lead + (depth - 2, hidden, hidden))[..., :h, :h]
+    dwl = dwl.reshape(lead + (hidden, out_size))[..., :h, :]
+    dbs = dbs.reshape(lead + (depth - 1, hidden))[..., :h]
+    grads = [{"w": dw0, "b": dbs[..., 0, :]}]
+    grads += [{"w": dwm[..., i - 1, :, :], "b": dbs[..., i, :]} for i in range(1, depth - 1)]
+    grads.append({"w": dwl, "b": dbl})
+    return dx, tuple(grads)
+
+
 def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     """Launch the backward kernel(s) and the partial-sum kernel: returns
     (dx, grads) in the layout of `siren_chain_backward_reference`. Above
     width 128: `sine_mlp_bwd_wide`, then `sine_mlp_dw` for the hidden
     layers' dW into the same partial buffer. Under "+mixed" dW and db come
     out rounded to bf16, as `siren_chain_backward_reference`'s."""
-    bf16, mixed = precision_modes(precision)
-    lib, hidden, depth, in_size, out_size = _kernel_dims(params, x)
-    om = _omegas(cfg, depth)
-    dev = x.device
-    h = params[0]["w"].shape[1]
-    w0, wm, wl, bs, _ = _pack(_rnd_params(params, mixed), hidden)
-    wide = hidden != KERNEL_WIDTHS[0]
-    # the wider kernels' gz W^T reads W^T's rows from the ring
-    wmt = wm.transpose(1, 2).contiguous() if wide else None
-    x = _rnd(x.float(), mixed).contiguous()
-    g = g.float().contiguous()
-    n = x.shape[0]
-    tile = KERNEL_TILE_ROWS[hidden]
-    flags = _mode_flags(bf16, mixed)
-    grid, n_part, sizes = partial_layout(n, depth, in_size, h, out_size, dev)
-    dx = torch.empty_like(x)
-    # the z stash: one (tile, hidden) slice per block for z_1 .. z_{depth-3}
-    z_scratch = torch.empty((grid, max(depth - 3, 1), tile, hidden), dtype=torch.float32,
-                            device=dev)
-    partials = torch.empty((grid, n_part), dtype=torch.float32, device=dev)
-    # the wider backward's dW operands, rnd(a_{l-1}) and rnd(gz_l) per hidden layer
-    dw_ops = [torch.empty((max(depth - 2, 1), n, hidden), dtype=torch.float32, device=dev)
-              for _ in range(2)] if wide else []
-    for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs), ("dx", dx),
-                    ("z_scratch", z_scratch), ("partials", partials)) + (
-                        (("wmt", wmt), ("dw_a", dw_ops[0]), ("dw_g", dw_ops[1])) if wide else ()):
-        _check_cuda(name, t, dev)
-    _check_cuda("g", g, dev, (n, out_size))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if wide:
-            err = lib.sine_mlp_bwd_wide(
-                x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), wmt.data_ptr(),
-                wl.data_ptr(), bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(),
-                partials.data_ptr(), dw_ops[0].data_ptr(), dw_ops[1].data_ptr(), grid, n_part,
-                n, in_size, out_size, depth, hidden, om[0], om[1], flags, stream,
-            )
-        else:
-            err = lib.sine_mlp_bwd(
-                x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), None, wl.data_ptr(),
-                bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(), partials.data_ptr(),
-                grid, n_part, n,
-                in_size, out_size, depth, hidden, om[0], om[1], flags, stream,
-            )
-    _raise_on(err, "sine_mlp_bwd")
-    _count("sine_mlp_bwd", bf16)
-    if wide and depth > 2:
-        sine_mlp_dw(*dw_ops, partials, sizes[0], precision)
-    flat = sum_partials(partials, precision)
-    if mixed:
-        flat = _rnd(flat, True)
+    return _bwd_launch([params], x, g, cfg, precision, batched=False)
 
-    dw0, dwm, dwl, dbs, dbl = torch.split(flat[: sum(sizes)], sizes)
-    dw0 = dw0.view(in_size, hidden)[:, :h]
-    dwm = dwm.view(depth - 2, hidden, hidden)[:, :h, :h]
-    dwl = dwl.view(hidden, out_size)[:h]
-    dbs = dbs.view(depth - 1, hidden)[:, :h]
-    grads = [{"w": dw0, "b": dbs[0]}]
-    grads += [{"w": dwm[i - 1], "b": dbs[i]} for i in range(1, depth - 1)]
-    grads.append({"w": dwl, "b": dbl})
-    return dx, tuple(grads)
+
+def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
+    """Launch the backward once over a member axis: M params tuples of one
+    shape (`members`), mapped coords x on the card, (N, in) shared by every
+    member or (M, N, in) one per member, and output cotangents g (M, N, out)
+    -> (dx (M, N, in), grads), every leaf of grads with a leading member
+    axis; member m's outputs the bits of `sine_mlp_bwd(members[m], x[m],
+    g[m], ...)`. One launch each of the backward (grid y = member), above
+    width 128 of sine_mlp_dw, and of sum_partials, counted under
+    "sine_mlp_bwd_batched", "sine_mlp_dw_batched" and "sum_partials_batched".
+
+    Memory per member, in fp32 buffers, at 512² pixels and depth 8: at
+    width 128 the partials, 132 blocks x 99,844 floats = 53 MB, and the z
+    stash, 132 x 5 x 128 x 128 floats = 43 MB; at width 182 (kernel width
+    192) dW's operands alone, 2 x 6 x 262,144 x 192 floats = 2.4 GB, so a
+    5-member ladder needs about 12 GB. When the M members' buffers exceed
+    the device's free memory this raises ValueError before allocating; it
+    never falls back to single launches. Members of different layer shapes,
+    a "+mixed" mode (no batched kernel: the mixed forward's instantiation
+    spilled) or more than 65,535 members raise ValueError too."""
+    bf16, mixed = precision_modes(precision)
+    if mixed:
+        raise ValueError(f"sine_mlp_bwd_batched: no batched kernel for {precision!r}")
+    _check_one_shape(members, "sine_mlp_bwd_batched")
+    n = x.shape[-2]
+    if x.dim() not in (2, 3) or (x.dim() == 3 and x.shape[0] != len(members)):
+        raise ValueError(f"sine_mlp_bwd_batched: x must be (N, in) or ({len(members)}, N, in), "
+                         f"got {tuple(x.shape)}")
+    out_size = members[0][-1]["w"].shape[1]
+    if tuple(g.shape) != (len(members), n, out_size) or len(members) > 65535:
+        raise ValueError(f"sine_mlp_bwd_batched: g must be ({len(members)}, {n}, {out_size}) "
+                         f"with at most 65,535 members, got {tuple(g.shape)}")
+    return _bwd_launch(members, x, g, cfg, precision, batched=True)
+
+
+def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
+               precision: str, batched: bool) -> None:
+    """Check and launch sine_mlp_dw, over a leading member axis of a, g and
+    partials when `batched`."""
+    name = "sine_mlp_dw_batched" if batched else "sine_mlp_dw"
+    bf16 = _check_precision(precision)
+    dims = 4 if batched else 3
+    if (a.dim() != dims or tuple(a.shape) != tuple(g.shape)
+            or a.shape[-1] not in KERNEL_WIDTHS[1:]):
+        raise ValueError(
+            f"{name}: expected a and g of one shape ({'M, ' if batched else ''}L, N, H), H in "
+            f"{KERNEL_WIDTHS[1:]}; got {tuple(a.shape)} and {tuple(g.shape)}")
+    layers, n, hidden = a.shape[-3:]
+    members = a.shape[0] if batched else 1
+    dev = a.device
+    if (partials.dim() != dims - 1 or partials.shape[-1] % 4
+            or (batched and partials.shape[0] != members)):
+        raise ValueError(f"{name}: expected partials ({'M, ' if batched else ''}S, P), P a "
+                         f"multiple of 4; got {tuple(partials.shape)}")
+    if offset % 2 or offset < 0 or offset + layers * hidden * hidden > partials.shape[-1]:
+        raise ValueError(f"{name}: {layers} dW of {hidden}^2 floats at offset {offset} do "
+                         f"not fit a row of {partials.shape[-1]} (or the offset is odd)")
+    for label, t in (("a", a), ("g", g), ("partials", partials)):
+        _check_cuda(label, t, dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.sine_mlp_dw_batched(a.data_ptr(), g.data_ptr(), partials.data_ptr(), members,
+                                      n, layers, partials.shape[-2], partials.shape[-1], offset,
+                                      hidden, int(bf16),
+                                      torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    _count(name, bf16)
 
 
 def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
@@ -584,28 +717,16 @@ def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset
     each row; anything else, a CPU tensor included, raises ValueError before
     the library is built. No atomics: a call repeats bit for bit. "+mixed"
     computes what its mode does (the operands come rounded already)."""
-    bf16 = _check_precision(precision)
-    if a.dim() != 3 or tuple(a.shape) != tuple(g.shape) or a.shape[2] not in KERNEL_WIDTHS[1:]:
-        raise ValueError(
-            f"sine_mlp_dw: expected a and g of one shape (L, N, H), H in {KERNEL_WIDTHS[1:]}; "
-            f"got {tuple(a.shape)} and {tuple(g.shape)}")
-    layers, n, hidden = a.shape
-    dev = a.device
-    if partials.dim() != 2 or partials.shape[1] % 4:
-        raise ValueError(f"sine_mlp_dw: expected partials (S, P), P a multiple of 4; got "
-                         f"{tuple(partials.shape)}")
-    if offset % 2 or offset < 0 or offset + layers * hidden * hidden > partials.shape[1]:
-        raise ValueError(f"sine_mlp_dw: {layers} dW of {hidden}^2 floats at offset {offset} do "
-                         f"not fit a row of {partials.shape[1]} (or the offset is odd)")
-    for name, t in (("a", a), ("g", g), ("partials", partials)):
-        _check_cuda(name, t, dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.sine_mlp_dw(a.data_ptr(), g.data_ptr(), partials.data_ptr(), n, layers,
-                              partials.shape[0], partials.shape[1], offset, hidden, int(bf16),
-                              torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "sine_mlp_dw")
-    _count("sine_mlp_dw", bf16)
+    _dw_launch(a, g, partials, offset, precision, batched=False)
+
+
+def sine_mlp_dw_batched(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
+                        precision: str) -> None:
+    """sine_mlp_dw over a leading member axis in one launch (grid y =
+    member): a and g (M, L, N, H), partials (M, S, P); member m's rows the
+    bits of `sine_mlp_dw(a[m], g[m], partials[m], offset, precision)`. Raises
+    as sine_mlp_dw does."""
+    _dw_launch(a, g, partials, offset, precision, batched=True)
 
 
 def sum_partials_row_groups(n_blocks: int, groups: int):
@@ -644,26 +765,42 @@ def sum_partials(partials: torch.Tensor, precision: str = "fp32") -> torch.Tenso
     from 0 in row order and the group sums are added in group order, which
     `sum_partials_reference` mirrors bit for bit. No atomics: a call repeats
     bit for bit."""
-    if partials.dim() != 2 or partials.shape[0] < 1 or partials.shape[1] % 4:
+    return _sum_launch(partials, precision, batched=False)
+
+
+def sum_partials_batched(partials: torch.Tensor, precision: str = "fp32") -> torch.Tensor:
+    """The partial sum over a leading member axis in one launch (grid y =
+    member): (M, blocks, P) fp32 on the card -> (M, P), row m the bits of
+    `sum_partials(partials[m])`. Raises as sum_partials does."""
+    return _sum_launch(partials, precision, batched=True)
+
+
+def _sum_launch(partials: torch.Tensor, precision: str, batched: bool) -> torch.Tensor:
+    """Check and launch sum_partials, over a leading member axis of partials
+    when `batched`."""
+    name = "sum_partials_batched" if batched else "sum_partials"
+    if (partials.dim() != (3 if batched else 2) or partials.shape[-2] < 1
+            or partials.shape[-1] % 4):
         raise ValueError(
-            f"sum_partials: expected (blocks >= 1, P) with P a multiple of 4, got "
-            f"{tuple(partials.shape)}")
+            f"{name}: expected ({'M, ' if batched else ''}blocks >= 1, P) with P a multiple "
+            f"of 4, got {tuple(partials.shape)}")
     bf16 = _check_precision(precision)
     dev = partials.device
     _check_cuda("partials", partials, dev)
     lib = _lib()
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return sum_partials(partials, precision)
+            return _sum_launch(partials, precision, batched)
     # The kernel takes ~0.02 ms on the card, about what this call costs the
     # host, so the path stays lean: no device context switch, the raw stream
     # handle (tools/sum_partials_ab.py times each part).
-    n_blocks, n_part = partials.shape
-    out = torch.empty((n_part,), dtype=torch.float32, device=dev)
-    err = lib.sum_partials(partials.data_ptr(), out.data_ptr(), n_blocks, n_part,
-                           torch._C._cuda_getCurrentRawStream(dev.index))
-    _raise_on(err, "sum_partials")
-    _count("sum_partials", bf16)
+    n_blocks, n_part = partials.shape[-2:]
+    out = torch.empty(partials.shape[:-2] + (n_part,), dtype=torch.float32, device=dev)
+    members = (partials.shape[0],) if batched else ()
+    err = getattr(lib, name)(partials.data_ptr(), out.data_ptr(), *members, n_blocks, n_part,
+                             torch._C._cuda_getCurrentRawStream(dev.index))
+    _raise_on(err, name)
+    _count(name, bf16)
     return out
 
 
@@ -705,6 +842,55 @@ class SineMLPFunction(torch.autograd.Function):
         return tuple(out)
 
 
+def _members(flat: Sequence[torch.Tensor], clone: bool):
+    """Leaves with a leading member axis (w0, b0, w1, ...) -> one params tuple
+    per member: views, or (`clone`) copies in their own allocations, so the
+    plain chain runs each member on tensors laid out as a single fit's."""
+    return [_unflatten([t[m].clone() if clone else t[m] for t in flat])
+            for m in range(flat[0].shape[0])]
+
+
+class SineMLPBatchedFunction(torch.autograd.Function):
+    """out (M, N, out) = the chains of M members of one shape on x (N, in),
+    shared, or (M, N, in); every W and b a leaf with a leading member axis.
+    Forward: `sine_mlp_fwd_batched` on a CUDA tensor, the plain chain member
+    by member on a CPU tensor. Backward: `sine_mlp_bwd_batched`, or the plain
+    backward member by member. Member m's outputs and cotangents have the
+    bits of `SineMLPFunction` on member m alone. A "+mixed" mode raises
+    ValueError on either device (no batched kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, precision, *flat):
+        if precision_modes(precision)[1]:
+            raise ValueError(f"SineMLPBatchedFunction: no batched kernel for {precision!r}")
+        members = _members(flat, clone=not x.is_cuda)
+        if x.is_cuda:
+            out = sine_mlp_fwd_batched(members, x, cfg, precision)
+        else:
+            out = siren_chain_reference_batched(members, x, cfg, precision)
+        ctx.save_for_backward(x, *flat)
+        ctx.cfg, ctx.precision = cfg, precision
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *flat = ctx.saved_tensors
+        members = _members(flat, clone=not x.is_cuda)
+        if x.is_cuda:
+            dx, grads = sine_mlp_bwd_batched(members, x, g, ctx.cfg, ctx.precision)
+        else:
+            dx, grads = siren_chain_backward_reference_batched(members, x, g, ctx.cfg,
+                                                               ctx.precision)
+        if not ctx.needs_input_grad[0]:
+            dx = None
+        elif x.dim() == 2:  # one x shared by every member
+            dx = dx.sum(0)
+        out = [dx, None, None]
+        for layer in grads:
+            out += [layer["w"], layer["b"]]
+        return tuple(out)
+
+
 def siren_apply_flat_fused(
     params, coords: torch.Tensor, cfg, precision: str = "fp32"
 ) -> torch.Tensor:
@@ -730,4 +916,17 @@ def siren_apply_flat_batched(members, coords: torch.Tensor, cfg,
             out = sine_mlp_fwd_batched(members, x, cfg, precision)
         else:
             out = siren_chain_reference_batched(members, x, cfg, precision)
+    return out / 2.0 + 0.5
+
+
+def siren_apply_flat_batched_fused(params, coords: torch.Tensor, cfg,
+                                   precision: str = "fp32") -> torch.Tensor:
+    """Forward of M SIRENs of one shape, `params` one tuple whose W and b
+    carry a leading member axis, over flat coords (N, in) in [0, 1] -> (M, N,
+    out), differentiable: through `SineMLPBatchedFunction` (one K1 and one K2
+    launch over the member axis on the card, the plain versions on the CPU),
+    with `siren_apply_flat_fused`'s input and output maps."""
+    x = (coords - 0.5) * 2.0
+    flat = [t for layer in params for t in (layer["w"], layer["b"])]
+    out = SineMLPBatchedFunction.apply(x, cfg, precision, *flat)
     return out / 2.0 + 0.5

@@ -16,8 +16,12 @@ Only `current_sparsity` may live on the device: the magnitude-prune rate is
 then one device subtraction and clamp. Nothing reads a device value.
 
 The JAX schedules take `final_sparsity` as a traced override so that one
-compiled program serves a ladder of final densities; the port has no ladder
-and the schedule uses the value it was built with (the same float32).
+compiled program serves a ladder of final densities. The port builds one
+schedule per fit instead: a GMP density ladder (parallel/ladder.py) builds
+one for each member from that member's masking config (its
+`final_density`), `training.fit.SparseFit` keeps it beside the member's
+mask state, and each member's rates are those of a single fit at its
+target, the same float32 bits.
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ rate; a topology update (sparsity.update_connections, reading this step's
 grads) when (step+1) % interval == 0 and step <= end_when, never at step 0;
 the density. The update cadence is a Python test on the step, and the
 density only changes at an update, so it is recomputed there only. Nothing
-in the step reads a device value on the host.
+in the step reads a device value on the host. The init (`init_fit_state`)
+and the step after the gradients (`optimizer_step` with `SparseFit`) are
+written once, for this loop and for the member-axis loop of the batched
+fit and the density ladder (parallel/batched.py).
 
 A separable model (CoordX) evaluates the loss and the eval through its
 grid forward `mdef.apply`, whose branches run O(H + W), instead of the flat
@@ -90,6 +93,9 @@ __all__ = [
     "make_grad_fn",
     "forward_flat",
     "fit",
+    "init_fit_state",
+    "SparseFit",
+    "optimizer_step",
     "synchronize",
     "set_trainable_",
 ]
@@ -313,6 +319,102 @@ def _schedule(optim_cfg: OptimConfig, num_steps: int):
     return step_lr(optim_cfg.lr, optim_cfg.lr_step_size, optim_cfg.lr_gamma)
 
 
+def init_fit_state(generator: Optional[torch.Generator], mdef: ModelDef, mcfg,
+                   optim_cfg: OptimConfig, masking_cfg: Optional[MaskingConfig] = None,
+                   init_params=None, device="cpu"):
+    """(params, Adam state, MaskState or None) of a fit at step 0: the params
+    copied from `init_params` or drawn from `generator`, then for a sparse
+    config the initial masks (masking.mask_path's lottery masks, or drawn
+    from `generator`) applied to them. The params take no gradient yet
+    (set_trainable_)."""
+    if init_params is not None:
+        params = tuple({k: v.detach().to(device).clone() for k, v in layer.items()}
+                       for layer in init_params)
+    else:
+        params = mdef.init(generator, mcfg, device)
+    opt_state = opt_init(params, optim_cfg)
+    mask_state = None
+    if masking_cfg is not None and not masking_cfg.dense:
+        lottery = (load_lottery_masks(masking_cfg.mask_path) if masking_cfg.mask_path
+                   else None)
+        mask_state = create_mask_state(generator, params, masking_cfg, lottery_masks=lottery)
+        apply_masks_(params, mask_state.masks)
+    return params, opt_state, mask_state
+
+
+def _at(tree, m: Optional[int]):
+    """Member m of a params-like tree whose leaves carry a leading member axis
+    (views); the tree itself when m is None."""
+    if m is None:
+        return tree
+    return tuple({k: v[m] for k, v in layer.items()} for layer in tree)
+
+
+class SparseFit:
+    """The sparse masks of the fit loop: one fit's (`batched` false), or
+    those of M fits whose params carry a leading member axis, one MaskState,
+    prune-rate schedule, masking config and generator per member. `masks`
+    holds what the step multiplies the (stacked) tensors by: the member's
+    masks, or each layer's members' masks stacked."""
+
+    def __init__(self, cfgs, states, generators, batched: bool):
+        self.cfgs, self.states, self.generators = list(cfgs), list(states), list(generators)
+        self.cfg = self.cfgs[0]  # the cadence and the modes, shared by the members
+        self.decays = [build_decay(c) for c in self.cfgs]
+        self.batched = batched
+        self.needs_momentum = "momentum" in (self.cfg.growth_mode,
+                                             self.cfg.redistribution_mode)
+        self.densities = [total_density(st) for st in self.states]
+        self.sparsities = [1.0 - d for d in self.densities]
+        self._stack()
+
+    def _stack(self):
+        if not self.batched:
+            self.masks = self.states[0].masks
+            return
+        self.masks = tuple(None if ms[0] is None else torch.stack(ms)
+                           for ms in zip(*(st.masks for st in self.states)))
+
+    def after_adam_(self, step: int, params, grads, opt_state):
+        """Weights re-masked; Adam's moments masked (dense_gradients false);
+        each member's decayed prune rate; on the cadence ((step + 1) %
+        interval == 0 and step <= end_when) each member's topology update,
+        reading this step's grads. Returns the rates, one per member."""
+        cfg = self.cfg
+        apply_masks_(params, self.masks)
+        if not cfg.dense_gradients:
+            mask_momentum(opt_state, self.masks)
+        rates = [decay(step, s) for decay, s in zip(self.decays, self.sparsities)]
+        if (step + 1) % cfg.interval == 0 and step <= cfg.end_when:
+            momenta = [adam_momentum(opt_state, i) if self.needs_momentum and mk is not None
+                       else None for i, mk in enumerate(self.masks)]
+            for m, st in enumerate(self.states):
+                at = m if self.batched else None
+                mom = momenta if at is None else [None if t is None else t[at] for t in momenta]
+                _, st = update_connections(_at(params, at), _at(grads, at), mom, st, rates[m],
+                                           self.generators[m], self.cfgs[m])
+                self.states[m] = st
+                self.densities[m] = total_density(st)
+                self.sparsities[m] = 1.0 - self.densities[m]
+            self._stack()
+        return rates
+
+
+def optimizer_step(step: int, params, grads, opt_state, lr, optim_cfg: OptimConfig,
+                   sparse: Optional[SparseFit] = None, stats: Optional[dict] = None):
+    """The fit loop's step after the gradients, in the JAX package's order,
+    for one fit or for M fits over a member axis (the batched fit and the
+    density ladder): grads masked when dense_gradients is false; Adam (in
+    place; elementwise, so each member keeps its own bits); then
+    `SparseFit.after_adam_`. Returns (params, opt_state, the members' prune
+    rates or None for a dense fit)."""
+    if sparse is not None and not sparse.cfg.dense_gradients:
+        mask_grads(grads, sparse.masks)
+    params, opt_state = opt_update(grads, opt_state, params, lr, optim_cfg, stats=stats)
+    rates = sparse.after_adam_(step, params, grads, opt_state) if sparse is not None else None
+    return params, opt_state, rates
+
+
 def _host_array(values) -> np.ndarray:
     """Per-step scalars (numpy floats or 0-d tensors) -> a float32 array."""
     if values and isinstance(values[0], torch.Tensor):
@@ -373,14 +475,10 @@ def fit(
                     1.0 - masking_cfg.final_density, dtype=torch.float32, device=device))
         if "generator_state" in ck:
             generator.set_state(ck["generator_state"])
-    elif init_params is not None:
-        params = tuple({k: v.detach().to(device).clone() for k, v in layer.items()}
-                       for layer in init_params)
     else:
-        params = mdef.init(generator, mcfg, device)
+        params, opt_state, mask_state = init_fit_state(generator, mdef, mcfg, optim_cfg,
+                                                       masking_cfg, init_params, device)
     set_trainable_(params, True)
-    if resume_from is None:
-        opt_state = opt_init(params, optim_cfg)
     grad_fns = {}
 
     def grad_fn(prec):
@@ -392,17 +490,7 @@ def fit(
 
     schedule = _schedule(optim_cfg, n)
 
-    if sparse:
-        if mask_state is None:
-            lottery = (load_lottery_masks(masking_cfg.mask_path) if masking_cfg.mask_path
-                       else None)
-            mask_state = create_mask_state(generator, params, masking_cfg, lottery_masks=lottery)
-            apply_masks_(params, mask_state.masks)
-        decay_fn = build_decay(masking_cfg)
-        needs_momentum = "momentum" in (masking_cfg.growth_mode,
-                                        masking_cfg.redistribution_mode)
-        density = total_density(mask_state)
-        sparsity = 1.0 - density
+    sparse_fit = SparseFit([masking_cfg], [mask_state], [generator], False) if sparse else None
 
     boundaries = set()
     if checkpoint_path is not None or watch is not None or stop_psnr is not None:
@@ -421,27 +509,14 @@ def fit(
     for step in range(start, n):
         prec = early if early is not None and step < switch else precision
         loss, grads = grad_fn(prec)(params)
-        if sparse and not masking_cfg.dense_gradients:
-            mask_grads(grads, mask_state.masks)
-        params, opt_state = opt_update(grads, opt_state, params, schedule(step), optim_cfg,
-                                       stats=clip_stats)
+        params, opt_state, rate = optimizer_step(step, params, grads, opt_state, schedule(step),
+                                                 optim_cfg, sparse_fit, stats=clip_stats)
         losses.append(loss)
         if clip_stats is not None:
             clip_scales.append(clip_stats["clip_scale"])
         if sparse:
-            apply_masks_(params, mask_state.masks)
-            if not masking_cfg.dense_gradients:
-                mask_momentum(opt_state, mask_state.masks)
-            rate = decay_fn(step, sparsity)
-            if (step + 1) % masking_cfg.interval == 0 and step <= masking_cfg.end_when:
-                momenta = [adam_momentum(opt_state, i) if needs_momentum and m is not None
-                           else None for i, m in enumerate(mask_state.masks)]
-                params, mask_state = update_connections(
-                    params, grads, momenta, mask_state, rate, generator, masking_cfg)
-                density = total_density(mask_state)
-                sparsity = 1.0 - density
-            rates.append(rate)
-            densities.append(density)
+            rates.append(rate[0])
+            densities.append(sparse_fit.densities[0])
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
                 pred = forward_flat(mdef, mcfg, params, coords, (h, w), prec)
@@ -453,7 +528,7 @@ def fit(
         if step + 1 in boundaries:
             if checkpoint_path is not None:
                 save_checkpoint(checkpoint_path, params, opt_state,
-                                mask_state if sparse else None, generator, step + 1)
+                                sparse_fit.states[0] if sparse else None, generator, step + 1)
             if watch is not None:
                 watch(params, opt_state, step + 1)
             if stop_psnr is not None:
@@ -481,5 +556,5 @@ def fit(
         metrics["test_loss"][i], metrics["psnr"][i], metrics["psnr_8bit"][i] = tl, p, p8
     set_trainable_(params, False)
     return FitResult(params=params, opt_state=opt_state, metrics=metrics,
-                     wall_seconds=wall, mask_state=mask_state, stopped_at=stopped_at,
-                     stop_psnr_db=stop_db)
+                     wall_seconds=wall, mask_state=sparse_fit.states[0] if sparse else None,
+                     stopped_at=stopped_at, stop_psnr_db=stop_db)

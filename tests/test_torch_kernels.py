@@ -4,7 +4,8 @@ card can check: the codebook finetune repeats bit for bit, MS-SSIM agrees
 with the CPU, and a RigL fit on the card keeps each layer's weight count;
 since the fit-options slice, the precision schedule's launches per mode,
 the kernels under mixed precision, a bit-exact resume and a hashgrid fit
-that repeats bit for bit.
+that repeats bit for bit; since the batched slice, K2 over a member axis
+and batched fits, each member the bits of its single launch or fit.
 
 Every test here is marked `cuda` and skips (inside the test) without a CUDA
 device: a CUDA kernel has no interpret mode. The file imports torch and the
@@ -273,8 +274,8 @@ def test_autograd_function_on_card_matches_cpu(cuda_device, precision):
         out = m.apply_flat(params, coords.to(dev), c, precision)
         ((out - target.to(dev)) ** 2).mean().backward()
         launched = {k: sm.LAUNCHES[k] - before[k] for k in before}
-        assert launched == ({"sine_mlp_fwd": 1, "sine_mlp_bwd": 1, "sine_mlp_dw": 0,
-                             "sum_partials": 1}
+        assert launched == ({k: int(k in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials"))
+                             for k in before}
                             if dev.type == "cuda" else {k: 0 for k in before})
         results.append((out.detach().cpu(),
                         [layer[k].grad.cpu() for layer in params for k in KEYS]))
@@ -460,8 +461,8 @@ def test_wavelet_siren_on_card_launches_twice_and_matches_cpu(cuda_device):
     m, c = build_model("wavelet_siren", depth=4, hidden_size=32, height=64, width=64)
     params = m.init(torch.Generator().manual_seed(3), c)
     launched, cpu, card = _card_vs_cpu(m, c, params, (64, 64), cuda_device)
-    assert launched == {"sine_mlp_fwd": 2, "sine_mlp_bwd": 2, "sine_mlp_dw": 0,
-                        "sum_partials": 2}
+    assert launched == {k: 2 * (k in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials"))
+                        for k in sm.LAUNCHES}
     _assert_close(cpu, card, 1e-4, 1e-4)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -500,7 +501,8 @@ def test_feathermap_siren_on_card_launches_kernels_and_matches_cpu(cuda_device):
                                     "masking": {"name": "Feathermap", "density": 0.2}})
     params = m.init(torch.Generator().manual_seed(3), c)
     launched, cpu, card = _card_vs_cpu(m, c, params, (32, 32), cuda_device)
-    assert launched == {"sine_mlp_fwd": 1, "sine_mlp_bwd": 1, "sine_mlp_dw": 0, "sum_partials": 1}
+    assert launched == {k: int(k in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials"))
+                        for k in sm.LAUNCHES}
     assert len(card[1]) == 3
     _assert_close(cpu, card, 1e-4, 1e-4)
 
@@ -678,6 +680,101 @@ def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, 
         assert torch.equal(per[i], sm.sine_mlp_fwd(p, xs[i].clone(), c, precision))
     ref = sm.siren_chain_reference_batched(members, x, c, precision)
     assert float((shared - ref).abs().max()) <= (1e-4 if precision == "fp32" else 1.5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (2, 64, 300), (8, 182, 3001),
+                                            (4, 256, 2000), (3, 512, 1000)])
+def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,
+                                                         n):
+    """K2 over a member axis (M = 3) at every kernel width, both modes: one
+    launch each of the backward, of sine_mlp_dw above width 128 and of the
+    partial sum, each member's dx, dW and db the bits of its own single
+    launch, with one shared x and with one x per member; within the single
+    backward's limits of the plain version."""
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    gen = torch.Generator().manual_seed(5)
+    members = [m.init(gen, c, cuda_device) for _ in range(3)]
+    x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    xs = (torch.rand((3, n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((3, n, 3), generator=gen).to(cuda_device)
+    wide = hidden > 128 and depth > 2
+    before = dict(sm.LAUNCHES)
+    shared = sm.sine_mlp_bwd_batched(members, x, g, c, precision)
+    per = sm.sine_mlp_bwd_batched(members, xs, g, c, precision)
+    torch.cuda.synchronize()
+    launched = {k: sm.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {k: 2 * (k in ("sine_mlp_bwd_batched", "sum_partials_batched")
+                                or (k == "sine_mlp_dw_batched" and wide)) for k in before}
+    for (dx, grads), xm in ((shared, [x] * 3), (per, [t.clone() for t in xs])):
+        for i, p in enumerate(members):
+            dx_1, grads_1 = sm.sine_mlp_bwd(p, xm[i], g[i].clone(), c, precision)
+            assert torch.equal(dx[i], dx_1)
+            for a, b in zip(grads, grads_1):
+                for k in KEYS:
+                    assert torch.equal(a[k][i], b[k]), (i, k)
+    dx_r, grads_r = sm.siren_chain_backward_reference_batched(members, x, g, c, precision)
+    tol = 1e-4 if precision == "fp32" else 2e-2
+    for a, b in [(shared[0], dx_r)] + [(a[k], b[k]) for a, b in zip(shared[1], grads_r)
+                                       for k in KEYS]:
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_batched_backward_too_large_raises_before_allocating(cuda_device):
+    """Members whose buffers exceed the card's free memory (w512, d8, 2^22
+    rows: ~100 GB of dW operands each) raise ValueError before the launch's
+    buffers are allocated; nothing falls back to single launches."""
+    m, c = build_model("siren", depth=8, hidden_size=512)
+    gen = torch.Generator().manual_seed(6)
+    members = [m.init(gen, c, cuda_device) for _ in range(2)]
+    n = 1 << 22
+    x = torch.zeros((n, 2), device=cuda_device)
+    g = torch.zeros((2, n, 3), device=cuda_device)
+    torch.cuda.synchronize()
+    before, allocated = dict(sm.LAUNCHES), torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="fit fewer members"):
+        sm.sine_mlp_bwd_batched(members, x, g, c, "fp32")
+    assert sm.LAUNCHES == before
+    assert torch.cuda.memory_allocated() - allocated < 64 << 20  # the packed weights at most
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masking", [None, "RigL"])
+def test_batched_fit_is_single_fits_bit_for_bit(cuda_device, masking):
+    """batched_fit on the card: each member's params, masks and metrics the
+    bits of a single fit with its generator, and each step one K1 and one K2
+    launch over the member axis (no single launch)."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.data import synthetic_image
+    from implicit_image_tpu_torch.parallel.batched import batched_fit, member_generators
+    from implicit_image_tpu_torch.sparsity import MaskingConfig
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("siren", depth=4, hidden_size=32)
+    grid = get_grid(32, 32, cuda_device)
+    imgs = np.stack([synthetic_image(32, 32, seed=s) for s in range(3)])
+    tc, oc = TrainConfig(num_steps=30, log_steps=10), OptimConfig(lr=1e-3)
+    mk = MaskingConfig(density=0.5, end_when=20, interval=5) if masking else None
+    sm.reset_launch_counts()
+    res = batched_fit(torch.Generator().manual_seed(2), m, c, grid, imgs, tc, oc, mk)
+    launched = dict(sm.LAUNCHES)
+    assert launched["sine_mlp_bwd_batched"] == 30 and launched["sum_partials_batched"] == 30
+    assert launched["sine_mlp_fwd_batched"] == 30 + 3  # the steps and the evals
+    assert launched["sine_mlp_bwd"] == launched["sine_mlp_fwd"] == 0
+    gens = member_generators(torch.Generator().manual_seed(2), 3)
+    for i in range(3):
+        single = fit(gens[i], m, c, grid, imgs[i], tc, oc, mk)
+        for a, b in zip(res.params, single.params):
+            for k in KEYS:
+                assert torch.equal(a[k][i], b[k]), (i, k)
+        for k, v in single.metrics.items():
+            assert np.array_equal(res.metrics[k][i], v, equal_nan=True), (i, k)
+        if mk is not None:
+            for a, b in zip(res.mask_state.masks, single.mask_state.masks):
+                assert torch.equal(a[i], b)
 
 
 @pytest.mark.cuda

@@ -32,6 +32,8 @@ def test_port_imports_without_jax():
         "import implicit_image_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 30, names\n"
+        "assert {'implicit_image_tpu_torch.parallel.' + m for m in "
+        "('batched', 'pipeline', 'ladder')} <= set(names), names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "def banned(m):\n"
