@@ -170,12 +170,39 @@ Phases, each printing its own line:
      w182 for 20 steps: the batched wide backward and the batched
      sine_mlp_dw on the path.
 
-Each of phases 4-14 sets the launch counts to 0 just before its run and
+ 15. the compress CLI's last options (PR 12), each through compress.main
+     (and decode_run where it writes a container) at 512², phase 5's
+     configuration unless named, 200 + 20 steps unless named, its PSNR
+     above its floor (P15_FLOOR, from the JAX package's CPU runs at 128²,
+     tests/phase15_floors.py): (a) quant=qat entropy_coding=zstd with
+     masking=none (scripts/run_measurements_r4.sh:11): int8 codes and an
+     fp16 qscale for each quantized layer; then the QAT finetune repeated
+     in this process from the run's fit params, its launches counted (K2
+     and sum_partials once per step, K1 once more for its eval), its
+     codes and scales the container's bit for bit and the render of them
+     decode_run's image bit for bit; (b) quant.qscheme=per_tensor under
+     RigL: uint8 labels and a 256-entry codebook, the same checks, and
+     every pruned weight exactly 0 after the finetune and in the decoded
+     state; (c) optim=shampoo (lr 0.1, graft_norm): RigL's counts
+     conserved, ms per step beside phase 5's, and one update refreshing
+     its inverse roots (the batched eigh) against one reusing them; (d)
+     optim.preconditioner=ekfac (interval 10, eps 0.1): ms per step beside
+     phase 5's, one preconditioning with and without the bases'
+     recompute, then 20 steps on the chunked capture (pixel_chunks=2);
+     (e) the EKFAC fit stopped at 100 with a checkpoint and resumed to 200:
+     model.npz and mask.npz of (d)'s sha256; (f) Fourier at
+     train.matmul_precision=bfloat16 (no kernel launch) and Feathermap
+     0.2 under the precision schedule (K1/K2/sum_partials in the bf16
+     mode for steps [0, 15) and the eval among them, fp32 after), 20 steps
+     each.
+
+Each of phases 4-15 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
 of 12 only; sine_mlp_fwd_batched in 13 (e) and 14 only; the member-axis
 K2 (sine_mlp_bwd_batched, sum_partials_batched, and sine_mlp_dw_batched at
-w182) in 14 only; nothing in phase 8, in 11 (d) and in 12 (f)-(h). In phase 3, sum_partials must equal its plain
+w182) in 14 only; nothing in phase 8, in 11 (d), in 12 (f)-(h) and in 15 (f)'s
+Fourier run. In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
@@ -394,6 +421,50 @@ BATCH_IMAGES, BATCH_STEPS = 4, 100  # 14c: batched_compress, 100 fit + 10 finetu
 WIDE_LADDER = ["img=synthetic", f"mlp.hidden_size={FINALS_WIDTH}", "entropy_coding=zstd",
                "masking=RigL", "masking.density=0.25,0.5", "train.num_steps=20",
                "train.log_steps=10", "quant.num_steps=5"]
+
+# phase 15: the compress CLI's last options at full width (512², SIREN
+# d8/w128 unless named), in phase 5's configuration (RigL 0.5) unless named,
+# each cut to 200 fit + 20 finetune steps unless named: (a) QAT as
+# scripts/run_measurements_r4.sh:11 runs it (masking=none, zstd; per
+# channel), (b) QAT per tensor, (c) Shampoo (conf/optim/shampoo.yaml: lr
+# 0.1, graft_norm), (d) the EKFAC preconditioner (interval 10, eps 0.1) and
+# a 20-step fit on its chunked capture, (e) an EKFAC resume, (f) Fourier at
+# bfloat16 and Feathermap under the precision schedule, 20 steps each
+P15 = "outputs/chip_smoke_p15"
+P15_CUT = ["train.num_steps=200", "train.log_steps=100", "quant.num_steps=20"]
+P15_RUNS = {
+    "15a qat": P15_CUT + ["masking=none", "quant=qat", "entropy_coding=zstd"],
+    "15b qat per_tensor": P15_CUT + ["quant=qat", "quant.qscheme=per_tensor",
+                                     "entropy_coding=zstd"],
+    "15c shampoo": P15_CUT + ["optim=shampoo", "entropy_coding=plain"],
+    "15d ekfac": P15_CUT + ["+optim.preconditioner=ekfac", "entropy_coding=plain"],
+    "15d ekfac chunks": ["+optim.preconditioner=ekfac", "train.pixel_chunks=2",
+                         "train.num_steps=20", "train.log_steps=10", "quant=none",
+                         "entropy_coding=none"],
+    "15f fourier bf16": ["mlp=fourier", "train.matmul_precision=bfloat16", "masking=none",
+                         "quant=none", "entropy_coding=none", "train.num_steps=20",
+                         "train.log_steps=10"],
+    "15f feathermap schedule": ["masking=Feathermap", "masking.density=0.2",
+                                "train.matmul_precision_early=bfloat16", "quant=none",
+                                "entropy_coding=none", "train.num_steps=20",
+                                "train.log_steps=10"],
+}
+EKFAC_RESUME = ["+optim.preconditioner=ekfac", "quant=none", "entropy_coding=none",
+                "train.log_steps=100"]
+# PSNR floors (dB; decoded, or the fit's where the run writes no container)
+# from the JAX package's own CPU run of each configuration at 128²
+# (PYTHONPATH=. python tests/phase15_floors.py; every product fp32 there),
+# its reading beside each: 20 dB where it reads 30 or more, 12 dB below
+# that and for the 20-step fits, as in phases 11, 12 and 14
+P15_FLOOR = {
+    "15a qat": 12.0,                  # JAX 28.660 dB (fit 42.242)
+    "15b qat per_tensor": 12.0,       # JAX 27.241 dB (fit 43.652)
+    "15c shampoo": 12.0,              # JAX 22.668 dB (fit 28.649)
+    "15d ekfac": 20.0,                # JAX 38.043 dB
+    "15d ekfac chunks": 12.0,         # JAX 20.393 dB (fit)
+    "15f fourier bf16": 12.0,         # JAX 15.422 dB (fit)
+    "15f feathermap schedule": 12.0,  # JAX 15.403 dB (fit)
+}
 
 def _time_ms(fn, reps: int = 10) -> float:
     import torch
@@ -1626,9 +1697,11 @@ def phase_families() -> None:
             raise AssertionError(f"{tag} PSNR {psnr} is not finite or below {floor} dB")
 
 
-def _p12_run(tag: str, overrides, decode: bool = True) -> dict:
-    """One phase-12 run through compress.main (and decompress.decode_run when
-    it writes a container), the launch counts set to 0 just before it."""
+def _p12_run(tag: str, overrides, decode: bool = True, floors=None) -> dict:
+    """One phase-12 (or 15) run through compress.main (and
+    decompress.decode_run when it writes a container), the launch counts set
+    to 0 just before it; its PSNR held to floors[tag] (P12_FLOOR by
+    default)."""
     import numpy as np
 
     from implicit_image_tpu_torch import compress, decompress
@@ -1662,7 +1735,7 @@ def _p12_run(tag: str, overrides, decode: bool = True) -> dict:
           f"{summary.get('quant_wall_s', 0.0):.3f} s); fit PSNR {summary['PSNR']:.3f} dB, "
           f"{'decoded' if stream != 'none' else 'fit'} PSNR {psnr:.3f} dB, bytes {nbytes}; "
           f"launches by mode {by_mode}", flush=True)
-    floor = P12_FLOOR.get(tag.strip("[]"), -math.inf)
+    floor = (P12_FLOOR if floors is None else floors).get(tag.strip("[]"), -math.inf)
     if not (math.isfinite(psnr) and psnr >= floor):
         raise AssertionError(f"{tag} PSNR {psnr} is not finite or below {floor} dB")
     return {"cfg": cfg, "psnr": psnr, "bytes": nbytes, "summary": summary, "ms_step": ms_step,
@@ -2407,6 +2480,270 @@ def phase_fit_options(dense_run: str, default_run: str) -> None:
     phase_hashgrid()
 
 
+def _p15(tag: str) -> dict:
+    """One phase-15 run of P15_RUNS (its floor P15_FLOOR's)."""
+    name = tag.strip("[]")
+    out = f"{P15}_{name.split(' ', 1)[1].replace(' ', '_')}"
+    return _p12_run(tag, P15_RUNS[name] + [f"output_dir={out}"], floors=P15_FLOOR)
+
+
+def _load_run_params(run_dir: str, mcfg, device):
+    """(params, masks or None) of a run dir's model.npz / mask.npz on device."""
+    import numpy as np
+    import torch
+
+    model = np.load(f"{run_dir}/model.npz")
+    n = len(mcfg.layer_dims)
+    params = tuple({k: torch.from_numpy(model[f"layers.{i}.{k}"]).to(device) for k in ("w", "b")}
+                   for i in range(n))
+    if not Path(f"{run_dir}/mask.npz").is_file():
+        return params, None
+    mask = np.load(f"{run_dir}/mask.npz")
+    return params, tuple(torch.from_numpy(mask[f"layers.{i}.mask"]).to(device)
+                         if f"layers.{i}.mask" in mask.files else None for i in range(n))
+
+
+def _phase_qat(tag: str, qscheme: str) -> None:
+    """15a / 15b: QAT through compress.main and decode_run; the container's
+    layout; the finetune repeated in this process from the run's fit params
+    and masks, counting its launches (K1 and K2 run its STE steps): its codes
+    and scales (or labels and codebook) are the container's bit for bit,
+    pruned weights stay exactly 0, and the render of the container's rule
+    from those codebooks is decode_run's image bit for bit."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.coding import decompress_state_dict, read_raw_container
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.quant import quantized_layer_indices
+    from implicit_image_tpu_torch.training.quant_phase import quant_finetune
+
+    r = _p15(tag)
+    cfg, run_dir = r["cfg"], r["run_dir"]
+    _check_launches(r["launches"], f"{tag} path")
+    mdef, mcfg = build_model_from_config(cfg)
+    quant_cfg = compress._quant_config(cfg.quant)
+    container = f"{run_dir}/model_quantized"
+    raw = read_raw_container(container, "zstd")
+    params, masks = _load_run_params(run_dir, mcfg, "cuda")
+    qidx = quantized_layer_indices(params, quant_cfg)
+    for i in qidx:
+        lw = raw[f"layers.{i}.labeled_weight"]
+        if qscheme == "per_channel":
+            ok = (lw.dtype == np.int8 and f"layers.{i}.qscale" in raw
+                  and raw[f"layers.{i}.qscale"].shape == (lw.shape[1],)
+                  and f"layers.{i}.centroids" not in raw)
+        else:
+            ok = (lw.dtype == np.uint8 and raw[f"layers.{i}.centroids"].shape == (256,)
+                  and f"layers.{i}.qscale" not in raw)
+        if not ok:
+            entries = {k: (v.dtype, v.shape) for k, v in raw.items()
+                       if k.startswith(f"layers.{i}.")}
+            raise AssertionError(f"{tag} layer {i}: container entries {entries}")
+    img = compress._load_image(cfg.img)
+    grid = get_grid(*img.shape[:2], "cuda")
+    sm.reset_launch_counts()
+    qres = quant_finetune(params, img, mdef, mcfg, grid, quant_cfg, compress._optim_config(cfg),
+                          precision="fp32", masks=masks)
+    launches = dict(sm.LAUNCHES)
+    steps = quant_cfg.num_steps
+    dec_params = []
+    for i, (layer, book) in enumerate(zip(qres.params, qres.codebooks)):
+        if book is None:
+            dec_params.append(dict(layer))
+            continue
+        if qscheme == "per_channel":
+            same = (np.array_equal(book.codes.cpu().numpy(), raw[f"layers.{i}.labeled_weight"])
+                    and np.array_equal(book.scales.cpu().numpy().astype(np.float16),
+                                       raw[f"layers.{i}.qscale"]))
+            w = book.codes.float() * book.scales.half().float()[None, :]
+        else:
+            same = (np.array_equal(book.labels.cpu().numpy(), raw[f"layers.{i}.labeled_weight"])
+                    and np.array_equal(book.centroids.cpu().numpy().astype(np.float16),
+                                       raw[f"layers.{i}.centroids"]))
+            w = book.centroids.half().float()[book.labels.long()]
+        if not same:
+            raise AssertionError(f"{tag} layer {i}: the repeated finetune's codebook is not "
+                                 "the container's")
+        dec_params.append({**layer, "w": w})
+    with torch.no_grad():
+        in_process = mdef.apply(tuple(dec_params), grid, mcfg, "fp32").cpu().numpy()
+    decoded, _ = decompress.decode_run(run_dir, device="cuda")
+    dec_state = decompress_state_dict(container, "zstd")
+    zeros = 0
+    if masks is not None:
+        for i, m in enumerate(masks):
+            if m is None:
+                continue
+            pruned = m.cpu().numpy() == 0
+            zeros += int(pruned.sum())
+            if (qres.params[i]["w"].cpu().numpy()[pruned].any()
+                    or dec_state[f"layers.{i}.weight"][pruned].any()):
+                raise AssertionError(f"{tag} layer {i}: a pruned weight is not 0 after QAT")
+    print(f"{tag} {qscheme}: {len(qidx)} quantized layers; the finetune repeated in process: "
+          f"quant PSNR {qres.metrics['quant_psnr']:.3f} dB (compress.main "
+          f"{r['summary']['Quant PSNR']:.3f}), codebooks the container's, {zeros} pruned "
+          f"weights 0; its launches {launches}; in-process render "
+          f"{'==' if np.array_equal(in_process, decoded) else '!='} decode_run's", flush=True)
+    if (launches["sine_mlp_bwd"] != steps or launches["sum_partials"] != steps
+            or launches["sine_mlp_fwd"] != steps + 1):
+        raise AssertionError(f"{tag} the QAT finetune's launches {launches}: expected K2 and "
+                             f"sum_partials {steps}, K1 {steps + 1}")
+    if qres.metrics["quant_psnr"] != r["summary"]["Quant PSNR"]:
+        raise AssertionError(f"{tag} the QAT finetune does not repeat bit for bit")
+    if not np.array_equal(in_process, decoded):
+        raise AssertionError(f"{tag} decode_run's image is not the in-process render")
+
+
+def _rigl_counts(tag: str, r: dict) -> None:
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress
+
+    cfg = r["cfg"]
+    init = _initial_counts(cfg, compress.masking_config(cfg))
+    masks = np.load(f"{r['run_dir']}/mask.npz")
+    final = {int(k.split(".")[1]): int(masks[k].sum()) for k in masks.files}
+    print(f"{tag} RigL counts init {init}, final {final}", flush=True)
+    if final != init:
+        raise AssertionError(f"{tag} RigL changed a layer's weight count")
+
+
+def _wall_ms(fn, reps: int) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _shampoo_parts(cfg) -> dict:
+    """ms of one Shampoo update on the d8/w128 SIREN's leaves (random grads)
+    that refreshes every inverse root (update_freq 1: the batched eigh and
+    the roots) and of one that reuses them, wall clock with the card
+    synchronized, 20 updates each."""
+    import torch
+
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.optim.shampoo import shampoo_init, shampoo_update
+
+    mdef, mcfg = build_model_from_config(cfg)
+    ocfg = compress._optim_config(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, freq in (("refresh", 1), ("cached", 10**9)):
+        params = mdef.init(torch.Generator().manual_seed(0), mcfg, "cuda")
+        grads = tuple({k: torch.randn(v.shape, device="cuda", generator=g) * 1e-3
+                       for k, v in layer.items()} for layer in params)
+        state = shampoo_init(params, ocfg.epsilon)
+        shampoo_update(grads, state, params, 1e-4, update_freq=freq)  # the first step refreshes
+
+        def step():
+            shampoo_update(grads, state, params, 1e-4, update_freq=freq)
+
+        out[name] = _wall_ms(step, 20)
+    return out
+
+
+def _ekfac_parts(cfg, run_dir: str) -> dict:
+    """ms of one EKFAC preconditioning of the run's fit params (capture, the
+    moments, the KFE products) with the bases recomputed and without,
+    wall clock with the card synchronized, 5 calls each."""
+    import torch
+
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.optim.ekfac import ekfac_init
+    from implicit_image_tpu_torch.training.fit import EkfacFit
+
+    mdef, mcfg = build_model_from_config(cfg)
+    params, _ = _load_run_params(run_dir, mcfg, "cuda")
+    img = compress._load_image(cfg.img)
+    coords = get_grid(*img.shape[:2], "cuda").reshape(-1, 2)
+    target = torch.as_tensor(img, device="cuda").reshape(-1, 3)
+    grads = tuple({k: torch.ones_like(v) * 1e-3 for k, v in layer.items()} for layer in params)
+    ek = EkfacFit(mdef, mcfg, coords, target, compress._optim_config(cfg), 1, ekfac_init(params))
+    ek.precondition(0, params, grads)
+    return {"recompute": _wall_ms(lambda: ek.precondition(0, params, grads), 5),
+            "moments only": _wall_ms(lambda: ek.precondition(1, params, grads), 5)}
+
+
+def phase_optimizers(default_ms_step: float) -> None:
+    """15c-e: Shampoo and EKFAC through compress.main, their ms per step
+    beside phase 5's Adam step, the eigh share; the chunked capture; an EKFAC
+    resume of the same bits as the straight run."""
+    tag = "[15c shampoo]"
+    r = _p15(tag)
+    _check_launches(r["launches"], f"{tag} path")
+    _rigl_counts(tag, r)
+    parts = _shampoo_parts(r["cfg"])
+    print(f"{tag} fit {r['ms_step']:.3f} ms/step against phase 5's Adam {default_ms_step:.3f}; "
+          f"one Shampoo update refreshing its inverse roots (batched eigh) "
+          f"{parts['refresh']:.3f} ms, reusing them {parts['cached']:.3f} ms: the eigh and "
+          f"roots {parts['refresh'] - parts['cached']:.3f} ms of each step", flush=True)
+
+    tag = "[15d ekfac]"
+    r = _p15(tag)
+    _check_launches(r["launches"], f"{tag} path")
+    _rigl_counts(tag, r)
+    parts = _ekfac_parts(r["cfg"], r["run_dir"])
+    print(f"{tag} fit {r['ms_step']:.3f} ms/step against phase 5's Adam {default_ms_step:.3f}; "
+          f"one preconditioning (the capture at 512², the moments, the KFE products) "
+          f"recomputing the bases {parts['recompute']:.3f} ms, without "
+          f"{parts['moments only']:.3f} ms (a recompute every 10 steps)", flush=True)
+    c = _p15("[15d ekfac chunks]")
+    _check_launches(c["launches"], "[15d ekfac chunks] path")
+
+    tag = "[15e ekfac resume]"
+    half = _p12_run("[15e first 100]", EKFAC_RESUME + [
+        "train.num_steps=100", "train.checkpoint=true", f"output_dir={P15}_resume_half"])
+    rest = _p12_run("[15e resumed]", EKFAC_RESUME + [
+        "train.num_steps=200", f"train.resume={half['run_dir']}/checkpoint.npz",
+        f"output_dir={P15}_resume_rest"])
+    shas = {name: (_sha256(f"{x['run_dir']}/model.npz"), _sha256(f"{x['run_dir']}/mask.npz"))
+            for name, x in (("straight", r), ("resumed", rest))}
+    print(f"{tag} sha256 of model.npz / mask.npz: straight 200 (15d) {shas['straight'][0][:16]} "
+          f"/ {shas['straight'][1][:16]}, resumed at 100 {shas['resumed'][0][:16]} / "
+          f"{shas['resumed'][1][:16]}", flush=True)
+    if shas["straight"] != shas["resumed"]:
+        raise AssertionError(f"{tag} the resumed EKFAC fit's params differ from the straight "
+                             "run's")
+
+
+def phase_precision_families() -> None:
+    """15f: Fourier at bfloat16 (no kernel) and Feathermap under the
+    precision schedule (its base SIREN's K1/K2 in the bf16 mode for the
+    planned steps, fp32 after)."""
+    f = _p15("[15f fourier bf16]")
+    if any(f["launches"].values()):
+        raise AssertionError(f"[15f fourier bf16] a kernel launched: {f['launches']}")
+    r = _p15("[15f feathermap schedule]")
+    n = int(r["cfg"].train.num_steps)
+    expect = _expected_modes(n, int(round(n * 0.75)), int(r["cfg"].train.log_steps), 0, 0)
+    got = {k: r["by_mode"][k] for k in expect}
+    print(f"[15f feathermap schedule] launches by mode {got}, planned {expect}", flush=True)
+    if got != expect:
+        raise AssertionError(f"[15f feathermap schedule] the launches do not follow the plan")
+
+
+def phase_last_options(default_run: str) -> None:
+    """Phase 15: QAT, Shampoo, EKFAC, Fourier and Feathermap beyond fp32."""
+    summary = json.loads(open(f"{default_run}/summary.json").read())
+    steps = json.loads(open(f"{default_run}/config.json").read())["train"]["num_steps"]
+    _phase_qat("[15a qat]", "per_channel")
+    _phase_qat("[15b qat per_tensor]", "per_tensor")
+    phase_optimizers(summary["fit_wall_s"] / int(steps) * 1e3)
+    phase_precision_families()
+
+
 def main() -> int:
     import torch
 
@@ -2440,6 +2777,7 @@ def main() -> int:
     for width, counts in phase_parallel(default_dir).items():
         for name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched", "sum_partials_batched"):
             path_launches[width][name] = counts[name]
+    phase_last_options(default_dir)
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
                "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,

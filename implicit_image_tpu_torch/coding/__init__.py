@@ -24,8 +24,13 @@ Format 4, the progressive container (coding/progressive.py): a base
 prefix that decodes on its own (`base_only=True`) and a refinement after
 it; read_raw_container hands either back under the flat names.
 
+QAT's per-channel layers (quant.qscheme=per_channel) store int8 codes as
+`labeled_weight` and the per-output-channel scales as `qscale` (in the
+centroids' dtype); they decode to codes * scales[None, :]. Per-tensor QAT
+layers are labels + a 2^b-entry codebook like k-means'.
+
 Not ported, and raising NotImplementedError: the inter-frame `prev` deltas
-of sequences and per-channel QAT containers.
+of sequences.
 `decode_and_render` renders the decoded params through the model registry
 (the fused SIREN chain, the CUDA kernel on the card, for SIREN) in fp32;
 `render_region` renders any H x W lattice, a window of it, or row bands of
@@ -73,7 +78,9 @@ def linear_state_dict(params, codebooks=None, half: Union[bool, str] = True
     """Flatten params to an ordered name -> array dict (layer by layer, keys
     sorted):
     `layers.{i}.weight` / `.bias`, or `.labeled_weight` (uint8 when the
-    labels fit, else uint16) + `.centroids` for quantized layers.
+    labels fit, else uint16) + `.centroids` for quantized layers, or for a
+    PerChannelCodebook (QAT per channel) `.labeled_weight` as int8 codes +
+    `.qscale`, its scales.
 
     `half`: True — every float fp16 (the reference protocol); "auto" —
     unquantized tensors fp32, centroids fp16; False — every float fp32."""
@@ -87,7 +94,10 @@ def linear_state_dict(params, codebooks=None, half: Union[bool, str] = True
         # out the same container
         for key in sorted(layer):
             arr = _to_numpy(layer[key])
-            if key == "w" and book is not None:
+            if key == "w" and book is not None and hasattr(book, "scales"):
+                state[f"layers.{i}.labeled_weight"] = _to_numpy(book.codes).astype(np.int8)
+                state[f"layers.{i}.qscale"] = _to_numpy(book.scales).astype(cdtype)
+            elif key == "w" and book is not None:
                 labels = _to_numpy(book.labels)
                 dtype = np.uint8 if labels.max(initial=0) < 256 else np.uint16
                 state[f"layers.{i}.labeled_weight"] = labels.astype(dtype)
@@ -331,8 +341,9 @@ def _resolve_delta_offsets(dir_name: Path, info: Dict[str, Any],
 def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain",
                           delta_artifact: Optional[Union[str, Path]] = None,
                           base_only: bool = False) -> Dict[str, np.ndarray]:
-    """Read the container; re-materialize weight = centroids[labels], and
-    for a delta container w = (offset + centroids[labels]) * (labels != 0)
+    """Read the container; re-materialize weight = centroids[labels] (codes
+    * scales[None, :] where the layer has a `qscale`), and for a delta
+    container w = (offset + centroids[labels]) * (labels != 0)
     and the XOR residuals undone (`delta_artifact` overrides where the
     artifact is looked for). `base_only`: a progressive container's base
     prefix alone. Returns float32 arrays keyed by `layers.{i}.weight` etc."""
@@ -352,11 +363,14 @@ def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain"
 
     out: Dict[str, np.ndarray] = {}
     for name, arr in raw.items():
-        if "centroids" in name:
+        if "centroids" in name or "qscale" in name:
             continue
-        if "qscale" in name:
-            raise NotImplementedError("per-channel QAT containers are not ported yet")
         if "labeled_weight" in name:
+            qscale_name = name.replace("labeled_weight", "qscale")
+            if qscale_name in raw:  # QAT per channel: codes * scales
+                scales = np.asarray(raw[qscale_name], np.float32)
+                out[name.replace("labeled_weight", "weight")] = arr.astype(np.float32) * scales
+                continue
             weight = raw[name.replace("labeled_weight", "centroids")][arr]
             layer_i = int(name.split(".", 2)[1])
             if layer_i in delta_layers:

@@ -1,7 +1,7 @@
 """Orchestrator / CLI (counterpart of implicit_image_tpu/compress.py): load
 image -> fit (dense, or sparse under the masking group; cold, or warm from a
-meta-init) -> k-means codebook finetune (absolute, or delta against the
-meta-init) -> container -> decode the written container and render ->
+meta-init) -> quantization finetune (k-means codebooks, absolute or delta
+against the meta-init, or QAT) -> container -> decode the written container and render ->
 report (decoded PSNR, container bytes, decoded MS-SSIM).
 
     python -m implicit_image_tpu_torch.compress            # the JAX default: RigL
@@ -26,6 +26,12 @@ report (decoded PSNR, container bytes, decoded MS-SSIM).
     python -m implicit_image_tpu_torch.compress mlp.fast_sine=false
     python -m implicit_image_tpu_torch.compress mlp=hashgrid quant.skip_layers=[] \
         optim.lr=1e-2 optim.epsilon=1e-15
+    # the other quantizer and optimizers: QAT (per channel or per tensor),
+    # Shampoo, the EKFAC preconditioner
+    python -m implicit_image_tpu_torch.compress quant=qat entropy_coding=zstd
+    python -m implicit_image_tpu_torch.compress quant=qat quant.qscheme=per_tensor
+    python -m implicit_image_tpu_torch.compress optim=shampoo
+    python -m implicit_image_tpu_torch.compress +optim.preconditioner=ekfac
     # the run tools: per-layer bit allocation, the progressive container,
     # a profiler trace of the fit, a multirun sweep
     python -m implicit_image_tpu_torch.compress quant.bit_alloc=auto entropy_coding=zstd
@@ -79,11 +85,15 @@ copied here), which the port reads as that cadence only. `optim.grad_clip`
 clips to a global norm; Adam ignores the Shampoo/EKFAC keys (momentum,
 weight_decay, epsilon, update_freq, graft_norm, precond_*), as in the JAX
 package, and the run logs so once.
-Not ported yet, and raising when set: optim=shampoo and
-optim.preconditioner, quantizers other than k-means, and mlp=fourier and
-masking=Feathermap at train.matmul_precision bfloat16 or null or under
-train.mixed_precision (so also mlp=fourier with quant.bit_alloc=auto or a
-base finetune, whose renders run JAX's default bf16 pass).
+The quantizer: quant=kmeans, or quant=qat (quant.qscheme per_channel, the
+default: int8 codes + per-channel scales in the container; or per_tensor:
+labels + a 2^b-entry codebook), whose STE finetune runs the fit's chain
+(training/quant_phase.py); quant.delta and quant.bit_alloc=auto are
+k-means only (delta with QAT raises, bit_alloc=auto is skipped for QAT,
+as in the JAX package). The optimizer: optim=adam or optim=shampoo
+(optim/shampoo.py; also the finetune's), and optim.preconditioner=ekfac
+(optim/ekfac.py) on either; a Shampoo fit takes no train.checkpoint or
+train.resume.
 Ignored: TPU-runtime keys with no meaning here (train.use_pallas) and the
 logging keys other than logging.use (no W&B sink).
 """
@@ -122,6 +132,7 @@ from implicit_image_tpu_torch.data import (
 )
 from implicit_image_tpu_torch.models import build_model_from_config
 from implicit_image_tpu_torch.ops.sine_mlp import precision_from_config
+from implicit_image_tpu_torch.optim import optimizer_registry
 from implicit_image_tpu_torch.ops.ssim import ms_ssim
 from implicit_image_tpu_torch.quant import QuantConfig, quantized_layer_indices
 from implicit_image_tpu_torch.sparsity import MaskingConfig
@@ -136,7 +147,8 @@ log = logging.getLogger("implicit_image_tpu_torch")
 # default, one bf16 pass on the TPU
 _JAX_DEFAULT_PRECISION = precision_from_config(None)
 
-# the OptimConfig keys that Adam does not read, in either package
+# the OptimConfig keys that Adam does not read, in either package (EKFAC's
+# precond_* are read under optim.preconditioner=ekfac, Adam's or Shampoo's)
 _ADAM_IGNORES = ("momentum", "weight_decay", "epsilon", "update_freq", "graft_norm",
                  "precond_eps", "precond_interval")
 
@@ -230,19 +242,14 @@ def _auto_alloc_dominates(cfg, qres_auto, qres_uniform, mdef, mcfg, img, run_dir
 
 
 def _optim_config(cfg) -> OptimConfig:
-    if cfg.optim.get("name") != "adam":
-        raise NotImplementedError(
-            f"optim={cfg.optim.get('name')} is not ported yet (ROADMAP.md); use optim=adam"
-        )
-    if cfg.optim.get("preconditioner"):
-        raise NotImplementedError(
-            f"optim.preconditioner={cfg.optim.preconditioner!r} is not ported yet (ROADMAP.md)")
+    if cfg.optim.get("name") not in optimizer_registry:
+        raise KeyError(f"optim={cfg.optim.get('name')!r} is not one of {optimizer_registry}")
     fields = {f.name for f in dataclasses.fields(OptimConfig)}
     unknown = set(cfg.optim) - fields
     if unknown:
         raise KeyError(f"optim keys {sorted(unknown)} are not OptimConfig fields")
     ignored = sorted(k for k in cfg.optim if k in _ADAM_IGNORES)
-    if ignored:
+    if ignored and cfg.optim.get("name") == "adam":
         log.info("optim: Adam ignores %s (Shampoo's and EKFAC's keys), as the JAX package's "
                  "Adam does; its eps is 1e-8", ignored)
     # PyYAML parses bare "3e-4" as a string: coerce what looks numeric, as
@@ -299,6 +306,7 @@ def _quant_config(q) -> QuantConfig:
         ecvq_lambda=float(q.get("ecvq_lambda", 0.0)),
         lr=float(q["lr"]) if q.get("lr") is not None else None,
         row_stride=int(q.get("row_stride", 1)),
+        qscheme=str(q.get("qscheme", "per_channel")),
         skip_layers=(tuple(int(i) for i in q["skip_layers"])
                      if q.get("skip_layers") is not None else None),
         bits_per_layer=(tuple(int(b) if b is not None else None for b in q["bits_per_layer"])
@@ -403,8 +411,10 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
             # per-layer weights and Adam's first moment, as the JAX package's watch
             tensors = {f"layers.{i}.{k}": v.detach().cpu().numpy()
                        for i, layer in enumerate(params_w) for k, v in layer.items()}
-            tensors.update({f"layers.{i}.{k}.grad_ema": v.detach().cpu().numpy()
-                            for i, layer in enumerate(opt_state_w.mu) for k, v in layer.items()})
+            if hasattr(opt_state_w, "mu"):
+                tensors.update({f"layers.{i}.{k}.grad_ema": v.detach().cpu().numpy()
+                                for i, layer in enumerate(opt_state_w.mu)
+                                for k, v in layer.items()})
             logger.histogram(step_w, tensors)
 
         fit_kwargs["watch"] = watch
@@ -464,6 +474,8 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         if bool(quant_raw.get("delta", False)):
             # residual codebooks against the meta-init, which becomes shared
             # encoder/decoder state: the container records it by path and sha256
+            if quant_cfg.name != "KMeans":
+                raise ValueError("quant.delta requires quant=kmeans")
             if not init_path:
                 raise ValueError(
                     "quant.delta codes residuals against the meta-init "
@@ -477,7 +489,8 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         qres = quant_finetune(params, img, mdef, mcfg, grid, quant_cfg, optim_cfg,
                               **quant_kwargs)
         quant_wall = qres.wall_seconds
-        if str(quant_raw.get("bit_alloc", "none")) == "auto" and quant_cfg.bits_per_layer is None:
+        if (str(quant_raw.get("bit_alloc", "none")) == "auto" and quant_cfg.name == "KMeans"
+                and quant_cfg.bits_per_layer is None):
             # per-layer widths (quant/allocate.py), finetuned too, adopted only
             # if the allocation dominates the uniform codebooks end to end
             from implicit_image_tpu_torch.quant.allocate import allocate_bits

@@ -39,7 +39,8 @@ def params_to_numpy(params: Sequence[dict]) -> Tuple[dict, ...]:
 
 def checkpoint_from_jax(path, device="cpu"):
     """A JAX package's `checkpoint.npz` -> the port's training state: {"step",
-    "params", "opt_state", and for a sparse fit "mask_state"}, tensors on
+    "params", "opt_state", for a sparse fit "mask_state" and for an EKFAC
+    fit "ekfac_state" (an optim.ekfac.EkfacState)}, tensors on
     `device` (training/checkpoint.py reads both packages' files: they share
     their key names). The JAX PRNG key does not carry over; a fit resumed
     from it draws from the generator it is given."""

@@ -15,12 +15,15 @@ V = V1 @ V2, scaled by a trainable scalar per tensor:
 
 The wrapped model's params are ({"w": V1}, {"w": V2}, {"b": scalers,
 frozen_*}), so the optimizer, the codebook finetune and the container take
-them like any other layer stack. `materialize` is one fp32 `torch.matmul`
+them like any other layer stack. `materialize` is one `torch.matmul`
 V1 @ V2 (in the JAX package an XLA product, outside any Pallas kernel)
 followed by each tensor's slice times its scaler; the base model then runs
 as it is, so over SIREN the materialized weights enter the fused chain (the
 CUDA kernels on the card) and autograd carries the kernels' dW back into
 V1, V2 and the scalers. A separable base (CoordX) keeps its grid forward.
+The product takes the fit's precision mode as the JAX package's does: true
+fp32 (TF32 off on the card), or one bf16 pass in the "bf16" mode; under
+"+mixed" it stays fp32 and the base model casts what it reads.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 
 from implicit_image_tpu_torch.models import ModelDef
 from implicit_image_tpu_torch.ops import check_fp32
+from implicit_image_tpu_torch.ops.precision import matmul, modes
 
 __all__ = [
     "FeatherSpec",
@@ -111,10 +115,12 @@ def feather_init(generator: torch.Generator, base_params, mcfg, compress: float,
     return fparams, spec, _frozen_extras(base_params)
 
 
-def materialize(fparams, spec: FeatherSpec, frozen=None, n_layers: int = None):
-    """Feather params -> the base model's params: one product, then slices."""
+def materialize(fparams, spec: FeatherSpec, frozen=None, n_layers: int = None,
+                bf16: bool = False):
+    """Feather params -> the base model's params: one product (one bf16
+    pass when bf16), then slices."""
     v1, v2, scalers = fparams[0]["w"], fparams[1]["w"], fparams[2]["b"]
-    flat = (v1 @ v2).reshape(-1)
+    flat = matmul(v1, v2, bf16).reshape(-1)
     n_layers = n_layers or (max(e[0] for e in spec.entries) + 1)
     layers: list = [dict() for _ in range(n_layers)]
     for i, extras in (frozen or {}).items():
@@ -164,16 +170,16 @@ def build_feather_model(mdef: ModelDef, mcfg, compress: float) -> ModelDef:
                 scal_layer[k] = v
         return (params[0], params[1], scal_layer), frozen
 
-    def apply_flat(params, coords, cfg, precision="fp32"):
-        check_fp32(coords, "masking=Feathermap")
+    def base_params(params, x, precision):
+        check_fp32(x, "masking=Feathermap")
         fparams, frozen = _split(params)
-        return mdef.apply_flat(materialize(fparams, spec, frozen, n_layers), coords, cfg,
-                               precision)
+        return materialize(fparams, spec, frozen, n_layers, bf16=modes(precision)[0])
+
+    def apply_flat(params, coords, cfg, precision="fp32"):
+        return mdef.apply_flat(base_params(params, coords, precision), coords, cfg, precision)
 
     def apply(params, grid, cfg, precision="fp32"):
-        check_fp32(grid, "masking=Feathermap")
-        fparams, frozen = _split(params)
-        return mdef.apply(materialize(fparams, spec, frozen, n_layers), grid, cfg, precision)
+        return mdef.apply(base_params(params, grid, precision), grid, cfg, precision)
 
     return ModelDef(
         name=f"feather_{mdef.name}",

@@ -12,10 +12,14 @@ implicit_image_tpu/models/fourier.py):
   * torch nn.Linear's default init: W, b ~ U(±1/sqrt(fan_in)), drawn from an
     explicit torch.Generator after B.
 
-The products are plain `torch.matmul` in fp32 (the JAX package computes
-them with jnp.dot, outside any Pallas kernel). On the card they must be
-true fp32: with `torch.backends.cuda.matmul.allow_tf32` set, a CUDA forward
-raises rather than run 1-pass TF32. Only the "fp32" precision is ported.
+The products are plain `torch.matmul` (the JAX package computes them
+with jnp.dot, outside any Pallas kernel), in every precision mode of the
+fit, as CoordX's (ops/precision.py): "fp32" true fp32 (on the card a CUDA
+forward raises while `torch.backends.cuda.matmul.allow_tf32` is set, rather
+than run 1-pass TF32); "bf16" one bf16 pass per product, the encoding's
+too; "+mixed" the JAX package's casts: the encoding, each W and b, and each
+hidden activation rounded to bf16 (the products exact in fp32, the
+sigmoid in fp32).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Sequence, Tuple
 import torch
 
 from implicit_image_tpu_torch.ops import check_fp32
+from implicit_image_tpu_torch.ops.precision import matmul, maybe_cast, modes
 
 __all__ = ["FourierConfig", "init_fourier", "fourier_apply", "fourier_apply_flat"]
 
@@ -72,14 +77,15 @@ def init_fourier(generator: torch.Generator, cfg: FourierConfig, device="cpu"):
 def fourier_apply_flat(params, coords: torch.Tensor, cfg: FourierConfig,
                        precision: str = "fp32") -> torch.Tensor:
     """Forward over flat coordinates (N, input_size) -> (N, output_size)."""
-    check_fp32(coords, "mlp=fourier", precision)
-    xp = (2.0 * math.pi * coords) @ params[0]["B"]
-    x = torch.cat([torch.sin(xp), torch.cos(xp)], dim=-1)
+    check_fp32(coords, "mlp=fourier")
+    bf16, mixed = modes(precision)
+    xp = matmul(2.0 * math.pi * coords, params[0]["B"], bf16)
+    x = maybe_cast(torch.cat([torch.sin(xp), torch.cos(xp)], dim=-1), mixed)
     layers = params[1:]
     for i, layer in enumerate(layers):
-        x = x @ layer["w"] + layer["b"]
+        x = matmul(x, maybe_cast(layer["w"], mixed), bf16) + maybe_cast(layer["b"], mixed)
         if i < len(layers) - 1:
-            x = torch.relu(x)
+            x = maybe_cast(torch.relu(x), mixed)
     return torch.sigmoid(x)
 
 

@@ -1,6 +1,8 @@
-"""Optimizers (counterpart of implicit_image_tpu/optim/__init__.py): Adam,
-with opt-in global-norm gradient clipping (optim.grad_clip). Shampoo and
-the EKFAC preconditioner are not ported yet (ROADMAP.md) and raise."""
+"""Optimizers (counterpart of implicit_image_tpu/optim/__init__.py): Adam
+and Shampoo (optim.name, `optimizer_registry`), both after the opt-in
+global-norm gradient clipping (optim.grad_clip). The EKFAC preconditioner
+(optim.preconditioner=ekfac, optim/ekfac.py) acts on the gradients in the
+fit loop before either (training/fit.py)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,12 +17,17 @@ from implicit_image_tpu_torch.optim.adam import (
     adam_update,
 )
 from implicit_image_tpu_torch.optim.schedules import cosine_lr, step_lr
+from implicit_image_tpu_torch.optim.shampoo import ShampooState, shampoo_init, shampoo_update
 
 __all__ = [
     "AdamState",
     "adam_init",
     "adam_update",
     "adam_momentum",
+    "ShampooState",
+    "shampoo_init",
+    "shampoo_update",
+    "optimizer_registry",
     "step_lr",
     "cosine_lr",
     "clip_by_global_norm",
@@ -28,16 +35,7 @@ __all__ = [
     "opt_update",
 ]
 
-
-def _check(optim_cfg) -> None:
-    if optim_cfg.name != "adam":
-        raise NotImplementedError(
-            f"optim={optim_cfg.name} is not ported yet (ROADMAP.md); use optim=adam"
-        )
-    if getattr(optim_cfg, "preconditioner", None):
-        raise NotImplementedError(
-            f"optim.preconditioner={optim_cfg.preconditioner!r} is not ported yet (ROADMAP.md)"
-        )
+optimizer_registry = ["adam", "shampoo"]
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -56,16 +54,20 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def opt_init(params, optim_cfg):
-    _check(optim_cfg)
-    return adam_init(params)
+    """The state of optim_cfg.name's optimizer."""
+    if optim_cfg.name == "adam":
+        return adam_init(params)
+    if optim_cfg.name == "shampoo":
+        return shampoo_init(params, float(optim_cfg.epsilon))
+    raise KeyError(f"optim={optim_cfg.name!r} is not one of {optimizer_registry}")
 
 
 def opt_update(grads, opt_state, params, lr: float, optim_cfg, stats: Optional[dict] = None):
-    """One optimizer step (in place); returns (params, state). With
-    optim.grad_clip > 0 the gradients are clipped to that global norm first,
-    where the JAX package clips (after the fit's gradient masking), and
-    `stats`, when given, receives the clip's scale under "clip_scale"."""
-    _check(optim_cfg)
+    """One step of optim_cfg.name's optimizer (in place); returns (params,
+    state). With optim.grad_clip > 0 the gradients are clipped to that
+    global norm first, where the JAX package clips (after the fit's
+    gradient masking and the EKFAC preconditioning), and `stats`, when
+    given, receives the clip's scale under "clip_scale"."""
     clip = float(getattr(optim_cfg, "grad_clip", 0.0) or 0.0)
     if clip > 0:
         trainable = tuple({k: v for k, v in layer.items() if k in TRAINABLE_KEYS}
@@ -73,4 +75,11 @@ def opt_update(grads, opt_state, params, lr: float, optim_cfg, stats: Optional[d
         grads, scale = clip_by_global_norm(trainable, clip)
         if stats is not None:
             stats["clip_scale"] = scale
-    return adam_update(grads, opt_state, params, lr)
+    if optim_cfg.name == "adam":
+        return adam_update(grads, opt_state, params, lr)
+    if optim_cfg.name == "shampoo":
+        return shampoo_update(grads, opt_state, params, lr, momentum=float(optim_cfg.momentum),
+                              weight_decay=float(optim_cfg.weight_decay),
+                              graft_norm=bool(optim_cfg.graft_norm),
+                              update_freq=int(optim_cfg.update_freq))
+    raise KeyError(f"optim={optim_cfg.name!r} is not one of {optimizer_registry}")

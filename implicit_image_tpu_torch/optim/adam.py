@@ -62,8 +62,11 @@ def adam_update(grads, state: AdamState, params, lr: float,
     return params, state
 
 
-def adam_momentum(state: AdamState, layer: int, key: str = "w") -> torch.Tensor:
-    """mu / (sqrt(nu) + 1e-8) of one tensor: the momentum statistic of
-    SNFS's growth and redistribution (the reference's
-    get_momentum_for_weight)."""
-    return state.mu[layer][key] / (torch.sqrt(state.nu[layer][key]) + 1e-8)
+def adam_momentum(state, layer: int, key: str = "w") -> torch.Tensor:
+    """The momentum statistic of SNFS's growth and redistribution (the
+    reference's get_momentum_for_weight): mu / (sqrt(nu) + 1e-8) of one
+    tensor for an AdamState, the raw momentum buffer (SGD's
+    momentum_buffer) for a ShampooState."""
+    if isinstance(state, AdamState):
+        return state.mu[layer][key] / (torch.sqrt(state.nu[layer][key]) + 1e-8)
+    return state.momentum_buf[layer][key]

@@ -19,7 +19,8 @@ member-axis instantiation). Not in this slice, and raising ValueError: model
 families other than SIREN with the polynomial sine (CoordX, hashgrid,
 wavelet-SIREN, Fourier, Feathermap: the next part of M14a, ROADMAP.md),
 train.pixel_chunks > 1, train.loss=ms-ssim, train.mixed_precision (no
-member-axis kernel) and optim.grad_clip. The JAX package's segment split,
+member-axis kernel), optim.grad_clip, optim=shampoo and
+optim.preconditioner (M14a too). The JAX package's segment split,
 `estimate_step_flops` and the mesh are TPU scaffolding and have no
 counterpart.
 """
@@ -85,6 +86,16 @@ def check_member_axis(mdef: ModelDef, mcfg, train_cfg: TrainConfig,
                          "'+mixed' instantiation")
     if float(optim_cfg.grad_clip or 0.0) > 0:
         raise ValueError("optim.grad_clip: a fit over a member axis does not clip yet")
+    # Shampoo would matricize the stacked (M, in, out) leaves as 3-D tensors
+    # and mix the members; EKFAC's capture is per fit
+    if optim_cfg.name != "adam":
+        raise ValueError(f"optim={optim_cfg.name}: a fit over a member axis runs Adam only; "
+                         "Shampoo there is part of M14a (ROADMAP.md Queue 1): fit it with "
+                         "compress.main, one run at a time")
+    if optim_cfg.preconditioner:
+        raise ValueError(f"optim.preconditioner={optim_cfg.preconditioner}: a fit over a member "
+                         "axis takes no preconditioner; EKFAC there is part of M14a "
+                         "(ROADMAP.md Queue 1): fit it with compress.main, one run at a time")
 
 
 def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,

@@ -169,9 +169,15 @@ def mask_grads(grads, masks):
 
 
 def mask_momentum(opt_state, masks):
-    """Adam's mu and nu *= mask in place."""
-    apply_masks_(opt_state.mu, masks)
-    apply_masks_(opt_state.nu, masks)
+    """The optimizer's momentum buffers *= mask in place: Adam's mu and nu,
+    or Shampoo's momentum buffer; any other state raises TypeError."""
+    if hasattr(opt_state, "mu"):
+        apply_masks_(opt_state.mu, masks)
+        apply_masks_(opt_state.nu, masks)
+    elif hasattr(opt_state, "momentum_buf"):
+        apply_masks_(opt_state.momentum_buf, masks)
+    else:
+        raise TypeError(f"unknown optimizer state {type(opt_state).__name__}")
     return opt_state
 
 

@@ -7,7 +7,9 @@ each package loads the other's params, Adam state, masks and step:
 
     meta.step, meta.n_layers, params.{i}.{k}, meta.count, mu.{i}.{k},
     nu.{i}.{k}, mask.{i}, mask.baseline_nonzero, mask.total_params,
-    mask.adjusted_growth, mask.adj_sum, mask.adj_count, mask.final_sparsity
+    mask.adjusted_growth, mask.adj_sum, mask.adj_count, mask.final_sparsity,
+    and under EKFAC meta.ekfac_layers, ekfac_ua.{j}, ekfac_ug.{j}, ekfac_m2.{j}
+    (j counts the captured linear layers)
 
 Random state does not carry across packages: the port stores its
 torch.Generator's state under `torch.generator_state`, a key only it reads,
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from implicit_image_tpu_torch.optim.adam import AdamState
+from implicit_image_tpu_torch.optim.ekfac import EkfacState
 from implicit_image_tpu_torch.sparsity import MaskState
 
 __all__ = ["save_checkpoint", "load_checkpoint", "GENERATOR_KEY"]
@@ -70,7 +73,8 @@ def _unflat_layers(prefix: str, data, n: int, device, none_ok: bool = False):
 
 def save_checkpoint(path, params, opt_state: Optional[AdamState] = None,
                     mask_state: Optional[MaskState] = None,
-                    generator: Optional[torch.Generator] = None, step: int = 0) -> None:
+                    generator: Optional[torch.Generator] = None, step: int = 0,
+                    ekfac_state: Optional[EkfacState] = None) -> None:
     """Write the state atomically (a temporary file, then a rename): a crash
     while writing keeps the previous checkpoint."""
     out: Dict[str, np.ndarray] = {"meta.step": np.asarray(step),
@@ -83,6 +87,10 @@ def save_checkpoint(path, params, opt_state: Optional[AdamState] = None,
         _flat_layers("mu", opt_state.mu, out)
         _flat_layers("nu", opt_state.nu, out)
         out["meta.count"] = np.asarray(opt_state.count, np.int32)
+    if ekfac_state is not None and len(ekfac_state.ua):
+        out["meta.ekfac_layers"] = np.asarray(len(ekfac_state.ua))
+        for name in ("ua", "ug", "m2"):
+            _flat_layers(f"ekfac_{name}", getattr(ekfac_state, name), out)
     if mask_state is not None:
         _flat_layers("mask", mask_state.masks, out)
         for name in _MASK_SCALARS:
@@ -101,10 +109,10 @@ def save_checkpoint(path, params, opt_state: Optional[AdamState] = None,
 
 def load_checkpoint(path, device="cpu") -> Dict[str, Any]:
     """A checkpoint of either package -> {"step", "params", and where the
-    file holds them "opt_state", "mask_state", "generator_state" (the port's
-    only)}, tensors on `device`. A mask state without final_sparsity (an
-    older JAX checkpoint) holds NaN there; the fit re-seeds it from the
-    masking config."""
+    file holds them "opt_state", "mask_state", "ekfac_state",
+    "generator_state" (the port's only)}, tensors on `device`. A mask state
+    without final_sparsity (an older JAX checkpoint) holds NaN there; the
+    fit re-seeds it from the masking config."""
     data = dict(np.load(path, allow_pickle=False))
     n = int(data["meta.n_layers"])
     out: Dict[str, Any] = {"step": int(data["meta.step"]),
@@ -113,6 +121,10 @@ def load_checkpoint(path, device="cpu") -> Dict[str, Any]:
         out["opt_state"] = AdamState(mu=_unflat_layers("mu", data, n, device),
                                      nu=_unflat_layers("nu", data, n, device),
                                      count=int(data["meta.count"]))
+    if "meta.ekfac_layers" in data:
+        ne = int(data["meta.ekfac_layers"])
+        out["ekfac_state"] = EkfacState(*(_unflat_layers(f"ekfac_{name}", data, ne, device)
+                                          for name in ("ua", "ug", "m2")))
     if "mask.total_params" in data:
         scalars = {name: torch.as_tensor(np.asarray(data.get(f"mask.{name}", np.nan),
                                                     np.float32)).to(device)

@@ -53,7 +53,19 @@ early-stop check (`stop_psnr`: an eval PSNR at the precision JAX's
 so one bf16 pass, "bf16", with the fit's mixed precision — that stops the
 fit once it reaches the target). `resume_from` continues from a
 checkpoint of either package (training/checkpoint.py); the metric arrays
-then cover the executed steps [start, end) only.
+then cover the executed steps [start, end) only. Checkpoints carry Adam's
+state and, under EKFAC, the preconditioner's; a Shampoo fit takes no
+checkpoint and no resume (ValueError), as in the JAX package.
+
+The optimizer is Adam or Shampoo (optim.name). optim.preconditioner=ekfac
+(optim/ekfac.py) preconditions the gradients after their masking and
+before the optimizer step, where the JAX package does; the topology
+update then reads the preconditioned gradients, as JAX's does. Every step
+captures each linear layer's inputs and pre-activation gradients through
+a plain fp32 chain (chunk by chunk when pixel_chunks > 1) and updates the
+KFE moments; the eigenbases are recomputed when step % precond_interval
+== 0, a test on the Python step. Feathermap (no per-layer weights) and
+wavelet_siren with pixel_chunks > 1 (no per-pixel chunks) raise.
 """
 from __future__ import annotations
 
@@ -69,6 +81,14 @@ from implicit_image_tpu_torch.ops.metrics import mse, psnr_8bit
 from implicit_image_tpu_torch.ops.sine_mlp import precision_from_config
 from implicit_image_tpu_torch.optim import adam_momentum, cosine_lr, opt_init, opt_update, step_lr
 from implicit_image_tpu_torch.optim.adam import TRAINABLE_KEYS
+from implicit_image_tpu_torch.optim.ekfac import (
+    capture_layer_stats,
+    ekfac_init,
+    ekfac_precondition,
+    ekfac_update_stats,
+    ekfac_update_stats_chunked,
+    model_skip_indices,
+)
 from implicit_image_tpu_torch.sparsity import (
     MaskingConfig,
     MaskState,
@@ -96,6 +116,8 @@ __all__ = [
     "init_fit_state",
     "SparseFit",
     "optimizer_step",
+    "EkfacFit",
+    "check_optim",
     "synchronize",
     "set_trainable_",
 ]
@@ -129,12 +151,13 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """The JAX OptimConfig's fields (conf/optim/*.yaml). Adam reads lr, the
-    schedule (StepLR(lr_step_size, lr_gamma), or warmup + cosine with
-    lr_schedule="cosine") and grad_clip (global-norm clipping, 0 = off);
-    momentum, weight_decay, epsilon, update_freq, graft_norm, precond_eps
-    and precond_interval are Shampoo's and EKFAC's, which Adam ignores in
-    both packages (its eps is 1e-8). A preconditioner raises (not ported)."""
+    """The JAX OptimConfig's fields (conf/optim/*.yaml). Every optimizer
+    reads lr, the schedule (StepLR(lr_step_size, lr_gamma), or warmup +
+    cosine with lr_schedule="cosine") and grad_clip (global-norm clipping,
+    0 = off); Shampoo (name="shampoo") reads momentum, weight_decay,
+    epsilon, update_freq and graft_norm, which Adam ignores in both
+    packages (its eps is 1e-8); preconditioner="ekfac" reads precond_eps
+    and precond_interval."""
 
     name: str = "adam"
     lr: float = 3e-4
@@ -295,9 +318,10 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
         keys = [[key for key in layer if key in TRAINABLE_KEYS] for layer in params]
         leaves = [layer[key] for layer, ks in zip(params, keys) for key in ks]
         loss_sum, grad_sum = None, None
-        model_params = transform(params) if transform is not None else params
         for loss_fn in chunks:
-            loss = loss_fn(model_params)
+            # the transform runs per chunk (as JAX's chunk loss does): each
+            # chunk's backward frees its own graph
+            loss = loss_fn(transform(params) if transform is not None else params)
             g = torch.autograd.grad(loss, leaves)
             if grad_sum is None:
                 loss_sum, grad_sum = loss.detach(), list(g)
@@ -400,16 +424,68 @@ class SparseFit:
         return rates
 
 
+class EkfacFit:
+    """The EKFAC preconditioner of one fit (optim.preconditioner=ekfac):
+    its state and `precondition(step, params, grads)`, which captures this
+    step's statistics on `params` (before the optimizer moves them),
+    updates the moments (the bases too when step % precond_interval == 0)
+    and returns the preconditioned grads."""
+
+    def __init__(self, mdef: ModelDef, mcfg, coords, target_flat, optim_cfg: OptimConfig,
+                 pixel_chunks: int, state):
+        self.mdef, self.mcfg, self.coords, self.target = mdef, mcfg, coords, target_flat
+        self.interval = int(optim_cfg.precond_interval)
+        self.eps = float(optim_cfg.precond_eps)
+        self.chunks = int(pixel_chunks)
+        self.state = state
+
+    def precondition(self, step: int, params, grads):
+        recompute = step % self.interval == 0
+        if self.chunks > 1:
+            self.state = ekfac_update_stats_chunked(
+                self.state, self.mdef, self.mcfg, params, self.coords, self.target,
+                self.chunks, recompute_eigs=recompute)
+        else:
+            acts, pgrads = capture_layer_stats(self.mdef, self.mcfg, params, self.coords,
+                                               self.target)
+            self.state = ekfac_update_stats(self.state, acts, pgrads, recompute_eigs=recompute)
+            del acts, pgrads
+        return ekfac_precondition(self.state, grads, eps=self.eps,
+                                  skip=model_skip_indices(self.mdef.name, params))
+
+
+def check_optim(mdef: ModelDef, train_cfg: TrainConfig, optim_cfg: OptimConfig,
+                checkpointing: bool = False) -> bool:
+    """Raise ValueError for what the fit does not run with these optimizer
+    options (the JAX package's guards); returns whether EKFAC is on."""
+    pre = optim_cfg.preconditioner
+    if pre not in (None, "", "ekfac"):
+        raise ValueError(f"optim.preconditioner must be ekfac or unset, got {pre!r}")
+    use_ekfac = pre == "ekfac"
+    if use_ekfac and int(train_cfg.pixel_chunks) > 1 and mdef.full_grid:
+        raise ValueError("preconditioner='ekfac' with pixel_chunks>1 is undefined for "
+                         f"full-grid models ({mdef.name})")
+    if use_ekfac and mdef.name.startswith("feather"):
+        raise ValueError("preconditioner='ekfac' does not support Feathermap models")
+    if checkpointing and optim_cfg.name != "adam":
+        raise ValueError("checkpoint/resume supports adam fits (plain or ekfac)")
+    return use_ekfac
+
+
 def optimizer_step(step: int, params, grads, opt_state, lr, optim_cfg: OptimConfig,
-                   sparse: Optional[SparseFit] = None, stats: Optional[dict] = None):
+                   sparse: Optional[SparseFit] = None, stats: Optional[dict] = None,
+                   ekfac: Optional[EkfacFit] = None):
     """The fit loop's step after the gradients, in the JAX package's order,
     for one fit or for M fits over a member axis (the batched fit and the
-    density ladder): grads masked when dense_gradients is false; Adam (in
-    place; elementwise, so each member keeps its own bits); then
+    density ladder): grads masked when dense_gradients is false; EKFAC's
+    preconditioning when `ekfac` is given; the optimizer (in place; Adam is
+    elementwise, so each member keeps its own bits); then
     `SparseFit.after_adam_`. Returns (params, opt_state, the members' prune
     rates or None for a dense fit)."""
     if sparse is not None and not sparse.cfg.dense_gradients:
         mask_grads(grads, sparse.masks)
+    if ekfac is not None:
+        grads = ekfac.precondition(step, params, grads)
     params, opt_state = opt_update(grads, opt_state, params, lr, optim_cfg, stats=stats)
     rates = sparse.after_adam_(step, params, grads, opt_state) if sparse is not None else None
     return params, opt_state, rates
@@ -454,9 +530,12 @@ def fit(
     target = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)
     target_flat = target.reshape(h * w, -1)
     sparse = masking_cfg is not None and not masking_cfg.dense
+    use_ekfac = check_optim(mdef, train_cfg, optim_cfg,
+                            checkpointing=checkpoint_path is not None or resume_from is not None)
 
     start = 0
     mask_state = None
+    ekfac_state = None
     if resume_from is not None:
         ck = load_checkpoint(resume_from, device)
         start = ck["step"]
@@ -475,9 +554,18 @@ def fit(
                     1.0 - masking_cfg.final_density, dtype=torch.float32, device=device))
         if "generator_state" in ck:
             generator.set_state(ck["generator_state"])
+        if use_ekfac:
+            if "ekfac_state" not in ck:
+                raise ValueError("resume with preconditioner='ekfac' needs a checkpoint written "
+                                 f"by an ekfac fit (no EKFAC state found in {resume_from})")
+            ekfac_state = ck["ekfac_state"]
     else:
         params, opt_state, mask_state = init_fit_state(generator, mdef, mcfg, optim_cfg,
                                                        masking_cfg, init_params, device)
+        if use_ekfac:
+            ekfac_state = ekfac_init(params, model_skip_indices(mdef.name, params))
+    ekfac = (EkfacFit(mdef, mcfg, coords, target_flat, optim_cfg, train_cfg.pixel_chunks,
+                      ekfac_state) if use_ekfac else None)
     set_trainable_(params, True)
     grad_fns = {}
 
@@ -510,7 +598,8 @@ def fit(
         prec = early if early is not None and step < switch else precision
         loss, grads = grad_fn(prec)(params)
         params, opt_state, rate = optimizer_step(step, params, grads, opt_state, schedule(step),
-                                                 optim_cfg, sparse_fit, stats=clip_stats)
+                                                 optim_cfg, sparse_fit, stats=clip_stats,
+                                                 ekfac=ekfac)
         losses.append(loss)
         if clip_stats is not None:
             clip_scales.append(clip_stats["clip_scale"])
@@ -528,7 +617,8 @@ def fit(
         if step + 1 in boundaries:
             if checkpoint_path is not None:
                 save_checkpoint(checkpoint_path, params, opt_state,
-                                sparse_fit.states[0] if sparse else None, generator, step + 1)
+                                sparse_fit.states[0] if sparse else None, generator, step + 1,
+                                ekfac_state=ekfac.state if ekfac is not None else None)
             if watch is not None:
                 watch(params, opt_state, step + 1)
             if stop_psnr is not None:

@@ -247,6 +247,17 @@ def test_batched_fit_raises(model, train, match):
                     TrainConfig(num_steps=2, **train), OptimConfig(), device="cpu")
 
 
+@pytest.mark.parametrize("optim", [dict(name="shampoo"), dict(preconditioner="ekfac")])
+def test_batched_fit_raises_for_other_optimizers(optim):
+    """Shampoo would matricize the stacked (M, in, out) leaves as 3-D
+    tensors, and EKFAC's capture is per fit: over a member axis both raise
+    ValueError naming M14a before the first step."""
+    m, c = build_model("siren", depth=3, hidden_size=8)
+    with pytest.raises(ValueError, match="M14a"):
+        batched_fit(torch.Generator(), m, c, get_grid(8, 8), _imgs(2, 8),
+                    TrainConfig(num_steps=2), OptimConfig(**optim), device="cpu")
+
+
 def test_batched_kernels_raise_before_building():
     """K2 over a member axis raises ValueError, before the library is asked
     for, on a "+mixed" mode, on members of different shapes and on

@@ -88,19 +88,29 @@ def test_meta_init_loads_same_weights(runs):
         load_meta_init(init, expect_mcfg=c8)
 
 
-@pytest.mark.parametrize("override", ["quant.bit_alloc=auto", "optim=shampoo", "quant=qat",
-                                      "entropy_coding.progressive=true",
-                                      "profile=true"])
-def test_unported_options_raise(tmp_path, override):
-    """optim=shampoo and quant=qat still raise; bit allocation, the
-    progressive container and profile=True are ported and run."""
-    cfg = compose(OVERRIDES + ["device=cpu", "train.num_steps=1", override])
-    if override in ("quant.bit_alloc=auto", "entropy_coding.progressive=true", "profile=true"):
-        psnr, nbytes = tcompress.main(cfg, run_dir=str(tmp_path))
-        assert np.isfinite(psnr) and nbytes > 0
-        return
-    with pytest.raises((NotImplementedError, KeyError)):
-        tcompress.main(cfg, run_dir=str(tmp_path))
+@pytest.mark.parametrize("override", [
+    ["quant.bit_alloc=auto"], ["optim=shampoo"], ["quant=qat"], ["entropy_coding.progressive=true"],
+    ["profile=true"], ["+optim.preconditioner=ekfac"], ["quant=qat", "quant.qscheme=per_tensor"]])
+def test_cli_options_run(tmp_path, override):
+    """Bit allocation, Shampoo, QAT (per channel and per tensor), the
+    progressive container, profile=True and the EKFAC preconditioner run
+    through compress.main and write a container; the JAX decoder reads
+    it to the weights the port decodes."""
+    from implicit_image_tpu.coding import decompress_state_dict as jdecode
+    from implicit_image_tpu_torch.coding import decompress_state_dict as tdecode
+
+    cfg = compose(OVERRIDES + ["device=cpu", "train.num_steps=1"] + override)
+    psnr, nbytes = tcompress.main(cfg, run_dir=str(tmp_path))
+    assert np.isfinite(psnr) and nbytes > 0
+    ours = tdecode(tmp_path / "model_quantized", "plain")
+    theirs = jdecode(tmp_path / "model_quantized", "plain")
+    assert ours.keys() == theirs.keys()
+    for k in ours:
+        np.testing.assert_array_equal(ours[k], np.asarray(theirs[k]))
+    if override[0] == "quant=qat":
+        raw = json.loads((tmp_path / "model_quantized" / "meta_data.json").read_text())
+        names = {v["name"] for k, v in raw.items() if k != "__meta__"}
+        assert ("layers.1.qscale" in names) == (len(override) == 1)
 
 
 @pytest.fixture(scope="module")

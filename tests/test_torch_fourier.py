@@ -74,8 +74,8 @@ def test_init_layout_and_bounds():
     for layer, (fan_in, _) in zip(params[1:], c.layer_dims):
         for k in ("w", "b"):
             assert float(layer[k].abs().max()) <= fan_in ** -0.5
-    with pytest.raises(NotImplementedError):
-        m.apply(params, get_grid(4, 4), c, "bf16")
+    out = m.apply(params, get_grid(4, 4), c, "bf16")  # every precision mode runs
+    assert out.shape == (4, 4, 3) and torch.isfinite(out).all()
 
 
 def test_fit_and_finetune_leave_b_frozen():

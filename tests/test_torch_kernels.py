@@ -5,7 +5,9 @@ with the CPU, and a RigL fit on the card keeps each layer's weight count;
 since the fit-options slice, the precision schedule's launches per mode,
 the kernels under mixed precision, a bit-exact resume and a hashgrid fit
 that repeats bit for bit; since the batched slice, K2 over a member axis
-and batched fits, each member the bits of its single launch or fit.
+and batched fits, each member the bits of its single launch or fit; since
+the slice of the CLI's last options, the QAT finetune, Shampoo and EKFAC
+fits, and Fourier and Feathermap beyond fp32.
 
 Every test here is marked `cuda` and skips (inside the test) without a CUDA
 device: a CUDA kernel has no interpret mode. The file imports torch and the
@@ -817,3 +819,120 @@ def test_base_finetune_repeats_bit_for_bit_on_card(cuda_device):
     assert runs[0].keys() == runs[1].keys() and len(runs[0]) == 3
     for k in runs[0]:
         assert np.array_equal(runs[0][k], runs[1][k])
+
+
+# the compress CLI's last options (QAT, Shampoo, EKFAC; Fourier and
+# Feathermap beyond fp32) on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qscheme", ["per_channel", "per_tensor"])
+def test_qat_finetune_on_card(cuda_device, qscheme):
+    """The QAT finetune under RigL masks on the card: K2 once per STE step
+    and K1 once more for its eval, the same bits twice, pruned weights
+    exactly 0, and codes that agree with the CPU's plain chain but where a
+    latent weight lies at a half-way point (at most 1% of them, by one)."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.quant import QuantConfig
+    from implicit_image_tpu_torch.training.fit import OptimConfig
+    from implicit_image_tpu_torch.training.quant_phase import quant_finetune
+
+    m, c = build_model("siren", depth=5, hidden_size=64)
+    params = m.init(torch.Generator().manual_seed(4), c)
+    gen = torch.Generator().manual_seed(5)
+    masks = [None] + [(torch.rand(layer["w"].shape, generator=gen) < 0.5).float()
+                      for layer in params[1:-1]] + [None]
+    params = tuple({**layer, "w": layer["w"] * mk} if mk is not None else layer
+                   for layer, mk in zip(params, masks))
+    img = np.random.default_rng(6).random((48, 48, 3)).astype(np.float32)
+    qcfg = QuantConfig(name="QAT", qscheme=qscheme, num_steps=6)
+
+    def run(dev):
+        return quant_finetune(tuple({k: v.to(dev) for k, v in layer.items()} for layer in params),
+                              img, m, c, get_grid(48, 48, dev), qcfg, OptimConfig(lr=1e-4),
+                              precision="fp32",
+                              masks=[None if mk is None else mk.to(dev) for mk in masks])
+
+    sm.reset_launch_counts()
+    a = run(cuda_device)
+    assert sm.LAUNCHES["sine_mlp_bwd"] == sm.LAUNCHES["sum_partials"] == 6
+    assert sm.LAUNCHES["sine_mlp_fwd"] == 7
+    b, cpu = run(cuda_device), run(torch.device("cpu"))
+    for i, (ba, bb, bc) in enumerate(zip(a.codebooks, b.codebooks, cpu.codebooks)):
+        if ba is None:
+            continue
+        codes = [(x.codes if qscheme == "per_channel" else x.labels).cpu().long()
+                 for x in (ba, bb, bc)]
+        assert torch.equal(codes[0], codes[1])
+        diff = codes[0] != codes[2]
+        assert diff.float().mean() <= 0.01 and ((codes[0] - codes[2])[diff].abs() <= 1).all()
+        pruned = masks[i] == 0
+        assert not a.params[i]["w"].cpu()[pruned].any()
+
+
+@pytest.mark.cuda
+def test_shampoo_and_ekfac_fits_on_card(cuda_device):
+    """A Shampoo fit and an EKFAC fit on the card each give the same bits
+    twice and end near the CPU's (0.1 dB: the kernels' fp32 mode against
+    the plain chain, through eigendecompositions by cuSOLVER and LAPACK)."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    m, c = build_model("siren", depth=4, hidden_size=32)
+    img = np.random.default_rng(7).random((32, 32, 3)).astype(np.float32)
+    for ocfg in (OptimConfig(name="shampoo", lr=0.1, epsilon=0.1),
+                 OptimConfig(lr=1e-3, preconditioner="ekfac", precond_interval=4)):
+        def run(dev):
+            return fit(torch.Generator().manual_seed(0), m, c, get_grid(32, 32, dev), img,
+                       TrainConfig(num_steps=10, log_steps=10), ocfg, device=dev)
+
+        a, b, cpu = run(cuda_device), run(cuda_device), run(torch.device("cpu"))
+        for la, lb in zip(a.params, b.params):
+            for k in la:
+                assert torch.equal(la[k], lb[k]), ocfg
+        assert abs(float(a.metrics["psnr"][-1]) - float(cpu.metrics["psnr"][-1])) <= 0.1, ocfg
+
+
+@pytest.mark.cuda
+def test_shampoo_and_ekfac_refuse_tf32(cuda_device):
+    """Their Gram products must be true fp32 on the card: with TF32 on, the
+    update and the capture raise."""
+    from implicit_image_tpu_torch.optim.ekfac import capture_layer_stats
+    from implicit_image_tpu_torch.optim.shampoo import shampoo_init, shampoo_update
+
+    m, c = build_model("siren", depth=3, hidden_size=16)
+    params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
+    grads = tuple({k: torch.ones_like(v) for k, v in layer.items()} for layer in params)
+    coords = get_grid(8, 8, cuda_device).reshape(-1, 2)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="fp32"):
+            shampoo_update(grads, shampoo_init(params), params, 0.1)
+        with pytest.raises(RuntimeError, match="fp32"):
+            capture_layer_stats(m, c, params, coords, torch.zeros(64, 3, device=cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_fourier_and_feathermap_bf16_on_card_match_cpu(cuda_device):
+    """Fourier (no kernel) at "bf16" and "+mixed", and Feathermap over
+    SIREN at "bf16" (V1 @ V2 in one bf16 pass, then the bf16 kernels),
+    agree with the CPU within the kernels' bf16 forward limit, 1.5e-3."""
+    from implicit_image_tpu_torch.feathermap import build_feather_model
+
+    fm_base, fc = build_model("siren", depth=4, hidden_size=32)
+    cases = (("fourier", *build_model("fourier", depth=4, hidden_size=32, map_size=32)),
+             ("feathermap", build_feather_model(fm_base, fc, 0.5), fc))
+    for name, m, c in cases:
+        params = m.init(torch.Generator().manual_seed(0), c)
+        grid = get_grid(24, 20)
+        for prec in ("bf16", "fp32" + sm.MIXED):
+            sm.reset_launch_counts()
+            card = m.apply(tuple({k: v.to(cuda_device) for k, v in layer.items()}
+                                 for layer in params), grid.to(cuda_device), c, prec).cpu()
+            assert any(sm.LAUNCHES.values()) == (name == "feathermap"), (name, prec)
+            cpu = m.apply(params, grid, c, prec)
+            assert float((card - cpu).abs().max()) <= 1.5e-3, (name, prec)

@@ -1,7 +1,9 @@
 """Port parity: the optimizer options (optim/__init__.py): global-norm
 gradient clipping (optim.grad_clip) against the JAX package's
-clip_by_global_norm and opt_update, a clipped fit against JAX's, and the
-Shampoo/EKFAC keys that Adam ignores in both packages.
+clip_by_global_norm and opt_update, a clipped fit against JAX's, the
+Shampoo/EKFAC keys that Adam ignores in both packages, and the other
+optimizers running through the CLI (their parity: test_torch_shampoo.py,
+test_torch_ekfac.py).
 
 Tolerances: the clipped gradients and one Adam step within 1e-6 relative
 (float32; the norm is summed in another order); a 10-step clipped fit's
@@ -116,6 +118,9 @@ def test_adam_ignores_the_shampoo_keys(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("override", ["optim=shampoo", "+optim.preconditioner=ekfac"])
-def test_other_optimizers_still_raise(tmp_path, override):
-    with pytest.raises(NotImplementedError):
-        tcompress.main(compose(BASE + [override]), run_dir=str(tmp_path))
+def test_other_optimizers_run(tmp_path, override):
+    """optim=shampoo and optim.preconditioner=ekfac run through compress.main
+    and change the fit (other bits than Adam's)."""
+    plain = tcompress.main(compose(BASE), run_dir=str(tmp_path / "adam"))
+    psnr, _ = tcompress.main(compose(BASE + [override]), run_dir=str(tmp_path / "other"))
+    assert np.isfinite(psnr) and psnr != plain[0]

@@ -270,3 +270,106 @@ def test_exact_sine_fit_launches_nothing(tmp_path):
         "quant=none", "entropy_coding=none", "device=cpu"]), run_dir=str(tmp_path))
     assert np.isfinite(psnr) and psnr > 10.0
     assert sm.LAUNCHES_BY_MODE == before
+
+
+# Fourier and Feathermap in every precision mode. JAX on the CPU ignores the
+# matmul precision, so "bf16" is held against a numpy emulation of one bf16
+# pass (within 1e-5, CoordX's bound); under "+mixed" JAX's casts are real on
+# the CPU: the forward within 1e-6 and the gradients within 3e-2 of the
+# largest, CoordX's mixed bounds.
+
+def _np_fourier_bf16(p, grid):
+    def dot(a, w):
+        return (_bf16(a).astype(np.float64) @ _bf16(w).astype(np.float64)).astype(np.float32)
+
+    xp = dot(np.float32(2.0 * np.pi) * grid.reshape(-1, 2), p[0]["B"])
+    x = np.concatenate([np.sin(xp), np.cos(xp)], axis=-1)
+    for i, layer in enumerate(p[1:]):
+        x = dot(x, layer["w"]) + layer["b"]
+        if i < len(p) - 2:
+            x = np.maximum(x, 0.0)
+    return 1.0 / (1.0 + np.exp(-x.astype(np.float64)))
+
+
+FOURIER = dict(depth=4, hidden_size=16, map_size=16, map_scale=4.0)
+
+
+def test_fourier_bf16_products_are_one_bf16_pass():
+    jm, jc, m, c, p, grid, target = _setup("fourier", **FOURIER)
+    out, grads = _torch_run(m, c, p, grid, target, "bf16")
+    assert np.abs(out - _np_fourier_bf16(p, grid)).max() <= 1e-5
+    fp32, _ = _torch_run(m, c, p, grid, target, "fp32")
+    assert np.abs(out - fp32).max() > 0.0  # the bf16 pass is not the fp32 product
+    assert all(np.isfinite(layer[k]).all() for layer in grads for k in layer)
+
+
+def test_mixed_fourier_matches_jax():
+    jm, jc, m, c, p, grid, target = _setup("fourier", **FOURIER)
+    jout, jgrads = _jax_run(jm, jc, p, grid, target, jnp.bfloat16)
+    out, grads = _torch_run(m, c, p, grid, target, "fp32" + sm.MIXED)
+    assert np.abs(out - jout).max() <= 1e-6
+    assert _grad_err(grads, [layer for layer in jgrads]) <= 3e-2
+
+
+def _feather_pair(seed=0):
+    from implicit_image_tpu.feathermap import build_feather_model as jfeather
+    from implicit_image_tpu_torch.feathermap import build_feather_model
+
+    jm, jc, m, c, _, grid, target = _setup("siren", depth=4, hidden_size=16, seed=seed)
+    jfm, fm = jfeather(jm, jc, 0.5), build_feather_model(m, c, 0.5)
+    p = jax.tree.map(np.asarray, jfm.init(jax.random.PRNGKey(seed), jc))
+    return jfm, jc, fm, c, p, grid, target
+
+
+def test_feathermap_bf16_product_is_one_bf16_pass():
+    """V1 @ V2 in one bf16 pass under "bf16" (the base SIREN then runs its
+    bf16 chain), a true fp32 product otherwise."""
+    from implicit_image_tpu_torch.feathermap import _plan, materialize
+
+    jfm, jc, fm, c, p, grid, target = _feather_pair()
+    tp = params_from_jax(p, "cpu")
+    spec = _plan(build_model("siren", depth=4, hidden_size=16)[0].init(
+        torch.Generator().manual_seed(0), c), 0.5)
+    ref = (_bf16(p[0]["w"]).astype(np.float64) @ _bf16(p[1]["w"]).astype(np.float64)
+           ).astype(np.float32).reshape(-1)
+    base = materialize(tp, spec, bf16=True)
+    for idx, (layer, key, shape, offset) in enumerate(spec.entries):
+        expect = p[2]["b"][idx] * ref[offset:offset + int(np.prod(shape))].reshape(shape)
+        np.testing.assert_allclose(base[layer][key].numpy(), expect, rtol=1e-6, atol=1e-7)
+    coords = torch.from_numpy(grid.reshape(-1, 2))
+    assert (fm.apply_flat(tp, coords, c, "bf16") - fm.apply_flat(tp, coords, c, "fp32")
+            ).abs().max() > 0.0
+
+
+def test_mixed_feathermap_matches_jax():
+    """Under "+mixed" V1 @ V2 stays fp32 and the base SIREN casts what it
+    reads, as the JAX package's compute_dtype=bfloat16; the fused chain's
+    mixed bounds (test_mixed_fused_siren_matches_jax)."""
+    jfm, jc, fm, c, p, grid, target = _feather_pair(1)
+    jout, jgrads = _jax_run(jfm, jc, p, grid, target, jnp.bfloat16)
+    out, grads = _torch_run(fm, c, p, grid, target, "fp32" + sm.MIXED)
+    assert np.abs(out - jout).max() <= 1e-6
+    assert _grad_err(grads, jgrads) <= 2e-2
+
+
+@pytest.mark.parametrize("family", ["fourier", "feathermap"])
+def test_schedule_runs_fourier_and_feathermap_in_their_planned_modes(family):
+    """The precision schedule (20 steps, switch 0.75) over Fourier and
+    Feathermap: every forward of steps 0-14 in bf16, of 15-19 in fp32."""
+    from implicit_image_tpu_torch.feathermap import build_feather_model
+
+    if family == "fourier":
+        m, c = build_model("fourier", **FOURIER)
+    else:
+        base, c = build_model("siren", depth=3, hidden_size=8)
+        m = build_feather_model(base, c, 0.5)
+    calls = []
+    tc = TrainConfig(num_steps=20, log_steps=5, matmul_precision_early="bfloat16")
+    img = np.random.default_rng(0).uniform(size=(8, 8, 3)).astype(np.float32)
+    res = fit(torch.Generator().manual_seed(0), _spy(m, calls), c, get_grid(8, 8), img, tc,
+              OptimConfig(), device="cpu")
+    expect = []
+    for step in range(20):
+        expect += ["bf16" if step < 15 else "fp32"] * (2 if (step + 1) % 5 == 0 else 1)
+    assert calls == expect
+    assert np.isfinite(res.metrics["psnr"][[4, 9, 14, 19]]).all()

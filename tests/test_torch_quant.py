@@ -97,9 +97,15 @@ def test_codebook_finetune_keeps_zero_centroid_and_improves():
             torch.testing.assert_close(layer["w"], book.centroids[book.labels.long()])
 
 
-def test_quant_config_rejects_qat():
-    with pytest.raises(NotImplementedError):
-        QuantConfig(name="QAT")
+def test_quant_config_builds_qat():
+    """QuantConfig(name="QAT") builds (per channel by default), and
+    bits_per_layer stays KMeans-only, as the JAX config's assert holds."""
+    assert QuantConfig(name="QAT").qscheme == "per_channel"
+    assert QuantConfig(name="QAT", qscheme="per_tensor").name == "QAT"
+    with pytest.raises(ValueError, match="KMeans-only"):
+        QuantConfig(name="QAT", bits_per_layer=(None, 6, None))
+    with pytest.raises(AssertionError):
+        JQuant(name="QAT", bits_per_layer=(None, 6, None))
 
 
 @pytest.mark.parametrize("n,k", [(4096, 255), (1000, 16), (37, 64)])
