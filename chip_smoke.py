@@ -195,14 +195,41 @@ Phases, each printing its own line:
      0.2 under the precision schedule (K1/K2/sum_partials in the bf16
      mode for steps [0, 15) and the eval among them, fp32 after), 20 steps
      each.
+ 16. the many-image and search tools at 512², SIREN d8/w128 and
+     the RigL default unless named, each part's wall and ms per step per
+     member printed beside phase 5's single fit and phase 14a's ladder:
+     (a) the fleet CLI (fleet.run) on the Makefile's
+     fleet.images=flower,big_building,bridge, 200 + 20 steps: one batched
+     K1 per fit step and eval and one batched K2 and partial sum per step,
+     single K2 launches only for the members' finetune steps; each
+     member's run dir decodes through decode_run to its reported PSNR bit
+     for bit, and decode_runs over the three in one batched K1 launch; (b)
+     the API: compress_image of the synthetic stand-in as an array is
+     compress.main with img=synthetic (bytes, decoded PSNR, bitstream),
+     its .iic (save) decodes to the run dir's image bit for bit, and
+     compress_images of two more images (100 + 10 steps) runs over the
+     member axis, each decoding to its reported PSNR; (c)
+     compress_to_target(target.bytes=60000) (target.py's example, zstd)
+     with a ladder of 5 and one refinement: the probes printed, one batched
+     K2 per fit step and ladder, and when met the chosen member within the
+     budget, its stream decoding to its reported PSNR; (d) a density sweep
+     (n_trials=8 batch=4 masking.density='loguniform(0.05,0.95)', 100 + 10
+     steps): two ladders, then relaunched with the same arguments it
+     replays all 8 trials with no kernel launch; and a 2-trial serial sweep
+     over optim.lr through compress.main; (e) meta_train of SIREN (pool 8,
+     4 images x 20 inner x 4 outer steps): one batched K1 and K2 per inner
+     step plus one batched K1 per meta-step, no single launch; a 200-step
+     fit from its artifact through train.init_path starts from its weights
+     (the first loss is the artifact's, bit for bit); CoordX s5/w96
+     meta-training (2 outer steps) launches no SIREN kernel.
 
-Each of phases 4-15 sets the launch counts to 0 just before its run and
+Each of phases 4-16 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
-of 12 only; sine_mlp_fwd_batched in 13 (e) and 14 only; the member-axis
+of 12 only; sine_mlp_fwd_batched in 13 (e), 14 and 16 only; the member-axis
 K2 (sine_mlp_bwd_batched, sum_partials_batched, and sine_mlp_dw_batched at
-w182) in 14 only; nothing in phase 8, in 11 (d), in 12 (f)-(h) and in 15 (f)'s
-Fourier run. In phase 3, sum_partials must equal its plain
+w182) in 14 and 16 only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s
+Fourier run and in 16 (e)'s CoordX meta-training. In phase 3, sum_partials must equal its plain
 mirror sum_partials_reference (the kernel's order of additions) bit for
 bit on the main path's partial buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
@@ -465,6 +492,39 @@ P15_FLOOR = {
     "15f fourier bf16": 12.0,         # JAX 15.422 dB (fit)
     "15f feathermap schedule": 12.0,  # JAX 15.403 dB (fit)
 }
+
+# phase 16: the many-image and search tools at full width (512²
+# seeded synthetic stand-ins, SIREN d8/w128, the RigL default unless named),
+# fits cut to 200 + 20 steps unless named
+P16 = "outputs/chip_smoke_p16"
+P16_CUT = ["train.num_steps=200", "train.log_steps=100", "quant.num_steps=20"]
+# (a) the Makefile's fleet target (Makefile:55-59), cut from 2,000 + 100 steps
+FLEET_ARGV = ["fleet.images=flower,big_building,bridge", *P16_CUT, f"output_dir={P16}_fleet",
+              "exp_name=smoke"]
+# (b) the API on the synthetic stand-in; compress_images on two more images
+API_OVERRIDES = P16_CUT + ["entropy_coding=plain"]
+API_BATCH_SEEDS, API_BATCH_STEPS = (1, 2), 100  # 100 + 10 steps
+# (c) target.py's example (target.py:28, img=flower target.bytes=60000) with
+# the default ladder of 5 and one refinement; zstd, since a plain
+# container's bytes do not move with density
+TARGET_BYTES, TARGET_LADDER, TARGET_REFINE = 60000, 5, 1
+TARGET_OVERRIDES = ["img=flower", "entropy_coding=zstd", *P16_CUT]
+# (d) the Makefile's sweep target (Makefile:46-48: 15 trials over
+# masking.density), cut to 8 trials in rounds of 4 at 100 + 10 steps: two
+# ladders; then 2 serial trials over optim.lr
+SWEEP_CUT = ["train.num_steps=100", "train.log_steps=50", "quant.num_steps=10"]
+SWEEP_ARGV = ["n_trials=8", "batch=4", "masking.density='loguniform(0.05,0.95)'", *SWEEP_CUT,
+              f"output_dir={P16}_sweep_runs", f"dir={P16}_sweep"]
+SERIAL_SWEEP_ARGV = ["n_trials=2", "optim.lr='loguniform(1e-4,1e-3)'", *SWEEP_CUT,
+                     f"output_dir={P16}_serial_runs", f"dir={P16}_serial"]
+# (e) the Makefile's meta target (Makefile:51-54), MetaConfig's pool 16,
+# 50 inner x 300 outer steps cut to pool 8, 20 x 4 (SIREN) and 20 x 2
+# (CoordX s5/w96, the flagship's shape), 4 images per meta-step
+META_CUT = ["meta.pool_size=8", "meta.meta_batch=4", "meta.inner_steps=20"]
+META_SIREN_ARGV = META_CUT + ["meta.outer_steps=4", f"meta.out={P16}_meta/siren_d8w128.npz"]
+META_COORDX_ARGV = META_CUT + ["mlp=coordx", "mlp.hidden_size=96", "mlp.split_depth=5",
+                               "meta.outer_steps=2", f"meta.out={P16}_meta/coordx_s5w96.npz"]
+WARM_STEPS = 200  # (e): the fit from the meta-trained artifact
 
 def _time_ms(fn, reps: int = 10) -> float:
     import torch
@@ -1131,7 +1191,7 @@ def _check_launches(launches: dict, what: str, wide: bool = False,
     dW) exactly when the path runs a SIREN wider than 128 (`wide`),
     sine_mlp_fwd_batched (K1 over a member axis) exactly when it decodes
     runs together (`batched`), and never K2 over a member axis (the fits of
-    phase 14 only; _check_ladder_launches)."""
+    phases 14 and 16 only; _check_ladder_launches)."""
     for name, count in launches.items():
         if ((name == "sine_mlp_dw" and not wide) or (name == "sine_mlp_fwd_batched"
                                                     and not batched)
@@ -2744,6 +2804,307 @@ def phase_last_options(default_run: str) -> None:
     phase_precision_families()
 
 
+def _member_ms(wall_s: float, steps: int, members: int) -> str:
+    return f"{wall_s:.3f} s = {wall_s / steps * 1e3 / members:.3f} ms per step per member"
+
+
+def _yardsticks(default_run: str) -> str:
+    """Phase 5's single fit and phase 14a's ladder, in ms per step (per
+    member), for the lines of phase 16."""
+    single = json.loads(open(f"{default_run}/summary.json").read())
+    steps = int(json.loads(open(f"{default_run}/config.json").read())["train"]["num_steps"])
+    ladder = json.loads((Path(f"{P14}_14a") / "synthetic" / "ladder_RigL_smoke" / "d0.05"
+                         / "summary.json").read_text())
+    return (f"phase 5's single fit {single['fit_wall_s'] / steps * 1e3:.3f} ms/step, phase 14a's "
+            f"ladder {ladder['fit_wall_s'] / 200 * 1e3 / ladder['members']:.3f}")
+
+
+def _psnr_db(img, target) -> float:
+    """decoded PSNR as the pipeline and compress.main compute it."""
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(img, np.float64) - np.asarray(target, np.float64)) ** 2))
+    return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+def phase_fleet(yardsticks: str) -> None:
+    """16a: the fleet CLI's run (fleet.run, in process) on the Makefile's
+    three images: one batched K1 per fit step and eval and one batched K2
+    per step (the single K2 launches the members' finetune steps exactly);
+    each member's run dir decodes through decode_run to its reported PSNR
+    bit for bit; decode_runs over the three dirs in one batched K1 launch."""
+    from implicit_image_tpu_torch import compress, decompress, fleet
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    tag = "[16a fleet]"
+    cfg = compress.compose(FLEET_ARGV)
+    root = Path(cfg.output_dir) / "fleet_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = fleet.run(FLEET_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    steps, q = int(cfg.train.num_steps), int(cfg.quant.num_steps)
+    _check_ladder_launches(tag, launches, len(rows), steps, 2, q, wide=False)
+    base = [a for a in FLEET_ARGV if not a.startswith("fleet.")]
+    dirs = []
+    for name, psnr, nbytes in rows:
+        run_dir = root / name
+        dirs.append(run_dir)
+        target = compress._load_image(compress.compose(base + fleet._member_overrides(name)[0]).img)
+        img, _ = decompress.decode_run(run_dir, device="cuda")
+        again = _psnr_db(img, target)
+        summary = json.loads((run_dir / "summary.json").read_text())
+        print(f"{tag} {name}: fit {summary['PSNR']:.3f} dB, decoded {psnr:.3f} dB @ {nbytes} B; "
+              f"decode_run {again:.6f} dB", flush=True)
+        if again != psnr or not (math.isfinite(psnr) and psnr >= 20.0):
+            raise AssertionError(f"{tag} {name}: decode_run gives {again} dB, the fleet reported "
+                                 f"{psnr} (floor 20 dB)")
+    sm.reset_launch_counts()
+    decompress.decode_runs(dirs, device="cuda")
+    decode_launches = dict(sm.LAUNCHES)
+    if decode_launches != {k: int(k == "sine_mlp_fwd_batched") for k in decode_launches}:
+        raise AssertionError(f"{tag} decode_runs launched {decode_launches}")
+    print(f"{tag} {len(rows)} images in {seconds:.2f} s; the fit over the member axis "
+          f"{_member_ms(summary['fit_wall_s'], steps, len(rows))} ({yardsticks}); launches "
+          f"{launches}; decode_runs {decode_launches}", flush=True)
+
+
+def phase_api() -> None:
+    """16b: compress_image of the synthetic stand-in as an array against
+    compress.main with img=synthetic (bytes, decoded PSNR and the bitstream
+    equal); its .iic (save) decodes to the run dir's image bit for bit;
+    compress_images of two more images over the member axis."""
+    import numpy as np
+
+    import implicit_image_tpu_torch as iit
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.data import synthetic_image
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    tag = "[16b api]"
+    cfg = compress.compose(["img=synthetic", *API_OVERRIDES, f"output_dir={P16}_main"])
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    shutil.rmtree(f"{P16}_api", ignore_errors=True)
+    ref = compress.main(cfg, run_dir=cfg.output_dir)
+    img = compress._load_image(cfg.img)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = iit.compress_image(img, overrides=API_OVERRIDES, out_dir=f"{P16}_api/run")
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    _check_launches(launches, f"{tag} compress_image")
+    same_stream = res.bitstream == (Path(cfg.output_dir) / "model_quantized"
+                                    / "compressed_weights.data").read_bytes()
+    packed = res.save(f"{P16}_api/run.iic")
+    from_iic = iit.decompress_image(packed)
+    same_iic = np.array_equal(from_iic, res.decode())
+    print(f"{tag} compress_image {seconds:.2f} s: {res.psnr:.6f} dB @ {res.nbytes} B; "
+          f"compress.main img=synthetic {ref[0]:.6f} dB @ {ref[1]} B; bitstreams "
+          f"{'equal' if same_stream else 'DIFFER'}; {packed.name} ({packed.stat().st_size} B) "
+          f"decodes {'==' if same_iic else '!='} the run dir's image; launches {launches}",
+          flush=True)
+    if (res.psnr, res.nbytes) != ref or not same_stream or not same_iic:
+        raise AssertionError(f"{tag} the API's run is not compress.main's")
+
+    imgs = [synthetic_image(N_SIDE, N_SIDE, seed=s) for s in API_BATCH_SEEDS]
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    many = iit.compress_images(imgs, overrides=[f"train.num_steps={API_BATCH_STEPS}",
+                                                "train.log_steps=50", "quant.num_steps=10",
+                                                "entropy_coding=plain"],
+                               out_dir=f"{P16}_api/fleet")
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    _check_ladder_launches(f"{tag} compress_images", launches, len(imgs), API_BATCH_STEPS, 2, 10,
+                           wide=False)
+    dbs = [_psnr_db(r.decode(), src) for r, src in zip(many, imgs)]
+    summary = json.loads((many[0].run_dir / "summary.json").read_text())
+    print(f"{tag} compress_images of {len(imgs)} in {seconds:.2f} s (fit "
+          f"{_member_ms(summary['fit_wall_s'], API_BATCH_STEPS, len(imgs))}): "
+          + ", ".join(f"{r.psnr:.3f} dB (decode {d:.3f}) @ {r.nbytes} B"
+                      for r, d in zip(many, dbs)) + f"; launches {launches}", flush=True)
+    if [r.psnr for r in many] != dbs or not all(d >= 20.0 for d in dbs):
+        raise AssertionError(f"{tag} compress_images: decoded {dbs}, reported "
+                             f"{[r.psnr for r in many]} (floor 20 dB)")
+
+
+def phase_target() -> None:
+    """16c: compress_to_target(target.bytes=60000) with a ladder of 5 and
+    one refinement: one batched K2 per fit step and ladder; the probes
+    printed; when met, the chosen member's bytes within the budget and its
+    stream decoding to its reported PSNR."""
+    from implicit_image_tpu_torch import compress, target
+    from implicit_image_tpu_torch.coding import decode_and_render
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    tag = "[16c target]"
+    cfg = compress.compose(TARGET_OVERRIDES)
+    root = f"{P16}_target"
+    shutil.rmtree(root, ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = target.compress_to_target(cfg, target_bytes=TARGET_BYTES, ladder_size=TARGET_LADDER,
+                                    refine=TARGET_REFINE, out_root=root)
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    probes = res["probes"]
+    ladders = 1 + (len(probes) > TARGET_LADDER)
+    steps = int(cfg.train.num_steps)
+    for p in probes:
+        print(f"{tag} probe d={p['density']}: decoded {p['decoded_psnr']:.3f} dB @ "
+              f"{p['bytes']} B", flush=True)
+    print(f"{tag} chose d={res.density}: {res.decoded_psnr:.3f} dB @ {res.compressed_bytes} B, "
+          f"target {TARGET_BYTES} B {'met' if res.target_met else 'MISSED'}; {ladders} ladders "
+          f"of {len(probes)} members in {seconds:.2f} s = "
+          f"{seconds / steps * 1e3 / len(probes):.3f} ms per fit step per member, finetunes and "
+          f"containers included; launches {launches}", flush=True)
+    if (launches["sine_mlp_bwd_batched"] != ladders * steps
+            or launches["sine_mlp_bwd"] != len(probes) * int(cfg.quant.num_steps)):
+        raise AssertionError(f"{tag} launches {launches} for {ladders} ladders")
+    if res.target_met:
+        mdef, mcfg = build_model_from_config(cfg)
+        img, _ = decode_and_render(f"{res.stream_dir}/model_quantized", "zstd", mdef, mcfg,
+                                   N_SIDE, N_SIDE, device="cuda", precision="fp32")
+        again = _psnr_db(img, compress._load_image(cfg.img))
+        if res.compressed_bytes > TARGET_BYTES or again != res.decoded_psnr:
+            raise AssertionError(f"{tag} the chosen member: {res.compressed_bytes} B, decodes "
+                                 f"{again} dB against {res.decoded_psnr}")
+
+
+def _sweep(argv) -> tuple:
+    """sweep.cli in process from the launch counts 0: (trials, launches,
+    seconds)."""
+    from implicit_image_tpu_torch import sweep
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep.cli(argv)
+    seconds = time.perf_counter() - t0
+    trials = json.loads(Path("outputs/sweep_results.json").read_text())["trials"]
+    return trials, dict(sm.LAUNCHES), seconds
+
+
+def phase_sweep() -> None:
+    """16d: a density sweep of 8 trials in rounds of 4 (two ladders: one
+    batched K2 per fit step each), relaunched with the same arguments:
+    every trial replayed from the store, no kernel launch; then 2 serial
+    trials over optim.lr through compress.main."""
+    tag = "[16d sweep]"
+    for d in (f"{P16}_sweep", f"{P16}_sweep_runs", f"{P16}_serial", f"{P16}_serial_runs"):
+        shutil.rmtree(d, ignore_errors=True)
+    trials, launches, seconds = _sweep(SWEEP_ARGV)
+    steps = 100
+    for t in trials:
+        print(f"{tag} trial {t['trial']}: density {float(t['values']['masking.density']):.4f}, "
+              f"{t['psnr']:.3f} dB @ {t['bytes']} B", flush=True)
+    print(f"{tag} {len(trials)} trials in {seconds:.2f} s = "
+          f"{seconds / steps * 1e3 / len(trials):.3f} ms per fit step per trial, finetunes and "
+          f"containers included; launches {launches}", flush=True)
+    if launches["sine_mlp_bwd_batched"] != 2 * steps or len(trials) != 8:
+        raise AssertionError(f"{tag} {len(trials)} trials, launches {launches}: expected two "
+                             "ladders")
+    if not all(math.isfinite(t["psnr"]) and t["psnr"] >= 12.0 for t in trials):
+        raise AssertionError(f"{tag} a trial's PSNR is below 12 dB")
+    again, relaunched, seconds = _sweep(SWEEP_ARGV)
+    print(f"{tag} relaunched: {len(again)} trials replayed in {seconds:.2f} s, launches "
+          f"{relaunched}", flush=True)
+    if again != trials or any(relaunched.values()):
+        raise AssertionError(f"{tag} the relaunch did not replay the store: {relaunched}")
+    serial, launches, seconds = _sweep(SERIAL_SWEEP_ARGV)
+    print(f"{tag} serial: " + ", ".join(f"lr {float(t['values']['optim.lr']):.3g}: "
+                                        f"{t['psnr']:.3f} dB" for t in serial)
+          + f" in {seconds:.2f} s; launches {launches}", flush=True)
+    _check_launches(launches, f"{tag} serial trials")
+    if len(serial) != 2 or launches["sine_mlp_bwd"] != 2 * (steps + 10):
+        raise AssertionError(f"{tag} serial: {len(serial)} trials, launches {launches}")
+
+
+def _meta(argv) -> tuple:
+    """meta_train.run in process from the launch counts 0: (cfg, artifact,
+    launches, seconds)."""
+    from implicit_image_tpu_torch import compress, meta_train
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    cfg = compress.compose(list(argv))
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = meta_train.run(cfg)
+    return cfg, out, dict(sm.LAUNCHES), time.perf_counter() - t0
+
+
+def phase_meta(yardsticks: str, cold_run: str) -> None:
+    """16e: REPTILE meta-training of SIREN d8/w128 (one batched K1 and K2
+    per inner step, one more batched K1 per meta-step for the post-adaptation
+    loss, no single launch); a 200-step fit from the artifact starts from its
+    weights (its first loss is the artifact's own, bit for bit); CoordX
+    s5/w96 meta-training launches no SIREN kernel."""
+    import torch
+
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops.metrics import mse
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit, forward_flat
+
+    tag = "[16e meta_train]"
+    cfg, art, launches, seconds = _meta(META_SIREN_ARGV)
+    inner, outer, batch = (int(cfg.meta[k]) for k in ("inner_steps", "outer_steps",
+                                                      "meta_batch"))
+    want = {k: 0 for k in launches}
+    want.update(sine_mlp_fwd_batched=outer * (inner + 1), sine_mlp_bwd_batched=outer * inner,
+                sum_partials_batched=outer * inner)
+    print(f"{tag} SIREN d{DEPTH}/w{WIDTH} at {N_SIDE}², pool 8, {outer} meta-steps x {inner} "
+          f"inner x {batch} images: {_member_ms(seconds, outer * inner, batch)} ({yardsticks}); "
+          f"launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+
+    mdef, mcfg = build_model_from_config(cfg)
+    # train.init_path as compress.main reads it
+    params, _ = compress._warm_start(compress.compose(META_SIREN_ARGV + [f"train.init_path={art}"]),
+                                     mdef, mcfg, WARM_STEPS, "cuda")
+    img = compress._load_image(cfg.img)
+    grid = get_grid(N_SIDE, N_SIDE, "cuda")
+    coords = grid.reshape(-1, 2)
+    target = torch.as_tensor(img, device="cuda").reshape(-1, 3)
+    with torch.no_grad():
+        own = float(mse(forward_flat(mdef, mcfg, params, coords, (N_SIDE, N_SIDE), "fp32"),
+                        target))
+    res = fit(torch.Generator().manual_seed(0), mdef, mcfg, grid, img,
+              TrainConfig(num_steps=WARM_STEPS, log_steps=100), OptimConfig(),
+              init_params=params, device="cuda")
+    cold = json.loads(open(f"{cold_run}/summary.json").read())["PSNR"]
+    print(f"{tag} a {WARM_STEPS}-step dense fit from train.init_path={art}: first loss "
+          f"{float(res.metrics['loss'][0])!r}, the artifact's own {own!r}; fit PSNR "
+          f"{res.metrics['psnr'][-1]:.3f} dB (phase 4's "
+          f"cold dense fit {cold:.3f} dB)", flush=True)
+    if float(res.metrics["loss"][0]) != own:
+        raise AssertionError(f"{tag} the warm fit does not start from the artifact's weights")
+
+    cfg, art, launches, seconds = _meta(META_COORDX_ARGV)
+    outer = int(cfg.meta.outer_steps)
+    print(f"{tag} CoordX s5/w96, {outer} meta-steps: {_member_ms(seconds, outer * inner, batch)};"
+          f" SIREN launches {launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"{tag} CoordX meta-training launched a SIREN kernel: {launches}")
+
+
+def phase_tools(default_run: str, cold_run: str) -> None:
+    """Phase 16: the fleet CLI, the API, compress-to-target, the sweeper and
+    meta-training, each part's wall beside phase 5's single fit and phase
+    14a's ladder."""
+    yardsticks = _yardsticks(default_run)
+    for part, fn in (("a", lambda: phase_fleet(yardsticks)), ("b", phase_api),
+                     ("c", phase_target), ("d", phase_sweep),
+                     ("e", lambda: phase_meta(yardsticks, cold_run))):
+        t0 = time.perf_counter()
+        fn()
+        print(f"[16{part}] wall {time.perf_counter() - t0:.2f} s", flush=True)
+
 def main() -> int:
     import torch
 
@@ -2778,6 +3139,7 @@ def main() -> int:
         for name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched", "sum_partials_batched"):
             path_launches[width][name] = counts[name]
     phase_last_options(default_dir)
+    phase_tools(default_dir, compress_dir(SMOKE_OVERRIDES))
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
                "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,

@@ -340,9 +340,14 @@ def _warm_start(cfg, mdef, mcfg, num_steps: int, device):
     return params, init_path
 
 
-def main(cfg: DotDict, run_dir: Optional[str] = None) -> Tuple[float, int]:
+def main(cfg: DotDict, run_dir: Optional[str] = None, image=None) -> Tuple[float, int]:
     """Run the compress pipeline; returns (decoded PSNR, compressed bytes)
-    — the quant PSNR (or the fit PSNR) when no container is written."""
+    — the quant PSNR (or the fit PSNR) when no container is written.
+
+    `image` (api.compress_image) is a preloaded (H, W, 3) float array in
+    [0, 1] that replaces the image cfg.img names; cfg.img.height / width
+    must already be its shape (the run dir's config.json sets the decoder's
+    lattice)."""
     device = torch.device(cfg.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but no CUDA device is available")
@@ -353,12 +358,13 @@ def main(cfg: DotDict, run_dir: Optional[str] = None) -> Tuple[float, int]:
     Path(run_dir).mkdir(parents=True, exist_ok=True)
     logger = MetricsLogger(run_dir, use=cfg.get("logging", {}).get("use", True))
     try:
-        return _run(cfg, run_dir, device, logger)
+        return _run(cfg, run_dir, device, logger, image)
     finally:
         logger.close()
 
 
-def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tuple[float, int]:
+def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger,
+         image=None) -> Tuple[float, int]:
     generator = torch.Generator().manual_seed(int(cfg.seed))
     if device.type == "cuda":
         # set-up, kept out of the stage walls: build (or load) the kernels
@@ -372,7 +378,7 @@ def _run(cfg, run_dir: str, device: torch.device, logger: MetricsLogger) -> Tupl
         logger.summary({"codec_build_s": time.perf_counter() - t0})
     (Path(run_dir) / "config.json").write_text(json.dumps(cfg, indent=2, default=str))
 
-    img = _load_image(cfg.img)
+    img = np.asarray(image, np.float32) if image is not None else _load_image(cfg.img)
     h, w = img.shape[:2]
     grid = get_grid(h, w, device)
     mdef, mcfg = build_model_from_config(cfg)

@@ -26,7 +26,8 @@ from pathlib import Path
 
 from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS
 
-__all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "ptxas_report", "ptxas_table"]
+__all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "open_device", "ptxas_report",
+           "ptxas_table"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -133,6 +134,24 @@ def load_library() -> ctypes.CDLL:
         return _state["lib"]
     with _lock:
         return _state["lib"] or _load()
+
+
+def open_device(device):
+    """The device of an entry point, as a torch.device. "cuda" raises
+    RuntimeError when no CUDA device is present, else builds (or loads) the
+    kernels: set-up, kept out of the caller's timed wall. Either way TF32
+    products are switched off (`tensorfloat32` means fp32 here, never
+    1-pass TF32). "cpu" runs the plain versions."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={device} but no CUDA device is available")
+        load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
 
 
 def _load() -> ctypes.CDLL:

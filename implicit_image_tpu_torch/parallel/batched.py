@@ -102,13 +102,15 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
                 grid: torch.Tensor, targets, train_cfg: TrainConfig, optim_cfg: OptimConfig,
                 masking_cfgs: Optional[Sequence[MaskingConfig]] = None, init_params=None,
                 device="cuda") -> FitResult:
-    """The member-axis fit loop of `batched_fit` and the density ladder: M =
-    len(generators) fits of one SIREN shape on `device` (the grid moves
-    there; "cpu" runs the plain versions). targets: (M, H, W, C), one image per member, or (H, W, C),
-    shared. masking_cfgs: None for dense fits, else one config per member
-    (members may differ in density and final_density only: the cadence and
-    the modes are member 0's). Member m starts from `init_fit_state(
-    generators[m], ..., masking_cfgs[m], init_params)`. Returns a FitResult
+    """The member-axis fit loop of `batched_fit`, the density ladder and
+    meta-training's inner loop: M = len(generators) fits of one SIREN shape
+    on `device` (the grid moves there; "cpu" runs the plain versions).
+    targets: (M, H, W, C), one image per member, or (H, W, C), shared; numpy
+    or a tensor on any device. masking_cfgs: None for dense fits, else one
+    config per member (members may differ in density and final_density
+    only: the cadence and the modes are member 0's). Member m starts from
+    `init_fit_state(generators[m], ..., masking_cfgs[m], init_params)` (a
+    warm dense fit draws nothing: its generators may be None). Returns a FitResult
     whose params, Adam moments, masks, mask scalars and metric arrays carry
     a leading member axis."""
     check_member_axis(mdef, mcfg, train_cfg, optim_cfg)
@@ -121,7 +123,8 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
     early, switch = plan_precision_schedule(train_cfg, n)
     h, w, c = grid.shape
     coords = grid.to(device).reshape(h * w, c)
-    target = torch.as_tensor(np.asarray(targets), dtype=torch.float32).to(device)
+    target = torch.as_tensor(targets if isinstance(targets, torch.Tensor) else np.asarray(targets),
+                             dtype=torch.float32, device=device)
     if target.dim() == 3:
         target_flat = [target.reshape(h * w, -1)] * b
     elif target.shape[0] == b:

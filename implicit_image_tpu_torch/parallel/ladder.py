@@ -137,7 +137,9 @@ def _ladder_run(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking_
 def build_ladder_args(cfg) -> dict:
     """cfg -> ladder_compress's arguments, from the port's own config pieces
     (compress.py's masking config, segment cadence, image loader, optimizer
-    and quantizer configs, and warm start)."""
+    and quantizer configs, and warm start). It opens cfg's device (default
+    "cuda": RuntimeError without one; the kernels build here, outside any
+    timed wall)."""
     from implicit_image_tpu_torch.compress import (
         _half_policy,
         _load_image,
@@ -149,8 +151,9 @@ def build_ladder_args(cfg) -> dict:
     )
     from implicit_image_tpu_torch.data import get_grid
     from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.ops.cuda_build import open_device
 
-    device = torch.device(cfg.get("device", "cuda"))
+    device = open_device(cfg.get("device", "cuda"))
     img = _load_image(cfg.img)
     h, w = img.shape[:2]
     grid = get_grid(h, w, device)
@@ -244,17 +247,8 @@ def cli(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg, densities, gmp = parse_ladder_cli(argv)
-    args = build_ladder_args(cfg)
+    args = build_ladder_args(cfg)  # opens the device: the kernels build outside the wall
     device = args["device"]
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device=cuda but no CUDA device is available")
-        from implicit_image_tpu_torch.ops.cuda_build import load_library
-
-        load_library()  # set-up, kept out of the ladder's wall
-    # fp32 products: `tensorfloat32` meant 3 passes on the TPU, never 1-pass TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     # the root carries the masking method: three ladders of one exp_name
     # (the RigL / SNFS / Pruning study sweeps) must not overwrite each other

@@ -41,6 +41,8 @@ class PipelineResult(NamedTuple):
     compressed_bytes: int
     params: object  # final (quantized) params
     stream_dir: str
+    # the wall of the fit over the member axis, shared by its members
+    fit_wall_s: float = float("nan")
 
 
 def _fit_psnr(metrics) -> float:
@@ -112,7 +114,8 @@ def finetune_and_code(res, targets, mdef, mcfg, grid, train_cfg: TrainConfig,
         out.append(PipelineResult(psnr=_fit_psnr({"psnr": res.metrics["psnr"][m]}),
                                   quant_psnr=qpsnr,
                                   decoded_psnr=dec_psnr, compressed_bytes=nbytes,
-                                  params=params_q, stream_dir=str(stream_dir)))
+                                  params=params_q, stream_dir=str(stream_dir),
+                                  fit_wall_s=res.wall_seconds))
     return out
 
 

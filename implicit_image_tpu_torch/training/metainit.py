@@ -1,24 +1,59 @@
-"""Meta-learned warm starts: loading and the `init_path=auto` choice
-(counterpart of implicit_image_tpu/training/metainit.py `load_meta_init`,
-`default_meta_dir`, `meta_precision` and `resolve_auto_init`).
+"""Meta-learned warm starts: REPTILE meta-training, the artifact, and the
+`init_path=auto` choice (counterpart of
+implicit_image_tpu/training/metainit.py).
 
-The artifact is a numpy .npz written by the JAX package's `save_meta_init`:
+Meta-training (first-order REPTILE, Nichol et al. arXiv:1803.02999, for the
+learned inits of Tancik et al. arXiv:2012.02189): each meta-step draws
+`meta_batch` images of the pool without replacement (from an explicit
+torch.Generator; JAX uses jax.random.choice), adapts a copy of the shared
+weights to each with `inner_steps` Adam steps (Adam restarted every
+meta-step, lr = inner_lr, constant), reads each adapted copy's loss with a
+forward after its last update, and moves the shared weights toward the
+adapted mean: θ ← θ + ε_j (mean(adapted) − θ), ε_j = outer_lr (1 − j/T) with
+j the global meta-step, so the chunks (`MetaConfig.chunk`, the JAX
+package's compiled blocks, here the logging cadence) do not reset it.
+`make_meta_step` builds that step as a plain function, `meta_step(
+meta_params, targets, j)`; `meta_train` loops over it.
+
+SIREN with the polynomial sine adapts its members together over the member
+axis (parallel/batched.fit_members): the shared weights stacked into
+(M, ...) copies, each inner step one `sine_mlp_fwd_batched` and one
+`sine_mlp_bwd_batched` launch (one more forward for the post-adaptation
+loss), the single fit's Adam step (training.fit.optimizer_step). Every
+other family adapts member by member through its single forward and
+autograd (training.fit.make_grad_fn, the counterpart of JAX's `_make_loss`):
+CoordX and hashgrid on their separable path over the grid, the rest on the
+flat coordinates.
+
+The artifact is a numpy .npz in the JAX package's layout (`save_meta_init`):
 tensors under "params.{i}.{key}", the architecture under "meta.*" and
 "mcfg.*", and the matmul precision it was meta-trained under in
-"meta.matmul_precision". `train.init_path` lets both packages start a fit
-from the same weights; the committed artifacts live in <repo>/assets/meta.
-Meta-training itself is not ported.
+"meta.matmul_precision". Either package loads the other's, and
+`train.init_path` starts a fit from it; the committed artifacts live in
+<repo>/assets/meta.
+
+`meta_pool` draws the training images from the synthetic family of the
+evaluation stand-ins, with name-salted seeds, and refuses a seed that
+collides with an evaluation image.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = [
+    "MetaConfig",
+    "meta_pool",
+    "make_meta_step",
+    "meta_train",
+    "save_meta_init",
+    "build_meta_model",
     "WARM_BUDGET_MAX_STEPS",
     "load_meta_init",
     "default_meta_dir",
@@ -30,6 +65,183 @@ __all__ = [
 # package's value): past it `init_path=auto` cold-starts, and an explicit
 # init_path logs a warning.
 WARM_BUDGET_MAX_STEPS = 3000
+
+# the evaluation images (bench.py, benchmarks/time_to_quality.py): the meta
+# pool never holds them
+_EVAL_NAMES = ("flower", "flower_foveon", "big_building", "bridge", "synthetic")
+
+
+@dataclass(frozen=True)
+class MetaConfig:
+    """The JAX package's fields and defaults: K = 50 inner steps, 300 outer
+    steps, outer_lr 0.2 (its measured operating point; outer_lr 1.0 diverged
+    and K = 16 was too short for 512² INRs there)."""
+
+    pool_size: int = 16
+    inner_steps: int = 50
+    inner_lr: float = 3e-4
+    outer_steps: int = 300
+    outer_lr: float = 0.2  # REPTILE interpolation rate, annealed linearly to 0
+    meta_batch: int = 4  # images per meta-step (the member axis)
+    # meta-steps per block: the JAX package's compiled block, here the
+    # logging cadence; it must divide outer_steps
+    chunk: int = 25
+    seed: int = 0
+
+
+def meta_pool(height: int, width: int, n: int, extra_exclude: Tuple[str, ...] = ()) -> np.ndarray:
+    """(n, H, W, 3) float32 pool of synthetic meta-training images, seeded
+    `stable_seed(f"metatrain_{i}")` and skipping any seed of an evaluation
+    stand-in (seed 0 and `stable_seed(name)` of _EVAL_NAMES + extra_exclude):
+    the JAX package's pool, bit for bit."""
+    from implicit_image_tpu_torch.data import stable_seed, synthetic_image
+
+    banned = {0} | {stable_seed(nm) for nm in _EVAL_NAMES + tuple(extra_exclude)}
+    imgs = []
+    i = 0
+    while len(imgs) < n:
+        s = stable_seed(f"metatrain_{i}")
+        i += 1
+        if s in banned:
+            continue
+        imgs.append(synthetic_image(height, width, seed=s))
+    return np.stack(imgs).astype(np.float32)
+
+
+def make_meta_step(mdef, mcfg, grid: torch.Tensor, meta_cfg: MetaConfig,
+                   precision: str = "fp32", device="cuda"):
+    """meta_step(meta_params, targets (B, H·W, C), j) -> (meta_params, the
+    mean post-adaptation loss): REPTILE step j (module note) on `device`,
+    the products in `precision` (the kernels' mode: "fp32" or "bf16")."""
+    from implicit_image_tpu_torch.ops.metrics import mse
+    from implicit_image_tpu_torch.optim import opt_init
+    from implicit_image_tpu_torch.parallel.batched import fit_members
+    from implicit_image_tpu_torch.training.fit import (
+        OptimConfig,
+        TrainConfig,
+        forward_flat,
+        make_grad_fn,
+        optimizer_step,
+        set_trainable_,
+    )
+
+    device = torch.device(device)
+    grid = grid.to(device)
+    h, w, c = grid.shape
+    coords = grid.reshape(h * w, c)
+    inner_optim = OptimConfig(lr=meta_cfg.inner_lr, lr_step_size=10**9)
+    k_inner = int(meta_cfg.inner_steps)
+    total = int(meta_cfg.outer_steps)
+    matmul = {"fp32": "float32", "bf16": "bfloat16"}[precision]
+    inner_train = TrainConfig(num_steps=k_inner, log_steps=k_inner, matmul_precision=matmul)
+    # the fused SIREN adapts over the member axis, the rest member by member
+    batched = mdef.name == "siren" and getattr(mcfg, "fast_sine", True)
+
+    def adapt_one(meta_params, target_flat):
+        # one member's inner loop: the single fit's grads and Adam step
+        params = tuple({k: v.detach().clone() for k, v in layer.items()} for layer in meta_params)
+        opt_state = opt_init(params, inner_optim)
+        grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision, grid_hw=(h, w))
+        set_trainable_(params, True)
+        for k in range(k_inner):
+            _, grads = grad_fn(params)
+            params, opt_state, _ = optimizer_step(k, params, grads, opt_state,
+                                                  meta_cfg.inner_lr, inner_optim)
+        set_trainable_(params, False)
+        with torch.no_grad():
+            post = mse(forward_flat(mdef, mcfg, params, coords, (h, w), precision), target_flat)
+        return params, post
+
+    def meta_step(meta_params, targets, j: int):
+        targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
+        b = targets.shape[0]
+        if batched:
+            res = fit_members([None] * b, mdef, mcfg, grid, targets.reshape(b, h, w, -1),
+                              inner_train, inner_optim, init_params=meta_params, device=device)
+            adapted = res.params
+            # the eval after the last update: the post-adaptation loss
+            post = torch.from_numpy(res.metrics["test_loss"][:, -1])
+        else:
+            outs = [adapt_one(meta_params, targets[m]) for m in range(b)]
+            adapted = tuple({k: torch.stack([p[i][k] for p, _ in outs]) for k in layer}
+                            for i, layer in enumerate(meta_params))
+            post = torch.stack([loss for _, loss in outs])
+        # linear outer-rate anneal over the global meta-step, in float32
+        eps = np.float32(meta_cfg.outer_lr) * (np.float32(1.0) - np.float32(j) / np.float32(total))
+        with torch.no_grad():
+            new = tuple({k: m + float(eps) * (adapted[i][k].mean(0) - m) for k, m in layer.items()}
+                        for i, layer in enumerate(meta_params))
+        return new, post.mean()
+
+    return meta_step
+
+
+def meta_train(mdef, mcfg, grid: torch.Tensor, pool: np.ndarray, meta_cfg: MetaConfig, log=None,
+               precision: str = "fp32", device="cuda"):
+    """REPTILE meta-training on `device` (default "cuda": RuntimeError
+    without one; "cpu" runs the plain versions); returns (meta_params, the
+    post-adaptation loss of each meta-step as a float32 array, wall
+    seconds). The init and the index draws come from one torch.Generator
+    seeded with meta_cfg.seed; `log(step, loss)` is called after every
+    `chunk` meta-steps."""
+    from implicit_image_tpu_torch.ops.cuda_build import open_device
+    from implicit_image_tpu_torch.training.fit import synchronize
+
+    n, h, w, c = pool.shape
+    if tuple(grid.shape[:2]) != (h, w):
+        raise ValueError(f"grid {tuple(grid.shape)} does not match pool {pool.shape}")
+    if meta_cfg.outer_steps % meta_cfg.chunk:
+        raise ValueError(
+            f"chunk={meta_cfg.chunk} must divide outer_steps={meta_cfg.outer_steps}")
+    if meta_cfg.meta_batch > n:
+        raise ValueError(f"meta_batch={meta_cfg.meta_batch} exceeds pool size {n}")
+    device = open_device(device)
+    generator = torch.Generator().manual_seed(int(meta_cfg.seed))
+    meta_params = mdef.init(generator, mcfg, device)
+    pool_flat = torch.as_tensor(pool.reshape(n, h * w, c), dtype=torch.float32, device=device)
+    meta_step = make_meta_step(mdef, mcfg, grid, meta_cfg, precision, device)
+
+    synchronize(device)
+    t0 = time.perf_counter()
+    losses = []
+    for j in range(meta_cfg.outer_steps):
+        idx = torch.randperm(n, generator=generator)[: meta_cfg.meta_batch]
+        meta_params, loss = meta_step(meta_params, pool_flat[idx.to(device)], j)
+        losses.append(loss)
+        if log is not None and (j + 1) % meta_cfg.chunk == 0:
+            log(j + 1, float(loss))
+    curve = torch.stack(losses).cpu().numpy().astype(np.float32)
+    synchronize(device)
+    return meta_params, curve, time.perf_counter() - t0
+
+
+def save_meta_init(path, params, model_name: str, mcfg, matmul_precision=None) -> None:
+    """Write a meta-init .npz in the JAX package's layout: "meta.n_layers",
+    "meta.model", "meta.matmul_precision" (the train.matmul_precision string
+    it was meta-trained under, "" for none: resolve_auto_init matches it),
+    the int / float / bool fields of mcfg as "mcfg.{field}", and every
+    tensor as "params.{i}.{key}"."""
+    out = {
+        "meta.n_layers": np.asarray(len(params)),
+        "meta.model": np.asarray(model_name),
+        "meta.matmul_precision": np.asarray(str(matmul_precision or "")),
+    }
+    for f in dataclasses.fields(mcfg):
+        v = getattr(mcfg, f.name)
+        if isinstance(v, (int, float, bool)):
+            out[f"mcfg.{f.name}"] = np.asarray(v)
+    for i, layer in enumerate(params):
+        for k, v in layer.items():
+            out[f"params.{i}.{k}"] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                                      else np.asarray(v))
+    np.savez(path, **out)
+
+
+def build_meta_model(model_name: str, **mlp_kwargs):
+    """(mdef, mcfg) of a registry model, for the CLI and the tools."""
+    from implicit_image_tpu_torch.models import build_model
+
+    return build_model(model_name, **mlp_kwargs)
 
 
 def load_meta_init(path, expect_model: Optional[str] = None, expect_mcfg=None,
