@@ -222,16 +222,38 @@ Phases, each printing its own line:
      fit from its artifact through train.init_path starts from its weights
      (the first loss is the artifact's, bit for bit); CoordX s5/w96
      meta-training (2 outer steps) launches no SIREN kernel.
+ 17. sequence coding through sequence.encode_sequence and
+     decode_sequence at 512², SIREN d8/w128, RigL 0.5, k-means with ECVQ,
+     the `auto` stream, cut to 200 I-fit / 50 P-fit / 20 finetune steps,
+     each frame's K1 / K2 / sum_partials launches printed per I- and
+     P-frame: (a) the Makefile's sequence target (8 frames at motion
+     0.01): every frame but frame 0 a P-frame, each decoded >= 20 dB, each
+     P-frame's nonzero weights per layer its I-frame's (RigL's topology
+     frozen), and decode_sequence of the dir each frame the encode side's
+     render bit for bit, one K1 launch per frame; (b) the same with an
+     I-frame every 4: frames 0 and 4 are I; the CLI's pack, decode_sequence
+     of the .iiv (each frame the encode side's render; its size against
+     the frame payloads; the steady decode rate after the first frame,
+     host entropy decode included) and a seek to frame 6 equal to the
+     full decode's frame that extracts frames 4-6 only; (c) the scene-cut
+     guard at motion 0.5 and 2 P steps: under the default 3 dB a P attempt
+     falls back to an I-frame, under max_drop=none none does; (d)
+     stop_at_psnr=20: every P-frame stops at its first check (25 of 50
+     steps), its K2 launches its steps plus the finetune's; (e)
+     benchmarks/sequence_decode.py's CoordX s5/w96 sequence (RigL 0.85, an
+     I-frame every 4, 100 / 25 / 20 steps): no SIREN kernel launch, and its
+     decode rate.
 
-Each of phases 4-16 sets the launch counts to 0 just before its run and
+Each of phases 4-17 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
 of 12 only; sine_mlp_fwd_batched in 13 (e), 14 and 16 only; the member-axis
 K2 (sine_mlp_bwd_batched, sum_partials_batched, and sine_mlp_dw_batched at
-w182) in 14 and 16 only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s
-Fourier run and in 16 (e)'s CoordX meta-training. In phase 3, sum_partials must equal its plain
-mirror sum_partials_reference (the kernel's order of additions) bit for
-bit on the main path's partial buffer, give the same bits twice, and be
+w182) in 14 and 16 only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in
+15 (f)'s Fourier run, in 16 (e)'s CoordX meta-training and in 17 (e). In
+phase 3, sum_partials must equal its plain mirror sum_partials_reference
+(the kernel's order of additions) bit for bit on the main path's partial
+buffer, give the same bits twice, and be
 within SUM_TOL of partials.sum(0), the library call for the same function;
 the kernel and the library call are timed in turns (5 rounds of 20
 launches each), replayed from CUDA graphs (device time: the kernels line
@@ -241,7 +263,8 @@ every round is printed beside the medians and their share of the bound.
 Then one JSON line describing the kernels (each kernel once per width of
 phase 3, with the launches of the phase that runs that width: 4, 9 and 10;
 the batched K1 at 128 and 182 with 13 (e)'s; the batched K2, its partial
-sum and at 182 its sine_mlp_dw with 14 (a)'s and 14 (d)'s),
+sum and at 182 its sine_mlp_dw with 14 (a)'s and 14 (d)'s; the single K1,
+K2 and sum_partials at 128 also with 17 (a)'s, as `sequence_launches`),
 and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
 exit code is non-zero and no result line is printed. Without a CUDA device
@@ -525,6 +548,34 @@ META_SIREN_ARGV = META_CUT + ["meta.outer_steps=4", f"meta.out={P16}_meta/siren_
 META_COORDX_ARGV = META_CUT + ["mlp=coordx", "mlp.hidden_size=96", "mlp.split_depth=5",
                                "meta.outer_steps=2", f"meta.out={P16}_meta/coordx_s5w96.npz"]
 WARM_STEPS = 200  # (e): the fit from the meta-trained artifact
+
+# phase 17: sequence coding at full width (512², SIREN d8/w128, RigL 0.5,
+# k-means 8-bit with ECVQ λ=1: the composed defaults). (a) the Makefile's
+# sequence target (Makefile:66-69: sequence.video=seqbench quant=kmeans
+# entropy_coding=auto; 8 frames at motion 0.01), its I-fit, P-fit and
+# finetune cut from 2,000 / 500 / 100 steps to 200 / 50 / 20; (b) the same
+# with an I-frame every 4; (c) the scene-cut guard (JAX's
+# test_sequence_max_drop_fallback_and_disable at full width: motion 0.5, 2
+# P steps, 3 frames) with the default 3 dB and with max_drop=none; (d)
+# sequence.stop_at_psnr at 20 dB, which the warm start meets by the first
+# check; (e) benchmarks/sequence_decode.py's configuration
+# (scripts/run_studies_r5.sh:69: CoordX s5/w96, RigL 0.85, auto, gop 4, 8
+# frames), cut from 1,000 / 250 / 100 to 100 / 25 / 20 steps
+P17 = "outputs/chip_smoke_p17"
+SEQ_STEPS0, SEQ_STEPS_P, SEQ_QUANT = 200, 50, 20
+SEQ_ARGV = ["sequence.video=seqbench", "quant=kmeans", "entropy_coding=auto",
+            f"train.num_steps={SEQ_STEPS0}", "train.log_steps=100",
+            f"sequence.steps0={SEQ_STEPS0}", f"sequence.steps={SEQ_STEPS_P}",
+            f"quant.num_steps={SEQ_QUANT}"]
+SEQ_FRAMES, SEQ_GOP, SEQ_SEEK, SEQ_FLOOR = 8, 4, 6, 20.0
+SCENECUT_ARGV = ["sequence.video=scenecut", "sequence.frames=3", "sequence.motion=0.5",
+                 "sequence.steps=2"]
+SEQ_STOP_DB = 20.0
+SEQDEC_ARGV = ["mlp=coordx", "mlp.hidden_size=96", "mlp.split_depth=5", "masking=RigL",
+               "masking.density=0.85", "quant=kmeans", "quant.num_steps=20",
+               "entropy_coding=auto", "sequence.video=benchclip", "sequence.frames=8",
+               "sequence.gop=4", "sequence.steps0=100", "sequence.steps=25",
+               "train.num_steps=100", "train.log_steps=250"]
 
 def _time_ms(fn, reps: int = 10) -> float:
     import torch
@@ -3105,6 +3156,282 @@ def phase_tools(default_run: str, cold_run: str) -> None:
         fn()
         print(f"[16{part}] wall {time.perf_counter() - t0:.2f} s", flush=True)
 
+def _encode_sequence(tag: str, argv) -> dict:
+    """sequence.encode_sequence in process from the launch counts 0, each
+    I- and P-frame's launches (its fit, finetune, container and decode;
+    the render after it adds one K1) read around the frame coder's calls:
+    {rows, renders, root, launches, frames: [(kind, launches)], seconds}."""
+    from implicit_image_tpu_torch import compress, sequence
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    cfg = compress.compose(list(argv))
+    root = Path(cfg.output_dir) / f"seq_{cfg.sequence.video}"
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    frames = []
+    coder = sequence._FrameCoder
+    methods = {"I": coder.iframe, "P": coder.pframe}
+
+    masks = {}  # each frame's fit masks (the last call's for a fallback frame)
+
+    def counted(kind):
+        def call(self, *a, **k):
+            before = dict(sm.LAUNCHES)
+            out = methods[kind](self, *a, **k)
+            frames.append((kind, {n: sm.LAUNCHES[n] - before[n] for n in before}))
+            if out.fit.mask_state is not None:
+                masks[out.dir.name] = [None if m is None else m.cpu().numpy()
+                                       for m in out.fit.mask_state.masks]
+            return out
+
+        return call
+
+    renders = {}
+    coder.iframe, coder.pframe = counted("I"), counted("P")
+    try:
+        sm.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = sequence.encode_sequence(argv, device="cuda", renders=renders)
+        seconds = time.perf_counter() - t0
+        launches = dict(sm.LAUNCHES)
+    finally:
+        coder.iframe, coder.pframe = methods["I"], methods["P"]
+    summary = json.loads((root / "seq_summary.json").read_text())
+    print(f"{tag} {len(rows)} frames in {seconds:.2f} s: {summary['bytes_per_frame']} B per "
+          f"frame, mean decoded {summary['mean_decoded_psnr']} dB; launches {launches}",
+          flush=True)
+    return dict(rows=rows, renders=renders, root=root, launches=launches, frames=frames,
+                seconds=seconds, masks=masks)
+
+
+def _frame_launches(tag: str, frames) -> None:
+    """Print the K1 / K2 / sum_partials launches of each kind of frame (each
+    call of the frame coder; a max_drop fallback is a P call then an I)."""
+    for kind in ("I", "P"):
+        seen = sorted({tuple(d[n] for n in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials"))
+                       for k, d in frames if k == kind})
+        if seen:
+            print(f"{tag} per {kind}-frame K1 / K2 / sum_partials: "
+                  + ", ".join(" / ".join(map(str, c)) for c in seen), flush=True)
+
+
+def _decode_rate(frame_s) -> float:
+    """Frames per second of decode_sequence after its first frame (host
+    entropy decode, upload, render and copy back)."""
+    return (len(frame_s) - 1) / sum(frame_s[1:])
+
+
+def _frozen_topology(tag: str, root: Path, names, masks) -> list:
+    """Each P-frame's fit masks are its resume masks, the previous frame's
+    decoded nonzeros, and a masked-in weight decodes to 0 only where its
+    residual centroid cancels its offset exactly ((offset + c) == 0 in fp32,
+    both fp16 values): the codec's own rule, the JAX package's too. Returns
+    each frame's nonzero weights per layer and the cancellations per
+    P-frame."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.coding import decompress_state_dict, read_raw_container
+
+    counts, cancelled, prev = [], [], None
+    for name in names:
+        path = root / name / "model_quantized"
+        state = decompress_state_dict(path, "auto", prev_state=prev)
+        meta = json.loads((path / "meta_data.json").read_text())["__meta__"]
+        if "prev" in meta.get("delta", {}):
+            raw = read_raw_container(path, "auto")
+            n = 0
+            for i, mask in enumerate(masks[name]):
+                if mask is None:
+                    continue
+                w_prev, w = prev[f"layers.{i}.weight"], state[f"layers.{i}.weight"]
+                if not np.array_equal(mask != 0, w_prev != 0):
+                    raise AssertionError(f"{tag} {name} layer {i}: the fit's masks are not the "
+                                         "previous frame's decoded nonzeros")
+                lost = (mask != 0) & (w == 0)
+                labels = raw.get(f"layers.{i}.labeled_weight")
+                if lost.any():
+                    cents = raw[f"layers.{i}.centroids"].astype(np.float32)[labels]
+                    if not ((labels[lost] != 0) & (cents[lost] + w_prev[lost] == 0)).all():
+                        raise AssertionError(f"{tag} {name} layer {i}: a masked-in weight "
+                                             "decodes to 0 without an exact cancellation")
+                if ((mask == 0) & (w != 0)).any():
+                    raise AssertionError(f"{tag} {name} layer {i}: a pruned weight decodes "
+                                         "nonzero")
+                n += int(lost.sum())
+            cancelled.append(n)
+        counts.append([int(np.count_nonzero(v)) for k, v in state.items()
+                       if k.endswith(".weight")])
+        prev = state
+    return counts, cancelled
+
+
+def phase_sequence_default() -> dict:
+    """17a: the Makefile's sequence target: every frame but frame 0 a
+    P-frame, each decoding >= 20 dB; RigL's topology frozen in every P-fit
+    (_frozen_topology); decode_sequence of the dir gives each frame the encode
+    side's render bit for bit. Returns the encode's launches."""
+    import numpy as np
+
+    from implicit_image_tpu_torch import sequence
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    tag = "[17a sequence]"
+    run = _encode_sequence(tag, SEQ_ARGV + [f"sequence.frames={SEQ_FRAMES}",
+                                            f"output_dir={P17}_a"])
+    rows = run["rows"]
+    for r in rows:
+        print(f"{tag} {json.dumps(r)}", flush=True)
+    _frame_launches(tag, run["frames"])
+    _check_launches(run["launches"], f"{tag} encode")
+    kinds = [r["kind"] for r in rows]
+    if kinds != ["I"] + ["P"] * (SEQ_FRAMES - 1):
+        raise AssertionError(f"{tag} kinds {kinds}: a P-frame fell back to an I-frame")
+    if not all(math.isfinite(r["decoded_psnr"]) and r["decoded_psnr"] >= SEQ_FLOOR
+               for r in rows):
+        raise AssertionError(f"{tag} a frame decodes below {SEQ_FLOOR} dB")
+    stats = {}
+    sm.reset_launch_counts()
+    frames, names = sequence.decode_sequence(run["root"], device="cuda", stats=stats)
+    decode_launches = dict(sm.LAUNCHES)
+    same = [bool(np.array_equal(frames[t], run["renders"][n])) for t, n in enumerate(names)]
+    counts, cancelled = _frozen_topology(tag, run["root"], names, run["masks"])
+    print(f"{tag} decode_sequence: {_decode_rate(stats['frame_s']):.1f} frames/s after the "
+          f"first; each frame the encode side's render: {same}; launches {decode_launches}; "
+          f"nonzero weights per layer, I-frame {counts[0]}, last P-frame {counts[-1]}; each "
+          f"P-fit's masks its resume masks; masked-in weights decoding to 0 by an exact "
+          f"offset + centroid cancellation, per P-frame: {cancelled}", flush=True)
+    if not all(same):
+        raise AssertionError(f"{tag} decode_sequence differs from the encode side's renders")
+    if decode_launches["sine_mlp_fwd"] != SEQ_FRAMES or decode_launches["sine_mlp_bwd"]:
+        raise AssertionError(f"{tag} decode launches {decode_launches}")
+    return run["launches"]
+
+
+def phase_sequence_gop() -> None:
+    """17b: an I-frame every 4: frames 0 and 4 are I; the seq dir packed
+    (the CLI's pack), decoded from the .iiv, and a seek to frame 6 that
+    equals the full decode's frame bit for bit and extracts frames 4-6
+    only."""
+    import numpy as np
+
+    from implicit_image_tpu_torch import sequence
+    from implicit_image_tpu_torch.coding import container_file
+
+    tag = "[17b gop]"
+    run = _encode_sequence(tag, SEQ_ARGV + [f"sequence.frames={SEQ_FRAMES}",
+                                            f"sequence.gop={SEQ_GOP}", f"output_dir={P17}_b"])
+    _frame_launches(tag, run["frames"])
+    kinds = [r["kind"] for r in run["rows"]]
+    want = ["I" if t % SEQ_GOP == 0 else "P" for t in range(SEQ_FRAMES)]
+    print(f"{tag} kinds {kinds}; decoded dB {[r['decoded_psnr'] for r in run['rows']]}",
+          flush=True)
+    if kinds != want:
+        raise AssertionError(f"{tag} kinds {kinds}, expected {want}")
+    root = run["root"]
+    sequence.cli(["pack", str(root)])
+    iiv = root.with_suffix(".iiv")
+    payloads = sum((root / r["frame"] / "model_quantized" / "compressed_weights.data")
+                   .stat().st_size for r in run["rows"])
+    stats = {}
+    frames, names = sequence.decode_sequence(iiv, device="cuda", stats=stats)
+    same = all(np.array_equal(frames[t], run["renders"][n]) for t, n in enumerate(names))
+    seen = []
+    real = container_file.unpack_sequence
+
+    def spy(path, dest=None, frames=None):
+        out = real(path, dest, frames=frames)
+        seen.append(sorted(d.name for d in out.iterdir() if d.is_dir()))
+        return out
+
+    container_file.unpack_sequence = spy
+    try:
+        t0 = time.perf_counter()
+        img, name = sequence.decode_sequence(iiv, frame=SEQ_SEEK, device="cuda")
+        seek_s = time.perf_counter() - t0
+    finally:
+        container_file.unpack_sequence = real
+    chain = [f"frame_{t:04d}" for t in range(SEQ_SEEK // SEQ_GOP * SEQ_GOP, SEQ_SEEK + 1)]
+    print(f"{tag} {iiv.name} {iiv.stat().st_size} B against {payloads} B of frame payloads; "
+          f"decoded from the file at {_decode_rate(stats['frame_s']):.1f} frames/s after the "
+          f"first, each frame the encode side's render: {same}; seek to frame {SEQ_SEEK} "
+          f"({name}) in {seek_s:.3f} s extracted {seen[-1]}, "
+          f"{'==' if np.array_equal(img, frames[SEQ_SEEK]) else '!='} the full decode's",
+          flush=True)
+    if not same or not np.array_equal(img, frames[SEQ_SEEK]) or seen != [chain]:
+        raise AssertionError(f"{tag} the .iiv decode or the seek is wrong (extracted {seen})")
+
+
+def phase_sequence_scenecut() -> None:
+    """17c: at motion 0.5 and 2 P steps, a P attempt falls back to an
+    I-frame under the default 3 dB guard; with max_drop=none none does."""
+    tag = "[17c scene cut]"
+    base = SEQ_ARGV + SCENECUT_ARGV
+    guarded = _encode_sequence(f"{tag} max_drop=3", base + [f"output_dir={P17}_c"])
+    free = _encode_sequence(f"{tag} max_drop=none",
+                            base + ["sequence.max_drop=none", f"output_dir={P17}_c_none"])
+    for what, run in (("max_drop=3", guarded), ("max_drop=none", free)):
+        print(f"{tag} {what}: " + ", ".join(f"{r['kind']} {r['decoded_psnr']} dB @ {r['bytes']} B"
+                                            for r in run["rows"])
+              + f"; coder calls {[k for k, _ in run['frames']]}", flush=True)
+    if [r["kind"] for r in guarded["rows"]][1:].count("I") < 1:
+        raise AssertionError(f"{tag} no P attempt fell back to an I-frame")
+    if [r["kind"] for r in free["rows"]] != ["I", "P", "P"]:
+        raise AssertionError(f"{tag} max_drop=none still fell back")
+
+
+def phase_sequence_stop() -> None:
+    """17d: sequence.stop_at_psnr at a target the warm start meets: every
+    P-frame stops at the first check (25 of 50 steps), and its K2 launches
+    are its steps plus the finetune's."""
+    tag = "[17d stop_at_psnr]"
+    run = _encode_sequence(tag, SEQ_ARGV + ["sequence.frames=3",
+                                            f"sequence.stop_at_psnr={SEQ_STOP_DB}",
+                                            f"output_dir={P17}_d"])
+    _frame_launches(tag, run["frames"])
+    rows = run["rows"]
+    print(f"{tag} steps {[r['steps'] for r in rows]}; decoded dB "
+          f"{[r['decoded_psnr'] for r in rows]}", flush=True)
+    for r, (_, d) in zip(rows[1:], run["frames"][1:]):
+        if (r["kind"] != "P" or r["steps"] >= SEQ_STEPS_P
+                or d["sine_mlp_bwd"] != r["steps"] + SEQ_QUANT):
+            raise AssertionError(f"{tag} {r}: launches {d}")
+
+
+def phase_sequence_coordx() -> None:
+    """17e: benchmarks/sequence_decode.py's CoordX sequence: no SIREN kernel
+    launches; its decode rate."""
+    from implicit_image_tpu_torch import sequence
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    tag = "[17e coordx]"
+    run = _encode_sequence(tag, SEQDEC_ARGV + [f"output_dir={P17}_e"])
+    print(f"{tag} " + ", ".join(f"{r['kind']} {r['decoded_psnr']} dB @ {r['bytes']} B "
+                                f"{r['wall_s']} s" for r in run["rows"]), flush=True)
+    stats = {}
+    sm.reset_launch_counts()
+    frames, names = sequence.decode_sequence(run["root"], device="cuda", stats=stats)
+    print(f"{tag} decode_sequence {_decode_rate(stats['frame_s']):.1f} frames/s after the first; "
+          f"SIREN launches {dict(sm.LAUNCHES)}", flush=True)
+    if any(run["launches"].values()) or any(sm.LAUNCHES.values()):
+        raise AssertionError(f"{tag} CoordX launched a SIREN kernel: {run['launches']}")
+    if not all(math.isfinite(r["decoded_psnr"]) for r in run["rows"]) or len(frames) != 8:
+        raise AssertionError(f"{tag} rows {run['rows']}")
+
+
+def phase_sequences() -> dict:
+    """Phase 17: the port's sequence path; returns 17a's launches."""
+    launches = {}
+
+    def default():
+        launches.update(phase_sequence_default())
+
+    for part, fn in (("a", default), ("b", phase_sequence_gop), ("c", phase_sequence_scenecut),
+                     ("d", phase_sequence_stop), ("e", phase_sequence_coordx)):
+        t0 = time.perf_counter()
+        fn()
+        print(f"[17{part}] wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3140,6 +3467,7 @@ def main() -> int:
             path_launches[width][name] = counts[name]
     phase_last_options(default_dir)
     phase_tools(default_dir, compress_dir(SMOKE_OVERRIDES))
+    sequence_launches = phase_sequences()
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
                "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,
@@ -3162,6 +3490,10 @@ def main() -> int:
             "bound_by": bound["bound_by"],
             "padded_bound_ms": padded_bound_ms,
             "library_ms": library_ms,
+            # the single launches at w128 on phase 17a's sequence encode
+            **({"sequence_launches": sequence_launches[name]}
+               if width == WIDTH and name in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials")
+               else {}),
         }
         for width, by_name in records.items()
         for name, (err, ms, plain_ms, library_ms, bound, padded_bound_ms) in by_name.items()

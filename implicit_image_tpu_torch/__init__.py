@@ -22,7 +22,9 @@ Beside the compress and decode CLIs: many images fitted together over a
 member axis (parallel/, fleet.py), the density search to a byte or dB
 target (target.py), the hyper-parameter sweeper (sweep.py), REPTILE
 meta-training of the warm-start artifacts (meta_train.py,
-training/metainit.py), and the Python API below (api.py).
+training/metainit.py), sequence (video) coding with inter-frame `prev`
+containers and .iiv files (sequence.py, coding/container_file.py), and
+the Python API below (api.py).
 
     import implicit_image_tpu_torch as iit
     result = iit.compress_image(img, overrides=["entropy_coding=auto"])

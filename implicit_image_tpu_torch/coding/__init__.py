@@ -29,8 +29,13 @@ QAT's per-channel layers (quant.qscheme=per_channel) store int8 codes as
 centroids' dtype); they decode to codes * scales[None, :]. Per-tensor QAT
 layers are labels + a 2^b-entry codebook like k-means'.
 
-Not ported, and raising NotImplementedError: the inter-frame `prev` deltas
-of sequences.
+Inter-frame delta containers (sequence.py's P-frames) record `prev`, the
+previous frame's container dir relative to this one, its payload's sha256
+and its stream, in place of an artifact: the offsets are the previous
+frame's decoded weights, and the XOR residuals are against its decoded
+state. A P-frame decodes on its own by walking its verified chain back to
+the I-frame (`_resolve_prev_offsets`), or from the state just decoded
+(`prev_state`, the sequence decoder's O(T) walk).
 `decode_and_render` renders the decoded params through the model registry
 (the fused SIREN chain, the CUDA kernel on the card, for SIREN) in fp32;
 `render_region` renders any H x W lattice, a window of it, or row bands of
@@ -152,13 +157,18 @@ def apply_xor_residual(state, ref_map) -> Tuple["OrderedDict[str, np.ndarray]", 
 
 def delta_meta_entry(delta: Dict[str, Any], stream_name: str) -> Dict[str, Any]:
     """The manifest's __meta__.delta entry for a `delta` argument
-    {"artifact", "sha256", "layers"[, "xor"]}."""
-    if "prev" in delta:
-        raise NotImplementedError("inter-frame (prev) delta containers are not ported yet")
+    {"artifact", "sha256", "layers"[, "xor"]}, or for an inter-frame one
+    {"prev", "sha256", "layers"[, "xor", "stream"]}: `prev` is the previous
+    frame's container dir relative to this one, `sha256` its
+    compressed_weights.data's, `stream` its backend (default: this one's)."""
     entry = {"sha256": str(delta["sha256"]), "layers": [int(i) for i in delta["layers"]]}
     if delta.get("xor"):
         entry["xor"] = [str(n) for n in delta["xor"]]
-    entry["artifact"] = str(delta["artifact"])
+    if "prev" in delta:
+        entry["prev"] = str(delta["prev"])
+        entry["stream"] = str(delta.get("stream", stream_name))
+    else:
+        entry["artifact"] = str(delta["artifact"])
     return entry
 
 
@@ -338,15 +348,46 @@ def _resolve_delta_offsets(dir_name: Path, info: Dict[str, Any],
     return out
 
 
+def _resolve_prev_offsets(dir_name: Path, info: Dict[str, Any],
+                          prev_state: Optional[Dict[str, np.ndarray]] = None
+                          ) -> Dict[str, np.ndarray]:
+    """The reference map of an inter-frame container: the previous frame's
+    decoded state. Its container dir is `info["prev"]` relative to
+    `dir_name`; a missing payload raises FileNotFoundError, a sha256 other
+    than the manifest's ValueError. Without `prev_state` (the state the
+    sequence decoder has just decoded for that frame) the previous frame is
+    decoded here, walking the chain back to its I-frame."""
+    prev_dir = (dir_name / info["prev"]).resolve()
+    payload = prev_dir / "compressed_weights.data"
+    if not payload.is_file():
+        raise FileNotFoundError(
+            f"inter-frame delta container {dir_name} references previous frame "
+            f"{info['prev']!r} -> {prev_dir}, which has no compressed_weights.data; decode "
+            "the sequence in place or through sequence.decode_sequence")
+    digest = hashlib.sha256(payload.read_bytes()).hexdigest()
+    if digest != info["sha256"]:
+        raise ValueError(
+            f"previous frame {prev_dir} sha256 mismatch: this stream was encoded against "
+            f"{info['sha256'][:12]}…, file is {digest[:12]}… (broken sequence chain)")
+    if prev_state is None:
+        prev_state = decompress_state_dict(prev_dir, str(info.get("stream", "zstd")))
+    return {k: np.asarray(v, np.float32) for k, v in prev_state.items()}
+
+
 def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain",
                           delta_artifact: Optional[Union[str, Path]] = None,
-                          base_only: bool = False) -> Dict[str, np.ndarray]:
+                          base_only: bool = False,
+                          prev_state: Optional[Dict[str, np.ndarray]] = None
+                          ) -> Dict[str, np.ndarray]:
     """Read the container; re-materialize weight = centroids[labels] (codes
     * scales[None, :] where the layer has a `qscale`), and for a delta
     container w = (offset + centroids[labels]) * (labels != 0)
     and the XOR residuals undone (`delta_artifact` overrides where the
-    artifact is looked for). `base_only`: a progressive container's base
-    prefix alone. Returns float32 arrays keyed by `layers.{i}.weight` etc."""
+    artifact is looked for). An inter-frame container takes its offsets and
+    XOR references from the previous frame's decoded state: `prev_state`
+    when given, else the verified chain is walked (_resolve_prev_offsets).
+    `base_only`: a progressive container's base prefix alone. Returns
+    float32 arrays keyed by `layers.{i}.weight` etc."""
     dir_name = Path(dir_name)
     raw = read_raw_container(dir_name, stream_name, base_only=base_only)
     fmt = json.loads((dir_name / "meta_data.json").read_text()).get("__meta__", {})
@@ -354,9 +395,9 @@ def decompress_state_dict(dir_name: Union[str, Path], stream_name: str = "plain"
     delta_layers: set = set()
     if "delta" in fmt:
         if "prev" in fmt["delta"]:
-            raise NotImplementedError(
-                "inter-frame (prev) delta containers are not ported yet (ROADMAP.md)")
-        refs = _resolve_delta_offsets(dir_name, fmt["delta"], delta_artifact)
+            refs = _resolve_prev_offsets(dir_name, fmt["delta"], prev_state)
+        else:
+            refs = _resolve_delta_offsets(dir_name, fmt["delta"], delta_artifact)
         delta_layers = {int(i) for i in fmt["delta"]["layers"]}
         for name in fmt["delta"].get("xor", []):
             raw[name] = _xor_arrays(raw[name], refs[name])

@@ -21,6 +21,7 @@ __all__ = [
     "get_grid_window",
     "unit_linspace",
     "synthetic_image",
+    "synthetic_video",
     "stable_seed",
     "save_img",
     "resolve_benchmark_path",
@@ -231,3 +232,44 @@ def synthetic_image(
     img -= img.min()
     img /= img.max() + 1e-12
     return img
+
+
+def synthetic_video(
+    height: int = 256,
+    width: int = 256,
+    frames: int = 8,
+    seed: int = 0,
+    complexity: int = 6,
+    motion: float = 0.01,
+) -> np.ndarray:
+    """Deterministic temporally coherent synthetic sequence, (T, H, W, 3) in
+    [0, 1]; bit-identical to implicit_image_tpu.data.synthetic_video.
+
+    synthetic_image's multi-frequency field, drawn in the same order,
+    translated by a constant per-channel phase velocity (`motion`: the
+    per-frame shift as a fraction of the extent, with wrap-around) under a
+    slow amplitude drift. Normalised jointly over the whole sequence (per
+    frame it would flicker)."""
+    rng = np.random.default_rng(seed)
+    ys = np.linspace(0, 1, height, dtype=np.float32)[:, None]
+    xs = np.linspace(0, 1, width, dtype=np.float32)[None, :]
+    vid = np.zeros((frames, height, width, 3), dtype=np.float32)
+    for c in range(3):
+        terms = []
+        for k in range(1, complexity + 1):
+            fy, fx = rng.uniform(0.5, 3.0 * k, size=2)
+            py, px = rng.uniform(0, 2 * np.pi, size=2)
+            terms.append((fy, fx, py, px, 1.0 / k))
+        vy, vx = rng.uniform(-1.0, 1.0, size=2) * motion
+        drift = rng.uniform(0, 2 * np.pi)
+        for t in range(frames):
+            acc = np.zeros((height, width), dtype=np.float32)
+            gain = 1.0 + 0.05 * np.sin(0.4 * t + drift)
+            for fy, fx, py, px, amp in terms:
+                acc += (amp * gain) * np.sin(
+                    2 * np.pi * fy * (ys + vy * t) + py
+                ) * np.cos(2 * np.pi * fx * (xs + vx * t) + px)
+            vid[t, :, :, c] = acc
+    vid -= vid.min()
+    vid /= vid.max() + 1e-12
+    return vid

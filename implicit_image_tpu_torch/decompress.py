@@ -24,7 +24,8 @@ launch takes at most ops/sine_mlp.MAX_ROWS rows). A wavelet-SIREN renders
 its fitted lattice only.
 
 A packed `.iic` file (coding/container_file.py) decodes like the run dir it
-holds. Several run dirs decode together (`decode_runs`): every stream is
+holds. A sequence's P-frame run dir decodes on its own: its container walks
+its verified chain back to the I-frame (sequence.py). Several run dirs decode together (`decode_runs`): every stream is
 decoded on the host, the runs are grouped by (model, config, H, W), and
 each SIREN group renders in one K1 launch over a member axis; the other
 families render member by member.

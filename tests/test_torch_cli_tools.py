@@ -93,13 +93,6 @@ def test_container_cli(run, tmp_path, capsys):
     assert (tmp_path / "cli.decoded.png").is_file()
 
 
-@pytest.mark.parametrize("name", ["pack_sequence", "unpack_sequence", "is_packed_sequence",
-                                  "read_sequence_index", "sequence_index"])
-def test_sequence_half_raises_by_name(name, tmp_path):
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(tcf, name)(tmp_path)
-
-
 # ---- multirun ----
 
 _VOLATILE = ("_wall_s", "_build_s", "bit_alloc_search_s")

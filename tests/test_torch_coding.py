@@ -1,6 +1,8 @@
 """Port parity: the container. For the same numpy state dict both packages
 write the same bytes, and each package's reader decodes the other's
 container to identical arrays."""
+import hashlib
+import json
 from collections import OrderedDict
 
 import numpy as np
@@ -187,16 +189,31 @@ def test_delta_artifact_sha256_and_search(tmp_path):
 
 
 def test_unported_containers_raise(tmp_path):
-    """Inter-frame (`prev`) deltas still raise; format 4 (progressive) is
-    ported: a JAX-written one reads to the JAX package's arrays."""
-    state = {"layers.0.bias": np.zeros(3, np.float32)}
-    jcoding.compress_state_dict(state, tmp_path / "prev", "plain",
-                                delta={"prev": "../x", "sha256": "0" * 64, "layers": []})
-    with pytest.raises(NotImplementedError):
-        tcoding.decompress_state_dict(tmp_path / "prev", "plain")
-    with pytest.raises(NotImplementedError):
-        tcoding.compress_state_dict(state, tmp_path / "p2", "plain",
-                                    delta={"prev": "../x", "sha256": "0" * 64, "layers": []})
+    """Inter-frame (`prev`) deltas are ported: a chain whose previous payload
+    changed raises ValueError (sha256) and one whose previous frame is gone
+    FileNotFoundError, in both packages. Format 4 (progressive) is ported:
+    a JAX-written one reads to the JAX package's arrays."""
+    state = {"layers.0.bias": np.arange(3, dtype=np.float32)}
+    tcoding.compress_state_dict(state, tmp_path / "f0", "plain")
+    sha = hashlib.sha256((tmp_path / "f0" / "compressed_weights.data").read_bytes()).hexdigest()
+    delta = {"prev": "../f0", "sha256": sha, "layers": [], "xor": ["layers.0.bias"]}
+    xored, _ = tcoding.apply_xor_residual({"layers.0.bias": state["layers.0.bias"] + 1},
+                                          state)
+    tcoding.compress_state_dict(xored, tmp_path / "p1", "plain", delta=delta)
+    assert (json.loads((tmp_path / "p1" / "meta_data.json").read_text())["__meta__"]["delta"]
+            == {**delta, "stream": "plain"})
+    for coding in (tcoding, jcoding):
+        np.testing.assert_array_equal(
+            coding.decompress_state_dict(tmp_path / "p1", "plain")["layers.0.bias"],
+            state["layers.0.bias"] + 1)
+    (tmp_path / "f0" / "compressed_weights.data").write_bytes(b"\0" * 12)
+    for coding in (tcoding, jcoding):
+        with pytest.raises(ValueError, match="sha256 mismatch"):
+            coding.decompress_state_dict(tmp_path / "p1", "plain")
+    (tmp_path / "f0" / "compressed_weights.data").unlink()
+    for coding in (tcoding, jcoding):
+        with pytest.raises(FileNotFoundError, match="previous frame"):
+            coding.decompress_state_dict(tmp_path / "p1", "plain")
     from implicit_image_tpu.coding.progressive import compress_progressive
 
     compress_progressive(state, tmp_path / "f4", "plain")

@@ -936,3 +936,43 @@ def test_fourier_and_feathermap_bf16_on_card_match_cpu(cuda_device):
             assert any(sm.LAUNCHES.values()) == (name == "feathermap"), (name, prec)
             cpu = m.apply(params, grid, c, prec)
             assert float((card - cpu).abs().max()) <= 1.5e-3, (name, prec)
+
+
+@pytest.mark.cuda
+def test_sequence_decode_is_the_encode_sides_render_on_card(cuda_device, tmp_path):
+    """encode_sequence at 64² d4 (RigL 0.5, an I-frame every 3 of 5 frames)
+    on K1/K2: decode_sequence gives every frame the bits of the encode
+    side's render, a GOP seek the full decode's frame, and a P-frame keeps
+    every weight its previous frame pruned at 0 (a P-fit's topology is
+    frozen; a kept weight may still decode to 0 where its residual
+    centroid cancels its offset exactly)."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.coding import decompress_state_dict
+    from implicit_image_tpu_torch.sequence import decode_sequence, encode_sequence
+
+    renders = {}
+    sm.reset_launch_counts()
+    rows = encode_sequence(["img=synthetic", "img.height=64", "img.width=64", "mlp.depth=4",
+                            "mlp.hidden_size=32", "train.num_steps=40", "train.log_steps=20",
+                            "quant=kmeans", "quant.num_steps=5", "entropy_coding=zstd",
+                            "sequence.video=card", "sequence.frames=5", "sequence.gop=3",
+                            "sequence.steps=10", "sequence.max_drop=none",
+                            f"output_dir={tmp_path}"], device="cuda", renders=renders)
+    assert [r["kind"] for r in rows] == ["I", "P", "P", "I", "P"]
+    assert sm.LAUNCHES["sine_mlp_fwd"] > 0 and sm.LAUNCHES["sine_mlp_bwd"] > 0
+    root = tmp_path / "seq_card"
+    frames, names = decode_sequence(root, device="cuda")
+    for t, name in enumerate(names):
+        assert np.array_equal(frames[t], renders[name]), name
+    for t in (2, 4):
+        img, _ = decode_sequence(root, frame=t, device="cuda")
+        assert np.array_equal(img, frames[t])
+    states = []
+    for name in names:
+        states.append(decompress_state_dict(root / name / "model_quantized", "zstd",
+                                            prev_state=states[-1] if states else None))
+    for t in (1, 2, 4):
+        for i in (1, 2):
+            prev, cur = (s[f"layers.{i}.weight"] for s in (states[t - 1], states[t]))
+            assert (prev == 0).any() and not ((prev == 0) & (cur != 0)).any(), (t, i)

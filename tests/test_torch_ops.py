@@ -35,7 +35,8 @@ def test_port_imports_without_jax():
         "assert {'implicit_image_tpu_torch.parallel.' + m for m in "
         "('batched', 'pipeline', 'ladder')} <= set(names), names\n"
         "assert {'implicit_image_tpu_torch.' + m for m in "
-        "('fleet', 'target', 'sweep', 'api', 'meta_train', 'training.metainit')} "
+        "('fleet', 'target', 'sweep', 'api', 'meta_train', 'training.metainit', "
+        "'sequence')} "
         "<= set(names), names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
