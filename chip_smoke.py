@@ -35,9 +35,18 @@ Phases, each printing its own line:
      mirror, SUM_TOL of partials.sum(1), timed from CUDA graphs in turns with
      it) and at 182 its member-axis sine_mlp_dw alone (the bits of 8 single
      launches, DW_TOL of the plain version, in turns with one torch.bmm).
-     Phase 2 prints ptxas's registers and spills of every kernel and fails
-     if a batched instantiation (forward, backward, sine_mlp_dw, partial
-     sum) spills more than its single launch;
+     K1 and K2 over a member axis in "+mixed" (train.mixed_precision, PR
+     15) at widths 128 and 182: 8 SIRENs, each member's forward and dx, dW,
+     db the bits of its single "+mixed" launch (fp32+mixed and bf16+mixed),
+     within phase 12b's mixed limits (the bf16 mode's FWD_TOL and BWD_TOL)
+     of the plain "+mixed" chain, and timed in turns with one single launch
+     (the kernels line's sine_mlp_fwd_batched+mixed and
+     sine_mlp_bwd_batched+mixed rows; their bound counts a.W as one bf16
+     pass, the products with the fp32 cotangent as three). Phase 2 prints
+     ptxas's registers and spills of every kernel and fails if a batched
+     instantiation (forward, backward, sine_mlp_dw, partial sum) spills more
+     than its single launch, or if a "+mixed" batched one spills at all
+     (but the one in MIXED_SPILL_ALLOWED, up to its bytes);
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -153,9 +162,9 @@ Phases, each printing its own line:
      512² d8/w128): (a) the RigL ladder of scripts/sparsify.sh through
      `python -m implicit_image_tpu_torch.parallel.ladder` (its cli, in
      process; densities 0.05-0.75, zstd, cut to 200 fit + 20 finetune steps
-     from 2,000 x 5 + 100): per fit step one batched K1 and one batched K2
-     launch and no single K2 (the single K2 launches are exactly the
-     members' finetune steps), each member's RigL weight counts (mask.npz)
+     from 2,000 x 5 + 100): per fit and finetune step one batched K1 and
+     one batched K2 launch and no single K2 (the codebook finetune runs over
+     the member axis too), each member's RigL weight counts (mask.npz)
      conserved and its density within LADDER_DENSITY_TOL of its target,
      bytes rising with density, decoded PSNR finite and above its floor
      (LADDER_FLOOR, from tests/ladder_floors.py), the member at 0.25 the
@@ -200,8 +209,8 @@ Phases, each printing its own line:
      member printed beside phase 5's single fit and phase 14a's ladder:
      (a) the fleet CLI (fleet.run) on the Makefile's
      fleet.images=flower,big_building,bridge, 200 + 20 steps: one batched
-     K1 per fit step and eval and one batched K2 and partial sum per step,
-     single K2 launches only for the members' finetune steps; each
+     K1 per fit step and eval and one batched K2 and partial sum per fit
+     and finetune step, no single K2 launch; each
      member's run dir decodes through decode_run to its reported PSNR bit
      for bit, and decode_runs over the three in one batched K1 launch; (b)
      the API: compress_image of the synthetic stand-in as an array is
@@ -243,14 +252,41 @@ Phases, each printing its own line:
      benchmarks/sequence_decode.py's CoordX s5/w96 sequence (RigL 0.85, an
      I-frame every 4, 100 / 25 / 20 steps): no SIREN kernel launch, and its
      decode rate.
+ 18. the member axis beyond the fused SIREN, each part's wall
+     printed: (a) bench.py's batched arm (SIREN d8/w128, 64 x 256²,
+     pixel_chunks=8, the bf16 -> fp32 schedule at 0.75; 2,000 steps cut to
+     200) through batched_compress with no finetune and `plain` containers:
+     s per fit, mean PSNR,
+     member-axis launches per step (8 chunks: 8 K1, 8 K2, 8 partial sums),
+     K2 in the bf16 mode for steps [0, 150); then 4 steps of the same fit
+     under torch.profiler (3 bf16, 1 fp32): device ms per step, idle share
+     and the top device rows, the chrome trace beside its run; (b)
+     benchmarks/batched_flagship.py (CoordX s5/w96, RigL 0.85, B = 8 at
+     512², k-means 8-bit, huffman; 1,200 + 100 steps cut to 200 + 20)
+     through batched_compress, the finetune over the member axis: ms per
+     step per member beside phase 8's single flagship fit, decoded dB and
+     bytes per member, no SIREN kernel launch; (c) a 5-member RigL ladder
+     (0.05-0.75) at 512² under train.mixed_precision (150 + 10 steps) and
+     a 2-member one at w182 (20 + 5): every fit step's K1/K2 over the
+     member axis in fp32+mixed (LAUNCHES_MIXED), the finetune's in fp32;
+     (d) 2-member RigL ladders (0.25, 0.5, masks frozen at their init;
+     50 + 5 steps) for hashgrid,
+     wavelet-SIREN, Fourier, the exact sine, loss=ms-ssim,
+     optim.grad_clip, Shampoo and EKFAC, at 128², one member's fit (the
+     k-th ladder's member k % 2, so each density is held in four) within
+     P18_PSNR_TOL and P18_PARAM_TOL of the single fit with its generator
+     (and whether it has its bits). Every part decodes its members from
+     their written containers: >= 20 dB in (a)-(c) (12 dB for the w182
+     20-step leg), >= 12 dB in (d)'s 50-step fits.
 
-Each of phases 4-17 sets the launch counts to 0 just before its run and
+Each of phases 4-18 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
-of 12 only; sine_mlp_fwd_batched in 13 (e), 14 and 16 only; the member-axis
-K2 (sine_mlp_bwd_batched, sum_partials_batched, and sine_mlp_dw_batched at
-w182) in 14 and 16 only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in
-15 (f)'s Fourier run, in 16 (e)'s CoordX meta-training and in 17 (e). In
+of 12 only; sine_mlp_fwd_batched in 13 (e), 14, 16 and 18 only; the
+member-axis K2 (sine_mlp_bwd_batched, sum_partials_batched, and
+sine_mlp_dw_batched at w182) in 14, 16 and 18 only, in "+mixed" in 18 (c)
+only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
+run, in 16 (e)'s CoordX meta-training, in 17 (e) and in 18 (b). In
 phase 3, sum_partials must equal its plain mirror sum_partials_reference
 (the kernel's order of additions) bit for bit on the main path's partial
 buffer, give the same bits twice, and be
@@ -304,6 +340,7 @@ DW_TOL = BWD_TOL["fp32"]
 # kernel is max(bytes / memory rate, operations / peak rate of their type).
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12  # tensor cores; the fp32 mode takes 3 passes
+BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 FP32_FLOP_PER_S = 67e12   # FMA outside the tensor cores
 
 N_SIDE, DEPTH, WIDTH = 512, 8, 128
@@ -660,8 +697,11 @@ def phase_build() -> float:
                   flush=True)
     # K1 and K2 over a member axis are template instantiations (last argument
     # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
-    # spill no more than its single launch
-    kinds = {"sine_mlp_fwd": 2 * len(KERNEL_WIDTHS), "sine_mlp_bwd": 2 * len(KERNEL_WIDTHS),
+    # spill no more than its single launch. The forward and backward have
+    # one in each of the four modes (bf16 or not, "+mixed" or not: template
+    # arguments BF16, MX); the "+mixed" ones (MX = 1) print their
+    # spills beside their single launch's
+    kinds = {"sine_mlp_fwd": 4 * len(KERNEL_WIDTHS), "sine_mlp_bwd": 4 * len(KERNEL_WIDTHS),
              "sine_mlp_dw": 2 * (len(KERNEL_WIDTHS) - 1), "sum_partials": 1}
     for kind, expected in kinds.items():
         batched = {n: r for n, r in table.items()
@@ -671,12 +711,47 @@ def phase_build() -> float:
             if single is None or row.get("spill_stores", 0) > single.get("spill_stores", 0):
                 raise AssertionError(f"a batched kernel spills more than its single launch: "
                                      f"{name} {row} vs {single}")
-        print(f"[2 build] {len(batched)} batched {kind} instantiations, none spilling more than "
-              "its single launch", flush=True)
+        mixed = {n: r for n, r in batched.items() if kind in MIXED_KINDS and _is_mixed(n)}
+        for name, row in mixed.items():
+            single = table[name.replace("(bool)1>(", "(bool)0>(")]
+            print(f"[2 build] batched +mixed: {row.get('registers')} registers, "
+                  f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B "
+                  f"spill loads (its single launch: {single.get('spill_stores', 0)} B, "
+                  f"{single.get('spill_loads', 0)} B): {name[:160]}", flush=True)
+        for name, row in mixed.items():
+            allowed = next((b for k, b in MIXED_SPILL_ALLOWED.items() if k in name), 0)
+            if row.get("spill_stores", 0) > allowed:
+                raise AssertionError(f"a batched +mixed kernel spills {row.get('spill_stores')}"
+                                     f" B (allowed {allowed} B): {name}")
+        spilling = sum(1 for r in mixed.values() if r.get("spill_stores", 0))
+        print(f"[2 build] {len(batched)} batched {kind} instantiations ({len(mixed)} +mixed, "
+              f"{spilling} of them spilling), none spilling more than its single launch",
+              flush=True)
         if table and len(batched) != expected:
             raise AssertionError(f"{len(batched)} batched {kind} instantiations, expected "
-                                 f"{expected} (two modes at each of its widths)")
+                                 f"{expected} (each mode at each of its widths)")
+        if table and kind in MIXED_KINDS and len(mixed) != expected // 2:
+            raise AssertionError(f"{len(mixed)} batched +mixed {kind} instantiations, expected "
+                                 f"{expected // 2}")
     return seconds
+
+
+# the kernels with a "+mixed" (MX) template argument: <BF16, MX, ...>
+MIXED_KINDS = ("sine_mlp_fwd", "sine_mlp_bwd")
+# the one "+mixed" member-axis instantiation allowed to spill, and its most
+# bytes of spill stores (ROADMAP Queue 2): the w192 fp32+mixed backward
+# spilled 8-12 B across builds on an H100 (its single launch 16 B). Every
+# other "+mixed" member-axis instantiation fails phase 2 on any spill.
+MIXED_SPILL_ALLOWED = {
+    "sine_mlp_bwd_wide_kernel<(bool)0, (bool)1, <unnamed>::Geo<(int)192, ": 12,
+}
+
+
+def _is_mixed(name: str) -> bool:
+    """A ptxas name of a forward or backward instantiation whose MX argument
+    (the second template argument) is 1."""
+    args = name[name.index("<") + 1:].split(",")
+    return args[1].strip().startswith("(bool)1")
 
 
 def _grad_floats(in_size: int, hidden: int, out_size: int, depth: int) -> int:
@@ -686,47 +761,61 @@ def _grad_floats(in_size: int, hidden: int, out_size: int, depth: int) -> int:
 
 
 def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks: int,
-            n_part: int, members: int = BATCH_MEMBERS) -> dict:
+            n_part: int, members: int = BATCH_MEMBERS, mixed: bool = False) -> dict:
     """FLOPs, bytes and least times of each kernel at these shapes, counted
     from csrc/sine_mlp.cu: the hidden products (tensor cores, 3 TF32 passes
     in the fp32 mode) apart from the first layer (K = in), the last
     (N = out) and dx (FMA). Bytes: each input read once, each output
-    written once; n_part floats of partial gradient per block."""
+    written once; n_part floats of partial gradient per block.
+
+    `mixed` (fp32+mixed): W and every activation are bf16, so a.W (the
+    forward's, and the backward's recompute) is one bf16 pass; dW = a^T gz
+    and ga = gz W^T take the fp32 cotangent gz against a bf16 operand,
+    which three bf16 pieces of gz give exactly: 3 bf16 passes, less than
+    the 2 TF32 passes of one split."""
     hidden_mm = 2 * n * hidden * hidden * (depth - 2)  # one product over all hidden layers
+    # least seconds of the hidden products: a.W, and dW or ga (gz as operand)
+    if mixed:
+        fwd_s = hidden_mm / BF16_FLOP_PER_S
+        dw_s = 3 * hidden_mm / BF16_FLOP_PER_S
+    else:
+        fwd_s = dw_s = 3 * hidden_mm / TF32_FLOP_PER_S
+    bwd_s = fwd_s + 2 * dw_s
     weights = 4 * (in_size * hidden + (depth - 2) * hidden * hidden + hidden * out_size
                    + (depth - 1) * hidden + out_size)
+    # name: (tensor-core flops, their seconds, FMA flops, bytes)
     kernels = {
         # forward: first layer, hidden a.W, last layer
-        "sine_mlp_fwd": (hidden_mm, 2 * n * hidden * (in_size + out_size),
+        "sine_mlp_fwd": (hidden_mm, fwd_s, 2 * n * hidden * (in_size + out_size),
                          4 * n * (in_size + out_size) + weights),
         # backward: a.W recomputed, dW = a^T gz, ga = gz W^T; first layer twice
         # (forward, and z_0 again), dWl, ga of the last layer, dW0, dx
-        "sine_mlp_bwd": (3 * hidden_mm, 2 * n * hidden * (4 * in_size + 2 * out_size),
+        "sine_mlp_bwd": (3 * hidden_mm, bwd_s, 2 * n * hidden * (4 * in_size + 2 * out_size),
                          4 * n * (2 * in_size + out_size) + weights + 4 * blocks * n_part),
-        "sum_partials": (0, blocks * n_part, 4 * (blocks + 1) * n_part),
+        "sum_partials": (0, 0.0, blocks * n_part, 4 * (blocks + 1) * n_part),
         # the wider backward's dW: read A and G (L, n, hidden) once, write
         # each split's (L, hidden, hidden)
-        "sine_mlp_dw": (hidden_mm, 0, 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
+        "sine_mlp_dw": (hidden_mm, dw_s, 0, 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
         # K1 over `members` members of one shape: the forward's work each; x
         # (shared) read once, each member's weights and output once
-        "sine_mlp_fwd_batched": (members * hidden_mm, members * 2 * n * hidden * (in_size
-                                                                             + out_size),
+        "sine_mlp_fwd_batched": (members * hidden_mm, members * fwd_s,
+                                 members * 2 * n * hidden * (in_size + out_size),
                                  4 * n * in_size + members * (4 * n * out_size + weights)),
         # K2 over `members` members: the backward's work each; x (shared) read
         # once, each member's g, weights and dx once, its partial slices written
-        "sine_mlp_bwd_batched": (members * 3 * hidden_mm,
+        "sine_mlp_bwd_batched": (members * 3 * hidden_mm, members * bwd_s,
                                  members * 2 * n * hidden * (4 * in_size + 2 * out_size),
                                  4 * n * in_size + members * (4 * n * (in_size + out_size)
                                                               + weights + 4 * blocks * n_part)),
-        "sum_partials_batched": (0, members * blocks * n_part,
+        "sum_partials_batched": (0, 0.0, members * blocks * n_part,
                                  4 * members * (blocks + 1) * n_part),
-        "sine_mlp_dw_batched": (members * hidden_mm, 0, members * 4 * (depth - 2) * hidden
-                                * (2 * n + blocks * hidden)),
+        "sine_mlp_dw_batched": (members * hidden_mm, members * dw_s, 0,
+                                members * 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
     }
     out = {}
-    for name, (tc, fma, nbytes) in kernels.items():
+    for name, (tc, tc_s, fma, nbytes) in kernels.items():
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = (3 * tc / TF32_FLOP_PER_S + fma / FP32_FLOP_PER_S) * 1e3
+        ops_ms = (tc_s + fma / FP32_FLOP_PER_S) * 1e3
         out[name] = {
             "flop": tc + fma, "bytes": nbytes,
             "bound_ms": max(mem_ms, ops_ms),
@@ -1053,6 +1142,91 @@ def phase_batched_kernel(width: int) -> tuple:
                   f"{bound['bound_ms'] / ms:.1%}", flush=True)
             record = (err, ms, plain_ms, None, bound, padded)
     return record
+
+
+def phase_mixed_batched(width: int) -> dict:
+    """Phase 3, K1 and K2 over a member axis in "+mixed" (train.mixed_precision
+    in the fp32 mode, the batched fit's): BATCH_MEMBERS SIRENs of hidden
+    width `width` on one 512² grid, each member the bits of its single
+    "+mixed" launch (forward, and dx, dW, db of the backward), within the
+    mixed limits of phase 12b against the plain "+mixed" chain; the
+    bf16+mixed instantiations for their bits too. Timed in turns with one
+    single launch. Returns the kernels line's records."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+    gen = torch.Generator().manual_seed(13)
+    members = [mdef.init(gen, mcfg, dev) for _ in range(BATCH_MEMBERS)]
+    x = (get_grid(N_SIDE, N_SIDE, dev).reshape(-1, 2) - 0.5) * 2.0
+    n = x.shape[0]
+    g = (torch.randn((BATCH_MEMBERS, n, 3), generator=gen) / n).to(dev)
+    tag = f"[3 kernels w{width} batched +mixed x{BATCH_MEMBERS}]"
+    records = {}
+    for mode in sm.PRECISIONS:
+        prec = mode + sm.MIXED
+        fwd = sm.sine_mlp_fwd_batched(members, x, mcfg, prec)
+        bwd = _bwd_pairs(*sm.sine_mlp_bwd_batched(members, x, g, mcfg, prec))
+        same_f = torch.equal(fwd, torch.stack([sm.sine_mlp_fwd(p, x, mcfg, prec)
+                                               for p in members]))
+        same_b = True
+        for m, params in enumerate(members):
+            single = _bwd_pairs(*sm.sine_mlp_bwd(params, x, g[m], mcfg, prec))
+            same_b &= all(torch.equal(t[m], s) for (_, t), (_, s) in zip(bwd, single))
+        torch.cuda.synchronize()
+        print(f"{tag} {prec}: forward {'the bits of' if same_f else 'BITS DIFFER FROM'} and "
+              f"backward {'the bits of' if same_b else 'BITS DIFFER FROM'} {BATCH_MEMBERS} "
+              "single launches", flush=True)
+        if not (same_f and same_b):
+            raise AssertionError(f"{tag} {prec}: not the bits of the single launches")
+        if mode != "fp32":
+            continue
+        plain_f = sm.siren_chain_reference_batched(members, x, mcfg, prec)
+        plain_b = _bwd_pairs(*sm.siren_chain_backward_reference_batched(members, x, g, mcfg,
+                                                                        prec))
+        torch.cuda.synchronize()
+        fwd_err = float((fwd - plain_f).abs().max())
+        worst, rel = max(((name, _max_rel(t, p)) for (name, t), (_, p) in zip(bwd, plain_b)),
+                         key=lambda e: e[1])
+        bwd_abs = max(float((t - p).abs().max()) for (_, t), (_, p) in zip(bwd, plain_b))
+        print(f"{tag} {prec} vs plain: fwd max_abs_err {fwd_err:.3e} (tol {FWD_TOL['bf16']:g}); "
+              f"bwd max rel err {rel:.3e} at {worst} (tol {BWD_TOL['bf16']:g})", flush=True)
+        if not (fwd_err <= FWD_TOL["bf16"] and rel <= BWD_TOL["bf16"]):
+            raise AssertionError(f"{tag}: the kernels disagree with the plain chain: "
+                                 f"{fwd_err}, {rel}")
+        del plain_b
+        blocks, n_part, _ = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
+        bounds = _bounds(n, 2, 3, DEPTH, width, blocks, _grad_floats(2, width, 3, DEPTH),
+                         mixed=True)
+        padded = _bounds(n, 2, 3, DEPTH, sm.kernel_width(width), blocks, n_part, mixed=True)
+        for name, batched_fn, single_fn, plain_fn, err in (
+                ("sine_mlp_fwd_batched",
+                 lambda: sm.sine_mlp_fwd_batched(members, x, mcfg, prec),
+                 lambda: sm.sine_mlp_fwd(members[0], x, mcfg, prec),
+                 lambda: sm.siren_chain_reference_batched(members, x, mcfg, prec), fwd_err),
+                ("sine_mlp_bwd_batched",
+                 lambda: sm.sine_mlp_bwd_batched(members, x, g, mcfg, prec),
+                 lambda: sm.sine_mlp_bwd(members[0], x, g[0], mcfg, prec),
+                 lambda: sm.siren_chain_backward_reference_batched(members, x, g, mcfg, prec),
+                 bwd_abs)):
+            single_r, batched_r = _interleaved_ms([single_fn, batched_fn], rounds=3, reps=5)
+            plain_ms = _time_ms(plain_fn, 1)
+            ms, single_ms = statistics.median(batched_r), statistics.median(single_r)
+            bound = bounds[name]
+            print(f"{tag} {name} ms in turns (3 rounds x 5 launches, CUDA events): batched "
+                  f"{' '.join(f'{t:.3f}' for t in batched_r)} (median {ms:.3f} = "
+                  f"{ms / BATCH_MEMBERS:.4f} per member); one single launch "
+                  f"{' '.join(f'{t:.3f}' for t in single_r)} (median {single_ms:.4f}); plain "
+                  f"{plain_ms:.3f}; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) = "
+                  f"{bound['bound_ms'] / ms:.1%}", flush=True)
+            records[name + sm.MIXED] = (err, ms, plain_ms, None, bound,
+                                        padded[name]["bound_ms"])
+    torch.cuda.empty_cache()
+    return records
 
 
 def _bwd_pairs(dx, grads):
@@ -1476,8 +1650,9 @@ def phase_repeat(run_dir: str) -> None:
         raise AssertionError("the codebook finetune does not repeat bit for bit")
 
 
-def phase_flagship() -> None:
-    """Phase 8: the flagship recipe through compress.main and decode_run."""
+def phase_flagship() -> float:
+    """Phase 8: the flagship recipe through compress.main and decode_run.
+    Returns its fit's ms per step."""
     import hashlib
 
     import numpy as np
@@ -1560,6 +1735,7 @@ def phase_flagship() -> None:
     redecoded = 10.0 * np.log10(1.0 / np.mean((img.astype(np.float64) - target) ** 2))
     if abs(redecoded - psnr) > 1e-3:
         raise AssertionError(f"decode_run gives {redecoded} dB, compress reported {psnr}")
+    return summary["fit_wall_s"] / int(cfg.train.num_steps) * 1e3
 
 
 def _initial_counts(cfg, masking) -> dict:
@@ -2350,14 +2526,16 @@ def _ladder_cli(name: str, extra) -> tuple:
 
 def _check_ladder_launches(tag: str, launches: dict, members: int, steps: int, evals: int,
                            quant_steps: int, wide: bool) -> None:
-    """The fit over the member axis: one batched K1 per step and eval, one
-    batched K2 (and partial sum, and above 128 sine_mlp_dw) per step; the
-    single K2 launches are the members' finetune steps exactly, so none is
-    the fit's."""
-    want = {"sine_mlp_fwd_batched": steps + evals, "sine_mlp_bwd_batched": steps,
-            "sum_partials_batched": steps, "sine_mlp_dw_batched": steps if wide else 0,
-            "sine_mlp_bwd": members * quant_steps, "sum_partials": members * quant_steps,
-            "sine_mlp_dw": members * quant_steps if wide else 0}
+    """The fit and the codebook finetune over the member axis: one batched K1
+    per fit step and eval and per finetune step, one more for the
+    finetune's eval; one batched K2 (and partial sum, and above 128
+    sine_mlp_dw) per fit and finetune step; no single K2 launch (the
+    members' single K1 launches are their decodes)."""
+    want = {"sine_mlp_fwd_batched": steps + evals + quant_steps + 1,
+            "sine_mlp_bwd_batched": steps + quant_steps,
+            "sum_partials_batched": steps + quant_steps,
+            "sine_mlp_dw_batched": steps + quant_steps if wide else 0,
+            "sine_mlp_bwd": 0, "sum_partials": 0, "sine_mlp_dw": 0}
     got = {k: launches[k] for k in want}
     if got != want or launches["sine_mlp_fwd"] <= 0:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
@@ -2527,7 +2705,7 @@ def phase_batched_compress() -> None:
           + f"; member 0 sha256 {shas[0][:16]}, the B = 1 run's {shas[-1][:16]}", flush=True)
     if shas[0] != shas[-1]:
         raise AssertionError(f"{tag} member 0 differs from its B = 1 run")
-    if launches["sine_mlp_bwd_batched"] != BATCH_STEPS or not all(
+    if launches["sine_mlp_bwd_batched"] != BATCH_STEPS + 10 or launches["sine_mlp_bwd"] or not all(
             math.isfinite(r.decoded_psnr) and r.decoded_psnr >= 20.0 for r in many):
         raise AssertionError(f"{tag} launches {launches} or a decoded PSNR below 20 dB")
 
@@ -3012,8 +3190,8 @@ def phase_target() -> None:
           f"of {len(probes)} members in {seconds:.2f} s = "
           f"{seconds / steps * 1e3 / len(probes):.3f} ms per fit step per member, finetunes and "
           f"containers included; launches {launches}", flush=True)
-    if (launches["sine_mlp_bwd_batched"] != ladders * steps
-            or launches["sine_mlp_bwd"] != len(probes) * int(cfg.quant.num_steps)):
+    if (launches["sine_mlp_bwd_batched"] != ladders * (steps + int(cfg.quant.num_steps))
+            or launches["sine_mlp_bwd"]):
         raise AssertionError(f"{tag} launches {launches} for {ladders} ladders")
     if res.target_met:
         mdef, mcfg = build_model_from_config(cfg)
@@ -3055,7 +3233,7 @@ def phase_sweep() -> None:
     print(f"{tag} {len(trials)} trials in {seconds:.2f} s = "
           f"{seconds / steps * 1e3 / len(trials):.3f} ms per fit step per trial, finetunes and "
           f"containers included; launches {launches}", flush=True)
-    if launches["sine_mlp_bwd_batched"] != 2 * steps or len(trials) != 8:
+    if launches["sine_mlp_bwd_batched"] != 2 * (steps + 10) or len(trials) != 8:
         raise AssertionError(f"{tag} {len(trials)} trials, launches {launches}: expected two "
                              "ladders")
     if not all(math.isfinite(t["psnr"]) and t["psnr"] >= 12.0 for t in trials):
@@ -3432,6 +3610,325 @@ def phase_sequences() -> dict:
     return launches
 
 
+# phase 18: the member axis beyond the fused SIREN at full width.
+# (a) bench.py's batched arm (SIREN d8/w128, 64 x 256², pixel_chunks=8, the
+# bf16 -> fp32 schedule at 0.75), 2,000 steps cut to 200; (b)
+# benchmarks/batched_flagship.py (CoordX s5/w96, RigL 0.85, B = 8 at 512²,
+# k-means 8-bit, huffman), 1,200 + 100 steps cut to 200 + 20; (c) a 5-member
+# RigL ladder at 512² under train.mixed_precision (150 + 10 steps), and a
+# 2-member one at w182 (20 + 5 steps) for the w182 "+mixed" kernels; (d)
+# 2-member RigL ladders (0.25, 0.5) of 50 + 5 steps at 128² for every other
+# family and fit option, one member of each against its single fit (the
+# k-th ladder's member k % 2: both densities are held, in four ladders each,
+# at half the single fits' time).
+P18 = "outputs/chip_smoke_p18"
+P18_BENCH = dict(members=64, side=256, steps=200, chunks=8)
+P18_FLAGSHIP = dict(members=8, steps=200, quant_steps=20)
+P18_MIXED_DENSITIES = (0.05, 0.1, 0.25, 0.5, 0.75)
+P18_SHORT_DENSITIES = (0.25, 0.5)
+# (d)'s masks stay at their ERK init (masking.end_when=0: no topology
+# update): RigL's update ranks magnitudes, and on the card a batched product
+# of the vmapped families may differ from its single twin in the last bits,
+# enough to flip a near-tie and move a weight (1.4e-2 of the largest
+# magnitude in a wavelet-SIREN member under updates, its fit PSNR 2e-3 dB
+# from its single fit's), which would read as a fault of the member axis.
+# RigL's updates over the member axis run in 14a, 18b and 18c.
+P18_SHORT = ["img=synthetic", "img.height=128", "img.width=128", "masking=RigL",
+             "masking.end_when=0", "train.num_steps=50", "train.log_steps=50",
+             "quant.num_steps=5", "entropy_coding=zstd"]
+# (d): each ladder's overrides, and the TrainConfig fields the ladder CLI
+# does not carry (the JAX package's build_ladder_args carries neither)
+P18_RUNS = {
+    "hashgrid": (["mlp=hashgrid", "quant.skip_layers=[]", "optim.lr=1e-2",
+                  "optim.epsilon=1e-15"], {}),
+    "wavelet_siren": (["mlp=wavelet_siren"], {}),
+    "fourier": (["mlp=fourier"], {}),
+    "exact sine": (["mlp.fast_sine=false"], {}),
+    "ms-ssim": ([], {"loss": "ms-ssim"}),
+    "grad_clip": (["optim.grad_clip=0.05"], {}),
+    # epsilon 0.1: under masks at the conf's 1e-4 Shampoo is chaotic in one
+    # package alone (tests/test_torch_shampoo.py), so a member and its single
+    # fit would part by more than their last bits
+    "shampoo": (["optim=shampoo", "optim.epsilon=0.1"], {}),
+    "ekfac": (["+optim.preconditioner=ekfac"], {}),
+}
+# (d)'s limits, member against its single fit: the fit PSNR within 0.05 dB
+# (the CPU tests' JAX bar) and each leaf within 1e-3 in relative L2 norm
+# (||member - single|| / ||single||). The CPU tests' max-abs measure (1e-3
+# of the largest magnitude) is printed too but not held: Adam moves a
+# hashgrid table entry whose gradient is near 0 by a whole lr step whatever
+# the last bits of that gradient, and on the card a batched product's last
+# bits differ from the single one's (1.27e-3 of the largest entry in the
+# table at 0.5, its relative L2 difference 4.5e-5; the fit PSNRs equal). The
+# decoded PSNR floor of the short fits (PERF.md section 2: 12 dB for the
+# 20-step fits and 16d's 100-step trials), 20 dB for (a)-(c)'s 200-step
+# fits.
+P18_PSNR_TOL, P18_PARAM_TOL = 0.05, 1e-3
+
+
+def _p18_checks(tag: str, results, floor: float) -> None:
+    bad = [r.decoded_psnr for r in results if not (math.isfinite(r.decoded_psnr)
+                                                   and r.decoded_psnr >= floor)]
+    if bad:
+        raise AssertionError(f"{tag} decoded PSNR below {floor} dB: {bad}")
+
+
+def phase_bench_batched(card: str) -> None:
+    """18a: bench.py's batched arm through batched_compress (the fit, then
+    each member's `plain` container without a finetune, as the arm runs no
+    quant), cut to 200 steps."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid, synthetic_image
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import batched_compress
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig
+
+    tag = "[18a bench batched arm]"
+    b, side, steps, chunks = (P18_BENCH[k] for k in ("members", "side", "steps", "chunks"))
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=WIDTH)
+    imgs = np.stack([synthetic_image(side, side, seed=s) for s in range(b)])
+    tc = TrainConfig(num_steps=steps, log_steps=steps, pixel_chunks=chunks,
+                     matmul_precision="tensorfloat32", matmul_precision_early="bfloat16",
+                     matmul_precision_switch=0.75)
+    shutil.rmtree(f"{P18}_bench", ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = batched_compress(torch.Generator().manual_seed(0), mdef, mcfg,
+                           get_grid(side, side, "cuda"), imgs, tc, OptimConfig(),
+                           stream_root=f"{P18}_bench", stream_name="plain")
+    seconds = time.perf_counter() - t0
+    launches, by_mode = dict(sm.LAUNCHES), {k: dict(v) for k, v in sm.LAUNCHES_BY_MODE.items()}
+    fit_s = res[0].fit_wall_s
+    psnr = np.array([r.psnr for r in res])
+    dec = np.array([r.decoded_psnr for r in res])
+    print(f"{tag} cut: train.num_steps 2000 -> {steps}; {b} x {side}² SIREN d{DEPTH}/w{WIDTH}, "
+          f"pixel_chunks={chunks}, bf16 -> fp32 at 0.75 ({card})", flush=True)
+    print(f"{tag} fit {fit_s:.3f} s = {fit_s / b:.4f} s per fit = "
+          f"{fit_s / steps / b * 1e3:.4f} ms per step per member; mean fit PSNR "
+          f"{psnr.mean():.3f} dB (min {psnr.min():.3f}), mean decoded {dec.mean():.3f} dB; "
+          f"batched_compress {seconds:.2f} s in all; member-axis launches per step: K1 "
+          f"{(launches['sine_mlp_fwd_batched'] - 1) / steps:g}, K2 "
+          f"{launches['sine_mlp_bwd_batched'] / steps:g}, sum_partials "
+          f"{launches['sum_partials_batched'] / steps:g}; launches {launches}; by mode "
+          f"{by_mode['sine_mlp_bwd_batched']}", flush=True)
+    early = round(steps * 0.75)
+    want = {"sine_mlp_fwd_batched": steps * chunks + 1, "sine_mlp_bwd_batched": steps * chunks,
+            "sum_partials_batched": steps * chunks, "sine_mlp_bwd": 0, "sum_partials": 0,
+            "sine_mlp_fwd": b}
+    if ({k: launches[k] for k in want} != want
+            or by_mode["sine_mlp_bwd_batched"] != {"bf16": early * chunks,
+                                                   "fp32": (steps - early) * chunks}):
+        raise AssertionError(f"{tag} launches {launches}, by mode {by_mode}, expected {want}")
+    _p18_checks(tag, res, 20.0)
+    _trace_bench_batched(mdef, mcfg, imgs, tc, side)
+
+
+def _trace_bench_batched(mdef, mcfg, imgs, tc, side: int, steps: int = 4) -> None:
+    """`steps` steps of 18a's fit (3 in bf16, 1 in fp32) under torch.profiler:
+    the device time per step, the device's idle share over the traced span
+    and the top device rows (profile_fit.trace_breakdown)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from implicit_image_tpu_torch import profile_fit
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.parallel import batched_fit
+    from implicit_image_tpu_torch.training.fit import OptimConfig
+
+    tag = "[18a trace]"
+    short = dataclasses.replace(tc, num_steps=steps, log_steps=steps)
+    grid = get_grid(side, side, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = batched_fit(torch.Generator().manual_seed(0), mdef, mcfg, grid, imgs, short,
+                          OptimConfig())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace = Path(f"{P18}_bench.trace.json")
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    br = profile_fit.trace_breakdown(trace, steps)
+    top = "; ".join(f"{r['name'][:60]} {r['ms_per_step']:.3f} ms x {r['count'] // steps}"
+                    for r in br["rows"][:6])
+    print(f"{tag} {steps} steps profiled in {wall:.3f} s (fit {res.wall_seconds:.3f} s = "
+          f"{res.wall_seconds / steps * 1e3:.3f} ms/step); device {br['device_ms_per_step']:.3f} "
+          f"ms per step, idle share {br['idle_share']:.4f} of {br['span_ms']:.1f} ms; per step: "
+          f"{top}; trace {trace}", flush=True)
+
+
+def phase_batched_flagship(card: str, flagship_ms: float) -> None:
+    """18b: benchmarks/batched_flagship.py through batched_compress: CoordX
+    s5/w96 over the member axis (vmapped products), its k-means finetune
+    over the member axis, the huffman stream; no SIREN kernel launches."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid, stable_seed, synthetic_image
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import batched_compress
+    from implicit_image_tpu_torch.quant import QuantConfig
+    from implicit_image_tpu_torch.sparsity import MaskingConfig
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig
+
+    tag = "[18b batched flagship]"
+    b, steps, q = (P18_FLAGSHIP[k] for k in ("members", "steps", "quant_steps"))
+    names = ["flower", "big_building", "bridge"]
+    seeds = [stable_seed(names[i]) if i < 3 else i for i in range(b)]
+    imgs = np.stack([synthetic_image(N_SIDE, N_SIDE, seed=s) for s in seeds])
+    mdef, mcfg = build_model("coordx", depth=8, hidden_size=96, split_depth=5)
+    shutil.rmtree(f"{P18}_flagship", ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = batched_compress(torch.Generator().manual_seed(0), mdef, mcfg,
+                           get_grid(N_SIDE, N_SIDE, "cuda"), imgs,
+                           TrainConfig(num_steps=steps, log_steps=steps), OptimConfig(),
+                           MaskingConfig(density=0.85),
+                           quant_cfg=QuantConfig(bits=8, num_steps=q),
+                           stream_name="huffman", stream_root=f"{P18}_flagship")
+    seconds = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    ms = res[0].fit_wall_s / steps / b * 1e3
+    print(f"{tag} cut: {steps} + {q} steps from 1,200 + 100; CoordX s5/w96, RigL 0.85, "
+          f"B = {b} at {N_SIDE}², huffman ({card})", flush=True)
+    print(f"{tag} fit {res[0].fit_wall_s:.3f} s = {ms:.4f} ms per step per member (phase 8's "
+          f"single flagship fit: {flagship_ms:.4f} ms per step); batched_compress {seconds:.2f} "
+          f"s in all; per member: " + ", ".join(
+              f"{r.decoded_psnr:.3f} dB @ {r.compressed_bytes} B" for r in res), flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"{tag} a SIREN kernel launched on the CoordX path: {launches}")
+    _p18_checks(tag, res, 20.0)
+
+
+def phase_mixed_ladder(card: str) -> dict:
+    """18c: ladder_compress under train.mixed_precision (the fit's K1/K2 over
+    the member axis in fp32+mixed; the finetune in fp32, as the JAX package's
+    pipeline passes it only matmul_precision): the 5-member RigL ladder at
+    w128, 150 + 10 steps, then 2 members at w182, 20 + 5 steps. Returns the
+    "+mixed" launches of each width."""
+    import dataclasses
+
+    import torch
+
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import ladder
+
+    out = {}
+    for width, steps, q, dens, floor in ((WIDTH, 150, 10, P18_MIXED_DENSITIES, 20.0),
+                                         (FINALS_WIDTH, 20, 5, (0.25, 0.5), 12.0)):
+        tag = f"[18c mixed ladder w{width}]"
+        cfg = compress.compose(["img=synthetic", "masking=RigL", f"mlp.hidden_size={width}",
+                                f"train.num_steps={steps}", "train.log_steps=100",
+                                f"quant.num_steps={q}", "entropy_coding=zstd"])
+        a = ladder.build_ladder_args(cfg)
+        tc = dataclasses.replace(a["train_cfg"], mixed_precision=True)
+        root = f"{P18}_mixed_w{width}"
+        shutil.rmtree(root, ignore_errors=True)
+        sm.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_res, res = ladder._ladder_run(
+            torch.Generator().manual_seed(0), a["mdef"], a["mcfg"], a["grid"], a["img"], tc,
+            a["optim_cfg"], a["masking"], dens, a["quant_cfg"], a["stream_name"], root,
+            a["half"], a["coding_kwargs"], None, None, "cuda")
+        seconds = time.perf_counter() - t0
+        launches, mixed = dict(sm.LAUNCHES), dict(sm.LAUNCHES_MIXED)
+        evals = len([s for s in range(steps) if (s + 1) % 100 == 0 or s == steps - 1])
+        print(f"{tag} {len(dens)} members, {steps} + {q} steps in {seconds:.2f} s; fit "
+              f"{fit_res.wall_seconds / steps / len(dens) * 1e3:.4f} ms per step per member; "
+              f"per member: " + ", ".join(f"d={d}: {r.decoded_psnr:.3f} dB @ "
+                                          f"{r.compressed_bytes} B" for d, r in zip(dens, res))
+              + f"; launches {launches}; +mixed {mixed} ({card})", flush=True)
+        want = {"sine_mlp_fwd_batched": steps + evals, "sine_mlp_bwd_batched": steps,
+                "sum_partials_batched": steps,
+                "sine_mlp_dw_batched": steps if width != WIDTH else 0}
+        if {k: mixed[k] for k in want} != want or any(
+                mixed[k] for k in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials")):
+            raise AssertionError(f"{tag} +mixed launches {mixed}, expected {want}")
+        if launches["sine_mlp_bwd_batched"] != steps + q:
+            raise AssertionError(f"{tag} launches {launches}: the finetune is not over the "
+                                 "member axis")
+        _p18_checks(tag, res, floor)
+        out[width] = mixed
+    return out
+
+
+def phase_short_ladders(card: str) -> None:
+    """18d: a 2-member RigL ladder (ladder_compress, 50 + 5 steps) of every
+    other family and fit option; the k-th ladder's member k % 2 against the
+    single fit with its generator, and every member's decoded PSNR above the
+    short fits' floor."""
+    import dataclasses
+
+    import torch
+
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import ladder, member_generators
+    from implicit_image_tpu_torch.training.fit import fit
+
+    for case, (name, (overrides, train)) in enumerate(P18_RUNS.items()):
+        tag = f"[18d {name}]"
+        cfg = compress.compose(P18_SHORT + overrides)
+        a = ladder.build_ladder_args(cfg)
+        tc = dataclasses.replace(a["train_cfg"], **train)
+        root = f"{P18}_short_{name.replace(' ', '_')}"
+        shutil.rmtree(root, ignore_errors=True)
+        sm.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit_res, res = ladder._ladder_run(
+            torch.Generator().manual_seed(0), a["mdef"], a["mcfg"], a["grid"], a["img"], tc,
+            a["optim_cfg"], a["masking"], P18_SHORT_DENSITIES, a["quant_cfg"],
+            a["stream_name"], root, a["half"], a["coding_kwargs"], None, None, "cuda")
+        seconds = time.perf_counter() - t0
+        launches = dict(sm.LAUNCHES)
+        steps = tc.num_steps
+        gens = member_generators(torch.Generator().manual_seed(0), len(P18_SHORT_DENSITIES))
+        i = case % len(P18_SHORT_DENSITIES)
+        d = P18_SHORT_DENSITIES[i]
+        single = fit(gens[i], a["mdef"], a["mcfg"], a["grid"], a["img"], tc, a["optim_cfg"],
+                     dataclasses.replace(a["masking"], density=d), device="cuda")
+        dp = abs(float(fit_res.metrics["psnr"][i][-1]) - float(single.metrics["psnr"][-1]))
+        rel, l2, same = 0.0, 0.0, True
+        for la, lb in zip(fit_res.params, single.params):
+            for k, v in lb.items():
+                same &= bool(torch.equal(la[k][i], v))
+                rel = max(rel, float((la[k][i] - v).abs().max() / v.abs().max().clamp_min(
+                    1e-30)))
+                l2 = max(l2, float((la[k][i] - v).norm() / v.norm().clamp_min(1e-30)))
+        print(f"{tag} {len(res)} members, {steps} + {int(cfg.quant.num_steps)} steps in "
+              f"{seconds:.2f} s ({fit_res.wall_seconds / steps / len(res) * 1e3:.4f} ms per fit "
+              f"step per member); decoded " + ", ".join(
+                  f"d={dd}: {r.decoded_psnr:.3f} dB @ {r.compressed_bytes} B"
+                  for dd, r in zip(P18_SHORT_DENSITIES, res))
+              + f"; d={d} vs its single fit: {'the same bits' if same else 'not the same bits'}"
+              f", fit PSNR {dp:.2e} dB apart, params {l2:.2e} apart in relative L2 ({rel:.2e} "
+              f"of the largest entry); launches {launches} ({card})", flush=True)
+        if not (dp <= P18_PSNR_TOL and l2 <= P18_PARAM_TOL):
+            raise AssertionError(f"{tag} member d={d} is not its single fit: {dp}, {l2}")
+        _p18_checks(tag, res, 12.0)
+
+
+def phase_member_axis(card: str, flagship_ms: float) -> dict:
+    """Phase 18; returns 18c's "+mixed" launches per width."""
+    mixed = {}
+
+    def c():
+        mixed.update(phase_mixed_ladder(card))
+
+    for part, fn in (("a", lambda: phase_bench_batched(card)),
+                     ("b", lambda: phase_batched_flagship(card, flagship_ms)), ("c", c),
+                     ("d", lambda: phase_short_ladders(card))):
+        t0 = time.perf_counter()
+        fn()
+        print(f"[18{part}] wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return mixed
+
+
 def main() -> int:
     import torch
 
@@ -3439,6 +3936,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
               file=sys.stderr)
         return 2
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3448,11 +3947,12 @@ def main() -> int:
     for width in BATCH_WIDTHS:
         records[width]["sine_mlp_fwd_batched"] = phase_batched_kernel(width)
         records[width].update(phase_batched_backward(width))
+        records[width].update(phase_mixed_batched(width))
     launches, dense_summary = phase_main_path()
     default_dir = phase_default_path(dense_summary)
     phase_presets()
     phase_repeat(default_dir)
-    phase_flagship()
+    flagship_ms = phase_flagship()
     # the launches of each width on the path that runs it
     path_launches = {WIDTH: launches, FINALS_WIDTH: phase_finals(),
                      **{width: phase_wide(width) for width in WIDE_OVERRIDES}}
@@ -3468,17 +3968,22 @@ def main() -> int:
     phase_last_options(default_dir)
     phase_tools(default_dir, compress_dir(SMOKE_OVERRIDES))
     sequence_launches = phase_sequences()
+    # K1 and K2 over a member axis in "+mixed" launch on phase 18 (c)'s ladders
+    for width, counts in phase_member_axis(card, flagship_ms).items():
+        for name in ("sine_mlp_fwd_batched", "sine_mlp_bwd_batched"):
+            path_launches[width][name + sm.MIXED] = counts[name]
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
                "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,
                "sum_partials": 179, "sum_partials_batched": 179}
-    from implicit_image_tpu_torch.ops.sine_mlp import kernel_width
+    sources.update({name + sm.MIXED: sources[name]
+                    for name in ("sine_mlp_fwd_batched", "sine_mlp_bwd_batched")})
 
     kernels = [
         {
             "name": name,
             "hidden": width,
-            "kernel_width": kernel_width(width),
+            "kernel_width": sm.kernel_width(width),
             "route": "cuda",
             "source": "implicit_image_tpu_torch/csrc/sine_mlp.cu",
             "replaces": f"implicit_image_tpu/ops/sine_mlp.py:{sources[name]}",

@@ -94,8 +94,9 @@
 // block runs the single launch's code on its member's operands, so every
 // row takes the single launch's k-step order: M single launches' bits. It is
 // a template instantiation of each forward (MB), so the single launch's
-// code is the one it was; the fp32 and bf16 modes have one, mixed precision
-// (a training mode; decoders render fp32) none.
+// code is the one it was; every mode has one, mixed precision (MX) too (the
+// batched fit's "+mixed" steps). An MB block reads its member's pointers
+// from shared memory (MemberFwd), as the batched backward does.
 // The backward over a member axis (sine_mlp_bwd_batched, the jax.vmap of
 // K2 in the batched fit and the density ladder) is the same: an MB
 // instantiation of sine_mlp_bwd_kernel, sine_mlp_bwd_wide_kernel,
@@ -103,7 +104,7 @@
 // and dx sit m * n * out and m * n * in floats on, its z stash and partial
 // slices m * gridDim.x slices on, its dW operands m (D-2, n, W) blocks on;
 // sum_partials adds each member's slices in the single launch's order. Each
-// member gets its single launch's bits; fp32 and bf16 only, as the forward.
+// member gets its single launch's bits, in every mode, as the forward.
 //
 // Rows: the kernels index rows with int (tile * T, row0 + r), so a launch
 // takes at most kMaxRows = INT_MAX - 127 rows (n + T - 1 must not wrap);
@@ -182,19 +183,34 @@ struct Chain {
   float omega0, omega_h;
 };
 
-// A batched forward's block of member blockIdx.y: its weights (packed at the
-// kernel width HW, as a single launch takes them), x at x_stride floats per
-// member and out at n * out_size.
-template <int HW, class PX, class PO>
-__device__ __forceinline__ void to_member(Chain& c, PX& x, PO& out, long long x_stride) {
-  const long long m = blockIdx.y;
-  c.w0 += m * c.in_size * HW;
-  c.wm += m * (c.depth > 2 ? c.depth - 2 : 1) * (long long)HW * HW;
-  c.wl += m * HW * c.out_size;
-  c.bs += m * (c.depth - 1) * HW;
-  c.bl += m * c.out_size;
-  x += m * x_stride;
-  out += m * c.n * (long long)c.out_size;
+// A batched forward's member (MB), in shared memory: its chain (weights
+// packed at the kernel width HW, as a single launch takes them), x at
+// x_stride floats per member and out at n * out_size. The kernels read
+// these pointers where they use them, as the batched backward reads
+// MemberBwd's: held in registers for the whole kernel they made ptxas spill
+// the mixed-precision forward.
+struct MemberFwd {
+  Chain c;
+  const float* x;
+  float* out;
+};
+
+// Thread 0 fills mf for member blockIdx.y. Call before anything reads mf,
+// then __syncthreads.
+template <int HW>
+__device__ __forceinline__ void member_fwd(MemberFwd& mf, const Chain& c, const float* x,
+                                           float* out, long long x_stride) {
+  if (threadIdx.x == 0) {
+    const long long m = blockIdx.y;
+    mf.c = c;
+    mf.c.w0 += m * c.in_size * HW;
+    mf.c.wm += m * (c.depth > 2 ? c.depth - 2 : 1) * (long long)HW * HW;
+    mf.c.wl += m * HW * c.out_size;
+    mf.c.bs += m * (c.depth - 1) * HW;
+    mf.c.bl += m * c.out_size;
+    mf.x = x + m * x_stride;
+    mf.out = out + m * c.n * (long long)c.out_size;
+  }
 }
 
 // A batched backward's member (MB), in shared memory: its chain (weights
@@ -243,9 +259,9 @@ __device__ __forceinline__ void member_bwd(MemberBwd& mb, const Chain& c, const 
   partials += m * gridDim.x * (long long)n_part;
 }
 
-// The chain a backward block reads: its parameter, or (MB) its member's.
-template <bool MB>
-__device__ __forceinline__ const Chain& chain_of(const MemberBwd& mb, const Chain& c) {
+// The chain a block reads: its parameter, or (MB) its member's.
+template <bool MB, class Member>
+__device__ __forceinline__ const Chain& chain_of(const Member& mb, const Chain& c) {
   if constexpr (MB) return mb.c;
   else return c;
 }
@@ -728,9 +744,16 @@ constexpr size_t kFwdSmem = sizeof(float) * (3 * BUF + T * MAX_IO) + 2 * sizeof(
 
 template <bool BF16, bool MX, bool MB>
 __global__ void __launch_bounds__(THREADS, 1)
-sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out,
+sine_mlp_fwd_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict__ out,
                     long long x_stride) {
-  if constexpr (MB) to_member<H>(c, x, out, x_stride);
+  __shared__ MemberFwd mf;
+  if constexpr (MB) {
+    member_fwd<H>(mf, c_arg, x, out, x_stride);
+    __syncthreads();
+  }
+  const Chain& c = chain_of<MB>(mf, c_arg);
+  const auto X = [&] { if constexpr (MB) return mf.x; else return x; };
+  const auto OUT = [&] { if constexpr (MB) return mf.out; else return out; };
   extern __shared__ float4 smem4[];
   float* w_s0 = reinterpret_cast<float*>(smem4);
   float* a_s = w_s0 + 2 * BUF;
@@ -752,7 +775,7 @@ sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ ou
   Acc acc;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
-    stage_rows<BF16>(x_s, x, row0, c.n, c.in_size, tid);
+    stage_rows<BF16>(x_s, X(), row0, c.n, c.in_size, tid);
     __syncthreads();
     first_layer<BF16>(acc, c, x_s, w);
     sine_epilogue<BF16, MX, kNothing>(acc, c.bs, c.omega0, a_s, nullptr, w);
@@ -767,7 +790,7 @@ sine_mlp_fwd_kernel(Chain c, const float* __restrict__ x, float* __restrict__ ou
       sine_epilogue<BF16, MX, kNothing>(acc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
       __syncthreads();
     }
-    rows_times_narrow<BF16>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, out, row0, c.n,
+    rows_times_narrow<BF16>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, OUT(), row0, c.n,
                             tid);
     __syncthreads();
   }
@@ -1175,10 +1198,17 @@ __device__ __forceinline__ void ring_product(Acc acc, const float* __restrict__ 
 // mbarriers.
 template <bool BF16, bool MX, class G, bool MB>
 __global__ void __launch_bounds__(G::THREADS, 1)
-sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict__ out,
+sine_mlp_fwd_wide_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict__ out,
                          long long x_stride) {
   constexpr int HW = G::H, NB = G::NB;
-  if constexpr (MB) to_member<HW>(c, x, out, x_stride);
+  __shared__ MemberFwd mf;
+  if constexpr (MB) {
+    member_fwd<HW>(mf, c_arg, x, out, x_stride);
+    __syncthreads();
+  }
+  const Chain& c = chain_of<MB>(mf, c_arg);
+  const auto X = [&] { if constexpr (MB) return mf.x; else return x; };
+  const auto OUT = [&] { if constexpr (MB) return mf.out; else return out; };
   extern __shared__ float4 smem4[];
   float* ring_s = reinterpret_cast<float*>(smem4);
   float* a_s = ring_s + NB * G::SLICE;
@@ -1191,9 +1221,12 @@ sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict
   const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   // the block's ring slices in order: per tile, W_1 .. W_L, each in G::NS slices
   const int per_tile = L * G::NS, total = my_tiles * per_tile;
-  const auto src = [wm = c.wm, per_tile](int s) {
+  // W is read through c at each slice (a parameter, or MB's shared memory),
+  // not held in registers: at width 192 the fp32 member-axis forward has no
+  // register to spare (168 a thread) and spilled 36 B with the copy
+  const auto src = [&c, per_tile](int s) {
     const int j = s % per_tile;
-    return wm + (size_t)(j / G::NS) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
+    return c.wm + (size_t)(j / G::NS) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
   };
 
   init_barriers<G::THREADS>(bar, NB);
@@ -1204,7 +1237,7 @@ sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict
   Acc acc;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * G::T;
-    stage_rows<BF16, G>(x_s, x, row0, c.n, c.in_size, tid);
+    stage_rows<BF16, G>(x_s, X(), row0, c.n, c.in_size, tid);
     __syncthreads();
     first_layer<BF16, HW>(acc, c, x_s, w);
     sine_epilogue<BF16, MX, kNothing, HW>(acc, c.bs, c.omega0, a_s, nullptr, w);
@@ -1215,7 +1248,7 @@ sine_mlp_fwd_wide_kernel(Chain c, const float* __restrict__ x, float* __restrict
       sine_epilogue<BF16, MX, kNothing, HW>(acc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
       __syncthreads();
     }
-    rows_times_narrow_wide<BF16, G>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, out, row0, c.n,
+    rows_times_narrow_wide<BF16, G>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, OUT(), row0, c.n,
                                     tid);
     __syncthreads();
   }
@@ -1273,18 +1306,20 @@ sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* 
   uint64_t* bar = reinterpret_cast<uint64_t*>(red + (G::T / 32) * HW);
   const int tid = threadIdx.x;
   const Warp w(tid, G::CG);
-  const int depth = c.depth, in_size = c.in_size, L = depth - 2;
+  const int L = c.depth - 2;
 
   // this block's slices: partial gradients and the z stash (z_1 .. z_{L-1});
-  // the slice is zeroed but for dW_m, which sine_mlp_dw writes whole
+  // the slice is zeroed but for dW_m, which sine_mlp_dw writes whole. The
+  // slice's regions past dW0 (dWl, dbs, dbl) are addressed from the chain
+  // where they are used, as is the input width: held for the whole kernel,
+  // those values made ptxas spill the fp32 backward (single and over a
+  // member axis) at widths 192 and 512.
   float* part = partials + (size_t)blockIdx.x * n_part;
-  float* dw0 = part;
-  float* dwl = dw0 + in_size * HW + (size_t)L * HW * HW;
-  float* dbs = dwl + HW * c.out_size;
-  float* dbl = dbs + (depth - 1) * HW;
   float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * G::BUF;
-  for (int e = tid; e < in_size * HW; e += G::THREADS) dw0[e] = 0.f;
-  for (float* p = dwl + tid; p < part + n_part; p += G::THREADS) *p = 0.f;
+  for (int e = tid; e < c.in_size * HW; e += G::THREADS) part[e] = 0.f;
+  for (float* p = part + (c.in_size * HW + L * HW * HW) + tid; p < part + n_part;
+       p += G::THREADS)
+    *p = 0.f;
 
   // the block's ring slices in order: per tile, W_1 .. W_L (the forward
   // pass), then W_L^T .. W_1^T (the backward pass), each in G::NS slices
@@ -1307,7 +1342,7 @@ sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* 
   Acc acc, dc;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * G::T;
-    stage_rows<BF16, G>(x_s, X(), row0, c.n, in_size, tid);
+    stage_rows<BF16, G>(x_s, X(), row0, c.n, c.in_size, tid);
     stage_rows<false, G>(go_s, G_(), row0, c.n, c.out_size, tid);
     __syncthreads();
 
@@ -1330,7 +1365,11 @@ sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* 
     }
 
     // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
-    last_layer_grads<BF16, G>(acc, c, a_s, go_s, dwl, dbl, w, tid);
+    last_layer_grads<BF16, G>(
+        acc, c, a_s, go_s, (part + (c.in_size * HW + (c.depth - 2) * HW * HW)),
+        (part + (c.in_size * HW + (c.depth - 2) * HW * HW + HW * c.out_size +
+                 (c.depth - 1) * HW)),
+        w, tid);
     store_gz<BF16, MX, HW>(acc, dc, g_s, red, w);
     __syncthreads();  // a_L read, gz_L and its bias sums written
     if (L >= 2) copy_tile<G>(a_s, z_g + (size_t)(L - 2) * G::BUF, z_bar);  // z_{L-1}
@@ -1346,7 +1385,9 @@ sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* 
         resine<BF16, MX, false, HW>(dc, nullptr, c.omega_h, a_s, w);
       }
       __syncthreads();
-      add_bias_grad<G>(red, dbs + l * HW, tid);
+      add_bias_grad<G>(
+          red, (part + (c.in_size * HW + (c.depth - 2) * HW * HW + HW * c.out_size)) + l * HW,
+          tid);
       const size_t layer = (size_t)(l - 1) * c.n * HW;  // dW_l's operands: a_{l-1}, gz_l
       store_dw_operands<G>(a_s, g_s, DA() + layer, DG() + layer, row0, c.n, tid);
       if (l >= 3) {  // z_{l-2} streams into a_s while ga is computed
@@ -1360,8 +1401,10 @@ sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* 
     __syncthreads();
 
     // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
-    first_layer_grads<G>(x_s, g_s, red, dw0, dbs, in_size, tid);
-    rows_times_narrow_wide<BF16, G>(g_s, c.w0, 1, HW, in_size, nullptr, DX(), row0, c.n, tid);
+    first_layer_grads<G>(
+        x_s, g_s, red, part,
+        (part + (c.in_size * HW + (c.depth - 2) * HW * HW + HW * c.out_size)), c.in_size, tid);
+    rows_times_narrow_wide<BF16, G>(g_s, c.w0, 1, HW, c.in_size, nullptr, DX(), row0, c.n, tid);
     __syncthreads();
   }
 }
@@ -1681,10 +1724,8 @@ int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
   const dim3 blocks(grid, members);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
-    if constexpr (MXV) {  // mixed precision has no batched instantiation
-      if (members > 1) return cudaErrorInvalidValue;
-    } else if (members > 1) {
-      return launch(sine_mlp_bwd_wide_kernel<BF, false, G, true>, blocks, G::THREADS, smem, s,
+    if (members > 1) {
+      return launch(sine_mlp_bwd_wide_kernel<BF, MXV, G, true>, blocks, G::THREADS, smem, s,
                     c, x, g, dx, z, partials, n_part, dw_a, dw_g, x_stride);
     }
     return launch(sine_mlp_bwd_wide_kernel<BF, MXV, G, false>, blocks, G::THREADS, smem, s, c,
@@ -1705,10 +1746,8 @@ int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
-    if constexpr (MXV) {  // mixed precision has no batched instantiation
-      if (members > 1) return cudaErrorInvalidValue;
-    } else if (members > 1) {
-      return launch(sine_mlp_fwd_wide_kernel<BF, false, G, true>, grid, G::THREADS, smem, s, c,
+    if (members > 1) {
+      return launch(sine_mlp_fwd_wide_kernel<BF, MXV, G, true>, grid, G::THREADS, smem, s, c,
                     x, out, x_stride);
     }
     return launch(sine_mlp_fwd_wide_kernel<BF, MXV, G, false>, grid, G::THREADS, smem, s, c, x,
@@ -1754,8 +1793,7 @@ int sine_mlp_max_io() { return MAX_IO; }
 // x_stride floats per member (0: shared); one member launches the single
 // instantiation (sine_mlp_fwd). One persistent block per SM (at
 // most one per tile) for each member. hidden: the kernel width the weights
-// are padded to. At most kMaxRows rows and 65,535 members; more than one
-// member in a mixed-precision mode returns cudaErrorInvalidValue.
+// are padded to. At most kMaxRows rows and 65,535 members.
 int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const float* wl,
                          const float* bs, const float* bl, float* out, int members,
                          long long x_stride, int n, int in_size, int out_size, int depth,
@@ -1781,10 +1819,8 @@ int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
-    if constexpr (MXV) {  // mixed precision has no batched instantiation
-      if (members > 1) return cudaErrorInvalidValue;
-    } else if (members > 1) {
-      return launch(sine_mlp_fwd_kernel<BF, false, true>, grid, THREADS, kFwdSmem, s, c, x, out,
+    if (members > 1) {
+      return launch(sine_mlp_fwd_kernel<BF, MXV, true>, grid, THREADS, kFwdSmem, s, c, x, out,
                     x_stride);
     }
     return launch(sine_mlp_fwd_kernel<BF, MXV, false>, grid, THREADS, kFwdSmem, s, c, x, out,
@@ -1804,8 +1840,7 @@ int sine_mlp_max_rows() { return kMaxRows; }
 // transposed) and, instead of summing dW_m, writes its operands into dw_a
 // and dw_g ((depth - 2, n, hidden) floats each per member, 16-byte aligned)
 // for sine_mlp_dw, leaving the dW_m region of partials alone. At most 65,535
-// members; more than one in a mixed-precision mode returns
-// cudaErrorInvalidValue.
+// members.
 int sine_mlp_bwd_batched(const float* x, const float* g, const float* w0, const float* wm,
                          const float* wmt, const float* wl, const float* bs, float* dx,
                          float* z_scratch, float* partials, float* dw_a, float* dw_g,
@@ -1835,10 +1870,8 @@ int sine_mlp_bwd_batched(const float* x, const float* g, const float* w0, const 
   const dim3 blocks(grid, members);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
-    if constexpr (MXV) {  // mixed precision has no batched instantiation
-      if (members > 1) return cudaErrorInvalidValue;
-    } else if (members > 1) {
-      return launch(sine_mlp_bwd_kernel<BF, false, true>, blocks, THREADS, kBwdSmem, s, c, x, g,
+    if (members > 1) {
+      return launch(sine_mlp_bwd_kernel<BF, MXV, true>, blocks, THREADS, kBwdSmem, s, c, x, g,
                     dx, z_scratch, partials, n_part, x_stride);
     }
     return launch(sine_mlp_bwd_kernel<BF, MXV, false>, blocks, THREADS, kBwdSmem, s, c, x, g,

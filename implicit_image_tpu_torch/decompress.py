@@ -27,8 +27,8 @@ A packed `.iic` file (coding/container_file.py) decodes like the run dir it
 holds. A sequence's P-frame run dir decodes on its own: its container walks
 its verified chain back to the I-frame (sequence.py). Several run dirs decode together (`decode_runs`): every stream is
 decoded on the host, the runs are grouped by (model, config, H, W), and
-each SIREN group renders in one K1 launch over a member axis; the other
-families render member by member.
+each group renders in one member-axis forward (a SIREN group in one K1
+launch over the member axis).
 """
 from __future__ import annotations
 
@@ -131,11 +131,13 @@ def decode_runs(run_dirs, device="cuda"):
 
     Every stream is decoded on the host, then the runs are grouped by
     (model, config, H, W): decoded weights are dense (centroids[labels]), so
-    the members of a group share their shapes whatever their sparsity. A
-    SIREN group renders in one K1 launch over the member axis
-    (`ModelDef.apply_batched`), each member the bits of its own decode; the
-    other families (CoordX, Fourier, hashgrid, wavelet-SIREN, Feathermap)
-    render member by member."""
+    the members of a group share their shapes whatever their sparsity.
+    Every group renders in one member-axis forward (`ModelDef.apply_batched`,
+    the JAX package's vmap of the render): a SIREN group in one K1 launch
+    over the member axis, each member the bits of its own decode; a
+    wavelet-SIREN group in one per sub-SIREN; CoordX, Fourier, hashgrid and
+    Feathermap groups under torch.func.vmap (their products batched over the
+    members: each member within a few fp32 ulps of its own decode)."""
     _fp32_products()
     t0 = time.perf_counter()
     infos, groups = [], {}
@@ -154,12 +156,7 @@ def decode_runs(run_dirs, device="cuda"):
         _, mdef, mcfg, h, w, _ = infos[idxs[0]]
         grid = get_grid(h, w, device)
         members = [infos[i][5] for i in idxs]
-        with torch.no_grad():
-            if mdef.apply_batched is not None:
-                outs = mdef.apply_batched(members, grid, mcfg, "fp32")
-            else:
-                outs = [mdef.apply(p, grid, mcfg, "fp32") for p in members]
-            outs = [o.cpu().numpy() for o in outs]
+        outs = [o.cpu().numpy() for o in mdef.apply_batched(members, grid, mcfg, "fp32")]
         for j, i in enumerate(idxs):
             images[i] = outs[j]
             save_img(str(infos[i][0] / "decoded.png"), outs[j])

@@ -181,6 +181,19 @@ def build_feather_model(mdef: ModelDef, mcfg, compress: float) -> ModelDef:
     def apply(params, grid, cfg, precision="fp32"):
         return mdef.apply(base_params(params, grid, precision), grid, cfg, precision)
 
+    # over a member axis: each member's base params materialized under
+    # torch.func.vmap, then the base model's member-axis forward (over SIREN
+    # the member-axis kernels)
+    def base_members(params, x, precision):
+        return torch.func.vmap(lambda p: base_params(p, x, precision))(params)
+
+    def apply_flat_members(params, coords, cfg, precision="fp32"):
+        return mdef.apply_flat_members(base_members(params, coords, precision), coords, cfg,
+                                       precision)
+
+    def apply_members(params, grid, cfg, precision="fp32"):
+        return mdef.apply_members(base_members(params, grid, precision), grid, cfg, precision)
+
     return ModelDef(
         name=f"feather_{mdef.name}",
         config_cls=mdef.config_cls,
@@ -189,4 +202,6 @@ def build_feather_model(mdef: ModelDef, mcfg, compress: float) -> ModelDef:
         apply_flat=apply_flat,
         separable=mdef.separable,
         full_grid=mdef.full_grid,
+        apply_members=apply_members,
+        apply_flat_members=apply_flat_members,
     )

@@ -6,10 +6,10 @@ fitted together over a member axis.
 Each entry of fleet.images is a benchmark image name (the file when present,
 else its seeded synthetic stand-in, as compress.py loads it) or a path to an
 image file. The fleet runs through parallel/pipeline.batched_compress: one
-fit over the member axis (each step one `sine_mlp_fwd_batched` and one
-`sine_mlp_bwd_batched` launch for every image), then each member's codebook
-finetune, container and decode, member by member on single launches (a
-batched finetune is ROADMAP M14a). `train.init_path` starts every member
+fit over the member axis (for a SIREN each step one `sine_mlp_fwd_batched`
+and one `sine_mlp_bwd_batched` launch for every image; every family and fit
+option runs there), the codebook finetune over the member axis, then each
+member's container and decode. `train.init_path` starts every member
 from one shared meta-init; `masking.dense` (masking=none) fits without
 masks. Each member gets a compress-style run dir (config.json,
 summary.json, model_quantized/) under `<output_dir>/fleet_<exp_name>/<name>`,

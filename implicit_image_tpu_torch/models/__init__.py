@@ -2,9 +2,17 @@
 
 Every family of the JAX registry is ported: SIREN, Fourier features,
 wavelet-SIREN, CoordX and hashgrid, and the Feathermap wrap
-(masking=Feathermap) over any of them. Still raising inside a model:
-Fourier and Feathermap at precisions other than "fp32"
-(train.matmul_precision bfloat16 or null, train.mixed_precision).
+(masking=Feathermap) over any of them.
+
+Each family also runs over a member axis (the JAX package's jax.vmap of
+its forward): `ModelDef.apply_members` / `apply_flat_members` take params
+whose leaves carry a leading member axis and are differentiable. SIREN
+with the polynomial sine and wavelet-SIREN's two chains launch the
+member-axis kernels (ops/sine_mlp.py); every other forward is
+`torch.func.vmap` of the family's own (`vmap_members`): plain products
+with a leading member dimension, each custom autograd Function with a
+generated vmap rule. The method `apply_batched` renders a list of params
+tuples through `apply_members` (decompress.decode_runs).
 """
 from __future__ import annotations
 
@@ -12,7 +20,9 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
-__all__ = ["ModelDef", "registry", "build_model", "build_model_from_config"]
+import torch
+
+__all__ = ["ModelDef", "registry", "build_model", "build_model_from_config", "vmap_members"]
 
 
 @dataclass(frozen=True)
@@ -30,10 +40,38 @@ class ModelDef:
     # (wavelet_siren, whose sub-SIRENs run on their own DWT lattices): the
     # fit then takes no pixel chunks
     full_grid: bool = False
-    # (members, grid, cfg, precision) -> (M, H, W, out): M params tuples of one
-    # shape rendered together (SIREN: one K1 launch over a member axis);
-    # None where the family renders member by member (decompress.decode_runs)
-    apply_batched: Optional[Callable] = None
+    # the member-axis forwards, over params whose leaves carry a leading
+    # member axis, differentiable: (params, grid (H,W,in), cfg, precision) ->
+    # (M, H, W, out) and (params, coords (N,in), cfg, precision) -> (M, N, out);
+    # left None, vmap_members of apply / apply_flat
+    apply_members: Optional[Callable] = None
+    apply_flat_members: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.apply_members is None:
+            object.__setattr__(self, "apply_members", vmap_members(self.apply))
+        if self.apply_flat_members is None:
+            object.__setattr__(self, "apply_flat_members", vmap_members(self.apply_flat))
+
+    def apply_batched(self, members, grid, cfg, precision: str = "fp32"):
+        """M params tuples of one shape -> (M, H, W, out), no gradient,
+        rendered together through apply_members (SIREN: one K1 launch over
+        a member axis)."""
+        from implicit_image_tpu_torch.ops.sine_mlp import stack_members
+
+        with torch.no_grad():
+            return self.apply_members(stack_members(list(members)), grid, cfg, precision)
+
+
+def vmap_members(apply: Callable) -> Callable:
+    """A forward (params, x, cfg, precision) -> its member-axis form, params
+    with a leading member axis and x shared: torch.func.vmap over the
+    params."""
+
+    def members(params, x, cfg, precision: str = "fp32"):
+        return torch.func.vmap(lambda p: apply(p, x, cfg, precision))(params)
+
+    return members
 
 
 def _siren_def() -> ModelDef:
@@ -41,12 +79,14 @@ def _siren_def() -> ModelDef:
         SirenConfig,
         init_siren,
         siren_apply,
-        siren_apply_batched,
         siren_apply_flat,
+        siren_apply_flat_members,
+        siren_apply_members,
     )
 
     return ModelDef("siren", SirenConfig, init_siren, siren_apply, siren_apply_flat,
-                    apply_batched=siren_apply_batched)
+                    apply_members=siren_apply_members,
+                    apply_flat_members=siren_apply_flat_members)
 
 
 def _coordx_def() -> ModelDef:
@@ -78,10 +118,14 @@ def _wavelet_siren_def() -> ModelDef:
         init_wavelet_siren,
         wavelet_siren_apply,
         wavelet_siren_apply_flat,
+        wavelet_siren_apply_flat_members,
+        wavelet_siren_apply_members,
     )
 
     return ModelDef("wavelet_siren", WaveletSirenConfig, init_wavelet_siren,
-                    wavelet_siren_apply, wavelet_siren_apply_flat, full_grid=True)
+                    wavelet_siren_apply, wavelet_siren_apply_flat, full_grid=True,
+                    apply_members=wavelet_siren_apply_members,
+                    apply_flat_members=wavelet_siren_apply_flat_members)
 
 
 def _hashgrid_def() -> ModelDef:

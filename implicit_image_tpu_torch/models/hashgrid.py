@@ -150,11 +150,18 @@ def _mlp_ladder(mlp, z: torch.Tensor, bf16: bool, mixed: bool) -> torch.Tensor:
 
 
 class _ForwardOnlyGather(torch.autograd.Function):
-    """table[idx]; its backward raises (see the module note)."""
+    """table[idx]; its backward raises (see the module note). Its vmap rule
+    is generated (the member-axis forwards)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(table, idx):
         return table.index_select(0, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
@@ -235,12 +242,19 @@ def _level_index(r: int, cap: int, device: torch.device):
 
 class _Materialize(torch.autograd.Function):
     """A hashed level's table (cap, F) -> its dense grid ((r+1)², F), with the
-    transpose-gather backward: the same bits on every run."""
+    transpose-gather backward: the same bits on every run. Its vmap rule is
+    generated: over a member axis each member's table gathers and
+    transpose-gathers on its own (the member-axis forwards)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, tbl, idx, inv):
-        ctx.save_for_backward(inv)
+    def forward(tbl, idx, inv):
         return tbl.index_select(0, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
 
     @staticmethod
     def backward(ctx, dg):

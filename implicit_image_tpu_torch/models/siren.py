@@ -27,12 +27,12 @@ import torch
 
 from implicit_image_tpu_torch.ops.precision import matmul, maybe_cast, modes
 from implicit_image_tpu_torch.ops.sine_mlp import (
-    siren_apply_flat_batched,
+    siren_apply_flat_batched_fused,
     siren_apply_flat_fused,
 )
 
 __all__ = ["SirenConfig", "init_siren", "siren_apply", "siren_apply_flat",
-           "siren_apply_batched"]
+           "siren_apply_flat_members", "siren_apply_members"]
 
 Params = Tuple[dict, ...]
 
@@ -122,17 +122,22 @@ def siren_apply(
     return siren_apply_flat(params, grid.reshape(h * w, c), cfg, precision).reshape(h, w, -1)
 
 
-def siren_apply_batched(members: Sequence[Params], grid: torch.Tensor, cfg: SirenConfig,
-                        precision: str = "fp32") -> torch.Tensor:
-    """Forward of M params tuples of one shape over one (H, W, input_size)
-    grid -> (M, H, W, output_size), no gradient: with the polynomial sine one
-    K1 launch over the member axis on the card (the plain chain per member on
-    the CPU), each member the bits of its own `siren_apply`; with the exact
-    sine, member by member."""
-    h, w, c = grid.shape
-    coords = grid.reshape(h * w, c)
+def siren_apply_flat_members(params: Params, coords: torch.Tensor, cfg: SirenConfig,
+                             precision: str = "fp32") -> torch.Tensor:
+    """The member-axis forward: params whose leaves carry a leading member
+    axis, over flat coords (N, in) -> (M, N, out), differentiable. With the
+    polynomial sine one K1 (forward) and one K2 (backward) launch over the
+    member axis on the card (ops.sine_mlp.SineMLPBatchedFunction), each
+    member the bits of its own chain; with the exact sine torch.func.vmap of
+    the torch.sin chain."""
     if cfg.fast_sine:
-        out = siren_apply_flat_batched(members, coords, cfg, precision)
-    else:
-        out = torch.stack([_siren_apply_flat_exact(p, coords, cfg, precision) for p in members])
-    return out.reshape(len(members), h, w, -1)
+        return siren_apply_flat_batched_fused(params, coords, cfg, precision)
+    return torch.func.vmap(lambda p: _siren_apply_flat_exact(p, coords, cfg, precision))(params)
+
+
+def siren_apply_members(params: Params, grid: torch.Tensor, cfg: SirenConfig,
+                        precision: str = "fp32") -> torch.Tensor:
+    """siren_apply_flat_members over an (H, W, in) grid -> (M, H, W, out)."""
+    h, w, c = grid.shape
+    out = siren_apply_flat_members(params, grid.reshape(h * w, c), cfg, precision)
+    return out.reshape(out.shape[0], h, w, -1)

@@ -19,8 +19,10 @@ sqrt(small_dense_density)); only wavelet_levels = 1 exists. The params are
 the LF layers followed by the HF layers, so masking, quantization and the
 container treat them as one layer stack. Each sub-SIREN runs through
 models/siren.siren_apply_flat, the fused chain: on a CUDA tensor the
-forward and backward kernels launch once per sub-SIREN, twice per fit step.
-The model renders only its configured full grid.
+forward and backward kernels launch once per sub-SIREN, twice per fit step
+(over a member axis, `wavelet_siren_apply_members`: the member-axis kernels,
+twice per step for all members). The model renders only its configured
+full grid.
 """
 from __future__ import annotations
 
@@ -32,7 +34,12 @@ import numpy as np
 import torch
 
 from implicit_image_tpu_torch.data import get_grid
-from implicit_image_tpu_torch.models.siren import SirenConfig, init_siren, siren_apply_flat
+from implicit_image_tpu_torch.models.siren import (
+    SirenConfig,
+    init_siren,
+    siren_apply_flat,
+    siren_apply_flat_members,
+)
 from implicit_image_tpu_torch.ops.wavelet import dwt_coeff_len, idwt2
 
 __all__ = [
@@ -40,6 +47,8 @@ __all__ = [
     "init_wavelet_siren",
     "wavelet_siren_apply",
     "wavelet_siren_apply_flat",
+    "wavelet_siren_apply_members",
+    "wavelet_siren_apply_flat_members",
     "ycbcr_to_rgb",
 ]
 
@@ -163,11 +172,49 @@ def wavelet_siren_apply(params, grid: torch.Tensor, cfg: WaveletSirenConfig,
                               precision).reshape(lf_h, lf_w, cfg.output_size)
     hf_img = siren_apply_flat(hf_params, _grid_flat(hf_h, hf_w, grid.device), cfg.hf_config,
                               precision).reshape(hf_h, hf_w, 3)
+    return _compose(lf_img, hf_img, h, w)
 
+
+def _compose(lf_img: torch.Tensor, hf_img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The two sub-SIRENs' lattices -> (h, w, 3) RGB."""
     # Y: the inverse DWT of (LL from the LF SIREN, the bands from the HF SIREN)
     y = idwt2(lf_img[:, :, 0], hf_img[:, :, 0], hf_img[:, :, 1], hf_img[:, :, 2], (h, w))
     cbcr = _upsample(lf_img[:, :, 1:], h, w)
     return ycbcr_to_rgb(torch.cat([y[:, :, None], cbcr], dim=-1))
+
+
+def wavelet_siren_apply_members(params, grid: torch.Tensor, cfg: WaveletSirenConfig,
+                                precision: str = "fp32") -> torch.Tensor:
+    """The member-axis forward (params whose leaves carry a leading member
+    axis) -> (M, H, W, 3), differentiable: each sub-SIREN through
+    siren_apply_flat_members (one K1 and one K2 launch over the member axis
+    per sub-SIREN on the card), then the inverse DWT, the chroma resize and
+    the colour transform under torch.func.vmap over the stacked lattices."""
+    h, w = grid.shape[:2]
+    assert (h, w) == (cfg.height, cfg.width), (
+        f"grid {h}x{w} != configured {cfg.height}x{cfg.width}"
+    )
+    lf_h, lf_w = cfg.lf_shape
+    hf_h, hf_w = cfg.hf_shape
+    lf = siren_apply_flat_members(params[: cfg.n_lf_layers], _grid_flat(lf_h, lf_w, grid.device),
+                                  cfg.lf_config, precision)
+    hf = siren_apply_flat_members(params[cfg.n_lf_layers :], _grid_flat(hf_h, hf_w, grid.device),
+                                  cfg.hf_config, precision)
+    m = lf.shape[0]
+    return torch.func.vmap(lambda a, b: _compose(a, b, h, w))(
+        lf.reshape(m, lf_h, lf_w, cfg.output_size), hf.reshape(m, hf_h, hf_w, 3))
+
+
+def wavelet_siren_apply_flat_members(params, coords: torch.Tensor, cfg: WaveletSirenConfig,
+                                     precision: str = "fp32") -> torch.Tensor:
+    """(N, 2) -> (M, N, 3); N must be height * width (the full grid)."""
+    n = coords.shape[0]
+    assert n == cfg.height * cfg.width, (
+        f"wavelet_siren is a full-grid model: N={n} != H*W={cfg.height * cfg.width}"
+    )
+    out = wavelet_siren_apply_members(params, coords.reshape(cfg.height, cfg.width, -1), cfg,
+                                      precision)
+    return out.reshape(out.shape[0], n, -1)
 
 
 def wavelet_siren_apply_flat(params, coords: torch.Tensor, cfg: WaveletSirenConfig,

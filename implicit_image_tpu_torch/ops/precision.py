@@ -31,11 +31,18 @@ def _rnd(t: torch.Tensor) -> torch.Tensor:
 
 class _CastBf16(torch.autograd.Function):
     """x.astype(bfloat16) as autodiff sees it: the value rounded, and the
-    cotangent that flows back rounded too (it is a bf16 array there)."""
+    cotangent that flows back rounded too (it is a bf16 array there). Its
+    vmap rule is generated (the member-axis forwards, models/__init__.py)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         return _rnd(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
@@ -50,13 +57,19 @@ def maybe_cast(x: torch.Tensor, mixed: bool) -> torch.Tensor:
 class _Bf16Matmul(torch.autograd.Function):
     """a @ b in one bf16 pass: the operands rounded to bf16, the products
     (exact in fp32) accumulated in fp32; the backward's two products take
-    the same one pass (the cotangent rounded as their operand)."""
+    the same one pass (the cotangent rounded as their operand). Its vmap
+    rule is generated."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, a, b):
-        ar, br = _rnd(a), _rnd(b)
-        ctx.save_for_backward(ar, br)
-        return ar @ br
+    def forward(a, b):
+        return _rnd(a) @ _rnd(b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b = inputs
+        ctx.save_for_backward(_rnd(a), _rnd(b))
 
     @staticmethod
     def backward(ctx, g):

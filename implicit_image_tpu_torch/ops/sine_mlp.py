@@ -6,8 +6,9 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
     whole chain for a tile of pixel rows, activations kept on chip.
     `sine_mlp_fwd_batched` launches it once over a member axis (M models of
     one shape, grid y): the counterpart of the jax.vmap over the render that
-    the JAX package's decode_runs compiles; each member's rows come out with
-    the bits of a single launch.
+    the JAX package's decode_runs compiles, and of the batched fit's forward;
+    each member's rows come out with the bits of a single launch, in every
+    mode ("+mixed" too).
   * `sine_mlp_bwd` + `sum_partials`   <- `_bwd_kernel` / `_bwd_call`: the
     rematerializing backward. The TPU accumulated dW/db across sequential
     grid steps; on the card each block of a fixed grid writes its own
@@ -51,7 +52,7 @@ Side by side in this module:
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
     back from one to the other;
   * `SineMLPBatchedFunction` — the same over a member axis (the batched
-    fit's); no "+mixed" mode;
+    fit's), in every mode;
   * `siren_apply_flat_fused`, `siren_apply_flat_batched_fused` — the [0,1]
     -> [-1,1] input map and the /2 + 0.5 output map around the Functions;
   * `LAUNCHES` — a count per kernel, incremented where the kernel launches;
@@ -92,6 +93,7 @@ __all__ = [
     "precision_modes",
     "LAUNCHES",
     "LAUNCHES_BY_MODE",
+    "LAUNCHES_MIXED",
     "reset_launch_counts",
     "precision_from_config",
     "siren_chain_reference",
@@ -102,7 +104,6 @@ __all__ = [
     "SineMLPFunction",
     "SineMLPBatchedFunction",
     "siren_apply_flat_fused",
-    "siren_apply_flat_batched",
     "siren_apply_flat_batched_fused",
     "KERNEL_TILE_ROWS",
     "KERNEL_WIDTHS",
@@ -144,6 +145,8 @@ LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_fwd_batched": 0, "sine_mlp_bwd": 0,
             "sine_mlp_bwd_batched": 0, "sine_mlp_dw": 0, "sine_mlp_dw_batched": 0,
             "sum_partials": 0, "sum_partials_batched": 0}
 LAUNCHES_BY_MODE = {k: {m: 0 for m in PRECISIONS} for k in LAUNCHES}
+# the launches among LAUNCHES that ran a "+mixed" mode, per kernel
+LAUNCHES_MIXED = {k: 0 for k in LAUNCHES}
 
 # the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
 # the backward (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
@@ -166,6 +169,7 @@ SUM_PARTIALS_GROUPS = 2
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCHES_MIXED[k] = 0
         for m in PRECISIONS:
             LAUNCHES_BY_MODE[k][m] = 0
 
@@ -173,10 +177,11 @@ def reset_launch_counts() -> None:
 _count_lock = threading.Lock()  # multirun members launch from worker threads
 
 
-def _count(kernel: str, bf16: bool) -> None:
+def _count(kernel: str, bf16: bool, mixed: bool = False) -> None:
     with _count_lock:
         LAUNCHES[kernel] += 1
         LAUNCHES_BY_MODE[kernel][PRECISIONS[int(bf16)]] += 1
+        LAUNCHES_MIXED[kernel] += int(mixed)
 
 
 def precision_from_config(matmul_precision: Optional[str], mixed: bool = False) -> str:
@@ -391,9 +396,11 @@ def _raise_on(err: int, what: str) -> None:
 
 def _pack(params, hidden: int):
     """params tuple -> the kernel's packed fp32 operands, hidden width
-    zero-padded to the kernel's H (padded units stay exactly 0)."""
+    zero-padded to the kernel's H (padded units stay exactly 0). Leaves with
+    a leading member axis give operands with that axis, in one pass."""
     depth = len(params)
-    h = params[0]["w"].shape[1]
+    lead = tuple(params[0]["w"].shape[:-2])
+    h = params[0]["w"].shape[-1]
     pad = hidden - h
 
     def p2(w, r, c):
@@ -402,15 +409,46 @@ def _pack(params, hidden: int):
     w0 = p2(params[0]["w"], 0, pad).contiguous()
     dev = w0.device
     if depth > 2:
-        wm = torch.stack([p2(params[i]["w"], pad, pad) for i in range(1, depth - 1)])
+        wm = torch.stack([p2(params[i]["w"], pad, pad) for i in range(1, depth - 1)],
+                         dim=len(lead))
     else:
-        wm = torch.zeros((1, hidden, hidden), dtype=torch.float32, device=dev)
+        wm = torch.zeros(lead + (1, hidden, hidden), dtype=torch.float32, device=dev)
     wl = p2(params[-1]["w"], pad, 0).contiguous()
     bs = torch.stack(
-        [torch.nn.functional.pad(params[i]["b"].float(), (0, pad)) for i in range(depth - 1)]
-    )
+        [torch.nn.functional.pad(params[i]["b"].float(), (0, pad)) for i in range(depth - 1)],
+        dim=len(lead))
     bl = params[-1]["b"].float().contiguous()
     return w0, wm.contiguous(), wl, bs.contiguous(), bl
+
+
+def _is_stacked(members) -> bool:
+    """True for one params tuple whose leaves carry a leading member axis
+    (the batched fit's), false for a sequence of params tuples."""
+    return isinstance(members[0], dict)
+
+
+def _member_count(members) -> int:
+    return members[0]["w"].shape[0] if _is_stacked(members) else len(members)
+
+
+def _first_member(members):
+    """A params tuple with member 0's shapes (views)."""
+    if _is_stacked(members):
+        return tuple({k: v[0] for k, v in layer.items()} for layer in members)
+    return members[0]
+
+
+def _pack_members(members, hidden: int, mixed: bool):
+    """The packed operands of the members: a stacked params tuple's in one
+    pass (each operand with a leading member axis: the batched fit's
+    launches do O(depth) copies, not O(M depth)), or each params tuple's of
+    a sequence, stacked (one member's without the member axis)."""
+    if _is_stacked(members):
+        return _pack(_rnd_params(members, mixed), hidden)
+    packed = [_pack(_rnd_params(p, mixed), hidden) for p in members]
+    if len(packed) == 1:
+        return packed[0]
+    return tuple(torch.stack(t).contiguous() for t in zip(*packed))
 
 
 def kernel_width(h: int) -> int:
@@ -429,8 +467,8 @@ def _kernel_dims(params, x: torch.Tensor):
     lib = _lib()
     max_io = lib.sine_mlp_max_io()
     depth = len(params)
-    in_size, h = params[0]["w"].shape
-    out_size = params[-1]["w"].shape[1]
+    in_size, h = params[0]["w"].shape[-2:]
+    out_size = params[-1]["w"].shape[-1]
     if depth < 2:
         raise NotImplementedError(f"the CUDA SIREN kernels take depth >= 2; got depth {depth}")
     hidden = kernel_width(h)
@@ -450,21 +488,20 @@ def _check_rows(n: int, what: str) -> None:
 def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
                 kernel: str) -> torch.Tensor:
     """Pack, check and launch the forward once over `members` (params tuples
-    of one shape) on x, (N, in) shared or (M, N, in) one per member ->
-    (M, N, out); counted under `kernel`."""
+    of one shape, or one params tuple with a leading member axis) on x,
+    (N, in) shared or (M, N, in) one per member -> (M, N, out); counted
+    under `kernel`."""
     n = x.shape[-2]
     _check_rows(n, kernel)
-    lib, hidden, depth, in_size, out_size = _kernel_dims(members[0], x.reshape(-1, x.shape[-1]))
+    lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
+                                                         x.reshape(-1, x.shape[-1]))
     om = _omegas(cfg, depth)
     dev = x.device
-    packed = [_pack(_rnd_params(p, mixed), hidden) for p in members]
-    if len(packed) == 1:
-        w0, wm, wl, bs, bl = packed[0]
-    else:
-        w0, wm, wl, bs, bl = (torch.stack(t).contiguous() for t in zip(*packed))
+    m = _member_count(members)
+    w0, wm, wl, bs, bl = _pack_members(members, hidden, mixed)
     x = _rnd(x.float(), mixed).contiguous()
     x_stride = n * in_size if x.dim() == 3 else 0
-    out = torch.empty((len(members), n, out_size), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n, out_size), dtype=torch.float32, device=dev)
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs),
                     ("bl", bl), ("out", out)):
         _check_cuda(name, t, dev)
@@ -472,11 +509,11 @@ def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sine_mlp_fwd_batched(
             x.data_ptr(), w0.data_ptr(), wm.data_ptr(), wl.data_ptr(),
-            bs.data_ptr(), bl.data_ptr(), out.data_ptr(), len(members), x_stride, n, in_size,
+            bs.data_ptr(), bl.data_ptr(), out.data_ptr(), m, x_stride, n, in_size,
             out_size, depth, hidden, om[0], om[1], _mode_flags(bf16, mixed), stream,
         )
     _raise_on(err, kernel)
-    _count(kernel, bf16)
+    _count(kernel, bf16, mixed)
     return out
 
 
@@ -488,10 +525,13 @@ def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
 
 
 def _check_one_shape(members, what: str = "sine_mlp_fwd_batched") -> None:
-    """A batched launch's members share their layer shapes; a mismatch, or
-    no member, raises ValueError."""
-    if not members:
+    """A batched launch's members share their layer shapes (a stacked params
+    tuple does by construction); a mismatch, or no member, raises
+    ValueError."""
+    if not len(members):
         raise ValueError(f"{what}: no members")
+    if _is_stacked(members):
+        return
     shapes = [tuple((tuple(layer["w"].shape), tuple(layer["b"].shape)) for layer in p)
               for p in members]
     for i, sh in enumerate(shapes[1:], 1):
@@ -502,21 +542,21 @@ def _check_one_shape(members, what: str = "sine_mlp_fwd_batched") -> None:
 
 def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
     """Launch the forward kernel once over a member axis: M params tuples of
-    one shape (`members`) on mapped coords x on the card, (N, in) shared by
-    every member or (M, N, in) one per member -> (M, N, out), member m's rows
-    the bits of `sine_mlp_fwd(members[m], x[m], ...)`. Members of different
-    layer shapes, a "+mixed" mode (a training mode: no batched kernel), or N
-    above MAX_ROWS raise ValueError."""
+    one shape (`members`; or one params tuple whose leaves carry a leading
+    member axis, the batched fit's) on mapped coords x on the card, (N, in)
+    shared by every member or (M, N, in) one per member -> (M, N, out),
+    member m's rows the bits of `sine_mlp_fwd(members[m], x[m], ...)`, in
+    every mode. Members of different layer shapes, or N above MAX_ROWS,
+    raise ValueError."""
     bf16, mixed = precision_modes(precision)
-    if mixed:  # a training mode: no batched instantiation
-        raise ValueError(f"sine_mlp_fwd_batched: no batched kernel for {precision!r}")
     _check_one_shape(members)
-    if x.dim() == 3 and x.shape[0] != len(members):
+    m = _member_count(members)
+    if x.dim() == 3 and x.shape[0] != m:
         raise ValueError(f"sine_mlp_fwd_batched: x holds {x.shape[0]} members' coordinates, "
-                         f"there are {len(members)} members")
-    if x.dim() not in (2, 3) or len(members) > 65535:
+                         f"there are {m} members")
+    if x.dim() not in (2, 3) or m > 65535:
         raise ValueError("sine_mlp_fwd_batched: x must be (N, in) or (M, N, in), M <= 65535")
-    return _fwd_launch(members, x, cfg, bf16, False, "sine_mlp_fwd_batched")
+    return _fwd_launch(members, x, cfg, bf16, mixed, "sine_mlp_fwd_batched")
 
 
 def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, device):
@@ -553,21 +593,19 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
                 batched: bool):
     """Pack, check and launch the backward (and, above width 128,
     sine_mlp_dw), then the partial sum, once over `members` (params tuples of
-    one shape): x (N, in) shared or (M, N, in), g (M, N, out) when `batched`,
+    one shape, or one params tuple with a leading member axis): x (N, in)
+    shared or (M, N, in), g (M, N, out) when `batched`,
     else one member with x (N, in) and g (N, out). Returns (dx, grads), every
     leaf with a leading member axis when `batched`; the launches count under
     the batched keys when `batched`."""
     bf16, mixed = precision_modes(precision)
-    lib, hidden, depth, in_size, out_size = _kernel_dims(members[0], x.reshape(-1, x.shape[-1]))
+    first = _first_member(members)
+    lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
     om = _omegas(cfg, depth)
     dev = x.device
-    m = len(members)
-    h = members[0][0]["w"].shape[1]
-    packed = [_pack(_rnd_params(p, mixed), hidden) for p in members]
-    if batched:
-        w0, wm, wl, bs, _ = (torch.stack(t).contiguous() for t in zip(*packed))
-    else:
-        w0, wm, wl, bs, _ = packed[0]
+    m = _member_count(members)
+    h = first[0]["w"].shape[1]
+    w0, wm, wl, bs, _ = _pack_members(members, hidden, mixed)
     wide = hidden != KERNEL_WIDTHS[0]
     # the wider kernels' gz W^T reads W^T's rows from the ring
     wmt = wm.transpose(-1, -2).contiguous() if wide else None
@@ -611,7 +649,7 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
             flags, stream,
         )
     _raise_on(err, kernel)
-    _count(kernel, bf16)
+    _count(kernel, bf16, mixed)
     if wide and depth > 2:
         (sine_mlp_dw_batched if batched else sine_mlp_dw)(*dw_ops, partials, sizes[0],
                                                           precision)
@@ -641,7 +679,8 @@ def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
 
 def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     """Launch the backward once over a member axis: M params tuples of one
-    shape (`members`), mapped coords x on the card, (N, in) shared by every
+    shape (`members`; or one params tuple whose leaves carry a leading member
+    axis, the batched fit's), mapped coords x on the card, (N, in) shared by every
     member or (M, N, in) one per member, and output cotangents g (M, N, out)
     -> (dx (M, N, in), grads), every leaf of grads with a leading member
     axis; member m's outputs the bits of `sine_mlp_bwd(members[m], x[m],
@@ -655,20 +694,19 @@ def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precisi
     192) dW's operands alone, 2 x 6 x 262,144 x 192 floats = 2.4 GB, so a
     5-member ladder needs about 12 GB. When the M members' buffers exceed
     the device's free memory this raises ValueError before allocating; it
-    never falls back to single launches. Members of different layer shapes,
-    a "+mixed" mode (no batched kernel: the mixed forward's instantiation
-    spilled) or more than 65,535 members raise ValueError too."""
-    bf16, mixed = precision_modes(precision)
-    if mixed:
-        raise ValueError(f"sine_mlp_bwd_batched: no batched kernel for {precision!r}")
+    never falls back to single launches. Members of different layer shapes
+    or more than 65,535 members raise ValueError too. Every mode has its
+    instantiation, "+mixed" too: member m's dW and db then come out rounded
+    to bf16, as sine_mlp_bwd's."""
     _check_one_shape(members, "sine_mlp_bwd_batched")
     n = x.shape[-2]
-    if x.dim() not in (2, 3) or (x.dim() == 3 and x.shape[0] != len(members)):
-        raise ValueError(f"sine_mlp_bwd_batched: x must be (N, in) or ({len(members)}, N, in), "
+    m = _member_count(members)
+    if x.dim() not in (2, 3) or (x.dim() == 3 and x.shape[0] != m):
+        raise ValueError(f"sine_mlp_bwd_batched: x must be (N, in) or ({m}, N, in), "
                          f"got {tuple(x.shape)}")
-    out_size = members[0][-1]["w"].shape[1]
-    if tuple(g.shape) != (len(members), n, out_size) or len(members) > 65535:
-        raise ValueError(f"sine_mlp_bwd_batched: g must be ({len(members)}, {n}, {out_size}) "
+    out_size = _first_member(members)[-1]["w"].shape[1]
+    if tuple(g.shape) != (m, n, out_size) or m > 65535:
+        raise ValueError(f"sine_mlp_bwd_batched: g must be ({m}, {n}, {out_size}) "
                          f"with at most 65,535 members, got {tuple(g.shape)}")
     return _bwd_launch(members, x, g, cfg, precision, batched=True)
 
@@ -678,7 +716,7 @@ def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset:
     """Check and launch sine_mlp_dw, over a leading member axis of a, g and
     partials when `batched`."""
     name = "sine_mlp_dw_batched" if batched else "sine_mlp_dw"
-    bf16 = _check_precision(precision)
+    bf16, mixed = precision_modes(precision)
     dims = 4 if batched else 3
     if (a.dim() != dims or tuple(a.shape) != tuple(g.shape)
             or a.shape[-1] not in KERNEL_WIDTHS[1:]):
@@ -704,7 +742,7 @@ def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset:
                                       hidden, int(bf16),
                                       torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
-    _count(name, bf16)
+    _count(name, bf16, mixed)
 
 
 def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
@@ -784,7 +822,7 @@ def _sum_launch(partials: torch.Tensor, precision: str, batched: bool) -> torch.
         raise ValueError(
             f"{name}: expected ({'M, ' if batched else ''}blocks >= 1, P) with P a multiple "
             f"of 4, got {tuple(partials.shape)}")
-    bf16 = _check_precision(precision)
+    bf16, mixed = precision_modes(precision)
     dev = partials.device
     _check_cuda("partials", partials, dev)
     lib = _lib()
@@ -800,7 +838,7 @@ def _sum_launch(partials: torch.Tensor, precision: str, batched: bool) -> torch.
     err = getattr(lib, name)(partials.data_ptr(), out.data_ptr(), *members, n_blocks, n_part,
                              torch._C._cuda_getCurrentRawStream(dev.index))
     _raise_on(err, name)
-    _count(name, bf16)
+    _count(name, bf16, mixed)
     return out
 
 
@@ -842,12 +880,12 @@ class SineMLPFunction(torch.autograd.Function):
         return tuple(out)
 
 
-def _members(flat: Sequence[torch.Tensor], clone: bool):
+def _members(flat: Sequence[torch.Tensor]):
     """Leaves with a leading member axis (w0, b0, w1, ...) -> one params tuple
-    per member: views, or (`clone`) copies in their own allocations, so the
-    plain chain runs each member on tensors laid out as a single fit's."""
-    return [_unflatten([t[m].clone() if clone else t[m] for t in flat])
-            for m in range(flat[0].shape[0])]
+    per member, copies in their own allocations, so the plain chain runs
+    each member on tensors laid out as a single fit's (the kernels take the
+    stacked leaves as they are)."""
+    return [_unflatten([t[m].clone() for t in flat]) for m in range(flat[0].shape[0])]
 
 
 class SineMLPBatchedFunction(torch.autograd.Function):
@@ -856,18 +894,14 @@ class SineMLPBatchedFunction(torch.autograd.Function):
     Forward: `sine_mlp_fwd_batched` on a CUDA tensor, the plain chain member
     by member on a CPU tensor. Backward: `sine_mlp_bwd_batched`, or the plain
     backward member by member. Member m's outputs and cotangents have the
-    bits of `SineMLPFunction` on member m alone. A "+mixed" mode raises
-    ValueError on either device (no batched kernel)."""
+    bits of `SineMLPFunction` on member m alone, in every mode."""
 
     @staticmethod
     def forward(ctx, x, cfg, precision, *flat):
-        if precision_modes(precision)[1]:
-            raise ValueError(f"SineMLPBatchedFunction: no batched kernel for {precision!r}")
-        members = _members(flat, clone=not x.is_cuda)
-        if x.is_cuda:
-            out = sine_mlp_fwd_batched(members, x, cfg, precision)
+        if x.is_cuda:  # the stacked leaves, packed in one pass
+            out = sine_mlp_fwd_batched(_unflatten(flat), x, cfg, precision)
         else:
-            out = siren_chain_reference_batched(members, x, cfg, precision)
+            out = siren_chain_reference_batched(_members(flat), x, cfg, precision)
         ctx.save_for_backward(x, *flat)
         ctx.cfg, ctx.precision = cfg, precision
         return out
@@ -875,12 +909,11 @@ class SineMLPBatchedFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *flat = ctx.saved_tensors
-        members = _members(flat, clone=not x.is_cuda)
         if x.is_cuda:
-            dx, grads = sine_mlp_bwd_batched(members, x, g, ctx.cfg, ctx.precision)
+            dx, grads = sine_mlp_bwd_batched(_unflatten(flat), x, g, ctx.cfg, ctx.precision)
         else:
-            dx, grads = siren_chain_backward_reference_batched(members, x, g, ctx.cfg,
-                                                               ctx.precision)
+            dx, grads = siren_chain_backward_reference_batched(_members(flat), x, g,
+                                                               ctx.cfg, ctx.precision)
         if not ctx.needs_input_grad[0]:
             dx = None
         elif x.dim() == 2:  # one x shared by every member
@@ -899,23 +932,6 @@ def siren_apply_flat_fused(
     x = (coords - 0.5) * 2.0
     flat = [t for layer in params for t in (layer["w"], layer["b"])]
     out = SineMLPFunction.apply(x, cfg, precision, *flat)
-    return out / 2.0 + 0.5
-
-
-def siren_apply_flat_batched(members, coords: torch.Tensor, cfg,
-                             precision: str = "fp32") -> torch.Tensor:
-    """Forward of M SIRENs of one shape (a sequence of params tuples) over
-    flat coords (N, in) in [0, 1] -> (M, N, out), no gradient: one
-    `sine_mlp_fwd_batched` launch on CUDA, `siren_chain_reference_batched` on
-    the CPU. A "+mixed" mode raises ValueError on either device."""
-    if precision_modes(precision)[1]:
-        raise ValueError(f"siren_apply_flat_batched: no batched kernel for {precision!r}")
-    x = (coords - 0.5) * 2.0
-    with torch.no_grad():
-        if x.is_cuda:
-            out = sine_mlp_fwd_batched(members, x, cfg, precision)
-        else:
-            out = siren_chain_reference_batched(members, x, cfg, precision)
     return out / 2.0 + 0.5
 
 

@@ -1,28 +1,41 @@
 """Batched fits over a member axis on one device (counterpart of
 implicit_image_tpu/parallel/batched.py).
 
-The JAX package vmaps the whole fit over a batch of (key, image) pairs and
-compiles it once. Here M fits of one SIREN shape run in one Python loop
-whose leaves carry a leading member axis: each step makes one forward and
-one backward launch for all members (`sine_mlp_fwd_batched`,
-`sine_mlp_bwd_batched`, the member-axis K1 and K2), with the coordinates
-shared and a target per member. Adam runs on the stacked leaves; it is
-elementwise, so each member keeps its own bits. Masks, the prune rate and
-the topology update apply member by member (training.fit.SparseFit), every
-`interval` steps. The step after the gradients is the single fit's own
+The JAX package vmaps the whole fit, `make_fit_fn`, over a batch of (key,
+image) pairs and compiles it once. Here M fits of one model shape run in
+one Python loop whose leaves carry a leading member axis: each step makes
+one member-axis forward and backward for all members, with the coordinates
+shared and a target per member (training.fit.make_grad_fn with `members`:
+the single fit's loss and gradient in their member-axis form). For SIREN
+with the polynomial sine that is one `sine_mlp_fwd_batched` and one
+`sine_mlp_bwd_batched` launch per step and pixel chunk (the member-axis K1
+and K2, in every precision mode, "+mixed" too); wavelet-SIREN launches them
+once per sub-SIREN; every other family (CoordX, Fourier, hashgrid, SIREN
+with the exact sine, Feathermap over any of them) runs its forward under
+torch.func.vmap (models.ModelDef.apply_members).
+
+Every fit option of the single fit's step rides the member axis as JAX's
+vmap carries it: train.pixel_chunks (each member's gradient summed in the
+single fit's chunk order), train.loss=ms-ssim (each member on its own
+image), train.mixed_precision, the precision schedule, optim.grad_clip (a
+global norm per member), optim=shampoo (one factor stack per member) and
+optim.preconditioner=ekfac (each member's capture, bases and moments its
+own: training.fit.EkfacFit). Masks, the prune rate and the topology update
+apply member by member (training.fit.SparseFit), every `interval` steps.
+The step after the gradients is the single fit's own
 (training.fit.optimizer_step), and so is each member's init
 (training.fit.init_fit_state): member m of a batched fit has the bits of
-`fit(member_generators(g, M)[m], ...)` on its image.
+`fit(member_generators(g, M)[m], ...)` on its image wherever it runs the
+single fit's own ops (the fused SIREN on the CPU and the card; the vmapped
+families agree to the last few bits: a batched product may sum in another
+order).
 
-The precision schedule rides as in the single fit (both kernel modes have a
-member-axis instantiation). Not in this slice, and raising ValueError: model
-families other than SIREN with the polynomial sine (CoordX, hashgrid,
-wavelet-SIREN, Fourier, Feathermap: the next part of M14a, ROADMAP.md),
-train.pixel_chunks > 1, train.loss=ms-ssim, train.mixed_precision (no
-member-axis kernel), optim.grad_clip, optim=shampoo and
-optim.preconditioner (M14a too). The JAX package's segment split,
-`estimate_step_flops` and the mesh are TPU scaffolding and have no
-counterpart.
+What raises (check_member_axis) is what the single fit refuses too:
+ms-ssim with pixel_chunks > 1, pixel chunks of a full-grid model, EKFAC
+on a Feathermap model or with chunks of a full-grid model. The JAX
+package's segment split, `estimate_step_flops` and the mesh are TPU
+scaffolding and have no counterpart; its batched fit takes no checkpoint,
+watch or early stop, and neither does this one.
 """
 from __future__ import annotations
 
@@ -34,18 +47,22 @@ import torch
 
 from implicit_image_tpu_torch.models import ModelDef
 from implicit_image_tpu_torch.ops.metrics import mse, psnr_8bit
-from implicit_image_tpu_torch.ops.sine_mlp import siren_apply_flat_batched_fused, stack_members
+from implicit_image_tpu_torch.ops.sine_mlp import stack_members
 from implicit_image_tpu_torch.optim import opt_init
-from implicit_image_tpu_torch.optim.adam import TRAINABLE_KEYS
+from implicit_image_tpu_torch.optim.ekfac import ekfac_init, model_skip_indices
 from implicit_image_tpu_torch.sparsity import MaskingConfig, MaskState
 from implicit_image_tpu_torch.training.fit import (
+    EkfacFit,
     FitResult,
     OptimConfig,
     SparseFit,
     TrainConfig,
     _host_array,
     _schedule,
+    check_optim,
+    forward_members,
     init_fit_state,
+    make_grad_fn,
     optimizer_step,
     plan_precision_schedule,
     set_trainable_,
@@ -67,35 +84,20 @@ def member_generators(generator: torch.Generator, b: int):
 
 
 def check_member_axis(mdef: ModelDef, mcfg, train_cfg: TrainConfig,
-                      optim_cfg: OptimConfig) -> None:
-    """Raise ValueError for what a fit over a member axis does not run in
-    this slice (module note)."""
-    if mdef.name != "siren" or not getattr(mcfg, "fast_sine", True):
-        what = f"mlp={mdef.name}" if mdef.name != "siren" else "mlp.fast_sine=false"
+                      optim_cfg: OptimConfig) -> bool:
+    """Raise ValueError, before anything runs, for what a fit over a member
+    axis does not run: only what the JAX package refuses in its fit too
+    (each message names the reason). Returns whether EKFAC is on."""
+    k = int(train_cfg.pixel_chunks)
+    if train_cfg.loss not in ("mse", "ms-ssim"):
+        raise ValueError(f"train.loss must be 'mse' or 'ms-ssim', got {train_cfg.loss!r}")
+    if k > 1 and train_cfg.loss == "ms-ssim":
+        # the SSIM windows straddle the chunks, as in the JAX package
+        raise ValueError("loss='ms-ssim' requires pixel_chunks=1")
+    if k > 1 and mdef.full_grid:
         raise ValueError(
-            f"a fit over a member axis runs the fused SIREN only; {what} is the next part of "
-            "M14a (ROADMAP.md Queue 1): fit it with compress.main, one run at a time")
-    if int(train_cfg.pixel_chunks) > 1:
-        raise ValueError(f"train.pixel_chunks={train_cfg.pixel_chunks}: a fit over a member "
-                         "axis takes the whole grid (pixel_chunks=1) in this slice")
-    if train_cfg.loss != "mse":
-        raise ValueError(f"train.loss={train_cfg.loss!r}: a fit over a member axis takes "
-                         "loss=mse in this slice")
-    if train_cfg.mixed_precision:
-        raise ValueError("train.mixed_precision: the member-axis kernels have no "
-                         "'+mixed' instantiation")
-    if float(optim_cfg.grad_clip or 0.0) > 0:
-        raise ValueError("optim.grad_clip: a fit over a member axis does not clip yet")
-    # Shampoo would matricize the stacked (M, in, out) leaves as 3-D tensors
-    # and mix the members; EKFAC's capture is per fit
-    if optim_cfg.name != "adam":
-        raise ValueError(f"optim={optim_cfg.name}: a fit over a member axis runs Adam only; "
-                         "Shampoo there is part of M14a (ROADMAP.md Queue 1): fit it with "
-                         "compress.main, one run at a time")
-    if optim_cfg.preconditioner:
-        raise ValueError(f"optim.preconditioner={optim_cfg.preconditioner}: a fit over a member "
-                         "axis takes no preconditioner; EKFAC there is part of M14a "
-                         "(ROADMAP.md Queue 1): fit it with compress.main, one run at a time")
+            f"model {mdef.name!r} renders its full grid only; pixel_chunks={k} needs 1")
+    return check_optim(mdef, train_cfg, optim_cfg)
 
 
 def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
@@ -103,7 +105,7 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
                 masking_cfgs: Optional[Sequence[MaskingConfig]] = None, init_params=None,
                 device="cuda") -> FitResult:
     """The member-axis fit loop of `batched_fit`, the density ladder and
-    meta-training's inner loop: M = len(generators) fits of one SIREN shape
+    meta-training's inner loop: M = len(generators) fits of one model shape
     on `device` (the grid moves there; "cpu" runs the plain versions).
     targets: (M, H, W, C), one image per member, or (H, W, C), shared; numpy
     or a tensor on any device. masking_cfgs: None for dense fits, else one
@@ -111,9 +113,9 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
     only: the cadence and the modes are member 0's). Member m starts from
     `init_fit_state(generators[m], ..., masking_cfgs[m], init_params)` (a
     warm dense fit draws nothing: its generators may be None). Returns a FitResult
-    whose params, Adam moments, masks, mask scalars and metric arrays carry
-    a leading member axis."""
-    check_member_axis(mdef, mcfg, train_cfg, optim_cfg)
+    whose params, optimizer state, masks, mask scalars and metric arrays
+    carry a leading member axis (with grad_clip, metrics["clip_scale"] too)."""
+    use_ekfac = check_member_axis(mdef, mcfg, train_cfg, optim_cfg)
     device = torch.device(device)
     b = len(generators)
     if b == 0:
@@ -125,10 +127,12 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
     coords = grid.to(device).reshape(h * w, c)
     target = torch.as_tensor(targets if isinstance(targets, torch.Tensor) else np.asarray(targets),
                              dtype=torch.float32, device=device)
-    if target.dim() == 3:
-        target_flat = [target.reshape(h * w, -1)] * b
+    if target.dim() == 3:  # one image shared by the members
+        target_flat = target.reshape(h * w, -1)
+        member_targets = [target_flat] * b
     elif target.shape[0] == b:
-        target_flat = [t.reshape(h * w, -1) for t in target]
+        target_flat = target.reshape(b, h * w, -1)
+        member_targets = list(target_flat)
     else:
         raise ValueError(f"{target.shape[0]} targets for {b} members")
     sparse = masking_cfgs is not None and not masking_cfgs[0].dense
@@ -139,42 +143,46 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
                             init_params, device) for m, gen in enumerate(generators)]
     params = stack_members([p for p, _, _ in inits])
     set_trainable_(params, True)
-    opt_state = opt_init(params, optim_cfg)
+    opt_state = opt_init(params, optim_cfg, members=True)
+    ekfac = None
+    if use_ekfac:
+        skip = model_skip_indices(mdef.name, inits[0][0])
+        ekfac = EkfacFit(mdef, mcfg, coords, member_targets, optim_cfg, train_cfg.pixel_chunks,
+                         [ekfac_init(p, skip) for p, _, _ in inits], members=True)
     sparse_fit = (SparseFit(masking_cfgs, [ms for _, _, ms in inits], generators, True)
                   if sparse else None)
+    del inits
     schedule = _schedule(optim_cfg, n)
-    keys = [[k for k in layer if k in TRAINABLE_KEYS] for layer in params]
+    grad_fns = {}
 
-    def grads_of(prec):
-        # each member's loss on its own output slice, as a single fit's; the
-        # sum's gradient reaches every member's loss as 1
-        leaves = [layer[k] for layer, ks in zip(params, keys) for k in ks]
-        preds = siren_apply_flat_batched_fused(params, coords, mcfg, prec).unbind(0)
-        losses = [mse(p, t) for p, t in zip(preds, target_flat)]
-        total = losses[0]
-        for loss in losses[1:]:
-            total = total + loss
-        it = iter(torch.autograd.grad(total, leaves))
-        grads = tuple({k: next(it) for k in ks} for ks in keys)
-        return torch.stack([loss.detach() for loss in losses]), grads
+    def grad_fn(prec):
+        if prec not in grad_fns:
+            grad_fns[prec] = make_grad_fn(
+                mdef, mcfg, coords, target_flat, prec, train_cfg.pixel_chunks, grid_hw=(h, w),
+                loss_name=train_cfg.loss, ssim_weight=train_cfg.ssim_weight, members=True)
+        return grad_fns[prec]
 
-    losses, densities, rates, evals = [], [], [], {}
+    clip_stats = {} if float(optim_cfg.grad_clip or 0.0) > 0 else None
+    losses, densities, rates, evals, clip_scales = [], [], [], {}, []
     synchronize(device)
     t0 = time.perf_counter()
     for step in range(n):
         prec = early if early is not None and step < switch else precision
-        loss, grads = grads_of(prec)
+        loss, grads = grad_fn(prec)(params)
         params, opt_state, rate = optimizer_step(step, params, grads, opt_state, schedule(step),
-                                                 optim_cfg, sparse_fit)
+                                                 optim_cfg, sparse_fit, stats=clip_stats,
+                                                 ekfac=ekfac, members=True)
         losses.append(loss)
+        if clip_stats is not None:
+            clip_scales.append(clip_stats["clip_scale"])
         if sparse:
             rates.append(rate)
             densities.append(list(sparse_fit.densities))
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
-                preds = siren_apply_flat_batched_fused(params, coords, mcfg, prec).unbind(0)
+                preds = forward_members(mdef, mcfg, params, coords, (h, w), prec).unbind(0)
                 rows = []
-                for pred, t in zip(preds, target_flat):
+                for pred, t in zip(preds, member_targets):
                     test_loss = mse(pred, t)
                     rows.append(torch.stack([test_loss, 10.0 * torch.log10(1.0 / test_loss),
                                              psnr_8bit(pred, t)]))
@@ -192,6 +200,9 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
     else:
         metrics["density"] = np.ones((b, n), np.float32)
         metrics["prune_rate"] = np.zeros((b, n), np.float32)
+    if clip_stats is not None:
+        metrics["clip_scale"] = (torch.stack(clip_scales).T.cpu().numpy() if clip_scales
+                                 else np.zeros((b, 0), np.float32))
     for step, vals in evals.items():
         for k, col in zip(("test_loss", "psnr", "psnr_8bit"), vals.cpu().numpy().T):
             metrics[k][:, step] = col
@@ -209,7 +220,7 @@ def make_batched_fit_fn(mdef: ModelDef, mcfg, grid: torch.Tensor, train_cfg: Tra
     carry a leading member axis: B fits of one configuration, one image and
     one generator each, over the member axis, on `device`. `init_params` (unbatched)
     warm-starts every member from the same meta-init (training/metainit.py).
-    What the member axis does not run raises here (check_member_axis)."""
+    What the fit refuses raises here (check_member_axis)."""
     check_member_axis(mdef, mcfg, train_cfg, optim_cfg)
 
     def fit_fn(generators, imgs):

@@ -103,8 +103,8 @@ def ladder_compress(
     delta_info: Optional[dict] = None,
     device="cuda",
 ) -> Sequence[PipelineResult]:
-    """The ladder end to end on `device`: the fit over the member axis, then for each
-    member its codebook finetune, its container in
+    """The ladder end to end on `device`: the fit over the member axis, the
+    codebook finetune over the member axis, then each member's container in
     <stream_root>/d<density>/model_quantized and its decode (the reference
     pipeline's order). `delta_info` (quant.delta): every member codes
     residual codebooks against the shared `init_params` artifact, whose path

@@ -2,11 +2,11 @@
 the one-device half of implicit_image_tpu/parallel/pipeline.py).
 
 `batched_compress` takes many images end to end: one batched fit over the
-member axis (parallel/batched.py), then for each member the k-means
-codebook finetune (training/quant_phase.py, single launches, member after
-member: the JAX package vmaps it; a batched finetune is ROADMAP work), its
-container written by the port's container code and decoded again from the
-written bytes. Either package decodes what it writes to the same weights.
+member axis (parallel/batched.py), then the codebook finetune over the
+member axis (training/quant_phase.quant_finetune_members, the JAX
+package's vmap of its quant fit), then for each member its container
+written by the port's container code and decoded again from the written
+bytes. Either package decodes what it writes to the same weights.
 `sharded_compress` (one image over a device mesh) waits for the multi-GPU
 slice (ROADMAP.md, M16).
 """
@@ -29,7 +29,8 @@ from implicit_image_tpu_torch.models import ModelDef
 from implicit_image_tpu_torch.parallel.batched import batched_fit
 from implicit_image_tpu_torch.quant import QuantConfig
 from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig
-from implicit_image_tpu_torch.training.quant_phase import quant_finetune
+from implicit_image_tpu_torch.ops.sine_mlp import precision_from_config
+from implicit_image_tpu_torch.training.quant_phase import quant_finetune_members
 
 __all__ = ["PipelineResult", "batched_compress"]
 
@@ -91,23 +92,30 @@ def finetune_and_code(res, targets, mdef, mcfg, grid, train_cfg: TrainConfig,
                       optim_cfg: OptimConfig, quant_cfg: Optional[QuantConfig], stream_dirs,
                       stream_name: str, half, coding_kwargs, init_params, delta_info,
                       device) -> Sequence[PipelineResult]:
-    """After a fit over a member axis: each member's codebook finetune (with
-    its masks, against `targets[m]`), container and decode, member after
-    member, into stream_dirs[m]. Shared by batched_compress and the density
-    ladder, which check delta_info (_check_delta) before their fits."""
+    """After a fit over a member axis: the members' codebook finetune over
+    the member axis (quant_finetune_members, each member with its masks and
+    against `targets[m]`, at train.matmul_precision's mode without "+mixed",
+    as the JAX package's pipeline passes only matmul_precision), then each
+    member's container and decode, member after member, into
+    stream_dirs[m]. Shared by batched_compress and the density ladder,
+    which check delta_info (_check_delta) before their fits."""
     delta_ref = state_ref_map(init_params) if delta_info is not None else None
     h, w = grid.shape[:2]
+    b = len(stream_dirs)
+    quant = None
+    if quant_cfg is not None and quant_cfg.name != "none":
+        masks = None if res.mask_state is None else list(res.mask_state.masks)
+        quant = quant_finetune_members(
+            res.params, [np.asarray(targets[m]) for m in range(b)], mdef, mcfg, grid, quant_cfg,
+            optim_cfg, precision=precision_from_config(train_cfg.matmul_precision), masks=masks,
+            offset_params=init_params if delta_info is not None else None)
     out = []
     for m, stream_dir in enumerate(stream_dirs):
         params_q, books, qpsnr = member_params(res.params, m), None, float("nan")
         img = np.asarray(targets[m])
-        if quant_cfg is not None and quant_cfg.name != "none":
-            masks = (None if res.mask_state is None else
-                     [None if mk is None else mk[m].clone() for mk in res.mask_state.masks])
-            qres = quant_finetune(params_q, img, mdef, mcfg, grid, quant_cfg, optim_cfg,
-                                  precision=train_cfg.precision, masks=masks,
-                                  offset_params=init_params if delta_info is not None else None)
-            params_q, books, qpsnr = qres.params, qres.codebooks, qres.metrics["quant_psnr"]
+        if quant is not None:
+            params_q, books = quant[m].params, quant[m].codebooks
+            qpsnr = quant[m].metrics["quant_psnr"]
         nbytes, dec_psnr = _encode_decode(params_q, books, mdef, mcfg, h, w,
                                           np.asarray(img, np.float64), stream_dir, stream_name,
                                           half, coding_kwargs, delta_info, delta_ref, device)

@@ -112,6 +112,7 @@ __all__ = [
     "make_loss_fn",
     "make_grad_fn",
     "forward_flat",
+    "forward_members",
     "fit",
     "init_fit_state",
     "SparseFit",
@@ -240,15 +241,27 @@ def set_trainable_(params, on: bool) -> None:
 
 
 def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
-                 grid_hw=None, loss_name: str = "mse", ssim_weight: float = 0.84):
+                 grid_hw=None, loss_name: str = "mse", ssim_weight: float = 0.84,
+                 members: bool = False):
     """loss(params): MSE of the flat forward against the flat target, or
     with loss_name="ms-ssim" (needs the (H, W) grid) the mix
     (1-w)·MSE + w·(1-MS-SSIM) at as many scales (up to 5) as the grid holds
     with an 11-pixel window. With grid_hw a separable model runs its grid
-    forward on coords reshaped to (H, W, in)."""
+    forward on coords reshaped to (H, W, in).
+
+    `members`: params whose leaves carry a leading member axis (M fits) and
+    target_flat (M, N, out), one target per member, or (N, out) shared;
+    loss(params) then runs the member-axis forward once (forward_members)
+    and returns two (M,) vectors of the members' losses, each the single
+    fit's loss of its member's output against its own target: the one to
+    differentiate and the values, with the single fit's bits. The MSE is
+    differentiated as one reduction over the stacked squares (its gradient
+    has the single fit's bits, elementwise; its sums may add in another
+    order on the card), and valued member by member over the same squares;
+    the MS-SSIM mix runs member by member, one vector serving both."""
     if loss_name == "mse":
-        def distortion(pred_flat):
-            return mse(pred_flat, target_flat)
+        def distortion(pred_flat, tgt):
+            return mse(pred_flat, tgt)
     elif loss_name == "ms-ssim":
         if grid_hw is None:
             raise ValueError("loss='ms-ssim' needs the (H, W) grid geometry")
@@ -259,18 +272,33 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
         levels = 1
         while levels < 5 and min(gh, gw) >= win * 2**levels:
             levels += 1
-        target_img = target_flat.reshape(gh, gw, -1)
         w_mix = float(ssim_weight)
 
-        def distortion(pred_flat):
+        def distortion(pred_flat, tgt):
+            target_img = tgt.reshape(gh, gw, -1)
             ms = ms_ssim(pred_flat.reshape(target_img.shape), target_img,
                          levels=levels, win_size=win)
-            return (1.0 - w_mix) * mse(pred_flat, target_flat) + w_mix * (1.0 - ms)
+            return (1.0 - w_mix) * mse(pred_flat, tgt) + w_mix * (1.0 - ms)
     else:
         raise ValueError(f"train.loss must be 'mse' or 'ms-ssim', got {loss_name!r}")
 
+    if members:
+        def loss_fn(params):
+            pred = forward_members(mdef, mcfg, params, coords, grid_hw, precision)
+            if loss_name == "mse":
+                diff = pred.float() - target_flat.float()
+                sq = diff * diff
+                values = torch.stack([torch.mean(m) for m in sq.detach().unbind(0)])
+                return torch.mean(sq, dim=(1, 2)), values
+            targets = target_flat if target_flat.dim() == 3 else [target_flat] * pred.shape[0]
+            loss = torch.stack([distortion(p, t) for p, t in zip(pred.unbind(0), targets)])
+            return loss, loss.detach()
+
+        return loss_fn
+
     def loss_fn(params):
-        return distortion(forward_flat(mdef, mcfg, params, coords, grid_hw, precision))
+        return distortion(forward_flat(mdef, mcfg, params, coords, grid_hw, precision),
+                          target_flat)
 
     return loss_fn
 
@@ -286,16 +314,36 @@ def forward_flat(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str):
     return mdef.apply_flat(params, coords, mcfg, precision)
 
 
+def forward_members(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str):
+    """forward_flat over a member axis: params whose leaves carry a leading
+    member axis -> (M, N, out), through `mdef.apply_members` on the grid for
+    a separable model, else `mdef.apply_flat_members`."""
+    if grid_hw is not None and mdef.separable:
+        h, w = grid_hw
+        pred = mdef.apply_members(params, coords.reshape(h, w, coords.shape[-1]), mcfg,
+                                  precision)
+        return pred.reshape(pred.shape[0], h * w, -1)
+    return mdef.apply_flat_members(params, coords, mcfg, precision)
+
+
 def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
                  pixel_chunks: int = 1, transform=None, grid_hw=None,
-                 loss_name: str = "mse", ssim_weight: float = 0.84):
+                 loss_name: str = "mse", ssim_weight: float = 0.84, members: bool = False):
     """grad_fn(state) -> (loss, grads): the loss of the params
     `transform(state)` (state itself when transform is None), with grads
     for every trainable tensor of `state` (keys of TRAINABLE_KEYS; the
     grads hold no entry for a frozen leaf); chunk-accumulated when
     pixel_chunks > 1 (MSE only: SSIM windows straddle the chunks; a
     separable model keeps its grid forward when the chunks are whole row
-    blocks; a full-grid model takes no chunks)."""
+    blocks; a full-grid model takes no chunks).
+
+    `members` (make_loss_fn's): state's leaves carry a leading member axis
+    and target_flat is (M, N, out) or (N, out), shared. Each chunk then runs
+    one member-axis forward and backward; the members' losses are summed
+    and differentiated once (each member's loss reaches its own slices
+    only, with the weight 1), so each member's gradient, its chunk sum and
+    the 1/k scale have its single fit's bits. The loss is then the (M,)
+    vector of the members' losses, each with its single fit's bits."""
     n = coords.shape[0]
     k = int(pixel_chunks)
     if k > 1 and mdef.full_grid:
@@ -309,9 +357,10 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     if k > 1:
         rows_split = grid_hw is not None and mdef.separable and grid_hw[0] % k == 0
         chunk_hw = (grid_hw[0] // k, grid_hw[1]) if rows_split else None
+    per_chunk = target_flat.chunk(k, dim=-2)
     chunks = [
-        make_loss_fn(mdef, mcfg, c, t, precision, chunk_hw, loss_name, ssim_weight)
-        for c, t in zip(coords.chunk(k), target_flat.chunk(k))
+        make_loss_fn(mdef, mcfg, c, t, precision, chunk_hw, loss_name, ssim_weight, members)
+        for c, t in zip(coords.chunk(k), per_chunk)
     ]
 
     def grad_fn(params):
@@ -322,7 +371,11 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
             # the transform runs per chunk (as JAX's chunk loss does): each
             # chunk's backward frees its own graph
             loss = loss_fn(transform(params) if transform is not None else params)
-            g = torch.autograd.grad(loss, leaves)
+            if members:
+                differentiated, loss = loss
+                g = torch.autograd.grad(differentiated.sum(), leaves)
+            else:
+                g = torch.autograd.grad(loss, leaves)
             if grad_sum is None:
                 loss_sum, grad_sum = loss.detach(), list(g)
             else:
@@ -429,29 +482,46 @@ class EkfacFit:
     its state and `precondition(step, params, grads)`, which captures this
     step's statistics on `params` (before the optimizer moves them),
     updates the moments (the bases too when step % precond_interval == 0)
-    and returns the preconditioned grads."""
+    and returns the preconditioned grads.
+
+    Over a member axis (`members`: the batched fit's M fits, params and
+    grads whose leaves carry a leading member axis, `target_flat` one
+    target per member and `state` one EkfacState per member) each member's
+    capture runs on its own params and image, and its bases, moments and
+    preconditioning are its own: member m has its single fit's bits."""
 
     def __init__(self, mdef: ModelDef, mcfg, coords, target_flat, optim_cfg: OptimConfig,
-                 pixel_chunks: int, state):
+                 pixel_chunks: int, state, members: bool = False):
         self.mdef, self.mcfg, self.coords, self.target = mdef, mcfg, coords, target_flat
         self.interval = int(optim_cfg.precond_interval)
         self.eps = float(optim_cfg.precond_eps)
         self.chunks = int(pixel_chunks)
         self.state = state
+        self.members = members
 
     def precondition(self, step: int, params, grads):
+        if not self.members:
+            self.state, out = self._one(step, params, grads, self.state, self.target)
+            return out
+        outs = []
+        for m, target in enumerate(self.target):
+            self.state[m], out = self._one(step, _at(params, m), _at(grads, m), self.state[m],
+                                           target)
+            outs.append(out)
+        return tuple({k: torch.stack([o[i][k] for o in outs]) for k in layer}
+                     for i, layer in enumerate(outs[0]))
+
+    def _one(self, step: int, params, grads, state, target):
         recompute = step % self.interval == 0
         if self.chunks > 1:
-            self.state = ekfac_update_stats_chunked(
-                self.state, self.mdef, self.mcfg, params, self.coords, self.target,
-                self.chunks, recompute_eigs=recompute)
+            state = ekfac_update_stats_chunked(state, self.mdef, self.mcfg, params, self.coords,
+                                               target, self.chunks, recompute_eigs=recompute)
         else:
-            acts, pgrads = capture_layer_stats(self.mdef, self.mcfg, params, self.coords,
-                                               self.target)
-            self.state = ekfac_update_stats(self.state, acts, pgrads, recompute_eigs=recompute)
+            acts, pgrads = capture_layer_stats(self.mdef, self.mcfg, params, self.coords, target)
+            state = ekfac_update_stats(state, acts, pgrads, recompute_eigs=recompute)
             del acts, pgrads
-        return ekfac_precondition(self.state, grads, eps=self.eps,
-                                  skip=model_skip_indices(self.mdef.name, params))
+        return state, ekfac_precondition(state, grads, eps=self.eps,
+                                         skip=model_skip_indices(self.mdef.name, params))
 
 
 def check_optim(mdef: ModelDef, train_cfg: TrainConfig, optim_cfg: OptimConfig,
@@ -474,19 +544,21 @@ def check_optim(mdef: ModelDef, train_cfg: TrainConfig, optim_cfg: OptimConfig,
 
 def optimizer_step(step: int, params, grads, opt_state, lr, optim_cfg: OptimConfig,
                    sparse: Optional[SparseFit] = None, stats: Optional[dict] = None,
-                   ekfac: Optional[EkfacFit] = None):
+                   ekfac: Optional[EkfacFit] = None, members: bool = False):
     """The fit loop's step after the gradients, in the JAX package's order,
-    for one fit or for M fits over a member axis (the batched fit and the
-    density ladder): grads masked when dense_gradients is false; EKFAC's
-    preconditioning when `ekfac` is given; the optimizer (in place; Adam is
-    elementwise, so each member keeps its own bits); then
-    `SparseFit.after_adam_`. Returns (params, opt_state, the members' prune
-    rates or None for a dense fit)."""
+    for one fit or (`members`) for M fits over a member axis (the batched
+    fit and the density ladder): grads masked when dense_gradients is
+    false; EKFAC's preconditioning when `ekfac` is given; the optimizer (in
+    place; each member keeps its own bits: Adam is elementwise, the clip and
+    Shampoo act per member, optim.opt_update); then `SparseFit.after_adam_`.
+    Returns (params, opt_state, the members' prune rates or None for a
+    dense fit)."""
     if sparse is not None and not sparse.cfg.dense_gradients:
         mask_grads(grads, sparse.masks)
     if ekfac is not None:
         grads = ekfac.precondition(step, params, grads)
-    params, opt_state = opt_update(grads, opt_state, params, lr, optim_cfg, stats=stats)
+    params, opt_state = opt_update(grads, opt_state, params, lr, optim_cfg, stats=stats,
+                                   members=members)
     rates = sparse.after_adam_(step, params, grads, opt_state) if sparse is not None else None
     return params, opt_state, rates
 

@@ -15,15 +15,14 @@ package's compiled blocks, here the logging cadence) do not reset it.
 `make_meta_step` builds that step as a plain function, `meta_step(
 meta_params, targets, j)`; `meta_train` loops over it.
 
-SIREN with the polynomial sine adapts its members together over the member
-axis (parallel/batched.fit_members): the shared weights stacked into
-(M, ...) copies, each inner step one `sine_mlp_fwd_batched` and one
-`sine_mlp_bwd_batched` launch (one more forward for the post-adaptation
-loss), the single fit's Adam step (training.fit.optimizer_step). Every
-other family adapts member by member through its single forward and
-autograd (training.fit.make_grad_fn, the counterpart of JAX's `_make_loss`):
-CoordX and hashgrid on their separable path over the grid, the rest on the
-flat coordinates.
+Every family adapts its members together over the member axis
+(parallel/batched.fit_members, the JAX package's jax.vmap of the inner
+loop): the shared weights stacked into (M, ...) copies, each inner step one
+member-axis forward and backward (for SIREN with the polynomial sine one
+`sine_mlp_fwd_batched` and one `sine_mlp_bwd_batched` launch; CoordX and
+hashgrid on their separable path over the grid), one more forward for the
+post-adaptation loss, and the single fit's Adam step
+(training.fit.optimizer_step).
 
 The artifact is a numpy .npz in the JAX package's layout (`save_meta_init`):
 tensors under "params.{i}.{key}", the architecture under "meta.*" and
@@ -113,59 +112,27 @@ def make_meta_step(mdef, mcfg, grid: torch.Tensor, meta_cfg: MetaConfig,
     """meta_step(meta_params, targets (B, H·W, C), j) -> (meta_params, the
     mean post-adaptation loss): REPTILE step j (module note) on `device`,
     the products in `precision` (the kernels' mode: "fp32" or "bf16")."""
-    from implicit_image_tpu_torch.ops.metrics import mse
-    from implicit_image_tpu_torch.optim import opt_init
     from implicit_image_tpu_torch.parallel.batched import fit_members
-    from implicit_image_tpu_torch.training.fit import (
-        OptimConfig,
-        TrainConfig,
-        forward_flat,
-        make_grad_fn,
-        optimizer_step,
-        set_trainable_,
-    )
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig
 
     device = torch.device(device)
     grid = grid.to(device)
     h, w, c = grid.shape
-    coords = grid.reshape(h * w, c)
     inner_optim = OptimConfig(lr=meta_cfg.inner_lr, lr_step_size=10**9)
     k_inner = int(meta_cfg.inner_steps)
     total = int(meta_cfg.outer_steps)
     matmul = {"fp32": "float32", "bf16": "bfloat16"}[precision]
     inner_train = TrainConfig(num_steps=k_inner, log_steps=k_inner, matmul_precision=matmul)
-    # the fused SIREN adapts over the member axis, the rest member by member
-    batched = mdef.name == "siren" and getattr(mcfg, "fast_sine", True)
-
-    def adapt_one(meta_params, target_flat):
-        # one member's inner loop: the single fit's grads and Adam step
-        params = tuple({k: v.detach().clone() for k, v in layer.items()} for layer in meta_params)
-        opt_state = opt_init(params, inner_optim)
-        grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision, grid_hw=(h, w))
-        set_trainable_(params, True)
-        for k in range(k_inner):
-            _, grads = grad_fn(params)
-            params, opt_state, _ = optimizer_step(k, params, grads, opt_state,
-                                                  meta_cfg.inner_lr, inner_optim)
-        set_trainable_(params, False)
-        with torch.no_grad():
-            post = mse(forward_flat(mdef, mcfg, params, coords, (h, w), precision), target_flat)
-        return params, post
 
     def meta_step(meta_params, targets, j: int):
         targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
         b = targets.shape[0]
-        if batched:
-            res = fit_members([None] * b, mdef, mcfg, grid, targets.reshape(b, h, w, -1),
-                              inner_train, inner_optim, init_params=meta_params, device=device)
-            adapted = res.params
-            # the eval after the last update: the post-adaptation loss
-            post = torch.from_numpy(res.metrics["test_loss"][:, -1])
-        else:
-            outs = [adapt_one(meta_params, targets[m]) for m in range(b)]
-            adapted = tuple({k: torch.stack([p[i][k] for p, _ in outs]) for k in layer}
-                            for i, layer in enumerate(meta_params))
-            post = torch.stack([loss for _, loss in outs])
+        # every family adapts over the member axis (the JAX package's vmap)
+        res = fit_members([None] * b, mdef, mcfg, grid, targets.reshape(b, h, w, -1),
+                          inner_train, inner_optim, init_params=meta_params, device=device)
+        adapted = res.params
+        # the eval after the last update: the post-adaptation loss
+        post = torch.from_numpy(res.metrics["test_loss"][:, -1])
         # linear outer-rate anneal over the global meta-step, in float32
         eps = np.float32(meta_cfg.outer_lr) * (np.float32(1.0) - np.float32(j) / np.float32(total))
         with torch.no_grad():

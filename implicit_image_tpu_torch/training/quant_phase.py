@@ -36,6 +36,17 @@ lr); EKFAC does not act here, as in the JAX package.
 
 A separable model (CoordX) runs its grid forward, also on the row-strided
 target grid (every s-th row of a tensor-product grid is one too).
+
+`quant_finetune_members` is the same finetune, in the same code, over a
+member axis (the JAX package's jax.vmap of make_quant_fit_fn in its
+batched pipeline and ladder): the members' params stacked, k-means (and ECVQ) or the QAT snap
+per member on its own weights, then one member-axis forward and backward
+per step for all members (training.fit.make_grad_fn with `members`: on the
+card one K1 and one K2 launch over the member axis for a SIREN), the
+optimizer on the stacked state (Shampoo per member), each member against
+its own target and with its own masks. Each member's codebooks, labels and
+finetuned params have the bits of its own `quant_finetune` wherever the
+member-axis forward has the single forward's bits (the fused SIREN).
 """
 from __future__ import annotations
 
@@ -59,15 +70,18 @@ from implicit_image_tpu_torch.quant import (
 )
 from implicit_image_tpu_torch.quant.kmeans import gather_centroids
 from implicit_image_tpu_torch.sparsity import apply_masks, apply_masks_, mask_grads
+from implicit_image_tpu_torch.ops.sine_mlp import stack_members
 from implicit_image_tpu_torch.training.fit import (
     OptimConfig,
+    _at,
     forward_flat,
+    forward_members,
     make_grad_fn,
     set_trainable_,
     synchronize,
 )
 
-__all__ = ["QuantResult", "quant_finetune"]
+__all__ = ["QuantResult", "quant_finetune", "quant_finetune_members"]
 
 
 class QuantResult(NamedTuple):
@@ -77,17 +91,22 @@ class QuantResult(NamedTuple):
     wall_seconds: float
 
 
-def _reconstruct(state, labels, offsets, masks=None):
+def _reconstruct(state, labels, offsets, masks=None, members: bool = False):
     """Params with w = centroids[labels] for the quantized layers (delta:
     (offset + centroids[labels]) * (labels != 0)), then masked when masks
-    are given."""
+    are given. `members`: state, labels and masks carry a leading member
+    axis (each member gathers from its own centroids)."""
     out = []
     for layer, lab, off in zip(state, labels, offsets):
         if lab is None:
             out.append(layer)
             continue
         rest = {k: v for k, v in layer.items() if k != "centroids"}
-        w = gather_centroids(layer["centroids"], lab)
+        if members:
+            w = torch.stack([gather_centroids(c, lm) for c, lm in
+                             zip(layer["centroids"].unbind(0), lab.unbind(0))])
+        else:
+            w = gather_centroids(layer["centroids"], lab)
         if off is not None:
             w = (w + off) * (lab != 0)
         out.append(rest | {"w": w})
@@ -96,13 +115,19 @@ def _reconstruct(state, labels, offsets, masks=None):
     return tuple(out)
 
 
-def _ste(latent, cfg: QuantConfig, masks):
+def _ste(latent, cfg: QuantConfig, masks, members: int = 0):
     """The QAT forward's params: snapped.detach() + w - w.detach() for each
     quantized weight (the JAX package's stop_gradient form; on the other
-    leaves it is w exactly, so they pass as they are), then masked."""
-    snapped = quantize_params(tuple({k: v.detach() for k, v in layer.items()}
-                                    for layer in latent), cfg)
-    qidx = set(quantized_layer_indices(latent, cfg))
+    leaves it is w exactly, so they pass as they are), then masked.
+    `members` > 0: latent's leaves carry a leading axis of that many
+    members, each snapped on its own."""
+    detached = tuple({k: v.detach() for k, v in layer.items()} for layer in latent)
+    if members:
+        snapped = stack_members([quantize_params(_at(detached, m), cfg) for m in range(members)])
+        qidx = set(quantized_layer_indices(_at(latent, 0), cfg))
+    else:
+        snapped = quantize_params(detached, cfg)
+        qidx = set(quantized_layer_indices(latent, cfg))
     out = tuple({**layer, "w": snapped[i]["w"] + layer["w"] - layer["w"].detach()}
                 if i in qidx else layer for i, layer in enumerate(latent))
     if masks is not None and any(m is not None for m in masks):
@@ -130,78 +155,147 @@ def quant_finetune(
     grid). `masks`: the sparse fit's per-layer masks (None entries for
     unmasked layers), or None. `offset_params`: a params-like tuple whose
     weights are the delta offsets (quant.delta), or None."""
+    return _finetune(params, [img], mdef, mcfg, grid, quant_cfg, optim_cfg, precision,
+                     pixel_chunks, masks, offset_params, members=0)[0]
+
+
+def quant_finetune_members(params, imgs, mdef: ModelDef, mcfg, grid: torch.Tensor,
+                           quant_cfg: QuantConfig, optim_cfg: OptimConfig,
+                           precision: str = "fp32", masks=None, offset_params=None):
+    """`quant_finetune` of M members over a member axis (module note):
+    `params` whose leaves carry a leading member axis, `imgs` one image per
+    member (M, H, W, C), `masks` per-layer stacked masks (None entries for
+    unmasked layers) or None; `offset_params` (delta) is shared. Returns one
+    QuantResult per member (its own params and codebooks; the wall is the
+    finetune's, shared)."""
+    b = next(layer["w"] for layer in params if "w" in layer).shape[0]
+    if len(imgs) != b:
+        raise ValueError(f"{len(imgs)} images for {b} members")
+    return _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, 1,
+                     masks, offset_params, members=b)
+
+
+def _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, pixel_chunks,
+              masks, offset_params, members: int) -> list:
+    """The finetune of one fit (members=0) or of `members` fits whose leaves
+    carry a leading member axis, one image each; one QuantResult per fit."""
     device = next(layer["w"] for layer in params if "w" in layer).device
     stride = int(quant_cfg.row_stride)
     grid = grid.to(device)[::stride]
-    target = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)[::stride]
     h, w, c = grid.shape
     coords = grid.reshape(h * w, c)
-    target_flat = target.reshape(h * w, -1)
+    targets = [torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)[::stride]
+               .reshape(h * w, -1) for img in imgs]
     schedule = step_lr(optim_cfg.lr if quant_cfg.lr is None else float(quant_cfg.lr),
                        1000, 0.5)
-
-    if quant_cfg.name != "KMeans":
-        if offset_params is not None:
-            raise ValueError("delta (offset_params) is KMeans-only")
-        return _qat_finetune(params, mdef, mcfg, coords, target_flat, (h, w), quant_cfg,
-                             optim_cfg, schedule, precision, pixel_chunks, masks, device)
+    kmeans = quant_cfg.name == "KMeans"
+    if not kmeans and offset_params is not None:
+        raise ValueError("delta (offset_params) is KMeans-only")
+    masked = masks is not None and any(m is not None for m in masks)
+    fits = list(range(members)) if members else [None]
 
     synchronize(device)
     t0 = time.perf_counter()
-    qset = set(quantized_layer_indices(params, quant_cfg))
-    offsets = [None] * len(params)
-    if offset_params is not None:
-        offsets = [layer["w"].to(device) if i in qset else None
-                   for i, layer in enumerate(offset_params)]
-    labels, state = [], []
-    with torch.no_grad():
-        for i, layer in enumerate(params):
-            if i not in qset:
-                labels.append(None)
-                state.append({k: v.detach().clone() for k, v in layer.items()})
-                continue
-            _, book = quantize_weight(layer["w"], quant_cfg.layer_bits(i), quant_cfg.lloyd_iters,
-                                      offset=offsets[i])
-            if quant_cfg.ecvq_lambda > 0.0:
-                book = ecvq_refine(layer["w"], book, quant_cfg.ecvq_lambda, quant_cfg.ecvq_iters,
-                                   offset=offsets[i])
-            labels.append(book.labels.long())
-            state.append({k: v.detach().clone() for k, v in layer.items() if k != "w"}
-                         | {"centroids": book.centroids.clone()})
-    state = tuple(state)
-    set_trainable_(state, True)
-    opt_state = opt_init(state, optim_cfg)
+    if kmeans:
+        qset = set(quantized_layer_indices(_at(params, fits[0]), quant_cfg))
+        offsets = [None] * len(params)
+        if offset_params is not None:
+            offsets = [layer["w"].to(device) if i in qset else None
+                       for i, layer in enumerate(offset_params)]
+        labels, state = [], []
+        with torch.no_grad():
+            for i, layer in enumerate(params):
+                if i not in qset:
+                    labels.append(None)
+                    state.append({k: v.detach().clone() for k, v in layer.items()})
+                    continue
+                books = []
+                for m in fits:
+                    wm = layer["w"] if m is None else layer["w"][m]
+                    _, book = quantize_weight(wm, quant_cfg.layer_bits(i), quant_cfg.lloyd_iters,
+                                              offset=offsets[i])
+                    if quant_cfg.ecvq_lambda > 0.0:
+                        book = ecvq_refine(wm, book, quant_cfg.ecvq_lambda,
+                                           quant_cfg.ecvq_iters, offset=offsets[i])
+                    books.append(book)
+                lab = [bk.labels.long() for bk in books]
+                cen = [bk.centroids.clone() for bk in books]
+                labels.append(torch.stack(lab) if members else lab[0])
+                state.append({k: v.detach().clone() for k, v in layer.items() if k != "w"}
+                             | {"centroids": torch.stack(cen) if members else cen[0]})
+        state = tuple(state)
 
-    grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision, pixel_chunks,
-                           transform=lambda st: _reconstruct(st, labels, offsets, masks),
-                           grid_hw=(h, w))
+        def transform(st):
+            return _reconstruct(st, labels, offsets, masks, members=bool(members))
+    else:
+        state = tuple({k: v.detach().clone() for k, v in layer.items()} for layer in params)
+
+        def transform(st):
+            return _ste(st, quant_cfg, masks, members=members)
+    set_trainable_(state, True)
+    opt_state = opt_init(state, optim_cfg, members=bool(members))
+    grad_fn = make_grad_fn(mdef, mcfg, coords,
+                           torch.stack(targets) if members else targets[0], precision,
+                           pixel_chunks, transform=transform, grid_hw=(h, w),
+                           members=bool(members))
     losses = []
     for step in range(quant_cfg.num_steps):
         loss, grads = grad_fn(state)
-        grads = tuple(
-            g | {"centroids": torch.cat([g["centroids"].new_zeros(1), g["centroids"][1:]])}
-            if "centroids" in g else g
-            for g in grads
-        )
-        state, opt_state = opt_update(grads, opt_state, state, schedule(step), optim_cfg)
+        if kmeans:  # the 0-centroid stays exactly 0
+            grads = tuple(g | {"centroids": _zero_first(g["centroids"])} if "centroids" in g
+                          else g for g in grads)
+        elif masked:
+            mask_grads(grads, masks)
+        state, opt_state = opt_update(grads, opt_state, state, schedule(step), optim_cfg,
+                                      members=bool(members))
+        if not kmeans and masked:
+            with torch.no_grad():
+                apply_masks_(state, masks)
         losses.append(loss)
+    set_trainable_(state, False)
 
     with torch.no_grad():
-        params_q = tuple({k: v.detach() for k, v in layer.items()}
-                         for layer in _reconstruct(state, labels, offsets, masks))
-        pred = forward_flat(mdef, mcfg, params_q, coords, (h, w), precision)
-        qloss = mse(pred, target_flat)
-        qpsnr8 = psnr_8bit(pred, target_flat)
+        if kmeans:
+            params_q = tuple({k: v.detach() for k, v in layer.items()}
+                             for layer in transform(state))
+            books = [tuple(LayerCodebook(centroids=layer["centroids"].detach(),
+                                         labels=lab.to(torch.int32))
+                           if lab is not None else None
+                           for layer, lab in zip(_at(state, m), _at_labels(labels, m)))
+                     for m in fits]
+        else:
+            converted = [convert(_at(state, m), quant_cfg) for m in fits]
+            books = [bk for _, bk in converted]
+            params_q = stack_members([p for p, _ in converted]) if members else converted[0][0]
+            if masked:
+                params_q = apply_masks(params_q, masks)
+        if members:
+            preds = forward_members(mdef, mcfg, params_q, coords, (h, w), precision).unbind(0)
+        else:
+            preds = [forward_flat(mdef, mcfg, params_q, coords, (h, w), precision)]
+        scores = [(mse(p, t), psnr_8bit(p, t)) for p, t in zip(preds, targets)]
     synchronize(device)
     wall = time.perf_counter() - t0
-    codebooks = tuple(
-        LayerCodebook(centroids=layer["centroids"].detach(), labels=lab.to(torch.int32))
-        if lab is not None else None
-        for layer, lab in zip(state, labels)
-    )
-    set_trainable_(state, False)
-    return QuantResult(params=params_q, codebooks=codebooks,
-                       metrics=_metrics(losses, qloss, qpsnr8), wall_seconds=wall)
+    return [QuantResult(params=params_q if m is None else
+                        tuple({k: v[m].clone() for k, v in layer.items()} for layer in params_q),
+                        codebooks=books[j],
+                        metrics=_metrics([loss if m is None else loss[m] for loss in losses],
+                                         *scores[j]),
+                        wall_seconds=wall)
+            for j, m in enumerate(fits)]
+
+
+def _zero_first(centroids):
+    """The centroids' gradient with its 0-centroid's entry (the first along
+    the last axis, of each member's codebook) set to 0."""
+    return torch.cat([centroids.new_zeros(centroids.shape[:-1] + (1,)), centroids[..., 1:]],
+                     dim=-1)
+
+
+def _at_labels(labels, m):
+    """Member m's per-layer labels (None entries kept); labels itself when m
+    is None."""
+    return labels if m is None else [None if lab is None else lab[m] for lab in labels]
 
 
 def _metrics(losses, qloss, qpsnr8) -> Dict[str, Any]:
@@ -211,39 +305,3 @@ def _metrics(losses, qloss, qpsnr8) -> Dict[str, Any]:
         "quant_psnr": float(10.0 * torch.log10(1.0 / qloss)),
         "quant_psnr_8bit": float(qpsnr8),
     }
-
-
-def _qat_finetune(params, mdef, mcfg, coords, target_flat, grid_hw, quant_cfg, optim_cfg,
-                  schedule, precision, pixel_chunks, masks, device) -> QuantResult:
-    """QAT: the STE finetune of the latent weights, then `convert`."""
-    masked = masks is not None and any(m is not None for m in masks)
-    synchronize(device)
-    t0 = time.perf_counter()
-    latent = tuple({k: v.detach().clone() for k, v in layer.items()} for layer in params)
-    set_trainable_(latent, True)
-    opt_state = opt_init(latent, optim_cfg)
-    grad_fn = make_grad_fn(mdef, mcfg, coords, target_flat, precision, pixel_chunks,
-                           transform=lambda lt: _ste(lt, quant_cfg, masks), grid_hw=grid_hw)
-    losses = []
-    for step in range(quant_cfg.num_steps):
-        loss, grads = grad_fn(latent)
-        if masked:
-            mask_grads(grads, masks)
-        latent, opt_state = opt_update(grads, opt_state, latent, schedule(step), optim_cfg)
-        if masked:
-            with torch.no_grad():
-                apply_masks_(latent, masks)
-        losses.append(loss)
-    set_trainable_(latent, False)
-    with torch.no_grad():
-        params_q, codebooks = convert(latent, quant_cfg)
-        if masked:
-            params_q = apply_masks(params_q, masks)
-        pred = forward_flat(mdef, mcfg, params_q, coords, grid_hw, precision)
-        qloss = mse(pred, target_flat)
-        qpsnr8 = psnr_8bit(pred, target_flat)
-    synchronize(device)
-    return QuantResult(params=params_q, codebooks=codebooks,
-                       metrics=_metrics(losses, qloss, qpsnr8),
-                       wall_seconds=time.perf_counter() - t0)
-

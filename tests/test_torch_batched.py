@@ -157,12 +157,18 @@ def test_batched_fit_dense_matches_jax_batched_fit():
     ("RigL", {}),
     ("SNFS", {}),
     (None, {"matmul_precision_early": "bfloat16", "matmul_precision_switch": 0.5}),
+    ("RigL", {"pixel_chunks": 2}),
+    (None, {"loss": "ms-ssim"}),
+    ("RigL", {"grad_clip": 0.05}),
+    (None, {"mixed_precision": True}),
 ])
 def test_batched_fit_members_are_single_fits_bit_for_bit(masking, train):
     """Member i of a batched fit has the bits of a single fit with
     member_generators(g, B)[i] on its image: params, masks and every metric
-    (dense, RigL, SNFS with its momentum growth, and the precision
-    schedule)."""
+    (dense, RigL, SNFS with its momentum growth, the precision schedule,
+    pixel_chunks=2, the MS-SSIM loss, optim.grad_clip (a global norm per
+    member; the clip scale among the metrics) and mixed precision, the
+    plain "+mixed" chain on the CPU)."""
     mk = {None: None,
           "RigL": MaskingConfig(density=0.5, end_when=20, interval=5),
           "SNFS": MaskingConfig(name="SNFS", density=0.3, growth_mode="momentum",
@@ -170,7 +176,9 @@ def test_batched_fit_members_are_single_fits_bit_for_bit(masking, train):
                                 dense_gradients=False)}[masking]
     m, c = build_model("siren", depth=3, hidden_size=16)
     grid, imgs = get_grid(16, 16), _imgs(3)
-    tc, oc = TrainConfig(num_steps=30, log_steps=10, **train), OptimConfig(lr=1e-3)
+    train = dict(train)
+    oc = OptimConfig(lr=1e-3, grad_clip=train.pop("grad_clip", 0.0))
+    tc = TrainConfig(num_steps=30, log_steps=10, **train)
     res = batched_fit(torch.Generator().manual_seed(3), m, c, grid, imgs, tc, oc, mk,
                       device="cpu")
     gens = member_generators(torch.Generator().manual_seed(3), 3)
@@ -230,6 +238,53 @@ def test_batched_compress_raises(tmp_path):
         batched_compress(*args, member_names=["a"], stream_root=str(tmp_path))
 
 
+def _jax_train(train):
+    """The JAX TrainConfig's kwargs of the port's: mixed_precision is its
+    compute_dtype=bfloat16."""
+    out = {k: v for k, v in train.items() if k != "mixed_precision"}
+    if train.get("mixed_precision"):
+        out["compute_dtype"] = "bfloat16"
+    return out
+
+
+def _matches_jax_batched_fit(model, train, optim, steps=30, psnr_tol=0.05, rel_tol=1e-3,
+                             feather=None):
+    """Two images from one init copied from the JAX package (16x16, lr
+    1e-3, float32 products): the port's batched_fit against JAX's vmapped
+    batched_fit, each member's logged PSNRs within psnr_tol dB and its final
+    params within rel_tol of the leaf's largest magnitude; `feather`, a
+    compression, wraps the model in Feathermap in both packages. Returns the
+    port's FitResult."""
+    from implicit_image_tpu.feathermap import build_feather_model as jfeather
+    from implicit_image_tpu_torch.feathermap import build_feather_model
+
+    jm, jc = jbuild(model[0], **model[1])
+    m, c = build_model(model[0], **model[1])
+    if feather is not None:
+        jm, m = jfeather(jm, jc, compress=feather), build_feather_model(m, c, compress=feather)
+    p = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), jc))
+    imgs = _imgs(2)
+    jres = j_batched_fit(jax.random.PRNGKey(0), jm, jc, jgrid(16, 16), imgs,
+                         JTrain(num_steps=steps, log_steps=10, matmul_precision="float32",
+                                **_jax_train(train)),
+                         JOptim(lr=1e-3, **optim), init_params=p)
+    res = batched_fit(torch.Generator().manual_seed(0), m, c, get_grid(16, 16), imgs,
+                      TrainConfig(num_steps=steps, log_steps=10, matmul_precision="float32",
+                                  **train),
+                      OptimConfig(lr=1e-3, **optim), init_params=params_from_jax(p, "cpu"),
+                      device="cpu")
+    j_psnr = np.asarray(jres.metrics["psnr"])
+    logged = ~np.isnan(j_psnr)
+    np.testing.assert_array_equal(logged, ~np.isnan(res.metrics["psnr"]))
+    np.testing.assert_allclose(res.metrics["psnr"][logged], j_psnr[logged], atol=psnr_tol)
+    for i in range(2):
+        for a, b in zip(params_to_numpy(res.params), jres.params):
+            for k in a:
+                ref = np.asarray(b[k][i])
+                assert np.abs(a[k][i] - ref).max() <= rel_tol * np.abs(ref).max(), (i, k)
+    return res
+
+
 @pytest.mark.parametrize("model,train,match", [
     (("coordx", dict(depth=5, hidden_size=16, split_depth=2)), {}, "M14a"),
     (("siren", dict(depth=3, hidden_size=8, fast_sine=False)), {}, "M14a"),
@@ -238,42 +293,47 @@ def test_batched_compress_raises(tmp_path):
     (("siren", dict(depth=3, hidden_size=8)), {"mixed_precision": True}, "mixed"),
 ])
 def test_batched_fit_raises(model, train, match):
-    """What the member axis does not run in this slice raises ValueError
-    before the first step: other families (naming the ROADMAP item),
-    pixel_chunks > 1, the MS-SSIM loss and mixed precision."""
-    m, c = build_model(model[0], **model[1])
-    with pytest.raises(ValueError, match=match):
-        batched_fit(torch.Generator(), m, c, get_grid(8, 8), _imgs(2, 8),
-                    TrainConfig(num_steps=2, **train), OptimConfig(), device="cpu")
+    """What raised over the member axis before this slice (CoordX, the
+    exact sine: the next part of M14a; pixel_chunks > 1, the MS-SSIM loss
+    and mixed precision) now runs there and matches the JAX package's
+    vmapped batched_fit (30 steps) at the dense bar of
+    test_batched_fit_dense_matches_jax_batched_fit."""
+    _matches_jax_batched_fit(model, train, {})
 
 
-@pytest.mark.parametrize("optim", [dict(name="shampoo"), dict(preconditioner="ekfac")])
+@pytest.mark.parametrize("optim", [dict(name="shampoo", epsilon=0.1),
+                                   dict(preconditioner="ekfac")])
 def test_batched_fit_raises_for_other_optimizers(optim):
-    """Shampoo would matricize the stacked (M, in, out) leaves as 3-D
-    tensors, and EKFAC's capture is per fit: over a member axis both raise
-    ValueError naming M14a before the first step."""
-    m, c = build_model("siren", depth=3, hidden_size=8)
-    with pytest.raises(ValueError, match="M14a"):
-        batched_fit(torch.Generator(), m, c, get_grid(8, 8), _imgs(2, 8),
-                    TrainConfig(num_steps=2), OptimConfig(**optim), device="cpu")
+    """Shampoo (one factor stack per member, never the stacked (M, in, out)
+    leaves matricized as 3-D tensors) and EKFAC (each member's capture,
+    bases and moments its own) over a member axis, which raised before this
+    slice, match the JAX package's vmapped batched_fit over 30 steps (EKFAC
+    recomputes its bases at steps 0, 10 and 20), at the dense bar. Shampoo
+    runs at epsilon 0.1, as test_shampoo_fit_matches_jax's sparse case: at
+    the conf's 1e-4 its inverse roots amplify the last bits of each
+    package's own Gram products (1.8e-2 relative apart after 30 steps here)."""
+    _matches_jax_batched_fit(("siren", dict(depth=3, hidden_size=8)), {}, optim)
 
 
 def test_batched_kernels_raise_before_building():
     """K2 over a member axis raises ValueError, before the library is asked
-    for, on a "+mixed" mode, on members of different shapes and on
-    cotangents of the wrong shape; the member-axis Function raises on
-    "+mixed" on the CPU too."""
+    for, on members of different shapes (in every mode, "+mixed" too) and
+    on cotangents of the wrong shape; the member-axis Function runs
+    "+mixed" on the CPU, each member the bits of its single Function."""
     mcfg, members = _members(3, 16, 2)
     _, other = _members(3, 24, 1)
     x, g = torch.zeros((10, 2)), torch.zeros((2, 10, 3))
     before = dict(sm.LAUNCHES)
-    with pytest.raises(ValueError, match="no batched kernel"):
-        sm.sine_mlp_bwd_batched(members, x, g, mcfg, "fp32" + sm.MIXED)
+    with pytest.raises(ValueError, match="one shape"):
+        sm.sine_mlp_bwd_batched(members + other, x, torch.zeros((3, 10, 3)), mcfg,
+                                "fp32" + sm.MIXED)
     with pytest.raises(ValueError, match="one shape"):
         sm.sine_mlp_bwd_batched(members + other, x, torch.zeros((3, 10, 3)), mcfg, "fp32")
     with pytest.raises(ValueError, match="g must be"):
         sm.sine_mlp_bwd_batched(members, x, torch.zeros((3, 10, 3)), mcfg, "fp32")
     stacked = tuple({k: torch.stack([p[i][k] for p in members]) for k in KEYS} for i in range(3))
-    with pytest.raises(ValueError, match="no batched kernel"):
-        sm.siren_apply_flat_batched_fused(stacked, x, mcfg, "bf16" + sm.MIXED)
+    xs = get_grid(4, 4).reshape(-1, 2)
+    out = sm.siren_apply_flat_batched_fused(stacked, xs, mcfg, "bf16" + sm.MIXED)
+    for i, p in enumerate(members):
+        assert torch.equal(out[i], sm.siren_apply_flat_fused(p, xs, mcfg, "bf16" + sm.MIXED))
     assert sm.LAUNCHES == before

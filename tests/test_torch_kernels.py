@@ -658,14 +658,15 @@ def test_exact_sine_and_coordx_bf16_on_card_match_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 @pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (2, 64, 300), (8, 182, 3001),
                                             (4, 256, 2000), (3, 512, 1000)])
 def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,
                                                         n):
     """K1 over a member axis: one launch, each member the bits of its own
-    single launch, with one shared x and with one x per member; within the
-    forward's limits of the plain version."""
+    single launch, with one shared x and with one x per member, in every
+    mode ("+mixed" too); within the forward's limits of the plain version
+    (the bf16 mode's for "+mixed")."""
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
     gen = torch.Generator().manual_seed(3)
     members = [m.init(gen, c, cuda_device) for _ in range(3)]
@@ -685,12 +686,13 @@ def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 @pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (2, 64, 300), (8, 182, 3001),
                                             (4, 256, 2000), (3, 512, 1000)])
 def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,
                                                          n):
-    """K2 over a member axis (M = 3) at every kernel width, both modes: one
+    """K2 over a member axis (M = 3) at every kernel width, in every mode
+    ("+mixed" too, within the bf16 mode's limits): one
     launch each of the backward, of sine_mlp_dw above width 128 and of the
     partial sum, each member's dx, dW and db the bits of its own single
     launch, with one shared x and with one x per member; within the single

@@ -149,10 +149,14 @@ def test_batched_wrapper_refuses_what_it_cannot_launch():
     x = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="one shape"):
         sm.sine_mlp_fwd_batched(members + wider, x, mcfg, "fp32")
-    with pytest.raises(ValueError, match="mixed"):
-        sm.sine_mlp_fwd_batched(members, x, mcfg, "fp32+mixed")
-    with pytest.raises(ValueError, match="mixed"):
-        sm.siren_apply_flat_batched(members, torch.zeros((4, 2)), mcfg, "bf16+mixed")
+    with pytest.raises(ValueError, match="one shape"):
+        sm.sine_mlp_fwd_batched(members + wider, x, mcfg, "fp32+mixed")
+    # "+mixed" renders over the member axis too: each member its own chain
+    coords = torch.rand((4, 2), generator=torch.Generator().manual_seed(3))
+    mixed = sm.siren_apply_flat_batched_fused(sm.stack_members(members), coords, mcfg,
+                                              "bf16+mixed")
+    for i, p in enumerate(members):
+        assert torch.equal(mixed[i], sm.siren_apply_flat_fused(p, coords, mcfg, "bf16+mixed"))
     with pytest.raises(ValueError, match="members"):
         sm.sine_mlp_fwd_batched(members, torch.zeros((2, 4, 2), device="meta"), mcfg, "fp32")
 
