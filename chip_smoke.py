@@ -695,6 +695,20 @@ def phase_build() -> float:
             print(f"[2 build] {row.get('registers')} registers, {row.get('spill_stores')} B "
                   f"spill stores, {row.get('spill_loads')} B spill loads: {name[:160]}",
                   flush=True)
+    # the width-128 backward (wgmma; every mode, single and over the member
+    # axis) spills nothing
+    bwd128 = {n: r for n, r in table.items()
+              if n.startswith("void") and "sine_mlp_bwd_kernel<" in n}
+    for name, row in bwd128.items():
+        print(f"[2 build] width-128 backward: {row.get('registers')} registers, "
+              f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B "
+              f"spill loads: {name[:120]}", flush=True)
+    if table and len(bwd128) != 8:
+        raise AssertionError(f"{len(bwd128)} width-128 backward instantiations, expected 8 "
+                             "(4 modes, single and over the member axis)")
+    for name, row in bwd128.items():
+        if row.get("spill_stores", 0) or row.get("spill_loads", 0):
+            raise AssertionError(f"the width-128 backward spills: {name} {row}")
     # K1 and K2 over a member axis are template instantiations (last argument
     # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
     # spill no more than its single launch. The forward and backward have
@@ -761,7 +775,8 @@ def _grad_floats(in_size: int, hidden: int, out_size: int, depth: int) -> int:
 
 
 def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks: int,
-            n_part: int, members: int = BATCH_MEMBERS, mixed: bool = False) -> dict:
+            n_part: int, members: int = BATCH_MEMBERS, mixed: bool = False,
+            bf16: bool = False) -> dict:
     """FLOPs, bytes and least times of each kernel at these shapes, counted
     from csrc/sine_mlp.cu: the hidden products (tensor cores, 3 TF32 passes
     in the fp32 mode) apart from the first layer (K = in), the last
@@ -772,10 +787,13 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
     forward's, and the backward's recompute) is one bf16 pass; dW = a^T gz
     and ga = gz W^T take the fp32 cotangent gz against a bf16 operand,
     which three bf16 pieces of gz give exactly: 3 bf16 passes, less than
-    the 2 TF32 passes of one split."""
+    the 2 TF32 passes of one split. `bf16` (the bf16 mode): every hidden
+    product is one bf16 pass."""
     hidden_mm = 2 * n * hidden * hidden * (depth - 2)  # one product over all hidden layers
     # least seconds of the hidden products: a.W, and dW or ga (gz as operand)
-    if mixed:
+    if bf16:
+        fwd_s = dw_s = hidden_mm / BF16_FLOP_PER_S
+    elif mixed:
         fwd_s = hidden_mm / BF16_FLOP_PER_S
         dw_s = 3 * hidden_mm / BF16_FLOP_PER_S
     else:
@@ -997,6 +1015,14 @@ def phase_kernels(width: int = WIDTH) -> dict:
             f"{bwd_plain_ms:.3f}",
             flush=True,
         )
+        if prec == "bf16":
+            b16 = _bounds(x.shape[0], in_size, out_size, DEPTH, width, blocks,
+                          _grad_floats(in_size, width, out_size, DEPTH), bf16=True)
+            b16 = b16["sine_mlp_bwd"]
+            print(f"[3 kernels {tag}] sine_mlp_bwd: {b16['flop'] / 1e9:.3f} GFLOP; bound "
+                  f"{b16['bound_ms']:.4f} ms ({b16['bound_by']}; one bf16 pass a product); "
+                  f"kernel {bwd_ms:.4f} ms = {b16['bound_ms'] / bwd_ms:.1%} of bound",
+                  flush=True)
         if not fwd_err <= FWD_TOL[prec]:
             raise AssertionError(f"{prec}: forward kernel disagrees: {fwd_err}")
         if not rel[worst] <= BWD_TOL[prec]:
@@ -3758,6 +3784,49 @@ def _trace_bench_batched(mdef, mcfg, imgs, tc, side: int, steps: int = 4) -> Non
           f"{res.wall_seconds / steps * 1e3:.3f} ms/step); device {br['device_ms_per_step']:.3f} "
           f"ms per step, idle share {br['idle_share']:.4f} of {br['span_ms']:.1f} ms; per step: "
           f"{top}; trace {trace}", flush=True)
+    _k2_wrapper_costs(mdef, mcfg, tc, imgs.shape[0], side * side // tc.pixel_chunks, tag,
+                      br["device_ms_per_step"])
+
+
+def _k2_wrapper_costs(mdef, mcfg, tc, members: int, n: int, tag: str, device_ms: float,
+                      dev: str = "cuda") -> dict:
+    """K2 over the member axis at one pixel chunk's shapes, as the fit calls
+    it (stacked leaves), by CUDA events: the wrapper in each mode, and its
+    parts outside the kernels, done on every call: W's bf16 planes
+    (`weight_planes`) and dW's rows turned back (`_unturn_dw`). Per step:
+    the fit's calls in each mode (pixel_chunks a step, bf16 before the
+    switch)."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    gen = torch.Generator().manual_seed(1)
+    ps = [mdef.init(gen, mcfg, dev) for _ in range(members)]
+    stacked = tuple({k: torch.stack([p[i][k] for p in ps]) for k in ps[0][i]}
+                    for i in range(len(ps[0])))
+    x = (get_grid(n, 1, dev).reshape(-1, 2) - 0.5) * 2.0
+    g = (torch.randn((members, n, 3), generator=gen) / n).to(dev)
+    wm = torch.randn((members, DEPTH - 2, WIDTH, WIDTH), generator=gen).to(dev)
+    early = round(tc.num_steps * tc.matmul_precision_switch) / tc.num_steps
+    calls = {"bf16": early * tc.pixel_chunks, "fp32": (1 - early) * tc.pixel_chunks}
+    ms = {}
+    for prec in calls:
+        ms[prec] = {
+            "wrapper": _time_ms(lambda: sm.sine_mlp_bwd_batched(stacked, x, g, mcfg, prec), 5),
+            "planes": _time_ms(lambda: sm.weight_planes(wm, 1 if prec == "bf16" else 3)),
+            "turn": _time_ms(lambda: sm._unturn_dw(wm)),
+        }
+    step = {part: sum(calls[p] * ms[p][part] for p in calls) for part in ms["fp32"]}
+    print(f"{tag} K2 over {members} members x {n} px a call (CUDA events): the wrapper "
+          f"bf16 {ms['bf16']['wrapper']:.3f} ms, fp32 {ms['fp32']['wrapper']:.3f} ms; of it "
+          f"W's planes bf16 {ms['bf16']['planes']:.4f}, fp32 {ms['fp32']['planes']:.4f}, dW's "
+          f"rows turned back {ms['fp32']['turn']:.4f}; a step ({calls['bf16']:g} bf16 + "
+          f"{calls['fp32']:g} fp32 calls): the wrapper {step['wrapper']:.3f} ms, the planes "
+          f"{step['planes']:.3f} ms, the turn {step['turn']:.3f} ms "
+          f"({(step['planes'] + step['turn']) / device_ms:.1%} of {device_ms:.3f} ms of "
+          f"device rows)", flush=True)
+    return {"ms": ms, "step": step}
 
 
 def phase_batched_flagship(card: str, flagship_ms: float) -> None:

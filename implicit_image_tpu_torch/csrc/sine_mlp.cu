@@ -18,11 +18,12 @@
 // Bound on an H100 SXM at 512^2 pixels, width 128, depth 8: the hidden
 // products are 2*N*H*H*L = 51.5 GFLOP per forward and 3x that per backward
 // (recompute a.W, then dW = a^T gz and ga = gz W^T), against a few MB of
-// coordinates, cotangents and outputs: arithmetic, not memory. In the fp32
-// mode every hidden product is 3xTF32 (below), three tensor-core passes at
-// 495 TFLOP/s: 0.31 ms forward, 0.94 ms backward at the least.
+// coordinates, cotangents and outputs: arithmetic, not memory. The fp32
+// mode's bound counts 3xTF32 (three tensor-core passes at 495 TFLOP/s):
+// 0.31 ms forward, 0.94 ms backward at the least.
 //
-// Design (what the first, FFMA version lost time on, and what this does):
+// Forward at width 128 (sine_mlp_fwd_kernel; not yet redesigned for
+// Hopper):
 // 1. Tensor cores. Each hidden product is mma.sync.m16n8k8 (TF32 in, fp32
 //    accumulation) over a 128 x 128 output, 8 warps of 32 x 64 each. The
 //    fp32 mode splits every operand at fragment load into hi = tf32(x) and
@@ -31,52 +32,70 @@
 //    hi*hi, each pass over all of a warp's tiles before the next: the fp32
 //    chain to ~1e-6 relative. A 1-pass TF32 product is never used. The bf16
 //    mode rounds the operands to bf16, which TF32 holds exactly, and takes
-//    one pass: one bf16 product with fp32 accumulation, as Pallas. wgmma
-//    would reach ~1.6x mma.sync's TF32 rate, but reads B from shared memory
-//    as stored and only K-major, so 3xTF32 would need B's hi and lo parts
-//    staged, twice the shared memory. Here one shared copy of W serves a.W
-//    and gz.W^T, and one copy of a serves a.W and a^T.gz, in an
-//    XOR-swizzled layout (sw()) that keeps all four fragment patterns free
-//    of bank conflicts.
-// 2. Occupancy. One block of 256 threads per SM, persistent over row tiles;
-//    each warp keeps 2 x 8 independent mma tiles in flight.
-// 3. Weight copies. Each hidden W (64 KB) streams into a ring of two shared
-//    buffers with cp.async (16-byte chunks, placed at their swizzled
-//    positions, which a bulk copy of whole rows cannot do), completing on
-//    an mbarrier: layer l+2's W arrives while l+1 computes. The backward
-//    reuses the second buffer for gz, so there W_{l-1} arrives while dW_l
-//    is computed. Nothing stages W synchronously.
-// 4. dW and z traffic. Row tiles of T = 128 halve the per-tile
-//    read-modify-write of the dW partials against 64-row tiles; the partial
-//    is the initial value of the mma accumulators, loaded before the sines
-//    of the step are computed, and stored once. z of the last sine layer
-//    never leaves registers (its derivative is taken at once), z_0 is
-//    recomputed from x (K = in), each stashed z is read once (its sine and
-//    derivative together, after a cp.async copy into the then idle
-//    activation buffer that overlaps the previous layer's gz W^T): the
-//    stash holds L-1, not D-1, layers. At 132 blocks the dW partials take
-//    132 x 394 KB = 52 MB and the stash 132 x 5 x 64 KB = 42 MB; the two do
-//    not fit the 50 MB L2 together at this grid (a smaller grid would idle
-//    SMs), and L2 eviction hints did not change the time on an H100.
+//    one pass: one bf16 product with fp32 accumulation, as Pallas. One
+//    shared copy of W serves a.W, in an XOR-swizzled layout (sw()) that
+//    keeps the fragment patterns free of bank conflicts.
+// 2. One block of 256 threads per SM, persistent over row tiles; each warp
+//    keeps 2 x 8 independent mma tiles in flight. Each hidden W (64 KB)
+//    streams into a ring of two shared buffers with cp.async, completing on
+//    an mbarrier: layer l+2's W arrives while l+1 computes.
 //
-// Measured on an H100 (PERF.md): forward ~1.1 ms, backward ~4.8-5.1 ms at
-// the shapes above; tools/kernel_breakdown.py says where the time goes.
-// 5. Serial tails. Bias sums are warp reductions (shuffles over the 32
-//    rows a warp holds, then 4 warps in fixed order). The first layer
-//    (K = in), the last (N = out) and dx are below the tensor-core shapes
-//    and stay on FMA, spread over all threads: dot products split across
-//    the lanes of a warp and reduced by shuffles.
+// Backward at width 128 (sine_mlp_bwd_kernel, "the width-128 backward"
+// below), one block of 2 warpgroups per SM, persistent over 128-row tiles:
+// 1. Products on wgmma, bf16 (hopper.cuh): m64n128k16, A from registers,
+//    B from shared memory. A warpgroup holds 64 rows of a tile, and a
+//    product's accumulator is the next product's A (a.W down the forward,
+//    gz.W^T up the backward), so activations stay in registers. fp32 is
+//    three bf16 planes per operand (h, m, l; split_planes), and a product
+//    takes the six passes whose planes' orders add up to at most 2 (hh, hm,
+//    mh, hl, lh, mm: ~1e-6 relative like 3xTF32, the same tensor time at
+//    989 TFLOP/s; tests/test_torch_sine_mlp.py's "6xbf16"). An operand that
+//    is a bf16 value already (W, a, x under "+mixed"; all in the bf16 mode,
+//    where the one plane is the mode's rounding) has one plane, so the
+//    bf16 mode and "+mixed" a.W take one pass. The split is made once per
+//    staged operand: W's planes by the wrapper, once a launch
+//    (ops/sine_mlp.weight_planes), an activation's once per product.
+// 2. Operand layouts. bf16 wgmma reads B N-major or K-major, so one image
+//    of W's core matrices serves a.W and gz.W^T; the wrapper cuts it into
+//    16-row slices for a.W and 16-column slices for gz.W^T. dW = a^T gz
+//    takes A = a^T from a_s (fp32, split per k-step) and B = gz's planes,
+//    stored N-major in gz_s by the epilogue that makes gz.
+// 3. Copies. W streams through a ring of 4 slots of one 16-row (or column)
+//    slice, bulk copies completing on an mbarrier; the last warp done with
+//    a slot issues its next fill, so three fills are in flight while a
+//    slice computes and no thread waits for a slot to empty. The z stash
+//    is stored from registers in the forward and comes back whole into a_s
+//    by one bulk copy (thread 0, once every warp is done with a_s). dW_l
+//    accumulates from zero per tile, is staged in gz_s with its rows'
+//    16-byte chunks turned by row % 8 (no bank conflicts; the wrapper turns
+//    them back) and added into the block's partial by one bulk reduce-add
+//    (cp.reduce.async.bulk .add.f32); thread 0 waits for the previous one
+//    to finish first, so the adds into a slice happen in tile order. The
+//    small gradients (dW_0, dW_{D-1}, db) are added with red.global from
+//    the thread that owns them, tile after tile. No thread waits on a
+//    synchronous load of a partial.
+// 4. Overlap. The re-sine of z_{l-1} (sin into a_s, the derivative into
+//    registers) runs while the second half of gz_l W_l^T's slices compute.
+//    Everything else runs between products: the block has no producer
+//    warp, because a 9th warp caps every thread at 168 registers (three
+//    warps share an SMSP's 16K), where the two warpgroups' accumulators
+//    and operand planes spill; with 8 warps ptxas gives them 255.
+// 5. Tails. Bias sums are warp reductions (shuffles over a warp's 16 rows,
+//    then the 8 warps in order). The first layer (K = in), the last (N =
+//    out) and dx stay on FMA, over all threads.
+// tools/kernel_breakdown.py knocks out the parts; PERF.md has the times.
 //
-// Widths: the design above is the width-128 kernels' (every model of width
-// <= 128 runs on them, zero-padded). Widths 129-512 run on the wider kernels
-// of width 192, 256 and 512, which stream each W in slices of its rows and
-// leave the hidden layers' dW to sine_mlp_dw (sections "the wider kernels"
-// and "sine_mlp_dw" below).
+// Widths: the designs above are the width-128 kernels' (every model of
+// width <= 128 runs on them, zero-padded). Widths 129-512 run on the wider
+// kernels of width 192, 256 and 512, which stream each W in slices of its
+// rows and leave the hidden layers' dW to sine_mlp_dw (sections "the wider
+// kernels" and "sine_mlp_dw" below).
 //
 // Backward: blocks run in parallel with no carry between them, so a fixed
 // grid of one block per SM loops over its share of tiles, adding into its
 // own slice of a partial-gradient buffer; sum_partials adds the slices in a
-// fixed order. No atomics: a run repeats bit for bit.
+// fixed order. No block adds into another's slice, and the adds into an
+// address of a slice come in tile order: a run repeats bit for bit.
 //
 // sum_partials, the column sum of that (B, P) buffer (B = 132 slices of
 // P = 99,844 floats at the shapes above), moves 53 MB and computes next to
@@ -99,10 +118,12 @@
 // from shared memory (MemberFwd), as the batched backward does.
 // The backward over a member axis (sine_mlp_bwd_batched, the jax.vmap of
 // K2 in the batched fit and the density ladder) is the same: an MB
-// instantiation of sine_mlp_bwd_kernel, sine_mlp_bwd_wide_kernel,
-// sine_mlp_dw_kernel and sum_partials_kernel, grid y = member. Member m's g
-// and dx sit m * n * out and m * n * in floats on, its z stash and partial
-// slices m * gridDim.x slices on, its dW operands m (D-2, n, W) blocks on;
+// instantiation of sine_mlp_bwd_kernel, sine_mlp_bwd_wide_kernel and
+// sine_mlp_dw_kernel, grid y = member (sum_partials_kernel's MB
+// instantiation too, or the members' columns as one flat range: its
+// note). Member m's g and dx sit m * n * out and m * n * in floats on, its
+// z stash and partial slices m * gridDim.x slices on, its dW operands m
+// (D-2, n, W) blocks on;
 // sum_partials adds each member's slices in the single launch's order. Each
 // member gets its single launch's bits, in every mode, as the forward.
 //
@@ -126,6 +147,7 @@
 #include <type_traits>
 
 #include "fast_math.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -286,9 +308,9 @@ __device__ __forceinline__ float rnd_act(float v) {
 
 // ------------------------------------------------------------------ PTX
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return iit::smem_u32(p); }
+using iit::mbar_init;
+using iit::mbar_wait;
 
 // Rounding by integer operations on the bits: cvt (F2F) issues at a
 // quarter of the integer rate on sm_90, and every operand value is rounded.
@@ -333,25 +355,6 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
 }
 
 // The weight buffers and their mbarriers (two at width 128, each a whole
@@ -952,133 +955,614 @@ __device__ __forceinline__ void first_layer_grads(const float* __restrict__ x_s,
   }
 }
 
-// Shared memory: weight buffer 0, weight buffer 1 (gz in the backward
-// pass), the activation tile, the input and cotangent tiles, the bias
-// partial sums and three mbarriers (the ring's two, the z copy's).
-constexpr size_t kBwdSmem =
-    sizeof(float) * (3 * BUF + 2 * T * MAX_IO + 4 * H) + 3 * sizeof(uint64_t);
+// ------------------------------------------- the width-128 backward (wgmma)
+//
+// Its design is the header note's "Backward at width 128". A consumer
+// thread's share of a 128-row tile is that of a wgmma accumulator: warpgroup
+// wg (0, 1) holds rows 64 wg .. 64 wg + 63, its warp wi rows 16 wi .. of
+// those, and d[4 ni + q] is the element at
+//   row 64 wg + 16 wi + g + 8 (q >> 1),  column 8 ni + 2 t + (q & 1)
+// (g = lane / 4, t = lane % 4; hopper.cuh's wg_bf16_n128).
+
+constexpr int BW_KS = 16;             // W rows (the products' K) of a ring slice: one k-step
+constexpr int BW_NS = H / BW_KS;      // slices of one W
+constexpr int BW_NB = 4;              // ring slots
+constexpr int BW_PLANE = BW_KS * H;   // bf16 values in one plane of a slice (8 KB)
+constexpr int BW_THREADS = 256;       // two warpgroups
+constexpr int BW_WARPS = BW_THREADS / 32;
+constexpr int BW_RED = BW_WARPS;      // bias-sum row groups: one per warp
+
+// Byte offsets of the backward's shared memory: the ring (BW_NB slots of up
+// to 3 planes), gz_s (gz's 3 planes for dW; then dW staged for its
+// reduce-add; at the tile's end rnd(gz_0) in fp32, sw() layout), a_s (z
+// copied back from the stash, then a, fp32: two 64-column halves in the
+// sw<64>() layout), the input and cotangent tiles, the bias sums and the
+// mbarriers.
+constexpr size_t kBwRing = 0;
+constexpr size_t kBwGz = kBwRing + (size_t)BW_NB * 3 * BW_PLANE * 2;
+constexpr size_t kBwA = kBwGz + (size_t)3 * T * H * 2;
+constexpr size_t kBwX = kBwA + (size_t)T * H * 4;
+constexpr size_t kBwGo = kBwX + (size_t)T * MAX_IO * 4;
+constexpr size_t kBwRed = kBwGo + (size_t)T * MAX_IO * 4;
+constexpr size_t kBwBar = kBwRed + (size_t)BW_RED * H * 4;
+enum BwBar { kFull = 0, kZFull = BW_NB, kGzFree, kBwBars };
+// after the mbarriers: per ring slot, the warps done with its current fill
+constexpr size_t kBwCount = kBwBar + kBwBars * sizeof(uint64_t);
+constexpr size_t kBwdSmem = kBwCount + BW_NB * sizeof(int);
+
+// Planes of each operand (hopper.cuh's split_planes): three where the value
+// is fp32, one where it is a bf16 value already (W, a and x under MX; every
+// operand in the bf16 mode, where the one plane is the rounding the mode
+// makes). The wrapper packs W's (ops/sine_mlp._weight_planes).
+template <bool BF16, bool MX>
+struct BwPlanes {
+  static constexpr int W = (BF16 || MX) ? 1 : 3, A = W, G = BF16 ? 1 : 3;
+};
+
+struct WgPos {
+  int wg, wi, g, t;
+  __device__ __forceinline__ explicit WgPos(int tid)
+      : wg(tid >> 7), wi((tid >> 5) & 3), g((tid & 31) >> 2), t(tid & 3) {}
+  __device__ __forceinline__ int row(int h) const { return 64 * wg + 16 * wi + g + 8 * h; }
+  __device__ __forceinline__ int col(int ni) const { return 8 * ni + 2 * t; }
+};
+
+// a_s element (r, c): column half c / 64, sw<64>() inside it. The z stash
+// holds each z tile in this layout, so a bulk copy brings it back whole.
+__device__ __forceinline__ int as_idx(int r, int c) { return (c >> 6) * (T * 64) + sw<64>(r, c & 63); }
+
+__device__ __forceinline__ void cons_sync() { iit::named_barrier(1, BW_THREADS); }
+
+// dw's staging row i, column j (floats): the 16-byte chunks of a row turned
+// by i % 8, so a warp's stores of 8 rows hit every bank; the reduce-add
+// carries the turn into the partial (the wrapper turns it back,
+// ops/sine_mlp._unturn_dw).
+__device__ __forceinline__ int dw_stage_idx(int i, int j) {
+  return i * H + ((((j >> 2) + (i & 7)) & 31) << 2) + (j & 3);
+}
+
+// a[p][kk] = plane p of the A fragment of k-step kk, from an accumulator
+// (its columns are the next product's K).
+template <int NP>
+__device__ __forceinline__ void planes_of(const float (&d)[64], uint32_t (&a)[NP][8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t p[NP];
+      iit::split_planes<NP>(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1], p);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) a[i][kk][j] = p[i];
+    }
+}
+
+template <int NP, int KS>
+__device__ __forceinline__ void fence_planes(uint32_t (&a)[NP][KS][4]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int k = 0; k < KS; ++k) iit::fence_regs(a[i][k]);
+}
+
+// One k-step: d (+)= the sum over passes (i, j), i + j <= 2, of A_i B_j,
+// small terms first; A_i = a[i][kk], B_j the 16 x 128 block at shared
+// address b0 + j * bstride. FIRST: the step's first pass ignores d.
+template <int PA, int PB, int TB, int KS>
+__device__ __forceinline__ void wg_passes(float (&d)[64], const uint32_t (&a)[PA][KS][4], int kk,
+                                          uint32_t b0, uint32_t bstride, bool first) {
+#pragma unroll
+  for (int s = 2; s >= 0; --s)
+#pragma unroll
+    for (int i = 0; i <= s; ++i)
+      if (i < PA && s - i < PB) {
+        iit::wg_bf16_n128<TB>(d, a[i][kk], iit::wg_desc(b0 + (s - i) * bstride), first ? 0 : 1);
+        first = false;
+      }
+}
+
+// The ring of W slices: use q of the block (per tile W_1 .. W_L in the
+// forward image, then W_L .. W_1 in the backward image, BW_NS slices each)
+// reads slot q % BW_NB, the (q / BW_NB)-th fill of that slot. The last warp
+// to finish with a fill issues the slot's next one, a bulk copy completing
+// on the slot's mbarrier; no thread waits for a slot to empty.
+template <int NP>  // planes of W
+struct BwRing {
+  uint8_t* smem;                 // the block's shared memory
+  const __nv_bfloat16* planes;   // the block's images (ops/sine_mlp.weight_planes)
+  int L, total;                  // hidden layers, uses in the launch
+  int use = 0;
+
+  __device__ __forceinline__ uint8_t* slot(int b) const {
+    return smem + kBwRing + b * (3 * BW_PLANE * 2);
+  }
+  __device__ __forceinline__ uint64_t* bar(int b) const {
+    return reinterpret_cast<uint64_t*>(smem + kBwBar) + kFull + b;
+  }
+
+  // Fill slot q % BW_NB with use q's slice (one thread).
+  __device__ __forceinline__ void fill(int q) const {
+    const int per_tile = 2 * L * BW_NS, j = q % per_tile;
+    const bool fwd = j < L * BW_NS;
+    const int layer = fwd ? j / BW_NS : 2 * L - 1 - j / BW_NS;  // l - 1
+    const int b = q % BW_NB;
+    constexpr uint32_t bytes = NP * BW_PLANE * 2;
+    iit::mbar_expect_tx(bar(b), bytes);
+    iit::bulk_g2s(slot(b),
+                  planes + ((size_t)((fwd ? 0 : L) + layer) * BW_NS + j % BW_NS) * NP * BW_PLANE,
+                  bytes, bar(b));
+  }
+
+  // The warp is done with use q's slot (its products have completed).
+  __device__ __forceinline__ void release(int q) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      const int b = q % BW_NB;
+      int* done = reinterpret_cast<int*>(smem + kBwCount);
+      if (atomicAdd(done + b, 1) == BW_WARPS - 1) {
+        done[b] = 0;
+        if (q + BW_NB < total) fill(q + BW_NB);
+      }
+    }
+  }
+};
+
+// d = A W over K = 128: A's planes in registers, W's BW_NS slices from the
+// ring (TB = 1: the forward image, B N-major, a.W; TB = 0: the backward
+// image, K-major, gz.W^T). A slice's slot is released once its products are
+// done; the next slice's products are issued before that.
+template <int PA, int PB, int TB>
+__device__ __forceinline__ void ring_wg_product(float (&d)[64], uint32_t (&a)[PA][8][4],
+                                                BwRing<PB>& ring) {
+  iit::wg_fence();
+#pragma unroll
+  for (int u = 0; u < BW_NS; ++u, ++ring.use) {
+    const int b = ring.use % BW_NB;
+    iit::mbar_wait(ring.bar(b), (ring.use / BW_NB) & 1);
+    const uint32_t slot = iit::smem_u32(ring.slot(b));
+    static_assert(BW_KS == 16, "a slice is one k-step");
+    wg_passes<PA, PB, TB, 8>(d, a, u, slot, BW_PLANE * 2, u == 0);
+    iit::wg_commit();
+    if (u > 0) {
+      iit::wg_wait<1>();
+      ring.release(ring.use - 1);
+    }
+  }
+  iit::wg_wait<0>();
+  ring.release(ring.use - 1);
+  iit::fence_regs(d);
+  fence_planes(a);
+}
+
+// dw = a^T gz over the tile's 128 rows for the warpgroup's 64 columns of a
+// (rows of dW): A from a_s (columns of the warpgroup's half, split into
+// planes per k-step), B = gz's planes in gz_s (N-major: k = row, n = column).
+// The next k-step's A loads while this one's products run.
+template <int PA, int PB>
+__device__ __forceinline__ void dw_product(float (&dw)[64], const float* __restrict__ a_s,
+                                           uint32_t gz_base, const WgPos& p) {
+  const float* ah = a_s + p.wg * (T * 64);
+  const int c0 = 16 * p.wi + p.g;
+  uint32_t ak[2][PA][1][4];
+#pragma unroll
+  for (int kk = 0; kk < T / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 16 * kk + 2 * p.t + 8 * (j >> 1), c = c0 + 8 * (j & 1);
+      uint32_t pl[PA];
+      iit::split_planes<PA>(ah[sw<64>(r, c)], ah[sw<64>(r + 1, c)], pl);
+#pragma unroll
+      for (int i = 0; i < PA; ++i) ak[kk & 1][i][0][j] = pl[i];
+    }
+    iit::wg_fence();
+    wg_passes<PA, PB, 1, 1>(dw, ak[kk & 1], 0, gz_base + kk * 4096, T * H * 2, kk == 0);
+    iit::wg_commit();
+    if (kk > 0) {
+      iit::wg_wait<1>();
+      fence_planes(ak[(kk - 1) & 1]);
+    }
+  }
+  iit::wg_wait<0>();
+  fence_planes(ak[1]);
+  iit::fence_regs(dw);
+}
+
+// d = x W_0 at the thread's positions (FMA, K = in_size, in order of k).
+template <bool BF16>
+__device__ __forceinline__ void first_layer_wg(float (&d)[64], const Chain& c,
+                                               const float* __restrict__ x_s, const WgPos& p) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int k = 0; k < c.in_size; ++k) {
+    const float x0 = x_s[p.row(0) * MAX_IO + k], x1 = x_s[p.row(1) * MAX_IO + k];
+#pragma unroll
+    for (int ni = 0; ni < 16; ++ni) {
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * H + p.col(ni)));
+      const float w0 = rnd<BF16>(wv.x), w1 = rnd<BF16>(wv.y);
+      d[4 * ni] += x0 * w0;
+      d[4 * ni + 1] += x0 * w1;
+      d[4 * ni + 2] += x1 * w0;
+      d[4 * ni + 3] += x1 * w1;
+    }
+  }
+}
+
+// z = d + bias; d = a = rnd(sin(omega z)) (rounded also under MX); STASH
+// also stores z at z_g (an image of a_s), past L1 (.cg: the backward ran
+// faster on an H100 than with the default store).
+template <bool BF16, bool MX, bool STASH>
+__device__ __forceinline__ void wg_sine(float (&d)[64], const float* __restrict__ bias,
+                                        float omega, float* __restrict__ z_g, const WgPos& p) {
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni) {
+    const int c = p.col(ni);
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = p.row(h);
+      const float z0 = d[4 * ni + 2 * h] + b.x, z1 = d[4 * ni + 2 * h + 1] + b.y;
+      if (STASH) __stcg(reinterpret_cast<float2*>(&z_g[as_idx(r, c)]), make_float2(z0, z1));
+      d[4 * ni + 2 * h] = rnd_act<BF16, MX>(iit::fast_sin(omega * z0));
+      d[4 * ni + 2 * h + 1] = rnd_act<BF16, MX>(iit::fast_sin(omega * z1));
+    }
+  }
+}
+
+// The last sine layer: z = d + bias; a_s = rnd(sin(omega z)); d = omega
+// cos(omega z).
+template <bool BF16, bool MX>
+__device__ __forceinline__ void wg_sine_last(float (&d)[64], const float* __restrict__ bias,
+                                             float omega, float* __restrict__ a_s,
+                                             const WgPos& p) {
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni) {
+    const int c = p.col(ni);
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = p.row(h);
+      const float z0 = d[4 * ni + 2 * h] + b.x, z1 = d[4 * ni + 2 * h + 1] + b.y;
+      *reinterpret_cast<float2*>(&a_s[as_idx(r, c)]) = make_float2(
+          rnd_act<BF16, MX>(iit::fast_sin(omega * z0)), rnd_act<BF16, MX>(iit::fast_sin(omega * z1)));
+      d[4 * ni + 2 * h] = omega * iit::fast_cos(omega * z0);
+      d[4 * ni + 2 * h + 1] = omega * iit::fast_cos(omega * z1);
+    }
+  }
+}
+
+// red[warp][column] = the sum of d over the warp's 16 rows (two fixed-order
+// terms, then shuffles across the lanes that share a column).
+__device__ __forceinline__ void wg_bias_sums(const float (&d)[64], float* __restrict__ red,
+                                             const WgPos& p) {
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni) {
+    float s[2];
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      float v = d[4 * ni + cc] + d[4 * ni + 2 + cc];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      s[cc] = v;
+    }
+    if (p.g == 0)
+      *reinterpret_cast<float2*>(&red[(4 * p.wg + p.wi) * H + p.col(ni)]) = make_float2(s[0], s[1]);
+  }
+}
+
+// *p += v in the block's partial slice without waiting for it: a reduction
+// done by the memory system (red.global.add.f32). Every add into an address
+// comes from the same thread, tile after tile, so they take effect in tile
+// order: a run repeats bit for bit.
+__device__ __forceinline__ void add_to(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
+}
+
+// db += the BW_RED row groups' sums in red, in order. Call after a barrier.
+__device__ __forceinline__ void add_bias_sums(const float* __restrict__ red, float* __restrict__ db,
+                                              int tid) {
+  if (tid < H) {
+    float s = red[tid];
+#pragma unroll
+    for (int q = 1; q < BW_RED; ++q) s += red[q * H + tid];
+    add_to(db + tid, s);
+  }
+}
+
+// gz_L = rnd(rnd(g) Wl^T) * dc at the thread's positions (dc in d; the
+// inner rnd under MX), its bias sums into red.
+template <bool BF16, bool MX>
+__device__ __forceinline__ void last_gz_wg(float (&d)[64], const Chain& c,
+                                           const float* __restrict__ go_s,
+                                           float* __restrict__ red, const WgPos& p) {
+  const int out_size = c.out_size;
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni)
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int col = p.col(ni) + cc;
+      float wv[MAX_IO];
+#pragma unroll
+      for (int o = 0; o < MAX_IO; ++o)
+        wv[o] = o < out_size ? rnd<BF16>(__ldg(&c.wl[col * out_size + o])) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = p.row(h);
+        float s = 0.f;
+#pragma unroll
+        for (int o = 0; o < MAX_IO; ++o)
+          if (o < out_size) s += rnd<BF16>(go_s[r * MAX_IO + o]) * wv[o];
+        d[4 * ni + 2 * h + cc] = rnd<MX>(s) * d[4 * ni + 2 * h + cc];
+      }
+    }
+  wg_bias_sums(d, red, p);
+}
+
+// The last layer's weight and bias gradients: dWl += a_L^T rnd(g) over the
+// tile (a_L in a_s), dbl += sum g, db_L += the bias sums of gz_L in red.
+// Call after a barrier.
+template <bool BF16>
+__device__ __noinline__ void last_layer_sums(const Chain& c, const float* __restrict__ a_s,
+                                                const float* __restrict__ go_s,
+                                                const float* __restrict__ red,
+                                                float* __restrict__ part, int tid) {
+  const int out_size = c.out_size, L = c.depth - 2;
+  float* dwl = part + c.in_size * H + L * H * H;
+  float* dbs = dwl + H * out_size;
+  float* dbl = dbs + (c.depth - 1) * H;
+  for (int e = tid; e < H * out_size; e += BW_THREADS) {
+    const int k = e % H, o = e / H;
+    float s = 0.f;
+    for (int r = 0; r < T; ++r) s += a_s[as_idx(r, k)] * rnd<BF16>(go_s[r * MAX_IO + o]);
+    add_to(dwl + k * out_size + o, s);
+  }
+  const int lane = tid & 31;
+  for (int o = tid >> 5; o < out_size; o += BW_WARPS) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < T / 32; ++j) s += go_s[(lane + 32 * j) * MAX_IO + o];
+    s = warp_sum(s);
+    if (lane == 0) add_to(dbl + o, s);
+  }
+  add_bias_sums(red, dbs + L * H, tid);
+}
+
+// a_s = rnd(sin(omega z)) and d = rnd(d) * omega cos(omega z) (the inner
+// rnd under MX): gz of the layer below from its ga. z is in a_s (copied
+// there from the stash), or (FROM_X) z = x W_0 + b_0, recomputed.
+template <bool BF16, bool MX, bool FROM_X>
+__device__ __forceinline__ void resine_wg(float (&d)[64], const Chain& c,
+                                          const float* __restrict__ x_s, float omega,
+                                          float* __restrict__ a_s, const WgPos& p) {
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni) {
+    const int col = p.col(ni);
+    float2 b = make_float2(0.f, 0.f);
+    if (FROM_X) b = __ldg(reinterpret_cast<const float2*>(c.bs + col));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = p.row(h);
+      float2 z;
+      if (FROM_X) {
+        z = make_float2(0.f, 0.f);
+        for (int k = 0; k < c.in_size; ++k) {
+          const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * H + col));
+          const float xv = x_s[r * MAX_IO + k];
+          z.x += xv * rnd<BF16>(wv.x);
+          z.y += xv * rnd<BF16>(wv.y);
+        }
+        z.x += b.x;
+        z.y += b.y;
+      } else {
+        z = *reinterpret_cast<const float2*>(&a_s[as_idx(r, col)]);
+      }
+      d[4 * ni + 2 * h] = rnd<MX>(d[4 * ni + 2 * h]) * (omega * iit::fast_cos(omega * z.x));
+      d[4 * ni + 2 * h + 1] = rnd<MX>(d[4 * ni + 2 * h + 1]) * (omega * iit::fast_cos(omega * z.y));
+      *reinterpret_cast<float2*>(&a_s[as_idx(r, col)]) = make_float2(
+          rnd_act<BF16, MX>(iit::fast_sin(omega * z.x)), rnd_act<BF16, MX>(iit::fast_sin(omega * z.y)));
+    }
+  }
+}
+
+// gz's planes into gz_s for dW: plane i of element (k = row r, n = column j)
+// in the N-major core-matrix layout of hopper.cuh, one bf16 pair a store.
+template <int NP>
+__device__ __forceinline__ void store_gz_planes(uint8_t* __restrict__ gz_s,
+                                                const uint32_t (&a)[NP][8][4], const WgPos& p) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = p.row(j & 1), n = 16 * kk + 8 * (j >> 1) + 2 * p.t;
+      const int at = ((r >> 3) * 16 + (n >> 3)) * 128 + (r & 7) * 16 + (n & 7) * 2;
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        *reinterpret_cast<uint32_t*>(gz_s + i * (T * H * 2) + at) = a[i][kk][j];
+    }
+}
+
+// The stash's z tile for the next layer down into a_s (thread 0).
+__device__ __forceinline__ void z_copy(float* a_s, const float* z, uint64_t* bar) {
+  iit::mbar_expect_tx(bar, T * H * 4);
+  iit::bulk_g2s(a_s, z, T * H * 4, bar);
+}
+
+// dW_l, staged in gz_s, added into the block's partial (thread 0).
+__device__ __forceinline__ void reduce_dw(float* dw, const uint8_t* gz_s) {
+  iit::bulk_reduce_add(dw, gz_s, H * H * 4);
+}
+
+// The tails run out of line (last_layer_sums too): inlined, they made ptxas
+// spill the bf16+mixed backward over the member axis (24 B).
+template <bool BF16>
+__device__ __noinline__ void dx_tail(const float* g_s, const float* w0, int in_size, float* dx,
+                                     int row0, int n, int tid) {
+  rows_times_narrow<BF16>(g_s, w0, 1, H, in_size, nullptr, dx, row0, n, tid);
+}
 
 template <bool BF16, bool MX, bool MB>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BW_THREADS, 1)
 sine_mlp_bwd_kernel(Chain c_arg, const float* __restrict__ x, const float* __restrict__ g,
                     float* __restrict__ dx, float* __restrict__ z_all,
                     float* __restrict__ partials, int n_part, long long x_stride) {
+  using P = BwPlanes<BF16, MX>;
   __shared__ MemberBwd mb;
   if constexpr (MB) {
     member_bwd<H, T>(mb, c_arg, x, g, dx, nullptr, nullptr, z_all, partials, n_part, x_stride);
     __syncthreads();
   }
   const Chain& c = chain_of<MB>(mb, c_arg);
+  extern __shared__ float4 smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  uint8_t* gz_s = smem + kBwGz;
+  float* a_s = reinterpret_cast<float*>(smem + kBwA);
+  float* x_s = reinterpret_cast<float*>(smem + kBwX);
+  float* go_s = reinterpret_cast<float*>(smem + kBwGo);
+  float* red = reinterpret_cast<float*>(smem + kBwRed);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kBwBar);
+  const int tid = threadIdx.x;
+  const int L = c.depth - 2;
+  const int n_tiles = (c.n + T - 1) / T;
+
+  // this block's slices: partial gradients (zeroed; the reduce-adds below
+  // add through the async proxy) and the z stash (z_1 .. z_{L-1})
+  float* part = partials + (size_t)blockIdx.x * n_part;
+  float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * T * H;
+  for (int e = tid; e < n_part; e += BW_THREADS) part[e] = 0.f;
+  iit::fence_async_global();
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // member m's images m apart
+  const __nv_bfloat16* planes = reinterpret_cast<const __nv_bfloat16*>(c_arg.wmt) +
+                                (MB ? (size_t)blockIdx.y * 2 * L * BW_NS * P::W * BW_PLANE : 0);
+  BwRing<P::W> ring{smem, planes, L, my_tiles * 2 * L * BW_NS};
+  if (tid == 0) {
+    for (int b = 0; b < BW_NB; ++b) {
+      iit::mbar_init(bar + kFull + b, 1);
+      reinterpret_cast<int*>(smem + kBwCount)[b] = 0;
+    }
+    iit::mbar_init(bar + kZFull, 1);
+    iit::mbar_init(bar + kGzFree, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int q = 0; q < BW_NB && q < ring.total; ++q) ring.fill(q);
+
+  // Thread 0 issues the block's other copies: z_{l-1} into a_s for layer
+  // l's backward once every warp is done with a_s, and dW_l's reduce-add
+  // into the partial once staged, one add in flight (so the adds into a
+  // slice go in tile order: a run repeats bit for bit).
   const auto X = [&] { if constexpr (MB) return mb.x; else return x; };
   const auto G_ = [&] { if constexpr (MB) return mb.g; else return g; };
   const auto DX = [&] { if constexpr (MB) return mb.dx; else return dx; };
-  extern __shared__ float4 smem4[];
-  float* w_s0 = reinterpret_cast<float*>(smem4);
-  float* g_s = w_s0 + BUF;  // also weight buffer 1 in the forward pass
-  float* a_s = g_s + BUF;
-  float* x_s = a_s + BUF;
-  float* go_s = x_s + T * MAX_IO;
-  float* red = go_s + T * MAX_IO;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(red + 4 * H);
-  const int tid = threadIdx.x;
-  const Warp w(tid);
-  const int depth = c.depth, in_size = c.in_size, out_size = c.out_size, L = depth - 2;
-
-  // this block's slices: partial gradients and the z stash (z_1 .. z_{L-1};
-  // z_0 = x W_0 + b_0 is recomputed from the staged x)
-  float* part = partials + (size_t)blockIdx.x * n_part;
-  float* dw0 = part;
-  float* dwm = dw0 + in_size * H;
-  float* dwl = dwm + (size_t)L * H * H;
-  float* dbs = dwl + H * out_size;
-  float* dbl = dbs + (depth - 1) * H;
-  float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * T * H;
-  for (int e = tid; e < n_part; e += THREADS) part[e] = 0.f;
-
-  // Weight buffer uses per tile: forward layer l in buffer (l-1) % 2, every
-  // backward layer in buffer 0. Buffer 0 ends a tile holding W_1, the next
-  // tile's first.
-  init_barriers(bar, 3);
-  Ring ring{w_s0, bar};
-  uint64_t* z_bar = bar + 2;  // z copies into a_s, one phase per copy
-  uint32_t z_phase = 0;
-  const auto wm = [&c](int l) { return c.wm + (size_t)(l - 1) * H * H; };
-  if (L >= 1) ring.issue(0, wm(1));
-
-  Acc acc, dc;
-  const int n_tiles = (c.n + T - 1) / T;
+  const WgPos p(tid);
+  const uint32_t gz_addr = iit::smem_u32(gz_s);
+  float* g_s = reinterpret_cast<float*>(gz_s);  // rnd(gz_0), sw() layout
+  uint32_t z_phase = 0, g_phase = 0;
+  // the bias gradients' region of the partial slice
+  const auto dbs = [&] { return part + c.in_size * H + (c.depth - 2) * H * H + H * c.out_size; };
+  float d[64];
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
-    if (L >= 2) ring.issue(1, wm(2));
-    stage_rows<BF16>(x_s, X(), row0, c.n, in_size, tid);
-    stage_rows<false>(go_s, G_(), row0, c.n, out_size, tid);
-    __syncthreads();
+    stage_rows<BF16>(x_s, X(), row0, c.n, c.in_size, tid);
+    stage_rows<false>(go_s, G_(), row0, c.n, c.out_size, tid);
+    cons_sync();
 
-    // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
-    first_layer<BF16>(dc, c, x_s, w);
-    if (L == 0)
-      sine_epilogue<BF16, MX, kDerivative>(dc, c.bs, c.omega0, a_s, nullptr, w);
-    else
-      sine_epilogue<BF16, MX, kNothing>(dc, c.bs, c.omega0, a_s, nullptr, w);
-    __syncthreads();
-    for (int l = 1; l <= L; ++l) {
-      const int b = (l - 1) & 1;
-      ring.wait(b);
-      zero(dc);
-      warp_mma<BF16, false, false>(dc, a_s, ring.buf(b), w);
-      __syncthreads();
-      if (l + 2 <= L)
-        ring.issue(b, wm(l + 2));
-      else if (b == 0 && L % 2 == 0 && l == L - 1)
-        ring.issue(0, wm(L));  // W_L for the backward pass, which reads buffer 0
-      if (l < L)
-        sine_epilogue<BF16, MX, kStashZ>(dc, c.bs + l * H, c.omega_h, a_s,
-                                     z_g + (size_t)(l - 1) * T * H, w);
+    // forward, stashing z_1 .. z_{L-1}; a_L into a_s, omega cos(omega z_L) in d
+    first_layer_wg<BF16>(d, c, x_s, p);
+    for (int l = 0; l < L; ++l) {
+      if (l == 0)
+        wg_sine<BF16, MX, false>(d, c.bs, c.omega0, nullptr, p);
       else
-        sine_epilogue<BF16, MX, kDerivative>(dc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
-      __syncthreads();
+        wg_sine<BF16, MX, true>(d, c.bs + l * H, c.omega_h, z_g + (size_t)(l - 1) * T * H, p);
+      uint32_t ap[P::A][8][4];
+      planes_of<P::A>(d, ap);
+      ring_wg_product<P::A, P::W, 1>(d, ap, ring);  // z_{l+1} - b_{l+1}
     }
+    wg_sine_last<BF16, MX>(d, c.bs + L * H, L == 0 ? c.omega0 : c.omega_h, a_s, p);
 
-    // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
-    last_layer_grads<BF16>(acc, c, a_s, go_s, dwl, dbl, w, tid);
-    store_gz<BF16, MX>(acc, dc, g_s, red, w);
-    __syncthreads();  // a_L read, gz_L and its bias sums written
-    if (L >= 2) copy_tile(a_s, z_g + (size_t)(L - 2) * T * H, z_bar);  // z_{L-1}
+    // last layer: gz_L = rnd(g) Wl^T * dc; dWl, dbl, db_L
+    last_gz_wg<BF16, MX>(d, c, go_s, red, p);
+    cons_sync();  // a_L, gz_L's bias sums
+    last_layer_sums<BF16>(c, a_s, go_s, red, part, tid);
+    iit::fence_async_global();  // the stash's stores, before the copies back
+    cons_sync();                // a_L read
+    if (tid == 0 && L >= 2) z_copy(a_s, z_g + (size_t)(L - 2) * T * H, bar + kZFull);
 
-    // hidden layers, last to first
+    // hidden layers, last to first; d = gz_l
     for (int l = L; l >= 1; --l) {
-      float* dw = dwm + (size_t)(l - 1) * H * H;
-      move_partial<true>(acc, dw, w);
-      if (l == 1) {
-        first_layer<BF16>(dc, c, x_s, w);
-        resine<BF16, MX, true>(dc, c.bs, c.omega0, a_s, w);
-      } else {
-        mbar_wait(z_bar, z_phase);  // z_{l-1} is in a_s
+      uint32_t gp[P::G][8][4];
+      planes_of<P::G>(d, gp);
+      ring_wg_product<P::G, P::W, 0>(d, gp, ring);  // ga = gz_l W_l^T
+      if (l < L) {  // gz_s's staged dW_{l+1} has been read
+        if (tid == 0) {
+          iit::bulk_wait_all<true>();
+          iit::mbar_arrive(bar + kGzFree);
+        }
+        iit::mbar_wait(bar + kGzFree, g_phase);
+        g_phase ^= 1u;
+      }
+      store_gz_planes<P::G>(gz_s, gp, p);
+      iit::fence_async_shared();  // gz_s's stores, before the products read it
+      if (l >= 2) {
+        iit::mbar_wait(bar + kZFull, z_phase);  // z_{l-1} is in a_s
         z_phase ^= 1u;
-        resine<BF16, MX, false>(dc, nullptr, c.omega_h, a_s, w);
+        resine_wg<BF16, MX, false>(d, c, x_s, c.omega_h, a_s, p);
+      } else {
+        resine_wg<BF16, MX, true>(d, c, x_s, c.omega0, a_s, p);
       }
-      __syncthreads();
-      add_bias_grad(red, dbs + l * H, tid);
-      warp_mma<BF16, true, false>(acc, a_s, g_s, w);  // dW_l += a_{l-1}^T gz_l
-      move_partial<false>(acc, dw, w);
-      if (l >= 3) {  // z_{l-2} streams into a_s while ga is computed
-        __syncthreads();
-        copy_tile(a_s, z_g + (size_t)(l - 3) * T * H, z_bar);
+      wg_bias_sums(d, red, p);  // of gz_{l-1}
+      cons_sync();              // a_{l-1} in a_s, gz_l in gz_s, the bias sums
+      if (l >= 2) add_bias_sums(red, dbs() + (l - 1) * H, tid);
+      float dw[64];
+      dw_product<P::A, P::G>(dw, a_s, gz_addr, p);  // dW_l = a_{l-1}^T gz_l
+      cons_sync();  // both warpgroups are done with a_s and gz_s
+      if (tid == 0 && l >= 3) z_copy(a_s, z_g + (size_t)(l - 3) * T * H, bar + kZFull);
+      float* stage = reinterpret_cast<float*>(gz_s) + p.wg * 64 * H;
+#pragma unroll
+      for (int ni = 0; ni < 16; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 16 * p.wi + p.g + 8 * h;
+          *reinterpret_cast<float2*>(&stage[dw_stage_idx(i, p.col(ni))]) =
+              make_float2(dw[4 * ni + 2 * h], dw[4 * ni + 2 * h + 1]);
+        }
+      iit::fence_async_shared();  // the staged dW, before its reduce-add
+      cons_sync();
+      if (tid == 0) {
+        iit::bulk_wait_all();  // the previous add is done
+        reduce_dw(part + c.in_size * H + (size_t)(l - 1) * H * H, gz_s);
+        iit::bulk_commit();
       }
-      ring.wait(0);
-      zero(acc);
-      warp_mma<BF16, false, true>(acc, g_s, w_s0, w);  // ga = gz_l W_l^T
-      __syncthreads();
-      if (l >= 2) ring.issue(0, wm(l - 1));
-      store_gz<BF16, MX>(acc, dc, g_s, red, w);  // gz_{l-1}
     }
-    __syncthreads();
 
-    // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
-    first_layer_grads(x_s, g_s, red, dw0, dbs, in_size, tid);
-    rows_times_narrow<BF16>(g_s, c.w0, 1, H, in_size, nullptr, DX(), row0, c.n, tid);
-    __syncthreads();
+    // first layer: dW0 += x^T gz_0, db0 += sum gz_0 (added with dWl's
+    // when L = 0), dx = rnd(gz_0) W0^T
+    if (L >= 1) {
+      if (tid == 0) {
+        iit::bulk_wait_all<true>();
+        iit::mbar_arrive(bar + kGzFree);
+      }
+      iit::mbar_wait(bar + kGzFree, g_phase);
+      g_phase ^= 1u;
+    }
+#pragma unroll
+    for (int ni = 0; ni < 16; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(&g_s[sw(p.row(h), p.col(ni))]) =
+            make_float2(rnd<BF16>(d[4 * ni + 2 * h]), rnd<BF16>(d[4 * ni + 2 * h + 1]));
+    cons_sync();
+    if (L >= 1) add_bias_sums(red, dbs(), tid);
+    for (int e = tid; e < c.in_size * H; e += BW_THREADS) {
+      const int k = e / H, col = e % H;
+      float s = 0.f;
+      for (int r = 0; r < T; ++r) s += x_s[r * MAX_IO + k] * g_s[sw(r, col)];
+      add_to(part + e, s);
+    }
+    dx_tail<BF16>(g_s, c.w0, c.in_size, DX(), row0, c.n, tid);
+    cons_sync();
   }
+  if (tid == 0) iit::bulk_wait_all();
 }
 
 // ------------------------------------------------- the wider kernels
@@ -1560,7 +2044,12 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // candidates in turns on an H100 (tools/sum_partials_ab.py, PERF.md):
 // - kSumBlocksPerSm blocks per SM, block b taking float4 columns
 //   [b C / grid, (b + 1) C / grid) of the C = P / 4: every SM the same
-//   work, to one column (189 or 190 at the main path's shapes);
+//   work, to one column (189 or 190 at the main path's shapes). Over a
+//   member axis, while a member's share of a block fits its lanes (one
+//   column a lane, as at width 128) each member has such a grid (grid y);
+//   beyond (width 182: 423 columns a block), C = members x P / 4, the
+//   members' columns one flat range over one wave of blocks (a grid per
+//   member left most lanes idle in the last round of each of 8 waves);
 // - in a block, kSumGroups row groups (the split of the header note) of
 //   kSumLanes threads; a thread sums one float4 column over its group's
 //   rows in index order, kSumUnroll loads issued before their adds;
@@ -1584,22 +2073,29 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 template <bool MB>
 __global__ void __launch_bounds__(kSumThreads, kSumBlocksPerSm)
 sum_partials_kernel(const float4* __restrict__ part, float4* __restrict__ out, int n_rows,
-                    int n_cols) {
-  if constexpr (MB) {  // member blockIdx.y: its (n_rows, n_cols) block and its output row
-    part += blockIdx.y * (long long)n_rows * n_cols;
-    out += blockIdx.y * (long long)n_cols;
+                    int n_cols, int members) {
+  // MB: (n_rows, n_cols) blocks one after another, `members` of them from
+  // member blockIdx.y * members on, their columns one flat range of members
+  // * n_cols (member m's column c at m n_cols + c, its output at the same
+  // index of out), split over the grid as one member's columns are
+  if constexpr (MB) {
+    part += blockIdx.y * (long long)members * n_rows * n_cols;
+    out += blockIdx.y * (long long)members * n_cols;
   }
   __shared__ float4 red[kSumGroups][kSumCols];
+  const long long n_flat = MB ? (long long)members * n_cols : n_cols;
   const int groups = n_rows < kSumGroups ? n_rows : kSumGroups;
   const int g = threadIdx.x / kSumLanes, lane = threadIdx.x % kSumLanes;
   const int r0 = g * n_rows / groups, r1 = (g + 1) * n_rows / groups;
-  const int c0 = (int)((long long)blockIdx.x * n_cols / gridDim.x);
-  const int c1 = (int)((long long)(blockIdx.x + 1) * n_cols / gridDim.x);
-  for (int base = c0; base < c1; base += kSumCols) {
-    const int width = c1 - base < kSumCols ? c1 - base : kSumCols;
+  const long long c0 = blockIdx.x * n_flat / gridDim.x;
+  const long long c1 = (blockIdx.x + 1) * n_flat / gridDim.x;
+  for (long long base = c0; base < c1; base += kSumCols) {
+    const int width = c1 - base < kSumCols ? (int)(c1 - base) : kSumCols;
     if (g < groups) {
       for (int j = lane; j < width; j += kSumLanes) {
-        const float4* p = part + base + j;
+        const long long f = base + j;
+        const long long m = MB ? f / n_cols : 0;
+        const float4* p = part + m * n_rows * n_cols + (f - m * n_cols);
         float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int r = r0; r < r1; r += kSumUnroll) {
           float4 v[kSumUnroll];
@@ -1864,18 +2360,22 @@ int sine_mlp_bwd_batched(const float* x, const float* g, const float* w0, const 
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  const Chain c = make_chain(w0, wm, nullptr, wl, bs, nullptr, n, in_size, out_size, depth,
+  if (wmt == nullptr || reinterpret_cast<uintptr_t>(wmt) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(z_scratch) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth,
                              omega0, omega_h);
+  static_assert(kBwdSmem <= kMaxSmem, "the backward's shared memory");
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 blocks(grid, members);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
     if (members > 1) {
-      return launch(sine_mlp_bwd_kernel<BF, MXV, true>, blocks, THREADS, kBwdSmem, s, c, x, g,
-                    dx, z_scratch, partials, n_part, x_stride);
+      return launch(sine_mlp_bwd_kernel<BF, MXV, true>, blocks, BW_THREADS, kBwdSmem, s, c, x,
+                    g, dx, z_scratch, partials, n_part, x_stride);
     }
-    return launch(sine_mlp_bwd_kernel<BF, MXV, false>, blocks, THREADS, kBwdSmem, s, c, x, g,
-                  dx, z_scratch, partials, n_part, x_stride);
+    return launch(sine_mlp_bwd_kernel<BF, MXV, false>, blocks, BW_THREADS, kBwdSmem, s, c, x,
+                  g, dx, z_scratch, partials, n_part, x_stride);
   });
 }
 
@@ -1924,13 +2424,14 @@ int sum_partials(const float* partials, float* out, int n_blocks, int n_part, vo
   const int grid = n_cols < sms * kSumBlocksPerSm ? n_cols : sms * kSumBlocksPerSm;
   sum_partials_kernel<false><<<grid, kSumThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(partials), reinterpret_cast<float4*>(out), n_blocks,
-      n_cols);
+      n_cols, 1);
   return (int)cudaGetLastError();
 }
 
 // The column sums of `members` (n_blocks, n_part) buffers one after another
-// into `members` rows of out (n_part floats each) in one launch (grid y =
-// member), each member's in sum_partials' order: its bits.
+// into `members` rows of out (n_part floats each) in one launch (a grid per
+// member, or the members' columns one flat range: the kernel's note), each
+// column summed in sum_partials' order: each member's bits.
 int sum_partials_batched(const float* partials, float* out, int members, int n_blocks,
                          int n_part, void* stream) {
   if (members == 1) return sum_partials(partials, out, n_blocks, n_part, stream);
@@ -1940,11 +2441,15 @@ int sum_partials_batched(const float* partials, float* out, int members, int n_b
     return (int)cudaErrorInvalidValue;
   int sms = 0;
   if (const int err = sm_count(&sms)) return err;
-  const int n_cols = n_part / 4;
-  const dim3 grid(n_cols < sms * kSumBlocksPerSm ? n_cols : sms * kSumBlocksPerSm, members);
+  const int n_cols = n_part / 4, blocks = sms * kSumBlocksPerSm;
+  // one grid per member while a member's share of a block fits its lanes,
+  // else one flat range of the members' columns (the kernel's note)
+  const int flat = (long long)n_cols > (long long)blocks * kSumLanes ? members : 1;
+  const long long n_flat = (long long)flat * n_cols;
+  const dim3 grid(n_flat < blocks ? (int)n_flat : blocks, members / flat);
   sum_partials_kernel<true><<<grid, kSumThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(partials), reinterpret_cast<float4*>(out), n_blocks,
-      n_cols);
+      n_cols, flat);
   return (int)cudaGetLastError();
 }
 

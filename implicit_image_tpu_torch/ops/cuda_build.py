@@ -31,7 +31,7 @@ __all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "open_device", "ptxas_r
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("sine_mlp.cu", "fast_math.cuh")
+_SOURCES = ("sine_mlp.cu", "fast_math.cuh", "hopper.cuh")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # the parts of sine_mlp.cu: the width-128 kernels, sum_partials and the C
 # interface; then each wider width's forward, backward and sine_mlp_dw

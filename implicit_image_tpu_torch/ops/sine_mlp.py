@@ -26,8 +26,12 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 
 What bounds them on the card, and the design: see the note at the top of
 csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
-the tensor cores, mma.sync over 128-row tiles, each hidden W streamed by
-cp.async copies into a double-buffered ring in shared memory). Widths up to
+the tensor cores over 128-row tiles: mma.sync in the forward, with each
+hidden W streamed by cp.async copies into a double-buffered ring; bf16
+wgmma in the width-128 backward, with W's bf16 planes (`weight_planes`,
+packed here on every launch) streamed by bulk copies and each tile's dW added
+into the partial by a bulk reduce-add, its rows turned (`dw_turn_index`,
+turned back here)). Widths up to
 512 run: a model's hidden width is zero-padded to the next kernel width of
 `KERNEL_WIDTHS` (padded units stay exactly 0); the kernels above 128 stream
 each W in slices of rows, tile 32 to 128 pixel rows, and leave dW to
@@ -61,7 +65,9 @@ Side by side in this module:
 Precision modes: "fp32" (the main path: each hidden product is 3xTF32 on
 the tensor cores, every operand split into hi = tf32(x) and lo = tf32(x -
 hi), hi*hi + hi*lo + lo*hi accumulated in fp32, which holds the fp32 chain
-to ~1e-6 relative; the first and last layers are fp32 FMA) and "bf16"
+to ~1e-6 relative; in the width-128 backward three bf16 planes h, m, l of
+each operand and the six products with at most two orders of smallness,
+as accurate; the first and last layers are fp32 FMA) and "bf16"
 (matmul operands rounded to bf16, fp32 accumulation — what the Pallas
 kernel computes). `precision_from_config` maps `train.matmul_precision`. A
 1-pass TF32 product is never used.
@@ -118,6 +124,8 @@ __all__ = [
     "siren_chain_dw_operands",
     "sine_mlp_dw_reference",
     "sine_mlp_dw",
+    "weight_planes",
+    "dw_turn_index",
     "SUM_PARTIALS_GROUPS",
     "sum_partials_row_groups",
     "sum_partials_reference",
@@ -580,6 +588,62 @@ def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, 
     return max(1, min(n_tiles, sms)), n_part, sizes
 
 
+# W rows of a ring slice of the width-128 backward (BW_KS of csrc/sine_mlp.cu)
+_RING_ROWS = 16
+
+
+def weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
+    """The width-128 backward's hidden weights as its ring streams them: wm
+    (..., L, 128, 128) fp32 -> bf16 (..., 2, L, 8, planes, 2, 16, 8, 8).
+
+    Plane p of W is bf16(W - planes 0 .. p-1) (nearest even; three planes
+    hold an fp32 W exactly, one is the bf16 mode's rounding). Image 0 (a.W,
+    the forward pass) cuts W into 8 slices of 16 rows, image 1 (gz.W^T, the
+    backward pass) into 8 slices of 16 columns; a slice's planes follow each
+    other, and each plane is 2 x 16 core matrices of 8 x 8 values, 8
+    consecutive columns of W a row: [.., u, p, kg, ng, r, c] = W[16 u + 8 kg
+    + r][8 ng + c] in image 0 and W[8 ng + r][16 u + 8 kg + c] in image 1
+    (kg the slice's K group, ng the N group: csrc/hopper.cuh's layout)."""
+    lead, layers, h = wm.shape[:-3], wm.shape[-3], wm.shape[-1]
+    if h != KERNEL_WIDTHS[0] or wm.shape[-2] != h:
+        raise ValueError(f"weight_planes: expected (..., L, {KERNEL_WIDTHS[0]}, "
+                         f"{KERNEL_WIDTHS[0]}), got {tuple(wm.shape)}")
+    rest, parts = wm.float(), []
+    for p in range(planes):
+        parts.append(rest.to(torch.bfloat16))
+        if p + 1 < planes:
+            rest = rest - parts[-1]  # fp32: the bf16 plane converts exactly
+    pl = torch.stack(parts, dim=-3)  # (..., L, planes, 128, 128)
+    n, u = len(lead), h // _RING_ROWS
+    shape = lead + (layers, planes)
+    fwd = pl.reshape(shape + (u, _RING_ROWS // 8, 8, h // 8, 8)).permute(
+        *range(n), n, n + 2, n + 1, n + 3, n + 5, n + 4, n + 6)
+    bwd = pl.reshape(shape + (h // 8, 8, u, _RING_ROWS // 8, 8)).permute(
+        *range(n), n, n + 4, n + 1, n + 5, n + 2, n + 3, n + 6)
+    return torch.stack([fwd, bwd], dim=n).contiguous()
+
+
+def dw_turn_index(hidden: int = 128) -> torch.Tensor:
+    """Where the width-128 backward leaves dW[i][j] in row i of its partial:
+    the row's 16-byte chunks turned by i % 8 (column ((j / 4 + i % 8) mod
+    hidden / 4) * 4 + j % 4), as it stages dW for its reduce-add."""
+    i = torch.arange(hidden).view(-1, 1)
+    j = torch.arange(hidden).view(1, -1)
+    return (((j >> 2) + (i & 7)) & (hidden // 4 - 1)) * 4 + (j & 3)
+
+
+_TURN_INDEX = {}  # device -> dw_turn_index() there (a host copy each step would sync)
+
+
+def _unturn_dw(dwm: torch.Tensor) -> torch.Tensor:
+    """The width-128 backward's summed dW_m (..., L, 128, 128), its rows
+    turned (`dw_turn_index`), back in row-major order."""
+    idx = _TURN_INDEX.get(dwm.device)
+    if idx is None:
+        idx = _TURN_INDEX[dwm.device] = dw_turn_index(dwm.shape[-1]).to(dwm.device)
+    return torch.gather(dwm, -1, idx.expand(dwm.shape))
+
+
 def _check_fits(nbytes: int, dev, what: str) -> None:
     """Raise ValueError, before anything is allocated, when a launch's
     buffers (`nbytes`) exceed the device's free memory."""
@@ -607,8 +671,10 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     h = first[0]["w"].shape[1]
     w0, wm, wl, bs, _ = _pack_members(members, hidden, mixed)
     wide = hidden != KERNEL_WIDTHS[0]
-    # the wider kernels' gz W^T reads W^T's rows from the ring
-    wmt = wm.transpose(-1, -2).contiguous() if wide else None
+    # the wider kernels' gz W^T reads W^T's rows from the ring; the width-128
+    # kernel streams W's bf16 planes (one where W is a bf16 value already)
+    wmt = (wm.transpose(-1, -2).contiguous() if wide
+           else weight_planes(wm, 1 if bf16 or mixed else 3))
     x = _rnd(x.float(), mixed).contiguous()
     g = g.float().contiguous()
     n = x.shape[-2]
@@ -636,13 +702,15 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
                     ("z_scratch", z_scratch), ("partials", partials)) + (
                         (("wmt", wmt), ("dw_a", dw_ops[0]), ("dw_g", dw_ops[1])) if wide else ()):
         _check_cuda(name, t, dev)
+    if not wide:
+        _check_cuda("planes", wmt.view(torch.float32), dev)
     _check_cuda("g", g, dev, lead + (n, out_size))
     kernel = "sine_mlp_bwd_batched" if batched else "sine_mlp_bwd"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sine_mlp_bwd_batched(
             x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(),
-            wmt.data_ptr() if wide else None, wl.data_ptr(), bs.data_ptr(), dx.data_ptr(),
+            wmt.data_ptr(), wl.data_ptr(), bs.data_ptr(), dx.data_ptr(),
             z_scratch.data_ptr(), partials.data_ptr(),
             dw_ops[0].data_ptr() if wide else None, dw_ops[1].data_ptr() if wide else None,
             m, x_stride, grid, n_part, n, in_size, out_size, depth, hidden, om[0], om[1],
@@ -659,7 +727,10 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
 
     dw0, dwm, dwl, dbs, dbl = torch.split(flat[..., : sum(sizes)], sizes, dim=-1)
     dw0 = dw0.reshape(lead + (in_size, hidden))[..., :h]
-    dwm = dwm.reshape(lead + (depth - 2, hidden, hidden))[..., :h, :h]
+    dwm = dwm.reshape(lead + (depth - 2, hidden, hidden))
+    if not wide:
+        dwm = _unturn_dw(dwm)
+    dwm = dwm[..., :h, :h]
     dwl = dwl.reshape(lead + (hidden, out_size))[..., :h, :]
     dbs = dbs.reshape(lead + (depth - 1, hidden))[..., :h]
     grads = [{"w": dw0, "b": dbs[..., 0, :]}]

@@ -1,7 +1,8 @@
 """Where the time of the SIREN kernels goes, on the card.
 
     python -m implicit_image_tpu_torch.tools.kernel_breakdown [--out FILE]
-        [--widths 128 182 512]
+        [--widths 128 182 512] [--variants full ...] [--precisions fp32 ...]
+        [--members M] [--build-dir DIR] [--build-only]
 
 Builds copies of csrc/sine_mlp.cu with one part knocked out each (their
 results are wrong by design), a few at a time (each in the parts of
@@ -13,29 +14,40 @@ the main path's shape. The differences to "full" say what each part costs:
 
   no_sine       the sine polynomial of the forward epilogues (z passes through)
   no_mma        the hidden layers' products (fragment loads, splits, mma), at
-                width 128 (warp_mma) and in the wider kernels (warp_mma_k: the
-                ring's products and the dW products; warp_mma_at2: sine_mlp_dw's
-                at 256 and 512)
+                width 128 (warp_mma in the forward; in the wgmma backward the
+                issue of every wgmma and the dW product's operand loads; in the
+                mma.sync backward of older commits warp_mma) and in the wider
+                kernels (warp_mma_k: the ring's products and the dW products;
+                warp_mma_at2: sine_mlp_dw's at 256 and 512)
   no_stash      the backward's z stash (stores, and the copies back)
-  no_partial    the backward's dW traffic: the read-modify-write of the dW
-                partials (width 128, and the wider backward's dW pieces where
-                the source has them), or the wider backward's stores of the dW
-                operands for sine_mlp_dw (where it has those)
+  no_partial    the backward's dW traffic: at width 128 the bulk reduce-adds
+                of the staged dW into the partials (older commits: the
+                read-modify-write of the dW partials), in the wider backward
+                its dW pieces where the source has them, or its stores of the
+                dW operands for sine_mlp_dw (where it has those)
   no_both       no_stash and no_partial together
   no_ring_wait  the wider kernels' ring wait and barrier: each product reads
                 whatever its slice holds (each thread drains its copies at its
-                last slice, so none is in flight when the block ends)
+                last slice, so none is in flight when the block ends); the
+                width-128 kernels keep theirs, so there it times "full"
   no_dw         sine_mlp_dw launches nothing (where the source has it): the
                 backward's time without the dW kernel
 
-The variants match the source of this commit and of the commit before the
-wider backward moved dW into sine_mlp_dw, so the tool also measures an older
-checkout: copy this file into it and run it there. It then builds and runs
-tools/mma_rate.cu, the rate of mma.sync alone. Prints one line per variant
-and width, and writes the record, with the card's name and power limit, as
-JSON to --out. For "full" it also records the sha256 of the fp32 forward's
-output and of the backward's results, so that two trees' runs show whether
-their bits agree.
+--variants picks some of them (default: all), --precisions the modes timed
+(default fp32), --members M also times sine_mlp_bwd_batched over M members
+in each mode. --build-dir keeps the built files there, each under the hash
+of the sources it was built from, and reuses one only for the same sources
+(--build-only builds and stops), so that two trees can share the directory
+and be timed in turns without building again. The variants match the
+source of this commit and of older ones (the mma.sync backward at width
+128; before the wider backward moved dW into sine_mlp_dw), so the tool also
+measures an older checkout: copy this file into it and run it there. It
+then builds and runs tools/mma_rate.cu: the rates of mma.sync and wgmma
+alone, and its checks of csrc/hopper.cuh's building blocks (their exit code
+is recorded). Prints one line per variant and width, and writes the record,
+with the card's name and power limit, as JSON to --out. For "full" it also
+records the sha256 of the fp32 forward's output and of the backward's
+results, so that two trees' runs show whether their bits agree.
 """
 from __future__ import annotations
 
@@ -71,9 +83,22 @@ def _never(line: str) -> str:
     return f"{indent}if (acc[0][0][0] == 12345.f) {line.strip()}"
 
 
+# the width-128 backward on wgmma (this commit): its dW reduce-adds, its z
+# stash's stores and copies back, its products (issue and operand feed)
+WG_REDUCE = "  iit::bulk_reduce_add(dw, gz_s, H * H * 4);"
+WG_STASH = ("      if (STASH) __stcg(reinterpret_cast<float2*>(&z_g[as_idx(r, c)]), "
+            "make_float2(z0, z1));")
+WG_COPY = "  iit::mbar_expect_tx(bar, T * H * 4);\n  iit::bulk_g2s(a_s, z, T * H * 4, bar);"
+WG_PASSES = "                                          uint32_t b0, uint32_t bstride, bool first) {\n"
+WG_DW = "  const float* ah = a_s + p.wg * (T * 64);"
+
+
 def _no_partial(src: str) -> str:
-    ld, st = "      move_partial<true>(acc, dw, w);", "      move_partial<false>(acc, dw, w);"
-    src = _rep(_rep(src, ld, "      zero(acc);"), st, _never(st))
+    if WG_REDUCE in src:
+        src = _rep(src, WG_REDUCE, "")
+    else:  # the mma.sync backward: the read-modify-write of the dW partials
+        ld, st = "      move_partial<true>(acc, dw, w);", "      move_partial<false>(acc, dw, w);"
+        src = _rep(_rep(src, ld, "      zero(acc);"), st, _never(st))
     # the wider backward: its dW pieces (before sine_mlp_dw), or the operand
     # stores that feed sine_mlp_dw
     wide_ld = "        move_partial<true, HW>(acc, piece, w);"
@@ -90,6 +115,10 @@ def variants(src: str) -> dict:
              "                 ::\"r\"(smem_addr(dst + 4 * e)), \"l\"(src + 4 * e) : \"memory\");"
     no_stash = _rep(_rep(src, stash_st, ""), copy_z, "    ;")
     no_mma = _rep(src, "  const PA pa(A, w.m0, w);", "  return;\n  const PA pa(A, w.m0, w);")
+    if WG_REDUCE in src:  # the width-128 backward on wgmma
+        no_stash = _rep(_rep(no_stash, WG_STASH, ""), WG_COPY, "  iit::mbar_arrive(bar);")
+        no_mma = _rep(_rep(no_mma, WG_PASSES, WG_PASSES + "  return;\n"), WG_DW,
+                      "  return;\n" + WG_DW)
     no_mma = _rep(no_mma, "  const PA pa(A, a0, w);", "  return;\n  const PA pa(A, a0, w);")
     if "warp_mma_at2" in src:  # sine_mlp_dw's two-piece product
         no_mma = _rep(no_mma, "  const Cols<SA> pa(A, w.m0, w);",
@@ -124,6 +153,15 @@ def _build(src: Path, out: Path) -> None:
         cb.build(src, out)
 
 
+def _digest(*texts: str) -> str:
+    """What a built file is keyed by in --build-dir: the sources it was
+    built from, so a library is reused only for the same sources."""
+    h = hashlib.sha256(cb._ARCH.encode())
+    for text in texts:
+        h.update(text.encode())
+    return h.hexdigest()[:16]
+
+
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in cb._SIGNATURES.items():
@@ -155,6 +193,11 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="outputs/kernel_breakdown.json")
     ap.add_argument("--widths", type=int, nargs="+", default=[128, 182, 512])
+    ap.add_argument("--variants", nargs="+", default=None)
+    ap.add_argument("--precisions", nargs="+", default=["fp32"])
+    ap.add_argument("--members", type=int, default=0)
+    ap.add_argument("--build-dir", default=None)
+    ap.add_argument("--build-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_breakdown: needs a CUDA device")
@@ -163,15 +206,29 @@ def main(argv=None) -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     srcs = variants((cb.CSRC / "sine_mlp.cu").read_text())
-    tmp = Path(tempfile.mkdtemp(prefix="kernel_breakdown_"))
+    if args.variants:
+        srcs = {n: srcs[n] for n in args.variants}
+    tmp = Path(args.build_dir or tempfile.mkdtemp(prefix="kernel_breakdown_"))
+    headers = {h.name: h.read_text() for h in sorted(cb.CSRC.glob("*.cuh"))}
+    parts, libs, jobs = repr(sorted(cb._PARTS.items())), {}, []
     for name, text in srcs.items():
-        (tmp / name).mkdir()
-        (tmp / name / "sine_mlp.cu").write_text(text)
-        (tmp / name / "fast_math.cuh").write_text((cb.CSRC / "fast_math.cuh").read_text())
-    jobs = [(tmp / n, tmp / n / "lib.so") for n in srcs]
-    jobs.append((TOOLS / "mma_rate.cu", tmp / "mma_rate"))
+        part = tmp / f"{name}_{_digest(text, *headers.values(), parts)}"
+        libs[name] = part / "lib.so"
+        if libs[name].is_file():
+            continue
+        part.mkdir(parents=True, exist_ok=True)
+        (part / "sine_mlp.cu").write_text(text)
+        for header, header_text in headers.items():
+            (part / header).write_text(header_text)
+        jobs.append((part, libs[name]))
+    rate_src = TOOLS / "mma_rate.cu"
+    rate_bin = tmp / f"mma_rate_{_digest(rate_src.read_text(), *headers.values())}"
+    if not rate_bin.is_file():
+        jobs.append((rate_src, rate_bin))
     with ThreadPoolExecutor(BUILDS_AT_ONCE) as ex:
         list(ex.map(lambda j: _build(*j), jobs))
+    if args.build_only:
+        return {}
 
     dev = torch.device("cuda")
     x = (get_grid(512, 512, dev).reshape(-1, 2) - 0.5) * 2.0
@@ -190,12 +247,25 @@ def main(argv=None) -> dict:
                 blocks, n_part, sizes = sm.partial_layout(x.shape[0], 8, 2, width, 3, dev)
                 ops = torch.randn((2, 6, x.shape[0], hidden), device=dev)
                 dw_args = (*ops, torch.empty((blocks, n_part), device=dev), sizes[0], "fp32")
+            members = [mdef.init(gen, mcfg, dev) for _ in range(args.members)]
+            gm = (torch.randn((args.members, x.shape[0], 3), generator=gen)
+                  / x.shape[0]).to(dev)
             for name in srcs:
-                cb._state["lib"] = _load(tmp / name / "lib.so")
+                cb._state["lib"] = _load(libs[name])
                 fwd = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, "fp32"))
                 bwd = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, "fp32"))
                 rows[name] = {"fwd_ms": fwd, "bwd_ms": bwd}
                 line = f"[breakdown w{width}] {name:12s} fwd {fwd:.4f} ms, bwd {bwd:.4f} ms"
+                for prec in args.precisions:
+                    if prec != "fp32":
+                        rows[name][f"bwd_ms_{prec}"] = _time_ms(
+                            lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec))
+                        line += f", bwd {prec} {rows[name][f'bwd_ms_{prec}']:.4f} ms"
+                    if args.members:
+                        rows[name][f"bwd_ms_{prec}_x{args.members}"] = _time_ms(
+                            lambda: sm.sine_mlp_bwd_batched(members, x, gm, mcfg, prec), 5)
+                        line += (f", bwd {prec} over {args.members} members "
+                                 f"{rows[name][f'bwd_ms_{prec}_x{args.members}']:.4f} ms")
                 if name == "full":
                     dx, grads = sm.sine_mlp_bwd(params, x, g, mcfg, "fp32")
                     rows[name]["fwd_sha256"] = _sha256(sm.sine_mlp_fwd(params, x, mcfg, "fp32"))
@@ -209,9 +279,10 @@ def main(argv=None) -> dict:
                 print(line, flush=True)
     finally:
         cb._state["lib"] = saved
-    rate = subprocess.run([str(tmp / "mma_rate")], capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    record["mma_rate"] = rate.strip().splitlines()
+    rate = subprocess.run([str(rate_bin)], capture_output=True, text=True,
+                          timeout=120)
+    record["mma_rate"] = rate.stdout.strip().splitlines()
+    record["mma_rate_exit"] = rate.returncode
     for line in record["mma_rate"]:
         print(f"[mma rate] {line}", flush=True)
     print(f"[breakdown] {card}", flush=True)

@@ -209,7 +209,10 @@ def test_kernel_width_outside_the_kernels_raises(h):
 # scheme to the fp32 mode's limits on the card (1e-4 forward max abs, 1e-4
 # backward max rel): 3xTF32 must pass with a margin of 10, 1-pass TF32 and
 # 3xbf16 (what `tensorfloat32` meant on the TPU) must not. "3xtf32" is the
-# kernels' own split (hi and lo both rounded to nearest).
+# forward kernels' own split (hi and lo both rounded to nearest); "6xbf16"
+# the width-128 backward's on bf16 wgmma: three bf16 planes of each operand
+# (h = bf16(x), m = bf16(x - h), l = bf16(x - h - m)) and the six products
+# whose planes' orders add up to at most 2 (hh, hm, mh, hl, lh, mm).
 
 _FP32_FWD_TOL, _FP32_BWD_TOL = 1e-4, 1e-4
 
@@ -223,9 +226,25 @@ def _round_mantissa(t: torch.Tensor, bits: int) -> torch.Tensor:
     return (i & ~((1 << drop) - 1)).view(torch.float32)
 
 
+def _planes(t: torch.Tensor, n: int):
+    """The n bf16 planes of t: plane p rounds what planes 0 .. p-1 leave."""
+    out, rest = [], t.float()
+    for _ in range(n):
+        out.append(_round_mantissa(rest, 7))
+        rest = rest - out[-1]
+    return out
+
+
 def _product(scheme: str):
     if scheme == "fp32":
         return lambda a, b: a @ b
+    if scheme == "6xbf16":
+        def mm6(a, b):
+            pa, pb = _planes(a, 3), _planes(b, 3)
+            return sum(pa[i].double() @ pb[j].double()
+                       for i in range(3) for j in range(3) if i + j <= 2).float()
+
+        return mm6
     bits, passes = {"3xtf32": (10, 3), "tf32": (10, 1), "3xbf16": (7, 3)}[scheme]
 
     def mm(a, b):
@@ -303,7 +322,7 @@ def test_round_mantissa_is_nearest_even():
 
 
 @pytest.mark.parametrize("scheme,passes", [
-    ("3xtf32", True), ("tf32", False), ("3xbf16", False)])
+    ("3xtf32", True), ("tf32", False), ("3xbf16", False), ("6xbf16", True)])
 def test_split_precision_against_fp32_limits(split_errors, scheme, passes):
     fwd, bwd = split_errors(scheme)
     if passes:
@@ -326,3 +345,52 @@ def test_split_precision_at_wide_widths(hidden, n, scheme, passes):
         assert fwd * 10 <= _FP32_FWD_TOL and bwd * 10 <= _FP32_BWD_TOL, (fwd, bwd)
     else:
         assert fwd > _FP32_FWD_TOL and bwd > _FP32_BWD_TOL, (fwd, bwd)
+
+
+# ------------------------------------ the width-128 backward's packed weights
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+def test_weight_planes_are_the_round_mantissa_planes_in_the_rings_layout(planes):
+    """ops/sine_mlp.weight_planes (the wrapper's operand preparation for the
+    width-128 backward): plane p is _round_mantissa(W - planes 0 .. p-1, 7),
+    three planes add up to W exactly, and each slice holds W's rows (image 0)
+    or columns (image 1) in 8 x 8 core matrices of 8 consecutive columns."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((2, 3, 128, 128)).astype(np.float32) / 11)
+    packed = sm.weight_planes(w, planes)
+    assert packed.dtype == torch.bfloat16
+    rows = sm._RING_ROWS
+    assert tuple(packed.shape) == (2, 2, 3, 128 // rows, planes, rows // 8, 16, 8, 8)
+    want = _planes(w, planes)
+    if planes == 3:
+        assert torch.equal(want[0] + want[1] + want[2], w)
+    # image, layer, slice, plane, K group, N group, row, column
+    u, kg, ng, r, c = np.meshgrid(*(np.arange(k) for k in (128 // rows, rows // 8, 16, 8, 8)),
+                                  indexing="ij")
+    for p in range(planes):
+        fwd = want[p][..., rows * u + 8 * kg + r, 8 * ng + c]
+        bwd = want[p][..., 8 * ng + r, rows * u + 8 * kg + c]
+        assert torch.equal(packed[:, 0, :, :, p].float(), fwd)
+        assert torch.equal(packed[:, 1, :, :, p].float(), bwd)
+
+
+def test_weight_planes_reject_other_widths():
+    with pytest.raises(ValueError, match="128"):
+        sm.weight_planes(torch.zeros(2, 192, 192), 3)
+
+
+def test_dw_turn_undoes_the_kernels_staging_turn():
+    """The width-128 backward leaves dW[i][j] at column dw_turn_index[i][j]
+    of row i (its 16-byte chunks turned by i % 8, csrc dw_stage_idx): a
+    permutation of each row, which the wrapper's _unturn_dw undoes."""
+    idx = sm.dw_turn_index()
+    for i in (0, 1, 7, 8, 127):
+        assert sorted(idx[i].tolist()) == list(range(128))
+        for j in (0, 3, 4, 126):
+            assert int(idx[i, j]) == (((j // 4 + i % 8) % 32) * 4 + j % 4)
+    dw = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 128, 128)))
+    turned = torch.empty_like(dw)
+    turned.scatter_(-1, idx.expand(dw.shape), dw)
+    assert torch.equal(sm._unturn_dw(turned), dw)
+
