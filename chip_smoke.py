@@ -16,11 +16,13 @@ Phases, each printing its own line:
      same at width 182 (the finals width, run on the kernels of width 192),
      256 and 512; bounds count the model's width (the work the function
      needs), the padded bound the kernel width (the work the kernel does).
-     At the wider widths the backward is sine_mlp_bwd_wide + sine_mlp_dw
-     (its time is the whole backward's, as at 128), and sine_mlp_dw is also
-     held alone against its plain version on this chain's own dW operands
-     (DW_TOL), twice for bits, and timed from CUDA graphs in turns with
-     one fp32 torch.bmm computing the same dW (the library yardstick).
+     At 256 and 512 the backward is sine_mlp_bwd_wide + sine_mlp_dw (its
+     time is the whole backward's, as at 128 and 182, whose wgmma backward
+     sums dW itself), and sine_mlp_dw is also held alone against its plain
+     version on this chain's own dW operands (DW_TOL), twice for bits, and
+     timed from CUDA graphs in turns with one fp32 torch.bmm computing the
+     same dW (the library yardstick). At every width the forward and the
+     backward run twice and must repeat bit for bit.
      K1 over a member axis (sine_mlp_fwd_batched, the vmapped render of
      decode_runs) at widths 128 and 182: 8 SIRENs on one 512² grid in one
      launch, in both modes, each member the bits of its single launch and
@@ -33,8 +35,9 @@ Phases, each printing its own line:
      other mode's outside it), timed in turns with one single launch (bound:
      8 backwards' work); its member-axis partial sum alone (the bits of the
      mirror, SUM_TOL of partials.sum(1), timed from CUDA graphs in turns with
-     it) and at 182 its member-axis sine_mlp_dw alone (the bits of 8 single
-     launches, DW_TOL of the plain version, in turns with one torch.bmm).
+     it), and at 256 the member-axis sine_mlp_dw alone on 8 members' own
+     dW operands (the bits of 8 single launches, DW_TOL of the plain
+     version, in turns with one torch.bmm).
      K1 and K2 over a member axis in "+mixed" (train.mixed_precision, PR
      15) at widths 128 and 182: 8 SIRENs, each member's forward and dx, dW,
      db the bits of its single "+mixed" launch (fp32+mixed and bf16+mixed),
@@ -42,11 +45,13 @@ Phases, each printing its own line:
      of the plain "+mixed" chain, and timed in turns with one single launch
      (the kernels line's sine_mlp_fwd_batched+mixed and
      sine_mlp_bwd_batched+mixed rows; their bound counts a.W as one bf16
-     pass, the products with the fp32 cotangent as three). Phase 2 prints
+     pass, the products with the fp32 cotangent as three); bf16+mixed
+     against the plain chain too. Phase 2 prints
      ptxas's registers and spills of every kernel and fails if a batched
      instantiation (forward, backward, sine_mlp_dw, partial sum) spills more
-     than its single launch, or if a "+mixed" batched one spills at all
-     (but the one in MIXED_SPILL_ALLOWED, up to its bytes);
+     than its single launch, if a "+mixed" batched one spills at all, or if
+     any instantiation of the wgmma kernels (the width-128 forward and
+     backward, the width-192 backward) spills;
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -119,7 +124,8 @@ Phases, each printing its own line:
      mode exactly for the planned steps [0, 150) and the eval among them,
      in fp32 for the rest, the finetune and the renders; ms per step of a
      bf16 and an fp32 segment of an 80-step fit beside phase 5's; and a
-     20-step d8/w182 fit switching at 0.5, sine_mlp_dw 10 + 10;
+     20-step d8/w182 fit switching at 0.5, no sine_mlp_dw (the width-192
+     backward sums its dW);
      (b) train.mixed_precision, 200 + 20 steps, every launch in the fp32
      mode, after K1/K2 under fp32+mixed against the plain chain at w128 and
      w182 within phase 3's bf16 limits; (c) train.stop_at_psnr=30 with a
@@ -176,8 +182,9 @@ Phases, each printing its own line:
      end density within GMP_DENSITY_TOL of its own target; (c)
      batched_compress on 4 seeded 512² images (100 + 10 steps): member 0's
      container the sha256 of a B = 1 run; (d) a 2-member RigL ladder at
-     w182 for 20 steps: the batched wide backward and the batched
-     sine_mlp_dw on the path.
+     w182 for 20 steps: the member-axis width-192 backward on the path;
+     (e) the same at w256: the member-axis wide backward and
+     sine_mlp_dw_batched.
 
  15. the compress CLI's last options (PR 12), each through compress.main
      (and decode_run where it writes a container) at 512², phase 5's
@@ -281,11 +288,11 @@ Phases, each printing its own line:
 
 Each of phases 4-18 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
-sine_mlp_dw (the wider backward's dW) in phases 9, 10 and the wide runs
-of 12 only; sine_mlp_fwd_batched in 13 (e), 14, 16 and 18 only; the
-member-axis K2 (sine_mlp_bwd_batched, sum_partials_batched, and
-sine_mlp_dw_batched at w182) in 14, 16 and 18 only, in "+mixed" in 18 (c)
-only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
+sine_mlp_dw (the backward's dW at kernel widths 256 and 512) in phase
+10 and the w512 run of 12 (e) only; sine_mlp_fwd_batched in 13 (e), 14,
+16 and 18 only; the member-axis K2 (sine_mlp_bwd_batched,
+sum_partials_batched, and sine_mlp_dw_batched at w256) in 14, 16 and 18
+only, in "+mixed" in 18 (c) only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
 run, in 16 (e)'s CoordX meta-training, in 17 (e) and in 18 (b). In
 phase 3, sum_partials must equal its plain mirror sum_partials_reference
 (the kernel's order of additions) bit for bit on the main path's partial
@@ -298,8 +305,9 @@ every round is printed beside the medians and their share of the bound.
 
 Then one JSON line describing the kernels (each kernel once per width of
 phase 3, with the launches of the phase that runs that width: 4, 9 and 10;
-the batched K1 at 128 and 182 with 13 (e)'s; the batched K2, its partial
-sum and at 182 its sine_mlp_dw with 14 (a)'s and 14 (d)'s; the single K1,
+the batched K1 at 128 and 182 with 13 (e)'s; the batched K2 and its
+partial sum with 14 (a)'s and 14 (d)'s, and at 256 its sine_mlp_dw with
+14 (e)'s; the single K1,
 K2 and sum_partials at 128 also with 17 (a)'s, as `sequence_launches`),
 and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
@@ -508,6 +516,9 @@ BATCH_IMAGES, BATCH_STEPS = 4, 100  # 14c: batched_compress, 100 fit + 10 finetu
 WIDE_LADDER = ["img=synthetic", f"mlp.hidden_size={FINALS_WIDTH}", "entropy_coding=zstd",
                "masking=RigL", "masking.density=0.25,0.5", "train.num_steps=20",
                "train.log_steps=10", "quant.num_steps=5"]
+# 14e: the same ladder at w256, where the member-axis backward leaves dW to
+# sine_mlp_dw_batched (phase 3 holds that kernel alone at this width)
+DW_LADDER_WIDTH = 256
 
 # phase 15: the compress CLI's last options at full width (512², SIREN
 # d8/w128 unless named), in phase 5's configuration (RigL 0.5) unless named,
@@ -679,7 +690,7 @@ def phase_card() -> str:
 
 def phase_build() -> float:
     from implicit_image_tpu_torch.ops import cuda_build
-    from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS, MAX_ROWS
+    from implicit_image_tpu_torch.ops.sine_mlp import DW_WIDTHS, KERNEL_WIDTHS, MAX_ROWS
 
     t0 = time.perf_counter()
     lib = cuda_build.load_library()
@@ -695,20 +706,22 @@ def phase_build() -> float:
             print(f"[2 build] {row.get('registers')} registers, {row.get('spill_stores')} B "
                   f"spill stores, {row.get('spill_loads')} B spill loads: {name[:160]}",
                   flush=True)
-    # the width-128 backward (wgmma; every mode, single and over the member
-    # axis) spills nothing
-    bwd128 = {n: r for n, r in table.items()
-              if n.startswith("void") and "sine_mlp_bwd_kernel<" in n}
-    for name, row in bwd128.items():
-        print(f"[2 build] width-128 backward: {row.get('registers')} registers, "
-              f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B "
-              f"spill loads: {name[:120]}", flush=True)
-    if table and len(bwd128) != 8:
-        raise AssertionError(f"{len(bwd128)} width-128 backward instantiations, expected 8 "
-                             "(4 modes, single and over the member axis)")
-    for name, row in bwd128.items():
-        if row.get("spill_stores", 0) or row.get("spill_loads", 0):
-            raise AssertionError(f"the width-128 backward spills: {name} {row}")
+    # the wgmma kernels (the width-128 forward and backward, the width-192
+    # backward; every mode, single and over the member axis) spill nothing
+    for what, key in (("width-128 forward", "sine_mlp_fwd_kernel<"),
+                      ("width-128 backward", "sine_mlp_bwd_kernel<"),
+                      ("width-192 backward", "sine_mlp_bwd_wg192_kernel<")):
+        rows = {n: r for n, r in table.items() if n.startswith("void") and key in n}
+        for name, row in rows.items():
+            print(f"[2 build] {what}: {row.get('registers')} registers, "
+                  f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B "
+                  f"spill loads: {name[:120]}", flush=True)
+        if table and len(rows) != 8:
+            raise AssertionError(f"{len(rows)} {what} instantiations, expected 8 (4 modes, "
+                                 "single and over the member axis)")
+        for name, row in rows.items():
+            if row.get("spill_stores", 0) or row.get("spill_loads", 0):
+                raise AssertionError(f"the {what} spills: {name} {row}")
     # K1 and K2 over a member axis are template instantiations (last argument
     # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
     # spill no more than its single launch. The forward and backward have
@@ -716,7 +729,7 @@ def phase_build() -> float:
     # arguments BF16, MX); the "+mixed" ones (MX = 1) print their
     # spills beside their single launch's
     kinds = {"sine_mlp_fwd": 4 * len(KERNEL_WIDTHS), "sine_mlp_bwd": 4 * len(KERNEL_WIDTHS),
-             "sine_mlp_dw": 2 * (len(KERNEL_WIDTHS) - 1), "sum_partials": 1}
+             "sine_mlp_dw": 2 * len(DW_WIDTHS), "sum_partials": 1}
     for kind, expected in kinds.items():
         batched = {n: r for n, r in table.items()
                    if f"{kind}_" in n and n.startswith("void") and "(bool)1>(" in n}
@@ -733,10 +746,9 @@ def phase_build() -> float:
                   f"spill loads (its single launch: {single.get('spill_stores', 0)} B, "
                   f"{single.get('spill_loads', 0)} B): {name[:160]}", flush=True)
         for name, row in mixed.items():
-            allowed = next((b for k, b in MIXED_SPILL_ALLOWED.items() if k in name), 0)
-            if row.get("spill_stores", 0) > allowed:
+            if row.get("spill_stores", 0):
                 raise AssertionError(f"a batched +mixed kernel spills {row.get('spill_stores')}"
-                                     f" B (allowed {allowed} B): {name}")
+                                     f" B: {name}")
         spilling = sum(1 for r in mixed.values() if r.get("spill_stores", 0))
         print(f"[2 build] {len(batched)} batched {kind} instantiations ({len(mixed)} +mixed, "
               f"{spilling} of them spilling), none spilling more than its single launch",
@@ -752,13 +764,6 @@ def phase_build() -> float:
 
 # the kernels with a "+mixed" (MX) template argument: <BF16, MX, ...>
 MIXED_KINDS = ("sine_mlp_fwd", "sine_mlp_bwd")
-# the one "+mixed" member-axis instantiation allowed to spill, and its most
-# bytes of spill stores (ROADMAP Queue 2): the w192 fp32+mixed backward
-# spilled 8-12 B across builds on an H100 (its single launch 16 B). Every
-# other "+mixed" member-axis instantiation fails phase 2 on any spill.
-MIXED_SPILL_ALLOWED = {
-    "sine_mlp_bwd_wide_kernel<(bool)0, (bool)1, <unnamed>::Geo<(int)192, ": 12,
-}
 
 
 def _is_mixed(name: str) -> bool:
@@ -928,6 +933,15 @@ def phase_kernels(width: int = WIDTH) -> dict:
                 raise AssertionError(f"{prec}: kernel result {name} is not finite")
         if float(dx_k.abs().max()) == 0.0:
             raise AssertionError(f"{prec}: coordinate gradient dx is zero")
+        # a run repeats bit for bit (fixed orders of sums, no float atomics)
+        again = (sm.sine_mlp_fwd(params, x, mcfg, prec),
+                 *sm.sine_mlp_bwd(params, x, g, mcfg, prec))
+        torch.cuda.synchronize()
+        pairs = [(out_k, again[0]), (dx_k, again[1])] + [
+            (gr_k[i][k], again[2][i][k]) for i in range(DEPTH) for k in ("w", "b")]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"w{width} {prec}: the kernels do not repeat bit for bit")
+        print(f"[3 kernels w{width} {prec}] forward and backward repeat bit for bit", flush=True)
         kernel[prec] = (out_k, dx_k, gr_k)
 
     records = {}
@@ -1037,7 +1051,7 @@ def phase_kernels(width: int = WIDTH) -> dict:
                                  f"(max abs err {sum_mirror_err})")
         if not sum_rel <= SUM_TOL:
             raise AssertionError(f"sum_partials disagrees with partials.sum(0): {sum_rel}")
-        if kernel_width > sm.KERNEL_WIDTHS[0]:
+        if kernel_width in sm.DW_WIDTHS:
             dw = _dw_kernel(params, x, g, mcfg, prec, kernel_width, blocks, n_part, sizes[0],
                             timed=prec == "fp32")
             print(
@@ -1090,7 +1104,7 @@ def phase_kernels(width: int = WIDTH) -> dict:
                 # the same function
                 "sum_partials": (sum_mirror_err, sum_ms, sum_plain_ms, lib_ms),
             }
-            if kernel_width > sm.KERNEL_WIDTHS[0]:
+            if kernel_width in sm.DW_WIDTHS:
                 # plain: sine_mlp_dw_reference; torch.bmm is one PyTorch call for dW
                 records["sine_mlp_dw"] = (dw["err"], dw_ms, dw["plain_ms"], dw_lib_ms)
             for name, (_, ms, _, _) in records.items():
@@ -1209,8 +1223,6 @@ def phase_mixed_batched(width: int) -> dict:
               "single launches", flush=True)
         if not (same_f and same_b):
             raise AssertionError(f"{tag} {prec}: not the bits of the single launches")
-        if mode != "fp32":
-            continue
         plain_f = sm.siren_chain_reference_batched(members, x, mcfg, prec)
         plain_b = _bwd_pairs(*sm.siren_chain_backward_reference_batched(members, x, g, mcfg,
                                                                         prec))
@@ -1225,6 +1237,8 @@ def phase_mixed_batched(width: int) -> dict:
             raise AssertionError(f"{tag}: the kernels disagree with the plain chain: "
                                  f"{fwd_err}, {rel}")
         del plain_b
+        if mode != "fp32":
+            continue
         blocks, n_part, _ = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
         bounds = _bounds(n, 2, 3, DEPTH, width, blocks, _grad_floats(2, width, 3, DEPTH),
                          mixed=True)
@@ -1266,10 +1280,11 @@ def phase_batched_backward(width: int) -> dict:
     member's dx, dW and db the bits of its single launch and within BWD_TOL
     of the plain version (the other mode's batched kernels outside it); the
     batched backward timed in turns with one single launch, its bound 8
-    backwards' work. The member-axis partial sum (and above width 128 the
-    member-axis sine_mlp_dw) alone, on this backward's shapes: the bits of
-    its plain mirror, timed from CUDA graphs in turns with one PyTorch call
-    for the same function. Returns the kernels line's records (fp32 mode)."""
+    backwards' work. The member-axis partial sum alone, on this backward's
+    shapes: the bits of its plain mirror, timed from CUDA graphs in turns
+    with one PyTorch call for the same function (the member-axis
+    sine_mlp_dw: phase_batched_dw). Returns the kernels line's records
+    (fp32 mode)."""
     import torch
 
     from implicit_image_tpu_torch.data import get_grid
@@ -1287,7 +1302,7 @@ def phase_batched_backward(width: int) -> dict:
     outs = {p: sm.sine_mlp_bwd_batched(members, x, g, mcfg, p) for p in sm.PRECISIONS}
     torch.cuda.synchronize()
     tag = f"[3 kernels w{width} batched backward x{BATCH_MEMBERS}]"
-    blocks, n_part, sizes = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
+    blocks, n_part, _ = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
     records = {}
     for prec in sm.PRECISIONS:
         other = next(p for p in sm.PRECISIONS if p != prec)
@@ -1365,52 +1380,77 @@ def phase_batched_backward(width: int) -> dict:
                                            padded["sum_partials_batched"]["bound_ms"])
         del partials
 
-        if kw > sm.KERNEL_WIDTHS[0]:
-            # the member-axis sine_mlp_dw alone, on each member's own dW operands
-            layers = DEPTH - 2
-            a, gz = (torch.zeros((BATCH_MEMBERS, layers, n, kw), device=dev) for _ in range(2))
-            for m, params in enumerate(members):  # zero-padded to the kernel width
-                a[m, ..., :width], gz[m, ..., :width] = sm.siren_chain_dw_operands(
-                    params, x, g[m], mcfg, prec)
-            region = slice(sizes[0], sizes[0] + layers * kw * kw)
-            part = torch.zeros((BATCH_MEMBERS, blocks, n_part), device=dev)
-            sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec)
-            got = part[:, :, region].reshape(BATCH_MEMBERS, blocks, layers, kw, kw)
-            plain_dw = torch.stack([sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
-                                    for m in range(BATCH_MEMBERS)])
-            singles = []
-            for m in range(BATCH_MEMBERS):
-                one = torch.zeros((blocks, n_part), device=dev)
-                sm.sine_mlp_dw(a[m], gz[m], one, sizes[0], prec)
-                singles.append(one[:, region].reshape(blocks, layers, kw, kw))
-            torch.cuda.synchronize()
-            dw_same = torch.equal(got, torch.stack(singles))
-            dw_err = float((got - plain_dw).abs().max())
-            scale = float(plain_dw.abs().max())
-            del singles, got
-            flat_a, flat_g = a.reshape(-1, n, kw), gz.reshape(-1, n, kw)
-            k_r, l_r = _graph_interleaved_ms(
-                [lambda: sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec),
-                 lambda: torch.bmm(flat_a.transpose(1, 2), flat_g)], rounds=3, reps=5)
-            k_ms, l_ms = statistics.median(k_r), statistics.median(l_r)
-            p_ms = _time_ms(lambda: [sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
-                                     for m in range(BATCH_MEMBERS)], 1)
-            db = bounds["sine_mlp_dw_batched"]
-            print(f"{tag} sine_mlp_dw_batched ({layers} layers, {blocks} row splits): "
-                  f"{'the bits of' if dw_same else 'BITS DIFFER FROM'} {BATCH_MEMBERS} single "
-                  f"launches; vs plain max abs err {dw_err:.3e} = {dw_err / scale:.3e} of max "
-                  f"|plain| (tol {DW_TOL:g}); in turns from CUDA graphs, ms: kernel "
-                  f"{' '.join(f'{t:.4f}' for t in k_r)} (median {k_ms:.4f} = "
-                  f"{db['bound_ms'] / k_ms:.1%} of the {db['bound_ms']:.4f} ms bound); one "
-                  f"torch.bmm {' '.join(f'{t:.4f}' for t in l_r)} (median {l_ms:.4f}); plain "
-                  f"{p_ms:.3f}", flush=True)
-            if not dw_same or not dw_err <= DW_TOL * scale:
-                raise AssertionError(f"{tag} sine_mlp_dw_batched: same {dw_same}, err {dw_err}")
-            records["sine_mlp_dw_batched"] = (dw_err, k_ms, p_ms, l_ms, db,
-                                              padded["sine_mlp_dw_batched"]["bound_ms"])
-            del a, gz, part, flat_a, flat_g
     torch.cuda.empty_cache()
     return records
+
+
+def phase_batched_dw(width: int) -> dict:
+    """Phase 3, the member-axis sine_mlp_dw alone at a width whose backward
+    has it (256): BATCH_MEMBERS SIRENs' own dW operands on one 512² grid,
+    the bits of 8 single launches, within DW_TOL of its plain version, timed
+    from CUDA graphs in turns with one torch.bmm. Returns the kernels line's
+    record (fp32 mode)."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+    kw, prec = sm.kernel_width(width), "fp32"
+    gen = torch.Generator().manual_seed(11)
+    members = [mdef.init(gen, mcfg, dev) for _ in range(BATCH_MEMBERS)]
+    x = (get_grid(N_SIDE, N_SIDE, dev).reshape(-1, 2) - 0.5) * 2.0
+    n = x.shape[0]
+    g = (torch.randn((BATCH_MEMBERS, n, 3), generator=gen) / n).to(dev)
+    tag = f"[3 kernels w{width} batched x{BATCH_MEMBERS}]"
+    blocks, n_part, sizes = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
+    bounds = _bounds(n, 2, 3, DEPTH, width, blocks, _grad_floats(2, width, 3, DEPTH))
+    padded = _bounds(n, 2, 3, DEPTH, kw, blocks, n_part)
+    # the member-axis sine_mlp_dw alone, on each member's own dW operands
+    layers = DEPTH - 2
+    a, gz = (torch.zeros((BATCH_MEMBERS, layers, n, kw), device=dev) for _ in range(2))
+    for m, params in enumerate(members):  # zero-padded to the kernel width
+        a[m, ..., :width], gz[m, ..., :width] = sm.siren_chain_dw_operands(
+            params, x, g[m], mcfg, prec)
+    region = slice(sizes[0], sizes[0] + layers * kw * kw)
+    part = torch.zeros((BATCH_MEMBERS, blocks, n_part), device=dev)
+    sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec)
+    got = part[:, :, region].reshape(BATCH_MEMBERS, blocks, layers, kw, kw)
+    plain_dw = torch.stack([sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
+                            for m in range(BATCH_MEMBERS)])
+    singles = []
+    for m in range(BATCH_MEMBERS):
+        one = torch.zeros((blocks, n_part), device=dev)
+        sm.sine_mlp_dw(a[m], gz[m], one, sizes[0], prec)
+        singles.append(one[:, region].reshape(blocks, layers, kw, kw))
+    torch.cuda.synchronize()
+    dw_same = torch.equal(got, torch.stack(singles))
+    dw_err = float((got - plain_dw).abs().max())
+    scale = float(plain_dw.abs().max())
+    del singles, got
+    flat_a, flat_g = a.reshape(-1, n, kw), gz.reshape(-1, n, kw)
+    k_r, l_r = _graph_interleaved_ms(
+        [lambda: sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec),
+         lambda: torch.bmm(flat_a.transpose(1, 2), flat_g)], rounds=3, reps=5)
+    k_ms, l_ms = statistics.median(k_r), statistics.median(l_r)
+    p_ms = _time_ms(lambda: [sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
+                             for m in range(BATCH_MEMBERS)], 1)
+    db = bounds["sine_mlp_dw_batched"]
+    print(f"{tag} sine_mlp_dw_batched ({layers} layers, {blocks} row splits): "
+          f"{'the bits of' if dw_same else 'BITS DIFFER FROM'} {BATCH_MEMBERS} single "
+          f"launches; vs plain max abs err {dw_err:.3e} = {dw_err / scale:.3e} of max "
+          f"|plain| (tol {DW_TOL:g}); in turns from CUDA graphs, ms: kernel "
+          f"{' '.join(f'{t:.4f}' for t in k_r)} (median {k_ms:.4f} = "
+          f"{db['bound_ms'] / k_ms:.1%} of the {db['bound_ms']:.4f} ms bound); one "
+          f"torch.bmm {' '.join(f'{t:.4f}' for t in l_r)} (median {l_ms:.4f}); plain "
+          f"{p_ms:.3f}", flush=True)
+    if not dw_same or not dw_err <= DW_TOL * scale:
+        raise AssertionError(f"{tag} sine_mlp_dw_batched: same {dw_same}, err {dw_err}")
+    del a, gz, part, flat_a, flat_g
+    torch.cuda.empty_cache()
+    return dw_err, k_ms, p_ms, l_ms, db, padded["sine_mlp_dw_batched"]["bound_ms"]
 
 
 def _expected_container_bytes(cfg) -> int:
@@ -1436,15 +1476,16 @@ def _expected_container_bytes(cfg) -> int:
     return total
 
 
-def _check_launches(launches: dict, what: str, wide: bool = False,
+def _check_launches(launches: dict, what: str, dw: bool = False,
                     batched: bool = False) -> None:
-    """Every kernel launched on the path; sine_mlp_dw (the wider backward's
-    dW) exactly when the path runs a SIREN wider than 128 (`wide`),
+    """Every kernel launched on the path; sine_mlp_dw (the backward's dW at
+    kernel widths 256 and 512) exactly when the path runs a SIREN of those
+    widths (`dw`),
     sine_mlp_fwd_batched (K1 over a member axis) exactly when it decodes
     runs together (`batched`), and never K2 over a member axis (the fits of
     phases 14 and 16 only; _check_ladder_launches)."""
     for name, count in launches.items():
-        if ((name == "sine_mlp_dw" and not wide) or (name == "sine_mlp_fwd_batched"
+        if ((name == "sine_mlp_dw" and not dw) or (name == "sine_mlp_fwd_batched"
                                                     and not batched)
                 or name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched",
                             "sum_partials_batched")):
@@ -1839,7 +1880,7 @@ def phase_finals() -> dict:
         f"{summary['Decoded MS-SSIM']:.6f}, bytes {nbytes}",
         flush=True,
     )
-    _check_launches(launches, "finals path", wide=True)
+    _check_launches(launches, "finals path")
     if final_counts != init_counts:
         raise AssertionError(f"RigL changed a layer's weight count: {init_counts} -> "
                              f"{final_counts}")
@@ -1883,7 +1924,7 @@ def phase_wide(width: int) -> dict:
     print(f"[10 w{width}] lr {cfg.optim.lr}; fit {summary['fit_wall_s']:.3f} s "
           f"({summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step); fit PSNR "
           f"{psnr:.3f} dB; launches {launches}", flush=True)
-    _check_launches(launches, f"w{width} path", wide=True)
+    _check_launches(launches, f"w{width} path", dw=True)
     if not math.isfinite(psnr):
         raise AssertionError(f"w{width}: fit PSNR {psnr} is not finite")
     return launches
@@ -2097,7 +2138,8 @@ def _segment_ms(overrides, n: int, seg: int, **train) -> dict:
 
 def phase_schedule(default_ms_step: float) -> None:
     """12a: the precision schedule on the RigL default (200 + 20 steps), and
-    a d8/w182 fit switching at 0.5 (the wide kernels and sine_mlp_dw)."""
+    a d8/w182 fit switching at 0.5 (the wide forward and the width-192
+    backward, which sums its dW itself: no sine_mlp_dw)."""
     from implicit_image_tpu_torch.training.fit import TrainConfig, plan_precision_schedule
 
     r = _p12_run("[12a schedule]", SCHEDULE_OVERRIDES)
@@ -2122,7 +2164,7 @@ def phase_schedule(default_ms_step: float) -> None:
 
     w = _p12_run("[12a w182]", SCHEDULE_WIDE_OVERRIDES)
     expect = _expected_modes(20, 10, 10, 0, 0)
-    expect["sine_mlp_dw"] = {"bf16": 10, "fp32": 10}
+    expect["sine_mlp_dw"] = {"bf16": 0, "fp32": 0}
     got = {k: w["by_mode"][k] for k in expect}
     print(f"[12a w182] launches by mode {got}, planned {expect}", flush=True)
     if got != expect:
@@ -2215,7 +2257,7 @@ def phase_clip() -> None:
     s = r["summary"]
     print(f"[12e clip] clip scale: min {s['clip_scale_min']:.6g}, last step "
           f"{s['clip_scale_last']:.6g}", flush=True)
-    _check_launches(r["launches"], "clipped w512 path", wide=True)
+    _check_launches(r["launches"], "clipped w512 path", dw=True)
 
 
 def phase_exact_sine(dense_ms_step: float) -> None:
@@ -2551,16 +2593,16 @@ def _ladder_cli(name: str, extra) -> tuple:
 
 
 def _check_ladder_launches(tag: str, launches: dict, members: int, steps: int, evals: int,
-                           quant_steps: int, wide: bool) -> None:
+                           quant_steps: int, dw: bool) -> None:
     """The fit and the codebook finetune over the member axis: one batched K1
     per fit step and eval and per finetune step, one more for the
-    finetune's eval; one batched K2 (and partial sum, and above 128
-    sine_mlp_dw) per fit and finetune step; no single K2 launch (the
-    members' single K1 launches are their decodes)."""
+    finetune's eval; one batched K2 (and partial sum, and at widths 256 and
+    512 sine_mlp_dw, `dw`) per fit and finetune step; no single K2 launch
+    (the members' single K1 launches are their decodes)."""
     want = {"sine_mlp_fwd_batched": steps + evals + quant_steps + 1,
             "sine_mlp_bwd_batched": steps + quant_steps,
             "sum_partials_batched": steps + quant_steps,
-            "sine_mlp_dw_batched": steps + quant_steps if wide else 0,
+            "sine_mlp_dw_batched": steps + quant_steps if dw else 0,
             "sine_mlp_bwd": 0, "sum_partials": 0, "sine_mlp_dw": 0}
     got = {k: launches[k] for k in want}
     if got != want or launches["sine_mlp_fwd"] <= 0:
@@ -2624,7 +2666,7 @@ def phase_ladder_rigl(default_run: str) -> dict:
     evals = len([s for s in range(steps) if (s + 1) % int(cfg.train.log_steps) == 0
                  or s == steps - 1])
     print(f"{tag} {len(densities)} members in {seconds:.2f} s; launches {launches}", flush=True)
-    _check_ladder_launches(tag, launches, len(densities), steps, evals, q, wide=False)
+    _check_ladder_launches(tag, launches, len(densities), steps, evals, q, dw=False)
     masks = _ladder_members("14a RigL", tag, dirs, summaries, densities, "density",
                             LADDER_DENSITY_TOL)
 
@@ -2688,7 +2730,7 @@ def phase_ladder_gmp() -> None:
     steps, q = int(cfg.train.num_steps), int(cfg.quant.num_steps)
     print(f"{tag} cut as 14a, masking.end_when 1500 -> 150; {len(densities)} members in "
           f"{seconds:.2f} s; launches {launches}", flush=True)
-    _check_ladder_launches(tag, launches, len(densities), steps, 2, q, wide=False)
+    _check_ladder_launches(tag, launches, len(densities), steps, 2, q, dw=False)
     _ladder_members("14b GMP", tag, dirs, summaries, densities, "final_density",
                     GMP_DENSITY_TOL)
 
@@ -2736,27 +2778,34 @@ def phase_batched_compress() -> None:
         raise AssertionError(f"{tag} launches {launches} or a decoded PSNR below 20 dB")
 
 
-def phase_wide_ladder() -> dict:
-    """14d: a 2-member RigL ladder at w182 (kernel width 192), 20 steps: the
-    batched wide backward and the batched sine_mlp_dw on the path."""
-    tag = "[14d wide ladder]"
-    cfg, densities, dirs, summaries, launches, seconds = _ladder_cli("14d wide", WIDE_LADDER)
-    print(f"{tag} w{FINALS_WIDTH}, {len(densities)} members in {seconds:.2f} s; launches "
+def phase_wide_ladder(width: int, part: str) -> dict:
+    """14d / 14e: a 2-member RigL ladder at w182 (kernel width 192: the
+    member-axis width-192 backward, which sums its dW itself) or at w256
+    (the member-axis wide backward and sine_mlp_dw), 20 steps."""
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    tag = f"[14{part} wide ladder]"
+    argv = [a if not a.startswith("mlp.hidden_size=") else f"mlp.hidden_size={width}"
+            for a in WIDE_LADDER]
+    cfg, densities, dirs, summaries, launches, seconds = _ladder_cli(f"14{part} wide", argv)
+    print(f"{tag} w{width}, {len(densities)} members in {seconds:.2f} s; launches "
           f"{launches}; decoded " + ", ".join(f"{s['Decoded PSNR']:.3f} dB" for s in summaries),
           flush=True)
-    _check_ladder_launches(tag, launches, len(densities), 20, 2, 5, wide=True)
+    _check_ladder_launches(tag, launches, len(densities), 20, 2, 5,
+                           dw=sm.kernel_width(width) in sm.DW_WIDTHS)
     if not all(math.isfinite(s["Decoded PSNR"]) for s in summaries):
         raise AssertionError(f"{tag} a decoded PSNR is not finite")
     return launches
 
 
 def phase_parallel(default_run: str) -> dict:
-    """Phase 14; returns the launches of the w128 (14a) and w182 (14d)
-    ladders by width."""
+    """Phase 14; returns the launches of the w128 (14a), w182 (14d) and
+    w256 (14e) ladders by width."""
     rigl = phase_ladder_rigl(default_run)
     phase_ladder_gmp()
     phase_batched_compress()
-    return {WIDTH: rigl, FINALS_WIDTH: phase_wide_ladder()}
+    return {WIDTH: rigl, FINALS_WIDTH: phase_wide_ladder(FINALS_WIDTH, "d"),
+            DW_LADDER_WIDTH: phase_wide_ladder(DW_LADDER_WIDTH, "e")}
 
 
 def phase_run_tools(default_run: str) -> dict:
@@ -3101,7 +3150,7 @@ def phase_fleet(yardsticks: str) -> None:
     seconds = time.perf_counter() - t0
     launches = dict(sm.LAUNCHES)
     steps, q = int(cfg.train.num_steps), int(cfg.quant.num_steps)
-    _check_ladder_launches(tag, launches, len(rows), steps, 2, q, wide=False)
+    _check_ladder_launches(tag, launches, len(rows), steps, 2, q, dw=False)
     base = [a for a in FLEET_ARGV if not a.startswith("fleet.")]
     dirs = []
     for name, psnr, nbytes in rows:
@@ -3173,7 +3222,7 @@ def phase_api() -> None:
     seconds = time.perf_counter() - t0
     launches = dict(sm.LAUNCHES)
     _check_ladder_launches(f"{tag} compress_images", launches, len(imgs), API_BATCH_STEPS, 2, 10,
-                           wide=False)
+                           dw=False)
     dbs = [_psnr_db(r.decode(), src) for r, src in zip(many, imgs)]
     summary = json.loads((many[0].run_dir / "summary.json").read_text())
     print(f"{tag} compress_images of {len(imgs)} in {seconds:.2f} s (fit "
@@ -3792,8 +3841,9 @@ def _k2_wrapper_costs(mdef, mcfg, tc, members: int, n: int, tag: str, device_ms:
                       dev: str = "cuda") -> dict:
     """K2 over the member axis at one pixel chunk's shapes, as the fit calls
     it (stacked leaves), by CUDA events: the wrapper in each mode, and its
-    parts outside the kernels, done on every call: W's bf16 planes
-    (`weight_planes`) and dW's rows turned back (`_unturn_dw`). Per step:
+    parts outside the kernels: W's bf16 planes (`weight_planes`, packed
+    once per K1/K2 pair, in the forward, and handed to the backward) and
+    dW's rows turned back (`_unturn_dw`, every call). Per step:
     the fit's calls in each mode (pixel_chunks a step, bf16 before the
     switch)."""
     import torch
@@ -3914,7 +3964,7 @@ def phase_mixed_ladder(card: str) -> dict:
               + f"; launches {launches}; +mixed {mixed} ({card})", flush=True)
         want = {"sine_mlp_fwd_batched": steps + evals, "sine_mlp_bwd_batched": steps,
                 "sum_partials_batched": steps,
-                "sine_mlp_dw_batched": steps if width != WIDTH else 0}
+                "sine_mlp_dw_batched": steps if sm.kernel_width(width) in sm.DW_WIDTHS else 0}
         if {k: mixed[k] for k in want} != want or any(
                 mixed[k] for k in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials")):
             raise AssertionError(f"{tag} +mixed launches {mixed}, expected {want}")
@@ -4017,6 +4067,7 @@ def main() -> int:
         records[width]["sine_mlp_fwd_batched"] = phase_batched_kernel(width)
         records[width].update(phase_batched_backward(width))
         records[width].update(phase_mixed_batched(width))
+    records[DW_LADDER_WIDTH]["sine_mlp_dw_batched"] = phase_batched_dw(DW_LADDER_WIDTH)
     launches, dense_summary = phase_main_path()
     default_dir = phase_default_path(dense_summary)
     phase_presets()
@@ -4030,7 +4081,7 @@ def main() -> int:
     # K1 over a member axis launches on the batched decode of phase 13 (e)
     for width, count in phase_run_tools(default_dir).items():
         path_launches[width]["sine_mlp_fwd_batched"] = count
-    # K2 over a member axis launches on the ladders of phase 14 (a, d)
+    # K2 over a member axis launches on the ladders of phase 14 (a, d, e)
     for width, counts in phase_parallel(default_dir).items():
         for name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched", "sum_partials_batched"):
             path_launches[width][name] = counts[name]

@@ -1,17 +1,20 @@
-// Hopper (sm_90a) building blocks of the width-128 backward kernel
-// (sine_mlp.cu) and of tools/mma_rate.cu, which checks them on the card:
-// mbarriers, bulk copies and bulk reduce-adds (the TMA unit, no tensor map),
-// proxy fences, named barriers, and bf16 wgmma with A from registers and B
+// Hopper (sm_90a) building blocks of the wgmma kernels of sine_mlp.cu (the
+// width-128 forward and backward, the width-192 backward) and of
+// tools/mma_rate.cu, which checks them on the card: mbarriers, bulk copies
+// and bulk reduce-adds (the TMA unit, no tensor map), proxy fences, named
+// barriers, and bf16 wgmma with A from registers or shared memory and B
 // from shared memory.
 //
 // Shared-memory operands of wgmma here use no swizzle: an operand is made of
 // core matrices, 8 rows of 16 bytes (8 bf16) stored as 128 contiguous bytes.
-// A B operand of K x N is addressed by a descriptor holding its start, the
-// byte stride between core matrices adjacent along K (kLbo) and along N
-// (kSbo). In either major order (B K-major: a core matrix row is 8 K values
-// of one n; B N-major, "transposed": 8 N values of one k) the kernels store
-// the core matrix of k-group kg and n-group ng at (kg * 16 + ng) * 128 bytes,
-// so kLbo = 2048 and kSbo = 128 (tools/mma_rate.cu checks both orders).
+// An operand of K x N (or M x K) is addressed by a descriptor holding its
+// start, the byte stride between core matrices adjacent along K (the
+// leading offset) and along N or M (the stride offset). In either major
+// order (B K-major: a core matrix row is 8 K values of one n; B N-major,
+// "transposed": 8 N values of one k) the width-128 kernels store the core
+// matrix of k-group kg and n-group ng at (kg * 16 + ng) * 128 bytes, so
+// kLbo = 2048 and kSbo = 128; the width-192 backward's strides are at its
+// kernel (tools/mma_rate.cu checks both orders and both kernels' strides).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,6 +79,23 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src, uin
                : "memory");
 }
 
+// An L2 cache policy (a 64-bit handle for the .L2::cache_hint forms): lines
+// touched under evict_first leave L2 before others.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// bulk_reduce_add under an L2 cache policy.
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src, uint32_t bytes,
+                                                uint64_t policy) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.L2::cache_hint.add.f32 [%0], [%1], "
+      "%2, %3;\n" ::"l"(dst), "r"(smem_u32(src)), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -88,6 +108,13 @@ __device__ __forceinline__ void bulk_wait_all() {
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   else
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of the issuing thread's bulk groups, the most recent,
+// are pending: every older one is complete (its writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Order the thread's generic-proxy accesses of shared (global) memory
@@ -209,6 +236,37 @@ __device__ __forceinline__ void wg_tf32_n128(float (&d)[64], const uint32_t (&a)
       : IIT_D8(0), IIT_D8(8), IIT_D8(16), IIT_D8(24), IIT_D8(32), IIT_D8(40), IIT_D8(48),
         IIT_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// The width-192 backward's products, 64 x 96 (half of the kernel width):
+// d[4 ni + q] = D(16 w + g + 8 (q >> 1), 8 ni + 2 t + (q & 1)), ni < 12.
+// A from registers (a as above) or from shared memory at `adesc`, K-major
+// (TA = 0) or M-major (TA = 1); B as above.
+template <int TB>
+__device__ __forceinline__ void wg_bf16_n96(float (&d)[48], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : IIT_D8(0), IIT_D8(8), IIT_D8(16), IIT_D8(24), IIT_D8(32), IIT_D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wg_bf16_ss_n96(float (&d)[48], uint64_t adesc, uint64_t bdesc,
+                                               int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %50, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, %51, %52;\n}\n"
+      : IIT_D8(0), IIT_D8(8), IIT_D8(16), IIT_D8(24), IIT_D8(32), IIT_D8(40)
+      : "l"(adesc), "l"(bdesc), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 #undef IIT_D8

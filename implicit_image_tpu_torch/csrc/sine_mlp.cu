@@ -4,8 +4,8 @@
 // Replaces the two Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 //   sine_mlp_fwd  <- _fwd_kernel / _fwd_call   (ops/sine_mlp.py:81-122)
 //   sine_mlp_bwd  <- _bwd_kernel / _bwd_call   (ops/sine_mlp.py:128-242);
-//                    at widths above 128 sine_mlp_bwd_wide, with the hidden
-//                    layers' dW in sine_mlp_dw
+//                    at widths 256 and 512 sine_mlp_bwd_wide, with the
+//                    hidden layers' dW in sine_mlp_dw
 //   sum_partials  <- the TPU's sequential accumulation of dW/db across grid
 //                    steps, which has no counterpart between parallel blocks
 //
@@ -22,24 +22,21 @@
 // mode's bound counts 3xTF32 (three tensor-core passes at 495 TFLOP/s):
 // 0.31 ms forward, 0.94 ms backward at the least.
 //
-// Forward at width 128 (sine_mlp_fwd_kernel; not yet redesigned for
-// Hopper):
-// 1. Tensor cores. Each hidden product is mma.sync.m16n8k8 (TF32 in, fp32
-//    accumulation) over a 128 x 128 output, 8 warps of 32 x 64 each. The
-//    fp32 mode splits every operand at fragment load into hi = tf32(x) and
-//    lo = tf32(x - hi) (round to nearest by integer operations on the bits:
-//    cvt issues at a quarter of their rate) and accumulates lo*hi + hi*lo +
-//    hi*hi, each pass over all of a warp's tiles before the next: the fp32
-//    chain to ~1e-6 relative. A 1-pass TF32 product is never used. The bf16
-//    mode rounds the operands to bf16, which TF32 holds exactly, and takes
-//    one pass: one bf16 product with fp32 accumulation, as Pallas. One
-//    shared copy of W serves a.W, in an XOR-swizzled layout (sw()) that
-//    keeps the fragment patterns free of bank conflicts.
-// 2. One block of 256 threads per SM, persistent over row tiles; each warp
-//    keeps 2 x 8 independent mma tiles in flight. Each hidden W (64 KB)
-//    streams into a ring of two shared buffers with cp.async, completing on
-//    an mbarrier: layer l+2's W arrives while l+1 computes.
-//
+// Forward at width 128 (sine_mlp_fwd_kernel, "the width-128 forward"
+// below): the width-128 backward's forward phase (item 1 of the next note),
+// product by product the same device functions, so the forward K2
+// rematerializes is K1's own: two warpgroups of 64 rows per 128-row tile,
+// each product wgmma m64n128k16 bf16 with A (the previous accumulator's
+// planes) from registers and W's planes from a ring of bulk copies (the
+// forward image of ops/sine_mlp.weight_planes, packed once per K1/K2 pair
+// and handed to the backward). Without the z stash and the backward,
+// nothing joins the two warpgroups but the ring: no barrier of the block
+// in the tile loop, so each warpgroup's sine epilogue runs while the
+// other's products are in flight, and an 8-slot ring lets one run up to
+// half a layer ahead. The first layer (K = in) and the last (N = out) stay
+// on FMA; the last sums each row from the accumulator's registers (a
+// thread's 32 columns, then its quad by shuffles) with no shared memory.
+
 // Backward at width 128 (sine_mlp_bwd_kernel, "the width-128 backward"
 // below), one block of 2 warpgroups per SM, persistent over 128-row tiles:
 // 1. Products on wgmma, bf16 (hopper.cuh): m64n128k16, A from registers,
@@ -87,9 +84,10 @@
 //
 // Widths: the designs above are the width-128 kernels' (every model of
 // width <= 128 runs on them, zero-padded). Widths 129-512 run on the wider
-// kernels of width 192, 256 and 512, which stream each W in slices of its
-// rows and leave the hidden layers' dW to sine_mlp_dw (sections "the wider
-// kernels" and "sine_mlp_dw" below).
+// kernels of width 192, 256 and 512, which stream each W in slices; the
+// backward at 192 is on wgmma and sums its dW, those at 256 and 512 leave
+// the hidden layers' dW to sine_mlp_dw (sections "the wider kernels", "the
+// width-192 backward" and "sine_mlp_dw" below).
 //
 // Backward: blocks run in parallel with no carry between them, so a fixed
 // grid of one block per SM loops over its share of tiles, adding into its
@@ -402,8 +400,6 @@ struct RingT {
   }
 };
 
-using Ring = RingT<G128>;
-
 // Copy a stashed z tile (T x H, already in the sw() layout) into shared
 // memory with cp.async; the mbarrier counts each thread's arrival when its
 // copies (and any earlier ones) have landed.
@@ -561,27 +557,6 @@ __device__ __forceinline__ void mma_step(Acc acc, const Frag& f) {
   mma_passes<BF16>(acc, ah, al, bh, bl);
 }
 
-// acc += A B over K = 128, A and B in shared memory (sw() layout). a.W is
-// <false, false>, a^T.gz is <true, false>, gz.W^T is <false, true>. The
-// next k-step's operands load while this one's products issue.
-template <bool BF16, bool A_T, bool B_T>
-__device__ __forceinline__ void warp_mma(Acc acc, const float* __restrict__ A,
-                                         const float* __restrict__ B, const Warp& w) {
-  using PA = std::conditional_t<A_T, Cols<>, Rows<>>;
-  using PB = std::conditional_t<B_T, Rows<>, Cols<>>;
-  const PA pa(A, w.m0, w);
-  const PB pb(B, w.n0, w);
-  Frag f[2];
-  load_frag<A_T, B_T>(f[0], pa, pb, 0, 0);
-#pragma unroll
-  for (int k0 = 0; k0 < H; k0 += 16) {
-    load_frag<A_T, B_T>(f[1], pa, pb, k0 + 8, k0 + 8);
-    mma_step<BF16, !A_T>(acc, f[0]);
-    if (k0 + 16 < H) load_frag<A_T, B_T>(f[0], pa, pb, k0 + 16, k0 + 16);
-    mma_step<BF16, !A_T>(acc, f[1]);
-  }
-}
-
 // The wider kernels' product: acc += A B over K = K_STEPS, A of row stride
 // SA (rows from a0 = the warp's m0, or A_T: columns from a0, a multiple of
 // 32) with its k-steps from ka, B a K_STEPS-row matrix of row stride SB (a
@@ -737,66 +712,6 @@ __device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-}
-
-// ------------------------------------------------------------- forward
-
-// Shared memory: two weight buffers, the activation tile, the input tile
-// and the two mbarriers.
-constexpr size_t kFwdSmem = sizeof(float) * (3 * BUF + T * MAX_IO) + 2 * sizeof(uint64_t);
-
-template <bool BF16, bool MX, bool MB>
-__global__ void __launch_bounds__(THREADS, 1)
-sine_mlp_fwd_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict__ out,
-                    long long x_stride) {
-  __shared__ MemberFwd mf;
-  if constexpr (MB) {
-    member_fwd<H>(mf, c_arg, x, out, x_stride);
-    __syncthreads();
-  }
-  const Chain& c = chain_of<MB>(mf, c_arg);
-  const auto X = [&] { if constexpr (MB) return mf.x; else return x; };
-  const auto OUT = [&] { if constexpr (MB) return mf.out; else return out; };
-  extern __shared__ float4 smem4[];
-  float* w_s0 = reinterpret_cast<float*>(smem4);
-  float* a_s = w_s0 + 2 * BUF;
-  float* x_s = a_s + BUF;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(x_s + T * MAX_IO);
-  const int tid = threadIdx.x;
-  const Warp w(tid);
-  const int L = c.depth - 2;
-  const int n_tiles = (c.n + T - 1) / T;
-  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  // the block's hidden-layer uses in order; use s reads buffer s % 2
-  const int total = my_tiles * L;
-
-  init_barriers(bar, 2);
-  Ring ring{w_s0, bar};
-  for (int s = 0; s < 2 && s < total; ++s) ring.issue(s, c.wm + (size_t)(s % L) * H * H);
-
-  int s = 0;
-  Acc acc;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * T;
-    stage_rows<BF16>(x_s, X(), row0, c.n, c.in_size, tid);
-    __syncthreads();
-    first_layer<BF16>(acc, c, x_s, w);
-    sine_epilogue<BF16, MX, kNothing>(acc, c.bs, c.omega0, a_s, nullptr, w);
-    __syncthreads();
-    for (int l = 1; l <= L; ++l, ++s) {
-      const int b = s & 1;
-      ring.wait(b);
-      zero(acc);
-      warp_mma<BF16, false, false>(acc, a_s, ring.buf(b), w);
-      __syncthreads();
-      if (s + 2 < total) ring.issue(b, c.wm + (size_t)((s + 2) % L) * H * H);
-      sine_epilogue<BF16, MX, kNothing>(acc, c.bs + l * H, c.omega_h, a_s, nullptr, w);
-      __syncthreads();
-    }
-    rows_times_narrow<BF16>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, OUT(), row0, c.n,
-                            tid);
-    __syncthreads();
-  }
 }
 
 // ------------------------------------------------------------ backward
@@ -1060,35 +975,55 @@ __device__ __forceinline__ void wg_passes(float (&d)[64], const uint32_t (&a)[PA
       }
 }
 
-// The ring of W slices: use q of the block (per tile W_1 .. W_L in the
-// forward image, then W_L .. W_1 in the backward image, BW_NS slices each)
-// reads slot q % BW_NB, the (q / BW_NB)-th fill of that slot. The last warp
-// to finish with a fill issues the slot's next one, a bulk copy completing
-// on the slot's mbarrier; no thread waits for a slot to empty.
-template <int NP>  // planes of W
-struct BwRing {
+// The layout of a wgmma kernel's ring of W slices in the block's shared
+// memory: NB slots of SLOT bytes (one k-step, BW_KS rows or columns of W, of
+// up to 3 planes) from byte RING, the slots' mbarriers from byte BAR and, per
+// slot, the count of warps done with its fill from byte COUNT. Per tile the
+// kernel walks W_1 .. W_L in the forward image and, with IMAGES = 2, then
+// W_L .. W_1 in the backward image, NS slices each.
+template <int HW_, int NB_, size_t RING_, size_t BAR_, size_t COUNT_, int IMAGES_>
+struct RingLayout {
+  static constexpr int HW = HW_, NB = NB_, IMAGES = IMAGES_;
+  static constexpr int NS = HW / BW_KS;     // slices of one W
+  static constexpr int PLANE = BW_KS * HW;  // bf16 values in one plane of a slice
+  static constexpr size_t SLOT = 3 * (size_t)PLANE * 2, RING = RING_, BAR = BAR_, COUNT = COUNT_;
+};
+using BwRingLayout = RingLayout<H, BW_NB, kBwRing, kBwBar + kFull * sizeof(uint64_t), kBwCount, 2>;
+
+// The ring: use q of the block reads slot q % NB, the (q / NB)-th fill of
+// that slot. The last warp to finish with a fill issues the slot's next
+// one, a bulk copy completing on the slot's mbarrier; no thread waits for a
+// slot to empty.
+template <int NP, class R>  // planes of W, the ring's layout
+struct WgRing {
   uint8_t* smem;                 // the block's shared memory
   const __nv_bfloat16* planes;   // the block's images (ops/sine_mlp.weight_planes)
   int L, total;                  // hidden layers, uses in the launch
   int use = 0;
 
-  __device__ __forceinline__ uint8_t* slot(int b) const {
-    return smem + kBwRing + b * (3 * BW_PLANE * 2);
-  }
+  __device__ __forceinline__ uint8_t* slot(int b) const { return smem + R::RING + b * R::SLOT; }
   __device__ __forceinline__ uint64_t* bar(int b) const {
-    return reinterpret_cast<uint64_t*>(smem + kBwBar) + kFull + b;
+    return reinterpret_cast<uint64_t*>(smem + R::BAR) + b;
   }
 
-  // Fill slot q % BW_NB with use q's slice (one thread).
+  // Thread 0: the slots' mbarriers and counts (then a barrier of the block).
+  __device__ __forceinline__ void init() const {
+    for (int b = 0; b < R::NB; ++b) {
+      iit::mbar_init(bar(b), 1);
+      reinterpret_cast<int*>(smem + R::COUNT)[b] = 0;
+    }
+  }
+
+  // Fill slot q % NB with use q's slice (one thread).
   __device__ __forceinline__ void fill(int q) const {
-    const int per_tile = 2 * L * BW_NS, j = q % per_tile;
-    const bool fwd = j < L * BW_NS;
-    const int layer = fwd ? j / BW_NS : 2 * L - 1 - j / BW_NS;  // l - 1
-    const int b = q % BW_NB;
-    constexpr uint32_t bytes = NP * BW_PLANE * 2;
+    const int per_tile = R::IMAGES * L * R::NS, j = q % per_tile;
+    const bool fwd = j < L * R::NS;
+    const int layer = fwd ? j / R::NS : 2 * L - 1 - j / R::NS;  // l - 1
+    const int b = q % R::NB;
+    constexpr uint32_t bytes = NP * R::PLANE * 2;
     iit::mbar_expect_tx(bar(b), bytes);
     iit::bulk_g2s(slot(b),
-                  planes + ((size_t)((fwd ? 0 : L) + layer) * BW_NS + j % BW_NS) * NP * BW_PLANE,
+                  planes + ((size_t)((fwd ? 0 : L) + layer) * R::NS + j % R::NS) * NP * R::PLANE,
                   bytes, bar(b));
   }
 
@@ -1096,31 +1031,31 @@ struct BwRing {
   __device__ __forceinline__ void release(int q) const {
     __syncwarp();
     if ((threadIdx.x & 31) == 0) {
-      const int b = q % BW_NB;
-      int* done = reinterpret_cast<int*>(smem + kBwCount);
+      const int b = q % R::NB;
+      int* done = reinterpret_cast<int*>(smem + R::COUNT);
       if (atomicAdd(done + b, 1) == BW_WARPS - 1) {
         done[b] = 0;
-        if (q + BW_NB < total) fill(q + BW_NB);
+        if (q + R::NB < total) fill(q + R::NB);
       }
     }
   }
 };
 
-// d = A W over K = 128: A's planes in registers, W's BW_NS slices from the
+// d = A W over K = 128: A's planes in registers, W's NS slices from the
 // ring (TB = 1: the forward image, B N-major, a.W; TB = 0: the backward
 // image, K-major, gz.W^T). A slice's slot is released once its products are
 // done; the next slice's products are issued before that.
-template <int PA, int PB, int TB>
+template <int PA, int PB, int TB, class R>
 __device__ __forceinline__ void ring_wg_product(float (&d)[64], uint32_t (&a)[PA][8][4],
-                                                BwRing<PB>& ring) {
+                                                WgRing<PB, R>& ring) {
+  static_assert(R::HW == H && BW_KS == 16, "a slice is one k-step of a 128-wide product");
   iit::wg_fence();
 #pragma unroll
-  for (int u = 0; u < BW_NS; ++u, ++ring.use) {
-    const int b = ring.use % BW_NB;
-    iit::mbar_wait(ring.bar(b), (ring.use / BW_NB) & 1);
+  for (int u = 0; u < R::NS; ++u, ++ring.use) {
+    const int b = ring.use % R::NB;
+    iit::mbar_wait(ring.bar(b), (ring.use / R::NB) & 1);
     const uint32_t slot = iit::smem_u32(ring.slot(b));
-    static_assert(BW_KS == 16, "a slice is one k-step");
-    wg_passes<PA, PB, TB, 8>(d, a, u, slot, BW_PLANE * 2, u == 0);
+    wg_passes<PA, PB, TB, 8>(d, a, u, slot, R::PLANE * 2, u == 0);
     iit::wg_commit();
     if (u > 0) {
       iit::wg_wait<1>();
@@ -1166,17 +1101,19 @@ __device__ __forceinline__ void dw_product(float (&dw)[64], const float* __restr
   iit::fence_regs(dw);
 }
 
-// d = x W_0 at the thread's positions (FMA, K = in_size, in order of k).
-template <bool BF16>
-__device__ __forceinline__ void first_layer_wg(float (&d)[64], const Chain& c,
-                                               const float* __restrict__ x_s, const WgPos& p) {
+// d = x W_0 at the thread's positions (FMA, K = in_size, in order of k;
+// xv(r, k) gives x at tile row r, rounded as the mode takes it). Pos is a
+// kernel's position type (row(h), col(ni)), HW its width.
+template <bool BF16, int HW = H, int N4, class XV, class Pos>
+__device__ __forceinline__ void first_layer_wg(float (&d)[N4], const Chain& c, XV xv,
+                                               const Pos& p) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int i = 0; i < N4; ++i) d[i] = 0.f;
   for (int k = 0; k < c.in_size; ++k) {
-    const float x0 = x_s[p.row(0) * MAX_IO + k], x1 = x_s[p.row(1) * MAX_IO + k];
+    const float x0 = xv(p.row(0), k), x1 = xv(p.row(1), k);
 #pragma unroll
-    for (int ni = 0; ni < 16; ++ni) {
-      const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * H + p.col(ni)));
+    for (int ni = 0; ni < N4 / 4; ++ni) {
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * HW + p.col(ni)));
       const float w0 = rnd<BF16>(wv.x), w1 = rnd<BF16>(wv.y);
       d[4 * ni] += x0 * w0;
       d[4 * ni + 1] += x0 * w1;
@@ -1433,12 +1370,9 @@ sine_mlp_bwd_kernel(Chain c_arg, const float* __restrict__ x, const float* __res
   // member m's images m apart
   const __nv_bfloat16* planes = reinterpret_cast<const __nv_bfloat16*>(c_arg.wmt) +
                                 (MB ? (size_t)blockIdx.y * 2 * L * BW_NS * P::W * BW_PLANE : 0);
-  BwRing<P::W> ring{smem, planes, L, my_tiles * 2 * L * BW_NS};
+  WgRing<P::W, BwRingLayout> ring{smem, planes, L, my_tiles * 2 * L * BW_NS};
   if (tid == 0) {
-    for (int b = 0; b < BW_NB; ++b) {
-      iit::mbar_init(bar + kFull + b, 1);
-      reinterpret_cast<int*>(smem + kBwCount)[b] = 0;
-    }
+    ring.init();
     iit::mbar_init(bar + kZFull, 1);
     iit::mbar_init(bar + kGzFree, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1468,7 +1402,7 @@ sine_mlp_bwd_kernel(Chain c_arg, const float* __restrict__ x, const float* __res
     cons_sync();
 
     // forward, stashing z_1 .. z_{L-1}; a_L into a_s, omega cos(omega z_L) in d
-    first_layer_wg<BF16>(d, c, x_s, p);
+    first_layer_wg<BF16>(d, c, [&](int r, int k) { return x_s[r * MAX_IO + k]; }, p);
     for (int l = 0; l < L; ++l) {
       if (l == 0)
         wg_sine<BF16, MX, false>(d, c.bs, c.omega0, nullptr, p);
@@ -1565,6 +1499,115 @@ sine_mlp_bwd_kernel(Chain c_arg, const float* __restrict__ x, const float* __res
   if (tid == 0) iit::bulk_wait_all();
 }
 
+// ------------------------------------------- the width-128 forward (wgmma)
+//
+// Its design is the header note's "Forward at width 128": the width-128
+// backward's forward, product by product (first_layer_wg, wg_sine, planes_of
+// and ring_wg_product on the forward image of W's planes), without the z
+// stash and the backward, so nothing joins the two warpgroups but the ring.
+
+constexpr int FW_NB = 8;  // ring slots: a warpgroup can run half a layer ahead of the other
+constexpr size_t kFwRing = 0;
+constexpr size_t kFwBar = kFwRing + (size_t)FW_NB * 3 * BW_PLANE * 2;
+constexpr size_t kFwCount = kFwBar + FW_NB * sizeof(uint64_t);
+constexpr size_t kFwdSmem = kFwCount + FW_NB * sizeof(int);
+using FwRingLayout = RingLayout<H, FW_NB, kFwRing, kFwBar, kFwCount, 1>;
+
+// The last layer from the accumulator: out[r][o] = sum_c a_L(r, c) rnd(Wl[c][o])
+// + bl[o] for the thread's two rows (a_L in d): the thread's 32 columns in
+// order of ni, then the sums of the 4 threads that share the rows (t = 0 ..
+// 3) by shuffles, xor 1 then xor 2; thread t = 0 writes the row.
+template <bool BF16>
+__device__ __forceinline__ void wg_out(const float (&d)[64], const Chain& c,
+                                       float* __restrict__ out, int row0, const WgPos& p) {
+  const int out_size = c.out_size;
+  float s[2][MAX_IO];
+#pragma unroll
+  for (int o = 0; o < MAX_IO; ++o) s[0][o] = s[1][o] = 0.f;
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni)
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int col = p.col(ni) + cc;
+#pragma unroll
+      for (int o = 0; o < MAX_IO; ++o)
+        if (o < out_size) {
+          const float wv = rnd<BF16>(__ldg(&c.wl[col * out_size + o]));
+          s[0][o] += d[4 * ni + cc] * wv;
+          s[1][o] += d[4 * ni + 2 + cc] * wv;
+        }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o)
+      if (o < out_size) {
+        s[h][o] += __shfl_xor_sync(0xffffffffu, s[h][o], 1);
+        s[h][o] += __shfl_xor_sync(0xffffffffu, s[h][o], 2);
+      }
+  if (p.t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + p.row(h);
+      if (row < c.n)
+#pragma unroll
+        for (int o = 0; o < MAX_IO; ++o)
+          if (o < out_size) out[(size_t)row * out_size + o] = s[h][o] + __ldg(&c.bl[o]);
+    }
+}
+
+// W's planes at c.wmt (both images, as the backward takes them; this reads
+// the forward image).
+template <bool BF16, bool MX, bool MB>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+sine_mlp_fwd_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict__ out,
+                    long long x_stride) {
+  using P = BwPlanes<BF16, MX>;
+  __shared__ MemberFwd mf;
+  if constexpr (MB) {
+    member_fwd<H>(mf, c_arg, x, out, x_stride);
+    __syncthreads();
+  }
+  const Chain& c = chain_of<MB>(mf, c_arg);
+  const auto X = [&] { if constexpr (MB) return mf.x; else return x; };
+  const auto OUT = [&] { if constexpr (MB) return mf.out; else return out; };
+  extern __shared__ float4 smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  const int tid = threadIdx.x;
+  const int L = c.depth - 2;
+  const int n_tiles = (c.n + T - 1) / T;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // member m's images m apart
+  const __nv_bfloat16* planes = reinterpret_cast<const __nv_bfloat16*>(c_arg.wmt) +
+                                (MB ? (size_t)blockIdx.y * 2 * L * BW_NS * P::W * BW_PLANE : 0);
+  WgRing<P::W, FwRingLayout> ring{smem, planes, L, my_tiles * L * BW_NS};
+  if (tid == 0) {
+    ring.init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int q = 0; q < FW_NB && q < ring.total; ++q) ring.fill(q);
+
+  const WgPos p(tid);
+  float d[64];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * T;
+    const float* xt = X();
+    first_layer_wg<BF16>(d, c, [&](int r, int k) {
+      return row0 + r < c.n ? rnd<BF16>(__ldg(xt + (size_t)(row0 + r) * c.in_size + k)) : 0.f;
+    }, p);
+    for (int l = 0; l < L; ++l) {
+      wg_sine<BF16, MX, false>(d, c.bs + l * H, l == 0 ? c.omega0 : c.omega_h, nullptr, p);
+      uint32_t ap[P::A][8][4];
+      planes_of<P::A>(d, ap);
+      ring_wg_product<P::A, P::W, 1>(d, ap, ring);  // z_{l+1} - b_{l+1}
+    }
+    wg_sine<BF16, MX, false>(d, c.bs + L * H, L == 0 ? c.omega0 : c.omega_h, nullptr, p);
+    wg_out<BF16>(d, c, OUT(), row0, p);
+  }
+}
+
 // ------------------------------------------------- the wider kernels
 //
 // Widths 129-512 run on kernels of width 192, 256 or 512: the model's width
@@ -1596,21 +1639,46 @@ sine_mlp_bwd_kernel(Chain c_arg, const float* __restrict__ x, const float* __res
 //   too few for a warp's 64 accumulators beside the 3xTF32 operands. Each
 //   accumulator takes its k-steps in the first design's order: the forward
 //   keeps its bits.
-// - Backward (sine_mlp_bwd_wide_kernel, WideGeo<W>::bwd): 64-row tiles (32
-//   at 512), a 2-deep ring of 32-row slices (16 at 512; 64 at 192, where
-//   they fit), the width-128 kernel's order. Two
-//   accumulator sets (a product's and the sine derivative's) fill a
-//   thread's 255 registers, so 8 warps (a 64 x 256 tile) is the most a
-//   block can hold. dW_l =
-//   a_{l-1}^T gz_l (H x H, l = 1 .. L) is not summed here: the first design
-//   added each tile's a^T gz into the block's partial in H / T pieces, a
-//   synchronous read-modify-write of N / T x L x H^2 x 8 bytes per backward
-//   (7.25 / 12.9 / 103 GB at widths 192 / 256 / 512, partials of 117 MB
-//   and more: HBM, not L2). The kernel instead stores the product's two
-//   operands once, A_l = rnd(a_{l-1}) and G_l = rnd(gz_l), row-major
-//   (L, N, H), with 16-byte stores (2 x 1.2 GB at 192), and
-//   sine_mlp_dw_kernel (below) sums A_l^T G_l over rows. The block's partial
-//   slice holds everything else as before.
+// - Backward at 256 and 512 (sine_mlp_bwd_wide_kernel, WideGeo<W>::bwd):
+//   64-row tiles (32 at 512), a 2-deep ring of 32-row slices (16 at 512),
+//   the width-128 kernel's order. Two accumulator sets (a product's and
+//   the sine derivative's) fill a thread's 255 registers, so 8 warps (a 64
+//   x 256 tile) is the most a block can hold. dW_l = a_{l-1}^T gz_l (H x
+//   H, l = 1 .. L) is not summed here: the first design added each tile's
+//   a^T gz into the block's partial in H / T pieces, a synchronous
+//   read-modify-write of N / T x L x H^2 x 8 bytes per backward (12.9 / 103
+//   GB at widths 256 / 512, partials of 210 MB and more: HBM, not L2). The
+//   kernel instead stores the product's two operands once, A_l =
+//   rnd(a_{l-1}) and G_l = rnd(gz_l), row-major (L, N, H), with 16-byte
+//   stores, and sine_mlp_dw_kernel (below) sums A_l^T G_l over rows. The
+//   block's partial slice holds everything else as before.
+// - Backward at 192 (sine_mlp_bwd_wg192_kernel, "the width-192 backward"
+//   below): on bf16 wgmma, as at 128, with dW summed in the kernel. The
+//   design follows from the registers and the 227 KB of shared memory. A
+//   64 x 192 accumulator is 96 registers a thread, and three planes of a
+//   192-wide A in registers 144 more, so the width-128 chain of
+//   "accumulator -> next A in registers" does not fit; the two warpgroups
+//   split N instead (96 columns each, m64n96k16, a 48-register
+//   accumulator) over 64-row tiles, and a product's A is read by wgmma from
+//   shared memory: act_s holds the activation's (forward) or gz's
+//   (backward) bf16 planes, written by their owners between two barriers
+//   of the block. A 128-row tile would need 144 KB of planes alone.
+//   dW_l = a_{l-1}^T gz_l per tile: a warpgroup's 96 columns of gz
+//   (act_s read N-major, the same image) against a^T from a_s (fp32,
+//   split into planes per k-step, A from registers), in 3 pieces of 64 x
+//   96; each piece is staged in the warpgroup's 24 KB buffer and added into
+//   the block's partial by one bulk reduce-add (ops/sine_mlp.
+//   dw_position_index gives its order), the add into a region waiting for
+//   the one a tile earlier. The layer loop orders a_{l-1}, dW_l, ga, gz_{l-1},
+//   so only dW's accumulator and A planes are live while dW is summed (two
+//   passes over z_{l-1}: its sine for a_{l-1}, its cosine for gz_{l-1}).
+//   W's planes stream through a 3-slot ring of one k-step (18 KB) each.
+//   The z stash is each thread's own pair order (coalesced, no shared
+//   memory); the reduce-adds go under an evict_first L2 policy, so the
+//   stash and W's planes stay in L2. Per tile and layer the dW adds move 144 KB (3.6 GB per
+//   backward at 512^2 d8; the partials, 114 MB, do not fit L2): the split
+//   design's 96 KB of operands out and back moves less per 64 rows, but
+//   needs 2.4 GB of scratch per member and a second kernel.
 
 template <class G>
 constexpr size_t fwd_wide_smem() {
@@ -1893,35 +1961,609 @@ sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* 
   }
 }
 
+// ------------------------------------------- the width-192 backward (wgmma)
+//
+// Its design is the note "Backward at width 192" above. A tile is 64 pixel
+// rows; warpgroup wg holds columns 96 wg .. 96 wg + 95 of every product's
+// output, its warp wi rows 16 wi .. 16 wi + 15, and d[4 ni + q] is the
+// element at
+//   row 16 wi + g + 8 (q >> 1),  column 96 wg + 8 ni + 2 t + (q & 1),  ni < 12
+// (g = lane / 4, t = lane % 4; hopper.cuh's wg_bf16_n96).
+
+constexpr int B2_H = 192, B2_T = 64;  // kernel width, pixel rows per tile
+constexpr int B2_NI = 12;             // 8-column groups of a warpgroup's 96 columns
+constexpr int B2_NB = 3;              // ring slots
+constexpr int B2_AS = B2_H + 4;       // a_s's row stride in floats (its transposed loads hit 32 banks)
+constexpr int B2_PIECE = 64 * 96;     // floats of a dW piece: 64 rows, a warpgroup's 96 columns
+constexpr int B2_PIECES = B2_H / 64;  // pieces of a warpgroup's columns of dW
+// act_s (an activation's or gz's bf16 planes, as wgmma operands): element
+// (r, c) of a plane at byte ((c / 8) * 8 + r / 8) * 128 + (r % 8) * 16 +
+// (c % 8) * 2, so core matrices are B2_CG bytes apart along the columns and
+// B2_RG along the rows
+constexpr uint32_t B2_CG = 1024, B2_RG = 128;
+constexpr uint32_t B2_PLANE_BYTES = B2_T * B2_H * 2;
+// W's slices (ops/sine_mlp.weight_planes): core matrix (kg, ng) at
+// (kg * 24 + ng) * 128 bytes
+constexpr uint32_t B2_W_LBO = (B2_H / 8) * 128, B2_W_SBO = 128;
+// Byte offsets of the block's shared memory: the ring, act_s (3 planes),
+// a_s (a_{l-1} in fp32, rows of B2_AS floats), the two warpgroups' dW
+// staging, the bias sums (4 row groups), the ring's mbarriers and counts.
+constexpr size_t kB2Ring = 0;
+constexpr size_t kB2Act = kB2Ring + (size_t)B2_NB * 3 * BW_KS * B2_H * 2;
+constexpr size_t kB2A = kB2Act + 3 * (size_t)B2_PLANE_BYTES;
+constexpr size_t kB2Stage = kB2A + (size_t)B2_T * B2_AS * 4;
+constexpr size_t kB2Red = kB2Stage + 2 * (size_t)B2_PIECE * 4;
+constexpr size_t kB2Bar = kB2Red + 4 * (size_t)B2_H * 4;
+constexpr size_t kB2Count = kB2Bar + B2_NB * sizeof(uint64_t);
+constexpr size_t kB2Smem = kB2Count + B2_NB * sizeof(int);
+using B2RingLayout = RingLayout<B2_H, B2_NB, kB2Ring, kB2Bar, kB2Count, 2>;
+static_assert(kB2Smem + sizeof(MemberBwd) <= 232448, "the width-192 backward's shared memory");
+static_assert(3 * B2_PLANE_BYTES >= B2_T * B2_AS * 4, "act_s holds rnd(gz_0) as a_s lays it out");
+static_assert(kB2Act % 128 == 0 && kB2A % 16 == 0 && kB2Stage % 16 == 0, "aligned regions");
+
+struct B2Pos {
+  int wg, wi, g, t;
+  __device__ __forceinline__ explicit B2Pos(int tid)
+      : wg(tid >> 7), wi((tid >> 5) & 3), g((tid & 31) >> 2), t(tid & 3) {}
+  __device__ __forceinline__ int row(int h) const { return 16 * wi + g + 8 * h; }
+  __device__ __forceinline__ int col(int ni) const { return 96 * wg + 8 * ni + 2 * t; }
+};
+
+// v, as a value the compiler cannot see through: the descriptors and
+// addresses made from it are made where they are used, not hoisted out of
+// the tile loop into registers held across it (which spilled).
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+__device__ __forceinline__ void b2_sync() { iit::named_barrier(1, BW_THREADS); }
+__device__ __forceinline__ void b2_wg_sync(int wg) { iit::named_barrier(2 + wg, 128); }
+
+// The thread's z pair (ni, h) in a stash tile: its own layout, a warp's
+// stores of one pair 256 contiguous bytes.
+__device__ __forceinline__ float2* b2_stash(float* z, int ni, int h, int tid) {
+  return reinterpret_cast<float2*>(z) + (2 * ni + h) * BW_THREADS + tid;
+}
+
+// The planes of d (an activation, or gz rounded as the mode takes it) into
+// act_s, one bf16 pair a store.
+template <int NP>
+__device__ __forceinline__ void b2_store_planes(uint8_t* __restrict__ act_s, const float (&d)[48],
+                                                const B2Pos& p) {
+  // element (r, c) = (16 wi + g + 8 h, 96 wg + 8 ni + 2 t): column group
+  // 12 wg + ni, row group 2 wi + h
+  uint8_t* base = act_s + (96 * p.wg + 2 * p.wi) * 128 + p.g * 16 + p.t * 4;
+#pragma unroll
+  for (int ni = 0; ni < B2_NI; ++ni)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = ni * B2_CG + h * B2_RG;
+      uint32_t pl[NP];
+      iit::split_planes<NP>(d[4 * ni + 2 * h], d[4 * ni + 2 * h + 1], pl);
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        *reinterpret_cast<uint32_t*>(base + i * B2_PLANE_BYTES + at) = pl[i];
+    }
+}
+
+// d = A W over K = 192 for the warpgroup's 96 columns: A's planes in act_s
+// (K-major), W's slices from the ring (TB = 1: the forward image, a.W; TB =
+// 0: the backward image, gz.W^T); passes as wg_passes. As ring_wg_product.
+template <int PA, int PB, int TB, class R>
+__device__ __forceinline__ void ring_ss_product(float (&d)[48], uint32_t act, WgRing<PB, R>& ring,
+                                                int wg) {
+  iit::wg_fence();
+#pragma unroll
+  for (int u = 0; u < R::NS; ++u, ++ring.use) {
+    const int b = ring.use % R::NB;
+    iit::mbar_wait(ring.bar(b), (ring.use / R::NB) & 1);
+    const uint32_t slot = iit::smem_u32(ring.slot(b)) + wg * (B2_NI * 128);
+    const uint32_t a0 = opaque(act) + u * 2 * B2_CG;
+    bool first = u == 0;
+#pragma unroll
+    for (int s = 2; s >= 0; --s)
+#pragma unroll
+      for (int i = 0; i <= s; ++i)
+        if (i < PA && s - i < PB) {
+          iit::wg_bf16_ss_n96<0, TB>(
+              d, iit::wg_desc(opaque(a0) + i * B2_PLANE_BYTES, B2_CG, B2_RG),
+              iit::wg_desc(opaque(slot) + (s - i) * (R::PLANE * 2), B2_W_LBO, B2_W_SBO),
+              first ? 0 : 1);
+          first = false;
+        }
+    iit::wg_commit();
+    if (u > 0) {
+      iit::wg_wait<1>();
+      ring.release(ring.use - 1);
+    }
+  }
+  iit::wg_wait<0>();
+  ring.release(ring.use - 1);
+  iit::fence_regs(d);
+}
+
+// acc = a^T gz over the tile's 64 rows for dW rows 64 mp .. 64 mp + 63
+// (columns of a) and the warpgroup's 96 columns (of gz): A = a^T from a_s
+// (fp32, split into planes per k-step of 16 rows), B = gz's planes in act_s
+// (N-major: k = row, n = column).
+template <int PA, int PB>
+__device__ __forceinline__ void b2_dw_piece(float (&acc)[48], const float* __restrict__ a_s,
+                                            uint32_t act, int mp, const B2Pos& p) {
+  const int c0 = 64 * mp + 16 * p.wi + p.g;
+  uint32_t ak[PA][4];  // one k-step's planes at a time (register room)
+#pragma unroll
+  for (int kk = 0; kk < B2_T / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 16 * kk + 2 * p.t + 8 * (j >> 1), c = c0 + 8 * (j & 1);
+      uint32_t pl[PA];
+      iit::split_planes<PA>(a_s[r * B2_AS + c], a_s[(r + 1) * B2_AS + c], pl);
+#pragma unroll
+      for (int i = 0; i < PA; ++i) ak[i][j] = pl[i];
+    }
+    iit::wg_fence();
+    const uint32_t b0 = opaque(act) + p.wg * (B2_NI * B2_CG) + kk * 2 * B2_RG;
+    bool first = kk == 0;
+#pragma unroll
+    for (int s = 2; s >= 0; --s)
+#pragma unroll
+      for (int i = 0; i <= s; ++i)
+        if (i < PA && s - i < PB) {
+          iit::wg_bf16_n96<1>(acc, ak[i],
+                              iit::wg_desc(opaque(b0) + (s - i) * B2_PLANE_BYTES, B2_RG, B2_CG),
+                              first ? 0 : 1);
+          first = false;
+        }
+    iit::wg_commit();
+    iit::wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < PA; ++i) iit::fence_regs(ak[i]);
+  }
+  iit::fence_regs(acc);
+}
+
+// A dW piece's element (i, j) = (16 wi + g + 8 h, 8 ni + 2 t + q), i < 64
+// rows of dW, j < 96 columns, is staged (and added into the partial) at
+// float ((2 ni + h) * 128 + 32 wi + 4 g + t) * 2 + q: the warpgroup's
+// threads' own order, a warp's stores of one (ni, h) 256 contiguous bytes
+// (the wrapper puts the pieces back in rows, ops/sine_mlp.dw_position_index).
+__device__ __forceinline__ float2* b2_stage_at(float* stage, int ni, int h, int tid) {
+  return reinterpret_cast<float2*>(stage) + (2 * ni + h) * 128 + (tid & 127);
+}
+
+// z = d + bias; STASH stores z into the stash tile z_g; d = a =
+// rnd(sin(omega z)) (rounded also under MX).
+template <bool BF16, bool MX, bool STASH>
+__device__ __forceinline__ void b2_sine(float (&d)[48], const float* __restrict__ bias,
+                                        float omega, float* __restrict__ z_g, const B2Pos& p,
+                                        int tid) {
+#pragma unroll
+  for (int ni = 0; ni < B2_NI; ++ni) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + p.col(ni)));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float z0 = d[4 * ni + 2 * h] + b.x, z1 = d[4 * ni + 2 * h + 1] + b.y;
+      if (STASH) __stcg(b2_stash(z_g, ni, h, tid), make_float2(z0, z1));
+      d[4 * ni + 2 * h] = rnd_act<BF16, MX>(iit::fast_sin(omega * z0));
+      d[4 * ni + 2 * h + 1] = rnd_act<BF16, MX>(iit::fast_sin(omega * z1));
+    }
+  }
+}
+
+// The last sine layer: z = d + bias; a_s = rnd(sin(omega z)); d = omega
+// cos(omega z).
+template <bool BF16, bool MX>
+__device__ __forceinline__ void b2_sine_last(float (&d)[48], const float* __restrict__ bias,
+                                             float omega, float* __restrict__ a_s,
+                                             const B2Pos& p) {
+#pragma unroll
+  for (int ni = 0; ni < B2_NI; ++ni) {
+    const int c = p.col(ni);
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float z0 = d[4 * ni + 2 * h] + b.x, z1 = d[4 * ni + 2 * h + 1] + b.y;
+      *reinterpret_cast<float2*>(&a_s[p.row(h) * B2_AS + c]) = make_float2(
+          rnd_act<BF16, MX>(iit::fast_sin(omega * z0)), rnd_act<BF16, MX>(iit::fast_sin(omega * z1)));
+      d[4 * ni + 2 * h] = omega * iit::fast_cos(omega * z0);
+      d[4 * ni + 2 * h + 1] = omega * iit::fast_cos(omega * z1);
+    }
+  }
+}
+
+// The backward's re-sine of z_{l-1}, in two passes: SINE, a_s =
+// rnd(sin(omega z)) (a_{l-1}, dW_l's operand); else d = rnd(d) * omega
+// cos(omega z) (the inner rnd under MX): gz_{l-1} from its ga. z from the
+// stash tile z_g, or (FROM_X) z = x W_0 + b_0, recomputed in
+// first_layer_wg's order.
+template <bool BF16, bool MX, bool FROM_X, bool SINE, class XV>
+__device__ __forceinline__ void b2_resine(float (&d)[48], const Chain& c, XV xv,
+                                          const float* __restrict__ z_g, float omega,
+                                          float* __restrict__ a_s, const B2Pos& p, int tid) {
+  float xr[2][MAX_IO];
+  if (FROM_X)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < MAX_IO; ++k) xr[h][k] = k < c.in_size ? xv(p.row(h), k) : 0.f;
+#pragma unroll
+  for (int ni = 0; ni < B2_NI; ++ni) {
+    const int col = p.col(ni);
+    float2 b = make_float2(0.f, 0.f);
+    if (FROM_X) b = __ldg(reinterpret_cast<const float2*>(c.bs + col));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 z;
+      if (FROM_X) {
+        z = make_float2(0.f, 0.f);
+        for (int k = 0; k < c.in_size; ++k) {
+          const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * B2_H + col));
+          z.x += xr[h][k] * rnd<BF16>(wv.x);
+          z.y += xr[h][k] * rnd<BF16>(wv.y);
+        }
+        z.x += b.x;
+        z.y += b.y;
+      } else {
+        z = __ldcg(b2_stash(const_cast<float*>(z_g), ni, h, tid));
+      }
+      if (SINE) {
+        *reinterpret_cast<float2*>(&a_s[p.row(h) * B2_AS + col]) =
+            make_float2(rnd_act<BF16, MX>(iit::fast_sin(omega * z.x)),
+                        rnd_act<BF16, MX>(iit::fast_sin(omega * z.y)));
+      } else {
+        d[4 * ni + 2 * h] = rnd<MX>(d[4 * ni + 2 * h]) * (omega * iit::fast_cos(omega * z.x));
+        d[4 * ni + 2 * h + 1] =
+            rnd<MX>(d[4 * ni + 2 * h + 1]) * (omega * iit::fast_cos(omega * z.y));
+      }
+    }
+  }
+}
+
+// red[warp's row group][column] = the sum of d over the warp's 16 rows (two
+// fixed-order terms, then shuffles across the lanes that share a column).
+__device__ __forceinline__ void b2_bias_sums(const float (&d)[48], float* __restrict__ red,
+                                             const B2Pos& p) {
+#pragma unroll
+  for (int ni = 0; ni < B2_NI; ++ni) {
+    float s[2];
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      float v = d[4 * ni + cc] + d[4 * ni + 2 + cc];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      s[cc] = v;
+    }
+    if (p.g == 0)
+      *reinterpret_cast<float2*>(&red[p.wi * B2_H + p.col(ni)]) = make_float2(s[0], s[1]);
+  }
+}
+
+// db += the 4 row groups' sums in red, in order. Call after a barrier.
+__device__ __forceinline__ void b2_add_bias_sums(const float* __restrict__ red,
+                                                 float* __restrict__ db, int tid) {
+  if (tid < B2_H) add_to(db + tid, ((red[tid] + red[B2_H + tid]) + red[2 * B2_H + tid]) +
+                                       red[3 * B2_H + tid]);
+}
+
+// gz_L = rnd(rnd(g) Wl^T) * dc at the thread's positions (dc in d; the
+// inner rnd under MX; g's rows from n on read as 0), its bias sums into red.
+template <bool BF16, bool MX>
+__device__ __forceinline__ void b2_last_gz(float (&d)[48], const Chain& c,
+                                           const float* __restrict__ g, int row0,
+                                           float* __restrict__ red, const B2Pos& p) {
+  // a loop over the outputs (not unrolled over MAX_IO: the unrolled loads
+  // held registers beside d and spilled)
+  const int out_size = c.out_size;
+  const bool in0 = row0 + p.row(0) < c.n, in1 = row0 + p.row(1) < c.n;
+  const float* g0 = g + (size_t)(row0 + p.row(0)) * out_size;
+  const float* g1 = g + (size_t)(row0 + p.row(1)) * out_size;
+#pragma unroll
+  for (int ni = 0; ni < B2_NI; ++ni)
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int col = p.col(ni) + cc;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll 1
+      for (int o = 0; o < out_size; ++o) {
+        const float wv = rnd<BF16>(__ldg(&c.wl[col * out_size + o]));
+        s0 += (in0 ? rnd<BF16>(__ldg(g0 + o)) : 0.f) * wv;
+        s1 += (in1 ? rnd<BF16>(__ldg(g1 + o)) : 0.f) * wv;
+      }
+      d[4 * ni + cc] = rnd<MX>(s0) * d[4 * ni + cc];
+      d[4 * ni + 2 + cc] = rnd<MX>(s1) * d[4 * ni + 2 + cc];
+    }
+  b2_bias_sums(d, red, p);
+}
+
+// The last layer's weight and bias gradients: dWl += a_L^T rnd(g) over the
+// tile (a_L in a_s), dbl += sum g, db_L += the bias sums of gz_L in red.
+// Call after a barrier.
+template <bool BF16>
+__device__ __noinline__ void b2_last_sums(const float* __restrict__ a_s,
+                                          const float* __restrict__ g,
+                                          const float* __restrict__ red, float* __restrict__ part,
+                                          int n, int in_size, int out_size, int depth, int row0,
+                                          int tid) {
+  const int L = depth - 2;
+  const int rows = n - row0 < B2_T ? n - row0 : B2_T;
+  float* dwl = part + in_size * B2_H + L * B2_H * B2_H;
+  float* dbs = dwl + B2_H * out_size;
+  float* dbl = dbs + (depth - 1) * B2_H;
+  for (int e = tid; e < B2_H * out_size; e += BW_THREADS) {
+    const int k = e % B2_H, o = e / B2_H;
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r)
+      s += a_s[r * B2_AS + k] * rnd<BF16>(__ldg(&g[(size_t)(row0 + r) * out_size + o]));
+    add_to(dwl + k * out_size + o, s);
+  }
+  const int lane = tid & 31;
+  for (int o = tid >> 5; o < out_size; o += BW_WARPS) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < B2_T / 32; ++j) {
+      const int r = lane + 32 * j;
+      s += r < rows ? __ldg(&g[(size_t)(row0 + r) * out_size + o]) : 0.f;
+    }
+    s = warp_sum(s);
+    if (lane == 0) add_to(dbl + o, s);
+  }
+  b2_add_bias_sums(red, dbs + L * B2_H, tid);
+}
+
+// The first layer's weight gradient and dx, from rnd(gz_0) in a_s: dW0 +=
+// x^T rnd(gz_0) over the tile, dx = rnd(gz_0) W0^T (a warp a row; lane i
+// sums columns i + 32 j in order of j, then the warp adds the lanes).
+template <bool BF16>
+__device__ __noinline__ void b2_first_tail(const float* __restrict__ x,
+                                           const float* __restrict__ gs,
+                                           const float* __restrict__ w0, float* __restrict__ part,
+                                           float* __restrict__ dx, int n, int in_size, int row0,
+                                           int tid) {
+  const int rows = n - row0 < B2_T ? n - row0 : B2_T;
+  for (int e = tid; e < in_size * B2_H; e += BW_THREADS) {
+    const int k = e / B2_H, col = e % B2_H;
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r)
+      s += rnd<BF16>(__ldg(&x[(size_t)(row0 + r) * in_size + k])) * gs[r * B2_AS + col];
+    add_to(part + e, s);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int r = warp; r < rows; r += BW_WARPS) {
+    float acc[MAX_IO];
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o) acc[o] = 0.f;
+#pragma unroll
+    for (int j = 0; j < B2_H / 32; ++j) {
+      const int k = lane + 32 * j;
+      const float v = gs[r * B2_AS + k];
+#pragma unroll
+      for (int o = 0; o < MAX_IO; ++o)
+        if (o < in_size) acc[o] += v * rnd<BF16>(__ldg(&w0[o * B2_H + k]));
+    }
+    float mine = 0.f;
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o)
+      if (o < in_size) {
+        const float q = warp_sum(acc[o]);
+        if (lane == o) mine = q;
+      }
+    if (lane < in_size) dx[(size_t)(row0 + r) * in_size + lane] = mine;
+  }
+}
+
+// W's planes at c.wmt (ops/sine_mlp.weight_planes at width 192, both
+// images); the partial slice's dW_m region in the pieces' order (the
+// wrapper puts it back in rows).
+template <bool BF16, bool MX, bool MB>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+sine_mlp_bwd_wg192_kernel(Chain c_arg, const float* __restrict__ x, const float* __restrict__ g,
+                       float* __restrict__ dx, float* __restrict__ z_all,
+                       float* __restrict__ partials, int n_part, long long x_stride) {
+  using P = BwPlanes<BF16, MX>;
+  __shared__ MemberBwd mb;
+  if constexpr (MB) {
+    member_bwd<B2_H, B2_T>(mb, c_arg, x, g, dx, nullptr, nullptr, z_all, partials, n_part,
+                           x_stride);
+    __syncthreads();
+  }
+  const Chain& c = chain_of<MB>(mb, c_arg);
+  const auto X = [&] { if constexpr (MB) return mb.x; else return x; };
+  const auto G_ = [&] { if constexpr (MB) return mb.g; else return g; };
+  const auto DX = [&] { if constexpr (MB) return mb.dx; else return dx; };
+  extern __shared__ float4 smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  uint8_t* act_s = smem + kB2Act;
+  const uint32_t act = iit::smem_u32(act_s);
+  float* a_s = reinterpret_cast<float*>(smem + kB2A);
+  float* red = reinterpret_cast<float*>(smem + kB2Red);
+  const int tid0 = threadIdx.x;
+  const int L = c.depth - 2;
+  const int n_tiles = (c.n + B2_T - 1) / B2_T;
+
+  // this block's slices: partial gradients (zeroed; dW's reduce-adds add
+  // through the async proxy) and the z stash (z_1 .. z_{L-1})
+  float* part = partials + (size_t)blockIdx.x * n_part;
+  float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * B2_T * B2_H;
+  for (int e = tid0; e < n_part; e += BW_THREADS) part[e] = 0.f;
+  iit::fence_async_global();
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // member m's images m apart
+  const __nv_bfloat16* planes =
+      reinterpret_cast<const __nv_bfloat16*>(c_arg.wmt) +
+      (MB ? (size_t)blockIdx.y * 2 * L * B2RingLayout::NS * P::W * B2RingLayout::PLANE : 0);
+  WgRing<P::W, B2RingLayout> ring{smem, planes, L, my_tiles * 2 * L * B2RingLayout::NS};
+  if (tid0 == 0) {
+    ring.init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid0 == 0)
+    for (int q = 0; q < B2_NB && q < ring.total; ++q) ring.fill(q);
+
+  // Each warpgroup's first thread adds its staged dW pieces into the
+  // partial by bulk reduce-adds, a piece once the last add has read the
+  // staging buffer; an add into a piece's region waits for the add into it
+  // one tile earlier (3 L pieces before) to finish, so they come in tile
+  // order: a run repeats bit for bit. A thread's place (tid, p, stage,
+  // leader) is made anew from an opaque tid at each tile and layer:
+  // addresses made from it are not held in registers across the loops (the
+  // member-axis instantiations spilled with them).
+
+  // the bias gradients' region of the partial slice
+  const auto dbs = [&] {
+    return part + c.in_size * B2_H + (c.depth - 2) * B2_H * B2_H + B2_H * c.out_size;
+  };
+  float d[48];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tid = opaque(tid0);
+    const B2Pos p(tid);
+    const int row0 = tile * B2_T;
+    const float* xt = X();
+    const auto xv = [&](int r, int k) {
+      return row0 + r < c.n ? rnd<BF16>(__ldg(xt + (size_t)(row0 + r) * c.in_size + k)) : 0.f;
+    };
+
+    // forward, stashing z_1 .. z_{L-1}; a_L into a_s, omega cos(omega z_L) in d
+    first_layer_wg<BF16, B2_H>(d, c, xv, p);
+    for (int l = 0; l < L; ++l) {
+      const int tid = opaque(tid0);
+      const B2Pos p(tid);
+      if (l == 0)
+        b2_sine<BF16, MX, false>(d, c.bs, c.omega0, nullptr, p, tid);
+      else
+        b2_sine<BF16, MX, true>(d, c.bs + l * B2_H, c.omega_h, z_g + (size_t)(l - 1) * B2_T * B2_H,
+                                p, tid);
+      b2_sync();  // both warpgroups are done with act_s
+      b2_store_planes<P::A>(act_s, d, p);
+      iit::fence_async_shared();  // the planes' stores, before the products read them
+      b2_sync();
+      ring_ss_product<P::A, P::W, 1>(d, act, ring, p.wg);  // z_{l+1} - b_{l+1}
+    }
+    b2_sine_last<BF16, MX>(d, c.bs + L * B2_H, L == 0 ? c.omega0 : c.omega_h, a_s, p);
+
+    // last layer: gz_L = rnd(g) Wl^T * dc; dWl, dbl, db_L (out of line,
+    // with no array live across the call)
+    b2_last_gz<BF16, MX>(d, c, G_(), row0, red, p);
+    b2_sync();  // a_L, gz_L's bias sums; act_s read
+    if (L >= 1) {
+      b2_store_planes<P::G>(act_s, d, p);
+      iit::fence_async_shared();
+    } else {  // gz_0 is the last layer's gz: rnd(gz_0) in fp32 for the first layer's
+              // tail, in act_s (unused without hidden layers) as a_s lays it out
+      float* gs = reinterpret_cast<float*>(act_s);
+#pragma unroll
+      for (int ni = 0; ni < B2_NI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(&gs[p.row(h) * B2_AS + p.col(ni)]) =
+              make_float2(rnd<BF16>(d[4 * ni + 2 * h]), rnd<BF16>(d[4 * ni + 2 * h + 1]));
+    }
+    b2_last_sums<BF16>(a_s, G_(), red, part, c.n, c.in_size, c.out_size, c.depth, row0, tid);
+    b2_sync();  // gz_L in act_s; a_s and red read
+
+    // hidden layers, last to first; gz_l's planes in act_s. Per layer:
+    // a_{l-1}, dW_l, ga = gz_l W_l^T, then gz_{l-1}: nothing but dW's
+    // accumulator is live while dW is summed.
+    for (int l = L; l >= 1; --l) {
+      const int tid = opaque(tid0);
+      const B2Pos p(tid);
+      float* stage = reinterpret_cast<float*>(smem + kB2Stage) + p.wg * B2_PIECE;
+      const bool leader = (tid & 127) == 0;
+      const float* z_l1 = z_g + (size_t)(l >= 2 ? l - 2 : 0) * B2_T * B2_H;  // z_{l-1}
+      if (l >= 2)
+        b2_resine<BF16, MX, false, true>(d, c, xv, z_l1, c.omega_h, a_s, p, tid);
+      else
+        b2_resine<BF16, MX, true, true>(d, c, xv, nullptr, c.omega0, a_s, p, tid);
+      b2_sync();  // a_{l-1} in a_s (and gz_l's planes in act_s)
+      // dW_l = a_{l-1}^T gz_l, piece by piece
+      float* dw = part + c.in_size * B2_H + (size_t)(l - 1) * B2_H * B2_H + p.wg * B2_PIECE;
+#pragma unroll 1
+      for (int mp = 0; mp < B2_PIECES; ++mp) {
+        float acc[48];
+        b2_dw_piece<P::A, P::G>(acc, a_s, act, mp, p);
+        if (leader) iit::bulk_wait_all<true>();  // the staging buffer has been read
+        b2_wg_sync(p.wg);
+#pragma unroll
+        for (int ni = 0; ni < B2_NI; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *b2_stage_at(stage, ni, h, tid) =
+                make_float2(acc[4 * ni + 2 * h], acc[4 * ni + 2 * h + 1]);
+        iit::fence_async_shared();  // the staged piece, before its reduce-add
+        b2_wg_sync(p.wg);
+        if (leader) {
+          // at most the last B2_PIECES - 1 adds pending: the one into this
+          // region (B2_PIECES L >= B2_PIECES adds ago) is done
+          iit::bulk_wait<B2_PIECES - 1>();
+          iit::bulk_reduce_add(dw + mp * 2 * B2_PIECE, stage, B2_PIECE * 4,
+                               iit::l2_evict_first());
+          iit::bulk_commit();
+        }
+      }
+      // ga = gz_l W_l^T; d set first, so gz_l's fp32 copy (its planes are
+      // in act_s) is not held live through dW as the first product's input
+#pragma unroll
+      for (int i = 0; i < 48; ++i) d[i] = 0.f;
+      ring_ss_product<P::G, P::W, 0>(d, act, ring, p.wg);
+      if (l >= 2)
+        b2_resine<BF16, MX, false, false>(d, c, xv, z_l1, c.omega_h, a_s, p, tid);
+      else
+        b2_resine<BF16, MX, true, false>(d, c, xv, nullptr, c.omega0, a_s, p, tid);
+      b2_bias_sums(d, red, p);  // of gz_{l-1}
+      b2_sync();  // both warpgroups are done with act_s and a_s; the bias sums
+      b2_add_bias_sums(red, dbs() + (l - 1) * B2_H, tid);
+      if (l >= 2) {
+        b2_store_planes<P::G>(act_s, d, p);
+        iit::fence_async_shared();
+      } else {  // rnd(gz_0) in fp32 for the first layer's tail
+#pragma unroll
+        for (int ni = 0; ni < B2_NI; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(&a_s[p.row(h) * B2_AS + p.col(ni)]) =
+                make_float2(rnd<BF16>(d[4 * ni + 2 * h]), rnd<BF16>(d[4 * ni + 2 * h + 1]));
+        b2_sync();
+      }
+    }
+
+    // first layer: dW0 += x^T rnd(gz_0), dx = rnd(gz_0) W0^T (db0 is in
+    // the sums above; rnd(gz_0) in a_s, or in act_s without hidden layers)
+    b2_first_tail<BF16>(X(), L >= 1 ? a_s : reinterpret_cast<float*>(act_s), c.w0, part, DX(),
+                        c.n, c.in_size, row0, tid);
+    b2_sync();  // a_s read
+  }
+  if ((tid0 & 127) == 0) iit::bulk_wait_all();
+}
+
 // ----------------------------------------------------------- sine_mlp_dw
 //
 // dW_l = A_l^T G_l over the n rows of the wider backward's operands (A_l =
-// rnd(a_{l-1}), G_l = rnd(gz_l), (L, n, W) each), l = 1 .. L. The rows
-// split into S contiguous ranges, split s holding [s n / S, (s + 1) n / S)
-// (ops/sine_mlp.dw_row_splits), and split s writes its sums into row s of
-// the partial buffer at the dW_m offset, where sum_partials adds the S rows
-// in its fixed order. A block takes one split, one layer and one TM x TN
-// tile of dW (DwGeo: a 96 x 192 half at 192, a 128 x 256 half or eighth at
-// 256 and 512), sums over its rows in registers, KC rows at a time through
-// an NST-deep cp.async ring (rows past the split read as 0), and stores its
-// tile once: no read-modify-write and no atomics, so a run repeats bit for
-// bit. At 256 and 512 a warp holds MT = 2 pieces of 32 x 64, TM / 2 rows
-// apart, that share their G fragments: a third fewer shared-memory loads
-// and operand splits per product than one piece (faster than one piece on
-// an H100). At 192 the tile's 9 warps leave a thread 168 registers (a
-// quarter of the SM's register file for each 3 warps), too few for two
-// pieces (they spilled and ran slower), so a warp holds one. The blocks of one split and layer are adjacent
-// in the grid and run together, so the rows of A and G come from HBM about
-// once (the repeats from L2).
-// Bound at 512^2, d8: at 192 the 2.4 GB read (0.72 ms) against 0.70 ms of
-// 3xTF32 products at 495 TFLOP/s; at 256 and 512 the products (1.2 and
-// 4.9 ms at that rate). Products as in the chain kernels: 3xTF32 in the
+// rnd(a_{l-1}), G_l = rnd(gz_l), (L, n, W) each), l = 1 .. L, at widths 256
+// and 512 (SINE_MLP_DW_WIDTHS; the width-192 backward sums its dW itself).
+// The rows split into S contiguous ranges, split s holding [s n / S, (s +
+// 1) n / S) (ops/sine_mlp.dw_row_splits), and split s writes its sums into
+// row s of the partial buffer at the dW_m offset, where sum_partials adds
+// the S rows in its fixed order. A block takes one split, one layer and one
+// TM x TN tile of dW (DwGeo: a 128 x 256 half or eighth), sums over its
+// rows in registers, KC rows at a time through an NST-deep cp.async ring
+// (rows past the split read as 0), and stores its tile once: no
+// read-modify-write and no atomics, so a run repeats bit for bit. A warp
+// holds MT = 2 pieces of 32 x 64, TM / 2 rows apart, that share their G
+// fragments: a third fewer shared-memory loads and operand splits per
+// product than one piece (faster than one piece on an H100). The blocks of
+// one split and layer are adjacent in the grid and run together, so the
+// rows of A and G come from HBM about once (the repeats from L2).
+// Bound at 512^2, d8: the products (1.2 and 4.9 ms at 256 and 512 in
+// 3xTF32 at 495 TFLOP/s). Products as in the chain kernels: 3xTF32 in the
 // fp32 mode, one pass on the bf16 values in the bf16 mode.
+#define SINE_MLP_DW_WIDTHS(X) X(256) X(512)
 template <int W>
 struct DwGeo {
-  static constexpr int MT = W == 192 ? 1 : 2;  // 32 x 64 pieces a warp, TM / MT rows apart
-  static constexpr int TM = W == 192 ? 96 : 128, TN = W == 192 ? 192 : 256;  // the dW tile
-  static constexpr int KC = W == 192 ? 64 : 32, NST = W == 192 ? 3 : 4;  // chunk rows, ring
+  static constexpr int MT = 2;                 // 32 x 64 pieces a warp, TM / MT rows apart
+  static constexpr int TM = 128, TN = 256;     // the dW tile
+  static constexpr int KC = 32, NST = 4;       // chunk rows, ring
   static constexpr int CG = TN / 64;
   static constexpr int WARPS = (TM / (32 * MT)) * CG;
   static constexpr int THREADS = 32 * WARPS;
@@ -2022,12 +2664,8 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
     const int b = k % D::NST;
     ring.wait(b);
     const float* buf = ring.buf(b);
-    if constexpr (D::MT == 1)
-      warp_mma_k<BF16, true, false, D::TM, D::TN, D::KC>(acc[0], buf, w.m0, 0,
-                                                         buf + D::KC * D::TM, w);
-    else
-      warp_mma_at2<BF16, D::TM, D::TN, D::KC, D::TM / 2>(acc[0], acc[1], buf,
-                                                         buf + D::KC * D::TM, w);
+    warp_mma_at2<BF16, D::TM, D::TN, D::KC, D::TM / 2>(acc[0], acc[1], buf, buf + D::KC * D::TM,
+                                                       w);
     __syncthreads();
     if (k + D::NST < chunks) issue(b, k + D::NST);
   }
@@ -2209,9 +2847,31 @@ int SINE_MLP_CAT(sine_mlp_dw_w, SINE_MLP_WIDE)(SINE_MLP_DW_WIDE_ARGS) {
   return (int)launch(kernel, blocks, D::THREADS, smem, s, a, g, partials, n, layers, n_part,
                      offset);
 }
+#elif SINE_MLP_PART == 1 && SINE_MLP_WIDE == 192
+// The width-192 backward (wgmma): wmt holds W's planes; dW_m goes into the
+// partials (dw_a, dw_g are not read).
+int sine_mlp_bwd_w192(SINE_MLP_BWD_WIDE_ARGS) {
+  static_assert(GW::bwd::T == B2_T, "KERNEL_TILE_ROWS[192]");
+  if (reinterpret_cast<uintptr_t>(wmt) % 16 != 0 || reinterpret_cast<uintptr_t>(z) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth, omega0,
+                             omega_h);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 blocks(grid, members);
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    if (members > 1) {
+      return launch(sine_mlp_bwd_wg192_kernel<BF, MXV, true>, blocks, BW_THREADS, kB2Smem, s, c, x,
+                    g, dx, z, partials, n_part, x_stride);
+    }
+    return launch(sine_mlp_bwd_wg192_kernel<BF, MXV, false>, blocks, BW_THREADS, kB2Smem, s, c, x,
+                  g, dx, z, partials, n_part, x_stride);
+  });
+}
 #elif SINE_MLP_PART == 1
 int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
   using G = GW::bwd;
+  if (dw_a == nullptr || dw_g == nullptr) return (int)cudaErrorInvalidValue;
   const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth, omega0,
                              omega_h);
   constexpr size_t smem = bwd_wide_smem<G>();
@@ -2256,10 +2916,12 @@ int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
 
 #define SINE_MLP_DECLARE(W, TR, KS, NB, FTR, FKS, FNB) \
   int sine_mlp_fwd_w##W(SINE_MLP_FWD_WIDE_ARGS);   \
-  int sine_mlp_bwd_w##W(SINE_MLP_BWD_WIDE_ARGS);   \
-  int sine_mlp_dw_w##W(SINE_MLP_DW_WIDE_ARGS);
+  int sine_mlp_bwd_w##W(SINE_MLP_BWD_WIDE_ARGS);
 SINE_MLP_WIDE_GEOS(SINE_MLP_DECLARE)
 #undef SINE_MLP_DECLARE
+#define SINE_MLP_DW_DECLARE(W) int sine_mlp_dw_w##W(SINE_MLP_DW_WIDE_ARGS);
+SINE_MLP_DW_WIDTHS(SINE_MLP_DW_DECLARE)
+#undef SINE_MLP_DW_DECLARE
 
 // The kernel width a model of hidden width h runs on (h zero-padded up to
 // it): 128 or a width of SINE_MLP_WIDE_GEOS; 0 above the widest.
@@ -2290,10 +2952,11 @@ int sine_mlp_max_io() { return MAX_IO; }
 // instantiation (sine_mlp_fwd). One persistent block per SM (at
 // most one per tile) for each member. hidden: the kernel width the weights
 // are padded to. At most kMaxRows rows and 65,535 members.
-int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const float* wl,
-                         const float* bs, const float* bl, float* out, int members,
-                         long long x_stride, int n, int in_size, int out_size, int depth,
-                         int hidden, float omega0, float omega_h, int bf16, void* stream) {
+int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const void* wp,
+                         const float* wl, const float* bs, const float* bl, float* out,
+                         int members, long long x_stride, int n, int in_size, int out_size,
+                         int depth, int hidden, float omega0, float omega_h, int bf16,
+                         void* stream) {
   if (n <= 0 || members <= 0) return 0;
   const int rows = sine_mlp_tile_rows(hidden);
   if (rows == 0 || n > kMaxRows || members > 65535 || x_stride < 0)
@@ -2308,18 +2971,20 @@ int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const
     SINE_MLP_WIDE_GEOS(SINE_MLP_FWD_CASE)
 #undef SINE_MLP_FWD_CASE
   }
+  if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   const int tiles = (n + rows - 1) / rows;
   const dim3 grid(tiles < sms ? tiles : sms, members);
-  const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
-                             omega_h);
+  const Chain c = make_chain(w0, wm, reinterpret_cast<const float*>(wp), wl, bs, bl, n, in_size,
+                             out_size, depth, omega0, omega_h);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
     if (members > 1) {
-      return launch(sine_mlp_fwd_kernel<BF, MXV, true>, grid, THREADS, kFwdSmem, s, c, x, out,
+      return launch(sine_mlp_fwd_kernel<BF, MXV, true>, grid, BW_THREADS, kFwdSmem, s, c, x, out,
                     x_stride);
     }
-    return launch(sine_mlp_fwd_kernel<BF, MXV, false>, grid, THREADS, kFwdSmem, s, c, x, out,
+    return launch(sine_mlp_fwd_kernel<BF, MXV, false>, grid, BW_THREADS, kFwdSmem, s, c, x, out,
                   x_stride);
   });
 }
@@ -2398,11 +3063,11 @@ int sine_mlp_dw_batched(const float* a, const float* g, float* partials, int mem
       reinterpret_cast<uintptr_t>(partials) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   switch (hidden) {
-#define SINE_MLP_DW_CASE(W, TR, KS, NB, FTR, FKS, FNB) \
-  case W:                                         \
+#define SINE_MLP_DW_CASE(W)                                                                   \
+  case W:                                                                                     \
     return sine_mlp_dw_w##W(a, g, partials, n, layers, splits, n_part, offset, bf16, members, \
                             stream);
-    SINE_MLP_WIDE_GEOS(SINE_MLP_DW_CASE)
+    SINE_MLP_DW_WIDTHS(SINE_MLP_DW_CASE)
 #undef SINE_MLP_DW_CASE
     default: return (int)cudaErrorInvalidValue;
   }

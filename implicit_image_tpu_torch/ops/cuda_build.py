@@ -24,7 +24,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS
+from implicit_image_tpu_torch.ops.sine_mlp import DW_WIDTHS, KERNEL_WIDTHS
 
 __all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "open_device", "ptxas_report",
            "ptxas_table"]
@@ -34,10 +34,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("sine_mlp.cu", "fast_math.cuh", "hopper.cuh")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # the parts of sine_mlp.cu: the width-128 kernels, sum_partials and the C
-# interface; then each wider width's forward, backward and sine_mlp_dw
+# interface; then each wider width's forward and backward, and sine_mlp_dw
+# at the widths that have it
 _PARTS = {"base": []} | {
     f"{part}{w}": [f"-DSINE_MLP_WIDE={w}", f"-DSINE_MLP_PART={i}"]
-    for w in KERNEL_WIDTHS[1:] for i, part in enumerate(("fwd", "bwd", "dw"))}
+    for w in KERNEL_WIDTHS[1:] for i, part in enumerate(("fwd", "bwd", "dw"))
+    if part != "dw" or w in DW_WIDTHS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,9 +48,10 @@ _SIGNATURES = {
     "sine_mlp_kernel_width": ([_I], _I),
     "sine_mlp_tile_rows": ([_I], _I),
     "sine_mlp_max_io": ([], _I),
-    # x, w0, wm, wl, bs, bl, out, members, x_stride, n, in, out, depth,
-    # hidden, omega0, omega_h, bf16, stream (one member: the single launch)
-    "sine_mlp_fwd_batched": ([_P] * 7 + [_I, ctypes.c_longlong] + [_I] * 5
+    # x, w0, wm, wp (W's planes, width 128), wl, bs, bl, out, members,
+    # x_stride, n, in, out, depth, hidden, omega0, omega_h, bf16, stream (one
+    # member: the single launch)
+    "sine_mlp_fwd_batched": ([_P] * 8 + [_I, ctypes.c_longlong] + [_I] * 5
                              + [_F, _F, _I, _P], _I),
     "sine_mlp_max_rows": ([], _I),
     # x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, dw_a, dw_g, members,

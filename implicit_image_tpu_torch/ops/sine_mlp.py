@@ -13,11 +13,12 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
     rematerializing backward. The TPU accumulated dW/db across sequential
     grid steps; on the card each block of a fixed grid writes its own
     partial slice and `sum_partials` adds the slices in a fixed order.
-    Above width 128 the backward is two kernels: `sine_mlp_bwd_wide`
-    computes everything but the hidden layers' dW and stores dW's operands
-    (rnd(a_{l-1}) and rnd(gz_l), row-major), and `sine_mlp_dw` sums their
-    product over the rows split into one contiguous range per partial
-    slice (`dw_row_splits`), each range into its slice.
+    At kernel widths 256 and 512 the backward is two kernels:
+    `sine_mlp_bwd_wide` computes everything but the hidden layers' dW and
+    stores dW's operands (rnd(a_{l-1}) and rnd(gz_l), row-major), and
+    `sine_mlp_dw` sums their product over the rows split into one
+    contiguous range per partial slice (`dw_row_splits`), each range into
+    its slice. At 128 and 192 the backward sums dW itself.
     `sine_mlp_bwd_batched` launches each of them once over a member axis
     (grid y; `sine_mlp_dw_batched`, `sum_partials_batched`): the
     counterpart of the jax.vmap of K2 in the JAX package's batched fit and
@@ -26,17 +27,18 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 
 What bounds them on the card, and the design: see the note at the top of
 csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
-the tensor cores over 128-row tiles: mma.sync in the forward, with each
-hidden W streamed by cp.async copies into a double-buffered ring; bf16
-wgmma in the width-128 backward, with W's bf16 planes (`weight_planes`,
-packed here on every launch) streamed by bulk copies and each tile's dW added
-into the partial by a bulk reduce-add, its rows turned (`dw_turn_index`,
-turned back here)). Widths up to
-512 run: a model's hidden width is zero-padded to the next kernel width of
-`KERNEL_WIDTHS` (padded units stay exactly 0); the kernels above 128 stream
-each W in slices of rows, tile 32 to 128 pixel rows, and leave dW to
-`sine_mlp_dw` (csrc/sine_mlp.cu, "the wider kernels", "sine_mlp_dw"). A
-CUDA tensor of a width above 512 raises.
+the tensor cores: bf16 wgmma in the forward at width 128 and the backward
+at widths 128 and 192, with W's bf16 planes (`weight_planes`, packed once
+per K1/K2 pair, in the forward at 128 and in the backward at 192) streamed
+by bulk copies and each tile's dW added into the partial by bulk
+reduce-adds (`dw_position_index`, its order undone here); mma.sync
+3xTF32 in the wider kernels, with each W streamed by cp.async copies into
+a ring). Widths up to 512 run: a model's hidden width is zero-padded to the
+next kernel width of `KERNEL_WIDTHS` (padded units stay exactly 0); the
+kernels above 128 stream each W in slices, tile 32 to 128 pixel rows, and
+at 256 and 512 leave dW to `sine_mlp_dw` (csrc/sine_mlp.cu, "the wider
+kernels", "the width-192 backward", "sine_mlp_dw"). A CUDA tensor of a
+width above 512 raises.
 
 Side by side in this module:
 
@@ -50,11 +52,13 @@ Side by side in this module:
     additions (row groups, then the groups in order), equal to the kernel
     bit for bit on the card; only the tests and chip_smoke.py call it;
   * `siren_chain_dw_operands` / `sine_mlp_dw_reference` — the operands the
-    wider backward stores and the split dW that `sine_mlp_dw` computes
-    from them, plain torch (the tests and chip_smoke.py);
+    wider backward stores at 256 and 512 and the split dW that
+    `sine_mlp_dw` computes from them, plain torch (the tests and
+    chip_smoke.py);
   * `SineMLPFunction` — the autograd.Function. A CUDA tensor runs the
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
-    back from one to the other;
+    back from one to the other. W's planes are packed at most once per
+    forward and backward pair (kept from the forward at width 128);
   * `SineMLPBatchedFunction` — the same over a member axis (the batched
     fit's), in every mode;
   * `siren_apply_flat_fused`, `siren_apply_flat_batched_fused` — the [0,1]
@@ -65,9 +69,10 @@ Side by side in this module:
 Precision modes: "fp32" (the main path: each hidden product is 3xTF32 on
 the tensor cores, every operand split into hi = tf32(x) and lo = tf32(x -
 hi), hi*hi + hi*lo + lo*hi accumulated in fp32, which holds the fp32 chain
-to ~1e-6 relative; in the width-128 backward three bf16 planes h, m, l of
-each operand and the six products with at most two orders of smallness,
-as accurate; the first and last layers are fp32 FMA) and "bf16"
+to ~1e-6 relative; in the wgmma kernels (the forward at 128, the backward
+at 128 and 192) three bf16 planes h, m, l of each operand and the six
+products with at most two orders of smallness, as accurate; the first and
+last layers are fp32 FMA) and "bf16"
 (matmul operands rounded to bf16, fp32 accumulation — what the Pallas
 kernel computes). `precision_from_config` maps `train.matmul_precision`. A
 1-pass TF32 product is never used.
@@ -113,6 +118,8 @@ __all__ = [
     "siren_apply_flat_batched_fused",
     "KERNEL_TILE_ROWS",
     "KERNEL_WIDTHS",
+    "PLANE_WIDTHS",
+    "DW_WIDTHS",
     "kernel_width",
     "partial_layout",
     "MAX_ROWS",
@@ -126,6 +133,7 @@ __all__ = [
     "sine_mlp_dw",
     "weight_planes",
     "dw_turn_index",
+    "dw_position_index",
     "SUM_PARTIALS_GROUPS",
     "sum_partials_row_groups",
     "sum_partials_reference",
@@ -162,6 +170,11 @@ LAUNCHES_MIXED = {k: 0 for k in LAUNCHES}
 # runs on the first width that is >= h, zero-padded to it
 KERNEL_TILE_ROWS = {128: 128, 192: 64, 256: 64, 512: 32}
 KERNEL_WIDTHS = tuple(KERNEL_TILE_ROWS)
+# the kernel widths whose wgmma kernels stream W's bf16 planes
+# (`weight_planes`): the forward and backward at 128, the backward at 192;
+# and those whose backward leaves the hidden layers' dW to `sine_mlp_dw`
+PLANE_WIDTHS = (128, 192)
+DW_WIDTHS = (256, 512)
 
 # kMaxRows of csrc/sine_mlp.cu (the library's sine_mlp_max_rows(), which the
 # card tests and chip_smoke.py hold equal to it): the most
@@ -493,12 +506,22 @@ def _check_rows(n: int, what: str) -> None:
             "render_region(tile_rows=...)")
 
 
+def _planes_of(wm: torch.Tensor, hidden: int, bf16: bool, mixed: bool):
+    """W's planes as the kernels of width `hidden` stream them (None where
+    no kernel takes them): one where W is a bf16 value already."""
+    if hidden not in PLANE_WIDTHS:
+        return None
+    return weight_planes(wm, 1 if bf16 or mixed else 3)
+
+
 def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
-                kernel: str) -> torch.Tensor:
+                kernel: str, keep: bool = False):
     """Pack, check and launch the forward once over `members` (params tuples
     of one shape, or one params tuple with a leading member axis) on x,
     (N, in) shared or (M, N, in) one per member -> (M, N, out); counted
-    under `kernel`."""
+    under `kernel`. At width 128 the forward takes W's planes
+    (`weight_planes`); `keep` returns (out, planes), so that the backward
+    takes the same (None at the other widths, whose forward does not)."""
     n = x.shape[-2]
     _check_rows(n, kernel)
     lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
@@ -507,22 +530,26 @@ def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
     dev = x.device
     m = _member_count(members)
     w0, wm, wl, bs, bl = _pack_members(members, hidden, mixed)
+    planes = _planes_of(wm, hidden, bf16, mixed) if hidden == KERNEL_WIDTHS[0] else None
     x = _rnd(x.float(), mixed).contiguous()
     x_stride = n * in_size if x.dim() == 3 else 0
     out = torch.empty((m, n, out_size), dtype=torch.float32, device=dev)
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs),
                     ("bl", bl), ("out", out)):
         _check_cuda(name, t, dev)
+    if planes is not None:
+        _check_cuda("planes", planes.view(torch.float32), dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sine_mlp_fwd_batched(
-            x.data_ptr(), w0.data_ptr(), wm.data_ptr(), wl.data_ptr(),
+            x.data_ptr(), w0.data_ptr(), wm.data_ptr(),
+            planes.data_ptr() if planes is not None else None, wl.data_ptr(),
             bs.data_ptr(), bl.data_ptr(), out.data_ptr(), m, x_stride, n, in_size,
             out_size, depth, hidden, om[0], om[1], _mode_flags(bf16, mixed), stream,
         )
     _raise_on(err, kernel)
     _count(kernel, bf16, mixed)
-    return out
+    return (out, planes) if keep else out
 
 
 def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
@@ -548,14 +575,16 @@ def _check_one_shape(members, what: str = "sine_mlp_fwd_batched") -> None:
                              f"member 0 {shapes[0]}; a batched launch takes one shape")
 
 
-def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
+def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str, keep: bool = False):
     """Launch the forward kernel once over a member axis: M params tuples of
     one shape (`members`; or one params tuple whose leaves carry a leading
     member axis, the batched fit's) on mapped coords x on the card, (N, in)
     shared by every member or (M, N, in) one per member -> (M, N, out),
     member m's rows the bits of `sine_mlp_fwd(members[m], x[m], ...)`, in
     every mode. Members of different layer shapes, or N above MAX_ROWS,
-    raise ValueError."""
+    raise ValueError. `keep` returns (out, planes), W's planes as the
+    backward takes them (`sine_mlp_bwd_batched(..., planes=)`; None but at
+    width 128)."""
     bf16, mixed = precision_modes(precision)
     _check_one_shape(members)
     m = _member_count(members)
@@ -564,7 +593,7 @@ def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str) -> torch
                          f"there are {m} members")
     if x.dim() not in (2, 3) or m > 65535:
         raise ValueError("sine_mlp_fwd_batched: x must be (N, in) or (M, N, in), M <= 65535")
-    return _fwd_launch(members, x, cfg, bf16, mixed, "sine_mlp_fwd_batched")
+    return _fwd_launch(members, x, cfg, bf16, mixed, "sine_mlp_fwd_batched", keep=keep)
 
 
 def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, device):
@@ -588,32 +617,35 @@ def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, 
     return max(1, min(n_tiles, sms)), n_part, sizes
 
 
-# W rows of a ring slice of the width-128 backward (BW_KS of csrc/sine_mlp.cu)
+# W rows of a ring slice of the wgmma kernels (BW_KS of csrc/sine_mlp.cu)
 _RING_ROWS = 16
 
 
 def weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
-    """The width-128 backward's hidden weights as its ring streams them: wm
-    (..., L, 128, 128) fp32 -> bf16 (..., 2, L, 8, planes, 2, 16, 8, 8).
+    """The hidden weights as the wgmma kernels' rings stream them (the
+    forward and backward of width 128, the backward of width 192): wm (...,
+    L, h, h) fp32, h in PLANE_WIDTHS -> bf16 (..., 2, L, h / 16, planes, 2,
+    h / 8, 8, 8).
 
     Plane p of W is bf16(W - planes 0 .. p-1) (nearest even; three planes
     hold an fp32 W exactly, one is the bf16 mode's rounding). Image 0 (a.W,
-    the forward pass) cuts W into 8 slices of 16 rows, image 1 (gz.W^T, the
-    backward pass) into 8 slices of 16 columns; a slice's planes follow each
-    other, and each plane is 2 x 16 core matrices of 8 x 8 values, 8
-    consecutive columns of W a row: [.., u, p, kg, ng, r, c] = W[16 u + 8 kg
-    + r][8 ng + c] in image 0 and W[8 ng + r][16 u + 8 kg + c] in image 1
-    (kg the slice's K group, ng the N group: csrc/hopper.cuh's layout)."""
+    the forward pass) cuts W into h / 16 slices of 16 rows, image 1 (gz.W^T,
+    the backward pass) into h / 16 slices of 16 columns; a slice's planes
+    follow each other, and each plane is 2 x h / 8 core matrices of 8 x 8
+    values, 8 consecutive columns of W a row: [.., u, p, kg, ng, r, c] =
+    W[16 u + 8 kg + r][8 ng + c] in image 0 and W[8 ng + r][16 u + 8 kg + c]
+    in image 1 (kg the slice's K group, ng the N group: csrc/hopper.cuh's
+    layout)."""
     lead, layers, h = wm.shape[:-3], wm.shape[-3], wm.shape[-1]
-    if h != KERNEL_WIDTHS[0] or wm.shape[-2] != h:
-        raise ValueError(f"weight_planes: expected (..., L, {KERNEL_WIDTHS[0]}, "
-                         f"{KERNEL_WIDTHS[0]}), got {tuple(wm.shape)}")
+    if h not in PLANE_WIDTHS or wm.shape[-2] != h:
+        raise ValueError(f"weight_planes: expected (..., L, h, h) with h in {PLANE_WIDTHS}, "
+                         f"got {tuple(wm.shape)}")
     rest, parts = wm.float(), []
     for p in range(planes):
         parts.append(rest.to(torch.bfloat16))
         if p + 1 < planes:
             rest = rest - parts[-1]  # fp32: the bf16 plane converts exactly
-    pl = torch.stack(parts, dim=-3)  # (..., L, planes, 128, 128)
+    pl = torch.stack(parts, dim=-3)  # (..., L, planes, h, h)
     n, u = len(lead), h // _RING_ROWS
     shape = lead + (layers, planes)
     fwd = pl.reshape(shape + (u, _RING_ROWS // 8, 8, h // 8, 8)).permute(
@@ -632,16 +664,47 @@ def dw_turn_index(hidden: int = 128) -> torch.Tensor:
     return (((j >> 2) + (i & 7)) & (hidden // 4 - 1)) * 4 + (j & 3)
 
 
-_TURN_INDEX = {}  # device -> dw_turn_index() there (a host copy each step would sync)
+# the width-192 backward's dW pieces: 64 rows of dW by the 96 columns of a
+# warpgroup (B2_PIECE of csrc/sine_mlp.cu)
+_PIECE_ROWS, _PIECE_COLS = 64, 96
+
+
+def dw_position_index(hidden: int) -> torch.Tensor:
+    """Where the wgmma backward of kernel width `hidden` (128 or 192) leaves
+    dW[i][j] in a layer's hidden^2 floats of its partial: (hidden, hidden)
+    flat positions. At 128 row i holds row i, its 16-byte chunks turned
+    (`dw_turn_index`). At 192 the layer is 6 pieces of 64 x 96 in the order
+    (i / 64, j / 96), each in the order its warpgroup's threads hold it:
+    element (16 wi + g + 8 h, 8 ni + 2 t + q) of a piece at ((2 ni + h) *
+    128 + 32 wi + 4 g + t) * 2 + q (csrc b2_stage_at)."""
+    if hidden == KERNEL_WIDTHS[0]:
+        return torch.arange(hidden).view(-1, 1) * hidden + dw_turn_index(hidden)
+    if hidden != 192:
+        raise ValueError(f"dw_position_index: no wgmma backward of width {hidden}")
+    i = torch.arange(hidden).view(-1, 1)
+    j = torch.arange(hidden).view(1, -1)
+    pi, pj = i % _PIECE_ROWS, j % _PIECE_COLS
+    piece = (i // _PIECE_ROWS) * (hidden // _PIECE_COLS) + j // _PIECE_COLS
+    wi, g, h = pi // 16, pi % 8, (pi % 16) // 8
+    ni, t, q = pj // 8, (pj % 8) // 2, pj % 2
+    return (piece * _PIECE_ROWS * _PIECE_COLS
+            + ((2 * ni + h) * 128 + 32 * wi + 4 * g + t) * 2 + q)
+
+
+# (device, width) -> dw_position_index there (a host copy each step would sync)
+_POSITION_INDEX = {}
 
 
 def _unturn_dw(dwm: torch.Tensor) -> torch.Tensor:
-    """The width-128 backward's summed dW_m (..., L, 128, 128), its rows
-    turned (`dw_turn_index`), back in row-major order."""
-    idx = _TURN_INDEX.get(dwm.device)
+    """The wgmma backward's summed dW_m (..., L, h, h), in its partial's
+    order (`dw_position_index`), back in row-major order."""
+    h = dwm.shape[-1]
+    key = (dwm.device, h)
+    idx = _POSITION_INDEX.get(key)
     if idx is None:
-        idx = _TURN_INDEX[dwm.device] = dw_turn_index(dwm.shape[-1]).to(dwm.device)
-    return torch.gather(dwm, -1, idx.expand(dwm.shape))
+        idx = _POSITION_INDEX[key] = dw_position_index(h).reshape(-1).to(dwm.device)
+    flat = dwm.reshape(dwm.shape[:-2] + (h * h,))
+    return torch.gather(flat, -1, idx.expand(flat.shape)).reshape(dwm.shape)
 
 
 def _check_fits(nbytes: int, dev, what: str) -> None:
@@ -654,14 +717,16 @@ def _check_fits(nbytes: int, dev, what: str) -> None:
 
 
 def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
-                batched: bool):
-    """Pack, check and launch the backward (and, above width 128,
-    sine_mlp_dw), then the partial sum, once over `members` (params tuples of
-    one shape, or one params tuple with a leading member axis): x (N, in)
+                batched: bool, planes: Optional[torch.Tensor] = None):
+    """Pack, check and launch the backward (and, at widths 256 and 512,
+    sine_mlp_dw), then the partial sum, once over `members` (params tuples
+    of one shape, or one params tuple with a leading member axis): x (N, in)
     shared or (M, N, in), g (M, N, out) when `batched`,
-    else one member with x (N, in) and g (N, out). Returns (dx, grads), every
-    leaf with a leading member axis when `batched`; the launches count under
-    the batched keys when `batched`."""
+    else one member with x (N, in) and g (N, out). `planes`: W's planes
+    (`weight_planes`) where the forward packed them, else packed here at
+    widths 128 and 192. Returns (dx, grads), every leaf with a leading
+    member axis when `batched`; the launches count under the batched keys
+    when `batched`."""
     bf16, mixed = precision_modes(precision)
     first = _first_member(members)
     lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
@@ -669,27 +734,30 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     dev = x.device
     m = _member_count(members)
     h = first[0]["w"].shape[1]
-    w0, wm, wl, bs, _ = _pack_members(members, hidden, mixed)
-    wide = hidden != KERNEL_WIDTHS[0]
-    # the wider kernels' gz W^T reads W^T's rows from the ring; the width-128
-    # kernel streams W's bf16 planes (one where W is a bf16 value already)
-    wmt = (wm.transpose(-1, -2).contiguous() if wide
-           else weight_planes(wm, 1 if bf16 or mixed else 3))
-    x = _rnd(x.float(), mixed).contiguous()
-    g = g.float().contiguous()
     n = x.shape[-2]
-    x_stride = n * in_size if x.dim() == 3 else 0
     tile = KERNEL_TILE_ROWS[hidden]
-    flags = _mode_flags(bf16, mixed)
     grid, n_part, sizes = partial_layout(n, depth, in_size, h, out_size, dev)
     stash, layers = max(depth - 3, 1), max(depth - 2, 1)
+    # dW in the kernel (the wgmma backwards, which stream W's bf16 planes: one
+    # where W is a bf16 value already), or its operands for sine_mlp_dw (the
+    # wider kernels, whose gz W^T reads W^T's rows from the ring)
+    split_dw = hidden in DW_WIDTHS
     lead = (m,) if batched else ()
     if batched:
-        # dx, the z stash, the partials, their sums and the wider kernels' dW
-        # operands, per member (module note on sine_mlp_bwd_batched)
+        # dx, the z stash, the partials, their sums and, at 256 and 512, the
+        # dW operands, per member (module note on sine_mlp_bwd_batched)
         _check_fits(4 * m * (n * in_size + grid * stash * tile * hidden + (grid + 1) * n_part
-                             + (2 * layers * n * hidden if wide else 0)), dev,
+                             + (2 * layers * n * hidden if split_dw else 0)), dev,
                     f"sine_mlp_bwd_batched over {m} members")
+    w0, wm, wl, bs, _ = _pack_members(members, hidden, mixed)
+    if split_dw:
+        wmt = wm.transpose(-1, -2).contiguous()
+    else:
+        wmt = planes if planes is not None else _planes_of(wm, hidden, bf16, mixed)
+    x = _rnd(x.float(), mixed).contiguous()
+    g = g.float().contiguous()
+    x_stride = n * in_size if x.dim() == 3 else 0
+    flags = _mode_flags(bf16, mixed)
     dx = torch.empty(lead + (n, in_size), dtype=torch.float32, device=dev)
     # the z stash: one (tile, hidden) slice per block for z_1 .. z_{depth-3}
     z_scratch = torch.empty(lead + (grid, stash, tile, hidden), dtype=torch.float32,
@@ -697,12 +765,13 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     partials = torch.empty(lead + (grid, n_part), dtype=torch.float32, device=dev)
     # the wider backward's dW operands, rnd(a_{l-1}) and rnd(gz_l) per hidden layer
     dw_ops = [torch.empty(lead + (layers, n, hidden), dtype=torch.float32, device=dev)
-              for _ in range(2)] if wide else []
+              for _ in range(2)] if split_dw else []
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs), ("dx", dx),
                     ("z_scratch", z_scratch), ("partials", partials)) + (
-                        (("wmt", wmt), ("dw_a", dw_ops[0]), ("dw_g", dw_ops[1])) if wide else ()):
+                        (("wmt", wmt), ("dw_a", dw_ops[0]), ("dw_g", dw_ops[1]))
+                        if split_dw else ()):
         _check_cuda(name, t, dev)
-    if not wide:
+    if not split_dw:
         _check_cuda("planes", wmt.view(torch.float32), dev)
     _check_cuda("g", g, dev, lead + (n, out_size))
     kernel = "sine_mlp_bwd_batched" if batched else "sine_mlp_bwd"
@@ -712,13 +781,14 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
             x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(),
             wmt.data_ptr(), wl.data_ptr(), bs.data_ptr(), dx.data_ptr(),
             z_scratch.data_ptr(), partials.data_ptr(),
-            dw_ops[0].data_ptr() if wide else None, dw_ops[1].data_ptr() if wide else None,
+            dw_ops[0].data_ptr() if split_dw else None,
+            dw_ops[1].data_ptr() if split_dw else None,
             m, x_stride, grid, n_part, n, in_size, out_size, depth, hidden, om[0], om[1],
             flags, stream,
         )
     _raise_on(err, kernel)
     _count(kernel, bf16, mixed)
-    if wide and depth > 2:
+    if split_dw and depth > 2:
         (sine_mlp_dw_batched if batched else sine_mlp_dw)(*dw_ops, partials, sizes[0],
                                                           precision)
     flat = (sum_partials_batched if batched else sum_partials)(partials, precision)
@@ -728,7 +798,7 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     dw0, dwm, dwl, dbs, dbl = torch.split(flat[..., : sum(sizes)], sizes, dim=-1)
     dw0 = dw0.reshape(lead + (in_size, hidden))[..., :h]
     dwm = dwm.reshape(lead + (depth - 2, hidden, hidden))
-    if not wide:
+    if not split_dw:
         dwm = _unturn_dw(dwm)
     dwm = dwm[..., :h, :h]
     dwl = dwl.reshape(lead + (hidden, out_size))[..., :h, :]
@@ -741,31 +811,35 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
 
 def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     """Launch the backward kernel(s) and the partial-sum kernel: returns
-    (dx, grads) in the layout of `siren_chain_backward_reference`. Above
-    width 128: `sine_mlp_bwd_wide`, then `sine_mlp_dw` for the hidden
-    layers' dW into the same partial buffer. Under "+mixed" dW and db come
-    out rounded to bf16, as `siren_chain_backward_reference`'s."""
+    (dx, grads) in the layout of `siren_chain_backward_reference`. At kernel
+    widths 256 and 512: `sine_mlp_bwd_wide`, then `sine_mlp_dw` for the
+    hidden layers' dW into the same partial buffer. Under "+mixed" dW and
+    db come out rounded to bf16, as `siren_chain_backward_reference`'s."""
     return _bwd_launch([params], x, g, cfg, precision, batched=False)
 
 
-def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
+def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
+                         planes: Optional[torch.Tensor] = None):
     """Launch the backward once over a member axis: M params tuples of one
     shape (`members`; or one params tuple whose leaves carry a leading member
     axis, the batched fit's), mapped coords x on the card, (N, in) shared by every
     member or (M, N, in) one per member, and output cotangents g (M, N, out)
     -> (dx (M, N, in), grads), every leaf of grads with a leading member
     axis; member m's outputs the bits of `sine_mlp_bwd(members[m], x[m],
-    g[m], ...)`. One launch each of the backward (grid y = member), above
-    width 128 of sine_mlp_dw, and of sum_partials, counted under
-    "sine_mlp_bwd_batched", "sine_mlp_dw_batched" and "sum_partials_batched".
+    g[m], ...)`. One launch each of the backward (grid y = member), at
+    kernel widths 256 and 512 of sine_mlp_dw, and of sum_partials, counted
+    under "sine_mlp_bwd_batched", "sine_mlp_dw_batched" and
+    "sum_partials_batched". `planes`: W's planes from the forward
+    (`sine_mlp_fwd_batched(..., keep=True)`), else packed here.
 
     Memory per member, in fp32 buffers, at 512² pixels and depth 8: at
     width 128 the partials, 132 blocks x 99,844 floats = 53 MB, and the z
     stash, 132 x 5 x 128 x 128 floats = 43 MB; at width 182 (kernel width
-    192) dW's operands alone, 2 x 6 x 262,144 x 192 floats = 2.4 GB, so a
-    5-member ladder needs about 12 GB. When the M members' buffers exceed
-    the device's free memory this raises ValueError before allocating; it
-    never falls back to single launches. Members of different layer shapes
+    192) the partials, 132 x 200,931 floats = 106 MB, and the z stash, 132
+    x 5 x 64 x 192 floats = 32 MB; at 256 dW's operands alone, 2 x 6 x
+    262,144 x 256 floats = 3.2 GB. When the M members' buffers exceed the
+    device's free memory this raises ValueError before allocating; it never
+    falls back to single launches. Members of different layer shapes
     or more than 65,535 members raise ValueError too. Every mode has its
     instantiation, "+mixed" too: member m's dW and db then come out rounded
     to bf16, as sine_mlp_bwd's."""
@@ -779,7 +853,7 @@ def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precisi
     if tuple(g.shape) != (m, n, out_size) or m > 65535:
         raise ValueError(f"sine_mlp_bwd_batched: g must be ({m}, {n}, {out_size}) "
                          f"with at most 65,535 members, got {tuple(g.shape)}")
-    return _bwd_launch(members, x, g, cfg, precision, batched=True)
+    return _bwd_launch(members, x, g, cfg, precision, batched=True, planes=planes)
 
 
 def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
@@ -790,10 +864,10 @@ def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset:
     bf16, mixed = precision_modes(precision)
     dims = 4 if batched else 3
     if (a.dim() != dims or tuple(a.shape) != tuple(g.shape)
-            or a.shape[-1] not in KERNEL_WIDTHS[1:]):
+            or a.shape[-1] not in DW_WIDTHS):
         raise ValueError(
             f"{name}: expected a and g of one shape ({'M, ' if batched else ''}L, N, H), H in "
-            f"{KERNEL_WIDTHS[1:]}; got {tuple(a.shape)} and {tuple(g.shape)}")
+            f"{DW_WIDTHS}; got {tuple(a.shape)} and {tuple(g.shape)}")
     layers, n, hidden = a.shape[-3:]
     members = a.shape[0] if batched else 1
     dev = a.device
@@ -818,8 +892,8 @@ def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset:
 
 def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
                 precision: str) -> None:
-    """Launch sine_mlp_dw: a and g (L, N, H) fp32 on the card (H a kernel
-    width above 128) -> for each of the S = partials.shape[0] row splits of
+    """Launch sine_mlp_dw: a and g (L, N, H) fp32 on the card (H in
+    DW_WIDTHS) -> for each of the S = partials.shape[0] row splits of
     `dw_row_splits(N, S)`, partials[s, offset + l H^2 ..] = the row-major
     H x H sum of a[l]^T g[l] over the split's rows. a, g and partials must be
     contiguous and 16-byte aligned, offset even and the L H^2 floats within
@@ -929,8 +1003,12 @@ class SineMLPFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, cfg, precision, *flat):
         params = _unflatten(flat)
-        if x.is_cuda:
-            out = sine_mlp_fwd(params, x, cfg, precision)
+        ctx.planes = None
+        if x.is_cuda:  # W's planes (width 128), packed once for K1 and K2
+            bf16, mixed = precision_modes(precision)
+            out, ctx.planes = _fwd_launch([params], x, cfg, bf16, mixed, "sine_mlp_fwd",
+                                          keep=True)
+            out = out[0]
         else:
             out = siren_chain_reference(params, x, cfg, precision)
         ctx.save_for_backward(x, *flat)
@@ -942,7 +1020,8 @@ class SineMLPFunction(torch.autograd.Function):
         x, *flat = ctx.saved_tensors
         params = _unflatten(flat)
         if x.is_cuda:
-            dx, grads = sine_mlp_bwd(params, x, g, ctx.cfg, ctx.precision)
+            dx, grads = _bwd_launch([params], x, g, ctx.cfg, ctx.precision, batched=False,
+                                    planes=ctx.planes)
         else:
             dx, grads = siren_chain_backward_reference(params, x, g, ctx.cfg, ctx.precision)
         out = [dx if ctx.needs_input_grad[0] else None, None, None]
@@ -969,8 +1048,10 @@ class SineMLPBatchedFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, cfg, precision, *flat):
-        if x.is_cuda:  # the stacked leaves, packed in one pass
-            out = sine_mlp_fwd_batched(_unflatten(flat), x, cfg, precision)
+        ctx.planes = None
+        if x.is_cuda:  # the stacked leaves and W's planes, packed in one pass each
+            out, ctx.planes = sine_mlp_fwd_batched(_unflatten(flat), x, cfg, precision,
+                                                   keep=True)
         else:
             out = siren_chain_reference_batched(_members(flat), x, cfg, precision)
         ctx.save_for_backward(x, *flat)
@@ -981,7 +1062,8 @@ class SineMLPBatchedFunction(torch.autograd.Function):
     def backward(ctx, g):
         x, *flat = ctx.saved_tensors
         if x.is_cuda:
-            dx, grads = sine_mlp_bwd_batched(_unflatten(flat), x, g, ctx.cfg, ctx.precision)
+            dx, grads = sine_mlp_bwd_batched(_unflatten(flat), x, g, ctx.cfg, ctx.precision,
+                                             planes=ctx.planes)
         else:
             dx, grads = siren_chain_backward_reference_batched(_members(flat), x, g,
                                                                ctx.cfg, ctx.precision)

@@ -9,22 +9,25 @@ results are wrong by design), a few at a time (each in the parts of
 ops/cuda_build.build), and times sine_mlp_fwd and sine_mlp_bwd of each in
 the fp32 mode at the main path's shapes (512^2 pixels, d8) at every width
 of --widths (CUDA events over 10 launches after a warm-up), and at the
-wider widths, where the source has it, sine_mlp_dw alone on operands of
-the main path's shape. The differences to "full" say what each part costs:
+widths whose backward has it (256 and 512; 192 in older commits),
+sine_mlp_dw alone on operands of the main path's shape. The differences
+to "full" say what each part costs:
 
   no_sine       the sine polynomial of the forward epilogues (z passes through)
   no_mma        the hidden layers' products (fragment loads, splits, mma), at
-                width 128 (warp_mma in the forward; in the wgmma backward the
-                issue of every wgmma and the dW product's operand loads; in the
-                mma.sync backward of older commits warp_mma) and in the wider
-                kernels (warp_mma_k: the ring's products and the dW products;
-                warp_mma_at2: sine_mlp_dw's at 256 and 512)
-  no_stash      the backward's z stash (stores, and the copies back)
-  no_partial    the backward's dW traffic: at width 128 the bulk reduce-adds
-                of the staged dW into the partials (older commits: the
-                read-modify-write of the dW partials), in the wider backward
-                its dW pieces where the source has them, or its stores of the
-                dW operands for sine_mlp_dw (where it has those)
+                width 128 (the issue of every wgmma of the forward and the
+                backward, and the dW product's operand loads; in older
+                commits warp_mma, the mma.sync forward's and backward's), in
+                the width-192 backward (every wgmma: the ring's products and
+                the dW pieces) and in the wider kernels (warp_mma_k: the
+                ring's products and the dW products; warp_mma_at2:
+                sine_mlp_dw's at 256 and 512)
+  no_stash      the backward's z stash (stores, and the copies or loads back)
+  no_partial    the backward's dW traffic: at widths 128 and 192 the bulk
+                reduce-adds of the staged dW into the partials (older commits:
+                the read-modify-write of the dW partials at 128), in the wider
+                backward its dW pieces where the source has them, or its
+                stores of the dW operands for sine_mlp_dw (where it has those)
   no_both       no_stash and no_partial together
   no_ring_wait  the wider kernels' ring wait and barrier: each product reads
                 whatever its slice holds (each thread drains its copies at its
@@ -32,6 +35,9 @@ the main path's shape. The differences to "full" say what each part costs:
                 width-128 kernels keep theirs, so there it times "full"
   no_dw         sine_mlp_dw launches nothing (where the source has it): the
                 backward's time without the dW kernel
+  no_ring_copy  the wgmma kernels' ring fills copy nothing (each fill's
+                mbarrier completes at once; the products read what the slot
+                holds): the time of streaming W's planes from L2
 
 --variants picks some of them (default: all), --precisions the modes timed
 (default fp32), --members M also times sine_mlp_bwd_batched over M members
@@ -39,8 +45,9 @@ in each mode. --build-dir keeps the built files there, each under the hash
 of the sources it was built from, and reuses one only for the same sources
 (--build-only builds and stops), so that two trees can share the directory
 and be timed in turns without building again. The variants match the
-source of this commit and of older ones (the mma.sync backward at width
-128; before the wider backward moved dW into sine_mlp_dw), so the tool also
+source of this commit and of older ones (the mma.sync forward and
+backward at width 128; the mma.sync backward at 192 with sine_mlp_dw;
+before the wider backward moved dW into sine_mlp_dw), so the tool also
 measures an older checkout: copy this file into it and run it there. It
 then builds and runs tools/mma_rate.cu: the rates of mma.sync and wgmma
 alone, and its checks of csrc/hopper.cuh's building blocks (their exit code
@@ -91,9 +98,24 @@ WG_STASH = ("      if (STASH) __stcg(reinterpret_cast<float2*>(&z_g[as_idx(r, c)
 WG_COPY = "  iit::mbar_expect_tx(bar, T * H * 4);\n  iit::bulk_g2s(a_s, z, T * H * 4, bar);"
 WG_PASSES = "                                          uint32_t b0, uint32_t bstride, bool first) {\n"
 WG_DW = "  const float* ah = a_s + p.wg * (T * 64);"
+# the width-192 backward on wgmma (this commit): its products, z stash and
+# dW reduce-adds
+B2_SS = "          iit::wg_bf16_ss_n96<0, TB>("
+B2_RS = "          iit::wg_bf16_n96<1>(acc, ak[i],"
+B2_STASH = "      if (STASH) __stcg(b2_stash(z_g, ni, h, tid), make_float2(z0, z1));"
+B2_LOAD = "        z = __ldcg(b2_stash(const_cast<float*>(z_g), ni, h, tid));"
+B2_REDUCE = ("          iit::bulk_reduce_add(dw + mp * 2 * B2_PIECE, stage, B2_PIECE * 4,\n"
+             "                               iit::l2_evict_first());")
+# the wgmma kernels' ring of W's planes (this commit): a fill's bulk copy
+RING_COPY = """    iit::mbar_expect_tx(bar(b), bytes);
+    iit::bulk_g2s(slot(b),
+                  planes + ((size_t)((fwd ? 0 : L) + layer) * R::NS + j % R::NS) * NP * R::PLANE,
+                  bytes, bar(b));"""
 
 
 def _no_partial(src: str) -> str:
+    if B2_REDUCE in src:
+        src = _rep(src, B2_REDUCE, "")
     if WG_REDUCE in src:
         src = _rep(src, WG_REDUCE, "")
     else:  # the mma.sync backward: the read-modify-write of the dW partials
@@ -114,11 +136,18 @@ def variants(src: str) -> dict:
     copy_z = "    asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\"\n" \
              "                 ::\"r\"(smem_addr(dst + 4 * e)), \"l\"(src + 4 * e) : \"memory\");"
     no_stash = _rep(_rep(src, stash_st, ""), copy_z, "    ;")
-    no_mma = _rep(src, "  const PA pa(A, w.m0, w);", "  return;\n  const PA pa(A, w.m0, w);")
-    if WG_REDUCE in src:  # the width-128 backward on wgmma
+    no_mma = src
+    if "  const PA pa(A, w.m0, w);" in src:  # the mma.sync forward at width 128 (older commits)
+        no_mma = _rep(src, "  const PA pa(A, w.m0, w);", "  return;\n  const PA pa(A, w.m0, w);")
+    if WG_REDUCE in src:  # the width-128 backward on wgmma (and, since, the forward)
         no_stash = _rep(_rep(no_stash, WG_STASH, ""), WG_COPY, "  iit::mbar_arrive(bar);")
         no_mma = _rep(_rep(no_mma, WG_PASSES, WG_PASSES + "  return;\n"), WG_DW,
                       "  return;\n" + WG_DW)
+    if B2_REDUCE in src:  # the width-192 backward on wgmma
+        no_stash = _rep(_rep(no_stash, B2_STASH, ""), B2_LOAD,
+                        "        z = make_float2(0.f, 0.f);")
+        no_mma = _rep(_rep(no_mma, B2_SS, "          if (u == 12345) " + B2_SS.lstrip()),
+                      B2_RS, "          if (kk == 12345) " + B2_RS.lstrip())
     no_mma = _rep(no_mma, "  const PA pa(A, a0, w);", "  return;\n  const PA pa(A, a0, w);")
     if "warp_mma_at2" in src:  # sine_mlp_dw's two-piece product
         no_mma = _rep(no_mma, "  const Cols<SA> pa(A, w.m0, w);",
@@ -139,6 +168,8 @@ def variants(src: str) -> dict:
         "no_both": _no_partial(no_stash),
         "no_ring_wait": no_ring_wait,
     }
+    if RING_COPY in src:  # the fills arrive at once, copying nothing: W's streaming cost
+        out["no_ring_copy"] = _rep(src, RING_COPY, "    iit::mbar_arrive(bar(b));")
     if "sine_mlp_dw_kernel" in src:
         out["no_dw"] = _rep(src, "  if (n <= 0 || layers <= 0 || splits <= 0) return 0;",
                             "  return 0;")
@@ -243,7 +274,8 @@ def main(argv=None) -> dict:
             rows = record["widths"][width] = {}
             hidden = sm.kernel_width(width)
             dw_args = None
-            if hidden != sm.KERNEL_WIDTHS[0] and hasattr(sm, "sine_mlp_dw"):
+            # sine_mlp_dw alone where this tree's backward of that width has it
+            if hidden in getattr(sm, "DW_WIDTHS", sm.KERNEL_WIDTHS[1:]):
                 blocks, n_part, sizes = sm.partial_layout(x.shape[0], 8, 2, width, 3, dev)
                 ops = torch.randn((2, 6, x.shape[0], hidden), device=dev)
                 dw_args = (*ops, torch.empty((blocks, n_part), device=dev), sizes[0], "fp32")

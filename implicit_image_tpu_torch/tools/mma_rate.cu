@@ -10,8 +10,9 @@
 // m64n128k8).
 // Checks (each prints ok or the error and makes the exit code 1): the wgmma
 // operand layouts of hopper.cuh (B N-major and K-major, two k-steps, against
-// a host product), a bulk copy into shared memory completing on an mbarrier,
-// and bulk reduce-adds into global memory after generic writes.
+// a host product), those of the width-192 backward (64 x 96, A from shared
+// memory or registers), a bulk copy into shared memory completing on an
+// mbarrier, and bulk reduce-adds into global memory after generic writes.
 // Built and run by tools/kernel_breakdown.py.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -176,6 +177,114 @@ static int check_layouts() {
   return bad;
 }
 
+// The width-192 backward's products (csrc/sine_mlp.cu), D (64 x 96) = A (64
+// x 32) B (32 x 96), two k-steps: (a) SS, A in its act_s layout (element
+// (r, c) at ((c / 8) * 8 + r / 8) * 128 + (r % 8) * 16 + (c % 8) * 2 bytes),
+// B the columns 96 h .. 96 h + 95 of a 32 x 192 W image (core matrix (kg,
+// ng) at (kg * 24 + ng) * 128 bytes) in either major order; (b) RS, A from
+// registers, B the columns 96 h .. of act_s read N-major (k = row).
+template <int MODE>  // 0: SS, B K-major; 1: SS, B N-major; 2: RS, B from act_s
+__global__ void layout_check96(const float* A, const uint16_t* As, const uint16_t* Bs, float* D,
+                               int half) {
+  __shared__ __align__(128) uint16_t a_s[64 * 32];
+  __shared__ __align__(128) uint16_t b_s[64 * 192];
+  for (int i = threadIdx.x; i < 64 * 32; i += blockDim.x) a_s[i] = As[i];
+  for (int i = threadIdx.x; i < 64 * 192; i += blockDim.x) b_s[i] = Bs[i];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float d[48];
+  for (int i = 0; i < 48; ++i) d[i] = 123.f;  // scale_d = 0 ignores it
+  uint32_t a[2][4];
+  for (int kk = 0; kk < 2; ++kk)
+    for (int j = 0; j < 4; ++j) {
+      const int r = 16 * w + g + 8 * (j & 1), c = 16 * kk + 2 * t + 8 * (j >> 1);
+      a[kk][j] = iit::bf16x2(A[r * 32 + c], A[r * 32 + c + 1]);
+    }
+  const uint32_t as = iit::smem_u32(a_s), bs = iit::smem_u32(b_s);
+  iit::wg_fence();
+  for (int kk = 0; kk < 2; ++kk) {
+    if (MODE == 2)  // B: act_s of a 32-row (K) x 192 tile, k-step kk = rows 16 kk ..
+      iit::wg_bf16_n96<1>(d, a[kk], iit::wg_desc(bs + half * 12 * 512 + kk * 2 * 128, 128, 512),
+                          kk);
+    else
+      iit::wg_bf16_ss_n96<0, MODE>(d, iit::wg_desc(as + kk * 2 * 1024, 1024, 128),
+                                   iit::wg_desc(bs + kk * 24 * 128 * 2 + half * 12 * 128,
+                                                24 * 128, 128),
+                                   kk);
+  }
+  iit::wg_commit();
+  iit::wg_wait<0>();
+  iit::fence_regs(d);
+  for (int ni = 0; ni < 12; ++ni)
+    for (int q = 0; q < 4; ++q)
+      D[(16 * w + g + 8 * (q >> 1)) * 96 + 8 * ni + 2 * t + (q & 1)] = d[4 * ni + q];
+}
+
+static int check_layouts96() {
+  const int K = 32, N = 192;
+  std::vector<float> A(64 * K), B(K * N);
+  for (int r = 0; r < 64; ++r)
+    for (int c = 0; c < K; ++c) A[r * K + c] = (float)((r * 7 + c * 3) % 13 - 6);
+  for (int kq = 0; kq < K; ++kq)
+    for (int n = 0; n < N; ++n) B[kq * N + n] = (float)((kq * 5 + n * 11) % 9 - 4);
+  // A in act_s's layout (64 rows, 32 columns: 4 column groups of 8 x 128 B)
+  std::vector<uint16_t> a_img(64 * K);
+  for (int r = 0; r < 64; ++r)
+    for (int c = 0; c < K; ++c)
+      a_img[(((c >> 3) * 8 + (r >> 3)) * 128 + (r & 7) * 16 + (c & 7) * 2) / 2] =
+          to_bf16(A[r * K + c]);
+  float *dA, *dD;
+  uint16_t *dAs, *dB;
+  cudaMalloc(&dA, A.size() * 4);
+  cudaMalloc(&dD, 64 * 96 * 4);
+  cudaMalloc(&dAs, a_img.size() * 2);
+  cudaMalloc(&dB, 64 * 192 * 2);
+  cudaMemcpy(dA, A.data(), A.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(dAs, a_img.data(), a_img.size() * 2, cudaMemcpyHostToDevice);
+  int bad = 0;
+  for (int mode = 0; mode < 3; ++mode)
+    for (int half = 0; half < 2; ++half) {
+      std::vector<uint16_t> img(64 * 192, 0);
+      for (int kq = 0; kq < K; ++kq)
+        for (int n = 0; n < N; ++n) {
+          int at;  // in bf16 values
+          if (mode == 2)  // act_s of a 32 x 192 tile: (n / 8) * 4 row groups
+            at = (((n >> 3) * 4 + (kq >> 3)) * 128 + (kq & 7) * 16 + (n & 7) * 2) / 2;
+          else {
+            const int core = ((kq >> 3) * 24 + (n >> 3)) * 64;
+            at = mode ? core + (kq & 7) * 8 + (n & 7) : core + (n & 7) * 8 + (kq & 7);
+          }
+          img[at] = to_bf16(B[kq * N + n]);
+        }
+      cudaMemcpy(dB, img.data(), img.size() * 2, cudaMemcpyHostToDevice);
+      cudaMemset(dD, 0, 64 * 96 * 4);
+      if (mode == 0) layout_check96<0><<<1, 128>>>(dA, dAs, dB, dD, half);
+      if (mode == 1) layout_check96<1><<<1, 128>>>(dA, dAs, dB, dD, half);
+      if (mode == 2) layout_check96<2><<<1, 128>>>(dA, dAs, dB, dD, half);
+      std::vector<float> D(64 * 96);
+      const cudaError_t err = cudaMemcpy(D.data(), dD, D.size() * 4, cudaMemcpyDeviceToHost);
+      float worst = 0.f;
+      for (int r = 0; r < 64; ++r)
+        for (int n = 0; n < 96; ++n) {
+          float ref = 0.f;
+          for (int kq = 0; kq < K; ++kq) ref += A[r * K + kq] * B[kq * N + 96 * half + n];
+          const float e = D[r * 96 + n] > ref ? D[r * 96 + n] - ref : ref - D[r * 96 + n];
+          worst = e > worst ? e : worst;
+        }
+      const bool ok = err == cudaSuccess && worst == 0.f;
+      printf("check wgmma m64n96 %s, columns %d..: %s (max err %g, %s)\n",
+             mode == 0 ? "SS, B K-major" : mode == 1 ? "SS, B N-major" : "RS, B act_s N-major",
+             96 * half, ok ? "ok" : "WRONG", worst, cudaGetErrorString(err));
+      bad |= !ok;
+    }
+  cudaFree(dA);
+  cudaFree(dAs);
+  cudaFree(dB);
+  cudaFree(dD);
+  return bad;
+}
+
 // A bulk copy of 8 KB into shared memory on an mbarrier, then two bulk
 // reduce-adds of it into out (zeroed here by generic stores first).
 __global__ void bulk_check(const float* src, float* out) {
@@ -253,7 +362,7 @@ int main() {
     }
   }
   printf("err %s\n", cudaGetErrorString(cudaGetLastError()));
-  const int bad = check_layouts() | check_bulk();
+  const int bad = check_layouts() | check_layouts96() | check_bulk();
   printf("checks %s\n", bad ? "FAILED" : "ok");
   return bad;
 }

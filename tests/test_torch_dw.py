@@ -133,6 +133,92 @@ def test_bf16_mirror_of_the_kernel_pair_matches_pallas_interpret():
     assert err_mirror < max(2.5 * err_pallas, 0.02), (err_mirror, err_pallas)
 
 
+# ------------------------------------- the width-192 backward's dW order
+# The wgmma backward of kernel width 192 sums dW_l = a_{l-1}^T gz_l in the
+# kernel: a block of a fixed grid takes tiles b, b + grid, ... of 64 rows,
+# adds each tile's product into its partial slice in tile order (bulk
+# reduce-adds, one add into a region at a time), and sum_partials adds the
+# slices in its fixed order.
+
+B2_TILE, B2_BLOCKS = sm.KERNEL_TILE_ROWS[192], 3  # 256 rows: 4 tiles, block 0 takes two
+
+
+def _tiled_dw(a, gz, tile, blocks):
+    """The mirror: a and gz (L, N, H) -> (blocks, L, H, H), block b's slice
+    the fp32 sum, in tile order from 0, of a^T gz over its tiles' rows."""
+    n = a.shape[1]
+    parts = torch.zeros((blocks,) + (a.shape[0], a.shape[2], gz.shape[2]))
+    for t in range(-(-n // tile)):
+        rows = slice(t * tile, min(n, (t + 1) * tile))
+        parts[t % blocks] = parts[t % blocks] + a[:, rows].transpose(1, 2) @ gz[:, rows]
+    return parts
+
+
+def _mirror_dw192(tp, c, x, g, precision):
+    h = tp[0]["w"].shape[1]
+    pad = sm.kernel_width(h) - h
+    a, gz = (F.pad(t, (0, pad)) for t in sm.siren_chain_dw_operands(tp, x, g, c, precision))
+    dw = sm.sum_partials_reference(_tiled_dw(a, gz, B2_TILE, B2_BLOCKS))
+    return dw[:, :h, :h]
+
+
+def test_fp32_mirror_of_the_width_192_dw_order_matches_the_chain_and_jax():
+    """d4/w182 (kernel width 192) on 256 rows: the tiled mirror's hidden dW
+    against siren_chain_backward_reference and JAX XLA fp32, at the card's
+    fp32 limit (FP32_REL_TOL of the largest |dW|)."""
+    jm, jc, c, p, coords, target = _setup(4, 182)
+    tp = params_from_jax(p, "cpu")
+    x, g = _chain_cotangent(tp, c, coords, target, "fp32")
+    dw = _mirror_dw192(tp, c, x, g, "fp32")
+    _, grads = sm.siren_chain_backward_reference(tp, x, g, c, "fp32")
+    jg = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc) - target) ** 2))(p)
+    assert dw.shape[0] == 2
+    for l in (1, 2):
+        for ref in (grads[l]["w"].numpy(), np.asarray(jg[l]["w"])):
+            got = dw[l - 1].numpy()
+            assert np.abs(got - ref).max() <= FP32_REL_TOL * np.abs(ref).max(), l
+
+
+def test_bf16_mirror_of_the_width_192_dw_order_matches_pallas_interpret():
+    """d4/w182 in the bf16 mode against the Pallas kernels in interpret mode
+    (their backward, _bwd_kernel, included), under the rule of
+    test_bf16_mirror_of_the_kernel_pair_matches_pallas_interpret: the
+    mirror's error against exact fp32 is at most max(2.5x the Pallas
+    kernel's, 0.02) of the largest |dW|, for each hidden layer."""
+    jm, jc, c, p, coords, target = _setup(4, 182)
+    tp = params_from_jax(p, "cpu")
+    x, g = _chain_cotangent(tp, c, coords, target, "bf16")
+    dw = _mirror_dw192(tp, c, x, g, "bf16")
+    with pltpu.force_tpu_interpret_mode():
+        gp = jax.grad(lambda q: jnp.mean((siren_apply_flat_pallas(q, coords, jc) - target) ** 2))(p)
+    gf = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc, None) - target) ** 2))(p)
+    for l in (1, 2):
+        ref, pallas = np.asarray(gf[l]["w"]), np.asarray(gp[l]["w"])
+        scale = float(np.abs(ref).max())
+        err_mirror = float(np.abs(dw[l - 1].numpy() - ref).max()) / scale
+        err_pallas = float(np.abs(pallas - ref).max()) / scale
+        assert err_mirror < max(2.5 * err_pallas, 0.02), (l, err_mirror, err_pallas)
+
+
+def test_width_192_dw_positions_are_the_pieces_in_thread_order():
+    """The width-192 backward leaves dW[i][j] at dw_position_index(192)[i][j]
+    of the layer's floats: piece (i / 64, j / 96) of 64 x 96, in the order
+    its warpgroup's threads hold it (csrc b2_stage_at); a permutation, which
+    the wrapper's _unturn_dw undoes."""
+    idx = sm.dw_position_index(192)
+    assert sorted(idx.reshape(-1).tolist()) == list(range(192 * 192))
+    for i, j in ((0, 0), (5, 97), (64, 3), (130, 191), (71, 95)):
+        piece = (i // 64) * 2 + j // 96
+        pi, pj = i % 64, j % 96
+        thread = 32 * (pi // 16) + 4 * (pi % 8) + (pj % 8) // 2
+        slot = 2 * (pj // 8) + (pi % 16) // 8
+        assert int(idx[i, j]) == piece * 6144 + (slot * 128 + thread) * 2 + pj % 2
+    dw = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 4, 192, 192)))
+    kernel = torch.empty_like(dw).reshape(2, 4, -1)
+    kernel.scatter_(-1, idx.reshape(-1).expand(kernel.shape), dw.reshape(2, 4, -1))
+    assert torch.equal(sm._unturn_dw(kernel.reshape(dw.shape)), dw)
+
+
 @pytest.fixture
 def no_build(monkeypatch):
     """Fail the test if the wrapper reaches the library or nvcc."""
@@ -144,13 +230,14 @@ def no_build(monkeypatch):
 
 
 @pytest.mark.parametrize("a_shape,g_shape,p_shape,offset,match", [
-    ((2, 100, 192), (2, 100, 192), (7, 80_000), 384, "expected a tensor on"),  # CPU
-    ((2, 100, 192), (2, 101, 192), (7, 80_000), 384, "one shape"),
+    ((2, 100, 256), (2, 100, 256), (7, 140_000), 384, "expected a tensor on"),  # CPU
+    ((2, 100, 256), (2, 101, 256), (7, 140_000), 384, "one shape"),
     ((2, 100, 128), (2, 100, 128), (7, 80_000), 256, "one shape"),   # width 128: no dW kernel
-    ((100, 192), (100, 192), (7, 80_000), 384, "one shape"),
-    ((2, 100, 192), (2, 100, 192), (7, 80_002), 384, "multiple of 4"),
-    ((2, 100, 192), (2, 100, 192), (7, 80_000), 385, "odd"),
-    ((2, 100, 192), (2, 100, 192), (7, 70_000), 384, "do not fit"),
+    ((100, 256), (100, 256), (7, 140_000), 384, "one shape"),
+    ((2, 100, 256), (2, 100, 256), (7, 140_002), 384, "multiple of 4"),
+    ((2, 100, 256), (2, 100, 256), (7, 140_000), 385, "odd"),
+    ((2, 100, 256), (2, 100, 256), (7, 100_000), 384, "do not fit"),
+    ((2, 100, 192), (2, 100, 192), (7, 80_000), 384, "one shape"),   # width 192: dW in K2
 ])
 def test_sine_mlp_dw_raises_before_building(no_build, a_shape, g_shape, p_shape, offset, match):
     before = sm.LAUNCHES["sine_mlp_dw"]

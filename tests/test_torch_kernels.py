@@ -36,10 +36,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,fwd_tol,bwd_tol",
-                         [("fp32", 1e-4, 1e-4), ("bf16", 1.5e-3, 2e-2)])
+                         [("fp32", 1e-4, 1e-4), ("bf16", 1.5e-3, 2e-2),
+                          ("fp32+mixed", 1.5e-3, 2e-2), ("bf16+mixed", 1.5e-3, 2e-2)])
 @pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (4, 32, 200), (2, 64, 64),
                                             (3, 57, 300), (7, 128, 40000), (8, 182, 40000),
-                                            (4, 256, 40000), (3, 512, 20000)])
+                                            (4, 256, 40000), (3, 512, 20000), (2, 192, 1000),
+                                            (5, 130, 777)])
 def test_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hidden, n):
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
@@ -53,8 +55,9 @@ def test_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hi
     assert sm.LAUNCHES["sine_mlp_fwd"] == before["sine_mlp_fwd"] + 1
     assert sm.LAUNCHES["sine_mlp_bwd"] == before["sine_mlp_bwd"] + 1
     assert sm.LAUNCHES["sum_partials"] == before["sum_partials"] + 1
-    # above width 128 the hidden layers' dW is sine_mlp_dw's
-    assert sm.LAUNCHES["sine_mlp_dw"] == before["sine_mlp_dw"] + (hidden > 128 and depth > 2)
+    # at kernel widths 256 and 512 the hidden layers' dW is sine_mlp_dw's
+    assert sm.LAUNCHES["sine_mlp_dw"] == before["sine_mlp_dw"] + (
+        sm.kernel_width(hidden) in sm.DW_WIDTHS and depth > 2)
     ref = sm.siren_chain_reference(params, x, c, precision)
     assert float((out - ref).abs().max()) <= fwd_tol
     dx_r, grads_r = sm.siren_chain_backward_reference(params, x, g, c, precision)
@@ -88,8 +91,8 @@ def test_limits_reject_the_other_modes_kernel_at_w256(cuda_device, precision, ot
 @pytest.mark.parametrize("depth,hidden", [(8, 182), (3, 512)])
 def test_limits_reject_the_other_modes_kernel_at_w182_and_w512(cuda_device, precision, other,
                                                                fwd_tol, bwd_tol, depth, hidden):
-    """The same control at the finals width (kernel 192) and at 512, where
-    the backward is sine_mlp_bwd_wide + sine_mlp_dw."""
+    """The same control at the finals width (kernel 192: the wgmma backward,
+    dW summed in it) and at 512 (sine_mlp_bwd_wide + sine_mlp_dw)."""
     _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, depth, hidden)
 
 
@@ -109,28 +112,33 @@ def _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, dep
 
 @pytest.mark.cuda
 def test_kernel_backward_repeats_bit_for_bit(cuda_device):
-    _check_backward_repeats(cuda_device, 128)
+    for precision in ("fp32", "bf16", "fp32+mixed", "bf16+mixed"):
+        _check_backward_repeats(cuda_device, 128, precision)
 
 
 @pytest.mark.cuda
-def test_wide_kernel_backward_repeats_bit_for_bit(cuda_device):
-    """sine_mlp_bwd_wide + sine_mlp_dw + sum_partials, at 182 (kernel 192),
-    256 and 512."""
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_wide_kernel_backward_repeats_bit_for_bit(cuda_device, precision):
+    """The width-192 backward (its dW summed in the kernel) + sum_partials at
+    182, and sine_mlp_bwd_wide + sine_mlp_dw + sum_partials at 256 and 512,
+    in every mode; the forward of each width too."""
     for hidden in (182, 256, 512):
-        _check_backward_repeats(cuda_device, hidden)
+        _check_backward_repeats(cuda_device, hidden, precision)
 
 
-def _check_backward_repeats(cuda_device, hidden):
+def _check_backward_repeats(cuda_device, hidden, precision="fp32"):
     m, c = build_model("siren", depth=5, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
     x = (torch.rand((20000, 2), generator=torch.Generator().manual_seed(2)) * 2 - 1).to(
         cuda_device)
     g = torch.ones((20000, 3), device=cuda_device)
-    _, first = sm.sine_mlp_bwd(params, x, g, c, "fp32")
-    _, second = sm.sine_mlp_bwd(params, x, g, c, "fp32")
+    _, first = sm.sine_mlp_bwd(params, x, g, c, precision)
+    _, second = sm.sine_mlp_bwd(params, x, g, c, precision)
     for a, b in zip(first, second):
         for k in KEYS:
             assert torch.equal(a[k], b[k])
+    assert torch.equal(sm.sine_mlp_fwd(params, x, c, precision),
+                       sm.sine_mlp_fwd(params, x, c, precision))
 
 
 @pytest.mark.cuda
@@ -164,7 +172,7 @@ def _dw_operands(cuda_device, layers, n, hidden, precision, seed=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 @pytest.mark.parametrize("layers,n,hidden,splits", [
-    (6, 20_000, 192, 132), (2, 4_099, 256, 7), (3, 5_000, 512, 13), (1, 100, 192, 132)])
+    (6, 20_000, 256, 132), (2, 4_099, 256, 7), (3, 5_000, 512, 13), (1, 100, 256, 132)])
 def test_sine_mlp_dw_matches_its_plain_version(cuda_device, precision, layers, n, hidden,
                                                splits):
     """Each split's dW against sine_mlp_dw_reference (fp32 sums: 1e-5 of the
@@ -192,12 +200,12 @@ def test_sine_mlp_dw_matches_its_plain_version(cuda_device, precision, layers, n
 
 @pytest.mark.cuda
 def test_sine_mlp_dw_rejects_misshaped_or_misaligned_buffers(cuda_device):
-    a, g = _dw_operands(cuda_device, 2, 100, 192, "fp32")
-    partials = torch.zeros((4, 2 * 192 * 192 + 512), device=cuda_device)
+    a, g = _dw_operands(cuda_device, 2, 100, 256, "fp32")
+    partials = torch.zeros((4, 2 * 256 * 256 + 512), device=cuda_device)
     before = sm.LAUNCHES["sine_mlp_dw"]
-    flat = torch.zeros(2 * 100 * 192 + 1, device=cuda_device)
+    flat = torch.zeros(2 * 100 * 256 + 1, device=cuda_device)
     with pytest.raises(ValueError, match="aligned"):
-        sm.sine_mlp_dw(flat[1:].view(2, 100, 192), g, partials, 0, "fp32")
+        sm.sine_mlp_dw(flat[1:].view(2, 100, 256), g, partials, 0, "fp32")
     with pytest.raises(ValueError, match="aligned"):
         sm.sine_mlp_dw(a, g.transpose(0, 1).contiguous().transpose(0, 1), partials, 0, "fp32")
     with pytest.raises(ValueError, match="float32"):
@@ -208,6 +216,9 @@ def test_sine_mlp_dw_rejects_misshaped_or_misaligned_buffers(cuda_device):
         sm.sine_mlp_dw(a, g, partials, 1024, "fp32")
     with pytest.raises(ValueError, match="expected a tensor on"):
         sm.sine_mlp_dw(a, g.cpu(), partials, 0, "fp32")
+    with pytest.raises(ValueError, match="one shape"):  # width 192: dW is summed in K2
+        sm.sine_mlp_dw(a[..., :192].contiguous(), g[..., :192].contiguous(), partials, 0,
+                       "fp32")
     assert sm.LAUNCHES["sine_mlp_dw"] == before
 
 
@@ -548,7 +559,7 @@ def test_schedule_launch_modes_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
 @pytest.mark.parametrize("depth,hidden,n", [(5, 32, 4099), (8, 128, 40000), (8, 182, 20000),
-                                            (3, 512, 5000)])
+                                            (3, 512, 5000), (2, 192, 700)])
 def test_mixed_kernels_match_the_plain_chain(cuda_device, mode, depth, hidden, n):
     """The kernels under "+mixed" against the plain chain, within the bf16
     mode's limits (1.5e-3 forward, 2e-2 of the largest gradient)."""
@@ -660,7 +671,7 @@ def test_exact_sine_and_coordx_bf16_on_card_match_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 @pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (2, 64, 300), (8, 182, 3001),
-                                            (4, 256, 2000), (3, 512, 1000)])
+                                            (4, 256, 2000), (3, 512, 1000), (2, 192, 500)])
 def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,
                                                         n):
     """K1 over a member axis: one launch, each member the bits of its own
@@ -688,13 +699,13 @@ def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 @pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (2, 64, 300), (8, 182, 3001),
-                                            (4, 256, 2000), (3, 512, 1000)])
+                                            (4, 256, 2000), (3, 512, 1000), (2, 192, 500)])
 def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,
                                                          n):
     """K2 over a member axis (M = 3) at every kernel width, in every mode
     ("+mixed" too, within the bf16 mode's limits): one
-    launch each of the backward, of sine_mlp_dw above width 128 and of the
-    partial sum, each member's dx, dW and db the bits of its own single
+    launch each of the backward, of sine_mlp_dw at widths 256 and 512 and
+    of the partial sum, each member's dx, dW and db the bits of its own single
     launch, with one shared x and with one x per member; within the single
     backward's limits of the plain version."""
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
@@ -703,7 +714,7 @@ def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision,
     x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
     xs = (torch.rand((3, n, 2), generator=gen) * 2 - 1).to(cuda_device)
     g = torch.randn((3, n, 3), generator=gen).to(cuda_device)
-    wide = hidden > 128 and depth > 2
+    wide = sm.kernel_width(hidden) in sm.DW_WIDTHS and depth > 2
     before = dict(sm.LAUNCHES)
     shared = sm.sine_mlp_bwd_batched(members, x, g, c, precision)
     per = sm.sine_mlp_bwd_batched(members, xs, g, c, precision)
@@ -726,22 +737,27 @@ def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision,
 
 
 @pytest.mark.cuda
-def test_batched_backward_too_large_raises_before_allocating(cuda_device):
-    """Members whose buffers exceed the card's free memory (w512, d8, 2^22
-    rows: ~100 GB of dW operands each) raise ValueError before the launch's
-    buffers are allocated; nothing falls back to single launches."""
-    m, c = build_model("siren", depth=8, hidden_size=512)
+@pytest.mark.parametrize("hidden,members,n", [(512, 2, 1 << 22), (182, 1200, 1 << 18)])
+def test_batched_backward_too_large_raises_before_allocating(cuda_device, hidden, members, n):
+    """Members whose buffers exceed the card's free memory raise ValueError
+    before the launch's buffers are allocated; nothing falls back to single
+    launches. At w512, d8, 2^22 rows: ~100 GB of dW operands each. At w182
+    (kernel width 192), whose backward sums dW itself, a member's buffers at
+    512^2 are its z stash and partials (~0.14 GB): 1,200 members need ~170
+    GB, more than the card holds."""
+    m, c = build_model("siren", depth=8, hidden_size=hidden)
     gen = torch.Generator().manual_seed(6)
-    members = [m.init(gen, c, cuda_device) for _ in range(2)]
-    n = 1 << 22
+    one = m.init(gen, c, cuda_device)
+    stacked = tuple({k: v.expand((members,) + v.shape).contiguous() for k, v in layer.items()}
+                    for layer in one) if members > 2 else [one, m.init(gen, c, cuda_device)]
     x = torch.zeros((n, 2), device=cuda_device)
-    g = torch.zeros((2, n, 3), device=cuda_device)
+    g = torch.zeros((members, n, 3), device=cuda_device)
     torch.cuda.synchronize()
     before, allocated = dict(sm.LAUNCHES), torch.cuda.memory_allocated()
     with pytest.raises(ValueError, match="fit fewer members"):
-        sm.sine_mlp_bwd_batched(members, x, g, c, "fp32")
+        sm.sine_mlp_bwd_batched(stacked, x, g, c, "fp32")
     assert sm.LAUNCHES == before
-    assert torch.cuda.memory_allocated() - allocated < 64 << 20  # the packed weights at most
+    assert torch.cuda.memory_allocated() - allocated < 64 << 20
 
 
 @pytest.mark.cuda

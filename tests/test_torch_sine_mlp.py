@@ -333,11 +333,12 @@ def test_split_precision_against_fp32_limits(split_errors, scheme, passes):
         assert bwd > _FP32_BWD_TOL, (fwd, bwd)
 
 
-@pytest.mark.parametrize("scheme,passes", [("3xtf32", True), ("tf32", False)])
-@pytest.mark.parametrize("hidden,n", [(256, 1000), (512, 400)])
+@pytest.mark.parametrize("scheme,passes", [("3xtf32", True), ("tf32", False), ("6xbf16", True)])
+@pytest.mark.parametrize("hidden,n", [(256, 1000), (512, 400), (192, 1500)])
 def test_split_precision_at_wide_widths(hidden, n, scheme, passes):
-    """The error of a product grows with its depth K: at d8 with K = 256 and
-    512 (the wider kernels' widths) 3xTF32 still passes the fp32 mode's
+    """The error of a product grows with its depth K: at d8 with K = 192,
+    256 and 512 (the wider kernels' widths) 3xTF32 (their forward's split)
+    and "6xbf16" (the width-192 backward's) still pass the fp32 mode's
     limits, with the margin of 10 of width 128, and 1-pass TF32 still fails
     both."""
     fwd, bwd = _split_errors(hidden, n)(scheme)
@@ -350,23 +351,23 @@ def test_split_precision_at_wide_widths(hidden, n, scheme, passes):
 # ------------------------------------ the width-128 backward's packed weights
 
 
-@pytest.mark.parametrize("planes", [1, 3])
-def test_weight_planes_are_the_round_mantissa_planes_in_the_rings_layout(planes):
-    """ops/sine_mlp.weight_planes (the wrapper's operand preparation for the
-    width-128 backward): plane p is _round_mantissa(W - planes 0 .. p-1, 7),
-    three planes add up to W exactly, and each slice holds W's rows (image 0)
-    or columns (image 1) in 8 x 8 core matrices of 8 consecutive columns."""
+def _check_weight_planes(planes, h):
+    """ops/sine_mlp.weight_planes at width h (the wrapper's operand
+    preparation for the wgmma kernels): plane p is _round_mantissa(W -
+    planes 0 .. p-1, 7), three planes add up to W exactly, and each slice
+    holds W's rows (image 0) or columns (image 1) in 8 x 8 core matrices of
+    8 consecutive columns."""
     rng = np.random.default_rng(5)
-    w = torch.from_numpy(rng.standard_normal((2, 3, 128, 128)).astype(np.float32) / 11)
+    w = torch.from_numpy(rng.standard_normal((2, 3, h, h)).astype(np.float32) / 11)
     packed = sm.weight_planes(w, planes)
     assert packed.dtype == torch.bfloat16
     rows = sm._RING_ROWS
-    assert tuple(packed.shape) == (2, 2, 3, 128 // rows, planes, rows // 8, 16, 8, 8)
+    assert tuple(packed.shape) == (2, 2, 3, h // rows, planes, rows // 8, h // 8, 8, 8)
     want = _planes(w, planes)
     if planes == 3:
         assert torch.equal(want[0] + want[1] + want[2], w)
     # image, layer, slice, plane, K group, N group, row, column
-    u, kg, ng, r, c = np.meshgrid(*(np.arange(k) for k in (128 // rows, rows // 8, 16, 8, 8)),
+    u, kg, ng, r, c = np.meshgrid(*(np.arange(k) for k in (h // rows, rows // 8, h // 8, 8, 8)),
                                   indexing="ij")
     for p in range(planes):
         fwd = want[p][..., rows * u + 8 * kg + r, 8 * ng + c]
@@ -375,9 +376,23 @@ def test_weight_planes_are_the_round_mantissa_planes_in_the_rings_layout(planes)
         assert torch.equal(packed[:, 1, :, :, p].float(), bwd)
 
 
-def test_weight_planes_reject_other_widths():
-    with pytest.raises(ValueError, match="128"):
-        sm.weight_planes(torch.zeros(2, 192, 192), 3)
+@pytest.mark.parametrize("planes", [1, 3])
+def test_weight_planes_are_the_round_mantissa_planes_in_the_rings_layout(planes):
+    """At width 128 (the forward and backward of that width)."""
+    _check_weight_planes(planes, 128)
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+def test_weight_planes_at_width_192(planes):
+    """At width 192 (the width-192 backward): 12 slices of each image, 24
+    N groups of core matrices a plane."""
+    _check_weight_planes(planes, 192)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 256), (2, 512, 512), (2, 130, 130), (2, 128, 192)])
+def test_weight_planes_reject_other_widths(shape):
+    with pytest.raises(ValueError, match="128, 192"):
+        sm.weight_planes(torch.zeros(shape), 3)
 
 
 def test_dw_turn_undoes_the_kernels_staging_turn():
