@@ -285,8 +285,29 @@ Phases, each printing its own line:
      (and whether it has its bits). Every part decodes its members from
      their written containers: >= 20 dB in (a)-(c) (12 dB for the w182
      20-step leg), >= 12 dB in (d)'s 50-step fits.
+ 19. the multi-device layer at phase 5's configuration (the RigL
+     default, 512², d8/w128, 200 + 20 steps), each part's wall printed:
+     (a) a world-size-1 NCCL group (make_mesh(1, 1)): sharded_fit is the
+     single fit bit for bit (params, masks) with the same K1 / K2 /
+     sum_partials launches; sharded_render of it is the single render bit
+     for bit; sharded_compress decodes >= 20 dB (P19_FLOOR) and writes the
+     single pipeline's container (fit, finetune, container) byte for byte;
+     its launches over the three are the kernels line's
+     `sharded_launches`; (b) two processes sharing the card over gloo
+     (run_group, pixel = 2): each fits rows 256 of 512 with one K2 launch a
+     step (the single fit with pixel_chunks=2 two), and both ranks' params
+     and masks are that single fit's bit for bit; (c) two processes over
+     gloo, image = 2: a 4-member batched_fit (4 seeded 512² images) is the
+     one without a mesh bit for bit, and ladder_compress (densities 0.25,
+     0.5) writes the containers of the ladder without a mesh, byte for
+     byte; (d) launch_dryrun(2) on the card over gloo: both workers report
+     the same fleet PSNRs, each its image's single fit's; (e) the port's
+     rate-distortion scoring reads phase 5's run dir and returns the
+     decoded PSNR and MS-SSIM its summary.json records, and the host
+     MS-SSIM of the decoded image within 1e-4 of it (cv2 and matplotlib
+     are not needed).
 
-Each of phases 4-18 sets the launch counts to 0 just before its run and
+Each of phases 4-19 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_dw (the backward's dW at kernel widths 256 and 512) in phase
 10 and the w512 run of 12 (e) only; sine_mlp_fwd_batched in 13 (e), 14,
@@ -308,7 +329,8 @@ phase 3, with the launches of the phase that runs that width: 4, 9 and 10;
 the batched K1 at 128 and 182 with 13 (e)'s; the batched K2 and its
 partial sum with 14 (a)'s and 14 (d)'s, and at 256 its sine_mlp_dw with
 14 (e)'s; the single K1,
-K2 and sum_partials at 128 also with 17 (a)'s, as `sequence_launches`),
+K2 and sum_partials at 128 also with 17 (a)'s, as `sequence_launches`,
+and with 19 (a)'s sharded path's, as `sharded_launches`),
 and as the last line
 {"ok": true, "device": {...}}. Any failure raises: nothing is caught, the
 exit code is non-zero and no result line is printed. Without a CUDA device
@@ -4048,6 +4070,355 @@ def phase_member_axis(card: str, flagship_ms: float) -> dict:
     return mixed
 
 
+# phase 19: the multi-device layer on the one card, at phase 5's
+# configuration (the RigL default, 512², SIREN d8/w128, 200 + 20 steps):
+# (a) a world-size-1 NCCL group, (b) two processes sharing the card over
+# gloo with the image's rows split over them, (c) two processes over gloo
+# with the members split over them, (d) the multi-process fleet dryrun,
+# (e) the rate-distortion scoring without JAX, cv2 or matplotlib.
+P19 = "outputs/chip_smoke_p19"
+P19_MEMBERS = 4
+P19_DENSITIES = (0.25, 0.5)
+P19_FLEET = 3  # images of (d)'s dryrun fleet (16², d3/w8, 20 steps)
+P19_FLOOR = 20.0  # dB, (a)'s decoded PSNR, as phase 5's
+
+
+def _p19_pieces(overrides=None) -> dict:
+    """Phase 5's configuration (or `overrides`) as the entry points'
+    arguments, built as compress.main builds them."""
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model_from_config
+    from implicit_image_tpu_torch.training.fit import TrainConfig
+
+    cfg = compress.compose(overrides or DEFAULT_OVERRIDES)
+    img = compress._load_image(cfg.img)
+    h, w = img.shape[:2]
+    mdef, mcfg = build_model_from_config(cfg)
+    train = TrainConfig(
+        num_steps=int(cfg.train.num_steps), log_steps=int(cfg.train.log_steps),
+        pixel_chunks=compress._resolve_pixel_chunks(cfg.train.get("pixel_chunks", "auto"), h, w),
+        matmul_precision=cfg.train.get("matmul_precision") or None,
+        segment_steps=compress.auto_segment_steps(cfg))
+    return dict(img=img, h=h, w=w, grid=get_grid(h, w), mdef=mdef, mcfg=mcfg, train=train,
+                optim=compress._optim_config(cfg), masking=compress.masking_config(cfg),
+                quant=compress._quant_config(cfg.quant), seed=int(cfg.seed),
+                stream=cfg.entropy_coding.stream_name, half=compress._half_policy(cfg.entropy_coding))
+
+
+def _p19_generator(p):
+    import torch
+
+    return torch.Generator().manual_seed(p["seed"])
+
+
+def _p19_launched(launches: dict, what: str) -> None:
+    """K1, K2 and sum_partials launched, and nothing over a member axis."""
+    for name in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} did not launch on {what}: {launches}")
+
+
+def _p19_same(a, b, what: str) -> None:
+    """Two params (or masks) trees equal bit for bit, on any devices."""
+    import torch
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x is None or y is None:
+            if not (x is None and y is None):
+                raise AssertionError(f"{what}: layer {i} masked in one only")
+            continue
+        for k in (x.keys() if isinstance(x, dict) else [None]):
+            u, v = (x[k], y[k]) if k is not None else (x, y)
+            if not torch.equal(u.cpu(), v.cpu()):
+                raise AssertionError(f"{what}: layer {i} {k} differs by "
+                                     f"{(u.cpu().float() - v.cpu().float()).abs().max():.3e}")
+
+
+def _p19_digest(root) -> dict:
+    import hashlib
+
+    root = Path(root)
+    return {str(f.relative_to(root)): hashlib.sha256(f.read_bytes()).hexdigest()
+            for f in sorted(root.rglob("*")) if f.is_file()}
+
+
+def phase_world1(p, device="cuda", backend="nccl") -> dict:
+    """19 (a); returns the launches of the sharded path (fit, render and
+    pipeline)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import (
+        make_mesh,
+        pipeline,
+        sharded_compress,
+        sharded_fit,
+        sharded_render,
+    )
+    from implicit_image_tpu_torch.parallel.multihost import init_multihost
+    from implicit_image_tpu_torch.training.fit import fit
+    from implicit_image_tpu_torch.training.quant_phase import quant_finetune
+
+    root = Path(P19) / "a"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    init_multihost(f"file://{(root / 'rendezvous').resolve()}", 1, 0, backend, device)
+    mesh = make_mesh(1, 1, device=device)
+    args = (p["mdef"], p["mcfg"], p["grid"], p["img"], p["train"], p["optim"], p["masking"])
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    single = fit(_p19_generator(p), *args, device=mesh.device)
+    single_s = time.perf_counter() - t0
+    single_launches = dict(sm.LAUNCHES)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    sharded = sharded_fit(_p19_generator(p), mesh, *args)
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(sm.LAUNCHES)
+    render = sharded_render(mesh, p["mdef"], p["mcfg"], sharded.params, p["h"], p["w"])
+    t0 = time.perf_counter()
+    res = sharded_compress(_p19_generator(p), mesh, *args, p["quant"], stream_name=p["stream"],
+                           stream_dir=str(root / "sharded"), half=p["half"])
+    compress_s = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    print(f"[19a world 1] backend {dist.get_backend()}, mesh {mesh.shape}: sharded fit "
+          f"{fit_s:.2f} s (the single fit {single_s:.2f} s; fit walls {sharded.wall_seconds:.3f} "
+          f"/ {single.wall_seconds:.3f} s), sharded_compress {compress_s:.2f} s, decoded "
+          f"{res.decoded_psnr:.3f} dB, {res.compressed_bytes} B; fit launches "
+          f"{fit_launches} (single fit {single_launches}); path launches {launches}", flush=True)
+    if dist.get_backend() != backend:
+        raise AssertionError(f"the group runs {dist.get_backend()}, not {backend}")
+    _p19_same(sharded.params, single.params, "19a sharded fit params")
+    _p19_same(sharded.mask_state.masks, single.mask_state.masks, "19a sharded fit masks")
+    if fit_launches != single_launches:
+        raise AssertionError(f"19a sharded fit launched {fit_launches}, the single fit "
+                             f"{single_launches}")
+    _p19_launched(launches, "19a's sharded path")
+    with torch.no_grad():
+        plain = p["mdef"].apply(single.params, p["grid"].to(mesh.device), p["mcfg"], "fp32")
+    if not torch.equal(render, plain):
+        raise AssertionError("19a sharded_render is not the single render")
+    from implicit_image_tpu_torch.ops.sine_mlp import precision_from_config
+
+    q = quant_finetune(single.params, p["img"], p["mdef"], p["mcfg"], p["grid"], p["quant"],
+                       p["optim"], precision=precision_from_config(p["train"].matmul_precision),
+                       masks=single.mask_state.masks)
+    nbytes, dec = pipeline._encode_decode(
+        q.params, q.codebooks, p["mdef"], p["mcfg"], p["h"], p["w"],
+        np.asarray(p["img"], np.float64), root / "single", p["stream"], p["half"],
+        device=mesh.device)
+    ours, theirs = _p19_digest(root / "sharded"), _p19_digest(root / "single")
+    print(f"[19a world 1] single pipeline {nbytes} B, {dec:.3f} dB; streams {ours}", flush=True)
+    if ours != theirs or (res.compressed_bytes, res.decoded_psnr) != (nbytes, dec):
+        raise AssertionError(f"19a sharded_compress wrote {ours}, the single pipeline {theirs}")
+    if not (math.isfinite(res.decoded_psnr) and res.decoded_psnr >= P19_FLOOR):
+        raise AssertionError(f"19a decoded PSNR {res.decoded_psnr} below {P19_FLOOR} dB")
+    dist.destroy_process_group()
+    return launches
+
+
+def _p19_rank_setup(device, overrides):
+    """A phase 19 rank: the kernels (built by the parent) and the pieces."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        from implicit_image_tpu_torch.ops.cuda_build import open_device
+
+        open_device(torch.device("cuda", torch.cuda.current_device()))
+    return _p19_pieces(overrides)
+
+
+def _p19_pixel_rank(rank, device, overrides):
+    """19 (b) on one rank: the sharded fit over 2 pixel ranks."""
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import make_mesh, sharded_fit
+    from implicit_image_tpu_torch.training.fit import pixel_rows, synchronize
+
+    p = _p19_rank_setup(device, overrides)
+    mesh = make_mesh(1, 2, device=device)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sharded_fit(_p19_generator(p), mesh, p["mdef"], p["mcfg"], p["grid"], p["img"],
+                      p["train"], p["optim"], p["masking"])
+    synchronize(mesh.device)
+    rows = pixel_rows(p["h"], mesh.pixel)
+    return dict(params=res.params, masks=res.mask_state.masks, launches=dict(sm.LAUNCHES),
+                rows=(rows.start, rows.stop), wall=time.perf_counter() - t0,
+                fit_wall=res.wall_seconds, psnr=float(res.metrics["psnr"][-1]))
+
+
+def _p19_members(p):
+    import numpy as np
+
+    from implicit_image_tpu_torch.data import synthetic_image
+
+    return np.stack([synthetic_image(p["h"], p["w"], seed=s) for s in range(P19_MEMBERS)])
+
+
+def _p19_image_rank(rank, device, overrides, root):
+    """19 (c) on one rank: the batched fit and the ladder over 2 image ranks,
+    the ladder's run dirs under root/ladder_mesh."""
+    from implicit_image_tpu_torch.parallel import batched_fit, make_mesh
+    from implicit_image_tpu_torch.parallel.ladder import ladder_compress
+
+    p = _p19_rank_setup(device, overrides)
+    mesh = make_mesh(2, 1, device=device)
+    t0 = time.perf_counter()
+    res = batched_fit(_p19_generator(p), p["mdef"], p["mcfg"], p["grid"], _p19_members(p),
+                      p["train"], p["optim"], p["masking"], mesh=mesh)
+    fit_s = time.perf_counter() - t0
+    ladder = ladder_compress(_p19_generator(p), p["mdef"], p["mcfg"], p["grid"], p["img"],
+                             p["train"], p["optim"], p["masking"], P19_DENSITIES,
+                             quant_cfg=p["quant"], stream_name=p["stream"],
+                             stream_root=str(Path(root) / "ladder_mesh"), half=p["half"],
+                             mesh=mesh)
+    return dict(params=res.params, masks=res.mask_state.masks, fit_s=fit_s,
+                ladder=[(r.compressed_bytes, r.decoded_psnr) for r in ladder])
+
+
+def phase_pixel_ranks(p, device="cuda", overrides=None) -> None:
+    """19 (b)."""
+    import dataclasses
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel.multihost import run_group
+    from implicit_image_tpu_torch.training.fit import fit
+
+    t0 = time.perf_counter()
+    ranks = run_group(_p19_pixel_rank, 2, (device, overrides), device=device, backend="gloo",
+                      timeout=600.0, workdir=P19)
+    spawn_s = time.perf_counter() - t0
+    sm.reset_launch_counts()
+    single = fit(_p19_generator(p), p["mdef"], p["mcfg"], p["grid"], p["img"],
+                 dataclasses.replace(p["train"], pixel_chunks=2 * p["train"].pixel_chunks),
+                 p["optim"], p["masking"], device=device)
+    single_launches = dict(sm.LAUNCHES)
+    print(f"[19b pixel 2] the single fit with pixel_chunks=2: fit wall "
+          f"{single.wall_seconds:.3f} s", flush=True)
+    for r, out in enumerate(ranks):
+        print(f"[19b pixel 2] rank {r}: rows {out['rows']} of {p['h']}, fit {out['wall']:.2f} s "
+              f"(fit wall {out['fit_wall']:.3f} s), "
+              f"PSNR {out['psnr']:.3f} dB, launches {out['launches']}", flush=True)
+        _p19_launched(out["launches"], f"19b rank {r}")
+        _p19_same(out["params"], single.params, f"19b rank {r} params")
+        _p19_same(out["masks"], single.mask_state.masks, f"19b rank {r} masks")
+        if out["rows"] != (r * p["h"] // 2, (r + 1) * p["h"] // 2):
+            raise AssertionError(f"19b rank {r} fit rows {out['rows']}")
+        # one chunk a rank: K2 once a step (the single fit with 2 chunks twice)
+        if 2 * out["launches"]["sine_mlp_bwd"] != single_launches["sine_mlp_bwd"]:
+            raise AssertionError(f"19b rank {r} K2 launches {out['launches']['sine_mlp_bwd']}, "
+                                 f"the single fit with 2 chunks {single_launches}")
+    print(f"[19b pixel 2] both ranks the single fit with pixel_chunks=2 bit for bit "
+          f"(its launches {single_launches}); spawn to results {spawn_s:.2f} s", flush=True)
+
+
+def phase_image_ranks(p, device="cuda", overrides=None) -> None:
+    """19 (c)."""
+    from implicit_image_tpu_torch.parallel import batched_fit
+    from implicit_image_tpu_torch.parallel.ladder import ladder_compress
+    from implicit_image_tpu_torch.parallel.multihost import run_group
+
+    root = Path(P19) / "c"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = run_group(_p19_image_rank, 2, (device, overrides, str(root)), device=device,
+                      backend="gloo", timeout=600.0, workdir=P19)
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = batched_fit(_p19_generator(p), p["mdef"], p["mcfg"], p["grid"], _p19_members(p),
+                        p["train"], p["optim"], p["masking"], device=device)
+    fit_s = time.perf_counter() - t0
+    ladder = ladder_compress(_p19_generator(p), p["mdef"], p["mcfg"], p["grid"], p["img"],
+                             p["train"], p["optim"], p["masking"], P19_DENSITIES,
+                             quant_cfg=p["quant"], stream_name=p["stream"],
+                             stream_root=str(root / "ladder_plain"), half=p["half"],
+                             device=device)
+    for r, out in enumerate(ranks):
+        _p19_same(out["params"], plain.params, f"19c rank {r} params")
+        _p19_same(out["masks"], plain.mask_state.masks, f"19c rank {r} masks")
+        if out["ladder"] != [(x.compressed_bytes, x.decoded_psnr) for x in ladder]:
+            raise AssertionError(f"19c rank {r} ladder {out['ladder']}")
+    mesh_streams = _p19_digest(root / "ladder_mesh")
+    if mesh_streams != _p19_digest(root / "ladder_plain") or not mesh_streams:
+        raise AssertionError("19c the mesh ladder's containers are not the plain ladder's")
+    print(f"[19c image 2] {P19_MEMBERS}-member batched fit over 2 ranks "
+          f"({ranks[0]['fit_s']:.2f} s; without the mesh {fit_s:.2f} s) and the "
+          f"{len(P19_DENSITIES)}-member ladder ({ranks[0]['ladder']}) the runs without the mesh "
+          f"bit for bit; spawn to results {spawn_s:.2f} s", flush=True)
+
+
+def phase_fleet_dryrun(device="cuda") -> None:
+    """19 (d)."""
+    import numpy as np
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid, synthetic_image
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.parallel import member_generators
+    from implicit_image_tpu_torch.parallel.multihost import launch_dryrun
+    from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+    t0 = time.perf_counter()
+    reports = launch_dryrun(2, fleet_size=P19_FLEET, steps=20, timeout=600.0, device=device,
+                            backend="gloo")
+    wall = time.perf_counter() - t0
+    mdef, mcfg = build_model("siren", depth=3, hidden_size=8)
+    gens = member_generators(torch.Generator().manual_seed(0), P19_FLEET)
+    single = [float(np.float32(fit(gens[i], mdef, mcfg, get_grid(16, 16), synthetic_image(
+        16, 16, seed=i), TrainConfig(num_steps=20, log_steps=20), OptimConfig(lr=1e-3),
+        device=device).metrics["psnr"][-1])) for i in range(P19_FLEET)]
+    print(f"[19d fleet] launch_dryrun(2) {wall:.2f} s: {reports}; single fits {single}",
+          flush=True)
+    for r in reports:
+        if r["fleet_psnrs"] != single or not r["collective_ok"]:
+            raise AssertionError(f"19d worker {r['process_id']} reports {r['fleet_psnrs']}, "
+                                 f"the single fits {single}")
+
+
+def phase_rate_distortion(default_run: str, overrides=None, device="cuda") -> None:
+    """19 (e)."""
+    import importlib.util
+
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.visualize.rate_distortion import _ms_ssim_np, ours_rate_distortion
+
+    summary = json.loads((Path(default_run) / "summary.json").read_text())
+    kb = summary["Compressed Bytes"] / 1024.0
+    points = {m: ours_rate_distortion(default_run, metric=m) for m in ("psnr", "ms_ssim")}
+    img, _ = decompress.decode_run(default_run, device=device)
+    target = compress._load_image(compress.compose(overrides or DEFAULT_OVERRIDES).img)
+    host = _ms_ssim_np(np.asarray(img), target)
+    missing = [m for m in ("cv2", "matplotlib", "jax") if importlib.util.find_spec(m) is None]
+    print(f"[19e rate-distortion] {points}; summary.json: {kb} KB, "
+          f"{summary['Decoded PSNR']} dB, MS-SSIM {summary['Decoded MS-SSIM']}; the host "
+          f"scoring of the decoded image {host} (diff "
+          f"{host - summary['Decoded MS-SSIM']:.2e}); absent here: {missing}", flush=True)
+    if points != {"psnr": [(kb, summary["Decoded PSNR"])],
+                  "ms_ssim": [(kb, summary["Decoded MS-SSIM"])]}:
+        raise AssertionError(f"19e the run store reads {points}")
+    if abs(host - summary["Decoded MS-SSIM"]) > 1e-4:
+        raise AssertionError(f"19e host MS-SSIM {host} against {summary['Decoded MS-SSIM']}")
+
+
+def phase_multi_device(default_run: str) -> dict:
+    """Phase 19; returns (a)'s launches of the sharded path."""
+    p = _p19_pieces()
+    t0 = time.perf_counter()
+    launches = phase_world1(p)
+    for part, fn in (("b", lambda: phase_pixel_ranks(p)), ("c", lambda: phase_image_ranks(p)),
+                     ("d", phase_fleet_dryrun), ("e", lambda: phase_rate_distortion(default_run))):
+        t1 = time.perf_counter()
+        fn()
+        print(f"[19{part}] wall {time.perf_counter() - t1:.2f} s", flush=True)
+    print(f"[19 multi-device] wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4092,6 +4463,7 @@ def main() -> int:
     for width, counts in phase_member_axis(card, flagship_ms).items():
         for name in ("sine_mlp_fwd_batched", "sine_mlp_bwd_batched"):
             path_launches[width][name + sm.MIXED] = counts[name]
+    sharded_launches = phase_multi_device(default_dir)
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
                "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,
@@ -4116,7 +4488,8 @@ def main() -> int:
             "padded_bound_ms": padded_bound_ms,
             "library_ms": library_ms,
             # the single launches at w128 on phase 17a's sequence encode
-            **({"sequence_launches": sequence_launches[name]}
+            **({"sequence_launches": sequence_launches[name],
+                "sharded_launches": sharded_launches[name]}
                if width == WIDTH and name in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials")
                else {}),
         }

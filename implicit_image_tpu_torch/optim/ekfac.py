@@ -241,19 +241,34 @@ def ekfac_update_stats(state: EkfacState, acts, grads, alpha: float = 0.75,
 
 def ekfac_update_stats_chunked(state: EkfacState, mdef, mcfg, params, coords, target,
                                chunks: int, alpha: float = 0.75,
-                               recompute_eigs: bool = True) -> EkfacState:
+                               recompute_eigs: bool = True, pixel_group=None) -> EkfacState:
     """ekfac_update_stats with the capture held to one pixel chunk at a time
     (per-pixel models only: wavelet_siren raises). Each chunk's loss is its
     share of the global mean, so its per-sample grads carry the unchunked
-    capture's scale; the Grams and m2 are sums over the chunks."""
+    capture's scale; the Grams and m2 are sums over the chunks. With a
+    `pixel_group` (parallel/collectives.AxisGroup), coords and target are
+    this rank's rows in `chunks` chunks, and the sums run over every rank's
+    chunks in rank order: each rank gets the bits of the whole lattice's
+    capture in chunks · size chunks."""
     if mdef.name == "wavelet_siren":
         raise ValueError("chunked EKFAC capture is undefined for full-grid models "
                          "(wavelet_siren renders on its own DWT grids)")
-    n_total = coords.shape[0]
-    if n_total % chunks:
-        raise ValueError(f"pixel_chunks={chunks} must divide pixel count {n_total}")
-    n_c = n_total // chunks
+    n_local = coords.shape[0]
+    if n_local % chunks:
+        raise ValueError(f"pixel_chunks={chunks} must divide pixel count {n_local}")
+    n_c = n_local // chunks
+    n_total = n_local * (pixel_group.size if pixel_group is not None else 1)
     lin = _linear_layers(mdef.name, params)
+
+    def summed(per_chunk):
+        """The left-to-right sum over the chunks (every rank's, in order)
+        of per-chunk lists of tensors."""
+        if pixel_group is not None:
+            return pixel_group.chunk_sum(per_chunk)
+        acc = per_chunk[0]
+        for part in per_chunk[1:]:
+            acc = [x + y for x, y in zip(acc, part)]
+        return acc
 
     def chunk_stats(c):
         cc, tc = coords[c * n_c:(c + 1) * n_c], target[c * n_c:(c + 1) * n_c]
@@ -263,22 +278,18 @@ def ekfac_update_stats_chunked(state: EkfacState, mdef, mcfg, params, coords, ta
         return [(_with_ones(a), g * n_total) for a, g in zip(acts, grads)]
 
     if recompute_eigs:
-        a_sums = g_sums = None
+        grams = []
         for c in range(chunks):
             stats = chunk_stats(c)
-            a_c = [a1.t() @ a1 for a1, _ in stats]
-            g_c = [gs.t() @ gs for _, gs in stats]
-            a_sums = a_c if a_sums is None else [x + y for x, y in zip(a_sums, a_c)]
-            g_sums = g_c if g_sums is None else [x + y for x, y in zip(g_sums, g_c)]
-        ua_t = _bases([a / n_total for a in a_sums])
-        ug_t = _bases([g / n_total for g in g_sums])
+            grams.append([a1.t() @ a1 for a1, _ in stats] + [gs.t() @ gs for _, gs in stats])
+        sums = summed(grams)
+        ua_t = _bases([a / n_total for a in sums[:len(lin)]])
+        ug_t = _bases([g / n_total for g in sums[len(lin):]])
     else:
         ua_t, ug_t = state.ua, state.ug
-    m2_sums = None
-    for c in range(chunks):
-        m2_c = [_m2_batch(gs, a1, ug, ua)
-                for (a1, gs), ua, ug in zip(chunk_stats(c), ua_t, ug_t)]
-        m2_sums = m2_c if m2_sums is None else [x + y for x, y in zip(m2_sums, m2_c)]
+    m2_sums = summed([[_m2_batch(gs, a1, ug, ua)
+                       for (a1, gs), ua, ug in zip(chunk_stats(c), ua_t, ug_t)]
+                      for c in range(chunks)])
     m2 = tuple(alpha * m2 + (1 - alpha) * (s / n_total) for m2, s in zip(state.m2, m2_sums))
     return EkfacState(ua=tuple(ua_t), ug=tuple(ug_t), m2=m2)
 

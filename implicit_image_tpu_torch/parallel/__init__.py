@@ -1,20 +1,38 @@
-"""Many fits on one device (counterpart of implicit_image_tpu/parallel/):
+"""Many fits and many devices (counterpart of implicit_image_tpu/parallel/):
 batched fits over a member axis, the batched compress pipeline and the
-density ladder. The mesh and the sharded fit, render and pipeline wait for
-the multi-GPU slice (ROADMAP.md, M16)."""
+density ladder on one device; the ("image", "pixel") mesh over a
+torch.distributed process group, the pixel-sharded fit, render and
+pipeline, the member axis over the image ranks, and fleets of fits over
+many processes (parallel/multihost.py)."""
 from implicit_image_tpu_torch.parallel.batched import (
     batched_fit,
     make_batched_fit_fn,
     member_generators,
 )
-from implicit_image_tpu_torch.parallel.pipeline import PipelineResult, batched_compress
+from implicit_image_tpu_torch.parallel.mesh import Mesh, make_mesh
+from implicit_image_tpu_torch.parallel.pipeline import (
+    PipelineResult,
+    batched_compress,
+    sharded_compress,
+)
+from implicit_image_tpu_torch.parallel.sharded import (
+    make_sharded_fit_fn,
+    sharded_fit,
+    sharded_render,
+)
 
 __all__ = [
+    "Mesh",
+    "make_mesh",
     "member_generators",
     "make_batched_fit_fn",
     "batched_fit",
+    "make_sharded_fit_fn",
+    "sharded_fit",
+    "sharded_render",
     "PipelineResult",
     "batched_compress",
+    "sharded_compress",
     "ladder_fit",
     "ladder_compress",
 ]

@@ -33,9 +33,19 @@ order).
 What raises (check_member_axis) is what the single fit refuses too:
 ms-ssim with pixel_chunks > 1, pixel chunks of a full-grid model, EKFAC
 on a Feathermap model or with chunks of a full-grid model. The JAX
-package's segment split, `estimate_step_flops` and the mesh are TPU
-scaffolding and have no counterpart; its batched fit takes no checkpoint,
-watch or early stop, and neither does this one.
+package's segment split and `estimate_step_flops` are TPU scaffolding and
+have no counterpart; its batched fit takes no checkpoint, watch or early
+stop, and neither does this one.
+
+On a mesh (`mesh`, parallel/mesh.py) the members split over the "image"
+ranks, contiguously (B must divide by the axis), each member keeping the
+generator it has without the mesh, and each member's rows split over the
+"pixel" ranks (training.fit's pixel group: with train.pixel_chunks = k,
+each member's gradient is its single fit's with k · pixel chunks). The
+results are gathered over the image ranks in member order, so every rank
+returns the FitResult of the same fit without the mesh at pixel_chunks =
+k · pixel: the same bits wherever each member's forward and backward have
+their single launch's (the fused SIREN).
 """
 from __future__ import annotations
 
@@ -46,10 +56,10 @@ import numpy as np
 import torch
 
 from implicit_image_tpu_torch.models import ModelDef
-from implicit_image_tpu_torch.ops.metrics import mse, psnr_8bit
 from implicit_image_tpu_torch.ops.sine_mlp import stack_members
 from implicit_image_tpu_torch.optim import opt_init
 from implicit_image_tpu_torch.optim.ekfac import ekfac_init, model_skip_indices
+from implicit_image_tpu_torch.parallel.collectives import gather_members
 from implicit_image_tpu_torch.sparsity import MaskingConfig, MaskState
 from implicit_image_tpu_torch.training.fit import (
     EkfacFit,
@@ -60,10 +70,13 @@ from implicit_image_tpu_torch.training.fit import (
     _host_array,
     _schedule,
     check_optim,
+    check_pixel_group,
+    eval_scores,
     forward_members,
     init_fit_state,
     make_grad_fn,
     optimizer_step,
+    pixel_rows,
     plan_precision_schedule,
     set_trainable_,
     synchronize,
@@ -100,10 +113,19 @@ def check_member_axis(mdef: ModelDef, mcfg, train_cfg: TrainConfig,
     return check_optim(mdef, train_cfg, optim_cfg)
 
 
+def member_share(b: int, mesh) -> slice:
+    """The members of this rank's image coordinate: a contiguous 1/image of
+    b (ValueError unless the image axis divides b)."""
+    n = mesh.shape["image"]
+    if b % n:
+        raise ValueError(f"{b} members do not split over image axis {n}")
+    return slice(mesh.image.rank * (b // n), (mesh.image.rank + 1) * (b // n))
+
+
 def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
                 grid: torch.Tensor, targets, train_cfg: TrainConfig, optim_cfg: OptimConfig,
                 masking_cfgs: Optional[Sequence[MaskingConfig]] = None, init_params=None,
-                device="cuda") -> FitResult:
+                device="cuda", mesh=None, pixel_group=None) -> FitResult:
     """The member-axis fit loop of `batched_fit`, the density ladder and
     meta-training's inner loop: M = len(generators) fits of one model shape
     on `device` (the grid moves there; "cpu" runs the plain versions).
@@ -114,12 +136,28 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
     `init_fit_state(generators[m], ..., masking_cfgs[m], init_params)` (a
     warm dense fit draws nothing: its generators may be None). Returns a FitResult
     whose params, optimizer state, masks, mask scalars and metric arrays
-    carry a leading member axis (with grad_clip, metrics["clip_scale"] too)."""
+    carry a leading member axis (with grad_clip, metrics["clip_scale"] too).
+    On a `mesh` (module note) the fit runs on mesh.device and every rank
+    returns every member; `pixel_group` alone splits each member's rows
+    (training.fit's module note)."""
     use_ekfac = check_member_axis(mdef, mcfg, train_cfg, optim_cfg)
-    device = torch.device(device)
     b = len(generators)
     if b == 0:
         raise ValueError("no members")
+    if mesh is not None:
+        share = member_share(b, mesh)
+        if np.ndim(targets) == 4:
+            targets = targets[share]
+        res = fit_members(list(generators)[share], mdef, mcfg, grid, targets, train_cfg,
+                          optim_cfg, None if masking_cfgs is None else list(masking_cfgs)[share],
+                          init_params, mesh.device, pixel_group=mesh.pixel)
+        return gather_members(res, mesh.image)
+    device = torch.device(device)
+    if pixel_group is not None:
+        check_pixel_group(mdef, pixel_group, grid.shape[0])
+        rows = pixel_rows(grid.shape[0], pixel_group)
+        grid = grid[rows]
+        targets = targets[rows] if np.ndim(targets) == 3 else targets[:, rows]
     n = train_cfg.num_steps
     precision = train_cfg.precision
     early, switch = plan_precision_schedule(train_cfg, n)
@@ -148,7 +186,8 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
     if use_ekfac:
         skip = model_skip_indices(mdef.name, inits[0][0])
         ekfac = EkfacFit(mdef, mcfg, coords, member_targets, optim_cfg, train_cfg.pixel_chunks,
-                         [ekfac_init(p, skip) for p, _, _ in inits], members=True)
+                         [ekfac_init(p, skip) for p, _, _ in inits], members=True,
+                         pixel_group=pixel_group)
     sparse_fit = (SparseFit(masking_cfgs, [ms for _, _, ms in inits], generators, True)
                   if sparse else None)
     del inits
@@ -159,7 +198,8 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
         if prec not in grad_fns:
             grad_fns[prec] = make_grad_fn(
                 mdef, mcfg, coords, target_flat, prec, train_cfg.pixel_chunks, grid_hw=(h, w),
-                loss_name=train_cfg.loss, ssim_weight=train_cfg.ssim_weight, members=True)
+                loss_name=train_cfg.loss, ssim_weight=train_cfg.ssim_weight, members=True,
+                pixel_group=pixel_group)
         return grad_fns[prec]
 
     clip_stats = {} if float(optim_cfg.grad_clip or 0.0) > 0 else None
@@ -181,12 +221,7 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
                 preds = forward_members(mdef, mcfg, params, coords, (h, w), prec).unbind(0)
-                rows = []
-                for pred, t in zip(preds, member_targets):
-                    test_loss = mse(pred, t)
-                    rows.append(torch.stack([test_loss, 10.0 * torch.log10(1.0 / test_loss),
-                                             psnr_8bit(pred, t)]))
-                evals[step] = torch.stack(rows)
+                evals[step] = eval_scores(preds, member_targets, pixel_group)
     synchronize(device)
     wall = time.perf_counter() - t0
 
@@ -215,18 +250,22 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
 
 def make_batched_fit_fn(mdef: ModelDef, mcfg, grid: torch.Tensor, train_cfg: TrainConfig,
                         optim_cfg: OptimConfig, masking_cfg: Optional[MaskingConfig] = None,
-                        init_params=None, device="cuda"):
+                        init_params=None, device="cuda", mesh=None):
     """fit(generators (B,), imgs (B, H, W, C)) -> a FitResult whose leaves
     carry a leading member axis: B fits of one configuration, one image and
     one generator each, over the member axis, on `device`. `init_params` (unbatched)
     warm-starts every member from the same meta-init (training/metainit.py).
-    What the fit refuses raises here (check_member_axis)."""
+    With a `mesh` the members split over its image ranks and their rows over
+    its pixel ranks, on mesh.device (module note). What the fit refuses
+    raises here (check_member_axis; check_pixel_group on a mesh)."""
     check_member_axis(mdef, mcfg, train_cfg, optim_cfg)
+    if mesh is not None:
+        check_pixel_group(mdef, mesh.pixel, grid.shape[0])
 
     def fit_fn(generators, imgs):
         cfgs = None if masking_cfg is None else [masking_cfg] * len(generators)
         return fit_members(generators, mdef, mcfg, grid, imgs, train_cfg, optim_cfg, cfgs,
-                           init_params, device)
+                           init_params, device, mesh=mesh)
 
     return fit_fn
 
@@ -234,10 +273,12 @@ def make_batched_fit_fn(mdef: ModelDef, mcfg, grid: torch.Tensor, train_cfg: Tra
 def batched_fit(generator: torch.Generator, mdef: ModelDef, mcfg, grid: torch.Tensor, imgs,
                 train_cfg: TrainConfig, optim_cfg: OptimConfig,
                 masking_cfg: Optional[MaskingConfig] = None, init_params=None,
-                device="cuda") -> FitResult:
+                device="cuda", mesh=None) -> FitResult:
     """Fit a batch of images (B, H, W, C) together on `device` (the grid
-    moves there; "cpu" runs the plain versions): member i draws from member_generators(generator, B)[i]."""
+    moves there; "cpu" runs the plain versions): member i draws from
+    member_generators(generator, B)[i]. With a `mesh`, on its image and
+    pixel ranks (module note); every rank returns the whole batch."""
     imgs = np.asarray(imgs)
     fit_fn = make_batched_fit_fn(mdef, mcfg, grid, train_cfg, optim_cfg, masking_cfg,
-                                 init_params, device)
+                                 init_params, device, mesh)
     return fit_fn(member_generators(generator, imgs.shape[0]), imgs)

@@ -32,6 +32,11 @@ model.npz and mask.npz as compress.py writes them) under
 packages' decoders read (decompress.decode_run, and decode_runs for the
 whole ladder in one K1 launch over the member axis). `device=cpu` runs the
 plain versions instead of the kernels, as compress.py.
+
+On a mesh (`mesh`, parallel/mesh.py) the densities are laid over the
+"image" ranks and each member's rows over the "pixel" ranks
+(parallel/batched.fit_members); each image coordinate codes its own
+densities' run dirs, and every rank returns the whole ladder.
 """
 from __future__ import annotations
 
@@ -74,14 +79,16 @@ def _member_configs(masking_cfg, densities):
 
 def ladder_fit(generator: torch.Generator, mdef: ModelDef, mcfg, grid: torch.Tensor, img,
                train_cfg: TrainConfig, optim_cfg: OptimConfig, masking_cfg,
-               densities: Sequence[float], init_params=None, device="cuda") -> FitResult:
+               densities: Sequence[float], init_params=None, device="cuda",
+               mesh=None) -> FitResult:
     """Fit ONE image at B densities together on `device` (the grid moves
     there; "cpu" runs the plain versions); returns a FitResult whose leaves carry a leading member axis
     aligned with `densities`. Member i draws from
-    member_generators(generator, B)[i]."""
+    member_generators(generator, B)[i]. With a `mesh`, the densities over
+    its image ranks (module note)."""
     cfgs = _member_configs(masking_cfg, densities)
     return fit_members(member_generators(generator, len(cfgs)), mdef, mcfg, grid, img,
-                       train_cfg, optim_cfg, cfgs, init_params, device)
+                       train_cfg, optim_cfg, cfgs, init_params, device, mesh=mesh)
 
 
 def ladder_compress(
@@ -102,32 +109,34 @@ def ladder_compress(
     init_params=None,
     delta_info: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ) -> Sequence[PipelineResult]:
     """The ladder end to end on `device`: the fit over the member axis, the
     codebook finetune over the member axis, then each member's container in
     <stream_root>/d<density>/model_quantized and its decode (the reference
     pipeline's order). `delta_info` (quant.delta): every member codes
     residual codebooks against the shared `init_params` artifact, whose path
-    and sha256 each manifest records."""
+    and sha256 each manifest records. With a `mesh`, on mesh.device over its
+    image and pixel ranks (module note)."""
     return _ladder_run(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking_cfg,
                        densities, quant_cfg, stream_name, stream_root, half, coding_kwargs,
-                       init_params, delta_info, device)[1]
+                       init_params, delta_info, device, mesh)[1]
 
 
 def _ladder_run(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking_cfg, densities,
                 quant_cfg, stream_name, stream_root, half, coding_kwargs, init_params,
-                delta_info, device):
+                delta_info, device, mesh=None):
     """ladder_compress's work: (the fit's FitResult, the members' results)."""
     _check_delta(delta_info, init_params, quant_cfg)
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     grid = grid.to(device)
     res = ladder_fit(generator, mdef, mcfg, grid, img, train_cfg, optim_cfg, masking_cfg,
-                     densities, init_params=init_params, device=device)
+                     densities, init_params=init_params, device=device, mesh=mesh)
     run_dirs = [Path(stream_root) / f"d{d}" for d in densities]
     t0 = time.perf_counter()
     out = finetune_and_code(res, [img] * len(densities), mdef, mcfg, grid, train_cfg, optim_cfg,
                             quant_cfg, [d / "model_quantized" for d in run_dirs], stream_name,
-                            half, coding_kwargs, init_params, delta_info, device)
+                            half, coding_kwargs, init_params, delta_info, device, mesh)
     synchronize(device)
     log.info("ladder finetune + coding: %.2f s for %d members", time.perf_counter() - t0,
              len(densities))

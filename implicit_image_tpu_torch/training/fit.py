@@ -66,6 +66,25 @@ a plain fp32 chain (chunk by chunk when pixel_chunks > 1) and updates the
 KFE moments; the eigenbases are recomputed when step % precond_interval
 == 0, a test on the Python step. Feathermap (no per-layer weights) and
 wavelet_siren with pixel_chunks > 1 (no per-pixel chunks) raise.
+
+A pixel group (`pixel_group`, the "pixel" axis of a mesh:
+parallel/mesh.py) splits the fit's rows over its ranks: rank r of n takes
+rows [r·H/n, (r+1)·H/n) and, with train.pixel_chunks = k, runs chunks
+r·k .. r·k + k - 1 of the single fit's n·k. Every sum over pixels goes
+through the group's ordered sum (parallel/collectives.AxisGroup): the
+chunk losses and gradients (so every rank steps with the single fit's
+chunk sum: the sharded fit on n ranks has the bits of the single fit with
+pixel_chunks = n·k wherever each chunk's forward and backward have them),
+EKFAC's factors, the eval's squared-error sums and the stop check's.
+Every decision then reads values that are the same on every rank (the
+mask updates read the summed gradients; the generator draws the same
+growth on every rank), so the ranks never part. Under train.loss=ms-ssim
+(whose windows straddle the rows) each rank gathers the rows' predictions
+(N x C, not the activations) and evaluates the whole image's loss; its
+gradient with respect to a rank's rows is that rank's slice, and the
+parameter gradients are added over the ranks in rank order: the single
+fit's values up to the order of that sum. A full-grid model needs the
+whole lattice on every rank and raises on a group of more than one rank.
 """
 from __future__ import annotations
 
@@ -121,6 +140,9 @@ __all__ = [
     "check_optim",
     "synchronize",
     "set_trainable_",
+    "check_pixel_group",
+    "pixel_rows",
+    "eval_scores",
 ]
 
 
@@ -242,7 +264,7 @@ def set_trainable_(params, on: bool) -> None:
 
 def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
                  grid_hw=None, loss_name: str = "mse", ssim_weight: float = 0.84,
-                 members: bool = False):
+                 members: bool = False, pixel_group=None):
     """loss(params): MSE of the flat forward against the flat target, or
     with loss_name="ms-ssim" (needs the (H, W) grid) the mix
     (1-w)·MSE + w·(1-MS-SSIM) at as many scales (up to 5) as the grid holds
@@ -258,7 +280,12 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     differentiated as one reduction over the stacked squares (its gradient
     has the single fit's bits, elementwise; its sums may add in another
     order on the card), and valued member by member over the same squares;
-    the MS-SSIM mix runs member by member, one vector serving both."""
+    the MS-SSIM mix runs member by member, one vector serving both.
+
+    `pixel_group` (ms-ssim only): coords, target_flat and grid_hw are this
+    rank's rows; the loss is the whole image's, on its gathered predictions
+    (module note)."""
+    gather = loss_name == "ms-ssim" and pixel_group is not None
     if loss_name == "mse":
         def distortion(pred_flat, tgt):
             return mse(pred_flat, tgt)
@@ -268,6 +295,9 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
         from implicit_image_tpu_torch.ops.ssim import ms_ssim
 
         gh, gw = grid_hw
+        if gather:
+            gh *= pixel_group.size
+            target_flat = pixel_group.cat(target_flat, dim=-2)
         win = 11
         levels = 1
         while levels < 5 and min(gh, gw) >= win * 2**levels:
@@ -285,6 +315,8 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     if members:
         def loss_fn(params):
             pred = forward_members(mdef, mcfg, params, coords, grid_hw, precision)
+            if gather:
+                pred = _GatherRows.apply(pred, pixel_group)
             if loss_name == "mse":
                 diff = pred.float() - target_flat.float()
                 sq = diff * diff
@@ -297,8 +329,8 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
         return loss_fn
 
     def loss_fn(params):
-        return distortion(forward_flat(mdef, mcfg, params, coords, grid_hw, precision),
-                          target_flat)
+        pred = forward_flat(mdef, mcfg, params, coords, grid_hw, precision)
+        return distortion(_GatherRows.apply(pred, pixel_group) if gather else pred, target_flat)
 
     return loss_fn
 
@@ -326,9 +358,73 @@ def forward_members(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: st
     return mdef.apply_flat_members(params, coords, mcfg, precision)
 
 
+def check_pixel_group(mdef: ModelDef, pixel_group, height: int) -> None:
+    """Raise ValueError, before any work, for what a fit over a pixel group
+    does not run: rows that do not split evenly, or a full-grid model on
+    more than one rank (it needs the whole lattice on every rank)."""
+    pixel_rows(height, pixel_group)
+    n = pixel_group.size
+    if n > 1 and mdef.full_grid:
+        raise ValueError(f"model {mdef.name!r} renders its full grid only (its sub-SIRENs run "
+                         f"on the whole DWT lattice); a pixel axis of {n} needs 1")
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows (dim -2) of a pixel group, in rank order; the
+    gradient of a loss that every rank evaluates alike on the result is, on
+    each rank, its own rows' slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[-2]
+        return group.cat(x, dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-2, ctx.group.rank * ctx.rows, ctx.rows).contiguous(), None
+
+
+def pixel_rows(height: int, pixel_group) -> slice:
+    """This rank's rows of a `height`-row lattice split over `pixel_group`
+    (None: every row)."""
+    if pixel_group is None:
+        return slice(0, height)
+    if height % pixel_group.size:
+        raise ValueError(f"H={height} not divisible by pixel axis {pixel_group.size}")
+    rows = height // pixel_group.size
+    return slice(pixel_group.rank * rows, (pixel_group.rank + 1) * rows)
+
+
+def eval_scores(preds, targets, pixel_group=None) -> torch.Tensor:
+    """(M, 3) rows [test_loss, psnr, psnr_8bit] of M flat predictions against
+    their targets. With a pixel group they are this rank's rows: the squared
+    errors are summed in float64, added over the group in rank order and
+    divided by the whole image's count, so every rank reads the same
+    values (a group of one rank reads its values as without one)."""
+    if pixel_group is None or pixel_group.size == 1:
+        rows = []
+        for pred, t in zip(preds, targets):
+            test_loss = mse(pred, t)
+            rows.append(torch.stack([test_loss, 10.0 * torch.log10(1.0 / test_loss),
+                                     psnr_8bit(pred, t)]))
+        return torch.stack(rows)
+    sums = []
+    for pred, t in zip(preds, targets):
+        diff = pred.float() - t.float()
+        diff8 = ((t * 255.0).to(torch.int32) - (pred * 255.0).to(torch.int32)).float()
+        sums.append(torch.stack([torch.sum((diff * diff).double()),
+                                 torch.sum((diff8 * diff8).double())]))
+    (total,) = pixel_group.sum([torch.stack(sums)])
+    count = preds[0].numel() * pixel_group.size
+    mse_, mse8 = (total / count).float().unbind(1)
+    return torch.stack([mse_, 10.0 * torch.log10(1.0 / mse_),
+                        10.0 * torch.log10(255.0**2 / mse8)], dim=1)
+
+
 def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
                  pixel_chunks: int = 1, transform=None, grid_hw=None,
-                 loss_name: str = "mse", ssim_weight: float = 0.84, members: bool = False):
+                 loss_name: str = "mse", ssim_weight: float = 0.84, members: bool = False,
+                 pixel_group=None):
     """grad_fn(state) -> (loss, grads): the loss of the params
     `transform(state)` (state itself when transform is None), with grads
     for every trainable tensor of `state` (keys of TRAINABLE_KEYS; the
@@ -343,30 +439,40 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     and differentiated once (each member's loss reaches its own slices
     only, with the weight 1), so each member's gradient, its chunk sum and
     the 1/k scale have its single fit's bits. The loss is then the (M,)
-    vector of the members' losses, each with its single fit's bits."""
+    vector of the members' losses, each with its single fit's bits.
+
+    `pixel_group` (the module note): coords, target_flat and grid_hw are this
+    rank's rows, split in k chunks; the chunk losses and gradients of all
+    ranks are added in chunk order over the group, then scaled by
+    1/(k · size), so every rank returns the single fit's values with
+    pixel_chunks = k · size. Under ms-ssim (k = 1) each rank's loss is the
+    whole image's and only the gradients are added over the group."""
     n = coords.shape[0]
     k = int(pixel_chunks)
-    if k > 1 and mdef.full_grid:
+    total = k * (pixel_group.size if pixel_group is not None else 1)
+    if total > 1 and mdef.full_grid:
         raise ValueError(
-            f"model {mdef.name!r} renders its full grid only; pixel_chunks={k} needs 1")
+            f"model {mdef.name!r} renders its full grid only; pixel_chunks={total} needs 1")
     if k > 1 and n % k:
         raise ValueError(f"pixel_chunks={k} must divide pixel count {n}")
     if k > 1 and loss_name == "ms-ssim":
         raise ValueError("loss='ms-ssim' requires pixel_chunks=1")
+    whole = loss_name == "ms-ssim" and pixel_group is not None
     chunk_hw = grid_hw
     if k > 1:
         rows_split = grid_hw is not None and mdef.separable and grid_hw[0] % k == 0
         chunk_hw = (grid_hw[0] // k, grid_hw[1]) if rows_split else None
     per_chunk = target_flat.chunk(k, dim=-2)
     chunks = [
-        make_loss_fn(mdef, mcfg, c, t, precision, chunk_hw, loss_name, ssim_weight, members)
+        make_loss_fn(mdef, mcfg, c, t, precision, chunk_hw, loss_name, ssim_weight, members,
+                     pixel_group if whole else None)
         for c, t in zip(coords.chunk(k), per_chunk)
     ]
 
     def grad_fn(params):
         keys = [[key for key in layer if key in TRAINABLE_KEYS] for layer in params]
         leaves = [layer[key] for layer, ks in zip(params, keys) for key in ks]
-        loss_sum, grad_sum = None, None
+        loss_sum, grad_sum, parts = None, None, []
         for loss_fn in chunks:
             # the transform runs per chunk (as JAX's chunk loss does): each
             # chunk's backward frees its own graph
@@ -376,14 +482,21 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
                 g = torch.autograd.grad(differentiated.sum(), leaves)
             else:
                 g = torch.autograd.grad(loss, leaves)
-            if grad_sum is None:
+            if pixel_group is not None:
+                parts.append([loss.detach().reshape(-1), *g])
+            elif grad_sum is None:
                 loss_sum, grad_sum = loss.detach(), list(g)
             else:
                 loss_sum = loss_sum + loss.detach()
                 grad_sum = [a + b for a, b in zip(grad_sum, g)]
-        if k > 1:
-            loss_sum = loss_sum * (1.0 / k)
-            grad_sum = [g * (1.0 / k) for g in grad_sum]
+        if whole:  # every rank's loss is the whole image's: add the gradients only
+            loss_sum, grad_sum = loss.detach(), pixel_group.sum(parts[0][1:])
+        elif pixel_group is not None:
+            loss_sum, *grad_sum = pixel_group.chunk_sum(parts)
+            loss_sum = loss_sum.reshape(loss.shape)
+        if total > 1 and not whole:
+            loss_sum = loss_sum * (1.0 / total)
+            grad_sum = [g * (1.0 / total) for g in grad_sum]
         it = iter(grad_sum)
         return loss_sum, tuple({key: next(it) for key in ks} for ks in keys)
 
@@ -488,16 +601,20 @@ class EkfacFit:
     grads whose leaves carry a leading member axis, `target_flat` one
     target per member and `state` one EkfacState per member) each member's
     capture runs on its own params and image, and its bases, moments and
-    preconditioning are its own: member m has its single fit's bits."""
+    preconditioning are its own: member m has its single fit's bits. With a
+    `pixel_group`, coords and targets are this rank's rows and the capture's
+    sums run over the group (optim.ekfac.ekfac_update_stats_chunked), so
+    every rank holds the same state."""
 
     def __init__(self, mdef: ModelDef, mcfg, coords, target_flat, optim_cfg: OptimConfig,
-                 pixel_chunks: int, state, members: bool = False):
+                 pixel_chunks: int, state, members: bool = False, pixel_group=None):
         self.mdef, self.mcfg, self.coords, self.target = mdef, mcfg, coords, target_flat
         self.interval = int(optim_cfg.precond_interval)
         self.eps = float(optim_cfg.precond_eps)
         self.chunks = int(pixel_chunks)
         self.state = state
         self.members = members
+        self.group = pixel_group
 
     def precondition(self, step: int, params, grads):
         if not self.members:
@@ -513,9 +630,10 @@ class EkfacFit:
 
     def _one(self, step: int, params, grads, state, target):
         recompute = step % self.interval == 0
-        if self.chunks > 1:
+        if self.chunks * (self.group.size if self.group is not None else 1) > 1:
             state = ekfac_update_stats_chunked(state, self.mdef, self.mcfg, params, self.coords,
-                                               target, self.chunks, recompute_eigs=recompute)
+                                               target, self.chunks, recompute_eigs=recompute,
+                                               pixel_group=self.group)
         else:
             acts, pgrads = capture_layer_stats(self.mdef, self.mcfg, params, self.coords, target)
             state = ekfac_update_stats(state, acts, pgrads, recompute_eigs=recompute)
@@ -585,6 +703,7 @@ def fit(
     resume_from=None,
     watch: Optional[Callable] = None,
     stop_psnr: Optional[float] = None,
+    pixel_group=None,
 ) -> FitResult:
     """Run one fit on `device` (default: the grid's); returns the final
     params, per-step metric arrays and, for a sparse masking config, the
@@ -592,11 +711,17 @@ def fit(
     initial masks and any random growth; a resumed fit takes the
     generator's state from a port checkpoint. `checkpoint_path`, `watch`
     and `stop_psnr` act at the boundaries (module note); `resume_from`
-    continues from a checkpoint."""
+    continues from a checkpoint. `pixel_group` (module note): grid and img
+    are the whole lattice, this rank fits its rows, every rank returns the
+    same result and only the group's rank 0 writes the checkpoint."""
     device = torch.device(device) if device is not None else grid.device
     n = train_cfg.num_steps
     precision = train_cfg.precision
     early, switch = plan_precision_schedule(train_cfg, n)
+    if pixel_group is not None:
+        check_pixel_group(mdef, pixel_group, grid.shape[0])
+        rows = pixel_rows(grid.shape[0], pixel_group)
+        grid, img = grid[rows], np.asarray(img)[rows]
     h, w, c = grid.shape
     coords = grid.to(device).reshape(h * w, c)
     target = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)
@@ -637,7 +762,7 @@ def fit(
         if use_ekfac:
             ekfac_state = ekfac_init(params, model_skip_indices(mdef.name, params))
     ekfac = (EkfacFit(mdef, mcfg, coords, target_flat, optim_cfg, train_cfg.pixel_chunks,
-                      ekfac_state) if use_ekfac else None)
+                      ekfac_state, pixel_group=pixel_group) if use_ekfac else None)
     set_trainable_(params, True)
     grad_fns = {}
 
@@ -645,7 +770,8 @@ def fit(
         if prec not in grad_fns:
             grad_fns[prec] = make_grad_fn(
                 mdef, mcfg, coords, target_flat, prec, train_cfg.pixel_chunks, grid_hw=(h, w),
-                loss_name=train_cfg.loss, ssim_weight=train_cfg.ssim_weight)
+                loss_name=train_cfg.loss, ssim_weight=train_cfg.ssim_weight,
+                pixel_group=pixel_group)
         return grad_fns[prec]
 
     schedule = _schedule(optim_cfg, n)
@@ -681,13 +807,9 @@ def fit(
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
                 pred = forward_flat(mdef, mcfg, params, coords, (h, w), prec)
-                test_loss = mse(pred, target_flat)
-                evals[step] = torch.stack(
-                    [test_loss, 10.0 * torch.log10(1.0 / test_loss),
-                     psnr_8bit(pred, target_flat)]
-                )
+                evals[step] = eval_scores([pred], [target_flat], pixel_group)[0]
         if step + 1 in boundaries:
-            if checkpoint_path is not None:
+            if checkpoint_path is not None and (pixel_group is None or pixel_group.rank == 0):
                 save_checkpoint(checkpoint_path, params, opt_state,
                                 sparse_fit.states[0] if sparse else None, generator, step + 1,
                                 ekfac_state=ekfac.state if ekfac is not None else None)
@@ -696,7 +818,7 @@ def fit(
             if stop_psnr is not None:
                 with torch.no_grad():
                     pred = forward_flat(mdef, mcfg, params, coords, (h, w), stop_prec)
-                    val = float(10.0 * torch.log10(1.0 / mse(pred, target_flat)))
+                    val = float(eval_scores([pred], [target_flat], pixel_group)[0, 1])
                 if val >= stop_psnr:
                     stopped_at, stop_db, end = step + 1, val, step + 1
                     break

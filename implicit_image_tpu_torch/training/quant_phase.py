@@ -47,6 +47,14 @@ optimizer on the stacked state (Shampoo per member), each member against
 its own target and with its own masks. Each member's codebooks, labels and
 finetuned params have the bits of its own `quant_finetune` wherever the
 member-axis forward has the single forward's bits (the fused SIREN).
+
+Either takes a pixel group (`pixel_group`, the mesh's "pixel" axis: the
+JAX package's finetune with its target row-sharded): the target's rows
+(after quant.row_stride) split over the ranks, the chunk losses, gradients
+and the final scores summed over the group in rank order
+(training.fit.make_grad_fn, eval_scores), so every rank finetunes the same
+codebooks with the bits of the single finetune at pixel_chunks · size
+chunks.
 """
 from __future__ import annotations
 
@@ -74,9 +82,11 @@ from implicit_image_tpu_torch.ops.sine_mlp import stack_members
 from implicit_image_tpu_torch.training.fit import (
     OptimConfig,
     _at,
+    eval_scores,
     forward_flat,
     forward_members,
     make_grad_fn,
+    pixel_rows,
     set_trainable_,
     synchronize,
 )
@@ -147,6 +157,7 @@ def quant_finetune(
     pixel_chunks: int = 1,
     masks=None,
     offset_params=None,
+    pixel_group=None,
 ) -> QuantResult:
     """KMeans: cluster, finetune the codebooks for quant_cfg.num_steps,
     freeze; QAT: the STE finetune, then convert. Runs on the device of
@@ -154,14 +165,17 @@ def quant_finetune(
     every s-th image row (the returned metrics are then those of that
     grid). `masks`: the sparse fit's per-layer masks (None entries for
     unmasked layers), or None. `offset_params`: a params-like tuple whose
-    weights are the delta offsets (quant.delta), or None."""
+    weights are the delta offsets (quant.delta), or None. `pixel_group`
+    (module note): img and grid are the whole lattice, this rank finetunes
+    on its rows."""
     return _finetune(params, [img], mdef, mcfg, grid, quant_cfg, optim_cfg, precision,
-                     pixel_chunks, masks, offset_params, members=0)[0]
+                     pixel_chunks, masks, offset_params, members=0, pixel_group=pixel_group)[0]
 
 
 def quant_finetune_members(params, imgs, mdef: ModelDef, mcfg, grid: torch.Tensor,
                            quant_cfg: QuantConfig, optim_cfg: OptimConfig,
-                           precision: str = "fp32", masks=None, offset_params=None):
+                           precision: str = "fp32", masks=None, offset_params=None,
+                           pixel_group=None):
     """`quant_finetune` of M members over a member axis (module note):
     `params` whose leaves carry a leading member axis, `imgs` one image per
     member (M, H, W, C), `masks` per-layer stacked masks (None entries for
@@ -172,19 +186,21 @@ def quant_finetune_members(params, imgs, mdef: ModelDef, mcfg, grid: torch.Tenso
     if len(imgs) != b:
         raise ValueError(f"{len(imgs)} images for {b} members")
     return _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, 1,
-                     masks, offset_params, members=b)
+                     masks, offset_params, members=b, pixel_group=pixel_group)
 
 
 def _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, pixel_chunks,
-              masks, offset_params, members: int) -> list:
+              masks, offset_params, members: int, pixel_group=None) -> list:
     """The finetune of one fit (members=0) or of `members` fits whose leaves
     carry a leading member axis, one image each; one QuantResult per fit."""
     device = next(layer["w"] for layer in params if "w" in layer).device
     stride = int(quant_cfg.row_stride)
     grid = grid.to(device)[::stride]
+    rows = pixel_rows(grid.shape[0], pixel_group)
+    grid = grid[rows]
     h, w, c = grid.shape
     coords = grid.reshape(h * w, c)
-    targets = [torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)[::stride]
+    targets = [torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)[::stride][rows]
                .reshape(h * w, -1) for img in imgs]
     schedule = step_lr(optim_cfg.lr if quant_cfg.lr is None else float(quant_cfg.lr),
                        1000, 0.5)
@@ -237,7 +253,7 @@ def _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, p
     grad_fn = make_grad_fn(mdef, mcfg, coords,
                            torch.stack(targets) if members else targets[0], precision,
                            pixel_chunks, transform=transform, grid_hw=(h, w),
-                           members=bool(members))
+                           members=bool(members), pixel_group=pixel_group)
     losses = []
     for step in range(quant_cfg.num_steps):
         loss, grads = grad_fn(state)
@@ -273,7 +289,10 @@ def _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, p
             preds = forward_members(mdef, mcfg, params_q, coords, (h, w), precision).unbind(0)
         else:
             preds = [forward_flat(mdef, mcfg, params_q, coords, (h, w), precision)]
-        scores = [(mse(p, t), psnr_8bit(p, t)) for p, t in zip(preds, targets)]
+        if pixel_group is None:
+            scores = [(mse(p, t), psnr_8bit(p, t)) for p, t in zip(preds, targets)]
+        else:
+            scores = [(row[0], row[2]) for row in eval_scores(preds, targets, pixel_group)]
     synchronize(device)
     wall = time.perf_counter() - t0
     return [QuantResult(params=params_q if m is None else

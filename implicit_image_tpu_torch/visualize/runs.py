@@ -1,0 +1,49 @@
+"""Local run-store reader (a copy of implicit_image_tpu/visualize/runs.py,
+which the port cannot import) — the replacement for the reference's W&B API.
+
+The reference's analysis scripts call `wandb.Api().runs(...)` and filter by
+config (e.g. rate_distortion.py:159-168). Here a "run" is a directory
+under outputs/ containing summary.json (+ metrics.jsonl, + the config echo
+config.json when present); `collect_runs` walks the tree and yields
+(run_dir, summary dict) pairs with simple key filters.
+"""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Dict, List, Optional
+
+__all__ = ["load_run", "collect_runs"]
+
+
+def load_run(run_dir) -> Dict:
+    run_dir = Path(run_dir)
+    out: Dict = {"dir": str(run_dir)}
+    summary = run_dir / "summary.json"
+    if summary.exists():
+        out.update(json.loads(summary.read_text()))
+    metrics = run_dir / "metrics.jsonl"
+    if metrics.exists():
+        out["history"] = [
+            json.loads(line) for line in metrics.read_text().splitlines() if line
+        ]
+    config = run_dir / "config.json"
+    if config.exists():
+        out["config"] = json.loads(config.read_text())
+    return out
+
+
+def collect_runs(
+    root="outputs", require: Optional[List[str]] = None
+) -> List[Dict]:
+    """All runs under `root` that carry the required summary keys."""
+    require = require or []
+    runs = []
+    root = Path(root)
+    if not root.exists():
+        return runs
+    for summary in sorted(root.rglob("summary.json")):
+        run = load_run(summary.parent)
+        if all(k in run for k in require):
+            runs.append(run)
+    return runs

@@ -33,10 +33,11 @@ def test_port_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 30, names\n"
         "assert {'implicit_image_tpu_torch.parallel.' + m for m in "
-        "('batched', 'pipeline', 'ladder')} <= set(names), names\n"
+        "('batched', 'pipeline', 'ladder', 'mesh', 'sharded', 'multihost')} <= set(names), "
+        "names\n"
         "assert {'implicit_image_tpu_torch.' + m for m in "
         "('fleet', 'target', 'sweep', 'api', 'meta_train', 'training.metainit', "
-        "'sequence')} "
+        "'sequence', 'visualize.rate_distortion')} "
         "<= set(names), names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
