@@ -51,7 +51,23 @@ Phases, each printing its own line:
      instantiation (forward, backward, sine_mlp_dw, partial sum) spills more
      than its single launch, if a "+mixed" batched one spills at all, or if
      any instantiation of the wgmma kernels (the width-128 forward and
-     backward, the width-192 backward) spills;
+     backward, the width-192 backward) or of the layer-wise kernels spills.
+     Above width 512, the layer-wise kernels at 640 and 1024, 512²,
+     d8: K1 and K2 in fp32, bf16, fp32+mixed and bf16+mixed against the
+     plain chain (LAYER_TOL: fp32 1e-4 / 1e-4, the others 1.5e-3 / 2e-2),
+     their launches (depth of sine_mlp_layer_fwd per K1 band, depth - 1
+     more in K2's recompute, depth of sine_mlp_layer_bwd, depth - 2 of
+     sine_mlp_layer_dw, one sum_partials), bit-for-bit repeats, the other
+     mode's kernels failing the fp32 and bf16 limits, and over 2 members
+     each member the bits of its single launches; times (CUDA events) of
+     the fp32 and bf16 modes beside their bounds, the member-axis launches
+     in turns with one single launch; sine_mlp_layer_dw alone on one layer's own dW operands
+     against its plain version (DW_TOL), twice for bits, in turns with one
+     fp32 torch.mm; the backward's partial buffer against its plain mirror
+     (siren_chain_layer_partials) and sum_partials over it bit for bit its
+     mirror's order; then one fp32 K1/K2 pair at w2048 (its z stash of
+     3.76e9 floats is past 2^31: the 64-bit offsets) and one at w4096 on
+     128² rows against the plain chain, with their peak memory;
   4. the dense path through the port's entry points: compress.main
      (masking=none: fit -> k-means finetune -> plain container -> decode) at
      full width, then decompress.decode_run on its run dir. Every kernel of
@@ -95,7 +111,11 @@ Phases, each printing its own line:
      compress.main (dense, no quantization or container): the d8/w256
      member of scripts/width_depth.sh and the tracked w512 row of
      scripts/tracked_r5.sh (lr 1e-4): every kernel launched, fit PSNR
-     finite;
+     finite; and above 512 `compress.main` with
+     mlp.hidden_size=640 and =1024 (dense, lr 1e-4, 20 fit + 20 k-means
+     finetune steps, zstd) and decode_run: only the layer-wise kernels and
+     sum_partials launch, K2 once a step, and the decoded PSNR is finite and
+     decode_run's;
  11. the reference's other model families at full width (d8/w128, 512²,
      img=synthetic; scripts/run_studies_r5.sh), each through compress.main
      and, where it writes a container, decompress.decode_run: (a)
@@ -184,7 +204,8 @@ Phases, each printing its own line:
      container the sha256 of a B = 1 run; (d) a 2-member RigL ladder at
      w182 for 20 steps: the member-axis width-192 backward on the path;
      (e) the same at w256: the member-axis wide backward and
-     sine_mlp_dw_batched.
+     sine_mlp_dw_batched; (f) the same at w640: the member-axis layer-wise
+     kernels, one K2 over the members a fit and finetune step, no single K2.
 
  15. the compress CLI's last options (PR 12), each through compress.main
      (and decode_run where it writes a container) at 512², phase 5's
@@ -305,7 +326,14 @@ Phases, each printing its own line:
      rate-distortion scoring reads phase 5's run dir and returns the
      decoded PSNR and MS-SSIM its summary.json records, and the host
      MS-SSIM of the decoded image within 1e-4 of it (cv2 and matplotlib
-     are not needed).
+     are not needed); (f) the full-grid wavelet-SIREN (phase 11 (a)'s, its
+     fit cut to 60 steps): at world size 1 in (a)'s NCCL group the single
+     fit bit for bit and its render the single render; over 2 gloo processes
+     on the card (pixel = 2) each rank runs the sub-SIRENs on 129 of the DWT
+     lattices' 258 rows, K2 twice a step, and both ranks' params and PSNRs
+     are the single fit's within P19_WAVELET_DB and P19_WAVELET_REL (the
+     gradients add over the ranks in another order), each rank's sharded
+     render the single render of its params bit for bit.
 
 Each of phases 4-19 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
@@ -313,7 +341,9 @@ sine_mlp_dw (the backward's dW at kernel widths 256 and 512) in phase
 10 and the w512 run of 12 (e) only; sine_mlp_fwd_batched in 13 (e), 14,
 16 and 18 only; the member-axis K2 (sine_mlp_bwd_batched,
 sum_partials_batched, and sine_mlp_dw_batched at w256) in 14, 16 and 18
-only, in "+mixed" in 18 (c) only; nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
+only, in "+mixed" in 18 (c) only; the layer-wise kernels in 10's w640 and
+w1024 runs and 14 (f) only (over the member axis in 14 (f) only, with no
+fused K1 or K2 there); nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
 run, in 16 (e)'s CoordX meta-training, in 17 (e) and in 18 (b). In
 phase 3, sum_partials must equal its plain mirror sum_partials_reference
 (the kernel's order of additions) bit for bit on the main path's partial
@@ -326,6 +356,8 @@ every round is printed beside the medians and their share of the bound.
 
 Then one JSON line describing the kernels (each kernel once per width of
 phase 3, with the launches of the phase that runs that width: 4, 9 and 10;
+the layer-wise kernels at 640 and 1024 with 10's, over the member axis at
+640 with 14 (f)'s;
 the batched K1 at 128 and 182 with 13 (e)'s; the batched K2 and its
 partial sum with 14 (a)'s and 14 (d)'s, and at 256 its sine_mlp_dw with
 14 (e)'s; the single K1,
@@ -411,6 +443,12 @@ WIDE_OVERRIDES = {
     256: ["mlp.hidden_size=256"],
     512: ["mlp.hidden_size=512", "optim.lr=1e-4"],
 }
+# phase 10 above 512 (the layer-wise kernels): `python -m
+# implicit_image_tpu_torch.compress mlp.hidden_size=W` at d8, dense, with the
+# default k-means finetune and a zstd container, cut to 20 fit + 20 finetune
+# steps, at the tracked w512 row's lr
+LAYER_PATH_COMMON = ["img=synthetic", "masking=none", "optim.lr=1e-4", "train.num_steps=20",
+                     "train.log_steps=10", "quant.num_steps=20", "entropy_coding=zstd"]
 WIDE_COMMON = ["img=synthetic", "masking=none", "quant=none", "entropy_coding=none",
                "train.num_steps=20", "train.log_steps=10"]
 # phase 11: the reference's other model families (scripts/run_studies_r5.sh),
@@ -481,6 +519,16 @@ P12_FLOOR = {
 # phase 3's K1 over a member axis (the vmapped render of decode_runs): M
 # members of one shape, each 512² rows, at these widths, both modes
 BATCH_MEMBERS, BATCH_WIDTHS = 8, (WIDTH, FINALS_WIDTH)
+# phase 3 above 512 (the layer-wise kernels): K1 and K2 at these widths in
+# every mode (limits: the fused kernels' fp32 ones, the bf16 ones for bf16
+# and "+mixed", as phase 12b), single and over LAYER_MEMBERS members; one
+# fp32 pair at each (width, side) of LAYER_WIDE: w2048 at 512², whose z
+# stash ((D-1) x 512² x 2,048 = 3.76e9 floats) is past 2^31, and w4096 at
+# 128² (the fp32 limits at K = 4,096)
+LAYER_WIDTHS, LAYER_MEMBERS = (640, 1024), 2
+LAYER_WIDE = ((2048, 512), (4096, 128))
+LAYER_TOL = {"fp32": (1e-4, 1e-4), "bf16": (1.5e-3, 2e-2), "fp32+mixed": (1.5e-3, 2e-2),
+             "bf16+mixed": (1.5e-3, 2e-2)}
 
 # phase 13: the run tools of the two CLIs, at full width (512², SIREN
 # d8/w128 unless named); (a) and (b) on phase 5's configuration, so the
@@ -541,6 +589,8 @@ WIDE_LADDER = ["img=synthetic", f"mlp.hidden_size={FINALS_WIDTH}", "entropy_codi
 # 14e: the same ladder at w256, where the member-axis backward leaves dW to
 # sine_mlp_dw_batched (phase 3 holds that kernel alone at this width)
 DW_LADDER_WIDTH = 256
+# 14f: the same ladder at w640, on the member-axis layer-wise kernels
+LAYER_LADDER_WIDTH = 640
 
 # phase 15: the compress CLI's last options at full width (512², SIREN
 # d8/w128 unless named), in phase 5's configuration (RigL 0.5) unless named,
@@ -744,6 +794,17 @@ def phase_build() -> float:
         for name, row in rows.items():
             if row.get("spill_stores", 0) or row.get("spill_loads", 0):
                 raise AssertionError(f"the {what} spills: {name} {row}")
+    # the layer-wise kernels (widths above 512): 12 forward instantiations (4
+    # modes x first, hidden, last), 20 backward (4 modes x last and hidden,
+    # each with and without dW_0, and first), 2 dW (fp32, bf16); none spills
+    rows = {n: r for n, r in table.items() if n.startswith("void") and "sine_mlp_layer_" in n}
+    spilling = {n: r for n, r in rows.items() if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    regs = sorted(r.get("registers", 0) for r in rows.values())
+    print(f"[2 build] {len(rows)} layer-wise kernel instantiations, {regs[0] if regs else 0}-"
+          f"{regs[-1] if regs else 0} registers, {len(spilling)} spilling", flush=True)
+    if table and (len(rows) != 34 or spilling):
+        raise AssertionError(f"layer-wise kernels: {len(rows)} instantiations (expected 34), "
+                             f"spilling {spilling}")
     # K1 and K2 over a member axis are template instantiations (last argument
     # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
     # spill no more than its single launch. The forward and backward have
@@ -1475,6 +1536,279 @@ def phase_batched_dw(width: int) -> dict:
     return dw_err, k_ms, p_ms, l_ms, db, padded["sine_mlp_dw_batched"]["bound_ms"]
 
 
+def _layer_pair(params, x, g, mcfg, prec):
+    """K1 and K2 of one SIREN on the card, synchronised: (out, dx, grads)."""
+    import torch
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    out = sm.sine_mlp_fwd(params, x, mcfg, prec)
+    torch.cuda.synchronize()  # a fault in the kernels surfaces here
+    dx, grads = sm.sine_mlp_bwd(params, x, g, mcfg, prec)
+    torch.cuda.synchronize()
+    return out, dx, grads
+
+
+def _same_bits(a, b) -> bool:
+    """(out, dx, grads) triples equal bit for bit."""
+    import torch
+
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a[2], b[2]) for k in ("w", "b")))
+
+
+def phase_layer_kernels(width: int) -> dict:
+    """Phase 3 above 512: the layer-wise kernels at hidden width `width` on
+    the main path's shapes (512², d8): K1 and K2 against the plain chain in
+    every mode (LAYER_TOL; as controls the other mode's kernels fail the
+    fp32 and bf16 limits), repeating bit for bit; over LAYER_MEMBERS members
+    (one launch each of the member-axis kernels), each member the bits of
+    its single launches, in every mode, timed in turns with one single
+    launch; sine_mlp_layer_dw alone on the chain's own dW operands of one
+    layer against its plain version (DW_TOL), twice for bits, in turns with
+    one fp32 torch.mm from CUDA graphs; the backward's partial buffer
+    against its plain mirror (siren_chain_layer_partials, the same slices
+    and splits) and sum_partials over it bit for bit its mirror's order.
+    Returns the kernels line's records (fp32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+    kw = sm.kernel_width(width)
+    gen = torch.Generator().manual_seed(0)
+    members = [mdef.init(gen, mcfg, dev) for _ in range(LAYER_MEMBERS)]
+    params = members[0]
+    x = (get_grid(N_SIDE, N_SIDE, dev).reshape(-1, 2) - 0.5) * 2.0
+    n = x.shape[0]
+    gs = (torch.randn((LAYER_MEMBERS, n, 3), generator=gen) / n).to(dev)
+    g = gs[0]
+    slices, n_part, sizes = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
+    bounds = _bounds(n, 2, 3, DEPTH, width, slices, _grad_floats(2, width, 3, DEPTH),
+                     members=LAYER_MEMBERS)
+    padded = _bounds(n, 2, 3, DEPTH, kw, slices, n_part, members=LAYER_MEMBERS)
+    tag = f"[3 layer kernels w{width} (kernel width {kw}, {slices} slices)]"
+    kernel, plains, records = {}, {}, {}
+    for prec in LAYER_TOL:
+        sm.reset_launch_counts()
+        first = _layer_pair(params, x, g, mcfg, prec)
+        launched = dict(sm.LAUNCHES)
+        again = _layer_pair(params, x, g, mcfg, prec)
+        want = {k: 0 for k in launched} | {
+            "sine_mlp_layer_fwd": DEPTH * -(-n // sm.layer_band_rows(kw)) + DEPTH - 1,
+            "sine_mlp_layer_bwd": DEPTH, "sine_mlp_layer_dw": DEPTH - 2, "sum_partials": 1}
+        if launched != want:
+            raise AssertionError(f"{tag} {prec}: launches {launched}, expected {want}")
+        if not _same_bits(first, again):
+            raise AssertionError(f"{tag} {prec}: the kernels do not repeat bit for bit")
+        for name, t in [("out", first[0]), ("dx", first[1])] + [
+                (f"{i}.{k}", first[2][i][k]) for i in range(DEPTH) for k in ("w", "b")]:
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{tag} {prec}: kernel result {name} is not finite")
+        kernel[prec] = first
+        # over the member axis: each member its single launches' bits
+        out_b = sm.sine_mlp_fwd_batched(members, x, mcfg, prec)
+        dx_b, gr_b = sm.sine_mlp_bwd_batched(members, x, gs, mcfg, prec)
+        torch.cuda.synchronize()
+        same = True
+        for m, p in enumerate(members):
+            one = first if m == 0 else _layer_pair(p, x, gs[m], mcfg, prec)
+            same = same and _same_bits((out_b[m], dx_b[m], [{k: v[k][m] for k in ("w", "b")}
+                                                             for v in gr_b]), one)
+        del out_b, dx_b, gr_b
+        plain = (sm.siren_chain_reference(params, x, mcfg, prec),
+                 *sm.siren_chain_backward_reference(params, x, g, mcfg, prec))
+        torch.cuda.synchronize()
+        fwd_err, rel, bwd_abs = _errors(first, plain)
+        worst = max(rel, key=rel.get)
+        fwd_tol, bwd_tol = LAYER_TOL[prec]
+        print(f"{tag} {prec}: fwd max_abs_err {fwd_err:.3e} (tol {fwd_tol:g}); bwd max rel "
+              f"err {rel[worst]:.3e} at {worst} (tol {bwd_tol:g}), max abs err {bwd_abs:.3e}; "
+              f"repeats bit for bit; {LAYER_MEMBERS} members over the member axis "
+              f"{'each the bits of its single launches' if same else 'BITS DIFFER'}",
+              flush=True)
+        if not (fwd_err <= fwd_tol and rel[worst] <= bwd_tol and same):
+            raise AssertionError(f"{tag} {prec}: fwd {fwd_err}, bwd {rel}, member bits {same}")
+        if prec not in sm.PRECISIONS:  # "+mixed": held above, timed in its modes' rows
+            continue
+        plains[prec] = plain  # outputs and gradients only: MBs
+        fwd_ms = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, prec), 3)
+        bwd_ms = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec), 3)
+        fwd_plain = _time_ms(lambda: sm.siren_chain_reference(params, x, mcfg, prec), 2)
+        bwd_plain = _time_ms(
+            lambda: sm.siren_chain_backward_reference(params, x, g, mcfg, prec), 2)
+        bf16, mixed = sm.precision_modes(prec)
+        own = _bounds(n, 2, 3, DEPTH, width, slices, _grad_floats(2, width, 3, DEPTH),
+                      members=LAYER_MEMBERS, mixed=mixed and not bf16, bf16=bf16)
+        f_b, b_b = own["sine_mlp_fwd"]["bound_ms"], own["sine_mlp_bwd"]["bound_ms"]
+        print(f"{tag} {prec}: ms per K1 {fwd_ms:.3f} = {f_b / fwd_ms:.1%} of its {f_b:.3f} ms "
+              f"bound, K2 {bwd_ms:.3f} = {b_b / bwd_ms:.1%} of {b_b:.3f}; plain chain "
+              f"{fwd_plain:.3f} / {bwd_plain:.3f}", flush=True)
+        # the member-axis launches in turns with one single launch
+        (fb, fs), (bb, bs) = (
+            _interleaved_ms([lambda: sm.sine_mlp_fwd_batched(members, x, mcfg, prec),
+                             lambda: sm.sine_mlp_fwd(params, x, mcfg, prec)], rounds=2, reps=2),
+            _interleaved_ms([lambda: sm.sine_mlp_bwd_batched(members, x, gs, mcfg, prec),
+                             lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec)], rounds=2,
+                            reps=2))
+        fb_ms, bb_ms = statistics.median(fb), statistics.median(bb)
+        print(f"{tag} {prec} x{LAYER_MEMBERS}: K1 over the member axis {fb_ms:.3f} ms (single "
+              f"in turns {statistics.median(fs):.3f}), K2 {bb_ms:.3f} (single "
+              f"{statistics.median(bs):.3f})", flush=True)
+        if prec == "fp32":
+            records["sine_mlp_layer_fwd"] = (fwd_err, fwd_ms, fwd_plain, None)
+            records["sine_mlp_layer_bwd"] = (bwd_abs, bwd_ms, bwd_plain, None)
+            batched = {
+                "sine_mlp_layer_fwd_batched": (fwd_err, fb_ms, LAYER_MEMBERS * fwd_plain, None),
+                "sine_mlp_layer_bwd_batched": (bwd_abs, bb_ms, LAYER_MEMBERS * bwd_plain, None)}
+        torch.cuda.empty_cache()
+    # controls: each mode's limits fail the other mode's kernels
+    for prec, other in zip(sm.PRECISIONS, reversed(sm.PRECISIONS)):
+        ctl_fwd, ctl_rel, _ = _errors(kernel[other], plains[prec])
+        ctl_worst = max(ctl_rel, key=ctl_rel.get)
+        print(f"{tag} control, the {other} kernels vs the {prec} plain chain: fwd max_abs_err "
+              f"{ctl_fwd:.3e}; bwd max rel err {ctl_rel[ctl_worst]:.3e} at {ctl_worst}",
+              flush=True)
+        if not (ctl_fwd > LAYER_TOL[prec][0] and ctl_rel[ctl_worst] > LAYER_TOL[prec][1]):
+            raise AssertionError(f"{tag} {prec}: the limits pass the {other} kernels as well")
+    del kernel, plains
+
+    # sine_mlp_layer_dw alone: one hidden layer's own operands, zero-padded
+    prec = "fp32"
+    a, gz = (F.pad(t[0], (0, kw - width)).contiguous()
+             for t in sm.siren_chain_dw_operands(params, x, g, mcfg, prec))
+    runs = []
+    for _ in range(2):
+        part = torch.zeros((slices, n_part), device=dev)
+        sm.sine_mlp_layer_dw(a, gz, part, sizes[0], prec)
+        runs.append(part[:, sizes[0]: sizes[0] + kw * kw].reshape(slices, kw, kw))
+    plain_dw = sm.sine_mlp_dw_reference(a[None], gz[None], slices, prec)[:, 0]
+    torch.cuda.synchronize()
+    dw_err, scale = float((runs[0] - plain_dw).abs().max()), float(plain_dw.abs().max())
+    dw_same = torch.equal(runs[0], runs[1])
+    part = torch.empty((slices, n_part), device=dev)
+    part_b = torch.empty((LAYER_MEMBERS, slices, n_part), device=dev)
+    ab, gzb = a.expand(LAYER_MEMBERS, -1, -1).contiguous(), gz.expand(LAYER_MEMBERS, -1, -1).contiguous()
+    k_r, kb_r, l_r = _graph_interleaved_ms(
+        [lambda: sm.sine_mlp_layer_dw(a, gz, part, sizes[0], prec),
+         lambda: sm.sine_mlp_layer_dw(ab, gzb, part_b, sizes[0], prec),
+         lambda: torch.mm(a.t(), gz)], rounds=3, reps=3)
+    dw_ms, dwb_ms, lib_ms = (statistics.median(r) for r in (k_r, kb_r, l_r))
+    dw_plain = _time_ms(lambda: sm.sine_mlp_dw_reference(a[None], gz[None], slices, prec), 2)
+    layers = DEPTH - 2
+    # one layer's share of the hidden layers' dW bound
+    dw_bound = dict(bounds["sine_mlp_dw"], bound_ms=bounds["sine_mlp_dw"]["bound_ms"] / layers,
+                    flop=bounds["sine_mlp_dw"]["flop"] // layers)
+    print(f"{tag} sine_mlp_layer_dw (one layer, {slices} row splits) vs its plain version: "
+          f"max abs err {dw_err:.3e} = {dw_err / scale:.3e} of max |plain| (tol {DW_TOL:g}), "
+          f"{'the same bits twice' if dw_same else 'BITS DIFFER'}; in turns from CUDA graphs, "
+          f"ms: kernel {' '.join(f'{t:.4f}' for t in k_r)} (median {dw_ms:.4f} = "
+          f"{dw_bound['bound_ms'] / dw_ms:.1%} of the {dw_bound['bound_ms']:.4f} ms bound), over "
+          f"{LAYER_MEMBERS} members {dwb_ms:.4f}, one fp32 torch.mm "
+          f"{' '.join(f'{t:.4f}' for t in l_r)} (median {lib_ms:.4f}); plain {dw_plain:.3f}",
+          flush=True)
+    if not (dw_err <= DW_TOL * scale and dw_same):
+        raise AssertionError(f"{tag} sine_mlp_layer_dw: err {dw_err}, same bits {dw_same}")
+    records["sine_mlp_layer_dw"] = (dw_err, dw_ms, dw_plain, lib_ms)
+    batched["sine_mlp_layer_dw_batched"] = (dw_err, dwb_ms, LAYER_MEMBERS * dw_plain, lib_ms)
+    del a, gz, ab, gzb, part, part_b, runs, plain_dw
+
+    # the backward's partial buffer against its plain mirror, and sum_partials'
+    # order over it (at the first width: the mirror holds every layer's
+    # activations and cotangents, 8 GB at 640)
+    if width != LAYER_WIDTHS[0]:
+        return _layer_records(records, batched, bounds, padded, dw_bound, layers)
+    _, part = sm.sine_mlp_layer_partials(params, x, g, mcfg, prec)
+    mirror = sm.siren_chain_layer_partials(params, x, g, mcfg, prec, slices)
+    # the slices' floats past the gradients (their 16-byte padding) are not written
+    used, mirror = part[:, : sum(sizes)], mirror[:, : sum(sizes)]
+    p_err = float((used - mirror).abs().max()) / float(mirror.abs().max())
+    exact = torch.equal(sm.sum_partials(part), sm.sum_partials_reference(part))
+    print(f"{tag} the backward's partials ({slices} x {n_part}) vs their plain mirror: max "
+          f"abs err {p_err:.3e} of max |mirror| (tol {BWD_TOL['fp32']:g}); sum_partials over "
+          f"them {'bit for bit' if exact else 'NOT'} its mirror's order", flush=True)
+    if not (p_err <= BWD_TOL["fp32"] and exact):
+        raise AssertionError(f"{tag} partials vs mirror {p_err}, sum_partials exact {exact}")
+    del part, mirror, used
+    torch.cuda.empty_cache()
+    return _layer_records(records, batched, bounds, padded, dw_bound, layers)
+
+
+def _layer_records(records, batched, bounds, padded, dw_bound, layers) -> dict:
+    """phase_layer_kernels' kernels-line records, each with its bound and
+    padded bound: K1's and K2's those of the fused kernels' work, dW's one
+    layer's share of the hidden layers' dW (times the members)."""
+    def bound_of(name):
+        base = {"sine_mlp_layer_fwd": "sine_mlp_fwd", "sine_mlp_layer_bwd": "sine_mlp_bwd",
+                "sine_mlp_layer_fwd_batched": "sine_mlp_fwd_batched",
+                "sine_mlp_layer_bwd_batched": "sine_mlp_bwd_batched"}.get(name)
+        if base is None:  # dW of one layer (over the members)
+            m = LAYER_MEMBERS if name.endswith("_batched") else 1
+            return (dict(dw_bound, bound_ms=m * dw_bound["bound_ms"]),
+                    m * padded["sine_mlp_dw"]["bound_ms"] / layers)
+        return bounds[base], padded[base]["bound_ms"]
+
+    return {"single": {k: (*v, *bound_of(k)) for k, v in records.items()},
+            "batched": {k: (*v, *bound_of(k)) for k, v in batched.items()}}
+
+
+def phase_layer_wide() -> None:
+    """Phase 3 at each (width, side) of LAYER_WIDE (d8, fp32): one K1/K2
+    pair against the plain chain. At w2048 the z stash holds (D-1) x
+    262,144 x 2,048 = 3.76e9 floats, past 2^31: the kernels' 64-bit
+    offsets; w4096 holds the fp32 limits at K = 4,096."""
+    import torch
+
+    from implicit_image_tpu_torch.data import get_grid
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    for width, side in LAYER_WIDE:
+        mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
+        gen = torch.Generator().manual_seed(0)
+        params = mdef.init(gen, mcfg, dev)
+        x = (get_grid(side, side, dev).reshape(-1, 2) - 0.5) * 2.0
+        n = x.shape[0]
+        g = (torch.randn((n, 3), generator=gen) / n).to(dev)
+        prec = "fp32"
+        slices, n_part, _ = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
+        bounds = _bounds(n, 2, 3, DEPTH, width, slices, _grad_floats(2, width, 3, DEPTH))
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = _layer_pair(params, x, g, mcfg, prec)
+        peak = torch.cuda.max_memory_allocated(dev)
+        fwd_ms = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, prec), 2)
+        bwd_ms = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec), 1)
+        torch.cuda.empty_cache()
+        out_p = sm.siren_chain_reference(params, x, mcfg, prec)
+        fwd_plain = _time_ms(lambda: sm.siren_chain_reference(params, x, mcfg, prec), 1)
+        plain = (out_p, *sm.siren_chain_backward_reference(params, x, g, mcfg, prec))
+        torch.cuda.synchronize()
+        fwd_err, rel, _ = _errors(first, plain)
+        worst = max(rel, key=rel.get)
+        del plain, first
+        torch.cuda.empty_cache()
+        bwd_plain = _time_ms(lambda: sm.siren_chain_backward_reference(params, x, g, mcfg, prec),
+                             1)
+        f_b, b_b = bounds["sine_mlp_fwd"], bounds["sine_mlp_bwd"]
+        print(f"[3 layer kernels w{width} {side}² fp32] z stash {(DEPTH - 1) * n * width:.3e} "
+              f"floats, peak {peak / 2**30:.2f} GiB; fwd max_abs_err {fwd_err:.3e} (tol "
+              f"{FWD_TOL['fp32']:g}); bwd max rel err {rel[worst]:.3e} at {worst} (tol "
+              f"{BWD_TOL['fp32']:g}); K1 {f_b['flop'] / 1e12:.3f} TFLOP {fwd_ms:.3f} ms = "
+              f"{f_b['bound_ms'] / fwd_ms:.1%} of its {f_b['bound_ms']:.3f} ms bound; K2 "
+              f"{b_b['flop'] / 1e12:.3f} TFLOP {bwd_ms:.3f} ms = {b_b['bound_ms'] / bwd_ms:.1%} "
+              f"of {b_b['bound_ms']:.3f}; plain chain {fwd_plain:.3f} / {bwd_plain:.3f} ms",
+              flush=True)
+        if not (fwd_err <= FWD_TOL["fp32"] and rel[worst] <= BWD_TOL["fp32"]):
+            raise AssertionError(f"w{width}: fwd {fwd_err}, bwd {rel}")
+        del params, x, g, out_p
+        torch.cuda.empty_cache()
+
+
 def _expected_container_bytes(cfg) -> int:
     """Plain container size from the shapes (half=auto): unquantized
     weights and all biases fp32, quantized layers uint8 labels + fp16
@@ -1498,19 +1832,27 @@ def _expected_container_bytes(cfg) -> int:
     return total
 
 
+LAYER_KERNELS = ("sine_mlp_layer_fwd", "sine_mlp_layer_bwd", "sine_mlp_layer_dw")
+
+
 def _check_launches(launches: dict, what: str, dw: bool = False,
-                    batched: bool = False) -> None:
+                    batched: bool = False, layer: bool = False) -> None:
     """Every kernel launched on the path; sine_mlp_dw (the backward's dW at
     kernel widths 256 and 512) exactly when the path runs a SIREN of those
     widths (`dw`),
     sine_mlp_fwd_batched (K1 over a member axis) exactly when it decodes
     runs together (`batched`), and never K2 over a member axis (the fits of
-    phases 14 and 16 only; _check_ladder_launches)."""
+    phases 14 and 16 only; _check_ladder_launches). A path above width 512
+    (`layer`) runs the layer-wise kernels and sum_partials instead of the
+    fused K1 and K2; no other path runs them."""
+    fused = ("sine_mlp_fwd", "sine_mlp_bwd", "sine_mlp_dw")
     for name, count in launches.items():
         if ((name == "sine_mlp_dw" and not dw) or (name == "sine_mlp_fwd_batched"
                                                     and not batched)
                 or name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched",
-                            "sum_partials_batched")):
+                            "sum_partials_batched")
+                or (name.startswith("sine_mlp_layer") and (not layer or name.endswith("_batched")))
+                or (layer and name in fused)):
             if count != 0:
                 raise AssertionError(f"{name} launched {count} times on the {what}, which "
                                      "does not run it")
@@ -1949,6 +2291,47 @@ def phase_wide(width: int) -> dict:
     _check_launches(launches, f"w{width} path", dw=True)
     if not math.isfinite(psnr):
         raise AssertionError(f"w{width}: fit PSNR {psnr} is not finite")
+    return launches
+
+
+def phase_layer_path(width: int) -> dict:
+    """Phase 10 above 512: compress.main at d8/w`width` (LAYER_PATH_COMMON:
+    20 fit + 20 finetune steps, k-means, zstd), then decode_run: only the
+    layer-wise kernels and sum_partials launch, K2 exactly once a fit and
+    finetune step (depth launches of sine_mlp_layer_bwd, depth - 2 of
+    sine_mlp_layer_dw, one sum_partials), and the decoded PSNR is finite and
+    decode_run's; returns the launch counts."""
+    import numpy as np
+
+    from implicit_image_tpu_torch import compress, decompress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    cfg = compress.compose(LAYER_PATH_COMMON + [f"mlp.hidden_size={width}",
+                                                f"output_dir=outputs/chip_smoke_w{width}"])
+    if (int(cfg.mlp.depth), int(cfg.mlp.hidden_size)) != (DEPTH, width):
+        raise AssertionError(f"the w{width} run must be SIREN d8/w{width}")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    psnr, nbytes = compress.main(cfg, run_dir=cfg.output_dir)
+    t1 = time.perf_counter()
+    img, _ = decompress.decode_run(cfg.output_dir, device="cuda")
+    launches = dict(sm.LAUNCHES)
+    summary = json.loads(open(f"{cfg.output_dir}/summary.json").read())
+    steps = int(cfg.train.num_steps) + int(cfg.quant.num_steps)
+    print(f"[10 w{width}] compress.main {t1 - t0:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
+          f"{summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step, quant "
+          f"{summary['quant_wall_s']:.3f} s); fit PSNR {summary['PSNR']:.3f} dB, decoded "
+          f"{psnr:.3f} dB, {nbytes} B; launches {launches}", flush=True)
+    _check_launches(launches, f"w{width} path", layer=True)
+    want = {"sine_mlp_layer_bwd": DEPTH * steps, "sine_mlp_layer_dw": (DEPTH - 2) * steps,
+            "sum_partials": steps}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"w{width}: launches {launches}, expected {want}")
+    target = compress._load_image(cfg.img)
+    redecoded = 10.0 * np.log10(1.0 / np.mean((np.asarray(img, np.float64) - target) ** 2))
+    if not (math.isfinite(psnr) and abs(redecoded - psnr) <= 1e-3):
+        raise AssertionError(f"w{width}: decoded PSNR {psnr}, decode_run {redecoded}")
     return launches
 
 
@@ -2820,6 +3203,35 @@ def phase_wide_ladder(width: int, part: str) -> dict:
     return launches
 
 
+def phase_layer_ladder() -> dict:
+    """14f: the 2-member RigL ladder of 14d at w640: the member-axis
+    layer-wise kernels, per fit and finetune step one K2 over the members
+    (depth launches of sine_mlp_layer_bwd_batched, depth - 2 of
+    sine_mlp_layer_dw_batched, one sum_partials_batched), no single K2, no
+    fused kernel; decoded PSNRs finite. Returns the launch counts."""
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    tag, width = "[14f layer ladder]", LAYER_LADDER_WIDTH
+    argv = [a if not a.startswith("mlp.hidden_size=") else f"mlp.hidden_size={width}"
+            for a in WIDE_LADDER]
+    cfg, densities, dirs, summaries, launches, seconds = _ladder_cli("14f layer", argv)
+    print(f"{tag} w{width}, {len(densities)} members in {seconds:.2f} s; launches "
+          f"{launches}; decoded " + ", ".join(f"{s['Decoded PSNR']:.3f} dB" for s in summaries),
+          flush=True)
+    steps = 20 + 5
+    want = {"sine_mlp_layer_bwd_batched": DEPTH * steps,
+            "sine_mlp_layer_dw_batched": (DEPTH - 2) * steps,
+            "sum_partials_batched": steps, "sine_mlp_layer_bwd": 0, "sine_mlp_layer_dw": 0,
+            "sum_partials": 0, "sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sine_mlp_fwd_batched": 0,
+            "sine_mlp_bwd_batched": 0}
+    if ({k: launches[k] for k in want} != want or launches["sine_mlp_layer_fwd"] <= 0
+            or launches["sine_mlp_layer_fwd_batched"] <= 0):
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    if not all(math.isfinite(s["Decoded PSNR"]) for s in summaries):
+        raise AssertionError(f"{tag} a decoded PSNR is not finite")
+    return launches
+
+
 def phase_parallel(default_run: str) -> dict:
     """Phase 14; returns the launches of the w128 (14a), w182 (14d) and
     w256 (14e) ladders by width."""
@@ -2827,7 +3239,8 @@ def phase_parallel(default_run: str) -> dict:
     phase_ladder_gmp()
     phase_batched_compress()
     return {WIDTH: rigl, FINALS_WIDTH: phase_wide_ladder(FINALS_WIDTH, "d"),
-            DW_LADDER_WIDTH: phase_wide_ladder(DW_LADDER_WIDTH, "e")}
+            DW_LADDER_WIDTH: phase_wide_ladder(DW_LADDER_WIDTH, "e"),
+            LAYER_LADDER_WIDTH: phase_layer_ladder()}
 
 
 def phase_run_tools(default_run: str) -> dict:
@@ -4081,6 +4494,15 @@ P19_MEMBERS = 4
 P19_DENSITIES = (0.25, 0.5)
 P19_FLEET = 3  # images of (d)'s dryrun fleet (16², d3/w8, 20 steps)
 P19_FLOOR = 20.0  # dB, (a)'s decoded PSNR, as phase 5's
+# (f): phase 11 (a)'s wavelet-SIREN (d8/w128, 512², dense), its fit cut to 60
+# steps; over 2 pixel ranks each runs the sub-SIRENs on 129 of the DWT
+# lattices' 258 rows and the gradients add over the ranks: the single fit up
+# to that sum's order, held to the JAX-parity limits of
+# tests/test_torch_parallel.py (0.05 dB, 1e-3 of each leaf's largest
+# magnitude)
+P19_WAVELET = ["img=synthetic", "mlp=wavelet_siren", "masking=none", "train.num_steps=60",
+               "train.log_steps=30"]
+P19_WAVELET_DB, P19_WAVELET_REL = 0.05, 1e-3
 
 
 def _p19_pieces(overrides=None) -> dict:
@@ -4216,6 +4638,24 @@ def phase_world1(p, device="cuda", backend="nccl") -> dict:
         raise AssertionError(f"19a sharded_compress wrote {ours}, the single pipeline {theirs}")
     if not (math.isfinite(res.decoded_psnr) and res.decoded_psnr >= P19_FLOOR):
         raise AssertionError(f"19a decoded PSNR {res.decoded_psnr} below {P19_FLOOR} dB")
+    # the wavelet-SIREN at world size 1: the single fit bit for bit
+    wp = _p19_pieces(P19_WAVELET)
+    wargs = (wp["mdef"], wp["mcfg"], wp["grid"], wp["img"], wp["train"], wp["optim"], None)
+    wsingle = fit(_p19_generator(wp), *wargs, device=mesh.device)
+    sm.reset_launch_counts()
+    wsharded = sharded_fit(_p19_generator(wp), mesh, *wargs)
+    wlaunches = dict(sm.LAUNCHES)
+    wrender = sharded_render(mesh, wp["mdef"], wp["mcfg"], wsharded.params, wp["h"], wp["w"])
+    print(f"[19a world 1] wavelet-SIREN: sharded fit PSNR {wsharded.metrics['psnr'][-1]:.3f} dB "
+          f"(single {wsingle.metrics['psnr'][-1]:.3f}); launches {wlaunches}", flush=True)
+    _p19_same(wsharded.params, wsingle.params, "19a wavelet sharded fit params")
+    with torch.no_grad():
+        wplain = wp["mdef"].apply(wsingle.params, wp["grid"].to(mesh.device), wp["mcfg"], "fp32")
+    if not torch.equal(wrender, wplain):
+        raise AssertionError("19a the wavelet sharded_render is not the single render")
+    if wlaunches["sine_mlp_bwd"] != 2 * wp["train"].num_steps:
+        raise AssertionError(f"19a wavelet: K2 {wlaunches['sine_mlp_bwd']} launches, expected "
+                             f"two a step")
     dist.destroy_process_group()
     return launches
 
@@ -4248,6 +4688,69 @@ def _p19_pixel_rank(rank, device, overrides):
     return dict(params=res.params, masks=res.mask_state.masks, launches=dict(sm.LAUNCHES),
                 rows=(rows.start, rows.stop), wall=time.perf_counter() - t0,
                 fit_wall=res.wall_seconds, psnr=float(res.metrics["psnr"][-1]))
+
+
+def _p19_wavelet_rank(rank, device):
+    """19 (f) on one rank: the wavelet-SIREN's sharded fit and render over 2
+    pixel ranks (the DWT lattices' rows split)."""
+    import torch
+
+    from implicit_image_tpu_torch.models.wavelet_siren import lattice_share
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.parallel import make_mesh, sharded_fit, sharded_render
+
+    p = _p19_rank_setup(device, P19_WAVELET)
+    mesh = make_mesh(1, 2, device=device)
+    sm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sharded_fit(_p19_generator(p), mesh, p["mdef"], p["mcfg"], p["grid"], p["img"],
+                      p["train"], p["optim"])
+    wall = time.perf_counter() - t0
+    launches = dict(sm.LAUNCHES)
+    render = sharded_render(mesh, p["mdef"], p["mcfg"], res.params, p["h"], p["w"])
+    with torch.no_grad():
+        single_render = p["mdef"].apply(res.params, p["grid"].to(mesh.device), p["mcfg"], "fp32")
+    share = lattice_share(p["mcfg"].lf_shape[0], mesh.pixel.rank, 2)
+    return dict(params=res.params, psnr=res.metrics["psnr"], wall=wall, launches=launches,
+                render_same=bool(torch.equal(render, single_render)),
+                share=(share.start, share.stop))
+
+
+def phase_wavelet_ranks(device="cuda") -> None:
+    """19 (f): the full-grid wavelet-SIREN over 2 pixel ranks sharing the
+    card over gloo, against the single fit (P19_WAVELET_DB, _REL); each
+    rank's sharded render the single render of its params bit for bit."""
+    import numpy as np
+
+    from implicit_image_tpu_torch.parallel.multihost import run_group
+    from implicit_image_tpu_torch.training.fit import fit
+
+    p = _p19_pieces(P19_WAVELET)
+    t0 = time.perf_counter()
+    ranks = run_group(_p19_wavelet_rank, 2, (device,), device=device, backend="gloo",
+                      timeout=600.0, workdir=P19)
+    spawn_s = time.perf_counter() - t0
+    single = fit(_p19_generator(p), p["mdef"], p["mcfg"], p["grid"], p["img"], p["train"],
+                 p["optim"], device=device)
+    logged = ~np.isnan(single.metrics["psnr"])
+    for r, out in enumerate(ranks):
+        db = float(np.abs(out["psnr"][logged] - single.metrics["psnr"][logged]).max())
+        rel = max(float((a[k].cpu() - b[k].cpu()).abs().max() / b[k].abs().max().cpu())
+                  for a, b in zip(out["params"], single.params) for k in a)
+        print(f"[19f wavelet pixel 2] rank {r}: lattice rows {out['share']} of "
+              f"{p['mcfg'].lf_shape[0]}, fit {out['wall']:.2f} s (the single fit "
+              f"{single.wall_seconds:.2f} s), PSNR {out['psnr'][-1]:.4f} dB (single "
+              f"{single.metrics['psnr'][-1]:.4f}; max diff {db:.2e} dB), params max rel diff "
+              f"{rel:.2e}; launches {out['launches']}; render "
+              f"{'the single render bit for bit' if out['render_same'] else 'DIFFERS'}",
+              flush=True)
+        if not (db <= P19_WAVELET_DB and rel <= P19_WAVELET_REL and out["render_same"]):
+            raise AssertionError(f"19f rank {r}: {db} dB, {rel} rel, render {out['render_same']}")
+        if out["launches"]["sine_mlp_bwd"] != 2 * p["train"].num_steps:
+            raise AssertionError(f"19f rank {r}: K2 launches {out['launches']}")
+    if ranks[0]["share"][1] != ranks[1]["share"][0]:
+        raise AssertionError(f"19f the ranks' lattice shares {[o['share'] for o in ranks]}")
+    print(f"[19f wavelet pixel 2] spawn to results {spawn_s:.2f} s", flush=True)
 
 
 def _p19_members(p):
@@ -4411,7 +4914,8 @@ def phase_multi_device(default_run: str) -> dict:
     t0 = time.perf_counter()
     launches = phase_world1(p)
     for part, fn in (("b", lambda: phase_pixel_ranks(p)), ("c", lambda: phase_image_ranks(p)),
-                     ("d", phase_fleet_dryrun), ("e", lambda: phase_rate_distortion(default_run))):
+                     ("d", phase_fleet_dryrun), ("e", lambda: phase_rate_distortion(default_run)),
+                     ("f", phase_wavelet_ranks)):
         t1 = time.perf_counter()
         fn()
         print(f"[19{part}] wall {time.perf_counter() - t1:.2f} s", flush=True)
@@ -4439,6 +4943,11 @@ def main() -> int:
         records[width].update(phase_batched_backward(width))
         records[width].update(phase_mixed_batched(width))
     records[DW_LADDER_WIDTH]["sine_mlp_dw_batched"] = phase_batched_dw(DW_LADDER_WIDTH)
+    layer_records = {width: phase_layer_kernels(width) for width in LAYER_WIDTHS}
+    for width, recs in layer_records.items():
+        records[width] = dict(recs["single"])
+    records[LAYER_LADDER_WIDTH].update(layer_records[LAYER_LADDER_WIDTH]["batched"])
+    phase_layer_wide()
     launches, dense_summary = phase_main_path()
     default_dir = phase_default_path(dense_summary)
     phase_presets()
@@ -4446,7 +4955,8 @@ def main() -> int:
     flagship_ms = phase_flagship()
     # the launches of each width on the path that runs it
     path_launches = {WIDTH: launches, FINALS_WIDTH: phase_finals(),
-                     **{width: phase_wide(width) for width in WIDE_OVERRIDES}}
+                     **{width: phase_wide(width) for width in WIDE_OVERRIDES},
+                     **{width: phase_layer_path(width) for width in LAYER_WIDTHS}}
     phase_families()
     phase_fit_options(compress_dir(SMOKE_OVERRIDES), default_dir)
     # K1 over a member axis launches on the batched decode of phase 13 (e)
@@ -4454,7 +4964,8 @@ def main() -> int:
         path_launches[width]["sine_mlp_fwd_batched"] = count
     # K2 over a member axis launches on the ladders of phase 14 (a, d, e)
     for width, counts in phase_parallel(default_dir).items():
-        for name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched", "sum_partials_batched"):
+        for name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched", "sum_partials_batched",
+                     *(k + "_batched" for k in LAYER_KERNELS)):
             path_launches[width][name] = counts[name]
     phase_last_options(default_dir)
     phase_tools(default_dir, compress_dir(SMOKE_OVERRIDES))
@@ -4467,7 +4978,11 @@ def main() -> int:
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
                "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,
-               "sum_partials": 179, "sum_partials_batched": 179}
+               "sum_partials": 179, "sum_partials_batched": 179,
+               # the layer-wise kernels (widths above 512): K1's, K2's and its dW
+               "sine_mlp_layer_fwd": 81, "sine_mlp_layer_fwd_batched": 81,
+               "sine_mlp_layer_bwd": 128, "sine_mlp_layer_bwd_batched": 128,
+               "sine_mlp_layer_dw": 128, "sine_mlp_layer_dw_batched": 128}
     sources.update({name + sm.MIXED: sources[name]
                     for name in ("sine_mlp_fwd_batched", "sine_mlp_bwd_batched")})
 

@@ -2675,6 +2675,656 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
     move_partial<false, W>(acc[j], out + (size_t)j * (D::TM / D::MT) * W, w);
 }
 
+// ------------------------------------------------- the layer-wise kernels
+//
+// Hidden widths above 512 (any width: the kernel width is the model's
+// rounded up to a multiple of LW_N = 128, the block tile's columns; padded
+// units stay exactly 0). The fused-row design does not reach them: the
+// wider backward's shared memory at 32-row tiles, the least a warp's 32 x 64
+// piece allows, is 200,728 B at 512 and 250,392 B at 640, past the 232,448
+// B a block has. So each layer is a launch of its own, with the activations
+// of a layer between launches in device memory (L2 and HBM): at these widths
+// a layer does 2 h FLOP per float of activation it reads and writes (h / 6
+// per byte: 107 at 640, above the card's ridge for 3xTF32 at 495 TFLOP/s /
+// 3.35 TB/s = 148 only from 888 on, and the reads of a tile's rows are
+// shared in L2 by the h / 128 blocks of its slice), so the traffic costs
+// little next to the products. One compiled instance serves every width:
+// the width is a run-time argument (LayerArgs::hidden), as are the rows.
+// Four kernels, every offset 64-bit (at 512^2, d8, w2048 the z stash alone
+// is 3.76e9 floats):
+// - sine_mlp_layer_fwd_kernel: kLwFirst z_0 = x W_0 + b_0 (FMA, K = in),
+//   kLwHidden z_l = a_{l-1} W_l + b_l (the tensor cores), each with the
+//   epilogue a = rnd(sin(omega z)) (fast_sin) and, for K2's recompute, z
+//   into the stash; kLwLast out = a_L W_{D-1} + b_{D-1} (a warp a row).
+// - sine_mlp_layer_bwd_kernel: kLwLast ga_L = rnd(g) W_{D-1}^T (FMA) with
+//   dW_{D-1} = a_L^T rnd(g), db_{D-1}; kLwHidden ga_{l-1} = G_l W_l^T (the
+//   tensor cores); the epilogue of both gz = rnd(ga) omega cos(omega z) (ga
+//   rounded under MX), stores G = rnd(gz) (the next product's A and dW's B),
+//   sums db and, where the layer below is the first, dW_0 = x^T G; kLwHidden
+//   also writes dW_l's A operand, rnd(a_{l-1}) = rnd(sin(omega z_{l-1})),
+//   in place of z_{l-1}, which nothing reads after it. kLwFirst dx = G_0
+//   W_0^T (a warp a row).
+// - sine_mlp_layer_dw_kernel: dW_l = A_l^T G_l over row splits (one launch
+//   a layer, after the layer's kLwHidden, so two G buffers serve every
+//   layer), each split's sums into its partial slice.
+// - sum_partials, unchanged.
+// Products: mma.sync m16n8k8 3xTF32 in the fp32 mode, one pass in bf16
+// (warp_mma_k, the wider kernels' code: 8 warps of 32 x 64 cover a 128 x
+// 128 block tile, K streamed by cp.async in 32-deep chunks through a 4-slot
+// ring). Grid: the rows' 128-row tiles split into S contiguous slices
+// (ops/sine_mlp.layer_slices: at most the SMs / (h / 128), so one wave),
+// block (s, c) taking column tile c of slice s's tiles, its chunk stream
+// running on across the tiles; grid y = member (every pointer moves by its
+// member stride: each member gets its single launch's bits). No atomics:
+// each address of a partial slice belongs to one thread of one block, which
+// stores it at the slice's first tile and adds at the next ones, in tile
+// order, so a run repeats bit for bit.
+// Memory of K2 at 512^2, d8 (N = 262,144): the z stash, (D-1) N h floats
+// (4.7 / 7.5 / 15.0 GB at 640 / 1024 / 2048), two N x h buffers (the
+// forward's activations, then the G's: 1.3 / 2.1 / 4.3 GB) and S partial
+// slices (0.26 / 0.43 / 0.81 GB); the forward alone bands its rows
+// (ops/sine_mlp.layer_band_rows) to keep its two buffers near 1 GB. The
+// user's lever for K2 is train.pixel_chunks, as in JAX.
+// Accuracy: the chain products sum K in groups of 128 from zero (LW_K_GROUP)
+// and dW its rows in groups of 1,024 (LW_DW_GROUP), so the fp32 error does
+// not drift with the width. The fp32 mode is checked against the plain chain
+// at 576, 640, 1024, 2048 and 4096 (tests/test_torch_kernels.py,
+// chip_smoke.py phase 3, tools/grad_check.py); wider widths run unchecked.
+// Not taken here, for later speed work: the fused chain over a cluster of
+// 2-4 blocks that split a tile's columns and read each other's activations
+// through distributed shared memory. It would keep the activations on chip
+// and drop the z stash, but it needs a cluster-wide barrier per layer and a
+// tile design per cluster size, where this PR needed one kernel right at
+// every width first.
+constexpr int LW_T = 128;    // pixel rows of a block tile
+constexpr int LW_N = 128;    // columns of a block tile: the kernel width is a multiple
+constexpr int LW_KC = 32;    // K of a ring chunk
+constexpr int LW_NST = 4;    // ring chunks
+constexpr int LW_THREADS = 256;
+constexpr int LW_MIN = 512;  // the widest fused kernel; the layer-wise kernels run above it
+constexpr int LW_SLOTS = 1 + 2 * MAX_IO;  // an epilogue's column sums: db, dW_0's rows, dW_{D-1}'s columns
+using LwG = Geo<LW_N, LW_T, LW_KC, LW_NST>;  // 8 warps of 32 x 64
+static_assert(LwG::THREADS == LW_THREADS, "the layer kernels' warps cover a block tile");
+struct LwRing {  // a ring chunk: A's LW_T x LW_KC (or LW_KC x LW_N), then B's LW_KC x LW_N
+  static constexpr int SLICE = LW_T * LW_KC + LW_KC * LW_N;
+  static constexpr int THREADS = LW_THREADS;
+};
+enum LwKind { kLwFirst = 0, kLwHidden = 1, kLwLast = 2 };
+
+}  // namespace
+
+// One launch of a layer kernel (ops/cuda_build.LayerArgs mirrors it). Each
+// matrix is row-major with the row stride its width says; *_m: floats from a
+// member's matrix to the next (grid y). Outside the anonymous namespace: the
+// C launchers take it, and a type of internal linkage would give them
+// internal linkage too (nvcc's front end does), so no part would export them.
+struct LayerArgs {
+  const float* src;  // fwd: the layer's input rows (x, a_{l-1}, a_L); bwd kLwLast: g; dW: A_l
+  const float* g;    // bwd kLwHidden: G_l (the product's A); kLwFirst: G_0; dW: G_l
+  const float* w;    // W_0 (in, H); W_l (fwd) or W_l^T (bwd) (H, H); W_{D-1} (H, out)
+  const float* b;    // fwd: the layer's bias
+  float* dst;        // fwd: a_l (n, H) or out (n, out), null: not stored; bwd: G (n, H) or dx (n, in)
+  float* z;          // fwd: z_l's stash (n, H) or null; bwd: the z below (kLwHidden: A_l written over it)
+  const float* x;    // bwd: x (n, in) where the layer below is the first (dW_0), else null
+  float* part;       // bwd, dW: the partial slices (S, n_part)
+  long long src_m, g_m, w_m, b_m, dst_m, z_m, x_m, part_m;
+  long long n;       // rows
+  long long n_part;  // floats of a partial slice
+  long long off_db, off_dw0, off_dwl, off_dbl, off_dw;  // regions of a slice: db of the layer
+                                                        // below, dW_0, dW_{D-1}, db_{D-1}, dW_l
+  int in_size, hidden, out_size, slices;
+  float omega;  // of the layer's sine (fwd) or of the z below (bwd)
+  int members;
+};
+
+namespace {
+
+// Thread 0 copies the launch's arguments into shared memory with every
+// pointer at member blockIdx.y's matrices; call before anything reads p,
+// then every thread reads them there (no 200-byte copy in registers).
+__device__ __forceinline__ void lw_member(LayerArgs& p, const LayerArgs& a) {
+  if (threadIdx.x == 0) {
+    const long long m = blockIdx.y;
+    p = a;
+    if (p.src) p.src += m * a.src_m;
+    if (p.g) p.g += m * a.g_m;
+    if (p.w) p.w += m * a.w_m;
+    if (p.b) p.b += m * a.b_m;
+    if (p.dst) p.dst += m * a.dst_m;
+    if (p.z) p.z += m * a.z_m;
+    if (p.x) p.x += m * a.x_m;
+    if (p.part) p.part += m * a.part_m;
+  }
+  __syncthreads();
+}
+
+// A block's column tile (columns n0 ..) and its slice's row tiles [t0, t1):
+// block s * (H / LW_N) + c takes column tile c of slice s.
+struct LwTiles {
+  int n0, slice;
+  long long t0, t1;
+  __device__ __forceinline__ explicit LwTiles(const LayerArgs& p) {
+    const int cols = p.hidden / LW_N;
+    slice = blockIdx.x / cols;
+    n0 = (blockIdx.x % cols) * LW_N;
+    const long long nt = (p.n + LW_T - 1) / LW_T;
+    t0 = slice * nt / p.slices;
+    t1 = (slice + 1) * nt / p.slices;
+  }
+};
+
+// dst (LW_T x MAX_IO) = rows row0 .. of src (n, width), rounded to bf16 in
+// the bf16 mode, zero beyond n rows and width columns.
+template <bool BF16>
+__device__ __forceinline__ void lw_stage_rows(float* __restrict__ dst, const float* __restrict__ src,
+                                              long long row0, long long n, int width, int tid) {
+  for (int e = tid; e < LW_T * MAX_IO; e += LW_THREADS) {
+    const int r = e / MAX_IO, k = e % MAX_IO;
+    const long long row = row0 + r;
+    dst[e] = (row < n && k < width) ? rnd<BF16>(src[row * width + k]) : 0.f;
+  }
+}
+
+// dst[r][o] = sum_k src[r][k] rnd(w(k, o)) (+ bias[o]) for rows r < n, src
+// (n, K) with K a multiple of 32 and w(k, o) = w[k sk + o so], o < no <=
+// MAX_IO: a warp a row (the grid's warps stride over the rows), lane i
+// summing k = i + 32 j in order of j, then the lanes by shuffles.
+template <bool BF16>
+__device__ __forceinline__ void lw_narrow_rows(const float* __restrict__ src, long long K,
+                                               const float* __restrict__ wg, long long sk,
+                                               long long so, int no,
+                                               const float* __restrict__ bias,
+                                               float* __restrict__ dst, long long n) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (LW_THREADS / 32);
+  const float bv = (bias != nullptr && lane < no) ? __ldg(&bias[lane]) : 0.f;
+  for (long long r = (long long)blockIdx.x * (LW_THREADS / 32) + (threadIdx.x >> 5); r < n;
+       r += warps) {
+    const float* row = src + r * K;
+    float acc[MAX_IO];
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o) acc[o] = 0.f;
+#pragma unroll 4
+    for (long long k = lane; k < K; k += 32) {
+      const float sv = row[k];
+#pragma unroll
+      for (int o = 0; o < MAX_IO; ++o)
+        if (o < no) acc[o] += sv * rnd<BF16>(__ldg(&wg[k * sk + o * so]));
+    }
+    float mine = 0.f;
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o) {
+      if (o < no) {
+        const float q = warp_sum(acc[o]);
+        if (lane == o) mine = q;
+      }
+    }
+    if (lane < no) dst[r * no + lane] = mine + bv;
+  }
+}
+
+// The layer products' chunk stream through the ring: chunk j of a block is
+// k-chunk j % (H / LW_KC) of its slice's row tile t0 + j / (H / LW_KC):
+// A's rows (LW_T x LW_KC, rows from n on read as 0) and B's K-slice (LW_KC
+// x LW_N at columns n0), each in the sw() layout of its width.
+__device__ __forceinline__ void lw_issue(RingT<LwRing>& ring, int b, long long j,
+                                         const float* __restrict__ A, const float* __restrict__ B,
+                                         const LayerArgs& p, const LwTiles& tl, int tid) {
+  const long long h = p.hidden;
+  const int kc = p.hidden / LW_KC;
+  const long long row0 = (tl.t0 + j / kc) * LW_T;
+  const int k0 = (int)(j % kc) * LW_KC;
+  float* dst = ring.buf(b);
+#pragma unroll 4
+  for (int e = tid; e < LW_T * LW_KC / 4; e += LW_THREADS) {
+    const int r = e / (LW_KC / 4), c = 4 * (e % (LW_KC / 4));
+    const long long row = row0 + r;
+    const bool valid = row < p.n;
+    const float* s = A + (valid ? row : 0) * h + k0 + c;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_addr(dst + sw<LW_KC>(r, c))), "l"(s), "r"(valid ? 16 : 0) : "memory");
+  }
+#pragma unroll 4
+  for (int e = tid; e < LW_KC * LW_N / 4; e += LW_THREADS) {
+    const int r = e / (LW_N / 4), c = 4 * (e % (LW_N / 4));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 ::"r"(smem_addr(dst + LW_T * LW_KC + sw<LW_N>(r, c))),
+                 "l"(B + (k0 + r) * h + tl.n0 + c) : "memory");
+  }
+  ring.arrive(b);
+}
+
+// The chain products' K in groups of LW_K_GROUP chunks (K = 128), each
+// summed from zero by the tensor cores and then added into the product by
+// an fp32 add. The tensor cores' accumulator add does not round to nearest,
+// so one accumulator over the whole K drifts with K: with it the fp32 mode
+// read 3.5e-5 / 4.7e-5 / 9.1e-5 of dx's largest value at K = 640 / 1024 /
+// 2048 against the plain chain, with the groups 7.6e-6 / 7.8e-6 / 9.1e-6
+// (tools/grad_check.py, H100, 700 W).
+constexpr int LW_K_GROUP = 4;
+static_assert(LW_N % (LW_K_GROUP * LW_KC) == 0, "a kernel width holds whole K groups");
+
+// acc = the tile's rows of A (n, H) times B (H, H) at the block's columns:
+// the next H / LW_KC chunks of the stream (chunk j on), refilling each slot
+// NST chunks ahead once every warp is done with it. Each accumulator takes
+// its k-steps and groups in order: an element's bits do not depend on the
+// tiling.
+template <bool BF16>
+__device__ __forceinline__ void lw_product(Acc acc, RingT<LwRing>& ring, long long& j,
+                                           long long total, const float* __restrict__ A,
+                                           const float* __restrict__ B, const LayerArgs& p,
+                                           const LwTiles& tl, const Warp& w, int tid) {
+  zero(acc);
+  Acc grp;
+  const int kc = p.hidden / LW_KC;
+  for (int k = 0; k < kc; ++k, ++j) {
+    const int b = (int)(j % LW_NST);
+    if (k % LW_K_GROUP == 0) zero(grp);
+    ring.wait(b);
+    const float* buf = ring.buf(b);
+    warp_mma_k<BF16, false, true, LW_KC, LW_N, LW_KC>(grp, buf, w.m0, 0, buf + LW_T * LW_KC, w);
+    __syncthreads();
+    if (j + LW_NST < total) lw_issue(ring, b, j + LW_NST, A, B, p, tl, tid);
+    if ((k + 1) % LW_K_GROUP == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mi][ni][q] += grp[mi][ni][q];
+    }
+  }
+}
+
+// First layer, K = in_size: acc = x_s W_0 (FMA) at the warp's positions of
+// the block's columns n0 ..
+template <bool BF16>
+__device__ __forceinline__ void lw_first_layer(Acc acc, const float* __restrict__ w0, long long h,
+                                               int n0, int in_size, const float* __restrict__ x_s,
+                                               const Warp& w) {
+  zero(acc);
+  for (int k = 0; k < in_size; ++k) {
+    float xv[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) xv[mi][hh] = x_s[w.row(mi, 2 * hh) * MAX_IO + k];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const float2 wv = __ldg(reinterpret_cast<const float2*>(w0 + k * h + n0 + w.col(ni)));
+      const float w0v = rnd<BF16>(wv.x), w1v = rnd<BF16>(wv.y);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          acc[mi][ni][2 * hh] += xv[mi][hh] * w0v;
+          acc[mi][ni][2 * hh + 1] += xv[mi][hh] * w1v;
+        }
+    }
+  }
+}
+
+// The forward's epilogue: z = acc + b at rows row0 .. (below n), z into the
+// stash (p.z) and a = rnd(sin(omega z)) into p.dst, where they are given.
+template <bool BF16, bool MX>
+__device__ __forceinline__ void lw_fwd_epilogue(const Acc acc, const LayerArgs& p, int n0,
+                                                long long row0, const Warp& w) {
+  const long long h = p.hidden;
+  const float omega = p.omega;
+  float* z_out = p.z;
+  float* a_out = p.dst;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int c = n0 + w.col(ni);
+    const float2 b = __ldg(reinterpret_cast<const float2*>(p.b + c));
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long row = row0 + w.row(mi, 2 * hh);
+        if (row >= p.n) continue;
+        const float z0 = acc[mi][ni][2 * hh] + b.x, z1 = acc[mi][ni][2 * hh + 1] + b.y;
+        const long long o = row * h + c;
+        if (z_out != nullptr) *reinterpret_cast<float2*>(z_out + o) = make_float2(z0, z1);
+        if (a_out != nullptr)
+          *reinterpret_cast<float2*>(a_out + o) =
+              make_float2(rnd_act<BF16, MX>(iit::fast_sin(omega * z0)),
+                          rnd_act<BF16, MX>(iit::fast_sin(omega * z1)));
+      }
+  }
+}
+
+// The sum of v over the 8 lanes that hold a column (xor 4, 8, 16: fixed).
+__device__ __forceinline__ float lw_lanes(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// The backward's epilogue at one tile (rows row0 .., the block's columns
+// n0 ..), z the pre-activation of the layer below (p.z) and ga its
+// cotangent: acc (kLwHidden) or, LAST, rnd(g) W_{D-1}^T from go_s (FMA, in
+// order of the outputs). gz = rnd<MX>(ga) omega cos(omega z) (0 past n),
+// p.dst = G = rnd(gz); without LAST, A = rnd(sin(omega z)) over z. Column
+// sums over the tile into red (slot, row group, column), in a fixed order
+// (the thread's 4 rows, its column's 8 lanes, then the 4 row groups): slot 0
+// db; FIRST slots 1 + k, dW_0[k] = sum x_k G; LAST slots o_slot + o,
+// dW_{D-1}[., o] = sum a rnd(g_o). Each goes into the block's partial slice,
+// stored at the slice's first tile, added at the next ones; LAST's column
+// tile 0 also sums db_{D-1} = sum g.
+template <bool BF16, bool MX, bool LAST, bool FIRST>
+__device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, const LwTiles& tl,
+                                                long long row0, const float* __restrict__ x_s,
+                                                const float* __restrict__ go_s,
+                                                float* __restrict__ red, const Warp& w, int tid) {
+  const long long h = p.hidden;
+  const int in_size = p.in_size, out_size = p.out_size;
+  const int o_slot = 1 + (FIRST ? in_size : 0);
+  const int slots = o_slot + (LAST ? out_size : 0);
+  const int wr = w.m0 / 32;
+  const float omega = p.omega;
+  float* z = p.z;
+  float* gz_out = p.dst;
+  const auto put = [&](int slot, int col, float v) {
+    v = lw_lanes(v);
+    if (w.g == 0) red[(slot * 4 + wr) * LW_N + col] = v;
+  };
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int c = w.col(ni);
+    const long long col = tl.n0 + c;
+    float wv[2][MAX_IO];
+    if constexpr (LAST) {
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+        for (int o = 0; o < MAX_IO; ++o)
+          wv[cc][o] = o < out_size ? rnd<BF16>(__ldg(&p.w[(col + cc) * out_size + o])) : 0.f;
+    }
+    float gz[2][2][2], gb[2][2][2], av[2][2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = w.row(mi, 2 * hh);
+        const long long row = row0 + r;
+        const bool valid = row < p.n;
+        const long long o = row * h + col;
+        const float2 zv = valid ? *reinterpret_cast<const float2*>(z + o) : make_float2(0.f, 0.f);
+        const float zz[2] = {zv.x, zv.y};
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          float ga;
+          if constexpr (LAST) {
+            ga = 0.f;
+#pragma unroll
+            for (int q = 0; q < MAX_IO; ++q)
+              if (q < out_size) ga += rnd<BF16>(go_s[r * MAX_IO + q]) * wv[cc][q];
+          } else {
+            ga = acc[mi][ni][2 * hh + cc];
+          }
+          const float d = omega * iit::fast_cos(omega * zz[cc]);
+          const float v = valid ? rnd<MX>(ga) * d : 0.f;
+          gz[mi][hh][cc] = v;
+          gb[mi][hh][cc] = rnd<BF16>(v);
+          av[mi][hh][cc] = valid ? rnd_act<BF16, MX>(iit::fast_sin(omega * zz[cc])) : 0.f;
+        }
+        if (valid) {
+          *reinterpret_cast<float2*>(gz_out + o) = make_float2(gb[mi][hh][0], gb[mi][hh][1]);
+          if constexpr (!LAST)
+            *reinterpret_cast<float2*>(z + o) = make_float2(av[mi][hh][0], av[mi][hh][1]);
+        }
+      }
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      put(0, c + cc, (gz[0][0][cc] + gz[0][1][cc]) + (gz[1][0][cc] + gz[1][1][cc]));
+      if constexpr (FIRST) {
+#pragma unroll
+        for (int k = 0; k < MAX_IO; ++k) {
+          if (k >= in_size) break;
+          float s = 0.f;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) s += x_s[w.row(mi, 2 * hh) * MAX_IO + k] * gb[mi][hh][cc];
+          put(1 + k, c + cc, s);
+        }
+      }
+      if constexpr (LAST) {
+#pragma unroll
+        for (int q = 0; q < MAX_IO; ++q) {
+          if (q >= out_size) break;
+          float s = 0.f;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              s += av[mi][hh][cc] * rnd<BF16>(go_s[w.row(mi, 2 * hh) * MAX_IO + q]);
+          put(o_slot + q, c + cc, s);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const bool first_tile = row0 == tl.t0 * LW_T;
+  float* part = p.part + tl.slice * p.n_part;
+  for (int e = tid; e < slots * LW_N; e += LW_THREADS) {
+    const int slot = e / LW_N, c = e % LW_N;
+    const float* rs = red + slot * 4 * LW_N + c;
+    const float v = ((rs[0] + rs[LW_N]) + rs[2 * LW_N]) + rs[3 * LW_N];
+    float* d;
+    if (slot == 0)
+      d = part + p.off_db + tl.n0 + c;
+    else if (slot < o_slot)
+      d = part + p.off_dw0 + (slot - 1) * h + tl.n0 + c;
+    else
+      d = part + p.off_dwl + (tl.n0 + c) * (long long)out_size + (slot - o_slot);
+    *d = first_tile ? v : *d + v;
+  }
+  if (LAST && tl.n0 == 0) {
+    for (int q = tid; q < out_size; q += LW_THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < LW_T; ++r) s += go_s[r * MAX_IO + q];
+      float* d = part + p.off_dbl + q;
+      *d = first_tile ? s : *d + s;
+    }
+  }
+  __syncthreads();
+}
+
+// Shared memory: the ring, the input tile (kLwFirst); kLwLast needs none.
+constexpr size_t kLwFwdSmem =
+    sizeof(float) * (LW_NST * LwRing::SLICE + LW_T * MAX_IO) + LW_NST * sizeof(uint64_t);
+// The ring, the input and cotangent tiles, the column sums.
+constexpr size_t kLwBwdSmem =
+    sizeof(float) * (LW_NST * LwRing::SLICE + 2 * LW_T * MAX_IO + LW_SLOTS * 4 * LW_N) +
+    LW_NST * sizeof(uint64_t);
+// The ring, each thread's running dW total (LW_THREADS x 64 floats), the ring's mbarriers.
+constexpr size_t kLwDwSmem =
+    sizeof(float) * (LW_NST * LwRing::SLICE + LW_THREADS * 64) + LW_NST * sizeof(uint64_t);
+static_assert(kLwBwdSmem <= 232448 && kLwFwdSmem <= kLwBwdSmem && kLwDwSmem <= 232448,
+              "the layer kernels' shared memory");
+// dW's chunks summed from zero in the accumulators before they are added to
+// the running total in shared memory: LW_DW_GROUP x LW_KC = 1,024 rows. One
+// accumulator over a whole split (16,384 rows at 512², w1024) read 1.5e-4 of
+// max |dW| against the plain chain in float64, growing with the split's
+// rows; the plain fp32 chain reads 5e-6 (H100, 700 W).
+constexpr int LW_DW_GROUP = 32;
+
+// The layer launchers' checks and grids (host code).
+bool aligned16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
+bool layer_args_ok(const LayerArgs* a) {
+  return a != nullptr && a->hidden > 0 && a->hidden % LW_N == 0 && a->slices >= 1 &&
+         a->members >= 1 && a->members <= 65535 && a->in_size >= 1 && a->in_size <= MAX_IO &&
+         a->out_size >= 1 && a->out_size <= MAX_IO && a->n >= 0 &&
+         a->slices <= (a->n + LW_T - 1) / LW_T;
+}
+// a block per 8 rows (a warp a row), at most 2^20 blocks striding over the rest
+dim3 narrow_grid(const LayerArgs* a) {
+  const long long blocks = (a->n + LW_THREADS / 32 - 1) / (LW_THREADS / 32);
+  return dim3((unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)), a->members);
+}
+dim3 tile_grid(const LayerArgs* a) { return dim3(a->slices * (a->hidden / LW_N), a->members); }
+
+template <bool BF16, bool MX, int KIND>
+__global__ void __launch_bounds__(LW_THREADS, 1) sine_mlp_layer_fwd_kernel(LayerArgs arg) {
+  __shared__ LayerArgs p;
+  lw_member(p, arg);
+  const int tid = threadIdx.x;
+  if constexpr (KIND == kLwLast) {  // out = a_L W_{D-1} + b_{D-1}
+    lw_narrow_rows<BF16>(p.src, p.hidden, p.w, p.out_size, 1, p.out_size, p.b, p.dst, p.n);
+  } else {
+    extern __shared__ float4 smem4[];
+    float* ring_s = reinterpret_cast<float*>(smem4);
+    float* x_s = ring_s + LW_NST * LwRing::SLICE;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(x_s + LW_T * MAX_IO);
+    const Warp w(tid, LwG::CG);
+    const LwTiles tl(p);
+    Acc acc;
+    if constexpr (KIND == kLwFirst) {
+      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+        lw_stage_rows<BF16>(x_s, p.src, tile * LW_T, p.n, p.in_size, tid);
+        __syncthreads();
+        lw_first_layer<BF16>(acc, p.w, p.hidden, tl.n0, p.in_size, x_s, w);
+        __syncthreads();
+        lw_fwd_epilogue<BF16, MX>(acc, p, tl.n0, tile * LW_T, w);
+      }
+    } else {
+      init_barriers<LW_THREADS>(bar, LW_NST);
+      RingT<LwRing> ring{ring_s, bar};
+      const long long total = (tl.t1 - tl.t0) * (p.hidden / LW_KC);
+      for (int b = 0; b < LW_NST && b < total; ++b) lw_issue(ring, b, b, p.src, p.w, p, tl, tid);
+      long long j = 0;
+      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+        lw_product<BF16>(acc, ring, j, total, p.src, p.w, p, tl, w, tid);
+        lw_fwd_epilogue<BF16, MX>(acc, p, tl.n0, tile * LW_T, w);
+      }
+    }
+  }
+}
+
+template <bool BF16, bool MX, int KIND, bool FIRST>
+__global__ void __launch_bounds__(LW_THREADS, 1) sine_mlp_layer_bwd_kernel(LayerArgs arg) {
+  __shared__ LayerArgs p;
+  lw_member(p, arg);
+  const int tid = threadIdx.x;
+  if constexpr (KIND == kLwFirst) {  // dx = G_0 W_0^T
+    lw_narrow_rows<BF16>(p.g, p.hidden, p.w, 1, p.hidden, p.in_size, nullptr, p.dst, p.n);
+  } else {
+    extern __shared__ float4 smem4[];
+    float* ring_s = reinterpret_cast<float*>(smem4);
+    float* x_s = ring_s + LW_NST * LwRing::SLICE;
+    float* go_s = x_s + LW_T * MAX_IO;
+    float* red = go_s + LW_T * MAX_IO;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(red + LW_SLOTS * 4 * LW_N);
+    const Warp w(tid, LwG::CG);
+    const LwTiles tl(p);
+    Acc acc;
+    if constexpr (KIND == kLwLast) {
+      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+        const long long row0 = tile * LW_T;
+        lw_stage_rows<false>(go_s, p.src, row0, p.n, p.out_size, tid);
+        if constexpr (FIRST) lw_stage_rows<BF16>(x_s, p.x, row0, p.n, p.in_size, tid);
+        __syncthreads();
+        lw_bwd_epilogue<BF16, MX, true, FIRST>(acc, p, tl, row0, x_s, go_s, red, w, tid);
+      }
+    } else {
+      init_barriers<LW_THREADS>(bar, LW_NST);
+      RingT<LwRing> ring{ring_s, bar};
+      const long long total = (tl.t1 - tl.t0) * (p.hidden / LW_KC);
+      for (int b = 0; b < LW_NST && b < total; ++b) lw_issue(ring, b, b, p.g, p.w, p, tl, tid);
+      long long j = 0;
+      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+        const long long row0 = tile * LW_T;
+        // x_s is read after the product's barriers, and the last epilogue's
+        // barrier came before this write
+        if constexpr (FIRST) lw_stage_rows<BF16>(x_s, p.x, row0, p.n, p.in_size, tid);
+        lw_product<BF16>(acc, ring, j, total, p.g, p.w, p, tl, w, tid);
+        lw_bwd_epilogue<BF16, MX, false, FIRST>(acc, p, tl, row0, x_s, go_s, red, w, tid);
+      }
+    }
+  }
+}
+
+// dW_l = A_l^T G_l: block (s, tile) sums the 128 x 128 tile (m0, n0) of dW
+// over split s's rows [s n / S, (s + 1) n / S), LW_KC rows a chunk of both
+// operands (rows past the split read as 0), LW_DW_GROUP chunks from zero
+// and then into the thread's running total (its own shared-memory slots, in
+// group order), and stores it in row s of the partials at p.off_dw
+// (row-major H x H). The blocks of a split are adjacent in the grid, so its
+// rows come from HBM about once.
+template <bool BF16>
+__global__ void __launch_bounds__(LW_THREADS, 1) sine_mlp_layer_dw_kernel(LayerArgs arg) {
+  __shared__ LayerArgs p;
+  lw_member(p, arg);
+  extern __shared__ float4 smem4[];
+  float* ring_s = reinterpret_cast<float*>(smem4);
+  float* total_s = ring_s + LW_NST * LwRing::SLICE;  // element i of thread t at i LW_THREADS + t
+  uint64_t* bar = reinterpret_cast<uint64_t*>(total_s + LW_THREADS * 64);
+  const int tid = threadIdx.x;
+  const Warp w(tid, LwG::CG);
+  const long long h = p.hidden;
+  const int cols = p.hidden / LW_N, tiles = cols * cols;
+  const int tile = blockIdx.x % tiles, s = blockIdx.x / tiles;
+  const int m0 = tile / cols * LW_N, n0 = tile % cols * LW_N;
+  const long long r0 = s * p.n / p.slices, r1 = (s + 1) * p.n / p.slices;
+  const long long chunks = (r1 - r0 + LW_KC - 1) / LW_KC;
+  const float* a = p.src + m0;
+  const float* g = p.g + n0;
+
+  init_barriers<LW_THREADS>(bar, LW_NST);
+  RingT<LwRing> ring{ring_s, bar};
+  const auto issue = [&](int b, long long k) {
+    constexpr int Q = LW_N / 4;  // 16-byte pieces of an operand's row
+    float* dst = ring.buf(b);
+    const long long row0 = r0 + k * LW_KC;
+#pragma unroll 4
+    for (int e = tid; e < LW_KC * 2 * Q; e += LW_THREADS) {
+      const int r = e / (2 * Q), q = e % (2 * Q);
+      const bool in_a = q < Q, valid = row0 + r < r1;
+      const int col = 4 * (in_a ? q : q - Q);
+      const float* src = (in_a ? a : g) + (valid ? row0 + r : r0) * h + col;
+      float* d = (in_a ? dst : dst + LW_KC * LW_N) + sw<LW_N>(r, col);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   ::"r"(smem_addr(d)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+    }
+    ring.arrive(b);
+  };
+  for (int b = 0; b < LW_NST && b < chunks; ++b) issue(b, b);
+  Acc acc;
+  zero(acc);
+  for (int i = 0; i < 64; ++i) total_s[i * LW_THREADS + tid] = 0.f;
+  for (long long k = 0; k < chunks; ++k) {
+    const int b = (int)(k % LW_NST);
+    ring.wait(b);
+    const float* buf = ring.buf(b);
+    warp_mma_k<BF16, true, false, LW_N, LW_N, LW_KC>(acc, buf, w.m0, 0, buf + LW_KC * LW_N, w);
+    __syncthreads();
+    if (k + LW_NST < chunks) issue(b, k + LW_NST);
+    if ((k + 1) % LW_DW_GROUP == 0 || k + 1 == chunks) {  // the group into the total
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) total_s[((mi * 8 + ni) * 4 + q) * LW_THREADS + tid] += acc[mi][ni][q];
+      zero(acc);
+    }
+  }
+  float* out = p.part + s * p.n_part + p.off_dw + m0 * h + n0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float* t = total_s + ((mi * 8 + ni) * 4 + 2 * hh) * LW_THREADS + tid;
+        *reinterpret_cast<float2*>(out + w.row(mi, 2 * hh) * h + w.col(ni)) =
+            make_float2(t[0], t[LW_THREADS]);
+      }
+}
+
 // ------------------------------------------------------ the partial sum
 //
 // out = the column sum of a (B, P) fp32 buffer, P % 4 == 0, in float4
@@ -2823,7 +3473,94 @@ int sm_count(int* sms) {
 
 extern "C" {
 
-#ifdef SINE_MLP_WIDE
+#if defined(SINE_MLP_LAYER)
+
+// The layer-wise kernels' launchers (widths above LW_MIN), one part of the
+// build each: SINE_MLP_LAYER = 0 the forward, 1 the backward, 2 dW. Each
+// launches one kernel for `args` (its note) over args->members members (grid
+// y) and returns the launch's error; misaligned or misshaped arguments
+// return cudaErrorInvalidValue without launching.
+
+#if SINE_MLP_LAYER == 0
+// kind: kLwFirst (src x, w W_0, b b_0, dst a_0), kLwHidden (src a_{l-1}, w
+// W_l, b b_l, dst a_l), each with z the stash or null; kLwLast (src a_L, w
+// W_{D-1}, b b_{D-1}, dst out).
+int sine_mlp_layer_fwd(const LayerArgs* a, int kind, int bf16, void* stream) {
+  if (!layer_args_ok(a) || a->n == 0) return a != nullptr && a->n == 0 ? 0 : (int)cudaErrorInvalidValue;
+  // 16-byte copies of the product's operands, 8-byte loads and stores of
+  // the epilogue's rows; x, out and the last layer's W are read and written
+  // a value at a time
+  const bool tiles = kind == kLwFirst || kind == kLwHidden;
+  if (kind != kLwHidden && kind != kLwFirst && kind != kLwLast) return (int)cudaErrorInvalidValue;
+  if ((kind == kLwHidden && !aligned16(a->src)) ||
+      (tiles && (!aligned16(a->w) || !aligned16(a->b) || (a->dst && !aligned16(a->dst)) ||
+                 (a->z && !aligned16(a->z)))))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    if (kind == kLwFirst)
+      return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwFirst>, tile_grid(a), LW_THREADS,
+                    kLwFwdSmem, s, *a);
+    if (kind == kLwHidden)
+      return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwHidden>, tile_grid(a), LW_THREADS,
+                    kLwFwdSmem, s, *a);
+    return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwLast>, narrow_grid(a), LW_THREADS, 0, s,
+                  *a);
+  });
+}
+#elif SINE_MLP_LAYER == 1
+// kind: kLwLast (src g, w W_{D-1}, z z_L, dst G_L), kLwHidden (g G_l, w
+// W_l^T, z z_{l-1}, dst G_{l-1}), each with part and x where the layer below
+// is the first; kLwFirst (g G_0, w W_0, dst dx).
+int sine_mlp_layer_bwd(const LayerArgs* a, int kind, int bf16, void* stream) {
+  if (!layer_args_ok(a) || a->n == 0) return a != nullptr && a->n == 0 ? 0 : (int)cudaErrorInvalidValue;
+  // 16-byte copies of the product's operands (G, W^T), 8-byte loads and
+  // stores of the epilogue's rows (z, G); g, x, dx, the last and first
+  // layers' W and the partials are read and written a value at a time
+  if (kind != kLwHidden && kind != kLwFirst && kind != kLwLast) return (int)cudaErrorInvalidValue;
+  if ((kind == kLwHidden && (!aligned16(a->g) || !aligned16(a->w))) ||
+      (kind != kLwFirst && (!aligned16(a->z) || !aligned16(a->dst) || a->part == nullptr ||
+                            (kind == kLwLast && a->src == nullptr))) ||
+      (kind == kLwFirst && (a->g == nullptr || a->dst == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bool first = a->x != nullptr;
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    if (kind == kLwFirst)
+      return launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwFirst, false>, narrow_grid(a), LW_THREADS,
+                    0, s, *a);
+    if (kind == kLwLast)
+      return first ? launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwLast, true>, tile_grid(a),
+                            LW_THREADS, kLwBwdSmem, s, *a)
+                   : launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwLast, false>, tile_grid(a),
+                            LW_THREADS, kLwBwdSmem, s, *a);
+    return first ? launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwHidden, true>, tile_grid(a),
+                          LW_THREADS, kLwBwdSmem, s, *a)
+                 : launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwHidden, false>, tile_grid(a),
+                          LW_THREADS, kLwBwdSmem, s, *a);
+  });
+}
+#else
+// src A_l, g G_l (n, H) each, part (S = slices, n_part) floats: row s of it
+// at off_dw gets split s's dW_l.
+int sine_mlp_layer_dw(const LayerArgs* a, int bf16, void* stream) {
+  if (!layer_args_ok(a) || a->n == 0) return a != nullptr && a->n == 0 ? 0 : (int)cudaErrorInvalidValue;
+  if (!aligned16(a->src) || !aligned16(a->g) || !aligned16(a->part) || a->n_part % 4 != 0 ||
+      a->off_dw < 0 || a->off_dw % 2 != 0 ||
+      a->off_dw + (long long)a->hidden * a->hidden > a->n_part)
+    return (int)cudaErrorInvalidValue;
+  const int cols = a->hidden / LW_N;
+  const dim3 grid(a->slices * cols * cols, a->members);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(bf16 & 1 ? launch(sine_mlp_layer_dw_kernel<true>, grid, LW_THREADS, kLwDwSmem, s, *a)
+                        : launch(sine_mlp_layer_dw_kernel<false>, grid, LW_THREADS, kLwDwSmem, s,
+                                 *a));
+}
+#endif
+
+#elif defined(SINE_MLP_WIDE)
 
 #define SINE_MLP_CAT2(a, b) a##b
 #define SINE_MLP_CAT(a, b) SINE_MLP_CAT2(a, b)
@@ -2929,13 +3666,15 @@ int sine_mlp_kernel_width(int h) {
 #define SINE_MLP_WIDTH(W, TR, KS, NB, FTR, FKS, FNB) W,
   constexpr int widths[] = {H, SINE_MLP_WIDE_GEOS(SINE_MLP_WIDTH)};
 #undef SINE_MLP_WIDTH
+  static_assert(widths[sizeof(widths) / sizeof(int) - 1] == LW_MIN, "the layer kernels' threshold");
   for (int k : widths)
     if (h <= k) return h >= 1 ? k : 0;
-  return 0;
+  return h <= INT_MAX - LW_N ? (h + LW_N - 1) / LW_N * LW_N : 0;  // the layer-wise kernels
 }
 // Pixel rows per tile of the backward kernel of width `hidden` (0 if there
 // is none): the partial buffer has at most one slice per tile.
 int sine_mlp_tile_rows(int hidden) {
+  if (hidden > LW_MIN) return hidden % LW_N == 0 ? LW_T : 0;
   switch (hidden) {
     case H: return T;
 #define SINE_MLP_ROWS(W, TR, KS, NB, FTR, FKS, FNB) \
@@ -3118,6 +3857,6 @@ int sum_partials_batched(const float* partials, float* out, int members, int n_b
   return (int)cudaGetLastError();
 }
 
-#endif  // SINE_MLP_WIDE
+#endif  // SINE_MLP_LAYER, SINE_MLP_WIDE
 
 }  // extern "C"

@@ -38,7 +38,8 @@ class ModelDef:
     separable: bool = False
     # True when the model renders only its configured full grid
     # (wavelet_siren, whose sub-SIRENs run on their own DWT lattices): the
-    # fit then takes no pixel chunks
+    # fit then takes no pixel chunks, and over a pixel group its lattices'
+    # rows split over the ranks instead of the image's (apply_split)
     full_grid: bool = False
     # the member-axis forwards, over params whose leaves carry a leading
     # member axis, differentiable: (params, grid (H,W,in), cfg, precision) ->
@@ -46,6 +47,12 @@ class ModelDef:
     # left None, vmap_members of apply / apply_flat
     apply_members: Optional[Callable] = None
     apply_flat_members: Optional[Callable] = None
+    # a full-grid model's forward on rank `part` of `parts` (params, grid
+    # (H,W,in), cfg, precision, part, parts, gather) -> the whole (H,W,out),
+    # and over a member axis -> (M, H, W, out); `gather` brings the ranks'
+    # shares together (training.fit's pixel group)
+    apply_split: Optional[Callable] = None
+    apply_members_split: Optional[Callable] = None
 
     def __post_init__(self):
         if self.apply_members is None:
@@ -120,12 +127,16 @@ def _wavelet_siren_def() -> ModelDef:
         wavelet_siren_apply_flat,
         wavelet_siren_apply_flat_members,
         wavelet_siren_apply_members,
+        wavelet_siren_apply_members_split,
+        wavelet_siren_apply_split,
     )
 
     return ModelDef("wavelet_siren", WaveletSirenConfig, init_wavelet_siren,
                     wavelet_siren_apply, wavelet_siren_apply_flat, full_grid=True,
                     apply_members=wavelet_siren_apply_members,
-                    apply_flat_members=wavelet_siren_apply_flat_members)
+                    apply_flat_members=wavelet_siren_apply_flat_members,
+                    apply_split=wavelet_siren_apply_split,
+                    apply_members_split=wavelet_siren_apply_members_split)
 
 
 def _hashgrid_def() -> ModelDef:

@@ -23,6 +23,13 @@ forward and backward kernels launch once per sub-SIREN, twice per fit step
 (over a member axis, `wavelet_siren_apply_members`: the member-axis kernels,
 twice per step for all members). The model renders only its configured
 full grid.
+
+Over a pixel group (`wavelet_siren_apply_split`, the sharded fit's and
+render's, parallel/sharded.py): the DWT lattices' rows split into
+contiguous shares that differ by at most one row (`lattice_share`: 258
+rows at 512² over 4 ranks are 64, 65, 64, 65), each rank runs the two
+sub-SIRENs on its share, the ranks' shares are gathered in rank order, and
+every rank composes the whole image.
 """
 from __future__ import annotations
 
@@ -49,6 +56,9 @@ __all__ = [
     "wavelet_siren_apply_flat",
     "wavelet_siren_apply_members",
     "wavelet_siren_apply_flat_members",
+    "wavelet_siren_apply_split",
+    "wavelet_siren_apply_members_split",
+    "lattice_share",
     "ycbcr_to_rgb",
 ]
 
@@ -227,3 +237,63 @@ def wavelet_siren_apply_flat(params, coords: torch.Tensor, cfg: WaveletSirenConf
     out = wavelet_siren_apply(params, coords.reshape(cfg.height, cfg.width, -1), cfg,
                               precision)
     return out.reshape(n, -1)
+
+
+def lattice_share(rows: int, part: int, parts: int) -> slice:
+    """Share `part` of `parts` of a lattice's rows: [part rows / parts,
+    (part + 1) rows / parts), contiguous, in order, differing by at most one
+    row."""
+    return slice(part * rows // parts, (part + 1) * rows // parts)
+
+
+def _share_coords(cfg: WaveletSirenConfig, part: int, parts: int, device) -> torch.Tensor:
+    """The flat coordinates of share `part` of the DWT lattice's rows."""
+    lf_h, lf_w = cfg.lf_shape
+    rows = lattice_share(lf_h, part, parts)
+    return _grid_flat(lf_h, lf_w, device)[rows.start * lf_w: rows.stop * lf_w]
+
+
+def wavelet_siren_apply_split(params, grid: torch.Tensor, cfg: WaveletSirenConfig,
+                              precision: str, part: int, parts: int, gather) -> torch.Tensor:
+    """The forward of one of `parts` ranks -> the whole (H, W, 3) RGB: each
+    sub-SIREN on share `part` of its lattice's rows (`lattice_share`);
+    `gather(t, counts)` returns every rank's share of t (rows on dim 0,
+    counts[r] on rank r) in rank order, differentiably (its gradient on this
+    rank's share is that share's slice). With parts = 1 it is
+    wavelet_siren_apply's image."""
+    h, w = grid.shape[:2]
+    assert (h, w) == (cfg.height, cfg.width), (
+        f"grid {h}x{w} != configured {cfg.height}x{cfg.width}"
+    )
+    lf_h, lf_w = cfg.lf_shape
+    counts = [lattice_share(lf_h, r, parts).stop - lattice_share(lf_h, r, parts).start
+              for r in range(parts)]
+    coords = _share_coords(cfg, part, parts, grid.device)
+    lf = siren_apply_flat(params[: cfg.n_lf_layers], coords, cfg.lf_config, precision)
+    hf = siren_apply_flat(params[cfg.n_lf_layers :], coords, cfg.hf_config, precision)
+    lf_img = gather(lf.reshape(-1, lf_w, cfg.output_size), counts)
+    hf_img = gather(hf.reshape(-1, lf_w, 3), counts)
+    return _compose(lf_img, hf_img, h, w)
+
+
+def wavelet_siren_apply_members_split(params, grid: torch.Tensor, cfg: WaveletSirenConfig,
+                                      precision: str, part: int, parts: int,
+                                      gather) -> torch.Tensor:
+    """wavelet_siren_apply_split over a member axis (params whose leaves
+    carry one) -> (M, H, W, 3): the member-axis kernels on the share, the
+    gather on dim 1 (`gather(t, counts, 1)`), then wavelet_siren_apply_members'
+    composition."""
+    h, w = grid.shape[:2]
+    assert (h, w) == (cfg.height, cfg.width), (
+        f"grid {h}x{w} != configured {cfg.height}x{cfg.width}"
+    )
+    lf_h, lf_w = cfg.lf_shape
+    counts = [lattice_share(lf_h, r, parts).stop - lattice_share(lf_h, r, parts).start
+              for r in range(parts)]
+    coords = _share_coords(cfg, part, parts, grid.device)
+    lf = siren_apply_flat_members(params[: cfg.n_lf_layers], coords, cfg.lf_config, precision)
+    hf = siren_apply_flat_members(params[cfg.n_lf_layers :], coords, cfg.hf_config, precision)
+    m = lf.shape[0]
+    lf_img = gather(lf.reshape(m, -1, lf_w, cfg.output_size), counts, 1)
+    hf_img = gather(hf.reshape(m, -1, lf_w, 3), counts, 1)
+    return torch.func.vmap(lambda a, b: _compose(a, b, h, w))(lf_img, hf_img)

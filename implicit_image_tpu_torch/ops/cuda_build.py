@@ -9,7 +9,8 @@ never loaded. sine_mlp.cu is compiled in parts, one nvcc each, all started
 together (the wider kernels' parts take the longest), then linked:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
-         [-DSINE_MLP_WIDE=W -DSINE_MLP_PART=0|1|2] -c -o <part>.o csrc/sine_mlp.cu
+         [-DSINE_MLP_WIDE=W -DSINE_MLP_PART=0|1|2 | -DSINE_MLP_LAYER=0|1|2] \
+         -c -o <part>.o csrc/sine_mlp.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libiit_<hash>.so *.o
 """
 from __future__ import annotations
@@ -26,8 +27,8 @@ from pathlib import Path
 
 from implicit_image_tpu_torch.ops.sine_mlp import DW_WIDTHS, KERNEL_WIDTHS
 
-__all__ = ["CSRC", "BUILD_DIR", "build", "load_library", "open_device", "ptxas_report",
-           "ptxas_table"]
+__all__ = ["CSRC", "BUILD_DIR", "LayerArgs", "build", "load_library", "open_device",
+           "ptxas_report", "ptxas_table"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,15 +36,34 @@ _SOURCES = ("sine_mlp.cu", "fast_math.cuh", "hopper.cuh")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # the parts of sine_mlp.cu: the width-128 kernels, sum_partials and the C
 # interface; then each wider width's forward and backward, and sine_mlp_dw
-# at the widths that have it
+# at the widths that have it; then the layer-wise kernels (every width above
+# 512): forward, backward, dW
 _PARTS = {"base": []} | {
     f"{part}{w}": [f"-DSINE_MLP_WIDE={w}", f"-DSINE_MLP_PART={i}"]
     for w in KERNEL_WIDTHS[1:] for i, part in enumerate(("fwd", "bwd", "dw"))
-    if part != "dw" or w in DW_WIDTHS}
+    if part != "dw" or w in DW_WIDTHS} | {
+    f"layer_{part}": [f"-DSINE_MLP_LAYER={i}"] for i, part in enumerate(("fwd", "bwd", "dw"))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+
+
+class LayerArgs(ctypes.Structure):
+    """One launch of a layer-wise kernel: csrc/sine_mlp.cu's LayerArgs, field
+    for field (pointers as ints from data_ptr(), None for null; *_m the
+    floats from one member's matrix to the next)."""
+
+    _fields_ = ([(k, _P) for k in ("src", "g", "w", "b", "dst", "z", "x", "part")]
+                + [(f"{k}_m", _L) for k in ("src", "g", "w", "b", "dst", "z", "x", "part")]
+                + [(k, _L) for k in ("n", "n_part", "off_db", "off_dw0", "off_dwl", "off_dbl",
+                                     "off_dw")]
+                + [(k, _I) for k in ("in_size", "hidden", "out_size", "slices")]
+                + [("omega", _F), ("members", _I)])
+
+
+_A = ctypes.POINTER(LayerArgs)
 _SIGNATURES = {
     "sine_mlp_kernel_width": ([_I], _I),
     "sine_mlp_tile_rows": ([_I], _I),
@@ -62,6 +82,11 @@ _SIGNATURES = {
     # a, g, partials, members, n, layers, splits, n_part, offset, hidden, bf16,
     # stream
     "sine_mlp_dw_batched": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    # the layer-wise kernels (widths above 512): args, kind (0 first, 1
+    # hidden, 2 last), bf16, stream; dW: args, bf16, stream
+    "sine_mlp_layer_fwd": ([_A, _I, _I, _P], _I),
+    "sine_mlp_layer_bwd": ([_A, _I, _I, _P], _I),
+    "sine_mlp_layer_dw": ([_A, _I, _P], _I),
     "sum_partials_groups": ([], _I),
     # partials, out, n_blocks, n_part, stream
     "sum_partials": ([_P, _P, _I, _I, _P], _I),

@@ -37,8 +37,12 @@ a ring). Widths up to 512 run: a model's hidden width is zero-padded to the
 next kernel width of `KERNEL_WIDTHS` (padded units stay exactly 0); the
 kernels above 128 stream each W in slices, tile 32 to 128 pixel rows, and
 at 256 and 512 leave dW to `sine_mlp_dw` (csrc/sine_mlp.cu, "the wider
-kernels", "the width-192 backward", "sine_mlp_dw"). A CUDA tensor of a
-width above 512 raises.
+kernels", "the width-192 backward", "sine_mlp_dw"). Every width above 512
+runs on the layer-wise kernels (csrc/sine_mlp.cu, "the layer-wise
+kernels"), its width rounded up to a multiple of 128 and taken at run time:
+a launch a layer (`sine_mlp_layer_fwd`, `sine_mlp_layer_bwd`), the hidden
+layers' dW a launch a layer (`sine_mlp_layer_dw`), then `sum_partials`;
+the z stash and the activations between layers in device memory.
 
 Side by side in this module:
 
@@ -52,9 +56,12 @@ Side by side in this module:
     additions (row groups, then the groups in order), equal to the kernel
     bit for bit on the card; only the tests and chip_smoke.py call it;
   * `siren_chain_dw_operands` / `sine_mlp_dw_reference` — the operands the
-    wider backward stores at 256 and 512 and the split dW that
-    `sine_mlp_dw` computes from them, plain torch (the tests and
-    chip_smoke.py);
+    wider backward stores at 256 and 512 (and the layer-wise backward above
+    512) and the split dW that `sine_mlp_dw` (`sine_mlp_layer_dw`) computes
+    from them, plain torch (the tests and chip_smoke.py);
+  * `siren_chain_layer_partials` — the layer-wise backward's partial
+    slices, each slice's rows as the kernels split them (`layer_slices`,
+    `layer_slice_rows`, `dw_row_splits`), plain torch;
   * `SineMLPFunction` — the autograd.Function. A CUDA tensor runs the
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
     back from one to the other. W's planes are packed at most once per
@@ -131,6 +138,13 @@ __all__ = [
     "siren_chain_dw_operands",
     "sine_mlp_dw_reference",
     "sine_mlp_dw",
+    "LAYER_TILE",
+    "layer_slices",
+    "layer_slice_rows",
+    "layer_band_rows",
+    "siren_chain_layer_partials",
+    "sine_mlp_layer_partials",
+    "sine_mlp_layer_dw",
     "weight_planes",
     "dw_turn_index",
     "dw_position_index",
@@ -159,7 +173,11 @@ _PRECISION_OF = {
 # backward it sums)
 LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_fwd_batched": 0, "sine_mlp_bwd": 0,
             "sine_mlp_bwd_batched": 0, "sine_mlp_dw": 0, "sine_mlp_dw_batched": 0,
-            "sum_partials": 0, "sum_partials_batched": 0}
+            "sum_partials": 0, "sum_partials_batched": 0,
+            # the layer-wise kernels (widths above 512): one count per layer launch
+            "sine_mlp_layer_fwd": 0, "sine_mlp_layer_fwd_batched": 0,
+            "sine_mlp_layer_bwd": 0, "sine_mlp_layer_bwd_batched": 0,
+            "sine_mlp_layer_dw": 0, "sine_mlp_layer_dw_batched": 0}
 LAUNCHES_BY_MODE = {k: {m: 0 for m in PRECISIONS} for k in LAUNCHES}
 # the launches among LAUNCHES that ran a "+mixed" mode, per kernel
 LAUNCHES_MIXED = {k: 0 for k in LAUNCHES}
@@ -167,9 +185,14 @@ LAUNCHES_MIXED = {k: 0 for k in LAUNCHES}
 # the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
 # the backward (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
 # sine_mlp_kernel_width() and sine_mlp_tile_rows()): a SIREN of hidden width h
-# runs on the first width that is >= h, zero-padded to it
+# runs on the first width that is >= h, zero-padded to it; above the last, on
+# the layer-wise kernels at h rounded up to a multiple of LAYER_TILE
 KERNEL_TILE_ROWS = {128: 128, 192: 64, 256: 64, 512: 32}
 KERNEL_WIDTHS = tuple(KERNEL_TILE_ROWS)
+# LW_T = LW_N of csrc/sine_mlp.cu: the layer-wise kernels' block tile, 128
+# pixel rows by 128 columns (their tile rows, and the multiple their width
+# is padded to)
+LAYER_TILE = 128
 # the kernel widths whose wgmma kernels stream W's bf16 planes
 # (`weight_planes`): the forward and backward at 128, the backward at 192;
 # and those whose backward leaves the hidden layers' dW to `sine_mlp_dw`
@@ -384,6 +407,79 @@ def sine_mlp_dw_reference(a: torch.Tensor, g: torch.Tensor, splits: int,
                         for r0, r1 in dw_row_splits(a.shape[1], splits)])
 
 
+def layer_slices(n: int, hidden: int, sms: int) -> int:
+    """The layer-wise kernels' row slices for n rows at kernel width `hidden`
+    on a card of `sms` SMs: as many as one wave of blocks of (slice, column
+    tile) holds, at most one per 128-row tile, at least 1."""
+    return max(1, min(-(-n // LAYER_TILE), sms // (hidden // LAYER_TILE)))
+
+
+def layer_slice_rows(n: int, slices: int):
+    """The rows of each slice of the layer-wise backward's row tiles: slice s
+    holds tiles [s T / S, (s + 1) T / S) of the T = ceil(n / 128), as (start,
+    stop) row ranges in order."""
+    nt = -(-n // LAYER_TILE)
+    return [(min(n, s * nt // slices * LAYER_TILE), min(n, (s + 1) * nt // slices * LAYER_TILE))
+            for s in range(slices)]
+
+
+def layer_band_rows(hidden: int, members: int = 1) -> int:
+    """Rows per band of the layer-wise forward (K1): a multiple of 128 whose
+    two activation buffers over `members` members hold about 2^28 floats
+    (1 GiB); each row's output does not depend on the banding."""
+    return max(LAYER_TILE, (1 << 28) // (2 * hidden * members) // LAYER_TILE * LAYER_TILE)
+
+
+def _pad_params(params, hidden: int):
+    """params with the hidden width zero-padded to `hidden` (padded units
+    stay exactly 0), as the kernels take them."""
+    pad = hidden - params[0]["w"].shape[-1]
+    last = len(params) - 1
+    return tuple({"w": torch.nn.functional.pad(layer["w"].float(),
+                                               (0, pad if i < last else 0, 0, pad if i else 0)),
+                  "b": torch.nn.functional.pad(layer["b"].float(), (0, pad if i < last else 0))}
+                 for i, layer in enumerate(params))
+
+
+def siren_chain_layer_partials(params, x: torch.Tensor, g: torch.Tensor, cfg,
+                               precision: str = "fp32", slices: int = 1) -> torch.Tensor:
+    """Plain version of the layer-wise backward's partial buffer (kernel
+    width above 512): (slices, n_part) as `partial_layout` lays it out at
+    the kernel width, row s holding slice s's sums: dW_0, the biases' and
+    the last layer's over the rows of its row tiles (`layer_slice_rows`),
+    each hidden dW_l over split s of `dw_row_splits` (`sine_mlp_layer_dw`).
+    Each sum in torch's order; `sum_partials_reference` of the buffer, in
+    the kernels' order over the slices, is the backward's gradients."""
+    bf16, mixed = precision_modes(precision)
+    depth = len(params)
+    in_size, out_size = params[0]["w"].shape[0], params[-1]["w"].shape[1]
+    hidden = kernel_width(params[0]["w"].shape[1])
+    n = x.shape[0]
+    layers = {}
+
+    def layer(i, a_prev, gzb, gz):
+        layers[i] = (a_prev, gzb, gz)
+
+    _chain_backward(_pad_params(_rnd_params(params, mixed), hidden), x, g, cfg, precision,
+                    layer)
+    sizes = (in_size * hidden, (depth - 2) * hidden * hidden, hidden * out_size,
+             (depth - 1) * hidden, out_size)
+    n_part = -(-sum(sizes) // 4) * 4
+    out = torch.zeros((slices, n_part), device=x.device)
+    for s, ((r0, r1), (d0, d1)) in enumerate(zip(layer_slice_rows(n, slices),
+                                                 dw_row_splits(n, slices))):
+        a0, gb0, gz0 = layers[0]
+        aL, gbL, gzL = layers[depth - 1]
+        parts = [a0[r0:r1].t() @ gb0[r0:r1]]
+        parts += [layers[i][0][d0:d1].t() @ layers[i][1][d0:d1] for i in range(1, depth - 1)]
+        parts += [aL[r0:r1].t() @ gbL[r0:r1]]
+        parts += [layers[i][2][r0:r1].sum(0) for i in range(depth - 1)]
+        parts += [gzL[r0:r1].sum(0)]
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        out[s, : flat.numel()] = flat
+    return out
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 
@@ -393,12 +489,14 @@ def _lib():
     return load_library()
 
 
-def _check_cuda(name: str, t: torch.Tensor, device, shape=None) -> None:
+def _check_cuda(name: str, t: torch.Tensor, device, shape=None, aligned: bool = True) -> None:
+    """A kernel's operand: float32 and contiguous on `device`, 16-byte
+    aligned (`aligned`: where a kernel moves it in 16-byte pieces)."""
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name}: expected float32, got {t.dtype}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
         raise ValueError(f"{name}: expected a contiguous 16-byte-aligned tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
@@ -473,15 +571,18 @@ def _pack_members(members, hidden: int, mixed: bool):
 
 
 def kernel_width(h: int) -> int:
-    """The kernel width a SIREN of hidden width h runs on; raises
-    NotImplementedError above the widest kernel."""
-    hidden = next((k for k in KERNEL_WIDTHS if 1 <= h <= k), None)
-    if hidden is None:
+    """The kernel width a SIREN of hidden width h runs on: the first of
+    KERNEL_WIDTHS at or above h, above them h rounded up to a multiple of
+    LAYER_TILE (the layer-wise kernels). A width below 1 raises
+    NotImplementedError."""
+    if h < 1:
         spans = ", ".join(f"{lo}-{hi} at {hi}" for lo, hi in
                           zip((1,) + tuple(k + 1 for k in KERNEL_WIDTHS), KERNEL_WIDTHS))
         raise NotImplementedError(
-            f"the CUDA SIREN kernels take hidden widths {spans}; got width {h}")
-    return hidden
+            f"the CUDA SIREN kernels take hidden widths {spans} and above "
+            f"{KERNEL_WIDTHS[-1]} at the next multiple of {LAYER_TILE}; got width {h}")
+    hidden = next((k for k in KERNEL_WIDTHS if h <= k), None)
+    return hidden if hidden is not None else -(-h // LAYER_TILE) * LAYER_TILE
 
 
 def _kernel_dims(params, x: torch.Tensor):
@@ -526,6 +627,9 @@ def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
     _check_rows(n, kernel)
     lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
                                                          x.reshape(-1, x.shape[-1]))
+    if hidden > KERNEL_WIDTHS[-1]:
+        out = _layer_fwd(members, x, cfg, bf16, mixed, kernel.replace("sine_mlp_", "sine_mlp_layer_"))
+        return (out, None) if keep else out
     om = _omegas(cfg, depth)
     dev = x.device
     m = _member_count(members)
@@ -599,11 +703,11 @@ def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str, keep: bo
 def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, device):
     """The backward kernel's partial-gradient buffer for n pixel rows of a
     SIREN of hidden width `width`: returns (grid, n_part, sizes) — one slice
-    of n_part floats per block (one block per SM, at most one per tile),
+    of n_part floats per block (one block per SM, at most one per tile; for
+    the layer-wise kernels above 512, one per row slice, `layer_slices`),
     holding dw0, dwm, dwl, dbs, dbl (`sizes` floats each, at the kernel
     width) in that order."""
     hidden = kernel_width(width)
-    n_tiles = -(-n // KERNEL_TILE_ROWS[hidden])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     sizes = (
         in_size * hidden,                 # dw0
@@ -614,7 +718,9 @@ def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, 
     )
     # each block's slice starts 16-byte aligned: the kernel moves dW partials as float2
     n_part = -(-sum(sizes) // 4) * 4
-    return max(1, min(n_tiles, sms)), n_part, sizes
+    if hidden > KERNEL_WIDTHS[-1]:  # the layer-wise kernels: one slice per row slice
+        return layer_slices(n, hidden, sms), n_part, sizes
+    return max(1, min(-(-n // KERNEL_TILE_ROWS[hidden]), sms)), n_part, sizes
 
 
 # W rows of a ring slice of the wgmma kernels (BW_KS of csrc/sine_mlp.cu)
@@ -730,6 +836,12 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     bf16, mixed = precision_modes(precision)
     first = _first_member(members)
     lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
+    if hidden > KERNEL_WIDTHS[-1]:
+        dx, partials, sizes = _layer_bwd(members, x, g, cfg, precision, batched)
+        flat = (sum_partials_batched if batched else sum_partials)(partials, precision)
+        lead = (_member_count(members),) if batched else ()
+        return dx, _split_grads(_rnd(flat, True) if mixed else flat, lead, sizes, depth,
+                                in_size, hidden, first[0]["w"].shape[1], out_size, turned=False)
     om = _omegas(cfg, depth)
     dev = x.device
     m = _member_count(members)
@@ -794,11 +906,19 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     flat = (sum_partials_batched if batched else sum_partials)(partials, precision)
     if mixed:
         flat = _rnd(flat, True)
+    return dx, _split_grads(flat, lead, sizes, depth, in_size, hidden, h, out_size,
+                            turned=not split_dw)
 
+
+def _split_grads(flat: torch.Tensor, lead, sizes, depth: int, in_size: int, hidden: int, h: int,
+                 out_size: int, turned: bool):
+    """The summed partial (lead + (n_part,)) -> the gradients' params tuple
+    at the model's width h (`turned`: dW_m in the wgmma backward's order,
+    `dw_position_index`)."""
     dw0, dwm, dwl, dbs, dbl = torch.split(flat[..., : sum(sizes)], sizes, dim=-1)
     dw0 = dw0.reshape(lead + (in_size, hidden))[..., :h]
     dwm = dwm.reshape(lead + (depth - 2, hidden, hidden))
-    if not split_dw:
+    if turned:
         dwm = _unturn_dw(dwm)
     dwm = dwm[..., :h, :h]
     dwl = dwl.reshape(lead + (hidden, out_size))[..., :h, :]
@@ -806,14 +926,15 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     grads = [{"w": dw0, "b": dbs[..., 0, :]}]
     grads += [{"w": dwm[..., i - 1, :, :], "b": dbs[..., i, :]} for i in range(1, depth - 1)]
     grads.append({"w": dwl, "b": dbl})
-    return dx, tuple(grads)
+    return tuple(grads)
 
 
 def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     """Launch the backward kernel(s) and the partial-sum kernel: returns
     (dx, grads) in the layout of `siren_chain_backward_reference`. At kernel
     widths 256 and 512: `sine_mlp_bwd_wide`, then `sine_mlp_dw` for the
-    hidden layers' dW into the same partial buffer. Under "+mixed" dW and
+    hidden layers' dW into the same partial buffer; above 512 the
+    layer-wise kernels (`_layer_bwd`). Under "+mixed" dW and
     db come out rounded to bf16, as `siren_chain_backward_reference`'s."""
     return _bwd_launch([params], x, g, cfg, precision, batched=False)
 
@@ -910,6 +1031,239 @@ def sine_mlp_dw_batched(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor
     bits of `sine_mlp_dw(a[m], g[m], partials[m], offset, precision)`. Raises
     as sine_mlp_dw does."""
     _dw_launch(a, g, partials, offset, precision, batched=True)
+
+
+def _members_lead(packed):
+    """The packed operands (w0, wm, wl, bs, bl) each with a leading member
+    axis (a view with one where a single member's have none)."""
+    return [t if t.dim() > d else t.unsqueeze(0) for t, d in zip(packed, (2, 3, 2, 2, 1))]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _mstride(t: Optional[torch.Tensor]) -> int:
+    """Floats from one member's matrix to the next along t's leading member
+    axis (0: one matrix, shared)."""
+    return 0 if t is None or t.shape[0] == 1 else t.stride(0)
+
+
+def _layer_args(n: int, in_size: int, hidden: int, out_size: int, slices: int, members: int,
+                omega: float = 0.0, n_part: int = 0, offsets=None, **mats):
+    """csrc LayerArgs for one launch: `mats` the matrices by field name
+    (src, g, w, b, dst, z, x, part), each with a leading member axis or
+    shared; `offsets` the partial slice's regions by field name."""
+    from implicit_image_tpu_torch.ops.cuda_build import LayerArgs
+
+    a = LayerArgs(n=n, n_part=n_part, in_size=in_size, hidden=hidden, out_size=out_size,
+                  slices=slices, omega=omega, members=members,
+                  off_db=-1, off_dw0=-1, off_dwl=-1, off_dbl=-1, off_dw=-1)
+    for k, t in mats.items():
+        setattr(a, k, _ptr(t))
+        setattr(a, f"{k}_m", _mstride(t))
+    for k, v in (offsets or {}).items():
+        setattr(a, k, v)
+    return a
+
+
+def _layer_launch(lib, fn: str, args, kind: Optional[int], bf16: bool, mixed: bool,
+                  name: str, dev) -> None:
+    import ctypes
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    extra = () if kind is None else (kind,)
+    err = getattr(lib, fn)(ctypes.byref(args), *extra, _mode_flags(bf16, mixed), stream)
+    _raise_on(err, name)
+    _count(name, bf16, mixed)
+
+
+# the layer kernels' kinds (LwKind of csrc/sine_mlp.cu)
+_FIRST, _HIDDEN, _LAST = 0, 1, 2
+
+
+def _layer_chain_fwd(lib, ops, x, n: int, dims, om, acts, bf16: bool, mixed: bool, name: str,
+                     z=None, out=None) -> None:
+    """The forward's layer launches over rows [0, n) of x (n rows): a_l into
+    acts[:, l % 2] (the last hidden layer's only where `out` is given), z_l
+    into z[:, l] where the stash is given, and with `out`, out = a_L W_{D-1}
+    + b_{D-1}."""
+    w0, wm, wl, bs, bl = ops
+    in_size, hidden, out_size, depth, m = dims
+    dev = x.device
+    slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+    layers = depth - 2
+    common = dict(n=n, in_size=in_size, hidden=hidden, out_size=out_size, slices=slices,
+                  members=m)
+    for l in range(layers + 1):
+        dst = acts[:, l % 2] if (l < layers or out is not None) else None
+        args = _layer_args(omega=om[l], src=x if l == 0 else acts[:, (l - 1) % 2],
+                           w=w0 if l == 0 else wm[:, l - 1], b=bs[:, l], dst=dst,
+                           z=None if z is None else z[:, l], **common)
+        _layer_launch(lib, "sine_mlp_layer_fwd", args, _FIRST if l == 0 else _HIDDEN, bf16,
+                      mixed, name, dev)
+    if out is not None:
+        args = _layer_args(src=acts[:, layers % 2], w=wl, b=bl, dst=out, **common)
+        _layer_launch(lib, "sine_mlp_layer_fwd", args, _LAST, bf16, mixed, name, dev)
+
+
+def _layer_fwd(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool, name: str):
+    """The forward on the layer-wise kernels (kernel width above 512) over
+    `members` on x, (N, in) shared or (M, N, in) -> (M, N, out), in bands of
+    `layer_band_rows` rows; counted per launch under `name`."""
+    lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
+                                                         x.reshape(-1, x.shape[-1]))
+    om = _omegas(cfg, depth)
+    dev = x.device
+    m = _member_count(members)
+    n = x.shape[-2]
+    ops = _members_lead(_pack_members(members, hidden, mixed))
+    x = _rnd(x.float(), mixed).contiguous()
+    xm = x if x.dim() == 3 else x.unsqueeze(0)
+    out = torch.empty((m, n, out_size), dtype=torch.float32, device=dev)
+    for name_, t in zip(("w0", "wm", "wl", "bs", "bl"), ops):
+        _check_cuda(name_, t, dev)
+    _check_cuda("x", x, dev, aligned=False)  # read a value at a time
+    band = layer_band_rows(hidden, m)
+    acts = torch.empty((m, 2, min(band, n), hidden), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        for r0 in range(0, n, band):
+            r1 = min(n, r0 + band)
+            _layer_chain_fwd(lib, ops, xm[:, r0:r1], r1 - r0,
+                             (in_size, hidden, out_size, depth, m), om, acts, bf16, mixed,
+                             name, out=out[:, r0:r1])
+    return out
+
+
+def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, batched: bool):
+    """The backward on the layer-wise kernels (kernel width above 512), up
+    to the partial sum: the forward's layer launches again with z stashed,
+    then per layer, last first, `sine_mlp_layer_bwd` and (hidden layers)
+    `sine_mlp_layer_dw`, then dx. Returns (dx, partials, sizes): dx (M, N,
+    in) and partials (M, S, n_part) when `batched`, else one member's.
+    Buffers: the z stash (M, D-1, N, H), two (M, N, H) buffers (the
+    activations, then G_l in buffer l % 2) and the partials; when they
+    exceed the device's free memory this raises ValueError first."""
+    bf16, mixed = precision_modes(precision)
+    first = _first_member(members)
+    lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
+    om = _omegas(cfg, depth)
+    dev = x.device
+    m = _member_count(members)
+    n = x.shape[-2]
+    layers = depth - 2
+    slices, n_part, sizes = partial_layout(n, depth, in_size, first[0]["w"].shape[1], out_size,
+                                           dev)
+    _check_fits(4 * m * ((layers + 3) * n * hidden + slices * n_part + n * in_size), dev,
+                f"the layer-wise backward at width {hidden} over {n} rows"
+                + (f" and {m} members" if batched else "")
+                + " (train.pixel_chunks splits the rows)")
+    ops = _members_lead(_pack_members(members, hidden, mixed))
+    w0, wm, wl, bs, _ = ops
+    wmt = wm.transpose(-1, -2).contiguous()
+    x = _rnd(x.float(), mixed).contiguous()
+    xm = x if x.dim() == 3 else x.unsqueeze(0)
+    g = g.float().contiguous()
+    gm = g if g.dim() == 3 else g.unsqueeze(0)
+    for name_, t in zip(("w0", "wm", "wl", "bs"), ops[:4]):
+        _check_cuda(name_, t, dev)
+    # x and g are read a value at a time
+    _check_cuda("x", x, dev, aligned=False)
+    _check_cuda("g", gm, dev, (m, n, out_size), aligned=False)
+    z = torch.empty((m, layers + 1, n, hidden), dtype=torch.float32, device=dev)
+    bufs = torch.empty((m, 2, n, hidden), dtype=torch.float32, device=dev)
+    partials = torch.empty((m, slices, n_part), dtype=torch.float32, device=dev)
+    dx = torch.empty((m, n, in_size), dtype=torch.float32, device=dev)
+    suffix = "_batched" if batched else ""
+    dims = (in_size, hidden, out_size, depth, m)
+    # regions of a partial slice: dw0, dwm, dwl, dbs, dbl (partial_layout)
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    common = dict(n=n, in_size=in_size, hidden=hidden, out_size=out_size, slices=slices,
+                  members=m, n_part=n_part)
+    with torch.cuda.device(dev):
+        _layer_chain_fwd(lib, ops, xm, n, dims, om, bufs, bf16, mixed, "sine_mlp_layer_fwd" + suffix,
+                         z=z)
+        # the last layer: G_L into bufs[:, L % 2]; dW_0 here too at depth 2
+        args = _layer_args(
+            omega=om[layers], src=gm, w=wl, z=z[:, layers], dst=bufs[:, layers % 2],
+            x=xm if layers == 0 else None, part=partials,
+            offsets=dict(off_db=starts[3] + layers * hidden, off_dw0=starts[0],
+                         off_dwl=starts[2], off_dbl=starts[4]), **common)
+        _layer_launch(lib, "sine_mlp_layer_bwd", args, _LAST, bf16, mixed,
+                      "sine_mlp_layer_bwd" + suffix, dev)
+        for l in range(layers, 0, -1):  # ga_{l-1} = G_l W_l^T, then dW_l = A_l^T G_l
+            args = _layer_args(
+                omega=om[l - 1], g=bufs[:, l % 2], w=wmt[:, l - 1], z=z[:, l - 1],
+                dst=bufs[:, (l - 1) % 2], x=xm if l == 1 else None, part=partials,
+                offsets=dict(off_db=starts[3] + (l - 1) * hidden, off_dw0=starts[0]), **common)
+            _layer_launch(lib, "sine_mlp_layer_bwd", args, _HIDDEN, bf16, mixed,
+                          "sine_mlp_layer_bwd" + suffix, dev)
+            _layer_dw_launch(lib, z[:, l - 1], bufs[:, l % 2], partials,
+                             starts[1] + (l - 1) * hidden * hidden, bf16, mixed,
+                             "sine_mlp_layer_dw" + suffix)
+        args = _layer_args(g=bufs[:, 0], w=w0, dst=dx, **common)
+        _layer_launch(lib, "sine_mlp_layer_bwd", args, _FIRST, bf16, mixed,
+                      "sine_mlp_layer_bwd" + suffix, dev)
+    if batched:
+        return dx, partials, sizes
+    return dx[0], partials[0], sizes
+
+
+def _layer_dw_launch(lib, a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor,
+                     offset: int, bf16: bool, mixed: bool, name: str) -> None:
+    """One sine_mlp_layer_dw launch: a and g (M, N, H), partials (M, S,
+    n_part)."""
+    m, n, hidden = a.shape
+    args = _layer_args(n=n, in_size=1, hidden=hidden, out_size=1, slices=partials.shape[-2],
+                       members=m, n_part=partials.shape[-1], offsets=dict(off_dw=offset),
+                       src=a, g=g, part=partials)
+    _layer_launch(lib, "sine_mlp_layer_dw", args, None, bf16, mixed, name, a.device)
+
+
+def sine_mlp_layer_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
+                      precision: str) -> None:
+    """Launch sine_mlp_layer_dw for one hidden layer: a = rnd(a_{l-1}) and
+    g = rnd(gz_l), (N, H) fp32 on the card (H a multiple of LAYER_TILE) ->
+    for each of the S = partials.shape[-2] row splits of `dw_row_splits(N,
+    S)`, partials[s, offset ..] = the row-major H x H sum of a^T g over the
+    split's rows (`sine_mlp_dw_reference` of a[None], g[None]). With a
+    leading member axis on a, g (M, N, H) and partials (M, S, P): one launch
+    over the members, counted as "sine_mlp_layer_dw_batched". Shapes,
+    alignment or a CPU tensor it does not take raise ValueError before the
+    library is built. No atomics: a call repeats bit for bit."""
+    batched = a.dim() == 3
+    name = "sine_mlp_layer_dw_batched" if batched else "sine_mlp_layer_dw"
+    if (a.dim() not in (2, 3) or tuple(a.shape) != tuple(g.shape)
+            or a.shape[-1] % LAYER_TILE or partials.dim() != a.dim()
+            or (batched and partials.shape[0] != a.shape[0])):
+        raise ValueError(f"{name}: expected a and g of one shape ([M,] N, H), H a multiple of "
+                         f"{LAYER_TILE}, and partials ([M,] S, P); got {tuple(a.shape)}, "
+                         f"{tuple(g.shape)} and {tuple(partials.shape)}")
+    hidden = a.shape[-1]
+    if (partials.shape[-1] % 4 or offset % 2 or offset < 0
+            or offset + hidden * hidden > partials.shape[-1]
+            or partials.shape[-2] > -(-a.shape[-2] // LAYER_TILE)):
+        raise ValueError(f"{name}: {hidden}^2 floats at offset {offset} do not fit a row of "
+                         f"{partials.shape[-1]}, or more splits than 128-row tiles")
+    for label, t in (("a", a), ("g", g), ("partials", partials)):
+        _check_cuda(label, t, a.device)
+    bf16, mixed = precision_modes(precision)
+    lead = (lambda t: t) if batched else (lambda t: t.unsqueeze(0))
+    with torch.cuda.device(a.device):
+        _layer_dw_launch(_lib(), lead(a), lead(g), lead(partials), offset, bf16, mixed, name)
+
+
+def sine_mlp_layer_partials(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
+    """The layer-wise backward (a SIREN wider than 512) up to its partial
+    buffer, on the card: (dx (N, in), partials (S, n_part)), as
+    `siren_chain_layer_partials` lays them out; `sum_partials` of the
+    partials is the backward's gradients. The tests and chip_smoke.py call
+    it; the launches count as the backward's."""
+    if kernel_width(params[0]["w"].shape[1]) <= KERNEL_WIDTHS[-1]:
+        raise ValueError("sine_mlp_layer_partials: the layer-wise kernels run widths above "
+                         f"{KERNEL_WIDTHS[-1]} only")
+    dx, partials, _ = _layer_bwd([params], x, g, cfg, precision, batched=False)
+    return dx, partials
 
 
 def sum_partials_row_groups(n_blocks: int, groups: int):

@@ -71,12 +71,13 @@ from implicit_image_tpu_torch.training.fit import (
     _schedule,
     check_optim,
     check_pixel_group,
+    eval_group,
     eval_scores,
     forward_members,
     init_fit_state,
+    local_rows,
     make_grad_fn,
     optimizer_step,
-    pixel_rows,
     plan_precision_schedule,
     set_trainable_,
     synchronize,
@@ -155,9 +156,10 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
     device = torch.device(device)
     if pixel_group is not None:
         check_pixel_group(mdef, pixel_group, grid.shape[0])
-        rows = pixel_rows(grid.shape[0], pixel_group)
+        rows = local_rows(mdef, grid.shape[0], pixel_group)
         grid = grid[rows]
         targets = targets[rows] if np.ndim(targets) == 3 else targets[:, rows]
+    evals_over = eval_group(mdef, pixel_group)
     n = train_cfg.num_steps
     precision = train_cfg.precision
     early, switch = plan_precision_schedule(train_cfg, n)
@@ -187,7 +189,7 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
         skip = model_skip_indices(mdef.name, inits[0][0])
         ekfac = EkfacFit(mdef, mcfg, coords, member_targets, optim_cfg, train_cfg.pixel_chunks,
                          [ekfac_init(p, skip) for p, _, _ in inits], members=True,
-                         pixel_group=pixel_group)
+                         pixel_group=evals_over)
     sparse_fit = (SparseFit(masking_cfgs, [ms for _, _, ms in inits], generators, True)
                   if sparse else None)
     del inits
@@ -220,8 +222,9 @@ def fit_members(generators: Sequence[torch.Generator], mdef: ModelDef, mcfg,
             densities.append(list(sparse_fit.densities))
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
-                preds = forward_members(mdef, mcfg, params, coords, (h, w), prec).unbind(0)
-                evals[step] = eval_scores(preds, member_targets, pixel_group)
+                preds = forward_members(mdef, mcfg, params, coords, (h, w), prec,
+                                        pixel_group).unbind(0)
+                evals[step] = eval_scores(preds, member_targets, evals_over)
     synchronize(device)
     wall = time.perf_counter() - t0
 

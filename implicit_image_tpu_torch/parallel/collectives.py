@@ -78,6 +78,15 @@ class AxisGroup:
         """Every rank's `t` concatenated along `dim` in axis order."""
         return torch.cat(self.all_gather(t), dim=dim)
 
+    def cat_shares(self, t: torch.Tensor, counts: Sequence[int], dim: int = 0) -> torch.Tensor:
+        """cat of shares that may differ in size along `dim`: counts[r] on
+        the rank at place r (t's other dimensions the same everywhere). Each
+        is padded to the largest for the all-gather and cut back after."""
+        top = max(counts)
+        pad = [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, top - t.shape[dim]]
+        parts = self.all_gather(torch.nn.functional.pad(t, pad))
+        return torch.cat([p.narrow(dim, 0, c) for p, c in zip(parts, counts)], dim=dim)
+
     def broadcast_object(self, obj, src: int = 0):
         """`obj` (a small picklable host object) of the rank at place `src`,
         on every rank."""

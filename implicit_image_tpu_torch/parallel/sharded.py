@@ -15,15 +15,20 @@ block, as the single fit's row-block chunks do. Under train.loss=ms-ssim,
 whose windows straddle the rows, every rank gathers the rows' predictions
 and takes the whole image's loss (training/fit.py's module note): the
 single fit's values up to the order of the gradients' sum. A full-grid
-model (wavelet_siren) needs the whole lattice on every rank and raises
-ValueError on a pixel axis above 1, before any work (the JAX package's
-GSPMD runs it).
+model (wavelet_siren) splits its DWT lattices' rows over the ranks instead
+(contiguous shares that differ by at most one row), gathers the shares and
+takes the whole image's loss on every rank, the gradients added in rank
+order (training.fit's `lattice_split`): the single fit's values up to the
+order of that sum, where the JAX package's GSPMD gathers the lattices. The
+image's rows must still divide by the pixel axis (JAX asserts it).
 
 An "image" axis above 1 repeats the same fit on each image coordinate, as
 the JAX package's layout replicates it there.
 
 `sharded_render` is the decode counterpart: each pixel rank renders its
-rows of the (ROI-windowed) lattice and every rank returns the whole render.
+rows of the (ROI-windowed) lattice and every rank returns the whole render
+(a full-grid model: its share of the DWT lattices' rows, the whole image
+only).
 
 CLI: the compress pipeline of compress.py's config (its overrides) with the
 image's rows over every rank of the process group (parallel/pipeline.
@@ -56,6 +61,8 @@ from implicit_image_tpu_torch.training.fit import (
     check_optim,
     check_pixel_group,
     fit,
+    forward_flat,
+    lattice_split,
 )
 
 __all__ = ["make_sharded_fit_fn", "sharded_fit", "sharded_render"]
@@ -67,14 +74,23 @@ def sharded_render(mesh: Mesh, mdef: ModelDef, mcfg, params, height: int, width:
     its rows split over the pixel ranks, in `precision` (the decoder's fp32
     by default), on mesh.device; every rank returns the whole (r1 - r0,
     c1 - c0, out) render. The window's rows must divide by the pixel axis
-    (ValueError)."""
+    (ValueError). A full-grid model renders the whole lattice only (any
+    other window raises ValueError), its DWT lattices' rows over the ranks
+    (training.fit's `lattice_split`)."""
     r0, r1, c0, c1 = roi if roi is not None else (0, height, 0, width)
     n = mesh.shape["pixel"]
-    if n > 1 and mdef.full_grid:
-        raise ValueError(f"model {mdef.name!r} renders its full grid only; a pixel axis of "
-                         f"{n} needs 1")
     if (r1 - r0) % n:
         raise ValueError(f"window rows {r1 - r0} not divisible by pixel axis {n}")
+    if lattice_split(mdef, mesh.pixel):
+        if (r0, r1, c0, c1) != (0, height, 0, width):
+            raise ValueError(f"model {mdef.name!r} renders its full grid only; got the window "
+                             f"{(r0, r1, c0, c1)} of {height} x {width}")
+        params = tuple({k: v.to(mesh.device) for k, v in layer.items()} for layer in params)
+        grid = get_grid_window(height, width, 0, height, 0, width, mesh.device)
+        with torch.no_grad():
+            out = forward_flat(mdef, mcfg, params, grid.reshape(height * width, -1),
+                               (height, width), precision, mesh.pixel)
+        return out.reshape(height, width, -1)
     rows = (r1 - r0) // n
     lo = r0 + mesh.pixel.rank * rows
     grid = get_grid_window(height, width, lo, lo + rows, c0, c1, mesh.device)
@@ -91,8 +107,7 @@ def make_sharded_fit_fn(mesh: Mesh, mdef: ModelDef, mcfg, grid: torch.Tensor,
     rows split over the mesh's pixel ranks, on mesh.device (module note);
     every rank passes the whole image and the same generator state and
     returns the same result. `init_params` warm-starts it, as the single
-    fit's. H not divisible by the pixel axis, or a full-grid model on more
-    than one pixel rank, raises ValueError here."""
+    fit's. H not divisible by the pixel axis raises ValueError here."""
     check_pixel_group(mdef, mesh.pixel, grid.shape[0])
     check_optim(mdef, train_cfg, optim_cfg)
 

@@ -83,8 +83,14 @@ growth on every rank), so the ranks never part. Under train.loss=ms-ssim
 (N x C, not the activations) and evaluates the whole image's loss; its
 gradient with respect to a rank's rows is that rank's slice, and the
 parameter gradients are added over the ranks in rank order: the single
-fit's values up to the order of that sum. A full-grid model needs the
-whole lattice on every rank and raises on a group of more than one rank.
+fit's values up to the order of that sum. A full-grid model
+(wavelet_siren) takes the same route with its DWT lattices' rows in place
+of the image's (`lattice_split`): every rank holds the whole image, runs
+the sub-SIRENs on its share of the lattices' rows (`ModelDef.apply_split`,
+shares that differ by at most one row), gathers the shares in rank order,
+composes the whole image and takes its loss; the gradients are added over
+the ranks in rank order, and the evals read the whole image on each rank.
+As in the JAX package, the image's rows must still divide by the group.
 """
 from __future__ import annotations
 
@@ -141,6 +147,9 @@ __all__ = [
     "synchronize",
     "set_trainable_",
     "check_pixel_group",
+    "lattice_split",
+    "eval_group",
+    "local_rows",
     "pixel_rows",
     "eval_scores",
 ]
@@ -282,10 +291,14 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     order on the card), and valued member by member over the same squares;
     the MS-SSIM mix runs member by member, one vector serving both.
 
-    `pixel_group` (ms-ssim only): coords, target_flat and grid_hw are this
-    rank's rows; the loss is the whole image's, on its gathered predictions
+    `pixel_group` (ms-ssim, or a full-grid model: `lattice_split`): under
+    ms-ssim coords, target_flat and grid_hw are this rank's rows and the
+    loss is the whole image's, on its gathered predictions; a full-grid
+    model's are the whole image's, its forward splits its lattices' rows
     (module note)."""
-    gather = loss_name == "ms-ssim" and pixel_group is not None
+    split = lattice_split(mdef, pixel_group)
+    fwd_group = pixel_group if split else None
+    gather = loss_name == "ms-ssim" and pixel_group is not None and not split
     if loss_name == "mse":
         def distortion(pred_flat, tgt):
             return mse(pred_flat, tgt)
@@ -314,9 +327,9 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
 
     if members:
         def loss_fn(params):
-            pred = forward_members(mdef, mcfg, params, coords, grid_hw, precision)
+            pred = forward_members(mdef, mcfg, params, coords, grid_hw, precision, fwd_group)
             if gather:
-                pred = _GatherRows.apply(pred, pixel_group)
+                pred = _gather_rows(pred, pixel_group)
             if loss_name == "mse":
                 diff = pred.float() - target_flat.float()
                 sq = diff * diff
@@ -329,16 +342,23 @@ def make_loss_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
         return loss_fn
 
     def loss_fn(params):
-        pred = forward_flat(mdef, mcfg, params, coords, grid_hw, precision)
-        return distortion(_GatherRows.apply(pred, pixel_group) if gather else pred, target_flat)
+        pred = forward_flat(mdef, mcfg, params, coords, grid_hw, precision, fwd_group)
+        return distortion(_gather_rows(pred, pixel_group) if gather else pred, target_flat)
 
     return loss_fn
 
 
-def forward_flat(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str):
+def forward_flat(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str,
+                 pixel_group=None):
     """(N, out) forward over flat coords: through `mdef.apply` on the
     (H, W) grid for a separable model when grid_hw is given, else
-    `mdef.apply_flat`."""
+    `mdef.apply_flat`; a full-grid model over a pixel group through
+    `mdef.apply_split` (`lattice_split`), the whole image on every rank."""
+    if lattice_split(mdef, pixel_group):
+        h, w = grid_hw
+        pred = mdef.apply_split(params, coords.reshape(h, w, coords.shape[-1]), mcfg, precision,
+                                pixel_group.rank, pixel_group.size, _share_gather(pixel_group))
+        return pred.reshape(h * w, -1)
     if grid_hw is not None and mdef.separable:
         h, w = grid_hw
         pred = mdef.apply(params, coords.reshape(h, w, coords.shape[-1]), mcfg, precision)
@@ -346,10 +366,18 @@ def forward_flat(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str):
     return mdef.apply_flat(params, coords, mcfg, precision)
 
 
-def forward_members(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str):
+def forward_members(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: str,
+                    pixel_group=None):
     """forward_flat over a member axis: params whose leaves carry a leading
     member axis -> (M, N, out), through `mdef.apply_members` on the grid for
-    a separable model, else `mdef.apply_flat_members`."""
+    a separable model, else `mdef.apply_flat_members` (a full-grid model
+    over a pixel group: `mdef.apply_members_split`)."""
+    if lattice_split(mdef, pixel_group):
+        h, w = grid_hw
+        pred = mdef.apply_members_split(params, coords.reshape(h, w, coords.shape[-1]), mcfg,
+                                        precision, pixel_group.rank, pixel_group.size,
+                                        _share_gather(pixel_group))
+        return pred.reshape(pred.shape[0], h * w, -1)
     if grid_hw is not None and mdef.separable:
         h, w = grid_hw
         pred = mdef.apply_members(params, coords.reshape(h, w, coords.shape[-1]), mcfg,
@@ -360,28 +388,56 @@ def forward_members(mdef: ModelDef, mcfg, params, coords, grid_hw, precision: st
 
 def check_pixel_group(mdef: ModelDef, pixel_group, height: int) -> None:
     """Raise ValueError, before any work, for what a fit over a pixel group
-    does not run: rows that do not split evenly, or a full-grid model on
-    more than one rank (it needs the whole lattice on every rank)."""
+    does not run: image rows that do not split evenly over it (the JAX
+    package asserts it, for a full-grid model too)."""
     pixel_rows(height, pixel_group)
-    n = pixel_group.size
-    if n > 1 and mdef.full_grid:
-        raise ValueError(f"model {mdef.name!r} renders its full grid only (its sub-SIRENs run "
-                         f"on the whole DWT lattice); a pixel axis of {n} needs 1")
 
 
-class _GatherRows(torch.autograd.Function):
-    """Every rank's rows (dim -2) of a pixel group, in rank order; the
-    gradient of a loss that every rank evaluates alike on the result is, on
-    each rank, its own rows' slice."""
+def lattice_split(mdef: ModelDef, pixel_group) -> bool:
+    """True where a full-grid model runs over a pixel group of more than one
+    rank: its lattices' rows split over the ranks (module note)."""
+    return pixel_group is not None and pixel_group.size > 1 and mdef.full_grid
+
+
+def local_rows(mdef: ModelDef, height: int, pixel_group) -> slice:
+    """The image rows this rank holds: its share (`pixel_rows`), or every row
+    where the model's lattices split instead (`lattice_split`)."""
+    rows = pixel_rows(height, pixel_group)
+    return slice(0, height) if lattice_split(mdef, pixel_group) else rows
+
+
+def eval_group(mdef: ModelDef, pixel_group):
+    """The group a rank's evals and EKFAC factors sum over: the pixel group,
+    or None where the lattices split (`lattice_split`) and every rank holds
+    the whole image."""
+    return None if lattice_split(mdef, pixel_group) else pixel_group
+
+
+def _gather_rows(pred, group):
+    """Every rank's rows (dim -2, as many on each) in rank order,
+    differentiably (_GatherShares)."""
+    return _GatherShares.apply(pred, group, (pred.shape[-2],) * group.size, -2)
+
+
+def _share_gather(group):
+    """gather(t, counts, dim=0) for ModelDef.apply_split: every rank's share
+    of t in rank order, differentiably."""
+    return lambda t, counts, dim=0: _GatherShares.apply(t, group, tuple(counts), dim)
+
+
+class _GatherShares(torch.autograd.Function):
+    """Every rank's share (counts[r] rows along `dim` on rank r) of a pixel
+    group, in rank order; the gradient of a loss that every rank evaluates
+    alike on the result is, on each rank, its own share's slice."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[-2]
-        return group.cat(x, dim=-2)
+    def forward(ctx, x, group, counts, dim):
+        ctx.lo, ctx.n, ctx.dim = sum(counts[: group.rank]), x.shape[dim], dim
+        return group.cat_shares(x, counts, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(-2, ctx.group.rank * ctx.rows, ctx.rows).contiguous(), None
+        return g.narrow(ctx.dim, ctx.lo, ctx.n).contiguous(), None, None, None
 
 
 def pixel_rows(height: int, pixel_group) -> slice:
@@ -445,19 +501,21 @@ def make_grad_fn(mdef: ModelDef, mcfg, coords, target_flat, precision: str,
     rank's rows, split in k chunks; the chunk losses and gradients of all
     ranks are added in chunk order over the group, then scaled by
     1/(k · size), so every rank returns the single fit's values with
-    pixel_chunks = k · size. Under ms-ssim (k = 1) each rank's loss is the
-    whole image's and only the gradients are added over the group."""
+    pixel_chunks = k · size. Under ms-ssim (k = 1), and for a full-grid
+    model (`lattice_split`), each rank's loss is the whole image's and only
+    the gradients are added over the group."""
     n = coords.shape[0]
     k = int(pixel_chunks)
     total = k * (pixel_group.size if pixel_group is not None else 1)
-    if total > 1 and mdef.full_grid:
+    if k > 1 and mdef.full_grid:
         raise ValueError(
-            f"model {mdef.name!r} renders its full grid only; pixel_chunks={total} needs 1")
+            f"model {mdef.name!r} renders its full grid only; pixel_chunks={k} needs 1")
     if k > 1 and n % k:
         raise ValueError(f"pixel_chunks={k} must divide pixel count {n}")
     if k > 1 and loss_name == "ms-ssim":
         raise ValueError("loss='ms-ssim' requires pixel_chunks=1")
-    whole = loss_name == "ms-ssim" and pixel_group is not None
+    whole = (loss_name == "ms-ssim" and pixel_group is not None) or lattice_split(mdef,
+                                                                                 pixel_group)
     chunk_hw = grid_hw
     if k > 1:
         rows_split = grid_hw is not None and mdef.separable and grid_hw[0] % k == 0
@@ -720,8 +778,9 @@ def fit(
     early, switch = plan_precision_schedule(train_cfg, n)
     if pixel_group is not None:
         check_pixel_group(mdef, pixel_group, grid.shape[0])
-        rows = pixel_rows(grid.shape[0], pixel_group)
+        rows = local_rows(mdef, grid.shape[0], pixel_group)
         grid, img = grid[rows], np.asarray(img)[rows]
+    evals_over = eval_group(mdef, pixel_group)
     h, w, c = grid.shape
     coords = grid.to(device).reshape(h * w, c)
     target = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(device)
@@ -762,7 +821,7 @@ def fit(
         if use_ekfac:
             ekfac_state = ekfac_init(params, model_skip_indices(mdef.name, params))
     ekfac = (EkfacFit(mdef, mcfg, coords, target_flat, optim_cfg, train_cfg.pixel_chunks,
-                      ekfac_state, pixel_group=pixel_group) if use_ekfac else None)
+                      ekfac_state, pixel_group=evals_over) if use_ekfac else None)
     set_trainable_(params, True)
     grad_fns = {}
 
@@ -806,8 +865,8 @@ def fit(
             densities.append(sparse_fit.densities[0])
         if (step + 1) % train_cfg.log_steps == 0 or step == n - 1:
             with torch.no_grad():
-                pred = forward_flat(mdef, mcfg, params, coords, (h, w), prec)
-                evals[step] = eval_scores([pred], [target_flat], pixel_group)[0]
+                pred = forward_flat(mdef, mcfg, params, coords, (h, w), prec, pixel_group)
+                evals[step] = eval_scores([pred], [target_flat], evals_over)[0]
         if step + 1 in boundaries:
             if checkpoint_path is not None and (pixel_group is None or pixel_group.rank == 0):
                 save_checkpoint(checkpoint_path, params, opt_state,
@@ -817,8 +876,9 @@ def fit(
                 watch(params, opt_state, step + 1)
             if stop_psnr is not None:
                 with torch.no_grad():
-                    pred = forward_flat(mdef, mcfg, params, coords, (h, w), stop_prec)
-                    val = float(eval_scores([pred], [target_flat], pixel_group)[0, 1])
+                    pred = forward_flat(mdef, mcfg, params, coords, (h, w), stop_prec,
+                                        pixel_group)
+                    val = float(eval_scores([pred], [target_flat], evals_over)[0, 1])
                 if val >= stop_psnr:
                     stopped_at, stop_db, end = step + 1, val, step + 1
                     break

@@ -54,7 +54,9 @@ JAX package's finetune with its target row-sharded): the target's rows
 and the final scores summed over the group in rank order
 (training.fit.make_grad_fn, eval_scores), so every rank finetunes the same
 codebooks with the bits of the single finetune at pixel_chunks · size
-chunks.
+chunks. A full-grid model's DWT lattices split instead (training.fit's
+`lattice_split`): every rank holds the whole target and takes the whole
+image's loss, and the gradients are added over the group.
 """
 from __future__ import annotations
 
@@ -82,11 +84,12 @@ from implicit_image_tpu_torch.ops.sine_mlp import stack_members
 from implicit_image_tpu_torch.training.fit import (
     OptimConfig,
     _at,
+    eval_group,
     eval_scores,
     forward_flat,
     forward_members,
+    local_rows,
     make_grad_fn,
-    pixel_rows,
     set_trainable_,
     synchronize,
 )
@@ -196,7 +199,7 @@ def _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, p
     device = next(layer["w"] for layer in params if "w" in layer).device
     stride = int(quant_cfg.row_stride)
     grid = grid.to(device)[::stride]
-    rows = pixel_rows(grid.shape[0], pixel_group)
+    rows = local_rows(mdef, grid.shape[0], pixel_group)
     grid = grid[rows]
     h, w, c = grid.shape
     coords = grid.reshape(h * w, c)
@@ -286,10 +289,11 @@ def _finetune(params, imgs, mdef, mcfg, grid, quant_cfg, optim_cfg, precision, p
             if masked:
                 params_q = apply_masks(params_q, masks)
         if members:
-            preds = forward_members(mdef, mcfg, params_q, coords, (h, w), precision).unbind(0)
+            preds = forward_members(mdef, mcfg, params_q, coords, (h, w), precision,
+                                    pixel_group).unbind(0)
         else:
-            preds = [forward_flat(mdef, mcfg, params_q, coords, (h, w), precision)]
-        if pixel_group is None:
+            preds = [forward_flat(mdef, mcfg, params_q, coords, (h, w), precision, pixel_group)]
+        if eval_group(mdef, pixel_group) is None:
             scores = [(mse(p, t), psnr_8bit(p, t)) for p, t in zip(preds, targets)]
         else:
             scores = [(row[0], row[2]) for row in eval_scores(preds, targets, pixel_group)]

@@ -7,7 +7,9 @@ the kernels under mixed precision, a bit-exact resume and a hashgrid fit
 that repeats bit for bit; since the batched slice, K2 over a member axis
 and batched fits, each member the bits of its single launch or fit; since
 the slice of the CLI's last options, the QAT finetune, Shampoo and EKFAC
-fits, and Fourier and Feathermap beyond fp32.
+fits, and Fourier and Feathermap beyond fp32; since the layer-wise kernels,
+every hidden width above 512 in every mode, over a member axis, and their
+partial buffer against its plain mirror.
 
 Every test here is marked `cuda` and skips (inside the test) without a CUDA
 device: a CUDA kernel has no interpret mode. The file imports torch and the
@@ -235,15 +237,111 @@ def test_sum_partials_rejects_what_float4_loads_cannot_take(cuda_device):
         sm.sum_partials(torch.zeros((8, 1_000), dtype=torch.float64, device=cuda_device))
 
 
+def _layer_launches(before, depth, fwd_calls=0, bwd_calls=0, batched=False):
+    """The launches the layer-wise kernels add over `fwd_calls` forwards and
+    `bwd_calls` backwards (one band): a forward is depth launches of
+    sine_mlp_layer_fwd, a backward depth - 1 more of them (its recompute),
+    depth of sine_mlp_layer_bwd, depth - 2 of sine_mlp_layer_dw and one
+    sum_partials; nothing else launches."""
+    suffix = "_batched" if batched else ""
+    want = {k: 0 for k in before}
+    want["sine_mlp_layer_fwd" + suffix] = depth * fwd_calls + (depth - 1) * bwd_calls
+    want["sine_mlp_layer_bwd" + suffix] = depth * bwd_calls
+    want["sine_mlp_layer_dw" + suffix] = (depth - 2) * bwd_calls
+    want["sum_partials" + suffix] = bwd_calls
+    return {k: sm.LAUNCHES[k] - before[k] for k in before} == want
+
+
 @pytest.mark.cuda
-def test_kernel_rejects_unsupported_width(cuda_device):
+def test_kernel_runs_width_576(cuda_device):
+    """A SIREN of width 576 (kernel width 640) runs on the layer-wise
+    kernels on the card, forward and backward, within the fp32 limits of
+    the plain chain, and launches nothing else."""
     m, c = build_model("siren", depth=3, hidden_size=576)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
-    with pytest.raises(NotImplementedError, match="257-512 at 512"):
-        sm.sine_mlp_fwd(params, torch.zeros((8, 2), device=cuda_device), c, "fp32")
-    with pytest.raises(NotImplementedError):
-        sm.sine_mlp_bwd(params, torch.zeros((8, 2), device=cuda_device),
-                        torch.zeros((8, 3), device=cuda_device), c, "fp32")
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.rand((3000, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((3000, 3), generator=gen).to(cuda_device)
+    before = dict(sm.LAUNCHES)
+    out = sm.sine_mlp_fwd(params, x, c, "fp32")
+    dx, grads = sm.sine_mlp_bwd(params, x, g, c, "fp32")
+    torch.cuda.synchronize()
+    assert _layer_launches(before, 3, fwd_calls=1, bwd_calls=1)
+    assert float((out - sm.siren_chain_reference(params, x, c, "fp32")).abs().max()) <= 1e-4
+    dx_r, grads_r = sm.siren_chain_backward_reference(params, x, g, c, "fp32")
+    for a, b in [(dx, dx_r)] + [(a[k], b[k]) for a, b in zip(grads, grads_r) for k in KEYS]:
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,fwd_tol,bwd_tol",
+                         [("fp32", 1e-4, 1e-4), ("bf16", 1.5e-3, 2e-2),
+                          ("fp32+mixed", 1.5e-3, 2e-2), ("bf16+mixed", 1.5e-3, 2e-2)])
+@pytest.mark.parametrize("depth,hidden,n", [(4, 640, 20000), (2, 700, 4099), (8, 1024, 9000)])
+def test_layer_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hidden, n):
+    """The layer-wise kernels (widths above 512) against the plain chain at
+    the fused kernels' limits, in every mode, with their launch counts."""
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((n, 3), generator=gen).to(cuda_device)
+    before = dict(sm.LAUNCHES)
+    out = sm.sine_mlp_fwd(params, x, c, precision)
+    dx, grads = sm.sine_mlp_bwd(params, x, g, c, precision)
+    torch.cuda.synchronize()
+    assert _layer_launches(before, depth, fwd_calls=1, bwd_calls=1)
+    assert float((out - sm.siren_chain_reference(params, x, c, precision)).abs().max()) <= fwd_tol
+    dx_r, grads_r = sm.siren_chain_backward_reference(params, x, g, c, precision)
+    for a, b in [(dx, dx_r)] + [(a[k], b[k]) for a, b in zip(grads, grads_r) for k in KEYS]:
+        assert float((a - b).abs().max()) <= bwd_tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_layer_kernels_over_a_member_axis_are_single_launches(cuda_device, precision):
+    """K1 and K2 over 3 members at width 640: member m's outputs and
+    gradients are the bits of its single launches, in every mode."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    members = [m.init(torch.Generator().manual_seed(i), c, cuda_device) for i in range(3)]
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.rand((5000, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((3, 5000, 3), generator=gen).to(cuda_device)
+    before = dict(sm.LAUNCHES)
+    out = sm.sine_mlp_fwd_batched(members, x, c, precision)
+    dx, grads = sm.sine_mlp_bwd_batched(members, x, g, c, precision)
+    torch.cuda.synchronize()
+    assert _layer_launches(before, 4, fwd_calls=1, bwd_calls=1, batched=True)
+    for i, p in enumerate(members):
+        assert torch.equal(out[i], sm.sine_mlp_fwd(p, x, c, precision))
+        dx1, g1 = sm.sine_mlp_bwd(p, x, g[i], c, precision)
+        assert torch.equal(dx[i], dx1)
+        for a, b in zip(grads, g1):
+            for k in KEYS:
+                assert torch.equal(a[k][i], b[k]), (i, k)
+
+
+@pytest.mark.cuda
+def test_layer_partials_match_their_mirror(cuda_device):
+    """The layer-wise backward's partial buffer against its plain mirror
+    (`siren_chain_layer_partials`, the same slices and dW splits) within
+    1e-4 of its largest magnitude, and sum_partials over it bit for bit
+    its mirror's order."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.rand((9000, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((9000, 3), generator=gen).to(cuda_device)
+    _, part = sm.sine_mlp_layer_partials(params, x, g, c, "fp32")
+    assert part.shape[0] == sm.layer_slices(
+        9000, 640, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    mirror = sm.siren_chain_layer_partials([{k: v.cpu() for k, v in p.items()} for p in params],
+                                           x.cpu(), g.cpu(), c, "fp32", part.shape[0])
+    # the slices' floats past the gradients (their 16-byte padding) are not written
+    used = sum(sm.partial_layout(9000, 4, 2, 640, 3, cuda_device)[2])
+    mirror = mirror[:, :used]
+    assert float((part.cpu()[:, :used] - mirror).abs().max()) <= 1e-4 * float(mirror.abs().max())
+    assert torch.equal(sm.sum_partials(part), sm.sum_partials_reference(part))
 
 
 @pytest.mark.cuda
@@ -253,11 +351,12 @@ def test_kernel_widths_and_partial_layout(cuda_device):
     says); the partial buffer has one block per SM, at most one per tile of
     the width's rows, and 16-byte-aligned slices."""
     lib = sm._lib()
-    for h in range(1, 600):
-        want = next((k for k in sm.KERNEL_WIDTHS if h <= k), 0)
+    for h in range(1, 4097):
+        want = (next((k for k in sm.KERNEL_WIDTHS if h <= k), 0)
+                or -(-h // sm.LAYER_TILE) * sm.LAYER_TILE)
         assert lib.sine_mlp_kernel_width(h) == want, h
-        if want:
-            assert sm.kernel_width(h) == want, h
+        assert sm.kernel_width(h) == want, h
+    assert lib.sine_mlp_kernel_width(0) == 0
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert sm.KERNEL_TILE_ROWS == {128: 128, 192: 64, 256: 64, 512: 32}
     for hidden, rows in sm.KERNEL_TILE_ROWS.items():
@@ -267,6 +366,15 @@ def test_kernel_widths_and_partial_layout(cuda_device):
             assert grid == min(-(-n // rows), sms)
             assert n_part % 4 == 0 and n_part >= sum(sizes)
             assert sizes[1] == 6 * hidden * hidden
+    # above 512: the layer-wise kernels' 128-row tiles, one partial slice per row slice
+    for hidden in (640, 1024, 2048):
+        assert lib.sine_mlp_tile_rows(hidden) == sm.LAYER_TILE
+        for n in (1, 1000, 512 * 512):
+            grid, n_part, sizes = sm.partial_layout(n, 8, 2, hidden, 3, cuda_device)
+            assert grid == sm.layer_slices(n, hidden, sms)
+            assert n_part % 4 == 0 and n_part >= sum(sizes)
+            assert sizes[1] == 6 * hidden * hidden
+    assert lib.sine_mlp_tile_rows(700) == 0  # not a kernel width
 
 
 @pytest.mark.cuda

@@ -1,0 +1,247 @@
+"""Port parity at hidden widths above 512: the layer-wise kernels' widths,
+their split of the sums and their plain versions.
+
+On the CPU the port's chain runs its plain-torch versions; here they are
+held against the JAX model (fp32, and XLA's bf16 chain for the bf16 mode)
+at widths 576, 640 and 1024, on weights copied from the JAX init. The card
+runs the same widths on the layer-wise kernels (csrc/sine_mlp.cu, "the
+layer-wise kernels"), which tests/test_torch_kernels.py and chip_smoke.py
+hold against these plain versions. Also here: the width rule over 1-4096,
+the kernels' split of the rows into slices and dW splits (their plain
+mirror, `siren_chain_layer_partials`, against the plain backward), and the
+member axis at width 640 against the members' single fits.
+
+Tolerances: fp32 as tests/test_torch_sine_mlp.py (forward 2e-5 absolute,
+gradients 1e-4 of each leaf's largest magnitude); bf16 forward within 8e-3
+of XLA's bf16 chain, gradients under tests/test_torch_sine_mlp.py's rule
+(error against exact fp32 at most max(2.5 x XLA-bf16's, 0.02)); the
+mirror's split sums within 2e-6 of the plain backward in fp32 (sums in
+another order), 5e-3 in bf16 (the padded products may add in another order,
+which can move an activation's bf16 rounding by one step) and 1e-2 under
+"+mixed" (the bf16 rounding of the result too).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from implicit_image_tpu.data import get_grid as jgrid
+from implicit_image_tpu.models import build_model as jbuild
+from implicit_image_tpu_torch.convert import params_from_jax
+from implicit_image_tpu_torch.data import get_grid, synthetic_image
+from implicit_image_tpu_torch.models import build_model
+from implicit_image_tpu_torch.ops import sine_mlp as sm
+from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
+
+torch.set_num_threads(1)
+
+KEYS = ("w", "b")
+
+
+def _setup(depth, hidden, side=12, seed=0):
+    jm, jc = jbuild("siren", depth=depth, hidden_size=hidden)
+    p = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed), jc))
+    coords = np.array(jgrid(side, side)).reshape(-1, 2)
+    target = np.random.default_rng(seed + 1).uniform(size=(coords.shape[0], 3)).astype(
+        np.float32)
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    return jm, jc, m, c, p, coords, target
+
+
+def _torch_grads(m, c, p, coords, target, precision):
+    tp = params_from_jax(p, "cpu")
+    for layer in tp:
+        for v in layer.values():
+            v.requires_grad_(True)
+    out = m.apply_flat(tp, torch.from_numpy(coords), c, precision)
+    ((out - torch.from_numpy(target)) ** 2).mean().backward()
+    return out.detach().numpy(), [{k: layer[k].grad.numpy() for k in KEYS} for layer in tp]
+
+
+@pytest.mark.parametrize("depth,hidden", [(4, 576), (3, 640), (3, 1024)])
+def test_wide_fp32_forward_and_grads_match_jax(depth, hidden):
+    """The chain above 512 (576 and 640 run as kernel width 640, 1024 as
+    1024 on the card) against JAX XLA fp32 on 144 pixels."""
+    jm, jc, m, c, p, coords, target = _setup(depth, hidden)
+    out, grads = _torch_grads(m, c, p, coords, target, "fp32")
+    np.testing.assert_allclose(out, np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
+    jg = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc) - target) ** 2))(p)
+    for a, b in zip(grads, jg):
+        for k in KEYS:
+            ref = np.asarray(b[k])
+            assert np.abs(a[k] - ref).max() <= 1e-4 * np.abs(ref).max(), k
+
+
+@pytest.mark.parametrize("depth,hidden", [(3, 576), (3, 640), (3, 1024)])
+def test_wide_bf16_forward_and_grads_match_jax(depth, hidden):
+    """The bf16 mode above 512 against JAX's bf16 chain (XLA,
+    compute_dtype=bfloat16 products, f32 accumulation): forward within
+    8e-3, gradients under the error rule against exact fp32."""
+    jm, jc, m, c, p, coords, target = _setup(depth, hidden, seed=1)
+    out, grads = _torch_grads(m, c, p, coords, target, "bf16")
+    np.testing.assert_allclose(out, np.asarray(jm.apply_flat(p, coords, jc, jnp.bfloat16)),
+                               atol=8e-3)
+    gx = jax.grad(lambda q: jnp.mean(
+        (jm.apply_flat(q, coords, jc, jnp.bfloat16) - target) ** 2))(p)
+    gf = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc, None) - target) ** 2))(p)
+    for a, b, f in zip(grads, gx, gf):
+        for k in KEYS:
+            scale = float(np.abs(np.asarray(f[k])).max()) + 1e-12
+            err_port = float(np.abs(a[k] - np.asarray(f[k])).max()) / scale
+            err_xla = float(np.abs(np.asarray(b[k]) - np.asarray(f[k])).max()) / scale
+            assert err_port < max(2.5 * err_xla, 0.02), (k, err_port, err_xla)
+
+
+def test_kernel_width_from_1_to_4096():
+    """Every width runs: up to 512 on the first fused kernel width at or
+    above it, above on the layer-wise kernels at the next multiple of 128;
+    the kernel width never adds more than 127 units above 512."""
+    for h in range(1, 4097):
+        got = sm.kernel_width(h)
+        if h <= 512:
+            assert got == next(k for k in sm.KERNEL_WIDTHS if h <= k), h
+        else:
+            assert got % sm.LAYER_TILE == 0 and h <= got < h + sm.LAYER_TILE, h
+
+
+@pytest.mark.parametrize("n,hidden,sms", [(262144, 640, 132), (262144, 1024, 132),
+                                          (262144, 2048, 132), (300, 640, 132),
+                                          (1, 4096, 132), (262144, 16896, 132)])
+def test_layer_slices_fill_one_wave_and_cover_the_rows(n, hidden, sms):
+    """At most SMs / (H / 128) slices (one wave of (slice, column tile)
+    blocks), at most one per 128-row tile, at least 1; their row ranges
+    cover [0, n) in order, each at least one tile (the kernels store a
+    slice's sums at its first tile)."""
+    s = sm.layer_slices(n, hidden, sms)
+    tiles = -(-n // sm.LAYER_TILE)
+    assert 1 <= s <= max(1, min(tiles, sms // (hidden // sm.LAYER_TILE)))
+    rows = sm.layer_slice_rows(n, s)
+    assert rows[0][0] == 0 and rows[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    assert all(r1 > r0 for r0, r1 in rows)
+
+
+def test_layer_band_rows_bound_the_forward_buffers():
+    for hidden, members in ((640, 1), (2048, 1), (1024, 8), (8192, 64)):
+        band = sm.layer_band_rows(hidden, members)
+        assert band % sm.LAYER_TILE == 0 and band >= sm.LAYER_TILE
+        assert band == sm.LAYER_TILE or 2 * band * hidden * members <= 1 << 28
+
+
+@pytest.mark.parametrize("precision,tol", [("fp32", 2e-6), ("bf16", 5e-3),
+                                           ("fp32+mixed", 1e-2)])
+@pytest.mark.parametrize("depth,hidden,n,slices", [(4, 576, 300, 3), (2, 640, 200, 2),
+                                                   (3, 1024, 257, 1)])
+def test_layer_partials_mirror_sums_to_the_plain_backward(precision, tol, depth, hidden, n,
+                                                          slices):
+    """The layer-wise backward's split of the sums (`siren_chain_layer_
+    partials`: dW_0, the biases and the last layer per row slice, each
+    hidden dW per dw_row_splits split), added in sum_partials' order, is
+    the plain backward's gradients at the kernel width (padded units 0)."""
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    p = m.init(torch.Generator().manual_seed(0), c)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((n, 2), generator=gen) * 2 - 1
+    g = torch.randn((n, 3), generator=gen)
+    _, grads = sm.siren_chain_backward_reference(p, x, g, c, precision)
+    part = sm.siren_chain_layer_partials(p, x, g, c, precision, slices)
+    wide = sm.kernel_width(hidden)
+    sizes = (2 * wide, (depth - 2) * wide * wide, wide * 3, (depth - 1) * wide, 3)
+    assert part.shape == (slices, -(-sum(sizes) // 4) * 4)
+    flat = sm.sum_partials_reference(part)
+    if precision.endswith(sm.MIXED):
+        flat = flat.to(torch.bfloat16).float()
+    ours = sm._split_grads(flat, (), sizes, depth, 2, wide, hidden, 3, turned=False)
+    for a, b in zip(ours, grads):
+        for k in KEYS:
+            assert float((a[k] - b[k]).abs().max()) <= tol * float(b[k].abs().max()), k
+    # the padded units' dW_m rows and columns are exactly 0
+    dwm = part[:, sizes[0]: sizes[0] + sizes[1]].reshape(slices, depth - 2, wide, wide)
+    assert float(dwm[..., hidden:, :].abs().sum()) == 0.0
+    assert float(dwm[..., :, hidden:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_layer_dw_operands_and_split_dw_at_640(precision):
+    """dW_l's operands as the layer-wise backward leaves them (A_l over
+    z_{l-1}, G_l in its buffer) and their split sum (sine_mlp_dw_reference,
+    sine_mlp_layer_dw's) give the plain backward's hidden dW."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    p = m.init(torch.Generator().manual_seed(2), c)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((260, 2), generator=gen) * 2 - 1
+    g = torch.randn((260, 3), generator=gen)
+    a, gz = sm.siren_chain_dw_operands(p, x, g, c, precision)
+    assert a.shape == gz.shape == (2, 260, 640)
+    dw = sm.sum_partials_reference(sm.sine_mlp_dw_reference(a, gz, 3, precision))
+    _, grads = sm.siren_chain_backward_reference(p, x, g, c, precision)
+    for l in (1, 2):
+        ref = grads[l]["w"]
+        assert float((dw[l - 1] - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+
+
+def test_member_axis_at_640_is_the_single_fits():
+    """A 2-member batched fit at width 640 (16², d3, RigL, 6 steps) on the
+    CPU: member i the single fit from member_generators(g, 2)[i], bit for
+    bit (the plain chain runs each member on its own copies)."""
+    from implicit_image_tpu_torch.parallel.batched import batched_fit, member_generators
+    from implicit_image_tpu_torch.sparsity import MaskingConfig
+
+    m, c = build_model("siren", depth=3, hidden_size=640)
+    mk = MaskingConfig(density=0.5, end_when=4, interval=2)
+    grid = get_grid(16, 16)
+    imgs = np.stack([synthetic_image(16, 16, seed=s) for s in (0, 1)])
+    tc, oc = TrainConfig(num_steps=6, log_steps=3), OptimConfig(lr=1e-3)
+    res = batched_fit(torch.Generator().manual_seed(3), m, c, grid, imgs, tc, oc, mk,
+                      device="cpu")
+    gens = member_generators(torch.Generator().manual_seed(3), 2)
+    for i in range(2):
+        single = fit(gens[i], m, c, grid, imgs[i], tc, oc, mk)
+        for a, b in zip(res.params, single.params):
+            for k in b:
+                assert torch.equal(a[k][i], b[k]), (i, k)
+        np.testing.assert_array_equal(res.metrics["psnr"][i], single.metrics["psnr"])
+        for a, b in zip(res.mask_state.masks, single.mask_state.masks):
+            if b is not None:
+                assert torch.equal(a[i], b)
+
+
+def test_layer_dw_rejects_what_it_does_not_take_before_building():
+    """sine_mlp_layer_dw raises ValueError, before the library is built, on
+    a CPU tensor, on operands of two shapes, on a width that is not a
+    multiple of 128, and on a region past the partial row; a CUDA tensor is
+    the only thing it launches on."""
+    a = torch.zeros((300, 640))
+    part = torch.zeros((2, 640 * 640 + 8))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        sm.sine_mlp_layer_dw(a, a, part, 0, "fp32")
+    with pytest.raises(ValueError, match="one shape"):
+        sm.sine_mlp_layer_dw(a, a[:299], part, 0, "fp32")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sm.sine_mlp_layer_dw(a[:, :600], a[:, :600], part, 0, "fp32")
+    with pytest.raises(ValueError, match="do not fit"):
+        sm.sine_mlp_layer_dw(a, a, part, 16, "fp32")
+    with pytest.raises(ValueError, match="more splits"):
+        sm.sine_mlp_layer_dw(a, a, torch.zeros((4, 640 * 640 + 8)), 0, "fp32")
+
+
+def test_grad_check_float64_chain_is_the_plain_chain():
+    """tools/grad_check.py's float64 chain (its yardstick on the card) is
+    the plain fp32 chain's math: within 1e-5 of it, forward and every
+    gradient, at d4/w640 on 300 rows."""
+    from implicit_image_tpu_torch.tools.grad_check import _over_max, chain_float64
+
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    p = m.init(torch.Generator().manual_seed(0), c)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((300, 2), generator=gen) * 2 - 1
+    g = torch.randn((300, 3), generator=gen)
+    plain = (sm.siren_chain_reference(p, x, c, "fp32"),
+             *sm.siren_chain_backward_reference(p, x, g, c, "fp32"))
+    (out, dx, grads), (out_64, dx_64, grads_64) = plain, chain_float64(
+        p, x, g, [50.0, 30.0, 30.0, 30.0])
+    rel = {"out": _over_max(out, out_64), "dx": _over_max(dx, dx_64)}
+    for i, (a, b) in enumerate(zip(grads, grads_64)):
+        rel.update({f"{i}.{k}": _over_max(a[k], b[k]) for k in ("w", "b")})
+    assert max(rel.values()) <= 1e-5, rel

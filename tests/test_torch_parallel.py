@@ -11,7 +11,12 @@ imports JAX inside the tests only, so the ranks import no JAX.
 Tolerances against JAX (float32 products on both sides, one init copied
 from the JAX package): logged PSNRs within 0.05 dB and final params within
 1e-3 of each leaf's largest magnitude, as tests/test_torch_batched.py; a
-render within 1e-5. Against the port's single fit: bit for bit.
+render within 1e-5. Against the port's single fit: bit for bit, but where
+every rank takes the whole image's loss (ms-ssim, the full-grid
+wavelet-SIREN, whose DWT lattices' rows split over the ranks): there the
+gradients add over the ranks in another order than the single fit's
+backward, so PSNRs within 1e-4 dB and params within 1e-5 of each leaf's
+largest magnitude, masks equal.
 """
 import dataclasses
 import hashlib
@@ -37,11 +42,14 @@ HASHGRID = ("hashgrid", dict(n_levels=4, log2_table_size=6, base_resolution=4,
                              finest_resolution=24, depth=2, hidden_size=8))
 RENDER = {"siren": ("siren", dict(depth=3, hidden_size=16)),
           "coordx": ("coordx", dict(depth=4, hidden_size=16, split_depth=2))}
-# (model, side, steps, lr, train options) of the JAX-parity fits
+# (model, side, steps, lr, train options) of the JAX-parity fits; the
+# wavelet-SIREN's 18-row DWT lattices split 4, 5, 4, 5 over 4 ranks
+WAVELET = ("wavelet_siren", dict(height=32, width=32, depth=3, hidden_size=16))
 PARITY = {"siren": (SIREN, 32, 60, 1e-3, {}), "coordx": (COORDX, 16, 20, 1e-3, {}),
           "hashgrid": (HASHGRID, 16, 20, 1e-2, {}),
           "ms-ssim": (("siren", dict(depth=3, hidden_size=16)), 32, 30, 1e-3,
-                      {"loss": "ms-ssim"})}
+                      {"loss": "ms-ssim"}),
+          "wavelet": (WAVELET, 32, 30, 1e-3, {})}
 RIGL = MaskingConfig(density=0.5, end_when=20, interval=5)
 SNFS = MaskingConfig(name="SNFS", growth_mode="momentum", redistribution_mode="momentum",
                      density=0.5, end_when=20, interval=5)
@@ -91,7 +99,7 @@ def _parity_fit(mesh, name, init, **kw):
     init = params_from_jax(init, "cpu")
     res = sharded_fit(torch.Generator().manual_seed(0), mesh, *args, init_params=init)
     out = _state(res)
-    if name == "ms-ssim" and mesh.pixel.rank == 0:
+    if name in ("ms-ssim", "wavelet") and mesh.pixel.rank == 0:
         out["single"] = _state(fit(torch.Generator().manual_seed(0), *args, init_params=init))
     return out
 
@@ -157,9 +165,38 @@ def _pixel4(rank, inits, renders, tmp):
     errs["indivisible"] = _raises(lambda: make_sharded_fit_fn(
         mesh, mdef, mcfg, get_grid(30, 30), tc5, OptimConfig()))
     wdef, wcfg = build_model("wavelet_siren", height=16, width=16, depth=4, hidden_size=16)
-    errs["wavelet"] = _raises(lambda: make_sharded_fit_fn(
-        mesh, wdef, wcfg, get_grid(16, 16), tc5, OptimConfig()))
+    w30def, w30cfg = build_model("wavelet_siren", height=30, width=30, depth=4, hidden_size=16)
+    errs["wavelet_indivisible"] = _raises(lambda: make_sharded_fit_fn(
+        mesh, w30def, w30cfg, get_grid(30, 30), tc5, OptimConfig()))
+    errs["wavelet_chunks"] = _raises(lambda: make_sharded_fit_fn(
+        mesh, wdef, wcfg, get_grid(16, 16), _tc(5, 5, pixel_chunks=2), OptimConfig())(
+            torch.Generator().manual_seed(0), synthetic_image(16, 16, seed=0)))
+    wparams = wdef.init(torch.Generator().manual_seed(0), wcfg)
+    errs["wavelet_window"] = _raises(lambda: sharded_render(mesh, wdef, wcfg, wparams, 16, 16,
+                                                            roi=(0, 8, 0, 16)))
     out["errors"] = errs
+    # the wavelet-SIREN's render over 4 ranks, each its share of the lattices
+    out["wavelet_render"] = (sharded_render(mesh, wdef, wcfg, wparams, 16, 16),
+                             wdef.apply(wparams, get_grid(16, 16), wcfg, "fp32"))
+    # its member axis with the lattices over the pixel ranks (the 2-member
+    # batched fit, RigL), and its codebook finetune over them, against the
+    # runs without a group on rank 0
+    from implicit_image_tpu_torch.parallel import batched_fit
+
+    wimgs = np.stack([synthetic_image(16, 16, seed=s) for s in (0, 1)])
+    wtc, wmk = _tc(10, 5), MaskingConfig(density=0.5, end_when=8, interval=4)
+    wb = batched_fit(torch.Generator().manual_seed(2), wdef, wcfg, get_grid(16, 16), wimgs,
+                     wtc, OptimConfig(lr=1e-3), wmk, device="cpu", mesh=mesh)
+    wq = quant_finetune(wparams, wimgs[0], wdef, wcfg, get_grid(16, 16),
+                        QuantConfig(bits=4, num_steps=4), OptimConfig(lr=1e-3),
+                        pixel_group=mesh.pixel)
+    out["wavelet_members"] = {"sharded": (_state(wb), wq.params, wq.metrics)}
+    if rank == 0:
+        wb1 = batched_fit(torch.Generator().manual_seed(2), wdef, wcfg, get_grid(16, 16), wimgs,
+                          wtc, OptimConfig(lr=1e-3), wmk, device="cpu")
+        wq1 = quant_finetune(wparams, wimgs[0], wdef, wcfg, get_grid(16, 16),
+                             QuantConfig(bits=4, num_steps=4), OptimConfig(lr=1e-3))
+        out["wavelet_members"]["single"] = (_state(wb1), wq1.params, wq1.metrics)
 
     # renders: the whole lattice, a window, and a window whose rows do not split
     out["renders"] = {}
@@ -368,14 +405,15 @@ def test_make_mesh_needs_a_process_group():
         make_mesh(1, 1, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["siren", "coordx", "hashgrid", "ms-ssim"])
+@pytest.mark.parametrize("name", ["siren", "coordx", "hashgrid", "ms-ssim", "wavelet"])
 def test_sharded_fit_matches_jax(pixel4, jax_inits, name):
     """The JAX package's test_sharded_fit_matches_unsharded,
     test_coordx_batched_and_sharded and test_hashgrid_batched_and_sharded
-    (the sharded half), and train.loss=ms-ssim, which JAX's GSPMD also runs
-    with the rows sharded: the port's fit over 4 pixel ranks against JAX's
-    sharded fit over 4 devices and JAX's single fit, from one init; every
-    rank holds the same result."""
+    (the sharded half), and train.loss=ms-ssim and the full-grid
+    wavelet-SIREN at 32², which JAX's GSPMD also runs with the rows sharded:
+    the port's fit over 4 pixel ranks against JAX's sharded fit over 4
+    devices and JAX's single fit, from one init; every rank holds the same
+    result."""
     from implicit_image_tpu.data import get_grid as jgrid
     from implicit_image_tpu.models import build_model as jbuild
     from implicit_image_tpu.training.fit import OptimConfig as JOptim
@@ -435,14 +473,69 @@ def test_sharded_fit_over_4_ranks_is_the_chunked_single_fit(pixel4, key):
 
 
 def test_sharded_fit_rejects_indivisible_and_full_grid(pixel4):
-    """ValueError before any work: rows not divisible by the pixel axis (the
-    JAX package asserts), and the full-grid wavelet-SIREN, which needs the
-    whole lattice on every rank (JAX's GSPMD runs it)."""
+    """Only what the JAX package refuses raises ValueError before any step:
+    image rows not divisible by the pixel axis (JAX asserts it), for the
+    full-grid wavelet-SIREN too; pixel chunks on the full-grid model (JAX
+    asserts N == H·W); and a window of the full-grid model's render (JAX's
+    forward asserts the configured grid). The wavelet-SIREN itself fits and
+    renders over the pixel ranks (the tests below)."""
     results, _ = pixel4
     for r in results:
         e = r["errors"]
         assert "H=30 not divisible by pixel axis 4" in e["indivisible"]
-        assert "wavelet_siren" in e["wavelet"] and "pixel axis of 4 needs 1" in e["wavelet"]
+        assert "H=30 not divisible by pixel axis 4" in e["wavelet_indivisible"]
+        assert "wavelet_siren" in e["wavelet_chunks"] and "pixel_chunks=2 needs 1" in (
+            e["wavelet_chunks"])
+        assert "renders its full grid only" in e["wavelet_window"]
+
+
+def test_sharded_wavelet_fit_is_the_single_fit(pixel4):
+    """The full-grid wavelet-SIREN over 4 pixel ranks (its 18-row lattices in
+    shares of 4, 5, 4, 5 rows, gathered; the whole image's loss on every
+    rank, the gradients added in rank order): the port's single fit up to
+    that sum's order (PSNR within 1e-4 dB, params within 1e-5 of each
+    leaf's largest magnitude), every rank the same."""
+    results, _ = pixel4
+    ours, single = results[0]["wavelet"], results[0]["wavelet"]["single"]
+    for r in results[1:]:
+        _equal(r["wavelet"], {k: v for k, v in ours.items() if k != "single"}, "wavelet")
+    logged = ~np.isnan(single["psnr"])
+    np.testing.assert_allclose(ours["psnr"][logged], single["psnr"][logged], atol=1e-4)
+    for a, b in zip(ours["params"], single["params"]):
+        for k in a:
+            assert float((a[k] - b[k]).abs().max()) <= 1e-5 * float(b[k].abs().max()), k
+
+
+def test_wavelet_members_and_finetune_over_pixel_ranks(pixel4):
+    """The wavelet-SIREN's batched fit (2 members, RigL) on a 1 x 4 mesh, each
+    member's DWT lattices over the pixel ranks, and its codebook finetune
+    over the pixel group: the runs without a group up to the order of the
+    gradients' sum over the ranks (params within 1e-5 of each leaf's largest
+    magnitude, PSNRs within 1e-4 dB, masks equal), every rank the same."""
+    results, _ = pixel4
+    (fit_s, q_params, q_metrics) = results[0]["wavelet_members"]["sharded"]
+    (fit_1, q_params1, q_metrics1) = results[0]["wavelet_members"]["single"]
+    for r in results[1:]:
+        _equal(r["wavelet_members"]["sharded"], results[0]["wavelet_members"]["sharded"])
+    for a, b in list(zip(fit_s["params"], fit_1["params"])) + list(zip(q_params, q_params1)):
+        for k in b:
+            assert float((a[k] - b[k]).abs().max()) <= 1e-5 * float(b[k].abs().max()), k
+    for a, b in zip(fit_s["masks"], fit_1["masks"]):
+        if b is not None:
+            assert torch.equal(a, b)
+    logged = ~np.isnan(fit_1["psnr"])
+    np.testing.assert_allclose(fit_s["psnr"][logged], fit_1["psnr"][logged], atol=1e-4)
+    assert abs(float(q_metrics["quant_psnr"]) - float(q_metrics1["quant_psnr"])) <= 1e-4
+
+
+def test_sharded_wavelet_render_is_the_single_render(pixel4):
+    """sharded_render of the wavelet-SIREN over 4 ranks (each its share of
+    the DWT lattices' rows): the single render bit for bit, on every rank."""
+    results, _ = pixel4
+    full, single = results[0]["wavelet_render"]
+    assert torch.equal(full, single)
+    for r in results[1:]:
+        _equal(r["wavelet_render"][0], full)
 
 
 @pytest.mark.parametrize("name", sorted(RENDER))

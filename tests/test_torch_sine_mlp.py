@@ -194,10 +194,18 @@ def test_kernel_width_pads_to_the_next_kernel_width(h, want):
     assert sm.KERNEL_TILE_ROWS[want] * want <= 128 * 128  # one activation tile, 64 KB
 
 
-@pytest.mark.parametrize("h", [0, 513, 576])
+@pytest.mark.parametrize("h", [0, -1, -576])
 def test_kernel_width_outside_the_kernels_raises(h):
-    with pytest.raises(NotImplementedError, match="129-192 at 192.*257-512 at 512"):
+    """Only a width below 1 has no kernel: every width above 512 runs on the
+    layer-wise kernels (tests/test_torch_layer_kernels.py)."""
+    with pytest.raises(NotImplementedError, match="129-192 at 192.*257-512 at 512.*above 512"):
         sm.kernel_width(h)
+
+
+@pytest.mark.parametrize("h,want", [(513, 640), (576, 640), (640, 640), (641, 768),
+                                    (1024, 1024), (2048, 2048)])
+def test_kernel_width_above_512_pads_to_a_multiple_of_128(h, want):
+    assert sm.kernel_width(h) == want
 
 
 # ------------------------------------------- split-precision product design
