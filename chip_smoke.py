@@ -796,15 +796,25 @@ def phase_build() -> float:
                 raise AssertionError(f"the {what} spills: {name} {row}")
     # the layer-wise kernels (widths above 512): 12 forward instantiations (4
     # modes x first, hidden, last), 20 backward (4 modes x last and hidden,
-    # each with and without dW_0, and first), 2 dW (fp32, bf16); none spills
+    # each with and without dW_0, and first), 4 dW (4 modes); none spills.
+    # The wgmma ones (the hidden forward, kind 1, and dW; warpgroups apart,
+    # setmaxnreg) each printed with their registers and spills
     rows = {n: r for n, r in table.items() if n.startswith("void") and "sine_mlp_layer_" in n}
     spilling = {n: r for n, r in rows.items() if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
     regs = sorted(r.get("registers", 0) for r in rows.values())
     print(f"[2 build] {len(rows)} layer-wise kernel instantiations, {regs[0] if regs else 0}-"
           f"{regs[-1] if regs else 0} registers, {len(spilling)} spilling", flush=True)
-    if table and (len(rows) != 34 or spilling):
-        raise AssertionError(f"layer-wise kernels: {len(rows)} instantiations (expected 34), "
-                             f"spilling {spilling}")
+    wg_rows = {n: r for n, r in rows.items()
+               if "sine_mlp_layer_dw_kernel<" in n or (
+                   "sine_mlp_layer_fwd_kernel<" in n
+                   and n.split("sine_mlp_layer_fwd_kernel<")[1].split(">")[0].endswith("1"))}
+    for name, row in wg_rows.items():
+        print(f"[2 build] layer-wise wgmma: {row.get('registers')} registers, "
+              f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B spill "
+              f"loads: {name[:120]}", flush=True)
+    if table and (len(rows) != 36 or len(wg_rows) != 8 or spilling):
+        raise AssertionError(f"layer-wise kernels: {len(rows)} instantiations (expected 36), "
+                             f"{len(wg_rows)} on wgmma (expected 8), spilling {spilling}")
     # K1 and K2 over a member axis are template instantiations (last argument
     # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
     # spill no more than its single launch. The forward and backward have
@@ -1660,6 +1670,7 @@ def phase_layer_kernels(width: int) -> dict:
               f"in turns {statistics.median(fs):.3f}), K2 {bb_ms:.3f} (single "
               f"{statistics.median(bs):.3f})", flush=True)
         if prec == "fp32":
+            _layer_k2_split(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec), tag, width, n)
             records["sine_mlp_layer_fwd"] = (fwd_err, fwd_ms, fwd_plain, None)
             records["sine_mlp_layer_bwd"] = (bwd_abs, bwd_ms, bwd_plain, None)
             batched = {
@@ -1715,7 +1726,39 @@ def phase_layer_kernels(width: int) -> dict:
         raise AssertionError(f"{tag} sine_mlp_layer_dw: err {dw_err}, same bits {dw_same}")
     records["sine_mlp_layer_dw"] = (dw_err, dw_ms, dw_plain, lib_ms)
     batched["sine_mlp_layer_dw_batched"] = (dw_err, dwb_ms, LAYER_MEMBERS * dw_plain, lib_ms)
-    del a, gz, ab, gzb, part, part_b, runs, plain_dw
+    del gz, ab, gzb, part, part_b, runs, plain_dw
+
+    # one hidden layer of K1 alone (sine_mlp_layer_fwd, kind hidden) on the
+    # chain's own a_0 and W_1, zero-padded: z and a_1 against its plain
+    # version (LAYER_TOL), twice for bits; in turns with one fp32 torch.mm(a,
+    # W) of its product from CUDA graphs (W's planes made once, outside)
+    omega = sm._omegas(mcfg, DEPTH)[1]
+    w1 = F.pad(params[1]["w"].float(), (0, kw - width, 0, kw - width)).contiguous()
+    b1 = F.pad(params[1]["b"].float(), (0, kw - width)).contiguous()
+    z_k, a_k = sm.sine_mlp_layer_fwd(a, w1, b1, omega, prec, stash=True)
+    again = sm.sine_mlp_layer_fwd(a, w1, b1, omega, prec, stash=True)
+    z_p, a_p = sm.layer_fwd_reference(a, w1, b1, omega, prec)
+    torch.cuda.synchronize()
+    lf_err = max(float((z_k - z_p).abs().max()), float((a_k - a_p).abs().max()))
+    lf_same = torch.equal(z_k, again[0]) and torch.equal(a_k, again[1])
+    del z_k, a_k, again, z_p, a_p
+    planes = sm._layer_planes(w1[None], False, False)[0]
+    lf_r, mm_r = _graph_interleaved_ms([lambda: sm.sine_mlp_layer_fwd(a, planes, b1, omega, prec),
+                                        lambda: torch.mm(a, w1)], rounds=3, reps=3)
+    lf_ms, mm_ms = statistics.median(lf_r), statistics.median(mm_r)
+    lf_plain = _time_ms(lambda: sm.layer_fwd_reference(a, w1, b1, omega, prec), 2)
+    lf_bound = dw_bound["bound_ms"]  # the same product: 2 n h^2 FLOP, 3 TF32 passes
+    print(f"{tag} one hidden sine_mlp_layer_fwd (a_0 W_1, {slices} slices) vs its plain "
+          f"version: max abs err {lf_err:.3e} (tol {LAYER_TOL[prec][0]:g}), "
+          f"{'the same bits twice' if lf_same else 'BITS DIFFER'}; in turns from CUDA graphs, "
+          f"ms: kernel {' '.join(f'{t:.4f}' for t in lf_r)} (median {lf_ms:.4f} = "
+          f"{lf_bound / lf_ms:.1%} of the {lf_bound:.4f} ms bound), one fp32 torch.mm(a, W) "
+          f"{' '.join(f'{t:.4f}' for t in mm_r)} (median {mm_ms:.4f}); plain {lf_plain:.3f}",
+          flush=True)
+    if not (lf_err <= LAYER_TOL[prec][0] and lf_same):
+        raise AssertionError(f"{tag} one hidden sine_mlp_layer_fwd: err {lf_err}, same bits "
+                             f"{lf_same}")
+    del a, w1, b1, planes
 
     # the backward's partial buffer against its plain mirror, and sum_partials'
     # order over it (at the first width: the mirror holds every layer's
@@ -1736,6 +1779,41 @@ def phase_layer_kernels(width: int) -> dict:
     del part, mirror, used
     torch.cuda.empty_cache()
     return _layer_records(records, batched, bounds, padded, dw_bound, layers)
+
+
+def _layer_k2_split(k2, tag: str, width: int, n: int) -> dict:
+    """One layer-wise K2 call (k2) under torch.profiler: each kernel's device
+    ms and launches (profile_fit.trace_breakdown's rows), so that
+    sine_mlp_layer_bwd_kernel has a time of its own beside its bound: its
+    gz·Wᵀ products (3 TF32 passes of 2 n h² a hidden layer) and its FMA
+    (g·Wᵀ and dW of the last layer, dW_0 and dx: 2 n h (2 out + 2 in))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from implicit_image_tpu_torch import profile_fit
+
+    k2()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        k2()
+        torch.cuda.synchronize()
+    trace = Path(f"outputs/chip_smoke_p3_w{width}_k2.trace.json")
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    rows = profile_fit.trace_breakdown(trace, 1)["rows"]
+    split = {}
+    for row in rows:
+        key = next((k for k in ("sine_mlp_layer_fwd_kernel", "sine_mlp_layer_bwd_kernel",
+                                "sine_mlp_layer_dw_kernel", "sum_partials_kernel")
+                    if k in row["name"]), "other")
+        ms, count = split.get(key, (0.0, 0))
+        split[key] = (ms + row["ms"], count + row["count"])
+    bwd_ops = ((DEPTH - 2) * 3 * 2 * n * width * width / TF32_FLOP_PER_S
+               + 2 * n * width * (2 * 3 + 2 * 2) / FP32_FLOP_PER_S) * 1e3
+    print(f"{tag} fp32 K2's kernels (one call under torch.profiler, device ms / launches): "
+          + "; ".join(f"{k} {ms:.3f} / {c}" for k, (ms, c) in split.items())
+          + f"; sine_mlp_layer_bwd_kernel's bound {bwd_ops:.3f} ms (operations)", flush=True)
+    return split
 
 
 def _layer_records(records, batched, bounds, padded, dw_bound, layers) -> dict:

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels of sine_mlp.cu (the
-// width-128 forward and backward, the width-192 backward) and of
-// tools/mma_rate.cu, which checks them on the card: mbarriers, bulk copies
-// and bulk reduce-adds (the TMA unit, no tensor map), proxy fences, named
-// barriers, and bf16 wgmma with A from registers or shared memory and B
-// from shared memory.
+// width-128 forward and backward, the width-192 backward, the layer-wise
+// hidden forward and dW) and of tools/mma_rate.cu, which checks them on the
+// card: mbarriers, bulk copies and bulk reduce-adds (the TMA unit), tensor
+// copies (a tensor map's box), proxy fences, named barriers, register
+// reallocation between warpgroups, and bf16 wgmma with A from registers or
+// shared memory and B from shared memory.
 //
 // Shared-memory operands of wgmma here use no swizzle: an operand is made of
 // core matrices, 8 rows of 16 bytes (8 bf16) stored as 128 contiguous bytes.
@@ -71,6 +72,27 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
       : "memory");
 }
 
+// The box of a tiled tensor map (cuTensorMapEncodeTiled, three dimensions,
+// the map a __grid_constant__ kernel parameter) at coordinates {c0, c1, c2}
+// (innermost first) from global to shared memory; completes on `bar`'s
+// transaction count with the box's bytes (elements outside the tensor read
+// as zeros).
+__device__ __forceinline__ void tensor_g2s(void* dst, const void* map, int c0, int c1, int c2,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Byte offset of float c (0-31) of row r in a box of 32-float (128-byte)
+// rows as a tensor copy with 128-byte swizzle lays it out (the box 1024-byte
+// aligned): the row's 16-byte chunks turned by r % 8.
+__device__ __forceinline__ int swz128(int r, int c) {
+  return r * 128 + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
 // dst[i] += src[i] over bytes / 4 floats, done by the memory system; one bulk
 // async-group of the issuing thread until bulk_commit.
 __device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src, uint32_t bytes) {
@@ -131,6 +153,21 @@ __device__ __forceinline__ void fence_async_global() {
 // Named barrier `id` (1-15) over `count` threads, whole warps.
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------------------- registers
+
+// The executing warpgroup's registers a thread, raised to or lowered to N
+// (a multiple of 8 in 24-256; all four warps execute it). A kernel that
+// splits its warpgroups into roles calls one of them at the top of each
+// role's branch, and the branches never rejoin.
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ------------------------------------------------------------------ wgmma

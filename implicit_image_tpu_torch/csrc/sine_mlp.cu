@@ -137,6 +137,7 @@
 // width W and their C launcher; without, the width-128 kernels,
 // sum_partials and the C interface, which calls those launchers.
 
+#include <cuda.h>  // the tensor-map types (the encoder comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -2708,7 +2709,11 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 //   a layer, after the layer's kLwHidden, so two G buffers serve every
 //   layer), each split's sums into its partial slice.
 // - sum_partials, unchanged.
-// Products: mma.sync m16n8k8 3xTF32 in the fp32 mode, one pass in bf16
+// Products: the hidden forward and dW on bf16 wgmma, fp32 as three bf16
+// planes per operand and six passes, fed by bulk copies through mbarrier
+// rings and one producer warp, the consumers' warpgroups apart from it
+// (their design: "the layer-wise products on wgmma" below); the backward's
+// ga = G W^T on mma.sync m16n8k8 3xTF32 in the fp32 mode, one pass in bf16
 // (warp_mma_k, the wider kernels' code: 8 warps of 32 x 64 cover a 128 x
 // 128 block tile, K streamed by cp.async in 32-deep chunks through a 4-slot
 // ring). Grid: the rows' 128-row tiles split into S contiguous slices
@@ -2730,12 +2735,14 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // not drift with the width. The fp32 mode is checked against the plain chain
 // at 576, 640, 1024, 2048 and 4096 (tests/test_torch_kernels.py,
 // chip_smoke.py phase 3, tools/grad_check.py); wider widths run unchecked.
-// Not taken here, for later speed work: the fused chain over a cluster of
-// 2-4 blocks that split a tile's columns and read each other's activations
-// through distributed shared memory. It would keep the activations on chip
-// and drop the z stash, but it needs a cluster-wide barrier per layer and a
-// tile design per cluster size, where this PR needed one kernel right at
-// every width first.
+// Not taken, for later speed work: the backward's ga = G W^T on wgmma; the
+// fused chain over a cluster of 2-4 blocks that split a tile's columns and
+// read each other's activations through distributed shared memory (it would
+// keep the activations on chip and drop the z stash, but needs a
+// cluster-wide barrier per layer and a tile design per cluster size); and
+// multicast of the shared operand to a cluster's blocks (W's planes to the
+// blocks of one column tile, A's rows to those of one dW row tile), which
+// would cut the L2 re-reads that the 128 x 128 tiles leave.
 constexpr int LW_T = 128;    // pixel rows of a block tile
 constexpr int LW_N = 128;    // columns of a block tile: the kernel width is a multiple
 constexpr int LW_KC = 32;    // K of a ring chunk
@@ -2761,7 +2768,8 @@ enum LwKind { kLwFirst = 0, kLwHidden = 1, kLwLast = 2 };
 struct LayerArgs {
   const float* src;  // fwd: the layer's input rows (x, a_{l-1}, a_L); bwd kLwLast: g; dW: A_l
   const float* g;    // bwd kLwHidden: G_l (the product's A); kLwFirst: G_0; dW: G_l
-  const float* w;    // W_0 (in, H); W_l (fwd) or W_l^T (bwd) (H, H); W_{D-1} (H, out)
+  const float* w;    // W_0 (in, H); W_l's planes (fwd kLwHidden: bf16, ops/sine_mlp.
+                     // layer_weight_planes) or W_l^T (bwd) (H, H); W_{D-1} (H, out)
   const float* b;    // fwd: the layer's bias
   float* dst;        // fwd: a_l (n, H) or out (n, out), null: not stored; bwd: G (n, H) or dx (n, in)
   float* z;          // fwd: z_l's stash (n, H) or null; bwd: the z below (kLwHidden: A_l written over it)
@@ -3133,27 +3141,372 @@ __device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, con
   __syncthreads();
 }
 
-// Shared memory: the ring, the input tile (kLwFirst); kLwLast needs none.
-constexpr size_t kLwFwdSmem =
-    sizeof(float) * (LW_NST * LwRing::SLICE + LW_T * MAX_IO) + LW_NST * sizeof(uint64_t);
+// Shared memory of the forward's first layer: its input tile (kLwHidden's
+// is kLfSmem; kLwLast needs none).
+constexpr size_t kLwFwdSmem = sizeof(float) * LW_T * MAX_IO;
 // The ring, the input and cotangent tiles, the column sums.
 constexpr size_t kLwBwdSmem =
     sizeof(float) * (LW_NST * LwRing::SLICE + 2 * LW_T * MAX_IO + LW_SLOTS * 4 * LW_N) +
     LW_NST * sizeof(uint64_t);
-// The ring, each thread's running dW total (LW_THREADS x 64 floats), the ring's mbarriers.
-constexpr size_t kLwDwSmem =
-    sizeof(float) * (LW_NST * LwRing::SLICE + LW_THREADS * 64) + LW_NST * sizeof(uint64_t);
-static_assert(kLwBwdSmem <= 232448 && kLwFwdSmem <= kLwBwdSmem && kLwDwSmem <= 232448,
-              "the layer kernels' shared memory");
-// dW's chunks summed from zero in the accumulators before they are added to
-// the running total in shared memory: LW_DW_GROUP x LW_KC = 1,024 rows. One
-// accumulator over a whole split (16,384 rows at 512², w1024) read 1.5e-4 of
-// max |dW| against the plain chain in float64, growing with the split's
-// rows; the plain fp32 chain reads 5e-6 (H100, 700 W).
+static_assert(kLwBwdSmem <= 232448 && kLwFwdSmem <= kLwBwdSmem, "the layer kernels' shared memory");
+// dW's rows summed from zero in the accumulators before they are added to
+// the running total: LW_DW_GROUP x 32 = 1,024 rows. One accumulator over a
+// whole split (16,384 rows at 512², w1024) read 1.5e-4 of max |dW| against
+// the plain chain in float64, growing with the split's rows; the plain fp32
+// chain reads 5e-6 (H100, 700 W).
 constexpr int LW_DW_GROUP = 32;
+
+// ------------------------------------ the layer-wise products on wgmma
+//
+// sine_mlp_layer_fwd's kLwHidden and sine_mlp_layer_dw. Feeding warps and
+// two consuming warpgroups: one thread stages the operands' fp32 rows by
+// tensor copies (the TMA: a box of a tensor map a request, 128-byte
+// swizzle) and, in the forward, W's planes by a bulk copy, through an
+// mbarrier ring; in dW two feeding warpgroups split each staged chunk of G
+// into bf16 planes. The consumers, 64 rows each of the block's 128 x 128
+// tile, load their A fragments of a k-step from the staged fp32 rows, split
+// them into planes in registers between commits, and issue bf16 wgmma
+// m64n128k16 with A from registers, B from shared memory (N-major) and
+// fp32 accumulators. fp32 is three bf16 planes per operand and the six
+// passes of the header note (wg_passes), an operand that is a bf16 value
+// already one plane (BwPlanes: the bf16 mode, and W and the activations
+// under MX). The roles split once, at the top, and never rejoin: setmaxnreg
+// gives the feeders' registers to the consumers (each holds a group's
+// accumulator and the running total, 128 floats), and no barrier of the
+// block runs after the split: the warpgroups meet only at the rings'
+// mbarriers. Bound at 512², w640 / w1024 (d8, fp32: 6 passes at 989
+// TFLOP/s): 1.30 / 3.33 ms a hidden layer, each kernel; their traffic (A
+// and W's planes re-read per tile from L2, 8.4 GB a layer at 640 in the
+// forward, 6.7 GB in dW) is what their tiles cannot shrink: a block's 128 x
+// 128 tile is the most the consumers' registers hold, and a wider tile
+// would not divide every multiple of 128.
+
+// The warp is done with a stage or slot: its lane 0 arrives on `bar`, an
+// mbarrier of the consumers' 8 warps.
+__device__ __forceinline__ void lwg_release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) iit::mbar_arrive(bar);
+}
+
+// A consumer warpgroup's product over one staged chunk of K = 32 (two
+// k-steps): d (+)= A B, A's fragments of k-step kk from frag(kk, a), B's
+// planes at shared address b0 + kk 4096 (planes `plane` bytes apart;
+// core matrix (kg, ng) of a plane at (kg 16 + ng) 128 bytes, so kLbo and
+// kSbo). FIRST: d starts from zero. One group of wgmma stays in flight
+// behind the next issue: before k-step 0's operands are used, the previous
+// chunk's k-step 1 (`held`, its slot's empty barrier, or null) is waited for
+// and its slot released; on return k-step 0 is done and k-step 1 in flight
+// (held = this chunk's slot), or, END, both done, the slot released and
+// done(d) called (the group's sum into the total: d is read only there,
+// behind the wait, or ptxas serializes the products with waits of its own).
+template <int PA, int PB, class Frag, class Done>
+__device__ __forceinline__ void lwg_chunk(float (&d)[64], uint32_t (&a0)[PA][1][4],
+                                          uint32_t (&a1)[PA][1][4], Frag frag, Done done,
+                                          uint32_t b0, uint32_t plane, bool first, bool end,
+                                          uint64_t*& held, uint64_t* empty) {
+  frag(0, a0);
+  iit::wg_fence();
+  wg_passes<PA, PB, 1, 1>(d, a0, 0, b0, plane, first);
+  iit::wg_commit();
+  iit::wg_wait<1>();
+  fence_planes(a1);
+  if (held != nullptr) lwg_release(held);
+  frag(1, a1);
+  iit::wg_fence();
+  wg_passes<PA, PB, 1, 1>(d, a1, 0, b0 + 4096, plane, false);
+  iit::wg_commit();
+  if (end) {
+    iit::wg_wait<0>();
+    iit::fence_regs(d);
+    fence_planes(a0);
+    fence_planes(a1);
+    lwg_release(empty);
+    held = nullptr;
+    done(d);
+  } else {
+    iit::wg_wait<1>();
+    fence_planes(a0);
+    held = empty;
+  }
+}
+
+// -------- sine_mlp_layer_fwd, kLwHidden: z_l = a_{l-1} W_l + b_l on wgmma
+//
+// Block (s, c) of tile_grid walks slice s's row tiles and, for each, K = H
+// of the activations a_{l-1} (n, H) against W's column tile c, in stages of
+// LF_KC: the activations' 128 rows x 32 fp32, one tensor copy of a box (a
+// tensor map of a_{l-1}, 128-byte swizzle, rows from n on zeros) and W's
+// chunk, its planes of 32 x 128 bf16 as ops/sine_mlp.layer_weight_planes
+// packs them once per launch (one bulk copy), both issued by one thread
+// (a bulk copy a row, or cp.async from the feeding warpgroup, held the
+// layer to its copies: PERF.md §6). A consumer loads its 64 rows'
+// fragments of a k-step from the stage, splits them into planes in
+// registers and issues the k-step's passes. K is
+// summed in groups of 128 (LW_K_GROUP, LF_GROUP stages) from zero in `grp`,
+// each added into `tot` by fp32 adds in order. The epilogue (z = tot + b,
+// the stash, a = rnd(sin(omega z))) of one warpgroup runs while the other's
+// products are in flight: only the ring joins them, and its LF_NS stages
+// (one K group) let one run a group ahead.
+constexpr int LF_KC = 32;                             // K of a stage: two k-steps
+constexpr int LF_NS = 5;                              // stages
+constexpr int LF_GROUP = LW_K_GROUP * LW_KC / LF_KC;  // stages of a K group of 128
+constexpr uint32_t LF_PLANE = LF_KC * LW_N * 2;  // bytes of one plane of W's chunk
+constexpr size_t kLfW = (size_t)LW_T * LF_KC * 4;  // W's planes in a stage, after the activations
+constexpr size_t kLfStage = kLfW + 3 * (size_t)LF_PLANE;
+constexpr size_t kLfBar = LF_NS * kLfStage;  // full[LF_NS], then empty[LF_NS]
+// + 1 KB: the stages start at the first 1024-byte boundary (the swizzled box)
+constexpr size_t kLfSmem = kLfBar + 2 * LF_NS * sizeof(uint64_t) + 1024;
+static_assert(kLfW % 1024 == 0 && kLfStage % 1024 == 0 && kLfSmem + sizeof(LayerArgs) <= 232448,
+              "the hidden forward's shared memory");
+static_assert(LW_N % LF_KC == 0 && LF_KC == 32, "a stage is two k-steps; a width holds whole stages");
+constexpr int LF_THREADS = 384;  // a feeding warpgroup, two consuming
+constexpr int LF_FEED_REGS = 40, LF_CONS_REGS = 232;  // 128 x 40 + 256 x 232 <= 65,536
+
+// The A fragments of k-step kk of a stage's activations (the swizzled box)
+// for the thread's tile rows r, r + 8, split into NP planes: a[j] = A(r + 8
+// (j & 1), 16 kk + 2 t + 8 (j >> 1) + {0, 1}).
+template <int NP>
+__device__ __forceinline__ void lf_frags(const uint8_t* __restrict__ a_s, int r, int kk, int t,
+                                         uint32_t (&a)[NP][1][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = *reinterpret_cast<const float2*>(
+        a_s + iit::swz128(r + 8 * (j & 1), 16 * kk + 2 * t + 8 * (j >> 1)));
+    uint32_t pl[NP];
+    iit::split_planes<NP>(v.x, v.y, pl);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) a[i][0][j] = pl[i];
+  }
+}
+
+// z = tot + b at the warpgroup's rows row0 .. (below n) and the block's
+// columns n0 ..: z into the stash (p.z), a = rnd(sin(omega z)) into p.dst,
+// where they are given.
+template <bool BF16, bool MX>
+__device__ __forceinline__ void lf_epilogue(const float (&tot)[64], const LayerArgs& p, int n0,
+                                            long long row0, const WgPos& pos) {
+  const long long h = p.hidden;
+  const float omega = p.omega;
+  float* z_out = p.z;
+  float* a_out = p.dst;
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni) {
+    const int c = n0 + pos.col(ni);
+    const float2 b = __ldg(reinterpret_cast<const float2*>(p.b + c));
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long row = row0 + pos.row(hh);
+      if (row >= p.n) continue;
+      const float z0 = tot[4 * ni + 2 * hh] + b.x, z1 = tot[4 * ni + 2 * hh + 1] + b.y;
+      const long long o = row * h + c;
+      if (z_out != nullptr) __stcs(reinterpret_cast<float2*>(z_out + o), make_float2(z0, z1));
+      if (a_out != nullptr)
+        *reinterpret_cast<float2*>(a_out + o) =
+            make_float2(rnd_act<BF16, MX>(iit::fast_sin(omega * z0)),
+                        rnd_act<BF16, MX>(iit::fast_sin(omega * z1)));
+    }
+  }
+}
+
+template <bool BF16, bool MX>
+__device__ __forceinline__ void lf_hidden(const LayerArgs& p, const CUtensorMap* tm, uint8_t* smem,
+                                          int tid) {
+  using P = BwPlanes<BF16, MX>;
+  smem += (1024 - iit::smem_u32(smem) % 1024) % 1024;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kLfBar);
+  uint64_t* empty = full + LF_NS;
+  if (tid == 0) {
+    for (int i = 0; i < LF_NS; ++i) {
+      iit::mbar_init(full + i, 1);
+      iit::mbar_init(empty + i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const LwTiles tl(p);
+  const int kcs = p.hidden / LF_KC;
+  if (tid < 128) {  // the feeding warpgroup: its thread 0 streams the stages
+    iit::reg_dealloc<LF_FEED_REGS>();
+    if (tid != 0) return;
+    const __nv_bfloat16* wp = reinterpret_cast<const __nv_bfloat16*>(p.w) +
+                              (size_t)(tl.n0 / LW_N) * kcs * P::W * (LF_KC * LW_N);
+    const int member = p.src_m != 0 ? (int)blockIdx.y : 0;
+    uint32_t q = 0;
+    for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+      for (int kc = 0; kc < kcs; ++kc, ++q) {
+        const int s = q % LF_NS;
+        if (q >= LF_NS) iit::mbar_wait(empty + s, (q / LF_NS - 1) & 1);
+        uint8_t* st = smem + s * kLfStage;
+        iit::mbar_expect_tx(full + s, kLfW + P::W * LF_PLANE);
+        iit::tensor_g2s(st, tm, kc * LF_KC, (int)(tile * LW_T), member, full + s);
+        iit::bulk_g2s(st + kLfW, wp + (size_t)kc * P::W * (LF_KC * LW_N), P::W * LF_PLANE,
+                      full + s);
+      }
+    }
+    return;
+  }
+  iit::reg_alloc<LF_CONS_REGS>();
+  const int w = (tid >> 7) - 1;
+  const WgPos pos(tid & 127);
+  const int r_a = 64 * w + 16 * pos.wi + pos.g;  // the thread's first fragment row
+  float tot[64], grp[64];
+  uint32_t a0[P::A][1][4], a1[P::A][1][4];
+  uint64_t* held = nullptr;
+  uint32_t q = 0;
+  for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+    for (int kc = 0; kc < kcs; ++kc, ++q) {
+      const int s = q % LF_NS;
+      iit::mbar_wait(full + s, (q / LF_NS) & 1);
+      const uint8_t* a_s = smem + s * kLfStage;
+      const bool end = kc % LF_GROUP == LF_GROUP - 1;  // a tile ends a group
+      lwg_chunk<P::A, P::W>(
+          grp, a0, a1,
+          [&](int kk, uint32_t(&a)[P::A][1][4]) { lf_frags<P::A>(a_s, r_a, kk, pos.t, a); },
+          [&](const float(&d)[64]) {
+#pragma unroll
+            for (int i = 0; i < 64; ++i) tot[i] = kc < LF_GROUP ? d[i] : tot[i] + d[i];
+          },
+          iit::smem_u32(smem + s * kLfStage + kLfW), LF_PLANE, kc % LF_GROUP == 0, end, held,
+          empty + s);
+    }
+    iit::wg_wait<0>();  // a tile ends a group (none in flight): ptxas cannot see that
+    lf_epilogue<BF16, MX>(tot, p, tl.n0, tile * LW_T + 64 * w, pos);
+  }
+}
+
+// ------------------------- sine_mlp_layer_dw: dW_l = A_l^T G_l on wgmma
+//
+// Block (s, tile) sums the 128 x 128 tile (m0, n0) of dW over split s's rows
+// [s n / S, (s + 1) n / S) into row s of the partials at p.off_dw (row-major
+// H x H); the blocks of a split are adjacent in the grid, so its rows come
+// from HBM about once. Both operands reduce over the rows, so both are
+// MN-major here. One thread stages chunks of LD_KC rows of both (A's
+// columns m0 .., G's n0 ..) in fp32 through a ring of LD_NF slots, four
+// tensor copies of 32-column boxes an operand (tensor maps of A and G,
+// 128-byte swizzle). Two feeding warpgroups split each chunk's G into B's
+// planes once, into a ring of LD_NPL plane slots; the consumers load their
+// A fragments of a k-step from the fp32 slot and split them in registers
+// between commits, as the hidden forward does (rows past the split are
+// zeros in both). A slot goes back to the feeding thread once both
+// consumer warpgroups hold its fragments and the feeders are done with its
+// G. Rows are summed in groups of LW_DW_GROUP x 32 = 1,024 from zero in
+// `acc`, each group added into the running total `tot` (registers) by fp32
+// adds in order; one block writes each address once: no atomics, a run
+// repeats bit for bit. (Row copies, cp.async, one feeding warpgroup and
+// the feeders splitting A too each ran slower: PERF.md §6.)
+constexpr int LD_KC = 32;                             // rows of a chunk: two k-steps
+constexpr int LD_NF = 5;                              // fp32 chunk slots
+constexpr int LD_NPL = 2;                             // plane slots
+constexpr int LD_GROUP = LW_DW_GROUP * LW_KC / LD_KC;  // chunks of a row group of 1,024
+constexpr int LD_BOX = LD_KC * 32 * 4;                // bytes of a 32-column box of a chunk
+constexpr uint32_t LD_GPLANE = LD_KC * LW_N * 2;      // bytes: a plane of G's chunk
+constexpr size_t kLdF32 = 2 * (size_t)LD_KC * LW_N * 4;  // a chunk slot: A's 4 boxes, G's
+constexpr size_t kLdSlot = 3 * (size_t)LD_GPLANE;        // a plane slot: G's planes
+constexpr size_t kLdPl = LD_NF * kLdF32;                 // the plane slots
+// fp32 full, fp32 empty, planes full, planes empty
+constexpr size_t kLdBar = kLdPl + LD_NPL * kLdSlot;
+// + 1 KB: the slots start at the first 1024-byte boundary (the swizzled boxes)
+constexpr size_t kLdSmem = kLdBar + 2 * (LD_NF + LD_NPL) * sizeof(uint64_t) + 1024;
+static_assert(kLdF32 % 1024 == 0 && kLdSlot % 128 == 0 && kLdSmem + sizeof(LayerArgs) <= 232448,
+              "sine_mlp_layer_dw's shared memory");
+static_assert(LD_KC == 32, "a chunk is two k-steps, and four K groups");
+constexpr int LD_FEEDERS = 256, LD_THREADS = LD_FEEDERS + 256;  // two feeding warpgroups, two consuming
+// 256 x 64 + 256 x 192 = 65,536 (48 and 208: the fp32 instances spilled)
+constexpr int LD_FEED_REGS = 64, LD_CONS_REGS = 192;
+
+// Byte offset of element (r, c) of an operand's chunk in a slot: column box
+// c / 32, 128-byte swizzled.
+__device__ __forceinline__ int ld_at(int r, int c) { return (c >> 5) * LD_BOX + iit::swz128(r, c & 31); }
+
+// G of chunk slot `f32` (its first `valid` rows; rows past them are zeros)
+// into the NP planes of plane slot `pl` by feeding thread fc (0-255): warp
+// fc / 32 takes K group fc / 64 (8 rows) and 8 of its 16 core matrices (8
+// rows x 8 columns, 128 contiguous bytes), the loads first (the split is
+// latency-bound).
+template <int NP>
+__device__ __forceinline__ void ld_split_g(const uint8_t* __restrict__ f32, uint8_t* __restrict__ pl,
+                                           int valid, int fc) {
+  const uint8_t* g_s = f32 + kLdF32 / 2;
+  const int fw = fc >> 5, g = (fc & 31) >> 2, t = fc & 3;
+  const int kg = fw >> 1, r = 8 * kg + g, ng0 = 8 * (fw & 1);
+  float2 x[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    x[q] = r < valid ? *reinterpret_cast<const float2*>(g_s + ld_at(r, 8 * (ng0 + q) + 2 * t))
+                     : make_float2(0.f, 0.f);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    uint32_t v[NP];
+    iit::split_planes<NP>(x[q].x, x[q].y, v);
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      *reinterpret_cast<uint32_t*>(pl + i * LD_GPLANE + (kg * 16 + ng0 + q) * 128 + g * 16 +
+                                   t * 4) = v[i];
+  }
+}
+
+// The A fragments of k-step kk of chunk slot `f32` (its first `valid` rows)
+// for consumer warpgroup w's thread (wi, g, t), split into NP planes: a[j] =
+// A^T(16 wi + g + 8 (j & 1), 2 t + 8 (j >> 1) + {0, 1}), dW's row 64 w + 16
+// wi + g + 8 (j & 1) against the k-step's chunk rows.
+template <int NP>
+__device__ __forceinline__ void ld_frags(const uint8_t* __restrict__ f32, int valid, int w, int kk,
+                                         const WgPos& pos, uint32_t (&a)[NP][1][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = 16 * kk + 2 * pos.t + 8 * (j >> 1), c = 64 * w + 16 * pos.wi + pos.g + 8 * (j & 1);
+    const float x0 = r < valid ? *reinterpret_cast<const float*>(f32 + ld_at(r, c)) : 0.f;
+    const float x1 = r + 1 < valid ? *reinterpret_cast<const float*>(f32 + ld_at(r + 1, c)) : 0.f;
+    uint32_t pl[NP];
+    iit::split_planes<NP>(x0, x1, pl);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) a[i][0][j] = pl[i];
+  }
+}
 
 // The layer launchers' checks and grids (host code).
 bool aligned16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
+
+// A tensor map of `members` row-major (rows, cols) fp32 matrices,
+// member_stride floats apart (0: one, shared by the members), read in boxes
+// of 32 columns x box_rows rows with 128-byte swizzle (iit::swz128), rows
+// from `rows` on as zeros. cuTensorMapEncodeTiled comes through the
+// runtime's driver entry point, so the library links no driver library.
+cudaError_t row_tensor_map(CUtensorMap* map, const float* base, long long rows, long long cols,
+                           int members, long long member_stride, int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const bool many = members > 1 && member_stride != 0;
+  if (rows < 1 || rows > INT_MAX || cols % 32 != 0 || member_stride % 4 != 0 || !aligned16(base))
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)(many ? members : 1)};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4,
+                                 (cuuint64_t)(many ? member_stride : rows * cols) * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1}, step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
 bool layer_args_ok(const LayerArgs* a) {
   return a != nullptr && a->hidden > 0 && a->hidden % LW_N == 0 && a->slices >= 1 &&
          a->members >= 1 && a->members <= 65535 && a->in_size >= 1 && a->in_size <= MAX_IO &&
@@ -3167,39 +3520,31 @@ dim3 narrow_grid(const LayerArgs* a) {
 }
 dim3 tile_grid(const LayerArgs* a) { return dim3(a->slices * (a->hidden / LW_N), a->members); }
 
+// kLwHidden on wgmma (lf_hidden, LF_THREADS threads, p.w W's planes, tm a
+// tensor map of src); the first and last layers on FMA (LW_THREADS threads,
+// tm not read).
 template <bool BF16, bool MX, int KIND>
-__global__ void __launch_bounds__(LW_THREADS, 1) sine_mlp_layer_fwd_kernel(LayerArgs arg) {
+__global__ void __launch_bounds__(KIND == kLwHidden ? LF_THREADS : LW_THREADS, 1)
+    sine_mlp_layer_fwd_kernel(LayerArgs arg, const __grid_constant__ CUtensorMap tm) {
   __shared__ LayerArgs p;
   lw_member(p, arg);
   const int tid = threadIdx.x;
+  extern __shared__ float4 smem4[];
   if constexpr (KIND == kLwLast) {  // out = a_L W_{D-1} + b_{D-1}
     lw_narrow_rows<BF16>(p.src, p.hidden, p.w, p.out_size, 1, p.out_size, p.b, p.dst, p.n);
-  } else {
-    extern __shared__ float4 smem4[];
-    float* ring_s = reinterpret_cast<float*>(smem4);
-    float* x_s = ring_s + LW_NST * LwRing::SLICE;
-    uint64_t* bar = reinterpret_cast<uint64_t*>(x_s + LW_T * MAX_IO);
+  } else if constexpr (KIND == kLwHidden) {
+    lf_hidden<BF16, MX>(p, &tm, reinterpret_cast<uint8_t*>(smem4), tid);
+  } else {  // z_0 = x W_0 + b_0
+    float* x_s = reinterpret_cast<float*>(smem4);
     const Warp w(tid, LwG::CG);
     const LwTiles tl(p);
     Acc acc;
-    if constexpr (KIND == kLwFirst) {
-      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
-        lw_stage_rows<BF16>(x_s, p.src, tile * LW_T, p.n, p.in_size, tid);
-        __syncthreads();
-        lw_first_layer<BF16>(acc, p.w, p.hidden, tl.n0, p.in_size, x_s, w);
-        __syncthreads();
-        lw_fwd_epilogue<BF16, MX>(acc, p, tl.n0, tile * LW_T, w);
-      }
-    } else {
-      init_barriers<LW_THREADS>(bar, LW_NST);
-      RingT<LwRing> ring{ring_s, bar};
-      const long long total = (tl.t1 - tl.t0) * (p.hidden / LW_KC);
-      for (int b = 0; b < LW_NST && b < total; ++b) lw_issue(ring, b, b, p.src, p.w, p, tl, tid);
-      long long j = 0;
-      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
-        lw_product<BF16>(acc, ring, j, total, p.src, p.w, p, tl, w, tid);
-        lw_fwd_epilogue<BF16, MX>(acc, p, tl.n0, tile * LW_T, w);
-      }
+    for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+      lw_stage_rows<BF16>(x_s, p.src, tile * LW_T, p.n, p.in_size, tid);
+      __syncthreads();
+      lw_first_layer<BF16>(acc, p.w, p.hidden, tl.n0, p.in_size, x_s, w);
+      __syncthreads();
+      lw_fwd_epilogue<BF16, MX>(acc, p, tl.n0, tile * LW_T, w);
     }
   }
 }
@@ -3247,82 +3592,117 @@ __global__ void __launch_bounds__(LW_THREADS, 1) sine_mlp_layer_bwd_kernel(Layer
   }
 }
 
-// dW_l = A_l^T G_l: block (s, tile) sums the 128 x 128 tile (m0, n0) of dW
-// over split s's rows [s n / S, (s + 1) n / S), LW_KC rows a chunk of both
-// operands (rows past the split read as 0), LW_DW_GROUP chunks from zero
-// and then into the thread's running total (its own shared-memory slots, in
-// group order), and stores it in row s of the partials at p.off_dw
-// (row-major H x H). The blocks of a split are adjacent in the grid, so its
-// rows come from HBM about once.
-template <bool BF16>
-__global__ void __launch_bounds__(LW_THREADS, 1) sine_mlp_layer_dw_kernel(LayerArgs arg) {
+// dW_l = A_l^T G_l (its design: "sine_mlp_layer_dw" above).
+template <bool BF16, bool MX>
+__global__ void __launch_bounds__(LD_THREADS, 1)
+    sine_mlp_layer_dw_kernel(LayerArgs arg, const __grid_constant__ CUtensorMap tm_a,
+                             const __grid_constant__ CUtensorMap tm_g) {
+  using P = BwPlanes<BF16, MX>;  // A = rnd_act(a): P::A planes; G = rnd(gz): P::G
   __shared__ LayerArgs p;
   lw_member(p, arg);
   extern __shared__ float4 smem4[];
-  float* ring_s = reinterpret_cast<float*>(smem4);
-  float* total_s = ring_s + LW_NST * LwRing::SLICE;  // element i of thread t at i LW_THREADS + t
-  uint64_t* bar = reinterpret_cast<uint64_t*>(total_s + LW_THREADS * 64);
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  smem += (1024 - iit::smem_u32(smem) % 1024) % 1024;
+  uint64_t* f32_full = reinterpret_cast<uint64_t*>(smem + kLdBar);
+  uint64_t* f32_empty = f32_full + LD_NF;
+  uint64_t* pl_full = f32_empty + LD_NF;
+  uint64_t* pl_empty = pl_full + LD_NPL;
   const int tid = threadIdx.x;
-  const Warp w(tid, LwG::CG);
   const long long h = p.hidden;
   const int cols = p.hidden / LW_N, tiles = cols * cols;
   const int tile = blockIdx.x % tiles, s = blockIdx.x / tiles;
   const int m0 = tile / cols * LW_N, n0 = tile % cols * LW_N;
   const long long r0 = s * p.n / p.slices, r1 = (s + 1) * p.n / p.slices;
-  const long long chunks = (r1 - r0 + LW_KC - 1) / LW_KC;
-  const float* a = p.src + m0;
-  const float* g = p.g + n0;
-
-  init_barriers<LW_THREADS>(bar, LW_NST);
-  RingT<LwRing> ring{ring_s, bar};
-  const auto issue = [&](int b, long long k) {
-    constexpr int Q = LW_N / 4;  // 16-byte pieces of an operand's row
-    float* dst = ring.buf(b);
-    const long long row0 = r0 + k * LW_KC;
-#pragma unroll 4
-    for (int e = tid; e < LW_KC * 2 * Q; e += LW_THREADS) {
-      const int r = e / (2 * Q), q = e % (2 * Q);
-      const bool in_a = q < Q, valid = row0 + r < r1;
-      const int col = 4 * (in_a ? q : q - Q);
-      const float* src = (in_a ? a : g) + (valid ? row0 + r : r0) * h + col;
-      float* d = (in_a ? dst : dst + LW_KC * LW_N) + sw<LW_N>(r, col);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                   ::"r"(smem_addr(d)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-    }
-    ring.arrive(b);
+  const int chunks = (int)((r1 - r0 + LD_KC - 1) / LD_KC);
+  const auto valid = [&](int k) {
+    const long long left = r1 - r0 - (long long)k * LD_KC;
+    return left < LD_KC ? (int)left : LD_KC;
   };
-  for (int b = 0; b < LW_NST && b < chunks; ++b) issue(b, b);
-  Acc acc;
-  zero(acc);
-  for (int i = 0; i < 64; ++i) total_s[i * LW_THREADS + tid] = 0.f;
-  for (long long k = 0; k < chunks; ++k) {
-    const int b = (int)(k % LW_NST);
-    ring.wait(b);
-    const float* buf = ring.buf(b);
-    warp_mma_k<BF16, true, false, LW_N, LW_N, LW_KC>(acc, buf, w.m0, 0, buf + LW_KC * LW_N, w);
-    __syncthreads();
-    if (k + LW_NST < chunks) issue(b, k + LW_NST);
-    if ((k + 1) % LW_DW_GROUP == 0 || k + 1 == chunks) {  // the group into the total
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) total_s[((mi * 8 + ni) * 4 + q) * LW_THREADS + tid] += acc[mi][ni][q];
-      zero(acc);
+  if (tid == 0) {
+    for (int i = 0; i < LD_NF; ++i) {
+      iit::mbar_init(f32_full + i, 1);
+      iit::mbar_init(f32_empty + i, 8 + 1);  // the consumers' warps, the feeders
     }
+    for (int i = 0; i < LD_NPL; ++i) {
+      iit::mbar_init(pl_full + i, LD_FEEDERS);
+      iit::mbar_init(pl_empty + i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float* out = p.part + s * p.n_part + p.off_dw + m0 * h + n0;
+  __syncthreads();
+  if (tid < LD_FEEDERS) {  // the feeding warpgroups
+    iit::reg_dealloc<LD_FEED_REGS>();
+    // thread 0: chunk k's rows of A and G into fp32 slot k % LD_NF, four
+    // 32-column boxes an operand
+    const int ma = p.src_m != 0 ? (int)blockIdx.y : 0, mg = p.g_m != 0 ? (int)blockIdx.y : 0;
+    const auto fill = [&](int k) {
+      const int f = k % LD_NF, row0 = (int)(r0 + (long long)k * LD_KC);
+      uint8_t* slot = smem + f * kLdF32;
+      iit::mbar_expect_tx(f32_full + f, (uint32_t)kLdF32);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float* t = total_s + ((mi * 8 + ni) * 4 + 2 * hh) * LW_THREADS + tid;
-        *reinterpret_cast<float2*>(out + w.row(mi, 2 * hh) * h + w.col(ni)) =
-            make_float2(t[0], t[LW_THREADS]);
+      for (int b = 0; b < LW_N / 32; ++b) {
+        iit::tensor_g2s(slot + b * LD_BOX, &tm_a, m0 + 32 * b, row0, ma, f32_full + f);
+        iit::tensor_g2s(slot + kLdF32 / 2 + b * LD_BOX, &tm_g, n0 + 32 * b, row0, mg,
+                        f32_full + f);
       }
+    };
+    if (tid == 0)
+      for (int k = 0; k < LD_NF && k < chunks; ++k) fill(k);
+    for (int k = 0; k < chunks; ++k) {
+      const int f = k % LD_NF, ps = k % LD_NPL;
+      iit::mbar_wait(f32_full + f, (k / LD_NF) & 1);
+      if (k >= LD_NPL) iit::mbar_wait(pl_empty + ps, (k / LD_NPL - 1) & 1);
+      ld_split_g<P::G>(smem + f * kLdF32, smem + kLdPl + ps * kLdSlot, valid(k), tid);
+      iit::fence_async_shared();  // the planes are read by wgmma (the async proxy)
+      iit::mbar_arrive(pl_full + ps);
+      iit::named_barrier(1, LD_FEEDERS);  // every feeding thread is done with G
+      if (tid == 0) {
+        iit::mbar_arrive(f32_empty + f);
+        // the slot chunk k - 1 used, once the consumers hold its fragments
+        const int kp = k - 1;
+        if (kp >= 0 && kp + LD_NF < chunks) {
+          iit::mbar_wait(f32_empty + kp % LD_NF, (kp / LD_NF) & 1);
+          fill(kp + LD_NF);
+        }
+      }
+    }
+    return;
+  }
+  iit::reg_alloc<LD_CONS_REGS>();
+  const int w = (tid - LD_FEEDERS) >> 7;
+  const WgPos pos(tid & 127);
+  float tot[64], acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+  uint32_t a0[P::A][1][4], a1[P::A][1][4];
+  uint64_t* held = nullptr;
+  for (int k = 0; k < chunks; ++k) {
+    const int f = k % LD_NF, ps = k % LD_NPL, rows = valid(k);
+    const uint8_t* f32 = smem + f * kLdF32;
+    iit::mbar_wait(f32_full + f, (k / LD_NF) & 1);
+    iit::mbar_wait(pl_full + ps, (k / LD_NPL) & 1);
+    const bool end = (k + 1) % LD_GROUP == 0 || k + 1 == chunks;
+    lwg_chunk<P::A, P::G>(
+        acc, a0, a1,
+        [&](int kk, uint32_t(&a)[P::A][1][4]) {
+          ld_frags<P::A>(f32, rows, w, kk, pos, a);
+          if (kk == 1) lwg_release(f32_empty + f);  // the fragments are in registers
+        },
+        [&](const float(&d)[64]) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) tot[i] += d[i];
+        },
+        iit::smem_u32(smem + kLdPl + ps * kLdSlot), LD_GPLANE, k % LD_GROUP == 0, end, held,
+        pl_empty + ps);
+  }
+  iit::wg_wait<0>();  // the last chunk ends a group (none in flight): ptxas cannot see that
+  float* out = p.part + s * p.n_part + p.off_dw + (m0 + 64 * w) * h + n0;
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(out + pos.row(hh) * h + pos.col(ni)) =
+          make_float2(tot[4 * ni + 2 * hh], tot[4 * ni + 2 * hh + 1]);
 }
 
 // ------------------------------------------------------ the partial sum
@@ -3483,8 +3863,8 @@ extern "C" {
 
 #if SINE_MLP_LAYER == 0
 // kind: kLwFirst (src x, w W_0, b b_0, dst a_0), kLwHidden (src a_{l-1}, w
-// W_l, b b_l, dst a_l), each with z the stash or null; kLwLast (src a_L, w
-// W_{D-1}, b b_{D-1}, dst out).
+// W_l's planes, b b_l, dst a_l), each with z the stash or null; kLwLast (src
+// a_L, w W_{D-1}, b b_{D-1}, dst out).
 int sine_mlp_layer_fwd(const LayerArgs* a, int kind, int bf16, void* stream) {
   if (!layer_args_ok(a) || a->n == 0) return a != nullptr && a->n == 0 ? 0 : (int)cudaErrorInvalidValue;
   // 16-byte copies of the product's operands, 8-byte loads and stores of
@@ -3496,17 +3876,22 @@ int sine_mlp_layer_fwd(const LayerArgs* a, int kind, int bf16, void* stream) {
       (tiles && (!aligned16(a->w) || !aligned16(a->b) || (a->dst && !aligned16(a->dst)) ||
                  (a->z && !aligned16(a->z)))))
     return (int)cudaErrorInvalidValue;
+  CUtensorMap tm{};  // kLwHidden's activations (the other kinds read none)
+  if (kind == kLwHidden) {
+    const cudaError_t err = row_tensor_map(&tm, a->src, a->n, a->hidden, a->members, a->src_m, LW_T);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
     if (kind == kLwFirst)
       return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwFirst>, tile_grid(a), LW_THREADS,
-                    kLwFwdSmem, s, *a);
+                    kLwFwdSmem, s, *a, tm);
     if (kind == kLwHidden)
-      return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwHidden>, tile_grid(a), LW_THREADS,
-                    kLwFwdSmem, s, *a);
+      return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwHidden>, tile_grid(a), LF_THREADS,
+                    kLfSmem, s, *a, tm);
     return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwLast>, narrow_grid(a), LW_THREADS, 0, s,
-                  *a);
+                  *a, tm);
   });
 }
 #elif SINE_MLP_LAYER == 1
@@ -3553,10 +3938,17 @@ int sine_mlp_layer_dw(const LayerArgs* a, int bf16, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int cols = a->hidden / LW_N;
   const dim3 grid(a->slices * cols * cols, a->members);
+  CUtensorMap tm_a, tm_g;  // A's and G's rows, in boxes of LD_KC rows
+  cudaError_t err = row_tensor_map(&tm_a, a->src, a->n, a->hidden, a->members, a->src_m, LD_KC);
+  if (err == cudaSuccess)
+    err = row_tensor_map(&tm_g, a->g, a->n, a->hidden, a->members, a->g_m, LD_KC);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(bf16 & 1 ? launch(sine_mlp_layer_dw_kernel<true>, grid, LW_THREADS, kLwDwSmem, s, *a)
-                        : launch(sine_mlp_layer_dw_kernel<false>, grid, LW_THREADS, kLwDwSmem, s,
-                                 *a));
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    return launch(sine_mlp_layer_dw_kernel<BF, MXV>, grid, LD_THREADS, kLdSmem, s, *a, tm_a,
+                  tm_g);
+  });
 }
 #endif
 

@@ -727,6 +727,18 @@ def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, 
 _RING_ROWS = 16
 
 
+def _bf16_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
+    """wm (..., L, h, h) -> its first `planes` bf16 planes (..., L, planes,
+    h, h): plane p = bf16(W - planes 0 .. p-1), nearest even (three hold an
+    fp32 W exactly, one is the bf16 mode's rounding)."""
+    rest, parts = wm.float(), []
+    for p in range(planes):
+        parts.append(rest.to(torch.bfloat16))
+        if p + 1 < planes:
+            rest = rest - parts[-1]  # fp32: the bf16 plane converts exactly
+    return torch.stack(parts, dim=-3)
+
+
 def weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
     """The hidden weights as the wgmma kernels' rings stream them (the
     forward and backward of width 128, the backward of width 192): wm (...,
@@ -746,12 +758,7 @@ def weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
     if h not in PLANE_WIDTHS or wm.shape[-2] != h:
         raise ValueError(f"weight_planes: expected (..., L, h, h) with h in {PLANE_WIDTHS}, "
                          f"got {tuple(wm.shape)}")
-    rest, parts = wm.float(), []
-    for p in range(planes):
-        parts.append(rest.to(torch.bfloat16))
-        if p + 1 < planes:
-            rest = rest - parts[-1]  # fp32: the bf16 plane converts exactly
-    pl = torch.stack(parts, dim=-3)  # (..., L, planes, h, h)
+    pl = _bf16_planes(wm, planes)  # (..., L, planes, h, h)
     n, u = len(lead), h // _RING_ROWS
     shape = lead + (layers, planes)
     fwd = pl.reshape(shape + (u, _RING_ROWS // 8, 8, h // 8, 8)).permute(
@@ -759,6 +766,37 @@ def weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
     bwd = pl.reshape(shape + (h // 8, 8, u, _RING_ROWS // 8, 8)).permute(
         *range(n), n, n + 4, n + 1, n + 5, n + 2, n + 3, n + 6)
     return torch.stack([fwd, bwd], dim=n).contiguous()
+
+
+# K of a stage of the layer-wise hidden forward's ring (LF_KC of
+# csrc/sine_mlp.cu): W's planes stream in chunks of this many rows
+_LAYER_CHUNK = 32
+
+
+def layer_weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
+    """The hidden weights as the layer-wise forward's ring streams them (the
+    hidden layers' sine_mlp_layer_fwd above width 512): wm (..., L, h, h)
+    fp32, h a multiple of LAYER_TILE -> bf16 (..., L, h / 128, h / 32,
+    planes, 4, 16, 8, 8).
+
+    Plane p as in `weight_planes`. Column tile c (128 columns, a block's)
+    holds h / 32 chunks of 32 rows in order, a chunk its planes one after
+    another, each plane 4 x 16 core matrices of 8 x 8 values, 8 consecutive
+    columns of W a row: [.., c, k, p, kg, ng, r, cc] = plane p of W[32 k + 8
+    kg + r][128 c + 8 ng + cc] (csrc/hopper.cuh's layout, B N-major); a
+    chunk is one bulk copy of planes x 8 KB."""
+    if (wm.dim() < 3 or wm.shape[-1] % LAYER_TILE or wm.shape[-2] != wm.shape[-1]
+            or wm.shape[-1] < LAYER_TILE):
+        raise ValueError(f"layer_weight_planes: expected (..., L, h, h) with h a multiple of "
+                         f"{LAYER_TILE}, got {tuple(wm.shape)}")
+    lead, layers, h = wm.shape[:-3], wm.shape[-3], wm.shape[-1]
+    pl = _bf16_planes(wm, planes)  # (..., L, planes, h, h)
+    n, k = len(lead), _LAYER_CHUNK
+    pl = pl.reshape(lead + (layers, planes, h // k, k // 8, 8, h // LAYER_TILE,
+                            LAYER_TILE // 8, 8))
+    # (L, planes, k, kg, r, c, ng, cc) -> (L, c, k, planes, kg, ng, r, cc)
+    return pl.permute(*range(n), n, n + 5, n + 2, n + 1, n + 3, n + 6, n + 4,
+                      n + 7).contiguous()
 
 
 def dw_turn_index(hidden: int = 128) -> torch.Tensor:
@@ -1082,13 +1120,22 @@ def _layer_launch(lib, fn: str, args, kind: Optional[int], bf16: bool, mixed: bo
 _FIRST, _HIDDEN, _LAST = 0, 1, 2
 
 
+def _layer_planes(wm: torch.Tensor, bf16: bool, mixed: bool) -> torch.Tensor:
+    """W's planes as the layer-wise hidden forward streams them
+    (`layer_weight_planes`; one plane where W is a bf16 value already), as
+    float32 words: the kernel reads them as bf16 pairs, and LayerArgs's
+    member stride counts floats."""
+    return layer_weight_planes(wm, 1 if bf16 or mixed else 3).view(torch.float32)
+
+
 def _layer_chain_fwd(lib, ops, x, n: int, dims, om, acts, bf16: bool, mixed: bool, name: str,
                      z=None, out=None) -> None:
     """The forward's layer launches over rows [0, n) of x (n rows): a_l into
     acts[:, l % 2] (the last hidden layer's only where `out` is given), z_l
     into z[:, l] where the stash is given, and with `out`, out = a_L W_{D-1}
-    + b_{D-1}."""
-    w0, wm, wl, bs, bl = ops
+    + b_{D-1}. ops: (W_0, the hidden W's planes (`_layer_planes`), W_{D-1},
+    the biases, b_{D-1}), each with a leading member axis."""
+    w0, wp, wl, bs, bl = ops
     in_size, hidden, out_size, depth, m = dims
     dev = x.device
     slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -1098,7 +1145,7 @@ def _layer_chain_fwd(lib, ops, x, n: int, dims, om, acts, bf16: bool, mixed: boo
     for l in range(layers + 1):
         dst = acts[:, l % 2] if (l < layers or out is not None) else None
         args = _layer_args(omega=om[l], src=x if l == 0 else acts[:, (l - 1) % 2],
-                           w=w0 if l == 0 else wm[:, l - 1], b=bs[:, l], dst=dst,
+                           w=w0 if l == 0 else wp[:, l - 1], b=bs[:, l], dst=dst,
                            z=None if z is None else z[:, l], **common)
         _layer_launch(lib, "sine_mlp_layer_fwd", args, _FIRST if l == 0 else _HIDDEN, bf16,
                       mixed, name, dev)
@@ -1118,10 +1165,11 @@ def _layer_fwd(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool, name: str
     m = _member_count(members)
     n = x.shape[-2]
     ops = _members_lead(_pack_members(members, hidden, mixed))
+    ops[1] = _layer_planes(ops[1], bf16, mixed)  # once per call
     x = _rnd(x.float(), mixed).contiguous()
     xm = x if x.dim() == 3 else x.unsqueeze(0)
     out = torch.empty((m, n, out_size), dtype=torch.float32, device=dev)
-    for name_, t in zip(("w0", "wm", "wl", "bs", "bl"), ops):
+    for name_, t in zip(("w0", "planes", "wl", "bs", "bl"), ops):
         _check_cuda(name_, t, dev)
     _check_cuda("x", x, dev, aligned=False)  # read a value at a time
     band = layer_band_rows(hidden, m)
@@ -1152,15 +1200,18 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     m = _member_count(members)
     n = x.shape[-2]
     layers = depth - 2
-    slices, n_part, sizes = partial_layout(n, depth, in_size, first[0]["w"].shape[1], out_size,
-                                           dev)
+    # the row slices of the layer-wise kernels at any kernel width (above 512
+    # partial_layout's; tools/layer_width_ab.py runs them at 512 too)
+    _, n_part, sizes = partial_layout(n, depth, in_size, first[0]["w"].shape[1], out_size, dev)
+    slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
     _check_fits(4 * m * ((layers + 3) * n * hidden + slices * n_part + n * in_size), dev,
                 f"the layer-wise backward at width {hidden} over {n} rows"
                 + (f" and {m} members" if batched else "")
                 + " (train.pixel_chunks splits the rows)")
     ops = _members_lead(_pack_members(members, hidden, mixed))
-    w0, wm, wl, bs, _ = ops
+    w0, wm, wl, bs, bl = ops
     wmt = wm.transpose(-1, -2).contiguous()
+    fwd_ops = (w0, _layer_planes(wm, bf16, mixed), wl, bs, bl)  # the recompute's, once
     x = _rnd(x.float(), mixed).contiguous()
     xm = x if x.dim() == 3 else x.unsqueeze(0)
     g = g.float().contiguous()
@@ -1181,8 +1232,8 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     common = dict(n=n, in_size=in_size, hidden=hidden, out_size=out_size, slices=slices,
                   members=m, n_part=n_part)
     with torch.cuda.device(dev):
-        _layer_chain_fwd(lib, ops, xm, n, dims, om, bufs, bf16, mixed, "sine_mlp_layer_fwd" + suffix,
-                         z=z)
+        _layer_chain_fwd(lib, fwd_ops, xm, n, dims, om, bufs, bf16, mixed,
+                         "sine_mlp_layer_fwd" + suffix, z=z)
         # the last layer: G_L into bufs[:, L % 2]; dW_0 here too at depth 2
         args = _layer_args(
             omega=om[layers], src=gm, w=wl, z=z[:, layers], dst=bufs[:, layers % 2],
@@ -1251,6 +1302,57 @@ def sine_mlp_layer_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, 
     lead = (lambda t: t) if batched else (lambda t: t.unsqueeze(0))
     with torch.cuda.device(a.device):
         _layer_dw_launch(_lib(), lead(a), lead(g), lead(partials), offset, bf16, mixed, name)
+
+
+def layer_fwd_reference(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, omega: float,
+                        precision: str = "fp32"):
+    """Plain version of one hidden layer of the layer-wise forward
+    (`sine_mlp_layer_fwd`): a = a_{l-1} (N, H) as the chain keeps it, W (H,
+    H), b (H,) -> (z, a_l): z = a W + b, a_l = rnd(sin(omega z)), W rounded
+    in the bf16 mode as the chain rounds it."""
+    bf16, mixed = precision_modes(precision)
+    z = a.float() @ _rnd(w.float(), bf16) + b.float()
+    return z, _rnd(fast_sin(omega * z), bf16 or mixed)
+
+
+def sine_mlp_layer_fwd(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, omega: float,
+                       precision: str, stash: bool = False):
+    """Launch the layer-wise forward for one hidden layer (kind kLwHidden):
+    a = a_{l-1} (N, H) fp32 on the card as the chain keeps it (bf16 values
+    in the bf16 mode and under "+mixed"), w = W (H, H) or its planes as
+    `_layer_planes` makes them (a caller timing launches makes them once),
+    b (H,), H a multiple of LAYER_TILE -> a_l (N, H), and with `stash` (z_l,
+    a_l), `layer_fwd_reference` in the kernel's summation order. Counted as
+    "sine_mlp_layer_fwd". Shapes or a CPU tensor it does not take raise
+    ValueError before the library is built."""
+    bf16, mixed = precision_modes(precision)
+    n, hidden = a.shape if a.dim() == 2 else (0, 0)
+    if (a.dim() != 2 or hidden % LAYER_TILE or hidden < LAYER_TILE
+            or tuple(b.shape) != (hidden,)):
+        raise ValueError(f"sine_mlp_layer_fwd: expected a (N, H), H a multiple of "
+                         f"{LAYER_TILE}, and b (H,); got {tuple(a.shape)}, {tuple(b.shape)}")
+    if w.dim() == 2:  # W itself: its planes, made here
+        if tuple(w.shape) != (hidden, hidden):
+            raise ValueError(f"sine_mlp_layer_fwd: W {tuple(w.shape)} for a of {tuple(a.shape)}")
+        w = _layer_planes(_rnd(w.float(), mixed)[None], bf16, mixed)[0]
+    planes = 1 if bf16 or mixed else 3
+    if w.numel() != planes * hidden * hidden // 2:
+        raise ValueError(f"sine_mlp_layer_fwd: {w.numel()} words of W's planes, expected "
+                         f"{planes * hidden * hidden // 2} ({planes} planes of {hidden}^2)")
+    b = b.float().contiguous()
+    for label, t in (("a", a), ("planes", w), ("b", b)):
+        _check_cuda(label, t, a.device)
+    dev = a.device
+    out = torch.empty_like(a)
+    z = torch.empty_like(a) if stash else None
+    slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+    args = _layer_args(n=n, in_size=1, hidden=hidden, out_size=1, slices=slices, members=1,
+                       omega=omega, src=a[None], w=w[None], b=b[None], dst=out[None],
+                       z=None if z is None else z[None])
+    with torch.cuda.device(dev):
+        _layer_launch(_lib(), "sine_mlp_layer_fwd", args, _HIDDEN, bf16, mixed,
+                      "sine_mlp_layer_fwd", dev)
+    return (z, out) if stash else out
 
 
 def sine_mlp_layer_partials(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):

@@ -10,8 +10,10 @@ ops/cuda_build.build), and times sine_mlp_fwd and sine_mlp_bwd of each in
 the fp32 mode at the main path's shapes (512^2 pixels, d8) at every width
 of --widths (CUDA events over 10 launches after a warm-up), and at the
 widths whose backward has it (256 and 512; 192 in older commits),
-sine_mlp_dw alone on operands of the main path's shape. The differences
-to "full" say what each part costs:
+sine_mlp_dw alone on operands of the main path's shape; above 512,
+sine_mlp_layer_dw alone on one hidden layer's operands (its row splits
+those of the backward). The differences to "full" say what each part
+costs:
 
   no_sine       the sine polynomial of the forward epilogues (z passes through)
   no_mma        the hidden layers' products (fragment loads, splits, mma), at
@@ -279,6 +281,13 @@ def main(argv=None) -> dict:
                 blocks, n_part, sizes = sm.partial_layout(x.shape[0], 8, 2, width, 3, dev)
                 ops = torch.randn((2, 6, x.shape[0], hidden), device=dev)
                 dw_args = (*ops, torch.empty((blocks, n_part), device=dev), sizes[0], "fp32")
+            # sine_mlp_layer_dw alone above 512: one hidden layer, the backward's splits
+            layer_dw_args = None
+            if hidden > sm.KERNEL_WIDTHS[-1]:
+                slices, n_part, sizes = sm.partial_layout(x.shape[0], 8, 2, width, 3, dev)
+                ops = torch.randn((2, x.shape[0], hidden), device=dev)
+                layer_dw_args = (*ops, torch.empty((slices, n_part), device=dev), sizes[0],
+                                 "fp32")
             members = [mdef.init(gen, mcfg, dev) for _ in range(args.members)]
             gm = (torch.randn((args.members, x.shape[0], 3), generator=gen)
                   / x.shape[0]).to(dev)
@@ -308,6 +317,10 @@ def main(argv=None) -> dict:
                 if dw_args is not None:
                     rows[name]["dw_ms"] = _time_ms(lambda: sm.sine_mlp_dw(*dw_args))
                     line += f", sine_mlp_dw alone {rows[name]['dw_ms']:.4f} ms"
+                if layer_dw_args is not None:
+                    rows[name]["layer_dw_ms"] = _time_ms(
+                        lambda: sm.sine_mlp_layer_dw(*layer_dw_args))
+                    line += f", sine_mlp_layer_dw alone {rows[name]['layer_dw_ms']:.4f} ms"
                 print(line, flush=True)
     finally:
         cb._state["lib"] = saved

@@ -1,0 +1,161 @@
+"""Where the layer-wise wgmma kernels' time goes, on the card.
+
+    python -m implicit_image_tpu_torch.tools.layer_knockouts [--widths 640 1024]
+        [--out FILE]
+
+Builds copies of the layer-wise forward part and dW part of
+csrc/sine_mlp.cu (-DSINE_MLP_LAYER=0 and 2, one nvcc each, all at once)
+with one part knocked out each (their results are wrong by design), and
+times one hidden `sine_mlp_layer_fwd` launch and one `sine_mlp_layer_dw`
+launch of each at 512^2 rows and every width of --widths, in the fp32 and
+bf16 modes (CUDA events over 10 launches after a warm-up; each variant's
+launches in turns with the others', two rounds, the second kept):
+
+  no_mma      the products (every wgmma pass of both kernels)
+  no_split    the forward: the consumers' split of the activations into
+              planes (the fp32 bits as the one plane)
+  no_epi      the forward: the epilogue (z's stash, the sine and a's stores)
+  no_gsplit   dW: the feeding warpgroups' split of G into planes
+  no_asplit   dW: the consumers' split of A into planes
+
+The differences to "full" say what each part costs. Prints a line per
+kernel, width and mode, and writes the record, with the card's name and
+power limit, as JSON to --out.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from implicit_image_tpu_torch.ops import cuda_build as cb
+from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+PASS0 = "  wg_passes<PA, PB, 1, 1>(d, a0, 0, b0, plane, first);"
+PASS1 = "  wg_passes<PA, PB, 1, 1>(d, a1, 0, b0 + 4096, plane, false);"
+FWD_SPLIT = "    iit::split_planes<NP>(v.x, v.y, pl);"
+FWD_EPI = "    lf_epilogue<BF16, MX>(tot, p, tl.n0, tile * LW_T + 64 * w, pos);"
+DW_GSPLIT = ("      ld_split_g<P::G>(smem + f * kLdF32, smem + kLdPl + ps * kLdSlot, valid(k), "
+             "tid);")
+DW_ASPLIT = "    iit::split_planes<NP>(x0, x1, pl);"
+
+
+def _rep(src: str, *pairs) -> str:
+    for old, new in pairs:
+        if src.count(old) != 1:
+            raise RuntimeError(f"csrc/sine_mlp.cu no longer holds {old[:60]!r} once")
+        src = src.replace(old, new)
+    return src
+
+
+def variants(src: str) -> dict:
+    """{(part, name): source}: part 0 the forward, 2 dW (SINE_MLP_LAYER)."""
+    no_mma = _rep(src, (PASS0, ""), (PASS1, ""))
+    return {
+        (0, "full"): src, (0, "no_mma"): no_mma,
+        (0, "no_split"): _rep(src, (FWD_SPLIT, "    pl[0] = __float_as_uint(v.x);\n"
+                                               "    if (NP > 1) pl[NP - 1] = __float_as_uint(v.y);")),
+        (0, "no_epi"): _rep(src, (FWD_EPI, "    if (tot[0] == 12345.f) " + FWD_EPI.strip())),
+        (2, "full"): src, (2, "no_mma"): no_mma,
+        (2, "no_gsplit"): _rep(src, (DW_GSPLIT, "")),
+        (2, "no_asplit"): _rep(src, (DW_ASPLIT, "    pl[0] = __float_as_uint(x0);\n"
+                                                "    if (NP > 1) pl[NP - 1] = __float_as_uint(x1);")),
+    }
+
+
+def _build(root: Path, key, text: str):
+    part, name = key
+    d = root / f"part{part}_{name}"
+    d.mkdir(parents=True)
+    (d / "sine_mlp.cu").write_text(text)
+    for h in cb.CSRC.glob("*.cuh"):
+        shutil.copy(h, d / h.name)
+    subprocess.run([cb._nvcc(), cb._ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+                    f"-DSINE_MLP_LAYER={part}", "-o", str(d / "lib.so"), str(d / "sine_mlp.cu")],
+                   check=True, capture_output=True, text=True)
+    fn = getattr(ctypes.CDLL(str(d / "lib.so")),
+                 "sine_mlp_layer_fwd" if part == 0 else "sine_mlp_layer_dw")
+    fn.argtypes, fn.restype = cb._SIGNATURES[fn.__name__]
+    return fn
+
+
+def _ms(call, reps: int = 10) -> float:
+    if call() != 0:
+        raise RuntimeError("a knock-out launch failed")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--widths", type=int, nargs="+", default=[640, 1024])
+    ap.add_argument("--out", default="outputs/layer_knockouts.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("layer_knockouts: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    srcs = variants((cb.CSRC / "sine_mlp.cu").read_text())
+    root = Path(tempfile.mkdtemp(prefix="layer_knockouts_"))
+    with ThreadPoolExecutor(len(srcs)) as ex:
+        fns = dict(zip(srcs, ex.map(lambda kv: _build(root, *kv), srcs.items())))
+    dev = torch.device("cuda")
+    n = 512 * 512
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    record = {"card": card, "rows": n, "ms": {}}
+    for h in args.widths:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        a = torch.sin(torch.randn((n, h), device=dev, generator=gen))
+        g = torch.randn((n, h), device=dev, generator=gen) / n
+        w = torch.randn((h, h), device=dev, generator=gen) / h ** 0.5
+        b = torch.zeros(h, device=dev)
+        out = torch.empty_like(a)
+        slices = sm.layer_slices(n, h, torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = torch.empty((slices, h * h), device=dev)
+        for prec in ("fp32", "bf16"):
+            bf16, mixed = sm.precision_modes(prec)
+            flags = sm._mode_flags(bf16, mixed)
+            planes = sm._layer_planes(w[None], bf16, mixed)[0]
+            fwd = sm._layer_args(n=n, in_size=1, hidden=h, out_size=1, slices=slices, members=1,
+                                 omega=30.0, src=a[None], w=planes[None], b=b[None],
+                                 dst=out[None])
+            dw = sm._layer_args(n=n, in_size=1, hidden=h, out_size=1, slices=slices, members=1,
+                                n_part=h * h, offsets=dict(off_dw=0), src=a[None], g=g[None],
+                                part=part[None])
+            calls = {key: (lambda fn=fn: fn(ctypes.byref(fwd), 1, flags, stream)) if key[0] == 0
+                     else (lambda fn=fn: fn(ctypes.byref(dw), flags, stream))
+                     for key, fn in fns.items()}
+            times = {}
+            for _ in range(2):  # the second round is kept
+                times = {key: _ms(call) for key, call in calls.items()}
+            for part_no, kernel in ((0, "sine_mlp_layer_fwd (one hidden layer)"),
+                                    (2, "sine_mlp_layer_dw")):
+                row = {name: t for (p, name), t in times.items() if p == part_no}
+                record["ms"][f"{kernel} w{h} {prec}"] = row
+                print(f"[layer_knockouts] {kernel} w{h} {prec}: "
+                      + ", ".join(f"{name} {t:.4f}" for name, t in row.items()) + " ms",
+                      flush=True)
+    print(f"[layer_knockouts] {card}", flush=True)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(record, indent=1))
+    shutil.rmtree(root, ignore_errors=True)
+    return record
+
+
+if __name__ == "__main__":
+    main()

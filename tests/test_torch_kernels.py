@@ -345,6 +345,62 @@ def test_layer_partials_match_their_mirror(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("hidden,n", [(640, 3000), (1024, 1500)])
+def test_layer_hidden_forward_matches_its_plain_version(cuda_device, precision, hidden, n):
+    """One hidden sine_mlp_layer_fwd launch (wgmma, six bf16 passes in fp32,
+    K in groups of 128) on a SIREN's a_0, W_1, b_1 against
+    layer_fwd_reference: z within 1e-5 of max |z|, a_1 within omega times
+    that (fp32) or one bf16 step of it (its rounding), twice the same bits;
+    W's planes made once give the same bits as W."""
+    m, c = build_model("siren", depth=4, hidden_size=hidden)
+    p = m.init(torch.Generator().manual_seed(6), c, cuda_device)
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((n, 3), generator=gen).to(cuda_device)
+    a, _ = sm.siren_chain_dw_operands(p, x, g, c, precision)
+    bf16, mixed = sm.precision_modes(precision)
+    layer = sm._rnd_params(p, mixed)[1]
+    omega = float(c.hidden_omega_0)
+    z, a1 = sm.sine_mlp_layer_fwd(a[0], layer["w"], layer["b"], omega, precision, stash=True)
+    planes = sm._layer_planes(layer["w"][None], bf16, mixed)[0]
+    z2, a2 = sm.sine_mlp_layer_fwd(a[0], planes, layer["b"], omega, precision, stash=True)
+    zp, ap = sm.layer_fwd_reference(a[0], layer["w"], layer["b"], omega, precision)
+    torch.cuda.synchronize()
+    z_err = float((z - zp).abs().max())
+    assert z_err <= 1e-5 * float(zp.abs().max()), z_err
+    a_tol = 8e-3 if bf16 or mixed else omega * 1e-5 * float(zp.abs().max())
+    assert float((a1 - ap).abs().max()) <= a_tol
+    assert torch.equal(z, z2) and torch.equal(a1, a2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_layer_dw_matches_its_plain_version_over_row_groups(cuda_device, precision):
+    """sine_mlp_layer_dw (wgmma, the rows in groups of 1,024) at width 640
+    on 70,000 rows (26 splits of ~2,700 rows: three groups each) against its
+    plain version in float64: within 1e-5 of max |dW| per split; twice the
+    same bits."""
+    bf16, mixed = sm.precision_modes(precision)
+    gen = torch.Generator().manual_seed(8)
+    n, h = 70_000, 640
+    a = sm._rnd(torch.sin(torch.randn((n, h), generator=gen) * 3), bf16 or mixed).to(cuda_device)
+    g = sm._rnd(torch.randn((n, h), generator=gen) / n, bf16).to(cuda_device)
+    slices = sm.layer_slices(n, h, torch.cuda.get_device_properties(cuda_device)
+                             .multi_processor_count)
+    runs = []
+    for _ in range(2):
+        part = torch.zeros((slices, h * h + 4), device=cuda_device)
+        sm.sine_mlp_layer_dw(a, g, part, 2, precision)
+        runs.append(part)
+    want = torch.stack([a[r0:r1].double().t() @ g[r0:r1].double()
+                        for r0, r1 in sm.dw_row_splits(n, slices)])
+    got = runs[0][:, 2: 2 + h * h].reshape(slices, h, h).double()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
 def test_kernel_widths_and_partial_layout(cuda_device):
     """The library's kernel widths and tile rows are KERNEL_TILE_ROWS (each
     width runs on the first kernel width at or above it, as kernel_width()

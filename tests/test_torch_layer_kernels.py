@@ -226,6 +226,67 @@ def test_layer_dw_rejects_what_it_does_not_take_before_building():
         sm.sine_mlp_layer_dw(a, a, torch.zeros((4, 640 * 640 + 8)), 0, "fp32")
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_layer_fwd_reference_is_the_chains_hidden_layer(precision):
+    """layer_fwd_reference (the plain version of one hidden sine_mlp_layer_fwd
+    launch) on the chain's a_0 and W_1, b_1 gives the chain's a_1 (the next
+    layer's input, as siren_chain_dw_operands keeps it) bit for bit, in every
+    mode; z is a_0 W_1 + b_1."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    p = m.init(torch.Generator().manual_seed(4), c)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.rand((200, 2), generator=gen) * 2 - 1
+    g = torch.randn((200, 3), generator=gen)
+    a, _ = sm.siren_chain_dw_operands(p, x, g, c, precision)
+    bf16, mixed = sm.precision_modes(precision)
+    layer = sm._rnd_params(p, mixed)[1]
+    z, a1 = sm.layer_fwd_reference(a[0], layer["w"], layer["b"], float(c.hidden_omega_0),
+                                   precision)
+    assert torch.equal(a1, a[1])
+    assert torch.equal(z, a[0] @ sm._rnd(layer["w"], bf16) + layer["b"])
+
+
+def test_layer_fwd_rejects_what_it_does_not_take_before_building(monkeypatch):
+    """sine_mlp_layer_fwd (one hidden layer) raises ValueError, before the
+    library is built, on a CPU tensor, a width that is not a multiple of
+    128, a bias or W of another width, and planes of another mode's count."""
+    from implicit_image_tpu_torch.ops import cuda_build
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_build, "load_library", refuse)
+    monkeypatch.setattr(cuda_build, "_nvcc", refuse)
+    a, w, b = torch.zeros((300, 640)), torch.zeros((640, 640)), torch.zeros(640)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        sm.sine_mlp_layer_fwd(a, w, b, 30.0, "fp32")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sm.sine_mlp_layer_fwd(a[:, :600], w[:600, :600], b[:600], 30.0, "fp32")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sm.sine_mlp_layer_fwd(a, w, b[:600], 30.0, "fp32")
+    with pytest.raises(ValueError, match="W"):
+        sm.sine_mlp_layer_fwd(a, w[:512, :512], b, 30.0, "fp32")
+    planes = sm._layer_planes(w[None], True, False)[0]  # one plane: the bf16 mode's
+    with pytest.raises(ValueError, match="3 planes"):
+        sm.sine_mlp_layer_fwd(a, planes, b, 30.0, "fp32")
+
+
+def test_layer_knockouts_apply_to_the_current_source():
+    """tools/layer_knockouts.py's replacements are each found once in
+    csrc/sine_mlp.cu (variants() raises otherwise), and every variant but
+    "full" changes the source, in the forward's part and in dW's."""
+    from implicit_image_tpu_torch.ops import cuda_build
+    from implicit_image_tpu_torch.tools import layer_knockouts
+
+    src = (cuda_build.CSRC / "sine_mlp.cu").read_text()
+    found = layer_knockouts.variants(src)
+    assert {key for key in found} == {(0, "full"), (0, "no_mma"), (0, "no_split"), (0, "no_epi"),
+                                      (2, "full"), (2, "no_mma"), (2, "no_gsplit"),
+                                      (2, "no_asplit")}
+    for key, text in found.items():
+        assert (text == src) == (key[1] == "full"), key
+
+
 def test_grad_check_float64_chain_is_the_plain_chain():
     """tools/grad_check.py's float64 chain (its yardstick on the card) is
     the plain fp32 chain's math: within 1e-5 of it, forward and every

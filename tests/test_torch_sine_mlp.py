@@ -243,14 +243,26 @@ def _planes(t: torch.Tensor, n: int):
     return out
 
 
-def _product(scheme: str):
+def _product(scheme: str, k_group: int = 0):
+    """The product of a scheme. k_group: K summed in groups of that many from
+    zero (each group's passes in float64, rounded to fp32), the groups added
+    in order by fp32 adds, as the layer-wise wgmma kernels sum them."""
     if scheme == "fp32":
         return lambda a, b: a @ b
     if scheme == "6xbf16":
         def mm6(a, b):
             pa, pb = _planes(a, 3), _planes(b, 3)
-            return sum(pa[i].double() @ pb[j].double()
-                       for i in range(3) for j in range(3) if i + j <= 2).float()
+
+            def part(lo, hi):
+                return sum(pa[i][:, lo:hi].double() @ pb[j][lo:hi].double()
+                           for i in range(3) for j in range(3) if i + j <= 2).float()
+
+            k = a.shape[1]
+            step = k_group or k
+            out = part(0, step)
+            for lo in range(step, k, step):
+                out = out + part(lo, lo + step)
+            return out
 
         return mm6
     bits, passes = {"3xtf32": (10, 3), "tf32": (10, 1), "3xbf16": (7, 3)}[scheme]
@@ -266,13 +278,14 @@ def _product(scheme: str):
     return mm
 
 
-def _emulated_chain(params, x, g, om, mm):
+def _emulated_chain(params, x, g, om, mm, mm_dw=None):
     """Forward and backward of the chain with every product (a·W, aᵀ·gz,
-    gz·Wᵀ) taken by `mm`. The kernels keep the first layer (K = in) and the
-    last (N = out) on fp32 FMA, so for them this bounds the error from
-    above."""
+    gz·Wᵀ) taken by `mm` (aᵀ·gz by `mm_dw` where given). The kernels keep
+    the first layer (K = in) and the last (N = out) on fp32 FMA, so for them
+    this bounds the error from above."""
     from implicit_image_tpu_torch.ops.fast_math import fast_cos, fast_sin
 
+    mm_dw = mm_dw or mm
     n = len(params)
     zs, a = [], x
     for i in range(n - 1):
@@ -281,12 +294,12 @@ def _emulated_chain(params, x, g, om, mm):
         a = fast_sin(om[i] * z)
     out = mm(a, params[-1]["w"]) + params[-1]["b"]
     grads = [None] * n
-    grads[-1] = {"w": mm(a.t(), g), "b": g.sum(0)}
+    grads[-1] = {"w": mm_dw(a.t(), g), "b": g.sum(0)}
     ga = mm(g, params[-1]["w"].t())
     for i in range(n - 2, -1, -1):
         gz = ga * (om[i] * fast_cos(om[i] * zs[i]))
         a_prev = x if i == 0 else fast_sin(om[i - 1] * zs[i - 1])
-        grads[i] = {"w": mm(a_prev.t(), gz), "b": gz.sum(0)}
+        grads[i] = {"w": mm_dw(a_prev.t(), gz), "b": gz.sum(0)}
         ga = mm(gz, params[i]["w"].t())
     return out, ga, grads
 
@@ -303,7 +316,11 @@ def _split_errors(hidden=128, n=4099):
     ref = _emulated_chain(params, x, g, om, _product("fp32"))
 
     def errors(scheme):
-        out, dx, grads = _emulated_chain(params, x, g, om, _product(scheme))
+        if scheme == "6xbf16 grouped":  # the layer-wise kernels' sums
+            mms = (_product("6xbf16", LAYER_K_GROUP), _product("6xbf16", LAYER_ROW_GROUP))
+        else:
+            mms = (_product(scheme),)
+        out, dx, grads = _emulated_chain(params, x, g, om, *mms)
         pairs = [(dx, ref[1])] + [(grads[i][k], ref[2][i][k])
                                   for i in range(len(params)) for k in KEYS]
         rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
@@ -341,14 +358,25 @@ def test_split_precision_against_fp32_limits(split_errors, scheme, passes):
         assert bwd > _FP32_BWD_TOL, (fwd, bwd)
 
 
-@pytest.mark.parametrize("scheme,passes", [("3xtf32", True), ("tf32", False), ("6xbf16", True)])
-@pytest.mark.parametrize("hidden,n", [(256, 1000), (512, 400), (192, 1500)])
+# the layer-wise wgmma kernels (widths above 512) sum the chain products' K
+# in groups of 128 (LW_K_GROUP x LW_KC of csrc/sine_mlp.cu) and dW's rows in
+# groups of 1,024 (LW_DW_GROUP x LW_KC), each group from zero
+LAYER_K_GROUP, LAYER_ROW_GROUP = 128, 1024
+
+
+@pytest.mark.parametrize("scheme,passes", [("3xtf32", True), ("tf32", False), ("6xbf16", True),
+                                           ("6xbf16 grouped", True)])
+@pytest.mark.parametrize("hidden,n", [(256, 1000), (512, 400), (192, 1500), (640, 300),
+                                      (1024, 160), (2048, 48)])
 def test_split_precision_at_wide_widths(hidden, n, scheme, passes):
     """The error of a product grows with its depth K: at d8 with K = 192,
     256 and 512 (the wider kernels' widths) 3xTF32 (their forward's split)
     and "6xbf16" (the width-192 backward's) still pass the fp32 mode's
     limits, with the margin of 10 of width 128, and 1-pass TF32 still fails
-    both."""
+    both. So do they at K = 640, 1024 and 2048 (the layer-wise kernels,
+    whose hidden forward and dW are "6xbf16" with K summed in groups of 128
+    and dW's rows in groups of 1,024: "6xbf16 grouped"; their backward's
+    gz·Wᵀ stays 3xTF32)."""
     fwd, bwd = _split_errors(hidden, n)(scheme)
     if passes:
         assert fwd * 10 <= _FP32_FWD_TOL and bwd * 10 <= _FP32_BWD_TOL, (fwd, bwd)
@@ -401,6 +429,40 @@ def test_weight_planes_at_width_192(planes):
 def test_weight_planes_reject_other_widths(shape):
     with pytest.raises(ValueError, match="128, 192"):
         sm.weight_planes(torch.zeros(shape), 3)
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+@pytest.mark.parametrize("h", [640, 1024])
+def test_layer_weight_planes_in_the_layer_rings_layout(h, planes):
+    """ops/sine_mlp.layer_weight_planes (the layer-wise hidden forward's W
+    above width 512): plane p is _round_mantissa(W - planes 0 .. p-1, 7),
+    three planes add up to W exactly, and chunk k of column tile c holds
+    rows 32 k .. of W's columns 128 c .. in 4 x 16 core matrices of 8 x 8, 8
+    consecutive columns a row (B N-major, csrc/hopper.cuh)."""
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.standard_normal((2, h, h)).astype(np.float32) / 13)
+    packed = sm.layer_weight_planes(w, planes)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert tuple(packed.shape) == (2, h // 128, h // 32, planes, 4, 16, 8, 8)
+    want = _planes(w, planes)
+    if planes == 3:
+        assert torch.equal(want[0] + want[1] + want[2], w)
+        back = sum(packed[:, :, :, p].float() for p in range(3))
+        rows = back.permute(0, 2, 3, 5, 1, 4, 6).reshape(2, h, h)  # (k, kg, r) x (c, ng, cc)
+        assert torch.equal(rows, w)
+    c, k, kg, ng, r, cc = np.meshgrid(*(np.arange(v) for v in (h // 128, h // 32, 4, 16, 8, 8)),
+                                      indexing="ij")
+    for p in range(planes):
+        assert torch.equal(packed[:, :, :, p].float(),
+                           want[p][:, 32 * k + 8 * kg + r, 128 * c + 8 * ng + cc])
+    # one chunk (a bulk copy of the ring) is planes x 8 KB, contiguous
+    assert packed[0, 0, 0].numel() * 2 == planes * 8192
+
+
+@pytest.mark.parametrize("shape", [(2, 576, 576), (2, 640, 512), (64, 64)])
+def test_layer_weight_planes_reject_other_shapes(shape):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sm.layer_weight_planes(torch.zeros(shape), 3)
 
 
 def test_dw_turn_undoes_the_kernels_staging_turn():
