@@ -63,7 +63,12 @@ Phases, each printing its own line:
      the fp32 and bf16 modes beside their bounds, the member-axis launches
      in turns with one single launch; sine_mlp_layer_dw alone on one layer's own dW operands
      against its plain version (DW_TOL), twice for bits, in turns with one
-     fp32 torch.mm; the backward's partial buffer against its plain mirror
+     fp32 torch.mm; one hidden sine_mlp_layer_fwd and one hidden
+     sine_mlp_layer_bwd (with and without dW_0) alone on the chain's own
+     operands against their plain versions (LAYER_TOL), twice for bits,
+     each in turns with one fp32 torch.mm of its product; fp32 K2's kernels
+     under torch.profiler, sine_mlp_layer_bwd_kernel by kind beside its
+     bound; the backward's partial buffer against its plain mirror
      (siren_chain_layer_partials) and sum_partials over it bit for bit its
      mirror's order; then one fp32 K1/K2 pair at w2048 (its z stash of
      3.76e9 floats is past 2^31: the 64-bit offsets) and one at w4096 on
@@ -763,6 +768,7 @@ def phase_card() -> str:
 def phase_build() -> float:
     from implicit_image_tpu_torch.ops import cuda_build
     from implicit_image_tpu_torch.ops.sine_mlp import DW_WIDTHS, KERNEL_WIDTHS, MAX_ROWS
+    from implicit_image_tpu_torch.tools.kernel_breakdown import layer_kind
 
     t0 = time.perf_counter()
     lib = cuda_build.load_library()
@@ -797,24 +803,23 @@ def phase_build() -> float:
     # the layer-wise kernels (widths above 512): 12 forward instantiations (4
     # modes x first, hidden, last), 20 backward (4 modes x last and hidden,
     # each with and without dW_0, and first), 4 dW (4 modes); none spills.
-    # The wgmma ones (the hidden forward, kind 1, and dW; warpgroups apart,
-    # setmaxnreg) each printed with their registers and spills
+    # The wgmma ones (the hidden forward and backward, kind 1, and dW;
+    # warpgroups apart, setmaxnreg) each printed with their registers and
+    # spills
     rows = {n: r for n, r in table.items() if n.startswith("void") and "sine_mlp_layer_" in n}
     spilling = {n: r for n, r in rows.items() if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
     regs = sorted(r.get("registers", 0) for r in rows.values())
     print(f"[2 build] {len(rows)} layer-wise kernel instantiations, {regs[0] if regs else 0}-"
           f"{regs[-1] if regs else 0} registers, {len(spilling)} spilling", flush=True)
     wg_rows = {n: r for n, r in rows.items()
-               if "sine_mlp_layer_dw_kernel<" in n or (
-                   "sine_mlp_layer_fwd_kernel<" in n
-                   and n.split("sine_mlp_layer_fwd_kernel<")[1].split(">")[0].endswith("1"))}
+               if "sine_mlp_layer_dw_kernel<" in n or layer_kind(n) == 1}
     for name, row in wg_rows.items():
         print(f"[2 build] layer-wise wgmma: {row.get('registers')} registers, "
               f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B spill "
               f"loads: {name[:120]}", flush=True)
-    if table and (len(rows) != 36 or len(wg_rows) != 8 or spilling):
+    if table and (len(rows) != 36 or len(wg_rows) != 16 or spilling):
         raise AssertionError(f"layer-wise kernels: {len(rows)} instantiations (expected 36), "
-                             f"{len(wg_rows)} on wgmma (expected 8), spilling {spilling}")
+                             f"{len(wg_rows)} on wgmma (expected 16), spilling {spilling}")
     # K1 and K2 over a member axis are template instantiations (last argument
     # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
     # spill no more than its single launch. The forward and backward have
@@ -1576,7 +1581,8 @@ def phase_layer_kernels(width: int) -> dict:
     its single launches, in every mode, timed in turns with one single
     launch; sine_mlp_layer_dw alone on the chain's own dW operands of one
     layer against its plain version (DW_TOL), twice for bits, in turns with
-    one fp32 torch.mm from CUDA graphs; the backward's partial buffer
+    one fp32 torch.mm from CUDA graphs; one hidden layer of K1 and one of
+    K2 alone the same way (_layer_bwd_alone); the backward's partial buffer
     against its plain mirror (siren_chain_layer_partials, the same slices
     and splits) and sum_partials over it bit for bit its mirror's order.
     Returns the kernels line's records (fp32)."""
@@ -1690,8 +1696,10 @@ def phase_layer_kernels(width: int) -> dict:
 
     # sine_mlp_layer_dw alone: one hidden layer's own operands, zero-padded
     prec = "fp32"
-    a, gz = (F.pad(t[0], (0, kw - width)).contiguous()
-             for t in sm.siren_chain_dw_operands(params, x, g, mcfg, prec))
+    ops = sm.siren_chain_dw_operands(params, x, g, mcfg, prec)
+    # A_1 and G_1 (layer 1's dW operands), G_2 (the hidden backward's below)
+    a, gz, g2 = (F.pad(t, (0, kw - width)).contiguous() for t in (ops[0][0], ops[1][0], ops[1][1]))
+    del ops
     runs = []
     for _ in range(2):
         part = torch.zeros((slices, n_part), device=dev)
@@ -1726,7 +1734,7 @@ def phase_layer_kernels(width: int) -> dict:
         raise AssertionError(f"{tag} sine_mlp_layer_dw: err {dw_err}, same bits {dw_same}")
     records["sine_mlp_layer_dw"] = (dw_err, dw_ms, dw_plain, lib_ms)
     batched["sine_mlp_layer_dw_batched"] = (dw_err, dwb_ms, LAYER_MEMBERS * dw_plain, lib_ms)
-    del gz, ab, gzb, part, part_b, runs, plain_dw
+    del ab, gzb, part, part_b, runs, plain_dw
 
     # one hidden layer of K1 alone (sine_mlp_layer_fwd, kind hidden) on the
     # chain's own a_0 and W_1, zero-padded: z and a_1 against its plain
@@ -1758,7 +1766,10 @@ def phase_layer_kernels(width: int) -> dict:
     if not (lf_err <= LAYER_TOL[prec][0] and lf_same):
         raise AssertionError(f"{tag} one hidden sine_mlp_layer_fwd: err {lf_err}, same bits "
                              f"{lf_same}")
-    del a, w1, b1, planes
+    del planes
+    _layer_bwd_alone(params, x, a, gz, g2, w1, b1, mcfg, tag, kw, width, slices,
+                     dw_bound["bound_ms"])
+    del a, gz, g2, w1, b1
 
     # the backward's partial buffer against its plain mirror, and sum_partials'
     # order over it (at the first width: the mirror holds every layer's
@@ -1781,38 +1792,82 @@ def phase_layer_kernels(width: int) -> dict:
     return _layer_records(records, batched, bounds, padded, dw_bound, layers)
 
 
+def _layer_bwd_alone(params, x, a1, g1, g2, w1, b1, mcfg, tag: str, kw: int, width: int,
+                     slices: int, bound_ms: float) -> None:
+    """One hidden layer of K2's backward alone (sine_mlp_layer_bwd, kind
+    hidden) on the chain's own operands, zero-padded to the kernel width kw:
+    at l = 2 (G_2 W_2^T over z_1 = A_1 W_1 + b_1) G_1, A_1 and the slices'
+    db, and at l = 1 (G_1 W_1^T over z_0, with x: dW_0) the same and dW_0,
+    each against its plain version (layer_bwd_reference) within
+    LAYER_TOL's fp32 backward limit of its largest value, twice for bits;
+    l = 2 timed in turns with one fp32 torch.mm(G, W^T) of its product from
+    CUDA graphs (W^T's planes made once, outside; A_1 written over a copy of
+    z_1 each launch, as K2 does)."""
+    import torch
+    import torch.nn.functional as F
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    prec, limit = "fp32", LAYER_TOL["fp32"][1]
+    om = sm._omegas(mcfg, DEPTH)
+    pad = (0, kw - width, 0, kw - width)
+    w0 = F.pad(params[0]["w"].float(), (0, kw - width))
+    z0 = (x @ w0 + F.pad(params[0]["b"].float(), (0, kw - width))).contiguous()
+    z1 = sm.layer_fwd_reference(a1, w1, b1, om[1], prec)[0]
+    w2 = F.pad(params[2]["w"].float(), pad).contiguous()
+    errs, same = {}, True
+    for l, (gl, wl, zl, xl) in ((2, (g2, w2, z1, None)), (1, (g1, w1, z0, x))):
+        got = sm.sine_mlp_layer_bwd(gl, wl, zl, om[l - 1], prec, x=xl)
+        again = sm.sine_mlp_layer_bwd(gl, wl, zl, om[l - 1], prec, x=xl)
+        ref = sm.layer_bwd_reference(gl, wl, zl, om[l - 1], prec, x=xl)
+        torch.cuda.synchronize()
+        for what, k, r in zip(("G", "A", "db", "dW_0"), got, ref):
+            if r is not None:
+                k = k.sum(0) if what in ("db", "dW_0") else k
+                errs[f"l{l} {what}"] = float((k - r).abs().max()) / float(r.abs().max())
+        same = same and all(u is None or torch.equal(u, v) for u, v in zip(got, again))
+        del got, again, ref
+    planes = sm._layer_planes(w2.t()[None], False, False)[0]
+    zt = z1.clone()
+    k_r, mm_r = _graph_interleaved_ms(
+        [lambda: sm.sine_mlp_layer_bwd(g2, planes, zt, om[1], prec, inplace=True),
+         lambda: torch.mm(g2, w2.t())], rounds=3, reps=3)
+    k_ms, mm_ms = statistics.median(k_r), statistics.median(mm_r)
+    plain = _time_ms(lambda: sm.layer_bwd_reference(g2, w2, z1, om[1], prec), 2)
+    worst = max(errs, key=errs.get)
+    print(f"{tag} one hidden sine_mlp_layer_bwd ({slices} slices) vs its plain version: max "
+          f"rel err {errs[worst]:.3e} at {worst} (tol {limit:g}; "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + "), "
+          f"{'the same bits twice' if same else 'BITS DIFFER'}; G_2 W_2^T in turns from CUDA "
+          f"graphs, ms: kernel {' '.join(f'{t:.4f}' for t in k_r)} (median {k_ms:.4f} = "
+          f"{bound_ms / k_ms:.1%} of the {bound_ms:.4f} ms bound), one fp32 torch.mm(G, W^T) "
+          f"{' '.join(f'{t:.4f}' for t in mm_r)} (median {mm_ms:.4f}); plain {plain:.3f}",
+          flush=True)
+    if not (errs[worst] <= limit and same):
+        raise AssertionError(f"{tag} one hidden sine_mlp_layer_bwd: errs {errs}, same bits {same}")
+    del planes, zt, z0, z1, w2
+    torch.cuda.empty_cache()
+
+
 def _layer_k2_split(k2, tag: str, width: int, n: int) -> dict:
     """One layer-wise K2 call (k2) under torch.profiler: each kernel's device
-    ms and launches (profile_fit.trace_breakdown's rows), so that
-    sine_mlp_layer_bwd_kernel has a time of its own beside its bound: its
-    gz·Wᵀ products (3 TF32 passes of 2 n h² a hidden layer) and its FMA
-    (g·Wᵀ and dW of the last layer, dW_0 and dx: 2 n h (2 out + 2 in))."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    ms and launches (tools/kernel_breakdown.k2_split: sine_mlp_layer_bwd_kernel
+    by kind), so that sine_mlp_layer_bwd_kernel has a time of its own beside
+    its bound: its hidden launches' gz·Wᵀ products (3 TF32 passes of 2 n h²
+    a hidden layer) and its FMA (g·Wᵀ and dW of the last layer, dW_0 and dx:
+    2 n h (2 out + 2 in))."""
+    from implicit_image_tpu_torch.tools.kernel_breakdown import k2_split
 
-    from implicit_image_tpu_torch import profile_fit
-
-    k2()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        k2()
-        torch.cuda.synchronize()
-    trace = Path(f"outputs/chip_smoke_p3_w{width}_k2.trace.json")
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    rows = profile_fit.trace_breakdown(trace, 1)["rows"]
-    split = {}
-    for row in rows:
-        key = next((k for k in ("sine_mlp_layer_fwd_kernel", "sine_mlp_layer_bwd_kernel",
-                                "sine_mlp_layer_dw_kernel", "sum_partials_kernel")
-                    if k in row["name"]), "other")
-        ms, count = split.get(key, (0.0, 0))
-        split[key] = (ms + row["ms"], count + row["count"])
-    bwd_ops = ((DEPTH - 2) * 3 * 2 * n * width * width / TF32_FLOP_PER_S
-               + 2 * n * width * (2 * 3 + 2 * 2) / FP32_FLOP_PER_S) * 1e3
+    split = k2_split(k2)
+    hidden_ops = (DEPTH - 2) * 3 * 2 * n * width * width / TF32_FLOP_PER_S * 1e3
+    bwd_ops = hidden_ops + 2 * n * width * (2 * 3 + 2 * 2) / FP32_FLOP_PER_S * 1e3
+    bwd_ms = sum(ms for k, (ms, _) in split.items() if k.startswith("sine_mlp_layer_bwd_kernel"))
+    hid_ms = split.get("sine_mlp_layer_bwd_kernel hidden", (float("nan"), 0))[0]
     print(f"{tag} fp32 K2's kernels (one call under torch.profiler, device ms / launches): "
           + "; ".join(f"{k} {ms:.3f} / {c}" for k, (ms, c) in split.items())
-          + f"; sine_mlp_layer_bwd_kernel's bound {bwd_ops:.3f} ms (operations)", flush=True)
+          + f"; sine_mlp_layer_bwd_kernel {bwd_ms:.3f} ms, bound {bwd_ops:.3f} ms (operations) "
+          f"= {bwd_ops / bwd_ms:.1%}; its hidden launches {hid_ms:.3f} ms, bound "
+          f"{hidden_ops:.3f} = {hidden_ops / hid_ms:.1%}", flush=True)
     return split
 
 

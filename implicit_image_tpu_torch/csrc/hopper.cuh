@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels of sine_mlp.cu (the
 // width-128 forward and backward, the width-192 backward, the layer-wise
-// hidden forward and dW) and of tools/mma_rate.cu, which checks them on the
-// card: mbarriers, bulk copies and bulk reduce-adds (the TMA unit), tensor
-// copies (a tensor map's box), proxy fences, named barriers, register
-// reallocation between warpgroups, and bf16 wgmma with A from registers or
-// shared memory and B from shared memory.
+// hidden forward, hidden backward and dW) and of tools/mma_rate.cu, which
+// checks them on the card: mbarriers, bulk copies and bulk reduce-adds (the
+// TMA unit), tensor copies (a tensor map's box), proxy fences, named
+// barriers, register reallocation between warpgroups, and bf16 wgmma with A
+// from registers or shared memory and B from shared memory.
 //
 // Shared-memory operands of wgmma here use no swizzle: an operand is made of
 // core matrices, 8 rows of 16 bytes (8 bf16) stored as 128 contiguous bytes.

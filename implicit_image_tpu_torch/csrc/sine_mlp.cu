@@ -2709,21 +2709,19 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 //   a layer, after the layer's kLwHidden, so two G buffers serve every
 //   layer), each split's sums into its partial slice.
 // - sum_partials, unchanged.
-// Products: the hidden forward and dW on bf16 wgmma, fp32 as three bf16
-// planes per operand and six passes, fed by bulk copies through mbarrier
-// rings and one producer warp, the consumers' warpgroups apart from it
-// (their design: "the layer-wise products on wgmma" below); the backward's
-// ga = G W^T on mma.sync m16n8k8 3xTF32 in the fp32 mode, one pass in bf16
-// (warp_mma_k, the wider kernels' code: 8 warps of 32 x 64 cover a 128 x
-// 128 block tile, K streamed by cp.async in 32-deep chunks through a 4-slot
-// ring). Grid: the rows' 128-row tiles split into S contiguous slices
-// (ops/sine_mlp.layer_slices: at most the SMs / (h / 128), so one wave),
-// block (s, c) taking column tile c of slice s's tiles, its chunk stream
-// running on across the tiles; grid y = member (every pointer moves by its
-// member stride: each member gets its single launch's bits). No atomics:
-// each address of a partial slice belongs to one thread of one block, which
-// stores it at the slice's first tile and adds at the next ones, in tile
-// order, so a run repeats bit for bit.
+// Products: the hidden forward, the hidden backward and dW on bf16 wgmma,
+// fp32 as three bf16 planes per operand and six passes, fed by tensor-map
+// and bulk copies through mbarrier rings from one feeding thread, the
+// consumers' warpgroups apart from it (their design: "the layer-wise
+// products on wgmma" below). Grid: the rows' 128-row tiles split into S
+// contiguous slices (ops/sine_mlp.layer_slices: at most the SMs / (h /
+// 128), so one wave), block (s, c) taking column tile c of slice s's
+// tiles, its stage stream running on across the tiles; grid y = member
+// (every pointer moves by its member stride: each member gets its single
+// launch's bits). No atomics: each address of a partial slice belongs to
+// one thread of one block, which sums it in a fixed order and stores it
+// once (the FMA kinds: at the slice's first tile, then adds at the next
+// ones, in tile order), so a run repeats bit for bit.
 // Memory of K2 at 512^2, d8 (N = 262,144): the z stash, (D-1) N h floats
 // (4.7 / 7.5 / 15.0 GB at 640 / 1024 / 2048), two N x h buffers (the
 // forward's activations, then the G's: 1.3 / 2.1 / 4.3 GB) and S partial
@@ -2735,27 +2733,22 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // not drift with the width. The fp32 mode is checked against the plain chain
 // at 576, 640, 1024, 2048 and 4096 (tests/test_torch_kernels.py,
 // chip_smoke.py phase 3, tools/grad_check.py); wider widths run unchecked.
-// Not taken, for later speed work: the backward's ga = G W^T on wgmma; the
-// fused chain over a cluster of 2-4 blocks that split a tile's columns and
-// read each other's activations through distributed shared memory (it would
-// keep the activations on chip and drop the z stash, but needs a
-// cluster-wide barrier per layer and a tile design per cluster size); and
-// multicast of the shared operand to a cluster's blocks (W's planes to the
-// blocks of one column tile, A's rows to those of one dW row tile), which
-// would cut the L2 re-reads that the 128 x 128 tiles leave.
+// Not taken, for later speed work: the fused chain over a cluster of 2-4
+// blocks that split a tile's columns and read each other's activations
+// through distributed shared memory (it would keep the activations on chip
+// and drop the z stash, but needs a cluster-wide barrier per layer and a
+// tile design per cluster size); and multicast of the shared operand to a
+// cluster's blocks (W's planes to the blocks of one column tile, A's rows to
+// those of one dW row tile), which would cut the L2 re-reads that the 128 x
+// 128 tiles leave.
 constexpr int LW_T = 128;    // pixel rows of a block tile
 constexpr int LW_N = 128;    // columns of a block tile: the kernel width is a multiple
-constexpr int LW_KC = 32;    // K of a ring chunk
-constexpr int LW_NST = 4;    // ring chunks
-constexpr int LW_THREADS = 256;
+constexpr int LW_KC = 32;    // K of a chunk of the products (a ring stage: two k-steps)
+constexpr int LW_THREADS = 256;  // the FMA kinds' blocks
 constexpr int LW_MIN = 512;  // the widest fused kernel; the layer-wise kernels run above it
 constexpr int LW_SLOTS = 1 + 2 * MAX_IO;  // an epilogue's column sums: db, dW_0's rows, dW_{D-1}'s columns
-using LwG = Geo<LW_N, LW_T, LW_KC, LW_NST>;  // 8 warps of 32 x 64
+using LwG = Geo<LW_N, LW_T, LW_KC>;  // the FMA kinds' 8 warps of 32 x 64
 static_assert(LwG::THREADS == LW_THREADS, "the layer kernels' warps cover a block tile");
-struct LwRing {  // a ring chunk: A's LW_T x LW_KC (or LW_KC x LW_N), then B's LW_KC x LW_N
-  static constexpr int SLICE = LW_T * LW_KC + LW_KC * LW_N;
-  static constexpr int THREADS = LW_THREADS;
-};
 enum LwKind { kLwFirst = 0, kLwHidden = 1, kLwLast = 2 };
 
 }  // namespace
@@ -2768,8 +2761,8 @@ enum LwKind { kLwFirst = 0, kLwHidden = 1, kLwLast = 2 };
 struct LayerArgs {
   const float* src;  // fwd: the layer's input rows (x, a_{l-1}, a_L); bwd kLwLast: g; dW: A_l
   const float* g;    // bwd kLwHidden: G_l (the product's A); kLwFirst: G_0; dW: G_l
-  const float* w;    // W_0 (in, H); W_l's planes (fwd kLwHidden: bf16, ops/sine_mlp.
-                     // layer_weight_planes) or W_l^T (bwd) (H, H); W_{D-1} (H, out)
+  const float* w;    // W_0 (in, H); kLwHidden: W_l's (fwd) or W_l^T's (bwd) bf16 planes
+                     // (ops/sine_mlp.layer_weight_planes); W_{D-1} (H, out)
   const float* b;    // fwd: the layer's bias
   float* dst;        // fwd: a_l (n, H) or out (n, out), null: not stored; bwd: G (n, H) or dx (n, in)
   float* z;          // fwd: z_l's stash (n, H) or null; bwd: the z below (kLwHidden: A_l written over it)
@@ -2871,37 +2864,6 @@ __device__ __forceinline__ void lw_narrow_rows(const float* __restrict__ src, lo
   }
 }
 
-// The layer products' chunk stream through the ring: chunk j of a block is
-// k-chunk j % (H / LW_KC) of its slice's row tile t0 + j / (H / LW_KC):
-// A's rows (LW_T x LW_KC, rows from n on read as 0) and B's K-slice (LW_KC
-// x LW_N at columns n0), each in the sw() layout of its width.
-__device__ __forceinline__ void lw_issue(RingT<LwRing>& ring, int b, long long j,
-                                         const float* __restrict__ A, const float* __restrict__ B,
-                                         const LayerArgs& p, const LwTiles& tl, int tid) {
-  const long long h = p.hidden;
-  const int kc = p.hidden / LW_KC;
-  const long long row0 = (tl.t0 + j / kc) * LW_T;
-  const int k0 = (int)(j % kc) * LW_KC;
-  float* dst = ring.buf(b);
-#pragma unroll 4
-  for (int e = tid; e < LW_T * LW_KC / 4; e += LW_THREADS) {
-    const int r = e / (LW_KC / 4), c = 4 * (e % (LW_KC / 4));
-    const long long row = row0 + r;
-    const bool valid = row < p.n;
-    const float* s = A + (valid ? row : 0) * h + k0 + c;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 ::"r"(smem_addr(dst + sw<LW_KC>(r, c))), "l"(s), "r"(valid ? 16 : 0) : "memory");
-  }
-#pragma unroll 4
-  for (int e = tid; e < LW_KC * LW_N / 4; e += LW_THREADS) {
-    const int r = e / (LW_N / 4), c = 4 * (e % (LW_N / 4));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 ::"r"(smem_addr(dst + LW_T * LW_KC + sw<LW_N>(r, c))),
-                 "l"(B + (k0 + r) * h + tl.n0 + c) : "memory");
-  }
-  ring.arrive(b);
-}
-
 // The chain products' K in groups of LW_K_GROUP chunks (K = 128), each
 // summed from zero by the tensor cores and then added into the product by
 // an fp32 add. The tensor cores' accumulator add does not round to nearest,
@@ -2911,38 +2873,6 @@ __device__ __forceinline__ void lw_issue(RingT<LwRing>& ring, int b, long long j
 // (tools/grad_check.py, H100, 700 W).
 constexpr int LW_K_GROUP = 4;
 static_assert(LW_N % (LW_K_GROUP * LW_KC) == 0, "a kernel width holds whole K groups");
-
-// acc = the tile's rows of A (n, H) times B (H, H) at the block's columns:
-// the next H / LW_KC chunks of the stream (chunk j on), refilling each slot
-// NST chunks ahead once every warp is done with it. Each accumulator takes
-// its k-steps and groups in order: an element's bits do not depend on the
-// tiling.
-template <bool BF16>
-__device__ __forceinline__ void lw_product(Acc acc, RingT<LwRing>& ring, long long& j,
-                                           long long total, const float* __restrict__ A,
-                                           const float* __restrict__ B, const LayerArgs& p,
-                                           const LwTiles& tl, const Warp& w, int tid) {
-  zero(acc);
-  Acc grp;
-  const int kc = p.hidden / LW_KC;
-  for (int k = 0; k < kc; ++k, ++j) {
-    const int b = (int)(j % LW_NST);
-    if (k % LW_K_GROUP == 0) zero(grp);
-    ring.wait(b);
-    const float* buf = ring.buf(b);
-    warp_mma_k<BF16, false, true, LW_KC, LW_N, LW_KC>(grp, buf, w.m0, 0, buf + LW_T * LW_KC, w);
-    __syncthreads();
-    if (j + LW_NST < total) lw_issue(ring, b, j + LW_NST, A, B, p, tl, tid);
-    if ((k + 1) % LW_K_GROUP == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mi][ni][q] += grp[mi][ni][q];
-    }
-  }
-}
 
 // First layer, K = in_size: acc = x_s W_0 (FMA) at the warp's positions of
 // the block's columns n0 ..
@@ -3010,29 +2940,27 @@ __device__ __forceinline__ float lw_lanes(float v) {
   return v;
 }
 
-// The backward's epilogue at one tile (rows row0 .., the block's columns
-// n0 ..), z the pre-activation of the layer below (p.z) and ga its
-// cotangent: acc (kLwHidden) or, LAST, rnd(g) W_{D-1}^T from go_s (FMA, in
-// order of the outputs). gz = rnd<MX>(ga) omega cos(omega z) (0 past n),
-// p.dst = G = rnd(gz); without LAST, A = rnd(sin(omega z)) over z. Column
-// sums over the tile into red (slot, row group, column), in a fixed order
-// (the thread's 4 rows, its column's 8 lanes, then the 4 row groups): slot 0
-// db; FIRST slots 1 + k, dW_0[k] = sum x_k G; LAST slots o_slot + o,
-// dW_{D-1}[., o] = sum a rnd(g_o). Each goes into the block's partial slice,
-// stored at the slice's first tile, added at the next ones; LAST's column
-// tile 0 also sums db_{D-1} = sum g.
-template <bool BF16, bool MX, bool LAST, bool FIRST>
-__device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, const LwTiles& tl,
-                                                long long row0, const float* __restrict__ x_s,
-                                                const float* __restrict__ go_s,
-                                                float* __restrict__ red, const Warp& w, int tid) {
+// The last layer's backward at one tile (rows row0 .., the block's columns
+// n0 ..), z = z_L (p.z): ga = rnd(g) W_{D-1}^T from go_s (FMA, in order of
+// the outputs), gz = rnd<MX>(ga) omega cos(omega z) (0 past n), p.dst = G =
+// rnd(gz). Column sums over the tile into red (slot, row group, column), in
+// a fixed order (the thread's 4 rows, its column's 8 lanes, then the 4 row
+// groups): slot 0 db; FIRST slots 1 + k, dW_0[k] = sum x_k G; slots o_slot +
+// o, dW_{D-1}[., o] = sum a rnd(g_o), a = rnd(sin(omega z)). Each goes into
+// the block's partial slice, stored at the slice's first tile, added at the
+// next ones; column tile 0 also sums db_{D-1} = sum g.
+template <bool BF16, bool MX, bool FIRST>
+__device__ __forceinline__ void lw_last_epilogue(const LayerArgs& p, const LwTiles& tl,
+                                                 long long row0, const float* __restrict__ x_s,
+                                                 const float* __restrict__ go_s,
+                                                 float* __restrict__ red, const Warp& w, int tid) {
   const long long h = p.hidden;
   const int in_size = p.in_size, out_size = p.out_size;
   const int o_slot = 1 + (FIRST ? in_size : 0);
-  const int slots = o_slot + (LAST ? out_size : 0);
+  const int slots = o_slot + out_size;
   const int wr = w.m0 / 32;
   const float omega = p.omega;
-  float* z = p.z;
+  const float* z = p.z;
   float* gz_out = p.dst;
   const auto put = [&](int slot, int col, float v) {
     v = lw_lanes(v);
@@ -3043,13 +2971,11 @@ __device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, con
     const int c = w.col(ni);
     const long long col = tl.n0 + c;
     float wv[2][MAX_IO];
-    if constexpr (LAST) {
 #pragma unroll
-      for (int cc = 0; cc < 2; ++cc)
+    for (int cc = 0; cc < 2; ++cc)
 #pragma unroll
-        for (int o = 0; o < MAX_IO; ++o)
-          wv[cc][o] = o < out_size ? rnd<BF16>(__ldg(&p.w[(col + cc) * out_size + o])) : 0.f;
-    }
+      for (int o = 0; o < MAX_IO; ++o)
+        wv[cc][o] = o < out_size ? rnd<BF16>(__ldg(&p.w[(col + cc) * out_size + o])) : 0.f;
     float gz[2][2][2], gb[2][2][2], av[2][2][2];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -3063,26 +2989,18 @@ __device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, con
         const float zz[2] = {zv.x, zv.y};
 #pragma unroll
         for (int cc = 0; cc < 2; ++cc) {
-          float ga;
-          if constexpr (LAST) {
-            ga = 0.f;
+          float ga = 0.f;
 #pragma unroll
-            for (int q = 0; q < MAX_IO; ++q)
-              if (q < out_size) ga += rnd<BF16>(go_s[r * MAX_IO + q]) * wv[cc][q];
-          } else {
-            ga = acc[mi][ni][2 * hh + cc];
-          }
+          for (int q = 0; q < MAX_IO; ++q)
+            if (q < out_size) ga += rnd<BF16>(go_s[r * MAX_IO + q]) * wv[cc][q];
           const float d = omega * iit::fast_cos(omega * zz[cc]);
           const float v = valid ? rnd<MX>(ga) * d : 0.f;
           gz[mi][hh][cc] = v;
           gb[mi][hh][cc] = rnd<BF16>(v);
           av[mi][hh][cc] = valid ? rnd_act<BF16, MX>(iit::fast_sin(omega * zz[cc])) : 0.f;
         }
-        if (valid) {
+        if (valid)
           *reinterpret_cast<float2*>(gz_out + o) = make_float2(gb[mi][hh][0], gb[mi][hh][1]);
-          if constexpr (!LAST)
-            *reinterpret_cast<float2*>(z + o) = make_float2(av[mi][hh][0], av[mi][hh][1]);
-        }
       }
 #pragma unroll
     for (int cc = 0; cc < 2; ++cc) {
@@ -3099,18 +3017,16 @@ __device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, con
           put(1 + k, c + cc, s);
         }
       }
-      if constexpr (LAST) {
 #pragma unroll
-        for (int q = 0; q < MAX_IO; ++q) {
-          if (q >= out_size) break;
-          float s = 0.f;
+      for (int q = 0; q < MAX_IO; ++q) {
+        if (q >= out_size) break;
+        float s = 0.f;
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
-              s += av[mi][hh][cc] * rnd<BF16>(go_s[w.row(mi, 2 * hh) * MAX_IO + q]);
-          put(o_slot + q, c + cc, s);
-        }
+          for (int hh = 0; hh < 2; ++hh)
+            s += av[mi][hh][cc] * rnd<BF16>(go_s[w.row(mi, 2 * hh) * MAX_IO + q]);
+        put(o_slot + q, c + cc, s);
       }
     }
   }
@@ -3130,7 +3046,7 @@ __device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, con
       d = part + p.off_dwl + (tl.n0 + c) * (long long)out_size + (slot - o_slot);
     *d = first_tile ? v : *d + v;
   }
-  if (LAST && tl.n0 == 0) {
+  if (tl.n0 == 0) {
     for (int q = tid; q < out_size; q += LW_THREADS) {
       float s = 0.f;
       for (int r = 0; r < LW_T; ++r) s += go_s[r * MAX_IO + q];
@@ -3144,11 +3060,10 @@ __device__ __forceinline__ void lw_bwd_epilogue(Acc acc, const LayerArgs& p, con
 // Shared memory of the forward's first layer: its input tile (kLwHidden's
 // is kLfSmem; kLwLast needs none).
 constexpr size_t kLwFwdSmem = sizeof(float) * LW_T * MAX_IO;
-// The ring, the input and cotangent tiles, the column sums.
-constexpr size_t kLwBwdSmem =
-    sizeof(float) * (LW_NST * LwRing::SLICE + 2 * LW_T * MAX_IO + LW_SLOTS * 4 * LW_N) +
-    LW_NST * sizeof(uint64_t);
-static_assert(kLwBwdSmem <= 232448 && kLwFwdSmem <= kLwBwdSmem, "the layer kernels' shared memory");
+// The backward's last layer: the input and cotangent tiles, the column sums
+// (kLwHidden's is kLbSmem; kLwFirst needs none).
+constexpr size_t kLwLastSmem = sizeof(float) * (2 * LW_T * MAX_IO + LW_SLOTS * 4 * LW_N);
+static_assert(kLwLastSmem <= 232448, "the last layer's shared memory");
 // dW's rows summed from zero in the accumulators before they are added to
 // the running total: LW_DW_GROUP x 32 = 1,024 rows. One accumulator over a
 // whole split (16,384 rows at 512², w1024) read 1.5e-4 of max |dW| against
@@ -3158,7 +3073,8 @@ constexpr int LW_DW_GROUP = 32;
 
 // ------------------------------------ the layer-wise products on wgmma
 //
-// sine_mlp_layer_fwd's kLwHidden and sine_mlp_layer_dw. Feeding warps and
+// sine_mlp_layer_fwd's and sine_mlp_layer_bwd's kLwHidden and
+// sine_mlp_layer_dw. Feeding warps and
 // two consuming warpgroups: one thread stages the operands' fp32 rows by
 // tensor copies (the TMA: a box of a tensor map a request, 128-byte
 // swizzle) and, in the forward, W's planes by a bulk copy, through an
@@ -3374,6 +3290,227 @@ __device__ __forceinline__ void lf_hidden(const LayerArgs& p, const CUtensorMap*
   }
 }
 
+// -------- sine_mlp_layer_bwd, kLwHidden: ga_{l-1} = G_l W_l^T on wgmma
+//
+// The forward's design and product shape: block (s, c) of tile_grid walks
+// slice s's row tiles and, for each, K = H of G_l (n, H) against column
+// tile c of W_l^T, in stages of LF_KC: G's 128 rows x 32 fp32 by one tensor
+// copy of a box (a tensor map of G, 128-byte swizzle, rows from n on
+// zeros) and W^T's chunk of planes (ops/sine_mlp.layer_weight_planes of
+// W^T, packed once per K2 call) by one bulk copy, both from one feeding
+// thread. The consumers split their A fragments of G into BwPlanes::G
+// planes in registers and issue the passes against W^T's BwPlanes::W
+// planes (six in fp32, three in fp32+mixed, one in bf16), K summed in
+// groups of 128 from zero (LW_K_GROUP). The same thread also copies the
+// tile's z (128 x 128 fp32, four tensor-copy boxes of a map of z) into a
+// buffer of its own while the tile's products run, once the epilogue of
+// the tile before is done with it (zfull / zempty). The epilogue of a
+// warpgroup's 64 rows, gz = rnd<MX>(ga) omega cos(omega z), G_{l-1} =
+// rnd(gz) into p.dst and A_{l-1} = rnd_act(sin(omega z)) over z in device
+// memory (which nothing reads after it: sine_mlp_layer_dw takes it as its
+// A), reads z from the buffer and runs while the other warpgroup's
+// products are in flight, as the forward's does: only the ring joins the
+// warpgroups. (z read from device memory in the epilogue held the kernel to
+// its loads' latency, even behind an L2 prefetch; the epilogue cut into
+// pieces under the next tile's first K group read slower in bf16 and
+// "+mixed": PERF.md §6, PR 22.) db's column sums: the thread's two
+// rows, then its column's 8 lanes by shuffles, then tile after tile in a
+// running sum held by one of those lanes (lane g holds column pairs g and
+// g + 8 of its 16); at the end the 8 consumer warps meet at named barriers
+// of their 256 threads, and one thread a column adds the warps' sums in
+// warp order through shared memory and stores them into the slice. FIRST
+// (the layer below is the first) then sums dW_0 = x^T G_{l-1} over the
+// slice's rows from G_{l-1} as stored, two threads a column (half the rows
+// each, then added in order). A fixed order throughout: a run repeats bit
+// for bit, with no atomics.
+constexpr int LB_NS = 4;  // stages (z's buffer takes the forward's fifth)
+// The hidden backward's shared memory: LB_NS stages, z's buffer (four
+// 32-column boxes of 128 rows) from byte kLbZ, then full[LB_NS],
+// empty[LB_NS], zfull, zempty from kLbBar; + 1 KB: the stages and z start
+// at 1024-byte boundaries (the swizzled boxes). The column sums meet in the
+// first stage at the end.
+constexpr size_t kLbZ = LB_NS * kLfStage, kLbBar = kLbZ + (size_t)LW_T * LW_N * 4;
+constexpr size_t kLbSmem = kLbBar + (2 * LB_NS + 2) * sizeof(uint64_t) + 1024;
+static_assert(kLbSmem + sizeof(LayerArgs) <= 232448 && (8 + MAX_IO) * LW_N * 4 <= kLfStage &&
+                  kLfW == (size_t)LW_T * 32 * 4,
+              "the hidden backward's shared memory");
+
+// The epilogue of the warpgroup's rows row0 + r + 8 hh (tot their
+// product; rt + 8 hh the same rows in the tile) from z's buffer z_s; db:
+// the thread's running column sums of db, of column pairs g and g + 8.
+template <bool BF16, bool MX>
+__device__ __forceinline__ void lb_epilogue(const float (&tot)[64], const uint8_t* __restrict__ z_s,
+                                            const LayerArgs& p, float (&db)[2][2], int n0,
+                                            long long row0, int r, int rt, int g, int t) {
+  const long long h = p.hidden;
+  const float omega = p.omega;
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni) {
+    const int c = 8 * ni + 2 * t;
+    float v[2][2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long row = row0 + r + 8 * hh;
+      // the box of column c, its row rt + 8 hh of the tile
+      const float2 zv = *reinterpret_cast<const float2*>(z_s + (c >> 5) * kLfW +
+                                                         iit::swz128(rt + 8 * hh, c & 31));
+      const float zz[2] = {zv.x, zv.y};
+      const bool valid = row < p.n;
+      float gb[2], av[2];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const float d = omega * iit::fast_cos(omega * zz[cc]);
+        v[hh][cc] = valid ? rnd<MX>(tot[4 * ni + 2 * hh + cc]) * d : 0.f;
+        gb[cc] = rnd<BF16>(v[hh][cc]);
+        av[cc] = rnd_act<BF16, MX>(iit::fast_sin(omega * zz[cc]));
+      }
+      if (valid) {
+        const long long o = row * h + n0 + c;
+        *reinterpret_cast<float2*>(p.dst + o) = make_float2(gb[0], gb[1]);
+        *reinterpret_cast<float2*>(p.z + o) = make_float2(av[0], av[1]);
+      }
+    }
+    // the column pair's sums over the warp's 16 rows, into lane g = ni % 8's
+    // running sums
+    const float s0 = lw_lanes(v[0][0] + v[1][0]), s1 = lw_lanes(v[0][1] + v[1][1]);
+    const bool mine = g == (ni & 7);
+    db[ni >> 3][0] = mine ? db[ni >> 3][0] + s0 : db[ni >> 3][0];
+    db[ni >> 3][1] = mine ? db[ni >> 3][1] + s1 : db[ni >> 3][1];
+  }
+}
+
+// FIRST, after the tiles: dW_0[k] over the block's rows [r0, r1) from
+// G_{l-1} as this block stored it (p.dst, the block's columns) and x,
+// consumer thread ct (0-255) summing column ct % LW_N over half the rows
+// in order, the second half's sums then added to the first's through
+// shared memory (comb, MAX_IO x LW_N floats) under a named barrier.
+template <bool BF16>
+__device__ __forceinline__ void lb_dw0(const LayerArgs& p, const LwTiles& tl, long long r0,
+                                       long long r1, float* __restrict__ comb, int ct) {
+  const int c = ct % LW_N, half = ct / LW_N, in_size = p.in_size;
+  const long long mid = (r0 + r1) / 2, a = half ? mid : r0, b = half ? r1 : mid;
+  const float* g = p.dst + tl.n0 + c;
+  float acc[MAX_IO];
+#pragma unroll
+  for (int k = 0; k < MAX_IO; ++k) acc[k] = 0.f;
+#pragma unroll 4
+  for (long long row = a; row < b; ++row) {
+    const float gv = g[row * p.hidden];
+#pragma unroll
+    for (int k = 0; k < MAX_IO; ++k)
+      if (k < in_size) acc[k] += rnd<BF16>(__ldg(p.x + row * in_size + k)) * gv;
+  }
+  if (half)
+    for (int k = 0; k < in_size; ++k) comb[k * LW_N + c] = acc[k];
+  iit::named_barrier(1, 256);
+  if (!half) {
+    float* part = p.part + tl.slice * p.n_part + p.off_dw0 + tl.n0 + c;
+    for (int k = 0; k < in_size; ++k) part[k * p.hidden] = acc[k] + comb[k * LW_N + c];
+  }
+}
+
+template <bool BF16, bool MX, bool FIRST>
+__device__ __forceinline__ void lb_hidden(const LayerArgs& p, const CUtensorMap* tm_g,
+                                          const CUtensorMap* tm_z, uint8_t* smem, int tid) {
+  using P = BwPlanes<BF16, MX>;  // G = rnd(gz): P::G planes; W^T: P::W
+  smem += (1024 - iit::smem_u32(smem) % 1024) % 1024;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kLbBar);
+  uint64_t* empty = full + LB_NS;
+  uint64_t* zfull = empty + LB_NS;
+  uint64_t* zempty = zfull + 1;
+  uint8_t* z_s = smem + kLbZ;
+  if (tid == 0) {
+    for (int i = 0; i < LB_NS; ++i) {
+      iit::mbar_init(full + i, 1);
+      iit::mbar_init(empty + i, 8);
+    }
+    iit::mbar_init(zfull, 1);
+    iit::mbar_init(zempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const LwTiles tl(p);
+  const int kcs = p.hidden / LF_KC;
+  if (tid < 128) {  // the feeding warpgroup: its thread 0 streams the stages and z
+    iit::reg_dealloc<LF_FEED_REGS>();
+    if (tid != 0) return;
+    const __nv_bfloat16* wp = reinterpret_cast<const __nv_bfloat16*>(p.w) +
+                              (size_t)(tl.n0 / LW_N) * kcs * P::W * (LF_KC * LW_N);
+    const int mg = p.g_m != 0 ? (int)blockIdx.y : 0, mz = p.z_m != 0 ? (int)blockIdx.y : 0;
+    // z after the tile's stage kz: by then the ring's slots have waited for
+    // the tile's first stage to be consumed, so for the epilogue before
+    const int kz = LB_NS < kcs - 1 ? LB_NS : kcs - 1;
+    uint32_t q = 0;
+    for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+      for (int kc = 0; kc < kcs; ++kc, ++q) {
+        const int s = q % LB_NS;
+        if (q >= LB_NS) iit::mbar_wait(empty + s, (q / LB_NS - 1) & 1);
+        uint8_t* st = smem + s * kLfStage;
+        iit::mbar_expect_tx(full + s, kLfW + P::W * LF_PLANE);
+        iit::tensor_g2s(st, tm_g, kc * LF_KC, (int)(tile * LW_T), mg, full + s);
+        iit::bulk_g2s(st + kLfW, wp + (size_t)kc * P::W * (LF_KC * LW_N), P::W * LF_PLANE,
+                      full + s);
+        if (kc == kz) {
+          const long long k = tile - tl.t0;
+          if (k > 0) iit::mbar_wait(zempty, (k - 1) & 1);
+          iit::mbar_expect_tx(zfull, LW_T * LW_N * 4);
+#pragma unroll
+          for (int b = 0; b < LW_N / 32; ++b)
+            iit::tensor_g2s(z_s + b * kLfW, tm_z, tl.n0 + 32 * b, (int)(tile * LW_T), mz, zfull);
+        }
+      }
+    }
+    return;
+  }
+  iit::reg_alloc<LF_CONS_REGS>();
+  const int w = (tid >> 7) - 1;
+  const WgPos pos(tid & 127);
+  const int r_w = 16 * pos.wi + pos.g;  // the thread's first row of the warpgroup's 64
+  const int r_a = 64 * w + r_w;         // and of the tile
+  float db[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float tot[64], grp[64];
+  uint32_t a0[P::G][1][4], a1[P::G][1][4];
+  uint64_t* held = nullptr;
+  uint32_t q = 0;
+  for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+    for (int kc = 0; kc < kcs; ++kc, ++q) {
+      const int s = q % LB_NS;
+      iit::mbar_wait(full + s, (q / LB_NS) & 1);
+      const uint8_t* a_s = smem + s * kLfStage;
+      const bool end = kc % LF_GROUP == LF_GROUP - 1;  // a tile ends a group
+      lwg_chunk<P::G, P::W>(
+          grp, a0, a1,
+          [&](int kk, uint32_t(&a)[P::G][1][4]) { lf_frags<P::G>(a_s, r_a, kk, pos.t, a); },
+          [&](const float(&d)[64]) {
+#pragma unroll
+            for (int i = 0; i < 64; ++i) tot[i] = kc < LF_GROUP ? d[i] : tot[i] + d[i];
+          },
+          iit::smem_u32(a_s + kLfW), LF_PLANE, kc % LF_GROUP == 0, end, held, empty + s);
+    }
+    iit::wg_wait<0>();  // a tile ends a group (none in flight): ptxas cannot see that
+    iit::mbar_wait(zfull, (tile - tl.t0) & 1);
+    lb_epilogue<BF16, MX>(tot, z_s, p, db, tl.n0, tile * LW_T + 64 * w, r_w, r_a, pos.g, pos.t);
+    lwg_release(zempty);
+  }
+  // db: the 8 warps' sums, added in warp order, one thread a column, in the
+  // first stage once no warp reads the stages
+  float* sums = reinterpret_cast<float*>(smem);
+  iit::named_barrier(1, 256);
+  float* mine = sums + ((tid >> 5) - 4) * LW_N + 8 * pos.g + 2 * pos.t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mine[64 * (i >> 1) + (i & 1)] = db[i >> 1][i & 1];
+  iit::named_barrier(1, 256);
+  const int ct = tid - 128;
+  if (ct < LW_N) {
+    float v = sums[ct];
+#pragma unroll
+    for (int wd = 1; wd < 8; ++wd) v += sums[wd * LW_N + ct];
+    p.part[tl.slice * p.n_part + p.off_db + tl.n0 + ct] = v;
+  }
+  if constexpr (FIRST)
+    lb_dw0<BF16>(p, tl, tl.t0 * LW_T, tl.t1 * LW_T < p.n ? tl.t1 * LW_T : p.n, sums + 8 * LW_N, ct);
+}
+
 // ------------------------- sine_mlp_layer_dw: dW_l = A_l^T G_l on wgmma
 //
 // Block (s, tile) sums the 128 x 128 tile (m0, n0) of dW over split s's rows
@@ -3549,45 +3686,33 @@ __global__ void __launch_bounds__(KIND == kLwHidden ? LF_THREADS : LW_THREADS, 1
   }
 }
 
+// kLwHidden on wgmma (lb_hidden, LF_THREADS threads, p.w W^T's planes,
+// tm_g and tm_z tensor maps of g and z); the first and last layers on FMA
+// (LW_THREADS threads, the maps not read).
 template <bool BF16, bool MX, int KIND, bool FIRST>
-__global__ void __launch_bounds__(LW_THREADS, 1) sine_mlp_layer_bwd_kernel(LayerArgs arg) {
+__global__ void __launch_bounds__(KIND == kLwHidden ? LF_THREADS : LW_THREADS, 1)
+    sine_mlp_layer_bwd_kernel(LayerArgs arg, const __grid_constant__ CUtensorMap tm_g,
+                              const __grid_constant__ CUtensorMap tm_z) {
   __shared__ LayerArgs p;
   lw_member(p, arg);
   const int tid = threadIdx.x;
+  extern __shared__ float4 smem4[];
   if constexpr (KIND == kLwFirst) {  // dx = G_0 W_0^T
     lw_narrow_rows<BF16>(p.g, p.hidden, p.w, 1, p.hidden, p.in_size, nullptr, p.dst, p.n);
+  } else if constexpr (KIND == kLwHidden) {
+    lb_hidden<BF16, MX, FIRST>(p, &tm_g, &tm_z, reinterpret_cast<uint8_t*>(smem4), tid);
   } else {
-    extern __shared__ float4 smem4[];
-    float* ring_s = reinterpret_cast<float*>(smem4);
-    float* x_s = ring_s + LW_NST * LwRing::SLICE;
+    float* x_s = reinterpret_cast<float*>(smem4);
     float* go_s = x_s + LW_T * MAX_IO;
     float* red = go_s + LW_T * MAX_IO;
-    uint64_t* bar = reinterpret_cast<uint64_t*>(red + LW_SLOTS * 4 * LW_N);
     const Warp w(tid, LwG::CG);
     const LwTiles tl(p);
-    Acc acc;
-    if constexpr (KIND == kLwLast) {
-      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
-        const long long row0 = tile * LW_T;
-        lw_stage_rows<false>(go_s, p.src, row0, p.n, p.out_size, tid);
-        if constexpr (FIRST) lw_stage_rows<BF16>(x_s, p.x, row0, p.n, p.in_size, tid);
-        __syncthreads();
-        lw_bwd_epilogue<BF16, MX, true, FIRST>(acc, p, tl, row0, x_s, go_s, red, w, tid);
-      }
-    } else {
-      init_barriers<LW_THREADS>(bar, LW_NST);
-      RingT<LwRing> ring{ring_s, bar};
-      const long long total = (tl.t1 - tl.t0) * (p.hidden / LW_KC);
-      for (int b = 0; b < LW_NST && b < total; ++b) lw_issue(ring, b, b, p.g, p.w, p, tl, tid);
-      long long j = 0;
-      for (long long tile = tl.t0; tile < tl.t1; ++tile) {
-        const long long row0 = tile * LW_T;
-        // x_s is read after the product's barriers, and the last epilogue's
-        // barrier came before this write
-        if constexpr (FIRST) lw_stage_rows<BF16>(x_s, p.x, row0, p.n, p.in_size, tid);
-        lw_product<BF16>(acc, ring, j, total, p.g, p.w, p, tl, w, tid);
-        lw_bwd_epilogue<BF16, MX, false, FIRST>(acc, p, tl, row0, x_s, go_s, red, w, tid);
-      }
+    for (long long tile = tl.t0; tile < tl.t1; ++tile) {
+      const long long row0 = tile * LW_T;
+      lw_stage_rows<false>(go_s, p.src, row0, p.n, p.out_size, tid);
+      if constexpr (FIRST) lw_stage_rows<BF16>(x_s, p.x, row0, p.n, p.in_size, tid);
+      __syncthreads();
+      lw_last_epilogue<BF16, MX, FIRST>(p, tl, row0, x_s, go_s, red, w, tid);
     }
   }
 }
@@ -3896,35 +4021,44 @@ int sine_mlp_layer_fwd(const LayerArgs* a, int kind, int bf16, void* stream) {
 }
 #elif SINE_MLP_LAYER == 1
 // kind: kLwLast (src g, w W_{D-1}, z z_L, dst G_L), kLwHidden (g G_l, w
-// W_l^T, z z_{l-1}, dst G_{l-1}), each with part and x where the layer below
-// is the first; kLwFirst (g G_0, w W_0, dst dx).
+// W_l^T's planes (ops/sine_mlp.layer_weight_planes of W_l^T), z z_{l-1},
+// dst G_{l-1}), each with part and x where the layer below is the first;
+// kLwFirst (g G_0, w W_0, dst dx).
 int sine_mlp_layer_bwd(const LayerArgs* a, int kind, int bf16, void* stream) {
   if (!layer_args_ok(a) || a->n == 0) return a != nullptr && a->n == 0 ? 0 : (int)cudaErrorInvalidValue;
-  // 16-byte copies of the product's operands (G, W^T), 8-byte loads and
-  // stores of the epilogue's rows (z, G); g, x, dx, the last and first
-  // layers' W and the partials are read and written a value at a time
+  // tensor copies of G and z and bulk copies of W^T's planes, 8-byte stores
+  // of the epilogue's rows (z, G); g, x, dx,
+  // the last and first layers' W and the partials are read and written a
+  // value at a time
   if (kind != kLwHidden && kind != kLwFirst && kind != kLwLast) return (int)cudaErrorInvalidValue;
   if ((kind == kLwHidden && (!aligned16(a->g) || !aligned16(a->w))) ||
       (kind != kLwFirst && (!aligned16(a->z) || !aligned16(a->dst) || a->part == nullptr ||
                             (kind == kLwLast && a->src == nullptr))) ||
       (kind == kLwFirst && (a->g == nullptr || a->dst == nullptr)))
     return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_g{}, tm_z{};  // kLwHidden's G and z (the other kinds read none)
+  if (kind == kLwHidden) {
+    cudaError_t err = row_tensor_map(&tm_g, a->g, a->n, a->hidden, a->members, a->g_m, LW_T);
+    if (err == cudaSuccess)
+      err = row_tensor_map(&tm_z, a->z, a->n, a->hidden, a->members, a->z_m, LW_T);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool first = a->x != nullptr;
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
     if (kind == kLwFirst)
       return launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwFirst, false>, narrow_grid(a), LW_THREADS,
-                    0, s, *a);
+                    0, s, *a, tm_g, tm_z);
     if (kind == kLwLast)
       return first ? launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwLast, true>, tile_grid(a),
-                            LW_THREADS, kLwBwdSmem, s, *a)
+                            LW_THREADS, kLwLastSmem, s, *a, tm_g, tm_z)
                    : launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwLast, false>, tile_grid(a),
-                            LW_THREADS, kLwBwdSmem, s, *a);
+                            LW_THREADS, kLwLastSmem, s, *a, tm_g, tm_z);
     return first ? launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwHidden, true>, tile_grid(a),
-                          LW_THREADS, kLwBwdSmem, s, *a)
+                          LF_THREADS, kLbSmem, s, *a, tm_g, tm_z)
                  : launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwHidden, false>, tile_grid(a),
-                          LW_THREADS, kLwBwdSmem, s, *a);
+                          LF_THREADS, kLbSmem, s, *a, tm_g, tm_z);
   });
 }
 #else

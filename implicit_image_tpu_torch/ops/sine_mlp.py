@@ -1190,8 +1190,10 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     `sine_mlp_layer_dw`, then dx. Returns (dx, partials, sizes): dx (M, N,
     in) and partials (M, S, n_part) when `batched`, else one member's.
     Buffers: the z stash (M, D-1, N, H), two (M, N, H) buffers (the
-    activations, then G_l in buffer l % 2) and the partials; when they
-    exceed the device's free memory this raises ValueError first."""
+    activations, then G_l in buffer l % 2), the partials and the hidden
+    W's and W^T's planes (`_layer_planes`, packed once a call: the
+    recompute's and the backward's); when they exceed the device's free
+    memory this raises ValueError first."""
     bf16, mixed = precision_modes(precision)
     first = _first_member(members)
     lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
@@ -1204,19 +1206,21 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     # partial_layout's; tools/layer_width_ab.py runs them at 512 too)
     _, n_part, sizes = partial_layout(n, depth, in_size, first[0]["w"].shape[1], out_size, dev)
     slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
-    _check_fits(4 * m * ((layers + 3) * n * hidden + slices * n_part + n * in_size), dev,
+    planes = 1 if bf16 or mixed else 3
+    _check_fits(4 * m * ((layers + 3) * n * hidden + slices * n_part + n * in_size
+                         + planes * layers * hidden * hidden), dev,
                 f"the layer-wise backward at width {hidden} over {n} rows"
                 + (f" and {m} members" if batched else "")
                 + " (train.pixel_chunks splits the rows)")
     ops = _members_lead(_pack_members(members, hidden, mixed))
     w0, wm, wl, bs, bl = ops
-    wmt = wm.transpose(-1, -2).contiguous()
     fwd_ops = (w0, _layer_planes(wm, bf16, mixed), wl, bs, bl)  # the recompute's, once
+    wtp = _layer_planes(wm.transpose(-1, -2), bf16, mixed)  # W^T's, the backward's, once
     x = _rnd(x.float(), mixed).contiguous()
     xm = x if x.dim() == 3 else x.unsqueeze(0)
     g = g.float().contiguous()
     gm = g if g.dim() == 3 else g.unsqueeze(0)
-    for name_, t in zip(("w0", "wm", "wl", "bs"), ops[:4]):
+    for name_, t in zip(("w0", "wm", "wl", "bs", "planes"), (*ops[:4], wtp)):
         _check_cuda(name_, t, dev)
     # x and g are read a value at a time
     _check_cuda("x", x, dev, aligned=False)
@@ -1244,7 +1248,7 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
                       "sine_mlp_layer_bwd" + suffix, dev)
         for l in range(layers, 0, -1):  # ga_{l-1} = G_l W_l^T, then dW_l = A_l^T G_l
             args = _layer_args(
-                omega=om[l - 1], g=bufs[:, l % 2], w=wmt[:, l - 1], z=z[:, l - 1],
+                omega=om[l - 1], g=bufs[:, l % 2], w=wtp[:, l - 1], z=z[:, l - 1],
                 dst=bufs[:, (l - 1) % 2], x=xm if l == 1 else None, part=partials,
                 offsets=dict(off_db=starts[3] + (l - 1) * hidden, off_dw0=starts[0]), **common)
             _layer_launch(lib, "sine_mlp_layer_bwd", args, _HIDDEN, bf16, mixed,
@@ -1353,6 +1357,84 @@ def sine_mlp_layer_fwd(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, omega:
         _layer_launch(_lib(), "sine_mlp_layer_fwd", args, _HIDDEN, bf16, mixed,
                       "sine_mlp_layer_fwd", dev)
     return (z, out) if stash else out
+
+
+def layer_bwd_reference(g: torch.Tensor, w: torch.Tensor, z: torch.Tensor, omega: float,
+                        precision: str = "fp32", x: Optional[torch.Tensor] = None):
+    """Plain version of one hidden layer of the layer-wise backward
+    (`sine_mlp_layer_bwd`, kind hidden), in the chain's rounding: G_l = g (N,
+    H) as the chain keeps it, W_l = w (H, H), z = z_{l-1} (N, H) the
+    pre-activation below, omega that layer's -> (G_{l-1}, A_{l-1}, db,
+    dW_0): ga = G_l W_l^T, gz = rnd<mixed>(ga) omega cos(omega z), G_{l-1} =
+    rnd<bf16>(gz), A_{l-1} = rnd(sin(omega z)) (the next dW's A), db =
+    sum_rows gz (H,), and with x (N, in) (the layer below is the first)
+    dW_0 = rnd(x)^T G_{l-1} (in, H), else None. W rounded in the bf16 mode
+    as the chain rounds it."""
+    bf16, mixed = precision_modes(precision)
+    ga = g.float() @ _rnd(w.float(), bf16).t()
+    gz = _rnd(ga, mixed) * (omega * fast_cos(omega * z.float()))
+    gzb = _rnd(gz, bf16)
+    a = _rnd(fast_sin(omega * z.float()), bf16 or mixed)
+    dw0 = None if x is None else _rnd(x.float(), bf16 or mixed).t() @ gzb
+    return gzb, a, gz.sum(0), dw0
+
+
+def sine_mlp_layer_bwd(g: torch.Tensor, w: torch.Tensor, z: torch.Tensor, omega: float,
+                       precision: str, x: Optional[torch.Tensor] = None,
+                       inplace: bool = False):
+    """Launch the layer-wise backward for one hidden layer (kind hidden): g
+    = G_l (N, H) fp32 on the card as the chain keeps it, w = W_l (H, H) or
+    its transpose's planes as `_layer_planes(W^T)` makes them (a caller
+    timing launches makes them once), z = z_{l-1} (N, H), H a multiple of
+    LAYER_TILE, and with x (N, in) the dW_0 sums of the first layer ->
+    (G_{l-1}, A_{l-1}, db, dW_0): `layer_bwd_reference` in the kernel's
+    summation order, except that db (S, H) and dW_0 (S, in, H) (None
+    without x) are the sums of each of the S = `layer_slices` row slices
+    (`layer_slice_rows`), which add up to the reference's. A_{l-1} is
+    written over a copy of z, or with `inplace` over z itself (as K2 does;
+    z is returned as A_{l-1}). Counted as "sine_mlp_layer_bwd". Shapes or a
+    CPU tensor it does not take raise ValueError before the library is
+    built."""
+    bf16, mixed = precision_modes(precision)
+    n, hidden = g.shape if g.dim() == 2 else (0, 0)
+    if (g.dim() != 2 or hidden % LAYER_TILE or hidden < LAYER_TILE
+            or tuple(z.shape) != tuple(g.shape)):
+        raise ValueError(f"sine_mlp_layer_bwd: expected g and z (N, H), H a multiple of "
+                         f"{LAYER_TILE}; got {tuple(g.shape)}, {tuple(z.shape)}")
+    if x is not None and (x.dim() != 2 or x.shape[0] != n or not 1 <= x.shape[1] <= 8):
+        raise ValueError(f"sine_mlp_layer_bwd: expected x (N, in), in <= 8, got "
+                         f"{tuple(x.shape)} for g of {tuple(g.shape)}")
+    if w.dim() == 2:  # W itself: its transpose's planes, made here
+        if tuple(w.shape) != (hidden, hidden):
+            raise ValueError(f"sine_mlp_layer_bwd: W {tuple(w.shape)} for g of {tuple(g.shape)}")
+        w = _layer_planes(_rnd(w.float(), mixed).t()[None], bf16, mixed)[0]
+    planes = 1 if bf16 or mixed else 3
+    if w.numel() != planes * hidden * hidden // 2:
+        raise ValueError(f"sine_mlp_layer_bwd: {w.numel()} words of W^T's planes, expected "
+                         f"{planes * hidden * hidden // 2} ({planes} planes of {hidden}^2)")
+    for label, t in (("g", g), ("planes", w), ("z", z)):
+        _check_cuda(label, t, g.device)
+    dev = g.device
+    if x is not None:
+        x = _rnd(x.float(), mixed).contiguous()
+        _check_cuda("x", x, dev, aligned=False)  # read a value at a time
+    in_size = 1 if x is None else x.shape[1]
+    slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # a partial slice: db, then dW_0's rows
+    n_part = -(-(hidden + (0 if x is None else in_size * hidden)) // 4) * 4
+    part = torch.zeros((slices, n_part), dtype=torch.float32, device=dev)
+    out = torch.empty_like(g)
+    a = z if inplace else z.clone()
+    args = _layer_args(n=n, in_size=in_size, hidden=hidden, out_size=1, slices=slices,
+                       members=1, omega=omega, n_part=n_part,
+                       offsets=dict(off_db=0, off_dw0=hidden), g=g[None], w=w[None], z=a[None],
+                       dst=out[None], x=None if x is None else x[None], part=part[None])
+    with torch.cuda.device(dev):
+        _layer_launch(_lib(), "sine_mlp_layer_bwd", args, _HIDDEN, bf16, mixed,
+                      "sine_mlp_layer_bwd", dev)
+    dw0 = None if x is None else part[:, hidden: hidden + in_size * hidden].view(
+        slices, in_size, hidden)
+    return out, a, part[:, :hidden], dw0
 
 
 def sine_mlp_layer_partials(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):

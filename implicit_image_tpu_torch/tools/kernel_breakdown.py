@@ -43,7 +43,9 @@ costs:
 
 --variants picks some of them (default: all), --precisions the modes timed
 (default fp32), --members M also times sine_mlp_bwd_batched over M members
-in each mode. --build-dir keeps the built files there, each under the hash
+in each mode, --split also runs one fp32 K2 under torch.profiler and
+records each kernel's device ms and launches (the layer-wise backward's
+by kind: hidden, last, first). --build-dir keeps the built files there, each under the hash
 of the sources it was built from, and reuses one only for the same sources
 (--build-only builds and stops), so that two trees can share the directory
 and be timed in turns without building again. The variants match the
@@ -215,6 +217,48 @@ def _time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def layer_kind(name: str):
+    """The kind (0 first, 1 hidden, 2 last: the third template argument) of a
+    layer-wise forward or backward kernel's name, as ptxas's demangler
+    ("(int)1") or the profiler ("1") writes it; None for other kernels."""
+    for kernel in ("sine_mlp_layer_fwd_kernel<", "sine_mlp_layer_bwd_kernel<"):
+        if kernel in name:
+            return int(name.split(kernel)[1].split(">")[0].split(",")[2].strip()[-1])
+    return None
+
+
+def k2_split(k2) -> dict:
+    """One call of k2 under torch.profiler: {kernel: [device ms, launches]},
+    the layer-wise kernels by name (sine_mlp_layer_bwd_kernel by kind:
+    hidden, last, first), the others by the start of theirs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from implicit_image_tpu_torch import profile_fit
+
+    k2()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        k2()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "k2.trace.json"
+        prof.export_chrome_trace(str(trace))
+        rows = profile_fit.trace_breakdown(trace, 1)["rows"]
+    kinds = {0: "first", 1: "hidden", 2: "last"}
+    split = {}
+    for row in rows:
+        name = row["name"]
+        key = next((k for k in ("sine_mlp_layer_fwd_kernel", "sine_mlp_layer_bwd_kernel",
+                                "sine_mlp_layer_dw_kernel", "sum_partials_kernel")
+                    if k in name), name[:60])
+        if key == "sine_mlp_layer_bwd_kernel":
+            key += " " + kinds[layer_kind(name)]
+        got = split.setdefault(key, [0.0, 0])
+        got[0] += row["ms"]
+        got[1] += row["count"]
+    return split
+
+
 def _sha256(*tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
@@ -231,6 +275,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--members", type=int, default=0)
     ap.add_argument("--build-dir", default=None)
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_breakdown: needs a CUDA device")
@@ -314,6 +359,11 @@ def main(argv=None) -> dict:
                                                               for t in gr.values()))
                     line += (f", sha256 fwd {rows[name]['fwd_sha256']} bwd "
                              f"{rows[name]['bwd_sha256']}")
+                if args.split:
+                    rows[name]["k2_split"] = k2_split(
+                        lambda: sm.sine_mlp_bwd(params, x, g, mcfg, "fp32"))
+                    line += ", K2's kernels (device ms / launches): " + "; ".join(
+                        f"{k} {ms:.3f} / {n}" for k, (ms, n) in rows[name]["k2_split"].items())
                 if dw_args is not None:
                     rows[name]["dw_ms"] = _time_ms(lambda: sm.sine_mlp_dw(*dw_args))
                     line += f", sine_mlp_dw alone {rows[name]['dw_ms']:.4f} ms"

@@ -3,18 +3,24 @@
     python -m implicit_image_tpu_torch.tools.layer_knockouts [--widths 640 1024]
         [--out FILE]
 
-Builds copies of the layer-wise forward part and dW part of
-csrc/sine_mlp.cu (-DSINE_MLP_LAYER=0 and 2, one nvcc each, all at once)
+Builds copies of the layer-wise forward, backward and dW parts of
+csrc/sine_mlp.cu (-DSINE_MLP_LAYER=0, 1 and 2, one nvcc each, all at once)
 with one part knocked out each (their results are wrong by design), and
-times one hidden `sine_mlp_layer_fwd` launch and one `sine_mlp_layer_dw`
-launch of each at 512^2 rows and every width of --widths, in the fp32 and
-bf16 modes (CUDA events over 10 launches after a warm-up; each variant's
-launches in turns with the others', two rounds, the second kept):
+times one hidden `sine_mlp_layer_fwd` launch, one hidden
+`sine_mlp_layer_bwd` launch and one `sine_mlp_layer_dw` launch of each at
+512^2 rows and every width of --widths, in the fp32 and bf16 modes (CUDA
+events over 10 launches after a warm-up; each variant's launches in turns
+with the others', two rounds, the second kept):
 
-  no_mma      the products (every wgmma pass of both kernels)
+  no_mma      the products (every wgmma pass of each kernel)
   no_split    the forward: the consumers' split of the activations into
               planes (the fp32 bits as the one plane)
-  no_epi      the forward: the epilogue (z's stash, the sine and a's stores)
+  no_epi      the forward: the epilogue (z's stash, the sine and a's
+              stores); the backward: its epilogue (gz, G's and A's stores,
+              db's column sums; z is still copied in)
+  no_feed     the backward: the feeding thread's copies (each stage's and
+              z's mbarrier completes at once, the products and the epilogue
+              read what the buffers hold)
   no_gsplit   dW: the feeding warpgroups' split of G into planes
   no_asplit   dW: the consumers' split of A into planes
 
@@ -42,6 +48,16 @@ PASS0 = "  wg_passes<PA, PB, 1, 1>(d, a0, 0, b0, plane, first);"
 PASS1 = "  wg_passes<PA, PB, 1, 1>(d, a1, 0, b0 + 4096, plane, false);"
 FWD_SPLIT = "    iit::split_planes<NP>(v.x, v.y, pl);"
 FWD_EPI = "    lf_epilogue<BF16, MX>(tot, p, tl.n0, tile * LW_T + 64 * w, pos);"
+BWD_EPI = ("    lb_epilogue<BF16, MX>(tot, z_s, p, db, tl.n0, tile * LW_T + 64 * w, r_w, r_a, "
+           "pos.g, pos.t);")
+BWD_FEED = """        iit::mbar_expect_tx(full + s, kLfW + P::W * LF_PLANE);
+        iit::tensor_g2s(st, tm_g, kc * LF_KC, (int)(tile * LW_T), mg, full + s);
+        iit::bulk_g2s(st + kLfW, wp + (size_t)kc * P::W * (LF_KC * LW_N), P::W * LF_PLANE,
+                      full + s);"""
+BWD_ZFEED = """          iit::mbar_expect_tx(zfull, LW_T * LW_N * 4);
+#pragma unroll
+          for (int b = 0; b < LW_N / 32; ++b)
+            iit::tensor_g2s(z_s + b * kLfW, tm_z, tl.n0 + 32 * b, (int)(tile * LW_T), mz, zfull);"""
 DW_GSPLIT = ("      ld_split_g<P::G>(smem + f * kLdF32, smem + kLdPl + ps * kLdSlot, valid(k), "
              "tid);")
 DW_ASPLIT = "    iit::split_planes<NP>(x0, x1, pl);"
@@ -56,13 +72,18 @@ def _rep(src: str, *pairs) -> str:
 
 
 def variants(src: str) -> dict:
-    """{(part, name): source}: part 0 the forward, 2 dW (SINE_MLP_LAYER)."""
+    """{(part, name): source}: part 0 the forward, 1 the backward, 2 dW
+    (SINE_MLP_LAYER)."""
     no_mma = _rep(src, (PASS0, ""), (PASS1, ""))
     return {
         (0, "full"): src, (0, "no_mma"): no_mma,
         (0, "no_split"): _rep(src, (FWD_SPLIT, "    pl[0] = __float_as_uint(v.x);\n"
                                                "    if (NP > 1) pl[NP - 1] = __float_as_uint(v.y);")),
         (0, "no_epi"): _rep(src, (FWD_EPI, "    if (tot[0] == 12345.f) " + FWD_EPI.strip())),
+        (1, "full"): src, (1, "no_mma"): no_mma,
+        (1, "no_epi"): _rep(src, (BWD_EPI, "    if (tot[0] == 12345.f) " + BWD_EPI.strip())),
+        (1, "no_feed"): _rep(src, (BWD_FEED, "        iit::mbar_arrive(full + s);"),
+                             (BWD_ZFEED, "          iit::mbar_arrive(zfull);")),
         (2, "full"): src, (2, "no_mma"): no_mma,
         (2, "no_gsplit"): _rep(src, (DW_GSPLIT, "")),
         (2, "no_asplit"): _rep(src, (DW_ASPLIT, "    pl[0] = __float_as_uint(x0);\n"
@@ -81,7 +102,7 @@ def _build(root: Path, key, text: str):
                     f"-DSINE_MLP_LAYER={part}", "-o", str(d / "lib.so"), str(d / "sine_mlp.cu")],
                    check=True, capture_output=True, text=True)
     fn = getattr(ctypes.CDLL(str(d / "lib.so")),
-                 "sine_mlp_layer_fwd" if part == 0 else "sine_mlp_layer_dw")
+                 ("sine_mlp_layer_fwd", "sine_mlp_layer_bwd", "sine_mlp_layer_dw")[part])
     fn.argtypes, fn.restype = cb._SIGNATURES[fn.__name__]
     return fn
 
@@ -125,6 +146,7 @@ def main(argv=None) -> dict:
         w = torch.randn((h, h), device=dev, generator=gen) / h ** 0.5
         b = torch.zeros(h, device=dev)
         out = torch.empty_like(a)
+        z = torch.randn((n, h), device=dev, generator=gen)  # A written over it each launch
         slices = sm.layer_slices(n, h, torch.cuda.get_device_properties(dev).multi_processor_count)
         part = torch.empty((slices, h * h), device=dev)
         for prec in ("fp32", "bf16"):
@@ -134,16 +156,22 @@ def main(argv=None) -> dict:
             fwd = sm._layer_args(n=n, in_size=1, hidden=h, out_size=1, slices=slices, members=1,
                                  omega=30.0, src=a[None], w=planes[None], b=b[None],
                                  dst=out[None])
+            tplanes = sm._layer_planes(w.t()[None], bf16, mixed)[0]
+            bwd = sm._layer_args(n=n, in_size=1, hidden=h, out_size=1, slices=slices, members=1,
+                                 omega=30.0, n_part=h * h, offsets=dict(off_db=0), g=g[None],
+                                 w=tplanes[None], z=z[None], dst=out[None], part=part[None])
             dw = sm._layer_args(n=n, in_size=1, hidden=h, out_size=1, slices=slices, members=1,
                                 n_part=h * h, offsets=dict(off_dw=0), src=a[None], g=g[None],
                                 part=part[None])
-            calls = {key: (lambda fn=fn: fn(ctypes.byref(fwd), 1, flags, stream)) if key[0] == 0
-                     else (lambda fn=fn: fn(ctypes.byref(dw), flags, stream))
+            kinds = {0: fwd, 1: bwd}
+            calls = {key: (lambda fn=fn, k=key[0]: fn(ctypes.byref(kinds[k]), 1, flags, stream))
+                     if key[0] < 2 else (lambda fn=fn: fn(ctypes.byref(dw), flags, stream))
                      for key, fn in fns.items()}
             times = {}
             for _ in range(2):  # the second round is kept
                 times = {key: _ms(call) for key, call in calls.items()}
             for part_no, kernel in ((0, "sine_mlp_layer_fwd (one hidden layer)"),
+                                    (1, "sine_mlp_layer_bwd (one hidden layer)"),
                                     (2, "sine_mlp_layer_dw")):
                 row = {name: t for (p, name), t in times.items() if p == part_no}
                 record["ms"][f"{kernel} w{h} {prec}"] = row

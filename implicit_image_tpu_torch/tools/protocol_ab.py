@@ -7,8 +7,8 @@ cannot show.
 
 Runs compress.main with `entropy_coding=plain` and the overrides into
 outputs/protocol_ab_LABEL and prints one line: decoded PSNR, bytes, fit and
-quant PSNR, wall. Run it from the root of each checkout to compare
-commits on one card.
+quant PSNR, the fit's ms a step (its wall over train.num_steps), wall. Run
+it from the root of each checkout to compare commits on one card.
 """
 from __future__ import annotations
 
@@ -40,9 +40,11 @@ def main(argv=None) -> float:
     t0 = time.perf_counter()
     psnr, nbytes = compress.main(cfg, run_dir=run_dir)
     summary = json.loads(open(f"{run_dir}/summary.json").read())
+    ms_step = summary["fit_wall_s"] / int(cfg.train.num_steps) * 1e3
     print(f"[protocol_ab] {args.label} plain={args.plain} {args.overrides}: decoded "
           f"{psnr:.4f} dB, {nbytes} B, fit PSNR {summary['PSNR']:.4f}, quant PSNR "
-          f"{summary['Quant PSNR']:.4f}, wall {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{summary['Quant PSNR']:.4f}, fit {ms_step:.3f} ms/step, wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return psnr
 
 

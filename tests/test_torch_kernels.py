@@ -376,6 +376,58 @@ def test_layer_hidden_forward_matches_its_plain_version(cuda_device, precision, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("hidden,n", [(640, 3000), (1024, 1500)])
+def test_layer_hidden_backward_matches_its_plain_version(cuda_device, precision, hidden, n):
+    """One hidden sine_mlp_layer_bwd launch (wgmma, six bf16 passes in fp32,
+    the epilogue under the next tile's products) on a SIREN's own G_l, W_l
+    and z_{l-1} (l = 2, and l = 1 with x: dW_0) against layer_bwd_reference:
+    G_{l-1} within 1e-5 of max |G| in fp32 (8e-3 where the modes round it or
+    ga to bf16: one step of its rounding), A_{l-1} within 1e-5 (8e-3), the
+    slices' db and dW_0 summed within 1e-5 (8e-3) of the largest column sum
+    of |G| (of |x|^T |G|); twice the same bits; W^T's planes made once give
+    the same bits as W."""
+    m, c = build_model("siren", depth=4, hidden_size=hidden)
+    p = m.init(torch.Generator().manual_seed(11), c, cuda_device)
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = (torch.randn((n, 3), generator=gen) / n).to(cuda_device)
+    bf16, mixed = sm.precision_modes(precision)
+    params = sm._rnd_params(p, mixed)
+    om = sm._omegas(c, 4)
+    a, zs = sm._rnd(x, bf16 or mixed), []
+    for i in range(3):
+        zs.append(a @ sm._rnd(params[i]["w"], bf16) + params[i]["b"])
+        a = sm._rnd(sm.fast_sin(om[i] * zs[-1]), bf16 or mixed)
+    gl = {}
+    sm._chain_backward(params, x, g, c, precision,
+                       lambda i, a_prev, gzb, gz: gl.__setitem__(i, gzb))
+    tol = 8e-3 if bf16 or mixed else 1e-5
+    for l in (2, 1):
+        xl = x if l == 1 else None
+        args = (gl[l], params[l]["w"], zs[l - 1], om[l - 1], precision)
+        got = sm.sine_mlp_layer_bwd(*args, x=xl)
+        again = sm.sine_mlp_layer_bwd(*args, x=xl)
+        planes = sm._layer_planes(params[l]["w"].t()[None], bf16, mixed)[0]
+        made = sm.sine_mlp_layer_bwd(gl[l], planes, zs[l - 1], om[l - 1], precision, x=xl)
+        gp, ap, dbp, dwp = sm.layer_bwd_reference(*args, x=xl)
+        torch.cuda.synchronize()
+        for t in (got, again, made):
+            assert all((u is None) == (v is None) for u, v in zip(t, got))
+        assert all(u is None or (torch.equal(u, v) and torch.equal(u, w))
+                   for u, v, w in zip(got, again, made)), l
+        assert float((got[0] - gp).abs().max()) <= tol * float(gp.abs().max()), l
+        assert float((got[1] - ap).abs().max()) <= max(tol, 1e-5), l
+        # the column sums of |G| (|gz| within a step of its rounding)
+        assert float((got[2].sum(0) - dbp).abs().max()) <= tol * float(gp.abs().sum(0).max())
+        if l == 1:
+            scale = float((sm._rnd(x, bf16 or mixed).abs().t() @ gp.abs()).max())
+            assert float((got[3].sum(0) - dwp).abs().max()) <= tol * scale
+        else:
+            assert got[3] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 def test_layer_dw_matches_its_plain_version_over_row_groups(cuda_device, precision):
     """sine_mlp_layer_dw (wgmma, the rows in groups of 1,024) at width 640
     on 70,000 rows (26 splits of ~2,700 rows: three groups each) against its

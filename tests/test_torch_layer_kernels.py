@@ -32,6 +32,7 @@ from implicit_image_tpu_torch.convert import params_from_jax
 from implicit_image_tpu_torch.data import get_grid, synthetic_image
 from implicit_image_tpu_torch.models import build_model
 from implicit_image_tpu_torch.ops import sine_mlp as sm
+from implicit_image_tpu_torch.ops.fast_math import fast_cos, fast_sin
 from implicit_image_tpu_torch.training.fit import OptimConfig, TrainConfig, fit
 
 torch.set_num_threads(1)
@@ -271,20 +272,155 @@ def test_layer_fwd_rejects_what_it_does_not_take_before_building(monkeypatch):
         sm.sine_mlp_layer_fwd(a, planes, b, 30.0, "fp32")
 
 
+def _chain_layers(p, c, x, g, precision):
+    """The plain chain's backward walk at the model's width: its pre-
+    activations z (recomputed as `_chain_backward` does), the params as it
+    takes them, and per layer (a_prev, gzb, gz) (`_chain_backward`'s)."""
+    bf16, mixed = sm.precision_modes(precision)
+    params = sm._rnd_params(p, mixed)
+    om = sm._omegas(c, len(params))
+    a, zs = sm._rnd(x.float(), bf16 or mixed), []
+    for i in range(len(params) - 1):
+        zs.append(a @ sm._rnd(params[i]["w"], bf16) + params[i]["b"])
+        a = sm._rnd(fast_sin(om[i] * zs[-1]), bf16 or mixed)
+    layers = {}
+
+    def layer(i, a_prev, gzb, gz):
+        layers[i] = (a_prev, gzb, gz)
+
+    sm._chain_backward(params, x, g, c, precision, layer)
+    return params, om, zs, layers
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_layer_bwd_reference_is_the_chains_hidden_layer(precision):
+    """layer_bwd_reference (the plain version of one hidden sine_mlp_layer_bwd
+    launch) on the chain's G_l, W_l and z_{l-1} gives the chain's G_{l-1},
+    A_{l-1} (layer l's input), db_{l-1} and, at l = 1 with x, dW_0, bit for
+    bit, at both hidden layers of a d4/w640 SIREN, in every mode."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    p = m.init(torch.Generator().manual_seed(9), c)
+    gen = torch.Generator().manual_seed(10)
+    x = torch.rand((200, 2), generator=gen) * 2 - 1
+    g = torch.randn((200, 3), generator=gen)
+    params, om, zs, layers = _chain_layers(p, c, x, g, precision)
+    for l in (2, 1):
+        gp, a, db, dw0 = sm.layer_bwd_reference(layers[l][1], params[l]["w"], zs[l - 1],
+                                                om[l - 1], precision, x=x if l == 1 else None)
+        assert torch.equal(gp, layers[l - 1][1]), l
+        assert torch.equal(a, layers[l][0]), l
+        assert torch.equal(db, layers[l - 1][2].sum(0)), l
+        if l == 1:
+            assert torch.equal(dw0, layers[0][0].t() @ layers[0][1])
+        else:
+            assert dw0 is None
+
+
+@pytest.mark.parametrize("depth,hidden", [(4, 640), (3, 1024)])
+def test_layer_bwd_reference_chain_matches_jax_grads(depth, hidden):
+    """The layer-wise pieces' plain versions composed into the whole
+    backward (layer_fwd_reference for the hidden forward, layer_bwd_reference
+    for each hidden layer's G W^T and epilogue, dW_l = A_{l-1}^T G_l) against
+    JAX XLA fp32 on 144 pixels: the output within 2e-5, every gradient
+    within 1e-4 of its leaf's largest magnitude (the tolerances of
+    test_wide_fp32_forward_and_grads_match_jax). The chain runs between
+    siren_apply_flat's maps: x = 2 (coords - 0.5), out = chain / 2 + 0.5."""
+    jm, jc, m, c, p, coords, target = _setup(depth, hidden, seed=2)
+    tp = params_from_jax(p, "cpu")
+    om = sm._omegas(c, depth)
+    x = (torch.from_numpy(coords) - 0.5) * 2.0  # siren_apply_flat's input map
+    zs = [x @ tp[0]["w"] + tp[0]["b"]]
+    a = fast_sin(om[0] * zs[0])
+    acts = [x, a]
+    for l in range(1, depth - 1):
+        z, a = sm.layer_fwd_reference(a, tp[l]["w"], tp[l]["b"], om[l])
+        zs.append(z)
+        acts.append(a)
+    out = (a @ tp[-1]["w"] + tp[-1]["b"]) / 2 + 0.5  # and its output map
+    np.testing.assert_allclose(out.numpy(), np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
+    g = (out - torch.from_numpy(target)) / out.numel()  # the loss's, through the output map
+    grads = [{} for _ in range(depth)]
+    grads[-1] = {"w": acts[-1].t() @ g, "b": g.sum(0)}
+    gz = (g @ tp[-1]["w"].t()) * (om[depth - 2] * fast_cos(om[depth - 2] * zs[-1]))
+    grads[depth - 2]["b"] = gz.sum(0)
+    for l in range(depth - 2, 0, -1):
+        gp, a_prev, db, dw0 = sm.layer_bwd_reference(gz, tp[l]["w"], zs[l - 1], om[l - 1],
+                                                     x=x if l == 1 else None)
+        grads[l]["w"] = a_prev.t() @ gz
+        grads[l - 1]["b"] = db
+        gz = gp
+    grads[0]["w"] = dw0
+    jg = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc) - target) ** 2))(p)
+    for ours, ref in zip(grads, jg):
+        for k in KEYS:
+            want = np.asarray(ref[k])
+            assert np.abs(ours[k].numpy() - want).max() <= 1e-4 * np.abs(want).max(), k
+
+
+def test_layer_bwd_rejects_what_it_does_not_take_before_building(monkeypatch):
+    """sine_mlp_layer_bwd (one hidden layer) raises ValueError, before the
+    library is built, on a CPU tensor, a width that is not a multiple of
+    128, z of another shape, W of another width, planes of another mode's
+    count and x of other rows or more than 8 inputs."""
+    from implicit_image_tpu_torch.ops import cuda_build
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_build, "load_library", refuse)
+    monkeypatch.setattr(cuda_build, "_nvcc", refuse)
+    g, w, z = torch.zeros((300, 640)), torch.zeros((640, 640)), torch.zeros((300, 640))
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        sm.sine_mlp_layer_bwd(g, w, z, 30.0, "fp32")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sm.sine_mlp_layer_bwd(g[:, :600], w[:600, :600], z[:, :600], 30.0, "fp32")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sm.sine_mlp_layer_bwd(g, w, z[:299], 30.0, "fp32")
+    with pytest.raises(ValueError, match="W"):
+        sm.sine_mlp_layer_bwd(g, w[:512, :512], z, 30.0, "fp32")
+    planes = sm._layer_planes(w[None], True, False)[0]  # one plane: the bf16 mode's
+    with pytest.raises(ValueError, match="3 planes"):
+        sm.sine_mlp_layer_bwd(g, planes, z, 30.0, "fp32")
+    with pytest.raises(ValueError, match="expected x"):
+        sm.sine_mlp_layer_bwd(g, w, z, 30.0, "fp32", x=torch.zeros((299, 2)))
+    with pytest.raises(ValueError, match="expected x"):
+        sm.sine_mlp_layer_bwd(g, w, z, 30.0, "fp32", x=torch.zeros((300, 9)))
+
+
 def test_layer_knockouts_apply_to_the_current_source():
     """tools/layer_knockouts.py's replacements are each found once in
     csrc/sine_mlp.cu (variants() raises otherwise), and every variant but
-    "full" changes the source, in the forward's part and in dW's."""
+    "full" changes the source, in the forward's part, the backward's and
+    dW's."""
     from implicit_image_tpu_torch.ops import cuda_build
     from implicit_image_tpu_torch.tools import layer_knockouts
 
     src = (cuda_build.CSRC / "sine_mlp.cu").read_text()
     found = layer_knockouts.variants(src)
     assert {key for key in found} == {(0, "full"), (0, "no_mma"), (0, "no_split"), (0, "no_epi"),
+                                      (1, "full"), (1, "no_mma"), (1, "no_epi"), (1, "no_feed"),
                                       (2, "full"), (2, "no_mma"), (2, "no_gsplit"),
                                       (2, "no_asplit")}
     for key, text in found.items():
         assert (text == src) == (key[1] == "full"), key
+
+
+def test_layer_kind_reads_both_name_forms():
+    """tools/kernel_breakdown.layer_kind (chip_smoke.py's split of
+    sine_mlp_layer_bwd_kernel and its count of wgmma instantiations) reads
+    the kind from ptxas's demangled names and from the profiler's, and is
+    None for the other kernels."""
+    from implicit_image_tpu_torch.tools.kernel_breakdown import layer_kind
+
+    ptxas = ("void <unnamed>::sine_mlp_layer_bwd_kernel<(bool)0, (bool)1, (int){}, (bool)1>"
+             "(LayerArgs, CUtensorMap_st, CUtensorMap_st)")
+    trace = "void (anonymous namespace)::sine_mlp_layer_fwd_kernel<false, true, {}>(LayerArgs)"
+    for kind in (0, 1, 2):
+        assert layer_kind(ptxas.format(kind)) == kind
+        assert layer_kind(trace.format(kind)) == kind
+    dw = "void <unnamed>::sine_mlp_layer_dw_kernel<(bool)0, (bool)0>(LayerArgs)"
+    assert layer_kind(dw) is None
+    assert layer_kind("sum_partials_kernel<false>") is None
 
 
 def test_grad_check_float64_chain_is_the_plain_chain():
