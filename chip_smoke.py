@@ -59,16 +59,22 @@ Phases, each printing its own line:
      more in K2's recompute, depth of sine_mlp_layer_bwd, depth - 2 of
      sine_mlp_layer_dw, one sum_partials), bit-for-bit repeats, the other
      mode's kernels failing the fp32 and bf16 limits, and over 2 members
-     each member the bits of its single launches; times (CUDA events) of
-     the fp32 and bf16 modes beside their bounds, the member-axis launches
-     in turns with one single launch; sine_mlp_layer_dw alone on one layer's own dW operands
+     each member the bits of its single launches; the pair under autograd
+     as a fit step runs it (K1 fills the z stash, K2 takes it and launches
+     no sine_mlp_layer_fwd), in every mode, single and over 2 members: K1's
+     stash the bits of K2's recompute (sine_mlp_layer_stash), out, dx and
+     every gradient the API pair's bits; times (CUDA events) of the fp32 and
+     bf16 modes beside their bounds, the member-axis launches in turns with
+     one single launch, the autograd pair in turns with the API's calls
+     beside the bounds of the JAX pair's work and of the port's (K1 writing
+     the stash, K2 reading it: `_bounds`); sine_mlp_layer_dw alone on one layer's own dW operands
      against its plain version (DW_TOL), twice for bits, in turns with one
      fp32 torch.mm; one hidden sine_mlp_layer_fwd and one hidden
      sine_mlp_layer_bwd (with and without dW_0) alone on the chain's own
      operands against their plain versions (LAYER_TOL), twice for bits,
      each in turns with one fp32 torch.mm of its product; fp32 K2's kernels
-     under torch.profiler, sine_mlp_layer_bwd_kernel by kind beside its
-     bound; the backward's partial buffer against its plain mirror
+     under torch.profiler (the API's and under autograd),
+     sine_mlp_layer_bwd_kernel by kind beside its bound; the backward's partial buffer against its plain mirror
      (siren_chain_layer_partials) and sum_partials over it bit for bit its
      mirror's order; then one fp32 K1/K2 pair at w2048 (its z stash of
      3.76e9 floats is past 2^31: the 64-bit offsets) and one at w4096 on
@@ -119,8 +125,11 @@ Phases, each printing its own line:
      finite; and above 512 `compress.main` with
      mlp.hidden_size=640 and =1024 (dense, lr 1e-4, 20 fit + 20 k-means
      finetune steps, zstd) and decode_run: only the layer-wise kernels and
-     sum_partials launch, K2 once a step, and the decoded PSNR is finite and
-     decode_run's;
+     sum_partials launch, K2 once a step, K1 fills the z stash once a step
+     and never under no_grad (decode_run grows the device memory by less
+     than a stash), sine_mlp_layer_fwd launches only in K1 (depth a band:
+     K2 recomputes nothing), the peak memory is printed, and the decoded
+     PSNR is finite and decode_run's;
  11. the reference's other model families at full width (d8/w128, 512²,
      img=synthetic; scripts/run_studies_r5.sh), each through compress.main
      and, where it writes a container, decompress.decode_run: (a)
@@ -210,7 +219,8 @@ Phases, each printing its own line:
      w182 for 20 steps: the member-axis width-192 backward on the path;
      (e) the same at w256: the member-axis wide backward and
      sine_mlp_dw_batched; (f) the same at w640: the member-axis layer-wise
-     kernels, one K2 over the members a fit and finetune step, no single K2.
+     kernels, one K2 over the members a fit and finetune step, no single K2,
+     the z stash from K1 once a step, sine_mlp_layer_fwd only in K1.
 
  15. the compress CLI's last options (PR 12), each through compress.main
      (and decode_run where it writes a container) at 512², phase 5's
@@ -375,6 +385,7 @@ the script exits non-zero before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -891,7 +902,13 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
     and ga = gz W^T take the fp32 cotangent gz against a bf16 operand,
     which three bf16 pieces of gz give exactly: 3 bf16 passes, less than
     the 2 TF32 passes of one split. `bf16` (the bf16 mode): every hidden
-    product is one bf16 pass."""
+    product is one bf16 pass.
+
+    Above 512 under autograd the port does less than the JAX pair's work:
+    "sine_mlp_fwd_stash" is K1 that also writes the z stash ((depth - 1) n
+    hidden floats), "sine_mlp_bwd_stashed" K2 that reads it in place of the
+    recompute (dW and ga only, the first layer's dW_0 and dx); "_batched"
+    the same over `members` members."""
     hidden_mm = 2 * n * hidden * hidden * (depth - 2)  # one product over all hidden layers
     # least seconds of the hidden products: a.W, and dW or ga (gz as operand)
     if bf16:
@@ -933,6 +950,17 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
         "sine_mlp_dw_batched": (members * hidden_mm, members * dw_s, 0,
                                 members * 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
     }
+    stash = 4 * (depth - 1) * n * hidden
+    kernels["sine_mlp_fwd_stash"] = (hidden_mm, fwd_s, 2 * n * hidden * (in_size + out_size),
+                                     4 * n * (in_size + out_size) + weights + stash)
+    kernels["sine_mlp_bwd_stashed"] = (2 * hidden_mm, 2 * dw_s,
+                                       2 * n * hidden * (2 * in_size + 2 * out_size),
+                                       4 * n * (2 * in_size + out_size) + weights
+                                       + 4 * blocks * n_part + stash)
+    for name in ("sine_mlp_fwd_stash", "sine_mlp_bwd_stashed"):  # x shared, read once
+        tc, tc_s, fma, nbytes = kernels[name]
+        kernels[name + "_batched"] = (members * tc, members * tc_s, members * fma,
+                                      members * (nbytes - 4 * n * in_size) + 4 * n * in_size)
     out = {}
     for name, (tc, tc_s, fma, nbytes) in kernels.items():
         mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1564,6 +1592,89 @@ def _layer_pair(params, x, g, mcfg, prec):
     return out, dx, grads
 
 
+def _autograd_forward(members, x, mcfg, prec):
+    """K1 under autograd as a fit step runs it above 512, on one params
+    tuple or over a member axis (a list; x shared): the Function with the
+    stash, on leaves and x that require grad -> (out, x, leaves). Its node
+    (out.grad_fn) holds the z stash until the backward uses it up."""
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    batched = isinstance(members, list)
+    leaves = [{k: layer[k].detach().clone().requires_grad_(True) for k in ("w", "b")}
+              for layer in (sm.stack_members(members) if batched else members)]
+    xg = x.detach().clone().requires_grad_(True)
+    fn = sm.SineMLPBatchedFunction if batched else sm.SineMLPFunction
+    out = fn.apply(xg, mcfg, prec, True, *[layer[k] for layer in leaves for k in ("w", "b")])
+    return out, xg, leaves
+
+
+def _autograd_pair(members, x, g, mcfg, prec):
+    """K1 and K2 under autograd (`_autograd_forward`, then out.backward(g)),
+    synchronised: ((out, dx, grads), whether K1's stash is the bits of K2's
+    recompute (`sine_mlp_layer_stash`, the same members and x), the
+    launches K1 added, those K2 added)."""
+    import torch
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    before = dict(sm.LAUNCHES)
+    out, xg, leaves = _autograd_forward(members, x, mcfg, prec)
+    torch.cuda.synchronize()
+    k1 = {k: sm.LAUNCHES[k] - before[k] for k in before}
+    recompute = sm.sine_mlp_layer_stash(members if isinstance(members, list) else [members], x,
+                                        mcfg, prec)
+    same_stash = torch.equal(out.grad_fn.z, recompute)
+    del recompute
+    before = dict(sm.LAUNCHES)
+    out.backward(g)
+    torch.cuda.synchronize()
+    k2 = {k: sm.LAUNCHES[k] - before[k] for k in before}
+    if out.grad_fn.z is not None:
+        raise AssertionError("the Function kept the z stash after its backward")
+    grads = [{k: v.grad for k, v in layer.items()} for layer in leaves]
+    return (out.detach(), xg.grad, grads), same_stash, k1, k2
+
+
+def _autograd_ms(members, x, g, mcfg, prec, rounds: int = 3) -> dict:
+    """Medians (ms) over `rounds` rounds after one to warm up, each timing in
+    turns, one call each between CUDA events: the API's K1 and K2
+    (sine_mlp_fwd / sine_mlp_bwd, or their member-axis forms over a list),
+    then K1 under autograd (filling the stash) and K2 under autograd
+    (out.backward, taking it), twice: "k1_first" / "k2_first" straight
+    after the API's calls, then "k1" / "k2", the reading, after that pair,
+    as a fit step runs the pair after the step before."""
+    import torch
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    if isinstance(members, list):
+        api_fwd = lambda: sm.sine_mlp_fwd_batched(members, x, mcfg, prec)  # noqa: E731
+        api_bwd = lambda: sm.sine_mlp_bwd_batched(members, x, g, mcfg, prec)  # noqa: E731
+    else:
+        api_fwd = lambda: sm.sine_mlp_fwd(members, x, mcfg, prec)  # noqa: E731
+        api_bwd = lambda: sm.sine_mlp_bwd(members, x, g, mcfg, prec)  # noqa: E731
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start.record()
+        got = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), got
+
+    times = {"api_k1": [], "api_k2": [], "k1_first": [], "k2_first": [], "k1": [], "k2": []}
+    for _ in range(rounds + 1):
+        times["api_k1"].append(timed(api_fwd)[0])
+        times["api_k2"].append(timed(api_bwd)[0])
+        for suffix in ("_first", ""):
+            ms, (out, _, _) = timed(lambda: _autograd_forward(members, x, mcfg, prec))
+            times["k1" + suffix].append(ms)
+            times["k2" + suffix].append(timed(lambda: out.backward(g))[0])
+            del out
+    return {k: statistics.median(t[1:]) for k, t in times.items()}
+
+
 def _same_bits(a, b) -> bool:
     """(out, dx, grads) triples equal bit for bit."""
     import torch
@@ -1635,7 +1746,32 @@ def phase_layer_kernels(width: int) -> dict:
             one = first if m == 0 else _layer_pair(p, x, gs[m], mcfg, prec)
             same = same and _same_bits((out_b[m], dx_b[m], [{k: v[k][m] for k in ("w", "b")}
                                                              for v in gr_b]), one)
-        del out_b, dx_b, gr_b
+        # under autograd, as a fit step runs them: K1 fills the z stash, K2
+        # takes it (no recompute); each member's results the API's bits
+        ag, stash_same, ag_k1, ag_k2 = _autograd_pair(params, x, g, mcfg, prec)
+        agb, stash_same_b, agb_k1, agb_k2 = _autograd_pair(members, x, gs, mcfg, prec)
+        ag_same = _same_bits(ag, first) and _same_bits(agb, (out_b, dx_b.sum(0), gr_b))
+        del out_b, dx_b, gr_b, ag, agb
+        ag_want = [{k: 0 for k in launched} | {
+            "sine_mlp_layer_fwd" + sfx: DEPTH * -(-n // sm.layer_band_rows(kw, mm))}
+            for sfx, mm in (("", 1), ("_batched", LAYER_MEMBERS))]
+        ag_want += [{k: 0 for k in launched} | {
+            "sine_mlp_layer_bwd" + sfx: DEPTH, "sine_mlp_layer_dw" + sfx: DEPTH - 2,
+            "sum_partials" + sfx: 1} for sfx in ("", "_batched")]
+        print(f"{tag} {prec} under autograd (K1 fills the z stash, K2 takes it): out, dx and "
+              f"grads {'the bits of' if ag_same else 'DIFFER FROM'} the API pair's, single "
+              f"and over {LAYER_MEMBERS} members; K1's stash "
+              f"{'the bits of' if stash_same and stash_same_b else 'DIFFERS FROM'} K2's "
+              f"recompute (one pass over the rows, K1 in {-(-n // sm.layer_band_rows(kw))} / "
+              f"{-(-n // sm.layer_band_rows(kw, LAYER_MEMBERS))} bands); K2's launches "
+              f"{ {k: v for k, v in ag_k2.items() if v} }, over the members "
+              f"{ {k: v for k, v in agb_k2.items() if v} }", flush=True)
+        if not (ag_same and stash_same and stash_same_b):
+            raise AssertionError(f"{tag} {prec}: autograd bits {ag_same}, stash bits "
+                                 f"{stash_same} / {stash_same_b}")
+        if [ag_k1, agb_k1, ag_k2, agb_k2] != ag_want:
+            raise AssertionError(f"{tag} {prec}: autograd launches {[ag_k1, agb_k1, ag_k2, agb_k2]},"
+                                 f" expected {ag_want}")
         plain = (sm.siren_chain_reference(params, x, mcfg, prec),
                  *sm.siren_chain_backward_reference(params, x, g, mcfg, prec))
         torch.cuda.synchronize()
@@ -1675,13 +1811,34 @@ def phase_layer_kernels(width: int) -> dict:
         print(f"{tag} {prec} x{LAYER_MEMBERS}: K1 over the member axis {fb_ms:.3f} ms (single "
               f"in turns {statistics.median(fs):.3f}), K2 {bb_ms:.3f} (single "
               f"{statistics.median(bs):.3f})", flush=True)
+        # under autograd, in turns with the API's calls, against the bounds
+        # of the JAX pair's work and of the work the port now does
+        ag_ms = _autograd_ms(params, x, g, mcfg, prec)
+        agb_ms = _autograd_ms(members, x, gs, mcfg, prec, rounds=2)
+        s_f, s_b = own["sine_mlp_fwd_stash"]["bound_ms"], own["sine_mlp_bwd_stashed"]["bound_ms"]
+        pair = ag_ms["k1"] + ag_ms["k2"]
+        print(f"{tag} {prec} under autograd, in turns (one call each, CUDA events): K1 filling "
+              f"the stash {ag_ms['k1']:.3f} ms = {s_f / ag_ms['k1']:.1%} of its {s_f:.3f} ms "
+              f"bound (the API's K1 {ag_ms['api_k1']:.3f}); K2 from the stash "
+              f"{ag_ms['k2']:.3f} ms = {s_b / ag_ms['k2']:.1%} of its {s_b:.3f} ms bound, "
+              f"{b_b / ag_ms['k2']:.1%} of the API K2's {b_b:.3f} (the API's K2 "
+              f"{ag_ms['api_k2']:.3f}); K1 + K2 {pair:.3f} ms = {(f_b + b_b) / pair:.1%} of the "
+              f"JAX pair's bound {f_b + b_b:.3f}, {(s_f + s_b) / pair:.1%} of the port's work's "
+              f"{s_f + s_b:.3f}; the pair straight after the API's calls {ag_ms['k1_first']:.3f} "
+              f"/ {ag_ms['k2_first']:.3f}; x{LAYER_MEMBERS}: K1 {agb_ms['k1']:.3f} (API "
+              f"{agb_ms['api_k1']:.3f}), K2 {agb_ms['k2']:.3f} (API {agb_ms['api_k2']:.3f})",
+              flush=True)
         if prec == "fp32":
             _layer_k2_split(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec), tag, width, n)
-            records["sine_mlp_layer_fwd"] = (fwd_err, fwd_ms, fwd_plain, None)
-            records["sine_mlp_layer_bwd"] = (bwd_abs, bwd_ms, bwd_plain, None)
+            _layer_k2_split(lambda out: out.backward(g), tag + " under autograd", width, n,
+                            prepare=lambda: _autograd_forward(params, x, mcfg, prec)[0])
+            records["sine_mlp_layer_fwd"] = (fwd_err, ag_ms["k1"], fwd_plain, None)
+            records["sine_mlp_layer_bwd"] = (bwd_abs, ag_ms["k2"], bwd_plain, None)
             batched = {
-                "sine_mlp_layer_fwd_batched": (fwd_err, fb_ms, LAYER_MEMBERS * fwd_plain, None),
-                "sine_mlp_layer_bwd_batched": (bwd_abs, bb_ms, LAYER_MEMBERS * bwd_plain, None)}
+                "sine_mlp_layer_fwd_batched": (fwd_err, agb_ms["k1"], LAYER_MEMBERS * fwd_plain,
+                                               None),
+                "sine_mlp_layer_bwd_batched": (bwd_abs, agb_ms["k2"], LAYER_MEMBERS * bwd_plain,
+                                               None)}
         torch.cuda.empty_cache()
     # controls: each mode's limits fail the other mode's kernels
     for prec, other in zip(sm.PRECISIONS, reversed(sm.PRECISIONS)):
@@ -1849,16 +2006,17 @@ def _layer_bwd_alone(params, x, a1, g1, g2, w1, b1, mcfg, tag: str, kw: int, wid
     torch.cuda.empty_cache()
 
 
-def _layer_k2_split(k2, tag: str, width: int, n: int) -> dict:
-    """One layer-wise K2 call (k2) under torch.profiler: each kernel's device
-    ms and launches (tools/kernel_breakdown.k2_split: sine_mlp_layer_bwd_kernel
-    by kind), so that sine_mlp_layer_bwd_kernel has a time of its own beside
+def _layer_k2_split(k2, tag: str, width: int, n: int, prepare=None) -> dict:
+    """One layer-wise K2 call (k2; with `prepare`, k2(prepare()), prepare
+    outside the profile) under torch.profiler: each kernel's device ms and
+    launches (tools/kernel_breakdown.k2_split: sine_mlp_layer_bwd_kernel by
+    kind), so that sine_mlp_layer_bwd_kernel has a time of its own beside
     its bound: its hidden launches' gz·Wᵀ products (3 TF32 passes of 2 n h²
     a hidden layer) and its FMA (g·Wᵀ and dW of the last layer, dW_0 and dx:
     2 n h (2 out + 2 in))."""
     from implicit_image_tpu_torch.tools.kernel_breakdown import k2_split
 
-    split = k2_split(k2)
+    split = k2_split(k2, prepare)
     hidden_ops = (DEPTH - 2) * 3 * 2 * n * width * width / TF32_FLOP_PER_S * 1e3
     bwd_ops = hidden_ops + 2 * n * width * (2 * 3 + 2 * 2) / FP32_FLOP_PER_S * 1e3
     bwd_ms = sum(ms for k, (ms, _) in split.items() if k.startswith("sine_mlp_layer_bwd_kernel"))
@@ -1873,12 +2031,14 @@ def _layer_k2_split(k2, tag: str, width: int, n: int) -> dict:
 
 def _layer_records(records, batched, bounds, padded, dw_bound, layers) -> dict:
     """phase_layer_kernels' kernels-line records, each with its bound and
-    padded bound: K1's and K2's those of the fused kernels' work, dW's one
-    layer's share of the hidden layers' dW (times the members)."""
+    padded bound: K1's and K2's those of the work they do under autograd
+    (K1 writing the z stash, K2 reading it in place of the recompute), dW's
+    one layer's share of the hidden layers' dW (times the members)."""
     def bound_of(name):
-        base = {"sine_mlp_layer_fwd": "sine_mlp_fwd", "sine_mlp_layer_bwd": "sine_mlp_bwd",
-                "sine_mlp_layer_fwd_batched": "sine_mlp_fwd_batched",
-                "sine_mlp_layer_bwd_batched": "sine_mlp_bwd_batched"}.get(name)
+        base = {"sine_mlp_layer_fwd": "sine_mlp_fwd_stash",
+                "sine_mlp_layer_bwd": "sine_mlp_bwd_stashed",
+                "sine_mlp_layer_fwd_batched": "sine_mlp_fwd_stash_batched",
+                "sine_mlp_layer_bwd_batched": "sine_mlp_bwd_stashed_batched"}.get(name)
         if base is None:  # dW of one layer (over the members)
             m = LAYER_MEMBERS if name.endswith("_batched") else 1
             return (dict(dw_bound, bound_ms=m * dw_bound["bound_ms"]),
@@ -1966,6 +2126,34 @@ def _expected_container_bytes(cfg) -> int:
 
 
 LAYER_KERNELS = ("sine_mlp_layer_fwd", "sine_mlp_layer_bwd", "sine_mlp_layer_dw")
+
+
+@contextlib.contextmanager
+def _layer_forwards():
+    """While open, counts K1's calls above 512 (the layer-wise forward,
+    sm._layer_fwd, wrapped): {"stash": calls that filled the z stash,
+    "plain": calls that did not, "launches": {kernel: the launches of
+    sine_mlp_layer_fwd(_batched) those calls make, depth a band}}. K2
+    takes K1's stash on these paths, so nothing else launches
+    sine_mlp_layer_fwd there: the path's counts must equal these."""
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    calls = {"stash": 0, "plain": 0, "launches": {}}
+    inner = sm._layer_fwd
+
+    def counted(members, x, cfg, bf16, mixed, name, stash=False):
+        first = sm._first_member(members)
+        bands = -(-x.shape[-2] // sm.layer_band_rows(sm.kernel_width(first[0]["w"].shape[-1]),
+                                                     sm._member_count(members)))
+        calls["stash" if stash else "plain"] += 1
+        calls["launches"][name] = calls["launches"].get(name, 0) + len(first) * bands
+        return inner(members, x, cfg, bf16, mixed, name, stash=stash)
+
+    sm._layer_fwd = counted
+    try:
+        yield calls
+    finally:
+        sm._layer_fwd = inner
 
 
 def _check_launches(launches: dict, what: str, dw: bool = False,
@@ -2432,9 +2620,14 @@ def phase_layer_path(width: int) -> dict:
     20 fit + 20 finetune steps, k-means, zstd), then decode_run: only the
     layer-wise kernels and sum_partials launch, K2 exactly once a fit and
     finetune step (depth launches of sine_mlp_layer_bwd, depth - 2 of
-    sine_mlp_layer_dw, one sum_partials), and the decoded PSNR is finite and
-    decode_run's; returns the launch counts."""
+    sine_mlp_layer_dw, one sum_partials), K1 fills the z stash once a step
+    and not in the decode (which grows the memory by less than a stash),
+    sine_mlp_layer_fwd launches in K1 only (`_layer_forwards`), and the
+    decoded PSNR is finite and decode_run's; prints the peak memory;
+    returns the launch counts."""
     import numpy as np
+
+    import torch
 
     from implicit_image_tpu_torch import compress, decompress
     from implicit_image_tpu_torch.ops import sine_mlp as sm
@@ -2444,23 +2637,39 @@ def phase_layer_path(width: int) -> dict:
     if (int(cfg.mlp.depth), int(cfg.mlp.hidden_size)) != (DEPTH, width):
         raise AssertionError(f"the w{width} run must be SIREN d8/w{width}")
     shutil.rmtree(cfg.output_dir, ignore_errors=True)
-    sm.reset_launch_counts()
-    t0 = time.perf_counter()
-    psnr, nbytes = compress.main(cfg, run_dir=cfg.output_dir)
-    t1 = time.perf_counter()
-    img, _ = decompress.decode_run(cfg.output_dir, device="cuda")
-    launches = dict(sm.LAUNCHES)
+    dev = torch.device("cuda")
+    stash_bytes = 4 * (DEPTH - 1) * N_SIDE * N_SIDE * sm.kernel_width(width)
+    with _layer_forwards() as forwards:
+        torch.cuda.reset_peak_memory_stats(dev)
+        sm.reset_launch_counts()
+        t0 = time.perf_counter()
+        psnr, nbytes = compress.main(cfg, run_dir=cfg.output_dir)
+        t1 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the decode runs under no_grad: K1 keeps no stash
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        decode_stash = forwards["stash"]
+        img, _ = decompress.decode_run(cfg.output_dir, device="cuda")
+        decode_grew = torch.cuda.max_memory_allocated(dev) - base
+        launches = dict(sm.LAUNCHES)
     summary = json.loads(open(f"{cfg.output_dir}/summary.json").read())
     steps = int(cfg.train.num_steps) + int(cfg.quant.num_steps)
     print(f"[10 w{width}] compress.main {t1 - t0:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
           f"{summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step, quant "
           f"{summary['quant_wall_s']:.3f} s); fit PSNR {summary['PSNR']:.3f} dB, decoded "
-          f"{psnr:.3f} dB, {nbytes} B; launches {launches}", flush=True)
+          f"{psnr:.3f} dB, {nbytes} B; peak memory {peak / 2**30:.3f} GiB (the z stash "
+          f"{stash_bytes / 2**30:.3f} GiB), decode_run's growth {decode_grew / 2**30:.3f} GiB; "
+          f"K1 {forwards['stash']} times with the stash, {forwards['plain']} without; "
+          f"launches {launches}", flush=True)
     _check_launches(launches, f"w{width} path", layer=True)
     want = {"sine_mlp_layer_bwd": DEPTH * steps, "sine_mlp_layer_dw": (DEPTH - 2) * steps,
-            "sum_partials": steps}
+            "sum_partials": steps, "sine_mlp_layer_fwd": forwards["launches"]["sine_mlp_layer_fwd"]}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"w{width}: launches {launches}, expected {want}")
+    if not (forwards["stash"] == decode_stash == steps and decode_grew < stash_bytes):
+        raise AssertionError(f"w{width}: {forwards['stash']} stashes ({decode_stash} before the "
+                             f"decode) for {steps} steps; the decode grew {decode_grew} B")
     target = compress._load_image(cfg.img)
     redecoded = 10.0 * np.log10(1.0 / np.mean((np.asarray(img, np.float64) - target) ** 2))
     if not (math.isfinite(psnr) and abs(redecoded - psnr) <= 1e-3):
@@ -3340,15 +3549,19 @@ def phase_layer_ladder() -> dict:
     """14f: the 2-member RigL ladder of 14d at w640: the member-axis
     layer-wise kernels, per fit and finetune step one K2 over the members
     (depth launches of sine_mlp_layer_bwd_batched, depth - 2 of
-    sine_mlp_layer_dw_batched, one sum_partials_batched), no single K2, no
-    fused kernel; decoded PSNRs finite. Returns the launch counts."""
+    sine_mlp_layer_dw_batched, one sum_partials_batched) from the z stash
+    that K1 over the members filled, sine_mlp_layer_fwd(_batched) in K1
+    only (`_layer_forwards`), no single K2, no fused kernel; decoded PSNRs
+    finite. Returns the launch counts."""
     from implicit_image_tpu_torch.ops import sine_mlp as sm
 
     tag, width = "[14f layer ladder]", LAYER_LADDER_WIDTH
     argv = [a if not a.startswith("mlp.hidden_size=") else f"mlp.hidden_size={width}"
             for a in WIDE_LADDER]
-    cfg, densities, dirs, summaries, launches, seconds = _ladder_cli("14f layer", argv)
-    print(f"{tag} w{width}, {len(densities)} members in {seconds:.2f} s; launches "
+    with _layer_forwards() as forwards:
+        cfg, densities, dirs, summaries, launches, seconds = _ladder_cli("14f layer", argv)
+    print(f"{tag} w{width}, {len(densities)} members in {seconds:.2f} s; K1 "
+          f"{forwards['stash']} times with the stash, {forwards['plain']} without; launches "
           f"{launches}; decoded " + ", ".join(f"{s['Decoded PSNR']:.3f} dB" for s in summaries),
           flush=True)
     steps = 20 + 5
@@ -3356,10 +3569,11 @@ def phase_layer_ladder() -> dict:
             "sine_mlp_layer_dw_batched": (DEPTH - 2) * steps,
             "sum_partials_batched": steps, "sine_mlp_layer_bwd": 0, "sine_mlp_layer_dw": 0,
             "sum_partials": 0, "sine_mlp_fwd": 0, "sine_mlp_bwd": 0, "sine_mlp_fwd_batched": 0,
-            "sine_mlp_bwd_batched": 0}
+            "sine_mlp_bwd_batched": 0, **forwards["launches"]}
     if ({k: launches[k] for k in want} != want or launches["sine_mlp_layer_fwd"] <= 0
-            or launches["sine_mlp_layer_fwd_batched"] <= 0):
-        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+            or launches["sine_mlp_layer_fwd_batched"] <= 0 or forwards["stash"] != steps):
+        raise AssertionError(f"{tag} launches {launches}, expected {want}; "
+                             f"{forwards['stash']} stashes for {steps} steps")
     if not all(math.isfinite(s["Decoded PSNR"]) for s in summaries):
         raise AssertionError(f"{tag} a decoded PSNR is not finite")
     return launches

@@ -2695,8 +2695,9 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // is 3.76e9 floats):
 // - sine_mlp_layer_fwd_kernel: kLwFirst z_0 = x W_0 + b_0 (FMA, K = in),
 //   kLwHidden z_l = a_{l-1} W_l + b_l (the tensor cores), each with the
-//   epilogue a = rnd(sin(omega z)) (fast_sin) and, for K2's recompute, z
-//   into the stash; kLwLast out = a_L W_{D-1} + b_{D-1} (a warp a row).
+//   epilogue a = rnd(sin(omega z)) (fast_sin) and, where a stash is given
+//   (K1 under autograd, band by band; K2's recompute without one), z into
+//   it; kLwLast out = a_L W_{D-1} + b_{D-1} (a warp a row).
 // - sine_mlp_layer_bwd_kernel: kLwLast ga_L = rnd(g) W_{D-1}^T (FMA) with
 //   dW_{D-1} = a_L^T rnd(g), db_{D-1}; kLwHidden ga_{l-1} = G_l W_l^T (the
 //   tensor cores); the epilogue of both gz = rnd(ga) omega cos(omega z) (ga
@@ -2722,12 +2723,18 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // one thread of one block, which sums it in a fixed order and stores it
 // once (the FMA kinds: at the slice's first tile, then adds at the next
 // ones, in tile order), so a run repeats bit for bit.
-// Memory of K2 at 512^2, d8 (N = 262,144): the z stash, (D-1) N h floats
-// (4.7 / 7.5 / 15.0 GB at 640 / 1024 / 2048), two N x h buffers (the
-// forward's activations, then the G's: 1.3 / 2.1 / 4.3 GB) and S partial
-// slices (0.26 / 0.43 / 0.81 GB); the forward alone bands its rows
-// (ops/sine_mlp.layer_band_rows) to keep its two buffers near 1 GB. The
-// user's lever for K2 is train.pixel_chunks, as in JAX.
+// Memory at 512^2, d8 (N = 262,144): the z stash, (D-1) N h floats (4.7 /
+// 7.5 / 15.0 GB at 640 / 1024 / 2048). Under autograd (a fit or finetune
+// step: ops/sine_mlp's Functions) K1 fills it, each band of its rows
+// (ops/sine_mlp.layer_band_rows: two activation buffers near 1 GB) writing
+// its rows of every z_l, and K2 takes it and starts at the last layer's
+// backward; renders and evals under no_grad allocate none, and K2 called
+// alone (sine_mlp_bwd) fills its own by the recompute over all rows. K2
+// adds two N x h buffers (the recompute's activations, then the G's: 1.3 /
+// 2.1 / 4.3 GB) and S partial slices (0.26 / 0.43 / 0.81 GB). The stash is
+// live from K1 to the end of K2, one per pixel chunk (two for the
+// wavelet-SIREN's two SIRENs, M over a member axis); the user's lever is
+// train.pixel_chunks, as in JAX.
 // Accuracy: the chain products sum K in groups of 128 from zero (LW_K_GROUP)
 // and dW its rows in groups of 1,024 (LW_DW_GROUP), so the fp32 error does
 // not drift with the width. The fp32 mode is checked against the plain chain

@@ -42,7 +42,10 @@ runs on the layer-wise kernels (csrc/sine_mlp.cu, "the layer-wise
 kernels"), its width rounded up to a multiple of 128 and taken at run time:
 a launch a layer (`sine_mlp_layer_fwd`, `sine_mlp_layer_bwd`), the hidden
 layers' dW a launch a layer (`sine_mlp_layer_dw`), then `sum_partials`;
-the z stash and the activations between layers in device memory.
+the z stash and the activations between layers in device memory. There,
+under autograd, K1 fills the z stash band by band as it computes the
+output and K2 takes it in place of its recompute (the same bits); a
+forward under no_grad keeps none.
 
 Side by side in this module:
 
@@ -65,7 +68,9 @@ Side by side in this module:
   * `SineMLPFunction` — the autograd.Function. A CUDA tensor runs the
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
     back from one to the other. W's planes are packed at most once per
-    forward and backward pair (kept from the forward at width 128);
+    forward and backward pair (kept from the forward at width 128); above
+    width 512 the forward keeps the z stash for the backward when the
+    caller says a backward may follow (`_wants_stash`);
   * `SineMLPBatchedFunction` — the same over a member axis (the batched
     fit's), in every mode;
   * `siren_apply_flat_fused`, `siren_apply_flat_batched_fused` — the [0,1]
@@ -144,6 +149,7 @@ __all__ = [
     "layer_band_rows",
     "siren_chain_layer_partials",
     "sine_mlp_layer_partials",
+    "sine_mlp_layer_stash",
     "sine_mlp_layer_dw",
     "weight_planes",
     "dw_turn_index",
@@ -278,40 +284,49 @@ def _omegas(cfg, n_layers: int) -> Sequence[float]:
 # ----------------------------------------------------------- plain versions
 
 
-def siren_chain_reference(params, x: torch.Tensor, cfg, precision: str = "fp32"):
-    """The chain on mapped coordinates x (N, in) -> (N, out), plain torch."""
+def _chain_forward(params, x: torch.Tensor, cfg, precision: str, keep: bool = False):
+    """The plain chain on mapped coordinates x (N, in): (out (N, out), zs),
+    zs the pre-activations z_0 .. z_{D-2} where `keep` (the stash that the
+    plain backward takes in place of its recompute), else None."""
     bf16, mixed = precision_modes(precision)
     params = _rnd_params(params, mixed)
     om = _omegas(cfg, len(params))
     a = _rnd(x.float(), bf16 or mixed)
     last = len(params) - 1
+    zs = [] if keep else None
     for i, layer in enumerate(params):
         z = a @ _rnd(layer["w"], bf16) + layer["b"]
         if i == last:
-            return z
+            return z, zs
+        if keep:
+            zs.append(z)
         a = _rnd(fast_sin(om[i] * z), bf16 or mixed)
     raise ValueError("empty params")
 
 
-def _chain_backward(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, layer):
+def siren_chain_reference(params, x: torch.Tensor, cfg, precision: str = "fp32"):
+    """The chain on mapped coordinates x (N, in) -> (N, out), plain torch."""
+    return _chain_forward(params, x, cfg, precision)[0]
+
+
+def _chain_backward(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, layer,
+                    zs=None):
     """The plain backward's walk: recomputes the forward keeping only the
-    pre-activations z, then goes back over the layers exactly as the kernel
-    does (derivative of sin via fast_cos), calling layer(i, a_prev, gzb, gz)
-    for each layer i, last first (a_prev its rounded input, gzb its rounded
-    and gz its unrounded output cotangent). Returns dx. Under "+mixed" the
-    params come in rounded already (the callers round them) and each
-    activation's cotangent is rounded before the sine derivative."""
+    pre-activations z (or takes them from `zs`, the forward's stash), then
+    goes back over the layers exactly as the kernel does (derivative of sin
+    via fast_cos), calling layer(i, a_prev, gzb, gz) for each layer i, last
+    first (a_prev its rounded input, gzb its rounded and gz its unrounded
+    output cotangent). Returns dx. Under "+mixed" the params come in
+    rounded already (the callers round them) and each activation's
+    cotangent is rounded before the sine derivative."""
     bf16, mixed = precision_modes(precision)
     act = bf16 or mixed
     n_layers = len(params)
     om = _omegas(cfg, n_layers)
     xr = _rnd(x.float(), act)
-    zs = []
-    a = xr
-    for i in range(n_layers - 1):
-        z = a @ _rnd(params[i]["w"], bf16) + params[i]["b"]
-        zs.append(z)
-        a = _rnd(fast_sin(om[i] * z), act)
+    if zs is None:
+        zs = _chain_forward(params, x, cfg, precision, keep=True)[1]
+    a = _rnd(fast_sin(om[n_layers - 2] * zs[-1]), act) if n_layers > 1 else xr
     g = g.float()
     gb = _rnd(g, bf16)
     layer(n_layers - 1, a, gb, g)
@@ -334,20 +349,22 @@ def siren_chain_reference_batched(members, x: torch.Tensor, cfg, precision: str 
 
 
 def siren_chain_backward_reference(
-    params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str = "fp32"
+    params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str = "fp32", zs=None
 ):
     """Cotangents of `siren_chain_reference` for output cotangent g (N, out):
     returns (dx, grads) with grads a tuple of {"w", "b"} dicts. Recomputes
-    the forward keeping only the pre-activations z, then walks the layers
-    back exactly as the kernel does (derivative of sin via fast_cos). Under
-    "+mixed", dW and db come out rounded to bf16 (dx does not)."""
+    the forward keeping only the pre-activations z (with `zs`, the plain
+    forward's stash, takes them instead: the same bits), then walks the
+    layers back exactly as the kernel does (derivative of sin via
+    fast_cos). Under "+mixed", dW and db come out rounded to bf16 (dx does
+    not)."""
     mixed = precision_modes(precision)[1]
     grads = [None] * len(params)
 
     def layer(i, a_prev, gzb, gz):
         grads[i] = {"w": _rnd(a_prev.t() @ gzb, mixed), "b": _rnd(gz.sum(0), mixed)}
 
-    dx = _chain_backward(_rnd_params(params, mixed), x, g, cfg, precision, layer)
+    dx = _chain_backward(_rnd_params(params, mixed), x, g, cfg, precision, layer, zs)
     return dx, tuple(grads)
 
 
@@ -359,15 +376,16 @@ def stack_members(trees):
 
 
 def siren_chain_backward_reference_batched(members, x: torch.Tensor, g: torch.Tensor, cfg,
-                                           precision: str = "fp32"):
+                                           precision: str = "fp32", zs=None):
     """The plain version of `sine_mlp_bwd_batched`: for M params tuples of one
     shape, x (N, in) shared or (M, N, in) one per member and g (M, N, out),
-    `siren_chain_backward_reference` of each member, stacked -> (dx (M, N,
-    in), grads whose leaves carry a leading member axis). Only the tests and
-    chip_smoke.py call it; the batched Function runs the same per member."""
+    `siren_chain_backward_reference` of each member (with `zs`, each
+    member's stash), stacked -> (dx (M, N, in), grads whose leaves carry a
+    leading member axis). The batched Function runs the same per member."""
     xs = [x] * len(members) if x.dim() == 2 else list(x)
-    out = [siren_chain_backward_reference(p, xm, gm, cfg, precision)
-           for p, xm, gm in zip(members, xs, g)]
+    zs = [None] * len(members) if zs is None else zs
+    out = [siren_chain_backward_reference(p, xm, gm, cfg, precision, z)
+           for p, xm, gm, z in zip(members, xs, g, zs)]
     return torch.stack([dx for dx, _ in out]), stack_members([gr for _, gr in out])
 
 
@@ -616,20 +634,23 @@ def _planes_of(wm: torch.Tensor, hidden: int, bf16: bool, mixed: bool):
 
 
 def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
-                kernel: str, keep: bool = False):
+                kernel: str, keep: bool = False, stash: bool = False):
     """Pack, check and launch the forward once over `members` (params tuples
     of one shape, or one params tuple with a leading member axis) on x,
     (N, in) shared or (M, N, in) one per member -> (M, N, out); counted
     under `kernel`. At width 128 the forward takes W's planes
-    (`weight_planes`); `keep` returns (out, planes), so that the backward
-    takes the same (None at the other widths, whose forward does not)."""
+    (`weight_planes`); `keep` returns (out, planes, z), so that the backward
+    takes the same planes (None at the other widths, whose forward does
+    not) and, above 512 with `stash`, the z stash that the layer-wise
+    forward filled (`_layer_fwd`; else None)."""
     n = x.shape[-2]
     _check_rows(n, kernel)
     lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
                                                          x.reshape(-1, x.shape[-1]))
     if hidden > KERNEL_WIDTHS[-1]:
-        out = _layer_fwd(members, x, cfg, bf16, mixed, kernel.replace("sine_mlp_", "sine_mlp_layer_"))
-        return (out, None) if keep else out
+        out, z = _layer_fwd(members, x, cfg, bf16, mixed,
+                            kernel.replace("sine_mlp_", "sine_mlp_layer_"), stash=stash)
+        return (out, None, z) if keep else out
     om = _omegas(cfg, depth)
     dev = x.device
     m = _member_count(members)
@@ -653,7 +674,7 @@ def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
         )
     _raise_on(err, kernel)
     _count(kernel, bf16, mixed)
-    return (out, planes) if keep else out
+    return (out, planes, None) if keep else out
 
 
 def sine_mlp_fwd(params, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
@@ -690,6 +711,13 @@ def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str, keep: bo
     backward takes them (`sine_mlp_bwd_batched(..., planes=)`; None but at
     width 128)."""
     bf16, mixed = precision_modes(precision)
+    _check_fwd_batched(members, x)
+    got = _fwd_launch(members, x, cfg, bf16, mixed, "sine_mlp_fwd_batched", keep=keep)
+    return got[:2] if keep else got
+
+
+def _check_fwd_batched(members, x: torch.Tensor) -> None:
+    """sine_mlp_fwd_batched's checks of its members and x."""
     _check_one_shape(members)
     m = _member_count(members)
     if x.dim() == 3 and x.shape[0] != m:
@@ -697,7 +725,6 @@ def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str, keep: bo
                          f"there are {m} members")
     if x.dim() not in (2, 3) or m > 65535:
         raise ValueError("sine_mlp_fwd_batched: x must be (N, in) or (M, N, in), M <= 65535")
-    return _fwd_launch(members, x, cfg, bf16, mixed, "sine_mlp_fwd_batched", keep=keep)
 
 
 def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, device):
@@ -861,21 +888,24 @@ def _check_fits(nbytes: int, dev, what: str) -> None:
 
 
 def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
-                batched: bool, planes: Optional[torch.Tensor] = None):
+                batched: bool, planes: Optional[torch.Tensor] = None,
+                z: Optional[torch.Tensor] = None):
     """Pack, check and launch the backward (and, at widths 256 and 512,
     sine_mlp_dw), then the partial sum, once over `members` (params tuples
     of one shape, or one params tuple with a leading member axis): x (N, in)
     shared or (M, N, in), g (M, N, out) when `batched`,
     else one member with x (N, in) and g (N, out). `planes`: W's planes
     (`weight_planes`) where the forward packed them, else packed here at
-    widths 128 and 192. Returns (dx, grads), every leaf with a leading
+    widths 128 and 192. `z`: above 512, the z stash that the forward filled
+    (`_layer_fwd(..., stash=True)`), which the backward then consumes in
+    place of its recompute. Returns (dx, grads), every leaf with a leading
     member axis when `batched`; the launches count under the batched keys
     when `batched`."""
     bf16, mixed = precision_modes(precision)
     first = _first_member(members)
     lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
     if hidden > KERNEL_WIDTHS[-1]:
-        dx, partials, sizes = _layer_bwd(members, x, g, cfg, precision, batched)
+        dx, partials, sizes = _layer_bwd(members, x, g, cfg, precision, batched, z=z)
         flat = (sum_partials_batched if batched else sum_partials)(partials, precision)
         lead = (_member_count(members),) if batched else ()
         return dx, _split_grads(_rnd(flat, True) if mixed else flat, lead, sizes, depth,
@@ -1002,6 +1032,12 @@ def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precisi
     or more than 65,535 members raise ValueError too. Every mode has its
     instantiation, "+mixed" too: member m's dW and db then come out rounded
     to bf16, as sine_mlp_bwd's."""
+    _check_bwd_batched(members, x, g)
+    return _bwd_launch(members, x, g, cfg, precision, batched=True, planes=planes)
+
+
+def _check_bwd_batched(members, x: torch.Tensor, g: torch.Tensor) -> None:
+    """sine_mlp_bwd_batched's checks of its members, x and g."""
     _check_one_shape(members, "sine_mlp_bwd_batched")
     n = x.shape[-2]
     m = _member_count(members)
@@ -1012,7 +1048,6 @@ def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precisi
     if tuple(g.shape) != (m, n, out_size) or m > 65535:
         raise ValueError(f"sine_mlp_bwd_batched: g must be ({m}, {n}, {out_size}) "
                          f"with at most 65,535 members, got {tuple(g.shape)}")
-    return _bwd_launch(members, x, g, cfg, precision, batched=True, planes=planes)
 
 
 def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
@@ -1132,9 +1167,10 @@ def _layer_chain_fwd(lib, ops, x, n: int, dims, om, acts, bf16: bool, mixed: boo
                      z=None, out=None) -> None:
     """The forward's layer launches over rows [0, n) of x (n rows): a_l into
     acts[:, l % 2] (the last hidden layer's only where `out` is given), z_l
-    into z[:, l] where the stash is given, and with `out`, out = a_L W_{D-1}
-    + b_{D-1}. ops: (W_0, the hidden W's planes (`_layer_planes`), W_{D-1},
-    the biases, b_{D-1}), each with a leading member axis."""
+    into z[:, l] where the stash (M, D-1, n, H), or a view of its rows, is
+    given, and with `out`, out = a_L W_{D-1} + b_{D-1}. ops: (W_0, the
+    hidden W's planes (`_layer_planes`), W_{D-1}, the biases, b_{D-1}), each
+    with a leading member axis."""
     w0, wp, wl, bs, bl = ops
     in_size, hidden, out_size, depth, m = dims
     dev = x.device
@@ -1154,46 +1190,66 @@ def _layer_chain_fwd(lib, ops, x, n: int, dims, om, acts, bf16: bool, mixed: boo
         _layer_launch(lib, "sine_mlp_layer_fwd", args, _LAST, bf16, mixed, name, dev)
 
 
-def _layer_fwd(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool, name: str):
+def _layer_fwd(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool, name: str,
+               stash: bool = False):
     """The forward on the layer-wise kernels (kernel width above 512) over
-    `members` on x, (N, in) shared or (M, N, in) -> (M, N, out), in bands of
-    `layer_band_rows` rows; counted per launch under `name`."""
+    `members` on x, (N, in) shared or (M, N, in) -> (out (M, N, out), z), in
+    bands of `layer_band_rows` rows; counted per launch under `name`. With
+    `stash` (a backward will follow: the autograd Functions under grad) z
+    is the z stash (M, D-1, N, H) that K2 takes in place of its recompute,
+    each band's layers writing their rows of it; else None. The stash is
+    allocated once, the activations stay band-sized; when the stash and the
+    band's buffers exceed the device's free memory this raises ValueError
+    first."""
     lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
                                                          x.reshape(-1, x.shape[-1]))
     om = _omegas(cfg, depth)
     dev = x.device
     m = _member_count(members)
     n = x.shape[-2]
+    band = layer_band_rows(hidden, m)
+    if stash:
+        _check_fits(4 * m * ((depth - 1) * n * hidden + 2 * min(band, n) * hidden
+                             + n * out_size), dev,
+                    f"the layer-wise forward's z stash at width {hidden} over {n} rows"
+                    + (f" and {m} members" if m > 1 else "")
+                    + " (train.pixel_chunks splits the rows)")
     ops = _members_lead(_pack_members(members, hidden, mixed))
     ops[1] = _layer_planes(ops[1], bf16, mixed)  # once per call
     x = _rnd(x.float(), mixed).contiguous()
     xm = x if x.dim() == 3 else x.unsqueeze(0)
     out = torch.empty((m, n, out_size), dtype=torch.float32, device=dev)
+    z = (torch.empty((m, depth - 1, n, hidden), dtype=torch.float32, device=dev)
+         if stash else None)
     for name_, t in zip(("w0", "planes", "wl", "bs", "bl"), ops):
         _check_cuda(name_, t, dev)
     _check_cuda("x", x, dev, aligned=False)  # read a value at a time
-    band = layer_band_rows(hidden, m)
     acts = torch.empty((m, 2, min(band, n), hidden), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         for r0 in range(0, n, band):
             r1 = min(n, r0 + band)
             _layer_chain_fwd(lib, ops, xm[:, r0:r1], r1 - r0,
                              (in_size, hidden, out_size, depth, m), om, acts, bf16, mixed,
-                             name, out=out[:, r0:r1])
-    return out
+                             name, z=None if z is None else z[:, :, r0:r1],
+                             out=out[:, r0:r1])
+    return out, z
 
 
-def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, batched: bool):
+def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, batched: bool,
+               z: Optional[torch.Tensor] = None):
     """The backward on the layer-wise kernels (kernel width above 512), up
-    to the partial sum: the forward's layer launches again with z stashed,
-    then per layer, last first, `sine_mlp_layer_bwd` and (hidden layers)
-    `sine_mlp_layer_dw`, then dx. Returns (dx, partials, sizes): dx (M, N,
-    in) and partials (M, S, n_part) when `batched`, else one member's.
-    Buffers: the z stash (M, D-1, N, H), two (M, N, H) buffers (the
-    activations, then G_l in buffer l % 2), the partials and the hidden
-    W's and W^T's planes (`_layer_planes`, packed once a call: the
-    recompute's and the backward's); when they exceed the device's free
-    memory this raises ValueError first."""
+    to the partial sum: without `z` the forward's layer launches again to
+    fill the z stash (`_layer_stash`), with `z` (the stash that K1 filled
+    under autograd) none of them; then per layer, last first,
+    `sine_mlp_layer_bwd` and (hidden layers)
+    `sine_mlp_layer_dw`, then dx; the hidden launches write A_{l-1} over
+    z_{l-1}, so the stash is used up. Returns (dx, partials, sizes): dx (M,
+    N, in) and partials (M, S, n_part) when `batched`, else one member's.
+    Buffers: the z stash (M, D-1, N, H) unless given, two (M, N, H) buffers
+    (the recompute's activations, then G_l in buffer l % 2), the partials
+    and the hidden W^T's planes (`_layer_planes`, packed once a call), and
+    W's for the recompute; when they exceed the device's free memory this
+    raises ValueError first."""
     bf16, mixed = precision_modes(precision)
     first = _first_member(members)
     lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
@@ -1206,15 +1262,16 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     # partial_layout's; tools/layer_width_ab.py runs them at 512 too)
     _, n_part, sizes = partial_layout(n, depth, in_size, first[0]["w"].shape[1], out_size, dev)
     slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
-    planes = 1 if bf16 or mixed else 3
-    _check_fits(4 * m * ((layers + 3) * n * hidden + slices * n_part + n * in_size
-                         + planes * layers * hidden * hidden), dev,
+    # one set of the hidden layers' bf16 planes, in floats
+    plane_floats = (1 if bf16 or mixed else 3) * layers * hidden * hidden // 2
+    recompute = z is None
+    _check_fits(4 * m * ((layers + 1) * n * hidden * recompute + 2 * n * hidden
+                         + slices * n_part + n * in_size + (1 + recompute) * plane_floats), dev,
                 f"the layer-wise backward at width {hidden} over {n} rows"
                 + (f" and {m} members" if batched else "")
                 + " (train.pixel_chunks splits the rows)")
     ops = _members_lead(_pack_members(members, hidden, mixed))
     w0, wm, wl, bs, bl = ops
-    fwd_ops = (w0, _layer_planes(wm, bf16, mixed), wl, bs, bl)  # the recompute's, once
     wtp = _layer_planes(wm.transpose(-1, -2), bf16, mixed)  # W^T's, the backward's, once
     x = _rnd(x.float(), mixed).contiguous()
     xm = x if x.dim() == 3 else x.unsqueeze(0)
@@ -1225,7 +1282,8 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     # x and g are read a value at a time
     _check_cuda("x", x, dev, aligned=False)
     _check_cuda("g", gm, dev, (m, n, out_size), aligned=False)
-    z = torch.empty((m, layers + 1, n, hidden), dtype=torch.float32, device=dev)
+    if not recompute:
+        _check_cuda("z", z, dev, (m, layers + 1, n, hidden))
     bufs = torch.empty((m, 2, n, hidden), dtype=torch.float32, device=dev)
     partials = torch.empty((m, slices, n_part), dtype=torch.float32, device=dev)
     dx = torch.empty((m, n, in_size), dtype=torch.float32, device=dev)
@@ -1236,8 +1294,9 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     common = dict(n=n, in_size=in_size, hidden=hidden, out_size=out_size, slices=slices,
                   members=m, n_part=n_part)
     with torch.cuda.device(dev):
-        _layer_chain_fwd(lib, fwd_ops, xm, n, dims, om, bufs, bf16, mixed,
-                         "sine_mlp_layer_fwd" + suffix, z=z)
+        if recompute:
+            z = _layer_stash(lib, ops, xm, n, dims, om, bufs, bf16, mixed,
+                             "sine_mlp_layer_fwd" + suffix)
         # the last layer: G_L into bufs[:, L % 2]; dW_0 here too at depth 2
         args = _layer_args(
             omega=om[layers], src=gm, w=wl, z=z[:, layers], dst=bufs[:, layers % 2],
@@ -1262,6 +1321,51 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     if batched:
         return dx, partials, sizes
     return dx[0], partials[0], sizes
+
+
+def _layer_stash(lib, ops, xm: torch.Tensor, n: int, dims, om, acts: torch.Tensor, bf16: bool,
+                 mixed: bool, name: str) -> torch.Tensor:
+    """K2's recompute of the z stash: the forward's layer launches over all
+    n rows of xm in one pass (one row slicing, where K1 bands the rows),
+    through the activation buffers acts (M, 2, n, H) -> z (M, D-1, n, H).
+    ops: the packed (W_0, W_m, W_{D-1}, biases, b_{D-1}), each with a
+    leading member axis; W_m's planes are made here."""
+    in_size, hidden, out_size, depth, m = dims
+    w0, wm, wl, bs, bl = ops
+    z = torch.empty((m, depth - 1, n, hidden), dtype=torch.float32, device=xm.device)
+    _layer_chain_fwd(lib, (w0, _layer_planes(wm, bf16, mixed), wl, bs, bl), xm, n, dims, om,
+                     acts, bf16, mixed, name, z=z)
+    return z
+
+
+def sine_mlp_layer_stash(members, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
+    """The z stash that K2 recomputes above width 512 (`sine_mlp_bwd` and
+    `sine_mlp_bwd_batched` without a stash from the forward), on the card:
+    members as sine_mlp_fwd_batched takes them (a sequence of params tuples
+    of one shape, or one params tuple with a leading member axis), x (N, in)
+    or (M, N, in) -> z (M, D-1, N, H), z_l of layer l = 0 .. D-2 at the
+    kernel width. chip_smoke.py and the card tests hold the stash that K1
+    fills under autograd against it bit for bit. Counted as the recompute
+    is, under "sine_mlp_layer_fwd" (its "_batched" key over more than one
+    member)."""
+    bf16, mixed = precision_modes(precision)
+    _check_fwd_batched(members, x)
+    lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
+                                                         x.reshape(-1, x.shape[-1]))
+    if hidden <= KERNEL_WIDTHS[-1]:
+        raise ValueError("sine_mlp_layer_stash: the layer-wise kernels run widths above "
+                         f"{KERNEL_WIDTHS[-1]} only")
+    dev = x.device
+    m, n = _member_count(members), x.shape[-2]
+    ops = _members_lead(_pack_members(members, hidden, mixed))
+    x = _rnd(x.float(), mixed).contiguous()
+    xm = x if x.dim() == 3 else x.unsqueeze(0)
+    _check_cuda("x", x, dev, aligned=False)
+    acts = torch.empty((m, 2, n, hidden), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        return _layer_stash(lib, ops, xm, n, (in_size, hidden, out_size, depth, m),
+                            _omegas(cfg, depth), acts, bf16, mixed,
+                            "sine_mlp_layer_fwd" + ("_batched" if m > 1 else ""))
 
 
 def _layer_dw_launch(lib, a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor,
@@ -1532,23 +1636,46 @@ def _unflatten(flat: Sequence[torch.Tensor]):
     return tuple({"w": flat[2 * i], "b": flat[2 * i + 1]} for i in range(len(flat) // 2))
 
 
+def _layer_wise(params) -> bool:
+    """Whether a SIREN of these params (leaves with or without a member
+    axis) runs on the layer-wise kernels (kernel width above 512)."""
+    return kernel_width(params[0]["w"].shape[-1]) > KERNEL_WIDTHS[-1]
+
+
+def _wants_stash(*tensors: torch.Tensor) -> bool:
+    """Whether a backward may follow a forward on these inputs: grad mode
+    is on and one of them requires grad. Decided outside the Functions,
+    where `ctx.needs_input_grad` cannot tell (inside forward grad mode is
+    always off): a render, eval or decode under no_grad keeps no stash."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class SineMLPFunction(torch.autograd.Function):
     """out = chain(x; W, b). Forward: kernel K1 on a CUDA tensor, the plain
     chain on a CPU tensor. Backward: kernel K2 (above width 128 with
     sine_mlp_dw) + sum_partials, or the plain backward. Returns cotangents
-    for x and every W and b."""
+    for x and every W and b.
+
+    `stash` (`_wants_stash`, the caller's): above width 512 the forward
+    keeps the pre-activations z of every layer but the last (K1 writes
+    them beside the activations, the plain chain keeps its own) and the
+    backward takes them in place of its recompute, with the same bits. The
+    backward uses the stash up (K2 writes A_{l-1} over z_{l-1}) and drops
+    it; a second backward through the graph (retain_graph=True) recomputes
+    it, as K2 does without a stash. At 512 and below nothing is kept."""
 
     @staticmethod
-    def forward(ctx, x, cfg, precision, *flat):
+    def forward(ctx, x, cfg, precision, stash, *flat):
         params = _unflatten(flat)
-        ctx.planes = None
+        stash = stash and _layer_wise(params)
+        ctx.planes = ctx.z = None
         if x.is_cuda:  # W's planes (width 128), packed once for K1 and K2
             bf16, mixed = precision_modes(precision)
-            out, ctx.planes = _fwd_launch([params], x, cfg, bf16, mixed, "sine_mlp_fwd",
-                                          keep=True)
+            out, ctx.planes, ctx.z = _fwd_launch([params], x, cfg, bf16, mixed, "sine_mlp_fwd",
+                                                 keep=True, stash=stash)
             out = out[0]
         else:
-            out = siren_chain_reference(params, x, cfg, precision)
+            out, ctx.z = _chain_forward(params, x, cfg, precision, keep=stash)
         ctx.save_for_backward(x, *flat)
         ctx.cfg, ctx.precision = cfg, precision
         return out
@@ -1557,12 +1684,14 @@ class SineMLPFunction(torch.autograd.Function):
     def backward(ctx, g):
         x, *flat = ctx.saved_tensors
         params = _unflatten(flat)
+        z, ctx.z = ctx.z, None  # used up by this backward
         if x.is_cuda:
             dx, grads = _bwd_launch([params], x, g, ctx.cfg, ctx.precision, batched=False,
-                                    planes=ctx.planes)
+                                    planes=ctx.planes, z=z)
         else:
-            dx, grads = siren_chain_backward_reference(params, x, g, ctx.cfg, ctx.precision)
-        out = [dx if ctx.needs_input_grad[0] else None, None, None]
+            dx, grads = siren_chain_backward_reference(params, x, g, ctx.cfg, ctx.precision,
+                                                       zs=z)
+        out = [dx if ctx.needs_input_grad[0] else None, None, None, None]
         for layer in grads:
             out += [layer["w"], layer["b"]]
         return tuple(out)
@@ -1582,16 +1711,26 @@ class SineMLPBatchedFunction(torch.autograd.Function):
     Forward: `sine_mlp_fwd_batched` on a CUDA tensor, the plain chain member
     by member on a CPU tensor. Backward: `sine_mlp_bwd_batched`, or the plain
     backward member by member. Member m's outputs and cotangents have the
-    bits of `SineMLPFunction` on member m alone, in every mode."""
+    bits of `SineMLPFunction` on member m alone, in every mode; `stash` as
+    there (one stash holds every member's z, (M, D-1, N, H) on the card)."""
 
     @staticmethod
-    def forward(ctx, x, cfg, precision, *flat):
-        ctx.planes = None
+    def forward(ctx, x, cfg, precision, stash, *flat):
+        members = _unflatten(flat)
+        stash = stash and _layer_wise(members)
+        ctx.planes = ctx.z = None
         if x.is_cuda:  # the stacked leaves and W's planes, packed in one pass each
-            out, ctx.planes = sine_mlp_fwd_batched(_unflatten(flat), x, cfg, precision,
-                                                   keep=True)
+            bf16, mixed = precision_modes(precision)
+            _check_fwd_batched(members, x)
+            out, ctx.planes, ctx.z = _fwd_launch(members, x, cfg, bf16, mixed,
+                                                 "sine_mlp_fwd_batched", keep=True,
+                                                 stash=stash)
         else:
-            out = siren_chain_reference_batched(_members(flat), x, cfg, precision)
+            xs = [x] * flat[0].shape[0] if x.dim() == 2 else list(x)
+            runs = [_chain_forward(p, xm, cfg, precision, keep=stash)
+                    for p, xm in zip(_members(flat), xs)]
+            out = torch.stack([o for o, _ in runs])
+            ctx.z = [zs for _, zs in runs] if stash else None
         ctx.save_for_backward(x, *flat)
         ctx.cfg, ctx.precision = cfg, precision
         return out
@@ -1599,17 +1738,20 @@ class SineMLPBatchedFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *flat = ctx.saved_tensors
+        z, ctx.z = ctx.z, None  # used up by this backward
         if x.is_cuda:
-            dx, grads = sine_mlp_bwd_batched(_unflatten(flat), x, g, ctx.cfg, ctx.precision,
-                                             planes=ctx.planes)
+            members = _unflatten(flat)
+            _check_bwd_batched(members, x, g)
+            dx, grads = _bwd_launch(members, x, g, ctx.cfg, ctx.precision, batched=True,
+                                    planes=ctx.planes, z=z)
         else:
             dx, grads = siren_chain_backward_reference_batched(_members(flat), x, g,
-                                                               ctx.cfg, ctx.precision)
+                                                               ctx.cfg, ctx.precision, zs=z)
         if not ctx.needs_input_grad[0]:
             dx = None
         elif x.dim() == 2:  # one x shared by every member
             dx = dx.sum(0)
-        out = [dx, None, None]
+        out = [dx, None, None, None]
         for layer in grads:
             out += [layer["w"], layer["b"]]
         return tuple(out)
@@ -1622,7 +1764,7 @@ def siren_apply_flat_fused(
     the fused chain (kernels on CUDA, plain versions on CPU)."""
     x = (coords - 0.5) * 2.0
     flat = [t for layer in params for t in (layer["w"], layer["b"])]
-    out = SineMLPFunction.apply(x, cfg, precision, *flat)
+    out = SineMLPFunction.apply(x, cfg, precision, _wants_stash(x, *flat), *flat)
     return out / 2.0 + 0.5
 
 
@@ -1635,5 +1777,5 @@ def siren_apply_flat_batched_fused(params, coords: torch.Tensor, cfg,
     with `siren_apply_flat_fused`'s input and output maps."""
     x = (coords - 0.5) * 2.0
     flat = [t for layer in params for t in (layer["w"], layer["b"])]
-    out = SineMLPBatchedFunction.apply(x, cfg, precision, *flat)
+    out = SineMLPBatchedFunction.apply(x, cfg, precision, _wants_stash(x, *flat), *flat)
     return out / 2.0 + 0.5

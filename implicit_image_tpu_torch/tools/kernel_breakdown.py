@@ -41,24 +41,30 @@ costs:
                 mbarrier completes at once; the products read what the slot
                 holds): the time of streaming W's planes from L2
 
+Above 512 each variant also times K1 and K2 under autograd, as a fit step
+runs them (siren_apply_flat_fused on leaves that require grad, then the
+backward: K2 takes the z stash that K1 filled, where the tree has one).
 --variants picks some of them (default: all), --precisions the modes timed
 (default fp32), --members M also times sine_mlp_bwd_batched over M members
-in each mode, --split also runs one fp32 K2 under torch.profiler and
-records each kernel's device ms and launches (the layer-wise backward's
-by kind: hidden, last, first). --build-dir keeps the built files there, each under the hash
-of the sources it was built from, and reuses one only for the same sources
-(--build-only builds and stops), so that two trees can share the directory
-and be timed in turns without building again. The variants match the
-source of this commit and of older ones (the mma.sync forward and
-backward at width 128; the mma.sync backward at 192 with sine_mlp_dw;
-before the wider backward moved dW into sine_mlp_dw), so the tool also
-measures an older checkout: copy this file into it and run it there. It
-then builds and runs tools/mma_rate.cu: the rates of mma.sync and wgmma
-alone, and its checks of csrc/hopper.cuh's building blocks (their exit code
-is recorded). Prints one line per variant and width, and writes the record,
-with the card's name and power limit, as JSON to --out. For "full" it also
-records the sha256 of the fp32 forward's output and of the backward's
-results, so that two trees' runs show whether their bits agree.
+in each mode, --split also runs one fp32 K2 under torch.profiler and records
+each kernel's device ms and launches (the layer-wise backward's by kind:
+hidden, last, first; above 512 the K2 under autograd too). --build-dir keeps
+the built files there, each under the hash of the sources it was built from,
+and reuses one only for the same sources (--build-only builds and stops), so
+that two trees can share the directory and be timed in turns without
+building again; "full", the checkout's own source, is its library
+(ops/cuda_build.load_library, built under build/ of the checkout), which the
+checkout's other tools then load as built. The variants match the source of
+this commit and of older ones (the mma.sync forward and backward at width
+128; the mma.sync backward at 192 with sine_mlp_dw; before the wider
+backward moved dW into sine_mlp_dw), so the tool also measures an older
+checkout: copy this file into it and run it there. It then builds and runs
+tools/mma_rate.cu: the rates of mma.sync and wgmma alone, and its checks of
+csrc/hopper.cuh's building blocks (their exit code is recorded). Prints one
+line per variant and width, and writes the record, with the card's name and
+power limit, as JSON to --out. For "full" it also records the sha256 of the
+fp32 forward's output and of the backward's results (above 512 also of the
+autograd pair's), so that two trees' runs show whether their bits agree.
 """
 from __future__ import annotations
 
@@ -183,7 +189,9 @@ def variants(src: str) -> dict:
 def _build(src: Path, out: Path) -> None:
     if src.suffix == ".cu":  # tools/mma_rate.cu: a program
         cmd = [cb._nvcc(), cb._ARCH, "-std=c++17", "-O3", "-o", str(out), str(src)]
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{done.stderr[-4000:]}")
     else:  # a copy of csrc/: the library, built in its parts
         cb.build(src, out)
 
@@ -227,18 +235,27 @@ def layer_kind(name: str):
     return None
 
 
-def k2_split(k2) -> dict:
-    """One call of k2 under torch.profiler: {kernel: [device ms, launches]},
-    the layer-wise kernels by name (sine_mlp_layer_bwd_kernel by kind:
-    hidden, last, first), the others by the start of theirs."""
+def k2_split(k2, prepare=None) -> dict:
+    """One call of k2 under torch.profiler, after one unprofiled: {kernel:
+    [device ms, launches]}, the layer-wise kernels by name
+    (sine_mlp_layer_bwd_kernel by kind: hidden, last, first), the others by
+    the start of theirs. With `prepare`, each call is k2(prepare()),
+    prepare run outside the profile (a forward under autograd whose z stash
+    the backward k2 takes)."""
     from torch.profiler import ProfilerActivity, profile
 
     from implicit_image_tpu_torch import profile_fit
 
-    k2()
+    def call():
+        arg = () if prepare is None else (prepare(),)
+        torch.cuda.synchronize()
+        return lambda: k2(*arg)
+
+    call()()
     torch.cuda.synchronize()
+    run = call()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        k2()
+        run()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         trace = Path(tmp) / "k2.trace.json"
@@ -257,6 +274,38 @@ def k2_split(k2) -> dict:
         got[0] += row["ms"]
         got[1] += row["count"]
     return split
+
+
+def autograd_forward(params, coords, cfg, precision: str = "fp32"):
+    """K1 as a fit step runs it: siren_apply_flat_fused on copies of the
+    leaves that require grad (above 512 it fills the z stash where the
+    tree's Function does) -> out, whose backward is K2 (from the stash, or
+    with its recompute), and the leaves."""
+    leaves = [{k: layer[k].detach().clone().requires_grad_(True) for k in ("w", "b")}
+              for layer in params]
+    return sm.siren_apply_flat_fused(leaves, coords, cfg, precision), leaves
+
+
+def autograd_ms(params, coords, g, cfg, precision: str = "fp32", reps: int = 5):
+    """(K1 ms, K2 ms) under autograd (`autograd_forward`, then
+    out.backward(g)): medians of `reps` calls after one, each between CUDA
+    events. g passes the output map (/ 2) on its way, a few microseconds."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fwd, bwd = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        start.record()
+        out, _ = autograd_forward(params, coords, cfg, precision)
+        end.record()
+        torch.cuda.synchronize()
+        fwd.append(start.elapsed_time(end))
+        start.record()
+        out.backward(g)
+        end.record()
+        torch.cuda.synchronize()
+        bwd.append(start.elapsed_time(end))
+        del out
+    return sorted(fwd[1:])[reps // 2], sorted(bwd[1:])[reps // 2]
 
 
 def _sha256(*tensors) -> str:
@@ -283,13 +332,18 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    srcs = variants((cb.CSRC / "sine_mlp.cu").read_text())
+    own = (cb.CSRC / "sine_mlp.cu").read_text()
+    srcs = variants(own)
     if args.variants:
         srcs = {n: srcs[n] for n in args.variants}
     tmp = Path(args.build_dir or tempfile.mkdtemp(prefix="kernel_breakdown_"))
+    tmp.mkdir(parents=True, exist_ok=True)
     headers = {h.name: h.read_text() for h in sorted(cb.CSRC.glob("*.cuh"))}
     parts, libs, jobs = repr(sorted(cb._PARTS.items())), {}, []
     for name, text in srcs.items():
+        if text == own:  # the checkout's own library, where its other callers find it
+            libs[name] = None
+            continue
         part = tmp / f"{name}_{_digest(text, *headers.values(), parts)}"
         libs[name] = part / "lib.so"
         if libs[name].is_file():
@@ -305,11 +359,13 @@ def main(argv=None) -> dict:
         jobs.append((rate_src, rate_bin))
     with ThreadPoolExecutor(BUILDS_AT_ONCE) as ex:
         list(ex.map(lambda j: _build(*j), jobs))
+    own_lib = cb.load_library() if None in libs.values() else None
     if args.build_only:
         return {}
 
     dev = torch.device("cuda")
-    x = (get_grid(512, 512, dev).reshape(-1, 2) - 0.5) * 2.0
+    coords = get_grid(512, 512, dev).reshape(-1, 2)
+    x = (coords - 0.5) * 2.0
     record = {"card": card, "widths": {}}
     saved = cb._state["lib"]
     try:
@@ -337,7 +393,7 @@ def main(argv=None) -> dict:
             gm = (torch.randn((args.members, x.shape[0], 3), generator=gen)
                   / x.shape[0]).to(dev)
             for name in srcs:
-                cb._state["lib"] = _load(libs[name])
+                cb._state["lib"] = own_lib if libs[name] is None else _load(libs[name])
                 fwd = _time_ms(lambda: sm.sine_mlp_fwd(params, x, mcfg, "fp32"))
                 bwd = _time_ms(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, "fp32"))
                 rows[name] = {"fwd_ms": fwd, "bwd_ms": bwd}
@@ -359,11 +415,29 @@ def main(argv=None) -> dict:
                                                               for t in gr.values()))
                     line += (f", sha256 fwd {rows[name]['fwd_sha256']} bwd "
                              f"{rows[name]['bwd_sha256']}")
+                if hidden > sm.KERNEL_WIDTHS[-1]:  # K1 and K2 as a fit step runs them
+                    k1_ms, k2_ms = autograd_ms(params, coords, g, mcfg)
+                    rows[name]["fwd_autograd_ms"], rows[name]["bwd_autograd_ms"] = k1_ms, k2_ms
+                    line += f", under autograd fwd {k1_ms:.4f} ms, bwd {k2_ms:.4f} ms"
+                    if name == "full":
+                        out, leaves = autograd_forward(params, coords, mcfg)
+                        out.backward(g)
+                        rows[name]["autograd_sha256"] = _sha256(
+                            out, *(layer[k].grad for layer in leaves for k in ("w", "b")))
+                        line += f", sha256 autograd {rows[name]['autograd_sha256']}"
+                        del out, leaves
                 if args.split:
                     rows[name]["k2_split"] = k2_split(
                         lambda: sm.sine_mlp_bwd(params, x, g, mcfg, "fp32"))
                     line += ", K2's kernels (device ms / launches): " + "; ".join(
                         f"{k} {ms:.3f} / {n}" for k, (ms, n) in rows[name]["k2_split"].items())
+                    if hidden > sm.KERNEL_WIDTHS[-1]:
+                        rows[name]["k2_split_autograd"] = k2_split(
+                            lambda out: out.backward(g),
+                            lambda: autograd_forward(params, coords, mcfg)[0])
+                        line += "; under autograd: " + "; ".join(
+                            f"{k} {ms:.3f} / {n}"
+                            for k, (ms, n) in rows[name]["k2_split_autograd"].items())
                 if dw_args is not None:
                     rows[name]["dw_ms"] = _time_ms(lambda: sm.sine_mlp_dw(*dw_args))
                     line += f", sine_mlp_dw alone {rows[name]['dw_ms']:.4f} ms"

@@ -59,7 +59,7 @@ def layer_wise_pair(params, x, g, cfg, precision: str = "fp32"):
         raise ValueError(f"width {h} runs on kernel width {hidden}, not a multiple of "
                          f"{sm.LAYER_TILE}: the layer-wise kernels do not take it")
     bf16, mixed = sm.precision_modes(precision)
-    out = sm._layer_fwd([params], x, cfg, bf16, mixed, "sine_mlp_layer_fwd")[0]
+    out = sm._layer_fwd([params], x, cfg, bf16, mixed, "sine_mlp_layer_fwd")[0][0]
     dx, partials, sizes = sm._layer_bwd([params], x, g, cfg, precision, batched=False)
     flat = sm.sum_partials(partials, precision)
     grads = sm._split_grads(flat, (), sizes, depth, in_size, hidden, h, out_size, turned=False)

@@ -7,8 +7,10 @@ cannot show.
 
 Runs compress.main with `entropy_coding=plain` and the overrides into
 outputs/protocol_ab_LABEL and prints one line: decoded PSNR, bytes, fit and
-quant PSNR, the fit's ms a step (its wall over train.num_steps), wall. Run
-it from the root of each checkout to compare commits on one card.
+quant PSNR, the fit's ms a step (its wall over train.num_steps), wall, the
+run's peak device memory (torch.cuda.max_memory_allocated) and the
+launches of each kernel that ran. Run it from the root of each checkout to
+compare commits on one card.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ def main(argv=None) -> float:
         sm.sine_mlp_bwd = sm.siren_chain_backward_reference
     run_dir = f"outputs/protocol_ab_{args.label}"
     cfg = compress.compose(["entropy_coding=plain", f"output_dir={run_dir}"] + args.overrides)
+    sm.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     psnr, nbytes = compress.main(cfg, run_dir=run_dir)
     summary = json.loads(open(f"{run_dir}/summary.json").read())
@@ -44,7 +48,8 @@ def main(argv=None) -> float:
     print(f"[protocol_ab] {args.label} plain={args.plain} {args.overrides}: decoded "
           f"{psnr:.4f} dB, {nbytes} B, fit PSNR {summary['PSNR']:.4f}, quant PSNR "
           f"{summary['Quant PSNR']:.4f}, fit {ms_step:.3f} ms/step, wall "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB, launches { {k: v for k, v in sm.LAUNCHES.items() if v} }", flush=True)
     return psnr
 
 

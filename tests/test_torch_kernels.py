@@ -321,6 +321,66 @@ def test_layer_kernels_over_a_member_axis_are_single_launches(cuda_device, preci
                 assert torch.equal(a[k][i], b[k]), (i, k)
 
 
+def _autograd_pair(members, x, g, c, precision):
+    """K1 and K2 under autograd (the fit's path: the stash from K1, K2 with
+    no recompute) over a member axis, or on one params tuple: (out, dx,
+    grads, the stash as K1 filled it, the launches K2 added)."""
+    batched = isinstance(members, list)
+    leaves = [{k: v.clone().requires_grad_(True) for k, v in layer.items()}
+              for layer in (sm.stack_members(members) if batched else members)]
+    x = x.clone().requires_grad_(True)
+    flat = [t for layer in leaves for t in (layer["w"], layer["b"])]
+    fn = sm.SineMLPBatchedFunction if batched else sm.SineMLPFunction
+    out = fn.apply(x, c, precision, True, *flat)
+    stash = out.grad_fn.z.clone()
+    before = dict(sm.LAUNCHES)
+    out.backward(g)
+    torch.cuda.synchronize()
+    added = {k: sm.LAUNCHES[k] - before[k] for k in before}
+    return (out.detach(), x.grad, [{k: v.grad for k, v in layer.items()} for layer in leaves],
+            stash, added)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_layer_autograd_path_is_the_api_path(cuda_device, precision):
+    """Above 512 under autograd K1 fills the z stash in its bands and K2
+    takes it: at d4/w640 on 250,000 rows (2 bands; 3 over 2 members) the
+    stash is the bits of K2's recompute (`sine_mlp_layer_stash`, one pass),
+    K2 launches no sine_mlp_layer_fwd, and out, dx and every gradient are
+    the bits of sine_mlp_fwd / sine_mlp_bwd (and of the member-axis
+    launches), in every mode."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    members = [m.init(torch.Generator().manual_seed(i), c, cuda_device) for i in range(2)]
+    n = 250000
+    assert n > sm.layer_band_rows(640)
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((2, n, 3), generator=gen).to(cuda_device)
+    for batched in (False, True):
+        got = _autograd_pair(members if batched else members[0], x, g if batched else g[0], c,
+                             precision)
+        out, dx, grads, stash, added = got
+        assert torch.equal(stash, sm.sine_mlp_layer_stash(members if batched else members[:1],
+                                                          x, c, precision))
+        suffix = "_batched" if batched else ""
+        assert added == {k: 0 for k in added} | {"sine_mlp_layer_bwd" + suffix: 4,
+                                                 "sine_mlp_layer_dw" + suffix: 2,
+                                                 "sum_partials" + suffix: 1}
+        if batched:
+            api = (sm.sine_mlp_fwd_batched(members, x, c, precision),
+                   *sm.sine_mlp_bwd_batched(members, x, g, c, precision))
+            dx_api = api[1].sum(0)  # x shared by both members
+        else:
+            api = (sm.sine_mlp_fwd(members[0], x, c, precision),
+                   *sm.sine_mlp_bwd(members[0], x, g[0], c, precision))
+            dx_api = api[1]
+        assert torch.equal(out, api[0]) and torch.equal(dx, dx_api)
+        for a, b in zip(grads, api[2]):
+            for k in KEYS:
+                assert torch.equal(a[k], b[k]), (batched, k)
+
+
 @pytest.mark.cuda
 def test_layer_partials_match_their_mirror(cuda_device):
     """The layer-wise backward's partial buffer against its plain mirror

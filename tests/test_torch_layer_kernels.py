@@ -442,3 +442,188 @@ def test_grad_check_float64_chain_is_the_plain_chain():
     for i, (a, b) in enumerate(zip(grads, grads_64)):
         rel.update({f"{i}.{k}": _over_max(a[k], b[k]) for k in ("w", "b")})
     assert max(rel.values()) <= 1e-5, rel
+
+
+def _grad_leaves(p):
+    """params_from_jax's leaves as autograd leaves."""
+    tp = params_from_jax(p, "cpu")
+    for layer in tp:
+        for v in layer.values():
+            v.requires_grad_(True)
+    return tp
+
+
+def _flat(tp):
+    return [t for layer in tp for t in (layer["w"], layer["b"])]
+
+
+def _grads(tp):
+    return [{k: layer[k].grad for k in KEYS} for layer in tp]
+
+
+def _same(a, b):
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in KEYS)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("depth,hidden", [(4, 640), (3, 1024)])
+def test_stash_under_autograd_gives_the_recompute_bits(precision, depth, hidden):
+    """SineMLPFunction with a stash (the plain path's mirror of K1 filling
+    the z stash for K2): the forward keeps z_0 .. z_{D-2}, the backward
+    takes them and drops them, and out, dx and every gradient are the bits
+    of siren_chain_reference and siren_chain_backward_reference (the
+    recompute), in every mode, at d4/w640 and d3/w1024 on 144 pixels."""
+    _, _, _, c, p, coords, _ = _setup(depth, hidden, seed=3)
+    tp = _grad_leaves(p)
+    x = ((torch.from_numpy(coords) - 0.5) * 2.0).requires_grad_(True)
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=(x.shape[0], 3)).astype(
+        np.float32))
+    out = sm.SineMLPFunction.apply(x, c, precision, True, *_flat(tp))
+    node = out.grad_fn
+    assert len(node.z) == depth - 1 and all(z.shape == (x.shape[0], hidden) for z in node.z)
+    out.backward(g)
+    assert node.z is None  # used up, dropped
+    plain = [{k: v.detach() for k, v in layer.items()} for layer in tp]
+    xd = x.detach()
+    assert torch.equal(out.detach(), sm.siren_chain_reference(plain, xd, c, precision))
+    dx, grads = sm.siren_chain_backward_reference(plain, xd, g, c, precision)
+    assert torch.equal(x.grad, dx)
+    assert _same(_grads(tp), grads)
+
+
+@pytest.mark.parametrize("depth,hidden", [(4, 640), (3, 1024)])
+def test_stash_path_grads_match_jax(depth, hidden):
+    """The fit's path (models' apply_flat -> siren_apply_flat_fused, leaves
+    requiring grad: the stash is kept) against JAX XLA fp32 on 144 pixels,
+    within the limits of test_wide_fp32_forward_and_grads_match_jax (2e-5,
+    1e-4 of each leaf's largest magnitude)."""
+    jm, jc, m, c, p, coords, target = _setup(depth, hidden, seed=5)
+    kept = []
+    chain_forward = sm._chain_forward
+
+    def spy(*args, keep=False):
+        kept.append(keep)
+        return chain_forward(*args, keep=keep)
+
+    sm._chain_forward = spy
+    try:
+        out, grads = _torch_grads(m, c, p, coords, target, "fp32")
+    finally:
+        sm._chain_forward = chain_forward
+    assert kept[0] is True
+    np.testing.assert_allclose(out, np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
+    jg = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc) - target) ** 2))(p)
+    for a, b in zip(grads, jg):
+        for k in KEYS:
+            ref = np.asarray(b[k])
+            assert np.abs(a[k] - ref).max() <= 1e-4 * np.abs(ref).max(), k
+
+
+def test_no_stash_without_a_backward_to_follow(monkeypatch):
+    """The stash is decided outside the Functions: under torch.no_grad (a
+    render, an eval, a decode) no forward keeps one, though every leaf
+    requires grad, single or over a member axis, and neither does a forward
+    whose inputs require no grad; with grad on and a leaf requiring it, one
+    is kept."""
+    m, c = build_model("siren", depth=3, hidden_size=640)
+    params = m.init(torch.Generator().manual_seed(6), c)
+    for layer in params:
+        for v in layer.values():
+            v.requires_grad_(True)
+    stacked = sm.stack_members([params, params])
+    coords = torch.rand((50, 2), generator=torch.Generator().manual_seed(7))
+    kept = []
+    chain_forward = sm._chain_forward
+
+    def spy(*args, keep=False):
+        kept.append(keep)
+        return chain_forward(*args, keep=keep)
+
+    monkeypatch.setattr(sm, "_chain_forward", spy)
+    with torch.no_grad():
+        assert not sm._wants_stash(coords, *_flat(params))
+        sm.siren_apply_flat_fused(params, coords, c)
+        sm.siren_apply_flat_batched_fused(stacked, coords, c)
+        m.apply_flat(params, coords, c, "fp32")
+    assert kept == [False] * 4
+    detached = [{k: v.detach() for k, v in layer.items()} for layer in params]
+    assert not sm._wants_stash(coords, *_flat(detached))
+    sm.siren_apply_flat_fused(detached, coords, c)
+    assert kept[-1] is False
+    assert sm._wants_stash(coords, *_flat(params))
+    sm.siren_apply_flat_fused(params, coords, c)
+    assert kept[-1] is True
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_stash_over_a_member_axis_is_the_single_fits(precision):
+    """SineMLPBatchedFunction with a stash, 2 members at d4/w640, each its
+    own x: the stash holds each member's z, and member m's out, dx and
+    gradients are the bits of SineMLPFunction with a stash on member m
+    alone, in every mode."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    members = [m.init(torch.Generator().manual_seed(8 + i), c) for i in range(2)]
+    gen = torch.Generator().manual_seed(10)
+    xs = (torch.rand((2, 90, 2), generator=gen) * 2 - 1).requires_grad_(True)
+    g = torch.randn((2, 90, 3), generator=gen)
+    stacked = [{k: v.clone().requires_grad_(True) for k, v in layer.items()}
+               for layer in sm.stack_members(members)]
+    out = sm.SineMLPBatchedFunction.apply(xs, c, precision, True, *_flat(stacked))
+    node = out.grad_fn
+    assert len(node.z) == 2 and all(len(zs) == 3 for zs in node.z)
+    out.backward(g)
+    assert node.z is None
+    for i, p in enumerate(members):
+        tp = [{k: v.clone().requires_grad_(True) for k, v in layer.items()} for layer in p]
+        x = xs[i].detach().clone().requires_grad_(True)
+        one = sm.SineMLPFunction.apply(x, c, precision, True, *_flat(tp))
+        one.backward(g[i])
+        assert torch.equal(out[i].detach(), one.detach())
+        assert torch.equal(xs.grad[i], x.grad)
+        assert _same([{k: v.grad[i] for k, v in layer.items()} for layer in stacked],
+                     _grads(tp))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_second_backward_recomputes_the_used_stash(batched):
+    """A second backward through the same graph (retain_graph=True) finds
+    the stash used up and dropped, recomputes it (K2's own path) and gives
+    the first backward's bits, single and over the member axis."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    params = m.init(torch.Generator().manual_seed(11), c)
+    if batched:
+        params = sm.stack_members([params, m.init(torch.Generator().manual_seed(12), c)])
+    for layer in params:
+        for v in layer.values():
+            v.requires_grad_(True)
+    gen = torch.Generator().manual_seed(13)
+    coords = torch.rand((70, 2), generator=gen)
+    apply = sm.siren_apply_flat_batched_fused if batched else sm.siren_apply_flat_fused
+    out = apply(params, coords, c, "fp32")
+    g = torch.randn(out.shape, generator=gen)
+    out.backward(g, retain_graph=True)
+    first = [{k: v.grad.clone() for k, v in layer.items()} for layer in params]
+    for layer in params:
+        for v in layer.values():
+            v.grad = None
+    out.backward(g)
+    assert _same(_grads(params), first)
+
+
+@pytest.mark.parametrize("hidden", [128, 512])
+def test_no_stash_at_fused_widths(hidden):
+    """At 512 and below the fused kernels recompute inside K2: asked for a
+    stash, the Function keeps none, and its gradients are the recompute's."""
+    m, c = build_model("siren", depth=3, hidden_size=hidden)
+    params = m.init(torch.Generator().manual_seed(14), c)
+    for layer in params:
+        for v in layer.values():
+            v.requires_grad_(True)
+    gen = torch.Generator().manual_seed(15)
+    x = torch.rand((60, 2), generator=gen) * 2 - 1
+    g = torch.randn((60, 3), generator=gen)
+    out = sm.SineMLPFunction.apply(x, c, "fp32", True, *_flat(params))
+    assert out.grad_fn.z is None
+    out.backward(g)
+    plain = [{k: v.detach() for k, v in layer.items()} for layer in params]
+    assert _same(_grads(params), sm.siren_chain_backward_reference(plain, x, g, c, "fp32")[1])
