@@ -50,8 +50,8 @@ Phases, each printing its own line:
      ptxas's registers and spills of every kernel and fails if a batched
      instantiation (forward, backward, sine_mlp_dw, partial sum) spills more
      than its single launch, if a "+mixed" batched one spills at all, or if
-     any instantiation of the wgmma kernels (the width-128 forward and
-     backward, the width-192 backward) or of the layer-wise kernels spills.
+     any instantiation of the wgmma kernels (the forward and backward at
+     widths 128 and 192) or of the layer-wise kernels spills.
      Above width 512, the layer-wise kernels at 640 and 1024, 512²,
      d8: K1 and K2 in fp32, bf16, fp32+mixed and bf16+mixed against the
      plain chain (LAYER_TOL: fp32 1e-4 / 1e-4, the others 1.5e-3 / 2e-2),
@@ -795,10 +795,11 @@ def phase_build() -> float:
             print(f"[2 build] {row.get('registers')} registers, {row.get('spill_stores')} B "
                   f"spill stores, {row.get('spill_loads')} B spill loads: {name[:160]}",
                   flush=True)
-    # the wgmma kernels (the width-128 forward and backward, the width-192
-    # backward; every mode, single and over the member axis) spill nothing
+    # the wgmma kernels (the forward and backward at widths 128 and 192;
+    # every mode, single and over the member axis) spill nothing
     for what, key in (("width-128 forward", "sine_mlp_fwd_kernel<"),
                       ("width-128 backward", "sine_mlp_bwd_kernel<"),
+                      ("width-192 forward", "sine_mlp_fwd_wg192_kernel<"),
                       ("width-192 backward", "sine_mlp_bwd_wg192_kernel<")):
         rows = {n: r for n, r in table.items() if n.startswith("void") and key in n}
         for name, row in rows.items():
@@ -2885,8 +2886,8 @@ def _segment_ms(overrides, n: int, seg: int, **train) -> dict:
 
 def phase_schedule(default_ms_step: float) -> None:
     """12a: the precision schedule on the RigL default (200 + 20 steps), and
-    a d8/w182 fit switching at 0.5 (the wide forward and the width-192
-    backward, which sums its dW itself: no sine_mlp_dw)."""
+    a d8/w182 fit switching at 0.5 (the width-192 forward and backward on
+    wgmma; the backward sums its dW itself: no sine_mlp_dw)."""
     from implicit_image_tpu_torch.training.fit import TrainConfig, plan_precision_schedule
 
     r = _p12_run("[12a schedule]", SCHEDULE_OVERRIDES)

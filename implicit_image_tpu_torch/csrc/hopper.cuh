@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels of sine_mlp.cu (the
-// width-128 forward and backward, the width-192 backward, the layer-wise
+// forward and backward at widths 128 and 192, the layer-wise
 // hidden forward, hidden backward and dW) and of tools/mma_rate.cu, which
 // checks them on the card: mbarriers, bulk copies and bulk reduce-adds (the
 // TMA unit), tensor copies (a tensor map's box), proxy fences, named

@@ -36,6 +36,26 @@
 // half a layer ahead. The first layer (K = in) and the last (N = out) stay
 // on FMA; the last sums each row from the accumulator's registers (a
 // thread's 32 columns, then its quad by shuffles) with no shared memory.
+//
+// Forward at width 192 (sine_mlp_fwd_wg192_kernel, "the width-192 forward"
+// below): the same scheme on the width-192 backward's forward phase
+// (first_layer_wg, b2_sine, b2_store_planes, and ring_ss_product's passes
+// in its order, each wgmma m64n96k16 issued for both column halves), so
+// every element sums as K2's recompute does. A 64 x 192 accumulator (96
+// registers) leaves no room for three planes of A in registers, so A's
+// planes go to shared memory, as in that backward; without the backward's
+// z stash, a_s and dW staging the budget holds a 128-row tile whose
+// warpgroups each own 64 rows, all 192 columns and their own act_s (64 x
+// 192 x 3 planes, 72 KB), beside 4 ring slots of one k-step (18 KB) in
+// fp32 (16 slots of 6 KB where W is one bf16 plane). A warp rewrites only
+// its own rows of act_s, which its part of the last product alone read, so
+// a warpgroup needs only its own named barrier and a proxy fence before its
+// next product: no barrier of the block in the tile loop. Each slice of W
+// read from L2 serves 128 rows (2.72 GB per fp32 forward at 512^2, d8; 64-
+// row tiles would read 5.44 GB). At 512^2, d8 on an H100 it takes 1.16 ms
+// of device time in fp32 against its 0.71 ms bound at 192 (PERF.md): the
+// products and each warpgroup's own epilogue, which cannot overlap its
+// products, hold it; streaming W costs ~2% (kernel_breakdown's knock-outs).
 
 // Backward at width 128 (sine_mlp_bwd_kernel, "the width-128 backward"
 // below), one block of 2 warpgroups per SM, persistent over 128-row tiles:
@@ -84,10 +104,12 @@
 //
 // Widths: the designs above are the width-128 kernels' (every model of
 // width <= 128 runs on them, zero-padded). Widths 129-512 run on the wider
-// kernels of width 192, 256 and 512, which stream each W in slices; the
-// backward at 192 is on wgmma and sums its dW, those at 256 and 512 leave
-// the hidden layers' dW to sine_mlp_dw (sections "the wider kernels", "the
-// width-192 backward" and "sine_mlp_dw" below).
+// kernels of width 192, 256 and 512, which stream each W in slices: at 192
+// the forward and the backward are on wgmma and the backward sums its dW;
+// at 256 and 512 the forward and backward are on mma.sync and the backward
+// leaves the hidden layers' dW to sine_mlp_dw (sections "the wider
+// kernels", "the width-192 backward", "the width-192 forward" and
+// "sine_mlp_dw" below).
 //
 // Backward: blocks run in parallel with no carry between them, so a fixed
 // grid of one block per SM loops over its share of tiles, adding into its
@@ -177,20 +199,30 @@ struct Geo {
 using G128 = Geo<H, T, H>;  // the width-128 kernels: a ring slice is a whole W
 static_assert(G128::THREADS == THREADS && G128::BUF == BUF && G128::SLICE == BUF, "");
 // Wider kernels (below). X(width, backward tile rows, ring slice rows and
-// ring slices, forward tile rows, ring slice rows and ring slices) for
-// each: the one list of the wider widths (ops/sine_mlp.KERNEL_TILE_ROWS
-// mirrors width and backward tile rows).
-#define SINE_MLP_WIDE_GEOS(X) \
-  X(192, 64, 64, 2, 128, 64, 2) X(256, 64, 32, 2, 96, 32, 3) X(512, 32, 16, 2, 32, 16, 4)
+// ring slices) for each: the one list of the wider widths
+// (ops/sine_mlp.KERNEL_TILE_ROWS mirrors width and backward tile rows).
+#define SINE_MLP_WIDE_GEOS(X) X(192, 64, 64, 2) X(256, 64, 32, 2) X(512, 32, 16, 2)
+// The mma.sync forward's (sine_mlp_fwd_wide_kernel's) widths, X(width, tile
+// rows, ring slice rows, ring slices); at 192 the forward is the wgmma
+// kernel sine_mlp_fwd_wg192_kernel, with a geometry of its own.
+#define SINE_MLP_WIDE_FWD_GEOS(X) X(256, 96, 32, 3) X(512, 32, 16, 4)
 template <int W>
-struct WideGeo;  // the geometry of each listed width; no other width has one
-#define SINE_MLP_GEO(W, TR, KS, NB, FTR, FKS, FNB) \
-  template <>                                      \
-  struct WideGeo<W> {                              \
-    using bwd = Geo<W, TR, KS, NB>;                \
-    using fwd = Geo<W, FTR, FKS, FNB>;             \
+struct WideGeo;  // the backward's geometry of each listed width; no other width has one
+template <int W>
+struct WideFwdGeo;  // the mma.sync forward's
+#define SINE_MLP_GEO(W, TR, KS, NB) \
+  template <>                       \
+  struct WideGeo<W> {               \
+    using bwd = Geo<W, TR, KS, NB>; \
   };
 SINE_MLP_WIDE_GEOS(SINE_MLP_GEO)
+#undef SINE_MLP_GEO
+#define SINE_MLP_GEO(W, TR, KS, NB) \
+  template <>                       \
+  struct WideFwdGeo<W> {            \
+    using fwd = Geo<W, TR, KS, NB>; \
+  };
+SINE_MLP_WIDE_FWD_GEOS(SINE_MLP_GEO)
 #undef SINE_MLP_GEO
 
 struct Chain {
@@ -978,16 +1010,18 @@ __device__ __forceinline__ void wg_passes(float (&d)[64], const uint32_t (&a)[PA
 
 // The layout of a wgmma kernel's ring of W slices in the block's shared
 // memory: NB slots of SLOT bytes (one k-step, BW_KS rows or columns of W, of
-// up to 3 planes) from byte RING, the slots' mbarriers from byte BAR and, per
-// slot, the count of warps done with its fill from byte COUNT. Per tile the
-// kernel walks W_1 .. W_L in the forward image and, with IMAGES = 2, then
-// W_L .. W_1 in the backward image, NS slices each.
-template <int HW_, int NB_, size_t RING_, size_t BAR_, size_t COUNT_, int IMAGES_>
+// up to SLOT_PLANES planes) from byte RING, the slots' mbarriers from byte
+// BAR and, per slot, the count of warps done with its fill from byte COUNT.
+// Per tile the kernel walks W_1 .. W_L in the forward image and, with IMAGES
+// = 2, then W_L .. W_1 in the backward image, NS slices each.
+template <int HW_, int NB_, size_t RING_, size_t BAR_, size_t COUNT_, int IMAGES_,
+          int SLOT_PLANES = 3>
 struct RingLayout {
   static constexpr int HW = HW_, NB = NB_, IMAGES = IMAGES_;
   static constexpr int NS = HW / BW_KS;     // slices of one W
   static constexpr int PLANE = BW_KS * HW;  // bf16 values in one plane of a slice
-  static constexpr size_t SLOT = 3 * (size_t)PLANE * 2, RING = RING_, BAR = BAR_, COUNT = COUNT_;
+  static constexpr size_t SLOT = SLOT_PLANES * (size_t)PLANE * 2, RING = RING_, BAR = BAR_,
+                          COUNT = COUNT_;
 };
 using BwRingLayout = RingLayout<H, BW_NB, kBwRing, kBwBar + kFull * sizeof(uint64_t), kBwCount, 2>;
 
@@ -1629,12 +1663,12 @@ sine_mlp_fwd_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict_
 // 3.8 / 15 ms at widths 192 / 256 / 512 at 495 TFLOP/s; mma.sync reaches
 // ~300 on an H100), the traffic of dW, and how many rows each slice of W
 // read from L2 serves.
-// - Forward (sine_mlp_fwd_wide_kernel, geometry WideGeo<W>::fwd): 128-row
-//   tiles at 192 (12 warps; W in 64-row slices, 2 deep: a barrier every 8
-//   k-steps), 96 at 256 (12 warps; 32-row slices, 3 deep: 64-row ones
-//   would need 16 bytes more than 227 KB), 32 at 512 (8 warps; 16-row
+// - Forward at 256 and 512 (sine_mlp_fwd_wide_kernel, geometry
+//   WideFwdGeo<W>::fwd; at 192 the forward is "the width-192 forward"
+//   below): 96-row tiles at 256 (12 warps; 32-row slices, 3 deep: 64-row
+//   ones would need 16 bytes more than 227 KB), 32 at 512 (8 warps; 16-row
 //   slices, 4 deep). The first design's 64-row tiles and 6-8 warps read
-//   each slice for half (two thirds) the rows. 12 warps leave a thread 168
+//   each slice for two thirds the rows. 12 warps leave a thread 168
 //   registers, so their products do not prefetch operands; the other warps
 //   hide the loads. 64 rows at 512 would take 16 warps of 128 registers,
 //   too few for a warp's 64 accumulators beside the 3xTF32 operands. Each
@@ -1775,8 +1809,8 @@ sine_mlp_fwd_wide_kernel(Chain c_arg, const float* __restrict__ x, float* __rest
   // the block's ring slices in order: per tile, W_1 .. W_L, each in G::NS slices
   const int per_tile = L * G::NS, total = my_tiles * per_tile;
   // W is read through c at each slice (a parameter, or MB's shared memory),
-  // not held in registers: at width 192 the fp32 member-axis forward has no
-  // register to spare (168 a thread) and spilled 36 B with the copy
+  // not held in registers: with 12 warps (168 registers a thread) the fp32
+  // member-axis forward spilled 36 B with the copy
   const auto src = [&c, per_tile](int s) {
     const int j = s % per_tile;
     return c.wm + (size_t)(j / G::NS) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
@@ -2536,6 +2570,193 @@ sine_mlp_bwd_wg192_kernel(Chain c_arg, const float* __restrict__ x, const float*
     b2_sync();  // a_s read
   }
   if ((tid0 & 127) == 0) iit::bulk_wait_all();
+}
+
+// ------------------------------------------- the width-192 forward (wgmma)
+//
+// Its design is the header note's "Forward at width 192": the width-192
+// backward's forward, product by product (first_layer_wg, b2_sine,
+// b2_store_planes and the passes of ring_ss_product on the forward image of
+// W's planes), in 128-row tiles: warpgroup wg holds rows 64 wg .. 64 wg + 63
+// of a tile and all 192 columns, as two halves of the width-192 backward's
+// accumulator, d[hf][4 ni + q] the element at
+//   row 64 wg + 16 wi + g + 8 (q >> 1),  column 96 hf + 8 ni + 2 t + (q & 1)
+// (the backward's B2Pos with wg = hf places a half). Each warpgroup keeps its
+// activation's planes in its own act_s (64 x 192, the backward's layout), so
+// nothing joins the two warpgroups but the ring.
+
+constexpr int F2_T = 128;  // pixel rows per tile: 64 a warpgroup
+
+// Byte offsets of the block's shared memory for W and the activations in NP
+// planes (3 in fp32, 1 where W is a bf16 value): the ring (NB slots of one
+// k-step), each warpgroup's act_s (NP planes of 64 x 192), the ring's
+// mbarriers and counts. Four slots fit beside fp32's planes; one plane
+// leaves room for 16, more than a layer's 12 k-steps.
+template <int NP>
+struct F2Smem {
+  static constexpr int NB = NP == 3 ? 4 : 16;
+  static constexpr size_t SLOT = (size_t)NP * BW_KS * B2_H * 2;
+  static constexpr size_t WG_ACT = (size_t)NP * B2_PLANE_BYTES;
+  static constexpr size_t ACT = NB * SLOT, BAR = ACT + 2 * WG_ACT, COUNT = BAR + NB * 8;
+  static constexpr size_t BYTES = COUNT + NB * 4;
+  using Ring = RingLayout<B2_H, NB, 0, BAR, COUNT, 1, NP>;
+  static_assert(BYTES + sizeof(MemberFwd) <= 232448, "the width-192 forward's shared memory");
+  static_assert(ACT % 128 == 0 && WG_ACT % 128 == 0, "aligned planes");
+};
+
+// d = A W over K = 192 for the warpgroup's 192 columns (two halves of 96):
+// A's planes in the warpgroup's act_s (K-major), W's slices from the ring
+// (the forward image). Per k-step the passes of ring_ss_product, each
+// issued for both halves, so every element sums as in the width-192
+// backward's forward. A slice's slot is released once its products are
+// done; the next slice's products are issued before that.
+template <int PA, int PB, class R>
+__device__ __forceinline__ void f2_product(float (&d)[2][48], uint32_t act, WgRing<PB, R>& ring) {
+  iit::wg_fence();
+#pragma unroll
+  for (int u = 0; u < R::NS; ++u, ++ring.use) {
+    const int b = ring.use % R::NB;
+    iit::mbar_wait(ring.bar(b), (ring.use / R::NB) & 1);
+    const uint32_t slot = iit::smem_u32(ring.slot(b));
+    const uint32_t a0 = opaque(act) + u * 2 * B2_CG;
+    bool first = u == 0;
+#pragma unroll
+    for (int s = 2; s >= 0; --s)
+#pragma unroll
+      for (int i = 0; i <= s; ++i)
+        if (i < PA && s - i < PB) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            iit::wg_bf16_ss_n96<0, 1>(
+                d[hf], iit::wg_desc(opaque(a0) + i * B2_PLANE_BYTES, B2_CG, B2_RG),
+                iit::wg_desc(opaque(slot) + hf * (B2_NI * 128) + (s - i) * (R::PLANE * 2),
+                             B2_W_LBO, B2_W_SBO),
+                first ? 0 : 1);
+          first = false;
+        }
+    iit::wg_commit();
+    if (u > 0) {
+      iit::wg_wait<1>();
+      ring.release(ring.use - 1);
+    }
+  }
+  iit::wg_wait<0>();
+  ring.release(ring.use - 1);
+  iit::fence_regs(d[0]);
+  iit::fence_regs(d[1]);
+}
+
+// The last layer from the accumulator: out[r][o] = sum_c a_L(r, c)
+// rnd(Wl[c][o]) + bl[o] for the thread's two rows of the warpgroup's
+// (rows0 the first): the thread's 48 columns in order of hf, ni, then the
+// sums of the 4 threads that share the rows (t = 0 .. 3) by shuffles, xor 1
+// then xor 2 (wg_out's order at 192); thread t = 0 writes the row. A loop
+// over the outputs, not unrolled over MAX_IO (as b2_last_gz: the unrolled
+// loads held registers beside d).
+template <bool BF16>
+__device__ __forceinline__ void f2_out(const float (&d)[2][48], const Chain& c,
+                                       float* __restrict__ out, int rows0, const B2Pos& p) {
+  const int out_size = c.out_size;
+  const int r0 = rows0 + p.row(0), r1 = rows0 + p.row(1);
+#pragma unroll 1
+  for (int o = 0; o < out_size; ++o) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ni = 0; ni < B2_NI; ++ni)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int col = 96 * hf + 8 * ni + 2 * p.t + cc;
+          const float wv = rnd<BF16>(__ldg(&c.wl[col * out_size + o]));
+          s0 += d[hf][4 * ni + cc] * wv;
+          s1 += d[hf][4 * ni + 2 + cc] * wv;
+        }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (p.t == 0) {
+      const float b = __ldg(&c.bl[o]);
+      if (r0 < c.n) out[(size_t)r0 * out_size + o] = s0 + b;
+      if (r1 < c.n) out[(size_t)r1 * out_size + o] = s1 + b;
+    }
+  }
+}
+
+// W's planes at c.wmt (ops/sine_mlp.weight_planes at width 192, both
+// images, as the width-192 backward takes them; this reads the forward one).
+template <bool BF16, bool MX, bool MB>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+sine_mlp_fwd_wg192_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict__ out,
+                          long long x_stride) {
+  using P = BwPlanes<BF16, MX>;
+  using S = F2Smem<P::W>;
+  using R = typename S::Ring;
+  __shared__ MemberFwd mf;
+  if constexpr (MB) {
+    member_fwd<B2_H>(mf, c_arg, x, out, x_stride);
+    __syncthreads();
+  }
+  const Chain& c = chain_of<MB>(mf, c_arg);
+  const auto X = [&] { if constexpr (MB) return mf.x; else return x; };
+  const auto OUT = [&] { if constexpr (MB) return mf.out; else return out; };
+  extern __shared__ float4 smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  const int tid0 = threadIdx.x;
+  const int L = c.depth - 2;
+  const int n_tiles = (c.n + F2_T - 1) / F2_T;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // member m's images m apart
+  const __nv_bfloat16* planes = reinterpret_cast<const __nv_bfloat16*>(c_arg.wmt) +
+                                (MB ? (size_t)blockIdx.y * 2 * L * R::NS * P::W * R::PLANE : 0);
+  WgRing<P::W, R> ring{smem, planes, L, my_tiles * L * R::NS};
+  if (tid0 == 0) {
+    ring.init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid0 == 0)
+    for (int q = 0; q < R::NB && q < ring.total; ++q) ring.fill(q);
+
+  // A thread's place is made anew from an opaque tid at each tile and layer,
+  // as in the width-192 backward: addresses made from it are not held in
+  // registers across the loops.
+  float d[2][48];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tid = opaque(tid0);
+    const int rows0 = tile * F2_T + 64 * (tid >> 7);  // the warpgroup's first row
+    const float* xt = X();
+    const auto xv = [&](int r, int k) {
+      return rows0 + r < c.n ? rnd<BF16>(__ldg(xt + (size_t)(rows0 + r) * c.in_size + k)) : 0.f;
+    };
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      first_layer_wg<BF16, B2_H>(d[hf], c, xv, B2Pos(128 * hf + (tid & 127)));
+    for (int l = 0; l < L; ++l) {
+      const int tid = opaque(tid0);
+      const int wg = tid >> 7;
+      uint8_t* act_s = smem + S::ACT + wg * S::WG_ACT;
+      // the warp's rows of act_s are read only by its own part of the last
+      // product, which has completed: no barrier before the stores
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const B2Pos p(128 * hf + (tid & 127));
+        b2_sine<BF16, MX, false>(d[hf], c.bs + l * B2_H, l == 0 ? c.omega0 : c.omega_h, nullptr,
+                                 p, tid);
+        b2_store_planes<P::A>(act_s, d[hf], p);
+      }
+      iit::fence_async_shared();  // the planes' stores, before the products read them
+      b2_wg_sync(wg);
+      f2_product<P::A, P::W>(d, iit::smem_u32(act_s), ring);  // z_{l+1} - b_{l+1}
+    }
+    const int tid_l = opaque(tid0);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      b2_sine<BF16, MX, false>(d[hf], c.bs + L * B2_H, L == 0 ? c.omega0 : c.omega_h, nullptr,
+                               B2Pos(128 * hf + (tid_l & 127)), tid_l);
+    f2_out<BF16>(d, c, OUT(), rows0, B2Pos(tid_l & 127));
+  }
 }
 
 // ----------------------------------------------------------- sine_mlp_dw
@@ -3970,10 +4191,11 @@ int sm_count(int* sms) {
 
 // The wider kernels' launchers, one part of the build each (C linkage: the
 // Chain type is local to each part).
-#define SINE_MLP_FWD_WIDE_ARGS                                                               \
-  const float *x, const float *w0, const float *wm, const float *wl, const float *bs,         \
-      const float *bl, float *out, int n, int in_size, int out_size, int depth, float omega0, \
-      float omega_h, int bf16, int sms, int members, long long x_stride, void *stream
+#define SINE_MLP_FWD_WIDE_ARGS                                                                \
+  const float *x, const float *w0, const float *wm, const void *wp, const float *wl,          \
+      const float *bs, const float *bl, float *out, int n, int in_size, int out_size,          \
+      int depth, float omega0, float omega_h, int bf16, int sms, int members,                  \
+      long long x_stride, void *stream
 #define SINE_MLP_BWD_WIDE_ARGS                                                                \
   const float *x, const float *g, const float *w0, const float *wm, const float *wmt,          \
       const float *wl, const float *bs, float *dx, float *z, float *partials, float *dw_a,      \
@@ -4158,11 +4380,37 @@ int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
                   x, g, dx, z, partials, n_part, dw_a, dw_g, x_stride);
   });
 }
+#elif SINE_MLP_WIDE == 192
+// The width-192 forward (wgmma): wp holds W's planes
+// (ops/sine_mlp.weight_planes at width 192, both images; this reads the
+// forward one), 16-byte aligned: a null or misaligned wp is refused. One
+// persistent block per SM, at most one per 128-row tile, for each of
+// `members` members (grid y; the batched instantiation above 1).
+int sine_mlp_fwd_w192(SINE_MLP_FWD_WIDE_ARGS) {
+  if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Chain c = make_chain(w0, wm, reinterpret_cast<const float*>(wp), wl, bs, bl, n, in_size,
+                             out_size, depth, omega0, omega_h);
+  const int tiles = (n + F2_T - 1) / F2_T;
+  const dim3 grid(tiles < sms ? tiles : sms, members);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)by_mode(bf16, [&](auto bf, auto mx) {
+    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
+    constexpr size_t smem = F2Smem<BwPlanes<BF, MXV>::W>::BYTES;
+    if (members > 1) {
+      return launch(sine_mlp_fwd_wg192_kernel<BF, MXV, true>, grid, BW_THREADS, smem, s, c, x,
+                    out, x_stride);
+    }
+    return launch(sine_mlp_fwd_wg192_kernel<BF, MXV, false>, grid, BW_THREADS, smem, s, c, x, out,
+                  x_stride);
+  });
+}
 #else
 // One persistent block per SM, at most one per tile of the forward's rows,
-// for each of `members` members (grid y; the batched instantiation above 1).
+// for each of `members` members (grid y; the batched instantiation above
+// 1). wp is not read.
 int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
-  using G = GW::fwd;
+  using G = WideFwdGeo<SINE_MLP_WIDE>::fwd;
   const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
                              omega_h);
   const int tiles = (n + G::T - 1) / G::T;
@@ -4184,7 +4432,7 @@ int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
 
 #else  // the width-128 kernels, sum_partials and the C interface
 
-#define SINE_MLP_DECLARE(W, TR, KS, NB, FTR, FKS, FNB) \
+#define SINE_MLP_DECLARE(W, TR, KS, NB) \
   int sine_mlp_fwd_w##W(SINE_MLP_FWD_WIDE_ARGS);   \
   int sine_mlp_bwd_w##W(SINE_MLP_BWD_WIDE_ARGS);
 SINE_MLP_WIDE_GEOS(SINE_MLP_DECLARE)
@@ -4196,7 +4444,7 @@ SINE_MLP_DW_WIDTHS(SINE_MLP_DW_DECLARE)
 // The kernel width a model of hidden width h runs on (h zero-padded up to
 // it): 128 or a width of SINE_MLP_WIDE_GEOS; 0 above the widest.
 int sine_mlp_kernel_width(int h) {
-#define SINE_MLP_WIDTH(W, TR, KS, NB, FTR, FKS, FNB) W,
+#define SINE_MLP_WIDTH(W, TR, KS, NB) W,
   constexpr int widths[] = {H, SINE_MLP_WIDE_GEOS(SINE_MLP_WIDTH)};
 #undef SINE_MLP_WIDTH
   static_assert(widths[sizeof(widths) / sizeof(int) - 1] == LW_MIN, "the layer kernels' threshold");
@@ -4210,7 +4458,7 @@ int sine_mlp_tile_rows(int hidden) {
   if (hidden > LW_MIN) return hidden % LW_N == 0 ? LW_T : 0;
   switch (hidden) {
     case H: return T;
-#define SINE_MLP_ROWS(W, TR, KS, NB, FTR, FKS, FNB) \
+#define SINE_MLP_ROWS(W, TR, KS, NB) \
   case W: return TR;
     SINE_MLP_WIDE_GEOS(SINE_MLP_ROWS)
 #undef SINE_MLP_ROWS
@@ -4223,7 +4471,9 @@ int sine_mlp_max_io() { return MAX_IO; }
 // x_stride floats per member (0: shared); one member launches the single
 // instantiation (sine_mlp_fwd). One persistent block per SM (at
 // most one per tile) for each member. hidden: the kernel width the weights
-// are padded to. At most kMaxRows rows and 65,535 members.
+// are padded to. wp: W's planes (ops/sine_mlp.weight_planes), 16-byte
+// aligned, read at widths 128 and 192 (the wgmma forwards), which refuse a
+// null or misaligned one. At most kMaxRows rows and 65,535 members.
 int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const void* wp,
                          const float* wl, const float* bs, const float* bl, float* out,
                          int members, long long x_stride, int n, int in_size, int out_size,
@@ -4236,10 +4486,10 @@ int sine_mlp_fwd_batched(const float* x, const float* w0, const float* wm, const
   int sms = 0;
   if (const int err = sm_count(&sms)) return err;
   switch (hidden) {
-#define SINE_MLP_FWD_CASE(W, TR, KS, NB, FTR, FKS, FNB)                                        \
-  case W:                                                                                \
-    return sine_mlp_fwd_w##W(x, w0, wm, wl, bs, bl, out, n, in_size, out_size, depth, omega0, \
-                             omega_h, bf16, sms, members, x_stride, stream);
+#define SINE_MLP_FWD_CASE(W, TR, KS, NB)                                                   \
+  case W:                                                                                  \
+    return sine_mlp_fwd_w##W(x, w0, wm, wp, wl, bs, bl, out, n, in_size, out_size, depth,    \
+                             omega0, omega_h, bf16, sms, members, x_stride, stream);
     SINE_MLP_WIDE_GEOS(SINE_MLP_FWD_CASE)
 #undef SINE_MLP_FWD_CASE
   }
@@ -4287,7 +4537,7 @@ int sine_mlp_bwd_batched(const float* x, const float* g, const float* w0, const 
         reinterpret_cast<uintptr_t>(dw_g) % 16 != 0)
       return (int)cudaErrorInvalidValue;
     switch (hidden) {
-#define SINE_MLP_BWD_CASE(W, TR, KS, NB, FTR, FKS, FNB)                                             \
+#define SINE_MLP_BWD_CASE(W, TR, KS, NB)                                                            \
   case W:                                                                                     \
     return sine_mlp_bwd_w##W(x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, dw_a, dw_g,  \
                              grid, n_part, n, in_size, out_size, depth, omega0, omega_h, bf16, \

@@ -27,13 +27,12 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 
 What bounds them on the card, and the design: see the note at the top of
 csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
-the tensor cores: bf16 wgmma in the forward at width 128 and the backward
-at widths 128 and 192, with W's bf16 planes (`weight_planes`, packed once
-per K1/K2 pair, in the forward at 128 and in the backward at 192) streamed
-by bulk copies and each tile's dW added into the partial by bulk
-reduce-adds (`dw_position_index`, its order undone here); mma.sync
-3xTF32 in the wider kernels, with each W streamed by cp.async copies into
-a ring). Widths up to 512 run: a model's hidden width is zero-padded to the
+the tensor cores: bf16 wgmma in the forward and the backward at widths
+128 and 192, with W's bf16 planes (`weight_planes`, packed once per K1/K2
+pair, in the forward) streamed by bulk copies and each tile's dW added
+into the partial by bulk reduce-adds (`dw_position_index`, its order
+undone here); mma.sync 3xTF32 in the wider kernels at 256 and 512, with
+each W streamed by cp.async copies into a ring). Widths up to 512 run: a model's hidden width is zero-padded to the
 next kernel width of `KERNEL_WIDTHS` (padded units stay exactly 0); the
 kernels above 128 stream each W in slices, tile 32 to 128 pixel rows, and
 at 256 and 512 leave dW to `sine_mlp_dw` (csrc/sine_mlp.cu, "the wider
@@ -81,8 +80,8 @@ Side by side in this module:
 Precision modes: "fp32" (the main path: each hidden product is 3xTF32 on
 the tensor cores, every operand split into hi = tf32(x) and lo = tf32(x -
 hi), hi*hi + hi*lo + lo*hi accumulated in fp32, which holds the fp32 chain
-to ~1e-6 relative; in the wgmma kernels (the forward at 128, the backward
-at 128 and 192) three bf16 planes h, m, l of each operand and the six
+to ~1e-6 relative; in the wgmma kernels (the forward and the backward at
+128 and 192) three bf16 planes h, m, l of each operand and the six
 products with at most two orders of smallness, as accurate; the first and
 last layers are fp32 FMA) and "bf16"
 (matmul operands rounded to bf16, fp32 accumulation — what the Pallas
@@ -200,8 +199,9 @@ KERNEL_WIDTHS = tuple(KERNEL_TILE_ROWS)
 # is padded to)
 LAYER_TILE = 128
 # the kernel widths whose wgmma kernels stream W's bf16 planes
-# (`weight_planes`): the forward and backward at 128, the backward at 192;
-# and those whose backward leaves the hidden layers' dW to `sine_mlp_dw`
+# (`weight_planes`, packed once per K1/K2 pair): the forward and backward at
+# 128 and at 192; and those whose backward leaves the hidden layers' dW to
+# `sine_mlp_dw`
 PLANE_WIDTHS = (128, 192)
 DW_WIDTHS = (256, 512)
 
@@ -638,11 +638,11 @@ def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
     """Pack, check and launch the forward once over `members` (params tuples
     of one shape, or one params tuple with a leading member axis) on x,
     (N, in) shared or (M, N, in) one per member -> (M, N, out); counted
-    under `kernel`. At width 128 the forward takes W's planes
-    (`weight_planes`); `keep` returns (out, planes, z), so that the backward
-    takes the same planes (None at the other widths, whose forward does
-    not) and, above 512 with `stash`, the z stash that the layer-wise
-    forward filled (`_layer_fwd`; else None)."""
+    under `kernel`. At widths 128 and 192 (`PLANE_WIDTHS`) the forward
+    takes W's planes (`weight_planes`); `keep` returns (out, planes, z), so
+    that the backward takes the same planes (None at the other widths,
+    whose forward does not) and, above 512 with `stash`, the z stash that
+    the layer-wise forward filled (`_layer_fwd`; else None)."""
     n = x.shape[-2]
     _check_rows(n, kernel)
     lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
@@ -655,7 +655,7 @@ def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
     dev = x.device
     m = _member_count(members)
     w0, wm, wl, bs, bl = _pack_members(members, hidden, mixed)
-    planes = _planes_of(wm, hidden, bf16, mixed) if hidden == KERNEL_WIDTHS[0] else None
+    planes = _planes_of(wm, hidden, bf16, mixed)
     x = _rnd(x.float(), mixed).contiguous()
     x_stride = n * in_size if x.dim() == 3 else 0
     out = torch.empty((m, n, out_size), dtype=torch.float32, device=dev)
@@ -709,7 +709,7 @@ def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str, keep: bo
     every mode. Members of different layer shapes, or N above MAX_ROWS,
     raise ValueError. `keep` returns (out, planes), W's planes as the
     backward takes them (`sine_mlp_bwd_batched(..., planes=)`; None but at
-    width 128)."""
+    widths 128 and 192)."""
     bf16, mixed = precision_modes(precision)
     _check_fwd_batched(members, x)
     got = _fwd_launch(members, x, cfg, bf16, mixed, "sine_mlp_fwd_batched", keep=keep)
@@ -768,7 +768,7 @@ def _bf16_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
 
 def weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
     """The hidden weights as the wgmma kernels' rings stream them (the
-    forward and backward of width 128, the backward of width 192): wm (...,
+    forward and backward of widths 128 and 192): wm (...,
     L, h, h) fp32, h in PLANE_WIDTHS -> bf16 (..., 2, L, h / 16, planes, 2,
     h / 8, 8, 8).
 

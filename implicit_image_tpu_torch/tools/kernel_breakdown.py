@@ -6,9 +6,10 @@
 
 Builds copies of csrc/sine_mlp.cu with one part knocked out each (their
 results are wrong by design), a few at a time (each in the parts of
-ops/cuda_build.build), and times sine_mlp_fwd and sine_mlp_bwd of each in
-the fp32 mode at the main path's shapes (512^2 pixels, d8) at every width
-of --widths (CUDA events over 10 launches after a warm-up), and at the
+ops/cuda_build.build), and times sine_mlp_fwd and sine_mlp_bwd of each
+(through their wrappers) in the fp32 mode at the main path's shapes (512^2
+pixels, d8) at every width of --widths (CUDA events over 10 launches after
+a warm-up), and at the
 widths whose backward has it (256 and 512; 192 in older commits),
 sine_mlp_dw alone on operands of the main path's shape; above 512,
 sine_mlp_layer_dw alone on one hidden layer's operands (its row splits
@@ -21,8 +22,9 @@ costs:
                 backward, and the dW product's operand loads; in older
                 commits warp_mma, the mma.sync forward's and backward's), in
                 the width-192 backward (every wgmma: the ring's products and
-                the dW pieces) and in the wider kernels (warp_mma_k: the
-                ring's products and the dW products; warp_mma_at2:
+                the dW pieces), in the width-192 forward (every wgmma; the
+                ring still streams W) and in the wider kernels (warp_mma_k:
+                the ring's products and the dW products; warp_mma_at2:
                 sine_mlp_dw's at 256 and 512)
   no_stash      the backward's z stash (stores, and the copies or loads back)
   no_partial    the backward's dW traffic: at widths 128 and 192 the bulk
@@ -33,8 +35,12 @@ costs:
   no_both       no_stash and no_partial together
   no_ring_wait  the wider kernels' ring wait and barrier: each product reads
                 whatever its slice holds (each thread drains its copies at its
-                last slice, so none is in flight when the block ends); the
-                width-128 kernels keep theirs, so there it times "full"
+                last slice, so none is in flight when the block ends); in the
+                width-192 forward on wgmma the products' wait for their slice
+                (its fills complete the slot's barrier at once, the copies
+                land on barriers of their own, which the next fill and the
+                block's end wait for); the width-128 kernels keep theirs, so
+                there it times "full"
   no_dw         sine_mlp_dw launches nothing (where the source has it): the
                 backward's time without the dW kernel
   no_ring_copy  the wgmma kernels' ring fills copy nothing (each fill's
@@ -45,8 +51,9 @@ Above 512 each variant also times K1 and K2 under autograd, as a fit step
 runs them (siren_apply_flat_fused on leaves that require grad, then the
 backward: K2 takes the z stash that K1 filled, where the tree has one).
 --variants picks some of them (default: all), --precisions the modes timed
-(default fp32), --members M also times sine_mlp_bwd_batched over M members
-in each mode, --split also runs one fp32 K2 under torch.profiler and records
+(default fp32; the forward and the backward in each), --members M also
+times sine_mlp_fwd_batched and sine_mlp_bwd_batched over M members in each
+mode, --split also runs one fp32 K2 under torch.profiler and records
 each kernel's device ms and launches (the layer-wise backward's by kind:
 hidden, last, first; above 512 the K2 under autograd too). --build-dir keeps
 the built files there, each under the hash of the sources it was built from,
@@ -121,6 +128,41 @@ RING_COPY = """    iit::mbar_expect_tx(bar(b), bytes);
     iit::bulk_g2s(slot(b),
                   planes + ((size_t)((fwd ? 0 : L) + layer) * R::NS + j % R::NS) * NP * R::PLANE,
                   bytes, bar(b));"""
+# the width-192 forward on wgmma (this commit): its products and the end of
+# its tile loop
+F2_SS = "            iit::wg_bf16_ss_n96<0, 1>("
+F2_END = "    f2_out<BF16>(d, c, OUT(), rows0, B2Pos(tid_l & 127));\n  }\n"
+# no_ring_wait there (the ring of the width-192 forward only: HW 192, one
+# image): a fill completes the slot's mbarrier when it is issued, so the
+# products wait for no copy while the ring still paces the warps, and the
+# copy lands on a barrier of its own (`landed`), which the slot's next fill
+# and the block's end wait for
+RING_BAR = """  __device__ __forceinline__ uint64_t* bar(int b) const {
+    return reinterpret_cast<uint64_t*>(smem + R::BAR) + b;
+  }
+"""
+RING_LAND = """  __device__ __forceinline__ uint64_t* land(int b) const {
+    __shared__ uint64_t landed[32];
+    return landed + b;
+  }
+"""
+RING_INIT = "      iit::mbar_init(bar(b), 1);\n"
+F2_RING = "R::HW == 192 && R::IMAGES == 1"
+F2_COPY = f"""    if constexpr ({F2_RING}) {{
+      if (q >= R::NB) iit::mbar_wait(land(b), (q / R::NB - 1) & 1);
+      iit::mbar_arrive(bar(b));
+      iit::mbar_expect_tx(land(b), bytes);
+      iit::bulk_g2s(slot(b),
+                    planes + ((size_t)((fwd ? 0 : L) + layer) * R::NS + j % R::NS) * NP * R::PLANE,
+                    bytes, land(b));
+      return;
+    }}
+"""
+F2_DRAIN = """  __syncthreads();
+  if (tid0 == 0)
+    for (int b = 0; b < R::NB && b < ring.total; ++b)
+      iit::mbar_wait(ring.land(b), ((ring.total - 1 - b) / R::NB) & 1);
+"""
 
 
 def _no_partial(src: str) -> str:
@@ -158,6 +200,8 @@ def variants(src: str) -> dict:
                         "        z = make_float2(0.f, 0.f);")
         no_mma = _rep(_rep(no_mma, B2_SS, "          if (u == 12345) " + B2_SS.lstrip()),
                       B2_RS, "          if (kk == 12345) " + B2_RS.lstrip())
+    if F2_SS in src:  # the width-192 forward on wgmma
+        no_mma = _rep(no_mma, F2_SS, "            if (u == 12345) " + F2_SS.lstrip())
     no_mma = _rep(no_mma, "  const PA pa(A, a0, w);", "  return;\n  const PA pa(A, a0, w);")
     if "warp_mma_at2" in src:  # sine_mlp_dw's two-piece product
         no_mma = _rep(no_mma, "  const Cols<SA> pa(A, w.m0, w);",
@@ -168,6 +212,11 @@ def variants(src: str) -> dict:
                         "    if (s + NB < total) ring.issue(b, src(s + NB));\n"
                         "    if (s + 1 == total)\n"
                         "      asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");")
+    if F2_SS in src:  # the width-192 forward's products wait for no copy
+        no_ring_wait = _rep(no_ring_wait, F2_END, F2_END + F2_DRAIN)
+        no_ring_wait = _rep(_rep(no_ring_wait, RING_BAR, RING_BAR + RING_LAND), RING_INIT,
+                            RING_INIT + f"      if constexpr ({F2_RING}) iit::mbar_init(land(b), 1);\n")
+        no_ring_wait = _rep(no_ring_wait, RING_COPY, F2_COPY + RING_COPY)
     out = {
         "full": src,
         "no_sine": _rep(_rep(src, "iit::fast_sin(omega * z0)", "z0"),
@@ -400,14 +449,21 @@ def main(argv=None) -> dict:
                 line = f"[breakdown w{width}] {name:12s} fwd {fwd:.4f} ms, bwd {bwd:.4f} ms"
                 for prec in args.precisions:
                     if prec != "fp32":
+                        rows[name][f"fwd_ms_{prec}"] = _time_ms(
+                            lambda: sm.sine_mlp_fwd(params, x, mcfg, prec))
                         rows[name][f"bwd_ms_{prec}"] = _time_ms(
                             lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec))
-                        line += f", bwd {prec} {rows[name][f'bwd_ms_{prec}']:.4f} ms"
+                        line += (f", fwd {prec} {rows[name][f'fwd_ms_{prec}']:.4f} ms, bwd {prec} "
+                                 f"{rows[name][f'bwd_ms_{prec}']:.4f} ms")
                     if args.members:
-                        rows[name][f"bwd_ms_{prec}_x{args.members}"] = _time_ms(
+                        m_key = f"{prec}_x{args.members}"
+                        rows[name][f"fwd_ms_{m_key}"] = _time_ms(
+                            lambda: sm.sine_mlp_fwd_batched(members, x, mcfg, prec), 5)
+                        rows[name][f"bwd_ms_{m_key}"] = _time_ms(
                             lambda: sm.sine_mlp_bwd_batched(members, x, gm, mcfg, prec), 5)
-                        line += (f", bwd {prec} over {args.members} members "
-                                 f"{rows[name][f'bwd_ms_{prec}_x{args.members}']:.4f} ms")
+                        line += (f", over {args.members} members fwd {prec} "
+                                 f"{rows[name][f'fwd_ms_{m_key}']:.4f} ms, bwd {prec} "
+                                 f"{rows[name][f'bwd_ms_{m_key}']:.4f} ms")
                 if name == "full":
                     dx, grads = sm.sine_mlp_bwd(params, x, g, mcfg, "fp32")
                     rows[name]["fwd_sha256"] = _sha256(sm.sine_mlp_fwd(params, x, mcfg, "fp32"))

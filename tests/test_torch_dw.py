@@ -256,3 +256,26 @@ def test_kernel_breakdown_variants_apply_to_the_current_source():
     assert {"no_mma", "no_stash", "no_partial", "no_ring_wait"} <= set(found)
     for name, text in found.items():
         assert (text == src) == (name == "full"), name
+
+
+def test_kernel_breakdown_knockouts_reach_the_w192_forward():
+    """The knock-outs of the width-192 forward on wgmma find its strings in
+    csrc/sine_mlp.cu: no_mma guards its products, no_ring_wait gives its
+    ring's copies barriers of their own and drains them at the kernel's end,
+    no_sine reaches the sine it calls (b2_sine) and no_ring_copy its ring's
+    fills."""
+    src = (cuda_build.CSRC / "sine_mlp.cu").read_text()
+    kb = kernel_breakdown
+    for text in (kb.F2_SS, kb.F2_END, kb.RING_BAR, kb.RING_INIT, kb.RING_COPY):
+        assert src.count(text) == 1, text
+    found = kb.variants(src)
+    assert "if (u == 12345) " + kb.F2_SS.lstrip() in found["no_mma"]
+    assert kb.F2_END + kb.F2_DRAIN in found["no_ring_wait"]
+    assert kb.F2_COPY + kb.RING_COPY in found["no_ring_wait"]
+    assert kb.RING_BAR + kb.RING_LAND in found["no_ring_wait"]
+    kernel = src[src.index("sine_mlp_fwd_wg192_kernel(Chain"):]
+    assert "b2_sine<BF16, MX, false>(" in kernel
+    sine = src[src.index("__device__ __forceinline__ void b2_sine("):]
+    assert "iit::fast_sin(omega * z0)" in sine[:sine.index("\n}\n")]
+    assert kb.RING_COPY not in found["no_ring_copy"]
+

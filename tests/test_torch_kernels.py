@@ -974,6 +974,95 @@ def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("depth,hidden,n", [(8, 182, 20000), (3, 192, 4099)])
+def test_w192_forward_repeats_bit_for_bit(cuda_device, precision, depth, hidden, n):
+    """K1 at kernel width 192 (the wgmma forward, 128-row tiles) repeats bit
+    for bit in every mode, one launch a call, within the forward's limits of
+    the plain chain (the bf16 mode's for "+mixed")."""
+    m, c = build_model("siren", depth=depth, hidden_size=hidden)
+    params = m.init(torch.Generator().manual_seed(4), c, cuda_device)
+    x = (torch.rand((n, 2), generator=torch.Generator().manual_seed(6)) * 2 - 1).to(cuda_device)
+    before = sm.LAUNCHES["sine_mlp_fwd"]
+    first = sm.sine_mlp_fwd(params, x, c, precision)
+    second = sm.sine_mlp_fwd(params, x, c, precision)
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["sine_mlp_fwd"] == before + 2
+    assert torch.equal(first, second)
+    ref = sm.siren_chain_reference(params, x, c, precision)
+    assert float((first - ref).abs().max()) <= (1e-4 if precision == "fp32" else 1.5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_w182_planes_packed_once_per_pair_under_autograd(cuda_device, monkeypatch, precision):
+    """Under autograd at w182 (kernel width 192) K1 packs W's planes and K2
+    takes them: one weight_planes call per K1/K2 pair, and K2's dx, dW and db
+    the bits of sine_mlp_bwd, which packs its own, on the same inputs."""
+    m, c = build_model("siren", depth=8, hidden_size=182)
+    params = m.init(torch.Generator().manual_seed(7), c, cuda_device)
+    gen = torch.Generator().manual_seed(8)
+    x = (torch.rand((5000, 2), generator=gen) * 2 - 1).to(cuda_device)
+    g = torch.randn((5000, 3), generator=gen).to(cuda_device)
+    dx_want, grads_want = sm.sine_mlp_bwd(params, x, g, c, precision)
+    calls = []
+    packer = sm.weight_planes
+    monkeypatch.setattr(sm, "weight_planes", lambda *a: calls.append(a) or packer(*a))
+    leaves = [{k: layer[k].detach().clone().requires_grad_(True) for k in KEYS}
+              for layer in params]
+    xg = x.clone().requires_grad_(True)
+    flat = [t for layer in leaves for t in (layer["w"], layer["b"])]
+    out = sm.SineMLPFunction.apply(xg, c, precision, False, *flat)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    assert torch.equal(xg.grad, dx_want)
+    for got, want in zip(leaves, grads_want):
+        for k in KEYS:
+            assert torch.equal(got[k].grad, want[k])
+
+
+@pytest.mark.cuda
+def test_fwd_w192_refuses_null_or_misaligned_planes(cuda_device):
+    """The width-192 forward's launcher (and the C entry that routes width
+    192 to it) returns cudaErrorInvalidValue for W's planes null or not
+    16-byte aligned, and launches nothing."""
+    import ctypes
+
+    lib = sm._lib()
+    m, c = build_model("siren", depth=4, hidden_size=182)
+    params = m.init(torch.Generator().manual_seed(9), c, cuda_device)
+    x = (torch.rand((300, 2), generator=torch.Generator().manual_seed(10)) * 2 - 1).to(
+        cuda_device)
+    w0, wm, wl, bs, bl = sm._pack(params, 192)
+    planes = sm.weight_planes(wm, 3)
+    out = torch.full((300, 3), 7.0, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    fn = lib.sine_mlp_fwd_w192
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P] * 8 + [I] * 4 + [F, F] + [I] * 3 + [ctypes.c_longlong, P]
+    fn.restype = I
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    om = sm._omegas(c, 4)
+    invalid = 1  # cudaErrorInvalidValue
+    for wp in (None, planes.data_ptr() + 4):
+        assert fn(x.data_ptr(), w0.data_ptr(), wm.data_ptr(), wp, wl.data_ptr(), bs.data_ptr(),
+                  bl.data_ptr(), out.data_ptr(), 300, 2, 3, 4, om[0], om[1], 0, sms, 1, 0,
+                  stream) == invalid
+        assert lib.sine_mlp_fwd_batched(x.data_ptr(), w0.data_ptr(), wm.data_ptr(), wp,
+                                        wl.data_ptr(), bs.data_ptr(), bl.data_ptr(),
+                                        out.data_ptr(), 1, 0, 300, 2, 3, 4, 192, om[0], om[1], 0,
+                                        stream) == invalid
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert fn(x.data_ptr(), w0.data_ptr(), wm.data_ptr(), planes.data_ptr(), wl.data_ptr(),
+              bs.data_ptr(), bl.data_ptr(), out.data_ptr(), 300, 2, 3, 4, om[0], om[1], 0, sms, 1,
+              0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, sm.sine_mlp_fwd(params, x, c, "fp32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 @pytest.mark.parametrize("depth,hidden,n", [(8, 128, 4099), (2, 64, 300), (8, 182, 3001),
                                             (4, 256, 2000), (3, 512, 1000), (2, 192, 500)])
 def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,

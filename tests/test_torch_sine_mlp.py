@@ -384,6 +384,48 @@ def test_split_precision_at_wide_widths(hidden, n, scheme, passes):
         assert fwd > _FP32_FWD_TOL and bwd > _FP32_BWD_TOL, (fwd, bwd)
 
 
+def _wgmma192_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the width-192 wgmma kernels sum it (K padded to a multiple of
+    16): k-steps of 16 in ascending order, in each the six plane passes in
+    the order s = 2 .. 0, i = 0 .. s (planes i of a and s - i of b), each
+    pass's 16 exact products summed (float64) and added into the fp32
+    accumulator."""
+    pa, pb = _planes(a, 3), _planes(b, 3)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for lo in range(0, a.shape[1], 16):
+        for s in (2, 1, 0):
+            for i in range(s + 1):
+                part = pa[i][:, lo:lo + 16].double() @ pb[s - i][lo:lo + 16].double()
+                acc = (acc.double() + part).float()
+    return acc
+
+
+def test_w192_forward_6xbf16_in_kernel_order_matches_jax():
+    """The width-192 forward's hidden products ("6xbf16" in its k-step and
+    pass order, the width 182 zero-padded to 192; the first and last layers
+    in fp32) on the d8/w182 chain hold the output within the fp32 mode's
+    limit of the JAX package's fp32 forward, 1e-4 of max |out|, with the
+    margin of 10 of the cases above."""
+    from implicit_image_tpu_torch.ops.fast_math import fast_sin
+
+    jm, jc, _, c, np_params, _, _ = _setup(depth=8, hidden=182, hw=(2, 2), seed=5)
+    params = params_from_jax(np_params, "cpu")
+    coords = np.random.default_rng(13).uniform(0.0, 1.0, (4099, 2)).astype(np.float32)
+    want = np.asarray(jm.apply_flat(np_params, coords, jc))
+    pad = 192 - 182
+    om = [float(c.first_omega_0)] + [float(c.hidden_omega_0)] * (len(params) - 1)
+    a = (torch.from_numpy(coords) - 0.5) * 2.0
+    for i, layer in enumerate(params[:-1]):
+        w = torch.nn.functional.pad(layer["w"], (0, pad, 0, pad if i else 0))
+        b = torch.nn.functional.pad(layer["b"], (0, pad))
+        z = (a @ w if i == 0 else _wgmma192_product(a, w)) + b
+        a = fast_sin(om[i] * z)
+    w_last = torch.nn.functional.pad(params[-1]["w"], (0, 0, 0, pad))
+    out = ((a @ w_last + params[-1]["b"]) / 2.0 + 0.5).numpy()
+    err = float(np.abs(out - want).max())
+    assert err * 10 <= _FP32_FWD_TOL * float(np.abs(want).max()), err
+
+
 # ------------------------------------ the width-128 backward's packed weights
 
 
