@@ -72,9 +72,17 @@ Phases, each printing its own line:
      fp32 torch.mm; one hidden sine_mlp_layer_fwd and one hidden
      sine_mlp_layer_bwd (with and without dW_0) alone on the chain's own
      operands against their plain versions (LAYER_TOL), twice for bits,
-     each in turns with one fp32 torch.mm of its product; fp32 K2's kernels
-     under torch.profiler (the API's and under autograd),
-     sine_mlp_layer_bwd_kernel by kind beside its bound; the backward's partial buffer against its plain mirror
+     each in turns with one fp32 torch.mm of its product; the first and
+     last layers' launches alone (sine_mlp_layer_fwd first and last,
+     sine_mlp_layer_bwd last and first: the streaming passes) on the
+     chain's own operands in every mode against their plain versions
+     (LAYER_TOL), twice for bits, over 2 members each the bits of its
+     single launch, the fp32 ones timed from CUDA graphs in turns with
+     torch.addmm / torch.mm where one computes the same function, beside
+     their bytes bounds (_kind_bounds); fp32 K2's kernels under
+     torch.profiler (the API's and under autograd),
+     sine_mlp_layer_bwd_kernel by kind beside its bound, and K1's under
+     autograd, sine_mlp_layer_fwd_kernel by kind; the backward's partial buffer against its plain mirror
      (siren_chain_layer_partials) and sum_partials over it bit for bit its
      mirror's order; then one fp32 K1/K2 pair at w2048 (its z stash of
      3.76e9 floats is past 2^31: the 64-bit offsets) and one at w4096 on
@@ -128,7 +136,10 @@ Phases, each printing its own line:
      sum_partials launch, K2 once a step, K1 fills the z stash once a step
      and never under no_grad (decode_run grows the device memory by less
      than a stash), sine_mlp_layer_fwd launches only in K1 (depth a band:
-     K2 recomputes nothing), the peak memory is printed, and the decoded
+     K2 recomputes nothing), each layer-wise launch of the kind the chain
+     needs (sm.LAUNCHES_BY_KIND: K2's last and first layer once a step, K1's
+     first and last once a band; the kernels line's rows of those kinds
+     count them), the peak memory is printed, and the decoded
      PSNR is finite and decode_run's;
  11. the reference's other model families at full width (d8/w128, 512²,
      img=synthetic; scripts/run_studies_r5.sh), each through compress.main
@@ -814,7 +825,9 @@ def phase_build() -> float:
                 raise AssertionError(f"the {what} spills: {name} {row}")
     # the layer-wise kernels (widths above 512): 12 forward instantiations (4
     # modes x first, hidden, last), 20 backward (4 modes x last and hidden,
-    # each with and without dW_0, and first), 4 dW (4 modes); none spills.
+    # each with and without dW_0, and first), 4 dW (4 modes); none spills
+    # (the first and last passes unroll their loops for 3 outputs and 2
+    # inputs inside each instantiation: no instantiation of their own).
     # The wgmma ones (the hidden forward and backward, kind 1, and dW;
     # warpgroups apart, setmaxnreg) each printed with their registers and
     # spills
@@ -829,9 +842,18 @@ def phase_build() -> float:
         print(f"[2 build] layer-wise wgmma: {row.get('registers')} registers, "
               f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B spill "
               f"loads: {name[:120]}", flush=True)
-    if table and (len(rows) != 36 or len(wg_rows) != 16 or spilling):
+    # the first and last layers' streaming passes (kinds 0 and 2): 8
+    # forward (4 modes x first, last), 12 backward (4 modes x last with and
+    # without dW_0, first)
+    pass_rows = {n: r for n, r in rows.items() if layer_kind(n) in (0, 2)}
+    for name, row in pass_rows.items():
+        print(f"[2 build] layer-wise first/last pass: {row.get('registers')} registers, "
+              f"{row.get('spill_stores', 0)} B spill stores, {row.get('spill_loads', 0)} B spill "
+              f"loads: {name[:120]}", flush=True)
+    if table and (len(rows) != 36 or len(wg_rows) != 16 or len(pass_rows) != 20 or spilling):
         raise AssertionError(f"layer-wise kernels: {len(rows)} instantiations (expected 36), "
-                             f"{len(wg_rows)} on wgmma (expected 16), spilling {spilling}")
+                             f"{len(wg_rows)} on wgmma (expected 16), {len(pass_rows)} first/last "
+                             f"passes (expected 20), spilling {spilling}")
     # K1 and K2 over a member axis are template instantiations (last argument
     # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
     # spill no more than its single launch. The forward and backward have
@@ -1833,6 +1855,7 @@ def phase_layer_kernels(width: int) -> dict:
             _layer_k2_split(lambda: sm.sine_mlp_bwd(params, x, g, mcfg, prec), tag, width, n)
             _layer_k2_split(lambda out: out.backward(g), tag + " under autograd", width, n,
                             prepare=lambda: _autograd_forward(params, x, mcfg, prec)[0])
+            _layer_k1_split(lambda: _autograd_forward(params, x, mcfg, prec), tag, width, n)
             records["sine_mlp_layer_fwd"] = (fwd_err, ag_ms["k1"], fwd_plain, None)
             records["sine_mlp_layer_bwd"] = (bwd_abs, ag_ms["k2"], bwd_plain, None)
             batched = {
@@ -1928,12 +1951,14 @@ def phase_layer_kernels(width: int) -> dict:
     _layer_bwd_alone(params, x, a, gz, g2, w1, b1, mcfg, tag, kw, width, slices,
                      dw_bound["bound_ms"])
     del a, gz, g2, w1, b1
+    kind_records = _layer_kinds_alone(members, x, gs, mcfg, tag, width, slices)
+    _layer_kinds_other_counts(width)
 
     # the backward's partial buffer against its plain mirror, and sum_partials'
     # order over it (at the first width: the mirror holds every layer's
     # activations and cotangents, 8 GB at 640)
     if width != LAYER_WIDTHS[0]:
-        return _layer_records(records, batched, bounds, padded, dw_bound, layers)
+        return _layer_records(records, batched, bounds, padded, dw_bound, layers, kind_records)
     _, part = sm.sine_mlp_layer_partials(params, x, g, mcfg, prec)
     mirror = sm.siren_chain_layer_partials(params, x, g, mcfg, prec, slices)
     # the slices' floats past the gradients (their 16-byte padding) are not written
@@ -1947,7 +1972,7 @@ def phase_layer_kernels(width: int) -> dict:
         raise AssertionError(f"{tag} partials vs mirror {p_err}, sum_partials exact {exact}")
     del part, mirror, used
     torch.cuda.empty_cache()
-    return _layer_records(records, batched, bounds, padded, dw_bound, layers)
+    return _layer_records(records, batched, bounds, padded, dw_bound, layers, kind_records)
 
 
 def _layer_bwd_alone(params, x, a1, g1, g2, w1, b1, mcfg, tag: str, kw: int, width: int,
@@ -2007,34 +2032,64 @@ def _layer_bwd_alone(params, x, a1, g1, g2, w1, b1, mcfg, tag: str, kw: int, wid
     torch.cuda.empty_cache()
 
 
+def _layer_k1_split(k1, tag: str, width: int, n: int) -> dict:
+    """One layer-wise K1 call under autograd (k1: it fills the z stash)
+    under torch.profiler: each kernel's device ms and launches
+    (tools/kernel_breakdown.kernel_split: sine_mlp_layer_fwd_kernel by
+    kind), beside the first and last layers' bytes bounds (_kind_bounds,
+    times the launches: one a band)."""
+    from implicit_image_tpu_torch.tools.kernel_breakdown import kernel_split
+
+    split = kernel_split(k1)
+    kb = _kind_bounds(n, width, 2, 3, 1)
+    parts = []
+    for kind, name in (("first", "sine_mlp_layer_fwd first"), ("last", "sine_mlp_layer_fwd last")):
+        ms, count = split.get(f"sine_mlp_layer_fwd_kernel {kind}", (float("nan"), 0))
+        parts.append(f"its {kind} layers {ms:.3f} ms / {count} = "
+                     f"{kb[name]['bound_ms'] / ms:.1%} of their {kb[name]['bound_ms']:.3f} ms bytes "
+                     "bound")
+    print(f"{tag} fp32 K1's kernels under autograd (one call under torch.profiler, device ms / "
+          "launches): " + "; ".join(f"{k} {ms:.3f} / {c}" for k, (ms, c) in split.items())
+          + "; " + "; ".join(parts), flush=True)
+    return split
+
+
 def _layer_k2_split(k2, tag: str, width: int, n: int, prepare=None) -> dict:
     """One layer-wise K2 call (k2; with `prepare`, k2(prepare()), prepare
     outside the profile) under torch.profiler: each kernel's device ms and
-    launches (tools/kernel_breakdown.k2_split: sine_mlp_layer_bwd_kernel by
+    launches (tools/kernel_breakdown.kernel_split: sine_mlp_layer_bwd_kernel by
     kind), so that sine_mlp_layer_bwd_kernel has a time of its own beside
     its bound: its hidden launches' gz·Wᵀ products (3 TF32 passes of 2 n h²
     a hidden layer) and its FMA (g·Wᵀ and dW of the last layer, dW_0 and dx:
     2 n h (2 out + 2 in))."""
-    from implicit_image_tpu_torch.tools.kernel_breakdown import k2_split
+    from implicit_image_tpu_torch.tools.kernel_breakdown import kernel_split
 
-    split = k2_split(k2, prepare)
+    split = kernel_split(k2, prepare)
+    kb = _kind_bounds(n, width, 2, 3, 1)
     hidden_ops = (DEPTH - 2) * 3 * 2 * n * width * width / TF32_FLOP_PER_S * 1e3
     bwd_ops = hidden_ops + 2 * n * width * (2 * 3 + 2 * 2) / FP32_FLOP_PER_S * 1e3
     bwd_ms = sum(ms for k, (ms, _) in split.items() if k.startswith("sine_mlp_layer_bwd_kernel"))
     hid_ms = split.get("sine_mlp_layer_bwd_kernel hidden", (float("nan"), 0))[0]
+    kinds = []
+    for kind in ("last", "first"):
+        ms = split.get(f"sine_mlp_layer_bwd_kernel {kind}", (float("nan"), 0))[0]
+        bound = kb[f"sine_mlp_layer_bwd {kind}"]["bound_ms"]
+        kinds.append(f"its {kind} layer {ms:.3f} ms = {bound / ms:.1%} of its {bound:.3f} ms "
+                     "bytes bound")
     print(f"{tag} fp32 K2's kernels (one call under torch.profiler, device ms / launches): "
           + "; ".join(f"{k} {ms:.3f} / {c}" for k, (ms, c) in split.items())
           + f"; sine_mlp_layer_bwd_kernel {bwd_ms:.3f} ms, bound {bwd_ops:.3f} ms (operations) "
           f"= {bwd_ops / bwd_ms:.1%}; its hidden launches {hid_ms:.3f} ms, bound "
-          f"{hidden_ops:.3f} = {hidden_ops / hid_ms:.1%}", flush=True)
+          f"{hidden_ops:.3f} = {hidden_ops / hid_ms:.1%}; " + "; ".join(kinds), flush=True)
     return split
 
 
-def _layer_records(records, batched, bounds, padded, dw_bound, layers) -> dict:
+def _layer_records(records, batched, bounds, padded, dw_bound, layers, kinds) -> dict:
     """phase_layer_kernels' kernels-line records, each with its bound and
     padded bound: K1's and K2's those of the work they do under autograd
     (K1 writing the z stash, K2 reading it in place of the recompute), dW's
-    one layer's share of the hidden layers' dW (times the members)."""
+    one layer's share of the hidden layers' dW (times the members); then
+    the first and last layers' kinds alone (`kinds`, with their own)."""
     def bound_of(name):
         base = {"sine_mlp_layer_fwd": "sine_mlp_fwd_stash",
                 "sine_mlp_layer_bwd": "sine_mlp_bwd_stashed",
@@ -2046,8 +2101,193 @@ def _layer_records(records, batched, bounds, padded, dw_bound, layers) -> dict:
                     m * padded["sine_mlp_dw"]["bound_ms"] / layers)
         return bounds[base], padded[base]["bound_ms"]
 
-    return {"single": {k: (*v, *bound_of(k)) for k, v in records.items()},
+    return {"single": {**{k: (*v, *bound_of(k)) for k, v in records.items()}, **kinds},
             "batched": {k: (*v, *bound_of(k)) for k, v in batched.items()}}
+
+
+def _kind_bounds(n: int, hidden: int, in_size: int, out_size: int, slices: int) -> dict:
+    """The first and last layers' kinds alone (the kernels line's rows
+    "sine_mlp_layer_fwd first" ...): FLOPs (their FMAs: 2 per multiply-add),
+    bytes (each input read once, each output written once) and the least
+    time, the larger of bytes / HBM_BYTES_PER_S and FLOPs / FP32_FLOP_PER_S.
+    The forward's first layer writes z_0 too (the stash, as under autograd);
+    the backward's last reads g and z_L, writes G_L and its slices' sums."""
+    kinds = {
+        "sine_mlp_layer_fwd first": (2 * n * hidden * in_size,
+                                     4 * (n * in_size + in_size * hidden + hidden
+                                          + 2 * n * hidden)),
+        "sine_mlp_layer_fwd last": (2 * n * hidden * out_size,
+                                    4 * (n * hidden + hidden * out_size + out_size
+                                         + n * out_size)),
+        "sine_mlp_layer_bwd last": (2 * n * hidden * 2 * out_size,
+                                    4 * (n * out_size + hidden * out_size + 2 * n * hidden
+                                         + slices * (hidden + hidden * out_size + out_size))),
+        "sine_mlp_layer_bwd first": (2 * n * hidden * in_size,
+                                     4 * (n * hidden + in_size * hidden + n * in_size)),
+    }
+    out = {}
+    for name, (flop, nbytes) in kinds.items():
+        mem_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+        out[name] = {"flop": flop, "bytes": nbytes, "bound_ms": max(mem_ms, ops_ms),
+                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes"}
+    return out
+
+
+def _layer_kinds_alone(members, x, gs, mcfg, tag: str, width: int, slices: int,
+                       depth: int = DEPTH, timed: bool = True) -> dict:
+    """The first and last layers' launches alone (the streaming passes:
+    sine_mlp_layer_fwd first, with the stash, and last; sine_mlp_layer_bwd
+    last and first) on the first member's own chain operands (x, g, z_L,
+    a_L, G_0 of the plain chain in each mode; the kernel width is `width`)
+    in every mode: each against its plain version (layer_*_reference)
+    within LAYER_TOL (its forward limit, absolute, for out; its backward
+    limit of the largest value for z_0, a_0, G_L, dx and the slices' db_L,
+    dW_{D-1}, db_{D-1} added up), twice for bits; over LAYER_MEMBERS members
+    (the members' weights, cotangents gs and the same activations) each
+    member the bits of its single launch. At depth 2 the backward's last
+    layer also sums dW_0 (x given). With `timed`, the fp32 launches timed
+    from CUDA graphs in turns with one fp32 PyTorch call where one computes
+    the same function (torch.addmm for out, torch.mm for dx), beside their
+    bytes bound (_kind_bounds). Returns the kernels line's records."""
+    import torch
+
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    n, in_size = x.shape
+    om = sm._omegas(mcfg, depth)
+    bounds = _kind_bounds(n, width, in_size, gs.shape[-1], slices)
+    xl = x if depth == 2 else None
+    records = {}
+    for prec in LAYER_TOL:
+        bf16, mixed = sm.precision_modes(prec)
+        fwd_tol, bwd_tol = LAYER_TOL[prec]
+        ws = [sm._rnd_params(p, mixed) for p in members]
+        params = ws[0]
+        out_p, zs = sm._chain_forward(members[0], x, mcfg, prec, keep=True)
+        z_l = zs[-1]
+        a_l = sm._rnd(sm.fast_sin(om[-2] * z_l), bf16 or mixed)
+        hooked = {}
+        sm._chain_backward(params, x, gs[0], mcfg, prec,
+                           lambda i, a_prev, gzb, gz: hooked.__setitem__(i, gzb) if i == 0 else None,
+                           zs)
+        g0 = hooked[0]
+        del zs, hooked
+        w = lambda l, k: torch.stack([p[l][k] for p in ws])  # noqa: E731
+        m = len(members)
+        calls = {  # name: (launch, plain, over the members, member i alone)
+            "sine_mlp_layer_fwd first": (
+                lambda: sm.sine_mlp_layer_fwd_first(x, params[0]["w"], params[0]["b"], om[0],
+                                                    prec, stash=True),
+                lambda: sm.layer_fwd_first_reference(x, params[0]["w"], params[0]["b"], om[0],
+                                                     prec),
+                lambda: sm.sine_mlp_layer_fwd_first(x, w(0, "w"), w(0, "b"), om[0], prec,
+                                                    stash=True),
+                lambda i: sm.sine_mlp_layer_fwd_first(x, ws[i][0]["w"], ws[i][0]["b"], om[0],
+                                                      prec, stash=True)),
+            "sine_mlp_layer_fwd last": (
+                lambda: (sm.sine_mlp_layer_fwd_last(a_l, params[-1]["w"], params[-1]["b"],
+                                                    prec),),
+                lambda: (sm.layer_fwd_last_reference(a_l, params[-1]["w"], params[-1]["b"],
+                                                     prec),),
+                lambda: (sm.sine_mlp_layer_fwd_last(a_l.expand(m, -1, -1).contiguous(),
+                                                    w(-1, "w"), w(-1, "b"), prec),),
+                lambda i: (sm.sine_mlp_layer_fwd_last(a_l, ws[i][-1]["w"], ws[i][-1]["b"],
+                                                      prec),)),
+            "sine_mlp_layer_bwd last": (
+                lambda: sm.sine_mlp_layer_bwd_last(gs[0], params[-1]["w"], z_l, om[-2], prec,
+                                                   x=xl),
+                lambda: sm.layer_bwd_last_reference(gs[0], params[-1]["w"], z_l, om[-2], prec,
+                                                    x=xl),
+                lambda: sm.sine_mlp_layer_bwd_last(
+                    gs, w(-1, "w"), z_l.expand(m, -1, -1).contiguous(), om[-2], prec,
+                    x=None if xl is None else xl.expand(m, -1, -1).contiguous()),
+                lambda i: sm.sine_mlp_layer_bwd_last(gs[i], ws[i][-1]["w"], z_l, om[-2], prec,
+                                                     x=xl)),
+            "sine_mlp_layer_bwd first": (
+                lambda: (sm.sine_mlp_layer_bwd_first(g0, params[0]["w"], prec),),
+                lambda: (sm.layer_bwd_first_reference(g0, params[0]["w"], prec),),
+                lambda: (sm.sine_mlp_layer_bwd_first(g0.expand(m, -1, -1).contiguous(),
+                                                     w(0, "w"), prec),),
+                lambda i: (sm.sine_mlp_layer_bwd_first(g0, ws[i][0]["w"], prec),)),
+        }
+        for name, (call, plain, over, alone) in calls.items():
+            got, again, ref = call(), call(), plain()
+            torch.cuda.synchronize()
+            same = all(u is None or torch.equal(u, v) for u, v in zip(got, again))
+            errs, abs_err = [], 0.0
+            for i, (k, r) in enumerate(zip(got, ref)):
+                if r is None:
+                    continue
+                k = k.sum(0) if name == "sine_mlp_layer_bwd last" and i > 0 else k
+                err = float((k - r).abs().max())
+                abs_err = max(abs_err, err)
+                errs.append(err if name == "sine_mlp_layer_fwd last"
+                            else err / float(r.abs().max()))
+            tol = fwd_tol if name == "sine_mlp_layer_fwd last" else bwd_tol
+            batched = over()
+            torch.cuda.synchronize()
+            members_same = all(
+                all(u is None or torch.equal(u[i], v) for u, v in zip(batched, alone(i)))
+                for i in range(m))
+            del got, again, ref, batched
+            print(f"{tag} {name} alone {prec} vs its plain version: errors "
+                  f"{' '.join(f'{e:.3e}' for e in errs)} (tol {tol:g}, "
+                  f"{'absolute' if name == 'sine_mlp_layer_fwd last' else 'of the largest value'}), "
+                  f"{'the same bits twice' if same else 'BITS DIFFER'}; over {m} members "
+                  f"{'each the bits of its single launch' if members_same else 'BITS DIFFER'}",
+                  flush=True)
+            if not (max(errs) <= tol and same and members_same):
+                raise AssertionError(f"{tag} {name} {prec}: errors {errs}, same bits {same}, "
+                                     f"members {members_same}")
+            if prec == "fp32":
+                records[name] = abs_err
+        if prec == "fp32" and timed:
+            wl, bl, w0 = params[-1]["w"], params[-1]["b"], params[0]["w"]
+            fns = [calls[name][0] for name in calls] + [
+                lambda: torch.addmm(bl, a_l, wl), lambda: torch.mm(g0, w0.t())]
+            rounds = _graph_interleaved_ms(fns, rounds=3, reps=3)
+            ms = [statistics.median(r) for r in rounds]
+            libs = {"sine_mlp_layer_fwd last": ms[4], "sine_mlp_layer_bwd first": ms[5]}
+            for i, name in enumerate(calls):
+                plain_ms = _time_ms(calls[name][1], 2)
+                b = bounds[name]
+                print(f"{tag} {name} alone, fp32, in turns from CUDA graphs, ms: "
+                      f"{' '.join(f'{t:.4f}' for t in rounds[i])} (median {ms[i]:.4f} = "
+                      f"{b['bound_ms'] / ms[i]:.1%} of its {b['bound_ms']:.4f} ms bound, "
+                      f"{b['bytes'] / 1e9:.3f} GB, by {b['bound_by']}); "
+                      + (f"one fp32 PyTorch call {libs[name]:.4f}; " if name in libs else "")
+                      + f"plain {plain_ms:.3f}", flush=True)
+                records[name] = (records[name], ms[i], plain_ms, libs.get(name), b,
+                                 b["bound_ms"])
+        del out_p, z_l, a_l, g0, ws, params
+        torch.cuda.empty_cache()
+    return records
+
+
+def _layer_kinds_other_counts(width: int) -> None:
+    """The first and last layers' kinds alone, held as _layer_kinds_alone
+    holds them (every mode, bits twice, the member axis), at input and
+    output counts other than an image's 2 and 3: the passes' bodies that
+    run their loops to MAX_IO under a guard. 3 in and 6 out at depth 4, 3 in
+    and 4 out at depth 2 (the backward's last layer summing dW_0), on 4,096
+    rows."""
+    import torch
+
+    from implicit_image_tpu_torch.models import build_model
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+
+    dev = torch.device("cuda")
+    n = 4096
+    for depth, in_size, out_size in ((4, 3, 6), (2, 3, 4)):
+        mdef, mcfg = build_model("siren", depth=depth, hidden_size=width, input_size=in_size,
+                                 output_size=out_size)
+        gen = torch.Generator().manual_seed(depth)
+        members = [mdef.init(gen, mcfg, dev) for _ in range(LAYER_MEMBERS)]
+        x = (torch.rand((n, in_size), generator=gen) * 2 - 1).to(dev)
+        gs = (torch.randn((LAYER_MEMBERS, n, out_size), generator=gen) / n).to(dev)
+        slices = sm.partial_layout(n, depth, in_size, width, out_size, dev)[0]
+        tag = f"[3 layer kernels w{width} d{depth}, {in_size} in, {out_size} out]"
+        _layer_kinds_alone(members, x, gs, mcfg, tag, width, slices, depth=depth, timed=False)
 
 
 def phase_layer_wide() -> None:
@@ -2654,6 +2894,7 @@ def phase_layer_path(width: int) -> dict:
         img, _ = decompress.decode_run(cfg.output_dir, device="cuda")
         decode_grew = torch.cuda.max_memory_allocated(dev) - base
         launches = dict(sm.LAUNCHES)
+        by_kind = dict(sm.LAUNCHES_BY_KIND)
     summary = json.loads(open(f"{cfg.output_dir}/summary.json").read())
     steps = int(cfg.train.num_steps) + int(cfg.quant.num_steps)
     print(f"[10 w{width}] compress.main {t1 - t0:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
@@ -2675,7 +2916,19 @@ def phase_layer_path(width: int) -> dict:
     redecoded = 10.0 * np.log10(1.0 / np.mean((np.asarray(img, np.float64) - target) ** 2))
     if not (math.isfinite(psnr) and abs(redecoded - psnr) <= 1e-3):
         raise AssertionError(f"w{width}: decoded PSNR {psnr}, decode_run {redecoded}")
-    return launches
+    # the layer-wise kernels by kind: K2's last and first layer once a step,
+    # K1's first and last once a band of each K1 call (the fit's, the
+    # finetune's and the decode's)
+    kinds = {k: v for k, v in by_kind.items() if not k.split()[0].endswith("_batched")}
+    k1_bands = launches["sine_mlp_layer_fwd"] // DEPTH
+    want = {"sine_mlp_layer_bwd last": steps, "sine_mlp_layer_bwd first": steps,
+            "sine_mlp_layer_bwd hidden": (DEPTH - 2) * steps,
+            "sine_mlp_layer_fwd first": k1_bands, "sine_mlp_layer_fwd last": k1_bands,
+            "sine_mlp_layer_fwd hidden": (DEPTH - 2) * k1_bands}
+    print(f"[10 w{width}] the layer-wise kernels' launches by kind {kinds}", flush=True)
+    if kinds != want:
+        raise AssertionError(f"w{width}: launches by kind {kinds}, expected {want}")
+    return launches | {k: v for k, v in kinds.items() if not k.endswith("hidden")}
 
 
 def _wavelet_lattice_kernels() -> None:
@@ -5283,6 +5536,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
     card = phase_card()
     phase_build()
     records = {width: phase_kernels(width) for width in KERNEL_WIDTHS_CHECKED}
@@ -5330,7 +5584,10 @@ def main() -> int:
                # the layer-wise kernels (widths above 512): K1's, K2's and its dW
                "sine_mlp_layer_fwd": 81, "sine_mlp_layer_fwd_batched": 81,
                "sine_mlp_layer_bwd": 128, "sine_mlp_layer_bwd_batched": 128,
-               "sine_mlp_layer_dw": 128, "sine_mlp_layer_dw_batched": 128}
+               "sine_mlp_layer_dw": 128, "sine_mlp_layer_dw_batched": 128,
+               # their first- and last-layer kinds (the streaming passes)
+               "sine_mlp_layer_fwd first": 81, "sine_mlp_layer_fwd last": 81,
+               "sine_mlp_layer_bwd last": 128, "sine_mlp_layer_bwd first": 128}
     sources.update({name + sm.MIXED: sources[name]
                     for name in ("sine_mlp_fwd_batched", "sine_mlp_bwd_batched")})
 
@@ -5359,6 +5616,7 @@ def main() -> int:
         for width, by_name in records.items()
         for name, (err, ms, plain_ms, library_ms, bound, padded_bound_ms) in by_name.items()
     ]
+    print(f"[chip_smoke] wall {time.perf_counter() - started:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2918,7 +2918,7 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 //   kLwHidden z_l = a_{l-1} W_l + b_l (the tensor cores), each with the
 //   epilogue a = rnd(sin(omega z)) (fast_sin) and, where a stash is given
 //   (K1 under autograd, band by band; K2's recompute without one), z into
-//   it; kLwLast out = a_L W_{D-1} + b_{D-1} (a warp a row).
+//   it; kLwLast out = a_L W_{D-1} + b_{D-1} (FMA, N = out).
 // - sine_mlp_layer_bwd_kernel: kLwLast ga_L = rnd(g) W_{D-1}^T (FMA) with
 //   dW_{D-1} = a_L^T rnd(g), db_{D-1}; kLwHidden ga_{l-1} = G_l W_l^T (the
 //   tensor cores); the epilogue of both gz = rnd(ga) omega cos(omega z) (ga
@@ -2926,7 +2926,7 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 //   sums db and, where the layer below is the first, dW_0 = x^T G; kLwHidden
 //   also writes dW_l's A operand, rnd(a_{l-1}) = rnd(sin(omega z_{l-1})),
 //   in place of z_{l-1}, which nothing reads after it. kLwFirst dx = G_0
-//   W_0^T (a warp a row).
+//   W_0^T (FMA, N = in).
 // - sine_mlp_layer_dw_kernel: dW_l = A_l^T G_l over row splits (one launch
 //   a layer, after the layer's kLwHidden, so two G buffers serve every
 //   layer), each split's sums into its partial slice.
@@ -2935,15 +2935,17 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // fp32 as three bf16 planes per operand and six passes, fed by tensor-map
 // and bulk copies through mbarrier rings from one feeding thread, the
 // consumers' warpgroups apart from it (their design: "the layer-wise
-// products on wgmma" below). Grid: the rows' 128-row tiles split into S
+// products on wgmma" below). The first and last layers are passes that
+// stream an N x h matrix with a few FMAs an element ("the first and last
+// layers: streaming passes" below). Grid: the rows' 128-row tiles split into S
 // contiguous slices (ops/sine_mlp.layer_slices: at most the SMs / (h /
 // 128), so one wave), block (s, c) taking column tile c of slice s's
-// tiles, its stage stream running on across the tiles; grid y = member
-// (every pointer moves by its member stride: each member gets its single
-// launch's bits). No atomics: each address of a partial slice belongs to
-// one thread of one block, which sums it in a fixed order and stores it
-// once (the FMA kinds: at the slice's first tile, then adds at the next
-// ones, in tile order), so a run repeats bit for bit.
+// tiles, its stage stream running on across the tiles (the narrow kinds,
+// forward kLwLast and backward kLwFirst, stride over groups of rows
+// instead); grid y = member (every pointer moves by its member stride:
+// each member gets its single launch's bits). No atomics: each address of
+// a partial slice belongs to one thread of one block, which sums it in a
+// fixed order and stores it once, so a run repeats bit for bit.
 // Memory at 512^2, d8 (N = 262,144): the z stash, (D-1) N h floats (4.7 /
 // 7.5 / 15.0 GB at 640 / 1024 / 2048). Under autograd (a fit or finetune
 // step: ops/sine_mlp's Functions) K1 fills it, each band of its rows
@@ -2972,11 +2974,7 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 constexpr int LW_T = 128;    // pixel rows of a block tile
 constexpr int LW_N = 128;    // columns of a block tile: the kernel width is a multiple
 constexpr int LW_KC = 32;    // K of a chunk of the products (a ring stage: two k-steps)
-constexpr int LW_THREADS = 256;  // the FMA kinds' blocks
 constexpr int LW_MIN = 512;  // the widest fused kernel; the layer-wise kernels run above it
-constexpr int LW_SLOTS = 1 + 2 * MAX_IO;  // an epilogue's column sums: db, dW_0's rows, dW_{D-1}'s columns
-using LwG = Geo<LW_N, LW_T, LW_KC>;  // the FMA kinds' 8 warps of 32 x 64
-static_assert(LwG::THREADS == LW_THREADS, "the layer kernels' warps cover a block tile");
 enum LwKind { kLwFirst = 0, kLwHidden = 1, kLwLast = 2 };
 
 }  // namespace
@@ -3042,56 +3040,6 @@ struct LwTiles {
   }
 };
 
-// dst (LW_T x MAX_IO) = rows row0 .. of src (n, width), rounded to bf16 in
-// the bf16 mode, zero beyond n rows and width columns.
-template <bool BF16>
-__device__ __forceinline__ void lw_stage_rows(float* __restrict__ dst, const float* __restrict__ src,
-                                              long long row0, long long n, int width, int tid) {
-  for (int e = tid; e < LW_T * MAX_IO; e += LW_THREADS) {
-    const int r = e / MAX_IO, k = e % MAX_IO;
-    const long long row = row0 + r;
-    dst[e] = (row < n && k < width) ? rnd<BF16>(src[row * width + k]) : 0.f;
-  }
-}
-
-// dst[r][o] = sum_k src[r][k] rnd(w(k, o)) (+ bias[o]) for rows r < n, src
-// (n, K) with K a multiple of 32 and w(k, o) = w[k sk + o so], o < no <=
-// MAX_IO: a warp a row (the grid's warps stride over the rows), lane i
-// summing k = i + 32 j in order of j, then the lanes by shuffles.
-template <bool BF16>
-__device__ __forceinline__ void lw_narrow_rows(const float* __restrict__ src, long long K,
-                                               const float* __restrict__ wg, long long sk,
-                                               long long so, int no,
-                                               const float* __restrict__ bias,
-                                               float* __restrict__ dst, long long n) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = (long long)gridDim.x * (LW_THREADS / 32);
-  const float bv = (bias != nullptr && lane < no) ? __ldg(&bias[lane]) : 0.f;
-  for (long long r = (long long)blockIdx.x * (LW_THREADS / 32) + (threadIdx.x >> 5); r < n;
-       r += warps) {
-    const float* row = src + r * K;
-    float acc[MAX_IO];
-#pragma unroll
-    for (int o = 0; o < MAX_IO; ++o) acc[o] = 0.f;
-#pragma unroll 4
-    for (long long k = lane; k < K; k += 32) {
-      const float sv = row[k];
-#pragma unroll
-      for (int o = 0; o < MAX_IO; ++o)
-        if (o < no) acc[o] += sv * rnd<BF16>(__ldg(&wg[k * sk + o * so]));
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int o = 0; o < MAX_IO; ++o) {
-      if (o < no) {
-        const float q = warp_sum(acc[o]);
-        if (lane == o) mine = q;
-      }
-    }
-    if (lane < no) dst[r * no + lane] = mine + bv;
-  }
-}
-
 // The chain products' K in groups of LW_K_GROUP chunks (K = 128), each
 // summed from zero by the tensor cores and then added into the product by
 // an fp32 add. The tensor cores' accumulator add does not round to nearest,
@@ -3102,64 +3050,6 @@ __device__ __forceinline__ void lw_narrow_rows(const float* __restrict__ src, lo
 constexpr int LW_K_GROUP = 4;
 static_assert(LW_N % (LW_K_GROUP * LW_KC) == 0, "a kernel width holds whole K groups");
 
-// First layer, K = in_size: acc = x_s W_0 (FMA) at the warp's positions of
-// the block's columns n0 ..
-template <bool BF16>
-__device__ __forceinline__ void lw_first_layer(Acc acc, const float* __restrict__ w0, long long h,
-                                               int n0, int in_size, const float* __restrict__ x_s,
-                                               const Warp& w) {
-  zero(acc);
-  for (int k = 0; k < in_size; ++k) {
-    float xv[2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) xv[mi][hh] = x_s[w.row(mi, 2 * hh) * MAX_IO + k];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const float2 wv = __ldg(reinterpret_cast<const float2*>(w0 + k * h + n0 + w.col(ni)));
-      const float w0v = rnd<BF16>(wv.x), w1v = rnd<BF16>(wv.y);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          acc[mi][ni][2 * hh] += xv[mi][hh] * w0v;
-          acc[mi][ni][2 * hh + 1] += xv[mi][hh] * w1v;
-        }
-    }
-  }
-}
-
-// The forward's epilogue: z = acc + b at rows row0 .. (below n), z into the
-// stash (p.z) and a = rnd(sin(omega z)) into p.dst, where they are given.
-template <bool BF16, bool MX>
-__device__ __forceinline__ void lw_fwd_epilogue(const Acc acc, const LayerArgs& p, int n0,
-                                                long long row0, const Warp& w) {
-  const long long h = p.hidden;
-  const float omega = p.omega;
-  float* z_out = p.z;
-  float* a_out = p.dst;
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    const int c = n0 + w.col(ni);
-    const float2 b = __ldg(reinterpret_cast<const float2*>(p.b + c));
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long long row = row0 + w.row(mi, 2 * hh);
-        if (row >= p.n) continue;
-        const float z0 = acc[mi][ni][2 * hh] + b.x, z1 = acc[mi][ni][2 * hh + 1] + b.y;
-        const long long o = row * h + c;
-        if (z_out != nullptr) *reinterpret_cast<float2*>(z_out + o) = make_float2(z0, z1);
-        if (a_out != nullptr)
-          *reinterpret_cast<float2*>(a_out + o) =
-              make_float2(rnd_act<BF16, MX>(iit::fast_sin(omega * z0)),
-                          rnd_act<BF16, MX>(iit::fast_sin(omega * z1)));
-      }
-  }
-}
-
 // The sum of v over the 8 lanes that hold a column (xor 4, 8, 16: fixed).
 __device__ __forceinline__ float lw_lanes(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
@@ -3168,130 +3058,6 @@ __device__ __forceinline__ float lw_lanes(float v) {
   return v;
 }
 
-// The last layer's backward at one tile (rows row0 .., the block's columns
-// n0 ..), z = z_L (p.z): ga = rnd(g) W_{D-1}^T from go_s (FMA, in order of
-// the outputs), gz = rnd<MX>(ga) omega cos(omega z) (0 past n), p.dst = G =
-// rnd(gz). Column sums over the tile into red (slot, row group, column), in
-// a fixed order (the thread's 4 rows, its column's 8 lanes, then the 4 row
-// groups): slot 0 db; FIRST slots 1 + k, dW_0[k] = sum x_k G; slots o_slot +
-// o, dW_{D-1}[., o] = sum a rnd(g_o), a = rnd(sin(omega z)). Each goes into
-// the block's partial slice, stored at the slice's first tile, added at the
-// next ones; column tile 0 also sums db_{D-1} = sum g.
-template <bool BF16, bool MX, bool FIRST>
-__device__ __forceinline__ void lw_last_epilogue(const LayerArgs& p, const LwTiles& tl,
-                                                 long long row0, const float* __restrict__ x_s,
-                                                 const float* __restrict__ go_s,
-                                                 float* __restrict__ red, const Warp& w, int tid) {
-  const long long h = p.hidden;
-  const int in_size = p.in_size, out_size = p.out_size;
-  const int o_slot = 1 + (FIRST ? in_size : 0);
-  const int slots = o_slot + out_size;
-  const int wr = w.m0 / 32;
-  const float omega = p.omega;
-  const float* z = p.z;
-  float* gz_out = p.dst;
-  const auto put = [&](int slot, int col, float v) {
-    v = lw_lanes(v);
-    if (w.g == 0) red[(slot * 4 + wr) * LW_N + col] = v;
-  };
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    const int c = w.col(ni);
-    const long long col = tl.n0 + c;
-    float wv[2][MAX_IO];
-#pragma unroll
-    for (int cc = 0; cc < 2; ++cc)
-#pragma unroll
-      for (int o = 0; o < MAX_IO; ++o)
-        wv[cc][o] = o < out_size ? rnd<BF16>(__ldg(&p.w[(col + cc) * out_size + o])) : 0.f;
-    float gz[2][2][2], gb[2][2][2], av[2][2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = w.row(mi, 2 * hh);
-        const long long row = row0 + r;
-        const bool valid = row < p.n;
-        const long long o = row * h + col;
-        const float2 zv = valid ? *reinterpret_cast<const float2*>(z + o) : make_float2(0.f, 0.f);
-        const float zz[2] = {zv.x, zv.y};
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          float ga = 0.f;
-#pragma unroll
-          for (int q = 0; q < MAX_IO; ++q)
-            if (q < out_size) ga += rnd<BF16>(go_s[r * MAX_IO + q]) * wv[cc][q];
-          const float d = omega * iit::fast_cos(omega * zz[cc]);
-          const float v = valid ? rnd<MX>(ga) * d : 0.f;
-          gz[mi][hh][cc] = v;
-          gb[mi][hh][cc] = rnd<BF16>(v);
-          av[mi][hh][cc] = valid ? rnd_act<BF16, MX>(iit::fast_sin(omega * zz[cc])) : 0.f;
-        }
-        if (valid)
-          *reinterpret_cast<float2*>(gz_out + o) = make_float2(gb[mi][hh][0], gb[mi][hh][1]);
-      }
-#pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
-      put(0, c + cc, (gz[0][0][cc] + gz[0][1][cc]) + (gz[1][0][cc] + gz[1][1][cc]));
-      if constexpr (FIRST) {
-#pragma unroll
-        for (int k = 0; k < MAX_IO; ++k) {
-          if (k >= in_size) break;
-          float s = 0.f;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) s += x_s[w.row(mi, 2 * hh) * MAX_IO + k] * gb[mi][hh][cc];
-          put(1 + k, c + cc, s);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < MAX_IO; ++q) {
-        if (q >= out_size) break;
-        float s = 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            s += av[mi][hh][cc] * rnd<BF16>(go_s[w.row(mi, 2 * hh) * MAX_IO + q]);
-        put(o_slot + q, c + cc, s);
-      }
-    }
-  }
-  __syncthreads();
-  const bool first_tile = row0 == tl.t0 * LW_T;
-  float* part = p.part + tl.slice * p.n_part;
-  for (int e = tid; e < slots * LW_N; e += LW_THREADS) {
-    const int slot = e / LW_N, c = e % LW_N;
-    const float* rs = red + slot * 4 * LW_N + c;
-    const float v = ((rs[0] + rs[LW_N]) + rs[2 * LW_N]) + rs[3 * LW_N];
-    float* d;
-    if (slot == 0)
-      d = part + p.off_db + tl.n0 + c;
-    else if (slot < o_slot)
-      d = part + p.off_dw0 + (slot - 1) * h + tl.n0 + c;
-    else
-      d = part + p.off_dwl + (tl.n0 + c) * (long long)out_size + (slot - o_slot);
-    *d = first_tile ? v : *d + v;
-  }
-  if (tl.n0 == 0) {
-    for (int q = tid; q < out_size; q += LW_THREADS) {
-      float s = 0.f;
-      for (int r = 0; r < LW_T; ++r) s += go_s[r * MAX_IO + q];
-      float* d = part + p.off_dbl + q;
-      *d = first_tile ? s : *d + s;
-    }
-  }
-  __syncthreads();
-}
-
-// Shared memory of the forward's first layer: its input tile (kLwHidden's
-// is kLfSmem; kLwLast needs none).
-constexpr size_t kLwFwdSmem = sizeof(float) * LW_T * MAX_IO;
-// The backward's last layer: the input and cotangent tiles, the column sums
-// (kLwHidden's is kLbSmem; kLwFirst needs none).
-constexpr size_t kLwLastSmem = sizeof(float) * (2 * LW_T * MAX_IO + LW_SLOTS * 4 * LW_N);
-static_assert(kLwLastSmem <= 232448, "the last layer's shared memory");
 // dW's rows summed from zero in the accumulators before they are added to
 // the running total: LW_DW_GROUP x 32 = 1,024 rows. One accumulator over a
 // whole split (16,384 rows at 512², w1024) read 1.5e-4 of max |dW| against
@@ -3829,6 +3595,458 @@ __device__ __forceinline__ void ld_frags(const uint8_t* __restrict__ f32, int va
   }
 }
 
+// ------------------- the first and last layers: streaming passes
+//
+// sine_mlp_layer_bwd's kLwLast and sine_mlp_layer_fwd's kLwFirst do a few
+// FMAs, a sine and (backward) a cosine per element of an N x h matrix that
+// they read or write, and the narrow kinds (sine_mlp_layer_fwd's kLwLast,
+// sine_mlp_layer_bwd's kLwFirst) 2 in or 2 out FLOP per element of one that
+// they read: each is bound by those bytes (at 512², w640 on an H100: the
+// backward's last layer reads z_L and writes G_L, 1.34 GB, 0.40 ms; the
+// forward's first writes a_0 and, under autograd, z_0, 1.34 GB; the narrow
+// ones read 0.67 GB, 0.20 ms), and their ~30 FP instructions an element
+// take less than half of that. So each keeps memory busy and its
+// arithmetic under the transfers:
+// - The tile kinds (tile_grid: block (s, c) walks slice s's 128-row tiles
+//   at column tile c) run 8 consumer warps and one feeding warp, which
+//   streams each tile through an LS_NS-stage mbarrier ring: in the
+//   backward z_L's 128 x 128 tile by tensor-map copies (four 32-column
+//   boxes, as the hidden backward copies z) and g's (and, FIRST, x's) rows
+//   by its lanes' loads, in the forward x's rows; LS_NS - 1 tiles are in
+//   flight while the consumers work on one. A consumer thread owns fixed
+//   columns for the whole slice: W's rows of them (W_{D-1}, or W_0 and b_0)
+//   sit in its registers, loaded once, and the backward's column sums
+//   (db_L, dW_{D-1}, FIRST dW_0) run in its registers, each tile's from zero
+//   then added in tile order, and meet once at the slice's end, the column's
+//   4 threads added in a fixed order through shared memory, into the
+//   slice's partial (db_{D-1}: the feeding warp of column tile 0 sums g's
+//   columns). The outputs (G_L; z_0 and a_0) go out from registers as
+//   coalesced stores of whole 128-byte lines (a half-warp a row of a box in
+//   the backward, 16 bytes a thread, a quarter-warp a row, in the
+//   forward), which do not wait, so they stream under the next rows' work.
+//   The sine and cosine share one range reduction (iit::fast_sincos, the
+//   bits of fast_sin and fast_cos). The consumers' loops over the outputs
+//   (inputs) are unrolled for the count where it is 3 (2), else run to
+//   MAX_IO under a guard. G_L, z_0 and a_0 are elementwise: the chain's
+//   bits; the column sums add in this order.
+// - The narrow kinds (narrow_grid: 2 blocks an SM striding over 64-row
+//   groups) hold W (W_{D-1} as out x h, W_0 as in x h) in shared memory,
+//   rounded, loaded once a block (in chunks of columns past kLnSmem); a
+//   warp takes 8 rows at a time, its lanes 16-byte loads of all 8 rows' next
+//   columns in flight together, and sums each output over its lanes by a
+//   transposed reduction (9 shuffles for the 8 rows' sums, where a
+//   shuffle tree a row takes 40): each output a fixed order, any grid.
+constexpr int LS_NS = 3;                               // the tile kinds' ring stages
+constexpr int LS_CONS = 256;                           // their consumer threads (8 warps)
+constexpr int LS_THREADS = LS_CONS + 32;               // and the feeding warp
+constexpr size_t kLsRows = (size_t)LW_T * MAX_IO * 4;  // a tile's rows of g or x (flat)
+constexpr size_t kLsZ = (size_t)LW_T * LW_N * 4;       // a tile of z: LW_N / 32 boxes of kLfW
+constexpr size_t kLsStage = kLsZ + 2 * kLsRows;        // z, g's rows, x's rows
+constexpr size_t kLsBar = LS_NS * kLsStage;            // full[LS_NS], then empty[LS_NS]
+// + 1 KB: the stages start at the first 1024-byte boundary (the swizzled boxes)
+constexpr size_t kLsSmem = kLsBar + 2 * LS_NS * sizeof(uint64_t) + 1024;
+static_assert(kLsStage % 1024 == 0 && kLsZ == (LW_N / 32) * kLfW &&
+                  kLsSmem + sizeof(LayerArgs) <= 232448 &&
+                  (1 + 2 * MAX_IO) * 4 * LW_N * 4 <= kLsZ,
+              "the backward's last layer: its ring, and the column sums in its first stage's z "
+              "(the feeding warp may still read that stage's g rows)");
+// the forward's first layer: a ring of x's rows, then full[LS_NS], empty[LS_NS]
+constexpr size_t kLxSmem = LS_NS * kLsRows + 2 * LS_NS * sizeof(uint64_t);
+constexpr int LN_THREADS = 256, LN_ROWS = 8;  // the narrow kinds: 8 warps, 8 rows a warp at a time
+constexpr size_t kLnSmem = 64 * 1024;         // their W's (chunk's) bytes at most
+constexpr int LN_BLOCKS_PER_SM = 2;
+
+// The feeding warp's share of a tile: `count` floats of src from float
+// `first` on (zeros from float `total` on) into dst, its lanes' loads in
+// flight together.
+__device__ __forceinline__ void ls_rows(float* __restrict__ dst, const float* __restrict__ src,
+                                        long long first, long long total, int count, int lane) {
+  constexpr int PER = LW_T * MAX_IO / 32;
+  float v[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = lane + 32 * i;
+    v[i] = e < count && first + e < total ? __ldg(src + first + e) : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    if (lane + 32 * i < count) dst[lane + 32 * i] = v[i];
+}
+
+// The ring's barriers: full[s] completes when the feeding warp's 32 lanes
+// have staged their rows and (in the backward) its lane 0's tensor copies
+// have landed (33 arrivals there: lane 0's expect_tx, then every lane's);
+// empty[s] when the 8 consumer warps are done with the stage.
+__device__ __forceinline__ void ls_init(uint64_t* full, uint64_t* empty, int feed_arrivals) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < LS_NS; ++i) {
+      iit::mbar_init(full + i, feed_arrivals);
+      iit::mbar_init(empty + i, LS_CONS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// ls_last_bwd's consumer warps, their loops over the outputs NO long (out
+// = NO, or NO = MAX_IO with out <= NO).
+template <bool BF16, bool MX, bool FIRST, int NO>
+__device__ __forceinline__ void ls_last_cons(const LayerArgs& p, const LwTiles& tl, uint8_t* smem,
+                                             uint64_t* full, uint64_t* empty, int tid) {
+  const int in_size = p.in_size, out_size = NO == MAX_IO ? p.out_size : NO, lane = tid & 31;
+  const long long n = p.n;
+  const int w = tid >> 5, box = w & 3;
+  const int c = 32 * box + 2 * (lane & 15), rs = 2 * (w >> 2) + (lane >> 4);
+  const long long h = p.hidden;
+  const float omega = p.omega;
+  float* g_out = p.dst + tl.n0 + c;
+  float wv[2][NO];  // rnd(W_{D-1}) at the thread's columns
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+      wv[cc][o] = o < out_size ? rnd<BF16>(__ldg(p.w + (long long)(tl.n0 + c + cc) * out_size + o))
+                               : 0.f;
+  float db[2] = {0.f, 0.f}, dwl[2][NO] = {}, dw0[2][MAX_IO] = {};
+  uint32_t q = 0;
+  for (long long tile = tl.t0; tile < tl.t1; ++tile, ++q) {
+    const int s = q % LS_NS;
+    iit::mbar_wait(full + s, (q / LS_NS) & 1);
+    const uint8_t* z_s = smem + s * kLsStage + box * kLfW;
+    const float* g_s = reinterpret_cast<const float*>(smem + s * kLsStage + kLsZ);
+    const float* x_s = g_s + LW_T * MAX_IO;
+    float tdb[2] = {0.f, 0.f}, tdwl[2][NO] = {}, tdw0[2][MAX_IO] = {};
+    const long long row0 = tile * LW_T;
+#pragma unroll 4
+    for (int i = 0; i < LW_T / 4; ++i) {
+      const int r = 4 * i + rs;
+      const long long row = row0 + r;
+      const bool valid = row < n;
+      const float2 zv = *reinterpret_cast<const float2*>(z_s + iit::swz128(r, c & 31));
+      const float zz[2] = {zv.x, zv.y};
+      float gq[NO];
+#pragma unroll
+      for (int o = 0; o < NO; ++o) gq[o] = o < out_size ? rnd<BF16>(g_s[r * out_size + o]) : 0.f;
+      float gb[2];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        float ga = 0.f;
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+          if (o < out_size) ga += gq[o] * wv[cc][o];
+        float sn, cs;
+        iit::fast_sincos(omega * zz[cc], sn, cs);
+        const float d = omega * cs;
+        const float v = valid ? rnd<MX>(ga) * d : 0.f;
+        gb[cc] = rnd<BF16>(v);
+        const float av = valid ? rnd_act<BF16, MX>(sn) : 0.f;
+        tdb[cc] += v;
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+          if (o < out_size) tdwl[cc][o] += av * gq[o];
+      }
+      if constexpr (FIRST) {
+#pragma unroll
+        for (int k = 0; k < MAX_IO; ++k) {
+          if (k >= in_size) break;
+          const float xv = rnd<BF16>(x_s[r * in_size + k]);
+          tdw0[0][k] += xv * gb[0];
+          tdw0[1][k] += xv * gb[1];
+        }
+      }
+      if (valid) *reinterpret_cast<float2*>(g_out + row * h) = make_float2(gb[0], gb[1]);
+    }
+    __syncwarp();
+    if (lane == 0) iit::mbar_arrive(empty + s);
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      db[cc] += tdb[cc];
+#pragma unroll
+      for (int o = 0; o < NO; ++o) dwl[cc][o] += tdwl[cc][o];
+      if constexpr (FIRST) {
+#pragma unroll
+        for (int k = 0; k < MAX_IO; ++k) dw0[cc][k] += tdw0[cc][k];
+      }
+    }
+  }
+  // the slice's sums: slot 0 db, FIRST 1 + k dW_0[k], then o_slot + o
+  // dW_{D-1}[., o]; the column's 4 threads (rs) meet in the first stage's
+  // z (no tensor copy is in flight: every one issued was waited for; the
+  // feeding warp of column tile 0 may still be reading g's rows after it)
+  const int o_slot = 1 + (FIRST ? in_size : 0), slots = o_slot + out_size;
+  float* red = reinterpret_cast<float*>(smem);
+  iit::named_barrier(1, LS_CONS);  // every consumer is done with the stages
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    float* mine = red + rs * LW_N + c + cc;
+    mine[0] = db[cc];
+#pragma unroll
+    for (int k = 0; k < MAX_IO; ++k)
+      if (FIRST && k < in_size) mine[(1 + k) * 4 * LW_N] = dw0[cc][k];
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+      if (o < out_size) mine[(o_slot + o) * 4 * LW_N] = dwl[cc][o];
+  }
+  iit::named_barrier(1, LS_CONS);
+  float* part = p.part + tl.slice * p.n_part;
+  for (int e = tid; e < slots * LW_N; e += LS_CONS) {
+    const int slot = e / LW_N, col = e % LW_N;
+    const float* rsum = red + slot * 4 * LW_N + col;
+    const float v = ((rsum[0] + rsum[LW_N]) + rsum[2 * LW_N]) + rsum[3 * LW_N];
+    float* d;
+    if (slot == 0)
+      d = part + p.off_db + tl.n0 + col;
+    else if (slot < o_slot)
+      d = part + p.off_dw0 + (slot - 1) * h + tl.n0 + col;
+    else
+      d = part + p.off_dwl + (tl.n0 + col) * (long long)out_size + (slot - o_slot);
+    *d = v;
+  }
+}
+
+// sine_mlp_layer_bwd, kLwLast: G_L = rnd(gz), gz = rnd<MX>(rnd(g) W_{D-1}^T)
+// omega cos(omega z_L), and into the slice's partial db_L = sum gz, dW_{D-1}
+// = sum a_L^T rnd(g) (a_L = rnd_act(sin(omega z_L))), db_{D-1} = sum g
+// (column tile 0), FIRST dW_0 = sum rnd(x)^T G_L. Consumer thread (warp w,
+// lane l) owns columns c, c + 1 (c = 32 (w % 4) + 2 (l % 16)) and rows
+// 4 i + rs of each tile (rs = 2 (w / 4) + l / 16): a half-warp reads a
+// 128-byte row of a box and writes G's row there.
+template <bool BF16, bool MX, bool FIRST>
+__device__ __forceinline__ void ls_last_bwd(const LayerArgs& p, const CUtensorMap* tm_z,
+                                            uint8_t* smem, int tid) {
+  smem += (1024 - iit::smem_u32(smem) % 1024) % 1024;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kLsBar);
+  uint64_t* empty = full + LS_NS;
+  ls_init(full, empty, 33);
+  const LwTiles tl(p);
+  const int in_size = p.in_size, out_size = p.out_size, lane = tid & 31;
+  const long long n = p.n;
+  if (tid >= LS_CONS) {  // the feeding warp
+    const int mz = p.z_m != 0 ? (int)blockIdx.y : 0;
+    float dbl = 0.f;  // column tile 0: lane q < out sums db_{D-1}[q]
+    uint32_t q = 0;
+    for (long long tile = tl.t0; tile < tl.t1; ++tile, ++q) {
+      const int s = q % LS_NS;
+      if (q >= LS_NS) iit::mbar_wait(empty + s, (q / LS_NS - 1) & 1);
+      uint8_t* st = smem + s * kLsStage;
+      if (lane == 0) {
+        iit::mbar_expect_tx(full + s, (uint32_t)kLsZ);
+#pragma unroll
+        for (int b = 0; b < LW_N / 32; ++b)
+          iit::tensor_g2s(st + b * kLfW, tm_z, tl.n0 + 32 * b, (int)(tile * LW_T), mz, full + s);
+      }
+      float* g_s = reinterpret_cast<float*>(st + kLsZ);
+      ls_rows(g_s, p.src, tile * LW_T * out_size, n * out_size, LW_T * out_size, lane);
+      if constexpr (FIRST)
+        ls_rows(g_s + LW_T * MAX_IO, p.x, tile * LW_T * in_size, n * in_size, LW_T * in_size,
+                lane);
+      iit::mbar_arrive(full + s);
+      if (tl.n0 == 0) {  // the tile's sum of g from zero, in row order, then into the total
+        __syncwarp();
+        if (lane < out_size) {
+          float t = 0.f;
+          for (int r = 0; r < LW_T; ++r) t += g_s[r * out_size + lane];
+          dbl = tile == tl.t0 ? t : dbl + t;
+        }
+      }
+    }
+    if (tl.n0 == 0 && lane < out_size) p.part[tl.slice * p.n_part + p.off_dbl + lane] = dbl;
+    return;
+  }
+  // the consumers, their loops over the outputs unrolled for the count
+  // (no guard, no idle multiply of a padded output): 3 (RGB), any
+  if (out_size == 3)
+    ls_last_cons<BF16, MX, FIRST, 3>(p, tl, smem, full, empty, tid);
+  else
+    ls_last_cons<BF16, MX, FIRST, MAX_IO>(p, tl, smem, full, empty, tid);
+}
+
+// ls_first_fwd's consumer warps, their loops over the inputs NI long (in =
+// NI, or NI = MAX_IO with in <= NI).
+template <bool BF16, bool MX, int NI>
+__device__ __forceinline__ void ls_first_cons(const LayerArgs& p, const LwTiles& tl,
+                                              const uint8_t* smem, uint64_t* full,
+                                              uint64_t* empty, int tid) {
+  const float* x_ring = reinterpret_cast<const float*>(smem);
+  const int in_size = NI == MAX_IO ? p.in_size : NI, lane = tid & 31;
+  const long long n = p.n;
+  const int w = tid >> 5;
+  const int c = 32 * (w & 3) + 4 * (lane & 7), rs = 4 * (w >> 2) + (lane >> 3);
+  const long long h = p.hidden;
+  const float omega = p.omega;
+  float wk[NI][4];  // rnd(W_0) at the thread's columns
+#pragma unroll
+  for (int k = 0; k < NI; ++k) {
+    const float4 v = k < in_size ? __ldg(reinterpret_cast<const float4*>(p.w + k * h + tl.n0 + c))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    wk[k][0] = rnd<BF16>(v.x);
+    wk[k][1] = rnd<BF16>(v.y);
+    wk[k][2] = rnd<BF16>(v.z);
+    wk[k][3] = rnd<BF16>(v.w);
+  }
+  const float4 b4 = __ldg(reinterpret_cast<const float4*>(p.b + tl.n0 + c));
+  const float bias[4] = {b4.x, b4.y, b4.z, b4.w};
+  float* z_out = p.z == nullptr ? nullptr : p.z + tl.n0 + c;
+  float* a_out = p.dst == nullptr ? nullptr : p.dst + tl.n0 + c;
+  uint32_t q = 0;
+  for (long long tile = tl.t0; tile < tl.t1; ++tile, ++q) {
+    const int s = q % LS_NS;
+    iit::mbar_wait(full + s, (q / LS_NS) & 1);
+    const float* x_s = x_ring + s * (LW_T * MAX_IO);
+    const long long row0 = tile * LW_T;
+#pragma unroll 4
+    for (int i = 0; i < LW_T / 8; ++i) {
+      const int r = 8 * i + rs;
+      const long long row = row0 + r;
+      float xk[NI];
+#pragma unroll
+      for (int k = 0; k < NI; ++k) xk[k] = k < in_size ? rnd<BF16>(x_s[r * in_size + k]) : 0.f;
+      float z[4], a[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NI; ++k)
+          if (k < in_size) acc += xk[k] * wk[k][j];
+        z[j] = acc + bias[j];
+        a[j] = rnd_act<BF16, MX>(iit::fast_sin(omega * z[j]));
+      }
+      if (row < n) {
+        if (z_out != nullptr)
+          __stcs(reinterpret_cast<float4*>(z_out + row * h), make_float4(z[0], z[1], z[2], z[3]));
+        if (a_out != nullptr)
+          *reinterpret_cast<float4*>(a_out + row * h) = make_float4(a[0], a[1], a[2], a[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) iit::mbar_arrive(empty + s);
+  }
+}
+
+// sine_mlp_layer_fwd, kLwFirst: z_0 = rnd(x) rnd(W_0) + b_0 (FMA over k <
+// in, from zero), a_0 = rnd_act(sin(omega z_0)); z_0 into the stash (p.z)
+// and a_0 into p.dst, where given. Consumer thread (warp w, lane l) owns
+// columns c .. c + 3 (c = 32 (w % 4) + 4 (l % 8)) and rows 8 i + rs of each
+// tile (rs = 4 (w / 4) + l / 8).
+template <bool BF16, bool MX>
+__device__ __forceinline__ void ls_first_fwd(const LayerArgs& p, uint8_t* smem, int tid) {
+  float* x_ring = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + LS_NS * kLsRows);
+  uint64_t* empty = full + LS_NS;
+  ls_init(full, empty, 32);
+  const LwTiles tl(p);
+  const int in_size = p.in_size, lane = tid & 31;
+  const long long n = p.n;
+  if (tid >= LS_CONS) {  // the feeding warp: x's rows a tile ahead
+    uint32_t q = 0;
+    for (long long tile = tl.t0; tile < tl.t1; ++tile, ++q) {
+      const int s = q % LS_NS;
+      if (q >= LS_NS) iit::mbar_wait(empty + s, (q / LS_NS - 1) & 1);
+      ls_rows(x_ring + s * (LW_T * MAX_IO), p.src, tile * LW_T * in_size, n * in_size,
+              LW_T * in_size, lane);
+      iit::mbar_arrive(full + s);
+    }
+    return;
+  }
+  // the consumers, their loops over the inputs unrolled for the count: 2
+  // (an image's coordinates), any
+  if (in_size == 2)
+    ls_first_cons<BF16, MX, 2>(p, tl, smem, full, empty, tid);
+  else
+    ls_first_cons<BF16, MX, MAX_IO>(p, tl, smem, full, empty, tid);
+}
+
+// The sum over the warp's lanes of v[j] for j = (lane / 4) % 8, in every
+// lane of the 4 that hold it: halves of v change hands at xor 16, 8 and 4
+// (each lane keeping the half its lane bit says), then xor 2 and 1 add
+// the rest; a fixed order.
+__device__ __forceinline__ float ln_rows_sum(const float (&v)[LN_ROWS], int lane) {
+  static_assert(LN_ROWS == 8, "three halvings");
+  float a[4], b[2];
+  const bool u16 = lane & 16, u8 = lane & 8, u4 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (u16 ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, u16 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (u8 ? a[i + 2] : a[i]) + __shfl_xor_sync(0xffffffffu, u8 ? a[i] : a[i + 2], 8);
+  float r = (u4 ? b[1] : b[0]) + __shfl_xor_sync(0xffffffffu, u4 ? b[0] : b[1], 4);
+  r += __shfl_xor_sync(0xffffffffu, r, 2);
+  r += __shfl_xor_sync(0xffffffffu, r, 1);
+  return r;
+}
+
+// The narrow kinds: dst[r][o] = sum_c src[r][c] rnd(w(c, o)) (+ bias[o]),
+// o < no <= MAX_IO, src (n, K) rows 16-byte aligned, K a multiple of LW_N,
+// w(c, o) = w[c sk + o so]; ws (dynamic shared memory, kLnSmem bytes)
+// holds rnd(w) as no rows of kc columns. Lane l sums columns 4 l + 128 j ..
+// + 3 of its warp's 8 rows in order of j, then ln_rows_sum.
+template <bool BF16>
+__device__ __forceinline__ void ln_rows(const float* __restrict__ src, int K,
+                                        const float* __restrict__ w, long long sk, long long so,
+                                        int no, const float* __restrict__ bias,
+                                        float* __restrict__ dst, long long n,
+                                        float* __restrict__ ws, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int fit = (int)(kLnSmem / (4 * no)) / LW_N * LW_N;
+  const int kc = K < fit ? K : fit, chunks = (K + kc - 1) / kc;
+  const auto stage = [&](int c0) {
+    const int width = K - c0 < kc ? K - c0 : kc;
+    for (int e = tid; e < no * width; e += LN_THREADS) {
+      const int o = e / width, col = e % width;
+      ws[o * kc + col] = rnd<BF16>(__ldg(w + (c0 + col) * sk + o * so));
+    }
+  };
+  if (chunks == 1) {
+    stage(0);
+    __syncthreads();
+  }
+  constexpr int BLOCK_ROWS = LN_ROWS * LN_THREADS / 32;
+  for (long long b0 = (long long)blockIdx.x * BLOCK_ROWS; b0 < n;
+       b0 += (long long)gridDim.x * BLOCK_ROWS) {  // the block's trip count: its barriers
+    const long long r0 = b0 + LN_ROWS * warp;
+    float acc[LN_ROWS][MAX_IO] = {};
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int c0 = ch * kc, width = K - c0 < kc ? K - c0 : kc;
+      if (chunks > 1) {
+        __syncthreads();
+        stage(c0);
+        __syncthreads();
+      }
+      for (int j = 0; j < width / LW_N; ++j) {
+        const int col = c0 + LW_N * j + 4 * lane;
+        float4 v[LN_ROWS];
+#pragma unroll
+        for (int r = 0; r < LN_ROWS; ++r)
+          v[r] = r0 + r < n ? __ldcs(reinterpret_cast<const float4*>(src + (r0 + r) * K + col))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int o = 0; o < MAX_IO; ++o) {
+          if (o >= no) break;
+          const float4 wv = *reinterpret_cast<const float4*>(ws + o * kc + (col - c0));
+#pragma unroll
+          for (int r = 0; r < LN_ROWS; ++r) {
+            acc[r][o] += v[r].x * wv.x;
+            acc[r][o] += v[r].y * wv.y;
+            acc[r][o] += v[r].z * wv.z;
+            acc[r][o] += v[r].w * wv.w;
+          }
+        }
+      }
+    }
+    const long long row = r0 + ((lane >> 2) & 7);
+#pragma unroll
+    for (int o = 0; o < MAX_IO; ++o) {
+      if (o >= no) break;
+      float v[LN_ROWS];
+#pragma unroll
+      for (int r = 0; r < LN_ROWS; ++r) v[r] = acc[r][o];
+      const float sum = ln_rows_sum(v, lane);
+      if ((lane & 3) == 0 && row < n) dst[row * no + o] = bias != nullptr ? sum + __ldg(bias + o) : sum;
+    }
+  }
+}
+
 // The layer launchers' checks and grids (host code).
 bool aligned16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
 
@@ -3878,47 +4096,48 @@ bool layer_args_ok(const LayerArgs* a) {
          a->out_size >= 1 && a->out_size <= MAX_IO && a->n >= 0 &&
          a->slices <= (a->n + LW_T - 1) / LW_T;
 }
-// a block per 8 rows (a warp a row), at most 2^20 blocks striding over the rest
-dim3 narrow_grid(const LayerArgs* a) {
-  const long long blocks = (a->n + LW_THREADS / 32 - 1) / (LW_THREADS / 32);
-  return dim3((unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)), a->members);
+// the narrow kinds: LN_BLOCKS_PER_SM blocks an SM (at most one per group of
+// 64 rows), striding over the rest
+dim3 narrow_grid(const LayerArgs* a, int sms) {
+  const long long groups = (a->n + LN_ROWS * LN_THREADS / 32 - 1) / (LN_ROWS * LN_THREADS / 32);
+  const long long most = (long long)LN_BLOCKS_PER_SM * sms;
+  return dim3((unsigned)(groups < most ? groups : most), a->members);
 }
 dim3 tile_grid(const LayerArgs* a) { return dim3(a->slices * (a->hidden / LW_N), a->members); }
 
-// kLwHidden on wgmma (lf_hidden, LF_THREADS threads, p.w W's planes, tm a
-// tensor map of src); the first and last layers on FMA (LW_THREADS threads,
-// tm not read).
+// kLwFirst: the streaming pass (ls_first_fwd, LS_THREADS threads); kLwHidden
+// on wgmma (lf_hidden, LF_THREADS threads, p.w W's planes, tm a tensor map of
+// src); kLwLast: the narrow pass (ln_rows, LN_THREADS threads). tm is read
+// by kLwHidden only.
 template <bool BF16, bool MX, int KIND>
-__global__ void __launch_bounds__(KIND == kLwHidden ? LF_THREADS : LW_THREADS, 1)
+__global__ void __launch_bounds__(KIND == kLwHidden  ? LF_THREADS
+                                  : KIND == kLwFirst ? LS_THREADS
+                                                     : LN_THREADS,
+                                  KIND == kLwLast ? LN_BLOCKS_PER_SM : 1)
     sine_mlp_layer_fwd_kernel(LayerArgs arg, const __grid_constant__ CUtensorMap tm) {
   __shared__ LayerArgs p;
   lw_member(p, arg);
   const int tid = threadIdx.x;
   extern __shared__ float4 smem4[];
   if constexpr (KIND == kLwLast) {  // out = a_L W_{D-1} + b_{D-1}
-    lw_narrow_rows<BF16>(p.src, p.hidden, p.w, p.out_size, 1, p.out_size, p.b, p.dst, p.n);
+    ln_rows<BF16>(p.src, p.hidden, p.w, p.out_size, 1, p.out_size, p.b, p.dst, p.n,
+                  reinterpret_cast<float*>(smem4), tid);
   } else if constexpr (KIND == kLwHidden) {
     lf_hidden<BF16, MX>(p, &tm, reinterpret_cast<uint8_t*>(smem4), tid);
   } else {  // z_0 = x W_0 + b_0
-    float* x_s = reinterpret_cast<float*>(smem4);
-    const Warp w(tid, LwG::CG);
-    const LwTiles tl(p);
-    Acc acc;
-    for (long long tile = tl.t0; tile < tl.t1; ++tile) {
-      lw_stage_rows<BF16>(x_s, p.src, tile * LW_T, p.n, p.in_size, tid);
-      __syncthreads();
-      lw_first_layer<BF16>(acc, p.w, p.hidden, tl.n0, p.in_size, x_s, w);
-      __syncthreads();
-      lw_fwd_epilogue<BF16, MX>(acc, p, tl.n0, tile * LW_T, w);
-    }
+    ls_first_fwd<BF16, MX>(p, reinterpret_cast<uint8_t*>(smem4), tid);
   }
 }
 
-// kLwHidden on wgmma (lb_hidden, LF_THREADS threads, p.w W^T's planes,
-// tm_g and tm_z tensor maps of g and z); the first and last layers on FMA
-// (LW_THREADS threads, the maps not read).
+// kLwLast: the streaming pass (ls_last_bwd, LS_THREADS threads, tm_z a
+// tensor map of z); kLwHidden on wgmma (lb_hidden, LF_THREADS threads, p.w
+// W^T's planes, tm_g and tm_z tensor maps of g and z); kLwFirst: the narrow
+// pass (ln_rows, LN_THREADS threads, the maps not read).
 template <bool BF16, bool MX, int KIND, bool FIRST>
-__global__ void __launch_bounds__(KIND == kLwHidden ? LF_THREADS : LW_THREADS, 1)
+__global__ void __launch_bounds__(KIND == kLwHidden ? LF_THREADS
+                                  : KIND == kLwLast ? LS_THREADS
+                                                    : LN_THREADS,
+                                  KIND == kLwFirst ? LN_BLOCKS_PER_SM : 1)
     sine_mlp_layer_bwd_kernel(LayerArgs arg, const __grid_constant__ CUtensorMap tm_g,
                               const __grid_constant__ CUtensorMap tm_z) {
   __shared__ LayerArgs p;
@@ -3926,22 +4145,12 @@ __global__ void __launch_bounds__(KIND == kLwHidden ? LF_THREADS : LW_THREADS, 1
   const int tid = threadIdx.x;
   extern __shared__ float4 smem4[];
   if constexpr (KIND == kLwFirst) {  // dx = G_0 W_0^T
-    lw_narrow_rows<BF16>(p.g, p.hidden, p.w, 1, p.hidden, p.in_size, nullptr, p.dst, p.n);
+    ln_rows<BF16>(p.g, p.hidden, p.w, 1, p.hidden, p.in_size, nullptr, p.dst, p.n,
+                  reinterpret_cast<float*>(smem4), tid);
   } else if constexpr (KIND == kLwHidden) {
     lb_hidden<BF16, MX, FIRST>(p, &tm_g, &tm_z, reinterpret_cast<uint8_t*>(smem4), tid);
   } else {
-    float* x_s = reinterpret_cast<float*>(smem4);
-    float* go_s = x_s + LW_T * MAX_IO;
-    float* red = go_s + LW_T * MAX_IO;
-    const Warp w(tid, LwG::CG);
-    const LwTiles tl(p);
-    for (long long tile = tl.t0; tile < tl.t1; ++tile) {
-      const long long row0 = tile * LW_T;
-      lw_stage_rows<false>(go_s, p.src, row0, p.n, p.out_size, tid);
-      if constexpr (FIRST) lw_stage_rows<BF16>(x_s, p.x, row0, p.n, p.in_size, tid);
-      __syncthreads();
-      lw_last_epilogue<BF16, MX, FIRST>(p, tl, row0, x_s, go_s, red, w, tid);
-    }
+    ls_last_bwd<BF16, MX, FIRST>(p, &tm_z, reinterpret_cast<uint8_t*>(smem4), tid);
   }
 }
 
@@ -4221,15 +4430,19 @@ extern "C" {
 // a_L, w W_{D-1}, b b_{D-1}, dst out).
 int sine_mlp_layer_fwd(const LayerArgs* a, int kind, int bf16, void* stream) {
   if (!layer_args_ok(a) || a->n == 0) return a != nullptr && a->n == 0 ? 0 : (int)cudaErrorInvalidValue;
-  // 16-byte copies of the product's operands, 8-byte loads and stores of
-  // the epilogue's rows; x, out and the last layer's W are read and written
-  // a value at a time
+  // 16-byte copies of the hidden product's operands and loads of the last
+  // layer's rows, 16-byte loads of W_0 and b_0 and stores of the tile kinds'
+  // rows; x, out and the last layer's W and b are read and written a value
+  // at a time
   const bool tiles = kind == kLwFirst || kind == kLwHidden;
   if (kind != kLwHidden && kind != kLwFirst && kind != kLwLast) return (int)cudaErrorInvalidValue;
-  if ((kind == kLwHidden && !aligned16(a->src)) ||
+  if ((kind != kLwFirst && !aligned16(a->src)) || (kind == kLwLast && a->dst == nullptr) ||
       (tiles && (!aligned16(a->w) || !aligned16(a->b) || (a->dst && !aligned16(a->dst)) ||
                  (a->z && !aligned16(a->z)))))
     return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (kind == kLwLast)
+    if (const int err = sm_count(&sms)) return err;
   CUtensorMap tm{};  // kLwHidden's activations (the other kinds read none)
   if (kind == kLwHidden) {
     const cudaError_t err = row_tensor_map(&tm, a->src, a->n, a->hidden, a->members, a->src_m, LW_T);
@@ -4239,13 +4452,13 @@ int sine_mlp_layer_fwd(const LayerArgs* a, int kind, int bf16, void* stream) {
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
     if (kind == kLwFirst)
-      return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwFirst>, tile_grid(a), LW_THREADS,
-                    kLwFwdSmem, s, *a, tm);
+      return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwFirst>, tile_grid(a), LS_THREADS,
+                    kLxSmem, s, *a, tm);
     if (kind == kLwHidden)
       return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwHidden>, tile_grid(a), LF_THREADS,
                     kLfSmem, s, *a, tm);
-    return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwLast>, narrow_grid(a), LW_THREADS, 0, s,
-                  *a, tm);
+    return launch(sine_mlp_layer_fwd_kernel<BF, MXV, kLwLast>, narrow_grid(a, sms), LN_THREADS,
+                  kLnSmem, s, *a, tm);
   });
 }
 #elif SINE_MLP_LAYER == 1
@@ -4256,34 +4469,37 @@ int sine_mlp_layer_fwd(const LayerArgs* a, int kind, int bf16, void* stream) {
 int sine_mlp_layer_bwd(const LayerArgs* a, int kind, int bf16, void* stream) {
   if (!layer_args_ok(a) || a->n == 0) return a != nullptr && a->n == 0 ? 0 : (int)cudaErrorInvalidValue;
   // tensor copies of G and z and bulk copies of W^T's planes, 8-byte stores
-  // of the epilogue's rows (z, G); g, x, dx,
+  // of the epilogue's rows (z, G), 16-byte loads of G_0's rows; g, x, dx,
   // the last and first layers' W and the partials are read and written a
   // value at a time
   if (kind != kLwHidden && kind != kLwFirst && kind != kLwLast) return (int)cudaErrorInvalidValue;
   if ((kind == kLwHidden && (!aligned16(a->g) || !aligned16(a->w))) ||
       (kind != kLwFirst && (!aligned16(a->z) || !aligned16(a->dst) || a->part == nullptr ||
                             (kind == kLwLast && a->src == nullptr))) ||
-      (kind == kLwFirst && (a->g == nullptr || a->dst == nullptr)))
+      (kind == kLwFirst && (!aligned16(a->g) || a->dst == nullptr)))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap tm_g{}, tm_z{};  // kLwHidden's G and z (the other kinds read none)
-  if (kind == kLwHidden) {
-    cudaError_t err = row_tensor_map(&tm_g, a->g, a->n, a->hidden, a->members, a->g_m, LW_T);
-    if (err == cudaSuccess)
-      err = row_tensor_map(&tm_z, a->z, a->n, a->hidden, a->members, a->z_m, LW_T);
+  CUtensorMap tm_g{}, tm_z{};  // kLwHidden's G, and z (kLwFirst reads neither)
+  if (kind != kLwFirst) {
+    cudaError_t err = row_tensor_map(&tm_z, a->z, a->n, a->hidden, a->members, a->z_m, LW_T);
+    if (err == cudaSuccess && kind == kLwHidden)
+      err = row_tensor_map(&tm_g, a->g, a->n, a->hidden, a->members, a->g_m, LW_T);
     if (err != cudaSuccess) return (int)err;
   }
+  int sms = 0;
+  if (kind == kLwFirst)
+    if (const int err = sm_count(&sms)) return err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool first = a->x != nullptr;
   return (int)by_mode(bf16, [&](auto bf, auto mx) {
     constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
     if (kind == kLwFirst)
-      return launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwFirst, false>, narrow_grid(a), LW_THREADS,
-                    0, s, *a, tm_g, tm_z);
+      return launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwFirst, false>, narrow_grid(a, sms),
+                    LN_THREADS, kLnSmem, s, *a, tm_g, tm_z);
     if (kind == kLwLast)
       return first ? launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwLast, true>, tile_grid(a),
-                            LW_THREADS, kLwLastSmem, s, *a, tm_g, tm_z)
+                            LS_THREADS, kLsSmem, s, *a, tm_g, tm_z)
                    : launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwLast, false>, tile_grid(a),
-                            LW_THREADS, kLwLastSmem, s, *a, tm_g, tm_z);
+                            LS_THREADS, kLsSmem, s, *a, tm_g, tm_z);
     return first ? launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwHidden, true>, tile_grid(a),
                           LF_THREADS, kLbSmem, s, *a, tm_g, tm_z)
                  : launch(sine_mlp_layer_bwd_kernel<BF, MXV, kLwHidden, false>, tile_grid(a),

@@ -150,6 +150,15 @@ __all__ = [
     "sine_mlp_layer_partials",
     "sine_mlp_layer_stash",
     "sine_mlp_layer_dw",
+    "LAUNCHES_BY_KIND",
+    "layer_fwd_first_reference",
+    "layer_fwd_last_reference",
+    "layer_bwd_last_reference",
+    "layer_bwd_first_reference",
+    "sine_mlp_layer_fwd_first",
+    "sine_mlp_layer_fwd_last",
+    "sine_mlp_layer_bwd_last",
+    "sine_mlp_layer_bwd_first",
     "weight_planes",
     "dw_turn_index",
     "dw_position_index",
@@ -186,6 +195,12 @@ LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_fwd_batched": 0, "sine_mlp_bwd": 0,
 LAUNCHES_BY_MODE = {k: {m: 0 for m in PRECISIONS} for k in LAUNCHES}
 # the launches among LAUNCHES that ran a "+mixed" mode, per kernel
 LAUNCHES_MIXED = {k: 0 for k in LAUNCHES}
+# the layer-wise forward's and backward's launches by kind ("first",
+# "hidden", "last"), under "<kernel> <kind>": a split of their LAUNCHES
+LAYER_KINDS = ("first", "hidden", "last")
+LAUNCHES_BY_KIND = {f"{k} {kind}": 0 for k in LAUNCHES
+                    if k.startswith(("sine_mlp_layer_fwd", "sine_mlp_layer_bwd"))
+                    for kind in LAYER_KINDS}
 
 # the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
 # the backward (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
@@ -222,16 +237,20 @@ def reset_launch_counts() -> None:
         LAUNCHES_MIXED[k] = 0
         for m in PRECISIONS:
             LAUNCHES_BY_MODE[k][m] = 0
+    for k in LAUNCHES_BY_KIND:
+        LAUNCHES_BY_KIND[k] = 0
 
 
 _count_lock = threading.Lock()  # multirun members launch from worker threads
 
 
-def _count(kernel: str, bf16: bool, mixed: bool = False) -> None:
+def _count(kernel: str, bf16: bool, mixed: bool = False, kind: Optional[int] = None) -> None:
     with _count_lock:
         LAUNCHES[kernel] += 1
         LAUNCHES_BY_MODE[kernel][PRECISIONS[int(bf16)]] += 1
         LAUNCHES_MIXED[kernel] += int(mixed)
+        if kind is not None:
+            LAUNCHES_BY_KIND[f"{kernel} {LAYER_KINDS[kind]}"] += 1
 
 
 def precision_from_config(matmul_precision: Optional[str], mixed: bool = False) -> str:
@@ -1148,7 +1167,7 @@ def _layer_launch(lib, fn: str, args, kind: Optional[int], bf16: bool, mixed: bo
     extra = () if kind is None else (kind,)
     err = getattr(lib, fn)(ctypes.byref(args), *extra, _mode_flags(bf16, mixed), stream)
     _raise_on(err, name)
-    _count(name, bf16, mixed)
+    _count(name, bf16, mixed, kind)
 
 
 # the layer kernels' kinds (LwKind of csrc/sine_mlp.cu)
@@ -1539,6 +1558,237 @@ def sine_mlp_layer_bwd(g: torch.Tensor, w: torch.Tensor, z: torch.Tensor, omega:
     dw0 = None if x is None else part[:, hidden: hidden + in_size * hidden].view(
         slices, in_size, hidden)
     return out, a, part[:, :hidden], dw0
+
+
+# The first and last layers' kinds alone (csrc/sine_mlp.cu, "the first and
+# last layers: streaming passes"): plain versions in the chain's rounding,
+# and a launch of each on the card. Each wrapper takes one SIREN's
+# operands, or with a leading member axis M models' (one launch over the
+# members, counted under the kernel's "_batched" key); it rounds x, W and b
+# to bf16 under "+mixed" as the chain's wrappers do. Shapes, or a CPU
+# tensor, that a kernel does not take raise ValueError before the library
+# is built. The tests and chip_smoke.py call them; the chain launches the
+# same kinds itself.
+
+
+def layer_fwd_first_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, omega: float,
+                              precision: str = "fp32"):
+    """Plain version of the layer-wise forward's first layer (kind first):
+    x (N, in), W_0 (in, H), b_0 (H,) as the chain takes them -> (z_0, a_0):
+    z_0 = rnd(x) W_0 + b_0, a_0 = rnd(sin(omega z_0)); x rounded in the bf16
+    mode and under "+mixed", W in the bf16 mode, as the chain rounds them."""
+    bf16, mixed = precision_modes(precision)
+    z = _rnd(x.float(), bf16 or mixed) @ _rnd(w.float(), bf16) + b.float()
+    return z, _rnd(fast_sin(omega * z), bf16 or mixed)
+
+
+def layer_fwd_last_reference(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                             precision: str = "fp32") -> torch.Tensor:
+    """Plain version of the layer-wise forward's last layer (kind last): a_L
+    (N, H) as the chain keeps it, W_{D-1} (H, out), b_{D-1} (out,) -> out =
+    a_L W_{D-1} + b_{D-1}, W rounded in the bf16 mode."""
+    return a.float() @ _rnd(w.float(), precision_modes(precision)[0]) + b.float()
+
+
+def layer_bwd_last_reference(g: torch.Tensor, w: torch.Tensor, z: torch.Tensor, omega: float,
+                             precision: str = "fp32", x: Optional[torch.Tensor] = None):
+    """Plain version of the layer-wise backward's last layer (kind last), in
+    the chain's rounding: g (N, out) the output's cotangent, W_{D-1} (H,
+    out), z = z_L (N, H) the last hidden pre-activation, omega its layer's
+    -> (G_L, db_L, dW_{D-1}, db_{D-1}, dW_0): ga = rnd(g) W_{D-1}^T, gz =
+    rnd<mixed>(ga) omega cos(omega z), G_L = rnd<bf16>(gz), db_L = sum_rows
+    gz (H,), dW_{D-1} = a_L^T rnd(g) (H, out) with a_L = rnd(sin(omega z)),
+    db_{D-1} = sum_rows g (out,), and with x (N, in) (depth 2: the layer
+    below is the first) dW_0 = rnd(x)^T G_L (in, H), else None."""
+    bf16, mixed = precision_modes(precision)
+    g = g.float()
+    gb = _rnd(g, bf16)
+    gz = _rnd(gb @ _rnd(w.float(), bf16).t(), mixed) * (omega * fast_cos(omega * z.float()))
+    gzb = _rnd(gz, bf16)
+    a = _rnd(fast_sin(omega * z.float()), bf16 or mixed)
+    dw0 = None if x is None else _rnd(x.float(), bf16 or mixed).t() @ gzb
+    return gzb, gz.sum(0), a.t() @ gb, g.sum(0), dw0
+
+
+def layer_bwd_first_reference(g: torch.Tensor, w: torch.Tensor,
+                              precision: str = "fp32") -> torch.Tensor:
+    """Plain version of the layer-wise backward's first layer (kind first):
+    G_0 (N, H) as the chain keeps it, W_0 (in, H) -> dx = G_0 W_0^T (N,
+    in), W rounded in the bf16 mode."""
+    return g.float() @ _rnd(w.float(), precision_modes(precision)[0]).t()
+
+
+def _kind_members(name: str, w: torch.Tensor, *tensors) -> tuple:
+    """(batched, M, lead, unlead) of a kind wrapper's call: batched when W
+    carries a member axis, every other operand then (M, ...) too (x may be
+    shared: (N, in)); lead gives an operand its leading member axis, unlead
+    takes it off a result where the call had none."""
+    batched = w.dim() == 3
+    m = w.shape[0] if batched else 1
+    for t in tensors:
+        if t is not None and batched and t.shape[0] != m:
+            raise ValueError(f"{name}: operands of {m} members expected, got {tuple(t.shape)}")
+    lead = (lambda t: t) if batched else (lambda t: None if t is None else t[None])
+    unlead = (lambda t: t) if batched else (lambda t: None if t is None else t[0])
+    return batched, m, lead, unlead
+
+
+def _kind_launch(fn: str, kind: int, precision: str, batched: bool, dev, **kw) -> None:
+    bf16, mixed = precision_modes(precision)
+    name = fn + ("_batched" if batched else "")
+    args = _layer_args(**kw)
+    with torch.cuda.device(dev):
+        _layer_launch(_lib(), fn, args, kind, bf16, mixed, name, dev)
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def sine_mlp_layer_fwd_first(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, omega: float,
+                             precision: str, stash: bool = False):
+    """Launch the layer-wise forward's first layer alone (kind first): x
+    ([M,] N, in) fp32 on the card (or (N, in) shared by the members), W_0
+    ([M,] in, H), b_0 ([M,] H), in <= 8, H a multiple of LAYER_TILE -> a_0
+    ([M,] N, H), with `stash` (z_0, a_0): `layer_fwd_first_reference`, its
+    product an FMA a k in order from zero."""
+    bf16, mixed = precision_modes(precision)
+    what = "sine_mlp_layer_fwd_first"
+    if (w.dim() not in (2, 3) or not 1 <= w.shape[-2] <= 8 or w.shape[-1] % LAYER_TILE
+            or w.shape[-1] < LAYER_TILE or tuple(b.shape) != (*w.shape[:-2], w.shape[-1])
+            or x.dim() not in (2, 3) or x.shape[-1] != w.shape[-2]
+            or (x.dim() == 3 and w.dim() != 3)):
+        raise ValueError(f"{what}: expected x ([M,] N, in), W_0 ([M,] in, H), in <= 8 and H a "
+                         f"multiple of {LAYER_TILE}, b_0 ([M,] H); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    batched, m, lead, unlead = _kind_members(what, w, b, x if x.dim() == 3 else None)
+    in_size, hidden = w.shape[-2:]
+    n = x.shape[-2]
+    x, w, b = (_rnd(t.float(), mixed).contiguous() for t in (x, w, b))
+    dev = w.device
+    _check_cuda("x", x, dev, aligned=False)  # read a value at a time
+    _check_cuda("W_0", w, dev)
+    _check_cuda("b_0", b, dev)
+    a = torch.empty((m, n, hidden), dtype=torch.float32, device=dev)
+    z = torch.empty_like(a) if stash else None
+    _kind_launch("sine_mlp_layer_fwd", _FIRST, precision, batched, dev, n=n, in_size=in_size,
+                 hidden=hidden, out_size=1, slices=layer_slices(n, hidden, _sms(dev)),
+                 members=m, omega=omega, src=x if x.dim() == 3 else x[None], w=lead(w),
+                 b=lead(b), dst=a, z=z)
+    return (unlead(z), unlead(a)) if stash else unlead(a)
+
+
+def sine_mlp_layer_fwd_last(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                            precision: str) -> torch.Tensor:
+    """Launch the layer-wise forward's last layer alone (kind last): a_L
+    ([M,] N, H) fp32 on the card as the chain keeps it, W_{D-1} ([M,] H,
+    out), b_{D-1} ([M,] out), out <= 8, H a multiple of LAYER_TILE -> out
+    ([M,] N, out): `layer_fwd_last_reference`, each output summed over H in
+    the kernel's order."""
+    mixed = precision_modes(precision)[1]
+    what = "sine_mlp_layer_fwd_last"
+    if (w.dim() not in (2, 3) or a.dim() != w.dim() or a.shape[-1] != w.shape[-2]
+            or w.shape[-2] % LAYER_TILE or w.shape[-2] < LAYER_TILE
+            or not 1 <= w.shape[-1] <= 8 or tuple(b.shape) != (*w.shape[:-2], w.shape[-1])):
+        raise ValueError(f"{what}: expected a_L ([M,] N, H), W_{{D-1}} ([M,] H, out), H a "
+                         f"multiple of {LAYER_TILE} and out <= 8, b ([M,] out); got "
+                         f"{tuple(a.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
+    batched, m, lead, unlead = _kind_members(what, w, a, b)
+    hidden, out_size = w.shape[-2:]
+    n = a.shape[-2]
+    w, b = (_rnd(t.float(), mixed).contiguous() for t in (w, b))
+    dev = w.device
+    _check_cuda("a_L", a, dev)
+    _check_cuda("W_{D-1}", w, dev, aligned=False)
+    _check_cuda("b_{D-1}", b, dev, aligned=False)
+    out = torch.empty((m, n, out_size), dtype=torch.float32, device=dev)
+    _kind_launch("sine_mlp_layer_fwd", _LAST, precision, batched, dev, n=n, in_size=1,
+                 hidden=hidden, out_size=out_size, slices=layer_slices(n, hidden, _sms(dev)),
+                 members=m, src=lead(a), w=lead(w), b=lead(b), dst=out)
+    return unlead(out)
+
+
+def sine_mlp_layer_bwd_last(g: torch.Tensor, w: torch.Tensor, z: torch.Tensor, omega: float,
+                            precision: str, x: Optional[torch.Tensor] = None):
+    """Launch the layer-wise backward's last layer alone (kind last): g
+    ([M,] N, out) fp32 on the card, W_{D-1} ([M,] H, out), z = z_L ([M,] N,
+    H), and with x ([M,] N, in), or (N, in) shared, dW_0's sums (depth 2)
+    -> (G_L, db_L, dW_{D-1}, db_{D-1}, dW_0): `layer_bwd_last_reference`
+    (G_L its bits), except that db_L (S, H), dW_{D-1} (S, H, out), db_{D-1}
+    (S, out) and dW_0 (S, in, H) (None without x) are the sums of each of
+    the S = `layer_slices` row slices (`layer_slice_rows`), which add up to
+    the reference's; each with a leading member axis over M members."""
+    mixed = precision_modes(precision)[1]
+    what = "sine_mlp_layer_bwd_last"
+    if (w.dim() not in (2, 3) or g.dim() != w.dim() or z.dim() != w.dim()
+            or w.shape[-2] % LAYER_TILE or w.shape[-2] < LAYER_TILE
+            or not 1 <= w.shape[-1] <= 8 or g.shape[-1] != w.shape[-1]
+            or tuple(z.shape) != (*g.shape[:-1], w.shape[-2])):
+        raise ValueError(f"{what}: expected g ([M,] N, out), W_{{D-1}} ([M,] H, out), H a "
+                         f"multiple of {LAYER_TILE} and out <= 8, z ([M,] N, H); got "
+                         f"{tuple(g.shape)}, {tuple(w.shape)}, {tuple(z.shape)}")
+    n = g.shape[-2]
+    if x is not None and (x.dim() not in (2, 3) or x.shape[-2] != n
+                          or not 1 <= x.shape[-1] <= 8 or (x.dim() == 3 and w.dim() != 3)):
+        raise ValueError(f"{what}: expected x ([M,] N, in), in <= 8, got {tuple(x.shape)} "
+                         f"for g of {tuple(g.shape)}")
+    batched, m, lead, unlead = _kind_members(what, w, g, z,
+                                             x if x is not None and x.dim() == 3 else None)
+    hidden, out_size = w.shape[-2:]
+    in_size = 1 if x is None else x.shape[-1]
+    w = _rnd(w.float(), mixed).contiguous()
+    dev = w.device
+    _check_cuda("g", g, dev, aligned=False)  # read a value at a time
+    _check_cuda("W_{D-1}", w, dev, aligned=False)
+    _check_cuda("z", z, dev)
+    if x is not None:
+        x = _rnd(x.float(), mixed).contiguous()
+        _check_cuda("x", x, dev, aligned=False)
+    slices = layer_slices(n, hidden, _sms(dev))
+    # a partial slice: db_L, dW_{D-1}, db_{D-1}, then dW_0's rows
+    sizes = (hidden, hidden * out_size, out_size, 0 if x is None else in_size * hidden)
+    starts = [sum(sizes[:i]) for i in range(4)]
+    part = torch.zeros((m, slices, -(-sum(sizes) // 4) * 4), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n, hidden), dtype=torch.float32, device=dev)
+    _kind_launch("sine_mlp_layer_bwd", _LAST, precision, batched, dev, n=n, in_size=in_size,
+                 hidden=hidden, out_size=out_size, slices=slices, members=m, omega=omega,
+                 n_part=part.shape[-1],
+                 offsets=dict(off_db=starts[0], off_dwl=starts[1], off_dbl=starts[2],
+                              off_dw0=starts[3]),
+                 src=lead(g), w=lead(w), z=lead(z), dst=out, part=part,
+                 x=None if x is None else (x if x.dim() == 3 else x[None]))
+    pieces = (part[..., : starts[1]], part[..., starts[1]: starts[2]].unflatten(-1, (hidden, out_size)),
+              part[..., starts[2]: starts[3]],
+              None if x is None else part[..., starts[3]: starts[3] + sizes[3]].unflatten(
+                  -1, (in_size, hidden)))
+    return (unlead(out), *(unlead(t) for t in pieces))
+
+
+def sine_mlp_layer_bwd_first(g: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
+    """Launch the layer-wise backward's first layer alone (kind first): G_0
+    ([M,] N, H) fp32 on the card as the chain keeps it, W_0 ([M,] in, H),
+    in <= 8, H a multiple of LAYER_TILE -> dx ([M,] N, in):
+    `layer_bwd_first_reference`, each input summed over H in the kernel's
+    order."""
+    mixed = precision_modes(precision)[1]
+    what = "sine_mlp_layer_bwd_first"
+    if (w.dim() not in (2, 3) or g.dim() != w.dim() or g.shape[-1] != w.shape[-1]
+            or w.shape[-1] % LAYER_TILE or w.shape[-1] < LAYER_TILE
+            or not 1 <= w.shape[-2] <= 8):
+        raise ValueError(f"{what}: expected G_0 ([M,] N, H), W_0 ([M,] in, H), H a multiple of "
+                         f"{LAYER_TILE} and in <= 8; got {tuple(g.shape)}, {tuple(w.shape)}")
+    batched, m, lead, unlead = _kind_members(what, w, g)
+    in_size, hidden = w.shape[-2:]
+    n = g.shape[-2]
+    w = _rnd(w.float(), mixed).contiguous()
+    dev = w.device
+    _check_cuda("G_0", g, dev)
+    _check_cuda("W_0", w, dev, aligned=False)
+    dx = torch.empty((m, n, in_size), dtype=torch.float32, device=dev)
+    _kind_launch("sine_mlp_layer_bwd", _FIRST, precision, batched, dev, n=n, in_size=in_size,
+                 hidden=hidden, out_size=1, slices=layer_slices(n, hidden, _sms(dev)),
+                 members=m, g=lead(g), w=lead(w), dst=dx)
+    return unlead(dx)
 
 
 def sine_mlp_layer_partials(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):

@@ -54,8 +54,9 @@ backward: K2 takes the z stash that K1 filled, where the tree has one).
 (default fp32; the forward and the backward in each), --members M also
 times sine_mlp_fwd_batched and sine_mlp_bwd_batched over M members in each
 mode, --split also runs one fp32 K2 under torch.profiler and records
-each kernel's device ms and launches (the layer-wise backward's by kind:
-hidden, last, first; above 512 the K2 under autograd too). --build-dir keeps
+each kernel's device ms and launches (the layer-wise forward's and
+backward's by kind: first, hidden, last; above 512 the K2 under autograd
+and the K1 under autograd that fills its stash too). --build-dir keeps
 the built files there, each under the hash of the sources it was built from,
 and reuses one only for the same sources (--build-only builds and stops), so
 that two trees can share the directory and be timed in turns without
@@ -284,13 +285,13 @@ def layer_kind(name: str):
     return None
 
 
-def k2_split(k2, prepare=None) -> dict:
-    """One call of k2 under torch.profiler, after one unprofiled: {kernel:
+def kernel_split(fn, prepare=None) -> dict:
+    """One call of fn under torch.profiler, after one unprofiled: {kernel:
     [device ms, launches]}, the layer-wise kernels by name
-    (sine_mlp_layer_bwd_kernel by kind: hidden, last, first), the others by
-    the start of theirs. With `prepare`, each call is k2(prepare()),
-    prepare run outside the profile (a forward under autograd whose z stash
-    the backward k2 takes)."""
+    (sine_mlp_layer_fwd_kernel and sine_mlp_layer_bwd_kernel by kind:
+    first, hidden, last), the others by the start of theirs. With
+    `prepare`, each call is fn(prepare()), prepare run outside the profile
+    (a forward under autograd whose z stash the backward fn takes)."""
     from torch.profiler import ProfilerActivity, profile
 
     from implicit_image_tpu_torch import profile_fit
@@ -298,7 +299,7 @@ def k2_split(k2, prepare=None) -> dict:
     def call():
         arg = () if prepare is None else (prepare(),)
         torch.cuda.synchronize()
-        return lambda: k2(*arg)
+        return lambda: fn(*arg)
 
     call()()
     torch.cuda.synchronize()
@@ -317,7 +318,7 @@ def k2_split(k2, prepare=None) -> dict:
         key = next((k for k in ("sine_mlp_layer_fwd_kernel", "sine_mlp_layer_bwd_kernel",
                                 "sine_mlp_layer_dw_kernel", "sum_partials_kernel")
                     if k in name), name[:60])
-        if key == "sine_mlp_layer_bwd_kernel":
+        if key in ("sine_mlp_layer_fwd_kernel", "sine_mlp_layer_bwd_kernel"):
             key += " " + kinds[layer_kind(name)]
         got = split.setdefault(key, [0.0, 0])
         got[0] += row["ms"]
@@ -483,17 +484,22 @@ def main(argv=None) -> dict:
                         line += f", sha256 autograd {rows[name]['autograd_sha256']}"
                         del out, leaves
                 if args.split:
-                    rows[name]["k2_split"] = k2_split(
+                    rows[name]["k2_split"] = kernel_split(
                         lambda: sm.sine_mlp_bwd(params, x, g, mcfg, "fp32"))
                     line += ", K2's kernels (device ms / launches): " + "; ".join(
                         f"{k} {ms:.3f} / {n}" for k, (ms, n) in rows[name]["k2_split"].items())
                     if hidden > sm.KERNEL_WIDTHS[-1]:
-                        rows[name]["k2_split_autograd"] = k2_split(
+                        rows[name]["k2_split_autograd"] = kernel_split(
                             lambda out: out.backward(g),
                             lambda: autograd_forward(params, coords, mcfg)[0])
                         line += "; under autograd: " + "; ".join(
                             f"{k} {ms:.3f} / {n}"
                             for k, (ms, n) in rows[name]["k2_split_autograd"].items())
+                        rows[name]["k1_split_autograd"] = kernel_split(
+                            lambda: autograd_forward(params, coords, mcfg))
+                        line += "; K1 under autograd: " + "; ".join(
+                            f"{k} {ms:.3f} / {n}"
+                            for k, (ms, n) in rows[name]["k1_split_autograd"].items())
                 if dw_args is not None:
                     rows[name]["dw_ms"] = _time_ms(lambda: sm.sine_mlp_dw(*dw_args))
                     line += f", sine_mlp_dw alone {rows[name]['dw_ms']:.4f} ms"

@@ -1,4 +1,4 @@
-"""Where the layer-wise wgmma kernels' time goes, on the card.
+"""Where the layer-wise kernels' time goes, on the card.
 
     python -m implicit_image_tpu_torch.tools.layer_knockouts [--widths 640 1024]
         [--out FILE]
@@ -6,11 +6,13 @@
 Builds copies of the layer-wise forward, backward and dW parts of
 csrc/sine_mlp.cu (-DSINE_MLP_LAYER=0, 1 and 2, one nvcc each, all at once)
 with one part knocked out each (their results are wrong by design), and
-times one hidden `sine_mlp_layer_fwd` launch, one hidden
-`sine_mlp_layer_bwd` launch and one `sine_mlp_layer_dw` launch of each at
-512^2 rows and every width of --widths, in the fp32 and bf16 modes (CUDA
-events over 10 launches after a warm-up; each variant's launches in turns
-with the others', two rounds, the second kept):
+times one launch of each kind of `sine_mlp_layer_fwd` (first, hidden,
+last) and of `sine_mlp_layer_bwd` (hidden, last, first) and one
+`sine_mlp_layer_dw` launch of each at 512^2 rows (in = 2, out = 3; the
+forward's first layer with the stash, as under autograd) and every width
+of --widths, in the fp32 and bf16 modes (CUDA events over 10 launches after
+a warm-up; each variant's launches in turns with the others', two rounds,
+the second kept):
 
   no_mma      the products (every wgmma pass of each kernel)
   no_split    the forward: the consumers' split of the activations into
@@ -23,6 +25,12 @@ with the others', two rounds, the second kept):
               read what the buffers hold)
   no_gsplit   dW: the feeding warpgroups' split of G into planes
   no_asplit   dW: the consumers' split of A into planes
+  no_fring    the forward's first layer: the feeding warp's loads of x's
+              rows (each stage's mbarrier completes at once)
+  no_fstore   the forward's first layer: its stores of z_0 and a_0
+  no_lring    the backward's last layer: the feeding warp's tensor copies
+              of z_L's tiles (its lanes still stage g's rows)
+  no_lstore   the backward's last layer: its stores of G_L
 
 The differences to "full" say what each part costs. Prints a line per
 kernel, width and mode, and writes the record, with the card's name and
@@ -61,6 +69,18 @@ BWD_ZFEED = """          iit::mbar_expect_tx(zfull, LW_T * LW_N * 4);
 DW_GSPLIT = ("      ld_split_g<P::G>(smem + f * kLdF32, smem + kLdPl + ps * kLdSlot, valid(k), "
              "tid);")
 DW_ASPLIT = "    iit::split_planes<NP>(x0, x1, pl);"
+# the first and last layers' streaming passes: the feeds and the stores
+F_RING = """      ls_rows(x_ring + s * (LW_T * MAX_IO), p.src, tile * LW_T * in_size, n * in_size,
+              LW_T * in_size, lane);"""
+F_STORE = "      if (row < n) {\n        if (z_out != nullptr)"
+L_RING = """      if (lane == 0) {
+        iit::mbar_expect_tx(full + s, (uint32_t)kLsZ);
+#pragma unroll
+        for (int b = 0; b < LW_N / 32; ++b)
+          iit::tensor_g2s(st + b * kLfW, tm_z, tl.n0 + 32 * b, (int)(tile * LW_T), mz, full + s);
+      }"""
+L_STORE = ("      if (valid) *reinterpret_cast<float2*>(g_out + row * h) = "
+           "make_float2(gb[0], gb[1]);")
 
 
 def _rep(src: str, *pairs) -> str:
@@ -80,10 +100,16 @@ def variants(src: str) -> dict:
         (0, "no_split"): _rep(src, (FWD_SPLIT, "    pl[0] = __float_as_uint(v.x);\n"
                                                "    if (NP > 1) pl[NP - 1] = __float_as_uint(v.y);")),
         (0, "no_epi"): _rep(src, (FWD_EPI, "    if (tot[0] == 12345.f) " + FWD_EPI.strip())),
+        (0, "no_fring"): _rep(src, (F_RING, "")),
+        (0, "no_fstore"): _rep(src, (F_STORE, "      if (row < n && z[0] == 12345.f) {\n"
+                                               "        if (z_out != nullptr)")),
         (1, "full"): src, (1, "no_mma"): no_mma,
         (1, "no_epi"): _rep(src, (BWD_EPI, "    if (tot[0] == 12345.f) " + BWD_EPI.strip())),
         (1, "no_feed"): _rep(src, (BWD_FEED, "        iit::mbar_arrive(full + s);"),
                              (BWD_ZFEED, "          iit::mbar_arrive(zfull);")),
+        (1, "no_lring"): _rep(src, (L_RING, "      if (lane == 0) iit::mbar_arrive(full + s);")),
+        (1, "no_lstore"): _rep(src, (L_STORE, "      if (valid && gb[0] == 12345.f) "
+                                              + L_STORE.strip()[len("if (valid) "):])),
         (2, "full"): src, (2, "no_mma"): no_mma,
         (2, "no_gsplit"): _rep(src, (DW_GSPLIT, "")),
         (2, "no_asplit"): _rep(src, (DW_ASPLIT, "    pl[0] = __float_as_uint(x0);\n"
@@ -149,6 +175,13 @@ def main(argv=None) -> dict:
         z = torch.randn((n, h), device=dev, generator=gen)  # A written over it each launch
         slices = sm.layer_slices(n, h, torch.cuda.get_device_properties(dev).multi_processor_count)
         part = torch.empty((slices, h * h), device=dev)
+        # the first and last layers' operands (in = 2, out = 3)
+        x = torch.rand((n, 2), device=dev, generator=gen) * 2 - 1
+        w0 = torch.randn((2, h), device=dev, generator=gen)
+        wl = torch.randn((h, 3), device=dev, generator=gen) / h ** 0.5
+        g3 = torch.randn((n, 3), device=dev, generator=gen) / n
+        zs, o3, dx = torch.empty_like(a), torch.empty((n, 3), device=dev), torch.empty((n, 2), device=dev)
+        common = dict(n=n, hidden=h, slices=slices, members=1)
         for prec in ("fp32", "bf16"):
             bf16, mixed = sm.precision_modes(prec)
             flags = sm._mode_flags(bf16, mixed)
@@ -163,17 +196,34 @@ def main(argv=None) -> dict:
             dw = sm._layer_args(n=n, in_size=1, hidden=h, out_size=1, slices=slices, members=1,
                                 n_part=h * h, offsets=dict(off_dw=0), src=a[None], g=g[None],
                                 part=part[None])
-            kinds = {0: fwd, 1: bwd}
-            calls = {key: (lambda fn=fn, k=key[0]: fn(ctypes.byref(kinds[k]), 1, flags, stream))
-                     if key[0] < 2 else (lambda fn=fn: fn(ctypes.byref(dw), flags, stream))
-                     for key, fn in fns.items()}
+            first = sm._layer_args(in_size=2, out_size=1, omega=30.0, src=x[None], w=w0[None],
+                                   b=b[None], dst=out[None], z=zs[None], **common)
+            last = sm._layer_args(in_size=1, out_size=3, src=out[None], w=wl[None], b=b[None],
+                                  dst=o3[None], **common)
+            blast = sm._layer_args(in_size=1, out_size=3, omega=30.0, n_part=h * h,
+                                   offsets=dict(off_db=0, off_dwl=h, off_dbl=4 * h),
+                                   src=g3[None], w=wl[None], z=z[None], dst=out[None],
+                                   part=part[None], **common)
+            bfirst = sm._layer_args(in_size=2, out_size=1, g=g[None], w=w0[None], dst=dx[None],
+                                    **common)
+            # (part, kind): the kernel timed, its arguments
+            kinds = {(0, 1): ("sine_mlp_layer_fwd (one hidden layer)", fwd),
+                     (0, 0): ("sine_mlp_layer_fwd (the first layer, with the stash)", first),
+                     (0, 2): ("sine_mlp_layer_fwd (the last layer)", last),
+                     (1, 1): ("sine_mlp_layer_bwd (one hidden layer)", bwd),
+                     (1, 2): ("sine_mlp_layer_bwd (the last layer)", blast),
+                     (1, 0): ("sine_mlp_layer_bwd (the first layer)", bfirst),
+                     (2, None): ("sine_mlp_layer_dw", dw)}
+            calls = {(key, kind): (lambda fn=fn, k=kind, la=la: fn(ctypes.byref(la), k, flags, stream))
+                     if kind is not None else (lambda fn=fn, la=la: fn(ctypes.byref(la), flags, stream))
+                     for key, fn in fns.items()
+                     for (part_no, kind), (_, la) in kinds.items() if part_no == key[0]}
             times = {}
             for _ in range(2):  # the second round is kept
                 times = {key: _ms(call) for key, call in calls.items()}
-            for part_no, kernel in ((0, "sine_mlp_layer_fwd (one hidden layer)"),
-                                    (1, "sine_mlp_layer_bwd (one hidden layer)"),
-                                    (2, "sine_mlp_layer_dw")):
-                row = {name: t for (p, name), t in times.items() if p == part_no}
+            for (part_no, kind), (kernel, _) in kinds.items():
+                row = {name: t for ((p, name), k), t in times.items()
+                       if p == part_no and k == kind}
                 record["ms"][f"{kernel} w{h} {prec}"] = row
                 print(f"[layer_knockouts] {kernel} w{h} {prec}: "
                       + ", ".join(f"{name} {t:.4f}" for name, t in row.items()) + " ms",

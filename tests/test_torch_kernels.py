@@ -486,6 +486,127 @@ def test_layer_hidden_backward_matches_its_plain_version(cuda_device, precision,
             assert got[3] is None
 
 
+def _layer_kind_operands(dev, depth, hidden, n, precision, seed, in_size=2, out_size=3):
+    """A SIREN's own operands of its first- and last-layer launches, in the
+    chain's rounding: (params, om, x, g, zs, a_L, G_0)."""
+    m, c = build_model("siren", depth=depth, hidden_size=hidden, input_size=in_size,
+                       output_size=out_size)
+    p = m.init(torch.Generator().manual_seed(seed), c, dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = (torch.rand((n, in_size), generator=gen) * 2 - 1).to(dev)
+    g = (torch.randn((n, out_size), generator=gen) / n).to(dev)
+    bf16, mixed = sm.precision_modes(precision)
+    params = sm._rnd_params(p, mixed)
+    om = sm._omegas(c, depth)
+    _, zs = sm._chain_forward(p, x, c, precision, keep=True)
+    a_l = sm._rnd(sm.fast_sin(om[-2] * zs[-1]), bf16 or mixed)
+    gl = {}
+    sm._chain_backward(params, x, g, c, precision,
+                       lambda i, a_prev, gzb, gz: gl.__setitem__(i, gzb))
+    return params, om, x, g, zs, a_l, gl[0]
+
+
+def _kind_calls(ops, precision, depth):
+    """The four kinds' launches on `ops` (_layer_kind_operands') and their
+    plain versions: {kind: (call, plain)}, each result a tuple."""
+    params, om, x, g, zs, a_l, g0 = ops
+    xl = x if depth == 2 else None
+    return {
+        "fwd first": (lambda: sm.sine_mlp_layer_fwd_first(x, params[0]["w"], params[0]["b"],
+                                                          om[0], precision, stash=True),
+                      lambda: sm.layer_fwd_first_reference(x, params[0]["w"], params[0]["b"],
+                                                           om[0], precision)),
+        "fwd last": (lambda: (sm.sine_mlp_layer_fwd_last(a_l, params[-1]["w"], params[-1]["b"],
+                                                         precision),),
+                     lambda: (sm.layer_fwd_last_reference(a_l, params[-1]["w"],
+                                                          params[-1]["b"], precision),)),
+        "bwd last": (lambda: sm.sine_mlp_layer_bwd_last(g, params[-1]["w"], zs[-1], om[-2],
+                                                        precision, x=xl),
+                     lambda: sm.layer_bwd_last_reference(g, params[-1]["w"], zs[-1], om[-2],
+                                                         precision, x=xl)),
+        "bwd first": (lambda: (sm.sine_mlp_layer_bwd_first(g0, params[0]["w"], precision),),
+                      lambda: (sm.layer_bwd_first_reference(g0, params[0]["w"], precision),)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("depth,hidden,n", [(4, 640, 3000), (4, 1024, 1500), (2, 640, 1000)])
+def test_layer_fma_kinds_match_their_plain_versions(cuda_device, precision, depth, hidden, n):
+    """Each first- and last-layer launch alone (the streaming passes:
+    sine_mlp_layer_fwd first and last, sine_mlp_layer_bwd last and first) on
+    a SIREN's own operands against its plain version: the elementwise
+    outputs (z_0, a_0, G_L) within 1e-5 of their largest value in fp32 (8e-3
+    where a mode rounds them to bf16: a step of that rounding), the sums
+    (out, dx, and the slices' db_L, dW_{D-1}, db_{D-1}, dW_0 added up)
+    within LAYER_TOL's backward limits (chip_smoke.py: 1e-4 fp32, 2e-2 the
+    others) of their largest value; twice the same bits; over a member axis
+    of 2 (the SIREN and a second) each member the bits of its single
+    launch. Depth 2 runs the backward's last layer with dW_0."""
+    _check_fma_kinds(cuda_device, precision, depth, hidden, n, 2, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("depth,hidden,n,in_size,out_size",
+                         [(4, 640, 3000, 3, 6), (2, 1024, 1500, 3, 4), (4, 1024, 1000, 1, 8)])
+def test_layer_fma_kinds_at_other_counts_match_their_plain_versions(cuda_device, precision,
+                                                                    depth, hidden, n, in_size,
+                                                                    out_size):
+    """test_layer_fma_kinds_match_their_plain_versions at input and output
+    counts other than an image's 2 and 3, where the streaming passes run
+    their loops to MAX_IO under a guard (the backward's last layer with 6,
+    4 and 8 outputs, at depth 2 summing dW_0 over 3 inputs; the forward's
+    first layer with 3 and 1 inputs)."""
+    _check_fma_kinds(cuda_device, precision, depth, hidden, n, in_size, out_size)
+
+
+def _check_fma_kinds(cuda_device, precision, depth, hidden, n, in_size, out_size):
+    bf16, mixed = sm.precision_modes(precision)
+    elem = 8e-3 if bf16 or mixed else 1e-5
+    sums = 2e-2 if bf16 or mixed else 1e-4
+    ops = _layer_kind_operands(cuda_device, depth, hidden, n, precision, 21, in_size, out_size)
+    other = _layer_kind_operands(cuda_device, depth, hidden, n, precision, 23, in_size, out_size)
+    calls, more = _kind_calls(ops, precision, depth), _kind_calls(other, precision, depth)
+    for kind, (call, plain) in calls.items():
+        got, again, ref = call(), call(), plain()
+        torch.cuda.synchronize()
+        assert all(u is None or torch.equal(u, v) for u, v in zip(got, again)), kind
+        for i, (k, r) in enumerate(zip(got, ref)):
+            if r is None:
+                assert k is None, (kind, i)
+                continue
+            if kind == "bwd last" and i > 0:  # the slices' sums
+                k = k.sum(0)
+            tol = elem if (kind, i) in (("fwd first", 0), ("fwd first", 1), ("bwd last", 0)) \
+                else sums
+            assert float((k - r).abs().max()) <= tol * float(r.abs().max()) + 1e-30, (kind, i)
+        # over a member axis: the two SIRENs' operands stacked, one launch
+        single = (got, more[kind][0]())
+        batched = _kind_batched(kind, ops, other, precision, depth)
+        torch.cuda.synchronize()
+        for mm in range(2):
+            assert all(u is None or torch.equal(u[mm], v)
+                       for u, v in zip(batched, single[mm])), (kind, mm)
+
+
+def _kind_batched(kind, ops, other, precision, depth):
+    """The kind's launch over a member axis of the two SIRENs' operands."""
+    st = lambda i: torch.stack([ops[i], other[i]])  # noqa: E731
+    w = lambda l, k: torch.stack([ops[0][l][k], other[0][l][k]])  # noqa: E731
+    if kind == "fwd first":
+        return sm.sine_mlp_layer_fwd_first(st(2), w(0, "w"), w(0, "b"), ops[1][0], precision,
+                                           stash=True)
+    if kind == "fwd last":
+        return (sm.sine_mlp_layer_fwd_last(st(5), w(-1, "w"), w(-1, "b"), precision),)
+    if kind == "bwd last":
+        return sm.sine_mlp_layer_bwd_last(st(3), w(-1, "w"), torch.stack([ops[4][-1],
+                                                                          other[4][-1]]),
+                                          ops[1][-2], precision,
+                                          x=st(2) if depth == 2 else None)
+    return (sm.sine_mlp_layer_bwd_first(st(6), w(0, "w"), precision),)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 def test_layer_dw_matches_its_plain_version_over_row_groups(cuda_device, precision):

@@ -318,31 +318,31 @@ def test_layer_bwd_reference_is_the_chains_hidden_layer(precision):
 
 @pytest.mark.parametrize("depth,hidden", [(4, 640), (3, 1024)])
 def test_layer_bwd_reference_chain_matches_jax_grads(depth, hidden):
-    """The layer-wise pieces' plain versions composed into the whole
-    backward (layer_fwd_reference for the hidden forward, layer_bwd_reference
-    for each hidden layer's G W^T and epilogue, dW_l = A_{l-1}^T G_l) against
-    JAX XLA fp32 on 144 pixels: the output within 2e-5, every gradient
-    within 1e-4 of its leaf's largest magnitude (the tolerances of
-    test_wide_fp32_forward_and_grads_match_jax). The chain runs between
-    siren_apply_flat's maps: x = 2 (coords - 0.5), out = chain / 2 + 0.5."""
+    """The layer-wise pieces' plain versions composed into the whole chain
+    and backward, one per launch of each kind (layer_fwd_first_reference,
+    layer_fwd_reference for each hidden layer, layer_fwd_last_reference;
+    layer_bwd_last_reference, layer_bwd_reference for each hidden layer's
+    G W^T and epilogue with dW_l = A_{l-1}^T G_l, layer_bwd_first_reference
+    for dx) against JAX XLA fp32 on 144 pixels: the output within 2e-5,
+    every gradient and the coordinates' within 1e-4 of its largest
+    magnitude (the tolerances of test_wide_fp32_forward_and_grads_match_jax).
+    The chain runs between siren_apply_flat's maps: x = 2 (coords - 0.5),
+    out = chain / 2 + 0.5."""
     jm, jc, m, c, p, coords, target = _setup(depth, hidden, seed=2)
     tp = params_from_jax(p, "cpu")
     om = sm._omegas(c, depth)
     x = (torch.from_numpy(coords) - 0.5) * 2.0  # siren_apply_flat's input map
-    zs = [x @ tp[0]["w"] + tp[0]["b"]]
-    a = fast_sin(om[0] * zs[0])
-    acts = [x, a]
+    z, a = sm.layer_fwd_first_reference(x, tp[0]["w"], tp[0]["b"], om[0])
+    zs = [z]
     for l in range(1, depth - 1):
         z, a = sm.layer_fwd_reference(a, tp[l]["w"], tp[l]["b"], om[l])
         zs.append(z)
-        acts.append(a)
-    out = (a @ tp[-1]["w"] + tp[-1]["b"]) / 2 + 0.5  # and its output map
+    out = sm.layer_fwd_last_reference(a, tp[-1]["w"], tp[-1]["b"]) / 2 + 0.5  # the output map
     np.testing.assert_allclose(out.numpy(), np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
     g = (out - torch.from_numpy(target)) / out.numel()  # the loss's, through the output map
     grads = [{} for _ in range(depth)]
-    grads[-1] = {"w": acts[-1].t() @ g, "b": g.sum(0)}
-    gz = (g @ tp[-1]["w"].t()) * (om[depth - 2] * fast_cos(om[depth - 2] * zs[-1]))
-    grads[depth - 2]["b"] = gz.sum(0)
+    gz, grads[depth - 2]["b"], grads[-1]["w"], grads[-1]["b"], _ = sm.layer_bwd_last_reference(
+        g, tp[-1]["w"], zs[-1], om[depth - 2])
     for l in range(depth - 2, 0, -1):
         gp, a_prev, db, dw0 = sm.layer_bwd_reference(gz, tp[l]["w"], zs[l - 1], om[l - 1],
                                                      x=x if l == 1 else None)
@@ -350,11 +350,147 @@ def test_layer_bwd_reference_chain_matches_jax_grads(depth, hidden):
         grads[l - 1]["b"] = db
         gz = gp
     grads[0]["w"] = dw0
-    jg = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc) - target) ** 2))(p)
+    dcoords = 2.0 * sm.layer_bwd_first_reference(gz, tp[0]["w"])  # through the input map
+
+    def loss(q, cs):
+        return jnp.mean((jm.apply_flat(q, cs, jc) - target) ** 2)
+
+    jg, jc_grad = jax.grad(loss, argnums=(0, 1))(p, jnp.asarray(coords))
     for ours, ref in zip(grads, jg):
         for k in KEYS:
             want = np.asarray(ref[k])
             assert np.abs(ours[k].numpy() - want).max() <= 1e-4 * np.abs(want).max(), k
+    want = np.asarray(jc_grad)
+    assert np.abs(dcoords.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+def test_layer_fwd_kind_references_are_the_chains_layers(precision):
+    """layer_fwd_first_reference and layer_fwd_last_reference (the plain
+    versions of the forward's first- and last-layer launches) on the chain's
+    x, a_L and weights give its z_0, a_0 and output bit for bit, at d4/w640,
+    in every mode."""
+    m, c = build_model("siren", depth=4, hidden_size=640)
+    p = m.init(torch.Generator().manual_seed(11), c)
+    x = torch.rand((200, 2), generator=torch.Generator().manual_seed(12)) * 2 - 1
+    _assert_fwd_kinds_are_the_chains(p, c, x, precision)
+
+
+def _assert_fwd_kinds_are_the_chains(p, c, x, precision):
+    bf16, mixed = sm.precision_modes(precision)
+    params = sm._rnd_params(p, mixed)
+    last = len(params) - 1
+    om = sm._omegas(c, last + 1)
+    out, zs = sm._chain_forward(p, x, c, precision, keep=True)
+    z0, a0 = sm.layer_fwd_first_reference(x, params[0]["w"], params[0]["b"], om[0], precision)
+    assert torch.equal(z0, zs[0])
+    assert torch.equal(a0, sm._rnd(fast_sin(om[0] * zs[0]), bf16 or mixed))
+    a_l = sm._rnd(fast_sin(om[last - 1] * zs[-1]), bf16 or mixed)
+    assert torch.equal(sm.layer_fwd_last_reference(a_l, params[last]["w"], params[last]["b"],
+                                                   precision), out)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("depth", [4, 2])
+def test_layer_bwd_kind_references_are_the_chains_layers(precision, depth):
+    """layer_bwd_last_reference and layer_bwd_first_reference (the plain
+    versions of the backward's last- and first-layer launches) on the
+    chain's g, z_L, G_0 and weights give its G_L, db_L, dW_{D-1}, db_{D-1}
+    (and at depth 2, where the layer below the last is the first, dW_0) and
+    dx bit for bit, at w640, in every mode."""
+    m, c = build_model("siren", depth=depth, hidden_size=640)
+    p = m.init(torch.Generator().manual_seed(13), c)
+    gen = torch.Generator().manual_seed(14)
+    x = torch.rand((200, 2), generator=gen) * 2 - 1
+    g = torch.randn((200, 3), generator=gen)
+    _assert_bwd_kinds_are_the_chains(p, c, x, g, precision)
+
+
+def _assert_bwd_kinds_are_the_chains(p, c, x, g, precision):
+    params, om, zs, layers = _chain_layers(p, c, x, g, precision)
+    depth = len(params)
+    last = depth - 1
+    gl, db, dwl, dbl, dw0 = sm.layer_bwd_last_reference(g, params[last]["w"], zs[-1],
+                                                        om[last - 1], precision,
+                                                        x=x if depth == 2 else None)
+    assert torch.equal(gl, layers[last - 1][1])
+    assert torch.equal(db, layers[last - 1][2].sum(0))
+    assert torch.equal(dwl, layers[last][0].t() @ layers[last][1])
+    assert torch.equal(dbl, layers[last][2].sum(0))
+    if depth == 2:
+        assert torch.equal(dw0, layers[0][0].t() @ layers[0][1])
+    else:
+        assert dw0 is None
+    dx = sm.layer_bwd_first_reference(layers[0][1], params[0]["w"], precision)
+    assert torch.equal(dx, sm.siren_chain_backward_reference(p, x, g, c, precision)[0])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
+@pytest.mark.parametrize("depth,in_size,out_size", [(4, 3, 6), (2, 3, 4)])
+def test_layer_kind_references_at_other_counts_are_the_chains_layers(precision, depth, in_size,
+                                                                     out_size):
+    """The four kinds' plain versions at input and output counts other than
+    an image's 2 and 3 (those whose launches run the streaming passes'
+    guarded bodies) give the chain's z_0, a_0, output, G_L, db_L, dW_{D-1},
+    db_{D-1} (depth 2: dW_0) and dx bit for bit, at w640, in every mode."""
+    m, c = build_model("siren", depth=depth, hidden_size=640, input_size=in_size,
+                       output_size=out_size)
+    p = m.init(torch.Generator().manual_seed(15), c)
+    gen = torch.Generator().manual_seed(16)
+    x = torch.rand((200, in_size), generator=gen) * 2 - 1
+    g = torch.randn((200, out_size), generator=gen)
+    _assert_fwd_kinds_are_the_chains(p, c, x, precision)
+    _assert_bwd_kinds_are_the_chains(p, c, x, g, precision)
+
+
+def test_layer_kind_wrappers_reject_what_they_do_not_take_before_building(monkeypatch):
+    """The first- and last-layer kinds' single-launch wrappers raise
+    ValueError, before the library is built, on a CPU tensor, a width that
+    is not a multiple of 128, more than 8 inputs or outputs, operands of
+    other rows or widths, and a member axis on some operands only."""
+    from implicit_image_tpu_torch.ops import cuda_build
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_build, "load_library", refuse)
+    monkeypatch.setattr(cuda_build, "_nvcc", refuse)
+    n, h = 300, 640
+    x, w0, b0 = torch.zeros((n, 2)), torch.zeros((2, h)), torch.zeros(h)
+    a, wl, bl = torch.zeros((n, h)), torch.zeros((h, 3)), torch.zeros(3)
+    g, z = torch.zeros((n, 3)), torch.zeros((n, h))
+    cases = [
+        (sm.sine_mlp_layer_fwd_first, (x, w0, b0, 30.0, "fp32"), "expected a tensor on"),
+        (sm.sine_mlp_layer_fwd_first, (x, w0[:, :600], b0[:600], 30.0, "fp32"), "multiple of"),
+        (sm.sine_mlp_layer_fwd_first, (torch.zeros((n, 9)), torch.zeros((9, h)), b0, 30.0,
+                                       "fp32"), "in <= 8"),
+        (sm.sine_mlp_layer_fwd_first, (x[:, :1], w0, b0, 30.0, "fp32"), "expected"),
+        (sm.sine_mlp_layer_fwd_first, (x[None], w0, b0, 30.0, "fp32"), "expected"),
+        (sm.sine_mlp_layer_fwd_last, (a, wl, bl, "fp32"), "expected a tensor on"),
+        (sm.sine_mlp_layer_fwd_last, (a[:, :600], wl[:600], bl, "fp32"), "multiple of"),
+        (sm.sine_mlp_layer_fwd_last, (a, torch.zeros((h, 9)), torch.zeros(9), "fp32"),
+         "out <= 8"),
+        (sm.sine_mlp_layer_fwd_last, (a, wl, bl[:2], "fp32"), "expected"),
+        (sm.sine_mlp_layer_fwd_last, (a, wl[None].expand(2, -1, -1), bl[None][:, :2], "fp32"),
+         "expected"),
+        (sm.sine_mlp_layer_bwd_last, (g, wl, z, 30.0, "fp32"), "expected a tensor on"),
+        (sm.sine_mlp_layer_bwd_last, (g, wl, z[:299], 30.0, "fp32"), "expected"),
+        (sm.sine_mlp_layer_bwd_last, (g[:, :2], wl, z, 30.0, "fp32"), "expected"),
+        (sm.sine_mlp_layer_bwd_last, (g, wl[:600], z[:, :600], 30.0, "fp32"), "multiple of"),
+        (sm.sine_mlp_layer_bwd_last, (g, wl, z, 30.0, "fp32", torch.zeros((299, 2))),
+         "expected x"),
+        (sm.sine_mlp_layer_bwd_last, (g, wl, z, 30.0, "fp32", torch.zeros((n, 9))),
+         "expected x"),
+        (sm.sine_mlp_layer_fwd_first, (x[None].expand(3, -1, -1), w0[None].expand(2, -1, -1),
+                                       b0[None].expand(2, -1), 30.0, "fp32"), "2 members"),
+        (sm.sine_mlp_layer_bwd_first, (z, w0, "fp32"), "expected a tensor on"),
+        (sm.sine_mlp_layer_bwd_first, (z[:, :600], w0[:, :600], "fp32"), "multiple of"),
+        (sm.sine_mlp_layer_bwd_first, (z, torch.zeros((9, h)), "fp32"), "in <= 8"),
+        (sm.sine_mlp_layer_bwd_first, (z, w0[:, :512], "fp32"), "expected"),
+    ]
+    for fn, args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fn(*args)
 
 
 def test_layer_bwd_rejects_what_it_does_not_take_before_building(monkeypatch):
@@ -390,15 +526,18 @@ def test_layer_bwd_rejects_what_it_does_not_take_before_building(monkeypatch):
 def test_layer_knockouts_apply_to_the_current_source():
     """tools/layer_knockouts.py's replacements are each found once in
     csrc/sine_mlp.cu (variants() raises otherwise), and every variant but
-    "full" changes the source, in the forward's part, the backward's and
-    dW's."""
+    "full" changes the source, in the forward's part (the hidden layer's
+    and the first layer's feed and stores), the backward's (the hidden
+    layer's, and the last layer's feed and stores) and dW's."""
     from implicit_image_tpu_torch.ops import cuda_build
     from implicit_image_tpu_torch.tools import layer_knockouts
 
     src = (cuda_build.CSRC / "sine_mlp.cu").read_text()
     found = layer_knockouts.variants(src)
     assert {key for key in found} == {(0, "full"), (0, "no_mma"), (0, "no_split"), (0, "no_epi"),
+                                      (0, "no_fring"), (0, "no_fstore"),
                                       (1, "full"), (1, "no_mma"), (1, "no_epi"), (1, "no_feed"),
+                                      (1, "no_lring"), (1, "no_lstore"),
                                       (2, "full"), (2, "no_mma"), (2, "no_gsplit"),
                                       (2, "no_asplit")}
     for key, text in found.items():
