@@ -13,16 +13,11 @@ Phases, each printing its own line:
      FLOPs and bound; as controls, the other mode's kernel must fail each
      mode's tolerances, and so must the plain chain run with 1-pass TF32
      products (torch.backends.cuda.matmul.allow_tf32) the fp32 ones. The
-     same at width 182 (the finals width, run on the kernels of width 192),
-     256 and 512; bounds count the model's width (the work the function
-     needs), the padded bound the kernel width (the work the kernel does).
-     At 256 and 512 the backward is sine_mlp_bwd_wide + sine_mlp_dw (its
-     time is the whole backward's, as at 128 and 182, whose wgmma backward
-     sums dW itself), and sine_mlp_dw is also held alone against its plain
-     version on this chain's own dW operands (DW_TOL), twice for bits, and
-     timed from CUDA graphs in turns with one fp32 torch.bmm computing the
-     same dW (the library yardstick). At every width the forward and the
-     backward run twice and must repeat bit for bit.
+     same at width 182 (the finals width, run on the kernels of width 192,
+     whose wgmma backward sums dW itself); bounds count the model's width
+     (the work the function needs), the padded bound the kernel width (the
+     work the kernel does). At every width the forward and the backward run
+     twice and must repeat bit for bit.
      K1 over a member axis (sine_mlp_fwd_batched, the vmapped render of
      decode_runs) at widths 128 and 182: 8 SIRENs on one 512² grid in one
      launch, in both modes, each member the bits of its single launch and
@@ -35,9 +30,7 @@ Phases, each printing its own line:
      other mode's outside it), timed in turns with one single launch (bound:
      8 backwards' work); its member-axis partial sum alone (the bits of the
      mirror, SUM_TOL of partials.sum(1), timed from CUDA graphs in turns with
-     it), and at 256 the member-axis sine_mlp_dw alone on 8 members' own
-     dW operands (the bits of 8 single launches, DW_TOL of the plain
-     version, in turns with one torch.bmm).
+     it).
      K1 and K2 over a member axis in "+mixed" (train.mixed_precision, PR
      15) at widths 128 and 182: 8 SIRENs, each member's forward and dx, dW,
      db the bits of its single "+mixed" launch (fp32+mixed and bf16+mixed),
@@ -48,12 +41,15 @@ Phases, each printing its own line:
      pass, the products with the fp32 cotangent as three); bf16+mixed
      against the plain chain too. Phase 2 prints
      ptxas's registers and spills of every kernel and fails if a batched
-     instantiation (forward, backward, sine_mlp_dw, partial sum) spills more
-     than its single launch, if a "+mixed" batched one spills at all, or if
-     any instantiation of the wgmma kernels (the forward and backward at
-     widths 128 and 192) or of the layer-wise kernels spills.
-     Above width 512, the layer-wise kernels at 640 and 1024, 512²,
-     d8: K1 and K2 in fp32, bf16, fp32+mixed and bf16+mixed against the
+     instantiation (forward, backward, partial sum) spills more than its
+     single launch, if a "+mixed" batched one spills at all, or if any
+     instantiation of the wgmma kernels (the forward and backward at widths
+     128 and 192) or of the layer-wise kernels spills.
+     Above width 192, the layer-wise kernels at 256, 300 (kernel width
+     384), 512, 640 and 1024, 512², d8 (300: the pairs, their member axis
+     and their autograd form only, its times printed, no kernels-line row:
+     no path runs it): K1 and K2 in fp32, bf16, fp32+mixed and bf16+mixed
+     against the
      plain chain (LAYER_TOL: fp32 1e-4 / 1e-4, the others 1.5e-3 / 2e-2),
      their launches (depth of sine_mlp_layer_fwd per K1 band, depth - 1
      more in K2's recompute, depth of sine_mlp_layer_bwd, depth - 2 of
@@ -83,8 +79,8 @@ Phases, each printing its own line:
      torch.profiler (the API's and under autograd),
      sine_mlp_layer_bwd_kernel by kind beside its bound, and K1's under
      autograd, sine_mlp_layer_fwd_kernel by kind; the backward's partial buffer against its plain mirror
-     (siren_chain_layer_partials) and sum_partials over it bit for bit its
-     mirror's order; then one fp32 K1/K2 pair at w2048 (its z stash of
+     (siren_chain_layer_partials, at 256) and sum_partials over it bit for
+     bit its mirror's order; then one fp32 K1/K2 pair at w2048 (its z stash of
      3.76e9 floats is past 2^31: the 64-bit offsets) and one at w4096 on
      128² rows against the plain chain, with their peak memory;
   4. the dense path through the port's entry points: compress.main
@@ -126,11 +122,10 @@ Phases, each printing its own line:
      the same bytes, its labels are 9-bit, every quantized weight decodes to
      one of its layer's centroids and every pruned one to 0, decoded PSNR
      finite and >= 20 dB;
- 10. the repo's other wide SIREN runs, 20 fit steps each through
-     compress.main (dense, no quantization or container): the d8/w256
-     member of scripts/width_depth.sh and the tracked w512 row of
-     scripts/tracked_r5.sh (lr 1e-4): every kernel launched, fit PSNR
-     finite; and above 512 `compress.main` with
+ 10. the repo's wide SIREN runs through compress.main, all on the
+     layer-wise kernels: the d8/w256 member of scripts/width_depth.sh and
+     the tracked w512 row of scripts/tracked_r5.sh (lr 1e-4), 20 fit steps
+     each (dense, no quantization or container), and `compress.main` with
      mlp.hidden_size=640 and =1024 (dense, lr 1e-4, 20 fit + 20 k-means
      finetune steps, zstd) and decode_run: only the layer-wise kernels and
      sum_partials launch, K2 once a step, K1 fills the z stash once a step
@@ -139,8 +134,8 @@ Phases, each printing its own line:
      K2 recomputes nothing), each layer-wise launch of the kind the chain
      needs (sm.LAUNCHES_BY_KIND: K2's last and first layer once a step, K1's
      first and last once a band; the kernels line's rows of those kinds
-     count them), the peak memory is printed, and the decoded
-     PSNR is finite and decode_run's;
+     count them), the peak memory is printed, and the fit PSNR (the
+     decoded PSNR, decode_run's, where a container is written) is finite;
  11. the reference's other model families at full width (d8/w128, 512²,
      img=synthetic; scripts/run_studies_r5.sh), each through compress.main
      and, where it writes a container, decompress.decode_run: (a)
@@ -169,8 +164,7 @@ Phases, each printing its own line:
      mode exactly for the planned steps [0, 150) and the eval among them,
      in fp32 for the rest, the finetune and the renders; ms per step of a
      bf16 and an fp32 segment of an 80-step fit beside phase 5's; and a
-     20-step d8/w182 fit switching at 0.5, no sine_mlp_dw (the width-192
-     backward sums its dW);
+     20-step d8/w182 fit switching at 0.5 (the width-192 kernels);
      (b) train.mixed_precision, 200 + 20 steps, every launch in the fp32
      mode, after K1/K2 under fp32+mixed against the plain chain at w128 and
      w182 within phase 3's bf16 limits; (c) train.stop_at_psnr=30 with a
@@ -178,8 +172,8 @@ Phases, each printing its own line:
      one bf16 forward per check; (d) a 100-step RigL fit (a mask update
      every 20) against the same fit stopped at 50 with a checkpoint and
      resumed: model.npz and mask.npz of the same sha256; (e) the tracked
-     d8/w512 SIREN at lr 3e-4 with optim.grad_clip=1.0, 20 steps: finite,
-     the clip's scale printed; (f) mlp.fast_sine=false, 200 + 20 steps:
+     d8/w512 SIREN at lr 3e-4 with optim.grad_clip=1.0, 20 steps (the
+     layer-wise kernels): finite, the clip's scale printed; (f) mlp.fast_sine=false, 200 + 20 steps:
      no kernel launch, ms per step beside phase 4's; (g) CoordX s5/w96 at
      train.matmul_precision=bfloat16, cold, 300 + 20 steps: no kernel
      launch; (h) hashgrid at its default config (quant.skip_layers=[],
@@ -228,8 +222,7 @@ Phases, each printing its own line:
      batched_compress on 4 seeded 512² images (100 + 10 steps): member 0's
      container the sha256 of a B = 1 run; (d) a 2-member RigL ladder at
      w182 for 20 steps: the member-axis width-192 backward on the path;
-     (e) the same at w256: the member-axis wide backward and
-     sine_mlp_dw_batched; (f) the same at w640: the member-axis layer-wise
+     (e) and (f) the same at w256 and w640: the member-axis layer-wise
      kernels, one K2 over the members a fit and finetune step, no single K2,
      the z stash from K1 once a step, sine_mlp_layer_fwd only in K1.
 
@@ -363,13 +356,11 @@ Phases, each printing its own line:
 
 Each of phases 4-19 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
-sine_mlp_dw (the backward's dW at kernel widths 256 and 512) in phase
-10 and the w512 run of 12 (e) only; sine_mlp_fwd_batched in 13 (e), 14,
-16 and 18 only; the member-axis K2 (sine_mlp_bwd_batched,
-sum_partials_batched, and sine_mlp_dw_batched at w256) in 14, 16 and 18
-only, in "+mixed" in 18 (c) only; the layer-wise kernels in 10's w640 and
-w1024 runs and 14 (f) only (over the member axis in 14 (f) only, with no
-fused K1 or K2 there); nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
+sine_mlp_fwd_batched in 13 (e), 14, 16 and 18 only; the member-axis K2
+(sine_mlp_bwd_batched, sum_partials_batched) in 14, 16 and 18 only, in
+"+mixed" in 18 (c) only; the layer-wise kernels in 10 and the w512 run of
+12 (e) and in 14 (e) and (f) only (over the member axis in 14 (e) and (f)
+only, with no fused K1 or K2 there); nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
 run, in 16 (e)'s CoordX meta-training, in 17 (e) and in 18 (b). In
 phase 3, sum_partials must equal its plain mirror sum_partials_reference
 (the kernel's order of additions) bit for bit on the main path's partial
@@ -381,12 +372,11 @@ reports these medians) and launched from Python (host included), and
 every round is printed beside the medians and their share of the bound.
 
 Then one JSON line describing the kernels (each kernel once per width of
-phase 3, with the launches of the phase that runs that width: 4, 9 and 10;
-the layer-wise kernels at 640 and 1024 with 10's, over the member axis at
-640 with 14 (f)'s;
+phase 3, with the launches of the phase that runs that width: 4 and 9;
+the layer-wise kernels at 256, 512, 640 and 1024 with 10's, over the
+member axis at 256 and 640 with 14 (e)'s and (f)'s;
 the batched K1 at 128 and 182 with 13 (e)'s; the batched K2 and its
-partial sum with 14 (a)'s and 14 (d)'s, and at 256 its sine_mlp_dw with
-14 (e)'s; the single K1,
+partial sum with 14 (a)'s and 14 (d)'s; the single K1,
 K2 and sum_partials at 128 also with 17 (a)'s, as `sequence_launches`,
 and with 19 (a)'s sharded path's, as `sharded_launches`),
 and as the last line
@@ -420,9 +410,8 @@ from pathlib import Path
 FWD_TOL = {"fp32": 1e-4, "bf16": 1.5e-3}  # max abs error of the raw chain output
 BWD_TOL = {"fp32": 1e-4, "bf16": 2e-2}  # max abs error / max |plain|, per gradient
 SUM_TOL = 1e-6  # sum_partials vs partials.sum(0), relative
-# sine_mlp_dw vs its plain version: max abs error / max |plain|, the fp32
-# mode's gradient limit (each split's dW sums ~2,000 rows that cancel: on an
-# H100 at w182 the 3xTF32 kernel reads 1.5e-5 against the fp32 plain product)
+# sine_mlp_layer_dw vs its plain version: max abs error / max |plain|, the
+# fp32 mode's gradient limit (each split's dW sums ~2,000 rows that cancel)
 DW_TOL = BWD_TOL["fp32"]
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
@@ -433,7 +422,7 @@ BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 FP32_FLOP_PER_S = 67e12   # FMA outside the tensor cores
 
 N_SIDE, DEPTH, WIDTH = 512, 8, 128
-KERNEL_WIDTHS_CHECKED = (WIDTH, 182, 256, 512)  # phase 3; 182 runs on the kernels of width 192
+KERNEL_WIDTHS_CHECKED = (WIDTH, 182)  # phase 3's fused widths; 182 runs on the kernels of width 192
 SMOKE_OVERRIDES = [
     "masking=none", "train.num_steps=200", "train.log_steps=100",
     "quant.num_steps=20", "entropy_coding=plain", "output_dir=outputs/chip_smoke",
@@ -465,12 +454,13 @@ FINALS_OVERRIDES = [
     "output_dir=outputs/chip_smoke_finals",
 ]
 # phase 10, cut from 2000 steps: the d8/w256 member of the width/depth study
-# (scripts/width_depth.sh) and the tracked w512 row (scripts/tracked_r5.sh)
+# (scripts/width_depth.sh) and the tracked w512 row (scripts/tracked_r5.sh),
+# both on the layer-wise kernels
 WIDE_OVERRIDES = {
     256: ["mlp.hidden_size=256"],
     512: ["mlp.hidden_size=512", "optim.lr=1e-4"],
 }
-# phase 10 above 512 (the layer-wise kernels): `python -m
+# phase 10 above 512: `python -m
 # implicit_image_tpu_torch.compress mlp.hidden_size=W` at d8, dense, with the
 # default k-means finetune and a zstd container, cut to 20 fit + 20 finetune
 # steps, at the tracked w512 row's lr
@@ -546,13 +536,16 @@ P12_FLOOR = {
 # phase 3's K1 over a member axis (the vmapped render of decode_runs): M
 # members of one shape, each 512² rows, at these widths, both modes
 BATCH_MEMBERS, BATCH_WIDTHS = 8, (WIDTH, FINALS_WIDTH)
-# phase 3 above 512 (the layer-wise kernels): K1 and K2 at these widths in
+# phase 3 above 192 (the layer-wise kernels): K1 and K2 at these widths in
 # every mode (limits: the fused kernels' fp32 ones, the bf16 ones for bf16
-# and "+mixed", as phase 12b), single and over LAYER_MEMBERS members; one
-# fp32 pair at each (width, side) of LAYER_WIDE: w2048 at 512², whose z
-# stash ((D-1) x 512² x 2,048 = 3.76e9 floats) is past 2^31, and w4096 at
-# 128² (the fp32 limits at K = 4,096)
-LAYER_WIDTHS, LAYER_MEMBERS = (640, 1024), 2
+# and "+mixed", as phase 12b), single and over LAYER_MEMBERS members; at
+# LAYER_PAIR_WIDTHS (300: kernel width 384, which no path runs) the pairs
+# alone; one fp32 pair at each (width, side) of LAYER_WIDE: w2048 at 512²,
+# whose z stash ((D-1) x 512² x 2,048 = 3.76e9 floats) is past 2^31, and
+# w4096 at 128² (the fp32 limits at K = 4,096). Phase 10 runs LAYER_WIDTHS
+# (256 and 512 as WIDE_OVERRIDES, 640 and 1024 as LAYER_PATH_COMMON)
+LAYER_WIDTHS, LAYER_MEMBERS = (256, 512, 640, 1024), 2
+LAYER_PAIR_WIDTHS = (300,)
 LAYER_WIDE = ((2048, 512), (4096, 128))
 LAYER_TOL = {"fp32": (1e-4, 1e-4), "bf16": (1.5e-3, 2e-2), "fp32+mixed": (1.5e-3, 2e-2),
              "bf16+mixed": (1.5e-3, 2e-2)}
@@ -613,11 +606,9 @@ BATCH_IMAGES, BATCH_STEPS = 4, 100  # 14c: batched_compress, 100 fit + 10 finetu
 WIDE_LADDER = ["img=synthetic", f"mlp.hidden_size={FINALS_WIDTH}", "entropy_coding=zstd",
                "masking=RigL", "masking.density=0.25,0.5", "train.num_steps=20",
                "train.log_steps=10", "quant.num_steps=5"]
-# 14e: the same ladder at w256, where the member-axis backward leaves dW to
-# sine_mlp_dw_batched (phase 3 holds that kernel alone at this width)
-DW_LADDER_WIDTH = 256
-# 14f: the same ladder at w640, on the member-axis layer-wise kernels
-LAYER_LADDER_WIDTH = 640
+# 14e and 14f: the same ladder at w256 (the narrowest width on the layer-wise
+# kernels) and at w640, on the member-axis layer-wise kernels
+LAYER_LADDER_WIDTHS = {"e": 256, "f": 640}
 
 # phase 15: the compress CLI's last options at full width (512², SIREN
 # d8/w128 unless named), in phase 5's configuration (RigL 0.5) unless named,
@@ -789,7 +780,7 @@ def phase_card() -> str:
 
 def phase_build() -> float:
     from implicit_image_tpu_torch.ops import cuda_build
-    from implicit_image_tpu_torch.ops.sine_mlp import DW_WIDTHS, KERNEL_WIDTHS, MAX_ROWS
+    from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS, MAX_ROWS
     from implicit_image_tpu_torch.tools.kernel_breakdown import layer_kind
 
     t0 = time.perf_counter()
@@ -823,7 +814,7 @@ def phase_build() -> float:
         for name, row in rows.items():
             if row.get("spill_stores", 0) or row.get("spill_loads", 0):
                 raise AssertionError(f"the {what} spills: {name} {row}")
-    # the layer-wise kernels (widths above 512): 12 forward instantiations (4
+    # the layer-wise kernels (widths above 192): 12 forward instantiations (4
     # modes x first, hidden, last), 20 backward (4 modes x last and hidden,
     # each with and without dW_0, and first), 4 dW (4 modes); none spills
     # (the first and last passes unroll their loops for 3 outputs and 2
@@ -855,13 +846,13 @@ def phase_build() -> float:
                              f"{len(wg_rows)} on wgmma (expected 16), {len(pass_rows)} first/last "
                              f"passes (expected 20), spilling {spilling}")
     # K1 and K2 over a member axis are template instantiations (last argument
-    # MB) of each forward, backward, sine_mlp_dw and partial sum: each must
-    # spill no more than its single launch. The forward and backward have
-    # one in each of the four modes (bf16 or not, "+mixed" or not: template
-    # arguments BF16, MX); the "+mixed" ones (MX = 1) print their
-    # spills beside their single launch's
+    # MB) of each fused forward and backward (widths 128 and 192) and of the
+    # partial sum: each must spill no more than its single launch. The
+    # forward and backward have one in each of the four modes (bf16 or not,
+    # "+mixed" or not: template arguments BF16, MX); the "+mixed" ones (MX =
+    # 1) print their spills beside their single launch's
     kinds = {"sine_mlp_fwd": 4 * len(KERNEL_WIDTHS), "sine_mlp_bwd": 4 * len(KERNEL_WIDTHS),
-             "sine_mlp_dw": 2 * len(DW_WIDTHS), "sum_partials": 1}
+             "sum_partials": 1}
     for kind, expected in kinds.items():
         batched = {n: r for n, r in table.items()
                    if f"{kind}_" in n and n.startswith("void") and "(bool)1>(" in n}
@@ -927,7 +918,7 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
     the 2 TF32 passes of one split. `bf16` (the bf16 mode): every hidden
     product is one bf16 pass.
 
-    Above 512 under autograd the port does less than the JAX pair's work:
+    Above 192 under autograd the port does less than the JAX pair's work:
     "sine_mlp_fwd_stash" is K1 that also writes the z stash ((depth - 1) n
     hidden floats), "sine_mlp_bwd_stashed" K2 that reads it in place of the
     recompute (dW and ga only, the first layer's dW_0 and dx); "_batched"
@@ -954,9 +945,10 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
         "sine_mlp_bwd": (3 * hidden_mm, bwd_s, 2 * n * hidden * (4 * in_size + 2 * out_size),
                          4 * n * (2 * in_size + out_size) + weights + 4 * blocks * n_part),
         "sum_partials": (0, 0.0, blocks * n_part, 4 * (blocks + 1) * n_part),
-        # the wider backward's dW: read A and G (L, n, hidden) once, write
-        # each split's (L, hidden, hidden)
-        "sine_mlp_dw": (hidden_mm, dw_s, 0, 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
+        # the hidden layers' dW (the layer-wise sine_mlp_layer_dw over the L
+        # layers): read A and G (L, n, hidden) once, write each split's (L,
+        # hidden, hidden)
+        "hidden_dw": (hidden_mm, dw_s, 0, 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
         # K1 over `members` members of one shape: the forward's work each; x
         # (shared) read once, each member's weights and output once
         "sine_mlp_fwd_batched": (members * hidden_mm, members * fwd_s,
@@ -970,8 +962,6 @@ def _bounds(n: int, in_size: int, out_size: int, depth: int, hidden: int, blocks
                                                               + weights + 4 * blocks * n_part)),
         "sum_partials_batched": (0, 0.0, members * blocks * n_part,
                                  4 * members * (blocks + 1) * n_part),
-        "sine_mlp_dw_batched": (members * hidden_mm, members * dw_s, 0,
-                                members * 4 * (depth - 2) * hidden * (2 * n + blocks * hidden)),
     }
     stash = 4 * (depth - 1) * n * hidden
     kernels["sine_mlp_fwd_stash"] = (hidden_mm, fwd_s, 2 * n * hidden * (in_size + out_size),
@@ -1011,41 +1001,6 @@ def _errors(kernel, plain):
     rel = {name: _max_rel(a, b) for name, a, b in pairs}
     bwd_abs = max(float((a - b).abs().max()) for _, a, b in pairs)
     return float((out_k - out_p).abs().max()), rel, bwd_abs
-
-
-def _dw_kernel(params, x, g, mcfg, prec: str, hidden: int, blocks: int, n_part: int,
-               offset: int, timed: bool) -> dict:
-    """sine_mlp_dw on this chain's own dW operands (the plain backward's,
-    zero-padded to the kernel width `hidden`), into a partial buffer of the
-    main path's layout, twice, against its plain version. If timed: the
-    kernel and one fp32 torch.bmm for the same dW from CUDA graphs in turns,
-    and the plain version (CUDA events)."""
-    import torch
-    import torch.nn.functional as F
-
-    from implicit_image_tpu_torch.ops import sine_mlp as sm
-
-    h = params[0]["w"].shape[1]
-    a, gz = (F.pad(t, (0, hidden - h)).contiguous()
-             for t in sm.siren_chain_dw_operands(params, x, g, mcfg, prec))
-    layers = a.shape[0]
-    region = slice(offset, offset + layers * hidden * hidden)
-    runs = []
-    for _ in range(2):
-        partials = torch.zeros((blocks, n_part), device=x.device)
-        sm.sine_mlp_dw(a, gz, partials, offset, prec)
-        runs.append(partials[:, region].reshape(blocks, layers, hidden, hidden))
-    plain = sm.sine_mlp_dw_reference(a, gz, blocks, prec)
-    torch.cuda.synchronize()
-    rec = {"err": float((runs[0] - plain).abs().max()), "scale": float(plain.abs().max()),
-           "same": torch.equal(runs[0], runs[1]), "layers": layers}
-    if timed:
-        partials = torch.empty((blocks, n_part), device=x.device)
-        rec["rounds"], rec["lib_rounds"] = _graph_interleaved_ms(
-            [lambda: sm.sine_mlp_dw(a, gz, partials, offset, prec),
-             lambda: torch.bmm(a.transpose(1, 2), gz)])
-        rec["plain_ms"] = _time_ms(lambda: sm.sine_mlp_dw_reference(a, gz, blocks, prec), 3)
-    return rec
 
 
 def phase_kernels(width: int = WIDTH) -> dict:
@@ -1200,34 +1155,8 @@ def phase_kernels(width: int = WIDTH) -> dict:
                                  f"(max abs err {sum_mirror_err})")
         if not sum_rel <= SUM_TOL:
             raise AssertionError(f"sum_partials disagrees with partials.sum(0): {sum_rel}")
-        if kernel_width in sm.DW_WIDTHS:
-            dw = _dw_kernel(params, x, g, mcfg, prec, kernel_width, blocks, n_part, sizes[0],
-                            timed=prec == "fp32")
-            print(
-                f"[3 kernels {tag}] sine_mlp_dw ({dw['layers']} layers, {blocks} row splits) vs "
-                f"its plain version: max abs err {dw['err']:.3e} = "
-                f"{dw['err'] / dw['scale']:.3e} of max |plain| (tol {DW_TOL:g}), "
-                f"{'the same bits twice' if dw['same'] else 'BITS DIFFER'}",
-                flush=True,
-            )
-            if not dw["err"] <= DW_TOL * dw["scale"]:
-                raise AssertionError(f"{prec}: sine_mlp_dw disagrees with its plain version")
-            if not dw["same"]:
-                raise AssertionError(f"{prec}: sine_mlp_dw does not repeat bit for bit")
-            if prec == "fp32":
-                dw_ms, dw_lib_ms = statistics.median(dw["rounds"]), statistics.median(
-                    dw["lib_rounds"])
-                dw_bound = bounds["sine_mlp_dw"]["bound_ms"]
-                print(
-                    f"[3 kernels {tag}] sine_mlp_dw in turns with torch.bmm (fp32, no TF32), 5 "
-                    f"rounds x 20 launches from CUDA graphs, ms: kernel "
-                    f"{' '.join(f'{t:.4f}' for t in dw['rounds'])} (median {dw_ms:.4f} = "
-                    f"{dw_bound / dw_ms:.1%} of the {dw_bound:.4f} ms bound); torch.bmm "
-                    f"{' '.join(f'{t:.4f}' for t in dw['lib_rounds'])} (median {dw_lib_ms:.4f});"
-                    f" plain version {dw['plain_ms']:.3f}",
-                    flush=True,
-                )
         if prec == "fp32":
+            # the second control: 1-pass TF32 products in the plain chain        if prec == "fp32":
             # the second control: 1-pass TF32 products in the plain chain
             torch.backends.cuda.matmul.allow_tf32 = True
             try:
@@ -1253,9 +1182,6 @@ def phase_kernels(width: int = WIDTH) -> dict:
                 # the same function
                 "sum_partials": (sum_mirror_err, sum_ms, sum_plain_ms, lib_ms),
             }
-            if kernel_width in sm.DW_WIDTHS:
-                # plain: sine_mlp_dw_reference; torch.bmm is one PyTorch call for dW
-                records["sine_mlp_dw"] = (dw["err"], dw_ms, dw["plain_ms"], dw_lib_ms)
             for name, (_, ms, _, _) in records.items():
                 b, pb = bounds[name], padded[name]
                 print(
@@ -1432,8 +1358,8 @@ def phase_batched_backward(width: int) -> dict:
     backwards' work. The member-axis partial sum alone, on this backward's
     shapes: the bits of its plain mirror, timed from CUDA graphs in turns
     with one PyTorch call for the same function (the member-axis
-    sine_mlp_dw: phase_batched_dw). Returns the kernels line's records
-    (fp32 mode)."""
+    layer-wise sine_mlp_layer_dw: phase_layer_kernels). Returns the kernels
+    line's records (fp32 mode)."""
     import torch
 
     from implicit_image_tpu_torch.data import get_grid
@@ -1533,75 +1459,6 @@ def phase_batched_backward(width: int) -> dict:
     return records
 
 
-def phase_batched_dw(width: int) -> dict:
-    """Phase 3, the member-axis sine_mlp_dw alone at a width whose backward
-    has it (256): BATCH_MEMBERS SIRENs' own dW operands on one 512² grid,
-    the bits of 8 single launches, within DW_TOL of its plain version, timed
-    from CUDA graphs in turns with one torch.bmm. Returns the kernels line's
-    record (fp32 mode)."""
-    import torch
-
-    from implicit_image_tpu_torch.data import get_grid
-    from implicit_image_tpu_torch.models import build_model
-    from implicit_image_tpu_torch.ops import sine_mlp as sm
-
-    dev = torch.device("cuda")
-    mdef, mcfg = build_model("siren", depth=DEPTH, hidden_size=width)
-    kw, prec = sm.kernel_width(width), "fp32"
-    gen = torch.Generator().manual_seed(11)
-    members = [mdef.init(gen, mcfg, dev) for _ in range(BATCH_MEMBERS)]
-    x = (get_grid(N_SIDE, N_SIDE, dev).reshape(-1, 2) - 0.5) * 2.0
-    n = x.shape[0]
-    g = (torch.randn((BATCH_MEMBERS, n, 3), generator=gen) / n).to(dev)
-    tag = f"[3 kernels w{width} batched x{BATCH_MEMBERS}]"
-    blocks, n_part, sizes = sm.partial_layout(n, DEPTH, 2, width, 3, dev)
-    bounds = _bounds(n, 2, 3, DEPTH, width, blocks, _grad_floats(2, width, 3, DEPTH))
-    padded = _bounds(n, 2, 3, DEPTH, kw, blocks, n_part)
-    # the member-axis sine_mlp_dw alone, on each member's own dW operands
-    layers = DEPTH - 2
-    a, gz = (torch.zeros((BATCH_MEMBERS, layers, n, kw), device=dev) for _ in range(2))
-    for m, params in enumerate(members):  # zero-padded to the kernel width
-        a[m, ..., :width], gz[m, ..., :width] = sm.siren_chain_dw_operands(
-            params, x, g[m], mcfg, prec)
-    region = slice(sizes[0], sizes[0] + layers * kw * kw)
-    part = torch.zeros((BATCH_MEMBERS, blocks, n_part), device=dev)
-    sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec)
-    got = part[:, :, region].reshape(BATCH_MEMBERS, blocks, layers, kw, kw)
-    plain_dw = torch.stack([sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
-                            for m in range(BATCH_MEMBERS)])
-    singles = []
-    for m in range(BATCH_MEMBERS):
-        one = torch.zeros((blocks, n_part), device=dev)
-        sm.sine_mlp_dw(a[m], gz[m], one, sizes[0], prec)
-        singles.append(one[:, region].reshape(blocks, layers, kw, kw))
-    torch.cuda.synchronize()
-    dw_same = torch.equal(got, torch.stack(singles))
-    dw_err = float((got - plain_dw).abs().max())
-    scale = float(plain_dw.abs().max())
-    del singles, got
-    flat_a, flat_g = a.reshape(-1, n, kw), gz.reshape(-1, n, kw)
-    k_r, l_r = _graph_interleaved_ms(
-        [lambda: sm.sine_mlp_dw_batched(a, gz, part, sizes[0], prec),
-         lambda: torch.bmm(flat_a.transpose(1, 2), flat_g)], rounds=3, reps=5)
-    k_ms, l_ms = statistics.median(k_r), statistics.median(l_r)
-    p_ms = _time_ms(lambda: [sm.sine_mlp_dw_reference(a[m], gz[m], blocks, prec)
-                             for m in range(BATCH_MEMBERS)], 1)
-    db = bounds["sine_mlp_dw_batched"]
-    print(f"{tag} sine_mlp_dw_batched ({layers} layers, {blocks} row splits): "
-          f"{'the bits of' if dw_same else 'BITS DIFFER FROM'} {BATCH_MEMBERS} single "
-          f"launches; vs plain max abs err {dw_err:.3e} = {dw_err / scale:.3e} of max "
-          f"|plain| (tol {DW_TOL:g}); in turns from CUDA graphs, ms: kernel "
-          f"{' '.join(f'{t:.4f}' for t in k_r)} (median {k_ms:.4f} = "
-          f"{db['bound_ms'] / k_ms:.1%} of the {db['bound_ms']:.4f} ms bound); one "
-          f"torch.bmm {' '.join(f'{t:.4f}' for t in l_r)} (median {l_ms:.4f}); plain "
-          f"{p_ms:.3f}", flush=True)
-    if not dw_same or not dw_err <= DW_TOL * scale:
-        raise AssertionError(f"{tag} sine_mlp_dw_batched: same {dw_same}, err {dw_err}")
-    del a, gz, part, flat_a, flat_g
-    torch.cuda.empty_cache()
-    return dw_err, k_ms, p_ms, l_ms, db, padded["sine_mlp_dw_batched"]["bound_ms"]
-
-
 def _layer_pair(params, x, g, mcfg, prec):
     """K1 and K2 of one SIREN on the card, synchronised: (out, dx, grads)."""
     import torch
@@ -1616,7 +1473,7 @@ def _layer_pair(params, x, g, mcfg, prec):
 
 
 def _autograd_forward(members, x, mcfg, prec):
-    """K1 under autograd as a fit step runs it above 512, on one params
+    """K1 under autograd as a fit step runs it above 192, on one params
     tuple or over a member axis (a list; x shared): the Function with the
     stash, on leaves and x that require grad -> (out, x, leaves). Its node
     (out.grad_fn) holds the z stash until the backward uses it up."""
@@ -1706,8 +1563,8 @@ def _same_bits(a, b) -> bool:
             and all(torch.equal(x[k], y[k]) for x, y in zip(a[2], b[2]) for k in ("w", "b")))
 
 
-def phase_layer_kernels(width: int) -> dict:
-    """Phase 3 above 512: the layer-wise kernels at hidden width `width` on
+def phase_layer_kernels(width: int, pairs_only: bool = False):
+    """Phase 3 above 192: the layer-wise kernels at hidden width `width` on
     the main path's shapes (512², d8): K1 and K2 against the plain chain in
     every mode (LAYER_TOL; as controls the other mode's kernels fail the
     fp32 and bf16 limits), repeating bit for bit; over LAYER_MEMBERS members
@@ -1719,7 +1576,9 @@ def phase_layer_kernels(width: int) -> dict:
     K2 alone the same way (_layer_bwd_alone); the backward's partial buffer
     against its plain mirror (siren_chain_layer_partials, the same slices
     and splits) and sum_partials over it bit for bit its mirror's order.
-    Returns the kernels line's records (fp32)."""
+    Returns the kernels line's records (fp32). With `pairs_only` (a width
+    no path runs) it stops after the pairs, their member axis, their
+    autograd form and their times, and returns None."""
     import torch
     import torch.nn.functional as F
 
@@ -1874,6 +1733,9 @@ def phase_layer_kernels(width: int) -> dict:
         if not (ctl_fwd > LAYER_TOL[prec][0] and ctl_rel[ctl_worst] > LAYER_TOL[prec][1]):
             raise AssertionError(f"{tag} {prec}: the limits pass the {other} kernels as well")
     del kernel, plains
+    if pairs_only:
+        torch.cuda.empty_cache()
+        return None
 
     # sine_mlp_layer_dw alone: one hidden layer's own operands, zero-padded
     prec = "fp32"
@@ -1886,7 +1748,7 @@ def phase_layer_kernels(width: int) -> dict:
         part = torch.zeros((slices, n_part), device=dev)
         sm.sine_mlp_layer_dw(a, gz, part, sizes[0], prec)
         runs.append(part[:, sizes[0]: sizes[0] + kw * kw].reshape(slices, kw, kw))
-    plain_dw = sm.sine_mlp_dw_reference(a[None], gz[None], slices, prec)[:, 0]
+    plain_dw = sm.layer_dw_reference(a[None], gz[None], slices, prec)[:, 0]
     torch.cuda.synchronize()
     dw_err, scale = float((runs[0] - plain_dw).abs().max()), float(plain_dw.abs().max())
     dw_same = torch.equal(runs[0], runs[1])
@@ -1898,11 +1760,11 @@ def phase_layer_kernels(width: int) -> dict:
          lambda: sm.sine_mlp_layer_dw(ab, gzb, part_b, sizes[0], prec),
          lambda: torch.mm(a.t(), gz)], rounds=3, reps=3)
     dw_ms, dwb_ms, lib_ms = (statistics.median(r) for r in (k_r, kb_r, l_r))
-    dw_plain = _time_ms(lambda: sm.sine_mlp_dw_reference(a[None], gz[None], slices, prec), 2)
+    dw_plain = _time_ms(lambda: sm.layer_dw_reference(a[None], gz[None], slices, prec), 2)
     layers = DEPTH - 2
     # one layer's share of the hidden layers' dW bound
-    dw_bound = dict(bounds["sine_mlp_dw"], bound_ms=bounds["sine_mlp_dw"]["bound_ms"] / layers,
-                    flop=bounds["sine_mlp_dw"]["flop"] // layers)
+    dw_bound = dict(bounds["hidden_dw"], bound_ms=bounds["hidden_dw"]["bound_ms"] / layers,
+                    flop=bounds["hidden_dw"]["flop"] // layers)
     print(f"{tag} sine_mlp_layer_dw (one layer, {slices} row splits) vs its plain version: "
           f"max abs err {dw_err:.3e} = {dw_err / scale:.3e} of max |plain| (tol {DW_TOL:g}), "
           f"{'the same bits twice' if dw_same else 'BITS DIFFER'}; in turns from CUDA graphs, "
@@ -2098,7 +1960,7 @@ def _layer_records(records, batched, bounds, padded, dw_bound, layers, kinds) ->
         if base is None:  # dW of one layer (over the members)
             m = LAYER_MEMBERS if name.endswith("_batched") else 1
             return (dict(dw_bound, bound_ms=m * dw_bound["bound_ms"]),
-                    m * padded["sine_mlp_dw"]["bound_ms"] / layers)
+                    m * padded["hidden_dw"]["bound_ms"] / layers)
         return bounds[base], padded[base]["bound_ms"]
 
     return {"single": {**{k: (*v, *bound_of(k)) for k, v in records.items()}, **kinds},
@@ -2371,7 +2233,7 @@ LAYER_KERNELS = ("sine_mlp_layer_fwd", "sine_mlp_layer_bwd", "sine_mlp_layer_dw"
 
 @contextlib.contextmanager
 def _layer_forwards():
-    """While open, counts K1's calls above 512 (the layer-wise forward,
+    """While open, counts K1's calls above 192 (the layer-wise forward,
     sm._layer_fwd, wrapped): {"stash": calls that filled the z stash,
     "plain": calls that did not, "launches": {kernel: the launches of
     sine_mlp_layer_fwd(_batched) those calls make, depth a band}}. K2
@@ -2397,22 +2259,18 @@ def _layer_forwards():
         sm._layer_fwd = inner
 
 
-def _check_launches(launches: dict, what: str, dw: bool = False,
-                    batched: bool = False, layer: bool = False) -> None:
-    """Every kernel launched on the path; sine_mlp_dw (the backward's dW at
-    kernel widths 256 and 512) exactly when the path runs a SIREN of those
-    widths (`dw`),
-    sine_mlp_fwd_batched (K1 over a member axis) exactly when it decodes
-    runs together (`batched`), and never K2 over a member axis (the fits of
-    phases 14 and 16 only; _check_ladder_launches). A path above width 512
-    (`layer`) runs the layer-wise kernels and sum_partials instead of the
-    fused K1 and K2; no other path runs them."""
-    fused = ("sine_mlp_fwd", "sine_mlp_bwd", "sine_mlp_dw")
+def _check_launches(launches: dict, what: str, batched: bool = False,
+                    layer: bool = False) -> None:
+    """Every kernel launched on the path; sine_mlp_fwd_batched (K1 over a
+    member axis) exactly when it decodes runs together (`batched`), and
+    never K2 over a member axis (the fits of phases 14 and 16 only;
+    _check_ladder_launches). A path above width 192 (`layer`) runs the
+    layer-wise kernels and sum_partials instead of the fused K1 and K2; no
+    other path runs them."""
+    fused = ("sine_mlp_fwd", "sine_mlp_bwd")
     for name, count in launches.items():
-        if ((name == "sine_mlp_dw" and not dw) or (name == "sine_mlp_fwd_batched"
-                                                    and not batched)
-                or name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched",
-                            "sum_partials_batched")
+        if ((name == "sine_mlp_fwd_batched" and not batched)
+                or name in ("sine_mlp_bwd_batched", "sum_partials_batched")
                 or (name.startswith("sine_mlp_layer") and (not layer or name.endswith("_batched")))
                 or (layer and name in fused)):
             if count != 0:
@@ -2832,40 +2690,19 @@ def phase_finals() -> dict:
     return launches
 
 
-def phase_wide(width: int) -> dict:
-    """Phase 10: a wide SIREN run of the repo's scripts, cut to 20 fit
-    steps; returns its launch counts."""
-    from implicit_image_tpu_torch import compress
-    from implicit_image_tpu_torch.ops import sine_mlp as sm
-
-    cfg = compress.compose(WIDE_COMMON + WIDE_OVERRIDES[width]
-                           + [f"output_dir=outputs/chip_smoke_w{width}"])
-    if (int(cfg.mlp.depth), int(cfg.mlp.hidden_size)) != (DEPTH, width):
-        raise AssertionError(f"the w{width} run must be SIREN d8/w{width}")
-    shutil.rmtree(cfg.output_dir, ignore_errors=True)
-    sm.reset_launch_counts()
-    psnr, _ = compress.main(cfg, run_dir=cfg.output_dir)
-    launches = dict(sm.LAUNCHES)
-    summary = json.loads(open(f"{cfg.output_dir}/summary.json").read())
-    print(f"[10 w{width}] lr {cfg.optim.lr}; fit {summary['fit_wall_s']:.3f} s "
-          f"({summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step); fit PSNR "
-          f"{psnr:.3f} dB; launches {launches}", flush=True)
-    _check_launches(launches, f"w{width} path", dw=True)
-    if not math.isfinite(psnr):
-        raise AssertionError(f"w{width}: fit PSNR {psnr} is not finite")
-    return launches
-
-
 def phase_layer_path(width: int) -> dict:
-    """Phase 10 above 512: compress.main at d8/w`width` (LAYER_PATH_COMMON:
-    20 fit + 20 finetune steps, k-means, zstd), then decode_run: only the
-    layer-wise kernels and sum_partials launch, K2 exactly once a fit and
-    finetune step (depth launches of sine_mlp_layer_bwd, depth - 2 of
-    sine_mlp_layer_dw, one sum_partials), K1 fills the z stash once a step
-    and not in the decode (which grows the memory by less than a stash),
-    sine_mlp_layer_fwd launches in K1 only (`_layer_forwards`), and the
-    decoded PSNR is finite and decode_run's; prints the peak memory;
-    returns the launch counts."""
+    """Phase 10 on the layer-wise kernels: compress.main at d8/w`width`
+    (the repo's scripts' runs at 256 and 512, WIDE_COMMON + WIDE_OVERRIDES:
+    20 fit steps, no quantization or container; above 512
+    LAYER_PATH_COMMON: 20 fit + 20 finetune steps, k-means, zstd, then
+    decode_run): only the layer-wise kernels and sum_partials launch, K2
+    exactly once a fit and finetune step (depth launches of
+    sine_mlp_layer_bwd, depth - 2 of sine_mlp_layer_dw, one sum_partials),
+    K1 fills the z stash once a step and not in the decode (which grows the
+    memory by less than a stash), sine_mlp_layer_fwd launches in K1 only
+    (`_layer_forwards`), each launch of the kind the chain needs, and the
+    fit PSNR is finite (the decoded PSNR decode_run's, where a container is
+    written); prints the peak memory; returns the launch counts."""
     import numpy as np
 
     import torch
@@ -2873,10 +2710,15 @@ def phase_layer_path(width: int) -> dict:
     from implicit_image_tpu_torch import compress, decompress
     from implicit_image_tpu_torch.ops import sine_mlp as sm
 
-    cfg = compress.compose(LAYER_PATH_COMMON + [f"mlp.hidden_size={width}",
-                                                f"output_dir=outputs/chip_smoke_w{width}"])
+    overrides = (WIDE_COMMON + WIDE_OVERRIDES[width] if width in WIDE_OVERRIDES
+                 else LAYER_PATH_COMMON + [f"mlp.hidden_size={width}"])
+    cfg = compress.compose(overrides + [f"output_dir=outputs/chip_smoke_w{width}"])
     if (int(cfg.mlp.depth), int(cfg.mlp.hidden_size)) != (DEPTH, width):
         raise AssertionError(f"the w{width} run must be SIREN d8/w{width}")
+    if sm.kernel_width(width) <= sm.KERNEL_WIDTHS[-1]:
+        raise AssertionError(f"w{width} does not run on the layer-wise kernels")
+    quant = (cfg.get("quant") or {}).get("name", "none") != "none"
+    container = (cfg.get("entropy_coding") or {}).get("stream_name", "none") != "none"
     shutil.rmtree(cfg.output_dir, ignore_errors=True)
     dev = torch.device("cuda")
     stash_bytes = 4 * (DEPTH - 1) * N_SIDE * N_SIDE * sm.kernel_width(width)
@@ -2891,16 +2733,18 @@ def phase_layer_path(width: int) -> dict:
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         decode_stash = forwards["stash"]
-        img, _ = decompress.decode_run(cfg.output_dir, device="cuda")
+        img = decompress.decode_run(cfg.output_dir, device="cuda")[0] if container else None
         decode_grew = torch.cuda.max_memory_allocated(dev) - base
         launches = dict(sm.LAUNCHES)
         by_kind = dict(sm.LAUNCHES_BY_KIND)
     summary = json.loads(open(f"{cfg.output_dir}/summary.json").read())
-    steps = int(cfg.train.num_steps) + int(cfg.quant.num_steps)
-    print(f"[10 w{width}] compress.main {t1 - t0:.2f} s (fit {summary['fit_wall_s']:.3f} s = "
+    steps = int(cfg.train.num_steps) + (int(cfg.quant.num_steps) if quant else 0)
+    print(f"[10 w{width}] lr {cfg.optim.lr}; compress.main {t1 - t0:.2f} s (fit "
+          f"{summary['fit_wall_s']:.3f} s = "
           f"{summary['fit_wall_s'] / int(cfg.train.num_steps) * 1e3:.3f} ms/step, quant "
-          f"{summary['quant_wall_s']:.3f} s); fit PSNR {summary['PSNR']:.3f} dB, decoded "
-          f"{psnr:.3f} dB, {nbytes} B; peak memory {peak / 2**30:.3f} GiB (the z stash "
+          f"{summary.get('quant_wall_s', 0.0):.3f} s); fit PSNR {summary['PSNR']:.3f} dB, "
+          f"{f'decoded {psnr:.3f} dB, {nbytes} B' if container else 'no container'}; "
+          f"peak memory {peak / 2**30:.3f} GiB (the z stash "
           f"{stash_bytes / 2**30:.3f} GiB), decode_run's growth {decode_grew / 2**30:.3f} GiB; "
           f"K1 {forwards['stash']} times with the stash, {forwards['plain']} without; "
           f"launches {launches}", flush=True)
@@ -2912,10 +2756,13 @@ def phase_layer_path(width: int) -> dict:
     if not (forwards["stash"] == decode_stash == steps and decode_grew < stash_bytes):
         raise AssertionError(f"w{width}: {forwards['stash']} stashes ({decode_stash} before the "
                              f"decode) for {steps} steps; the decode grew {decode_grew} B")
-    target = compress._load_image(cfg.img)
-    redecoded = 10.0 * np.log10(1.0 / np.mean((np.asarray(img, np.float64) - target) ** 2))
-    if not (math.isfinite(psnr) and abs(redecoded - psnr) <= 1e-3):
-        raise AssertionError(f"w{width}: decoded PSNR {psnr}, decode_run {redecoded}")
+    if not (math.isfinite(psnr) and math.isfinite(summary["PSNR"])):
+        raise AssertionError(f"w{width}: PSNR {psnr} / fit PSNR {summary['PSNR']}")
+    if container:
+        target = compress._load_image(cfg.img)
+        redecoded = 10.0 * np.log10(1.0 / np.mean((np.asarray(img, np.float64) - target) ** 2))
+        if abs(redecoded - psnr) > 1e-3:
+            raise AssertionError(f"w{width}: decoded PSNR {psnr}, decode_run {redecoded}")
     # the layer-wise kernels by kind: K2's last and first layer once a step,
     # K1's first and last once a band of each K1 call (the fit's, the
     # finetune's and the decode's)
@@ -3140,7 +2987,7 @@ def _segment_ms(overrides, n: int, seg: int, **train) -> dict:
 def phase_schedule(default_ms_step: float) -> None:
     """12a: the precision schedule on the RigL default (200 + 20 steps), and
     a d8/w182 fit switching at 0.5 (the width-192 forward and backward on
-    wgmma; the backward sums its dW itself: no sine_mlp_dw)."""
+    wgmma; the backward sums its dW itself)."""
     from implicit_image_tpu_torch.training.fit import TrainConfig, plan_precision_schedule
 
     r = _p12_run("[12a schedule]", SCHEDULE_OVERRIDES)
@@ -3165,7 +3012,6 @@ def phase_schedule(default_ms_step: float) -> None:
 
     w = _p12_run("[12a w182]", SCHEDULE_WIDE_OVERRIDES)
     expect = _expected_modes(20, 10, 10, 0, 0)
-    expect["sine_mlp_dw"] = {"bf16": 0, "fp32": 0}
     got = {k: w["by_mode"][k] for k in expect}
     print(f"[12a w182] launches by mode {got}, planned {expect}", flush=True)
     if got != expect:
@@ -3253,12 +3099,13 @@ def phase_resume() -> None:
 
 
 def phase_clip() -> None:
-    """12e: the tracked d8/w512 SIREN at lr 3e-4 with optim.grad_clip=1.0."""
+    """12e: the tracked d8/w512 SIREN at lr 3e-4 with optim.grad_clip=1.0,
+    on the layer-wise kernels."""
     r = _p12_run("[12e clip]", CLIP_OVERRIDES)
     s = r["summary"]
     print(f"[12e clip] clip scale: min {s['clip_scale_min']:.6g}, last step "
           f"{s['clip_scale_last']:.6g}", flush=True)
-    _check_launches(r["launches"], "clipped w512 path", dw=True)
+    _check_launches(r["launches"], "clipped w512 path", layer=True)
 
 
 def phase_exact_sine(dense_ms_step: float) -> None:
@@ -3594,17 +3441,16 @@ def _ladder_cli(name: str, extra) -> tuple:
 
 
 def _check_ladder_launches(tag: str, launches: dict, members: int, steps: int, evals: int,
-                           quant_steps: int, dw: bool) -> None:
+                           quant_steps: int) -> None:
     """The fit and the codebook finetune over the member axis: one batched K1
     per fit step and eval and per finetune step, one more for the
-    finetune's eval; one batched K2 (and partial sum, and at widths 256 and
-    512 sine_mlp_dw, `dw`) per fit and finetune step; no single K2 launch
-    (the members' single K1 launches are their decodes)."""
+    finetune's eval; one batched K2 (and partial sum) per fit and finetune
+    step; no single K2 launch (the members' single K1 launches are their
+    decodes)."""
     want = {"sine_mlp_fwd_batched": steps + evals + quant_steps + 1,
             "sine_mlp_bwd_batched": steps + quant_steps,
             "sum_partials_batched": steps + quant_steps,
-            "sine_mlp_dw_batched": steps + quant_steps if dw else 0,
-            "sine_mlp_bwd": 0, "sum_partials": 0, "sine_mlp_dw": 0}
+            "sine_mlp_bwd": 0, "sum_partials": 0}
     got = {k: launches[k] for k in want}
     if got != want or launches["sine_mlp_fwd"] <= 0:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
@@ -3667,7 +3513,7 @@ def phase_ladder_rigl(default_run: str) -> dict:
     evals = len([s for s in range(steps) if (s + 1) % int(cfg.train.log_steps) == 0
                  or s == steps - 1])
     print(f"{tag} {len(densities)} members in {seconds:.2f} s; launches {launches}", flush=True)
-    _check_ladder_launches(tag, launches, len(densities), steps, evals, q, dw=False)
+    _check_ladder_launches(tag, launches, len(densities), steps, evals, q)
     masks = _ladder_members("14a RigL", tag, dirs, summaries, densities, "density",
                             LADDER_DENSITY_TOL)
 
@@ -3731,7 +3577,7 @@ def phase_ladder_gmp() -> None:
     steps, q = int(cfg.train.num_steps), int(cfg.quant.num_steps)
     print(f"{tag} cut as 14a, masking.end_when 1500 -> 150; {len(densities)} members in "
           f"{seconds:.2f} s; launches {launches}", flush=True)
-    _check_ladder_launches(tag, launches, len(densities), steps, 2, q, dw=False)
+    _check_ladder_launches(tag, launches, len(densities), steps, 2, q)
     _ladder_members("14b GMP", tag, dirs, summaries, densities, "final_density",
                     GMP_DENSITY_TOL)
 
@@ -3780,11 +3626,8 @@ def phase_batched_compress() -> None:
 
 
 def phase_wide_ladder(width: int, part: str) -> dict:
-    """14d / 14e: a 2-member RigL ladder at w182 (kernel width 192: the
-    member-axis width-192 backward, which sums its dW itself) or at w256
-    (the member-axis wide backward and sine_mlp_dw), 20 steps."""
-    from implicit_image_tpu_torch.ops import sine_mlp as sm
-
+    """14d: a 2-member RigL ladder at w182 (kernel width 192: the
+    member-axis width-192 backward, which sums its dW itself), 20 steps."""
     tag = f"[14{part} wide ladder]"
     argv = [a if not a.startswith("mlp.hidden_size=") else f"mlp.hidden_size={width}"
             for a in WIDE_LADDER]
@@ -3792,16 +3635,15 @@ def phase_wide_ladder(width: int, part: str) -> dict:
     print(f"{tag} w{width}, {len(densities)} members in {seconds:.2f} s; launches "
           f"{launches}; decoded " + ", ".join(f"{s['Decoded PSNR']:.3f} dB" for s in summaries),
           flush=True)
-    _check_ladder_launches(tag, launches, len(densities), 20, 2, 5,
-                           dw=sm.kernel_width(width) in sm.DW_WIDTHS)
+    _check_ladder_launches(tag, launches, len(densities), 20, 2, 5)
     if not all(math.isfinite(s["Decoded PSNR"]) for s in summaries):
         raise AssertionError(f"{tag} a decoded PSNR is not finite")
     return launches
 
 
-def phase_layer_ladder() -> dict:
-    """14f: the 2-member RigL ladder of 14d at w640: the member-axis
-    layer-wise kernels, per fit and finetune step one K2 over the members
+def phase_layer_ladder(part: str) -> dict:
+    """14e / 14f: the 2-member RigL ladder of 14d at w256 / w640
+    (LAYER_LADDER_WIDTHS): the member-axis layer-wise kernels, per fit and finetune step one K2 over the members
     (depth launches of sine_mlp_layer_bwd_batched, depth - 2 of
     sine_mlp_layer_dw_batched, one sum_partials_batched) from the z stash
     that K1 over the members filled, sine_mlp_layer_fwd(_batched) in K1
@@ -3809,11 +3651,11 @@ def phase_layer_ladder() -> dict:
     finite. Returns the launch counts."""
     from implicit_image_tpu_torch.ops import sine_mlp as sm
 
-    tag, width = "[14f layer ladder]", LAYER_LADDER_WIDTH
+    tag, width = f"[14{part} layer ladder]", LAYER_LADDER_WIDTHS[part]
     argv = [a if not a.startswith("mlp.hidden_size=") else f"mlp.hidden_size={width}"
             for a in WIDE_LADDER]
     with _layer_forwards() as forwards:
-        cfg, densities, dirs, summaries, launches, seconds = _ladder_cli("14f layer", argv)
+        cfg, densities, dirs, summaries, launches, seconds = _ladder_cli(f"14{part} layer", argv)
     print(f"{tag} w{width}, {len(densities)} members in {seconds:.2f} s; K1 "
           f"{forwards['stash']} times with the stash, {forwards['plain']} without; launches "
           f"{launches}; decoded " + ", ".join(f"{s['Decoded PSNR']:.3f} dB" for s in summaries),
@@ -3834,14 +3676,13 @@ def phase_layer_ladder() -> dict:
 
 
 def phase_parallel(default_run: str) -> dict:
-    """Phase 14; returns the launches of the w128 (14a), w182 (14d) and
-    w256 (14e) ladders by width."""
+    """Phase 14; returns the launches of the w128 (14a), w182 (14d), w256
+    (14e) and w640 (14f) ladders by width."""
     rigl = phase_ladder_rigl(default_run)
     phase_ladder_gmp()
     phase_batched_compress()
     return {WIDTH: rigl, FINALS_WIDTH: phase_wide_ladder(FINALS_WIDTH, "d"),
-            DW_LADDER_WIDTH: phase_wide_ladder(DW_LADDER_WIDTH, "e"),
-            LAYER_LADDER_WIDTH: phase_layer_ladder()}
+            **{width: phase_layer_ladder(part) for part, width in LAYER_LADDER_WIDTHS.items()}}
 
 
 def phase_run_tools(default_run: str) -> dict:
@@ -4186,7 +4027,7 @@ def phase_fleet(yardsticks: str) -> None:
     seconds = time.perf_counter() - t0
     launches = dict(sm.LAUNCHES)
     steps, q = int(cfg.train.num_steps), int(cfg.quant.num_steps)
-    _check_ladder_launches(tag, launches, len(rows), steps, 2, q, dw=False)
+    _check_ladder_launches(tag, launches, len(rows), steps, 2, q)
     base = [a for a in FLEET_ARGV if not a.startswith("fleet.")]
     dirs = []
     for name, psnr, nbytes in rows:
@@ -4257,8 +4098,7 @@ def phase_api() -> None:
                                out_dir=f"{P16}_api/fleet")
     seconds = time.perf_counter() - t0
     launches = dict(sm.LAUNCHES)
-    _check_ladder_launches(f"{tag} compress_images", launches, len(imgs), API_BATCH_STEPS, 2, 10,
-                           dw=False)
+    _check_ladder_launches(f"{tag} compress_images", launches, len(imgs), API_BATCH_STEPS, 2, 10)
     dbs = [_psnr_db(r.decode(), src) for r, src in zip(many, imgs)]
     summary = json.loads((many[0].run_dir / "summary.json").read_text())
     print(f"{tag} compress_images of {len(imgs)} in {seconds:.2f} s (fit "
@@ -4999,8 +4839,7 @@ def phase_mixed_ladder(card: str) -> dict:
                                           f"{r.compressed_bytes} B" for d, r in zip(dens, res))
               + f"; launches {launches}; +mixed {mixed} ({card})", flush=True)
         want = {"sine_mlp_fwd_batched": steps + evals, "sine_mlp_bwd_batched": steps,
-                "sum_partials_batched": steps,
-                "sine_mlp_dw_batched": steps if sm.kernel_width(width) in sm.DW_WIDTHS else 0}
+                "sum_partials_batched": steps}
         if {k: mixed[k] for k in want} != want or any(
                 mixed[k] for k in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials")):
             raise AssertionError(f"{tag} +mixed launches {mixed}, expected {want}")
@@ -5544,12 +5383,15 @@ def main() -> int:
         records[width]["sine_mlp_fwd_batched"] = phase_batched_kernel(width)
         records[width].update(phase_batched_backward(width))
         records[width].update(phase_mixed_batched(width))
-    records[DW_LADDER_WIDTH]["sine_mlp_dw_batched"] = phase_batched_dw(DW_LADDER_WIDTH)
     layer_records = {width: phase_layer_kernels(width) for width in LAYER_WIDTHS}
+    for width in LAYER_PAIR_WIDTHS:
+        phase_layer_kernels(width, pairs_only=True)
     for width, recs in layer_records.items():
         records[width] = dict(recs["single"])
-    records[LAYER_LADDER_WIDTH].update(layer_records[LAYER_LADDER_WIDTH]["batched"])
+    for width in LAYER_LADDER_WIDTHS.values():
+        records[width].update(layer_records[width]["batched"])
     phase_layer_wide()
+    print(f"[3 kernels] phases 1-3 took {time.perf_counter() - started:.1f} s", flush=True)
     launches, dense_summary = phase_main_path()
     default_dir = phase_default_path(dense_summary)
     phase_presets()
@@ -5557,16 +5399,15 @@ def main() -> int:
     flagship_ms = phase_flagship()
     # the launches of each width on the path that runs it
     path_launches = {WIDTH: launches, FINALS_WIDTH: phase_finals(),
-                     **{width: phase_wide(width) for width in WIDE_OVERRIDES},
                      **{width: phase_layer_path(width) for width in LAYER_WIDTHS}}
     phase_families()
     phase_fit_options(compress_dir(SMOKE_OVERRIDES), default_dir)
     # K1 over a member axis launches on the batched decode of phase 13 (e)
     for width, count in phase_run_tools(default_dir).items():
         path_launches[width]["sine_mlp_fwd_batched"] = count
-    # K2 over a member axis launches on the ladders of phase 14 (a, d, e)
+    # K2 over a member axis launches on the ladders of phase 14 (a, d, e, f)
     for width, counts in phase_parallel(default_dir).items():
-        for name in ("sine_mlp_bwd_batched", "sine_mlp_dw_batched", "sum_partials_batched",
+        for name in ("sine_mlp_bwd_batched", "sum_partials_batched",
                      *(k + "_batched" for k in LAYER_KERNELS)):
             path_launches[width][name] = counts[name]
     phase_last_options(default_dir)
@@ -5579,9 +5420,8 @@ def main() -> int:
     sharded_launches = phase_multi_device(default_dir)
 
     sources = {"sine_mlp_fwd": 81, "sine_mlp_fwd_batched": 81, "sine_mlp_bwd": 128,
-               "sine_mlp_bwd_batched": 128, "sine_mlp_dw": 128, "sine_mlp_dw_batched": 128,
-               "sum_partials": 179, "sum_partials_batched": 179,
-               # the layer-wise kernels (widths above 512): K1's, K2's and its dW
+               "sine_mlp_bwd_batched": 128, "sum_partials": 179, "sum_partials_batched": 179,
+               # the layer-wise kernels (widths above 192): K1's, K2's and its dW
                "sine_mlp_layer_fwd": 81, "sine_mlp_layer_fwd_batched": 81,
                "sine_mlp_layer_bwd": 128, "sine_mlp_layer_bwd_batched": 128,
                "sine_mlp_layer_dw": 128, "sine_mlp_layer_dw_batched": 128,

@@ -3,9 +3,7 @@
 //
 // Replaces the two Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
 //   sine_mlp_fwd  <- _fwd_kernel / _fwd_call   (ops/sine_mlp.py:81-122)
-//   sine_mlp_bwd  <- _bwd_kernel / _bwd_call   (ops/sine_mlp.py:128-242);
-//                    at widths 256 and 512 sine_mlp_bwd_wide, with the
-//                    hidden layers' dW in sine_mlp_dw
+//   sine_mlp_bwd  <- _bwd_kernel / _bwd_call   (ops/sine_mlp.py:128-242)
 //   sum_partials  <- the TPU's sequential accumulation of dW/db across grid
 //                    steps, which has no counterpart between parallel blocks
 //
@@ -103,13 +101,11 @@
 // tools/kernel_breakdown.py knocks out the parts; PERF.md has the times.
 //
 // Widths: the designs above are the width-128 kernels' (every model of
-// width <= 128 runs on them, zero-padded). Widths 129-512 run on the wider
-// kernels of width 192, 256 and 512, which stream each W in slices: at 192
-// the forward and the backward are on wgmma and the backward sums its dW;
-// at 256 and 512 the forward and backward are on mma.sync and the backward
-// leaves the hidden layers' dW to sine_mlp_dw (sections "the wider
-// kernels", "the width-192 backward", "the width-192 forward" and
-// "sine_mlp_dw" below).
+// width <= 128 runs on them, zero-padded). Widths 129-192 run on the
+// kernels of width 192, on wgmma, which stream each W in slices and whose
+// backward sums its dW (sections "the width-192 kernels", "the width-192
+// backward" and "the width-192 forward" below); every width above 192 on
+// the layer-wise kernels, a launch a layer ("the layer-wise kernels").
 //
 // Backward: blocks run in parallel with no carry between them, so a fixed
 // grid of one block per SM loops over its share of tiles, adding into its
@@ -138,12 +134,11 @@
 // from shared memory (MemberFwd), as the batched backward does.
 // The backward over a member axis (sine_mlp_bwd_batched, the jax.vmap of
 // K2 in the batched fit and the density ladder) is the same: an MB
-// instantiation of sine_mlp_bwd_kernel, sine_mlp_bwd_wide_kernel and
-// sine_mlp_dw_kernel, grid y = member (sum_partials_kernel's MB
-// instantiation too, or the members' columns as one flat range: its
-// note). Member m's g and dx sit m * n * out and m * n * in floats on, its
-// z stash and partial slices m * gridDim.x slices on, its dW operands m
-// (D-2, n, W) blocks on;
+// instantiation of sine_mlp_bwd_kernel and sine_mlp_bwd_wg192_kernel, grid
+// y = member (sum_partials_kernel's MB instantiation too, or the members'
+// columns as one flat range: its note). Member m's g and dx sit m * n * out
+// and m * n * in floats on, its z stash and partial slices m * gridDim.x
+// slices on;
 // sum_partials adds each member's slices in the single launch's order. Each
 // member gets its single launch's bits, in every mode, as the forward.
 //
@@ -154,10 +149,11 @@
 // Every launcher returns the cudaError_t of its launch (0 on success).
 //
 // The library is this file compiled in parts, all at once, and linked
-// (ops/cuda_build.py): with -DSINE_MLP_WIDE=W (a width of SINE_MLP_WIDE_GEOS) and
-// -DSINE_MLP_PART=0, 1 or 2, the forward, backward or sine_mlp_dw kernels of
-// width W and their C launcher; without, the width-128 kernels,
-// sum_partials and the C interface, which calls those launchers.
+// (ops/cuda_build.py): with -DSINE_MLP_WIDE=192 (the width of
+// SINE_MLP_WIDE_GEOS) and -DSINE_MLP_PART=0 or 1, the forward or backward
+// kernels of width 192 and their C launcher; with -DSINE_MLP_LAYER=0, 1 or
+// 2, a layer-wise kernel and its launcher; without, the width-128 kernels,
+// sum_partials and the C interface, which calls the width-192 launchers.
 
 #include <cuda.h>  // the tensor-map types (the encoder comes through the runtime)
 #include <cuda_bf16.h>
@@ -178,6 +174,7 @@ constexpr int BUF = T * H;      // floats in one shared matrix buffer
 constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
 constexpr int MAX_IO = 8;       // largest input / output width
 constexpr int kMaxRows = INT_MAX - 127;  // rows a forward launch takes (see the top)
+constexpr size_t kMaxSmem = 232448;      // a block's shared memory on sm_90
 static_assert(T == H, "one buffer size serves activations and weights");
 
 // The geometry of a kernel width: HW hidden units, TR pixel rows per tile,
@@ -198,18 +195,14 @@ struct Geo {
 };
 using G128 = Geo<H, T, H>;  // the width-128 kernels: a ring slice is a whole W
 static_assert(G128::THREADS == THREADS && G128::BUF == BUF && G128::SLICE == BUF, "");
-// Wider kernels (below). X(width, backward tile rows, ring slice rows and
-// ring slices) for each: the one list of the wider widths
-// (ops/sine_mlp.KERNEL_TILE_ROWS mirrors width and backward tile rows).
-#define SINE_MLP_WIDE_GEOS(X) X(192, 64, 64, 2) X(256, 64, 32, 2) X(512, 32, 16, 2)
-// The mma.sync forward's (sine_mlp_fwd_wide_kernel's) widths, X(width, tile
-// rows, ring slice rows, ring slices); at 192 the forward is the wgmma
-// kernel sine_mlp_fwd_wg192_kernel, with a geometry of its own.
-#define SINE_MLP_WIDE_FWD_GEOS(X) X(256, 96, 32, 3) X(512, 32, 16, 4)
+// The fused kernels above width 128 ("the width-192 kernels" below).
+// X(width, backward tile rows, ring slice rows and ring slices) for each: the
+// one list of the wider fused widths (ops/sine_mlp.KERNEL_TILE_ROWS mirrors
+// width and backward tile rows); every width above the last runs on the
+// layer-wise kernels (LW_MIN).
+#define SINE_MLP_WIDE_GEOS(X) X(192, 64, 64, 2)
 template <int W>
 struct WideGeo;  // the backward's geometry of each listed width; no other width has one
-template <int W>
-struct WideFwdGeo;  // the mma.sync forward's
 #define SINE_MLP_GEO(W, TR, KS, NB) \
   template <>                       \
   struct WideGeo<W> {               \
@@ -217,18 +210,11 @@ struct WideFwdGeo;  // the mma.sync forward's
   };
 SINE_MLP_WIDE_GEOS(SINE_MLP_GEO)
 #undef SINE_MLP_GEO
-#define SINE_MLP_GEO(W, TR, KS, NB) \
-  template <>                       \
-  struct WideFwdGeo<W> {            \
-    using fwd = Geo<W, TR, KS, NB>; \
-  };
-SINE_MLP_WIDE_FWD_GEOS(SINE_MLP_GEO)
-#undef SINE_MLP_GEO
 
 struct Chain {
   const float* w0;   // (in, H)
   const float* wm;   // (D-2, H, H)
-  const float* wmt;  // (D-2, H, H), each W transposed (wider kernels' backward)
+  const float* wmt;  // W's bf16 planes (ops/sine_mlp.weight_planes): the wgmma kernels' B
   const float* wl;   // (H, out)
   const float* bs;   // (D-1, H)
   const float* bl;   // (out,)
@@ -267,20 +253,17 @@ __device__ __forceinline__ void member_fwd(MemberFwd& mf, const Chain& c, const 
 }
 
 // A batched backward's member (MB), in shared memory: its chain (weights
-// packed at the kernel width HW, and W^T where the wider kernels read it), x
-// at x_stride floats per member, g and dx at n * out_size and n * in_size,
-// and the wider kernels' dW operands at (D-2, n, HW) floats per member. The
-// kernels read these pointers where they use them: held in registers for
-// the whole kernel, as the batched forward holds its own, they made ptxas
-// spill the batched backward (up to 364 B a thread at width 512) where the
-// single launch reads them from its parameters.
+// packed at the kernel width HW; the kernels find their member's W planes
+// from the launch's own pointer), x at x_stride floats per member, g and dx at n * out_size and n * in_size. The kernels read these
+// pointers where they use them: held in registers for the whole kernel, as
+// the batched forward holds its own, they made ptxas spill the batched
+// backward (up to 364 B a thread at width 512, in an earlier kernel) where
+// the single launch reads them from its parameters.
 struct MemberBwd {
   Chain c;
   const float* x;
   const float* g;
   float* dx;
-  float* dw_a;
-  float* dw_g;
 };
 
 // Thread 0 fills mb for member blockIdx.y; every thread moves its z stash and
@@ -288,25 +271,20 @@ struct MemberBwd {
 // layer). Call before anything reads mb or these, then __syncthreads.
 template <int HW, int TR, class PZ, class PP>
 __device__ __forceinline__ void member_bwd(MemberBwd& mb, const Chain& c, const float* x,
-                                           const float* g, float* dx, float* dw_a,
-                                           float* dw_g, PZ& z_all, PP& partials, int n_part,
-                                           long long x_stride) {
+                                           const float* g, float* dx, PZ& z_all, PP& partials,
+                                           int n_part, long long x_stride) {
   const long long m = blockIdx.y;
   const int L = c.depth - 2;
   if (threadIdx.x == 0) {
     const long long wm = m * (L > 0 ? L : 1) * (long long)HW * HW;
-    const long long ops = m * (L > 0 ? L : 1) * (long long)c.n * HW;
     mb.c = c;
     mb.c.w0 += m * c.in_size * HW;
     mb.c.wm += wm;
-    if (c.wmt != nullptr) mb.c.wmt += wm;
     mb.c.wl += m * HW * c.out_size;
     mb.c.bs += m * (c.depth - 1) * HW;
     mb.x = x + m * x_stride;
     mb.g = g + m * c.n * (long long)c.out_size;
     mb.dx = dx + m * c.n * (long long)c.in_size;
-    mb.dw_a = dw_a != nullptr ? dw_a + ops : nullptr;
-    mb.dw_g = dw_g != nullptr ? dw_g + ops : nullptr;
   }
   z_all += m * gridDim.x * (L > 1 ? L - 1 : 1) * (long long)TR * HW;
   partials += m * gridDim.x * (long long)n_part;
@@ -328,7 +306,7 @@ __device__ __forceinline__ float rnd(float v) {
 // An activation as the chain keeps it: rounded to bf16 in the bf16 mode and
 // under mixed precision (MX, the JAX package's compute_dtype=bfloat16),
 // which casts every activation to bf16, and so the cotangent of each in the
-// backward (store_gz), in either mode; the wrappers round x, W, b on the way
+// backward, in either mode; the wrappers round x, W, b on the way
 // in and dW, db on the way out. MX is a template flag, not a runtime one:
 // the kernels without it keep their registers (a runtime flag made the fp32
 // backward spill and run 13-26% slower on an H100) and their bits.
@@ -339,322 +317,17 @@ __device__ __forceinline__ float rnd_act(float v) {
 
 // ------------------------------------------------------------------ PTX
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) { return iit::smem_u32(p); }
-using iit::mbar_init;
-using iit::mbar_wait;
-
-// Rounding by integer operations on the bits: cvt (F2F) issues at a
-// quarter of the integer rate on sm_90, and every operand value is rounded.
-// TF32 nearest, ties away from zero, as cvt.rna.tf32.f32:
-__device__ __forceinline__ uint32_t tf32(uint32_t bits) { return (bits + 0x1000u) & 0xffffe000u; }
-// bf16 nearest, ties to even, as __float2bfloat16_rn (finite values):
-__device__ __forceinline__ uint32_t bf16(uint32_t bits) {
-  return (bits + 0x7fffu + ((bits >> 16) & 1u)) & 0xffff0000u;
-}
-
-// The operand as the product takes it. fp32 mode: hi = tf32(x) and lo =
-// tf32(x - hi), both rounded. (Passing x - hi whole lets the tensor core
-// drop its low bits: a one-sided error on every product that passed the
-// one-shot checks but cost the dense protocol 1.2 dB on an H100, PERF.md.)
-// bf16 mode: bf16(x), where x is not a bf16 value already (ROUND).
-template <bool BF16, bool ROUND = true>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if (BF16) {
-    hi = ROUND ? bf16(__float_as_uint(x)) : __float_as_uint(x);
-    lo = 0u;
-  } else {
-    hi = tf32(__float_as_uint(x));
-    lo = tf32(__float_as_uint(x - __uint_as_float(hi)));
-  }
-}
-
 // Element (r, c) of a T x H matrix in shared memory. Rows are not padded;
 // 8-float pieces of a row are permuted by an XOR of column bits 3-4 with
 // h(r & 7) = 2 b1 + (b0 ^ b2), which takes 4 distinct values on rows
-// {0-3}, {4-7}, {0,2,4,6} and {1,3,5,7}: so a warp's fragment loads (rows
-// from the lane's group g and column pairs from its index t, or rows
-// from t and columns from g, see load_frag) hit 32 different banks.
-// Row strides S other than H (the wider kernels) are multiples of 32
-// floats, so every row starts on bank 0 and the pattern holds.
+// {0-3}, {4-7}, {0,2,4,6} and {1,3,5,7}: so a warp's loads of rows from
+// the lane's group g and column pairs from its index t, or rows from t and
+// columns from g, hit 32 different banks. Row strides S other than H are
+// multiples of 32 floats, so every row starts on bank 0 and the pattern
+// holds.
 __device__ __forceinline__ int swz(int r) { return ((r & 2) << 3) | (((r ^ (r >> 2)) & 1) << 3); }
 template <int S = H>
 __device__ __forceinline__ int sw(int r, int c) { return r * S + (c ^ swz(r)); }
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The weight buffers and their mbarriers (two at width 128, each a whole
-// W; G::NB slices of G::KS rows of W in the wider kernels; sine_mlp_dw's
-// chunks of its two operands). Every thread runs the same issue / wait
-// sequence, so the phase and pending bits stay uniform.
-template <class G>
-struct RingT {
-  float* base;  // buffer b at base + b * G::SLICE
-  uint64_t* bar;
-  uint32_t phase = 0, pending = 0;
-
-  __device__ __forceinline__ float* buf(int b) const { return base + b * G::SLICE; }
-
-  // Copy G::KS rows of W (of G::H fp32 each, device memory) into buffer b
-  // in the sw() layout: every thread copies its 16-byte chunks with
-  // cp.async, then the mbarrier counts the thread's arrival when they have
-  // landed. Call after a barrier, so the block is done with the buffer.
-  __device__ __forceinline__ void issue(int b, const float* __restrict__ w) {
-    float* dst = buf(b);
-#pragma unroll 4
-    for (int e = threadIdx.x; e < G::SLICE / 4; e += G::THREADS) {
-      const int r = e / (G::H / 4), c = 4 * (e % (G::H / 4));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                   ::"r"(smem_addr(dst + sw<G::H>(r, c))), "l"(w + r * G::H + c) : "memory");
-    }
-    arrive(b);
-  }
-
-  // Buffer b's mbarrier counts the thread's arrival when its copies so far
-  // have landed.
-  __device__ __forceinline__ void arrive(int b) {
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
-                 ::"r"(smem_addr(bar + b)) : "memory");
-    pending |= 1u << b;
-  }
-
-  // Wait for buffer b's copy, if one is in flight.
-  __device__ __forceinline__ void wait(int b) {
-    if (pending & (1u << b)) {
-      mbar_wait(bar + b, (phase >> b) & 1u);
-      phase ^= 1u << b;
-      pending &= ~(1u << b);
-    }
-  }
-};
-
-// Copy a stashed z tile (T x H, already in the sw() layout) into shared
-// memory with cp.async; the mbarrier counts each thread's arrival when its
-// copies (and any earlier ones) have landed.
-template <class G = G128>
-__device__ __forceinline__ void copy_tile(float* __restrict__ dst, const float* __restrict__ src,
-                                          uint64_t* bar) {
-#pragma unroll 4
-  for (int e = threadIdx.x; e < G::BUF / 4; e += G::THREADS)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 ::"r"(smem_addr(dst + 4 * e)), "l"(src + 4 * e) : "memory");
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
-               ::"r"(smem_addr(bar)) : "memory");
-}
-
-// ------------------------------------------------------- the layer block
-//
-// A warp's share of a 128 x 128 product (a T x H one in the wider kernels,
-// with cg = H / 64 warps across its columns): rows m0..m0+31, columns
-// n0..n0+63, as 2 x 8 m16n8 tiles. acc[mi][ni][q] is the element at
-//   row m0 + 16 mi + g + 8 (q >> 1),  column n0 + 8 ni + 2 t + (q & 1)
-// with g = lane / 4 and t = lane % 4 (the mma's accumulator layout).
-
-struct Warp {
-  int m0, n0, lane, g, t;
-  __device__ __forceinline__ explicit Warp(int tid, int cg = 2)
-      : m0(32 * ((tid >> 5) / cg)), n0(64 * ((tid >> 5) % cg)), lane(tid & 31),
-        g((tid & 31) >> 2), t(tid & 3) {}
-  __device__ __forceinline__ int row(int mi, int q) const { return m0 + 16 * mi + g + 8 * (q >> 1); }
-  __device__ __forceinline__ int col(int ni) const { return n0 + 8 * ni + 2 * t; }
-};
-
-using Acc = float[2][8][4];
-
-__device__ __forceinline__ void zero(Acc acc) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-}
-
-// The raw operand values of one k-step of 8: a[mi][q] and b[ni][q] in the
-// mma's fragment order. Within the step, logical k = t + 4 q sits at
-// physical k0 + 2 t + q (any permutation of k shared by A and B leaves the
-// product unchanged), so a fragment whose row comes from g loads its two
-// k values with one 8-byte access.
-struct Frag {
-  float a[2][4];
-  float b[8][2];
-};
-
-// Per-lane pointers that turn every fragment load of a product into a
-// pointer plus a compile-time offset. sw() flips column bits 3-4 by a
-// function of the row's low 3 bits, which is fixed per lane in both
-// patterns, so 4 (or 2 x 4) pointers cover the four values of bits 3-4.
-// S is the matrix's row stride (H, or the wider kernels' width).
-//   Rows(M, r0): element pair (r0 + g + rr, k0 + 2t), r0, rr, k0 multiples
-//     of 8: p[(k0 >> 3) & 3] + rr * S + (k0 & ~24).
-//   Cols(M, c0): element (k0 + 2t + q, c0 + cc + g), c0 a multiple of 32,
-//     cc and k0 of 8: p[q][(cc >> 3) & 3] + k0 * S + (cc & ~24).
-template <int S = H>
-struct Rows {
-  const float* p[4];
-  __device__ __forceinline__ Rows(const float* m, int r0, const Warp& w) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[j] = m + (r0 + w.g) * S + 2 * w.t + ((8 * j) ^ swz(w.g));
-  }
-  __device__ __forceinline__ float2 at(int rr, int k0) const {
-    return *reinterpret_cast<const float2*>(p[(k0 >> 3) & 3] + rr * S + (k0 & ~24));
-  }
-};
-template <int S = H>
-struct Cols {
-  const float* p[2][4];
-  __device__ __forceinline__ Cols(const float* m, int c0, const Warp& w) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        p[q][j] = m + (2 * w.t + q) * S + c0 + w.g + ((8 * j) ^ swz(2 * w.t + q));
-  }
-  __device__ __forceinline__ float at(int q, int cc, int k0) const {
-    return p[q][(cc >> 3) & 3][k0 * S + (cc & ~24)];
-  }
-};
-
-// A(m, k) = A_T ? A[k][m] : A[m][k],  B(k, n) = B_T ? B[n][k] : B[k][n];
-// PA / PB are Rows or Cols to match. A's k-step starts at ka, B's at kb.
-template <bool A_T, bool B_T, class PA, class PB>
-__device__ __forceinline__ void load_frag(Frag& f, const PA& pa, const PB& pb, int ka, int kb) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    if constexpr (A_T) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) f.a[mi][q] = pa.at(q >> 1, 16 * mi + 8 * (q & 1), ka);
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 v = pa.at(16 * mi + 8 * h, ka);
-        f.a[mi][h] = v.x;
-        f.a[mi][h + 2] = v.y;
-      }
-    }
-  }
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    if constexpr (B_T) {
-      const float2 v = pb.at(8 * ni, kb);
-      f.b[ni][0] = v.x;
-      f.b[ni][1] = v.y;
-    } else {
-      f.b[ni][0] = pb.at(0, 8 * ni, kb);
-      f.b[ni][1] = pb.at(1, 8 * ni, kb);
-    }
-  }
-}
-
-// The products of one k-step on all 16 tiles, from split operands. Each
-// pass runs over every tile before the next pass starts, so no product
-// waits on the one just issued to the same accumulator.
-template <bool BF16>
-__device__ __forceinline__ void mma_passes(Acc acc, const uint32_t ah[2][4],
-                                           const uint32_t al[2][4], const uint32_t bh[8][2],
-                                           const uint32_t bl[8][2]) {
-  if (!BF16) {  // small terms first
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
-  }
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
-}
-
-// One k-step on all 16 tiles. In bf16 mode the activations and gz are
-// stored rounded already; only W (B_IS_W) is rounded here.
-template <bool BF16, bool B_IS_W>
-__device__ __forceinline__ void mma_step(Acc acc, const Frag& f) {
-  uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) split<BF16, false>(f.a[mi][q], ah[mi][q], al[mi][q]);
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) split<BF16, B_IS_W>(f.b[ni][q], bh[ni][q], bl[ni][q]);
-  mma_passes<BF16>(acc, ah, al, bh, bl);
-}
-
-// The wider kernels' product: acc += A B over K = K_STEPS, A of row stride
-// SA (rows from a0 = the warp's m0, or A_T: columns from a0, a multiple of
-// 32) with its k-steps from ka, B a K_STEPS-row matrix of row stride SB (a
-// ring slice, or a chunk) read from k = 0. B_IS_W: B holds weights (rounded
-// here in bf16 mode). a.W and gz.W^T (W^T's rows in the ring) are <false,
-// true>, sine_mlp_dw's a^T.gz <true, false>. PREFETCH loads the next
-// k-step's operands while this one's products issue (24 more registers);
-// without, the other warps of the SM hide the loads. Either way each
-// accumulator takes its k-steps in the same order.
-template <bool BF16, bool A_T, bool B_IS_W, int SA, int SB, int K_STEPS, bool PREFETCH = true>
-__device__ __forceinline__ void warp_mma_k(Acc acc, const float* __restrict__ A, int a0, int ka,
-                                           const float* __restrict__ B, const Warp& w) {
-  using PA = std::conditional_t<A_T, Cols<SA>, Rows<SA>>;
-  const PA pa(A, a0, w);
-  const Cols<SB> pb(B, w.n0, w);
-  if constexpr (PREFETCH) {
-    Frag f[2];
-    load_frag<A_T, false>(f[0], pa, pb, ka, 0);
-#pragma unroll
-    for (int k0 = 0; k0 < K_STEPS; k0 += 16) {
-      load_frag<A_T, false>(f[1], pa, pb, ka + k0 + 8, k0 + 8);
-      mma_step<BF16, B_IS_W>(acc, f[0]);
-      if (k0 + 16 < K_STEPS) load_frag<A_T, false>(f[0], pa, pb, ka + k0 + 16, k0 + 16);
-      mma_step<BF16, B_IS_W>(acc, f[1]);
-    }
-  } else {
-#pragma unroll
-    for (int k0 = 0; k0 < K_STEPS; k0 += 8) {
-      Frag f;
-      load_frag<A_T, false>(f, pa, pb, ka + k0, k0);
-      mma_step<BF16, B_IS_W>(acc, f);
-    }
-  }
-}
-
-// What a sine layer's epilogue keeps besides a = rnd(sin(omega z)) in a_s.
-enum Keep { kNothing, kStashZ, kDerivative };
-
-// z = acc + bias. a_s gets rnd(sin(omega z)) (rounded also under MX);
-// kStashZ also stores z at z_g (T x H, in the sw() layout: an image of a
-// shared tile), kDerivative leaves omega cos(omega z) in acc.
-template <bool BF16, bool MX, Keep KEEP, int S = H>
-__device__ __forceinline__ void sine_epilogue(Acc acc, const float* __restrict__ bias, float omega,
-                                              float* __restrict__ a_s, float* __restrict__ z_g,
-                                              const Warp& w) {
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    const int c = w.col(ni);
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + c));
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = w.row(mi, 2 * h);
-        const float z0 = acc[mi][ni][2 * h] + b.x, z1 = acc[mi][ni][2 * h + 1] + b.y;
-        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw<S>(r, c)]) = make_float2(z0, z1);
-        if (KEEP == kDerivative) {
-          acc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z0);
-          acc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z1);
-        }
-        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) = make_float2(
-            rnd_act<BF16, MX>(iit::fast_sin(omega * z0)), rnd_act<BF16, MX>(iit::fast_sin(omega * z1)));
-      }
-  }
-}
 
 // Stage T rows of a (n, width) input into dst (T x MAX_IO), zero beyond n
 // rows and width columns.
@@ -665,32 +338,6 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const float*
     const int r = e / MAX_IO, k = e % MAX_IO;
     const int row = row0 + r;
     dst[e] = (row < n && k < width) ? rnd<BF16>(src[(size_t)row * width + k]) : 0.f;
-  }
-}
-
-// First layer, K = in_size: acc = x_s W_0 (FMA) at the warp's positions.
-template <bool BF16, int S = H>
-__device__ __forceinline__ void first_layer(Acc acc, const Chain& c, const float* __restrict__ x_s,
-                                            const Warp& w) {
-  zero(acc);
-  for (int k = 0; k < c.in_size; ++k) {
-    float xv[2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) xv[mi][h] = x_s[w.row(mi, 2 * h) * MAX_IO + k];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const float2 wv = __ldg(reinterpret_cast<const float2*>(c.w0 + k * S + w.col(ni)));
-      const float w0 = rnd<BF16>(wv.x), w1 = rnd<BF16>(wv.y);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          acc[mi][ni][2 * h] += xv[mi][h] * w0;
-          acc[mi][ni][2 * h + 1] += xv[mi][h] * w1;
-        }
-    }
   }
 }
 
@@ -735,171 +382,6 @@ __device__ __forceinline__ void rows_times_narrow(const float* __restrict__ src_
       }
     }
     if (lane < no && row0 + r < n) dst[(size_t)(row0 + r) * no + lane] = mine + b;
-  }
-}
-
-template <int NT = THREADS>
-__device__ __forceinline__ void init_barriers(uint64_t* bar, int count) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < count; ++i) mbar_init(bar + i, NT);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// ------------------------------------------------------------ backward
-
-// acc = the H x H partial dw at the warp's positions, or acc -> dw.
-template <bool LOAD, int S = H>
-__device__ __forceinline__ void move_partial(Acc acc, float* __restrict__ dw, const Warp& w) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float2* p = reinterpret_cast<float2*>(&dw[w.row(mi, 2 * h) * S + w.col(ni)]);
-        if (LOAD) {
-          const float2 v = *p;
-          acc[mi][ni][2 * h] = v.x;
-          acc[mi][ni][2 * h + 1] = v.y;
-        } else {
-          *p = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-        }
-      }
-}
-
-// a_s = rnd(sin(omega z)) and dc = omega cos(omega z), with z in a_s
-// itself (copied there from the stash), or (FROM_DC) z = dc + bias where
-// dc holds x W_0. Each thread reads and writes only its own positions.
-template <bool BF16, bool MX, bool FROM_DC, int S = H>
-__device__ __forceinline__ void resine(Acc dc, const float* __restrict__ bias, float omega,
-                                       float* __restrict__ a_s, const Warp& w) {
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    const int c = w.col(ni);
-    const float2 b = FROM_DC ? __ldg(reinterpret_cast<const float2*>(bias + c)) : make_float2(0.f, 0.f);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = w.row(mi, 2 * h);
-        const float2 z = FROM_DC ? make_float2(dc[mi][ni][2 * h] + b.x, dc[mi][ni][2 * h + 1] + b.y)
-                                 : *reinterpret_cast<const float2*>(&a_s[sw<S>(r, c)]);
-        dc[mi][ni][2 * h] = omega * iit::fast_cos(omega * z.x);
-        dc[mi][ni][2 * h + 1] = omega * iit::fast_cos(omega * z.y);
-        *reinterpret_cast<float2*>(&a_s[sw<S>(r, c)]) = make_float2(
-            rnd_act<BF16, MX>(iit::fast_sin(omega * z.x)), rnd_act<BF16, MX>(iit::fast_sin(omega * z.y)));
-      }
-  }
-}
-
-// gz = ga * dc (ga rounded to bf16 first under MX), in place in ga. Then
-// red[row group][col] = the sum of gz over the warp's 32 rows (fp32; four
-// fixed-order terms, then shuffles across the lanes that share a column),
-// and g_s = rnd(gz).
-template <bool BF16, bool MX, int S = H>
-__device__ __forceinline__ void store_gz(Acc ga, const Acc dc, float* __restrict__ g_s,
-                                         float* __restrict__ red, const Warp& w) {
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    float s[2];
-#pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          ga[mi][ni][2 * h + cc] = rnd<MX>(ga[mi][ni][2 * h + cc]) * dc[mi][ni][2 * h + cc];
-      float v = (ga[0][ni][cc] + ga[0][ni][2 + cc]) + (ga[1][ni][cc] + ga[1][ni][2 + cc]);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      s[cc] = v;
-    }
-    if (w.g == 0)
-      *reinterpret_cast<float2*>(&red[(w.m0 / 32) * S + w.col(ni)]) = make_float2(s[0], s[1]);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(&g_s[sw<S>(w.row(mi, 2 * h), w.col(ni))]) =
-            make_float2(rnd<BF16>(ga[mi][ni][2 * h]), rnd<BF16>(ga[mi][ni][2 * h + 1]));
-  }
-}
-
-// db += the T / 32 row groups' sums in red, in order. Call after a barrier.
-template <class G = G128>
-__device__ __forceinline__ void add_bias_grad(const float* __restrict__ red, float* __restrict__ db,
-                                              int tid) {
-  for (int c = tid; c < G::H; c += G::THREADS) {
-    float s = red[c];
-#pragma unroll
-    for (int q = 1; q < G::T / 32; ++q) s += red[q * G::H + c];
-    db[c] += s;
-  }
-}
-
-// The last layer's share of the backward: dWl += a_L^T rnd(g) and
-// dbl += sum g over the tile, and acc = rnd(g) Wl^T at the warp's positions
-// (gz_L before the sine derivative). Reads a_s and go_s.
-template <bool BF16, class G = G128>
-__device__ __forceinline__ void last_layer_grads(Acc acc, const Chain& c,
-                                                 const float* __restrict__ a_s,
-                                                 const float* __restrict__ go_s,
-                                                 float* __restrict__ dwl, float* __restrict__ dbl,
-                                                 const Warp& w, int tid) {
-  const int out_size = c.out_size;
-  for (int e = tid; e < G::H * out_size; e += G::THREADS) {
-    const int k = e % G::H, o = e / G::H;
-    float s = 0.f;
-    for (int r = 0; r < G::T; ++r) s += a_s[sw<G::H>(r, k)] * rnd<BF16>(go_s[r * MAX_IO + o]);
-    dwl[k * out_size + o] += s;
-  }
-  for (int o = tid >> 5; o < out_size; o += G::WARPS) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < G::T / 32; ++j) s += go_s[(w.lane + 32 * j) * MAX_IO + o];
-    s = warp_sum(s);
-    if (w.lane == 0) dbl[o] += s;
-  }
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
-      const int col = w.col(ni) + cc;
-      float wv[MAX_IO];
-#pragma unroll
-      for (int o = 0; o < MAX_IO; ++o)
-        wv[o] = o < out_size ? rnd<BF16>(__ldg(&c.wl[col * out_size + o])) : 0.f;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = w.row(mi, 2 * h);
-          float s = 0.f;
-#pragma unroll
-          for (int o = 0; o < MAX_IO; ++o)
-            if (o < out_size) s += rnd<BF16>(go_s[r * MAX_IO + o]) * wv[o];
-          acc[mi][ni][2 * h + cc] = s;
-        }
-    }
-}
-
-// The first layer's weight and bias gradients: db0 += the bias sums of gz_0
-// in red, dW0 += x^T gz_0 over the tile. Call after a barrier.
-template <class G = G128>
-__device__ __forceinline__ void first_layer_grads(const float* __restrict__ x_s,
-                                                  const float* __restrict__ g_s,
-                                                  const float* __restrict__ red,
-                                                  float* __restrict__ dw0, float* __restrict__ db0,
-                                                  int in_size, int tid) {
-  add_bias_grad<G>(red, db0, tid);
-  for (int e = tid; e < in_size * G::H; e += G::THREADS) {
-    const int k = e / G::H, col = e % G::H;
-    float s = 0.f;
-    for (int r = 0; r < G::T; ++r) s += x_s[r * MAX_IO + k] * g_s[sw<G::H>(r, col)];
-    dw0[e] += s;
   }
 }
 
@@ -1379,7 +861,7 @@ sine_mlp_bwd_kernel(Chain c_arg, const float* __restrict__ x, const float* __res
   using P = BwPlanes<BF16, MX>;
   __shared__ MemberBwd mb;
   if constexpr (MB) {
-    member_bwd<H, T>(mb, c_arg, x, g, dx, nullptr, nullptr, z_all, partials, n_part, x_stride);
+    member_bwd<H, T>(mb, c_arg, x, g, dx, z_all, partials, n_part, x_stride);
     __syncthreads();
   }
   const Chain& c = chain_of<MB>(mb, c_arg);
@@ -1643,50 +1125,20 @@ sine_mlp_fwd_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict_
   }
 }
 
-// ------------------------------------------------- the wider kernels
+// ------------------------------------------------- the width-192 kernels
 //
-// Widths 129-512 run on kernels of width 192, 256 or 512: the model's width
-// zero-padded to the next of them (padded units stay exactly 0, as
-// sin(0) = 0). The mma shapes need only multiples of 8 and 16, so the pad
-// is to 64, not to the TPU's 128 lanes: w182 runs as 192, 90% of its
-// products useful (at 256, 51%). One fp32 W is 144-1024 KB there, more
-// than a block's 227 KB of shared memory beside the activations, so each
-// hidden W streams through a ring of G::KS-row slices. A slice of W's rows
-// is a K-slice of a.W; for ga = gz W^T the ring carries rows of W^T (the
-// wrapper passes W^T beside W), a K-slice of the same form, so one product
-// serves both. A warp holds a 32 x 64 piece of a tile, as at 128, and
-// everything but the products (epilogues, z stash, bias sums, first and
-// last layers) is the width-128 kernels' code at the wider geometry, with
-// the same fixed orders and no atomics.
-//
-// What bounds them at 512^2, d8: the 3xTF32 products (per backward 2.1 /
-// 3.8 / 15 ms at widths 192 / 256 / 512 at 495 TFLOP/s; mma.sync reaches
-// ~300 on an H100), the traffic of dW, and how many rows each slice of W
-// read from L2 serves.
-// - Forward at 256 and 512 (sine_mlp_fwd_wide_kernel, geometry
-//   WideFwdGeo<W>::fwd; at 192 the forward is "the width-192 forward"
-//   below): 96-row tiles at 256 (12 warps; 32-row slices, 3 deep: 64-row
-//   ones would need 16 bytes more than 227 KB), 32 at 512 (8 warps; 16-row
-//   slices, 4 deep). The first design's 64-row tiles and 6-8 warps read
-//   each slice for two thirds the rows. 12 warps leave a thread 168
-//   registers, so their products do not prefetch operands; the other warps
-//   hide the loads. 64 rows at 512 would take 16 warps of 128 registers,
-//   too few for a warp's 64 accumulators beside the 3xTF32 operands. Each
-//   accumulator takes its k-steps in the first design's order: the forward
-//   keeps its bits.
-// - Backward at 256 and 512 (sine_mlp_bwd_wide_kernel, WideGeo<W>::bwd):
-//   64-row tiles (32 at 512), a 2-deep ring of 32-row slices (16 at 512),
-//   the width-128 kernel's order. Two accumulator sets (a product's and
-//   the sine derivative's) fill a thread's 255 registers, so 8 warps (a 64
-//   x 256 tile) is the most a block can hold. dW_l = a_{l-1}^T gz_l (H x
-//   H, l = 1 .. L) is not summed here: the first design added each tile's
-//   a^T gz into the block's partial in H / T pieces, a synchronous
-//   read-modify-write of N / T x L x H^2 x 8 bytes per backward (12.9 / 103
-//   GB at widths 256 / 512, partials of 210 MB and more: HBM, not L2). The
-//   kernel instead stores the product's two operands once, A_l =
-//   rnd(a_{l-1}) and G_l = rnd(gz_l), row-major (L, N, H), with 16-byte
-//   stores, and sine_mlp_dw_kernel (below) sums A_l^T G_l over rows. The
-//   block's partial slice holds everything else as before.
+// Widths 129-192 run on the kernels of width 192, the model's width
+// zero-padded to it (padded units stay exactly 0, as sin(0) = 0): the
+// finals' w182 keeps 90% of its products useful. One fp32 W is 144 KB
+// there, too much for a block's 227 KB of shared memory beside the
+// activations, so each hidden W streams through a ring of slices of its bf16
+// planes. Every width above 192 runs on the layer-wise kernels (LW_MIN;
+// "the layer-wise kernels" below). Kernels of width 256 and 512 on mma.sync
+// (3xTF32, with the hidden layers' dW in a second kernel) ran those widths
+// until the layer-wise kernels overtook them: at 512^2, d8, fp32, under
+// autograd, the layer-wise pair took 11.7 / 34.3 ms against their 22.1 /
+// 91.6 ms (H100, PERF.md).
+// - Forward at 192: "the width-192 forward" below.
 // - Backward at 192 (sine_mlp_bwd_wg192_kernel, "the width-192 backward"
 //   below): on bf16 wgmma, as at 128, with dW summed in the kernel. The
 //   design follows from the registers and the 227 KB of shared memory. A
@@ -1710,291 +1162,11 @@ sine_mlp_fwd_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict_
 //   W's planes stream through a 3-slot ring of one k-step (18 KB) each.
 //   The z stash is each thread's own pair order (coalesced, no shared
 //   memory); the reduce-adds go under an evict_first L2 policy, so the
-//   stash and W's planes stay in L2. Per tile and layer the dW adds move 144 KB (3.6 GB per
-//   backward at 512^2 d8; the partials, 114 MB, do not fit L2): the split
-//   design's 96 KB of operands out and back moves less per 64 rows, but
-//   needs 2.4 GB of scratch per member and a second kernel.
-
-template <class G>
-constexpr size_t fwd_wide_smem() {
-  return sizeof(float) * (G::NB * G::SLICE + G::BUF + G::T * MAX_IO) + G::NB * sizeof(uint64_t);
-}
-template <class G>
-constexpr size_t bwd_wide_smem() {
-  return sizeof(float) * (G::NB * G::SLICE + 2 * G::BUF + 2 * G::T * MAX_IO +
-                          (G::T / 32) * G::H) +
-         (G::NB + 1) * sizeof(uint64_t);
-}
-constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
-
-// The tile's rows r (warp by warp) of src_s (sw() layout, width G::H)
-// times a narrow weight: dst[r][o] = sum_k src_s[r][k] rnd(w(k, o))
-// (+ bias[o]), w(k, o) = w[k * sk + o * so], o < no <= MAX_IO. Lane i sums
-// columns i + 32 j in order of j, then the warp adds the lanes.
-template <bool BF16, class G>
-__device__ __forceinline__ void rows_times_narrow_wide(const float* __restrict__ src_s,
-                                                       const float* __restrict__ wg, int sk,
-                                                       int so, int no,
-                                                       const float* __restrict__ bias,
-                                                       float* __restrict__ dst, int row0, int n,
-                                                       int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const float b = (bias != nullptr && lane < no) ? __ldg(&bias[lane]) : 0.f;
-  for (int r = warp; r < G::T; r += G::WARPS) {
-    float p[MAX_IO];
-#pragma unroll
-    for (int o = 0; o < MAX_IO; ++o) p[o] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < G::H / 32; ++j) {
-      const int k = lane + 32 * j;
-      const float sv = src_s[sw<G::H>(r, k)];
-#pragma unroll
-      for (int o = 0; o < MAX_IO; ++o)
-        if (o < no) p[o] += sv * rnd<BF16>(__ldg(&wg[k * sk + o * so]));
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int o = 0; o < MAX_IO; ++o) {
-      if (o < no) {
-        const float q = warp_sum(p[o]);
-        if (lane == o) mine = q;
-      }
-    }
-    if (lane < no && row0 + r < n) dst[(size_t)(row0 + r) * no + lane] = mine + b;
-  }
-}
-
-// acc += A W over the ring's next G::NS slices, A a T x H tile (a, or gz
-// against W^T) and slice u its K-slice u; each slice's buffer goes to
-// slice s + NB once every warp is done with it. Blocks of more than 8 warps
-// do not prefetch the products' operands (register room).
-template <bool BF16, class G, int NB, class Src>
-__device__ __forceinline__ void ring_product(Acc acc, const float* __restrict__ A, RingT<G>& ring,
-                                             int& s, int total, const Src& src, const Warp& w) {
-  for (int u = 0; u < G::NS; ++u, ++s) {
-    const int b = s % NB;
-    ring.wait(b);
-    warp_mma_k<BF16, false, true, G::H, G::H, G::KS, (G::WARPS <= 8)>(acc, A, w.m0, u * G::KS,
-                                                                      ring.buf(b), w);
-    __syncthreads();
-    if (s + NB < total) ring.issue(b, src(s + NB));
-  }
-}
-
-// Shared memory: the ring, the activation tile, the input tile, the ring's
-// mbarriers.
-template <bool BF16, bool MX, class G, bool MB>
-__global__ void __launch_bounds__(G::THREADS, 1)
-sine_mlp_fwd_wide_kernel(Chain c_arg, const float* __restrict__ x, float* __restrict__ out,
-                         long long x_stride) {
-  constexpr int HW = G::H, NB = G::NB;
-  __shared__ MemberFwd mf;
-  if constexpr (MB) {
-    member_fwd<HW>(mf, c_arg, x, out, x_stride);
-    __syncthreads();
-  }
-  const Chain& c = chain_of<MB>(mf, c_arg);
-  const auto X = [&] { if constexpr (MB) return mf.x; else return x; };
-  const auto OUT = [&] { if constexpr (MB) return mf.out; else return out; };
-  extern __shared__ float4 smem4[];
-  float* ring_s = reinterpret_cast<float*>(smem4);
-  float* a_s = ring_s + NB * G::SLICE;
-  float* x_s = a_s + G::BUF;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(x_s + G::T * MAX_IO);
-  const int tid = threadIdx.x;
-  const Warp w(tid, G::CG);
-  const int L = c.depth - 2;
-  const int n_tiles = (c.n + G::T - 1) / G::T;
-  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  // the block's ring slices in order: per tile, W_1 .. W_L, each in G::NS slices
-  const int per_tile = L * G::NS, total = my_tiles * per_tile;
-  // W is read through c at each slice (a parameter, or MB's shared memory),
-  // not held in registers: with 12 warps (168 registers a thread) the fp32
-  // member-axis forward spilled 36 B with the copy
-  const auto src = [&c, per_tile](int s) {
-    const int j = s % per_tile;
-    return c.wm + (size_t)(j / G::NS) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
-  };
-
-  init_barriers<G::THREADS>(bar, NB);
-  RingT<G> ring{ring_s, bar};
-  for (int s = 0; s < NB && s < total; ++s) ring.issue(s, src(s));
-
-  int s = 0;
-  Acc acc;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * G::T;
-    stage_rows<BF16, G>(x_s, X(), row0, c.n, c.in_size, tid);
-    __syncthreads();
-    first_layer<BF16, HW>(acc, c, x_s, w);
-    sine_epilogue<BF16, MX, kNothing, HW>(acc, c.bs, c.omega0, a_s, nullptr, w);
-    __syncthreads();
-    for (int l = 1; l <= L; ++l) {
-      zero(acc);
-      ring_product<BF16, G, NB>(acc, a_s, ring, s, total, src, w);
-      sine_epilogue<BF16, MX, kNothing, HW>(acc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
-      __syncthreads();
-    }
-    rows_times_narrow_wide<BF16, G>(a_s, c.wl, c.out_size, 1, c.out_size, c.bl, OUT(), row0, c.n,
-                                    tid);
-    __syncthreads();
-  }
-}
-
-// dW_l's operands for sine_mlp_dw: the tile's rows below n of a_s and g_s
-// (sw() layout) into rows row0.. of da and dg (row-major, width G::H), 16
-// bytes a thread, neighbouring threads on neighbouring addresses; streaming
-// stores (this kernel does not read them again). Call after a barrier.
-template <class G>
-__device__ __forceinline__ void store_dw_operands(const float* __restrict__ a_s,
-                                                  const float* __restrict__ g_s,
-                                                  float* __restrict__ da, float* __restrict__ dg,
-                                                  int row0, int n, int tid) {
-  constexpr int Q = G::H / 4;  // 16-byte pieces per row
-  const int rows = n - row0 < G::T ? n - row0 : G::T;
-  for (int e = tid; e < rows * Q; e += G::THREADS) {
-    const int r = e / Q, c = 4 * (e % Q);
-    const size_t o = (size_t)(row0 + r) * G::H + c;
-    const int i = sw<G::H>(r, c);
-    __stcs(reinterpret_cast<float4*>(da + o), *reinterpret_cast<const float4*>(a_s + i));
-    __stcs(reinterpret_cast<float4*>(dg + o), *reinterpret_cast<const float4*>(g_s + i));
-  }
-}
-
-// Shared memory: the ring, the activation and gz tiles, the input and
-// cotangent tiles, the bias partial sums, the ring's mbarriers and the z
-// copy's. The order of the backward is the width-128 kernel's; dW_m is
-// sine_mlp_dw's (dw_a, dw_g: (L, n, G::H) each).
-template <bool BF16, bool MX, class G, bool MB>
-__global__ void __launch_bounds__(G::THREADS, 1)
-sine_mlp_bwd_wide_kernel(Chain c_arg, const float* __restrict__ x, const float* __restrict__ g,
-                         float* __restrict__ dx, float* __restrict__ z_all,
-                         float* __restrict__ partials, int n_part, float* __restrict__ dw_a,
-                         float* __restrict__ dw_g, long long x_stride) {
-  constexpr int HW = G::H, NB = G::NB;
-  __shared__ MemberBwd mb;
-  if constexpr (MB) {
-    member_bwd<HW, G::T>(mb, c_arg, x, g, dx, dw_a, dw_g, z_all, partials, n_part, x_stride);
-    __syncthreads();
-  }
-  const Chain& c = chain_of<MB>(mb, c_arg);
-  const auto X = [&] { if constexpr (MB) return mb.x; else return x; };
-  const auto G_ = [&] { if constexpr (MB) return mb.g; else return g; };
-  const auto DX = [&] { if constexpr (MB) return mb.dx; else return dx; };
-  const auto DA = [&] { if constexpr (MB) return mb.dw_a; else return dw_a; };
-  const auto DG = [&] { if constexpr (MB) return mb.dw_g; else return dw_g; };
-  extern __shared__ float4 smem4[];
-  float* ring_s = reinterpret_cast<float*>(smem4);
-  float* a_s = ring_s + NB * G::SLICE;
-  float* g_s = a_s + G::BUF;
-  float* x_s = g_s + G::BUF;
-  float* go_s = x_s + G::T * MAX_IO;
-  float* red = go_s + G::T * MAX_IO;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(red + (G::T / 32) * HW);
-  const int tid = threadIdx.x;
-  const Warp w(tid, G::CG);
-  const int L = c.depth - 2;
-
-  // this block's slices: partial gradients and the z stash (z_1 .. z_{L-1});
-  // the slice is zeroed but for dW_m, which sine_mlp_dw writes whole. The
-  // slice's regions past dW0 (dWl, dbs, dbl) are addressed from the chain
-  // where they are used, as is the input width: held for the whole kernel,
-  // those values made ptxas spill the fp32 backward (single and over a
-  // member axis) at widths 192 and 512.
-  float* part = partials + (size_t)blockIdx.x * n_part;
-  float* z_g = z_all + (size_t)blockIdx.x * (L > 1 ? L - 1 : 1) * G::BUF;
-  for (int e = tid; e < c.in_size * HW; e += G::THREADS) part[e] = 0.f;
-  for (float* p = part + (c.in_size * HW + L * HW * HW) + tid; p < part + n_part;
-       p += G::THREADS)
-    *p = 0.f;
-
-  // the block's ring slices in order: per tile, W_1 .. W_L (the forward
-  // pass), then W_L^T .. W_1^T (the backward pass), each in G::NS slices
-  const int n_tiles = (c.n + G::T - 1) / G::T;
-  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int half = L * G::NS, per_tile = 2 * half, total = my_tiles * per_tile;
-  const auto src = [&c, L, half, per_tile](int s) {
-    const int j = s % per_tile;
-    const int l = j < half ? 1 + j / G::NS : L - (j - half) / G::NS;
-    return (j < half ? c.wm : c.wmt) + (size_t)(l - 1) * HW * HW + (size_t)(j % G::NS) * G::SLICE;
-  };
-
-  init_barriers<G::THREADS>(bar, NB + 1);
-  RingT<G> ring{ring_s, bar};
-  uint64_t* z_bar = bar + NB;  // z copies into a_s, one phase per copy
-  uint32_t z_phase = 0;
-  for (int s = 0; s < NB && s < total; ++s) ring.issue(s, src(s));
-
-  int s = 0;
-  Acc acc, dc;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * G::T;
-    stage_rows<BF16, G>(x_s, X(), row0, c.n, c.in_size, tid);
-    stage_rows<false, G>(go_s, G_(), row0, c.n, c.out_size, tid);
-    __syncthreads();
-
-    // forward, stashing z_1 .. z_{L-1}; omega cos(omega z_L) stays in dc
-    first_layer<BF16, HW>(dc, c, x_s, w);
-    if (L == 0)
-      sine_epilogue<BF16, MX, kDerivative, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
-    else
-      sine_epilogue<BF16, MX, kNothing, HW>(dc, c.bs, c.omega0, a_s, nullptr, w);
-    __syncthreads();
-    for (int l = 1; l <= L; ++l) {
-      zero(dc);
-      ring_product<BF16, G, NB>(dc, a_s, ring, s, total, src, w);
-      if (l < L)
-        sine_epilogue<BF16, MX, kStashZ, HW>(dc, c.bs + l * HW, c.omega_h, a_s,
-                                         z_g + (size_t)(l - 1) * G::BUF, w);
-      else
-        sine_epilogue<BF16, MX, kDerivative, HW>(dc, c.bs + l * HW, c.omega_h, a_s, nullptr, w);
-      __syncthreads();
-    }
-
-    // last layer: dWl += a_L^T rnd(g), dbl += sum g, gz_L = rnd(g) Wl^T * dc
-    last_layer_grads<BF16, G>(
-        acc, c, a_s, go_s, (part + (c.in_size * HW + (c.depth - 2) * HW * HW)),
-        (part + (c.in_size * HW + (c.depth - 2) * HW * HW + HW * c.out_size +
-                 (c.depth - 1) * HW)),
-        w, tid);
-    store_gz<BF16, MX, HW>(acc, dc, g_s, red, w);
-    __syncthreads();  // a_L read, gz_L and its bias sums written
-    if (L >= 2) copy_tile<G>(a_s, z_g + (size_t)(L - 2) * G::BUF, z_bar);  // z_{L-1}
-
-    // hidden layers, last to first
-    for (int l = L; l >= 1; --l) {
-      if (l == 1) {
-        first_layer<BF16, HW>(dc, c, x_s, w);
-        resine<BF16, MX, true, HW>(dc, c.bs, c.omega0, a_s, w);
-      } else {
-        mbar_wait(z_bar, z_phase);  // z_{l-1} is in a_s
-        z_phase ^= 1u;
-        resine<BF16, MX, false, HW>(dc, nullptr, c.omega_h, a_s, w);
-      }
-      __syncthreads();
-      add_bias_grad<G>(
-          red, (part + (c.in_size * HW + (c.depth - 2) * HW * HW + HW * c.out_size)) + l * HW,
-          tid);
-      const size_t layer = (size_t)(l - 1) * c.n * HW;  // dW_l's operands: a_{l-1}, gz_l
-      store_dw_operands<G>(a_s, g_s, DA() + layer, DG() + layer, row0, c.n, tid);
-      if (l >= 3) {  // z_{l-2} streams into a_s while ga is computed
-        __syncthreads();
-        copy_tile<G>(a_s, z_g + (size_t)(l - 3) * G::BUF, z_bar);
-      }
-      zero(acc);
-      ring_product<BF16, G, NB>(acc, g_s, ring, s, total, src, w);  // ga = gz_l W_l^T
-      store_gz<BF16, MX, HW>(acc, dc, g_s, red, w);                     // gz_{l-1}
-    }
-    __syncthreads();
-
-    // first layer: dW0 += x^T gz_0, db0 += sum gz_0, dx = rnd(gz_0) W0^T
-    first_layer_grads<G>(
-        x_s, g_s, red, part,
-        (part + (c.in_size * HW + (c.depth - 2) * HW * HW + HW * c.out_size)), c.in_size, tid);
-    rows_times_narrow_wide<BF16, G>(g_s, c.w0, 1, HW, c.in_size, nullptr, DX(), row0, c.n, tid);
-    __syncthreads();
-  }
-}
+//   stash and W's planes stay in L2. Per tile and layer the dW adds move
+//   144 KB (3.6 GB per backward at 512^2 d8; the partials, 114 MB, do not
+//   fit L2): an earlier design's 96 KB of dW operands out and back moved
+//   less per 64 rows, but needed 2.4 GB of scratch per member and a second
+//   kernel.
 
 // ------------------------------------------- the width-192 backward (wgmma)
 //
@@ -2399,8 +1571,7 @@ sine_mlp_bwd_wg192_kernel(Chain c_arg, const float* __restrict__ x, const float*
   using P = BwPlanes<BF16, MX>;
   __shared__ MemberBwd mb;
   if constexpr (MB) {
-    member_bwd<B2_H, B2_T>(mb, c_arg, x, g, dx, nullptr, nullptr, z_all, partials, n_part,
-                           x_stride);
+    member_bwd<B2_H, B2_T>(mb, c_arg, x, g, dx, z_all, partials, n_part, x_stride);
     __syncthreads();
   }
   const Chain& c = chain_of<MB>(mb, c_arg);
@@ -2759,158 +1930,21 @@ sine_mlp_fwd_wg192_kernel(Chain c_arg, const float* __restrict__ x, float* __res
   }
 }
 
-// ----------------------------------------------------------- sine_mlp_dw
-//
-// dW_l = A_l^T G_l over the n rows of the wider backward's operands (A_l =
-// rnd(a_{l-1}), G_l = rnd(gz_l), (L, n, W) each), l = 1 .. L, at widths 256
-// and 512 (SINE_MLP_DW_WIDTHS; the width-192 backward sums its dW itself).
-// The rows split into S contiguous ranges, split s holding [s n / S, (s +
-// 1) n / S) (ops/sine_mlp.dw_row_splits), and split s writes its sums into
-// row s of the partial buffer at the dW_m offset, where sum_partials adds
-// the S rows in its fixed order. A block takes one split, one layer and one
-// TM x TN tile of dW (DwGeo: a 128 x 256 half or eighth), sums over its
-// rows in registers, KC rows at a time through an NST-deep cp.async ring
-// (rows past the split read as 0), and stores its tile once: no
-// read-modify-write and no atomics, so a run repeats bit for bit. A warp
-// holds MT = 2 pieces of 32 x 64, TM / 2 rows apart, that share their G
-// fragments: a third fewer shared-memory loads and operand splits per
-// product than one piece (faster than one piece on an H100). The blocks of
-// one split and layer are adjacent in the grid and run together, so the
-// rows of A and G come from HBM about once (the repeats from L2).
-// Bound at 512^2, d8: the products (1.2 and 4.9 ms at 256 and 512 in
-// 3xTF32 at 495 TFLOP/s). Products as in the chain kernels: 3xTF32 in the
-// fp32 mode, one pass on the bf16 values in the bf16 mode.
-#define SINE_MLP_DW_WIDTHS(X) X(256) X(512)
-template <int W>
-struct DwGeo {
-  static constexpr int MT = 2;                 // 32 x 64 pieces a warp, TM / MT rows apart
-  static constexpr int TM = 128, TN = 256;     // the dW tile
-  static constexpr int KC = 32, NST = 4;       // chunk rows, ring
-  static constexpr int CG = TN / 64;
-  static constexpr int WARPS = (TM / (32 * MT)) * CG;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int TILES = (W / TM) * (W / TN);
-  static constexpr int SLICE = KC * (TM + TN);  // floats in a chunk: A's, then G's
-  static_assert(W % TM == 0 && W % TN == 0 && TM % (32 * MT) == 0 && TN % 64 == 0,
-                "whole warps");
-};
-template <int W>
-constexpr size_t dw_smem() {
-  return sizeof(float) * DwGeo<W>::NST * DwGeo<W>::SLICE + DwGeo<W>::NST * sizeof(uint64_t);
-}
-
-// acc0 += A^T B and acc1 += A'^T B over K_STEPS rows: A's columns from the
-// warp's m0 (A' from m0 + MOFF), B's from its n0; A and B of row strides SA
-// and SB in the sw() layout. The G fragments of a k-step are loaded and
-// split once for both; each accumulator takes the k-steps in order, with
-// mma_step's passes.
-template <bool BF16, int SA, int SB, int K_STEPS, int MOFF>
-__device__ __forceinline__ void warp_mma_at2(Acc acc0, Acc acc1, const float* __restrict__ A,
-                                             const float* __restrict__ B, const Warp& w) {
-  const Cols<SA> pa(A, w.m0, w);
-  const Cols<SB> pb(B, w.n0, w);
-#pragma unroll 2
-  for (int k0 = 0; k0 < K_STEPS; k0 += 8) {
-    uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) split<BF16, false>(pb.at(q, 8 * ni, k0), bh[ni][q], bl[ni][q]);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        split<BF16, false>(pa.at(q >> 1, 16 * mi + 8 * (q & 1), k0), ah[mi][q], al[mi][q]);
-    mma_passes<BF16>(acc0, ah, al, bh, bl);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        split<BF16, false>(pa.at(q >> 1, MOFF + 16 * mi + 8 * (q & 1), k0), ah[mi][q],
-                           al[mi][q]);
-    mma_passes<BF16>(acc1, ah, al, bh, bl);
-  }
-}
-
-template <bool BF16, int W, bool MB>
-__global__ void __launch_bounds__(DwGeo<W>::THREADS, 1)
-sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
-                   float* __restrict__ partials, int n, int layers, int n_part, int offset) {
-  using D = DwGeo<W>;
-  if constexpr (MB) {  // member blockIdx.y: its operands and its splits' partial rows
-    const long long m = blockIdx.y, ops = m * layers * (long long)n * W;
-    a += ops;
-    gz += ops;
-    partials += m * (gridDim.x / (D::TILES * layers)) * (long long)n_part;
-  }
-  extern __shared__ float4 smem4[];
-  float* ring_s = reinterpret_cast<float*>(smem4);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(ring_s + D::NST * D::SLICE);
-  const int tid = threadIdx.x;
-  const Warp w(tid, D::CG);
-  // the block's tile, layer and split; the tiles of a split and layer adjacent
-  const int tile = blockIdx.x % D::TILES, l = blockIdx.x / D::TILES % layers;
-  const int s = blockIdx.x / (D::TILES * layers), splits = gridDim.x / (D::TILES * layers);
-  const int m0 = tile / (W / D::TN) * D::TM, n0 = tile % (W / D::TN) * D::TN;
-  const int r0 = (int)((long long)s * n / splits), r1 = (int)((long long)(s + 1) * n / splits);
-  const float* a_l = a + (size_t)l * n * W + m0;
-  const float* g_l = gz + (size_t)l * n * W + n0;
-  const int chunks = (r1 - r0 + D::KC - 1) / D::KC;
-
-  init_barriers<D::THREADS>(bar, D::NST);
-  RingT<D> ring{ring_s, bar};
-  // chunk k (rows r0 + k KC ..) into buffer b: A's TM columns, then G's TN,
-  // each in the sw() layout of its width; rows from r1 on are zero-filled
-  const auto issue = [&](int b, int k) {
-    constexpr int QA = D::TM / 4, Q = (D::TM + D::TN) / 4;  // 16-byte pieces per row
-    float* dst = ring.buf(b);
-    const int row0 = r0 + k * D::KC;
-#pragma unroll 4
-    for (int e = tid; e < D::KC * Q; e += D::THREADS) {
-      const int r = e / Q, q = e % Q, row = row0 + r;
-      const bool in_a = q < QA, valid = row < r1;
-      const int col = 4 * (in_a ? q : q - QA);
-      const float* p = (in_a ? a_l : g_l) + (size_t)(valid ? row : r0) * W + col;
-      float* d = in_a ? dst + sw<D::TM>(r, col) : dst + D::KC * D::TM + sw<D::TN>(r, col);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                   ::"r"(smem_addr(d)), "l"(p), "r"(valid ? 16 : 0) : "memory");
-    }
-    ring.arrive(b);
-  };
-  for (int k = 0; k < D::NST && k < chunks; ++k) issue(k, k);
-
-  Acc acc[D::MT];
-#pragma unroll
-  for (int j = 0; j < D::MT; ++j) zero(acc[j]);
-  for (int k = 0; k < chunks; ++k) {
-    const int b = k % D::NST;
-    ring.wait(b);
-    const float* buf = ring.buf(b);
-    warp_mma_at2<BF16, D::TM, D::TN, D::KC, D::TM / 2>(acc[0], acc[1], buf, buf + D::KC * D::TM,
-                                                       w);
-    __syncthreads();
-    if (k + D::NST < chunks) issue(b, k + D::NST);
-  }
-  float* out = partials + (size_t)s * n_part + offset + (size_t)l * W * W + (size_t)m0 * W + n0;
-#pragma unroll
-  for (int j = 0; j < D::MT; ++j)
-    move_partial<false, W>(acc[j], out + (size_t)j * (D::TM / D::MT) * W, w);
-}
-
 // ------------------------------------------------- the layer-wise kernels
 //
-// Hidden widths above 512 (any width: the kernel width is the model's
-// rounded up to a multiple of LW_N = 128, the block tile's columns; padded
-// units stay exactly 0). The fused-row design does not reach them: the
-// wider backward's shared memory at 32-row tiles, the least a warp's 32 x 64
-// piece allows, is 200,728 B at 512 and 250,392 B at 640, past the 232,448
-// B a block has. So each layer is a launch of its own, with the activations
-// of a layer between launches in device memory (L2 and HBM): at these widths
-// a layer does 2 h FLOP per float of activation it reads and writes (h / 6
-// per byte: 107 at 640, above the card's ridge for 3xTF32 at 495 TFLOP/s /
-// 3.35 TB/s = 148 only from 888 on, and the reads of a tile's rows are
-// shared in L2 by the h / 128 blocks of its slice), so the traffic costs
-// little next to the products. One compiled instance serves every width:
+// Hidden widths above 192 (LW_MIN; any width: the kernel width is the
+// model's rounded up to a multiple of LW_N = 128, the block tile's columns;
+// padded units stay exactly 0). A fused chain holds less of a tile per
+// block as the width grows: the mma.sync kernels that ran 256 and 512 until
+// the layer-wise kernels overtook them streamed every W through a ring for
+// 32-96 rows a block, and their shared memory at 32-row tiles, the least a
+// warp's 32 x 64 piece allows, was 200,728 B at 512 and would be 250,392 B
+// at 640, past the 232,448 B a block has. So each layer is a launch of its
+// own, with the activations of a layer between launches in device memory
+// (L2 and HBM): a layer does 2 h FLOP per float of activation it reads and
+// writes (h / 6 per byte: 43 at 256, 107 at 640; the reads of a tile's rows
+// are shared in L2 by the h / 128 blocks of its slice), so the traffic
+// costs little next to the products. One compiled instance serves every width:
 // the width is a run-time argument (LayerArgs::hidden), as are the rows.
 // Four kernels, every offset 64-bit (at 512^2, d8, w2048 the z stash alone
 // is 3.76e9 floats):
@@ -2946,8 +1980,8 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // each member gets its single launch's bits). No atomics: each address of
 // a partial slice belongs to one thread of one block, which sums it in a
 // fixed order and stores it once, so a run repeats bit for bit.
-// Memory at 512^2, d8 (N = 262,144): the z stash, (D-1) N h floats (4.7 /
-// 7.5 / 15.0 GB at 640 / 1024 / 2048). Under autograd (a fit or finetune
+// Memory at 512^2, d8 (N = 262,144): the z stash, (D-1) N h floats (1.9 /
+// 3.8 / 4.7 / 7.5 / 15.0 GB at 256 / 512 / 640 / 1024 / 2048). Under autograd (a fit or finetune
 // step: ops/sine_mlp's Functions) K1 fills it, each band of its rows
 // (ops/sine_mlp.layer_band_rows: two activation buffers near 1 GB) writing
 // its rows of every z_l, and K2 takes it and starts at the last layer's
@@ -2961,8 +1995,9 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 // Accuracy: the chain products sum K in groups of 128 from zero (LW_K_GROUP)
 // and dW its rows in groups of 1,024 (LW_DW_GROUP), so the fp32 error does
 // not drift with the width. The fp32 mode is checked against the plain chain
-// at 576, 640, 1024, 2048 and 4096 (tests/test_torch_kernels.py,
-// chip_smoke.py phase 3, tools/grad_check.py); wider widths run unchecked.
+// at 256, 300 (384), 512, 576, 640, 1024, 2048 and 4096
+// (tests/test_torch_kernels.py, chip_smoke.py phase 3, tools/grad_check.py);
+// wider widths run unchecked.
 // Not taken, for later speed work: the fused chain over a cluster of 2-4
 // blocks that split a tile's columns and read each other's activations
 // through distributed shared memory (it would keep the activations on chip
@@ -2974,7 +2009,7 @@ sine_mlp_dw_kernel(const float* __restrict__ a, const float* __restrict__ gz,
 constexpr int LW_T = 128;    // pixel rows of a block tile
 constexpr int LW_N = 128;    // columns of a block tile: the kernel width is a multiple
 constexpr int LW_KC = 32;    // K of a chunk of the products (a ring stage: two k-steps)
-constexpr int LW_MIN = 512;  // the widest fused kernel; the layer-wise kernels run above it
+constexpr int LW_MIN = 192;  // the widest fused kernel; the layer-wise kernels run above it
 enum LwKind { kLwFirst = 0, kLwHidden = 1, kLwLast = 2 };
 
 }  // namespace
@@ -4398,8 +3433,8 @@ int sm_count(int* sms) {
 
 }  // namespace
 
-// The wider kernels' launchers, one part of the build each (C linkage: the
-// Chain type is local to each part).
+// The width-192 kernels' launchers, one part of the build each (C linkage:
+// the Chain type is local to each part).
 #define SINE_MLP_FWD_WIDE_ARGS                                                                \
   const float *x, const float *w0, const float *wm, const void *wp, const float *wl,          \
       const float *bs, const float *bl, float *out, int n, int in_size, int out_size,          \
@@ -4407,12 +3442,9 @@ int sm_count(int* sms) {
       long long x_stride, void *stream
 #define SINE_MLP_BWD_WIDE_ARGS                                                                \
   const float *x, const float *g, const float *w0, const float *wm, const float *wmt,          \
-      const float *wl, const float *bs, float *dx, float *z, float *partials, float *dw_a,      \
-      float *dw_g, int grid, int n_part, int n, int in_size, int out_size, int depth,          \
-      float omega0, float omega_h, int bf16, int members, long long x_stride, void *stream
-#define SINE_MLP_DW_WIDE_ARGS                                                                 \
-  const float *a, const float *g, float *partials, int n, int layers, int splits, int n_part, \
-      int offset, int bf16, int members, void *stream
+      const float *wl, const float *bs, float *dx, float *z, float *partials, int grid,         \
+      int n_part, int n, int in_size, int out_size, int depth, float omega0, float omega_h,    \
+      int bf16, int members, long long x_stride, void *stream
 
 extern "C" {
 
@@ -4533,31 +3565,14 @@ int sine_mlp_layer_dw(const LayerArgs* a, int bf16, void* stream) {
 
 #elif defined(SINE_MLP_WIDE)
 
-#define SINE_MLP_CAT2(a, b) a##b
-#define SINE_MLP_CAT(a, b) SINE_MLP_CAT2(a, b)
-// SINE_MLP_WIDE is one of SINE_MLP_WIDE_GEOS; SINE_MLP_PART 0, 1, 2: the
-// forward, the backward, sine_mlp_dw
+// SINE_MLP_WIDE is the width of SINE_MLP_WIDE_GEOS, 192; SINE_MLP_PART 0
+// the forward, 1 the backward
+static_assert(SINE_MLP_WIDE == 192, "the fused kernels above 128 are the width-192 ones");
 using GW = WideGeo<SINE_MLP_WIDE>;
 
-#if SINE_MLP_PART == 2
-int SINE_MLP_CAT(sine_mlp_dw_w, SINE_MLP_WIDE)(SINE_MLP_DW_WIDE_ARGS) {
-  using D = DwGeo<SINE_MLP_WIDE>;
-  const int grid = splits * layers * D::TILES;
-  constexpr size_t smem = dw_smem<SINE_MLP_WIDE>();
-  static_assert(smem <= kMaxSmem, "sine_mlp_dw's shared memory");
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 blocks(grid, members);
-  // one member: the single instantiation; more: the batched one (MB)
-  const auto kernel = bf16 ? (members > 1 ? sine_mlp_dw_kernel<true, SINE_MLP_WIDE, true>
-                                          : sine_mlp_dw_kernel<true, SINE_MLP_WIDE, false>)
-                           : (members > 1 ? sine_mlp_dw_kernel<false, SINE_MLP_WIDE, true>
-                                          : sine_mlp_dw_kernel<false, SINE_MLP_WIDE, false>);
-  return (int)launch(kernel, blocks, D::THREADS, smem, s, a, g, partials, n, layers, n_part,
-                     offset);
-}
-#elif SINE_MLP_PART == 1 && SINE_MLP_WIDE == 192
+#if SINE_MLP_PART == 1
 // The width-192 backward (wgmma): wmt holds W's planes; dW_m goes into the
-// partials (dw_a, dw_g are not read).
+// partials.
 int sine_mlp_bwd_w192(SINE_MLP_BWD_WIDE_ARGS) {
   static_assert(GW::bwd::T == B2_T, "KERNEL_TILE_ROWS[192]");
   if (reinterpret_cast<uintptr_t>(wmt) % 16 != 0 || reinterpret_cast<uintptr_t>(z) % 16 != 0)
@@ -4576,27 +3591,7 @@ int sine_mlp_bwd_w192(SINE_MLP_BWD_WIDE_ARGS) {
                   g, dx, z, partials, n_part, x_stride);
   });
 }
-#elif SINE_MLP_PART == 1
-int SINE_MLP_CAT(sine_mlp_bwd_w, SINE_MLP_WIDE)(SINE_MLP_BWD_WIDE_ARGS) {
-  using G = GW::bwd;
-  if (dw_a == nullptr || dw_g == nullptr) return (int)cudaErrorInvalidValue;
-  const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth, omega0,
-                             omega_h);
-  constexpr size_t smem = bwd_wide_smem<G>();
-  static_assert(smem <= kMaxSmem, "the backward's shared memory");
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 blocks(grid, members);
-  return (int)by_mode(bf16, [&](auto bf, auto mx) {
-    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
-    if (members > 1) {
-      return launch(sine_mlp_bwd_wide_kernel<BF, MXV, G, true>, blocks, G::THREADS, smem, s,
-                    c, x, g, dx, z, partials, n_part, dw_a, dw_g, x_stride);
-    }
-    return launch(sine_mlp_bwd_wide_kernel<BF, MXV, G, false>, blocks, G::THREADS, smem, s, c,
-                  x, g, dx, z, partials, n_part, dw_a, dw_g, x_stride);
-  });
-}
-#elif SINE_MLP_WIDE == 192
+#else
 // The width-192 forward (wgmma): wp holds W's planes
 // (ops/sine_mlp.weight_planes at width 192, both images; this reads the
 // forward one), 16-byte aligned: a null or misaligned wp is refused. One
@@ -4621,29 +3616,6 @@ int sine_mlp_fwd_w192(SINE_MLP_FWD_WIDE_ARGS) {
                   x_stride);
   });
 }
-#else
-// One persistent block per SM, at most one per tile of the forward's rows,
-// for each of `members` members (grid y; the batched instantiation above
-// 1). wp is not read.
-int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
-  using G = WideFwdGeo<SINE_MLP_WIDE>::fwd;
-  const Chain c = make_chain(w0, wm, nullptr, wl, bs, bl, n, in_size, out_size, depth, omega0,
-                             omega_h);
-  const int tiles = (n + G::T - 1) / G::T;
-  const dim3 grid(tiles < sms ? tiles : sms, members);
-  constexpr size_t smem = fwd_wide_smem<G>();
-  static_assert(smem <= kMaxSmem, "the forward's shared memory");
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)by_mode(bf16, [&](auto bf, auto mx) {
-    constexpr bool BF = decltype(bf)::value, MXV = decltype(mx)::value;
-    if (members > 1) {
-      return launch(sine_mlp_fwd_wide_kernel<BF, MXV, G, true>, grid, G::THREADS, smem, s, c,
-                    x, out, x_stride);
-    }
-    return launch(sine_mlp_fwd_wide_kernel<BF, MXV, G, false>, grid, G::THREADS, smem, s, c, x,
-                  out, x_stride);
-  });
-}
 #endif
 
 #else  // the width-128 kernels, sum_partials and the C interface
@@ -4653,12 +3625,10 @@ int SINE_MLP_CAT(sine_mlp_fwd_w, SINE_MLP_WIDE)(SINE_MLP_FWD_WIDE_ARGS) {
   int sine_mlp_bwd_w##W(SINE_MLP_BWD_WIDE_ARGS);
 SINE_MLP_WIDE_GEOS(SINE_MLP_DECLARE)
 #undef SINE_MLP_DECLARE
-#define SINE_MLP_DW_DECLARE(W) int sine_mlp_dw_w##W(SINE_MLP_DW_WIDE_ARGS);
-SINE_MLP_DW_WIDTHS(SINE_MLP_DW_DECLARE)
-#undef SINE_MLP_DW_DECLARE
 
 // The kernel width a model of hidden width h runs on (h zero-padded up to
-// it): 128 or a width of SINE_MLP_WIDE_GEOS; 0 above the widest.
+// it): 128 or a width of SINE_MLP_WIDE_GEOS, above the widest (LW_MIN) h
+// rounded up to a multiple of LW_N (the layer-wise kernels); 0 below 1.
 int sine_mlp_kernel_width(int h) {
 #define SINE_MLP_WIDTH(W, TR, KS, NB) W,
   constexpr int widths[] = {H, SINE_MLP_WIDE_GEOS(SINE_MLP_WIDTH)};
@@ -4734,36 +3704,30 @@ int sine_mlp_max_rows() { return kMaxRows; }
 // member (0: shared). Per member: g (n, out) and dx (n, in) floats, one
 // after another; partials (grid, n_part) floats, n_part a multiple of 4
 // (16-byte aligned slices); z_scratch (grid, max(depth-3, 1), T, hidden)
-// floats, T = sine_mlp_tile_rows(hidden). Width 128 reads neither wmt nor
-// dw_a and dw_g; a wider width (SINE_MLP_WIDE_GEOS) reads wmt (each hidden W
-// transposed) and, instead of summing dW_m, writes its operands into dw_a
-// and dw_g ((depth - 2, n, hidden) floats each per member, 16-byte aligned)
-// for sine_mlp_dw, leaving the dW_m region of partials alone. At most 65,535
+// floats, T = sine_mlp_tile_rows(hidden). wmt: W's planes
+// (ops/sine_mlp.weight_planes, both images), 16-byte aligned. At most 65,535
 // members.
 int sine_mlp_bwd_batched(const float* x, const float* g, const float* w0, const float* wm,
                          const float* wmt, const float* wl, const float* bs, float* dx,
-                         float* z_scratch, float* partials, float* dw_a, float* dw_g,
-                         int members, long long x_stride, int grid, int n_part, int n,
-                         int in_size, int out_size, int depth, int hidden, float omega0,
-                         float omega_h, int bf16, void* stream) {
+                         float* z_scratch, float* partials, int members, long long x_stride,
+                         int grid, int n_part, int n, int in_size, int out_size, int depth,
+                         int hidden, float omega0, float omega_h, int bf16, void* stream) {
   if (n <= 0 || grid <= 0 || members <= 0) return 0;
-  if (n_part % 4 != 0 || members > 65535 || x_stride < 0) return (int)cudaErrorInvalidValue;
+  if (n_part % 4 != 0 || members > 65535 || x_stride < 0 || wmt == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (hidden != H) {
-    if (wmt == nullptr || reinterpret_cast<uintptr_t>(dw_a) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(dw_g) % 16 != 0)
-      return (int)cudaErrorInvalidValue;
     switch (hidden) {
-#define SINE_MLP_BWD_CASE(W, TR, KS, NB)                                                            \
+#define SINE_MLP_BWD_CASE(W, TR, KS, NB)                                                      \
   case W:                                                                                     \
-    return sine_mlp_bwd_w##W(x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, dw_a, dw_g,  \
-                             grid, n_part, n, in_size, out_size, depth, omega0, omega_h, bf16, \
-                             members, x_stride, stream);
+    return sine_mlp_bwd_w##W(x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, grid, n_part, \
+                             n, in_size, out_size, depth, omega0, omega_h, bf16, members,      \
+                             x_stride, stream);
       SINE_MLP_WIDE_GEOS(SINE_MLP_BWD_CASE)
 #undef SINE_MLP_BWD_CASE
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (wmt == nullptr || reinterpret_cast<uintptr_t>(wmt) % 16 != 0 ||
+  if (reinterpret_cast<uintptr_t>(wmt) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(z_scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Chain c = make_chain(w0, wm, wmt, wl, bs, nullptr, n, in_size, out_size, depth,
@@ -4780,35 +3744,6 @@ int sine_mlp_bwd_batched(const float* x, const float* g, const float* w0, const 
     return launch(sine_mlp_bwd_kernel<BF, MXV, false>, blocks, BW_THREADS, kBwdSmem, s, c, x,
                   g, dx, z_scratch, partials, n_part, x_stride);
   });
-}
-
-// dW_l = a_l^T g_l for l < layers, a and g (layers, n, hidden) floats
-// (the wider backward's dw_a, dw_g), the n rows split into `splits`
-// contiguous ranges: split s sums rows [s n / splits, (s + 1) n / splits)
-// into partials[s][offset + l hidden^2 ..] (row-major hidden x hidden).
-// partials: (>= splits, n_part) floats, n_part % 4 == 0, offset + layers
-// hidden^2 <= n_part, offset even; a, g and partials 16-byte aligned. Over
-// `members` members (grid y): member m's a and g m (layers, n, hidden)
-// blocks on, its partials m (splits, n_part) rows on.
-int sine_mlp_dw_batched(const float* a, const float* g, float* partials, int members, int n,
-                        int layers, int splits, int n_part, int offset, int hidden, int bf16,
-                        void* stream) {
-  if (members <= 0) return 0;
-  if (n <= 0 || layers <= 0 || splits <= 0) return 0;
-  if (n_part % 4 != 0 || offset % 2 != 0 || offset < 0 || members > 65535 ||
-      (long long)offset + (long long)layers * hidden * hidden > n_part ||
-      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(partials) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  switch (hidden) {
-#define SINE_MLP_DW_CASE(W)                                                                   \
-  case W:                                                                                     \
-    return sine_mlp_dw_w##W(a, g, partials, n, layers, splits, n_part, offset, bf16, members, \
-                            stream);
-    SINE_MLP_DW_WIDTHS(SINE_MLP_DW_CASE)
-#undef SINE_MLP_DW_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // The row split's group count; ops/sine_mlp.py mirrors it.

@@ -6,10 +6,10 @@ The library is built at first use, never at import, from the sources under
 the checkout. Its file name carries a hash of the sources and of the build
 commands, so an edited source triggers a rebuild and a stale library is
 never loaded. sine_mlp.cu is compiled in parts, one nvcc each, all started
-together (the wider kernels' parts take the longest), then linked:
+together, then linked:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
-         [-DSINE_MLP_WIDE=W -DSINE_MLP_PART=0|1|2 | -DSINE_MLP_LAYER=0|1|2] \
+         [-DSINE_MLP_WIDE=192 -DSINE_MLP_PART=0|1 | -DSINE_MLP_LAYER=0|1|2] \
          -c -o <part>.o csrc/sine_mlp.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libiit_<hash>.so *.o
 """
@@ -25,7 +25,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from implicit_image_tpu_torch.ops.sine_mlp import DW_WIDTHS, KERNEL_WIDTHS
+from implicit_image_tpu_torch.ops.sine_mlp import KERNEL_WIDTHS
 
 __all__ = ["CSRC", "BUILD_DIR", "LayerArgs", "build", "load_library", "open_device",
            "ptxas_report", "ptxas_table"]
@@ -35,13 +35,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("sine_mlp.cu", "fast_math.cuh", "hopper.cuh")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # the parts of sine_mlp.cu: the width-128 kernels, sum_partials and the C
-# interface; then each wider width's forward and backward, and sine_mlp_dw
-# at the widths that have it; then the layer-wise kernels (every width above
-# 512): forward, backward, dW
+# interface; then the width-192 forward and backward; then the layer-wise
+# kernels (every width above 192): forward, backward, dW
 _PARTS = {"base": []} | {
     f"{part}{w}": [f"-DSINE_MLP_WIDE={w}", f"-DSINE_MLP_PART={i}"]
-    for w in KERNEL_WIDTHS[1:] for i, part in enumerate(("fwd", "bwd", "dw"))
-    if part != "dw" or w in DW_WIDTHS} | {
+    for w in KERNEL_WIDTHS[1:] for i, part in enumerate(("fwd", "bwd"))} | {
     f"layer_{part}": [f"-DSINE_MLP_LAYER={i}"] for i, part in enumerate(("fwd", "bwd", "dw"))}
 
 _P = ctypes.c_void_p
@@ -68,21 +66,18 @@ _SIGNATURES = {
     "sine_mlp_kernel_width": ([_I], _I),
     "sine_mlp_tile_rows": ([_I], _I),
     "sine_mlp_max_io": ([], _I),
-    # x, w0, wm, wp (W's planes, width 128), wl, bs, bl, out, members,
+    # x, w0, wm, wp (W's planes), wl, bs, bl, out, members,
     # x_stride, n, in, out, depth, hidden, omega0, omega_h, bf16, stream (one
     # member: the single launch)
     "sine_mlp_fwd_batched": ([_P] * 8 + [_I, ctypes.c_longlong] + [_I] * 5
                              + [_F, _F, _I, _P], _I),
     "sine_mlp_max_rows": ([], _I),
-    # x, g, w0, wm, wmt, wl, bs, dx, z_scratch, partials, dw_a, dw_g, members,
-    # x_stride, grid, n_part, n, in, out, depth, hidden, omega0, omega_h,
-    # bf16, stream (one member: the single launch)
-    "sine_mlp_bwd_batched": ([_P] * 12 + [_I, ctypes.c_longlong] + [_I] * 7
+    # x, g, w0, wm, wmt (W's planes), wl, bs, dx, z_scratch, partials,
+    # members, x_stride, grid, n_part, n, in, out, depth, hidden, omega0,
+    # omega_h, bf16, stream (one member: the single launch)
+    "sine_mlp_bwd_batched": ([_P] * 10 + [_I, ctypes.c_longlong] + [_I] * 7
                              + [_F, _F, _I, _P], _I),
-    # a, g, partials, members, n, layers, splits, n_part, offset, hidden, bf16,
-    # stream
-    "sine_mlp_dw_batched": ([_P] * 3 + [_I] * 8 + [_P], _I),
-    # the layer-wise kernels (widths above 512): args, kind (0 first, 1
+    # the layer-wise kernels (widths above 192): args, kind (0 first, 1
     # hidden, 2 last), bf16, stream; dW: args, bf16, stream
     "sine_mlp_layer_fwd": ([_A, _I, _I, _P], _I),
     "sine_mlp_layer_bwd": ([_A, _I, _I, _P], _I),

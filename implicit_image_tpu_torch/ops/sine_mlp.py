@@ -13,38 +13,29 @@ Replaces the Pallas TPU kernels of implicit_image_tpu/ops/sine_mlp.py:
     rematerializing backward. The TPU accumulated dW/db across sequential
     grid steps; on the card each block of a fixed grid writes its own
     partial slice and `sum_partials` adds the slices in a fixed order.
-    At kernel widths 256 and 512 the backward is two kernels:
-    `sine_mlp_bwd_wide` computes everything but the hidden layers' dW and
-    stores dW's operands (rnd(a_{l-1}) and rnd(gz_l), row-major), and
-    `sine_mlp_dw` sums their product over the rows split into one
-    contiguous range per partial slice (`dw_row_splits`), each range into
-    its slice. At 128 and 192 the backward sums dW itself.
-    `sine_mlp_bwd_batched` launches each of them once over a member axis
-    (grid y; `sine_mlp_dw_batched`, `sum_partials_batched`): the
-    counterpart of the jax.vmap of K2 in the JAX package's batched fit and
-    density ladder; each member's gradients come out with the bits of a
-    single launch.
+    `sine_mlp_bwd_batched` launches it once over a member axis (grid y;
+    `sum_partials_batched`): the counterpart of the jax.vmap of K2 in the
+    JAX package's batched fit and density ladder; each member's gradients
+    come out with the bits of a single launch.
 
 What bounds them on the card, and the design: see the note at the top of
 csrc/sine_mlp.cu (arithmetic-bound chain; the hidden layers' products on
-the tensor cores: bf16 wgmma in the forward and the backward at widths
-128 and 192, with W's bf16 planes (`weight_planes`, packed once per K1/K2
-pair, in the forward) streamed by bulk copies and each tile's dW added
+the tensor cores, bf16 wgmma). Kernel widths 128 and 192 run the fused
+chain, a launch for the whole chain: a model's hidden width up to 192 is
+zero-padded to the first of `KERNEL_WIDTHS` at or above it (padded units
+stay exactly 0), W's bf16 planes (`weight_planes`, packed once per K1/K2
+pair, in the forward) stream by bulk copies and each tile's dW is added
 into the partial by bulk reduce-adds (`dw_position_index`, its order
-undone here); mma.sync 3xTF32 in the wider kernels at 256 and 512, with
-each W streamed by cp.async copies into a ring). Widths up to 512 run: a model's hidden width is zero-padded to the
-next kernel width of `KERNEL_WIDTHS` (padded units stay exactly 0); the
-kernels above 128 stream each W in slices, tile 32 to 128 pixel rows, and
-at 256 and 512 leave dW to `sine_mlp_dw` (csrc/sine_mlp.cu, "the wider
-kernels", "the width-192 backward", "sine_mlp_dw"). Every width above 512
-runs on the layer-wise kernels (csrc/sine_mlp.cu, "the layer-wise
-kernels"), its width rounded up to a multiple of 128 and taken at run time:
-a launch a layer (`sine_mlp_layer_fwd`, `sine_mlp_layer_bwd`), the hidden
-layers' dW a launch a layer (`sine_mlp_layer_dw`), then `sum_partials`;
-the z stash and the activations between layers in device memory. There,
-under autograd, K1 fills the z stash band by band as it computes the
-output and K2 takes it in place of its recompute (the same bits); a
-forward under no_grad keeps none.
+undone here; csrc/sine_mlp.cu, "the width-192 backward"). Every width
+above 192 runs on the layer-wise kernels (csrc/sine_mlp.cu, "the
+layer-wise kernels"), its width rounded up to a multiple of 128
+(`LAYER_TILE`) and taken at run time: a launch a layer
+(`sine_mlp_layer_fwd`, `sine_mlp_layer_bwd`), the hidden layers' dW a
+launch a layer (`sine_mlp_layer_dw`), then `sum_partials`; the z stash and
+the activations between layers in device memory. There, under autograd,
+K1 fills the z stash band by band as it computes the output and K2 takes
+it in place of its recompute (the same bits); a forward under no_grad
+keeps none.
 
 Side by side in this module:
 
@@ -57,19 +48,19 @@ Side by side in this module:
   * `sum_partials_reference` — the partial sum in the kernel's order of
     additions (row groups, then the groups in order), equal to the kernel
     bit for bit on the card; only the tests and chip_smoke.py call it;
-  * `siren_chain_dw_operands` / `sine_mlp_dw_reference` — the operands the
-    wider backward stores at 256 and 512 (and the layer-wise backward above
-    512) and the split dW that `sine_mlp_dw` (`sine_mlp_layer_dw`) computes
-    from them, plain torch (the tests and chip_smoke.py);
+  * `siren_chain_dw_operands` / `layer_dw_reference` — the hidden layers'
+    dW operands (what the layer-wise backward hands `sine_mlp_layer_dw`)
+    and the split dW that `sine_mlp_layer_dw` computes from them, plain
+    torch (the tests and chip_smoke.py);
   * `siren_chain_layer_partials` — the layer-wise backward's partial
     slices, each slice's rows as the kernels split them (`layer_slices`,
     `layer_slice_rows`, `dw_row_splits`), plain torch;
   * `SineMLPFunction` — the autograd.Function. A CUDA tensor runs the
     kernels, or raises; a CPU tensor runs the plain versions. Nothing falls
     back from one to the other. W's planes are packed at most once per
-    forward and backward pair (kept from the forward at width 128); above
-    width 512 the forward keeps the z stash for the backward when the
-    caller says a backward may follow (`_wants_stash`);
+    forward and backward pair (kept from the forward at widths 128 and
+    192); above width 192 the forward keeps the z stash for the backward
+    when the caller says a backward may follow (`_wants_stash`);
   * `SineMLPBatchedFunction` — the same over a member axis (the batched
     fit's), in every mode;
   * `siren_apply_flat_fused`, `siren_apply_flat_batched_fused` — the [0,1]
@@ -77,13 +68,11 @@ Side by side in this module:
   * `LAUNCHES` — a count per kernel, incremented where the kernel launches;
     `LAUNCHES_BY_MODE` the same counts split by the launch's mode.
 
-Precision modes: "fp32" (the main path: each hidden product is 3xTF32 on
-the tensor cores, every operand split into hi = tf32(x) and lo = tf32(x -
-hi), hi*hi + hi*lo + lo*hi accumulated in fp32, which holds the fp32 chain
-to ~1e-6 relative; in the wgmma kernels (the forward and the backward at
-128 and 192) three bf16 planes h, m, l of each operand and the six
-products with at most two orders of smallness, as accurate; the first and
-last layers are fp32 FMA) and "bf16"
+Precision modes: "fp32" (the main path: each hidden product on the
+tensor cores as three bf16 planes h, m, l of each operand and the six
+products with at most two orders of smallness, accumulated in fp32, which
+holds the fp32 chain to ~1e-6 relative; the first and last layers are
+fp32 FMA) and "bf16"
 (matmul operands rounded to bf16, fp32 accumulation — what the Pallas
 kernel computes). `precision_from_config` maps `train.matmul_precision`. A
 1-pass TF32 product is never used.
@@ -130,7 +119,6 @@ __all__ = [
     "KERNEL_TILE_ROWS",
     "KERNEL_WIDTHS",
     "PLANE_WIDTHS",
-    "DW_WIDTHS",
     "kernel_width",
     "partial_layout",
     "MAX_ROWS",
@@ -140,8 +128,7 @@ __all__ = [
     "sine_mlp_bwd_batched",
     "dw_row_splits",
     "siren_chain_dw_operands",
-    "sine_mlp_dw_reference",
-    "sine_mlp_dw",
+    "layer_dw_reference",
     "LAYER_TILE",
     "layer_slices",
     "layer_slice_rows",
@@ -186,9 +173,8 @@ _PRECISION_OF = {
 # "+mixed" launch counts under its mode; sum_partials under the mode of the
 # backward it sums)
 LAUNCHES = {"sine_mlp_fwd": 0, "sine_mlp_fwd_batched": 0, "sine_mlp_bwd": 0,
-            "sine_mlp_bwd_batched": 0, "sine_mlp_dw": 0, "sine_mlp_dw_batched": 0,
-            "sum_partials": 0, "sum_partials_batched": 0,
-            # the layer-wise kernels (widths above 512): one count per layer launch
+            "sine_mlp_bwd_batched": 0, "sum_partials": 0, "sum_partials_batched": 0,
+            # the layer-wise kernels (widths above 192): one count per layer launch
             "sine_mlp_layer_fwd": 0, "sine_mlp_layer_fwd_batched": 0,
             "sine_mlp_layer_bwd": 0, "sine_mlp_layer_bwd_batched": 0,
             "sine_mlp_layer_dw": 0, "sine_mlp_layer_dw_batched": 0}
@@ -202,12 +188,13 @@ LAUNCHES_BY_KIND = {f"{k} {kind}": 0 for k in LAUNCHES
                     if k.startswith(("sine_mlp_layer_fwd", "sine_mlp_layer_bwd"))
                     for kind in LAYER_KINDS}
 
-# the kernel widths of csrc/sine_mlp.cu and each one's pixel rows per tile of
-# the backward (the width 128 and SINE_MLP_WIDE_GEOS there; the library's
-# sine_mlp_kernel_width() and sine_mlp_tile_rows()): a SIREN of hidden width h
-# runs on the first width that is >= h, zero-padded to it; above the last, on
-# the layer-wise kernels at h rounded up to a multiple of LAYER_TILE
-KERNEL_TILE_ROWS = {128: 128, 192: 64, 256: 64, 512: 32}
+# the fused kernel widths of csrc/sine_mlp.cu and each one's pixel rows per
+# tile of the backward (the width 128 and SINE_MLP_WIDE_GEOS there; the
+# library's sine_mlp_kernel_width() and sine_mlp_tile_rows()): a SIREN of
+# hidden width h runs on the first width that is >= h, zero-padded to it;
+# above the last (LW_MIN there), on the layer-wise kernels at h rounded up to
+# a multiple of LAYER_TILE
+KERNEL_TILE_ROWS = {128: 128, 192: 64}
 KERNEL_WIDTHS = tuple(KERNEL_TILE_ROWS)
 # LW_T = LW_N of csrc/sine_mlp.cu: the layer-wise kernels' block tile, 128
 # pixel rows by 128 columns (their tile rows, and the multiple their width
@@ -215,10 +202,8 @@ KERNEL_WIDTHS = tuple(KERNEL_TILE_ROWS)
 LAYER_TILE = 128
 # the kernel widths whose wgmma kernels stream W's bf16 planes
 # (`weight_planes`, packed once per K1/K2 pair): the forward and backward at
-# 128 and at 192; and those whose backward leaves the hidden layers' dW to
-# `sine_mlp_dw`
-PLANE_WIDTHS = (128, 192)
-DW_WIDTHS = (256, 512)
+# 128 and at 192, every fused width
+PLANE_WIDTHS = KERNEL_WIDTHS
 
 # kMaxRows of csrc/sine_mlp.cu (the library's sine_mlp_max_rows(), which the
 # card tests and chip_smoke.py hold equal to it): the most
@@ -410,10 +395,10 @@ def siren_chain_backward_reference_batched(members, x: torch.Tensor, g: torch.Te
 
 def siren_chain_dw_operands(params, x: torch.Tensor, g: torch.Tensor, cfg,
                             precision: str = "fp32"):
-    """The operands of the hidden layers' dW that the wider backward stores
-    for `sine_mlp_dw`: (A, G), each (depth - 2, N, h), A[l - 1] = rnd(a_{l-1})
-    and G[l - 1] = rnd(gz_l) for hidden layer l = 1 .. depth - 2, so that
-    dW_l = A[l - 1]^T G[l - 1]."""
+    """The operands of the hidden layers' dW, as the layer-wise backward
+    hands them to `sine_mlp_layer_dw`: (A, G), each (depth - 2, N, h), A[l -
+    1] = rnd(a_{l-1}) and G[l - 1] = rnd(gz_l) for hidden layer l = 1 ..
+    depth - 2, so that dW_l = A[l - 1]^T G[l - 1]."""
     hidden = range(1, len(params) - 1)
     ops = {}
 
@@ -426,18 +411,19 @@ def siren_chain_dw_operands(params, x: torch.Tensor, g: torch.Tensor, cfg,
 
 
 def dw_row_splits(n: int, splits: int):
-    """`sine_mlp_dw`'s row split: `splits` contiguous (start, stop) ranges
-    in order, split s holding rows [s n / S, (s + 1) n / S)."""
+    """`sine_mlp_layer_dw`'s row split: `splits` contiguous (start, stop)
+    ranges in order, split s holding rows [s n / S, (s + 1) n / S)."""
     return [(s * n // splits, (s + 1) * n // splits) for s in range(splits)]
 
 
-def sine_mlp_dw_reference(a: torch.Tensor, g: torch.Tensor, splits: int,
-                          precision: str = "fp32") -> torch.Tensor:
-    """Plain version of `sine_mlp_dw`: a and g (L, N, H) -> (splits, L, H, H),
-    row s holding sum over split s's rows of a^T g per layer (fp32 products;
-    bf16 mode rounds the operands to bf16 first, a no-op on what the wider
-    backward stores). `sum_partials_reference` of it is dW; the kernel adds
-    each split's rows in its own order."""
+def layer_dw_reference(a: torch.Tensor, g: torch.Tensor, splits: int,
+                       precision: str = "fp32") -> torch.Tensor:
+    """Plain version of `sine_mlp_layer_dw`, a layer at a time: a and g (L,
+    N, H) -> (splits, L, H, H), row s holding sum over split s's rows
+    (`dw_row_splits`) of a^T g per layer (fp32 products; bf16 mode rounds
+    the operands to bf16 first, a no-op on what the layer-wise backward
+    hands the kernel). `sum_partials_reference` of it is dW; the kernel
+    adds each split's rows in its own order."""
     bf16 = _check_precision(precision)
     a, g = _rnd(a.float(), bf16), _rnd(g.float(), bf16)
     return torch.stack([a[:, r0:r1].transpose(1, 2) @ g[:, r0:r1]
@@ -481,7 +467,7 @@ def _pad_params(params, hidden: int):
 def siren_chain_layer_partials(params, x: torch.Tensor, g: torch.Tensor, cfg,
                                precision: str = "fp32", slices: int = 1) -> torch.Tensor:
     """Plain version of the layer-wise backward's partial buffer (kernel
-    width above 512): (slices, n_part) as `partial_layout` lays it out at
+    width above 192): (slices, n_part) as `partial_layout` lays it out at
     the kernel width, row s holding slice s's sums: dW_0, the biases' and
     the last layer's over the rows of its row tiles (`layer_slice_rows`),
     each hidden dW_l over split s of `dw_row_splits` (`sine_mlp_layer_dw`).
@@ -659,9 +645,9 @@ def _fwd_launch(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool,
     (N, in) shared or (M, N, in) one per member -> (M, N, out); counted
     under `kernel`. At widths 128 and 192 (`PLANE_WIDTHS`) the forward
     takes W's planes (`weight_planes`); `keep` returns (out, planes, z), so
-    that the backward takes the same planes (None at the other widths,
-    whose forward does not) and, above 512 with `stash`, the z stash that
-    the layer-wise forward filled (`_layer_fwd`; else None)."""
+    that the backward takes the same planes (None on the layer-wise
+    kernels, which pack their own) and, above 192 with `stash`, the z stash
+    that the layer-wise forward filled (`_layer_fwd`; else None)."""
     n = x.shape[-2]
     _check_rows(n, kernel)
     lib, hidden, depth, in_size, out_size = _kernel_dims(_first_member(members),
@@ -727,8 +713,8 @@ def sine_mlp_fwd_batched(members, x: torch.Tensor, cfg, precision: str, keep: bo
     member m's rows the bits of `sine_mlp_fwd(members[m], x[m], ...)`, in
     every mode. Members of different layer shapes, or N above MAX_ROWS,
     raise ValueError. `keep` returns (out, planes), W's planes as the
-    backward takes them (`sine_mlp_bwd_batched(..., planes=)`; None but at
-    widths 128 and 192)."""
+    backward takes them (`sine_mlp_bwd_batched(..., planes=)`; None above
+    width 192)."""
     bf16, mixed = precision_modes(precision)
     _check_fwd_batched(members, x)
     got = _fwd_launch(members, x, cfg, bf16, mixed, "sine_mlp_fwd_batched", keep=keep)
@@ -750,7 +736,7 @@ def partial_layout(n: int, depth: int, in_size: int, width: int, out_size: int, 
     """The backward kernel's partial-gradient buffer for n pixel rows of a
     SIREN of hidden width `width`: returns (grid, n_part, sizes) — one slice
     of n_part floats per block (one block per SM, at most one per tile; for
-    the layer-wise kernels above 512, one per row slice, `layer_slices`),
+    the layer-wise kernels above 192, one per row slice, `layer_slices`),
     holding dw0, dwm, dwl, dbs, dbl (`sizes` floats each, at the kernel
     width) in that order."""
     hidden = kernel_width(width)
@@ -821,7 +807,7 @@ _LAYER_CHUNK = 32
 
 def layer_weight_planes(wm: torch.Tensor, planes: int) -> torch.Tensor:
     """The hidden weights as the layer-wise forward's ring streams them (the
-    hidden layers' sine_mlp_layer_fwd above width 512): wm (..., L, h, h)
+    hidden layers' sine_mlp_layer_fwd above width 192): wm (..., L, h, h)
     fp32, h a multiple of LAYER_TILE -> bf16 (..., L, h / 128, h / 32,
     planes, 4, 16, 8, 8).
 
@@ -909,17 +895,16 @@ def _check_fits(nbytes: int, dev, what: str) -> None:
 def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
                 batched: bool, planes: Optional[torch.Tensor] = None,
                 z: Optional[torch.Tensor] = None):
-    """Pack, check and launch the backward (and, at widths 256 and 512,
-    sine_mlp_dw), then the partial sum, once over `members` (params tuples
-    of one shape, or one params tuple with a leading member axis): x (N, in)
-    shared or (M, N, in), g (M, N, out) when `batched`,
-    else one member with x (N, in) and g (N, out). `planes`: W's planes
-    (`weight_planes`) where the forward packed them, else packed here at
-    widths 128 and 192. `z`: above 512, the z stash that the forward filled
-    (`_layer_fwd(..., stash=True)`), which the backward then consumes in
-    place of its recompute. Returns (dx, grads), every leaf with a leading
-    member axis when `batched`; the launches count under the batched keys
-    when `batched`."""
+    """Pack, check and launch the backward, then the partial sum, once over
+    `members` (params tuples of one shape, or one params tuple with a
+    leading member axis): x (N, in) shared or (M, N, in), g (M, N, out)
+    when `batched`, else one member with x (N, in) and g (N, out).
+    `planes`: W's planes (`weight_planes`) where the forward packed them,
+    else packed here at widths 128 and 192. `z`: above 192, the z stash that
+    the forward filled (`_layer_fwd(..., stash=True)`), which the backward
+    then consumes in place of its recompute. Returns (dx, grads), every
+    leaf with a leading member axis when `batched`; the launches count
+    under the batched keys when `batched`."""
     bf16, mixed = precision_modes(precision)
     first = _first_member(members)
     lib, hidden, depth, in_size, out_size = _kernel_dims(first, x.reshape(-1, x.shape[-1]))
@@ -936,23 +921,16 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     n = x.shape[-2]
     tile = KERNEL_TILE_ROWS[hidden]
     grid, n_part, sizes = partial_layout(n, depth, in_size, h, out_size, dev)
-    stash, layers = max(depth - 3, 1), max(depth - 2, 1)
-    # dW in the kernel (the wgmma backwards, which stream W's bf16 planes: one
-    # where W is a bf16 value already), or its operands for sine_mlp_dw (the
-    # wider kernels, whose gz W^T reads W^T's rows from the ring)
-    split_dw = hidden in DW_WIDTHS
+    stash = max(depth - 3, 1)
     lead = (m,) if batched else ()
     if batched:
-        # dx, the z stash, the partials, their sums and, at 256 and 512, the
-        # dW operands, per member (module note on sine_mlp_bwd_batched)
-        _check_fits(4 * m * (n * in_size + grid * stash * tile * hidden + (grid + 1) * n_part
-                             + (2 * layers * n * hidden if split_dw else 0)), dev,
-                    f"sine_mlp_bwd_batched over {m} members")
+        # dx, the z stash, the partials and their sums, per member (module
+        # note on sine_mlp_bwd_batched)
+        _check_fits(4 * m * (n * in_size + grid * stash * tile * hidden + (grid + 1) * n_part),
+                    dev, f"sine_mlp_bwd_batched over {m} members")
     w0, wm, wl, bs, _ = _pack_members(members, hidden, mixed)
-    if split_dw:
-        wmt = wm.transpose(-1, -2).contiguous()
-    else:
-        wmt = planes if planes is not None else _planes_of(wm, hidden, bf16, mixed)
+    # W's bf16 planes (one where W is a bf16 value already), the products' B
+    planes = planes if planes is not None else _planes_of(wm, hidden, bf16, mixed)
     x = _rnd(x.float(), mixed).contiguous()
     g = g.float().contiguous()
     x_stride = n * in_size if x.dim() == 3 else 0
@@ -962,39 +940,26 @@ def _bwd_launch(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str,
     z_scratch = torch.empty(lead + (grid, stash, tile, hidden), dtype=torch.float32,
                             device=dev)
     partials = torch.empty(lead + (grid, n_part), dtype=torch.float32, device=dev)
-    # the wider backward's dW operands, rnd(a_{l-1}) and rnd(gz_l) per hidden layer
-    dw_ops = [torch.empty(lead + (layers, n, hidden), dtype=torch.float32, device=dev)
-              for _ in range(2)] if split_dw else []
     for name, t in (("x", x), ("w0", w0), ("wm", wm), ("wl", wl), ("bs", bs), ("dx", dx),
-                    ("z_scratch", z_scratch), ("partials", partials)) + (
-                        (("wmt", wmt), ("dw_a", dw_ops[0]), ("dw_g", dw_ops[1]))
-                        if split_dw else ()):
+                    ("z_scratch", z_scratch), ("partials", partials)):
         _check_cuda(name, t, dev)
-    if not split_dw:
-        _check_cuda("planes", wmt.view(torch.float32), dev)
+    _check_cuda("planes", planes.view(torch.float32), dev)
     _check_cuda("g", g, dev, lead + (n, out_size))
     kernel = "sine_mlp_bwd_batched" if batched else "sine_mlp_bwd"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sine_mlp_bwd_batched(
-            x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(),
-            wmt.data_ptr(), wl.data_ptr(), bs.data_ptr(), dx.data_ptr(),
-            z_scratch.data_ptr(), partials.data_ptr(),
-            dw_ops[0].data_ptr() if split_dw else None,
-            dw_ops[1].data_ptr() if split_dw else None,
-            m, x_stride, grid, n_part, n, in_size, out_size, depth, hidden, om[0], om[1],
-            flags, stream,
+            x.data_ptr(), g.data_ptr(), w0.data_ptr(), wm.data_ptr(), planes.data_ptr(),
+            wl.data_ptr(), bs.data_ptr(), dx.data_ptr(), z_scratch.data_ptr(),
+            partials.data_ptr(), m, x_stride, grid, n_part, n, in_size, out_size, depth, hidden,
+            om[0], om[1], flags, stream,
         )
     _raise_on(err, kernel)
     _count(kernel, bf16, mixed)
-    if split_dw and depth > 2:
-        (sine_mlp_dw_batched if batched else sine_mlp_dw)(*dw_ops, partials, sizes[0],
-                                                          precision)
     flat = (sum_partials_batched if batched else sum_partials)(partials, precision)
     if mixed:
         flat = _rnd(flat, True)
-    return dx, _split_grads(flat, lead, sizes, depth, in_size, hidden, h, out_size,
-                            turned=not split_dw)
+    return dx, _split_grads(flat, lead, sizes, depth, in_size, hidden, h, out_size, turned=True)
 
 
 def _split_grads(flat: torch.Tensor, lead, sizes, depth: int, in_size: int, hidden: int, h: int,
@@ -1018,11 +983,10 @@ def _split_grads(flat: torch.Tensor, lead, sizes, depth: int, in_size: int, hidd
 
 def sine_mlp_bwd(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
     """Launch the backward kernel(s) and the partial-sum kernel: returns
-    (dx, grads) in the layout of `siren_chain_backward_reference`. At kernel
-    widths 256 and 512: `sine_mlp_bwd_wide`, then `sine_mlp_dw` for the
-    hidden layers' dW into the same partial buffer; above 512 the
-    layer-wise kernels (`_layer_bwd`). Under "+mixed" dW and
-    db come out rounded to bf16, as `siren_chain_backward_reference`'s."""
+    (dx, grads) in the layout of `siren_chain_backward_reference`. Above
+    kernel width 192 the layer-wise kernels (`_layer_bwd`). Under "+mixed"
+    dW and db come out rounded to bf16, as
+    `siren_chain_backward_reference`'s."""
     return _bwd_launch([params], x, g, cfg, precision, batched=False)
 
 
@@ -1034,20 +998,20 @@ def sine_mlp_bwd_batched(members, x: torch.Tensor, g: torch.Tensor, cfg, precisi
     member or (M, N, in) one per member, and output cotangents g (M, N, out)
     -> (dx (M, N, in), grads), every leaf of grads with a leading member
     axis; member m's outputs the bits of `sine_mlp_bwd(members[m], x[m],
-    g[m], ...)`. One launch each of the backward (grid y = member), at
-    kernel widths 256 and 512 of sine_mlp_dw, and of sum_partials, counted
-    under "sine_mlp_bwd_batched", "sine_mlp_dw_batched" and
-    "sum_partials_batched". `planes`: W's planes from the forward
-    (`sine_mlp_fwd_batched(..., keep=True)`), else packed here.
+    g[m], ...)`. One launch each of the backward (grid y = member) and of
+    sum_partials, counted under "sine_mlp_bwd_batched" and
+    "sum_partials_batched" (above kernel width 192 the layer-wise kernels'
+    launches, under their "_batched" keys). `planes`: W's planes from the
+    forward (`sine_mlp_fwd_batched(..., keep=True)`), else packed here.
 
     Memory per member, in fp32 buffers, at 512² pixels and depth 8: at
     width 128 the partials, 132 blocks x 99,844 floats = 53 MB, and the z
     stash, 132 x 5 x 128 x 128 floats = 43 MB; at width 182 (kernel width
     192) the partials, 132 x 200,931 floats = 106 MB, and the z stash, 132
-    x 5 x 64 x 192 floats = 32 MB; at 256 dW's operands alone, 2 x 6 x
-    262,144 x 256 floats = 3.2 GB. When the M members' buffers exceed the
-    device's free memory this raises ValueError before allocating; it never
-    falls back to single launches. Members of different layer shapes
+    x 5 x 64 x 192 floats = 32 MB; above 192 the layer-wise backward's
+    (`_layer_bwd`). When the M members' buffers exceed the device's free
+    memory this raises ValueError before allocating; it never falls back to
+    single launches. Members of different layer shapes
     or more than 65,535 members raise ValueError too. Every mode has its
     instantiation, "+mixed" too: member m's dW and db then come out rounded
     to bf16, as sine_mlp_bwd's."""
@@ -1067,62 +1031,6 @@ def _check_bwd_batched(members, x: torch.Tensor, g: torch.Tensor) -> None:
     if tuple(g.shape) != (m, n, out_size) or m > 65535:
         raise ValueError(f"sine_mlp_bwd_batched: g must be ({m}, {n}, {out_size}) "
                          f"with at most 65,535 members, got {tuple(g.shape)}")
-
-
-def _dw_launch(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
-               precision: str, batched: bool) -> None:
-    """Check and launch sine_mlp_dw, over a leading member axis of a, g and
-    partials when `batched`."""
-    name = "sine_mlp_dw_batched" if batched else "sine_mlp_dw"
-    bf16, mixed = precision_modes(precision)
-    dims = 4 if batched else 3
-    if (a.dim() != dims or tuple(a.shape) != tuple(g.shape)
-            or a.shape[-1] not in DW_WIDTHS):
-        raise ValueError(
-            f"{name}: expected a and g of one shape ({'M, ' if batched else ''}L, N, H), H in "
-            f"{DW_WIDTHS}; got {tuple(a.shape)} and {tuple(g.shape)}")
-    layers, n, hidden = a.shape[-3:]
-    members = a.shape[0] if batched else 1
-    dev = a.device
-    if (partials.dim() != dims - 1 or partials.shape[-1] % 4
-            or (batched and partials.shape[0] != members)):
-        raise ValueError(f"{name}: expected partials ({'M, ' if batched else ''}S, P), P a "
-                         f"multiple of 4; got {tuple(partials.shape)}")
-    if offset % 2 or offset < 0 or offset + layers * hidden * hidden > partials.shape[-1]:
-        raise ValueError(f"{name}: {layers} dW of {hidden}^2 floats at offset {offset} do "
-                         f"not fit a row of {partials.shape[-1]} (or the offset is odd)")
-    for label, t in (("a", a), ("g", g), ("partials", partials)):
-        _check_cuda(label, t, dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.sine_mlp_dw_batched(a.data_ptr(), g.data_ptr(), partials.data_ptr(), members,
-                                      n, layers, partials.shape[-2], partials.shape[-1], offset,
-                                      hidden, int(bf16),
-                                      torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, name)
-    _count(name, bf16, mixed)
-
-
-def sine_mlp_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
-                precision: str) -> None:
-    """Launch sine_mlp_dw: a and g (L, N, H) fp32 on the card (H in
-    DW_WIDTHS) -> for each of the S = partials.shape[0] row splits of
-    `dw_row_splits(N, S)`, partials[s, offset + l H^2 ..] = the row-major
-    H x H sum of a[l]^T g[l] over the split's rows. a, g and partials must be
-    contiguous and 16-byte aligned, offset even and the L H^2 floats within
-    each row; anything else, a CPU tensor included, raises ValueError before
-    the library is built. No atomics: a call repeats bit for bit. "+mixed"
-    computes what its mode does (the operands come rounded already)."""
-    _dw_launch(a, g, partials, offset, precision, batched=False)
-
-
-def sine_mlp_dw_batched(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, offset: int,
-                        precision: str) -> None:
-    """sine_mlp_dw over a leading member axis in one launch (grid y =
-    member): a and g (M, L, N, H), partials (M, S, P); member m's rows the
-    bits of `sine_mlp_dw(a[m], g[m], partials[m], offset, precision)`. Raises
-    as sine_mlp_dw does."""
-    _dw_launch(a, g, partials, offset, precision, batched=True)
 
 
 def _members_lead(packed):
@@ -1211,7 +1119,7 @@ def _layer_chain_fwd(lib, ops, x, n: int, dims, om, acts, bf16: bool, mixed: boo
 
 def _layer_fwd(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool, name: str,
                stash: bool = False):
-    """The forward on the layer-wise kernels (kernel width above 512) over
+    """The forward on the layer-wise kernels (kernel width above 192) over
     `members` on x, (N, in) shared or (M, N, in) -> (out (M, N, out), z), in
     bands of `layer_band_rows` rows; counted per launch under `name`. With
     `stash` (a backward will follow: the autograd Functions under grad) z
@@ -1256,7 +1164,7 @@ def _layer_fwd(members, x: torch.Tensor, cfg, bf16: bool, mixed: bool, name: str
 
 def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, batched: bool,
                z: Optional[torch.Tensor] = None):
-    """The backward on the layer-wise kernels (kernel width above 512), up
+    """The backward on the layer-wise kernels (kernel width above 192), up
     to the partial sum: without `z` the forward's layer launches again to
     fill the z stash (`_layer_stash`), with `z` (the stash that K1 filled
     under autograd) none of them; then per layer, last first,
@@ -1277,8 +1185,8 @@ def _layer_bwd(members, x: torch.Tensor, g: torch.Tensor, cfg, precision: str, b
     m = _member_count(members)
     n = x.shape[-2]
     layers = depth - 2
-    # the row slices of the layer-wise kernels at any kernel width (above 512
-    # partial_layout's; tools/layer_width_ab.py runs them at 512 too)
+    # the row slices of the layer-wise kernels (partial_layout's at every
+    # kernel width above 192)
     _, n_part, sizes = partial_layout(n, depth, in_size, first[0]["w"].shape[1], out_size, dev)
     slices = layer_slices(n, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
     # one set of the hidden layers' bf16 planes, in floats
@@ -1358,7 +1266,7 @@ def _layer_stash(lib, ops, xm: torch.Tensor, n: int, dims, om, acts: torch.Tenso
 
 
 def sine_mlp_layer_stash(members, x: torch.Tensor, cfg, precision: str) -> torch.Tensor:
-    """The z stash that K2 recomputes above width 512 (`sine_mlp_bwd` and
+    """The z stash that K2 recomputes above width 192 (`sine_mlp_bwd` and
     `sine_mlp_bwd_batched` without a stash from the forward), on the card:
     members as sine_mlp_fwd_batched takes them (a sequence of params tuples
     of one shape, or one params tuple with a leading member axis), x (N, in)
@@ -1404,7 +1312,7 @@ def sine_mlp_layer_dw(a: torch.Tensor, g: torch.Tensor, partials: torch.Tensor, 
     g = rnd(gz_l), (N, H) fp32 on the card (H a multiple of LAYER_TILE) ->
     for each of the S = partials.shape[-2] row splits of `dw_row_splits(N,
     S)`, partials[s, offset ..] = the row-major H x H sum of a^T g over the
-    split's rows (`sine_mlp_dw_reference` of a[None], g[None]). With a
+    split's rows (`layer_dw_reference` of a[None], g[None]). With a
     leading member axis on a, g (M, N, H) and partials (M, S, P): one launch
     over the members, counted as "sine_mlp_layer_dw_batched". Shapes,
     alignment or a CPU tensor it does not take raise ValueError before the
@@ -1792,7 +1700,7 @@ def sine_mlp_layer_bwd_first(g: torch.Tensor, w: torch.Tensor, precision: str) -
 
 
 def sine_mlp_layer_partials(params, x: torch.Tensor, g: torch.Tensor, cfg, precision: str):
-    """The layer-wise backward (a SIREN wider than 512) up to its partial
+    """The layer-wise backward (a SIREN wider than 192) up to its partial
     buffer, on the card: (dx (N, in), partials (S, n_part)), as
     `siren_chain_layer_partials` lays them out; `sum_partials` of the
     partials is the backward's gradients. The tests and chip_smoke.py call
@@ -1888,7 +1796,7 @@ def _unflatten(flat: Sequence[torch.Tensor]):
 
 def _layer_wise(params) -> bool:
     """Whether a SIREN of these params (leaves with or without a member
-    axis) runs on the layer-wise kernels (kernel width above 512)."""
+    axis) runs on the layer-wise kernels (kernel width above 192)."""
     return kernel_width(params[0]["w"].shape[-1]) > KERNEL_WIDTHS[-1]
 
 
@@ -1902,24 +1810,24 @@ def _wants_stash(*tensors: torch.Tensor) -> bool:
 
 class SineMLPFunction(torch.autograd.Function):
     """out = chain(x; W, b). Forward: kernel K1 on a CUDA tensor, the plain
-    chain on a CPU tensor. Backward: kernel K2 (above width 128 with
-    sine_mlp_dw) + sum_partials, or the plain backward. Returns cotangents
-    for x and every W and b.
+    chain on a CPU tensor. Backward: kernel K2 (above width 192 the
+    layer-wise kernels) + sum_partials, or the plain backward. Returns
+    cotangents for x and every W and b.
 
-    `stash` (`_wants_stash`, the caller's): above width 512 the forward
+    `stash` (`_wants_stash`, the caller's): above width 192 the forward
     keeps the pre-activations z of every layer but the last (K1 writes
     them beside the activations, the plain chain keeps its own) and the
     backward takes them in place of its recompute, with the same bits. The
     backward uses the stash up (K2 writes A_{l-1} over z_{l-1}) and drops
     it; a second backward through the graph (retain_graph=True) recomputes
-    it, as K2 does without a stash. At 512 and below nothing is kept."""
+    it, as K2 does without a stash. At 192 and below nothing is kept."""
 
     @staticmethod
     def forward(ctx, x, cfg, precision, stash, *flat):
         params = _unflatten(flat)
         stash = stash and _layer_wise(params)
         ctx.planes = ctx.z = None
-        if x.is_cuda:  # W's planes (width 128), packed once for K1 and K2
+        if x.is_cuda:  # W's planes (widths 128 and 192), packed once for K1 and K2
             bf16, mixed = precision_modes(precision)
             out, ctx.planes, ctx.z = _fwd_launch([params], x, cfg, bf16, mixed, "sine_mlp_fwd",
                                                  keep=True, stash=stash)

@@ -9,45 +9,32 @@ results are wrong by design), a few at a time (each in the parts of
 ops/cuda_build.build), and times sine_mlp_fwd and sine_mlp_bwd of each
 (through their wrappers) in the fp32 mode at the main path's shapes (512^2
 pixels, d8) at every width of --widths (CUDA events over 10 launches after
-a warm-up), and at the
-widths whose backward has it (256 and 512; 192 in older commits),
-sine_mlp_dw alone on operands of the main path's shape; above 512,
-sine_mlp_layer_dw alone on one hidden layer's operands (its row splits
-those of the backward). The differences to "full" say what each part
+a warm-up), and above 192 sine_mlp_layer_dw alone on one hidden layer's
+operands (its row splits those of the backward). The knock-outs reach the
+fused kernels of widths 128 and 192 (the layer-wise kernels' own are
+tools/layer_knockouts.py's); the differences to "full" say what each part
 costs:
 
   no_sine       the sine polynomial of the forward epilogues (z passes through)
-  no_mma        the hidden layers' products (fragment loads, splits, mma), at
-                width 128 (the issue of every wgmma of the forward and the
-                backward, and the dW product's operand loads; in older
-                commits warp_mma, the mma.sync forward's and backward's), in
-                the width-192 backward (every wgmma: the ring's products and
-                the dW pieces), in the width-192 forward (every wgmma; the
-                ring still streams W) and in the wider kernels (warp_mma_k:
-                the ring's products and the dW products; warp_mma_at2:
-                sine_mlp_dw's at 256 and 512)
+  no_mma        the hidden layers' products: at width 128 the issue of every
+                wgmma of the forward and the backward, and the dW product's
+                operand loads; in the width-192 backward every wgmma (the
+                ring's products and the dW pieces); in the width-192 forward
+                every wgmma (the ring still streams W)
   no_stash      the backward's z stash (stores, and the copies or loads back)
-  no_partial    the backward's dW traffic: at widths 128 and 192 the bulk
-                reduce-adds of the staged dW into the partials (older commits:
-                the read-modify-write of the dW partials at 128), in the wider
-                backward its dW pieces where the source has them, or its
-                stores of the dW operands for sine_mlp_dw (where it has those)
+  no_partial    the backward's dW traffic: the bulk reduce-adds of the staged
+                dW into the partials
   no_both       no_stash and no_partial together
-  no_ring_wait  the wider kernels' ring wait and barrier: each product reads
-                whatever its slice holds (each thread drains its copies at its
-                last slice, so none is in flight when the block ends); in the
-                width-192 forward on wgmma the products' wait for their slice
+  no_ring_wait  in the width-192 forward the products' wait for their slice
                 (its fills complete the slot's barrier at once, the copies
                 land on barriers of their own, which the next fill and the
-                block's end wait for); the width-128 kernels keep theirs, so
+                block's end wait for); the other kernels keep theirs, so
                 there it times "full"
-  no_dw         sine_mlp_dw launches nothing (where the source has it): the
-                backward's time without the dW kernel
   no_ring_copy  the wgmma kernels' ring fills copy nothing (each fill's
                 mbarrier completes at once; the products read what the slot
                 holds): the time of streaming W's planes from L2
 
-Above 512 each variant also times K1 and K2 under autograd, as a fit step
+Above 192 each variant also times K1 and K2 under autograd, as a fit step
 runs them (siren_apply_flat_fused on leaves that require grad, then the
 backward: K2 takes the z stash that K1 filled, where the tree has one).
 --variants picks some of them (default: all), --precisions the modes timed
@@ -55,7 +42,7 @@ backward: K2 takes the z stash that K1 filled, where the tree has one).
 times sine_mlp_fwd_batched and sine_mlp_bwd_batched over M members in each
 mode, --split also runs one fp32 K2 under torch.profiler and records
 each kernel's device ms and launches (the layer-wise forward's and
-backward's by kind: first, hidden, last; above 512 the K2 under autograd
+backward's by kind: first, hidden, last; above 192 the K2 under autograd
 and the K1 under autograd that fills its stash too). --build-dir keeps
 the built files there, each under the hash of the sources it was built from,
 and reuses one only for the same sources (--build-only builds and stops), so
@@ -63,15 +50,13 @@ that two trees can share the directory and be timed in turns without
 building again; "full", the checkout's own source, is its library
 (ops/cuda_build.load_library, built under build/ of the checkout), which the
 checkout's other tools then load as built. The variants match the source of
-this commit and of older ones (the mma.sync forward and backward at width
-128; the mma.sync backward at 192 with sine_mlp_dw; before the wider
-backward moved dW into sine_mlp_dw), so the tool also measures an older
-checkout: copy this file into it and run it there. It then builds and runs
+this commit; an older checkout is measured with its own copy of this tool.
+It then builds and runs
 tools/mma_rate.cu: the rates of mma.sync and wgmma alone, and its checks of
 csrc/hopper.cuh's building blocks (their exit code is recorded). Prints one
 line per variant and width, and writes the record, with the card's name and
 power limit, as JSON to --out. For "full" it also records the sha256 of the
-fp32 forward's output and of the backward's results (above 512 also of the
+fp32 forward's output and of the backward's results (above 192 also of the
 autograd pair's), so that two trees' runs show whether their bits agree.
 """
 from __future__ import annotations
@@ -167,58 +152,24 @@ F2_DRAIN = """  __syncthreads();
 
 
 def _no_partial(src: str) -> str:
-    if B2_REDUCE in src:
-        src = _rep(src, B2_REDUCE, "")
-    if WG_REDUCE in src:
-        src = _rep(src, WG_REDUCE, "")
-    else:  # the mma.sync backward: the read-modify-write of the dW partials
-        ld, st = "      move_partial<true>(acc, dw, w);", "      move_partial<false>(acc, dw, w);"
-        src = _rep(_rep(src, ld, "      zero(acc);"), st, _never(st))
-    # the wider backward: its dW pieces (before sine_mlp_dw), or the operand
-    # stores that feed sine_mlp_dw
-    wide_ld = "        move_partial<true, HW>(acc, piece, w);"
-    wide_st = "        move_partial<false, HW>(acc, piece, w);"
-    if wide_ld in src:
-        return _rep(_rep(src, wide_ld, "        zero(acc);"), wide_st, _never(wide_st))
-    return _rep(src, "      store_dw_operands<G>(", "      if (l == 12345) store_dw_operands<G>(")
+    """The wgmma backwards' bulk reduce-adds of dW into the partials knocked
+    out."""
+    return _rep(_rep(src, B2_REDUCE, ""), WG_REDUCE, "")
 
 
 def variants(src: str) -> dict:
-    stash_st = ("        if (KEEP == kStashZ) *reinterpret_cast<float2*>(&z_g[sw<S>(r, c)]) = "
-                "make_float2(z0, z1);")
-    copy_z = "    asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\"\n" \
-             "                 ::\"r\"(smem_addr(dst + 4 * e)), \"l\"(src + 4 * e) : \"memory\");"
-    no_stash = _rep(_rep(src, stash_st, ""), copy_z, "    ;")
-    no_mma = src
-    if "  const PA pa(A, w.m0, w);" in src:  # the mma.sync forward at width 128 (older commits)
-        no_mma = _rep(src, "  const PA pa(A, w.m0, w);", "  return;\n  const PA pa(A, w.m0, w);")
-    if WG_REDUCE in src:  # the width-128 backward on wgmma (and, since, the forward)
-        no_stash = _rep(_rep(no_stash, WG_STASH, ""), WG_COPY, "  iit::mbar_arrive(bar);")
-        no_mma = _rep(_rep(no_mma, WG_PASSES, WG_PASSES + "  return;\n"), WG_DW,
-                      "  return;\n" + WG_DW)
-    if B2_REDUCE in src:  # the width-192 backward on wgmma
-        no_stash = _rep(_rep(no_stash, B2_STASH, ""), B2_LOAD,
-                        "        z = make_float2(0.f, 0.f);")
-        no_mma = _rep(_rep(no_mma, B2_SS, "          if (u == 12345) " + B2_SS.lstrip()),
-                      B2_RS, "          if (kk == 12345) " + B2_RS.lstrip())
-    if F2_SS in src:  # the width-192 forward on wgmma
-        no_mma = _rep(no_mma, F2_SS, "            if (u == 12345) " + F2_SS.lstrip())
-    no_mma = _rep(no_mma, "  const PA pa(A, a0, w);", "  return;\n  const PA pa(A, a0, w);")
-    if "warp_mma_at2" in src:  # sine_mlp_dw's two-piece product
-        no_mma = _rep(no_mma, "  const Cols<SA> pa(A, w.m0, w);",
-                      "  return;\n  const Cols<SA> pa(A, w.m0, w);")
-    ring_wait = "    ring.wait(b);\n    warp_mma_k<"
-    ring_sync = "    __syncthreads();\n    if (s + NB < total) ring.issue(b, src(s + NB));"
-    no_ring_wait = _rep(_rep(src, ring_wait, "    warp_mma_k<"), ring_sync,
-                        "    if (s + NB < total) ring.issue(b, src(s + NB));\n"
-                        "    if (s + 1 == total)\n"
-                        "      asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");")
-    if F2_SS in src:  # the width-192 forward's products wait for no copy
-        no_ring_wait = _rep(no_ring_wait, F2_END, F2_END + F2_DRAIN)
-        no_ring_wait = _rep(_rep(no_ring_wait, RING_BAR, RING_BAR + RING_LAND), RING_INIT,
-                            RING_INIT + f"      if constexpr ({F2_RING}) iit::mbar_init(land(b), 1);\n")
-        no_ring_wait = _rep(no_ring_wait, RING_COPY, F2_COPY + RING_COPY)
-    out = {
+    no_stash = _rep(_rep(src, WG_STASH, ""), WG_COPY, "  iit::mbar_arrive(bar);")
+    no_stash = _rep(_rep(no_stash, B2_STASH, ""), B2_LOAD, "        z = make_float2(0.f, 0.f);")
+    no_mma = _rep(_rep(src, WG_PASSES, WG_PASSES + "  return;\n"), WG_DW, "  return;\n" + WG_DW)
+    no_mma = _rep(_rep(no_mma, B2_SS, "          if (u == 12345) " + B2_SS.lstrip()),
+                  B2_RS, "          if (kk == 12345) " + B2_RS.lstrip())
+    no_mma = _rep(no_mma, F2_SS, "            if (u == 12345) " + F2_SS.lstrip())
+    # the width-192 forward's products wait for no copy
+    no_ring_wait = _rep(src, F2_END, F2_END + F2_DRAIN)
+    no_ring_wait = _rep(_rep(no_ring_wait, RING_BAR, RING_BAR + RING_LAND), RING_INIT,
+                        RING_INIT + f"      if constexpr ({F2_RING}) iit::mbar_init(land(b), 1);\n")
+    no_ring_wait = _rep(no_ring_wait, RING_COPY, F2_COPY + RING_COPY)
+    return {
         "full": src,
         "no_sine": _rep(_rep(src, "iit::fast_sin(omega * z0)", "z0"),
                         "iit::fast_sin(omega * z1)", "z1"),
@@ -227,13 +178,9 @@ def variants(src: str) -> dict:
         "no_partial": _no_partial(src),
         "no_both": _no_partial(no_stash),
         "no_ring_wait": no_ring_wait,
+        # the fills arrive at once, copying nothing: W's streaming cost
+        "no_ring_copy": _rep(src, RING_COPY, "    iit::mbar_arrive(bar(b));"),
     }
-    if RING_COPY in src:  # the fills arrive at once, copying nothing: W's streaming cost
-        out["no_ring_copy"] = _rep(src, RING_COPY, "    iit::mbar_arrive(bar(b));")
-    if "sine_mlp_dw_kernel" in src:
-        out["no_dw"] = _rep(src, "  if (n <= 0 || layers <= 0 || splits <= 0) return 0;",
-                            "  return 0;")
-    return out
 
 
 def _build(src: Path, out: Path) -> None:
@@ -328,7 +275,7 @@ def kernel_split(fn, prepare=None) -> dict:
 
 def autograd_forward(params, coords, cfg, precision: str = "fp32"):
     """K1 as a fit step runs it: siren_apply_flat_fused on copies of the
-    leaves that require grad (above 512 it fills the z stash where the
+    leaves that require grad (above 192 it fills the z stash where the
     tree's Function does) -> out, whose backward is K2 (from the stash, or
     with its recompute), and the leaves."""
     leaves = [{k: layer[k].detach().clone().requires_grad_(True) for k in ("w", "b")}
@@ -426,13 +373,7 @@ def main(argv=None) -> dict:
             g = (torch.randn((x.shape[0], 3), generator=gen) / x.shape[0]).to(dev)
             rows = record["widths"][width] = {}
             hidden = sm.kernel_width(width)
-            dw_args = None
-            # sine_mlp_dw alone where this tree's backward of that width has it
-            if hidden in getattr(sm, "DW_WIDTHS", sm.KERNEL_WIDTHS[1:]):
-                blocks, n_part, sizes = sm.partial_layout(x.shape[0], 8, 2, width, 3, dev)
-                ops = torch.randn((2, 6, x.shape[0], hidden), device=dev)
-                dw_args = (*ops, torch.empty((blocks, n_part), device=dev), sizes[0], "fp32")
-            # sine_mlp_layer_dw alone above 512: one hidden layer, the backward's splits
+            # sine_mlp_layer_dw alone above 192: one hidden layer, the backward's splits
             layer_dw_args = None
             if hidden > sm.KERNEL_WIDTHS[-1]:
                 slices, n_part, sizes = sm.partial_layout(x.shape[0], 8, 2, width, 3, dev)
@@ -500,9 +441,6 @@ def main(argv=None) -> dict:
                         line += "; K1 under autograd: " + "; ".join(
                             f"{k} {ms:.3f} / {n}"
                             for k, (ms, n) in rows[name]["k1_split_autograd"].items())
-                if dw_args is not None:
-                    rows[name]["dw_ms"] = _time_ms(lambda: sm.sine_mlp_dw(*dw_args))
-                    line += f", sine_mlp_dw alone {rows[name]['dw_ms']:.4f} ms"
                 if layer_dw_args is not None:
                     rows[name]["layer_dw_ms"] = _time_ms(
                         lambda: sm.sine_mlp_layer_dw(*layer_dw_args))

@@ -1,8 +1,8 @@
-"""The wider backward's dW path on the CPU: the row split of sine_mlp_dw, its
-plain version, and a plain mirror of the kernel pair (the operands the
-wider backward stores, the split dW over them, the partial sum) against the
-plain chain and the JAX package; the wrapper's checks; and the knock-out
-tool's replacements against the current kernel source.
+"""The backward's dW paths on the CPU: the row split of the layer-wise
+sine_mlp_layer_dw and its plain version, the width-192 backward's tiled dW
+order (a plain mirror against the plain chain, the JAX package and the
+Pallas kernels in interpret mode) and its pieces' positions; and the
+knock-out tool's replacements against the current kernel source.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py).
 """
@@ -27,7 +27,6 @@ torch.set_num_threads(1)
 
 # fp32 limit of the card (chip_smoke.py BWD_TOL): max abs error / max |ref|
 FP32_REL_TOL = 1e-4
-SPLITS = 7  # row splits of the mirror: ranges of 36 or 37 of 256 rows
 
 
 @pytest.mark.parametrize("n", [1, 63, 4099, 262_144])
@@ -45,12 +44,13 @@ def test_dw_row_splits_cover_rows_in_order(n, splits):
 @pytest.mark.parametrize("layers,n,hidden,splits", [
     (2, 4099, 192, 7), (1, 1000, 256, 132), (3, 300, 512, 1)])
 def test_dw_reference_sums_to_the_float64_product(layers, n, hidden, splits):
-    """sine_mlp_dw_reference summed by sum_partials_reference is A^T G: fp32
-    sums of at most 4,099 products, held to the card's fp32 limit."""
+    """layer_dw_reference (sine_mlp_layer_dw's plain version) summed by
+    sum_partials_reference is A^T G: fp32 sums of at most 4,099 products,
+    held to the card's fp32 limit."""
     rng = np.random.default_rng(5)
     a = rng.uniform(-1, 1, (layers, n, hidden)).astype(np.float32)
     g = (rng.standard_normal((layers, n, hidden)) / n).astype(np.float32)
-    parts = sm.sine_mlp_dw_reference(torch.from_numpy(a), torch.from_numpy(g), splits)
+    parts = sm.layer_dw_reference(torch.from_numpy(a), torch.from_numpy(g), splits)
     assert tuple(parts.shape) == (splits, layers, hidden, hidden)
     got = sm.sum_partials_reference(parts).double().numpy()
     want = np.einsum("lni,lnj->lij", a.astype(np.float64), g.astype(np.float64))
@@ -62,8 +62,8 @@ def test_dw_reference_bf16_rounds_its_operands():
     a = torch.from_numpy(rng.uniform(-1, 1, (1, 50, 192)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((1, 50, 192)).astype(np.float32))
     rnd = [t.to(torch.bfloat16).float() for t in (a, g)]
-    torch.testing.assert_close(sm.sine_mlp_dw_reference(a, g, 3, "bf16"),
-                               sm.sine_mlp_dw_reference(*rnd, 3, "fp32"), rtol=0, atol=0)
+    torch.testing.assert_close(sm.layer_dw_reference(a, g, 3, "bf16"),
+                               sm.layer_dw_reference(*rnd, 3, "fp32"), rtol=0, atol=0)
 
 
 def _setup(depth, hidden, seed=0):
@@ -83,54 +83,6 @@ def _chain_cotangent(tp, c, coords, target, precision):
     out = sm.siren_chain_reference(tp, x, c, precision).requires_grad_(True)
     loss = ((out / 2.0 + 0.5 - torch.from_numpy(target)) ** 2).mean()
     return x, torch.autograd.grad(loss, out)[0]
-
-
-def _mirror_dw(tp, c, x, g, precision, splits=SPLITS):
-    """The kernel pair's dW, plain: the operands the wider backward stores
-    (zero-padded to the kernel width), sine_mlp_dw's split sums, then the
-    partial sum; cropped to the model's width."""
-    h = tp[0]["w"].shape[1]
-    pad = sm.kernel_width(h) - h
-    a, gz = (F.pad(t, (0, pad)) for t in sm.siren_chain_dw_operands(tp, x, g, c, precision))
-    dw = sm.sum_partials_reference(sm.sine_mlp_dw_reference(a, gz, splits, precision))
-    return dw[:, :h, :h]
-
-
-@pytest.mark.parametrize("depth,hidden", [(3, 182), (4, 256)])
-def test_fp32_mirror_of_the_kernel_pair_matches_the_chain_and_jax(depth, hidden):
-    """At the finals width 182 (kernel 192) and at 256: the mirror's hidden
-    dW against siren_chain_backward_reference and against JAX XLA fp32, at
-    the card's fp32 limit."""
-    jm, jc, c, p, coords, target = _setup(depth, hidden)
-    tp = params_from_jax(p, "cpu")
-    x, g = _chain_cotangent(tp, c, coords, target, "fp32")
-    dw = _mirror_dw(tp, c, x, g, "fp32")
-    _, grads = sm.siren_chain_backward_reference(tp, x, g, c, "fp32")
-    jg = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc) - target) ** 2))(p)
-    assert dw.shape[0] == depth - 2
-    for l in range(1, depth - 1):
-        for ref in (grads[l]["w"].numpy(), np.asarray(jg[l]["w"])):
-            got = dw[l - 1].numpy()
-            assert np.abs(got - ref).max() <= FP32_REL_TOL * np.abs(ref).max(), l
-
-
-def test_bf16_mirror_of_the_kernel_pair_matches_pallas_interpret():
-    """At the finals width 182 in the bf16 mode, against the Pallas kernels
-    run in interpret mode (their backward included) under the error rule of
-    test_bf16_wide_chain_matches_pallas_interpret: the mirror's error
-    against exact fp32 is at most max(2.5x the Pallas kernel's, 0.02)."""
-    jm, jc, c, p, coords, target = _setup(3, 182)
-    tp = params_from_jax(p, "cpu")
-    x, g = _chain_cotangent(tp, c, coords, target, "bf16")
-    dw = _mirror_dw(tp, c, x, g, "bf16")
-    with pltpu.force_tpu_interpret_mode():
-        gp = jax.grad(lambda q: jnp.mean((siren_apply_flat_pallas(q, coords, jc) - target) ** 2))(p)
-    gf = jax.grad(lambda q: jnp.mean((jm.apply_flat(q, coords, jc, None) - target) ** 2))(p)
-    ref, pallas = np.asarray(gf[1]["w"]), np.asarray(gp[1]["w"])
-    scale = float(np.abs(ref).max())
-    err_mirror = float(np.abs(dw[0].numpy() - ref).max()) / scale
-    err_pallas = float(np.abs(pallas - ref).max()) / scale
-    assert err_mirror < max(2.5 * err_pallas, 0.02), (err_mirror, err_pallas)
 
 
 # ------------------------------------- the width-192 backward's dW order
@@ -181,10 +133,10 @@ def test_fp32_mirror_of_the_width_192_dw_order_matches_the_chain_and_jax():
 
 def test_bf16_mirror_of_the_width_192_dw_order_matches_pallas_interpret():
     """d4/w182 in the bf16 mode against the Pallas kernels in interpret mode
-    (their backward, _bwd_kernel, included), under the rule of
-    test_bf16_mirror_of_the_kernel_pair_matches_pallas_interpret: the
-    mirror's error against exact fp32 is at most max(2.5x the Pallas
-    kernel's, 0.02) of the largest |dW|, for each hidden layer."""
+    (their backward, _bwd_kernel, included), under the error rule of
+    tests/test_torch_sine_mlp.py's bf16 tests: the mirror's error against
+    exact fp32 is at most max(2.5x the Pallas kernel's, 0.02) of the
+    largest |dW|, for each hidden layer."""
     jm, jc, c, p, coords, target = _setup(4, 182)
     tp = params_from_jax(p, "cpu")
     x, g = _chain_cotangent(tp, c, coords, target, "bf16")
@@ -217,34 +169,6 @@ def test_width_192_dw_positions_are_the_pieces_in_thread_order():
     kernel = torch.empty_like(dw).reshape(2, 4, -1)
     kernel.scatter_(-1, idx.reshape(-1).expand(kernel.shape), dw.reshape(2, 4, -1))
     assert torch.equal(sm._unturn_dw(kernel.reshape(dw.shape)), dw)
-
-
-@pytest.fixture
-def no_build(monkeypatch):
-    """Fail the test if the wrapper reaches the library or nvcc."""
-    def refuse(*_args, **_kwargs):
-        raise AssertionError("the kernel library was asked for")
-
-    monkeypatch.setattr(cuda_build, "load_library", refuse)
-    monkeypatch.setattr(cuda_build, "_nvcc", refuse)
-
-
-@pytest.mark.parametrize("a_shape,g_shape,p_shape,offset,match", [
-    ((2, 100, 256), (2, 100, 256), (7, 140_000), 384, "expected a tensor on"),  # CPU
-    ((2, 100, 256), (2, 101, 256), (7, 140_000), 384, "one shape"),
-    ((2, 100, 128), (2, 100, 128), (7, 80_000), 256, "one shape"),   # width 128: no dW kernel
-    ((100, 256), (100, 256), (7, 140_000), 384, "one shape"),
-    ((2, 100, 256), (2, 100, 256), (7, 140_002), 384, "multiple of 4"),
-    ((2, 100, 256), (2, 100, 256), (7, 140_000), 385, "odd"),
-    ((2, 100, 256), (2, 100, 256), (7, 100_000), 384, "do not fit"),
-    ((2, 100, 192), (2, 100, 192), (7, 80_000), 384, "one shape"),   # width 192: dW in K2
-])
-def test_sine_mlp_dw_raises_before_building(no_build, a_shape, g_shape, p_shape, offset, match):
-    before = sm.LAUNCHES["sine_mlp_dw"]
-    with pytest.raises(ValueError, match=match):
-        sm.sine_mlp_dw(torch.zeros(a_shape), torch.zeros(g_shape), torch.zeros(p_shape),
-                       offset, "fp32")
-    assert sm.LAUNCHES["sine_mlp_dw"] == before
 
 
 def test_kernel_breakdown_variants_apply_to_the_current_source():

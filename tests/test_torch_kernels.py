@@ -8,7 +8,7 @@ that repeats bit for bit; since the batched slice, K2 over a member axis
 and batched fits, each member the bits of its single launch or fit; since
 the slice of the CLI's last options, the QAT finetune, Shampoo and EKFAC
 fits, and Fourier and Feathermap beyond fp32; since the layer-wise kernels,
-every hidden width above 512 in every mode, over a member axis, and their
+every hidden width above 192 in every mode, over a member axis, and their
 partial buffer against its plain mirror.
 
 Every test here is marked `cuda` and skips (inside the test) without a CUDA
@@ -54,12 +54,12 @@ def test_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hi
     out = sm.sine_mlp_fwd(params, x, c, precision)
     dx, grads = sm.sine_mlp_bwd(params, x, g, c, precision)
     torch.cuda.synchronize()
-    assert sm.LAUNCHES["sine_mlp_fwd"] == before["sine_mlp_fwd"] + 1
-    assert sm.LAUNCHES["sine_mlp_bwd"] == before["sine_mlp_bwd"] + 1
-    assert sm.LAUNCHES["sum_partials"] == before["sum_partials"] + 1
-    # at kernel widths 256 and 512 the hidden layers' dW is sine_mlp_dw's
-    assert sm.LAUNCHES["sine_mlp_dw"] == before["sine_mlp_dw"] + (
-        sm.kernel_width(hidden) in sm.DW_WIDTHS and depth > 2)
+    if sm.kernel_width(hidden) > sm.KERNEL_WIDTHS[-1]:  # above 192: the layer-wise kernels
+        assert _layer_launches(before, depth, fwd_calls=1, bwd_calls=1)
+    else:
+        launched = {k: sm.LAUNCHES[k] - before[k] for k in before}
+        assert launched == {k: int(k in ("sine_mlp_fwd", "sine_mlp_bwd", "sum_partials"))
+                            for k in before}
     ref = sm.siren_chain_reference(params, x, c, precision)
     assert float((out - ref).abs().max()) <= fwd_tol
     dx_r, grads_r = sm.siren_chain_backward_reference(params, x, g, c, precision)
@@ -83,7 +83,7 @@ def test_limits_reject_the_other_modes_kernel(cuda_device, precision, other, fwd
                          [("fp32", "bf16", 1e-4, 1e-4), ("bf16", "fp32", 1.5e-3, 2e-2)])
 def test_limits_reject_the_other_modes_kernel_at_w256(cuda_device, precision, other, fwd_tol,
                                                       bwd_tol):
-    """The same control on the wider kernels (d4/w256)."""
+    """The same control at d4/w256 (the layer-wise kernels)."""
     _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, 4, 256)
 
 
@@ -94,7 +94,7 @@ def test_limits_reject_the_other_modes_kernel_at_w256(cuda_device, precision, ot
 def test_limits_reject_the_other_modes_kernel_at_w182_and_w512(cuda_device, precision, other,
                                                                fwd_tol, bwd_tol, depth, hidden):
     """The same control at the finals width (kernel 192: the wgmma backward,
-    dW summed in it) and at 512 (sine_mlp_bwd_wide + sine_mlp_dw)."""
+    dW summed in it) and at 512 (the layer-wise kernels)."""
     _check_other_mode_fails(cuda_device, precision, other, fwd_tol, bwd_tol, depth, hidden)
 
 
@@ -122,8 +122,8 @@ def test_kernel_backward_repeats_bit_for_bit(cuda_device):
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
 def test_wide_kernel_backward_repeats_bit_for_bit(cuda_device, precision):
     """The width-192 backward (its dW summed in the kernel) + sum_partials at
-    182, and sine_mlp_bwd_wide + sine_mlp_dw + sum_partials at 256 and 512,
-    in every mode; the forward of each width too."""
+    182, and the layer-wise kernels + sum_partials at 256 and 512, in every
+    mode; the forward of each width too."""
     for hidden in (182, 256, 512):
         _check_backward_repeats(cuda_device, hidden, precision)
 
@@ -160,68 +160,6 @@ def test_sum_partials_equals_its_mirror_bit_for_bit(cuda_device, shape):
     assert torch.equal(first, second)
     library = partials.sum(0)
     assert float((first - library).abs().max()) <= 1e-6 * float(library.abs().max())
-
-
-def _dw_operands(cuda_device, layers, n, hidden, precision, seed=3):
-    gen = torch.Generator().manual_seed(seed)
-    a = torch.rand((layers, n, hidden), generator=gen) * 2 - 1
-    g = torch.randn((layers, n, hidden), generator=gen) / n
-    if precision == "bf16":  # what the wider backward stores in the bf16 mode
-        a, g = a.to(torch.bfloat16).float(), g.to(torch.bfloat16).float()
-    return a.to(cuda_device), g.to(cuda_device)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
-@pytest.mark.parametrize("layers,n,hidden,splits", [
-    (6, 20_000, 256, 132), (2, 4_099, 256, 7), (3, 5_000, 512, 13), (1, 100, 256, 132)])
-def test_sine_mlp_dw_matches_its_plain_version(cuda_device, precision, layers, n, hidden,
-                                               splits):
-    """Each split's dW against sine_mlp_dw_reference (fp32 sums: 1e-5 of the
-    split's largest value); the same bits twice; the rest of the partial
-    buffer untouched."""
-    a, g = _dw_operands(cuda_device, layers, n, hidden, precision)
-    offset, n_part = 2 * hidden, 2 * hidden + layers * hidden * hidden + 4 * hidden
-    region = slice(offset, offset + layers * hidden * hidden)
-    runs = []
-    for _ in range(2):
-        partials = torch.full((splits, n_part), 7.0, device=cuda_device)
-        before = sm.LAUNCHES["sine_mlp_dw"]
-        sm.sine_mlp_dw(a, g, partials, offset, precision)
-        torch.cuda.synchronize()
-        assert sm.LAUNCHES["sine_mlp_dw"] == before + 1
-        runs.append(partials)
-    assert torch.equal(runs[0], runs[1])
-    assert bool((runs[0][:, :offset] == 7.0).all())
-    assert bool((runs[0][:, region.stop:] == 7.0).all())
-    got = runs[0][:, region].view(splits, layers, hidden, hidden)
-    ref = sm.sine_mlp_dw_reference(a, g, splits, precision)
-    for s in range(splits):
-        assert float((got[s] - ref[s]).abs().max()) <= 1e-5 * float(ref[s].abs().max()) + 1e-30, s
-
-
-@pytest.mark.cuda
-def test_sine_mlp_dw_rejects_misshaped_or_misaligned_buffers(cuda_device):
-    a, g = _dw_operands(cuda_device, 2, 100, 256, "fp32")
-    partials = torch.zeros((4, 2 * 256 * 256 + 512), device=cuda_device)
-    before = sm.LAUNCHES["sine_mlp_dw"]
-    flat = torch.zeros(2 * 100 * 256 + 1, device=cuda_device)
-    with pytest.raises(ValueError, match="aligned"):
-        sm.sine_mlp_dw(flat[1:].view(2, 100, 256), g, partials, 0, "fp32")
-    with pytest.raises(ValueError, match="aligned"):
-        sm.sine_mlp_dw(a, g.transpose(0, 1).contiguous().transpose(0, 1), partials, 0, "fp32")
-    with pytest.raises(ValueError, match="float32"):
-        sm.sine_mlp_dw(a.double(), g.double(), partials, 0, "fp32")
-    with pytest.raises(ValueError, match="one shape"):
-        sm.sine_mlp_dw(a, g[:, :99], partials, 0, "fp32")
-    with pytest.raises(ValueError, match="do not fit"):
-        sm.sine_mlp_dw(a, g, partials, 1024, "fp32")
-    with pytest.raises(ValueError, match="expected a tensor on"):
-        sm.sine_mlp_dw(a, g.cpu(), partials, 0, "fp32")
-    with pytest.raises(ValueError, match="one shape"):  # width 192: dW is summed in K2
-        sm.sine_mlp_dw(a[..., :192].contiguous(), g[..., :192].contiguous(), partials, 0,
-                       "fp32")
-    assert sm.LAUNCHES["sine_mlp_dw"] == before
 
 
 @pytest.mark.cuda
@@ -279,7 +217,7 @@ def test_kernel_runs_width_576(cuda_device):
                           ("fp32+mixed", 1.5e-3, 2e-2), ("bf16+mixed", 1.5e-3, 2e-2)])
 @pytest.mark.parametrize("depth,hidden,n", [(4, 640, 20000), (2, 700, 4099), (8, 1024, 9000)])
 def test_layer_kernels_match_plain(cuda_device, precision, fwd_tol, bwd_tol, depth, hidden, n):
-    """The layer-wise kernels (widths above 512) against the plain chain at
+    """The layer-wise kernels (widths above 192) against the plain chain at
     the fused kernels' limits, in every mode, with their launch counts."""
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(0), c, cuda_device)
@@ -609,14 +547,15 @@ def _kind_batched(kind, ops, other, precision, depth):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
-def test_layer_dw_matches_its_plain_version_over_row_groups(cuda_device, precision):
-    """sine_mlp_layer_dw (wgmma, the rows in groups of 1,024) at width 640
-    on 70,000 rows (26 splits of ~2,700 rows: three groups each) against its
-    plain version in float64: within 1e-5 of max |dW| per split; twice the
-    same bits."""
+@pytest.mark.parametrize("h", [256, 384, 640])
+def test_layer_dw_matches_its_plain_version_over_row_groups(cuda_device, precision, h):
+    """sine_mlp_layer_dw (wgmma, the rows in groups of 1,024) at widths 256,
+    384 and 640 on 70,000 rows (66 / 44 / 26 splits of ~1,060 / 1,590 /
+    2,700 rows: one to three groups each) against its plain version in
+    float64: within 1e-5 of max |dW| per split; twice the same bits."""
     bf16, mixed = sm.precision_modes(precision)
     gen = torch.Generator().manual_seed(8)
-    n, h = 70_000, 640
+    n = 70_000
     a = sm._rnd(torch.sin(torch.randn((n, h), generator=gen) * 3), bf16 or mixed).to(cuda_device)
     g = sm._rnd(torch.randn((n, h), generator=gen) / n, bf16).to(cuda_device)
     slices = sm.layer_slices(n, h, torch.cuda.get_device_properties(cuda_device)
@@ -636,9 +575,10 @@ def test_layer_dw_matches_its_plain_version_over_row_groups(cuda_device, precisi
 @pytest.mark.cuda
 def test_kernel_widths_and_partial_layout(cuda_device):
     """The library's kernel widths and tile rows are KERNEL_TILE_ROWS (each
-    width runs on the first kernel width at or above it, as kernel_width()
-    says); the partial buffer has one block per SM, at most one per tile of
-    the width's rows, and 16-byte-aligned slices."""
+    width up to 192 runs on the first kernel width at or above it, above
+    192 at the next multiple of 128, as kernel_width() says, for every
+    width from 1 to 4096); the partial buffer has one block per SM, at most
+    one per tile of the width's rows, and 16-byte-aligned slices."""
     lib = sm._lib()
     for h in range(1, 4097):
         want = (next((k for k in sm.KERNEL_WIDTHS if h <= k), 0)
@@ -647,7 +587,7 @@ def test_kernel_widths_and_partial_layout(cuda_device):
         assert sm.kernel_width(h) == want, h
     assert lib.sine_mlp_kernel_width(0) == 0
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert sm.KERNEL_TILE_ROWS == {128: 128, 192: 64, 256: 64, 512: 32}
+    assert sm.KERNEL_TILE_ROWS == {128: 128, 192: 64}
     for hidden, rows in sm.KERNEL_TILE_ROWS.items():
         assert lib.sine_mlp_tile_rows(hidden) == rows
         for n in (1, rows * 7 + 1, 512 * 512):
@@ -655,8 +595,8 @@ def test_kernel_widths_and_partial_layout(cuda_device):
             assert grid == min(-(-n // rows), sms)
             assert n_part % 4 == 0 and n_part >= sum(sizes)
             assert sizes[1] == 6 * hidden * hidden
-    # above 512: the layer-wise kernels' 128-row tiles, one partial slice per row slice
-    for hidden in (640, 1024, 2048):
+    # above 192: the layer-wise kernels' 128-row tiles, one partial slice per row slice
+    for hidden in (256, 384, 512, 640, 1024, 2048):
         assert lib.sine_mlp_tile_rows(hidden) == sm.LAYER_TILE
         for n in (1, 1000, 512 * 512):
             grid, n_part, sizes = sm.partial_layout(n, 8, 2, hidden, 3, cuda_device)
@@ -969,7 +909,10 @@ def test_mixed_kernels_match_the_plain_chain(cuda_device, mode, depth, hidden, n
     sm.reset_launch_counts()
     out = sm.sine_mlp_fwd(params, x, c, prec)
     _, grads = sm.sine_mlp_bwd(params, x, g, c, prec)
-    assert sm.LAUNCHES_BY_MODE["sine_mlp_fwd"][mode] == 1
+    if sm.kernel_width(hidden) > sm.KERNEL_WIDTHS[-1]:  # the forward's layers, K2's recompute
+        assert sm.LAUNCHES_BY_MODE["sine_mlp_layer_fwd"][mode] == 2 * depth - 1
+    else:
+        assert sm.LAUNCHES_BY_MODE["sine_mlp_fwd"][mode] == 1
     assert float((out - sm.siren_chain_reference(params, x, c, prec)).abs().max()) <= 1.5e-3
     _, ref = sm.siren_chain_backward_reference(params, x, g, c, prec)
     for a, b in zip(grads, ref):
@@ -1084,8 +1027,11 @@ def test_batched_forward_is_single_launches_bit_for_bit(cuda_device, precision, 
     shared = sm.sine_mlp_fwd_batched(members, x, c, precision)
     per = sm.sine_mlp_fwd_batched(members, xs, c, precision)
     torch.cuda.synchronize()
-    assert sm.LAUNCHES["sine_mlp_fwd_batched"] == before["sine_mlp_fwd_batched"] + 2
-    assert sm.LAUNCHES["sine_mlp_fwd"] == before["sine_mlp_fwd"]
+    if sm.kernel_width(hidden) > sm.KERNEL_WIDTHS[-1]:  # above 192: the layer-wise kernels
+        assert _layer_launches(before, depth, fwd_calls=2, batched=True)
+    else:
+        assert sm.LAUNCHES["sine_mlp_fwd_batched"] == before["sine_mlp_fwd_batched"] + 2
+        assert sm.LAUNCHES["sine_mlp_fwd"] == before["sine_mlp_fwd"]
     for i, p in enumerate(members):
         assert torch.equal(shared[i], sm.sine_mlp_fwd(p, x, c, precision))
         assert torch.equal(per[i], sm.sine_mlp_fwd(p, xs[i].clone(), c, precision))
@@ -1189,25 +1135,27 @@ def test_fwd_w192_refuses_null_or_misaligned_planes(cuda_device):
 def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision, depth, hidden,
                                                          n):
     """K2 over a member axis (M = 3) at every kernel width, in every mode
-    ("+mixed" too, within the bf16 mode's limits): one
-    launch each of the backward, of sine_mlp_dw at widths 256 and 512 and
-    of the partial sum, each member's dx, dW and db the bits of its own single
-    launch, with one shared x and with one x per member; within the single
-    backward's limits of the plain version."""
+    ("+mixed" too, within the bf16 mode's limits): one launch each of the
+    backward and of the partial sum (above 192 the layer-wise kernels'
+    launches over the member axis), each member's dx, dW and db the bits of
+    its own single launch, with one shared x and with one x per member;
+    within the single backward's limits of the plain version."""
     m, c = build_model("siren", depth=depth, hidden_size=hidden)
     gen = torch.Generator().manual_seed(5)
     members = [m.init(gen, c, cuda_device) for _ in range(3)]
     x = (torch.rand((n, 2), generator=gen) * 2 - 1).to(cuda_device)
     xs = (torch.rand((3, n, 2), generator=gen) * 2 - 1).to(cuda_device)
     g = torch.randn((3, n, 3), generator=gen).to(cuda_device)
-    wide = sm.kernel_width(hidden) in sm.DW_WIDTHS and depth > 2
     before = dict(sm.LAUNCHES)
     shared = sm.sine_mlp_bwd_batched(members, x, g, c, precision)
     per = sm.sine_mlp_bwd_batched(members, xs, g, c, precision)
     torch.cuda.synchronize()
-    launched = {k: sm.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {k: 2 * (k in ("sine_mlp_bwd_batched", "sum_partials_batched")
-                                or (k == "sine_mlp_dw_batched" and wide)) for k in before}
+    if sm.kernel_width(hidden) > sm.KERNEL_WIDTHS[-1]:  # above 192: the layer-wise kernels
+        assert _layer_launches(before, depth, bwd_calls=2, batched=True)
+    else:
+        launched = {k: sm.LAUNCHES[k] - before[k] for k in before}
+        assert launched == {k: 2 * (k in ("sine_mlp_bwd_batched", "sum_partials_batched"))
+                            for k in before}
     for (dx, grads), xm in ((shared, [x] * 3), (per, [t.clone() for t in xs])):
         for i, p in enumerate(members):
             dx_1, grads_1 = sm.sine_mlp_bwd(p, xm[i], g[i].clone(), c, precision)
@@ -1227,7 +1175,8 @@ def test_batched_backward_is_single_launches_bit_for_bit(cuda_device, precision,
 def test_batched_backward_too_large_raises_before_allocating(cuda_device, hidden, members, n):
     """Members whose buffers exceed the card's free memory raise ValueError
     before the launch's buffers are allocated; nothing falls back to single
-    launches. At w512, d8, 2^22 rows: ~100 GB of dW operands each. At w182
+    launches. At w512, d8, 2^22 rows (the layer-wise kernels): ~60 GB of z
+    stash each (its recompute), and two N x 512 buffers. At w182
     (kernel width 192), whose backward sums dW itself, a member's buffers at
     512^2 are its z stash and partials (~0.14 GB): 1,200 members need ~170
     GB, more than the card holds."""

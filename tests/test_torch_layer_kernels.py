@@ -1,9 +1,10 @@
-"""Port parity at hidden widths above 512: the layer-wise kernels' widths,
+"""Port parity at hidden widths above 192: the layer-wise kernels' widths,
 their split of the sums and their plain versions.
 
 On the CPU the port's chain runs its plain-torch versions; here they are
 held against the JAX model (fp32, and XLA's bf16 chain for the bf16 mode)
-at widths 576, 640 and 1024, on weights copied from the JAX init. The card
+at widths 256, 300 (kernel width 384), 512, 576, 640 and 1024, on weights
+copied from the JAX init. The card
 runs the same widths on the layer-wise kernels (csrc/sine_mlp.cu, "the
 layer-wise kernels"), which tests/test_torch_kernels.py and chip_smoke.py
 hold against these plain versions. Also here: the width rule over 1-4096,
@@ -60,10 +61,11 @@ def _torch_grads(m, c, p, coords, target, precision):
     return out.detach().numpy(), [{k: layer[k].grad.numpy() for k in KEYS} for layer in tp]
 
 
-@pytest.mark.parametrize("depth,hidden", [(4, 576), (3, 640), (3, 1024)])
+@pytest.mark.parametrize("depth,hidden", [(4, 256), (3, 300), (3, 512), (4, 576), (3, 640),
+                                          (3, 1024)])
 def test_wide_fp32_forward_and_grads_match_jax(depth, hidden):
-    """The chain above 512 (576 and 640 run as kernel width 640, 1024 as
-    1024 on the card) against JAX XLA fp32 on 144 pixels."""
+    """The chain above 192 (300 runs as kernel width 384, 576 and 640 as
+    640 on the card) against JAX XLA fp32 on 144 pixels."""
     jm, jc, m, c, p, coords, target = _setup(depth, hidden)
     out, grads = _torch_grads(m, c, p, coords, target, "fp32")
     np.testing.assert_allclose(out, np.asarray(jm.apply_flat(p, coords, jc)), atol=2e-5)
@@ -74,9 +76,10 @@ def test_wide_fp32_forward_and_grads_match_jax(depth, hidden):
             assert np.abs(a[k] - ref).max() <= 1e-4 * np.abs(ref).max(), k
 
 
-@pytest.mark.parametrize("depth,hidden", [(3, 576), (3, 640), (3, 1024)])
+@pytest.mark.parametrize("depth,hidden", [(4, 256), (3, 300), (3, 512), (3, 576), (3, 640),
+                                          (3, 1024)])
 def test_wide_bf16_forward_and_grads_match_jax(depth, hidden):
-    """The bf16 mode above 512 against JAX's bf16 chain (XLA,
+    """The bf16 mode above 192 against JAX's bf16 chain (XLA,
     compute_dtype=bfloat16 products, f32 accumulation): forward within
     8e-3, gradients under the error rule against exact fp32."""
     jm, jc, m, c, p, coords, target = _setup(depth, hidden, seed=1)
@@ -95,20 +98,24 @@ def test_wide_bf16_forward_and_grads_match_jax(depth, hidden):
 
 
 def test_kernel_width_from_1_to_4096():
-    """Every width runs: up to 512 on the first fused kernel width at or
-    above it, above on the layer-wise kernels at the next multiple of 128;
-    the kernel width never adds more than 127 units above 512."""
+    """Every width runs: up to 192 on the first fused kernel width at or
+    above it (128, 192), above on the layer-wise kernels at the next
+    multiple of 128; the kernel width never adds more than 127 units above
+    192."""
+    assert sm.KERNEL_WIDTHS == (128, 192)
     for h in range(1, 4097):
         got = sm.kernel_width(h)
-        if h <= 512:
+        if h <= sm.KERNEL_WIDTHS[-1]:
             assert got == next(k for k in sm.KERNEL_WIDTHS if h <= k), h
         else:
             assert got % sm.LAYER_TILE == 0 and h <= got < h + sm.LAYER_TILE, h
 
 
-@pytest.mark.parametrize("n,hidden,sms", [(262144, 640, 132), (262144, 1024, 132),
-                                          (262144, 2048, 132), (300, 640, 132),
-                                          (1, 4096, 132), (262144, 16896, 132)])
+@pytest.mark.parametrize("n,hidden,sms", [(262144, 256, 132), (262144, 384, 132),
+                                          (262144, 512, 132), (262144, 640, 132),
+                                          (262144, 1024, 132), (262144, 2048, 132),
+                                          (300, 640, 132), (1, 4096, 132),
+                                          (262144, 16896, 132)])
 def test_layer_slices_fill_one_wave_and_cover_the_rows(n, hidden, sms):
     """At most SMs / (H / 128) slices (one wave of (slice, column tile)
     blocks), at most one per 128-row tile, at least 1; their row ranges
@@ -117,6 +124,8 @@ def test_layer_slices_fill_one_wave_and_cover_the_rows(n, hidden, sms):
     s = sm.layer_slices(n, hidden, sms)
     tiles = -(-n // sm.LAYER_TILE)
     assert 1 <= s <= max(1, min(tiles, sms // (hidden // sm.LAYER_TILE)))
+    if n == 262144 and hidden <= 512:  # one wave of 132 blocks at the former fused widths
+        assert s == {256: 66, 384: 44, 512: 33}[hidden]
     rows = sm.layer_slice_rows(n, s)
     assert rows[0][0] == 0 and rows[-1][1] == n
     assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
@@ -132,8 +141,9 @@ def test_layer_band_rows_bound_the_forward_buffers():
 
 @pytest.mark.parametrize("precision,tol", [("fp32", 2e-6), ("bf16", 5e-3),
                                            ("fp32+mixed", 1e-2)])
-@pytest.mark.parametrize("depth,hidden,n,slices", [(4, 576, 300, 3), (2, 640, 200, 2),
-                                                   (3, 1024, 257, 1)])
+@pytest.mark.parametrize("depth,hidden,n,slices", [(4, 256, 300, 3), (3, 300, 260, 2),
+                                                   (2, 512, 200, 2), (4, 576, 300, 3),
+                                                   (2, 640, 200, 2), (3, 1024, 257, 1)])
 def test_layer_partials_mirror_sums_to_the_plain_backward(precision, tol, depth, hidden, n,
                                                           slices):
     """The layer-wise backward's split of the sums (`siren_chain_layer_
@@ -166,7 +176,7 @@ def test_layer_partials_mirror_sums_to_the_plain_backward(precision, tol, depth,
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_layer_dw_operands_and_split_dw_at_640(precision):
     """dW_l's operands as the layer-wise backward leaves them (A_l over
-    z_{l-1}, G_l in its buffer) and their split sum (sine_mlp_dw_reference,
+    z_{l-1}, G_l in its buffer) and their split sum (layer_dw_reference,
     sine_mlp_layer_dw's) give the plain backward's hidden dW."""
     m, c = build_model("siren", depth=4, hidden_size=640)
     p = m.init(torch.Generator().manual_seed(2), c)
@@ -175,7 +185,7 @@ def test_layer_dw_operands_and_split_dw_at_640(precision):
     g = torch.randn((260, 3), generator=gen)
     a, gz = sm.siren_chain_dw_operands(p, x, g, c, precision)
     assert a.shape == gz.shape == (2, 260, 640)
-    dw = sm.sum_partials_reference(sm.sine_mlp_dw_reference(a, gz, 3, precision))
+    dw = sm.sum_partials_reference(sm.layer_dw_reference(a, gz, 3, precision))
     _, grads = sm.siren_chain_backward_reference(p, x, g, c, precision)
     for l in (1, 2):
         ref = grads[l]["w"]
@@ -605,13 +615,14 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32+mixed", "bf16+mixed"])
-@pytest.mark.parametrize("depth,hidden", [(4, 640), (3, 1024)])
+@pytest.mark.parametrize("depth,hidden", [(4, 256), (3, 300), (3, 512), (4, 640), (3, 1024)])
 def test_stash_under_autograd_gives_the_recompute_bits(precision, depth, hidden):
     """SineMLPFunction with a stash (the plain path's mirror of K1 filling
     the z stash for K2): the forward keeps z_0 .. z_{D-2}, the backward
     takes them and drops them, and out, dx and every gradient are the bits
     of siren_chain_reference and siren_chain_backward_reference (the
-    recompute), in every mode, at d4/w640 and d3/w1024 on 144 pixels."""
+    recompute), in every mode, at d4/w256, d3/w300, d3/w512, d4/w640 and
+    d3/w1024 on 144 pixels."""
     _, _, _, c, p, coords, _ = _setup(depth, hidden, seed=3)
     tp = _grad_leaves(p)
     x = ((torch.from_numpy(coords) - 0.5) * 2.0).requires_grad_(True)
@@ -630,7 +641,7 @@ def test_stash_under_autograd_gives_the_recompute_bits(precision, depth, hidden)
     assert _same(_grads(tp), grads)
 
 
-@pytest.mark.parametrize("depth,hidden", [(4, 640), (3, 1024)])
+@pytest.mark.parametrize("depth,hidden", [(4, 256), (3, 300), (3, 512), (4, 640), (3, 1024)])
 def test_stash_path_grads_match_jax(depth, hidden):
     """The fit's path (models' apply_flat -> siren_apply_flat_fused, leaves
     requiring grad: the stash is kept) against JAX XLA fp32 on 144 pixels,
@@ -749,9 +760,9 @@ def test_second_backward_recomputes_the_used_stash(batched):
     assert _same(_grads(params), first)
 
 
-@pytest.mark.parametrize("hidden", [128, 512])
+@pytest.mark.parametrize("hidden", [128, 192])
 def test_no_stash_at_fused_widths(hidden):
-    """At 512 and below the fused kernels recompute inside K2: asked for a
+    """At 192 and below the fused kernels recompute inside K2: asked for a
     stash, the Function keeps none, and its gradients are the recompute's."""
     m, c = build_model("siren", depth=3, hidden_size=hidden)
     params = m.init(torch.Generator().manual_seed(14), c)

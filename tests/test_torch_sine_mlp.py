@@ -188,23 +188,32 @@ def test_depth_two_chain():
 
 @pytest.mark.parametrize("h,want", [(1, 128), (57, 128), (128, 128), (129, 192),
                                     (182, 192), (192, 192), (193, 256), (256, 256),
-                                    (257, 512), (512, 512)])
+                                    (257, 384), (512, 512)])
 def test_kernel_width_pads_to_the_next_kernel_width(h, want):
+    """1-128 at 128 and 129-192 at 192 (the fused kernels, one activation
+    tile of at most 64 KB), above 192 the next multiple of 128 (the
+    layer-wise kernels, tiles of LAYER_TILE rows)."""
     assert sm.kernel_width(h) == want
-    assert sm.KERNEL_TILE_ROWS[want] * want <= 128 * 128  # one activation tile, 64 KB
+    if want in sm.KERNEL_TILE_ROWS:
+        assert sm.KERNEL_TILE_ROWS[want] * want <= 128 * 128
+    else:
+        assert want > sm.KERNEL_WIDTHS[-1] and want % sm.LAYER_TILE == 0
 
 
 @pytest.mark.parametrize("h", [0, -1, -576])
 def test_kernel_width_outside_the_kernels_raises(h):
-    """Only a width below 1 has no kernel: every width above 512 runs on the
+    """Only a width below 1 has no kernel: every width above 192 runs on the
     layer-wise kernels (tests/test_torch_layer_kernels.py)."""
-    with pytest.raises(NotImplementedError, match="129-192 at 192.*257-512 at 512.*above 512"):
+    with pytest.raises(NotImplementedError, match="1-128 at 128, 129-192 at 192 and above 192 "
+                                                  "at the next multiple of 128"):
         sm.kernel_width(h)
 
 
-@pytest.mark.parametrize("h,want", [(513, 640), (576, 640), (640, 640), (641, 768),
-                                    (1024, 1024), (2048, 2048)])
+@pytest.mark.parametrize("h,want", [(193, 256), (300, 384), (385, 512), (513, 640), (576, 640),
+                                    (640, 640), (641, 768), (1024, 1024), (2048, 2048)])
 def test_kernel_width_above_512_pads_to_a_multiple_of_128(h, want):
+    """Above 192 (and so above 512) the kernel width is h rounded up to a
+    multiple of 128."""
     assert sm.kernel_width(h) == want
 
 
@@ -358,7 +367,7 @@ def test_split_precision_against_fp32_limits(split_errors, scheme, passes):
         assert bwd > _FP32_BWD_TOL, (fwd, bwd)
 
 
-# the layer-wise wgmma kernels (widths above 512) sum the chain products' K
+# the layer-wise wgmma kernels (widths above 192) sum the chain products' K
 # in groups of 128 (LW_K_GROUP x LW_KC of csrc/sine_mlp.cu) and dW's rows in
 # groups of 1,024 (LW_DW_GROUP x LW_KC), each group from zero
 LAYER_K_GROUP, LAYER_ROW_GROUP = 128, 1024
@@ -370,10 +379,11 @@ LAYER_K_GROUP, LAYER_ROW_GROUP = 128, 1024
                                       (1024, 160), (2048, 48)])
 def test_split_precision_at_wide_widths(hidden, n, scheme, passes):
     """The error of a product grows with its depth K: at d8 with K = 192,
-    256 and 512 (the wider kernels' widths) 3xTF32 (their forward's split)
-    and "6xbf16" (the width-192 backward's) still pass the fp32 mode's
-    limits, with the margin of 10 of width 128, and 1-pass TF32 still fails
-    both. So do they at K = 640, 1024 and 2048 (the layer-wise kernels,
+    256 and 512 (the fused kernels' widths up to 512 once, 3xTF32 their
+    forward's split) and "6xbf16" (the width-192 backward's) still pass the
+    fp32 mode's limits, with the margin of 10 of width 128, and 1-pass TF32
+    still fails both. So do they at K = 640, 1024 and 2048 (the layer-wise
+    kernels, every width above 192 now,
     whose hidden forward and dW are "6xbf16" with K summed in groups of 128
     and dW's rows in groups of 1,024: "6xbf16 grouped"; their backward's
     gz·Wᵀ stays 3xTF32)."""
