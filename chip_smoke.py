@@ -352,15 +352,21 @@ Phases, each printing its own line:
      lattices' 258 rows, K2 twice a step, and both ranks' params and PSNRs
      are the single fit's within P19_WAVELET_DB and P19_WAVELET_REL (the
      gradients add over the ranks in another order), each rank's sharded
-     render the single render of its params bit for bit.
+     render the single render of its params bit for bit; (g) the study
+     analyses of visualize/ on run stores written on the card: a width/depth
+     sweep through compress.cli -m (w128 on the fused kernels, w256 on the
+     layer-wise ones, depths 4 and 8, 128², 20 steps) read by
+     width_depth.gather, 14 (a)'s ladder by weight_removal.gather, the BD
+     numbers of 14 (a) against itself (0) and against 14 (b) (finite), and
+     17 (a)'s sequence rows by sequence_curve.load_summary.
 
 Each of phases 4-19 sets the launch counts to 0 just before its run and
 reads them just after: every kernel of the path must have launched, and
 sine_mlp_fwd_batched in 13 (e), 14, 16 and 18 only; the member-axis K2
 (sine_mlp_bwd_batched, sum_partials_batched) in 14, 16 and 18 only, in
-"+mixed" in 18 (c) only; the layer-wise kernels in 10 and the w512 run of
-12 (e) and in 14 (e) and (f) only (over the member axis in 14 (e) and (f)
-only, with no fused K1 or K2 there); nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
+"+mixed" in 18 (c) only; the layer-wise kernels in 10, the w512 run of
+12 (e), 14 (e) and (f) and 19 (g)'s w256 runs only (over the member axis in
+14 (e) and (f) only, with no fused K1 or K2 there); nothing in phase 8, in 11 (d), in 12 (f)-(h), in 15 (f)'s Fourier
 run, in 16 (e)'s CoordX meta-training, in 17 (e) and in 18 (b). In
 phase 3, sum_partials must equal its plain mirror sum_partials_reference
 (the kernel's order of additions) bit for bit on the main path's partial
@@ -4928,7 +4934,8 @@ def phase_member_axis(card: str, flagship_ms: float) -> dict:
 # (a) a world-size-1 NCCL group, (b) two processes sharing the card over
 # gloo with the image's rows split over them, (c) two processes over gloo
 # with the members split over them, (d) the multi-process fleet dryrun,
-# (e) the rate-distortion scoring without JAX, cv2 or matplotlib.
+# (e) the rate-distortion scoring without JAX, cv2 or matplotlib, (g) the
+# study analyses (BD-rate, width/depth, weight removal, sequence curve).
 P19 = "outputs/chip_smoke_p19"
 P19_MEMBERS = 4
 P19_DENSITIES = (0.25, 0.5)
@@ -4943,6 +4950,14 @@ P19_FLOOR = 20.0  # dB, (a)'s decoded PSNR, as phase 5's
 P19_WAVELET = ["img=synthetic", "mlp=wavelet_siren", "masking=none", "train.num_steps=60",
                "train.log_steps=30"]
 P19_WAVELET_DB, P19_WAVELET_REL = 0.05, 1e-3
+# (g): the study analyses of visualize/ on run stores written on the card:
+# scripts/width_depth.sh's overrides at widths 128 (the fused kernels) and
+# 256 (the layer-wise kernels) by depths 4 and 8, on a 128² synthetic image,
+# 20 steps; then phase 14 (a)'s and (b)'s ladders and 17 (a)'s sequence
+P19_STUDY = ["img=synthetic", "img.height=128", "img.width=128", "masking=none", "quant=none",
+             "entropy_coding=none", "train.num_steps=20", "train.log_steps=10"]
+P19_STUDY_WIDTHS, P19_STUDY_DEPTHS = (128, 256), (4, 8)
+BD_SELF_TOL = 1e-9  # |BD| of a curve against itself
 
 
 def _p19_pieces(overrides=None) -> dict:
@@ -5348,6 +5363,120 @@ def phase_rate_distortion(default_run: str, overrides=None, device="cuda") -> No
         raise AssertionError(f"19e host MS-SSIM {host} against {summary['Decoded MS-SSIM']}")
 
 
+def _bd_or_undefined(fn, anchor, test, overlap: bool):
+    """fn(anchor, test), finite where the curves overlap on fn's axis;
+    where they do not, the ValueError the BD rules give (None)."""
+    if overlap:
+        value = fn(anchor, test)
+        if not math.isfinite(value):
+            raise AssertionError(f"19g {fn.__name__} {value} on overlapping curves")
+        return value
+    try:
+        fn(anchor, test)
+    except ValueError:
+        return None
+    raise AssertionError(f"19g {fn.__name__} gave a number on curves that do not overlap")
+
+
+def _overlap(a, b) -> bool:
+    return max(min(a), min(b)) < min(max(a), max(b))
+
+
+def phase_studies() -> None:
+    """19 (g): the port's study analyses (visualize/bd_rate, width_depth,
+    weight_removal, sequence_curve) read run stores written on the card, with
+    no plot: (a) scripts/width_depth.sh's sweep through compress.cli -m at
+    P19_STUDY_WIDTHS x P19_STUDY_DEPTHS gives width_depth.gather's 4 finite
+    cells, with the fused K1/K2 (w128) and the layer-wise kernels by kind
+    (w256) launched, K2's counts exact; (b) weight_removal.gather over phase
+    14 (a)'s RigL ladder: one row a density, each PSNR finite; (c)
+    bd_rate.curve_from_runs over that ladder: BD-rate and BD-PSNR against
+    itself within BD_SELF_TOL of 0, and against 14 (b)'s GMP ladder finite
+    on each axis where the curves overlap; (d) 17 (a)'s seq_summary.json
+    through sequence_curve.load_summary: its rows, I then P, finite."""
+    from implicit_image_tpu_torch import compress
+    from implicit_image_tpu_torch.ops import sine_mlp as sm
+    from implicit_image_tpu_torch.visualize import (
+        bd_rate,
+        sequence_curve,
+        weight_removal,
+        width_depth,
+    )
+
+    t0 = time.perf_counter()
+    root = Path(P19) / "g_width_depth"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = int(compress.compose(P19_STUDY).train.num_steps)
+    sm.reset_launch_counts()
+    compress.cli(["-m", *P19_STUDY, "mlp.hidden_size=" + ",".join(map(str, P19_STUDY_WIDTHS)),
+                  "mlp.depth=" + ",".join(map(str, P19_STUDY_DEPTHS)), f"output_dir={root}"])
+    launches, by_kind = dict(sm.LAUNCHES), dict(sm.LAUNCHES_BY_KIND)
+    table = width_depth.gather(root)
+    cells = table.get("siren", {})
+    print(f"[19g width/depth] {len(cells)} cells (width, depth): PSNR dB "
+          + ", ".join(f"({w}, {d}): {p:.3f}" for (w, d), p in sorted(cells.items()))
+          + f"; launches {launches}; by kind {by_kind}", flush=True)
+    want = {(w, d) for w in P19_STUDY_WIDTHS for d in P19_STUDY_DEPTHS}
+    if set(table) != {"siren"} or set(cells) != want or not all(
+            math.isfinite(p) for p in cells.values()):
+        raise AssertionError(f"19g width_depth.gather gives {dict(table)}")
+    # per fit step a w128 run launches one K2 (and its partial sum), a w256
+    # run one layer-wise K2 of `depth` backward launches (the first, last
+    # and depth - 2 hidden), depth - 2 dW launches and one partial sum
+    hidden = sum(d - 2 for d in P19_STUDY_DEPTHS)
+    want_k2 = {"sine_mlp_bwd": steps * len(P19_STUDY_DEPTHS),
+               "sine_mlp_layer_bwd": steps * sum(P19_STUDY_DEPTHS),
+               "sine_mlp_layer_dw": steps * hidden,
+               "sum_partials": 2 * steps * len(P19_STUDY_DEPTHS)}
+    want_kinds = {"sine_mlp_layer_bwd first": steps * len(P19_STUDY_DEPTHS),
+                  "sine_mlp_layer_bwd hidden": steps * hidden,
+                  "sine_mlp_layer_bwd last": steps * len(P19_STUDY_DEPTHS)}
+    if ({k: launches[k] for k in want_k2} != want_k2
+            or {k: by_kind[k] for k in want_kinds} != want_kinds
+            or launches["sine_mlp_fwd"] <= 0 or by_kind["sine_mlp_layer_fwd hidden"] <= 0):
+        raise AssertionError(f"19g the sweep launched {launches}, by kind {by_kind}; expected "
+                             f"{want_k2}, {want_kinds} and both forwards")
+
+    rigl_root, gmp_root = Path(f"{P14}_14a"), Path(f"{P14}_14b")
+    densities = sorted(float(x) for x in LADDER_RUNS["14a RigL"][-1].split("=")[1].split(","))
+    rows, dense = weight_removal.gather(rigl_root)
+    print(f"[19g weight removal] 14a: {dict(rows)}; dense line {dense}", flush=True)
+    if (set(rows) != {"RigL"} or sorted(d for d, _ in rows["RigL"]) != densities
+            or not all(math.isfinite(p) for _, p in rows["RigL"])):
+        raise AssertionError(f"19g weight_removal.gather over 14a gives {dict(rows)}")
+
+    rigl = bd_rate.curve_from_runs(rigl_root)
+    gmp = bd_rate.curve_from_runs(gmp_root)
+    self_bd = (bd_rate.bd_rate(rigl, rigl), bd_rate.bd_psnr(rigl, rigl))
+    rates = [[math.log10(b) for b, _ in c] for c in (rigl, gmp)]
+    psnrs = [[p for _, p in c] for c in (rigl, gmp)]
+    against = (_bd_or_undefined(bd_rate.bd_rate, rigl, gmp, _overlap(*psnrs)),
+               _bd_or_undefined(bd_rate.bd_psnr, rigl, gmp, _overlap(*rates)))
+    print(f"[19g BD] 14a {rigl}; 14b {gmp}; 14a against itself: BD-rate {self_bd[0]:.3e} %, "
+          f"BD-PSNR {self_bd[1]:.3e} dB; 14b (GMP) against 14a (RigL): BD-rate {against[0]} %, "
+          f"BD-PSNR {against[1]} dB (None: no overlap on that axis)", flush=True)
+    if len(rigl) != len(densities) or not all(abs(v) <= BD_SELF_TOL for v in self_bd):
+        raise AssertionError(f"19g BD of 14a against itself {self_bd}, {len(rigl)} points")
+    if against == (None, None):
+        raise AssertionError("19g the 14a and 14b curves overlap on neither axis")
+
+    summary = sequence_curve.load_summary(Path(f"{P17}_a") / "seq_seqbench")
+    seq_rows = summary["rows"]
+    print(f"[19g sequence rows] 17a: {len(seq_rows)} rows "
+          + ", ".join(f"{r['kind']} {r['decoded_psnr']} dB {r['bytes']} B" for r in seq_rows)
+          + f"; {summary['bytes_per_frame']} B per frame, mean {summary['mean_decoded_psnr']} "
+          "dB", flush=True)
+    if ([r["kind"] for r in seq_rows] != ["I"] + ["P"] * (SEQ_FRAMES - 1) or not all(
+            math.isfinite(r["decoded_psnr"]) and r["bytes"] > 0 for r in seq_rows)):
+        raise AssertionError(f"19g 17a's rows {seq_rows}")
+    seconds = time.perf_counter() - t0
+    print(f"[19g studies] {seconds:.2f} s; width/depth cells {len(cells)}, K1 launches "
+          f"{launches['sine_mlp_fwd']} fused + {launches['sine_mlp_layer_fwd']} layer-wise, K2 "
+          f"{launches['sine_mlp_bwd']} fused + {launches['sine_mlp_layer_bwd']} layer-wise "
+          f"(+ {launches['sine_mlp_layer_dw']} dW); weight-removal rows {len(rows['RigL'])}; "
+          f"BD points {len(rigl)} / {len(gmp)}; sequence rows {len(seq_rows)}", flush=True)
+
+
 def phase_multi_device(default_run: str) -> dict:
     """Phase 19; returns (a)'s launches of the sharded path."""
     p = _p19_pieces()
@@ -5355,7 +5484,7 @@ def phase_multi_device(default_run: str) -> dict:
     launches = phase_world1(p)
     for part, fn in (("b", lambda: phase_pixel_ranks(p)), ("c", lambda: phase_image_ranks(p)),
                      ("d", phase_fleet_dryrun), ("e", lambda: phase_rate_distortion(default_run)),
-                     ("f", phase_wavelet_ranks)):
+                     ("f", phase_wavelet_ranks), ("g", phase_studies)):
         t1 = time.perf_counter()
         fn()
         print(f"[19{part}] wall {time.perf_counter() - t1:.2f} s", flush=True)

@@ -5,17 +5,14 @@ log line per step, and train.watch's `<run_dir>/histograms.jsonl`. The
 optional W&B sink is not ported."""
 from __future__ import annotations
 
-import functools
 import json
 import logging
-import sys
-import traceback
 from pathlib import Path
 from typing import Optional
 
 log = logging.getLogger("implicit_image_tpu_torch")
 
-__all__ = ["MetricsLogger", "catch_error_decorator"]
+__all__ = ["MetricsLogger"]
 
 
 def _clean(metrics: dict) -> dict:
@@ -71,20 +68,3 @@ class MetricsLogger:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
-
-
-def catch_error_decorator(fn):
-    """CLI boundary: log the traceback and exit 1 so schedulers mark the job
-    failed."""
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        try:
-            return fn(*args, **kwargs)
-        except SystemExit:
-            raise
-        except Exception:
-            logging.error(traceback.format_exc())
-            sys.exit(1)
-
-    return wrapped

@@ -1,10 +1,12 @@
-"""Rate-distortion plots (counterpart of implicit_image_tpu/visualize/,
-which imports JAX for its MS-SSIM and its synthetic images): the run-store
-readers are copies, the codecs' ladder is scored with the port's
-ops/ssim.py and the image comes from the port's data.py, so the scoring
-runs where JAX is absent. OpenCV (cv2) and matplotlib are imported where
-they are used; without them the codec ladder and the plot raise ImportError
-naming the package, and the scoring of the run store still runs.
+"""Rate-distortion plots and the study analyses (counterpart of
+implicit_image_tpu/visualize/, which imports JAX for its MS-SSIM and its
+synthetic images): the run-store readers are copies, the codecs' ladder is
+scored with the port's ops/ssim.py and the image comes from the port's
+data.py, so the scoring runs where JAX is absent. `bd_rate`, `width_depth`,
+`weight_removal` and `sequence_curve` are copies reading the run store
+through this package's `runs`. OpenCV (cv2) and matplotlib are imported
+where they are used; without them the codec ladder and the plots raise
+ImportError naming the package, and the scoring and the readers still run.
 """
 from implicit_image_tpu_torch.visualize.runs import collect_runs, load_run
 

@@ -14,14 +14,15 @@ from pathlib import Path
 
 import numpy as np
 
-from implicit_image_tpu_torch.visualize.rate_distortion import QUALITY_LADDER, _psnr, _require
+from implicit_image_tpu_torch.visualize.rate_distortion import _WITHOUT, QUALITY_LADDER, _psnr
+from implicit_image_tpu_torch.visualize.runs import optional_import
 
 log = logging.getLogger("implicit_image_tpu_torch")
 
 
 def quality_curve(img: np.ndarray):
     """[(quality, kilobytes, psnr)] over the JPEG quality ladder."""
-    cv2 = _require("cv2", "quality_curve")
+    cv2 = optional_import("cv2", "quality_curve", _WITHOUT)
     img8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)[:, :, ::-1]
     out = []
     for q in QUALITY_LADDER:
@@ -34,7 +35,7 @@ def quality_curve(img: np.ndarray):
 
 
 def plot(images: dict, out_path="outputs/plots/jpeg_quality.pdf"):
-    matplotlib = _require("matplotlib", "plot")
+    matplotlib = optional_import("matplotlib", "plot", _WITHOUT)
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 

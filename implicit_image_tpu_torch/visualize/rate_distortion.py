@@ -26,24 +26,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from implicit_image_tpu_torch.visualize.runs import collect_runs
+from implicit_image_tpu_torch.visualize.runs import collect_runs, optional_import
 
 log = logging.getLogger("implicit_image_tpu_torch")
 
 QUALITY_LADDER = np.linspace(1, 100, 20).astype(int)
-
-
-def _require(name: str, what: str):
-    """Import the optional package `name` (cv2, matplotlib) or raise an
-    ImportError that names it."""
-    import importlib
-
-    try:
-        return importlib.import_module(name)
-    except ImportError as e:
-        raise ImportError(f"{what} needs the {name!r} package, which is not installed "
-                          "here; the run store's scoring (ours_rate_distortion) runs "
-                          "without it") from e
+_WITHOUT = "the run store's scoring (ours_rate_distortion)"
 
 
 def _psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -67,7 +55,7 @@ def traditional_rate_distortion(
     """(kilobytes, distortion) ladder for a standard codec, computed from
     the ground truth in memory (cv2.imencode). ext: 'jpg' | 'jp2' | 'webp';
     metric: 'psnr' | 'ms_ssim'."""
-    cv2 = _require("cv2", "traditional_rate_distortion")
+    cv2 = optional_import("cv2", "traditional_rate_distortion", _WITHOUT)
     img8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)[:, :, ::-1]  # RGB->BGR
     score = _psnr if metric == "psnr" else _ms_ssim_np
     points = []
@@ -122,7 +110,7 @@ def plot_rate_distortion(
     """The overlay plot of the three codecs' ladders and the run store's
     points, written to out_path. A codec this OpenCV lacks is left out with
     a warning; without cv2 or matplotlib it raises ImportError."""
-    matplotlib = _require("matplotlib", "plot_rate_distortion")
+    matplotlib = optional_import("matplotlib", "plot_rate_distortion", _WITHOUT)
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 

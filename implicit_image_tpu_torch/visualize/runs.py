@@ -5,7 +5,8 @@ The reference's analysis scripts call `wandb.Api().runs(...)` and filter by
 config (e.g. rate_distortion.py:159-168). Here a "run" is a directory
 under outputs/ containing summary.json (+ metrics.jsonl, + the config echo
 config.json when present); `collect_runs` walks the tree and yields
-(run_dir, summary dict) pairs with simple key filters.
+(run_dir, summary dict) pairs with simple key filters. `optional_import`
+(the port's own) imports a plot's optional package or names it in the error.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import json
 from pathlib import Path
 from typing import Dict, List, Optional
 
-__all__ = ["load_run", "collect_runs"]
+__all__ = ["load_run", "collect_runs", "optional_import"]
 
 
 def load_run(run_dir) -> Dict:
@@ -47,3 +48,15 @@ def collect_runs(
         if all(k in run for k in require):
             runs.append(run)
     return runs
+
+
+def optional_import(name: str, what: str, without: str):
+    """Import the optional package `name` (cv2, matplotlib) or raise an
+    ImportError that names it; `without` says what runs without it."""
+    import importlib
+
+    try:
+        return importlib.import_module(name)
+    except ImportError as e:
+        raise ImportError(f"{what} needs the {name!r} package, which is not installed "
+                          f"here; {without} runs without it") from e

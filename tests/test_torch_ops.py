@@ -37,7 +37,9 @@ def test_port_imports_without_jax():
         "names\n"
         "assert {'implicit_image_tpu_torch.' + m for m in "
         "('fleet', 'target', 'sweep', 'api', 'meta_train', 'training.metainit', "
-        "'sequence', 'visualize.rate_distortion')} "
+        "'sequence', 'visualize.rate_distortion', 'visualize.bd_rate', 'visualize.width_depth', "
+        "'visualize.weight_removal', 'visualize.sequence_curve', 'utils.timer', "
+        "'utils.catch_error')} "
         "<= set(names), names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
